@@ -1,0 +1,63 @@
+"""Carry weights from the JAX package into the port.
+
+The port keeps the JAX parameter layout unchanged (stacked ``[L, in, out]``
+layer leaves, ``embed [V, D]``, ``final_norm [D]``, optional ``lm_head
+[D, V]`` and ``bq/bk/bv [L, n]``), so conversion is a dtype/device move —
+no transposes, and logits of the two packages can be compared directly.
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+import numpy as np
+import torch
+
+from agentfield_tpu_torch.models.configs import LlamaConfig
+from agentfield_tpu_torch.models.llama import Params, resolve_dtype
+
+_LAYER_LEAVES = ("attn_norm", "mlp_norm", "wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
+_BIAS_LEAVES = ("bq", "bk", "bv")
+
+
+def params_from_numpy(
+    tree: dict[str, Any],
+    cfg: LlamaConfig,
+    device: str | torch.device = "cuda",
+    dtype: str | torch.dtype | None = None,
+) -> Params:
+    """Turn the JAX package's param pytree, as numpy arrays (e.g.
+    ``jax.tree.map(np.asarray, agentfield_tpu.models.llama.init_params(cfg,
+    key))``), into the port's params on ``device`` in ``dtype`` (default:
+    ``cfg.dtype``). Raises on a missing leaf or a shape that does not match
+    ``cfg``."""
+    if cfg.num_experts > 0:
+        raise NotImplementedError("MoE FFNs are not ported yet")
+    dt = resolve_dtype(dtype or cfg.dtype)
+    L, d, f, v = cfg.num_layers, cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
+    shapes = {
+        "attn_norm": (L, d), "mlp_norm": (L, d),
+        "wq": (L, d, cfg.q_dim), "wk": (L, d, cfg.kv_dim), "wv": (L, d, cfg.kv_dim),
+        "wo": (L, cfg.q_dim, d),
+        "w_gate": (L, d, f), "w_up": (L, d, f), "w_down": (L, f, d),
+        "bq": (L, cfg.q_dim), "bk": (L, cfg.kv_dim), "bv": (L, cfg.kv_dim),
+    }
+
+    def move(a, shape, name):
+        a = np.asarray(a)
+        if tuple(a.shape) != tuple(shape):
+            raise ValueError(f"param {name}: shape {a.shape} != expected {shape}")
+        # through float32 (numpy has no bfloat16; ml_dtypes arrays upcast
+        # exactly), copied: JAX hands out read-only buffers
+        return torch.from_numpy(np.array(a, dtype=np.float32)).to(device=device, dtype=dt)
+
+    layers_in = tree["layers"]
+    names = _LAYER_LEAVES + (_BIAS_LEAVES if cfg.attn_bias else ())
+    out: Params = {
+        "embed": move(tree["embed"], (v, d), "embed"),
+        "layers": {n: move(layers_in[n], shapes[n], f"layers.{n}") for n in names},
+        "final_norm": move(tree["final_norm"], (d,), "final_norm"),
+    }
+    if not cfg.tie_embeddings:
+        out["lm_head"] = move(tree["lm_head"], (d, v), "lm_head")
+    return out

@@ -1,0 +1,275 @@
+"""The Llama decoder family in PyTorch — counterpart of
+``agentfield_tpu/models/llama.py``.
+
+Parameters are a plain dict laid out exactly like the JAX package's pytree:
+every layer leaf is stacked on a leading ``[L, ...]`` axis and every
+projection is stored ``[in, out]`` (so ``x @ w``). The op order follows the
+JAX code line by line — it decides where bf16 rounds: norms and softmax
+accumulate in float32, the MLP gate activation runs in float32, logits come
+out float32.
+
+``forward(attn_impl="kernel")`` is the counterpart of the JAX
+``attn_impl="flash"``: dense causal prefill through the hand-written ragged
+paged-attention kernel (``ops.cuda.ragged_paged_attention.
+dense_causal_attention``; its plain version on CPU tensors). MoE FFNs are not
+ported yet.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any
+
+import torch
+import torch.nn.functional as F
+
+from agentfield_tpu_torch.models.configs import LlamaConfig
+
+Params = dict[str, Any]
+
+_NEG_INF = -1e30  # large-negative instead of -inf: avoids NaN from all-masked rows
+
+_DTYPES = {
+    "float32": torch.float32,
+    "bfloat16": torch.bfloat16,
+    "float16": torch.float16,
+}
+
+
+def resolve_dtype(name: str | torch.dtype) -> torch.dtype:
+    if isinstance(name, torch.dtype):
+        return name
+    try:
+        return _DTYPES[name]
+    except KeyError:
+        raise ValueError(f"unknown dtype {name!r}; known: {sorted(_DTYPES)}") from None
+
+
+# ---------------------------------------------------------------------------
+# Initialization
+# ---------------------------------------------------------------------------
+
+
+def init_params(
+    cfg: LlamaConfig,
+    seed: int = 0,
+    dtype: str | torch.dtype | None = None,
+    device: str | torch.device = "cuda",
+) -> Params:
+    """Random-normal init (std 0.02; norms 1), drawn from a seeded
+    ``torch.Generator`` directly in the target dtype on the target device —
+    a full-width model never stages float32 copies. The values differ from
+    the JAX package's (different generators); carry JAX weights across with
+    ``models.convert.params_from_numpy`` when the two must match."""
+    if cfg.num_experts > 0:
+        raise NotImplementedError("MoE FFNs are not ported yet")
+    dt = resolve_dtype(dtype or cfg.dtype)
+    device = torch.device(device)
+    g = torch.Generator(device=device)
+    g.manual_seed(seed)
+    d, f, v, L = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size, cfg.num_layers
+
+    def norm(*shape):
+        return torch.empty(shape, dtype=dt, device=device).normal_(0.0, 0.02, generator=g)
+
+    def ones(*shape):
+        return torch.ones(shape, dtype=dt, device=device)
+
+    params: Params = {
+        "embed": norm(v, d),
+        "layers": {
+            "attn_norm": ones(L, d),
+            "mlp_norm": ones(L, d),
+            "wq": norm(L, d, cfg.q_dim),
+            "wk": norm(L, d, cfg.kv_dim),
+            "wv": norm(L, d, cfg.kv_dim),
+            "wo": norm(L, cfg.q_dim, d),
+            "w_gate": norm(L, d, f),
+            "w_up": norm(L, d, f),
+            "w_down": norm(L, f, d),
+        },
+        "final_norm": ones(d),
+    }
+    if cfg.attn_bias:  # Qwen2-style QKV biases
+        for name, n in (("bq", cfg.q_dim), ("bk", cfg.kv_dim), ("bv", cfg.kv_dim)):
+            params["layers"][name] = torch.zeros((L, n), dtype=dt, device=device)
+    if not cfg.tie_embeddings:
+        params["lm_head"] = norm(d, v)
+    return params
+
+
+def layer(params: Params, i: int) -> Params:
+    """Layer ``i``'s leaves (views into the stacked ``[L, ...]`` tensors)."""
+    return {k: t[i] for k, t in params["layers"].items()}
+
+
+# ---------------------------------------------------------------------------
+# Building blocks (shared with the paged serving engine)
+# ---------------------------------------------------------------------------
+
+
+def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
+    # float32 normalise, cast back, THEN scale (the JAX op order)
+    x32 = x.float()
+    var = (x32 * x32).mean(dim=-1, keepdim=True)
+    return (x32 * torch.rsqrt(var + eps)).to(x.dtype) * w
+
+
+def embed_tokens(params: Params, cfg: LlamaConfig, tokens: torch.Tensor) -> torch.Tensor:
+    """Token-table lookup; gemma-family configs scale by sqrt(hidden) in the
+    table's dtype (the tied UNEMBED uses the raw table)."""
+    x = params["embed"][tokens]
+    if cfg.scale_embeddings:
+        x = x * torch.tensor(cfg.hidden_size**0.5, dtype=x.dtype, device=x.device)
+    return x
+
+
+def rope_sincos(positions: torch.Tensor, head_dim: int, theta: float, scaling=None):
+    """cos/sin tables (float32) for absolute ``positions`` [...], with the
+    optional Llama-3.1/3.2 ``RopeScaling`` frequency rescaling."""
+    half = head_dim // 2
+    dev = positions.device
+    inv_freq = 1.0 / (theta ** (torch.arange(half, dtype=torch.float32, device=dev) / half))
+    if scaling is not None:
+        wavelen = 2.0 * math.pi / inv_freq
+        orig = float(scaling.original_max_position_embeddings)
+        low_wl = orig / scaling.low_freq_factor  # longest unscaled wavelength
+        high_wl = orig / scaling.high_freq_factor
+        smooth = (orig / wavelen - scaling.low_freq_factor) / (
+            scaling.high_freq_factor - scaling.low_freq_factor
+        )
+        interp = (1.0 - smooth) * inv_freq / scaling.factor + smooth * inv_freq
+        inv_freq = torch.where(
+            wavelen < high_wl,
+            inv_freq,
+            torch.where(wavelen > low_wl, inv_freq / scaling.factor, interp),
+        )
+    angles = positions.float()[..., None] * inv_freq  # [..., half]
+    return torch.cos(angles), torch.sin(angles)
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """Rotate pairs split at head_dim/2 (HF 'rotate_half'). x: [B, S, N, hd];
+    cos/sin: [B, S, hd/2]."""
+    half = x.shape[-1] // 2
+    x1, x2 = x[..., :half].float(), x[..., half:].float()
+    c, s = cos[..., None, :], sin[..., None, :]  # broadcast over heads
+    return torch.cat([x1 * c - x2 * s, x1 * s + x2 * c], dim=-1).to(x.dtype)
+
+
+def attention_ref(
+    q: torch.Tensor,  # [B, S, H, hd]
+    k: torch.Tensor,  # [B, T, Kh, hd]
+    v: torch.Tensor,  # [B, T, Kh, hd]
+    q_pos: torch.Tensor,  # [B, S] absolute positions of queries
+    k_pos: torch.Tensor,  # [B, T] absolute positions of keys
+    k_valid: torch.Tensor,  # [B, T] bool — is this key slot populated
+    window: int | None = None,
+) -> torch.Tensor:
+    """Plain GQA attention with causal+validity masking, float32 softmax."""
+    B, S, H, hd = q.shape
+    Kh = k.shape[2]
+    rep = H // Kh
+    qg = q.reshape(B, S, Kh, rep, hd).float()
+    logits = torch.einsum("bskrh,btkh->bkrst", qg, k.float()) * (hd**-0.5)
+    mask = (k_pos[:, None, :] <= q_pos[:, :, None]) & k_valid[:, None, :]  # [B,S,T]
+    if window is not None:
+        mask = mask & (k_pos[:, None, :] > q_pos[:, :, None] - window)
+    logits = torch.where(mask[:, None, None], logits, _NEG_INF)
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bkrst,btkh->bskrh", probs, v.float())
+    return out.reshape(B, S, H, hd).to(q.dtype)
+
+
+def qkv_proj(lp: Params, x_normed: torch.Tensor, cfg: LlamaConfig, cos, sin):
+    """Project (+bias for Qwen2-style configs) + rope.
+    Returns q [B,S,H,hd], k/v [B,S,Kh,hd]."""
+    B, S, _ = x_normed.shape
+    q, k, v = x_normed @ lp["wq"], x_normed @ lp["wk"], x_normed @ lp["wv"]
+    if "bq" in lp:
+        q, k, v = q + lp["bq"], k + lp["bk"], v + lp["bv"]
+    q = q.reshape(B, S, cfg.num_heads, cfg.head_dim)
+    k = k.reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
+    v = v.reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
+    return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
+
+
+def mlp_block(lp: Params, x: torch.Tensor, cfg: LlamaConfig) -> torch.Tensor:
+    h = rms_norm(x, lp["mlp_norm"], cfg.rms_norm_eps)
+    gate_in = (h @ lp["w_gate"]).float()
+    if cfg.mlp_act == "silu":
+        gate = F.silu(gate_in)
+    else:  # jax.nn.gelu's default tanh approximation (HF gelu_pytorch_tanh)
+        gate = F.gelu(gate_in, approximate="tanh")
+    gate = gate.to(x.dtype)
+    return ((gate * (h @ lp["w_up"])) @ lp["w_down"]).to(x.dtype)
+
+
+def unembed(params: Params, cfg: LlamaConfig, x: torch.Tensor) -> torch.Tensor:
+    h = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
+    w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    return (h @ w).float()
+
+
+def attn_out(lp: Params, attn: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Residual add of the output projection: ``x + attn @ wo`` in x.dtype."""
+    return x + (attn.reshape(*attn.shape[:2], -1) @ lp["wo"]).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Full forward
+# ---------------------------------------------------------------------------
+
+
+def forward(
+    params: Params,
+    cfg: LlamaConfig,
+    tokens: torch.Tensor,  # [B, S]
+    positions: torch.Tensor,  # [B, S]
+    attn_impl: str = "ref",
+    collect_kv: bool = True,
+    last_idx: torch.Tensor | None = None,  # [B]: unembed only x[b, last_idx[b]]
+):
+    """Dense causal forward. Returns ``(logits [B, S, V] float32, (k, v)``
+    each ``[L, B, S, Kh, hd]`` or None). With ``last_idx`` the logits are
+    ``[B, V]`` at one position per row — the engine samples only there, and
+    a full-vocab unembed of every prompt position would cost GBs at 8B.
+
+    ``attn_impl``: "ref" (plain ``attention_ref``) | "kernel" (dense causal
+    attention through the ragged paged-attention kernel; valid when
+    ``positions`` are per-row aranges, which prefill guarantees)."""
+    if attn_impl not in ("ref", "kernel"):
+        raise ValueError(f"unknown attn_impl {attn_impl!r} (have 'ref', 'kernel')")
+    if cfg.num_experts > 0:
+        raise NotImplementedError("MoE FFNs are not ported yet")
+    x = embed_tokens(params, cfg, tokens)
+    cos, sin = rope_sincos(positions, cfg.head_dim, cfg.rope_theta, cfg.rope_scaling)
+    # a window that can't bind within this sequence length is a no-op
+    win = cfg.sliding_window
+    if win is not None and win >= tokens.shape[1]:
+        win = None
+
+    def attend(q, k, v):
+        if attn_impl == "kernel":
+            from agentfield_tpu_torch.ops.cuda.ragged_paged_attention import (
+                dense_causal_attention,
+            )
+
+            return dense_causal_attention(q, k, v, window=win)
+        valid = torch.ones_like(positions, dtype=torch.bool)
+        return attention_ref(q, k, v, positions, positions, valid, window=win)
+
+    ks, vs = [], []
+    for i in range(cfg.num_layers):
+        lp = layer(params, i)
+        h = rms_norm(x, lp["attn_norm"], cfg.rms_norm_eps)
+        q, k, v = qkv_proj(lp, h, cfg, cos, sin)
+        x = attn_out(lp, attend(q, k, v), x)
+        x = x + mlp_block(lp, x, cfg)
+        if collect_kv:
+            ks.append(k)
+            vs.append(v)
+    kv = (torch.stack(ks), torch.stack(vs)) if collect_kv else None
+    if last_idx is not None:
+        x = x[torch.arange(x.shape[0], device=x.device), last_idx]
+    return unembed(params, cfg, x), kv

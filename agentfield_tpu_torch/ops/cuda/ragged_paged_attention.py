@@ -1,0 +1,185 @@
+"""Wrappers of the hand-written ragged paged-attention kernel
+(``csrc/ragged_paged_attention.cu``) — counterparts of the JAX package's
+``ragged_paged_attention_pallas`` and ``dense_causal_attention``
+(``agentfield_tpu/ops/pallas/ragged_paged_attention_kernel.py:267,485``).
+
+A wrapper given CUDA tensors checks them, launches the kernel on the current
+stream and counts the launch in ``LAUNCHES``; anything the kernel does not
+take raises, as does a launch the runtime refuses. Given CPU tensors,
+``dense_causal_attention`` runs its plain version (``models.llama.
+attention_ref``); ``ragged_paged_attention_cuda`` takes CUDA tensors only —
+the dispatcher ``ops.paged_attention.ragged_paged_attention`` picks the
+plain version for CPU tensors.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+import torch.nn.functional as F
+
+from agentfield_tpu_torch.models.llama import attention_ref
+from agentfield_tpu_torch.ops.cuda import build
+from agentfield_tpu_torch.ops.kernel_autotune import lookup_blocks
+
+SUPPORTED_HEAD_DIMS = (32, 64, 128)
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+# Launch counts per wrapper: +1 each time a wrapper launches its kernel.
+LAUNCHES = {"ragged_paged_attention": 0, "dense_causal_attention": 0}
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+_entry_fn = None
+
+
+def _entry():
+    global _entry_fn
+    if _entry_fn is None:
+        lib = build.load("ragged_paged_attention")
+        fn = lib.afp_ragged_paged_attention
+        # every pointer and the stream as c_void_p: unset argtypes would pass
+        # Python ints as 32-bit C ints and cut 64-bit device pointers
+        fn.argtypes = (
+            [ctypes.c_void_p] * 11 + [ctypes.c_int] * 8
+            + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        )
+        fn.restype = ctypes.c_int
+        lib.afp_error_string.argtypes = [ctypes.c_int]
+        lib.afp_error_string.restype = ctypes.c_char_p
+        _entry_fn = (fn, lib.afp_error_string)
+    return _entry_fn
+
+
+def _check(name: str, t: torch.Tensor, device, dtypes, shape) -> None:
+    if not isinstance(t, torch.Tensor) or not t.is_cuda or t.device != device:
+        raise ValueError(f"{name} must be a CUDA tensor on {device}")
+    if t.dtype not in dtypes:
+        raise ValueError(f"{name} dtype {t.dtype} not in {dtypes}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} shape {tuple(t.shape)} != {tuple(shape)}")
+    if not t.is_contiguous() or t.data_ptr() % 16:
+        raise ValueError(f"{name} must be contiguous and 16-byte aligned")
+
+
+def _launch(q, k_new, v_new, k_pages, v_pages, out, page_tables, row_starts,
+            n_tokens, ctx_lens, seq_ids, sm_scale, window, write_kv, counter: str) -> None:
+    """Check every operand, launch on the current stream, count the launch
+    under ``LAUNCHES[counter]``; raise on anything refused."""
+    R, W, H, hd = q.shape
+    P, Kh, ps, _ = k_pages.shape
+    maxp = page_tables.shape[1]
+    dev = q.device
+    if q.dtype not in _DTYPE_CODES:
+        raise ValueError(f"q dtype {q.dtype} not supported (float32, bfloat16)")
+    if H % Kh:
+        raise ValueError(f"num_heads {H} not divisible by num_kv_heads {Kh}")
+    if hd not in SUPPORTED_HEAD_DIMS:
+        raise ValueError(f"head_dim {hd} not supported by the kernel {SUPPORTED_HEAD_DIMS}")
+    fdt = (q.dtype,)
+    _check("q", q, dev, fdt, (R, W, H, hd))
+    _check("k_new", k_new, dev, fdt, (R, W, Kh, hd))
+    _check("v_new", v_new, dev, fdt, (R, W, Kh, hd))
+    _check("k_pages", k_pages, dev, fdt, (P, Kh, ps, hd))
+    _check("v_pages", v_pages, dev, fdt, (P, Kh, ps, hd))
+    _check("out", out, dev, fdt, (R, W, H, hd))
+    i32 = (torch.int32,)
+    _check("page_tables", page_tables, dev, i32, (R, maxp))
+    for nm, t in (("row_starts", row_starts), ("n_tokens", n_tokens),
+                  ("ctx_lens", ctx_lens), ("seq_ids", seq_ids)):
+        _check(nm, t, dev, i32, (R,))
+    if window is not None and window < 1:
+        raise ValueError(f"window={window} must be >= 1 or None")
+    if R == 0 or W == 0:
+        return  # no work: nothing launched, nothing counted
+    fn, err_str = _entry()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = fn(
+            q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), k_pages.data_ptr(),
+            v_pages.data_ptr(), out.data_ptr(), page_tables.data_ptr(),
+            row_starts.data_ptr(), n_tokens.data_ptr(), ctx_lens.data_ptr(),
+            seq_ids.data_ptr(), R, W, H, Kh, ps, maxp, hd, _DTYPE_CODES[q.dtype],
+            float(hd**-0.5 if sm_scale is None else sm_scale),
+            int(window or 0), int(write_kv), stream,
+        )
+    if rc != 0:
+        raise RuntimeError(
+            f"ragged paged-attention launch failed: CUDA error {rc} "
+            f"({err_str(rc).decode()})"
+        )
+    LAUNCHES[counter] += 1
+
+
+def ragged_paged_attention_cuda(
+    q: torch.Tensor,  # [R, W, H, hd]
+    k_new: torch.Tensor,  # [R, W, Kh, hd]
+    v_new: torch.Tensor,  # [R, W, Kh, hd]
+    k_pages: torch.Tensor,  # [P, Kh, ps, hd] — updated in place
+    v_pages: torch.Tensor,  # [P, Kh, ps, hd] — updated in place
+    page_tables: torch.Tensor,  # [R, maxp] int32
+    row_starts: torch.Tensor,  # [R] int32
+    n_tokens: torch.Tensor,  # [R] int32 (0 = padding row)
+    ctx_lens: torch.Tensor,  # [R] int32 — keys already in the pool per row
+    seq_ids: torch.Tensor,  # [R] int32 — launch-local sequence identity
+    sm_scale: float | None = None,
+    window: int | None = None,
+):
+    """Fused ragged paged attention + KV write on the card. Returns ``(out
+    [R, W, H, hd], k_pages, v_pages)`` with the new K/V written into the
+    pools in place (slots of padding tokens and of positions past the page
+    table are not written). Page ids in ``page_tables`` must lie in ``[0,
+    P)``: they are not checked, which would cost a device read per launch."""
+    out = torch.empty_like(q)
+    _launch(q, k_new, v_new, k_pages, v_pages, out, page_tables, row_starts,
+            n_tokens, ctx_lens, seq_ids, sm_scale, window, write_kv=True,
+            counter="ragged_paged_attention")
+    return out, k_pages, v_pages
+
+
+def dense_causal_attention(
+    q: torch.Tensor,  # [B, S, H, hd]
+    k: torch.Tensor,  # [B, S, Kh, hd]
+    v: torch.Tensor,  # [B, S, Kh, hd]
+    window: int | None = None,
+) -> torch.Tensor:
+    """Dense causal self-attention through the ragged kernel, packed as the
+    JAX package packs it: each batch row becomes ``ceil(S / block_q)``
+    same-``seq_id`` rows with ``ctx_lens == 0``, so the whole computation
+    runs in the kernel's new-key phase (with causal block skipping). The
+    pool is never read and nothing is written to it. CPU tensors take the
+    plain ``models.llama.attention_ref`` over per-row arange positions.
+    Returns ``[B, S, H, hd]``."""
+    if not q.is_cuda:
+        B, S = q.shape[:2]
+        pos = torch.arange(S, device=q.device).expand(B, S)
+        valid = torch.ones((B, S), dtype=torch.bool, device=q.device)
+        return attention_ref(q, k, v, pos, pos, valid, window=window)
+    B, S, H, hd = q.shape
+    Kh = k.shape[2]
+    W = max(1, min(lookup_blocks(page_size=128, head_dim=hd, bucket=S).block_q, S))
+    nw = -(-S // W)
+    if nw * W > S:
+        pad = (0, 0, 0, 0, 0, nw * W - S)
+        q, k, v = F.pad(q, pad), F.pad(k, pad), F.pad(v, pad)
+    R = B * nw
+    qr = q.reshape(R, W, H, hd).contiguous()
+    kr = k.reshape(R, W, Kh, hd).contiguous()
+    vr = v.reshape(R, W, Kh, hd).contiguous()
+    dev = q.device
+    offs = torch.arange(nw, dtype=torch.int32, device=dev) * W
+    starts = offs.repeat(B)
+    n_toks = (S - offs).clamp(0, W).repeat(B)
+    seqs = torch.arange(B, dtype=torch.int32, device=dev).repeat_interleave(nw)
+    ctx = torch.zeros((R,), dtype=torch.int32, device=dev)  # empty pool: never read
+    tables = torch.zeros((R, 1), dtype=torch.int32, device=dev)
+    pool = torch.zeros((1, Kh, 1, hd), dtype=q.dtype, device=dev)
+    out = torch.empty_like(qr)
+    _launch(qr, kr, vr, pool, pool, out, tables, starts, n_toks, ctx, seqs,
+            None, window, write_kv=False, counter="dense_causal_attention")
+    return out.reshape(B, nw * W, H, hd)[:, :S]

@@ -1,0 +1,171 @@
+"""Ragged paged attention with the KV write fused in — counterpart of
+``agentfield_tpu/ops/paged_attention.py``: the one attention entry point of
+the serving engine.
+
+Every forward the engine issues (decode, chunked/suffix prefill) is a batch
+of *ragged rows*: R rows of up to W query tokens, each row at its own start
+position over its own page table, with its own count of already-cached
+keys. ``ragged_paged_attention`` consumes that descriptor and writes each
+row's new K/V into the paged pool in the same call.
+
+- ``ragged_paged_attention_ref`` — the plain PyTorch version: scatter the new
+  K/V into the pool, then a page-gather masked attention. It is what CPU
+  tensors run and what the CUDA kernel is held against on the card.
+- ``ops/cuda/ragged_paged_attention.py`` — the hand-written CUDA kernel
+  (``csrc/ragged_paged_attention.cu``), which CUDA tensors run.
+
+The pools are updated IN PLACE by both versions (the JAX functions return
+new arrays); both still return ``(out, k_pages, v_pages)``.
+
+Descriptor invariants (``serving.kv_cache.pack_ragged_rows`` builds them):
+row r's queries sit at absolute positions ``[row_starts[r], row_starts[r] +
+n_tokens[r])``; ``n_tokens[r] == 0`` marks a padding row (zero output, no
+writes); ``ctx_lens[r]`` keys of the row's sequence are already in the pool,
+and positions ``[ctx_lens[r], row_starts[r])`` are covered by earlier rows of
+the same launch carrying the same ``seq_ids[r]``; pages are looked up as
+``page_tables[r, pos // page_size]``, and positions past the table route to
+the garbage page 0 (the plain version) or are not written (the kernel) —
+page 0's content is undefined either way.
+"""
+
+from __future__ import annotations
+
+import typing
+
+import torch
+
+_NEG_INF = -1e30
+
+
+class RaggedRows(typing.NamedTuple):
+    """Host-side ragged forward descriptor (one kernel launch), numpy."""
+
+    tokens: typing.Any  # [R, W] int32 token ids (model input, not consumed here)
+    page_tables: typing.Any  # [R, maxp] int32
+    row_starts: typing.Any  # [R] int32 — absolute position of row r's first query
+    n_tokens: typing.Any  # [R] int32 — valid queries in row r (0 = padding row)
+    ctx_lens: typing.Any  # [R] int32 — keys already in the pool for row r's seq
+    seq_ids: typing.Any  # [R] int32 — launch-local sequence identity (-1 padding)
+    last_flat: list  # flat token index of each packed entry's LAST token
+
+
+def ragged_paged_attention_ref(
+    q: torch.Tensor,  # [R, W, H, hd]
+    k_new: torch.Tensor,  # [R, W, Kh, hd]
+    v_new: torch.Tensor,  # [R, W, Kh, hd]
+    k_pages: torch.Tensor,  # [P, Kh, ps, hd] — updated in place
+    v_pages: torch.Tensor,  # [P, Kh, ps, hd] — updated in place
+    page_tables: torch.Tensor,  # [R, maxp] int32
+    row_starts: torch.Tensor,  # [R] int32
+    n_tokens: torch.Tensor,  # [R] int32
+    ctx_lens: torch.Tensor,  # [R] int32 (unused: the scatter-first pool already
+    seq_ids: torch.Tensor,  # holds the launch's keys; kept for signature parity)
+    sm_scale: float | None = None,
+    window: int | None = None,
+):
+    """Plain version: exact multi-row scatter of the new K/V into the paged
+    pool, then masked gather attention per row (float32 logits and softmax).
+    Returns ``(out [R, W, H, hd], k_pages, v_pages)``."""
+    del ctx_lens, seq_ids
+    R, W, H, hd = q.shape
+    P, Kh, ps, _ = k_pages.shape
+    maxp = page_tables.shape[1]
+    T = maxp * ps
+    if H % Kh:
+        raise ValueError(f"num_heads {H} not divisible by num_kv_heads {Kh}")
+    rep = H // Kh
+    if sm_scale is None:
+        sm_scale = hd**-0.5
+    dev = q.device
+    tables = page_tables.long()
+    j = torch.arange(W, device=dev)[None]  # [1, W]
+    pos = row_starts.long()[:, None] + j  # [R, W]
+    valid = j < n_tokens.long()[:, None]  # [R, W]
+    lookup = pos // ps
+    in_table = (lookup < maxp) & valid
+    page_ids = torch.where(
+        in_table, torch.gather(tables, 1, lookup.clamp(max=maxp - 1)), 0
+    )  # padding/over-budget tokens write the garbage page
+    slot_ids = pos % ps
+    # advanced [R, W] indices at dims 0 and 2 put the broadcast dims first:
+    # values [R, W, Kh, hd] (numpy/JAX semantics)
+    k_pages[page_ids, :, slot_ids] = k_new.to(k_pages.dtype)
+    v_pages[page_ids, :, slot_ids] = v_new.to(v_pages.dtype)
+
+    # [R, maxp, Kh, ps, hd] -> [R, T, Kh, hd] gathered context
+    k = k_pages[tables].permute(0, 1, 3, 2, 4).reshape(R, T, Kh, hd)
+    v = v_pages[tables].permute(0, 1, 3, 2, 4).reshape(R, T, Kh, hd)
+    qg = q.reshape(R, W, Kh, rep, hd).float()
+    logits = torch.einsum("bwkrh,btkh->bkrwt", qg, k.float()) * sm_scale
+    k_pos = torch.arange(T, device=dev)[None, None]  # [1, 1, T]
+    keep = (k_pos <= pos[..., None]) & valid[..., None]  # [R, W, T]
+    if window is not None:
+        keep = keep & (k_pos > pos[..., None] - window)
+    logits = torch.where(keep[:, None, None], logits, _NEG_INF)
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bkrwt,btkh->bwkrh", probs, v.float()).reshape(R, W, H, hd)
+    # padding rows/tokens return zeros like the kernel's un-accumulated rows
+    out = torch.where(valid[..., None, None], out, 0.0).to(q.dtype)
+    return out, k_pages, v_pages
+
+
+def ragged_paged_attention(
+    q,
+    k_new,
+    v_new,
+    k_pages,
+    v_pages,
+    page_tables,
+    row_starts,
+    n_tokens,
+    ctx_lens,
+    seq_ids,
+    window: int | None = None,
+    sm_scale: float | None = None,
+):
+    """One ragged fused write+attention launch. CPU tensors take the plain
+    version; CUDA tensors launch the hand-written kernel (which raises on
+    anything it does not take — there is no fallback)."""
+    if q.is_cuda:
+        from agentfield_tpu_torch.ops.cuda.ragged_paged_attention import (
+            ragged_paged_attention_cuda,
+        )
+
+        return ragged_paged_attention_cuda(
+            q, k_new, v_new, k_pages, v_pages, page_tables, row_starts,
+            n_tokens, ctx_lens, seq_ids, sm_scale=sm_scale, window=window,
+        )
+    return ragged_paged_attention_ref(
+        q, k_new, v_new, k_pages, v_pages, page_tables, row_starts,
+        n_tokens, ctx_lens, seq_ids, sm_scale=sm_scale, window=window,
+    )
+
+
+def paged_attention_ref(
+    q: torch.Tensor,  # [B, H, hd] — one query token per sequence
+    k_pages: torch.Tensor,  # [P, Kh, ps, hd]
+    v_pages: torch.Tensor,
+    page_tables: torch.Tensor,  # [B, maxp] int32 page ids (0 = garbage page)
+    seq_lens: torch.Tensor,  # [B] int32 — valid tokens (incl. current) per sequence
+    window: int | None = None,
+) -> torch.Tensor:
+    """Single-token decode attention over a pre-written pool via page gather
+    (an independent decode oracle). Returns [B, H, hd]."""
+    B, H, hd = q.shape
+    P, Kh, ps, _ = k_pages.shape
+    maxp = page_tables.shape[1]
+    T = maxp * ps
+    tables = page_tables.long()
+    k = k_pages[tables].permute(0, 1, 3, 2, 4).reshape(B, T, Kh, hd)
+    v = v_pages[tables].permute(0, 1, 3, 2, 4).reshape(B, T, Kh, hd)
+    rep = H // Kh
+    qg = q.reshape(B, Kh, rep, hd).float()
+    logits = torch.einsum("bkrh,btkh->bkrt", qg, k.float()) * (hd**-0.5)
+    k_pos = torch.arange(T, device=q.device)[None, :]
+    valid = k_pos < seq_lens.long()[:, None]  # [B, T]
+    if window is not None:
+        valid = valid & (k_pos >= seq_lens.long()[:, None] - window)
+    logits = torch.where(valid[:, None, None, :], logits, _NEG_INF)
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bkrt,btkh->bkrh", probs, v.float())
+    return out.reshape(B, H, hd).to(q.dtype)

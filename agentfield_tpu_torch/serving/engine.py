@@ -1,0 +1,864 @@
+"""Continuous-batching inference engine — counterpart of the JAX package's
+``agentfield_tpu/serving/engine.py``, classic tick.
+
+Scheduling is the JAX engine's: bounded admission with backpressure; up to
+``prefill_batch`` fresh prompts coalesce into one batched prefill; cache-hit
+prompts (session or shared-prefix index) and long (chunked) prompts take the
+single-request path, their suffix prefilled over the cached pages; a tick
+that admits nothing runs ``decode_span`` decode steps over all ``max_batch``
+slots. Finished requests publish their full pages into the shared-prefix
+index and retain their KV as a session for the next turn.
+
+Every attention call goes through the hand-written kernel on the card: dense
+prefill through ``dense_causal_attention`` (the JAX ``prefill_impl="flash"``),
+suffix/chunked prefill and decode through ``ragged_paged_attention`` with
+the KV write fused (JAX ``chunk_attn_impl="pallas"``, ``attn_impl="pallas"``).
+``prefill_chunk`` resolves to ``min(512, max_context)`` when unset, as the
+JAX engine does on its kernel path. On CPU tensors the same calls take the
+plain versions.
+
+Not ported yet (each a later slice): mixed ticks, speculative decoding and
+prefill, grammar-constrained decoding, quantized KV, the host tier,
+preemption and priorities, deadlines, cancellation and forks, handoff,
+async (pipelined) decode, decode buckets, MoE. The tick here is the JAX
+engine's with ``async_decode=False``: dispatch, then read the tokens.
+"""
+
+from __future__ import annotations
+
+import collections
+import dataclasses
+import threading
+import time
+from typing import Any
+
+import numpy as np
+import torch
+
+from agentfield_tpu_torch.models import llama
+from agentfield_tpu_torch.models.configs import LlamaConfig
+from agentfield_tpu_torch.ops.kernel_autotune import lookup_blocks
+from agentfield_tpu_torch.ops.paged_attention import ragged_paged_attention
+from agentfield_tpu_torch.prefix_hash import page_chain_hashes
+from agentfield_tpu_torch.serving.kv_cache import (
+    PagedKVCache,
+    PrefixPagePool,
+    build_page_table,
+)
+from agentfield_tpu_torch.serving.sampler import SamplingParams, sample_tokens
+
+
+@dataclasses.dataclass(frozen=True)
+class EngineConfig:
+    max_batch: int = 32  # concurrent decode slots
+    page_size: int = 16
+    num_pages: int = 2048
+    max_pages_per_seq: int = 32  # max context = max_pages_per_seq * page_size
+    max_pending: int = 1024  # admission queue bound
+    prefill_batch: int = 8  # fresh prompts admitted per tick as ONE prefill
+    admit_window: int = 8  # look this many requests past a page-starved head
+    head_starve_fifo_ticks: int = 256  # then collapse the window to strict FIFO
+    enable_prefix_cache: bool = True  # retain session KV across turns
+    shared_prefix_cache: bool = True  # cross-request content-addressed reuse
+    prefill_chunk: int | None = None  # chunk long prefills (None → min(512, max_context))
+    decode_span: int = 1  # decode steps per dispatch (one host readback per span)
+    session_ttl: float = 600.0  # idle sessions release their pages (0 disables)
+    dtype: str | None = None  # KV page dtype (default: the params' dtype)
+
+    @property
+    def max_context(self) -> int:
+        return self.max_pages_per_seq * self.page_size
+
+    def prefill_bucket(self, n: int) -> int:
+        b = 16
+        while b < n:
+            b *= 2
+        return min(b, self.max_context)
+
+
+@dataclasses.dataclass
+class Request:
+    id: str
+    prompt: list[int]
+    sampling: SamplingParams = dataclasses.field(default_factory=SamplingParams)
+    # session affinity for prefix-cache reuse: a session's cached tokens are
+    # a prefix of its next prompt
+    session_id: str | None = None
+
+
+@dataclasses.dataclass
+class TokenEvent:
+    request_id: str
+    token: int
+    index: int  # 0-based index among generated tokens
+    finished: bool
+    finish_reason: str | None = None  # "stop" | "length"
+    logprob: float | None = None  # log P(token) under the raw-logit distribution
+
+
+@dataclasses.dataclass
+class _Slot:
+    req: Request
+    pages: list[int]
+    length: int  # tokens whose K/V are (or will be) cached, incl. pending last token
+    generated: int
+    last_token: int
+    tokens: list[int] = dataclasses.field(default_factory=list)  # prompt + generated
+
+
+@dataclasses.dataclass
+class _SessionEntry:
+    pages: list[int]
+    tokens: list[int]  # tokens whose KV is resident (prompt + generated[:-1])
+    last_used: float
+
+
+class QueueFullError(Exception):
+    """Admission queue at capacity — surfaced as backpressure."""
+
+
+class RequestTooLongError(Exception):
+    pass
+
+
+def _binding_window(cfg: LlamaConfig, ecfg: EngineConfig) -> int | None:
+    """The sliding window, or None when it cannot bind within the context."""
+    w = cfg.sliding_window
+    if w is None or w >= ecfg.max_context:
+        return None
+    return w
+
+
+class InferenceEngine:
+    def __init__(
+        self,
+        params: dict[str, Any],
+        cfg: LlamaConfig,
+        ecfg: EngineConfig | None = None,
+        seed: int = 0,
+        device: str | torch.device | None = None,
+    ):
+        """``params`` in the port's layout (``models.llama.init_params`` or
+        ``models.convert.params_from_numpy``), already on ``device`` (default:
+        where the params are)."""
+        self.cfg = cfg
+        self.ecfg = ecfg or EngineConfig()
+        self.device = torch.device(device) if device is not None else params["embed"].device
+        if self.device.type == "cuda" and self.device.index is None:
+            self.device = torch.device("cuda", torch.cuda.current_device())
+        if params["embed"].device != self.device:
+            raise ValueError(f"params live on {params['embed'].device}, engine on {self.device}")
+        if cfg.num_experts > 0:
+            raise NotImplementedError("MoE FFNs are not ported yet")
+        if self.ecfg.prefill_chunk is None:
+            # every prefill rides the kernel path: cap chunks at 512 rows
+            self.ecfg = dataclasses.replace(
+                self.ecfg, prefill_chunk=min(512, self.ecfg.max_context)
+            )
+        if self.ecfg.prefill_chunk < 16:
+            raise ValueError(f"prefill_chunk={self.ecfg.prefill_chunk} must be >= 16 (one tile) or None")
+        if self.ecfg.decode_span < 1:
+            raise ValueError(f"decode_span={self.ecfg.decode_span} must be >= 1")
+        if self.ecfg.max_pages_per_seq > self.ecfg.num_pages - 1:
+            raise ValueError(
+                f"max_pages_per_seq={self.ecfg.max_pages_per_seq} cannot exceed "
+                f"num_pages-1={self.ecfg.num_pages - 1} (page 0 is reserved)"
+            )
+        self.params = params
+        cache_dtype = self.ecfg.dtype or params["embed"].dtype
+        self.cache = PagedKVCache.create(
+            cfg, self.ecfg.num_pages, self.ecfg.page_size, cache_dtype, device=self.device
+        )
+        if self.cache.k_pages.dtype != params["embed"].dtype:
+            raise ValueError("KV page dtype must match the params' compute dtype")
+        self.window = _binding_window(cfg, self.ecfg)
+        self.stats = {
+            "prefill_tokens": 0,
+            "decode_tokens": 0,
+            "decode_steps": 0,
+            "requests_finished": 0,
+            "backpressure_total": 0,
+            "prefix_cache_hits": 0,
+            "prefix_tokens_reused": 0,
+            "sessions_evicted": 0,
+            "prefill_batches": 0,
+            "admission_reorders": 0,
+            "prefix_index_hits": 0,
+            "prefix_index_misses": 0,
+            "prefix_cow_copies": 0,
+            "prefix_pages_unpublished": 0,
+            "prefix_batch_deferrals": 0,
+        }
+        # Host wall time of device work, each ending in a device→host read.
+        self.timing = {"prefill_s": 0.0, "decode_s": 0.0}
+        self.ttft_ms: collections.deque[float] = collections.deque(maxlen=4096)
+        self._shared_prefix = bool(
+            self.ecfg.enable_prefix_cache and self.ecfg.shared_prefix_cache
+        )
+        self.allocator = PrefixPagePool(  # guarded by: _session_lock
+            self.ecfg.num_pages, self.ecfg.page_size, stats=self.stats
+        )
+        self._req_hashes: dict[str, list[bytes]] = {}
+        B, maxp = self.ecfg.max_batch, self.ecfg.max_pages_per_seq
+        self.page_tables = np.zeros((B, maxp), np.int32)
+        self.seq_lens = np.zeros((B,), np.int32)
+        self.last_tokens = np.zeros((B,), np.int32)
+        self.temps = np.zeros((B,), np.float32)
+        self.top_ks = np.zeros((B,), np.int32)
+        self.top_ps = np.ones((B,), np.float32)
+        self.slots: list[_Slot | None] = [None] * B
+        self.pending: collections.deque[Request] = collections.deque()
+        self._sessions: dict[str, _SessionEntry] = {}  # guarded by: _session_lock
+        # step() runs on a worker thread while submit()/free_session() run on
+        # request threads: session + allocator mutations are serialized here
+        self._session_lock = threading.RLock()
+        self._pending_lock = threading.Lock()
+        self._submit_t: dict[str, float] = {}
+        self._head_starved_ticks = 0
+        self._gen = torch.Generator(device=self.device)
+        self._gen.manual_seed(seed)
+
+    # ------------------------------------------------------------------
+    # host-side scheduling
+    # ------------------------------------------------------------------
+
+    def submit(self, req: Request) -> None:
+        """Enqueue a request. Raises QueueFullError at capacity and
+        RequestTooLongError if it can never fit the page budget."""
+        if not req.prompt:
+            raise ValueError(f"request {req.id}: prompt must be non-empty")
+        needed = self._pages_needed(req)
+        if needed > self.ecfg.max_pages_per_seq:
+            raise RequestTooLongError(
+                f"request {req.id}: {len(req.prompt)} prompt + "
+                f"{req.sampling.max_new_tokens} new tokens needs {needed} pages "
+                f"> max_pages_per_seq={self.ecfg.max_pages_per_seq}"
+            )
+        with self._pending_lock:
+            if len(self.pending) >= self.ecfg.max_pending:
+                self.stats["backpressure_total"] += 1
+                raise QueueFullError(f"pending queue at capacity {self.ecfg.max_pending}")
+            self._submit_t[req.id] = time.monotonic()
+            self.pending.append(req)
+
+    def _pages_needed(self, req: Request) -> int:
+        total = len(req.prompt) + req.sampling.max_new_tokens
+        return -(-total // self.ecfg.page_size)
+
+    def gc_sessions(self, at: float | None = None) -> int:
+        """Release pages of sessions idle longer than session_ttl."""
+        t = at if at is not None else time.time()
+        ttl = self.ecfg.session_ttl
+        if not ttl:
+            return 0
+        with self._session_lock:
+            dead = [sid for sid, s in self._sessions.items() if t - s.last_used > ttl]
+            for sid in dead:
+                self.allocator.free(self._sessions.pop(sid).pages)
+                self.stats["sessions_evicted"] += 1
+        return len(dead)
+
+    def free_session(self, session_id: str) -> bool:
+        """Explicitly drop a session's cached prefix (thread-safe vs step())."""
+        with self._session_lock:
+            sess = self._sessions.pop(session_id, None)
+            if sess is None:
+                return False
+            self.allocator.free(sess.pages)
+            return True
+
+    @property
+    def num_active(self) -> int:
+        return sum(s is not None for s in self.slots)
+
+    def has_work(self) -> bool:
+        return bool(self.pending) or self.num_active > 0
+
+    def _slots_available(self) -> int:
+        return sum(s is None for s in self.slots)
+
+    def _alloc_with_eviction(self, n: int) -> list[int] | None:  # guarded by: _session_lock
+        """Allocate n pages, evicting LRU idle sessions if needed (cached
+        prefixes are best-effort; live requests win)."""
+        pages = self.allocator.alloc(n)
+        while pages is None and self._sessions:
+            lru_sid = min(self._sessions, key=lambda s: self._sessions[s].last_used)
+            self.allocator.free(self._sessions.pop(lru_sid).pages)
+            self.stats["sessions_evicted"] += 1
+            pages = self.allocator.alloc(n)
+        return pages
+
+    def _session_hit(self, req: Request) -> tuple[_SessionEntry, int] | None:  # guarded by: _session_lock
+        """(entry, reusable-token count) on a session prefix hit, without
+        mutating the entry (admission may still fail on page starvation)."""
+        if not req.session_id or not self.ecfg.enable_prefix_cache:
+            return None
+        sess = self._sessions.get(req.session_id)
+        if sess is None:
+            return None
+        cl = len(sess.tokens)
+        if 0 < cl < len(req.prompt) and req.prompt[:cl] == sess.tokens:
+            return sess, cl
+        if 0 < len(req.prompt) <= cl and sess.tokens[: len(req.prompt)] == req.prompt:
+            # fully resident prompt (e.g. a retry): re-prefill its last token
+            # for the sampling logits (the KV rewrite is idempotent)
+            return sess, len(req.prompt) - 1
+        # mismatched history (edited conversation): drop the entry
+        self.allocator.free(self._sessions.pop(req.session_id).pages)
+        return None
+
+    def _prompt_hashes(self, req: Request) -> list[bytes]:
+        """Memoized page-chain hashes of the matchable prompt prefix (prompt
+        minus its last token)."""
+        hs = self._req_hashes.get(req.id)
+        if hs is None:
+            hs = page_chain_hashes(req.prompt[: len(req.prompt) - 1], self.ecfg.page_size)
+            self._req_hashes[req.id] = hs
+        return hs
+
+    def _cached_prefix_len(self, req: Request) -> int:
+        """How many prompt tokens a session or shared-prefix hit would skip
+        (no references taken). Drives cache-aware admission ordering."""
+        if not self.ecfg.enable_prefix_cache or len(req.prompt) < 2:
+            return 0
+        with self._session_lock:
+            if req.session_id and req.session_id in self._sessions:
+                sess = self._sessions[req.session_id]
+                cl = len(sess.tokens)
+                if 0 < cl < len(req.prompt) and req.prompt[:cl] == sess.tokens:
+                    return cl
+                if 0 < len(req.prompt) <= cl and sess.tokens[: len(req.prompt)] == req.prompt:
+                    return len(req.prompt) - 1
+                return 0
+            if self._shared_prefix:
+                return self.allocator.peek(
+                    req.prompt[: len(req.prompt) - 1], hashes=self._prompt_hashes(req)
+                )
+        return 0
+
+    def _try_admit(self) -> list[TokenEvent]:
+        """Admit pending requests (the JAX engine's ``_try_admit`` with flat
+        priorities): the window candidate with the longest cached prefix
+        admits first on the single path; otherwise up to ``prefill_batch``
+        fresh prompts coalesce into one batched prefill, deferring fresh
+        prompts whose leading page a batch-mate is about to publish. A page-
+        starved request does not block the queue: admission scans up to
+        ``admit_window`` entries past it, collapsing to strict FIFO after
+        ``head_starve_fifo_ticks`` ticks of starving the head."""
+        if not self.pending:
+            return []
+        avail = self._slots_available()
+        if avail <= 0:
+            return []
+        N = min(max(1, self.ecfg.prefill_batch), avail)
+        window = max(1, self.ecfg.admit_window)
+        if self._head_starved_ticks >= self.ecfg.head_starve_fifo_ticks:
+            window = 1  # anti-starvation fence: freed pages go to the head
+        with self._pending_lock:
+            cands = [self.pending[i] for i in range(min(window + N, len(self.pending)))]
+        head = cands[0]
+        best = None  # (cached_len, window index, req)
+        for i in range(min(window, len(cands))):
+            cl = self._cached_prefix_len(cands[i])
+            if cl > 0 and (best is None or cl > best[0]):
+                best = (cl, i, cands[i])
+        if best is not None:
+            _, i, req = best
+            free_slot = next(j for j, s in enumerate(self.slots) if s is None)
+            single = self._admit_single(req, free_slot)
+            if single:
+                if i > 0:
+                    self.stats["admission_reorders"] += 1
+                    self._head_starved_ticks += 1  # bypassing the head ages the fence
+                else:
+                    self._head_starved_ticks = 0
+                return single
+        batch: list[tuple[Request, int, list[int]]] = []  # (req, slot, pages)
+        batch_chains: set[bytes] = set()  # leading-page chain hashes in `batch`
+        claimed: set[int] = set()
+        head_starved = False
+        skipped_starved = False
+        skips = 0
+        for req in cands:
+            if len(batch) >= N or skips >= window:
+                break
+            free_slot = next(
+                (j for j, s in enumerate(self.slots) if s is None and j not in claimed), None
+            )
+            if free_slot is None:
+                break
+            chunked = len(req.prompt) > self.ecfg.prefill_chunk
+            with self._session_lock:
+                has_sess = (
+                    req.session_id is not None
+                    and self.ecfg.enable_prefix_cache
+                    and req.session_id in self._sessions
+                )
+                index_hit = False
+                if not (chunked or has_sess) and self._shared_prefix:
+                    index_hit = (
+                        self.allocator.peek(
+                            req.prompt[: len(req.prompt) - 1], hashes=self._prompt_hashes(req)
+                        )
+                        > 0
+                    )
+            if chunked or has_sess or index_hit:
+                if batch:
+                    break  # flush the fresh batch first; single path next tick
+                single = self._admit_single(req, free_slot)
+                if single:
+                    if skipped_starved:
+                        self.stats["admission_reorders"] += 1
+                    if req is head:
+                        self._head_starved_ticks = 0
+                    elif head_starved:
+                        self._head_starved_ticks += 1
+                    return single
+                skipped_starved = True
+                head_starved = head_starved or req is head
+                skips += 1
+                continue
+            h1 = None
+            if self._shared_prefix and len(req.prompt) > self.ecfg.page_size:
+                h1 = self._prompt_hashes(req)[0]
+                if h1 in batch_chains:
+                    # a batch-mate is about to prefill (and publish) this same
+                    # leading page: defer one tick and reuse it instead
+                    self.stats["prefix_batch_deferrals"] += 1
+                    skips += 1
+                    continue
+            with self._session_lock:
+                pages = self._alloc_with_eviction(self._pages_needed(req))
+            if pages is None:
+                skipped_starved = True
+                head_starved = head_starved or req is head
+                skips += 1
+                continue
+            if h1 is not None:
+                batch_chains.add(h1)
+                self.stats["prefix_index_misses"] += 1
+            with self._pending_lock:
+                self.pending.remove(req)
+            self._req_hashes.pop(req.id, None)
+            claimed.add(free_slot)
+            batch.append((req, free_slot, pages))
+        if head_starved and batch:
+            self.stats["admission_reorders"] += 1
+        if head_starved and self.pending and self.pending[0] is head:
+            self._head_starved_ticks += 1
+        else:
+            self._head_starved_ticks = 0
+        if not batch:
+            return []
+        if len(batch) == 1:
+            req, slot_idx, pages = batch[0]
+            row = build_page_table(pages, self.ecfg.max_pages_per_seq)
+            last_logits = self._prefill(req.prompt, 0, row)
+            self.stats["prefill_tokens"] += len(req.prompt)
+            return self._sample_first_and_install(req, slot_idx, pages, row, last_logits)
+        return self._admit_batch(batch)
+
+    def _admit_batch(self, batch: list[tuple[Request, int, list[int]]]) -> list[TokenEvent]:
+        """One batched prefill for >= 2 fresh requests, then one first-token
+        sample across the rows."""
+        rows = [build_page_table(pages, self.ecfg.max_pages_per_seq) for _, _, pages in batch]
+        last = self._dense_prefill([req.prompt for req, _, _ in batch], rows)
+        toks, lps = self._sample([req.sampling for req, _, _ in batch], last)
+        self.stats["prefill_tokens"] += sum(len(req.prompt) for req, _, _ in batch)
+        self.stats["prefill_batches"] += 1
+        return [
+            self._install(req, slot_idx, pages, rows[j], toks[j], lps[j])
+            for j, (req, slot_idx, pages) in enumerate(batch)
+        ]
+
+    def _acquire_pages(self, req: Request) -> tuple[list[int], int, str] | None:
+        """Page acquisition for one request: session prefix hit (with
+        copy-on-write privatization of shared pages in the write range),
+        shared-prefix index lookup, or fresh allocation. Returns ``(pages,
+        start, kind)`` — ``kind`` in {"session", "index", "fresh"}, ``start``
+        the cached-prefix length prefill skips — or None on page starvation
+        (acquisition state restored)."""
+        ps = self.ecfg.page_size
+        index_hit = False
+        with self._session_lock:
+            hit = self._session_hit(req)
+            total_pages = self._pages_needed(req)
+            if hit is not None:
+                sess, start = hit
+                # claim the session FIRST so eviction can't free its pages
+                self._sessions.pop(req.session_id, None)
+                extra_needed = total_pages - len(sess.pages)
+                extra = self._alloc_with_eviction(extra_needed) if extra_needed > 0 else []
+                if extra is None:
+                    self._sessions[req.session_id] = sess  # restore; retry later
+                    return None
+                pages = list(sess.pages + extra)
+                # copy-on-write: every page from start//ps on will be written
+                widx0 = start // ps
+                cow_idx = []
+                for k in range(widx0, min(len(pages), total_pages)):
+                    if not self.allocator.is_shared(pages[k]):
+                        continue
+                    if self.allocator.refcount(pages[k]) <= 1:
+                        self.allocator.forget(pages[k])
+                        self.stats["prefix_pages_unpublished"] += 1
+                    else:
+                        cow_idx.append(k)
+                if cow_idx:
+                    fresh = self._alloc_with_eviction(len(cow_idx))
+                    if fresh is None:
+                        if extra:
+                            self.allocator.free(extra)
+                        self._sessions[req.session_id] = sess
+                        return None
+                    for k, new_page in zip(cow_idx, fresh):
+                        if k == widx0 and start % ps:
+                            # the only page whose earlier slots are still read
+                            self._copy_page(pages[k], new_page)
+                        self.allocator.free([pages[k]])
+                        pages[k] = new_page
+                    self.stats["prefix_cow_copies"] += len(cow_idx)
+                if len(pages) > total_pages:
+                    # a retry shorter than the history: drop the tail beyond
+                    # this request's own page budget
+                    self.allocator.free(pages[total_pages:])
+                    pages = pages[:total_pages]
+            else:
+                matched: list[int] = []
+                start = 0
+                if self._shared_prefix and len(req.prompt) > 1:
+                    matched, start = self.allocator.lookup(
+                        req.prompt[: len(req.prompt) - 1], hashes=self._prompt_hashes(req)
+                    )
+                if matched:
+                    extra_needed = total_pages - len(matched)
+                    extra = self._alloc_with_eviction(extra_needed) if extra_needed > 0 else []
+                    if extra is None:
+                        self.allocator.free(matched)
+                        return None
+                    pages = matched + extra
+                    index_hit = True
+                else:
+                    pages = self._alloc_with_eviction(total_pages)
+                    if pages is None:
+                        return None
+                    if self._shared_prefix and len(req.prompt) > ps:
+                        self.stats["prefix_index_misses"] += 1
+        kind = "session" if hit is not None else ("index" if index_hit else "fresh")
+        return pages, start, kind
+
+    def _admit_single(self, req: Request, free_slot: int) -> list[TokenEvent]:
+        """Single-request admission: session reuse, shared-prefix reuse
+        (both suffix-only prefill) and chunked long prompts."""
+        acq = self._acquire_pages(req)
+        if acq is None:
+            return []  # page-starved; decode will free pages
+        pages, start, kind = acq
+        with self._pending_lock:
+            self.pending.remove(req)
+        self._req_hashes.pop(req.id, None)
+        if kind == "session":
+            self.stats["prefix_cache_hits"] += 1
+            self.stats["prefix_tokens_reused"] += start
+        elif kind == "index":
+            self.stats["prefix_index_hits"] += 1
+            self.stats["prefix_tokens_reused"] += start
+        row = build_page_table(pages, self.ecfg.max_pages_per_seq)
+        last_logits = self._prefill(req.prompt[start:], start, row)
+        self.stats["prefill_tokens"] += len(req.prompt) - start
+        return self._sample_first_and_install(req, free_slot, pages, row, last_logits)
+
+    def _sample(self, samplings: list[SamplingParams], logits: torch.Tensor):
+        """Sample one token per row of ``logits`` [n, V]; returns host lists
+        (tokens, raw-logit logprobs)."""
+        temps = torch.tensor([s.temperature for s in samplings], dtype=torch.float32)
+        top_ks = torch.tensor([s.top_k for s in samplings], dtype=torch.int32)
+        top_ps = torch.tensor([s.top_p for s in samplings], dtype=torch.float32)
+        toks = sample_tokens(logits, self._gen, temps, top_ks, top_ps)
+        lps = torch.gather(torch.log_softmax(logits, dim=-1), 1, toks[:, None].long())[:, 0]
+        return toks.tolist(), lps.tolist()
+
+    def _sample_first_and_install(
+        self, req: Request, slot_idx: int, pages: list[int], row: np.ndarray, last_logits
+    ) -> list[TokenEvent]:
+        toks, lps = self._sample([req.sampling], last_logits[None])
+        return [self._install(req, slot_idx, pages, row, toks[0], lps[0])]
+
+    def _copy_page(self, src: int, dst: int) -> None:
+        """Copy-on-write: duplicate page `src` into `dst` across all layers."""
+        self.cache.k_pages[:, dst] = self.cache.k_pages[:, src]
+        self.cache.v_pages[:, dst] = self.cache.v_pages[:, src]
+
+    def prefix_cache_stats(self) -> dict[str, int]:
+        """Gauges of the shared-prefix page pool (counters live in stats)."""
+        with self._session_lock:
+            a = self.allocator
+            return {
+                "prefix_cached_pages": a.cached_pages,
+                "prefix_shared_pages": a.shared_pages,
+                "cached_sessions": len(self._sessions),
+            }
+
+    def _install(
+        self, req: Request, slot_idx: int, pages: list[int], row: np.ndarray, tok: int,
+        logprob: float,
+    ) -> TokenEvent:
+        if self._shared_prefix:
+            # the prompt's KV is final: content-address its full pages now so
+            # the rest of a burst reuses them while this one decodes
+            with self._session_lock:
+                self.allocator.publish(req.prompt, pages)
+        st = self._submit_t.pop(req.id, None)
+        if st is not None:
+            self.ttft_ms.append((time.monotonic() - st) * 1e3)
+        slot = _Slot(
+            req=req, pages=pages, length=len(req.prompt), generated=1, last_token=tok,
+            tokens=list(req.prompt) + [tok],
+        )
+        event = self._emit(slot_idx, slot, tok, logprob)
+        if not event.finished:
+            s = req.sampling
+            self.slots[slot_idx] = slot
+            self.page_tables[slot_idx] = row
+            self.seq_lens[slot_idx] = slot.length
+            self.last_tokens[slot_idx] = tok
+            self.temps[slot_idx] = s.temperature
+            self.top_ks[slot_idx] = s.top_k
+            self.top_ps[slot_idx] = s.top_p
+        return event
+
+    # ------------------------------------------------------------------
+    # device work
+    # ------------------------------------------------------------------
+
+    def _dense_prefill(self, prompts: list[list[int]], rows: list[np.ndarray]) -> torch.Tensor:
+        """Whole-prompt prefill of fresh prompts from position 0 (one row per
+        prompt, padded to the longest): dense causal attention through the
+        kernel, then each valid token's K/V scattered into its pages.
+        Returns the last-token logits [n, V]."""
+        t0 = time.perf_counter()
+        n, S = len(prompts), max(len(p) for p in prompts)
+        ps, dev = self.ecfg.page_size, self.device
+        tokens = np.zeros((n, S), np.int64)
+        lengths = np.array([len(p) for p in prompts], np.int64)
+        for j, p in enumerate(prompts):
+            tokens[j, : len(p)] = p
+        positions = np.broadcast_to(np.arange(S), (n, S))
+        valid = positions < lengths[:, None]
+        page_ids = np.take_along_axis(np.stack(rows), positions // ps, axis=1)[valid]
+        slot_ids = (positions % ps)[valid]
+        logits, (ks, vs) = llama.forward(
+            self.params, self.cfg,
+            torch.from_numpy(tokens).to(dev),
+            torch.from_numpy(np.array(positions)).to(dev),
+            attn_impl="kernel",
+            last_idx=torch.from_numpy(lengths - 1).to(dev),
+        )
+        vmask = torch.from_numpy(valid).to(dev)
+        pid = torch.from_numpy(page_ids.astype(np.int64)).to(dev)
+        sid = torch.from_numpy(slot_ids.astype(np.int64)).to(dev)
+        # ks/vs [L, n, S, Kh, hd] -> valid tokens [N, L, Kh, hd]; 1-D index
+        # tensors at pool dims 1 and 3 put the token dim first
+        self.cache.k_pages[:, pid, :, sid] = ks.permute(1, 2, 0, 3, 4)[vmask]
+        self.cache.v_pages[:, pid, :, sid] = vs.permute(1, 2, 0, 3, 4)[vmask]
+        self.timing["prefill_s"] += time.perf_counter() - t0
+        return logits
+
+    def _suffix_prefill(self, piece: list[int], start: int, row: np.ndarray) -> torch.Tensor:
+        """Prefill ``piece`` at absolute positions ``start...`` over the
+        cached pages: the chunk packs as ragged rows of the table's
+        ``block_q`` width sharing one seq_id, so the kernel serves the cached
+        context from its page walk, intra-chunk causality from its new-key
+        phase, and writes the chunk's K/V in the same launch. Returns the
+        last position's logits [V]."""
+        t0 = time.perf_counter()
+        cfg, ecfg, dev = self.cfg, self.ecfg, self.device
+        n = len(piece)
+        bucket = ecfg.prefill_bucket(n)
+        W = min(lookup_blocks(ecfg.page_size, cfg.head_dim, bucket).block_q, bucket)
+        R = -(-n // W)
+        n_pad = R * W - n
+        offs = np.arange(R, dtype=np.int32) * W
+        tables = torch.from_numpy(np.repeat(row[None], R, axis=0)).to(dev)
+        row_starts = torch.from_numpy(start + offs).to(dev)
+        n_toks = torch.from_numpy(np.clip(n - offs, 0, W).astype(np.int32)).to(dev)
+        ctx_lens = torch.full((R,), start, dtype=torch.int32, device=dev)
+        seq_ids = torch.zeros((R,), dtype=torch.int32, device=dev)
+        tokens = torch.tensor([piece], dtype=torch.int64, device=dev)
+        positions = start + torch.arange(n, device=dev)[None]
+        x = llama.embed_tokens(self.params, cfg, tokens)
+        cos, sin = llama.rope_sincos(positions, cfg.head_dim, cfg.rope_theta, cfg.rope_scaling)
+
+        def as_rows(t):  # [1, n, ...] -> [R, W, ...]
+            t = t[0]
+            if n_pad:
+                t = torch.cat([t, t.new_zeros((n_pad,) + t.shape[1:])])
+            return t.reshape((R, W) + t.shape[1:]).contiguous()
+
+        for i in range(cfg.num_layers):
+            lp = llama.layer(self.params, i)
+            h = llama.rms_norm(x, lp["attn_norm"], cfg.rms_norm_eps)
+            q, k, v = llama.qkv_proj(lp, h, cfg, cos, sin)
+            attn, _, _ = ragged_paged_attention(
+                as_rows(q), as_rows(k), as_rows(v),
+                self.cache.k_pages[i], self.cache.v_pages[i], tables,
+                row_starts, n_toks, ctx_lens, seq_ids, window=self.window,
+            )
+            attn = attn.reshape(R * W, cfg.num_heads, cfg.head_dim)[:n][None]
+            x = llama.attn_out(lp, attn, x)
+            x = x + llama.mlp_block(lp, x, cfg)
+        logits = llama.unembed(self.params, cfg, x[:, -1])[0]
+        self.timing["prefill_s"] += time.perf_counter() - t0
+        return logits
+
+    def _prefill(self, tokens: list[int], start: int, row: np.ndarray) -> torch.Tensor:
+        """Prefill `tokens` from absolute position `start`, in
+        ``prefill_chunk`` pieces. A whole prompt from position 0 in one piece
+        takes the dense path; everything else the suffix path over cached
+        pages. Returns the final position's logits."""
+        chunk = self.ecfg.prefill_chunk
+        if len(tokens) <= chunk:
+            pieces = [(start, list(tokens))]
+        else:
+            pieces = [
+                (start + off, list(tokens[off : off + chunk]))
+                for off in range(0, len(tokens), chunk)
+            ]
+        last_logits = None
+        for piece_start, piece in pieces:
+            if piece_start == 0 and len(pieces) == 1:
+                last_logits = self._dense_prefill([piece], [row])[0]
+            else:
+                last_logits = self._suffix_prefill(piece, piece_start, row)
+        return last_logits
+
+    def _decode_forward(self, tokens, seq_lens, page_tables) -> torch.Tensor:
+        """One decode step over all max_batch slots: row b's single new token
+        sits at position seq_lens[b] over seq_lens[b] cached keys; inactive
+        slots (seq_len 0) are padding rows. Returns logits [B, V]."""
+        cfg = self.cfg
+        B = tokens.shape[0]
+        x = llama.embed_tokens(self.params, cfg, tokens)[:, None, :]  # [B, 1, D]
+        cos, sin = llama.rope_sincos(seq_lens[:, None], cfg.head_dim, cfg.rope_theta, cfg.rope_scaling)
+        n_toks = (seq_lens > 0).to(torch.int32)
+        row_ids = torch.arange(B, dtype=torch.int32, device=self.device)
+        for i in range(cfg.num_layers):
+            lp = llama.layer(self.params, i)
+            h = llama.rms_norm(x, lp["attn_norm"], cfg.rms_norm_eps)
+            q, k, v = llama.qkv_proj(lp, h, cfg, cos, sin)  # [B, 1, ...]
+            attn, _, _ = ragged_paged_attention(
+                q, k, v, self.cache.k_pages[i], self.cache.v_pages[i], page_tables,
+                seq_lens, n_toks, seq_lens, row_ids, window=self.window,
+            )
+            x = llama.attn_out(lp, attn, x)
+            x = x + llama.mlp_block(lp, x, cfg)
+        return llama.unembed(self.params, cfg, x)[:, 0]
+
+    def _decode(self) -> list[TokenEvent]:
+        """``decode_span`` decode steps chained on the device (tokens and
+        lengths stay there), then one read of the span's tokens. Slots that
+        finish mid-span decode to its end; their extra tokens are dropped."""
+        t0 = time.perf_counter()
+        dev = self.device
+        active = [(i, s) for i, s in enumerate(self.slots) if s is not None]
+        tokens = torch.from_numpy(self.last_tokens.astype(np.int64)).to(dev)
+        seq_lens = torch.from_numpy(self.seq_lens).to(dev)
+        page_tables = torch.from_numpy(self.page_tables).to(dev)
+        temps = torch.from_numpy(self.temps)
+        top_ks = torch.from_numpy(self.top_ks)
+        top_ps = torch.from_numpy(self.top_ps)
+        span_toks, span_lps = [], []
+        for _ in range(self.ecfg.decode_span):
+            logits = self._decode_forward(tokens, seq_lens, page_tables)
+            toks = sample_tokens(logits, self._gen, temps, top_ks, top_ps)
+            lps = torch.gather(torch.log_softmax(logits, dim=-1), 1, toks[:, None].long())[:, 0]
+            span_toks.append(toks)
+            span_lps.append(lps)
+            seq_lens = seq_lens + (seq_lens > 0).to(seq_lens.dtype)
+            tokens = toks.long()
+        toks_np = torch.stack(span_toks).cpu().numpy()  # [span, B]
+        lps_np = torch.stack(span_lps).cpu().numpy()
+        self.timing["decode_s"] += time.perf_counter() - t0
+        self.stats["decode_steps"] += self.ecfg.decode_span
+        out: list[TokenEvent] = []
+        for t in range(toks_np.shape[0]):
+            for i, slot in active:
+                if self.slots[i] is not slot:
+                    continue  # finished earlier in this span
+                tok = int(toks_np[t, i])
+                slot.length += 1
+                slot.generated += 1
+                slot.last_token = tok
+                slot.tokens.append(tok)
+                self.seq_lens[i] = slot.length
+                self.last_tokens[i] = tok
+                self.stats["decode_tokens"] += 1
+                out.append(self._emit(i, slot, tok, float(lps_np[t, i])))
+        return out
+
+    def _emit(self, slot_idx: int, slot: _Slot, tok: int, logprob: float | None = None) -> TokenEvent:
+        s = slot.req.sampling
+        reason = None
+        if tok in s.stop_token_ids:
+            reason = "stop"
+        elif slot.generated >= s.max_new_tokens:
+            reason = "length"
+        ev = TokenEvent(
+            request_id=slot.req.id, token=tok, index=slot.generated - 1,
+            finished=reason is not None, finish_reason=reason, logprob=logprob,
+        )
+        if ev.finished:
+            self._release(slot_idx, slot)
+        return ev
+
+    def _release(self, slot_idx: int, slot: _Slot) -> None:
+        sid = slot.req.session_id
+        with self._session_lock:
+            if self._shared_prefix and len(slot.tokens) > 1:
+                # publish the GENERATED full pages too (the prompt's were
+                # published at install); the last token's KV was never written
+                self.allocator.publish(slot.tokens[:-1], slot.pages)
+            if sid and self.ecfg.enable_prefix_cache and len(slot.tokens) > 1:
+                # retain the KV for the next turn; free the tail pages that
+                # hold no KV (early stop-token finishes)
+                cached = slot.tokens[:-1]
+                keep = -(-len(cached) // self.ecfg.page_size)
+                if keep < len(slot.pages):
+                    self.allocator.free(slot.pages[keep:])
+                old = self._sessions.pop(sid, None)
+                if old is not None:
+                    self.allocator.free(old.pages)
+                self._sessions[sid] = _SessionEntry(
+                    pages=slot.pages[:keep], tokens=cached, last_used=time.time()
+                )
+            else:
+                self.allocator.free(slot.pages)
+        self.stats["requests_finished"] += 1
+        if self.slots[slot_idx] is slot:
+            self.slots[slot_idx] = None
+        self.page_tables[slot_idx] = 0
+        self.seq_lens[slot_idx] = 0
+        self.temps[slot_idx] = 0.0
+        self.top_ks[slot_idx] = 0
+        self.top_ps[slot_idx] = 1.0
+
+    def step(self) -> list[TokenEvent]:
+        """One scheduler tick: admit (prefill) if a slot is free and a
+        request can be admitted, else run a decode span."""
+        if self.pending and self._slots_available() > 0:
+            admitted = self._try_admit()
+            if admitted:
+                return admitted
+        if self.num_active == 0:
+            return []
+        return self._decode()
+
+    def run_to_completion(self, requests: list[Request]) -> dict[str, list[int]]:
+        """Submit everything, step until drained, return generated tokens."""
+        for r in requests:
+            self.submit(r)
+        results: dict[str, list[int]] = {r.id: [] for r in requests}
+        while self.has_work():
+            for ev in self.step():
+                results.setdefault(ev.request_id, []).append(ev.token)
+        return results

@@ -1,0 +1,338 @@
+"""Model node: the serving engine behind a stdlib HTTP server — counterpart
+of ``agentfield_tpu/serving/model_node.py``.
+
+``ModelBackend`` drives the engine on one worker thread (continuous
+batching: every ``generate`` call submits a request and waits for its
+terminal event) and returns the JAX node's text result dict: ``tokens``,
+``logprobs``, ``finish_reason``, ``model`` and ``text``.
+
+``ModelNodeServer`` keeps the JAX node's direct-invocation HTTP contract
+(``sdk/agent.py``): ``POST /reasoners/generate`` with ``{"input": {...}}``
+answers ``{"result": {...}}``; ``GET /health``; ``GET /reasoners``. It is
+built on ``http.server.ThreadingHTTPServer`` because the card's machine has
+no aiohttp. Control-plane registration, heartbeats and the channel/SSE/gRPC
+transports are not ported yet.
+
+Run a node::
+
+    python -m agentfield_tpu_torch.serving.model_node --model llama-3-8b --port 8080 --seed 0
+"""
+
+from __future__ import annotations
+
+import argparse
+import concurrent.futures
+import inspect
+import json
+import logging
+import threading
+import time
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from typing import Any
+
+import torch
+
+from agentfield_tpu_torch.models.configs import LlamaConfig, get_config
+from agentfield_tpu_torch.models.llama import init_params
+from agentfield_tpu_torch.serving.engine import (
+    EngineConfig,
+    InferenceEngine,
+    QueueFullError,
+    Request,
+    RequestTooLongError,
+)
+from agentfield_tpu_torch.serving.sampler import SamplingParams
+from agentfield_tpu_torch.serving.tokenizer import ByteTokenizer
+
+log = logging.getLogger(__name__)
+
+
+class ModelBackend:
+    def __init__(
+        self,
+        params: dict[str, Any],
+        cfg: LlamaConfig,
+        ecfg: EngineConfig | None = None,
+        tokenizer=None,
+        seed: int = 0,
+        model_name: str = "custom",
+        device: str | torch.device | None = None,
+        idle_sleep: float = 0.002,
+    ):
+        self.cfg = cfg
+        self.model_name = model_name
+        self.tokenizer = tokenizer
+        self.engine = InferenceEngine(params, cfg, ecfg, seed=seed, device=device)
+        self.idle_sleep = idle_sleep
+        # rid -> (future, [(token, logprob)]); touched under _lock only
+        self._waiting: dict[str, tuple[concurrent.futures.Future, list]] = {}
+        self._lock = threading.Lock()
+        self._wake = threading.Event()
+        self._stop = threading.Event()
+        self._next = 0
+        self._thread: threading.Thread | None = None
+        self.error: BaseException | None = None
+
+    def start(self) -> None:
+        if self._thread is None:
+            self._stop.clear()
+            self._thread = threading.Thread(target=self._drive_loop, name="engine", daemon=True)
+            self._thread.start()
+
+    def stop(self) -> None:
+        self._stop.set()
+        self._wake.set()
+        if self._thread is not None:
+            self._thread.join(timeout=30.0)
+            self._thread = None
+
+    def _drive_loop(self) -> None:
+        """Continuous-batching driver: engine.step() until stopped. A step
+        failure fails every waiting request with the real error (the
+        engine's state may be corrupt) and stops the loop."""
+        if self.engine.device.type == "cuda":
+            # kernels launch on this thread's current device and stream
+            torch.cuda.set_device(self.engine.device)
+        last_gc = time.monotonic()
+        while not self._stop.is_set():
+            if not self.engine.has_work():
+                if time.monotonic() - last_gc > 30.0:
+                    last_gc = time.monotonic()
+                    self.engine.gc_sessions()
+                self._wake.wait(timeout=self.idle_sleep * 50)
+                self._wake.clear()
+                continue
+            try:
+                events = self.engine.step()
+            except Exception as e:  # noqa: BLE001 — surfaced to every waiter
+                with self._lock:  # generate() checks error under this lock
+                    self.error = e
+                    waiting, self._waiting = self._waiting, {}
+                log.exception("engine step failed; failing %d waiting requests", len(waiting))
+                for fut, _ in waiting.values():
+                    fut.set_exception(RuntimeError(f"engine step failed: {e!r}"))
+                return
+            for ev in events:
+                with self._lock:
+                    entry = self._waiting.get(ev.request_id)
+                    if entry is None:
+                        continue
+                    fut, records = entry
+                    if not (ev.finished and ev.finish_reason == "stop"):
+                        # stop tokens terminate, they are not content
+                        records.append((ev.token, ev.logprob))
+                    if ev.finished:
+                        del self._waiting[ev.request_id]
+                if ev.finished:
+                    fut.set_result(
+                        {
+                            "tokens": [t for t, _ in records],
+                            "logprobs": [lp for _, lp in records],
+                            "finish_reason": ev.finish_reason,
+                        }
+                    )
+
+    def generate(
+        self,
+        prompt: str | None = None,
+        tokens: list[int] | None = None,
+        max_new_tokens: int = 128,
+        temperature: float = 0.0,
+        top_k: int = 0,
+        top_p: float = 1.0,
+        stop_token_ids: list[int] | None = None,
+        session_id: str | None = None,
+        timeout: float | None = None,
+    ) -> dict[str, Any]:
+        """Generate from a text ``prompt`` or from ``tokens``; blocks until
+        the request finishes. Raises QueueFullError / RequestTooLongError
+        from admission, RuntimeError if the engine failed."""
+        if tokens is None:
+            if prompt is None:
+                raise ValueError("one of 'prompt' or 'tokens' is required")
+            if self.tokenizer is None:
+                raise ValueError("no tokenizer loaded on this model node; pass 'tokens'")
+            tokens = self.tokenizer.encode(prompt)
+        fut: concurrent.futures.Future = concurrent.futures.Future()
+        with self._lock:
+            if self.error is not None:
+                raise RuntimeError(f"engine stopped after a failed step: {self.error!r}")
+            self._next += 1
+            rid = f"gen_{self._next}"
+            self._waiting[rid] = (fut, [])
+        try:
+            self.engine.submit(
+                Request(
+                    id=rid,
+                    prompt=[int(t) for t in tokens],
+                    sampling=SamplingParams(
+                        temperature=temperature, top_k=top_k, top_p=top_p,
+                        max_new_tokens=max_new_tokens,
+                        stop_token_ids=tuple(stop_token_ids or ()),
+                    ),
+                    session_id=session_id,
+                )
+            )
+        except Exception:
+            with self._lock:
+                self._waiting.pop(rid, None)
+            raise
+        self._wake.set()
+        result = fut.result(timeout=timeout)
+        if self.tokenizer is not None:
+            result["text"] = self.tokenizer.decode(result["tokens"])
+        result["model"] = self.model_name
+        return result
+
+
+_GENERATE_ARGS = frozenset(
+    p for p in inspect.signature(ModelBackend.generate).parameters if p not in ("self", "timeout")
+)
+
+
+class ModelNodeServer:
+    """Stdlib HTTP front of one ModelBackend (one handler thread per
+    connection; the engine batches whatever is in flight)."""
+
+    def __init__(self, backend: ModelBackend, node_id: str = "model"):
+        self.backend = backend
+        self.node_id = node_id
+        self._httpd: ThreadingHTTPServer | None = None
+        self._thread: threading.Thread | None = None
+
+    @property
+    def port(self) -> int:
+        return self._httpd.server_address[1]
+
+    def start(self, host: str = "127.0.0.1", port: int = 0) -> int:
+        """Start the engine loop and serve on ``host:port`` (0 = any free
+        port) from a background thread; returns the bound port."""
+        self.backend.start()
+        self._httpd = ThreadingHTTPServer((host, port), _make_handler(self))
+        self._httpd.daemon_threads = True
+        self._thread = threading.Thread(target=self._httpd.serve_forever, name="http", daemon=True)
+        self._thread.start()
+        return self.port
+
+    def stop(self) -> None:
+        if self._httpd is not None:
+            self._httpd.shutdown()
+            self._httpd.server_close()
+            self._httpd = None
+        if self._thread is not None:
+            self._thread.join(timeout=10.0)
+            self._thread = None
+        self.backend.stop()
+
+    def reasoners(self) -> list[dict]:
+        return [
+            {
+                "id": "generate",
+                "description": f"GPU-served {self.backend.model_name} generation",
+                "input_schema": {
+                    "type": "object",
+                    "properties": {name: {} for name in sorted(_GENERATE_ARGS)},
+                },
+            }
+        ]
+
+
+def _make_handler(node: ModelNodeServer):
+    class Handler(BaseHTTPRequestHandler):
+        protocol_version = "HTTP/1.1"
+
+        def log_message(self, fmt, *args):  # keep request logs off stderr
+            pass
+
+        def _json(self, status: int, doc: dict) -> None:
+            body = json.dumps(doc).encode()
+            self.send_response(status)
+            self.send_header("Content-Type", "application/json")
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
+        def do_GET(self):
+            if self.path == "/health":
+                self._json(200, {"status": "ok", "node_id": node.node_id})
+            elif self.path == "/reasoners":
+                self._json(200, {"reasoners": node.reasoners()})
+            else:
+                self._json(404, {"error": "not found"})
+
+        def do_POST(self):
+            n = int(self.headers.get("Content-Length") or 0)
+            raw = self.rfile.read(n) if n else b""
+            if self.path != "/reasoners/generate":
+                self._json(404, {"error": "unknown component"})
+                return
+            try:
+                body = json.loads(raw) if raw else {}
+            except ValueError:
+                self._json(400, {"error": "invalid JSON"})
+                return
+            if not isinstance(body, dict):
+                self._json(400, {"error": "JSON object body required"})
+                return
+            payload = body.get("input") or {}
+            if not isinstance(payload, dict) or set(payload) - _GENERATE_ARGS:
+                self._json(422, {"error": f"input must be an object with keys in {sorted(_GENERATE_ARGS)}"})
+                return
+            try:
+                result = node.backend.generate(**payload)
+            except (QueueFullError, RequestTooLongError, ValueError, TypeError) as e:
+                self._json(422 if not isinstance(e, QueueFullError) else 503, {"error": repr(e)})
+                return
+            except Exception as e:  # noqa: BLE001 — reported to the caller
+                self._json(500, {"error": repr(e)})
+                return
+            self._json(200, {"result": result})
+
+    return Handler
+
+
+def build_model_node(
+    model: str = "llama-3-8b",
+    seed: int = 0,
+    ecfg: EngineConfig | None = None,
+    device: str | torch.device = "cuda",
+    params: dict[str, Any] | None = None,
+    tokenizer=None,
+    node_id: str = "model",
+) -> tuple[ModelNodeServer, ModelBackend]:
+    """Construct ``(server, backend)`` for a preset: random weights drawn
+    from ``seed`` on ``device`` unless ``params`` are given, the byte
+    tokenizer unless one is given. Call ``server.start(port=...)``."""
+    cfg = get_config(model)
+    if params is None:
+        params = init_params(cfg, seed=seed, device=device)
+    if tokenizer is None:
+        tokenizer = ByteTokenizer(cfg.vocab_size)
+    backend = ModelBackend(
+        params, cfg, ecfg, tokenizer=tokenizer, seed=seed, model_name=model, device=device
+    )
+    return ModelNodeServer(backend, node_id=node_id), backend
+
+
+def main(argv: list[str] | None = None) -> None:
+    ap = argparse.ArgumentParser(description="Serve a model over HTTP on the GPU.")
+    ap.add_argument("--model", default="llama-3-8b")
+    ap.add_argument("--port", type=int, default=8080)
+    ap.add_argument("--host", default="127.0.0.1")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args(argv)
+    server, _ = build_model_node(args.model, seed=args.seed, device=args.device)
+    port = server.start(args.host, args.port)
+    print(f"model node {args.model} serving on http://{args.host}:{port}", flush=True)
+    try:
+        while True:
+            time.sleep(3600)
+    except KeyboardInterrupt:
+        pass
+    finally:
+        server.stop()
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,67 @@
+"""The PyTorch port stands alone: no module of ``agentfield_tpu_torch`` and
+not ``chip_smoke.py`` imports JAX, the JAX package or the repo's tools.
+
+The check is on the AST, by the exact top-level module name: a prefix test
+on ``"agentfield_tpu"`` would also match ``agentfield_tpu_torch``."""
+
+from __future__ import annotations
+
+import ast
+import pathlib
+
+import pytest
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+FORBIDDEN = {"jax", "jaxlib", "agentfield_tpu", "tools"}
+
+
+def _port_files() -> list[pathlib.Path]:
+    return sorted((ROOT / "agentfield_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _imported_tops(path: pathlib.Path) -> list[tuple[int, str]]:
+    tree = ast.parse(path.read_text(), filename=str(path))
+    out = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            out += [(node.lineno, a.name.split(".")[0]) for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            out.append((node.lineno, node.module.split(".")[0]))
+        elif (
+            isinstance(node, ast.Call)
+            and isinstance(node.func, (ast.Name, ast.Attribute))
+            and getattr(node.func, "id", getattr(node.func, "attr", None))
+            in ("import_module", "__import__")
+            and node.args
+            and isinstance(node.args[0], ast.Constant)
+            and isinstance(node.args[0].value, str)
+        ):
+            out.append((node.lineno, node.args[0].value.split(".")[0]))
+    return out
+
+
+def test_port_has_modules_to_scan():
+    files = _port_files()
+    assert len(files) > 10 and all(f.exists() for f in files)
+
+
+@pytest.mark.parametrize(
+    "path", _port_files(), ids=lambda p: str(p.relative_to(ROOT))
+)
+def test_no_jax_or_repo_tool_imports(path):
+    bad = [(ln, top) for ln, top in _imported_tops(path) if top in FORBIDDEN]
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_guard_matches_exact_top_level_names(tmp_path):
+    src = tmp_path / "m.py"
+    src.write_text(
+        "import agentfield_tpu_torch.models\n"
+        "from agentfield_tpu_torch import prefix_hash\n"
+        "import jax.numpy as jnp\n"
+        "from agentfield_tpu.models import llama\n"
+        "from tools.perf import kernel_gate\n"
+        "import importlib; importlib.import_module('jaxlib')\n"
+    )
+    tops = [t for _, t in _imported_tops(src)]
+    assert [t for t in tops if t in FORBIDDEN] == ["jax", "agentfield_tpu", "tools", "jaxlib"]

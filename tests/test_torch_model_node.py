@@ -1,0 +1,157 @@
+"""The port's model node over HTTP, on the CPU: the tokens it answers equal
+the JAX package's ``ModelBackend.generate`` on the same carried weights."""
+
+from __future__ import annotations
+
+import asyncio
+import dataclasses
+import json
+import threading
+import urllib.error
+import urllib.request
+
+import jax
+import numpy as np
+import pytest
+
+from agentfield_tpu.models import configs as jax_configs
+from agentfield_tpu.models import llama as jax_llama
+from agentfield_tpu.serving import model_node as jax_node
+from agentfield_tpu_torch.models.configs import get_config
+from agentfield_tpu_torch.models.convert import params_from_numpy
+from agentfield_tpu_torch.serving.engine import EngineConfig
+from agentfield_tpu_torch.serving.model_node import build_model_node
+
+ECFG = dict(max_batch=4, page_size=8, num_pages=64, max_pages_per_seq=8, prefill_chunk=16)
+PROMPTS = [[5, 17, 300, 2, 9], list(range(40, 60)), [77]]
+
+
+def _call(port: int, path: str, body: dict | None = None) -> tuple[int, dict]:
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}{path}",
+        data=None if body is None else json.dumps(body).encode(),
+        headers={"Content-Type": "application/json"},
+        method="GET" if body is None else "POST",
+    )
+    try:
+        with urllib.request.urlopen(req, timeout=60) as resp:
+            return resp.status, json.loads(resp.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+@pytest.fixture(scope="module")
+def weights():
+    jcfg = dataclasses.replace(jax_configs.get_config("llama-tiny"), dtype="float32")
+    tree = jax.tree.map(np.asarray, jax_llama.init_params(jcfg, jax.random.PRNGKey(1)))
+    return jcfg, tree
+
+
+@pytest.fixture(scope="module")
+def node(weights):
+    _, tree = weights
+    params = params_from_numpy(tree, get_config("llama-tiny"), device="cpu")
+    server, backend = build_model_node(
+        "llama-tiny", ecfg=EngineConfig(**ECFG), device="cpu", params=params
+    )
+    port = server.start(port=0)
+    yield port, backend
+    server.stop()
+
+
+def _jax_tokens(weights) -> list[list[int]]:
+    jcfg, tree = weights
+
+    async def main():
+        backend = jax_node.ModelBackend(
+            tree, jcfg, jax_node.EngineConfig(**ECFG),
+            tokenizer=jax_node.ByteTokenizer(jcfg.vocab_size),
+        )
+        await backend.start()
+        try:
+            return [
+                (await backend.generate(tokens=p, max_new_tokens=8))["tokens"] for p in PROMPTS
+            ]
+        finally:
+            await backend.stop()
+
+    return asyncio.run(main())
+
+
+def test_http_generate_matches_jax_backend(weights, node):
+    port, _ = node
+    want = _jax_tokens(weights)
+    for prompt, w in zip(PROMPTS, want):
+        status, doc = _call(port, "/reasoners/generate", {"input": {"tokens": prompt, "max_new_tokens": 8}})
+        assert status == 200, doc
+        res = doc["result"]
+        assert res["tokens"] == w
+        assert res["finish_reason"] == "length" and res["model"] == "llama-tiny"
+        assert len(res["logprobs"]) == 8 and all(np.isfinite(res["logprobs"]))
+        assert isinstance(res["text"], str)
+
+
+def test_http_concurrent_requests_all_answered(node):
+    port, backend = node
+    out: dict[int, tuple[int, dict]] = {}
+
+    def go(i):
+        out[i] = _call(port, "/reasoners/generate",
+                       {"input": {"prompt": f"request number {i}", "max_new_tokens": 3}})
+
+    ths = [threading.Thread(target=go, args=(i,)) for i in range(6)]
+    for th in ths:
+        th.start()
+    for th in ths:
+        th.join()
+    assert sorted(out) == list(range(6))
+    assert all(s == 200 and len(d["result"]["tokens"]) == 3 for s, d in out.values())
+    assert backend.engine.stats["requests_finished"] >= 6
+
+
+def test_health_reasoners_and_errors(node):
+    port, _ = node
+    assert _call(port, "/health") == (200, {"status": "ok", "node_id": "model"})
+    status, doc = _call(port, "/reasoners")
+    assert status == 200 and doc["reasoners"][0]["id"] == "generate"
+    assert "tokens" in doc["reasoners"][0]["input_schema"]["properties"]
+    assert _call(port, "/nope")[0] == 404
+    assert _call(port, "/reasoners/generate", {"input": {"bogus": 1}})[0] == 422
+    assert _call(port, "/reasoners/generate", {"input": {}})[0] == 422  # no prompt/tokens
+    status, doc = _call(port, "/reasoners/generate",
+                        {"input": {"tokens": [1] * 60, "max_new_tokens": 10}})
+    assert status == 422 and "RequestTooLong" in doc["error"]
+
+
+def test_session_turn_reuses_cached_pages(node):
+    port, backend = node
+    hits = backend.engine.stats["prefix_cache_hits"]
+    p1 = list(range(100, 112))
+    _, d1 = _call(port, "/reasoners/generate",
+                  {"input": {"tokens": p1, "max_new_tokens": 4, "session_id": "t"}})
+    p2 = p1 + d1["result"]["tokens"] + [9, 9]
+    status, d2 = _call(port, "/reasoners/generate",
+                       {"input": {"tokens": p2, "max_new_tokens": 4, "session_id": "t"}})
+    assert status == 200 and len(d2["result"]["tokens"]) == 4
+    assert backend.engine.stats["prefix_cache_hits"] == hits + 1
+
+
+def test_failed_step_fails_waiters_and_later_requests(weights):
+    """An engine step that raises fails the request in flight with the real
+    error and every later request at once (none may hang)."""
+    _, tree = weights
+    params = params_from_numpy(tree, get_config("llama-tiny"), device="cpu")
+    _, backend = build_model_node("llama-tiny", ecfg=EngineConfig(**ECFG), device="cpu", params=params)
+
+    def boom():
+        raise ValueError("injected step fault")
+
+    backend.engine.step = boom
+    backend.start()
+    try:
+        with pytest.raises(RuntimeError, match="injected step fault"):
+            backend.generate(tokens=[1, 2, 3], max_new_tokens=2, timeout=30)
+        with pytest.raises(RuntimeError, match="failed step"):
+            backend.generate(tokens=[4, 5], max_new_tokens=2, timeout=30)
+    finally:
+        backend.stop()
