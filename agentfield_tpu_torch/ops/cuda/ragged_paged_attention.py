@@ -2,6 +2,9 @@
 (``csrc/ragged_paged_attention.cu``) — counterparts of the JAX package's
 ``ragged_paged_attention_pallas`` and ``dense_causal_attention``
 (``agentfield_tpu/ops/pallas/ragged_paged_attention_kernel.py:267,485``).
+The ragged wrapper takes plain bf16/f32 pools or int8/fp8 pools with
+per-slot scales (``ops.kv_quant``); the quantized launches are counted
+under their own keys.
 
 A wrapper given CUDA tensors checks them, launches the kernel on the current
 stream and counts the launch in ``LAUNCHES``; anything the kernel does not
@@ -25,9 +28,19 @@ from agentfield_tpu_torch.ops.kernel_autotune import lookup_blocks
 
 SUPPORTED_HEAD_DIMS = (32, 64, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# quantized pool value dtype -> (pool code of the C entry, mode)
+_QUANT_POOLS = {torch.int8: (2, "int8")}
+if hasattr(torch, "float8_e4m3fn"):
+    _QUANT_POOLS[torch.float8_e4m3fn] = (3, "fp8")
 
-# Launch counts per wrapper: +1 each time a wrapper launches its kernel.
-LAUNCHES = {"ragged_paged_attention": 0, "dense_causal_attention": 0}
+# Launch counts per wrapper and pool kind: +1 each time a wrapper launches
+# its kernel.
+LAUNCHES = {
+    "ragged_paged_attention": 0,
+    "ragged_paged_attention_int8": 0,
+    "ragged_paged_attention_fp8": 0,
+    "dense_causal_attention": 0,
+}
 
 
 def reset_launches() -> None:
@@ -46,7 +59,7 @@ def _entry():
         # every pointer and the stream as c_void_p: unset argtypes would pass
         # Python ints as 32-bit C ints and cut 64-bit device pointers
         fn.argtypes = (
-            [ctypes.c_void_p] * 11 + [ctypes.c_int] * 8
+            [ctypes.c_void_p] * 13 + [ctypes.c_int] * 9
             + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
         )
         fn.restype = ctypes.c_int
@@ -67,10 +80,13 @@ def _check(name: str, t: torch.Tensor, device, dtypes, shape) -> None:
         raise ValueError(f"{name} must be contiguous and 16-byte aligned")
 
 
-def _launch(q, k_new, v_new, k_pages, v_pages, out, page_tables, row_starts,
-            n_tokens, ctx_lens, seq_ids, sm_scale, window, write_kv, counter: str) -> None:
+def _launch(q, k_new, v_new, k_pages, v_pages, k_scales, v_scales, out, page_tables,
+            row_starts, n_tokens, ctx_lens, seq_ids, sm_scale, window, write_kv,
+            counter: str) -> None:
     """Check every operand, launch on the current stream, count the launch
-    under ``LAUNCHES[counter]``; raise on anything refused."""
+    under ``LAUNCHES[counter]``; raise on anything refused. ``k_scales`` and
+    ``v_scales`` are None for a plain pool (of q's dtype), or the f32
+    ``[P, Kh, ps]`` scales of an int8/fp8 pool."""
     R, W, H, hd = q.shape
     P, Kh, ps, _ = k_pages.shape
     maxp = page_tables.shape[1]
@@ -85,8 +101,20 @@ def _launch(q, k_new, v_new, k_pages, v_pages, out, page_tables, row_starts,
     _check("q", q, dev, fdt, (R, W, H, hd))
     _check("k_new", k_new, dev, fdt, (R, W, Kh, hd))
     _check("v_new", v_new, dev, fdt, (R, W, Kh, hd))
-    _check("k_pages", k_pages, dev, fdt, (P, Kh, ps, hd))
-    _check("v_pages", v_pages, dev, fdt, (P, Kh, ps, hd))
+    if (k_scales is None) != (v_scales is None):
+        raise ValueError("k_scales and v_scales must be passed together")
+    if k_scales is None:
+        pdt, pool_code = fdt, _DTYPE_CODES[q.dtype]
+    else:
+        if k_pages.dtype not in _QUANT_POOLS:
+            raise ValueError(
+                f"quantized pool dtype {k_pages.dtype} not in {tuple(_QUANT_POOLS)}"
+            )
+        pdt, pool_code = (k_pages.dtype,), _QUANT_POOLS[k_pages.dtype][0]
+        for nm, t in (("k_scales", k_scales), ("v_scales", v_scales)):
+            _check(nm, t, dev, (torch.float32,), (P, Kh, ps))
+    _check("k_pages", k_pages, dev, pdt, (P, Kh, ps, hd))
+    _check("v_pages", v_pages, dev, pdt, (P, Kh, ps, hd))
     _check("out", out, dev, fdt, (R, W, H, hd))
     i32 = (torch.int32,)
     _check("page_tables", page_tables, dev, i32, (R, maxp))
@@ -102,9 +130,12 @@ def _launch(q, k_new, v_new, k_pages, v_pages, out, page_tables, row_starts,
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(
             q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), k_pages.data_ptr(),
-            v_pages.data_ptr(), out.data_ptr(), page_tables.data_ptr(),
+            v_pages.data_ptr(),
+            None if k_scales is None else k_scales.data_ptr(),
+            None if v_scales is None else v_scales.data_ptr(),
+            out.data_ptr(), page_tables.data_ptr(),
             row_starts.data_ptr(), n_tokens.data_ptr(), ctx_lens.data_ptr(),
-            seq_ids.data_ptr(), R, W, H, Kh, ps, maxp, hd, _DTYPE_CODES[q.dtype],
+            seq_ids.data_ptr(), R, W, H, Kh, ps, maxp, hd, _DTYPE_CODES[q.dtype], pool_code,
             float(hd**-0.5 if sm_scale is None else sm_scale),
             int(window or 0), int(write_kv), stream,
         )
@@ -120,25 +151,35 @@ def ragged_paged_attention_cuda(
     q: torch.Tensor,  # [R, W, H, hd]
     k_new: torch.Tensor,  # [R, W, Kh, hd]
     v_new: torch.Tensor,  # [R, W, Kh, hd]
-    k_pages: torch.Tensor,  # [P, Kh, ps, hd] — updated in place
+    k_pages: torch.Tensor,  # [P, Kh, ps, hd] (int8/fp8 with scales) — in place
     v_pages: torch.Tensor,  # [P, Kh, ps, hd] — updated in place
     page_tables: torch.Tensor,  # [R, maxp] int32
     row_starts: torch.Tensor,  # [R] int32
     n_tokens: torch.Tensor,  # [R] int32 (0 = padding row)
     ctx_lens: torch.Tensor,  # [R] int32 — keys already in the pool per row
     seq_ids: torch.Tensor,  # [R] int32 — launch-local sequence identity
+    k_scales: torch.Tensor | None = None,  # [P, Kh, ps] f32 — in place
+    v_scales: torch.Tensor | None = None,
     sm_scale: float | None = None,
     window: int | None = None,
 ):
     """Fused ragged paged attention + KV write on the card. Returns ``(out
-    [R, W, H, hd], k_pages, v_pages)`` with the new K/V written into the
-    pools in place (slots of padding tokens and of positions past the page
-    table are not written). Page ids in ``page_tables`` must lie in ``[0,
-    P)``: they are not checked, which would cost a device read per launch."""
+    [R, W, H, hd], k_pages, v_pages)`` — plus ``(k_scales, v_scales)`` for a
+    quantized pool — with the new K/V written into the pools in place
+    (slots of padding tokens and of positions past the page table are not
+    written). A quantized pool (int8 or float8_e4m3fn values with f32
+    per-slot scales) is dequantized and quantized inside the kernel. Page
+    ids in ``page_tables`` must lie in ``[0, P)``: they are not checked,
+    which would cost a device read per launch."""
     out = torch.empty_like(q)
-    _launch(q, k_new, v_new, k_pages, v_pages, out, page_tables, row_starts,
-            n_tokens, ctx_lens, seq_ids, sm_scale, window, write_kv=True,
-            counter="ragged_paged_attention")
+    counter = "ragged_paged_attention"
+    if k_scales is not None and k_pages.dtype in _QUANT_POOLS:
+        counter += "_" + _QUANT_POOLS[k_pages.dtype][1]
+    _launch(q, k_new, v_new, k_pages, v_pages, k_scales, v_scales, out, page_tables,
+            row_starts, n_tokens, ctx_lens, seq_ids, sm_scale, window, write_kv=True,
+            counter=counter)
+    if k_scales is not None:
+        return out, k_pages, v_pages, k_scales, v_scales
     return out, k_pages, v_pages
 
 
@@ -180,6 +221,6 @@ def dense_causal_attention(
     tables = torch.zeros((R, 1), dtype=torch.int32, device=dev)
     pool = torch.zeros((1, Kh, 1, hd), dtype=q.dtype, device=dev)
     out = torch.empty_like(qr)
-    _launch(qr, kr, vr, pool, pool, out, tables, starts, n_toks, ctx, seqs,
+    _launch(qr, kr, vr, pool, pool, None, None, out, tables, starts, n_toks, ctx, seqs,
             None, window, write_kv=False, counter="dense_causal_attention")
     return out.reshape(B, nw * W, H, hd)[:, :S]

@@ -2,11 +2,12 @@
 copy of ``SHAPES`` and ``PARITY_TOL`` from the JAX package's kernel gate
 (``tools/perf/kernel_gate.py``), plus ``build_case``, which packs a mix with
 the port's own ``pack_ragged_rows`` so both packages are measured and held on
-the same descriptors. The quantized (int8/fp8) mixes are not ported yet."""
+the same descriptors."""
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 # One entry per canonical mix: ``fast`` is the CPU-sized tier, ``full`` the
 # bench size. All shapes honor the allocator invariant (live rows own
@@ -34,6 +35,19 @@ SHAPES: dict[str, dict] = {
     ),
 }
 
+# The quantized mixes: the decode and mixed shapes again over int8/fp8
+# pools, under the JAX gate's names. The gate keeps them in SHAPES; here they
+# stand apart because ``build_case`` returns their pools as torch tensors.
+QUANT_SHAPES: dict[str, dict] = {
+    f"{base}_{dt}": {tier: dict(params, kv_dtype=dt) for tier, params in SHAPES[base].items()}
+    for base, dt in (
+        ("pure_decode", "int8"),
+        ("mixed_ragged", "int8"),
+        ("pure_decode", "fp8"),
+        ("mixed_ragged", "fp8"),
+    )
+}
+
 # kernel vs plain attention parity bound per KV dtype ("none" = bf16/f32 pools)
 PARITY_TOL = {"none": 2e-3, "int8": 2e-2, "fp8": 6e-2}
 
@@ -42,10 +56,15 @@ def build_case(name: str, fast: bool = True, seed: int = 0, params: dict | None 
     """Materialize one shape mix as numpy arrays ``(q, k_new, v_new, k_pages,
     v_pages, page_tables, row_starts, n_tokens, ctx_lens, seq_ids)`` — the
     same draws, in the same order, as the JAX gate's ``build_case``.
-    ``params`` overrides the mix's parameters (custom shapes)."""
+    ``params`` overrides the mix's parameters (custom shapes). A mix with a
+    ``kv_dtype`` ("int8" | "fp8") quantizes the pools with the port's
+    ``kv_quantize`` and appends ``(k_scales, v_scales)``; its four pool
+    arrays are CPU torch tensors, since numpy has no float8 type."""
     from agentfield_tpu_torch.serving.kv_cache import pack_ragged_rows
 
-    p = params if params is not None else SHAPES[name]["fast" if fast else "full"]
+    if params is None:
+        params = {**SHAPES, **QUANT_SHAPES}[name]["fast" if fast else "full"]
+    p = params
     ps, maxp, kh, rep, hd = p["page_size"], p["maxp"], p["kh"], p["rep"], p["hd"]
     H = kh * rep
     entries = []  # (start, n_tokens) per sequence entry
@@ -73,7 +92,15 @@ def build_case(name: str, fast: bool = True, seed: int = 0, params: dict | None 
     vn = rng.standard_normal((R, W, kh, hd)).astype(np.float32) * 0.3
     kp = rng.standard_normal((P, kh, ps, hd)).astype(np.float32) * 0.3
     vp = rng.standard_normal((P, kh, ps, hd)).astype(np.float32) * 0.3
-    return (
+    case = (
         q, kn, vn, kp, vp,
         rr.page_tables, rr.row_starts, rr.n_tokens, rr.ctx_lens, rr.seq_ids,
     )
+    kv_dtype = p.get("kv_dtype", "none")
+    if kv_dtype == "none":
+        return case
+    from agentfield_tpu_torch.ops.kv_quant import kv_quantize
+
+    kq, ks = kv_quantize(torch.from_numpy(kp), kv_dtype)
+    vq, vs = kv_quantize(torch.from_numpy(vp), kv_dtype)
+    return case[:3] + (kq, vq) + case[5:] + (ks, vs)

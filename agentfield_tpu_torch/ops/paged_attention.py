@@ -14,8 +14,13 @@ row's new K/V into the paged pool in the same call.
 - ``ops/cuda/ragged_paged_attention.py`` — the hand-written CUDA kernel
   (``csrc/ragged_paged_attention.cu``), which CUDA tensors run.
 
-The pools are updated IN PLACE by both versions (the JAX functions return
-new arrays); both still return ``(out, k_pages, v_pages)``.
+Pools are plain tensors or, with ``EngineConfig.kv_quant_dtype``, int8/fp8
+values with per-slot f32 scales (``ops.kv_quant``): both versions
+dequantize cached pages on the way in and quantize the new K/V on the way
+out with the shared ``kv_quantize`` formula. The pools (and scales) are
+updated IN PLACE by both versions (the JAX functions return new arrays);
+both still return ``(out, k_pages, v_pages)`` (plus the two scales when
+quantized).
 
 Descriptor invariants (``serving.kv_cache.pack_ragged_rows`` builds them):
 row r's queries sit at absolute positions ``[row_starts[r], row_starts[r] +
@@ -33,6 +38,8 @@ from __future__ import annotations
 import typing
 
 import torch
+
+from agentfield_tpu_torch.ops.kv_quant import QuantPages, bits, kv_dequantize, kv_quantize
 
 _NEG_INF = -1e30
 
@@ -53,19 +60,25 @@ def ragged_paged_attention_ref(
     q: torch.Tensor,  # [R, W, H, hd]
     k_new: torch.Tensor,  # [R, W, Kh, hd]
     v_new: torch.Tensor,  # [R, W, Kh, hd]
-    k_pages: torch.Tensor,  # [P, Kh, ps, hd] — updated in place
+    k_pages: torch.Tensor,  # [P, Kh, ps, hd] (int8/fp8 when scales are passed) — in place
     v_pages: torch.Tensor,  # [P, Kh, ps, hd] — updated in place
     page_tables: torch.Tensor,  # [R, maxp] int32
     row_starts: torch.Tensor,  # [R] int32
     n_tokens: torch.Tensor,  # [R] int32
     ctx_lens: torch.Tensor,  # [R] int32 (unused: the scatter-first pool already
     seq_ids: torch.Tensor,  # holds the launch's keys; kept for signature parity)
+    k_scales: torch.Tensor | None = None,  # [P, Kh, ps] f32 per-slot scales
+    v_scales: torch.Tensor | None = None,  # (quantized pools; ops.kv_quant) — in place
     sm_scale: float | None = None,
     window: int | None = None,
 ):
     """Plain version: exact multi-row scatter of the new K/V into the paged
     pool, then masked gather attention per row (float32 logits and softmax).
-    Returns ``(out [R, W, H, hd], k_pages, v_pages)``."""
+    Returns ``(out [R, W, H, hd], k_pages, v_pages)``, plus ``(k_scales,
+    v_scales)`` when a quantized pool's scales were passed. On quantized
+    pools the scatter quantizes each slot with ``kv_quant.kv_quantize`` and
+    the gather dequantizes, as the JAX version does: the launch's own keys
+    are read back quantized, where the kernel attends them unquantized."""
     del ctx_lens, seq_ids
     R, W, H, hd = q.shape
     P, Kh, ps, _ = k_pages.shape
@@ -73,6 +86,11 @@ def ragged_paged_attention_ref(
     T = maxp * ps
     if H % Kh:
         raise ValueError(f"num_heads {H} not divisible by num_kv_heads {Kh}")
+    if (k_scales is None) != (v_scales is None):
+        raise ValueError("k_scales and v_scales must be passed together")
+    quant = None
+    if k_scales is not None:
+        quant = "int8" if k_pages.dtype == torch.int8 else "fp8"
     rep = H // Kh
     if sm_scale is None:
         sm_scale = hd**-0.5
@@ -89,12 +107,24 @@ def ragged_paged_attention_ref(
     slot_ids = pos % ps
     # advanced [R, W] indices at dims 0 and 2 put the broadcast dims first:
     # values [R, W, Kh, hd] (numpy/JAX semantics)
-    k_pages[page_ids, :, slot_ids] = k_new.to(k_pages.dtype)
-    v_pages[page_ids, :, slot_ids] = v_new.to(v_pages.dtype)
+    if quant is not None:
+        kq, ks = kv_quantize(k_new, quant)
+        vq, vs = kv_quantize(v_new, quant)
+        bits(k_pages)[page_ids, :, slot_ids] = bits(kq)
+        bits(v_pages)[page_ids, :, slot_ids] = bits(vq)
+        k_scales[page_ids, :, slot_ids] = ks
+        v_scales[page_ids, :, slot_ids] = vs
+        # [R, maxp, Kh, ps, hd] gathered and dequantized in float32
+        k = kv_dequantize(bits(k_pages)[tables].view(k_pages.dtype), k_scales[tables])
+        v = kv_dequantize(bits(v_pages)[tables].view(v_pages.dtype), v_scales[tables])
+    else:
+        k_pages[page_ids, :, slot_ids] = k_new.to(k_pages.dtype)
+        v_pages[page_ids, :, slot_ids] = v_new.to(v_pages.dtype)
+        k, v = k_pages[tables], v_pages[tables]
 
     # [R, maxp, Kh, ps, hd] -> [R, T, Kh, hd] gathered context
-    k = k_pages[tables].permute(0, 1, 3, 2, 4).reshape(R, T, Kh, hd)
-    v = v_pages[tables].permute(0, 1, 3, 2, 4).reshape(R, T, Kh, hd)
+    k = k.permute(0, 1, 3, 2, 4).reshape(R, T, Kh, hd)
+    v = v.permute(0, 1, 3, 2, 4).reshape(R, T, Kh, hd)
     qg = q.reshape(R, W, Kh, rep, hd).float()
     logits = torch.einsum("bwkrh,btkh->bkrwt", qg, k.float()) * sm_scale
     k_pos = torch.arange(T, device=dev)[None, None]  # [1, 1, T]
@@ -106,6 +136,8 @@ def ragged_paged_attention_ref(
     out = torch.einsum("bkrwt,btkh->bwkrh", probs, v.float()).reshape(R, W, H, hd)
     # padding rows/tokens return zeros like the kernel's un-accumulated rows
     out = torch.where(valid[..., None, None], out, 0.0).to(q.dtype)
+    if quant is not None:
+        return out, k_pages, v_pages, k_scales, v_scales
     return out, k_pages, v_pages
 
 
@@ -123,22 +155,28 @@ def ragged_paged_attention(
     window: int | None = None,
     sm_scale: float | None = None,
 ):
-    """One ragged fused write+attention launch. CPU tensors take the plain
-    version; CUDA tensors launch the hand-written kernel (which raises on
-    anything it does not take — there is no fallback)."""
+    """One ragged fused write+attention launch. ``k_pages``/``v_pages`` are
+    plain tensors or :class:`ops.kv_quant.QuantPages`, and come back as the
+    same kind. CPU tensors take the plain version; CUDA tensors launch the
+    hand-written kernel (which raises on anything it does not take — there
+    is no fallback)."""
+    quant = isinstance(k_pages, QuantPages)
+    kq, ksc = (k_pages.q, k_pages.scale) if quant else (k_pages, None)
+    vq, vsc = (v_pages.q, v_pages.scale) if quant else (v_pages, None)
     if q.is_cuda:
         from agentfield_tpu_torch.ops.cuda.ragged_paged_attention import (
-            ragged_paged_attention_cuda,
+            ragged_paged_attention_cuda as impl,
         )
-
-        return ragged_paged_attention_cuda(
-            q, k_new, v_new, k_pages, v_pages, page_tables, row_starts,
-            n_tokens, ctx_lens, seq_ids, sm_scale=sm_scale, window=window,
-        )
-    return ragged_paged_attention_ref(
-        q, k_new, v_new, k_pages, v_pages, page_tables, row_starts,
-        n_tokens, ctx_lens, seq_ids, sm_scale=sm_scale, window=window,
+    else:
+        impl = ragged_paged_attention_ref
+    out = impl(
+        q, k_new, v_new, kq, vq, page_tables, row_starts, n_tokens, ctx_lens, seq_ids,
+        k_scales=ksc, v_scales=vsc, sm_scale=sm_scale, window=window,
     )
+    if quant:
+        o, kp, vp, ks, vs = out
+        return o, QuantPages(kp, ks), QuantPages(vp, vs)
+    return out
 
 
 def paged_attention_ref(

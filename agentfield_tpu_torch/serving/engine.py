@@ -15,10 +15,13 @@ suffix/chunked prefill and decode through ``ragged_paged_attention`` with
 the KV write fused (JAX ``chunk_attn_impl="pallas"``, ``attn_impl="pallas"``).
 ``prefill_chunk`` resolves to ``min(512, max_context)`` when unset, as the
 JAX engine does on its kernel path. On CPU tensors the same calls take the
-plain versions.
+plain versions. ``kv_quant_dtype`` ("int8" | "fp8") stores the KV pages
+quantized with per-slot scales: the dense-prefill scatter quantizes through
+``ops.kv_quant.write_pages``, and the kernel dequantizes cached pages and
+quantizes its fused write.
 
 Not ported yet (each a later slice): mixed ticks, speculative decoding and
-prefill, grammar-constrained decoding, quantized KV, the host tier,
+prefill, grammar-constrained decoding, the host tier,
 preemption and priorities, deadlines, cancellation and forks, handoff,
 async (pipelined) decode, decode buckets, MoE. The tick here is the JAX
 engine's with ``async_decode=False``: dispatch, then read the tokens.
@@ -38,6 +41,13 @@ import torch
 from agentfield_tpu_torch.models import llama
 from agentfield_tpu_torch.models.configs import LlamaConfig
 from agentfield_tpu_torch.ops.kernel_autotune import lookup_blocks
+from agentfield_tpu_torch.ops.kv_quant import (
+    KV_QUANT_DTYPES,
+    QuantPages,
+    bits,
+    quant_mode_supported,
+    write_pages,
+)
 from agentfield_tpu_torch.ops.paged_attention import ragged_paged_attention
 from agentfield_tpu_torch.prefix_hash import page_chain_hashes
 from agentfield_tpu_torch.serving.kv_cache import (
@@ -64,6 +74,8 @@ class EngineConfig:
     decode_span: int = 1  # decode steps per dispatch (one host readback per span)
     session_ttl: float = 600.0  # idle sessions release their pages (0 disables)
     dtype: str | None = None  # KV page dtype (default: the params' dtype)
+    kv_quant_dtype: str = "none"  # "int8" | "fp8": quantized KV pages with
+    # per-(slot, KV head) f32 scales, ~1.9x the pages per HBM byte
 
     @property
     def max_context(self) -> int:
@@ -121,6 +133,13 @@ class RequestTooLongError(Exception):
     pass
 
 
+def _layer(pages, i: int):
+    """Layer ``i`` of a layer-stacked pool, plain or quantized (views)."""
+    if isinstance(pages, QuantPages):
+        return QuantPages(pages.q[i], pages.scale[i])
+    return pages[i]
+
+
 def _binding_window(cfg: LlamaConfig, ecfg: EngineConfig) -> int | None:
     """The sliding window, or None when it cannot bind within the context."""
     w = cfg.sliding_window
@@ -159,6 +178,15 @@ class InferenceEngine:
             raise ValueError(f"prefill_chunk={self.ecfg.prefill_chunk} must be >= 16 (one tile) or None")
         if self.ecfg.decode_span < 1:
             raise ValueError(f"decode_span={self.ecfg.decode_span} must be >= 1")
+        if self.ecfg.kv_quant_dtype not in KV_QUANT_DTYPES:
+            raise ValueError(
+                f"kv_quant_dtype={self.ecfg.kv_quant_dtype!r} must be one of {KV_QUANT_DTYPES}"
+            )
+        if not quant_mode_supported(self.ecfg.kv_quant_dtype):
+            raise ValueError(
+                f"kv_quant_dtype={self.ecfg.kv_quant_dtype!r} is not supported by this "
+                "torch build (no float8_e4m3fn) — use 'int8' or 'none'"
+            )
         if self.ecfg.max_pages_per_seq > self.ecfg.num_pages - 1:
             raise ValueError(
                 f"max_pages_per_seq={self.ecfg.max_pages_per_seq} cannot exceed "
@@ -166,11 +194,20 @@ class InferenceEngine:
             )
         self.params = params
         cache_dtype = self.ecfg.dtype or params["embed"].dtype
+        quant = self.ecfg.kv_quant_dtype
         self.cache = PagedKVCache.create(
-            cfg, self.ecfg.num_pages, self.ecfg.page_size, cache_dtype, device=self.device
+            cfg, self.ecfg.num_pages, self.ecfg.page_size, cache_dtype, device=self.device,
+            kv_quant=quant,
         )
-        if self.cache.k_pages.dtype != params["embed"].dtype:
+        if quant == "none" and self.cache.k_pages.dtype != params["embed"].dtype:
             raise ValueError("KV page dtype must match the params' compute dtype")
+        # the dense page layout at the same geometry: the yardstick of the
+        # kv_quant_bytes_saved_total counter
+        self.kv_page_bytes_dense = (
+            2 * cfg.num_layers * cfg.num_kv_heads * self.ecfg.page_size * cfg.head_dim
+            * llama.resolve_dtype(cache_dtype).itemsize
+        )
+        self.kv_page_bytes = self.cache.page_bytes()
         self.window = _binding_window(cfg, self.ecfg)
         self.stats = {
             "prefill_tokens": 0,
@@ -198,6 +235,8 @@ class InferenceEngine:
         self.allocator = PrefixPagePool(  # guarded by: _session_lock
             self.ecfg.num_pages, self.ecfg.page_size, stats=self.stats
         )
+        if quant != "none":
+            self.allocator.configure_quant(max(0, self.kv_page_bytes_dense - self.kv_page_bytes))
         self._req_hashes: dict[str, list[bytes]] = {}
         B, maxp = self.ecfg.max_batch, self.ecfg.max_pages_per_seq
         self.page_tables = np.zeros((B, maxp), np.int32)
@@ -585,9 +624,11 @@ class InferenceEngine:
         return [self._install(req, slot_idx, pages, row, toks[0], lps[0])]
 
     def _copy_page(self, src: int, dst: int) -> None:
-        """Copy-on-write: duplicate page `src` into `dst` across all layers."""
-        self.cache.k_pages[:, dst] = self.cache.k_pages[:, src]
-        self.cache.v_pages[:, dst] = self.cache.v_pages[:, src]
+        """Copy-on-write: duplicate page `src` into `dst` across all layers
+        (values and, for a quantized pool, their scales)."""
+        for t in self.cache.leaves():
+            b = bits(t)
+            b[:, dst] = b[:, src]
 
     def prefix_cache_stats(self) -> dict[str, int]:
         """Gauges of the shared-prefix page pool (counters live in stats)."""
@@ -658,9 +699,10 @@ class InferenceEngine:
         pid = torch.from_numpy(page_ids.astype(np.int64)).to(dev)
         sid = torch.from_numpy(slot_ids.astype(np.int64)).to(dev)
         # ks/vs [L, n, S, Kh, hd] -> valid tokens [N, L, Kh, hd]; 1-D index
-        # tensors at pool dims 1 and 3 put the token dim first
-        self.cache.k_pages[:, pid, :, sid] = ks.permute(1, 2, 0, 3, 4)[vmask]
-        self.cache.v_pages[:, pid, :, sid] = vs.permute(1, 2, 0, 3, 4)[vmask]
+        # tensors at pool dims 1 and 3 put the token dim first. A quantized
+        # pool quantizes each slot on the way in.
+        write_pages(self.cache.k_pages, ks.permute(1, 2, 0, 3, 4)[vmask], pid, sid)
+        write_pages(self.cache.v_pages, vs.permute(1, 2, 0, 3, 4)[vmask], pid, sid)
         self.timing["prefill_s"] += time.perf_counter() - t0
         return logits
 
@@ -675,7 +717,10 @@ class InferenceEngine:
         cfg, ecfg, dev = self.cfg, self.ecfg, self.device
         n = len(piece)
         bucket = ecfg.prefill_bucket(n)
-        W = min(lookup_blocks(ecfg.page_size, cfg.head_dim, bucket).block_q, bucket)
+        W = min(
+            lookup_blocks(ecfg.page_size, cfg.head_dim, bucket, ecfg.kv_quant_dtype).block_q,
+            bucket,
+        )
         R = -(-n // W)
         n_pad = R * W - n
         offs = np.arange(R, dtype=np.int32) * W
@@ -701,7 +746,7 @@ class InferenceEngine:
             q, k, v = llama.qkv_proj(lp, h, cfg, cos, sin)
             attn, _, _ = ragged_paged_attention(
                 as_rows(q), as_rows(k), as_rows(v),
-                self.cache.k_pages[i], self.cache.v_pages[i], tables,
+                _layer(self.cache.k_pages, i), _layer(self.cache.v_pages, i), tables,
                 row_starts, n_toks, ctx_lens, seq_ids, window=self.window,
             )
             attn = attn.reshape(R * W, cfg.num_heads, cfg.head_dim)[:n][None]
@@ -747,7 +792,7 @@ class InferenceEngine:
             h = llama.rms_norm(x, lp["attn_norm"], cfg.rms_norm_eps)
             q, k, v = llama.qkv_proj(lp, h, cfg, cos, sin)  # [B, 1, ...]
             attn, _, _ = ragged_paged_attention(
-                q, k, v, self.cache.k_pages[i], self.cache.v_pages[i], page_tables,
+                q, k, v, _layer(self.cache.k_pages, i), _layer(self.cache.v_pages, i), page_tables,
                 seq_lens, n_toks, seq_lens, row_ids, window=self.window,
             )
             x = llama.attn_out(lp, attn, x)

@@ -5,11 +5,14 @@ Layout: ``[num_layers, num_pages, num_kv_heads, page_size, head_dim]`` (the
 JAX package's logical layout: one page of one KV head is a contiguous
 ``[page_size, head_dim]`` block, the unit the kernel streams). Page 0 is a
 garbage sink: padding and over-budget tokens route there, its content is
-undefined.
+undefined. With ``kv_quant`` ("int8" | "fp8") each pool is an
+``ops.kv_quant.QuantPages``: values of that dtype plus ``[L, P, Kh, ps]``
+f32 per-slot scales.
 
 ``PrefixPagePool`` is ported for the device (HBM) tier only: refcounts, the
-refcount-0 LRU and the content index over chained page hashes. The host
-tier, demotion, peer adoption and the fault hooks are not ported yet.
+refcount-0 LRU, the content index over chained page hashes and the HBM
+``kv_quant_*`` counters. The host tier, demotion, peer adoption, the fault
+hooks and the host/wire ``kv_quant_*`` counters are not ported yet.
 """
 
 from __future__ import annotations
@@ -23,15 +26,19 @@ import torch
 
 from agentfield_tpu_torch.models.configs import LlamaConfig
 from agentfield_tpu_torch.models.llama import resolve_dtype
+from agentfield_tpu_torch.ops.kv_quant import QuantPages, quant_value_dtype
 from agentfield_tpu_torch.ops.paged_attention import RaggedRows
 from agentfield_tpu_torch.prefix_hash import chain_hash, page_chain_hashes
 
 
 @dataclasses.dataclass
 class PagedKVCache:
-    k_pages: torch.Tensor  # [L, P, Kh, ps, hd], written in place
-    v_pages: torch.Tensor
+    # [L, P, Kh, ps, hd] tensors, or QuantPages (values + [L, P, Kh, ps]
+    # scales) when kv_quant != "none"; written in place
+    k_pages: torch.Tensor | QuantPages
+    v_pages: torch.Tensor | QuantPages
     page_size: int
+    kv_quant: str = "none"
 
     @property
     def num_pages(self) -> int:
@@ -44,14 +51,40 @@ class PagedKVCache:
         page_size: int,
         dtype: str | torch.dtype | None = None,
         device: str | torch.device = "cuda",
+        kv_quant: str = "none",
     ) -> "PagedKVCache":
+        """``kv_quant`` ("int8" | "fp8") stores the pages quantized with
+        per-slot scales; scales start at 0, so fresh pages dequantize to the
+        zeros a plain pool holds (``dtype`` is then unused)."""
         shape = (cfg.num_layers, num_pages, cfg.num_kv_heads, page_size, cfg.head_dim)
-        dt = resolve_dtype(dtype or cfg.dtype)
-        return PagedKVCache(
-            k_pages=torch.zeros(shape, dtype=dt, device=device),
-            v_pages=torch.zeros(shape, dtype=dt, device=device),
-            page_size=page_size,
-        )
+        if kv_quant != "none":
+            qdt = quant_value_dtype(kv_quant)
+
+            def mk():
+                return QuantPages(
+                    torch.zeros(shape, dtype=qdt, device=device),
+                    torch.zeros(shape[:-1], dtype=torch.float32, device=device),
+                )
+
+            k, v = mk(), mk()
+        else:
+            dt = resolve_dtype(dtype or cfg.dtype)
+            k = torch.zeros(shape, dtype=dt, device=device)
+            v = torch.zeros(shape, dtype=dt, device=device)
+        return PagedKVCache(k_pages=k, v_pages=v, page_size=page_size, kv_quant=kv_quant)
+
+    def leaves(self) -> list[torch.Tensor]:
+        """Every tensor of the two pools: values, and scales when quantized."""
+        return [t for pool in (self.k_pages, self.v_pages)
+                for t in (pool if isinstance(pool, QuantPages) else (pool,))]
+
+    def hbm_bytes(self) -> int:
+        return sum(t.numel() * t.element_size() for t in self.leaves())
+
+    def page_bytes(self) -> int:
+        """Bytes ONE page occupies across all layers, K+V, including the
+        per-slot scales of a quantized pool."""
+        return sum(t.numel() // t.shape[1] * t.element_size() for t in self.leaves())
 
 
 class PageAllocator:
@@ -179,8 +212,14 @@ class PrefixPagePool:
         # refcount-0 cached pages in eviction order (oldest first)
         self._lru: collections.OrderedDict[int, None] = collections.OrderedDict()
         self.stats = stats if stats is not None else {}
-        for k in ("prefix_pages_published", "prefix_pages_evicted", "prefix_pages_reused"):
+        for k in (
+            "prefix_pages_published", "prefix_pages_evicted", "prefix_pages_reused",
+            # quantized KV pages: always present, zero with quantization off;
+            # bytes saved are against the dense page layout at the same count
+            "kv_quant_pages_total", "kv_quant_bytes_saved_total",
+        ):
             self.stats.setdefault(k, 0)
+        self._quant_hbm_saved = 0  # bytes one quantized page saves (configure_quant)
 
     # -- gauges ---------------------------------------------------------
 
@@ -207,6 +246,13 @@ class PrefixPagePool:
         it is content-addressed or another holder references it."""
         return page in self._by_page or self._refs[page] > 1
 
+    def configure_quant(self, hbm_saved_per_page: int) -> None:
+        """Arm the quantized-page counters (the engine does, when its
+        kv_quant_dtype is not "none"): every page handed out stores its KV
+        quantized, so ``alloc`` counts ``kv_quant_pages_total`` and adds the
+        per-page saving to ``kv_quant_bytes_saved_total``."""
+        self._quant_hbm_saved = max(0, int(hbm_saved_per_page))
+
     # -- allocation -----------------------------------------------------
 
     def alloc(self, n: int) -> list[int] | None:
@@ -225,6 +271,9 @@ class PrefixPagePool:
                 self.stats["prefix_pages_evicted"] += 1
             self._refs[p] = 1
             out.append(p)
+        if self._quant_hbm_saved:
+            self.stats["kv_quant_pages_total"] += n
+            self.stats["kv_quant_bytes_saved_total"] += n * self._quant_hbm_saved
         return out
 
     def free(self, pages: list[int]) -> None:

@@ -16,6 +16,9 @@ transports are not ported yet.
 Run a node::
 
     python -m agentfield_tpu_torch.serving.model_node --model llama-3-8b --port 8080 --seed 0
+
+``--kv-quant-dtype int8`` (or ``fp8``) stores the KV pages quantized, with
+per-slot scales (``EngineConfig.kv_quant_dtype``).
 """
 
 from __future__ import annotations
@@ -34,6 +37,7 @@ import torch
 
 from agentfield_tpu_torch.models.configs import LlamaConfig, get_config
 from agentfield_tpu_torch.models.llama import init_params
+from agentfield_tpu_torch.ops.kv_quant import KV_QUANT_DTYPES
 from agentfield_tpu_torch.serving.engine import (
     EngineConfig,
     InferenceEngine,
@@ -321,8 +325,13 @@ def main(argv: list[str] | None = None) -> None:
     ap.add_argument("--host", default="127.0.0.1")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--kv-quant-dtype", default="none", choices=KV_QUANT_DTYPES,
+                    help="store KV pages quantized with per-slot scales")
     args = ap.parse_args(argv)
-    server, _ = build_model_node(args.model, seed=args.seed, device=args.device)
+    server, _ = build_model_node(
+        args.model, seed=args.seed, device=args.device,
+        ecfg=EngineConfig(kv_quant_dtype=args.kv_quant_dtype),
+    )
     port = server.start(args.host, args.port)
     print(f"model node {args.model} serving on http://{args.host}:{port}", flush=True)
     try:

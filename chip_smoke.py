@@ -16,17 +16,34 @@ the result line:
                within its bound (``elem_bound``), pools bit-equal outside the
                garbage page 0; and show at the 2k-context decode shape that
                the bound rejects a kernel fed a quarter of zeroed cached pages
-               or a zeroed own key/value.
+               or a zeroed own key/value. Quantized (int8, fp8) pools, at the
+               quantized mixes and the Llama-3-8B shapes, in float32 and
+               bfloat16 compute, pass three checks: (a) pool values and
+               scales bit-equal to the plain version's outside page 0; (b)
+               every output element within ``elem_bound`` of the plain
+               version run with the kernel's semantics (cached pages
+               dequantized to float32, the launch's own K/V unquantized:
+               ``dequantized_ref``), which must reject the same two faults;
+               (c) outputs within ``PARITY_TOL[mode]`` of the plain version
+               proper (the JAX package's semantics: own K/V read back
+               quantized).
 4. ``time``    CUDA-event medians of kernel and plain version per shape,
                beside the shape's bound (bytes over 3.35 TB/s or FLOPs over
-               the dtype's peak, whichever is larger) and, for the dense path,
-               ``scaled_dot_product_attention`` as the library yardstick.
+               the dtype's peak, whichever is larger; a quantized pool moves
+               1 byte per value plus a 4-byte scale per slot) and, for the
+               dense path, ``scaled_dot_product_attention`` as the library
+               yardstick.
 5. ``serve``   full-width ``llama-3-8b`` with random bf16 weights drawn on the
                card from ``--seed``, behind the port's HTTP server: concurrent
                requests (64-1500-token prompts) plus a second session turn;
                every request answered; launch counts per path (decode, dense
-               prefill, suffix prefill) must all be > 0. Prints TTFT p50,
-               decode tokens/s and peak memory.
+               prefill, suffix prefill) must all be > 0. Then the same
+               requests on the same weights and geometry with
+               ``kv_quant_dtype`` "int8" and "fp8": the quantized kernel
+               launched on the decode and suffix-prefill paths, the bf16
+               variant never, ``kv_quant_pages_total`` > 0, and peak memory
+               below the bf16 serve's. Prints TTFT p50, decode tokens/s and
+               peak memory per mode.
 6. ``forward`` one full-width forward with the kernel and with the plain
                attention, compared on logits.
 
@@ -62,6 +79,7 @@ SIGNIFICAND_BITS = {"float32": 24, "bfloat16": 8}
 SUM_ORDER_ATOL = 1e-5
 RAGGED_SRC = "agentfield_tpu_torch/csrc/ragged_paged_attention.cu"
 TPU_KERNEL = "agentfield_tpu/ops/pallas/ragged_paged_attention_kernel.py"
+QUANT_MODES = ("int8", "fp8")
 
 
 def log(*a):
@@ -117,13 +135,34 @@ def ragged_shapes():
     return out
 
 
-def ragged_work(case, es: int, window):
+def quant_shapes():
+    """name -> build_case params over int8/fp8 pools: the quantized mixes
+    (fast and full, and a windowed one) and the three Llama-3-8B shapes in
+    each mode."""
+    from agentfield_tpu_torch.ops.kernel_shapes import QUANT_SHAPES
+
+    out = {f"{name}/{tier}": dict(p) for name, tiers in QUANT_SHAPES.items()
+           for tier, p in tiers.items()}
+    for mode in QUANT_MODES:
+        out[f"mixed_ragged_{mode}/fast+window"] = dict(
+            QUANT_SHAPES[f"mixed_ragged_{mode}"]["fast"], window=50)
+    for name, p in ragged_shapes().items():
+        if name.startswith("llama3_"):
+            for mode in QUANT_MODES:
+                out[f"{name}_{mode}"] = dict(p, kv_dtype=mode)
+    return out
+
+
+def ragged_work(case, es: int, window, pool_es: int | None = None):
     """(bytes, flops) the ragged launch must move/do on these inputs: q,
     new K/V and output once, each sequence's cached keys once, the written
-    K/V slots once; FLOPs 4*H*hd per (query, attended key)."""
-    q, kn, _, kp, _, tables, starts, ntok, ctx, seqs = case
+    K/V slots once; FLOPs 4*H*hd per (query, attended key). ``es`` is the
+    element size of q, new K/V and output; a quantized pool (``pool_es``
+    bytes per value) also holds a 4-byte scale per slot and KV head."""
+    q, kn, _, kp, _, tables, starts, ntok, ctx, seqs = case[:10]
     H, hd = q.shape[2], q.shape[3]
     Kh = kn.shape[2]
+    slot = Kh * hd * es if pool_es is None else Kh * (hd * pool_es + 4)  # one K or V slot
     nq = int(ntok.sum())
     keys = 0
     cached = {}
@@ -134,10 +173,11 @@ def ragged_work(case, es: int, window):
         if ntok[r] > 0:
             lo = int(starts[r]) - window + 1 if window else 0
             cached[int(seqs[r])] = max(0, int(ctx[r]) - max(0, lo))
-    bytes_ = es * (
-        nq * H * hd * 2  # q in, out
-        + nq * Kh * hd * 4  # k_new/v_new in, written slots out
-        + sum(cached.values()) * Kh * hd * 2  # cached K and V
+    bytes_ = (
+        es * nq * H * hd * 2  # q in, out
+        + es * nq * Kh * hd * 2  # k_new/v_new in
+        + nq * slot * 2  # written K and V slots out
+        + sum(cached.values()) * slot * 2  # cached K and V
     ) + 4 * (tables.size + 4 * len(ntok))
     return bytes_, 4 * H * hd * keys
 
@@ -194,29 +234,57 @@ def _to(t, dtype, dev):
 def fault_check(case, dname, o_r, window, attn):
     """Show that ``compare`` rejects a faulty kernel output at this shape:
     run ``attn`` (the kernel's wrapper) once with every fourth cached page
-    of each row zeroed, and once with the rows' own new key/value zeroed,
-    and compare each with the intact plain output ``o_r``. Returns, per
-    fault, the largest |faulty - plain| and its largest ratio to
-    ``elem_bound``."""
+    of each row zeroed (values, and scales of a quantized pool), and once
+    with the rows' own new key/value zeroed, and compare each with the
+    intact plain output ``o_r``. ``case`` is ``(q, k_new, v_new, k_pages,
+    v_pages, 5 descriptors[, k_scales, v_scales])``. Returns, per fault, the
+    largest |faulty - plain| and its largest ratio to ``elem_bound``."""
     import torch
 
-    q, kn, vn, kp, vp = case[:5]
-    tables, _, _, ctx, _ = case[5:]
-    ps = kp.shape[2]
+    from agentfield_tpu_torch.ops.kv_quant import bits
+
+    q, kn, vn = case[:3]
+    desc = case[5:10]
+    pools = list(case[3:5]) + list(case[10:])  # K, V values (then scales)
+    tables, ctx = desc[0], desc[3]
+    ps = case[3].shape[2]
     out = {}
-    kq, vq = kp.clone(), vp.clone()
     t, c = tables.cpu(), ctx.cpu()
-    dead = sorted({int(t[r, p]) for r in range(t.shape[0])
-                   for p in range(0, -(-int(c[r]) // ps), 4)})
-    kq[dead] = 0
-    vq[dead] = 0
-    o_f, _, _ = attn(q, kn, vn, kq, vq, *case[5:], window=window)
+    dead = torch.tensor(sorted({int(t[r, p]) for r in range(t.shape[0])
+                                for p in range(0, -(-int(c[r]) // ps), 4)}), device=q.device)
+    bad = [x.clone() for x in pools]
+    for x in bad:
+        bits(x)[dead] = 0
+    o_f = attn(q, kn, vn, bad[0], bad[1], *desc, *bad[2:], window=window)[0]
     out["quarter_pages_zeroed"] = compare(o_f, o_r, dname)[1:]
-    kq, vq = kp.clone(), vp.clone()
-    o_f, _, _ = attn(q, torch.zeros_like(kn), torch.zeros_like(vn), kq, vq, *case[5:],
-                     window=window)
+    fresh = [x.clone() for x in pools]
+    o_f = attn(q, torch.zeros_like(kn), torch.zeros_like(vn), fresh[0], fresh[1], *desc,
+               *fresh[2:], window=window)[0]
     out["own_kv_zeroed"] = compare(o_f, o_r, dname)[1:]
     return out
+
+
+def dequantized_ref(case, window):
+    """The plain version with the quantized kernel's semantics: cached pages
+    dequantized to float32 (value * slot scale), the launch's own K/V
+    unquantized. ``case`` as in ``fault_check``, with scales; its pools are
+    not touched."""
+    from agentfield_tpu_torch.ops.kv_quant import kv_dequantize
+    from agentfield_tpu_torch.ops.paged_attention import ragged_paged_attention_ref
+
+    q, kn, vn, kp, vp = case[:5]
+    ks, vs = case[10:12]
+    return ragged_paged_attention_ref(q, kn, vn, kv_dequantize(kp, ks), kv_dequantize(vp, vs),
+                                      *case[5:10], window=window)[0]
+
+
+def pools_bit_equal(a, b) -> bool:
+    """Every pool tensor of ``a`` (values, scales) equals ``b``'s byte for
+    byte outside the garbage page 0."""
+    import torch
+
+    return all(torch.equal(x[1:].view(torch.uint8), y[1:].view(torch.uint8))
+               for x, y in zip(a, b))
 
 
 def phase_check(results):
@@ -311,9 +379,79 @@ def phase_check(results):
                 f"bound={row['bound_ms']:.4f} ({row['bound_by']})")
             if not ok:
                 failures.append(f"{name}/{dname}")
+    failures += _check_quant(rows)
     results["check_launches"] = dict(LAUNCHES)
     if failures:
         raise AssertionError(f"kernel disagrees with its plain version: {failures}")
+
+
+def _check_quant(rows) -> list[str]:
+    """The quantized variant at every shape of ``quant_shapes``, in float32
+    and bfloat16 compute: checks (a), (b), (c) of the module docstring, the
+    two faults at the 2k-context decode shape, and times. Returns the
+    failures."""
+    import torch
+
+    from agentfield_tpu_torch.ops.cuda.ragged_paged_attention import ragged_paged_attention_cuda
+    from agentfield_tpu_torch.ops.kernel_shapes import PARITY_TOL, build_case
+    from agentfield_tpu_torch.ops.paged_attention import ragged_paged_attention_ref
+
+    dev = torch.device("cuda")
+    failures = []
+    for name, p in quant_shapes().items():
+        window = p.pop("window", None)
+        mode = p["kv_dtype"]
+        case_cpu = build_case(name, params=p, seed=0)
+        for dname, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+            case = [a.to(dev) if isinstance(a, torch.Tensor) else _to(a, dtype, dev)
+                    for a in case_cpu]
+            q, kn, vn = case[:3]
+            desc = case[5:10]
+            pools = case[3:5] + case[10:12]  # k, v values; k, v scales
+            pr = [t.clone() for t in pools]
+            pk = [t.clone() for t in pools]
+            o_r = ragged_paged_attention_ref(q, kn, vn, pr[0], pr[1], *desc, *pr[2:],
+                                             window=window)[0]
+            o_k = ragged_paged_attention_cuda(q, kn, vn, pk[0], pk[1], *desc, *pk[2:],
+                                              window=window)[0]
+            o_d = dequantized_ref(case, window)
+            torch.cuda.synchronize()
+            pools_ok = pools_bit_equal(pk, pr)  # (a)
+            within, err, ratio = compare(o_k, o_d, dname)  # (b)
+            parity = float((o_k.float() - o_r.float()).abs().max())  # (c)
+            parity_ok = parity <= PARITY_TOL[mode]
+            ok = pools_ok and within and parity_ok
+            kernel = f"ragged_paged_attention_{mode}"
+            row = {"kernel": kernel, "dtype": dname, "kv_dtype": mode, "max_abs_err": err,
+                   "max_err_over_bound": ratio, "max_abs_out": float(o_d.float().abs().max()),
+                   "pools_bit_equal": pools_ok, "parity_err": parity,
+                   "parity_over_tol": parity / PARITY_TOL[mode], "ok": ok,
+                   "R": q.shape[0], "W": q.shape[1], "H": q.shape[2], "Kh": kn.shape[2],
+                   "hd": q.shape[3], "window": window}
+            if name == "llama3_decode_ctx2k_" + mode:
+                row["faults"] = fault_check(case, dname, o_d, window, ragged_paged_attention_cuda)
+                torch.cuda.synchronize()
+                if not all(r > 1.0 for _, r in row["faults"].values()):
+                    failures.append(f"{name}/{dname}: bound missed a fault {row['faults']}")
+                log(f"[check] {name} {dname} faulty kernel (max |d|, max |d|/bound): "
+                    f"{row['faults']}")
+            b, f = ragged_work(case_cpu, q.element_size(), window, pool_es=1)
+            row["bound_ms"], row["bound_by"] = bound_ms(b, f, dname)
+            row["ms"] = cuda_ms(lambda: ragged_paged_attention_cuda(
+                q, kn, vn, pk[0], pk[1], *desc, *pk[2:], window=window))
+            row["plain_ms"] = cuda_ms(lambda: ragged_paged_attention_ref(
+                q, kn, vn, pr[0], pr[1], *desc, *pr[2:], window=window), n=5, warmup=1)
+            row["library_ms"] = None
+            rows[f"{name}/{dname}"] = row
+            log(f"[check] {name:32s} {dname:8s} (b) err={err:.2e} err/bound={ratio:.3f} "
+                f"(a) pools={pools_ok} (c) parity={parity:.2e} /tol={row['parity_over_tol']:.3f} "
+                f"ms={row['ms']:.4f} plain={row['plain_ms']:.4f} "
+                f"bound={row['bound_ms']:.4f} ({row['bound_by']})")
+            if not ok:
+                failures.append(f"{name}/{dname}")
+            del case, q, kn, vn, pools, pr, pk, o_r, o_k, o_d
+        torch.cuda.empty_cache()
+    return failures
 
 
 def _sdpa_ms(q, k, v):
@@ -343,7 +481,13 @@ def _post(port: int, payload: dict, timeout: float = 900.0) -> dict:
 
 
 def phase_serve(results, state, seed: int, model="llama-3-8b", device="cuda", ecfg=None,
-                lengths=(64, 200, 333, 480, 512, 700, 1100, 1500), max_new=32):
+                lengths=(64, 200, 333, 480, 512, 700, 1100, 1500), max_new=32,
+                kv_quant="none"):
+    """Serve the requests. With ``kv_quant`` "int8" | "fp8" the node reuses
+    the weights and the engine geometry of the plain serve before it
+    (``state``) and the results go to ``results["serve_<mode>"]``."""
+    import dataclasses
+
     import numpy as np
     import torch
 
@@ -352,19 +496,25 @@ def phase_serve(results, state, seed: int, model="llama-3-8b", device="cuda", ec
     from agentfield_tpu_torch.serving.model_node import build_model_node
 
     on_card = torch.device(device).type == "cuda"
+    gc.collect()  # an earlier serve's engine (and its KV pool) is garbage now
     if on_card:
         torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    if ecfg is None:
-        # context 128 pages x 16 = 2048 tokens; 4096 pages = 8 GiB of bf16 KV
-        ecfg = EngineConfig(max_batch=32, page_size=16, num_pages=4096, max_pages_per_seq=128)
-    server, backend = build_model_node(model, seed=seed, ecfg=ecfg, device=device)
+    if kv_quant == "none":
+        if ecfg is None:
+            # context 128 pages x 16 = 2048 tokens; 4096 pages = 8 GiB of bf16 KV
+            ecfg = EngineConfig(max_batch=32, page_size=16, num_pages=4096, max_pages_per_seq=128)
+        params = None
+    else:
+        ecfg = dataclasses.replace(state["ecfg"], kv_quant_dtype=kv_quant)
+        params = state["params"]
+    server, backend = build_model_node(model, seed=seed, ecfg=ecfg, device=device, params=params)
     if on_card:
         torch.cuda.synchronize()
-        log(f"[serve] {model} weights drawn on the card in {time.perf_counter() - t0:.1f} s; "
+        log(f"[serve {kv_quant}] {model} node built in {time.perf_counter() - t0:.1f} s; "
             f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated (weights + KV pool)")
     eng = backend.engine
-    state["params"], state["cfg"] = eng.params, eng.cfg
+    state["params"], state["cfg"], state["ecfg"] = eng.params, eng.cfg, ecfg
 
     # per-path launch tallies: wrap the engine's three device paths
     tally = {"decode": {}, "dense_prefill": {}, "suffix_prefill": {}}
@@ -434,14 +584,25 @@ def phase_serve(results, state, seed: int, model="llama-3-8b", device="cuda", ec
     assert health["status"] == "ok"
     st = eng.stats
     assert st["prefix_cache_hits"] >= 1, "the second turn did not hit its session"
-    log(f"[serve] launches {launches}; by path {tally}")
-    for path, key in (("decode", "ragged_paged_attention"),
+    log(f"[serve {kv_quant}] launches {launches}; by path {tally}")
+    ragged = "ragged_paged_attention" + ("" if kv_quant == "none" else f"_{kv_quant}")
+    for path, key in (("decode", ragged),
                       ("dense_prefill", "dense_causal_attention"),
-                      ("suffix_prefill", "ragged_paged_attention")):
+                      ("suffix_prefill", ragged)):
         n = tally[path].get(key, 0)
         assert n > 0, f"{key} was not launched on the {path} path"
     for key, n in launches.items():
-        assert n > 0, f"{key} was never launched on the main path"
+        if key in (ragged, "dense_causal_attention"):
+            assert n > 0, f"{key} was never launched on the main path"
+        else:  # another pool kind's variant: never on this path
+            assert n == 0, f"{key} was launched {n} times serving kv_quant_dtype={kv_quant}"
+    peak = torch.cuda.max_memory_allocated() / 2**30 if on_card else None
+    if kv_quant != "none":
+        assert st["kv_quant_pages_total"] > 0, "no quantized page was allocated"
+        if on_card:
+            assert peak < results["serve"]["peak_mem_gib"], (
+                f"{kv_quant} serve peaked at {peak:.2f} GiB, not below the bf16 serve's "
+                f"{results['serve']['peak_mem_gib']:.2f} GiB")
     ttft = sorted(eng.ttft_ms)
     out = {
         "requests": len(prompts) + 1,
@@ -458,14 +619,19 @@ def phase_serve(results, state, seed: int, model="llama-3-8b", device="cuda", ec
         "prefill_s": eng.timing["prefill_s"],
         "prefix_cache_hits": st["prefix_cache_hits"],
         "prefix_tokens_reused": st["prefix_tokens_reused"],
-        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30 if on_card else None,
+        "peak_mem_gib": peak,
+        "kv_quant_dtype": kv_quant,
+        "kv_pool_gib": eng.cache.hbm_bytes() / 2**30,
+        "kv_quant_pages_total": st["kv_quant_pages_total"],
+        "kv_quant_bytes_saved_total": st["kv_quant_bytes_saved_total"],
         "launches": launches,
         "launches_by_path": tally,
     }
-    results["serve"] = out
-    log(f"[serve] {out['requests']} requests answered; TTFT p50 {out['ttft_ms_p50']:.1f} ms, "
-        f"decode {out['decode_tok_per_s']:.1f} tok/s over {out['decode_steps']} steps, "
-        f"peak {out['peak_mem_gib']} GiB")
+    results["serve" if kv_quant == "none" else f"serve_{kv_quant}"] = out
+    log(f"[serve {kv_quant}] {out['requests']} requests answered; TTFT p50 "
+        f"{out['ttft_ms_p50']:.1f} ms, decode {out['decode_tok_per_s']:.1f} tok/s over "
+        f"{out['decode_steps']} steps, peak {out['peak_mem_gib']} GiB, KV pool "
+        f"{out['kv_pool_gib']:.2f} GiB")
 
 
 def phase_forward(results, state, seed: int):
@@ -530,27 +696,33 @@ def phase_forward(results, state, seed: int):
 
 
 def kernels_line(results) -> dict:
-    """One entry per kernel wrapper: times and bound at its main-path shape
-    (bf16, the served dtype), ``max_abs_err`` the worst over every bf16
-    shape it was held at, ``launches`` from the serve phase."""
+    """One entry per kernel wrapper and pool kind: times and bound at its
+    main-path shape (bf16, the served dtype), ``max_abs_err`` the worst over
+    every bf16 shape it was held at (for a quantized variant, against the
+    plain version with the kernel's semantics, check (b)), ``launches`` from
+    the serve phase of its pool kind."""
     shapes = results["shapes"]
-    launches = results["serve"]["launches"]
-    picks = (
-        ("ragged_paged_attention", "llama3_decode_ctx2k/bfloat16", f"{TPU_KERNEL}:61"),
-        ("dense_causal_attention", "dense_B4_S512_H32_Kh8_hd128/bfloat16", f"{TPU_KERNEL}:485"),
-    )
+    picks = [
+        ("ragged_paged_attention", "llama3_decode_ctx2k/bfloat16", f"{TPU_KERNEL}:61", "serve"),
+        ("dense_causal_attention", "dense_B4_S512_H32_Kh8_hd128/bfloat16", f"{TPU_KERNEL}:485",
+         "serve"),
+    ] + [(f"ragged_paged_attention_{m}", f"llama3_decode_ctx2k_{m}/bfloat16", f"{TPU_KERNEL}:95",
+          f"serve_{m}") for m in QUANT_MODES]
     out = []
-    for name, shape, replaces in picks:
+    for name, shape, replaces, serve in picks:
         row = shapes[shape]
-        errs = [r["max_abs_err"] for r in shapes.values()
-                if r["kernel"] == name and r["dtype"] == "bfloat16"]
-        out.append({
+        held = [r for r in shapes.values() if r["kernel"] == name and r["dtype"] == "bfloat16"]
+        entry = {
             "name": name, "route": "cuda", "source": RAGGED_SRC, "replaces": replaces,
-            "launches": launches[name], "max_abs_err": max(errs),
+            "launches": results[serve]["launches"][name],
+            "max_abs_err": max(r["max_abs_err"] for r in held),
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row["library_ms"], "shape": shape,
-        })
+        }
+        if "parity_over_tol" in row:
+            entry["worst_parity_over_tol"] = max(r["parity_over_tol"] for r in held)
+        out.append(entry)
     return {"kernels": out}
 
 
@@ -581,6 +753,8 @@ def main() -> int:
         phase_build(results)
         phase_check(results)
         phase_serve(results, state, args.seed)
+        for mode in QUANT_MODES:
+            phase_serve(results, state, args.seed, kv_quant=mode)
         phase_forward(results, state, args.seed)
     finally:
         results["wall_s"] = time.perf_counter() - t0

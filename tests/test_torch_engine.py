@@ -10,9 +10,20 @@ hit). Both engines set ``prefill_chunk=16`` explicitly: the JAX engine on
 its plain path does not resolve it, and the port's automatic value would be
 this config's whole 64-token context.
 
-Greedy tokens must be identical, logprobs within 1e-4 (float32 math in
-another order), the prefix-cache gauges and counters identical, and no page
-may stay referenced once the sessions are dropped."""
+Both engines run the same ``kv_quant_dtype`` ("none", "int8" or "fp8").
+Greedy tokens must be identical, logprobs within ``LP_TOL[mode]``, the
+prefix-cache and ``kv_quant_*`` gauges and counters identical, and no page
+may stay referenced once the sessions are dropped.
+
+``LP_TOL["none"]`` = 1e-4: float32 math in another order. Quantized pools
+add one step: the two frameworks compute K and V in float32 in another
+order, ~1e-7 apart, and where an element sits within that of a rounding
+boundary of ``x / scale`` the two pools store neighbouring codes, one
+quantization step (1/127 of the slot's max |x| in int8; 2^-3 of the
+element in fp8) apart. Such an element moves one logit by at most a step
+times |q_d| / sqrt(hd), and that shift then passes through the later
+layers: 2e-3 allows a few such flips in a run, and stays 25x inside the
+JAX package's own on/off drift pin of 0.05."""
 
 from __future__ import annotations
 
@@ -32,12 +43,14 @@ from agentfield_tpu_torch.serving import engine
 from agentfield_tpu_torch.serving.sampler import SamplingParams
 
 ECFG = dict(max_batch=4, page_size=8, num_pages=64, max_pages_per_seq=8, prefill_chunk=16)
-LP_TOL = 1e-4
+LP_TOL = {"none": 1e-4, "int8": 2e-3, "fp8": 2e-3}
+KV_MODES = list(LP_TOL)
 PREFIX_COUNTERS = (
     "prefix_cache_hits", "prefix_tokens_reused", "prefix_index_hits", "prefix_index_misses",
     "prefix_cow_copies", "prefix_pages_unpublished", "prefix_batch_deferrals",
     "prefix_pages_published", "prefix_pages_reused", "prefix_pages_evicted",
     "sessions_evicted", "requests_finished", "prefill_tokens",
+    "kv_quant_pages_total", "kv_quant_bytes_saved_total",
 )
 
 
@@ -89,23 +102,28 @@ def _run(eng, req_cls, samp_cls):
     return res
 
 
-def test_engine_matches_jax_engine(weights):
+@pytest.mark.parametrize("mode", KV_MODES)
+def test_engine_matches_jax_engine(weights, mode):
     jcfg, tree, params = weights
-    jeng = jax_engine.InferenceEngine(tree, jcfg, jax_engine.EngineConfig(**ECFG))
+    ecfg = dict(ECFG, kv_quant_dtype=mode)
+    jeng = jax_engine.InferenceEngine(tree, jcfg, jax_engine.EngineConfig(**ecfg))
     want = _run(jeng, jax_engine.Request, JaxSampling)
-    teng = engine.InferenceEngine(params, get_config("llama-tiny"), engine.EngineConfig(**ECFG))
+    teng = engine.InferenceEngine(params, get_config("llama-tiny"), engine.EngineConfig(**ecfg))
     got = _run(teng, engine.Request, SamplingParams)
 
     assert set(got) == set(want)
     for rid in want:
         assert [t for t, _ in got[rid]] == [t for t, _ in want[rid]], rid
         np.testing.assert_allclose(
-            [lp for _, lp in got[rid]], [lp for _, lp in want[rid]], atol=LP_TOL, rtol=0, err_msg=rid
+            [lp for _, lp in got[rid]], [lp for _, lp in want[rid]], atol=LP_TOL[mode], rtol=0,
+            err_msg=rid,
         )
     # the script reached every path it is meant to
     assert teng.stats["prefix_cache_hits"] >= 1  # session turn 2
     assert teng.stats["prefix_index_hits"] >= 1  # shared prefix
     assert teng.stats["prefill_batches"] >= 1  # batched fresh prefill
+    assert (teng.stats["kv_quant_pages_total"] > 0) == (mode != "none")
+    assert teng.kv_page_bytes == jeng.kv_page_bytes
 
     jstats = jeng.prefix_cache_stats()
     for k, v in teng.prefix_cache_stats().items():
@@ -163,10 +181,12 @@ def test_decode_span_keeps_tokens(weights):
     assert span == one and all(len(v) == 7 for v in one.values())
 
 
-def test_engine_retry_and_copy_on_write_match_jax(weights):
+@pytest.mark.parametrize("mode", KV_MODES)
+def test_engine_retry_and_copy_on_write_match_jax(weights, mode):
     """A session's fully resident prompt sent again (a retry) re-prefills
     its last token; when another request holds that page through the
-    shared-prefix index, the engine copies it first (copy-on-write)."""
+    shared-prefix index, the engine copies it first (copy-on-write: values
+    and, for a quantized pool, scales)."""
     jcfg, tree, params = weights
     rng = np.random.default_rng(5)
     p = rng.integers(1, 512, 16).tolist()
@@ -184,12 +204,17 @@ def test_engine_retry_and_copy_on_write_match_jax(weights):
                 id=rid, prompt=pr, sampling=samp_cls(max_new_tokens=n), session_id=sid)))
         return res
 
-    jeng = jax_engine.InferenceEngine(tree, jcfg, jax_engine.EngineConfig(**ECFG))
+    ecfg = dict(ECFG, kv_quant_dtype=mode)
+    jeng = jax_engine.InferenceEngine(tree, jcfg, jax_engine.EngineConfig(**ecfg))
     want = run(jeng, jax_engine.Request, JaxSampling)
-    teng = engine.InferenceEngine(params, get_config("llama-tiny"), engine.EngineConfig(**ECFG))
+    teng = engine.InferenceEngine(params, get_config("llama-tiny"), engine.EngineConfig(**ecfg))
     got = run(teng, engine.Request, SamplingParams)
     for rid in want:
         assert [t for t, _ in got[rid]] == [t for t, _ in want[rid]], rid
+        np.testing.assert_allclose(
+            [lp for _, lp in got[rid]], [lp for _, lp in want[rid]], atol=LP_TOL[mode], rtol=0,
+            err_msg=rid,
+        )
     assert teng.stats["prefix_cow_copies"] >= 1
     for k in PREFIX_COUNTERS + ("admission_reorders",):
         assert teng.stats[k] == jeng.stats[k], k
