@@ -21,37 +21,76 @@
 // logit is <= -5e29, l is floored at 1e-30.
 //
 // Quantized pools (ops/kv_quant.py has the format): phase A dequantizes each
-// cached key row on load, value * its slot's scale in f32, as the TPU kernel
-// does; phase B reads k_new/v_new unquantized (same-launch keys never
-// round-trip the pool). Phase C quantizes each written (token, KV head) row
-// with kv_quantize's formula, one warp per row: max |x| over hd by shuffles
-// (order-independent, so exact), scale = max(max * f32(1/QMAX), 1e-20), an
-// IEEE division x / scale (__fdiv_rn: the build never sets fast math), then
-// round half to even and clamp to +-127 (int8) or a round-to-nearest-even
-// cast to e4m3 (fp8). Every step is the plain version's, so the pool bytes
-// and scales equal kv_quantize's bit for bit.
+// cached key on load (value * its slot's scale, in f32), phase B reads
+// k_new/v_new unquantized (same-launch keys never round-trip the pool).
+// Phase C quantizes each written (token, KV head) row with kv_quantize's
+// formula, one warp per row: max |x| over hd by shuffles (order-free, so
+// exact), scale = max(max * f32(1/QMAX), 1e-20), an IEEE division x / scale
+// (__fdiv_rn: the build never sets fast math), then round half to even and
+// clamp to +-127 (int8) or a round-to-nearest-even cast to e4m3 (fp8). The
+// pool bytes and scales equal kv_quantize's bit for bit.
 //
-// Design. One CTA of 128 threads per (row r, KV head, query tile). The TPU
-// program holds all W*rep query rows of a (row, KV head) in VMEM; at W=256,
-// rep=4, hd=128 that is 512 KB of f32, more than a block's 227 KB of shared
-// memory, so query rows are tiled (QT = 64, or 8 for decode-shaped rows).
-// Keys stream through shared memory 32 at a time (one key per lane in the
-// softmax pass); the running max/sum live in shared memory and the output
-// accumulator in registers (QT*HD/128 floats per thread). All arithmetic is
-// f32 on the CUDA cores; bf16 inputs are widened on load. Phase C is a second
-// launch on the same stream after the attention launch: attention reads only
-// cached positions < ctx <= row_starts, which no token of the launch writes,
-// so the final pool bytes equal the TPU kernel's copy-then-patch.
+// The card (H100 SXM): 3.35 TB/s HBM, 989 TFLOP/s bf16 on the tensor cores,
+// 67 TFLOP/s f32 on the CUDA cores, 132 SMs of 227 KB shared memory. A
+// launch takes one of three paths, by the packed query rows of a (row, KV
+// head), nq = W * rep (W query tokens, rep = H / Kh heads per KV head):
 //
-// Bound on the H100 (3.35 TB/s HBM, 989 TFLOP/s bf16 tensor cores): decode
-// is bound by the bytes of cached pages read (each row streams ctx*Kh*hd
-// values of K and of V once: 2 bytes each in bf16, 1 plus 4 bytes of scale
-// per slot when quantized); long prefill chunks are bound by the 4*q*k*hd
-// FLOPs. This
-// simple design reads each page once per (row, KV head, query tile) — once
-// for decode — with 16-byte vector loads, but does not overlap loads with
-// compute (no cp.async/TMA pipeline) and does the FLOPs on CUDA cores, not
-// wgmma; both are work for a later change. PERF.md has its measured times.
+// Path 1, nq > 8 in bf16 (dense, chunked and suffix prefill): a CTA of 4
+//   warps holds 64 packed query rows (token w = i / rep, head kvh*rep +
+//   i % rep), 16 a warp. Long chunks are bound by the 4 * q * k * hd FLOPs,
+//   so the FLOPs go to the tensor cores: mma.sync m16n8k16 bf16 -> f32 fed by
+//   ldmatrix (.trans for V), the FlashAttention-2 register layout. Q stays in
+//   registers as A fragments; S = Q K^T and O += P V accumulate in f32
+//   registers; the online softmax runs in registers with row max and sum
+//   over the quad of lanes that share a row. Key/value tiles of 64 keys
+//   arrive raw through a 2-stage cp.async ring, rows padded by 16 bytes so
+//   that ldmatrix hits no bank conflict; the next tile loads while this one
+//   computes, and a tile costs one __syncthreads (two on quantized pools,
+//   whose raw tile is first widened to bf16 in shared memory). Q passes
+//   through the second ring stage before the ring first needs it, so a CTA
+//   holds 70 KB (bf16 pools) and 2 CTAs fit an SM at about 220 registers.
+//   mma.sync, not wgmma: wgmma's 64-row warpgroup tile would have to carry
+//   the ragged tokens x rep packing and its B operand in shared memory
+//   descriptors; a later change can take that step. Numerics: Q and K/V
+//   are bf16 and so exact in the MMA; sm_scale (times log2 e: scores are
+//   kept in log2 units for exp2f) is applied to S in f32.
+//   Quantized pools: int8 values and every e4m3 value convert to bf16
+//   exactly, so the MMA runs on the raw values, score column j is scaled by
+//   its slot's K scale in f32 and the V scale is folded into P's column j.
+//   P goes to the MMA split in two, P_hi = bf16(P) and P_lo = bf16(P -
+//   P_hi) (two P V products, relative error about 2^-17 instead of bf16's
+//   2^-9): near-zero outputs are held to an absolute 1e-5, which a single
+//   rounding of P can exceed. Tiles past the tile's last query are skipped;
+//   only tiles that straddle the diagonal, the window edge or ctx are
+//   masked element by element.
+//
+// Path 2, nq <= 8, f32 or bf16 (decode): bound by the bytes of cached pages
+//   (ctx * Kh * hd values of K and of V per row, 2 bytes each in bf16, 1 plus
+//   a 4-byte scale per slot when quantized). One CTA per (row, KV head) would
+//   give 256 CTAs walking 2k keys each for 132 SMs, so the context is split:
+//   a CTA takes 256 cached keys of one (row, KV head) (2048 CTAs at 32 rows x
+//   8 KV heads x 2k), keeps a cp.async ring of 32-key raw page tiles in
+//   flight (4 stages of int8/fp8, 3 of bf16/f32; the split's page ids are
+//   read once into shared memory) and converts to f32 in registers at use.
+//   A lane holds 8 values of hd for every query row in registers; hd / 8
+//   lanes share a key and reduce its dot products by shuffles, a warp
+//   scores 32 / (hd / 8) keys at once, and a tile's dots are all taken
+//   before its one online-softmax step per row, so the shuffles overlap.
+//   Query rows past nq are not computed (a 4-row instance serves rep 4
+//   decode). Scores are kept in log2 units (exp2f). Each split writes a
+//   partial (m, l, acc) in f32 to scratch the wrapper allocates; one more CTA
+//   per (row, KV head) runs phase B, and a combine launch merges the
+//   partials with the online-softmax recurrence and finalizes. Splits past
+//   ctx or before the window's first key, and padding rows, do no work.
+//
+// Path 3, nq > 8 in f32: the CUDA-core tile of the first port (64 query
+//   rows, keys widened to f32 in shared memory). Tensor-core TF32 would not
+//   meet the f32 bound, and f32 is not served.
+//
+// Phase C is a separate launch after the attention on the same stream:
+// attention reads only cached positions < ctx <= row_starts, which no token
+// of the launch writes, so the final pool bytes equal the TPU kernel's
+// copy-then-patch. PERF.md has the measured times.
 
 #include <cuda_bf16.h>
 #include <cuda_fp8.h>
@@ -63,9 +102,12 @@
 namespace {
 
 constexpr int NT = 128;  // threads per CTA
-constexpr int KB = 32;   // keys per shared-memory block (one per lane)
+constexpr int KB = 32;   // path 3: keys per shared-memory block (one per lane)
 constexpr float NEG_INF = -1e30f;
 constexpr int NO_KEY = 0x7fffffff;  // key-position marker: slot holds no key
+constexpr unsigned FULL = 0xffffffffu;
+
+using bf16 = __nv_bfloat16;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -108,10 +150,853 @@ struct Args {
   const int* n_tokens;
   const int* ctx_lens;
   const int* seq_ids;
+  float* part;         // path 2: [R, Kh, nsplit + 1] partials (decode_part_floats)
   int R, W, H, Kh, ps, maxp;
   float sm_scale;
-  int window;  // 0 = no sliding window
+  int window;    // 0 = no sliding window
+  int ps_shift;  // log2(ps) when ps is a power of two, else -1
 };
+
+// Pool row (page, KV head, slot) of cached key position kp, through the
+// page id of kp's page (kp / ps): one shift when ps is a power of two.
+__device__ __forceinline__ int page_index(const Args& a, int kp) {
+  return a.ps_shift >= 0 ? kp >> a.ps_shift : kp / a.ps;
+}
+__device__ __forceinline__ long long pool_row(const Args& a, int page, int kvh, int kp) {
+  const int slot = a.ps_shift >= 0 ? kp & (a.ps - 1) : kp % a.ps;
+  return ((long long)page * a.Kh + kvh) * a.ps + slot;
+}
+
+// ---------------------------------------------------------------------------
+// cp.async (sm_80+) with zero fill: src_size 0 writes zeros and reads nothing.
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+__device__ __forceinline__ void cp16(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp4(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+template <int N> __device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Eight consecutive values as f32 (16-byte aligned for 2-byte types, 8-byte
+// for 1-byte types, 32 bytes for f32).
+__device__ __forceinline__ void load8(const float* p, float* f) {
+  const float4 a = *reinterpret_cast<const float4*>(p);
+  const float4 b = *reinterpret_cast<const float4*>(p + 4);
+  f[0] = a.x; f[1] = a.y; f[2] = a.z; f[3] = a.w;
+  f[4] = b.x; f[5] = b.y; f[6] = b.z; f[7] = b.w;
+}
+__device__ __forceinline__ void load8(const bf16* p, float* f) {
+  const uint4 u = *reinterpret_cast<const uint4*>(p);
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const float2 x = __bfloat1622float2(h[k]);
+    f[2 * k] = x.x;
+    f[2 * k + 1] = x.y;
+  }
+}
+template <typename PT>
+__device__ __forceinline__ void load8_byte(const PT* p, float* f) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const PT* c = reinterpret_cast<const PT*>(&u);
+#pragma unroll
+  for (int e = 0; e < 8; ++e) f[e] = to_f32(c[e]);
+}
+__device__ __forceinline__ void load8(const int8_t* p, float* f) { load8_byte(p, f); }
+__device__ __forceinline__ void load8(const __nv_fp8_e4m3* p, float* f) { load8_byte(p, f); }
+
+// ---------------------------------------------------------------------------
+// Path 2: split-context decode.
+
+constexpr int DEC_NQ = 8;       // most packed query rows of a decode (row, KV head)
+constexpr int DEC_SPLIT = 256;  // cached keys per split CTA
+constexpr int DEC_TK = 32;      // keys per ring stage
+constexpr int VEC = 8;          // hd values a lane holds per query row
+constexpr float LOG2E = 1.4426950408889634f;  // scores are kept in log2 units: exp2f
+
+__host__ __device__ constexpr int decode_nsplit(int ps, int maxp) {
+  return (ps * maxp + DEC_SPLIT - 1) / DEC_SPLIT;
+}
+// f32 values of one partial: m[DEC_NQ] (log2 units), l[DEC_NQ], acc[DEC_NQ][hd]
+__host__ __device__ constexpr int decode_part_floats(int hd) { return DEC_NQ * (2 + hd); }
+
+// One tile of keys for one warp: STEPS steps of KPW = 32 / G keys, key j =
+// j0 + step * KPW at position kpos0 + j, a key only for jlo <= j < jhi. The
+// G = hd / VEC lanes of a group hold one key's values and reduce its dot
+// products by shuffles; every dot of the tile is taken before the softmax,
+// so the shuffles of all keys and rows overlap. The running max m is shared
+// by the warp's groups; l and acc are per group until the final merge.
+// Rows from nq on are skipped; ALL_ROWS (nq == NQ) drops those checks.
+template <int G, int STEPS, int NQ, int HD, bool SCALED, bool ALL_ROWS, typename S>
+__device__ __forceinline__ void decode_tile(const S* kt, const S* vt, const float* ksc,
+                                            const float* vsc, int j0, int kpos0, int jlo,
+                                            int jhi, bool causal, int nq, int window,
+                                            const int* qp, int gl, float (&q)[NQ][VEC],
+                                            float (&acc)[NQ][VEC], float (&m)[NQ],
+                                            float (&l)[NQ]) {
+  constexpr int KPW = 32 / G;
+  float sc[STEPS][NQ];
+#pragma unroll
+  for (int st = 0; st < STEPS; ++st) {
+    float kf[VEC];
+    load8(kt + (j0 + st * KPW) * HD + gl * VEC, kf);
+#pragma unroll
+    for (int i = 0; i < NQ; ++i) {
+      if (!ALL_ROWS && i >= nq) continue;  // nq is uniform over the CTA
+      float d0 = 0.f, d1 = 0.f;
+#pragma unroll
+      for (int e = 0; e < VEC; e += 2) {
+        d0 = fmaf(q[i][e], kf[e], d0);
+        d1 = fmaf(q[i][e + 1], kf[e + 1], d1);
+      }
+      sc[st][i] = d0 + d1;
+    }
+  }
+#pragma unroll
+  for (int o = G / 2; o > 0; o >>= 1)
+#pragma unroll
+    for (int st = 0; st < STEPS; ++st)
+#pragma unroll
+      for (int i = 0; i < NQ; ++i)
+        if (i < nq) sc[st][i] += __shfl_xor_sync(FULL, sc[st][i], o);
+  float tmax[NQ];
+#pragma unroll
+  for (int i = 0; i < NQ; ++i) tmax[i] = NEG_INF;
+#pragma unroll
+  for (int st = 0; st < STEPS; ++st) {
+    const int j = j0 + st * KPW, kp = kpos0 + j;
+    const bool valid = j >= jlo && j < jhi;
+    float ks = 1.f;
+    if constexpr (SCALED) ks = ksc[j];
+#pragma unroll
+    for (int i = 0; i < NQ; ++i) {
+      if (!ALL_ROWS && i >= nq) continue;
+      const bool keep = valid && (!causal || kp <= qp[i]) && (window == 0 || kp > qp[i] - window);
+      const float x = keep ? sc[st][i] * ks : NEG_INF;
+      sc[st][i] = x;
+      tmax[i] = fmaxf(tmax[i], x);
+    }
+  }
+#pragma unroll
+  for (int o = G; o < 32; o <<= 1)
+#pragma unroll
+    for (int i = 0; i < NQ; ++i)
+      if (i < nq) tmax[i] = fmaxf(tmax[i], __shfl_xor_sync(FULL, tmax[i], o));
+#pragma unroll
+  for (int i = 0; i < NQ; ++i) {
+    if (!ALL_ROWS && i >= nq) continue;
+    const float m_new = fmaxf(m[i], tmax[i]);
+    const float alpha = exp2f(m[i] - m_new);
+    m[i] = m_new;
+    l[i] *= alpha;
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) acc[i][e] *= alpha;
+  }
+#pragma unroll
+  for (int st = 0; st < STEPS; ++st) {
+    const int j = j0 + st * KPW;
+    float vf[VEC];
+    load8(vt + j * HD + gl * VEC, vf);
+    float vs = 1.f;
+    if constexpr (SCALED) vs = vsc[j];
+#pragma unroll
+    for (int i = 0; i < NQ; ++i) {
+      if (!ALL_ROWS && i >= nq) continue;
+      const float p = (sc[st][i] <= NEG_INF / 2) ? 0.f : exp2f(sc[st][i] - m[i]);
+      l[i] += p;
+      const float pv = SCALED ? p * vs : p;
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) acc[i][e] = fmaf(pv, vf[e], acc[i][e]);
+    }
+  }
+}
+
+template <typename T, typename PT, int HD>
+struct DecodeSmem {
+  static constexpr int stages = sizeof(PT) == 1 ? 4 : 3;  // raw tiles in flight
+  static constexpr int ring_tile = DEC_TK * HD * (int)sizeof(PT);  // bytes of one K or V tile
+  static constexpr int stage = 2 * ring_tile + 2 * DEC_TK * 4;      // K, V, k/v scales
+  static constexpr int ring = stages * stage;
+  static constexpr int newkeys = 2 * DEC_TK * HD * (int)sizeof(T);  // phase B: K, V
+  static constexpr int merge = 4 * DEC_NQ * (HD + 2) * 4;           // per-warp partials
+  static constexpr int a_ = ring > newkeys ? ring : newkeys;
+  static constexpr size_t bytes = a_ > merge ? a_ : merge;
+};
+
+// grid (R, Kh, nsplit + 1): z < nsplit is the split of cached keys
+// [z * DEC_SPLIT, (z + 1) * DEC_SPLIT) of phase A; z == nsplit runs phase B.
+// NQ (4 or 8) bounds the live query rows nq = min(W, n_tokens) * rep.
+// bf16 with at most 4 query rows (the served shape): registers capped for 4
+// CTAs an SM (16 warps in flight), which ran faster than 3 without the cap
+template <typename T, typename PT, int HD, int NQ>
+__global__ void __launch_bounds__(NT, (NQ <= 4 && sizeof(T) == 2) ? 4 : 1)
+    decode_split_kernel(Args a) {
+  constexpr bool QUANT = !std::is_same<T, PT>::value;
+  constexpr int G = HD / VEC;           // lanes per key
+  constexpr int KPW = 32 / G;           // keys a warp scores at once
+  constexpr int STEPS = DEC_TK / 4 / KPW;  // a warp takes a quarter of each tile
+  static_assert(DEC_TK % (4 * KPW) == 0, "tile must split over the warps");
+  using L = DecodeSmem<T, PT, HD>;
+  constexpr int STAGES = L::stages;
+  extern __shared__ __align__(16) unsigned char dsmem[];
+  __shared__ int pg_s[DEC_SPLIT + 2];  // page ids of this split's keys
+
+  const int r = blockIdx.x, kvh = blockIdx.y, sp = blockIdx.z;
+  const int nsplit = gridDim.z - 1;
+  const int ntok = a.n_tokens[r];
+  if (ntok <= 0) return;  // padding row: the combine writes its zeros
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int grp = lane / G, gl = lane % G;
+  const int rep = a.H / a.Kh, W = a.W, Kh = a.Kh, ps = a.ps;
+  const int nq = min(W, ntok) * rep;  // live query rows
+  const int start = a.row_starts[r], window = a.window;
+  const int qpos_hi = start + min(W, ntok) - 1;
+  const int ctx_eff = min(a.ctx_lens[r], a.maxp * ps);  // keys past the table are no keys
+  const int k_lo = window > 0 ? max(0, start - window + 1) : 0;
+
+  int lo = 0, hi = 0;
+  if (sp < nsplit) {  // phase A split: keys [lo, hi)
+    lo = max(sp * DEC_SPLIT, k_lo);
+    hi = min((sp + 1) * DEC_SPLIT, ctx_eff);
+    if (lo >= hi) return;  // nothing cached here: the combine skips this split
+  }
+
+  // query rows in registers, times sm_scale and log2(e)
+  const T* qg = reinterpret_cast<const T*>(a.q);
+  const float qscale = a.sm_scale * LOG2E;
+  float q[NQ][VEC], acc[NQ][VEC], m[NQ], l[NQ];
+  int qp[NQ];
+#pragma unroll
+  for (int i = 0; i < NQ; ++i) {
+    qp[i] = start + i / rep;
+    m[i] = NEG_INF;
+    l[i] = 0.f;
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) acc[i][e] = 0.f;
+    if (i < nq) {
+      const int w = i / rep, h = kvh * rep + i % rep;
+      load8(qg + (((long long)r * W + w) * a.H + h) * HD + gl * VEC, q[i]);
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) q[i][e] *= qscale;
+    } else {
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) q[i][e] = 0.f;
+    }
+  }
+  const int j0 = warp * (DEC_TK / 4) + grp;  // this lane group's first key of a tile
+  const bool all_rows = nq == NQ;  // rows fill the instance: skip the row checks
+
+  if (sp < nsplit) {
+    // --- phase A: a STAGES-deep ring of raw page tiles
+    const PT* kpool = reinterpret_cast<const PT*>(a.k_pages);
+    const PT* vpool = reinterpret_cast<const PT*>(a.v_pages);
+    const int base = lo & ~(DEC_TK - 1);
+    const int n_tiles = (hi - base + DEC_TK - 1) / DEC_TK;
+    const int page0 = page_index(a, base);
+    for (int k = tid; k <= page_index(a, hi - 1) - page0; k += NT)
+      pg_s[k] = a.page_tables[(long long)r * a.maxp + page0 + k];
+    __syncthreads();
+    constexpr int CPR = HD * (int)sizeof(PT) / 16;  // 16-byte pieces per key row
+    constexpr int CHUNKS = DEC_TK * CPR;             // pieces of a K (or V) tile
+    auto load_tile = [&](int t, int stage) {
+      unsigned char* st = dsmem + stage * L::stage;
+#pragma unroll
+      for (int k = 0; k < (CHUNKS + NT - 1) / NT; ++k) {
+        const int c = tid + k * NT;
+        if (CHUNKS % NT == 0 || c < CHUNKS) {
+          const int j = c / CPR, piece = c % CPR;
+          const int kp = base + t * DEC_TK + j;
+          const bool ok = kp >= lo && kp < hi;
+          const long long src =
+              ok ? pool_row(a, pg_s[page_index(a, kp) - page0], kvh, kp) * HD : 0;
+          const int dst = j * HD * (int)sizeof(PT) + piece * 16;
+          const int off = piece * (16 / (int)sizeof(PT));
+          cp16(st + dst, kpool + src + off, ok);
+          cp16(st + L::ring_tile + dst, vpool + src + off, ok);
+        }
+      }
+      if constexpr (QUANT) {
+        if (tid < DEC_TK) {
+          const int kp = base + t * DEC_TK + tid;
+          const bool ok = kp >= lo && kp < hi;
+          const long long row = ok ? pool_row(a, pg_s[page_index(a, kp) - page0], kvh, kp) : 0;
+          float* sc = reinterpret_cast<float*>(st + 2 * L::ring_tile) + tid;
+          cp4(sc, a.k_scales + row, ok);
+          cp4(sc + DEC_TK, a.v_scales + row, ok);
+        }
+      }
+    };
+#pragma unroll
+    for (int t = 0; t < STAGES - 1; ++t) {
+      if (t < n_tiles) load_tile(t, t);
+      cp_commit();
+    }
+    for (int t = 0; t < n_tiles; ++t) {
+      cp_wait<STAGES - 2>();  // tile t has landed (this thread's copies)
+      __syncthreads();        // ... everyone's; tile t - 1 fully consumed
+      if (t + STAGES - 1 < n_tiles) load_tile(t + STAGES - 1, (t + STAGES - 1) % STAGES);
+      cp_commit();
+      const unsigned char* st = dsmem + (t % STAGES) * L::stage;
+      const float* ksc = reinterpret_cast<const float*>(st + 2 * L::ring_tile);
+      const int kpos0 = base + t * DEC_TK;
+      const PT* kt = reinterpret_cast<const PT*>(st);
+      const PT* vt = reinterpret_cast<const PT*>(st + L::ring_tile);
+      if (all_rows)
+        decode_tile<G, STEPS, NQ, HD, QUANT, true>(kt, vt, ksc, ksc + DEC_TK, j0, kpos0,
+                                                   lo - kpos0, hi - kpos0, false, nq, window,
+                                                   qp, gl, q, acc, m, l);
+      else
+        decode_tile<G, STEPS, NQ, HD, QUANT, false>(kt, vt, ksc, ksc + DEC_TK, j0, kpos0,
+                                                    lo - kpos0, hi - kpos0, false, nq, window,
+                                                    qp, gl, q, acc, m, l);
+    }
+    cp_wait<0>();
+  } else {
+    // --- phase B: the launch's new keys of this sequence, causal
+    const T* kn = reinterpret_cast<const T*>(a.k_new);
+    const T* vn = reinterpret_cast<const T*>(a.v_new);
+    const int my_seq = a.seq_ids[r];
+    T* kt = reinterpret_cast<T*>(dsmem);
+    T* vt = kt + DEC_TK * HD;
+    constexpr int CPR = HD * (int)sizeof(T) / 16;
+    for (int r2 = 0; r2 < a.R; ++r2) {
+      const int n2 = a.n_tokens[r2];
+      if (n2 <= 0 || a.seq_ids[r2] != my_seq) continue;
+      const int st2 = a.row_starts[r2];
+      for (int jb = 0; jb < n2; jb += DEC_TK) {
+        if (st2 + jb > qpos_hi) break;  // every key past the last query
+        if (window > 0 && st2 + jb + DEC_TK - 1 <= start - window) continue;
+        __syncthreads();  // the previous tile is consumed
+        for (int c = tid; c < 2 * DEC_TK * CPR; c += NT) {
+          const int kv = c / (DEC_TK * CPR), rem = c % (DEC_TK * CPR);
+          const int j = rem / CPR, piece = rem % CPR;
+          const bool ok = jb + j < n2;
+          const long long src = ok ? (((long long)r2 * W + jb + j) * Kh + kvh) * HD : 0;
+          cp16((kv ? vt : kt) + j * HD + piece * (16 / (int)sizeof(T)),
+               (kv ? vn : kn) + src + piece * (16 / (int)sizeof(T)), ok);
+        }
+        cp_commit();
+        cp_wait<0>();
+        __syncthreads();
+        if (all_rows)
+          decode_tile<G, STEPS, NQ, HD, false, true>(kt, vt, nullptr, nullptr, j0, st2 + jb, 0,
+                                                     n2 - jb, true, nq, window, qp, gl, q, acc,
+                                                     m, l);
+        else
+          decode_tile<G, STEPS, NQ, HD, false, false>(kt, vt, nullptr, nullptr, j0, st2 + jb, 0,
+                                                      n2 - jb, true, nq, window, qp, gl, q, acc,
+                                                      m, l);
+      }
+    }
+  }
+
+  // --- merge the key groups of each warp, then the four warps, into one
+  // partial (m, l, acc) of this split
+#pragma unroll
+  for (int o = G; o < 32; o <<= 1) {
+#pragma unroll
+    for (int i = 0; i < NQ; ++i) {
+      if (i < nq) {
+        const float mo = __shfl_xor_sync(FULL, m[i], o);
+        const float lo_ = __shfl_xor_sync(FULL, l[i], o);
+        const float mx = fmaxf(m[i], mo);
+        const float a1 = exp2f(m[i] - mx), a2 = exp2f(mo - mx);
+        l[i] = l[i] * a1 + lo_ * a2;
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) {
+          const float ao = __shfl_xor_sync(FULL, acc[i][e], o);
+          acc[i][e] = acc[i][e] * a1 + ao * a2;
+        }
+        m[i] = mx;
+      }
+    }
+  }
+  __syncthreads();  // the ring (aliased by the merge buffer) is consumed
+  float* mb = reinterpret_cast<float*>(dsmem);  // [4][DEC_NQ][HD + 2]
+  if (grp == 0) {
+#pragma unroll
+    for (int i = 0; i < NQ; ++i) {
+      if (i < nq) {
+        float* row = mb + (warp * DEC_NQ + i) * (HD + 2);
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) row[gl * VEC + e] = acc[i][e];
+        if (gl == 0) {
+          row[HD] = m[i];
+          row[HD + 1] = l[i];
+        }
+      }
+    }
+  }
+  __syncthreads();
+  float* part = a.part + (((long long)r * Kh + kvh) * (nsplit + 1) + sp) * decode_part_floats(HD);
+  for (int e = tid; e < nq * HD; e += NT) {
+    const int i = e / HD, d = e % HD;
+    float mx = NEG_INF;
+#pragma unroll
+    for (int w = 0; w < 4; ++w) mx = fmaxf(mx, mb[(w * DEC_NQ + i) * (HD + 2) + HD]);
+    float lsum = 0.f, o = 0.f;
+#pragma unroll
+    for (int w = 0; w < 4; ++w) {
+      const float* row = mb + (w * DEC_NQ + i) * (HD + 2);
+      const float sc = exp2f(row[HD] - mx);
+      lsum += row[HD + 1] * sc;
+      o += row[d] * sc;
+    }
+    part[2 * DEC_NQ + i * HD + d] = o;
+    if (d == 0) {
+      part[i] = mx;
+      part[DEC_NQ + i] = lsum;
+    }
+  }
+}
+
+// Merge the partials of every split that held keys, and phase B's, then
+// finalize: out = acc / max(l, 1e-30). grid (R, Kh). Mirrors the split
+// choice of decode_split_kernel; ops/paged_attention.py has its plain
+// version (merge_partials_ref, there with m in natural-log units).
+template <typename T>
+__global__ void __launch_bounds__(NT) decode_combine_kernel(Args a, int hd) {
+  const int r = blockIdx.x, kvh = blockIdx.y;
+  const int nsplit = decode_nsplit(a.ps, a.maxp);
+  const int rep = a.H / a.Kh, W = a.W;
+  const int ntok = a.n_tokens[r];
+  const int nq = ntok > 0 ? min(W, ntok) * rep : 0;
+  T* out = reinterpret_cast<T*>(a.out);
+  int s_lo = 0, s_hi = 0;  // splits of phase A that held keys
+  if (nq > 0) {
+    const int start = a.row_starts[r];
+    const int ctx_eff = min(a.ctx_lens[r], a.maxp * a.ps);
+    const int k_lo = a.window > 0 ? max(0, start - a.window + 1) : 0;
+    if (k_lo < ctx_eff) {
+      s_lo = k_lo / DEC_SPLIT;
+      s_hi = (ctx_eff + DEC_SPLIT - 1) / DEC_SPLIT;
+    }
+  }
+  const int pf = decode_part_floats(hd);
+  const float* part = a.part + ((long long)r * a.Kh + kvh) * (nsplit + 1) * pf;
+  const float* pb = part + (long long)nsplit * pf;  // phase B
+  for (int e = threadIdx.x; e < W * rep * hd; e += blockDim.x) {
+    const int i = e / hd, d = e % hd;
+    const int w = i / rep, h = kvh * rep + i % rep;
+    float res = 0.f;  // padding rows and tokens
+    if (i < nq) {
+      float mx = pb[i];
+      for (int s = s_lo; s < s_hi; ++s) mx = fmaxf(mx, part[(long long)s * pf + i]);
+      float sc = exp2f(pb[i] - mx);
+      float lsum = pb[DEC_NQ + i] * sc, o = pb[2 * DEC_NQ + i * hd + d] * sc;
+      for (int s = s_lo; s < s_hi; ++s) {
+        const float* p = part + (long long)s * pf;
+        sc = exp2f(p[i] - mx);
+        lsum += p[DEC_NQ + i] * sc;
+        o += p[2 * DEC_NQ + i * hd + d] * sc;
+      }
+      res = o / fmaxf(lsum, 1e-30f);
+    }
+    out[(((long long)r * W + w) * a.H + h) * hd + d] = from_f32<T>(res);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Path 1: 64 packed query rows on bf16 tensor cores.
+
+constexpr int TC_QT = 64;  // packed query rows per CTA, 16 per warp
+constexpr int TC_KT = 64;  // keys per tile
+constexpr int TC_STAGES = 2;
+
+__device__ __forceinline__ void ldsm_x4(unsigned& r0, unsigned& r1, unsigned& r2, unsigned& r3,
+                                        const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
+               : "r"(smem_u32(p)));
+}
+__device__ __forceinline__ void ldsm_x4_t(unsigned& r0, unsigned& r1, unsigned& r2,
+                                          unsigned& r3, const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
+               : "r"(smem_u32(p)));
+}
+// d += a (16x16 bf16, row) * b (16x8 bf16, col), f32 accumulate
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4], unsigned b0,
+                                         unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // lo in the low half
+  return *reinterpret_cast<const unsigned*>(&v);
+}
+
+template <typename PT, int HD>
+struct TcSmem {
+  static constexpr bool QUANT = !std::is_same<PT, bf16>::value;
+  static constexpr int PITCH = HD + 8;  // bf16 per row: +16 bytes, ldmatrix conflict-free
+  static constexpr int RAW_PITCH = HD + 16;  // bytes per raw int8/fp8 row
+  static constexpr int tile = TC_KT * PITCH * 2;  // bytes of one bf16 K or V tile
+  static constexpr int stage = 2 * tile + 2 * TC_KT * 4;  // K, V, k/v scales
+  // Q passes through the last ring stage on its way to registers, before
+  // the ring first fills it; quantized pools add a bf16 copy of a raw tile
+  static_assert(TC_QT * PITCH * 2 <= stage, "Q tile must fit a ring stage");
+  static constexpr int conv_bytes = QUANT ? 2 * tile : 0;
+  static constexpr size_t bytes = (size_t)TC_STAGES * stage + conv_bytes;
+};
+
+// One key tile: phase A (cached keys at positions pos + j) or phase B (row
+// r2's new keys jb + j at positions pos + j). Keys j outside [jlo, jhi) are
+// no keys (zero-filled, masked).
+struct TcTile {
+  int kind;  // 0 = A, 1 = B, -1 = none
+  int pos, r2, jb, jlo, jhi;
+};
+
+// The tile sequence of a CTA: phase A over [k_lo, ctx_eff) in TC_KT steps,
+// then every same-seq row's new keys up to the tile's last query, skipping
+// tiles wholly before the window. Every thread walks it identically.
+struct TcIter {
+  int phase, kb, r2, jb;
+  __device__ bool next(const Args& a, int my_seq, int k_lo, int ctx_eff, int qpos_lo,
+                       int qpos_hi, TcTile& d) {
+    if (phase == 0) {
+      if (kb < ctx_eff) {
+        d = {0, kb, 0, 0, max(0, k_lo - kb), min(TC_KT, ctx_eff - kb)};
+        kb += TC_KT;
+        return true;
+      }
+      phase = 1;
+      r2 = 0;
+      jb = 0;
+    }
+    while (phase == 1 && r2 < a.R) {
+      const int n2 = a.n_tokens[r2];
+      if (n2 > 0 && a.seq_ids[r2] == my_seq) {
+        const int st2 = a.row_starts[r2];
+        while (jb < n2 && st2 + jb <= qpos_hi) {
+          const int j0 = jb;
+          jb += TC_KT;
+          if (a.window > 0 && st2 + j0 + TC_KT - 1 <= qpos_lo - a.window) continue;
+          d = {1, st2 + j0, r2, j0, 0, min(TC_KT, n2 - j0)};
+          return true;
+        }
+      }
+      ++r2;
+      jb = 0;
+    }
+    phase = 2;
+    return false;
+  }
+};
+
+template <typename PT, int HD>
+__global__ void __launch_bounds__(NT) tc_tile_kernel(Args a) {
+  using L = TcSmem<PT, HD>;
+  constexpr bool QUANT = L::QUANT;
+  constexpr int PITCH = L::PITCH;
+  constexpr int KS = HD / 16;  // k-steps of S = Q K^T
+  constexpr int DT = HD / 8;   // 8-wide dim tiles of O
+  extern __shared__ __align__(16) unsigned char tsmem[];
+  __shared__ TcTile desc[TC_STAGES];
+
+  const int r = blockIdx.x, kvh = blockIdx.y, i0 = blockIdx.z * TC_QT;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int W = a.W, H = a.H, Kh = a.Kh, ps = a.ps;
+  const int rep = H / Kh;
+  const int nq = W * rep;
+  const int rows = min(TC_QT, nq - i0);
+  const int start = a.row_starts[r], ntok = a.n_tokens[r];
+  const int my_seq = a.seq_ids[r], window = a.window;
+  const bf16* qg = reinterpret_cast<const bf16*>(a.q);
+  bf16* out = reinterpret_cast<bf16*>(a.out);
+  auto qoff = [&](int i) -> long long {  // packed row i of the tile
+    const int gi = i0 + i, w = gi / rep, h = kvh * rep + gi % rep;
+    return (((long long)r * W + w) * H + h) * HD;
+  };
+  const int w_lo = i0 / rep;
+  const int w_hi = min((i0 + rows - 1) / rep, ntok - 1);
+  if (w_lo > w_hi) {  // padding row / all-padding tile: zeros, nothing to read
+    for (int e = tid; e < rows * HD; e += NT) out[qoff(e / HD) + e % HD] = __float2bfloat16(0.f);
+    return;
+  }
+  const int qpos_lo = start + w_lo, qpos_hi = start + w_hi;
+  const int ctx_eff = min(a.ctx_lens[r], a.maxp * ps);
+  const int k_lo = window > 0 ? max(0, qpos_lo - window + 1) : 0;
+  const float qscale = a.sm_scale * LOG2E;
+
+  unsigned char* conv = tsmem + TC_STAGES * L::stage;  // quantized pools' bf16 tile
+  unsigned char* q_stage = tsmem + (TC_STAGES - 1) * L::stage;
+  // --- Q tile into registers (A fragments), rows past the tile zero
+  {
+    bf16* qs = reinterpret_cast<bf16*>(q_stage);
+    for (int c = tid; c < TC_QT * (HD / 8); c += NT) {
+      const int i = c / (HD / 8), piece = c % (HD / 8);
+      const bool ok = i < rows;
+      cp16(qs + i * PITCH + piece * 8, qg + (ok ? qoff(i) : 0) + piece * 8, ok);
+    }
+    cp_commit();
+  }
+  cp_wait<0>();
+  __syncthreads();
+  unsigned qa[KS][4];
+  {
+    const bf16* qs = reinterpret_cast<const bf16*>(q_stage);
+    const int row = warp * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk)
+      ldsm_x4(qa[kk][0], qa[kk][1], qa[kk][2], qa[kk][3],
+              qs + row * PITCH + kk * 16 + (lane >> 4) * 8);
+  }
+  __syncthreads();  // Q is in registers: its stage is free for the ring
+
+  // this thread's two rows of the warp's 16: g and g + 8
+  const int g = lane >> 2, tq = lane & 3;
+  int qp[2];
+  bool live[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int gi = i0 + warp * 16 + g + 8 * h;
+    qp[h] = start + gi / rep;
+    live[h] = gi < nq && gi / rep < ntok;
+  }
+  float o[DT][4], m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+#pragma unroll
+  for (int dt = 0; dt < DT; ++dt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[dt][e] = 0.f;
+
+  const PT* kpool = reinterpret_cast<const PT*>(a.k_pages);
+  const PT* vpool = reinterpret_cast<const PT*>(a.v_pages);
+  const bf16* kn = reinterpret_cast<const bf16*>(a.k_new);
+  const bf16* vn = reinterpret_cast<const bf16*>(a.v_new);
+
+  auto load_tile = [&](const TcTile& d, int stage) {
+    unsigned char* st = tsmem + stage * L::stage;
+    if (tid == 0) desc[stage] = d;
+    if (d.kind < 0) return;
+    if (d.kind == 0) {
+      constexpr int CPR = HD * (int)sizeof(PT) / 16;
+      constexpr int CHUNKS = TC_KT * CPR;
+      constexpr int RP = QUANT ? L::RAW_PITCH : PITCH * 2;  // bytes per smem row
+#pragma unroll
+      for (int k = 0; k < (CHUNKS + NT - 1) / NT; ++k) {
+        const int c = tid + k * NT;
+        if (CHUNKS % NT == 0 || c < CHUNKS) {
+          const int j = c / CPR, piece = c % CPR;
+          const int kp = d.pos + j;
+          const bool ok = j >= d.jlo && j < d.jhi;
+          const long long src =
+              ok ? pool_row(a, a.page_tables[(long long)r * a.maxp + page_index(a, kp)], kvh, kp) *
+                       HD
+                 : 0;
+          const int off = piece * (16 / (int)sizeof(PT));
+          cp16(st + j * RP + piece * 16, kpool + src + off, ok);
+          cp16(st + L::tile + j * RP + piece * 16, vpool + src + off, ok);
+        }
+      }
+      if constexpr (QUANT) {
+        if (tid < TC_KT) {
+          const int kp = d.pos + tid;
+          const bool ok = tid >= d.jlo && tid < d.jhi;
+          const long long row =
+              ok ? pool_row(a, a.page_tables[(long long)r * a.maxp + page_index(a, kp)], kvh, kp)
+                 : 0;
+          float* sc = reinterpret_cast<float*>(st + 2 * L::tile) + tid;
+          cp4(sc, a.k_scales + row, ok);
+          cp4(sc + TC_KT, a.v_scales + row, ok);
+        }
+      }
+    } else {
+      constexpr int CHUNKS = TC_KT * (HD / 8);
+#pragma unroll
+      for (int k = 0; k < (CHUNKS + NT - 1) / NT; ++k) {
+        const int c = tid + k * NT;
+        if (CHUNKS % NT == 0 || c < CHUNKS) {
+          const int j = c / (HD / 8), piece = c % (HD / 8);
+          const bool ok = j < d.jhi;
+          const long long src = ok ? (((long long)d.r2 * W + d.jb + j) * Kh + kvh) * HD : 0;
+          const int dst = (j * PITCH + piece * 8) * 2;
+          cp16(st + dst, kn + src + piece * 8, ok);
+          cp16(st + L::tile + dst, vn + src + piece * 8, ok);
+        }
+      }
+    }
+  };
+
+  TcIter it{0, (k_lo / TC_KT) * TC_KT, 0, 0};
+  if (k_lo >= ctx_eff) it.phase = 1;  // nothing cached in reach
+#pragma unroll
+  for (int s = 0; s < TC_STAGES - 1; ++s) {
+    TcTile d{-1, 0, 0, 0, 0, 0};
+    it.next(a, my_seq, k_lo, ctx_eff, qpos_lo, qpos_hi, d);
+    load_tile(d, s);
+    cp_commit();
+  }
+  for (int t = 0;; ++t) {
+    const int stage = t % TC_STAGES;
+    cp_wait<TC_STAGES - 2>();
+    __syncthreads();  // tile t landed everywhere; tile t - 1 fully consumed
+    const TcTile d = desc[stage];
+    if (d.kind < 0) break;
+    {
+      TcTile nx{-1, 0, 0, 0, 0, 0};
+      it.next(a, my_seq, k_lo, ctx_eff, qpos_lo, qpos_hi, nx);
+      load_tile(nx, (t + TC_STAGES - 1) % TC_STAGES);
+      cp_commit();
+    }
+    unsigned char* st = tsmem + stage * L::stage;
+    const bf16* kt = reinterpret_cast<const bf16*>(st);
+    const bf16* vt = reinterpret_cast<const bf16*>(st + L::tile);
+    const float* ksc = reinterpret_cast<const float*>(st + 2 * L::tile);
+    const bool scaled = QUANT && d.kind == 0;
+    if constexpr (QUANT) {
+      if (d.kind == 0) {  // raw int8/fp8 -> bf16, exact
+        bf16* ck = reinterpret_cast<bf16*>(conv);
+        for (int c = tid; c < 2 * TC_KT * (HD / 8); c += NT) {
+          const int kv = c / (TC_KT * (HD / 8)), rem = c % (TC_KT * (HD / 8));
+          const int j = rem / (HD / 8), piece = rem % (HD / 8);
+          float f[8];
+          load8(reinterpret_cast<const PT*>(st + kv * L::tile + j * L::RAW_PITCH) + piece * 8, f);
+          uint4 u;
+          u.x = pack_bf16(f[0], f[1]);
+          u.y = pack_bf16(f[2], f[3]);
+          u.z = pack_bf16(f[4], f[5]);
+          u.w = pack_bf16(f[6], f[7]);
+          *reinterpret_cast<uint4*>(ck + kv * TC_KT * PITCH + j * PITCH + piece * 8) = u;
+        }
+        __syncthreads();
+        kt = ck;
+        vt = ck + TC_KT * PITCH;
+      }
+    }
+
+    // S = Q K^T: 16 rows x 64 keys per warp, 8 n-tiles of 8 keys
+    float s[8][4];
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+#pragma unroll
+      for (int np = 0; np < 4; ++np) {
+        unsigned b0, b1, b2, b3;
+        const int key = np * 16 + (lane & 7) + ((lane >> 4) << 3);
+        ldsm_x4(b0, b1, b2, b3, kt + key * PITCH + kk * 16 + ((lane >> 3) & 1) * 8);
+        mma_bf16(s[2 * np], qa[kk], b0, b1);
+        mma_bf16(s[2 * np + 1], qa[kk], b2, b3);
+      }
+    }
+    // scale, mask, online softmax in registers
+    const bool need_mask = d.jlo > 0 || d.jhi < TC_KT ||
+                           (d.kind == 1 && d.pos + TC_KT - 1 > qpos_lo) ||
+                           (window > 0 && d.pos <= qpos_hi - window);
+    float mx[2] = {NEG_INF, NEG_INF};  // scores in log2 units: exp2f below
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int h = e >> 1, j = nt * 8 + 2 * tq + (e & 1);
+        float x = s[nt][e] * qscale;
+        if (scaled) x *= ksc[j];
+        if (need_mask) {
+          const int kp = d.pos + j;
+          const bool keep = j >= d.jlo && j < d.jhi && (d.kind == 0 || kp <= qp[h]) &&
+                            (window == 0 || kp > qp[h] - window);
+          if (!keep) x = NEG_INF;
+        }
+        s[nt][e] = x;
+        mx[h] = fmaxf(mx[h], x);
+      }
+    }
+    float alpha[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(FULL, mx[h], 1));
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(FULL, mx[h], 2));
+      const float m_new = fmaxf(m[h], mx[h]);
+      alpha[h] = exp2f(m[h] - m_new);
+      m[h] = m_new;
+      l[h] *= alpha[h];
+    }
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int h = e >> 1;
+        const float p = (s[nt][e] <= NEG_INF / 2) ? 0.f : exp2f(s[nt][e] - m[h]);
+        l[h] += p;  // this lane's columns; the quad sums at the end
+        s[nt][e] = scaled ? p * ksc[TC_KT + nt * 8 + 2 * tq + (e & 1)] : p;
+      }
+    }
+#pragma unroll
+    for (int dt = 0; dt < DT; ++dt) {
+      o[dt][0] *= alpha[0];
+      o[dt][1] *= alpha[0];
+      o[dt][2] *= alpha[1];
+      o[dt][3] *= alpha[1];
+    }
+    // O += P V, P split into bf16 hi + lo parts
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      unsigned ph[4], pl[4];
+#pragma unroll
+      for (int x = 0; x < 4; ++x) {
+        // x: 0 = (row g, tile 2kk), 1 = (row g+8, tile 2kk), 2/3 = tile 2kk+1
+        const float* c = &s[2 * kk + (x >> 1)][(x & 1) * 2];
+        const __nv_bfloat162 hi = __floats2bfloat162_rn(c[0], c[1]);
+        const float2 hf = __bfloat1622float2(hi);
+        ph[x] = *reinterpret_cast<const unsigned*>(&hi);
+        pl[x] = pack_bf16(c[0] - hf.x, c[1] - hf.y);
+      }
+#pragma unroll
+      for (int dp = 0; dp < DT / 2; ++dp) {
+        unsigned b0, b1, b2, b3;
+        const int key = kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
+        ldsm_x4_t(b0, b1, b2, b3, vt + key * PITCH + dp * 16 + (lane >> 4) * 8);
+        mma_bf16(o[2 * dp], ph, b0, b1);
+        mma_bf16(o[2 * dp], pl, b0, b1);
+        mma_bf16(o[2 * dp + 1], ph, b2, b3);
+        mma_bf16(o[2 * dp + 1], pl, b2, b3);
+      }
+    }
+  }
+  cp_wait<0>();
+
+  // --- finalize: rows that never accumulated (or padding tokens) give 0
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l[h] += __shfl_xor_sync(FULL, l[h], 1);
+    l[h] += __shfl_xor_sync(FULL, l[h], 2);
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int i = warp * 16 + g + 8 * h;
+    if (i >= rows) continue;
+    const float lf = fmaxf(l[h], 1e-30f);
+    bf16* dst = out + qoff(i) + 2 * tq;
+#pragma unroll
+    for (int dt = 0; dt < DT; ++dt) {
+      const float v0 = live[h] ? o[dt][2 * h] / lf : 0.f;
+      const float v1 = live[h] ? o[dt][2 * h + 1] / lf : 0.f;
+      *reinterpret_cast<__nv_bfloat162*>(dst + dt * 8) = __floats2bfloat162_rn(v0, v1);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Path 3: the f32 CUDA-core tile (64 query rows; keys widened to f32 in
+// shared memory 32 at a time, running max/sum in shared memory).
 
 template <int HD, int QT>
 struct Smem {
@@ -410,32 +1295,56 @@ __global__ void kv_write_quant_kernel(Args a, int hd) {
   }
 }
 
-template <typename T, typename PT, int HD, int QT>
-cudaError_t launch_attention(const Args& a, int n_tiles, cudaStream_t stream) {
-  const size_t smem = Smem<HD, QT>::bytes;
-  cudaError_t err = cudaFuncSetAttribute(ragged_attention_kernel<T, PT, HD, QT>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  dim3 grid(a.R, a.Kh, n_tiles);
-  ragged_attention_kernel<T, PT, HD, QT><<<grid, NT, smem, stream>>>(a);
-  return cudaGetLastError();
+// Path 1 (bf16, nq > 8), 2 (nq <= 8) or 3 (f32, nq > 8) for these widths.
+constexpr int attention_path(int W, int H, int Kh, int dtype) {
+  return W * (H / Kh) <= DEC_NQ ? 2 : (dtype == 1 ? 1 : 3);
+}
+
+template <typename K>
+cudaError_t allow_smem(K kernel, size_t bytes) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
 template <typename T, typename PT, int HD>
-cudaError_t dispatch_tile(const Args& a, cudaStream_t stream) {
-  const int nq = a.W * (a.H / a.Kh);
-  if (nq <= 8) return launch_attention<T, PT, HD, 8>(a, 1, stream);
-  return launch_attention<T, PT, HD, 64>(a, (nq + 63) / 64, stream);
+cudaError_t launch_attention(const Args& a, int path, cudaStream_t stream) {
+  cudaError_t err;
+  if (path == 2) {
+    if (a.part == nullptr) return cudaErrorInvalidValue;
+    const size_t smem = DecodeSmem<T, PT, HD>::bytes;
+    const dim3 grid(a.R, a.Kh, decode_nsplit(a.ps, a.maxp) + 1);
+    if (a.W * (a.H / a.Kh) <= 4) {
+      if ((err = allow_smem(decode_split_kernel<T, PT, HD, 4>, smem)) != cudaSuccess) return err;
+      decode_split_kernel<T, PT, HD, 4><<<grid, NT, smem, stream>>>(a);
+    } else {
+      if ((err = allow_smem(decode_split_kernel<T, PT, HD, DEC_NQ>, smem)) != cudaSuccess)
+        return err;
+      decode_split_kernel<T, PT, HD, DEC_NQ><<<grid, NT, smem, stream>>>(a);
+    }
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    decode_combine_kernel<T><<<dim3(a.R, a.Kh), NT, 0, stream>>>(a, HD);
+    return cudaGetLastError();
+  }
+  const int tiles = (a.W * (a.H / a.Kh) + TC_QT - 1) / TC_QT;
+  if constexpr (std::is_same<T, bf16>::value) {
+    const size_t smem = TcSmem<PT, HD>::bytes;
+    if ((err = allow_smem(tc_tile_kernel<PT, HD>, smem)) != cudaSuccess) return err;
+    tc_tile_kernel<PT, HD><<<dim3(a.R, a.Kh, tiles), NT, smem, stream>>>(a);
+  } else {
+    const size_t smem = Smem<HD, 64>::bytes;
+    if ((err = allow_smem(ragged_attention_kernel<T, PT, HD, 64>, smem)) != cudaSuccess) return err;
+    ragged_attention_kernel<T, PT, HD, 64><<<dim3(a.R, a.Kh, tiles), NT, smem, stream>>>(a);
+  }
+  return cudaGetLastError();
 }
 
 // Attention for head_dim hd, then (write_kv) phase C on the same stream.
 template <typename T, typename PT>
-cudaError_t run(const Args& a, int hd, int write_kv, cudaStream_t stream) {
+cudaError_t run(const Args& a, int hd, int path, int write_kv, cudaStream_t stream) {
   cudaError_t err;
   switch (hd) {
-    case 32: err = dispatch_tile<T, PT, 32>(a, stream); break;
-    case 64: err = dispatch_tile<T, PT, 64>(a, stream); break;
-    case 128: err = dispatch_tile<T, PT, 128>(a, stream); break;
+    case 32: err = launch_attention<T, PT, 32>(a, path, stream); break;
+    case 64: err = launch_attention<T, PT, 64>(a, path, stream); break;
+    case 128: err = launch_attention<T, PT, 128>(a, path, stream); break;
     default: return cudaErrorInvalidValue;
   }
   if (err != cudaSuccess || !write_kv) return err;
@@ -449,14 +1358,19 @@ cudaError_t run(const Args& a, int hd, int write_kv, cudaStream_t stream) {
 // pool_dtype: the compute dtype's own code (plain pool, no scales), or 2 =
 // int8 / 3 = float8_e4m3fn with both scale pointers set.
 template <typename T>
-cudaError_t run_pool(const Args& a, int hd, int own_code, int pool_dtype, int write_kv,
-                     cudaStream_t stream) {
+cudaError_t run_pool(const Args& a, int hd, int path, int own_code, int pool_dtype,
+                     int write_kv, cudaStream_t stream) {
   const bool scaled = a.k_scales != nullptr && a.v_scales != nullptr;
   const bool unscaled = a.k_scales == nullptr && a.v_scales == nullptr;
-  if (pool_dtype == own_code && unscaled) return run<T, T>(a, hd, write_kv, stream);
-  if (pool_dtype == 2 && scaled) return run<T, int8_t>(a, hd, write_kv, stream);
-  if (pool_dtype == 3 && scaled) return run<T, __nv_fp8_e4m3>(a, hd, write_kv, stream);
+  if (pool_dtype == own_code && unscaled) return run<T, T>(a, hd, path, write_kv, stream);
+  if (pool_dtype == 2 && scaled) return run<T, int8_t>(a, hd, path, write_kv, stream);
+  if (pool_dtype == 3 && scaled) return run<T, __nv_fp8_e4m3>(a, hd, path, write_kv, stream);
   return cudaErrorInvalidValue;
+}
+
+long long part_floats_needed(int R, int W, int H, int Kh, int ps, int maxp, int hd) {
+  if (W * (H / Kh) > DEC_NQ) return 0;
+  return (long long)R * Kh * (decode_nsplit(ps, maxp) + 1) * decode_part_floats(hd);
 }
 
 }  // namespace
@@ -465,19 +1379,36 @@ extern "C" const char* afp_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
+// The path a launch of these widths takes: 1 = bf16 tensor-core tile, 2 =
+// split-context decode (then a combine launch), 3 = f32 CUDA-core tile.
+extern "C" int afp_attention_path(int W, int H, int Kh, int dtype) {
+  return attention_path(W, H, Kh, dtype);
+}
+
+// f32 scratch the decode path needs for its partials (0 on paths 1 and 3).
+extern "C" long long afp_decode_part_floats(int R, int W, int H, int Kh, int ps, int maxp,
+                                            int hd) {
+  return part_floats_needed(R, W, H, Kh, ps, maxp, hd);
+}
+
 // dtype (q, new K/V, out): 0 = float32, 1 = bfloat16. pool_dtype: the same
 // code for a plain pool (k_scales = v_scales = null), or 2 = int8, 3 =
 // float8_e4m3fn with per-slot f32 scales [P, Kh, ps]; any other combination
-// returns cudaErrorInvalidValue. write_kv: 0 skips phase C (the dense
-// packing attends a throwaway pool). Returns cudaGetLastError() after the
-// launches (0 = success); a fault during the run surfaces at the next sync.
+// returns cudaErrorInvalidValue. part: f32 scratch of part_floats values,
+// at least afp_decode_part_floats(...) (may be null when that is 0).
+// write_kv: 0 skips phase C (the dense packing attends a throwaway pool).
+// Returns cudaGetLastError() after the launches (0 = success); a fault
+// during the run surfaces at the next sync.
 extern "C" int afp_ragged_paged_attention(
     const void* q, const void* k_new, const void* v_new, void* k_pages, void* v_pages,
     void* k_scales, void* v_scales, void* out, const void* page_tables, const void* row_starts,
-    const void* n_tokens, const void* ctx_lens, const void* seq_ids, int R, int W, int H,
-    int Kh, int ps, int maxp, int hd, int dtype, int pool_dtype, float sm_scale, int window,
-    int write_kv, void* stream_ptr) {
+    const void* n_tokens, const void* ctx_lens, const void* seq_ids, void* part,
+    long long part_floats, int R, int W, int H, int Kh, int ps, int maxp, int hd, int dtype,
+    int pool_dtype, float sm_scale, int window, int write_kv, void* stream_ptr) {
   if (R <= 0 || W <= 0) return (int)cudaSuccess;
+  if (Kh <= 0 || H % Kh || (dtype != 0 && dtype != 1)) return (int)cudaErrorInvalidValue;
+  if (part_floats < part_floats_needed(R, W, H, Kh, ps, maxp, hd))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t stream = reinterpret_cast<cudaStream_t>(stream_ptr);
   Args a;
   a.q = q; a.k_new = k_new; a.v_new = v_new; a.k_pages = k_pages; a.v_pages = v_pages;
@@ -488,9 +1419,11 @@ extern "C" int afp_ragged_paged_attention(
   a.n_tokens = static_cast<const int*>(n_tokens);
   a.ctx_lens = static_cast<const int*>(ctx_lens);
   a.seq_ids = static_cast<const int*>(seq_ids);
+  a.part = static_cast<float*>(part);
   a.R = R; a.W = W; a.H = H; a.Kh = Kh; a.ps = ps; a.maxp = maxp;
   a.sm_scale = sm_scale; a.window = window;
-  if (dtype == 0) return (int)run_pool<float>(a, hd, 0, pool_dtype, write_kv, stream);
-  if (dtype == 1) return (int)run_pool<__nv_bfloat16>(a, hd, 1, pool_dtype, write_kv, stream);
-  return (int)cudaErrorInvalidValue;
+  a.ps_shift = (ps > 0 && (ps & (ps - 1)) == 0) ? __builtin_ctz((unsigned)ps) : -1;
+  const int path = attention_path(W, H, Kh, dtype);
+  if (dtype == 0) return (int)run_pool<float>(a, hd, path, 0, pool_dtype, write_kv, stream);
+  return (int)run_pool<bf16>(a, hd, path, 1, pool_dtype, write_kv, stream);
 }

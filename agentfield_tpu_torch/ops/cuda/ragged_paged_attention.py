@@ -8,7 +8,12 @@ under their own keys.
 
 A wrapper given CUDA tensors checks them, launches the kernel on the current
 stream and counts the launch in ``LAUNCHES``; anything the kernel does not
-take raises, as does a launch the runtime refuses. Given CPU tensors,
+take raises, as does a launch the runtime refuses. ``PATH_LAUNCHES``
+counts the launches by the kernel's path: ``ragged_tiles_tc`` (bf16
+tensor-core tile: dense, chunked and suffix prefill), ``ragged_tiles_f32``
+(f32 CUDA-core tile), and ``ragged_decode_split`` plus
+``ragged_decode_combine`` (decode: split-context partials, then their
+merge; the wrapper allocates the partials' scratch). Given CPU tensors,
 ``dense_causal_attention`` runs its plain version (``models.llama.
 attention_ref``); ``ragged_paged_attention_cuda`` takes CUDA tensors only —
 the dispatcher ``ops.paged_attention.ragged_paged_attention`` picks the
@@ -41,11 +46,22 @@ LAUNCHES = {
     "ragged_paged_attention_fp8": 0,
     "dense_causal_attention": 0,
 }
+# Launch counts per kernel path (``afp_attention_path``: 1 tensor-core tile,
+# 2 split decode + combine, 3 f32 tile), over every wrapper and pool kind.
+PATH_LAUNCHES = {
+    "ragged_tiles_tc": 0,
+    "ragged_tiles_f32": 0,
+    "ragged_decode_split": 0,
+    "ragged_decode_combine": 0,
+}
+_PATH_KEYS = {1: ("ragged_tiles_tc",), 2: ("ragged_decode_split", "ragged_decode_combine"),
+              3: ("ragged_tiles_f32",)}
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for d in (LAUNCHES, PATH_LAUNCHES):
+        for k in d:
+            d[k] = 0
 
 
 _entry_fn = None
@@ -59,13 +75,18 @@ def _entry():
         # every pointer and the stream as c_void_p: unset argtypes would pass
         # Python ints as 32-bit C ints and cut 64-bit device pointers
         fn.argtypes = (
-            [ctypes.c_void_p] * 13 + [ctypes.c_int] * 9
+            [ctypes.c_void_p] * 14 + [ctypes.c_longlong] + [ctypes.c_int] * 9
             + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
         )
         fn.restype = ctypes.c_int
         lib.afp_error_string.argtypes = [ctypes.c_int]
         lib.afp_error_string.restype = ctypes.c_char_p
-        _entry_fn = (fn, lib.afp_error_string)
+        lib.afp_attention_path.argtypes = [ctypes.c_int] * 4
+        lib.afp_attention_path.restype = ctypes.c_int
+        lib.afp_decode_part_floats.argtypes = [ctypes.c_int] * 7
+        lib.afp_decode_part_floats.restype = ctypes.c_longlong
+        _entry_fn = (fn, lib.afp_error_string, lib.afp_attention_path,
+                     lib.afp_decode_part_floats)
     return _entry_fn
 
 
@@ -125,7 +146,12 @@ def _launch(q, k_new, v_new, k_pages, v_pages, k_scales, v_scales, out, page_tab
         raise ValueError(f"window={window} must be >= 1 or None")
     if R == 0 or W == 0:
         return  # no work: nothing launched, nothing counted
-    fn, err_str = _entry()
+    fn, err_str, path_of, part_floats = _entry()
+    dcode = _DTYPE_CODES[q.dtype]
+    path = path_of(W, H, Kh, dcode)
+    n_part = part_floats(R, W, H, Kh, ps, maxp, hd)
+    # decode partials (m, l, acc per split), f32, written before they are read
+    part = torch.empty((n_part,), dtype=torch.float32, device=dev) if n_part else None
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(
@@ -135,7 +161,8 @@ def _launch(q, k_new, v_new, k_pages, v_pages, k_scales, v_scales, out, page_tab
             None if v_scales is None else v_scales.data_ptr(),
             out.data_ptr(), page_tables.data_ptr(),
             row_starts.data_ptr(), n_tokens.data_ptr(), ctx_lens.data_ptr(),
-            seq_ids.data_ptr(), R, W, H, Kh, ps, maxp, hd, _DTYPE_CODES[q.dtype], pool_code,
+            seq_ids.data_ptr(), None if part is None else part.data_ptr(), n_part,
+            R, W, H, Kh, ps, maxp, hd, dcode, pool_code,
             float(hd**-0.5 if sm_scale is None else sm_scale),
             int(window or 0), int(write_kv), stream,
         )
@@ -145,6 +172,8 @@ def _launch(q, k_new, v_new, k_pages, v_pages, k_scales, v_scales, out, page_tab
             f"({err_str(rc).decode()})"
         )
     LAUNCHES[counter] += 1
+    for key in _PATH_KEYS[path]:
+        PATH_LAUNCHES[key] += 1
 
 
 def ragged_paged_attention_cuda(

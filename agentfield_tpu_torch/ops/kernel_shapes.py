@@ -56,7 +56,9 @@ def build_case(name: str, fast: bool = True, seed: int = 0, params: dict | None 
     """Materialize one shape mix as numpy arrays ``(q, k_new, v_new, k_pages,
     v_pages, page_tables, row_starts, n_tokens, ctx_lens, seq_ids)`` — the
     same draws, in the same order, as the JAX gate's ``build_case``.
-    ``params`` overrides the mix's parameters (custom shapes). A mix with a
+    ``params`` overrides the mix's parameters (custom shapes): ``served``
+    lists one decode row per context, ``pad_to`` pads the launch with empty
+    rows up to that many. A mix with a
     ``kv_dtype`` ("int8" | "fp8") quantizes the pools with the port's
     ``kv_quantize`` and appends ``(k_scales, v_scales)``; its four pool
     arrays are CPU torch tensors, since numpy has no float8 type."""
@@ -67,7 +69,7 @@ def build_case(name: str, fast: bool = True, seed: int = 0, params: dict | None 
     p = params
     ps, maxp, kh, rep, hd = p["page_size"], p["maxp"], p["kh"], p["rep"], p["hd"]
     H = kh * rep
-    entries = []  # (start, n_tokens) per sequence entry
+    entries = [(c, 1) for c in p.get("served", ())]  # (start, n_tokens) per entry
     if "rows" in p:
         for r in range(p["rows"]):
             entries.append((p["ctx"] + (r % 7), 1))
@@ -83,7 +85,7 @@ def build_case(name: str, fast: bool = True, seed: int = 0, params: dict | None 
     rr = pack_ragged_rows(
         [(seq_tables[sid], start, [0] * n) for sid, (start, n) in enumerate(entries)],
         maxp,
-        budget=need * W,
+        budget=max(need, p.get("pad_to", 0)) * W,
         block_q=W,
     )
     R = rr.row_starts.shape[0]

@@ -13,6 +13,11 @@ row's new K/V into the paged pool in the same call.
   tensors run and what the CUDA kernel is held against on the card.
 - ``ops/cuda/ragged_paged_attention.py`` — the hand-written CUDA kernel
   (``csrc/ragged_paged_attention.cu``), which CUDA tensors run.
+- ``decode_split_plan``, ``decode_partials_ref`` and ``merge_partials_ref``
+  — the plain versions of the kernel's split-context decode: which cached
+  keys each split CTA takes, the online-softmax partial ``(m, l, acc)`` of
+  each split (and of the launch's own keys), and the combine step that
+  merges them. ``ragged_paged_attention_split_ref`` chains the three.
 
 Pools are plain tensors or, with ``EngineConfig.kv_quant_dtype``, int8/fp8
 values with per-slot f32 scales (``ops.kv_quant``): both versions
@@ -42,6 +47,9 @@ import torch
 from agentfield_tpu_torch.ops.kv_quant import QuantPages, bits, kv_dequantize, kv_quantize
 
 _NEG_INF = -1e30
+# Cached keys per split CTA of the decode path (DEC_SPLIT in
+# csrc/ragged_paged_attention.cu).
+DECODE_SPLIT = 256
 
 
 class RaggedRows(typing.NamedTuple):
@@ -207,3 +215,114 @@ def paged_attention_ref(
     probs = torch.softmax(logits, dim=-1)
     out = torch.einsum("bkrt,btkh->bkrh", probs, v.float())
     return out.reshape(B, H, hd).to(q.dtype)
+
+
+def decode_split_plan(ctx_len: int, row_start: int, window: int | None, maxp: int,
+                      page_size: int, split: int = DECODE_SPLIT) -> list[tuple[int, int, int]]:
+    """The cached-key ranges of the decode path's split CTAs for one row:
+    ``(s, lo, hi)`` for every split ``s`` that holds keys, together covering
+    ``[k_lo, min(ctx_len, maxp * page_size))`` once, where ``k_lo =
+    row_start - window + 1`` (at least 0) with a window, else 0. Split ``s``
+    may hold keys only in ``[s * split, (s + 1) * split)``; splits with no
+    key do no work and are not merged (the kernel's choice, mirrored)."""
+    ctx_eff = min(ctx_len, maxp * page_size)
+    k_lo = max(0, row_start - window + 1) if window else 0
+    plan = []
+    for s in range(-(-maxp * page_size // split)):
+        lo, hi = max(s * split, k_lo), min((s + 1) * split, ctx_eff)
+        if lo < hi:
+            plan.append((s, lo, hi))
+    return plan
+
+
+def _fold(qf, keys, vals, kpos, qpos, live, causal, window, sm_scale):
+    """Online-softmax partial of packed query rows ``qf [Kh, nq, hd]`` over
+    ``keys``/``vals [n, Kh, hd]`` at positions ``kpos [n]``: (m, l, acc)."""
+    logits = torch.einsum("knd,jkd->knj", qf, keys) * sm_scale
+    keep = live[:, None].expand(-1, len(kpos))
+    if causal:
+        keep = keep & (kpos[None] <= qpos[:, None])
+    if window is not None:
+        keep = keep & (kpos[None] > qpos[:, None] - window)
+    logits = torch.where(keep[None], logits, _NEG_INF)
+    m = logits.max(dim=-1).values
+    p = torch.where(logits <= _NEG_INF / 2, 0.0, torch.exp(logits - m[..., None]))
+    return m, p.sum(-1), torch.einsum("knj,jkd->knd", p, vals)
+
+
+def decode_partials_ref(
+    q, k_new, v_new, k_pages, v_pages, page_tables, row_starts, n_tokens, ctx_lens, seq_ids,
+    k_scales=None, v_scales=None, sm_scale: float | None = None, window: int | None = None,
+    split: int = DECODE_SPLIT,
+):
+    """Plain version of the decode path's split kernel, with the kernel's
+    semantics (cached pages dequantized to float32, the launch's own keys
+    unquantized). For every row and KV head: one online-softmax partial per
+    split of ``decode_split_plan`` over its cached keys, and one (index
+    ``nsplit``) over every same-``seq_id`` row's new keys, causal. Returns
+    ``(m, l, acc)``: ``[R, Kh, nsplit + 1, W * rep]`` and ``[..., hd]``,
+    float32, natural-log units, packed query row ``i = w * rep + h``. A
+    split with no key, a padding row and a padding token hold ``(-1e30, 0,
+    0)``. Pools are not written."""
+    R, W, H, hd = q.shape
+    _, Kh, ps, _ = k_pages.shape
+    maxp = page_tables.shape[1]
+    rep = H // Kh
+    nq = W * rep
+    if sm_scale is None:
+        sm_scale = hd**-0.5
+    kf = k_pages.float() if k_scales is None else kv_dequantize(k_pages, k_scales)
+    vf = v_pages.float() if v_scales is None else kv_dequantize(v_pages, v_scales)
+    ns = -(-maxp * ps // split)
+    m = torch.full((R, Kh, ns + 1, nq), _NEG_INF)
+    l_ = torch.zeros((R, Kh, ns + 1, nq))
+    acc = torch.zeros((R, Kh, ns + 1, nq, hd))
+    qf = q.float().reshape(R, W, Kh, rep, hd).permute(0, 2, 1, 3, 4).reshape(R, Kh, nq, hd)
+    rows = torch.arange(nq)
+    for r in range(R):
+        nt = int(n_tokens[r])
+        if nt <= 0:
+            continue
+        start = int(row_starts[r])
+        qpos, live = start + rows // rep, rows < min(W, nt) * rep
+        for s, lo, hi in decode_split_plan(int(ctx_lens[r]), start, window, maxp, ps, split):
+            kp = torch.arange(lo, hi)
+            pages = page_tables[r].long()[kp // ps]
+            m[r, :, s], l_[r, :, s], acc[r, :, s] = _fold(
+                qf[r], kf[pages, :, kp % ps], vf[pages, :, kp % ps], kp, qpos, live, False,
+                window, sm_scale)
+        mine = [r2 for r2 in range(R) if int(n_tokens[r2]) > 0 and int(seq_ids[r2]) == int(seq_ids[r])]
+        kpos = torch.cat([int(row_starts[r2]) + torch.arange(int(n_tokens[r2])) for r2 in mine])
+        keys = torch.cat([k_new[r2, : int(n_tokens[r2])].float() for r2 in mine])
+        vals = torch.cat([v_new[r2, : int(n_tokens[r2])].float() for r2 in mine])
+        m[r, :, ns], l_[r, :, ns], acc[r, :, ns] = _fold(
+            qf[r], keys, vals, kpos, qpos, live, True, window, sm_scale)
+    return m, l_, acc
+
+
+def merge_partials_ref(m: torch.Tensor, l: torch.Tensor, acc: torch.Tensor) -> torch.Tensor:
+    """Plain version of the decode path's combine step: merge online-softmax
+    partials over the split axis (``m``/``l [..., S, nq]``, ``acc [..., S,
+    nq, hd]``) and finalize, ``sum_s e^(m_s - M) acc_s / max(sum_s e^(m_s -
+    M) l_s, 1e-30)`` with ``M = max_s m_s``. An empty partial ``(-1e30, 0,
+    0)`` adds nothing. Returns ``[..., nq, hd]`` float32."""
+    w = torch.exp(m - m.max(dim=-2, keepdim=True).values)
+    lsum = (w * l).sum(-2)
+    return (w[..., None] * acc).sum(-3) / lsum.clamp_min(1e-30)[..., None]
+
+
+def ragged_paged_attention_split_ref(
+    q, k_new, v_new, k_pages, v_pages, page_tables, row_starts, n_tokens, ctx_lens, seq_ids,
+    k_scales=None, v_scales=None, sm_scale: float | None = None, window: int | None = None,
+    split: int = DECODE_SPLIT,
+) -> torch.Tensor:
+    """The attention output the decode path computes, as split partials
+    merged by the combine step, in plain PyTorch: ``[R, W, H, hd]`` in q's
+    dtype (pools are not written)."""
+    R, W, H, hd = q.shape
+    Kh = k_pages.shape[1]
+    m, l_, acc = decode_partials_ref(
+        q, k_new, v_new, k_pages, v_pages, page_tables, row_starts, n_tokens, ctx_lens, seq_ids,
+        k_scales, v_scales, sm_scale=sm_scale, window=window, split=split)
+    o = merge_partials_ref(m, l_, acc)  # [R, Kh, W * rep, hd]
+    return o.reshape(R, Kh, W, H // Kh, hd).permute(0, 2, 1, 3, 4).reshape(R, W, H, hd).to(q.dtype)

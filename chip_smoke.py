@@ -9,12 +9,20 @@ the result line:
 
 1. ``device``  require CUDA; print ``nvidia-smi`` name and power limit.
 2. ``build``   compile every kernel from ``agentfield_tpu_torch/csrc`` (one
-               nvcc per source, in parallel); print the build seconds.
+               nvcc per source, in parallel); print the build seconds and
+               the tensor-core instructions (HMMA/HGMMA) that ``cuobjdump
+               -sass`` finds in each built library.
 3. ``check``   hold each kernel against its plain PyTorch version on the card
                at the canonical mixes (fast and full) and at the Llama-3-8B
                main-path shapes, in float32 and bfloat16: every output element
                within its bound (``elem_bound``), pools bit-equal outside the
-               garbage page 0; and show at the 2k-context decode shape that
+               garbage page 0. The shapes reach both kernel paths at their
+               edges: decode (the split-context path) at contexts of 0, under
+               one split, not a multiple of the split, with a window across
+               split edges, and at the served decode shape (32 rows, 9 live
+               at the serve's contexts); dense prefill (the tensor-core tile)
+               at hd 32/64/128, rep 1/4/8, S not a multiple of 64, with and
+               without a window. Show at the 2k-context decode shape that
                the bound rejects a kernel fed a quarter of zeroed cached pages
                or a zeroed own key/value. Quantized (int8, fp8) pools, at the
                quantized mixes and the Llama-3-8B shapes, in float32 and
@@ -27,17 +35,25 @@ the result line:
                (c) outputs within ``PARITY_TOL[mode]`` of the plain version
                proper (the JAX package's semantics: own K/V read back
                quantized).
-4. ``time``    CUDA-event medians of kernel and plain version per shape,
-               beside the shape's bound (bytes over 3.35 TB/s or FLOPs over
-               the dtype's peak, whichever is larger; a quantized pool moves
-               1 byte per value plus a 4-byte scale per slot) and, for the
-               dense path, ``scaled_dot_product_attention`` as the library
-               yardstick.
+4. ``time``    per shape: the kernel's device time (``ms``: CUDA-event
+               median over replays of one wrapper call captured in a CUDA
+               graph, so the Python host work of the call is not in it), the
+               eager wrapper call (``call_ms``: CUDA events around the call,
+               host work included where the host is slower than the card) and
+               the plain version, beside the shape's bound (bytes over 3.35
+               TB/s or FLOPs over the dtype's peak, whichever is larger; a
+               quantized pool moves 1 byte per value plus a 4-byte scale per
+               slot); for the dense path ``scaled_dot_product_attention`` as
+               the library call; for the ragged shapes, as a yardstick only,
+               SDPA over K/V gathered beforehand into contiguous rows (the
+               gather not timed; the port never calls it).
 5. ``serve``   full-width ``llama-3-8b`` with random bf16 weights drawn on the
                card from ``--seed``, behind the port's HTTP server: concurrent
                requests (64-1500-token prompts) plus a second session turn;
                every request answered; launch counts per path (decode, dense
-               prefill, suffix prefill) must all be > 0. Then the same
+               prefill, suffix prefill) must all be > 0, and per kernel path:
+               decode through the split-context kernel and its combine,
+               both prefills through the tensor-core tile. Then the same
                requests on the same weights and geometry with
                ``kv_quant_dtype`` "int8" and "fp8": the quantized kernel
                launched on the decode and suffix-prefill paths, the bf16
@@ -58,6 +74,7 @@ import argparse
 import gc
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -80,6 +97,11 @@ SUM_ORDER_ATOL = 1e-5
 RAGGED_SRC = "agentfield_tpu_torch/csrc/ragged_paged_attention.cu"
 TPU_KERNEL = "agentfield_tpu/ops/pallas/ragged_paged_attention_kernel.py"
 QUANT_MODES = ("int8", "fp8")
+# an instruction of cuobjdump -sass: "/*0a40*/  @P0 HMMA.16816.F32.BF16 R4, ..."
+SASS_OP = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_]*)")
+# the serve phase's decode: 9 live slots (8 prompts of 64-1500 tokens and a
+# second session turn, partway through their answers) among 32 rows
+SERVED_CTX = (64, 200, 333, 480, 512, 700, 1100, 1500, 1532)
 
 
 def log(*a):
@@ -95,7 +117,8 @@ def smi_line() -> str:
 
 
 def cuda_ms(fn, n: int = 20, warmup: int = 3) -> float:
-    """Median milliseconds of ``fn`` over ``n`` timed runs (CUDA events)."""
+    """Median milliseconds of ``fn`` over ``n`` timed runs (CUDA events
+    around each eager call: host work shows where the card waits for it)."""
     import torch
 
     for _ in range(warmup):
@@ -109,6 +132,35 @@ def cuda_ms(fn, n: int = 20, warmup: int = 3) -> float:
         b.record()
         b.synchronize()
         times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def graph_ms(fn, n: int = 20) -> float:
+    """Median device milliseconds of one ``fn`` call: ``fn`` captured once in
+    a CUDA graph (after two warm-up calls on a side stream), the graph
+    replayed ``n`` times between CUDA events. The Python host work of the
+    call is not in it."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        fn()
+    times = []
+    for _ in range(n):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        g.replay()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    del g
     return statistics.median(times)
 
 
@@ -132,6 +184,14 @@ def ragged_shapes():
     out["llama3_decode_ctx512"] = dict(l3, rows=32, ctx=512)
     out["llama3_decode_ctx2k"] = dict(l3, rows=32, ctx=2040)
     out["llama3_chunk512_over1k"] = dict(l3, chunk=512, ctx=1024, W=256)
+    # the served decode shape, and the split-context decode path's edges
+    # (its splits hold 256 cached keys): contexts from 0 (row 0) to 6, under
+    # one split, not a multiple of it, and a window across split edges
+    out["llama3_served_decode"] = dict(l3, served=SERVED_CTX, pad_to=32)
+    out["llama3_decode_ctx0"] = dict(l3, rows=8, ctx=0)
+    out["llama3_decode_ctx100"] = dict(l3, rows=8, ctx=100)
+    out["llama3_decode_ctx300"] = dict(l3, rows=8, ctx=300)
+    out["llama3_decode_ctx1000+window300"] = dict(l3, rows=8, ctx=1000, window=300)
     return out
 
 
@@ -146,11 +206,20 @@ def quant_shapes():
     for mode in QUANT_MODES:
         out[f"mixed_ragged_{mode}/fast+window"] = dict(
             QUANT_SHAPES[f"mixed_ragged_{mode}"]["fast"], window=50)
-    for name, p in ragged_shapes().items():
-        if name.startswith("llama3_"):
-            for mode in QUANT_MODES:
-                out[f"{name}_{mode}"] = dict(p, kv_dtype=mode)
+    for name in ("llama3_decode_ctx512", "llama3_decode_ctx2k", "llama3_chunk512_over1k",
+                 "llama3_served_decode", "llama3_decode_ctx300",
+                 "llama3_decode_ctx1000+window300"):
+        for mode in QUANT_MODES:
+            out[f"{name}_{mode}"] = dict(ragged_shapes()[name], kv_dtype=mode)
     return out
+
+
+def dense_shapes():
+    """(B, S, H, Kh, hd, window) of the dense-prefill checks: the Llama-3-8B
+    batch, then hd 32/64, rep 1/4/8, S not a multiple of 64, windows."""
+    return ((4, 512, 32, 8, 128, None), (2, 200, 8, 2, 64, None), (2, 100, 4, 4, 32, None),
+            (1, 333, 16, 2, 64, None), (2, 200, 8, 2, 64, 50), (1, 333, 16, 2, 64, 100),
+            (2, 100, 4, 4, 32, 7))
 
 
 def ragged_work(case, es: int, window, pool_es: int | None = None):
@@ -215,6 +284,8 @@ def bound_ms(bytes_, flops, dtype_name):
 
 
 def phase_build(results):
+    import shutil
+
     from agentfield_tpu_torch.ops.cuda import build
 
     t0 = time.perf_counter()
@@ -222,6 +293,21 @@ def phase_build(results):
     secs = time.perf_counter() - t0
     log(f"[build] {len(libs)} source(s) in {secs:.2f} s: {sorted(libs)}")
     results["build_s"] = secs
+    # tensor-core instructions in the built code (sm_90a SASS)
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = {}
+    for name, path in sorted(libs.items()):
+        if not os.path.exists(tool):
+            log(f"[build] cuobjdump not found: SASS of {name} not read")
+            continue
+        out = subprocess.run([tool, "-sass", str(path)], capture_output=True, text=True,
+                             timeout=300, check=True).stdout
+        ops = [m.group(1) for m in SASS_OP.finditer(out)]
+        sass[name] = {op: ops.count(op) for op in ("HMMA", "HGMMA")}
+        log(f"[build] {name}: SASS tensor-core instructions {sass[name]}")
+    if "ragged_paged_attention" in sass:
+        assert sass["ragged_paged_attention"]["HMMA"] > 0, "no HMMA in the attention library"
+    results["sass_mma"] = sass
 
 
 def _to(t, dtype, dev):
@@ -294,6 +380,7 @@ def phase_check(results):
     from agentfield_tpu_torch.models.llama import attention_ref
     from agentfield_tpu_torch.ops.cuda.ragged_paged_attention import (
         LAUNCHES,
+        PATH_LAUNCHES,
         dense_causal_attention,
         ragged_paged_attention_cuda,
     )
@@ -333,14 +420,19 @@ def phase_check(results):
                     f"{row['faults']}")
             b, f = ragged_work(case_np, q.element_size(), window)
             row["bound_ms"], row["bound_by"] = bound_ms(b, f, dname)
-            row["ms"] = cuda_ms(lambda: ragged_paged_attention_cuda(
-                q, kn, vn, kp_k, vp_k, *desc, window=window))
+
+            def call():
+                return ragged_paged_attention_cuda(q, kn, vn, kp_k, vp_k, *desc, window=window)
+
+            row["ms"], row["call_ms"] = graph_ms(call), cuda_ms(call)
             row["plain_ms"] = cuda_ms(lambda: ragged_paged_attention_ref(
                 q, kn, vn, kp_r, vp_r, *desc, window=window), n=5, warmup=1)
             row["library_ms"] = None
+            row["sdpa_gathered_ms"] = _sdpa_gathered_ms(q, kp, vp, *desc, window=window)
             rows[f"{name}/{dname}"] = row
             log(f"[check] {name:32s} {dname:8s} err={err:.2e} err/bound={ratio:.3f} "
-                f"pools={pools_ok} ms={row['ms']:.4f} plain={row['plain_ms']:.4f} "
+                f"pools={pools_ok} ms={row['ms']:.4f} call={row['call_ms']:.4f} "
+                f"plain={row['plain_ms']:.4f} sdpa(gathered)={row['sdpa_gathered_ms']} "
                 f"bound={row['bound_ms']:.4f} ({row['bound_by']})")
             if not ok:
                 failures.append(f"{name}/{dname}")
@@ -350,37 +442,43 @@ def phase_check(results):
     # dense causal attention (the batched-prefill path) vs its plain version,
     # the model's attention_ref over per-row arange positions
     rng = np.random.default_rng(0)
-    for B, S, H, Kh, hd in ((4, 512, 32, 8, 128), (2, 200, 8, 2, 64)):
+    for B, S, H, Kh, hd, window in dense_shapes():
         pos = torch.arange(S, device=dev).expand(B, S)
         valid = torch.ones((B, S), dtype=torch.bool, device=dev)
         for dname, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
             q = _to((rng.standard_normal((B, S, H, hd)) * 0.3).astype(np.float32), dtype, dev)
             k = _to((rng.standard_normal((B, S, Kh, hd)) * 0.3).astype(np.float32), dtype, dev)
             v = _to((rng.standard_normal((B, S, Kh, hd)) * 0.3).astype(np.float32), dtype, dev)
-            o_r = attention_ref(q, k, v, pos, pos, valid)
-            o_k = dense_causal_attention(q, k, v)
+            o_r = attention_ref(q, k, v, pos, pos, valid, window=window)
+            o_k = dense_causal_attention(q, k, v, window=window)
             torch.cuda.synchronize()
             ok, err, ratio = compare(o_k, o_r, dname)
             row = {"kernel": "dense_causal_attention", "dtype": dname, "max_abs_err": err,
                    "max_err_over_bound": ratio, "max_abs_out": float(o_r.float().abs().max()),
-                   "ok": ok, "B": B, "S": S, "H": H, "Kh": Kh, "hd": hd}
+                   "ok": ok, "B": B, "S": S, "H": H, "Kh": Kh, "hd": hd, "window": window}
             es = q.element_size()
             b = es * B * S * (2 * H + 2 * Kh) * hd
-            f = 4 * B * H * hd * S * (S + 1) // 2
+            keys = sum(min(i + 1, window or S) for i in range(S))  # attended per query row
+            f = 4 * B * H * hd * keys
             row["bound_ms"], row["bound_by"] = bound_ms(b, f, dname)
-            row["ms"] = cuda_ms(lambda: dense_causal_attention(q, k, v))
-            row["plain_ms"] = cuda_ms(lambda: attention_ref(q, k, v, pos, pos, valid),
-                                      n=5, warmup=1)
-            row["library_ms"] = _sdpa_ms(q, k, v)
-            name = f"dense_B{B}_S{S}_H{H}_Kh{Kh}_hd{hd}"
+
+            def call():
+                return dense_causal_attention(q, k, v, window=window)
+
+            row["ms"], row["call_ms"] = graph_ms(call), cuda_ms(call)
+            row["plain_ms"] = cuda_ms(lambda: attention_ref(q, k, v, pos, pos, valid,
+                                                            window=window), n=5, warmup=1)
+            row["library_ms"] = _sdpa_ms(q, k, v, window)
+            name = f"dense_B{B}_S{S}_H{H}_Kh{Kh}_hd{hd}" + (f"_w{window}" if window else "")
             rows[f"{name}/{dname}"] = row
             log(f"[check] {name:32s} {dname:8s} err={err:.2e} err/bound={ratio:.3f} "
-                f"ms={row['ms']:.4f} plain={row['plain_ms']:.4f} sdpa={row['library_ms']} "
-                f"bound={row['bound_ms']:.4f} ({row['bound_by']})")
+                f"ms={row['ms']:.4f} call={row['call_ms']:.4f} plain={row['plain_ms']:.4f} "
+                f"sdpa={row['library_ms']} bound={row['bound_ms']:.4f} ({row['bound_by']})")
             if not ok:
                 failures.append(f"{name}/{dname}")
     failures += _check_quant(rows)
     results["check_launches"] = dict(LAUNCHES)
+    results["check_path_launches"] = dict(PATH_LAUNCHES)
     if failures:
         raise AssertionError(f"kernel disagrees with its plain version: {failures}")
 
@@ -394,6 +492,7 @@ def _check_quant(rows) -> list[str]:
 
     from agentfield_tpu_torch.ops.cuda.ragged_paged_attention import ragged_paged_attention_cuda
     from agentfield_tpu_torch.ops.kernel_shapes import PARITY_TOL, build_case
+    from agentfield_tpu_torch.ops.kv_quant import kv_dequantize
     from agentfield_tpu_torch.ops.paged_attention import ragged_paged_attention_ref
 
     dev = torch.device("cuda")
@@ -437,15 +536,22 @@ def _check_quant(rows) -> list[str]:
                     f"{row['faults']}")
             b, f = ragged_work(case_cpu, q.element_size(), window, pool_es=1)
             row["bound_ms"], row["bound_by"] = bound_ms(b, f, dname)
-            row["ms"] = cuda_ms(lambda: ragged_paged_attention_cuda(
-                q, kn, vn, pk[0], pk[1], *desc, *pk[2:], window=window))
+            def call():
+                return ragged_paged_attention_cuda(q, kn, vn, pk[0], pk[1], *desc, *pk[2:],
+                                                   window=window)
+
+            row["ms"], row["call_ms"] = graph_ms(call), cuda_ms(call)
             row["plain_ms"] = cuda_ms(lambda: ragged_paged_attention_ref(
                 q, kn, vn, pr[0], pr[1], *desc, *pr[2:], window=window), n=5, warmup=1)
             row["library_ms"] = None
+            row["sdpa_gathered_ms"] = _sdpa_gathered_ms(
+                q, kv_dequantize(pools[0], pools[2]).to(q.dtype),
+                kv_dequantize(pools[1], pools[3]).to(q.dtype), *desc, window=window)
             rows[f"{name}/{dname}"] = row
             log(f"[check] {name:32s} {dname:8s} (b) err={err:.2e} err/bound={ratio:.3f} "
                 f"(a) pools={pools_ok} (c) parity={parity:.2e} /tol={row['parity_over_tol']:.3f} "
-                f"ms={row['ms']:.4f} plain={row['plain_ms']:.4f} "
+                f"ms={row['ms']:.4f} call={row['call_ms']:.4f} plain={row['plain_ms']:.4f} "
+                f"sdpa(gathered)={row['sdpa_gathered_ms']} "
                 f"bound={row['bound_ms']:.4f} ({row['bound_by']})")
             if not ok:
                 failures.append(f"{name}/{dname}")
@@ -454,16 +560,52 @@ def _check_quant(rows) -> list[str]:
     return failures
 
 
-def _sdpa_ms(q, k, v):
+def _sdpa_ms(q, k, v, window=None):
     """One PyTorch call computing the same dense causal GQA attention:
-    scaled_dot_product_attention on [B, H, S, hd] views (timed only; the
-    port never calls it)."""
+    scaled_dot_product_attention on [B, H, S, hd] views, causal or, with a
+    window, under the window's boolean mask (timed only; the port never
+    calls it)."""
+    import torch
     import torch.nn.functional as F
 
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    kw = {"is_causal": True}
+    if window:
+        i = torch.arange(q.shape[1], device=q.device)
+        kw = {"attn_mask": (i[None] <= i[:, None]) & (i[None] > i[:, None] - window)}
+    try:
+        return cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=True, **kw))
+    except (TypeError, RuntimeError) as e:
+        log(f"[time] sdpa unavailable here: {e!r}")
+        return None
+
+
+def _sdpa_gathered_ms(q, k_pages, v_pages, tables, starts, ntok, ctx, seqs, window=None):
+    """Yardstick for a ragged launch, gather excluded: each row's page-table
+    context gathered beforehand into contiguous ``[R, Kh, T, hd]`` K/V (not
+    timed), then one scaled_dot_product_attention over it with the plain
+    version's boolean mask (causal on absolute positions, padding rows and
+    tokens, window) and GQA. It does not write the pool and is not the
+    kernel's function; the port never calls it."""
+    import torch
+    import torch.nn.functional as F
+
+    del ctx, seqs
+    R, W, H, hd = q.shape
+    _, Kh, ps, _ = k_pages.shape
+    T = tables.shape[1] * ps
+    t = tables.long()
+    k = k_pages[t].permute(0, 2, 1, 3, 4).reshape(R, Kh, T, hd).contiguous()
+    v = v_pages[t].permute(0, 2, 1, 3, 4).reshape(R, Kh, T, hd).contiguous()
+    pos = starts.long()[:, None] + torch.arange(W, device=q.device)  # [R, W]
+    kpos = torch.arange(T, device=q.device)
+    keep = (kpos <= pos[..., None]) & (torch.arange(W, device=q.device) < ntok[:, None])[..., None]
+    if window:
+        keep = keep & (kpos > pos[..., None] - window)
+    qt = q.transpose(1, 2)
     try:
         return cuda_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=True))
+            qt, k, v, attn_mask=keep[:, None], enable_gqa=True))
     except (TypeError, RuntimeError) as e:
         log(f"[time] sdpa unavailable here: {e!r}")
         return None
@@ -523,11 +665,11 @@ def phase_serve(results, state, seed: int, model="llama-3-8b", device="cuda", ec
         orig = getattr(eng, attr)
 
         def counted(*a, **k):
-            before = dict(rpa.LAUNCHES)
+            before = {**rpa.LAUNCHES, **rpa.PATH_LAUNCHES}
             try:
                 return orig(*a, **k)
             finally:
-                for key, n in rpa.LAUNCHES.items():
+                for key, n in {**rpa.LAUNCHES, **rpa.PATH_LAUNCHES}.items():
                     tally[path][key] = tally[path].get(key, 0) + n - before[key]
 
         setattr(eng, attr, counted)
@@ -574,6 +716,7 @@ def phase_serve(results, state, seed: int, model="llama-3-8b", device="cuda", ec
     finally:
         server.stop()
     launches = dict(rpa.LAUNCHES)
+    path_launches = dict(rpa.PATH_LAUNCHES)
     for i in range(len(prompts)):
         res = answers[i]["result"]
         assert len(res["tokens"]) == max_new and res["finish_reason"] == "length", res["finish_reason"]
@@ -584,7 +727,8 @@ def phase_serve(results, state, seed: int, model="llama-3-8b", device="cuda", ec
     assert health["status"] == "ok"
     st = eng.stats
     assert st["prefix_cache_hits"] >= 1, "the second turn did not hit its session"
-    log(f"[serve {kv_quant}] launches {launches}; by path {tally}")
+    log(f"[serve {kv_quant}] launches {launches}; kernel paths {path_launches}; "
+        f"by engine path {tally}")
     ragged = "ragged_paged_attention" + ("" if kv_quant == "none" else f"_{kv_quant}")
     for path, key in (("decode", ragged),
                       ("dense_prefill", "dense_causal_attention"),
@@ -596,6 +740,14 @@ def phase_serve(results, state, seed: int, model="llama-3-8b", device="cuda", ec
             assert n > 0, f"{key} was never launched on the main path"
         else:  # another pool kind's variant: never on this path
             assert n == 0, f"{key} was launched {n} times serving kv_quant_dtype={kv_quant}"
+    # kernel paths: decode through the split-context kernel and its combine,
+    # both prefills through the tensor-core tile, never the f32 tile
+    for path, keys in (("decode", ("ragged_decode_split", "ragged_decode_combine")),
+                       ("dense_prefill", ("ragged_tiles_tc",)),
+                       ("suffix_prefill", ("ragged_tiles_tc",))):
+        for key in keys:
+            assert tally[path].get(key, 0) > 0, f"{key} was not launched on the {path} path"
+    assert path_launches["ragged_tiles_f32"] == 0, "the f32 tile ran in a bf16 serve"
     peak = torch.cuda.max_memory_allocated() / 2**30 if on_card else None
     if kv_quant != "none":
         assert st["kv_quant_pages_total"] > 0, "no quantized page was allocated"
@@ -625,6 +777,7 @@ def phase_serve(results, state, seed: int, model="llama-3-8b", device="cuda", ec
         "kv_quant_pages_total": st["kv_quant_pages_total"],
         "kv_quant_bytes_saved_total": st["kv_quant_bytes_saved_total"],
         "launches": launches,
+        "path_launches": path_launches,
         "launches_by_path": tally,
     }
     results["serve" if kv_quant == "none" else f"serve_{kv_quant}"] = out
@@ -697,7 +850,8 @@ def phase_forward(results, state, seed: int):
 
 def kernels_line(results) -> dict:
     """One entry per kernel wrapper and pool kind: times and bound at its
-    main-path shape (bf16, the served dtype), ``max_abs_err`` the worst over
+    main-path shape (bf16, the served dtype; ``ms`` the device time of a
+    call, ``call_ms`` the eager call), ``max_abs_err`` the worst over
     every bf16 shape it was held at (for a quantized variant, against the
     plain version with the kernel's semantics, check (b)), ``launches`` from
     the serve phase of its pool kind."""
@@ -719,6 +873,8 @@ def kernels_line(results) -> dict:
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row["library_ms"], "shape": shape,
+            "call_ms": row["call_ms"], "sdpa_gathered_ms": row.get("sdpa_gathered_ms"),
+            "path_launches": results[serve]["path_launches"],
         }
         if "parity_over_tol" in row:
             entry["worst_parity_over_tol"] = max(r["parity_over_tol"] for r in held)
