@@ -73,9 +73,10 @@
 //   flight (4 stages of int8/fp8, 3 of bf16/f32; the split's page ids are
 //   read once into shared memory) and converts to f32 in registers at use.
 //   A lane holds 8 values of hd for every query row in registers; hd / 8
-//   lanes share a key and reduce its dot products by shuffles, a warp
-//   scores 32 / (hd / 8) keys at once, and a tile's dots are all taken
-//   before its one online-softmax step per row, so the shuffles overlap.
+//   lanes (a power of two of them) share a key and reduce its dot products
+//   by shuffles, a warp scores 32 / (hd / 8) keys at once, and a tile's
+//   dots are all taken before its one online-softmax step per row, so the
+//   shuffles overlap.
 //   Query rows past nq are not computed (a 4-row instance serves rep 4
 //   decode). Scores are kept in log2 units (exp2f). Each split writes a
 //   partial (m, l, acc) in f32 to scratch the wrapper allocates; one more CTA
@@ -86,6 +87,16 @@
 // Path 3, nq > 8 in f32: the CUDA-core tile of the first port (64 query
 //   rows, keys widened to f32 in shared memory). Tensor-core TF32 would not
 //   meet the f32 bound, and f32 is not served.
+//
+// Head dims: one build of this source per head dim (-DAFP_HEAD_DIM=16, 32,
+//   64, 96, 128 or 256; ops/cuda/build.py runs the six nvcc processes in
+//   parallel). Path 2 gives a key G = hd / 8 lanes rounded up to a power of
+//   two (hd 96: 12 live lanes of 16, the other 4 hold zeros) and takes a
+//   ring tile of max(32, 4 * 32 / G) keys, so each warp scores at least one
+//   step of keys (hd 16: 64-key tiles). Path 1 at hd 256 splits the output
+//   dims over two CTAs of 128 each (both compute S = Q K^T over all 256):
+//   the f32 O accumulator of 16 rows x 256 would not fit the registers
+//   beside Q. Path 3 at hd 256 takes 32 query rows a CTA.
 //
 // Phase C is a separate launch after the attention on the same stream:
 // attention reads only cached positions < ctx <= row_starts, which no token
@@ -221,9 +232,24 @@ __device__ __forceinline__ void load8(const __nv_fp8_e4m3* p, float* f) { load8_
 
 constexpr int DEC_NQ = 8;       // most packed query rows of a decode (row, KV head)
 constexpr int DEC_SPLIT = 256;  // cached keys per split CTA
-constexpr int DEC_TK = 32;      // keys per ring stage
 constexpr int VEC = 8;          // hd values a lane holds per query row
 constexpr float LOG2E = 1.4426950408889634f;  // scores are kept in log2 units: exp2f
+
+__host__ __device__ constexpr int pow2_at_least(int n) { return n <= 1 ? 1 : 2 * pow2_at_least((n + 1) / 2); }
+
+// Path 2's lane layout for head dim HD: GL = HD / VEC lanes hold a key's
+// values, G (GL rounded up to a power of two) lanes share the key, a warp
+// scores KPW keys at once, a ring tile holds TK keys (at least one step of
+// KPW keys for each of the 4 warps), and a warp takes STEPS steps of a tile.
+template <int HD>
+struct DecGeom {
+  static_assert(HD % VEC == 0 && HD / VEC <= 32, "head_dim must be 8 * (1..32)");
+  static constexpr int GL = HD / VEC;
+  static constexpr int G = pow2_at_least(GL);
+  static constexpr int KPW = 32 / G;
+  static constexpr int TK = 4 * KPW > 32 ? 4 * KPW : 32;
+  static constexpr int STEPS = TK / 4 / KPW;
+};
 
 __host__ __device__ constexpr int decode_nsplit(int ps, int maxp) {
   return (ps * maxp + DEC_SPLIT - 1) / DEC_SPLIT;
@@ -238,7 +264,7 @@ __host__ __device__ constexpr int decode_part_floats(int hd) { return DEC_NQ * (
 // so the shuffles of all keys and rows overlap. The running max m is shared
 // by the warp's groups; l and acc are per group until the final merge.
 // Rows from nq on are skipped; ALL_ROWS (nq == NQ) drops those checks.
-template <int G, int STEPS, int NQ, int HD, bool SCALED, bool ALL_ROWS, typename S>
+template <int G, int GL, int STEPS, int NQ, int HD, bool SCALED, bool ALL_ROWS, typename S>
 __device__ __forceinline__ void decode_tile(const S* kt, const S* vt, const float* ksc,
                                             const float* vsc, int j0, int kpos0, int jlo,
                                             int jhi, bool causal, int nq, int window,
@@ -246,11 +272,12 @@ __device__ __forceinline__ void decode_tile(const S* kt, const S* vt, const floa
                                             float (&acc)[NQ][VEC], float (&m)[NQ],
                                             float (&l)[NQ]) {
   constexpr int KPW = 32 / G;
+  const bool live = GL == G || gl < GL;  // lanes past GL hold zeros
   float sc[STEPS][NQ];
 #pragma unroll
   for (int st = 0; st < STEPS; ++st) {
-    float kf[VEC];
-    load8(kt + (j0 + st * KPW) * HD + gl * VEC, kf);
+    float kf[VEC] = {};
+    if (live) load8(kt + (j0 + st * KPW) * HD + gl * VEC, kf);
 #pragma unroll
     for (int i = 0; i < NQ; ++i) {
       if (!ALL_ROWS && i >= nq) continue;  // nq is uniform over the CTA
@@ -306,8 +333,8 @@ __device__ __forceinline__ void decode_tile(const S* kt, const S* vt, const floa
 #pragma unroll
   for (int st = 0; st < STEPS; ++st) {
     const int j = j0 + st * KPW;
-    float vf[VEC];
-    load8(vt + j * HD + gl * VEC, vf);
+    float vf[VEC] = {};
+    if (live) load8(vt + j * HD + gl * VEC, vf);
     float vs = 1.f;
     if constexpr (SCALED) vs = vsc[j];
 #pragma unroll
@@ -324,11 +351,12 @@ __device__ __forceinline__ void decode_tile(const S* kt, const S* vt, const floa
 
 template <typename T, typename PT, int HD>
 struct DecodeSmem {
+  static constexpr int TK = DecGeom<HD>::TK;
   static constexpr int stages = sizeof(PT) == 1 ? 4 : 3;  // raw tiles in flight
-  static constexpr int ring_tile = DEC_TK * HD * (int)sizeof(PT);  // bytes of one K or V tile
-  static constexpr int stage = 2 * ring_tile + 2 * DEC_TK * 4;      // K, V, k/v scales
+  static constexpr int ring_tile = TK * HD * (int)sizeof(PT);  // bytes of one K or V tile
+  static constexpr int stage = 2 * ring_tile + 2 * TK * 4;      // K, V, k/v scales
   static constexpr int ring = stages * stage;
-  static constexpr int newkeys = 2 * DEC_TK * HD * (int)sizeof(T);  // phase B: K, V
+  static constexpr int newkeys = 2 * TK * HD * (int)sizeof(T);  // phase B: K, V
   static constexpr int merge = 4 * DEC_NQ * (HD + 2) * 4;           // per-warp partials
   static constexpr int a_ = ring > newkeys ? ring : newkeys;
   static constexpr size_t bytes = a_ > merge ? a_ : merge;
@@ -338,15 +366,17 @@ struct DecodeSmem {
 // [z * DEC_SPLIT, (z + 1) * DEC_SPLIT) of phase A; z == nsplit runs phase B.
 // NQ (4 or 8) bounds the live query rows nq = min(W, n_tokens) * rep.
 // bf16 with at most 4 query rows (the served shape): registers capped for 4
-// CTAs an SM (16 warps in flight), which ran faster than 3 without the cap
+// CTAs an SM (16 warps in flight), which ran faster than 3 without the cap;
+// not at hd 256, whose ring leaves room for 2 CTAs an SM
 template <typename T, typename PT, int HD, int NQ>
-__global__ void __launch_bounds__(NT, (NQ <= 4 && sizeof(T) == 2) ? 4 : 1)
+__global__ void __launch_bounds__(NT, (NQ <= 4 && sizeof(T) == 2 && HD <= 128) ? 4 : 1)
     decode_split_kernel(Args a) {
   constexpr bool QUANT = !std::is_same<T, PT>::value;
-  constexpr int G = HD / VEC;           // lanes per key
-  constexpr int KPW = 32 / G;           // keys a warp scores at once
-  constexpr int STEPS = DEC_TK / 4 / KPW;  // a warp takes a quarter of each tile
-  static_assert(DEC_TK % (4 * KPW) == 0, "tile must split over the warps");
+  using D = DecGeom<HD>;
+  constexpr int G = D::G, GL = D::GL;   // lanes per key; of them, lanes with values
+  constexpr int TK = D::TK;             // keys per ring tile
+  constexpr int STEPS = D::STEPS;       // a warp takes a quarter of each tile
+  static_assert(TK % (4 * D::KPW) == 0, "tile must split over the warps");
   using L = DecodeSmem<T, PT, HD>;
   constexpr int STAGES = L::stages;
   extern __shared__ __align__(16) unsigned char dsmem[];
@@ -384,7 +414,7 @@ __global__ void __launch_bounds__(NT, (NQ <= 4 && sizeof(T) == 2) ? 4 : 1)
     l[i] = 0.f;
 #pragma unroll
     for (int e = 0; e < VEC; ++e) acc[i][e] = 0.f;
-    if (i < nq) {
+    if (i < nq && gl < GL) {
       const int w = i / rep, h = kvh * rep + i % rep;
       load8(qg + (((long long)r * W + w) * a.H + h) * HD + gl * VEC, q[i]);
 #pragma unroll
@@ -394,21 +424,21 @@ __global__ void __launch_bounds__(NT, (NQ <= 4 && sizeof(T) == 2) ? 4 : 1)
       for (int e = 0; e < VEC; ++e) q[i][e] = 0.f;
     }
   }
-  const int j0 = warp * (DEC_TK / 4) + grp;  // this lane group's first key of a tile
+  const int j0 = warp * (TK / 4) + grp;  // this lane group's first key of a tile
   const bool all_rows = nq == NQ;  // rows fill the instance: skip the row checks
 
   if (sp < nsplit) {
     // --- phase A: a STAGES-deep ring of raw page tiles
     const PT* kpool = reinterpret_cast<const PT*>(a.k_pages);
     const PT* vpool = reinterpret_cast<const PT*>(a.v_pages);
-    const int base = lo & ~(DEC_TK - 1);
-    const int n_tiles = (hi - base + DEC_TK - 1) / DEC_TK;
+    const int base = lo & ~(TK - 1);
+    const int n_tiles = (hi - base + TK - 1) / TK;
     const int page0 = page_index(a, base);
     for (int k = tid; k <= page_index(a, hi - 1) - page0; k += NT)
       pg_s[k] = a.page_tables[(long long)r * a.maxp + page0 + k];
     __syncthreads();
     constexpr int CPR = HD * (int)sizeof(PT) / 16;  // 16-byte pieces per key row
-    constexpr int CHUNKS = DEC_TK * CPR;             // pieces of a K (or V) tile
+    constexpr int CHUNKS = TK * CPR;                 // pieces of a K (or V) tile
     auto load_tile = [&](int t, int stage) {
       unsigned char* st = dsmem + stage * L::stage;
 #pragma unroll
@@ -416,7 +446,7 @@ __global__ void __launch_bounds__(NT, (NQ <= 4 && sizeof(T) == 2) ? 4 : 1)
         const int c = tid + k * NT;
         if (CHUNKS % NT == 0 || c < CHUNKS) {
           const int j = c / CPR, piece = c % CPR;
-          const int kp = base + t * DEC_TK + j;
+          const int kp = base + t * TK + j;
           const bool ok = kp >= lo && kp < hi;
           const long long src =
               ok ? pool_row(a, pg_s[page_index(a, kp) - page0], kvh, kp) * HD : 0;
@@ -427,13 +457,13 @@ __global__ void __launch_bounds__(NT, (NQ <= 4 && sizeof(T) == 2) ? 4 : 1)
         }
       }
       if constexpr (QUANT) {
-        if (tid < DEC_TK) {
-          const int kp = base + t * DEC_TK + tid;
+        if (tid < TK) {
+          const int kp = base + t * TK + tid;
           const bool ok = kp >= lo && kp < hi;
           const long long row = ok ? pool_row(a, pg_s[page_index(a, kp) - page0], kvh, kp) : 0;
           float* sc = reinterpret_cast<float*>(st + 2 * L::ring_tile) + tid;
           cp4(sc, a.k_scales + row, ok);
-          cp4(sc + DEC_TK, a.v_scales + row, ok);
+          cp4(sc + TK, a.v_scales + row, ok);
         }
       }
     };
@@ -449,17 +479,17 @@ __global__ void __launch_bounds__(NT, (NQ <= 4 && sizeof(T) == 2) ? 4 : 1)
       cp_commit();
       const unsigned char* st = dsmem + (t % STAGES) * L::stage;
       const float* ksc = reinterpret_cast<const float*>(st + 2 * L::ring_tile);
-      const int kpos0 = base + t * DEC_TK;
+      const int kpos0 = base + t * TK;
       const PT* kt = reinterpret_cast<const PT*>(st);
       const PT* vt = reinterpret_cast<const PT*>(st + L::ring_tile);
       if (all_rows)
-        decode_tile<G, STEPS, NQ, HD, QUANT, true>(kt, vt, ksc, ksc + DEC_TK, j0, kpos0,
-                                                   lo - kpos0, hi - kpos0, false, nq, window,
-                                                   qp, gl, q, acc, m, l);
+        decode_tile<G, GL, STEPS, NQ, HD, QUANT, true>(kt, vt, ksc, ksc + TK, j0, kpos0,
+                                                       lo - kpos0, hi - kpos0, false, nq, window,
+                                                       qp, gl, q, acc, m, l);
       else
-        decode_tile<G, STEPS, NQ, HD, QUANT, false>(kt, vt, ksc, ksc + DEC_TK, j0, kpos0,
-                                                    lo - kpos0, hi - kpos0, false, nq, window,
-                                                    qp, gl, q, acc, m, l);
+        decode_tile<G, GL, STEPS, NQ, HD, QUANT, false>(kt, vt, ksc, ksc + TK, j0, kpos0,
+                                                        lo - kpos0, hi - kpos0, false, nq, window,
+                                                        qp, gl, q, acc, m, l);
     }
     cp_wait<0>();
   } else {
@@ -468,18 +498,18 @@ __global__ void __launch_bounds__(NT, (NQ <= 4 && sizeof(T) == 2) ? 4 : 1)
     const T* vn = reinterpret_cast<const T*>(a.v_new);
     const int my_seq = a.seq_ids[r];
     T* kt = reinterpret_cast<T*>(dsmem);
-    T* vt = kt + DEC_TK * HD;
+    T* vt = kt + TK * HD;
     constexpr int CPR = HD * (int)sizeof(T) / 16;
     for (int r2 = 0; r2 < a.R; ++r2) {
       const int n2 = a.n_tokens[r2];
       if (n2 <= 0 || a.seq_ids[r2] != my_seq) continue;
       const int st2 = a.row_starts[r2];
-      for (int jb = 0; jb < n2; jb += DEC_TK) {
+      for (int jb = 0; jb < n2; jb += TK) {
         if (st2 + jb > qpos_hi) break;  // every key past the last query
-        if (window > 0 && st2 + jb + DEC_TK - 1 <= start - window) continue;
+        if (window > 0 && st2 + jb + TK - 1 <= start - window) continue;
         __syncthreads();  // the previous tile is consumed
-        for (int c = tid; c < 2 * DEC_TK * CPR; c += NT) {
-          const int kv = c / (DEC_TK * CPR), rem = c % (DEC_TK * CPR);
+        for (int c = tid; c < 2 * TK * CPR; c += NT) {
+          const int kv = c / (TK * CPR), rem = c % (TK * CPR);
           const int j = rem / CPR, piece = rem % CPR;
           const bool ok = jb + j < n2;
           const long long src = ok ? (((long long)r2 * W + jb + j) * Kh + kvh) * HD : 0;
@@ -490,13 +520,13 @@ __global__ void __launch_bounds__(NT, (NQ <= 4 && sizeof(T) == 2) ? 4 : 1)
         cp_wait<0>();
         __syncthreads();
         if (all_rows)
-          decode_tile<G, STEPS, NQ, HD, false, true>(kt, vt, nullptr, nullptr, j0, st2 + jb, 0,
-                                                     n2 - jb, true, nq, window, qp, gl, q, acc,
-                                                     m, l);
+          decode_tile<G, GL, STEPS, NQ, HD, false, true>(kt, vt, nullptr, nullptr, j0, st2 + jb,
+                                                         0, n2 - jb, true, nq, window, qp, gl, q,
+                                                         acc, m, l);
         else
-          decode_tile<G, STEPS, NQ, HD, false, false>(kt, vt, nullptr, nullptr, j0, st2 + jb, 0,
-                                                      n2 - jb, true, nq, window, qp, gl, q, acc,
-                                                      m, l);
+          decode_tile<G, GL, STEPS, NQ, HD, false, false>(kt, vt, nullptr, nullptr, j0, st2 + jb,
+                                                          0, n2 - jb, true, nq, window, qp, gl, q,
+                                                          acc, m, l);
       }
     }
   }
@@ -524,7 +554,7 @@ __global__ void __launch_bounds__(NT, (NQ <= 4 && sizeof(T) == 2) ? 4 : 1)
   }
   __syncthreads();  // the ring (aliased by the merge buffer) is consumed
   float* mb = reinterpret_cast<float*>(dsmem);  // [4][DEC_NQ][HD + 2]
-  if (grp == 0) {
+  if (grp == 0 && gl < GL) {
 #pragma unroll
     for (int i = 0; i < NQ; ++i) {
       if (i < nq) {
@@ -640,6 +670,14 @@ __device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const unsigned*>(&v);
 }
 
+// Output dims a path-1 CTA accumulates: all of hd up to 128; hd 256 splits
+// over two CTAs (grid z = query tiles x halves).
+template <int HD>
+struct TcGeom {
+  static constexpr int DV = HD > 128 ? 128 : HD;
+  static constexpr int NH = HD / DV;
+};
+
 template <typename PT, int HD>
 struct TcSmem {
   static constexpr bool QUANT = !std::is_same<PT, bf16>::value;
@@ -705,11 +743,13 @@ __global__ void __launch_bounds__(NT) tc_tile_kernel(Args a) {
   constexpr bool QUANT = L::QUANT;
   constexpr int PITCH = L::PITCH;
   constexpr int KS = HD / 16;  // k-steps of S = Q K^T
-  constexpr int DT = HD / 8;   // 8-wide dim tiles of O
+  constexpr int DV = TcGeom<HD>::DV, NH = TcGeom<HD>::NH;
+  constexpr int DT = DV / 8;   // 8-wide dim tiles of this CTA's O
   extern __shared__ __align__(16) unsigned char tsmem[];
   __shared__ TcTile desc[TC_STAGES];
 
-  const int r = blockIdx.x, kvh = blockIdx.y, i0 = blockIdx.z * TC_QT;
+  const int r = blockIdx.x, kvh = blockIdx.y, i0 = (blockIdx.z / NH) * TC_QT;
+  const int d0 = (blockIdx.z % NH) * DV;  // this CTA's output dims [d0, d0 + DV)
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int W = a.W, H = a.H, Kh = a.Kh, ps = a.ps;
   const int rep = H / Kh;
@@ -726,7 +766,8 @@ __global__ void __launch_bounds__(NT) tc_tile_kernel(Args a) {
   const int w_lo = i0 / rep;
   const int w_hi = min((i0 + rows - 1) / rep, ntok - 1);
   if (w_lo > w_hi) {  // padding row / all-padding tile: zeros, nothing to read
-    for (int e = tid; e < rows * HD; e += NT) out[qoff(e / HD) + e % HD] = __float2bfloat16(0.f);
+    for (int e = tid; e < rows * DV; e += NT)
+      out[qoff(e / DV) + d0 + e % DV] = __float2bfloat16(0.f);
     return;
   }
   const int qpos_lo = start + w_lo, qpos_hi = start + w_hi;
@@ -963,7 +1004,7 @@ __global__ void __launch_bounds__(NT) tc_tile_kernel(Args a) {
       for (int dp = 0; dp < DT / 2; ++dp) {
         unsigned b0, b1, b2, b3;
         const int key = kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
-        ldsm_x4_t(b0, b1, b2, b3, vt + key * PITCH + dp * 16 + (lane >> 4) * 8);
+        ldsm_x4_t(b0, b1, b2, b3, vt + key * PITCH + d0 + dp * 16 + (lane >> 4) * 8);
         mma_bf16(o[2 * dp], ph, b0, b1);
         mma_bf16(o[2 * dp], pl, b0, b1);
         mma_bf16(o[2 * dp + 1], ph, b2, b3);
@@ -984,7 +1025,7 @@ __global__ void __launch_bounds__(NT) tc_tile_kernel(Args a) {
     const int i = warp * 16 + g + 8 * h;
     if (i >= rows) continue;
     const float lf = fmaxf(l[h], 1e-30f);
-    bf16* dst = out + qoff(i) + 2 * tq;
+    bf16* dst = out + qoff(i) + d0 + 2 * tq;
 #pragma unroll
     for (int dt = 0; dt < DT; ++dt) {
       const float v0 = live[h] ? o[dt][2 * h] / lf : 0.f;
@@ -1324,29 +1365,32 @@ cudaError_t launch_attention(const Args& a, int path, cudaStream_t stream) {
     decode_combine_kernel<T><<<dim3(a.R, a.Kh), NT, 0, stream>>>(a, HD);
     return cudaGetLastError();
   }
-  const int tiles = (a.W * (a.H / a.Kh) + TC_QT - 1) / TC_QT;
+  const int nq = a.W * (a.H / a.Kh);
   if constexpr (std::is_same<T, bf16>::value) {
     const size_t smem = TcSmem<PT, HD>::bytes;
+    const int tiles = (nq + TC_QT - 1) / TC_QT * TcGeom<HD>::NH;
     if ((err = allow_smem(tc_tile_kernel<PT, HD>, smem)) != cudaSuccess) return err;
     tc_tile_kernel<PT, HD><<<dim3(a.R, a.Kh, tiles), NT, smem, stream>>>(a);
   } else {
-    const size_t smem = Smem<HD, 64>::bytes;
-    if ((err = allow_smem(ragged_attention_kernel<T, PT, HD, 64>, smem)) != cudaSuccess) return err;
-    ragged_attention_kernel<T, PT, HD, 64><<<dim3(a.R, a.Kh, tiles), NT, smem, stream>>>(a);
+    constexpr int QT = HD > 128 ? 32 : 64;  // f32 accumulators: QT * HD / NT a thread
+    const size_t smem = Smem<HD, QT>::bytes;
+    if ((err = allow_smem(ragged_attention_kernel<T, PT, HD, QT>, smem)) != cudaSuccess) return err;
+    ragged_attention_kernel<T, PT, HD, QT><<<dim3(a.R, a.Kh, (nq + QT - 1) / QT), NT, smem,
+                                             stream>>>(a);
   }
   return cudaGetLastError();
 }
 
-// Attention for head_dim hd, then (write_kv) phase C on the same stream.
+#ifndef AFP_HEAD_DIM
+#error "build with -DAFP_HEAD_DIM=<head dim> (ops/cuda/build.py does)"
+#endif
+
+// Attention for head_dim hd (this build's AFP_HEAD_DIM), then (write_kv)
+// phase C on the same stream.
 template <typename T, typename PT>
 cudaError_t run(const Args& a, int hd, int path, int write_kv, cudaStream_t stream) {
-  cudaError_t err;
-  switch (hd) {
-    case 32: err = launch_attention<T, PT, 32>(a, path, stream); break;
-    case 64: err = launch_attention<T, PT, 64>(a, path, stream); break;
-    case 128: err = launch_attention<T, PT, 128>(a, path, stream); break;
-    default: return cudaErrorInvalidValue;
-  }
+  if (hd != AFP_HEAD_DIM) return cudaErrorInvalidValue;
+  const cudaError_t err = launch_attention<T, PT, AFP_HEAD_DIM>(a, path, stream);
   if (err != cudaSuccess || !write_kv) return err;
   if constexpr (std::is_same<T, PT>::value)
     kv_write_kernel<T><<<a.R * a.W, NT, 0, stream>>>(a, hd);
@@ -1374,6 +1418,9 @@ long long part_floats_needed(int R, int W, int H, int Kh, int ps, int maxp, int 
 }
 
 }  // namespace
+
+// The head dim this library was built for.
+extern "C" int afp_head_dim() { return AFP_HEAD_DIM; }
 
 extern "C" const char* afp_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

@@ -117,10 +117,11 @@ def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
 
 def embed_tokens(params: Params, cfg: LlamaConfig, tokens: torch.Tensor) -> torch.Tensor:
     """Token-table lookup; gemma-family configs scale by sqrt(hidden) in the
-    table's dtype (the tied UNEMBED uses the raw table)."""
+    table's dtype (the tied UNEMBED uses the raw table). The scale is a CPU
+    scalar: no host-to-device copy, so a CUDA graph can capture the call."""
     x = params["embed"][tokens]
     if cfg.scale_embeddings:
-        x = x * torch.tensor(cfg.hidden_size**0.5, dtype=x.dtype, device=x.device)
+        x = x * torch.tensor(cfg.hidden_size**0.5, dtype=x.dtype)
     return x
 
 

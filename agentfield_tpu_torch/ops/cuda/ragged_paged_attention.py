@@ -13,7 +13,11 @@ counts the launches by the kernel's path: ``ragged_tiles_tc`` (bf16
 tensor-core tile: dense, chunked and suffix prefill), ``ragged_tiles_f32``
 (f32 CUDA-core tile), and ``ragged_decode_split`` plus
 ``ragged_decode_combine`` (decode: split-context partials, then their
-merge; the wrapper allocates the partials' scratch). Given CPU tensors,
+merge; the wrapper allocates the partials' scratch with ``torch.empty``
+per call: an engine decode step captured in a CUDA graph thus holds it in
+the graph's private pool, reused by every replay). A launch recorded into a
+CUDA graph counts once, at capture; the graph's owner adds its launches per
+replay (``launch_counts``, ``add_launches``). Given CPU tensors,
 ``dense_causal_attention`` runs its plain version (``models.llama.
 attention_ref``); ``ragged_paged_attention_cuda`` takes CUDA tensors only —
 the dispatcher ``ops.paged_attention.ragged_paged_attention`` picks the
@@ -31,7 +35,7 @@ from agentfield_tpu_torch.models.llama import attention_ref
 from agentfield_tpu_torch.ops.cuda import build
 from agentfield_tpu_torch.ops.kernel_autotune import lookup_blocks
 
-SUPPORTED_HEAD_DIMS = (32, 64, 128)
+SUPPORTED_HEAD_DIMS = build.ATTENTION_HEAD_DIMS  # one library per head dim
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # quantized pool value dtype -> (pool code of the C entry, mode)
 _QUANT_POOLS = {torch.int8: (2, "int8")}
@@ -64,13 +68,26 @@ def reset_launches() -> None:
             d[k] = 0
 
 
-_entry_fn = None
+def launch_counts() -> dict[str, int]:
+    """Every counter of ``LAUNCHES`` and ``PATH_LAUNCHES`` (one flat dict)."""
+    return {**LAUNCHES, **PATH_LAUNCHES}
 
 
-def _entry():
-    global _entry_fn
-    if _entry_fn is None:
-        lib = build.load("ragged_paged_attention")
+def add_launches(counts: dict[str, int], sign: int = 1) -> None:
+    """Add ``sign`` times ``counts`` (as ``launch_counts`` gives them) to the
+    counters: a CUDA graph's launches, once per replay."""
+    for d in (LAUNCHES, PATH_LAUNCHES):
+        for k in d:
+            d[k] += sign * counts.get(k, 0)
+
+
+_entry_fns: dict[int, tuple] = {}
+
+
+def _entry(hd: int):
+    fns = _entry_fns.get(hd)
+    if fns is None:
+        lib = build.load(f"ragged_paged_attention.hd{hd}")
         fn = lib.afp_ragged_paged_attention
         # every pointer and the stream as c_void_p: unset argtypes would pass
         # Python ints as 32-bit C ints and cut 64-bit device pointers
@@ -85,9 +102,12 @@ def _entry():
         lib.afp_attention_path.restype = ctypes.c_int
         lib.afp_decode_part_floats.argtypes = [ctypes.c_int] * 7
         lib.afp_decode_part_floats.restype = ctypes.c_longlong
-        _entry_fn = (fn, lib.afp_error_string, lib.afp_attention_path,
-                     lib.afp_decode_part_floats)
-    return _entry_fn
+        lib.afp_head_dim.restype = ctypes.c_int
+        if lib.afp_head_dim() != hd:
+            raise RuntimeError(f"library for head_dim {hd} was built for {lib.afp_head_dim()}")
+        fns = _entry_fns[hd] = (fn, lib.afp_error_string, lib.afp_attention_path,
+                                lib.afp_decode_part_floats)
+    return fns
 
 
 def _check(name: str, t: torch.Tensor, device, dtypes, shape) -> None:
@@ -146,7 +166,7 @@ def _launch(q, k_new, v_new, k_pages, v_pages, k_scales, v_scales, out, page_tab
         raise ValueError(f"window={window} must be >= 1 or None")
     if R == 0 or W == 0:
         return  # no work: nothing launched, nothing counted
-    fn, err_str, path_of, part_floats = _entry()
+    fn, err_str, path_of, part_floats = _entry(hd)
     dcode = _DTYPE_CODES[q.dtype]
     path = path_of(W, H, Kh, dcode)
     n_part = part_floats(R, W, H, Kh, ps, maxp, hd)

@@ -5,9 +5,23 @@ Scheduling is the JAX engine's: bounded admission with backpressure; up to
 ``prefill_batch`` fresh prompts coalesce into one batched prefill; cache-hit
 prompts (session or shared-prefix index) and long (chunked) prompts take the
 single-request path, their suffix prefilled over the cached pages; a tick
-that admits nothing runs ``decode_span`` decode steps over all ``max_batch``
-slots. Finished requests publish their full pages into the shared-prefix
-index and retain their KV as a session for the next turn.
+that admits nothing dispatches ``decode_span`` decode steps. Finished
+requests publish their full pages into the shared-prefix index and retain
+their KV as a session for the next turn.
+
+The decode tick is the JAX engine's default: with ``async_decode`` a
+one-deep pipeline (step N is dispatched before step N-1's tokens are read;
+admission and any change of membership harvest the step in flight first; a
+slot that finished discards its in-flight token); with ``decode_buckets``
+few active slots decode in a compact batch of the smallest bucket width
+that holds them (padding rows inert, ``seq_len`` 0). The control state lives
+on the device and chains from step to step (``serving.decode_step``): on the
+card the step — every layer's forward through the kernel, the unembed,
+grammar mask, sampler and logprob gather, the advance of tokens and lengths
+— is one CUDA graph per (width, sampler variant, grammar on/off), captured
+at first use and replayed after. With ``grammar_slots`` the engine keeps the
+JAX engine's int16 transition bank of ``Request.grammar`` automata
+(``serving.grammar``) and masks each constrained row's logits in the step.
 
 Every attention call goes through the hand-written kernel on the card: dense
 prefill through ``dense_causal_attention`` (the JAX ``prefill_impl="flash"``),
@@ -21,10 +35,8 @@ quantized with per-slot scales: the dense-prefill scatter quantizes through
 quantizes its fused write.
 
 Not ported yet (each a later slice): mixed ticks, speculative decoding and
-prefill, grammar-constrained decoding, the host tier,
-preemption and priorities, deadlines, cancellation and forks, handoff,
-async (pipelined) decode, decode buckets, MoE. The tick here is the JAX
-engine's with ``async_decode=False``: dispatch, then read the tokens.
+prefill, the host tier, preemption and priorities, deadlines, cancellation
+and forks, handoff, MoE.
 """
 
 from __future__ import annotations
@@ -50,12 +62,16 @@ from agentfield_tpu_torch.ops.kv_quant import (
 )
 from agentfield_tpu_torch.ops.paged_attention import ragged_paged_attention
 from agentfield_tpu_torch.prefix_hash import page_chain_hashes
+from agentfield_tpu_torch.serving.decode_step import MAX_STOP_IDS, DecodeGraphs, DecodeState
+from agentfield_tpu_torch.serving.grammar import Grammar
 from agentfield_tpu_torch.serving.kv_cache import (
     PagedKVCache,
     PrefixPagePool,
     build_page_table,
 )
-from agentfield_tpu_torch.serving.sampler import SamplingParams, sample_tokens
+from agentfield_tpu_torch.serving.sampler import SamplingParams, sample_tokens, sampler_variant
+
+_MASKED = -1e30  # logit value for grammar-disallowed tokens
 
 
 @dataclasses.dataclass(frozen=True)
@@ -71,7 +87,14 @@ class EngineConfig:
     enable_prefix_cache: bool = True  # retain session KV across turns
     shared_prefix_cache: bool = True  # cross-request content-addressed reuse
     prefill_chunk: int | None = None  # chunk long prefills (None → min(512, max_context))
+    decode_buckets: tuple[int, ...] | None = None  # e.g. (4, 16): fewer active
+    # slots than a bucket decode in a compact batch of that width (one CUDA
+    # graph per width on the card)
+    grammar_slots: int = 0  # rows of the constrained-decoding transition bank
+    # (0 disables Request.grammar; each grammar takes n_states rows)
     decode_span: int = 1  # decode steps per dispatch (one host readback per span)
+    async_decode: bool = True  # pipeline decode: dispatch step N before reading
+    # step N-1's tokens (token events arrive one tick later); False waits
     session_ttl: float = 600.0  # idle sessions release their pages (0 disables)
     dtype: str | None = None  # KV page dtype (default: the params' dtype)
     kv_quant_dtype: str = "none"  # "int8" | "fp8": quantized KV pages with
@@ -96,6 +119,9 @@ class Request:
     # session affinity for prefix-cache reuse: a session's cached tokens are
     # a prefix of its next prompt
     session_id: str | None = None
+    # constrained decoding: schema-invalid tokens are masked before sampling
+    # (serving/grammar.py); needs sampling.stop_token_ids and grammar_slots
+    grammar: Grammar | None = None
 
 
 @dataclasses.dataclass
@@ -131,6 +157,10 @@ class QueueFullError(Exception):
 
 class RequestTooLongError(Exception):
     pass
+
+
+class GrammarCapacityError(Exception):
+    """The engine's grammar bank has no room for another schema's states."""
 
 
 def _layer(pages, i: int):
@@ -225,8 +255,11 @@ class InferenceEngine:
             "prefix_cow_copies": 0,
             "prefix_pages_unpublished": 0,
             "prefix_batch_deferrals": 0,
+            "grammar_evictions": 0,
+            "grammar_capacity_errors": 0,
         }
-        # Host wall time of device work, each ending in a device→host read.
+        # Host wall time of prefills (each ends in a device→host read) and of
+        # decode dispatches and harvests (a harvest waits for its step).
         self.timing = {"prefill_s": 0.0, "decode_s": 0.0}
         self.ttft_ms: collections.deque[float] = collections.deque(maxlen=4096)
         self._shared_prefix = bool(
@@ -245,6 +278,30 @@ class InferenceEngine:
         self.temps = np.zeros((B,), np.float32)
         self.top_ks = np.zeros((B,), np.int32)
         self.top_ps = np.ones((B,), np.float32)
+        # constrained decoding: per-slot bank-global DFA state (0 = free) and
+        # stop ids (-1 padded); the int16 transition bank is host-built (rows
+        # shifted to bank-global ids) and mirrored on the device row range by
+        # row range
+        self.grammar_states = np.zeros((B,), np.int32)
+        self.eos_ids = np.full((B, MAX_STOP_IDS), -1, np.int32)
+        S = max(1, self.ecfg.grammar_slots)
+        if S > np.iinfo(np.int16).max:
+            raise ValueError(f"grammar_slots={S} exceeds int16 bank capacity")
+        self._gbank_trans = np.zeros((S, cfg.vocab_size), np.int16)  # row 0: free
+        self._gbank_accept = np.zeros((S,), bool)
+        self._gbank_accept[0] = True
+        # entries hold a strong reference to each Grammar (its id() stays
+        # valid); refcounts gate eviction
+        self._gbank_entries: dict[int, dict[str, Any]] = {}  # guarded by: _session_lock
+        self._gbank_free: list[tuple[int, int]] = [(1, S - 1)] if S > 1 else []
+        self._gbank_dirty_rows: list[tuple[int, int]] = []  # (offset, n) to upload
+        self._gbank_clock = 0.0  # LRU tiebreaker for eviction
+        self._gbank_dev = None
+        if self.ecfg.grammar_slots > 0:
+            self._gbank_dev = {
+                "trans": torch.zeros((S, cfg.vocab_size), dtype=torch.int16, device=self.device),
+                "accept": torch.from_numpy(self._gbank_accept.copy()).to(self.device),
+            }
         self.slots: list[_Slot | None] = [None] * B
         self.pending: collections.deque[Request] = collections.deque()
         self._sessions: dict[str, _SessionEntry] = {}  # guarded by: _session_lock
@@ -256,6 +313,17 @@ class InferenceEngine:
         self._head_starved_ticks = 0
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(seed)
+        # the decode pipeline: the dispatched-but-unread step, the device
+        # control state per batch width, and its validity (the full-width
+        # state is stale while ``_dirty``; the compact state holds
+        # ``_compact_key``'s rows)
+        self._inflight: dict[str, Any] | None = None
+        self._states: dict[int, DecodeState] = {}
+        self._dirty = True
+        self._compact_key: tuple | None = None
+        self._graphs = DecodeGraphs(self._decode_step, self._gen)
+        # device ms of each replayed decode step (CUDA events around replays)
+        self.decode_step_ms: collections.deque[float] = collections.deque(maxlen=4096)
 
     # ------------------------------------------------------------------
     # host-side scheduling
@@ -266,6 +334,24 @@ class InferenceEngine:
         RequestTooLongError if it can never fit the page budget."""
         if not req.prompt:
             raise ValueError(f"request {req.id}: prompt must be non-empty")
+        if req.grammar is not None:
+            if self.ecfg.grammar_slots <= 0:
+                raise ValueError(
+                    f"request {req.id}: carries a grammar but the engine was "
+                    "built with grammar_slots=0 (constrained decoding disabled)"
+                )
+            if not req.sampling.stop_token_ids:
+                raise ValueError(
+                    f"request {req.id}: grammar-constrained requests need "
+                    "stop_token_ids — EOS is the only legal terminator once "
+                    "the value is complete"
+                )
+            if len(req.sampling.stop_token_ids) > MAX_STOP_IDS:
+                raise ValueError(
+                    f"request {req.id}: at most {MAX_STOP_IDS} stop_token_ids "
+                    f"are supported with a grammar (got "
+                    f"{len(req.sampling.stop_token_ids)})"
+                )
         needed = self._pages_needed(req)
         if needed > self.ecfg.max_pages_per_seq:
             raise RequestTooLongError(
@@ -273,12 +359,22 @@ class InferenceEngine:
                 f"{req.sampling.max_new_tokens} new tokens needs {needed} pages "
                 f"> max_pages_per_seq={self.ecfg.max_pages_per_seq}"
             )
-        with self._pending_lock:
-            if len(self.pending) >= self.ecfg.max_pending:
-                self.stats["backpressure_total"] += 1
-                raise QueueFullError(f"pending queue at capacity {self.ecfg.max_pending}")
-            self._submit_t[req.id] = time.monotonic()
-            self.pending.append(req)
+        if req.grammar is not None:
+            # acquire last, so a rejected request never pins bank rows; may
+            # raise GrammarCapacityError (after evicting idle grammars)
+            with self._session_lock:
+                self._grammar_acquire(req.grammar)
+        try:
+            with self._pending_lock:
+                if len(self.pending) >= self.ecfg.max_pending:
+                    self.stats["backpressure_total"] += 1
+                    raise QueueFullError(f"pending queue at capacity {self.ecfg.max_pending}")
+                self._submit_t[req.id] = time.monotonic()
+                self.pending.append(req)
+        except QueueFullError:
+            with self._session_lock:
+                self._grammar_release(req.grammar)
+            raise
 
     def _pages_needed(self, req: Request) -> int:
         total = len(req.prompt) + req.sampling.max_new_tokens
@@ -311,7 +407,7 @@ class InferenceEngine:
         return sum(s is not None for s in self.slots)
 
     def has_work(self) -> bool:
-        return bool(self.pending) or self.num_active > 0
+        return bool(self.pending) or self.num_active > 0 or self._inflight is not None
 
     def _slots_available(self) -> int:
         return sum(s is None for s in self.slots)
@@ -502,7 +598,8 @@ class InferenceEngine:
         sample across the rows."""
         rows = [build_page_table(pages, self.ecfg.max_pages_per_seq) for _, _, pages in batch]
         last = self._dense_prefill([req.prompt for req, _, _ in batch], rows)
-        toks, lps = self._sample([req.sampling for req, _, _ in batch], last)
+        toks, lps = self._sample([req.sampling for req, _, _ in batch], last,
+                                 [self._first_token_mask(req) for req, _, _ in batch])
         self.stats["prefill_tokens"] += sum(len(req.prompt) for req, _, _ in batch)
         self.stats["prefill_batches"] += 1
         return [
@@ -607,20 +704,29 @@ class InferenceEngine:
         self.stats["prefill_tokens"] += len(req.prompt) - start
         return self._sample_first_and_install(req, free_slot, pages, row, last_logits)
 
-    def _sample(self, samplings: list[SamplingParams], logits: torch.Tensor):
-        """Sample one token per row of ``logits`` [n, V]; returns host lists
+    def _sample(self, samplings: list[SamplingParams], logits: torch.Tensor,
+                masks: list[np.ndarray | None] | None = None):
+        """Sample one token per row of ``logits`` [n, V], a grammar row only
+        among its ``masks`` entry's allowed tokens; returns host lists
         (tokens, raw-logit logprobs)."""
         temps = torch.tensor([s.temperature for s in samplings], dtype=torch.float32)
         top_ks = torch.tensor([s.top_k for s in samplings], dtype=torch.int32)
         top_ps = torch.tensor([s.top_p for s in samplings], dtype=torch.float32)
-        toks = sample_tokens(logits, self._gen, temps, top_ks, top_ps)
+        sample_from = logits
+        if masks is not None and any(m is not None for m in masks):
+            allowed = np.ones(logits.shape, bool)
+            for j, m in enumerate(masks):
+                if m is not None:
+                    allowed[j] = m
+            sample_from = torch.where(torch.from_numpy(allowed).to(logits.device), logits, _MASKED)
+        toks = sample_tokens(sample_from, self._gen, temps, top_ks, top_ps)
         lps = torch.gather(torch.log_softmax(logits, dim=-1), 1, toks[:, None].long())[:, 0]
         return toks.tolist(), lps.tolist()
 
     def _sample_first_and_install(
         self, req: Request, slot_idx: int, pages: list[int], row: np.ndarray, last_logits
     ) -> list[TokenEvent]:
-        toks, lps = self._sample([req.sampling], last_logits[None])
+        toks, lps = self._sample([req.sampling], last_logits[None], [self._first_token_mask(req)])
         return [self._install(req, slot_idx, pages, row, toks[0], lps[0])]
 
     def _copy_page(self, src: int, dst: int) -> None:
@@ -629,6 +735,123 @@ class InferenceEngine:
         for t in self.cache.leaves():
             b = bits(t)
             b[:, dst] = b[:, src]
+
+    # ------------------------------------------------------------------
+    # constrained decoding: the grammar transition bank
+    # ------------------------------------------------------------------
+
+    def grammar_bank_stats(self) -> dict[str, int]:
+        """Capacity gauges of the constrained-decoding bank: rows free and
+        used, grammars resident and pinned by requests."""
+        if self.ecfg.grammar_slots <= 0:
+            return {
+                "grammar_bank_rows": 0,
+                "grammar_bank_rows_free": 0,
+                "grammar_bank_rows_used": 0,
+                "grammar_bank_grammars": 0,
+                "grammar_bank_grammars_in_use": 0,
+            }
+        with self._session_lock:
+            free = sum(n for _, n in self._gbank_free)
+            usable = self.ecfg.grammar_slots - 1  # row 0 = unconstrained state
+            return {
+                "grammar_bank_rows": usable,
+                "grammar_bank_rows_free": free,
+                "grammar_bank_rows_used": usable - free,
+                "grammar_bank_grammars": len(self._gbank_entries),
+                "grammar_bank_grammars_in_use": sum(
+                    1 for e in self._gbank_entries.values() if e["refs"] > 0
+                ),
+            }
+
+    def _gbank_alloc_range(self, n: int) -> int | None:  # guarded by: _session_lock
+        """First fit over the free list (ranges never move, so active
+        bank-global state ids stay valid)."""
+        for i, (off, size) in enumerate(self._gbank_free):
+            if size >= n:
+                if size == n:
+                    self._gbank_free.pop(i)
+                else:
+                    self._gbank_free[i] = (off + n, size - n)
+                return off
+        return None
+
+    def _gbank_free_range(self, off: int, n: int) -> None:  # guarded by: _session_lock
+        merged: list[tuple[int, int]] = []
+        for o, size in sorted(self._gbank_free + [(off, n)]):
+            if merged and merged[-1][0] + merged[-1][1] == o:
+                merged[-1] = (merged[-1][0], merged[-1][1] + size)
+            else:
+                merged.append((o, size))
+        self._gbank_free = merged
+
+    def _grammar_acquire(self, g: Grammar) -> int:  # guarded by: _session_lock
+        """Register (if new) and reference a grammar's bank rows; under
+        capacity pressure unreferenced grammars evict, least recently used
+        first. Balanced by ``_grammar_release`` when the request leaves."""
+        self._gbank_clock += 1.0
+        ent = self._gbank_entries.get(id(g))
+        if ent is not None:
+            ent["refs"] += 1
+            ent["used"] = self._gbank_clock
+            return ent["off"]
+        if g.trans.shape[1] != self.cfg.vocab_size:
+            raise ValueError(
+                f"grammar vocab {g.trans.shape[1]} != model vocab {self.cfg.vocab_size}"
+            )
+        n = g.n_states
+        off = self._gbank_alloc_range(n)
+        while off is None:
+            idle = [k for k, e in self._gbank_entries.items() if e["refs"] <= 0]
+            if not idle:
+                self.stats["grammar_capacity_errors"] += 1
+                raise GrammarCapacityError(
+                    f"grammar needs {n} states; bank capacity "
+                    f"{self.ecfg.grammar_slots} is exhausted by in-use grammars"
+                )
+            victim = self._gbank_entries.pop(min(idle, key=lambda k: self._gbank_entries[k]["used"]))
+            self._gbank_free_range(victim["off"], victim["n"])
+            self.stats["grammar_evictions"] += 1
+            off = self._gbank_alloc_range(n)
+        self._gbank_trans[off : off + n] = np.where(g.trans >= 0, g.trans + off, -1).astype(np.int16)
+        self._gbank_accept[off : off + n] = g.accept
+        self._gbank_entries[id(g)] = {"grammar": g, "off": off, "n": n, "refs": 1,
+                                      "used": self._gbank_clock}
+        self._gbank_dirty_rows.append((off, n))
+        return off
+
+    def _grammar_release(self, g: Grammar | None) -> None:  # guarded by: _session_lock
+        if g is None:
+            return
+        ent = self._gbank_entries.get(id(g))
+        if ent is not None and ent["refs"] > 0:
+            ent["refs"] -= 1  # rows stay cached until capacity pressure evicts them
+
+    def _gbank_device(self) -> dict[str, torch.Tensor]:
+        """The device bank, its newly written row ranges copied in first (in
+        place: a captured step reads the bank through fixed pointers)."""
+        with self._session_lock:
+            for off, n in self._gbank_dirty_rows:
+                rows = slice(off, off + n)
+                for name, host in (("trans", self._gbank_trans), ("accept", self._gbank_accept)):
+                    src = torch.from_numpy(host[rows].copy())
+                    dev = self._gbank_dev[name]
+                    if dev.is_cuda:
+                        src = src.pin_memory()
+                    dev[rows].copy_(src, non_blocking=dev.is_cuda)
+            self._gbank_dirty_rows.clear()
+        return self._gbank_dev
+
+    def _first_token_mask(self, req: Request) -> np.ndarray | None:
+        """Allowed tokens [V] for the token sampled from prefill logits, or
+        None for a free request (its grammar is referenced since submit)."""
+        g = req.grammar
+        if g is None:
+            return None
+        allowed = g.trans[g.start] >= 0
+        if g.accept[g.start]:
+            allowed[list(req.sampling.stop_token_ids)] = True
+        return allowed
 
     def prefix_cache_stats(self) -> dict[str, int]:
         """Gauges of the shared-prefix page pool (counters live in stats)."""
@@ -666,6 +889,16 @@ class InferenceEngine:
             self.temps[slot_idx] = s.temperature
             self.top_ks[slot_idx] = s.top_k
             self.top_ps[slot_idx] = s.top_p
+            if req.grammar is not None:
+                g = req.grammar
+                with self._session_lock:
+                    off = self._gbank_entries[id(g)]["off"]
+                local = int(g.trans[g.start, tok])
+                self.grammar_states[slot_idx] = off + local if local >= 0 else 0
+                ids = list(s.stop_token_ids)[:MAX_STOP_IDS]
+                self.eos_ids[slot_idx, : len(ids)] = ids
+        self._dirty = True
+        self._compact_key = None  # membership changed
         return event
 
     # ------------------------------------------------------------------
@@ -778,9 +1011,9 @@ class InferenceEngine:
         return last_logits
 
     def _decode_forward(self, tokens, seq_lens, page_tables) -> torch.Tensor:
-        """One decode step over all max_batch slots: row b's single new token
-        sits at position seq_lens[b] over seq_lens[b] cached keys; inactive
-        slots (seq_len 0) are padding rows. Returns logits [B, V]."""
+        """One decode step's forward over a batch of slots: row b's single
+        new token sits at position seq_lens[b] over seq_lens[b] cached keys;
+        inactive slots (seq_len 0) are padding rows. Returns logits [B, V]."""
         cfg = self.cfg
         B = tokens.shape[0]
         x = llama.embed_tokens(self.params, cfg, tokens)[:, None, :]  # [B, 1, D]
@@ -799,46 +1032,156 @@ class InferenceEngine:
             x = x + llama.mlp_block(lp, x, cfg)
         return llama.unembed(self.params, cfg, x)[:, 0]
 
-    def _decode(self) -> list[TokenEvent]:
-        """``decode_span`` decode steps chained on the device (tokens and
-        lengths stay there), then one read of the span's tokens. Slots that
-        finish mid-span decode to its end; their extra tokens are dropped."""
+    def _decode_step(self, st: DecodeState, variant: str, grammar: bool) -> None:
+        """``decode_span`` decode steps over ``st``, on the device only (the
+        function a CUDA graph captures): forward, the grammar mask (bank row
+        of each slot's state; stop ids allowed in accepting states), the
+        sampler ``variant``, the raw-logit logprob, then the next tokens,
+        lengths and grammar states written back into ``st``."""
+        for s in range(self.ecfg.decode_span):
+            logits = self._decode_forward(st.tokens, st.seq_lens, st.page_tables)
+            sample_from = logits
+            if grammar:
+                bank = self._gbank_dev
+                g = st.gstates.long()
+                rows = bank["trans"][g].to(torch.int32)  # [B, V]
+                stop = torch.zeros_like(rows).scatter_add_(
+                    1, st.eos_ids.clamp(0, rows.shape[1] - 1).long(), (st.eos_ids >= 0).to(torch.int32)
+                )
+                allowed = (rows >= 0) | ((stop > 0) & bank["accept"][g][:, None])
+                sample_from = torch.where(allowed, logits, _MASKED)
+            toks = sample_tokens(sample_from, self._gen, st.temps, st.top_ks, st.top_ps,
+                                 variant=variant)
+            if grammar:
+                st.gstates.copy_(torch.gather(rows, 1, toks[:, None].long())[:, 0].clamp(min=0))
+            st.out_logprobs[s].copy_(
+                torch.gather(torch.log_softmax(logits, dim=-1), 1, toks[:, None].long())[:, 0]
+            )
+            st.out_tokens[s].copy_(toks)
+            st.tokens.copy_(toks)
+            st.seq_lens.add_((st.seq_lens > 0).to(torch.int32))  # active rows advance
+
+    def _state(self, width: int) -> DecodeState:
+        st = self._states.get(width)
+        if st is None:
+            st = self._states[width] = DecodeState(
+                width, self.ecfg.max_pages_per_seq, self.ecfg.decode_span, self.device
+            )
+        return st
+
+    def _host_rows(self, idx) -> dict[str, np.ndarray]:
+        return {
+            "tokens": self.last_tokens[idx], "seq_lens": self.seq_lens[idx],
+            "page_tables": self.page_tables[idx], "temps": self.temps[idx],
+            "top_ks": self.top_ks[idx], "top_ps": self.top_ps[idx],
+            "gstates": self.grammar_states[idx], "eos_ids": self.eos_ids[idx],
+        }
+
+    def _dev_state(self) -> DecodeState:
+        """Full-width control state, rewritten from the host shadows when
+        dirty (admission, release, or a compact step since)."""
+        st = self._state(self.ecfg.max_batch)
+        if self._dirty:
+            st.load(self._host_rows(slice(None)))
+            self._dirty = False
+        return st
+
+    def _compact_state(self, active_idx: list[int], bucket: int) -> DecodeState:
+        """The active slots' rows gathered into a ``bucket``-wide state
+        (padding rows inert: seq_len 0, no write, zero attention), kept on
+        the device while membership is stable."""
+        st = self._state(bucket)
+        key = (tuple(active_idx), bucket)
+        if self._compact_key != key:
+            rows = {}
+            for name, arr in self._host_rows(active_idx).items():
+                fill = {"top_ps": 1.0, "eos_ids": -1}.get(name, 0)  # a free slot's values
+                rows[name] = np.full((bucket,) + arr.shape[1:], fill, arr.dtype)
+                rows[name][: len(active_idx)] = arr
+            st.load(rows)
+            self._compact_key = key
+        return st
+
+    def _pick_decode_bucket(self, n_active: int) -> int | None:
+        if not self.ecfg.decode_buckets:
+            return None
+        for b in sorted(self.ecfg.decode_buckets):
+            if n_active <= b < self.ecfg.max_batch:
+                return b
+        return None
+
+    def graph_stats(self) -> dict:
+        """Decode-step CUDA graphs: how many were captured, the host seconds
+        their first uses took (eager step and capture), replays per key."""
+        return self._graphs.stats()
+
+    def _dispatch_decode(self) -> None:
+        """Dispatch one decode span (no host sync) and record it in flight."""
         t0 = time.perf_counter()
-        dev = self.device
-        active = [(i, s) for i, s in enumerate(self.slots) if s is not None]
-        tokens = torch.from_numpy(self.last_tokens.astype(np.int64)).to(dev)
-        seq_lens = torch.from_numpy(self.seq_lens).to(dev)
-        page_tables = torch.from_numpy(self.page_tables).to(dev)
-        temps = torch.from_numpy(self.temps)
-        top_ks = torch.from_numpy(self.top_ks)
-        top_ps = torch.from_numpy(self.top_ps)
-        span_toks, span_lps = [], []
-        for _ in range(self.ecfg.decode_span):
-            logits = self._decode_forward(tokens, seq_lens, page_tables)
-            toks = sample_tokens(logits, self._gen, temps, top_ks, top_ps)
-            lps = torch.gather(torch.log_softmax(logits, dim=-1), 1, toks[:, None].long())[:, 0]
-            span_toks.append(toks)
-            span_lps.append(lps)
-            seq_lens = seq_lens + (seq_lens > 0).to(seq_lens.dtype)
-            tokens = toks.long()
-        toks_np = torch.stack(span_toks).cpu().numpy()  # [span, B]
-        lps_np = torch.stack(span_lps).cpu().numpy()
-        self.timing["decode_s"] += time.perf_counter() - t0
+        active = [i for i, s in enumerate(self.slots) if s is not None]
+        bucket = self._pick_decode_bucket(len(active))
+        st = self._compact_state(active, bucket) if bucket is not None else self._dev_state()
+        variant = sampler_variant(self.temps[active], self.top_ks[active], self.top_ps[active])
+        grammar = any(self.slots[i].req.grammar is not None for i in active)
+        if grammar:
+            self._gbank_device()
+        timed = None
+        if st.tokens.is_cuda:
+            timed = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+            timed[0].record()
+        replayed = self._graphs.run(st, variant, grammar)
+        if timed is not None:
+            timed[1].record()
+        if bucket is not None:
+            self._dirty = True  # the full-width state did not advance
+        toks, lps, done = st.outputs_to_host()
         self.stats["decode_steps"] += self.ecfg.decode_span
+        self._inflight = {
+            "tokens": toks, "logprobs": lps, "done": done,
+            "timed": timed if replayed else None,
+            "slots": [(i, self.slots[i]) for i in active],
+            "compact": bucket is not None,
+        }
+        self.timing["decode_s"] += time.perf_counter() - t0
+
+    def _harvest_inflight(self) -> list[TokenEvent]:
+        prev, self._inflight = self._inflight, None
+        return self._apply_harvest(prev)
+
+    def _apply_harvest(self, inf: dict | None) -> list[TokenEvent]:
+        """Read a dispatched span's tokens and apply them: advance the host
+        shadows, emit events, release finished slots. A slot replaced since
+        dispatch (finished) discards its token: object identity is the
+        liveness check."""
+        if inf is None:
+            return []
+        t0 = time.perf_counter()
+        if inf["done"] is not None:
+            inf["done"].synchronize()
+        if inf["timed"] is not None:
+            self.decode_step_ms.append(
+                inf["timed"][0].elapsed_time(inf["timed"][1]) / self.ecfg.decode_span
+            )
+        toks, lps = inf["tokens"].numpy(), inf["logprobs"].numpy()  # [span, width]
         out: list[TokenEvent] = []
-        for t in range(toks_np.shape[0]):
-            for i, slot in active:
+        for t in range(toks.shape[0]):
+            for j, (i, slot) in enumerate(inf["slots"]):
                 if self.slots[i] is not slot:
-                    continue  # finished earlier in this span
-                tok = int(toks_np[t, i])
+                    continue  # finished: discard its later span tokens
+                row = j if inf["compact"] else i
+                tok = int(toks[t, row])
                 slot.length += 1
                 slot.generated += 1
                 slot.last_token = tok
                 slot.tokens.append(tok)
                 self.seq_lens[i] = slot.length
                 self.last_tokens[i] = tok
+                if slot.req.grammar is not None:
+                    # mirror the device-side DFA advance for a later rebuild
+                    self.grammar_states[i] = max(int(self._gbank_trans[self.grammar_states[i], tok]), 0)
                 self.stats["decode_tokens"] += 1
-                out.append(self._emit(i, slot, tok, float(lps_np[t, i])))
+                out.append(self._emit(i, slot, tok, float(lps[t, row])))
+        self.timing["decode_s"] += time.perf_counter() - t0
         return out
 
     def _emit(self, slot_idx: int, slot: _Slot, tok: int, logprob: float | None = None) -> TokenEvent:
@@ -886,17 +1229,50 @@ class InferenceEngine:
         self.temps[slot_idx] = 0.0
         self.top_ks[slot_idx] = 0
         self.top_ps[slot_idx] = 1.0
+        self.grammar_states[slot_idx] = 0
+        self.eos_ids[slot_idx] = -1
+        with self._session_lock:
+            self._grammar_release(slot.req.grammar)
+        self._dirty = True
+        self._compact_key = None  # membership changed
 
     def step(self) -> list[TokenEvent]:
         """One scheduler tick: admit (prefill) if a slot is free and a
-        request can be admitted, else run a decode span."""
+        request can be admitted, else decode. With ``async_decode`` decode is
+        a one-deep pipeline: dispatch step N, then read step N-1's tokens
+        while the device runs N. Admission, and a change of membership since
+        the dispatch, harvest the step in flight first, so the host shadows
+        and the device state agree before membership changes. A slot that
+        finished has one token in flight; it is discarded at harvest, and
+        its KV write lands before any reuse of its freed pages because every
+        page write runs in dispatch order on the engine's stream."""
+        events: list[TokenEvent] = []
         if self.pending and self._slots_available() > 0:
+            # only when a slot is free: under full occupancy this drain would
+            # serialize the pipeline every tick for an admission that cannot
+            # happen
+            events += self._harvest_inflight()
             admitted = self._try_admit()
             if admitted:
-                return admitted
+                return events + admitted
         if self.num_active == 0:
-            return []
-        return self._decode()
+            return events + self._harvest_inflight()
+        inf = self._inflight
+        if inf is not None and (
+            len(inf["slots"]) != self.num_active
+            or any(self.slots[i] is not slot for i, slot in inf["slots"])
+        ):
+            # membership changed since dispatch: the chained device state no
+            # longer matches the host shadows a rebuild reads
+            events += self._harvest_inflight()
+            if self.num_active == 0:
+                return events
+        prev, self._inflight = self._inflight, None
+        self._dispatch_decode()
+        events += self._apply_harvest(prev)
+        if not self.ecfg.async_decode:
+            events += self._harvest_inflight()
+        return events
 
     def run_to_completion(self, requests: list[Request]) -> dict[str, list[int]]:
         """Submit everything, step until drained, return generated tokens."""

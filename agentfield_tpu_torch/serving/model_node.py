@@ -6,9 +6,18 @@ batching: every ``generate`` call submits a request and waits for its
 terminal event) and returns the JAX node's text result dict: ``tokens``,
 ``logprobs``, ``finish_reason``, ``model`` and ``text``.
 
+``generate(response_schema=...)`` decodes under the schema's grammar
+(``serving.grammar``, compiled once per canonical schema into an LRU of 8):
+the node's engine runs with ``grammar_slots=256`` by default, as the JAX
+node's does, and the stop id falls back to the tokenizer's
+``eos_token_id``.
+
 ``ModelNodeServer`` keeps the JAX node's direct-invocation HTTP contract
 (``sdk/agent.py``): ``POST /reasoners/generate`` with ``{"input": {...}}``
-answers ``{"result": {...}}``; ``GET /health``; ``GET /reasoners``. It is
+answers ``{"result": {...}}``; ``GET /health``; ``GET /reasoners``. A
+request the node cannot serve as sent (an invalid schema, a schema with no
+stop id) answers 400, other argument errors 422, a full queue or grammar
+bank 503. It is
 built on ``http.server.ThreadingHTTPServer`` because the card's machine has
 no aiohttp. Control-plane registration, heartbeats and the channel/SSE/gRPC
 transports are not ported yet.
@@ -24,6 +33,7 @@ per-slot scales (``EngineConfig.kv_quant_dtype``).
 from __future__ import annotations
 
 import argparse
+import collections
 import concurrent.futures
 import inspect
 import json
@@ -40,15 +50,23 @@ from agentfield_tpu_torch.models.llama import init_params
 from agentfield_tpu_torch.ops.kv_quant import KV_QUANT_DTYPES
 from agentfield_tpu_torch.serving.engine import (
     EngineConfig,
+    GrammarCapacityError,
     InferenceEngine,
     QueueFullError,
     Request,
     RequestTooLongError,
 )
+from agentfield_tpu_torch.serving.grammar import Grammar, SchemaError, compile_json_schema
 from agentfield_tpu_torch.serving.sampler import SamplingParams
 from agentfield_tpu_torch.serving.tokenizer import ByteTokenizer
 
 log = logging.getLogger(__name__)
+
+GRAMMAR_SLOTS = 256  # the node's grammar bank rows, as the JAX node builds it
+
+
+class BadRequestError(ValueError):
+    """A request this node cannot serve as sent (HTTP 400)."""
 
 
 class ModelBackend:
@@ -66,8 +84,14 @@ class ModelBackend:
         self.cfg = cfg
         self.model_name = model_name
         self.tokenizer = tokenizer
+        if ecfg is None:
+            ecfg = EngineConfig(grammar_slots=GRAMMAR_SLOTS)
         self.engine = InferenceEngine(params, cfg, ecfg, seed=seed, device=device)
         self.idle_sleep = idle_sleep
+        # canonical schema JSON -> compiled grammar, least recently used out
+        self._grammars: collections.OrderedDict[str, Grammar] = collections.OrderedDict()
+        self._grammars_max = 8
+        self._grammar_lock = threading.Lock()
         # rid -> (future, [(token, logprob)]); touched under _lock only
         self._waiting: dict[str, tuple[concurrent.futures.Future, list]] = {}
         self._lock = threading.Lock()
@@ -136,6 +160,25 @@ class ModelBackend:
                         }
                     )
 
+    def _grammar_for(self, schema: dict[str, Any]) -> Grammar:
+        """Compile (once) the token-level grammar of a JSON schema; the cache
+        key is the canonical schema text, so identical schemas share one
+        grammar and one registration in the engine's bank."""
+        if self.tokenizer is None:
+            raise BadRequestError("constrained decoding needs a tokenizer on this node")
+        key = json.dumps(schema, sort_keys=True)
+        with self._grammar_lock:
+            g = self._grammars.get(key)
+            if g is None:
+                vocab = self.tokenizer.token_bytes(self.cfg.vocab_size)
+                g = self._grammars[key] = compile_json_schema(schema, vocab)
+            self._grammars.move_to_end(key)
+            while len(self._grammars) > self._grammars_max:
+                # the engine's bank keeps its own reference until its rows
+                # evict, so requests in flight are unaffected
+                self._grammars.popitem(last=False)
+            return g
+
     def generate(
         self,
         prompt: str | None = None,
@@ -146,17 +189,33 @@ class ModelBackend:
         top_p: float = 1.0,
         stop_token_ids: list[int] | None = None,
         session_id: str | None = None,
+        response_schema: dict[str, Any] | None = None,
         timeout: float | None = None,
     ) -> dict[str, Any]:
         """Generate from a text ``prompt`` or from ``tokens``; blocks until
-        the request finishes. Raises QueueFullError / RequestTooLongError
-        from admission, RuntimeError if the engine failed."""
+        the request finishes. ``response_schema`` (a JSON schema) constrains
+        the output to it. Raises QueueFullError / RequestTooLongError /
+        GrammarCapacityError from admission, BadRequestError (or the
+        grammar's SchemaError) for a schema the node cannot serve,
+        RuntimeError if the engine failed."""
         if tokens is None:
             if prompt is None:
                 raise ValueError("one of 'prompt' or 'tokens' is required")
             if self.tokenizer is None:
                 raise ValueError("no tokenizer loaded on this model node; pass 'tokens'")
             tokens = self.tokenizer.encode(prompt)
+        grammar = None
+        if response_schema is not None:
+            if not isinstance(response_schema, dict):
+                raise BadRequestError("response_schema must be a JSON object")
+            grammar = self._grammar_for(response_schema)
+            if not stop_token_ids:
+                eos = getattr(self.tokenizer, "eos_token_id", None)
+                if eos is None:
+                    raise BadRequestError(
+                        "constrained decoding needs stop_token_ids (tokenizer has no eos_token_id)"
+                    )
+                stop_token_ids = [eos]
         fut: concurrent.futures.Future = concurrent.futures.Future()
         with self._lock:
             if self.error is not None:
@@ -175,6 +234,7 @@ class ModelBackend:
                         stop_token_ids=tuple(stop_token_ids or ()),
                     ),
                     session_id=session_id,
+                    grammar=grammar,
                 )
             )
         except Exception:
@@ -284,8 +344,14 @@ def _make_handler(node: ModelNodeServer):
                 return
             try:
                 result = node.backend.generate(**payload)
-            except (QueueFullError, RequestTooLongError, ValueError, TypeError) as e:
-                self._json(422 if not isinstance(e, QueueFullError) else 503, {"error": repr(e)})
+            except (QueueFullError, GrammarCapacityError) as e:
+                self._json(503, {"error": repr(e)})
+                return
+            except (BadRequestError, SchemaError) as e:
+                self._json(400, {"error": repr(e)})
+                return
+            except (RequestTooLongError, ValueError, TypeError) as e:
+                self._json(422, {"error": repr(e)})
                 return
             except Exception as e:  # noqa: BLE001 — reported to the caller
                 self._json(500, {"error": repr(e)})
@@ -330,7 +396,7 @@ def main(argv: list[str] | None = None) -> None:
     args = ap.parse_args(argv)
     server, _ = build_model_node(
         args.model, seed=args.seed, device=args.device,
-        ecfg=EngineConfig(kv_quant_dtype=args.kv_quant_dtype),
+        ecfg=EngineConfig(grammar_slots=GRAMMAR_SLOTS, kv_quant_dtype=args.kv_quant_dtype),
     )
     port = server.start(args.host, args.port)
     print(f"model node {args.model} serving on http://{args.host}:{port}", flush=True)

@@ -38,6 +38,20 @@ def _categorical(x: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
     return torch.argmax(x + gumbel, dim=-1)
 
 
+SAMPLER_VARIANTS = ("greedy", "sampled", "truncated")
+
+
+def sampler_variant(temperatures, top_ks, top_ps) -> str:
+    """Which branch of ``sample_tokens`` a batch needs, from host values of
+    its per-row knobs: "greedy" (no row samples), "truncated" (some row has
+    top-k or top-p) or "sampled". A CUDA graph of a decode step is keyed by
+    it, so the captured step reads no device value to choose."""
+    temps, ks, ps = (torch.as_tensor(t) for t in (temperatures, top_ks, top_ps))
+    if not bool((temps > 0).any()):
+        return "greedy"
+    return "truncated" if bool(((ks > 0) | (ps < 1.0)).any()) else "sampled"
+
+
 def sample_tokens(
     logits: torch.Tensor,  # [B, V] float32
     generator: torch.Generator,  # on logits' device
@@ -45,27 +59,35 @@ def sample_tokens(
     top_ks: torch.Tensor,  # [B] int; 0 → disabled (applied as a top-k_max prefilter)
     top_ps: torch.Tensor,  # [B] float32; >= 1 → disabled
     k_max: int = 64,
+    variant: str | None = None,
 ) -> torch.Tensor:
     """Mixed-strategy sampling, one token per row (int32 [B]).
 
-    The branch predicates (any sampled row? any truncated row? any row
-    needing the exact nucleus?) are evaluated on the tensors passed in: pass
-    the per-row knobs as CPU tensors and an all-greedy batch costs one
-    argmax and no device synchronisation."""
+    ``variant`` (``SAMPLER_VARIANTS``) names the branch; None reads it from
+    the knobs passed in (``sampler_variant``): pass them as CPU tensors and
+    an all-greedy batch costs one argmax and no device synchronisation. With
+    ``variant`` given nothing is read back from the device, so the call can
+    be captured in a CUDA graph: the truncated variant computes the exact
+    wide-nucleus draw for every row and keeps it where a row needs it (the
+    JAX sampler's ``lax.cond``), the same values a branch on
+    ``need_exact.any()`` gives."""
     B, V = logits.shape
     k_max = min(k_max, V)
     dev = logits.device
+    if variant is None:
+        variant = sampler_variant(temperatures, top_ks, top_ps)
+    if variant not in SAMPLER_VARIANTS:
+        raise ValueError(f"unknown sampler variant {variant!r}; have {SAMPLER_VARIANTS}")
     greedy = torch.argmax(logits, dim=-1).to(torch.int32)
-    if not bool((temperatures > 0).any()):
+    if variant == "greedy":
         return greedy
-    truncated_host = (top_ks > 0) | (top_ps < 1.0)
     temps_d = temperatures.to(dev, torch.float32)
     top_ks_d = top_ks.to(dev)
     top_ps_d = top_ps.to(dev, torch.float32)
     temps = temps_d.clamp(min=1e-6)[:, None]
     full = _categorical(logits / temps, generator).to(torch.int32)
     sampled = full
-    if bool(truncated_host.any()):
+    if variant == "truncated":
         vals, idxs = torch.topk(logits, k_max, dim=-1)  # [B, k_max] descending
         scaled = vals / temps
         ranks = torch.arange(k_max, device=dev)[None, :]
@@ -85,14 +107,13 @@ def sample_tokens(
             torch.logsumexp(scaled, dim=-1) - torch.logsumexp(logits / temps, dim=-1)
         )
         need_exact = (top_ks_d == 0) & (top_ps_d < 1.0) & (cand_mass < top_ps_d)
-        if bool(need_exact.any()):
-            order = torch.argsort(logits, dim=-1, descending=True)  # [B, V]
-            svals = torch.gather(logits, 1, order) / temps
-            p_full = torch.softmax(svals, dim=-1)
-            cum_f = torch.cumsum(p_full, dim=-1)
-            keep = (cum_f - p_full) < top_ps_d[:, None]
-            ch = _categorical(svals.masked_fill(~keep, float("-inf")), generator)
-            exact = torch.gather(order, 1, ch[:, None])[:, 0].to(torch.int32)
-            trunc = torch.where(need_exact, exact, trunc)
-        sampled = torch.where(truncated_host.to(dev), trunc, full)
+        order = torch.argsort(logits, dim=-1, descending=True)  # [B, V]
+        svals = torch.gather(logits, 1, order) / temps
+        p_full = torch.softmax(svals, dim=-1)
+        cum_f = torch.cumsum(p_full, dim=-1)
+        keep = (cum_f - p_full) < top_ps_d[:, None]
+        ch = _categorical(svals.masked_fill(~keep, float("-inf")), generator)
+        exact = torch.gather(order, 1, ch[:, None])[:, 0].to(torch.int32)
+        trunc = torch.where(need_exact, exact, trunc)
+        sampled = torch.where((top_ks_d > 0) | (top_ps_d < 1.0), trunc, full)
     return torch.where(temps_d <= 0, greedy, sampled)

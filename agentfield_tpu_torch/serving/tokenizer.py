@@ -24,3 +24,12 @@ class ByteTokenizer:
 
     def decode(self, tokens: list[int]) -> str:
         return bytes(t % 256 for t in tokens).decode("utf-8", errors="replace")
+
+    def token_bytes(self, vocab_size: int) -> list[bytes]:
+        """Per-id byte strings for grammar compilation (serving/grammar.py).
+        Ids >= 256 alias low bytes through decode(), but for constrained
+        decoding they are redundant: they map to NUL, so the grammar only
+        ever selects the canonical single-byte ids."""
+        out = [bytes([i]) for i in range(min(256, vocab_size))]
+        out += [b"\x00"] * (vocab_size - len(out))
+        return out

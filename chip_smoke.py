@@ -9,7 +9,8 @@ the result line:
 
 1. ``device``  require CUDA; print ``nvidia-smi`` name and power limit.
 2. ``build``   compile every kernel from ``agentfield_tpu_torch/csrc`` (one
-               nvcc per source, in parallel); print the build seconds and
+               nvcc per library, in parallel: the attention source once per
+               head dim 16/32/64/96/128/256); print the build seconds and
                the tensor-core instructions (HMMA/HGMMA) that ``cuobjdump
                -sass`` finds in each built library.
 3. ``check``   hold each kernel against its plain PyTorch version on the card
@@ -22,9 +23,14 @@ the result line:
                split edges, and at the served decode shape (32 rows, 9 live
                at the serve's contexts); dense prefill (the tensor-core tile)
                at hd 32/64/128, rep 1/4/8, S not a multiple of 64, with and
-               without a window. Show at the 2k-context decode shape that
-               the bound rejects a kernel fed a quarter of zeroed cached pages
-               or a zeroed own key/value. Quantized (int8, fp8) pools, at the
+               without a window. The head dims of the other presets (96
+               phi-3-mini, 256 gemma-2b and gemma-7b, 16 llama-tiny-tp8) at
+               each preset's own heads and window: decode at contexts of
+               2100 (also over int8 and fp8 pools), a 512-token chunk over
+               1024 cached tokens and dense prefill. Show at the 2k-context
+               decode shapes (Llama-3-8B and gemma-2b) that the bound
+               rejects a kernel fed a quarter of zeroed cached pages or a
+               zeroed own key/value. Quantized (int8, fp8) pools, at the
                quantized mixes and the Llama-3-8B shapes, in float32 and
                bfloat16 compute, pass three checks: (a) pool values and
                scales bit-equal to the plain version's outside page 0; (b)
@@ -48,20 +54,38 @@ the result line:
                SDPA over K/V gathered beforehand into contiguous rows (the
                gather not timed; the port never calls it).
 5. ``serve``   full-width ``llama-3-8b`` with random bf16 weights drawn on the
-               card from ``--seed``, behind the port's HTTP server: concurrent
-               requests (64-1500-token prompts) plus a second session turn;
-               every request answered; launch counts per path (decode, dense
-               prefill, suffix prefill) must all be > 0, and per kernel path:
+               card from ``--seed``, behind the port's HTTP server, with the
+               JAX node's decode tick (pipelined, ``decode_buckets`` (4, 16),
+               a grammar bank of 256 rows; every decode step after a key's
+               first use replayed from its CUDA graph): concurrent requests
+               (64-1500-token prompts, one sampled with top-p, one
+               ``response_schema`` request whose answer ``match_bytes`` must
+               accept) plus a second session turn; every request answered;
+               launch counts per path (decode, dense prefill, suffix
+               prefill) must all be > 0, and per kernel path:
                decode through the split-context kernel and its combine,
                both prefills through the tensor-core tile. Then the same
                requests on the same weights and geometry with
                ``kv_quant_dtype`` "int8" and "fp8": the quantized kernel
                launched on the decode and suffix-prefill paths, the bf16
                variant never, ``kv_quant_pages_total`` > 0, and peak memory
-               below the bf16 serve's. Prints TTFT p50, decode tokens/s and
-               peak memory per mode.
+               below the bf16 serve's. Prints TTFT p50, decode tokens/s,
+               decode steps, the mean device ms of a replayed decode step
+               (CUDA events around replays), the graphs captured, their
+               capture seconds and replays, and peak memory per mode.
 6. ``forward`` one full-width forward with the kernel and with the plain
                attention, compared on logits.
+7. ``graph``   the serve's weights in a small engine: a replayed decode
+               step against the eager step on the same chained state (same
+               greedy tokens; a graph of the forward alone within the
+               forward phase's bf16 bound of the eager logits), the
+               replay's launches counted, two sampled replays drawing
+               differently; the replayed and the eager step timed.
+8. ``gemma-7b``, ``phi-3-mini``  each at full width and 2 layers (random
+               bf16 weights): five requests through the engine (phi-3-mini
+               with a prompt past its 2047-token window), every decode
+               launch through the split-context kernel, then the
+               ``forward`` comparison at its width.
 
 Prints the card line, then one JSON line of per-kernel numbers, then
 ``{"ok": true, "device": {...}}`` as the last line. ``--out PATH`` also
@@ -102,6 +126,11 @@ SASS_OP = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_]
 # the serve phase's decode: 9 live slots (8 prompts of 64-1500 tokens and a
 # second session turn, partway through their answers) among 32 rows
 SERVED_CTX = (64, 200, 333, 480, 512, 700, 1100, 1500, 1532)
+# presets whose head dims (96, 256, 256, 16) have their own kernel instances
+# beside Llama-3-8B's 128: each is checked at its own heads and window
+HEAD_DIM_PRESETS = ("phi-3-mini", "gemma-2b", "gemma-7b", "llama-tiny-tp8")
+# shapes at which the bound must reject the two injected faults
+FAULT_SHAPES = ("llama3_decode_ctx2k", "gemma-2b_decode_ctx2k")
 
 
 def log(*a):
@@ -192,6 +221,34 @@ def ragged_shapes():
     out["llama3_decode_ctx100"] = dict(l3, rows=8, ctx=100)
     out["llama3_decode_ctx300"] = dict(l3, rows=8, ctx=300)
     out["llama3_decode_ctx1000+window300"] = dict(l3, rows=8, ctx=1000, window=300)
+    out.update(head_dim_shapes())
+    return out
+
+
+def _preset_heads(preset: str):
+    """(kh, rep, hd) of a preset and its sliding window (or None)."""
+    from agentfield_tpu_torch.models.configs import get_config
+
+    cfg = get_config(preset)
+    return (cfg.num_kv_heads, cfg.num_heads // cfg.num_kv_heads, cfg.head_dim), cfg.sliding_window
+
+
+def head_dim_shapes():
+    """The new head dims' ragged shapes, at each preset's own heads and
+    window: decode of 8 rows at contexts 2100-2106 (phi-3-mini's window of
+    2047 binds), and a 512-token chunk over 1024 cached tokens in the rows
+    the engine packs (``block_q`` of its kernel table)."""
+    from agentfield_tpu_torch.ops.kernel_autotune import lookup_blocks
+
+    out = {}
+    for preset in HEAD_DIM_PRESETS:
+        (kh, rep, hd), window = _preset_heads(preset)
+        base = dict(page_size=16, maxp=136, kh=kh, rep=rep, hd=hd)
+        if window is not None:
+            base["window"] = window
+        out[f"{preset}_decode_ctx2k"] = dict(base, rows=8, ctx=2100)
+        out[f"{preset}_chunk512_over1k"] = dict(
+            base, chunk=512, ctx=1024, W=min(lookup_blocks(16, hd, 512).block_q, 512))
     return out
 
 
@@ -206,9 +263,10 @@ def quant_shapes():
     for mode in QUANT_MODES:
         out[f"mixed_ragged_{mode}/fast+window"] = dict(
             QUANT_SHAPES[f"mixed_ragged_{mode}"]["fast"], window=50)
+    decode_new_hd = tuple(f"{p}_decode_ctx2k" for p in HEAD_DIM_PRESETS)
     for name in ("llama3_decode_ctx512", "llama3_decode_ctx2k", "llama3_chunk512_over1k",
                  "llama3_served_decode", "llama3_decode_ctx300",
-                 "llama3_decode_ctx1000+window300"):
+                 "llama3_decode_ctx1000+window300") + decode_new_hd:
         for mode in QUANT_MODES:
             out[f"{name}_{mode}"] = dict(ragged_shapes()[name], kv_dtype=mode)
     return out
@@ -216,10 +274,15 @@ def quant_shapes():
 
 def dense_shapes():
     """(B, S, H, Kh, hd, window) of the dense-prefill checks: the Llama-3-8B
-    batch, then hd 32/64, rep 1/4/8, S not a multiple of 64, windows."""
+    batch, then hd 32/64, rep 1/4/8, S not a multiple of 64, windows; then
+    two 512-token prompts at each ``HEAD_DIM_PRESETS`` preset's heads."""
+    new_hd = []
+    for preset in HEAD_DIM_PRESETS:
+        (kh, rep, hd), _ = _preset_heads(preset)
+        new_hd.append((2, 512, kh * rep, kh, hd, None))
     return ((4, 512, 32, 8, 128, None), (2, 200, 8, 2, 64, None), (2, 100, 4, 4, 32, None),
             (1, 333, 16, 2, 64, None), (2, 200, 8, 2, 64, 50), (1, 333, 16, 2, 64, 100),
-            (2, 100, 4, 4, 32, 7))
+            (2, 100, 4, 4, 32, 7)) + tuple(new_hd)
 
 
 def ragged_work(case, es: int, window, pool_es: int | None = None):
@@ -305,8 +368,9 @@ def phase_build(results):
         ops = [m.group(1) for m in SASS_OP.finditer(out)]
         sass[name] = {op: ops.count(op) for op in ("HMMA", "HGMMA")}
         log(f"[build] {name}: SASS tensor-core instructions {sass[name]}")
-    if "ragged_paged_attention" in sass:
-        assert sass["ragged_paged_attention"]["HMMA"] > 0, "no HMMA in the attention library"
+    for name, ops in sass.items():
+        if name.startswith("ragged_paged_attention"):
+            assert ops["HMMA"] > 0, f"no HMMA in the attention library {name}"
     results["sass_mma"] = sass
 
 
@@ -410,7 +474,7 @@ def phase_check(results):
                    "pools_bit_equal": pools_ok, "ok": ok,
                    "R": q.shape[0], "W": q.shape[1], "H": q.shape[2], "Kh": kn.shape[2],
                    "hd": q.shape[3], "window": window}
-            if name == "llama3_decode_ctx2k":
+            if name in FAULT_SHAPES:
                 row["faults"] = fault_check(case, dname, o_r, window,
                                             ragged_paged_attention_cuda)
                 torch.cuda.synchronize()
@@ -527,7 +591,7 @@ def _check_quant(rows) -> list[str]:
                    "parity_over_tol": parity / PARITY_TOL[mode], "ok": ok,
                    "R": q.shape[0], "W": q.shape[1], "H": q.shape[2], "Kh": kn.shape[2],
                    "hd": q.shape[3], "window": window}
-            if name == "llama3_decode_ctx2k_" + mode:
+            if name in tuple(f"{f}_{mode}" for f in FAULT_SHAPES):
                 row["faults"] = fault_check(case, dname, o_d, window, ragged_paged_attention_cuda)
                 torch.cuda.synchronize()
                 if not all(r > 1.0 for _, r in row["faults"].values()):
@@ -622,12 +686,23 @@ def _post(port: int, payload: dict, timeout: float = 900.0) -> dict:
         return json.loads(resp.read())
 
 
+# the serve's constrained request: a bounded schema (booleans and an enum),
+# so even random weights complete a value inside the token budget
+SERVE_SCHEMA = {"type": "object", "properties": {"ok": {"type": "boolean"},
+                                                 "mode": {"enum": ["fast", "slow"]}},
+                "required": ["ok", "mode"]}
+
+
 def phase_serve(results, state, seed: int, model="llama-3-8b", device="cuda", ecfg=None,
                 lengths=(64, 200, 333, 480, 512, 700, 1100, 1500), max_new=32,
                 kv_quant="none"):
-    """Serve the requests. With ``kv_quant`` "int8" | "fp8" the node reuses
-    the weights and the engine geometry of the plain serve before it
-    (``state``) and the results go to ``results["serve_<mode>"]``."""
+    """Serve the requests: the prompts of ``lengths`` (greedy), one sampled
+    request (temperature 0.8, top-p 0.9), one ``response_schema`` request
+    (``SERVE_SCHEMA``), then a second session turn. With ``kv_quant``
+    "int8" | "fp8" the node reuses the weights and the engine geometry of
+    the plain serve before it (``state``) and the results go to
+    ``results["serve_<mode>"]``. The engine runs the JAX node's decode tick:
+    pipelined, decode buckets (4, 16), the step replayed from CUDA graphs."""
     import dataclasses
 
     import numpy as np
@@ -635,7 +710,8 @@ def phase_serve(results, state, seed: int, model="llama-3-8b", device="cuda", ec
 
     from agentfield_tpu_torch.ops.cuda import ragged_paged_attention as rpa
     from agentfield_tpu_torch.serving.engine import EngineConfig
-    from agentfield_tpu_torch.serving.model_node import build_model_node
+    from agentfield_tpu_torch.serving.grammar import match_bytes
+    from agentfield_tpu_torch.serving.model_node import GRAMMAR_SLOTS, build_model_node
 
     on_card = torch.device(device).type == "cuda"
     gc.collect()  # an earlier serve's engine (and its KV pool) is garbage now
@@ -644,8 +720,10 @@ def phase_serve(results, state, seed: int, model="llama-3-8b", device="cuda", ec
     t0 = time.perf_counter()
     if kv_quant == "none":
         if ecfg is None:
-            # context 128 pages x 16 = 2048 tokens; 4096 pages = 8 GiB of bf16 KV
-            ecfg = EngineConfig(max_batch=32, page_size=16, num_pages=4096, max_pages_per_seq=128)
+            # context 128 pages x 16 = 2048 tokens; 4096 pages = 8 GiB of bf16
+            # KV; the decode buckets of the JAX engine's docstring example
+            ecfg = EngineConfig(max_batch=32, page_size=16, num_pages=4096, max_pages_per_seq=128,
+                                decode_buckets=(4, 16), grammar_slots=GRAMMAR_SLOTS)
         params = None
     else:
         ecfg = dataclasses.replace(state["ecfg"], kv_quant_dtype=kv_quant)
@@ -674,7 +752,7 @@ def phase_serve(results, state, seed: int, model="llama-3-8b", device="cuda", ec
 
         setattr(eng, attr, counted)
 
-    wrap("decode", "_decode")
+    wrap("decode", "_dispatch_decode")
     wrap("dense_prefill", "_dense_prefill")
     wrap("suffix_prefill", "_suffix_prefill")
 
@@ -682,6 +760,13 @@ def phase_serve(results, state, seed: int, model="llama-3-8b", device="cuda", ec
     rng = np.random.default_rng(seed)
     lengths = list(lengths)
     prompts = [rng.integers(1, V, n).tolist() for n in lengths]
+    payloads = [{"tokens": p, "max_new_tokens": max_new, "session_id": "sess-0" if i == 0 else None}
+                for i, p in enumerate(prompts)]
+    i_sampled, i_schema = len(payloads), len(payloads) + 1
+    payloads.append({"tokens": rng.integers(1, V, 300).tolist(), "max_new_tokens": max_new,
+                     "temperature": 0.8, "top_p": 0.9})
+    payloads.append({"prompt": "Reply with a JSON object.", "max_new_tokens": 64,
+                     "response_schema": SERVE_SCHEMA})
     port = server.start()
     answers: dict[int, dict] = {}
     errors: list[str] = []
@@ -690,15 +775,12 @@ def phase_serve(results, state, seed: int, model="llama-3-8b", device="cuda", ec
 
         def send(i):
             try:
-                answers[i] = _post(port, {
-                    "tokens": prompts[i], "max_new_tokens": max_new,
-                    "session_id": "sess-0" if i == 0 else None,
-                })
+                answers[i] = _post(port, payloads[i])
             except Exception as e:  # noqa: BLE001 — collected and failed below
                 errors.append(f"request {i}: {e!r}")
 
         t1 = time.perf_counter()
-        threads = [threading.Thread(target=send, args=(i,)) for i in range(len(prompts))]
+        threads = [threading.Thread(target=send, args=(i,)) for i in range(len(payloads))]
         for th in threads:
             th.start()
         for th in threads:
@@ -717,16 +799,32 @@ def phase_serve(results, state, seed: int, model="llama-3-8b", device="cuda", ec
         server.stop()
     launches = dict(rpa.LAUNCHES)
     path_launches = dict(rpa.PATH_LAUNCHES)
-    for i in range(len(prompts)):
+    for i in range(len(payloads)):
         res = answers[i]["result"]
-        assert len(res["tokens"]) == max_new and res["finish_reason"] == "length", res["finish_reason"]
+        if i != i_schema:
+            assert len(res["tokens"]) == max_new and res["finish_reason"] == "length", (
+                i, res["finish_reason"])
         assert all(0 <= t < V for t in res["tokens"])
         assert all(np.isfinite(lp) for lp in res["logprobs"])
+    # the constrained answer: a complete value of the schema, then the stop id
+    schema_res = answers[i_schema]["result"]
+    g = backend._grammar_for(SERVE_SCHEMA)
+    body = bytes(schema_res["tokens"])  # byte tokenizer: token id b is byte b
+    assert schema_res["finish_reason"] == "stop", schema_res
+    assert match_bytes(g.trans, g.accept, body), body
+    json.loads(body.decode())
     res2 = second["result"]
     assert len(res2["tokens"]) == max_new and all(np.isfinite(lp) for lp in res2["logprobs"])
     assert health["status"] == "ok"
     st = eng.stats
     assert st["prefix_cache_hits"] >= 1, "the second turn did not hit its session"
+    graphs = eng.graph_stats()
+    if on_card:  # every decode step after a key's first use replays its graph
+        assert graphs["graphs_captured"] > 0 and sum(graphs["replays"].values()) > 0, graphs
+        assert (graphs["graphs_captured"] + sum(graphs["replays"].values())
+                == st["decode_steps"] // eng.ecfg.decode_span), (graphs, st["decode_steps"])
+        assert any(k.endswith("/grammar") for k in graphs["replays"]), graphs
+        assert any("/truncated/" in k for k in graphs["replays"]), graphs
     log(f"[serve {kv_quant}] launches {launches}; kernel paths {path_launches}; "
         f"by engine path {tally}")
     ragged = "ragged_paged_attention" + ("" if kv_quant == "none" else f"_{kv_quant}")
@@ -757,7 +855,7 @@ def phase_serve(results, state, seed: int, model="llama-3-8b", device="cuda", ec
                 f"{results['serve']['peak_mem_gib']:.2f} GiB")
     ttft = sorted(eng.ttft_ms)
     out = {
-        "requests": len(prompts) + 1,
+        "requests": len(payloads) + 1,
         "prompt_lengths": lengths,
         "burst_wall_s": burst_s,
         "turn2_wall_s": turn2_s,
@@ -767,6 +865,12 @@ def phase_serve(results, state, seed: int, model="llama-3-8b", device="cuda", ec
         "decode_s": eng.timing["decode_s"],
         "decode_tok_per_s": st["decode_tokens"] / eng.timing["decode_s"],
         "decode_steps": st["decode_steps"],
+        "decode_step_device_ms_mean": (statistics.fmean(eng.decode_step_ms)
+                                       if eng.decode_step_ms else None),
+        "decode_step_replays_timed": len(eng.decode_step_ms),
+        "graphs": graphs,
+        "sampled_tokens": answers[i_sampled]["result"]["tokens"],
+        "schema_text": body.decode(),
         "prefill_tokens": st["prefill_tokens"],
         "prefill_s": eng.timing["prefill_s"],
         "prefix_cache_hits": st["prefix_cache_hits"],
@@ -783,11 +887,19 @@ def phase_serve(results, state, seed: int, model="llama-3-8b", device="cuda", ec
     results["serve" if kv_quant == "none" else f"serve_{kv_quant}"] = out
     log(f"[serve {kv_quant}] {out['requests']} requests answered; TTFT p50 "
         f"{out['ttft_ms_p50']:.1f} ms, decode {out['decode_tok_per_s']:.1f} tok/s over "
-        f"{out['decode_steps']} steps, peak {out['peak_mem_gib']} GiB, KV pool "
-        f"{out['kv_pool_gib']:.2f} GiB")
+        f"{out['decode_steps']} steps, decode step {out['decode_step_device_ms_mean']} device ms "
+        f"(mean of {out['decode_step_replays_timed']} replays), peak {out['peak_mem_gib']} GiB, "
+        f"KV pool {out['kv_pool_gib']:.2f} GiB; graphs {graphs['graphs_captured']} captured in "
+        f"{graphs['capture_s']:.2f} s, replays {graphs['replays']}; schema answer "
+        f"{out['schema_text']!r}")
 
 
-def phase_forward(results, state, seed: int):
+def phase_forward(results, state, seed: int, key: str = "forward", S: int = 512,
+                  bf16_noise_factor: float = 1.0):
+    """One full-width forward of ``state``'s model with the kernel and with
+    the plain attention, compared on logits (``results[key]``). The bf16
+    logits are held within ``bf16_noise_factor`` times the plain path's own
+    bf16-vs-float32 distance (see the bounds below)."""
     import torch
 
     from agentfield_tpu_torch.models import llama
@@ -796,7 +908,6 @@ def phase_forward(results, state, seed: int):
     params, cfg = state["params"], state["cfg"]
     g = torch.Generator(device="cuda")
     g.manual_seed(seed + 1)
-    S = 512
     tokens = torch.randint(0, cfg.vocab_size, (1, S), device="cuda", generator=g)
     pos = torch.arange(S, device="cuda")[None]
 
@@ -832,20 +943,244 @@ def phase_forward(results, state, seed: int):
     # bf16 logits lie from the float32 ones, i.e. within the forward's own
     # bf16 rounding noise. The attention faults this cannot see are held by
     # the element-wise check phase and by the float32 comparison.
+    # A model of a few layers (the reduced-depth presets) has no shared
+    # rounding of 32 layers to dominate: there each bf16 path lies about one
+    # bf16 rounding distance from the float32 logits in a direction of its
+    # own, so the two are held within twice that distance (the triangle
+    # bound; factor 2). Llama-3-8B keeps factor 1.
     tol32 = 1e-4 * scale
-    tol16 = noise16
-    results["forward"] = {
+    tol16 = bf16_noise_factor * noise16
+    results[key] = {
         "S": S, "max_abs_logit": scale, "max_abs_err_f32": err32, "tol_f32": tol32,
         "max_abs_err_bf16": err16, "bf16_vs_f32_noise": noise16, "tol_bf16": tol16,
+        "bf16_noise_factor": bf16_noise_factor,
         "kernel_bf16_vs_f32": kernel16_to_f32,
         "argmax_agreement_bf16": agree,
     }
-    log(f"[forward] full-width logits kernel vs plain: float32 max|d|={err32:.4e} "
-        f"(tol {tol32:.4e}); bfloat16 max|d|={err16:.4e} (tol {tol16:.4e} = the plain "
-        f"path's bf16-vs-f32 distance; the kernel's bf16 path is {kernel16_to_f32:.4e} from "
+    log(f"[{key}] full-width logits kernel vs plain: float32 max|d|={err32:.4e} "
+        f"(tol {tol32:.4e}); bfloat16 max|d|={err16:.4e} (tol {tol16:.4e} = {bf16_noise_factor} x "
+        f"the plain path's bf16-vs-f32 distance; the kernel's bf16 path is {kernel16_to_f32:.4e} from "
         f"f32); max|logit| {scale:.4e}; bf16 argmax agreement {agree:.3f}")
     assert err32 <= tol32, "full-width float32 forward: kernel and plain attention disagree"
     assert err16 <= tol16, "full-width bfloat16 forward: kernel and plain attention disagree"
+
+
+# presets served at full width and reduced depth beside Llama-3-8B: their
+# head dims (256, 96) have their own kernel instances
+REDUCED_DEPTH_PRESETS = ("gemma-7b", "phi-3-mini")
+REDUCED_LAYERS = 2
+
+
+def phase_reduced_depth(results, preset: str, seed: int):
+    """Serve ``preset`` at full width and ``REDUCED_LAYERS`` layers (random
+    bf16 weights from ``seed``) through the engine with the JAX node's
+    decode tick: a burst of requests, a prompt longer than the sliding
+    window where the preset has one (chunked prefill over windowed pages),
+    every decode launch through the split-context kernel; then its
+    full-width forward, kernel against plain (``phase_forward``)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from agentfield_tpu_torch.models.configs import get_config
+    from agentfield_tpu_torch.models.llama import init_params
+    from agentfield_tpu_torch.ops.cuda import ragged_paged_attention as rpa
+    from agentfield_tpu_torch.serving.engine import EngineConfig, InferenceEngine, Request
+    from agentfield_tpu_torch.serving.sampler import SamplingParams
+
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats()
+    full = get_config(preset)
+    cfg = dataclasses.replace(full, num_layers=REDUCED_LAYERS)
+    params = init_params(cfg, seed=seed, device="cuda")
+    window = full.sliding_window
+    ctx_pages = 160 if window else 64  # 2560 tokens: the window binds
+    eng = InferenceEngine(params, cfg, EngineConfig(
+        max_batch=8, page_size=16, num_pages=8 * ctx_pages + 1, max_pages_per_seq=ctx_pages,
+        decode_buckets=(4,)), seed=seed, device="cuda")
+    rng = np.random.default_rng(seed + 3)
+    lengths = [40, 300, 700] + ([2200] if window else [900])
+    reqs = [Request(f"{preset}-{i}", rng.integers(1, cfg.vocab_size, n).tolist(),
+                    SamplingParams(max_new_tokens=16)) for i, n in enumerate(lengths)]
+    reqs.append(Request(f"{preset}-sampled", rng.integers(1, cfg.vocab_size, 64).tolist(),
+                        SamplingParams(max_new_tokens=16, temperature=0.8, top_p=0.9)))
+    rpa.reset_launches()
+    t0 = time.perf_counter()
+    out = eng.run_to_completion(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    for r in reqs:
+        toks = out[r.id]
+        assert len(toks) == 16 and all(0 <= t < cfg.vocab_size for t in toks), (r.id, toks)
+    paths = dict(rpa.PATH_LAUNCHES)
+    assert paths["ragged_decode_split"] > 0 and paths["ragged_decode_combine"] > 0, paths
+    assert paths["ragged_tiles_tc"] > 0 and paths["ragged_tiles_f32"] == 0, paths
+    graphs = eng.graph_stats()
+    assert sum(graphs["replays"].values()) > 0, graphs
+    assert graphs["graphs_captured"] + sum(graphs["replays"].values()) == eng.stats["decode_steps"]
+    key = f"serve_{preset}"
+    results[key] = {
+        "layers": REDUCED_LAYERS, "reduced_from": full.num_layers, "hd": cfg.head_dim,
+        "heads": [cfg.num_heads, cfg.num_kv_heads], "window": window, "prompt_lengths": lengths,
+        "wall_s": wall, "decode_steps": eng.stats["decode_steps"],
+        "decode_tokens": eng.stats["decode_tokens"], "path_launches": paths,
+        "launches": dict(rpa.LAUNCHES), "graphs": graphs,
+        "decode_step_device_ms_mean": (statistics.fmean(eng.decode_step_ms)
+                                       if eng.decode_step_ms else None),
+        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+    }
+    log(f"[{key}] {cfg.num_layers} of {full.num_layers} layers at full width (hd {cfg.head_dim}, "
+        f"H {cfg.num_heads}, Kh {cfg.num_kv_heads}, window {window}): {len(reqs)} requests "
+        f"answered in {wall:.2f} s, {eng.stats['decode_steps']} decode steps, kernel paths "
+        f"{paths}, graphs {graphs}")
+    del eng
+    phase_forward(results, {"params": params, "cfg": cfg}, seed, key=f"forward_{preset}",
+                  S=2200 if window else 512, bf16_noise_factor=2.0)
+
+
+def phase_graph(results, state, seed: int):
+    """The decode step replayed from its CUDA graph against the eager step
+    on the same chained state (Llama-3-8B weights of the serve): the
+    replayed greedy step's tokens equal the argmax of the eager forward's
+    logits, a graph of the forward alone gives the eager logits within the
+    forward phase's bf16 bound, a replay adds the graph's launches to
+    ``PATH_LAUNCHES``, and two replays of a sampling step from one state
+    draw different tokens. Times the replayed step (device) and the eager
+    step (CUDA events around the call, host work included)."""
+    import numpy as np
+    import torch
+
+    from agentfield_tpu_torch.ops.cuda import ragged_paged_attention as rpa
+    from agentfield_tpu_torch.serving.engine import EngineConfig, InferenceEngine, Request
+    from agentfield_tpu_torch.serving.sampler import SamplingParams
+
+    gc.collect()
+    cfg = state["cfg"]
+    eng = InferenceEngine(state["params"], cfg, EngineConfig(
+        max_batch=8, page_size=16, num_pages=513, max_pages_per_seq=64), seed=seed, device="cuda")
+    rng = np.random.default_rng(seed + 7)
+    for i in range(6):
+        eng.submit(Request(f"g{i}", rng.integers(1, cfg.vocab_size, 100 + 150 * i).tolist(),
+                           SamplingParams(max_new_tokens=64)))
+    while eng._inflight is None:  # admissions, then the first dispatch (its capture)
+        eng.step()
+    eng._harvest_inflight()
+    st = eng._dev_state()
+    toks0, lens0 = st.tokens.clone(), st.seq_lens.clone()
+    active = lens0 > 0
+
+    def restore():
+        st.tokens.copy_(toks0)
+        st.seq_lens.copy_(lens0)
+
+    with torch.no_grad():
+        logits_e = eng._decode_forward(st.tokens, st.seq_lens, st.page_tables)
+        before = rpa.launch_counts()
+        assert eng._graphs.run(st, "greedy", False), "the greedy step did not replay"
+        after = rpa.launch_counts()
+        toks_g = st.out_tokens[0].clone()
+        restore()
+        fwd = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(fwd, capture_error_mode="thread_local"):
+            logits_static = eng._decode_forward(st.tokens, st.seq_lens, st.page_tables)
+        fwd.replay()
+        torch.cuda.synchronize()
+        same_tokens = bool(torch.equal(toks_g[active], logits_e.argmax(-1).int()[active]))
+        err = float((logits_static - logits_e)[active].abs().max())
+        tol = results["forward"]["tol_bf16"]
+        per_replay = after["ragged_decode_split"] - before["ragged_decode_split"]
+        # device time of the replayed step against the eager step
+        greedy_graph = eng._graphs.graphs[(st.width, "greedy", False)][0]
+        step_ms = graph_replay_ms(greedy_graph, restore)
+        eager_ms = cuda_ms(lambda: (restore(), eng._decode_step(st, "greedy", False)), n=10)
+        breakdown = profile_replays(greedy_graph, restore)
+        # fresh draws: two replays of a sampling step from one state
+        st.temps.fill_(1.0)
+        restore()
+        eng._graphs.run(st, "sampled", False)  # first use: eager step, capture
+        draws = []
+        for _ in range(2):
+            restore()
+            assert eng._graphs.run(st, "sampled", False)
+            draws.append(st.out_tokens[0].clone())
+        torch.cuda.synchronize()
+    fresh = bool((draws[0] != draws[1])[active].any())
+    results["graph"] = {
+        "width": st.width, "live_rows": int(active.sum()), "same_greedy_tokens": same_tokens,
+        "logits_max_abs_err": err, "tol_bf16": tol, "split_launches_per_replay": per_replay,
+        "replayed_step_device_ms": step_ms, "eager_step_call_ms": eager_ms,
+        "sampled_replays_differ": fresh, "step_breakdown": breakdown,
+    }
+    log(f"[graph] width {st.width}, {int(active.sum())} live: replayed greedy step tokens = eager "
+        f"argmax: {same_tokens}; forward graph vs eager logits max|d| {err:.4e} (tol {tol:.4e}); "
+        f"{per_replay} split launches counted per replay; step {step_ms:.3f} ms replayed (device) "
+        f"vs {eager_ms:.3f} ms eager; two sampled replays differ: {fresh}")
+    log(f"[graph] replayed step by kernel kind (torch.profiler, device ms a step): "
+        f"{breakdown and breakdown['by_kind_ms']}; top kernels "
+        f"{breakdown and breakdown['top_kernels_ms']}")
+    assert same_tokens, "the replayed decode step disagrees with the eager forward"
+    assert err <= tol, "the captured forward disagrees with the eager forward"
+    assert per_replay == cfg.num_layers, "a replay did not count its kernel launches"
+    assert fresh, "two replays of a sampling step repeated the same draws"
+
+
+def graph_replay_ms(graph, before, n: int = 20) -> float:
+    """Median device milliseconds of one replay of ``graph``, ``before()``
+    (host-enqueued, untimed) run ahead of each."""
+    import torch
+
+    times = []
+    for _ in range(n):
+        before()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def _kernel_kind(name: str) -> str:
+    n = name.lower()
+    if any(k in n for k in ("decode_split", "decode_combine", "tc_tile", "ragged_attention",
+                            "kv_write")):
+        return "attention (hand-written)"
+    if any(k in n for k in ("gemm", "gemv", "nvjet", "xmma", "cutlass", "splitk")):
+        return "matmul (cuBLAS)"
+    return "other (norms, rope, sampler, copies)"
+
+
+def profile_replays(graph, before, n: int = 5):
+    """Device time a replay of ``graph`` spends per kernel kind and in its
+    heaviest kernels (``torch.profiler`` over ``n`` replays, each after
+    ``before()``), in ms per replay; None when the profiler records no
+    device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            before()
+            graph.replay()
+        torch.cuda.synchronize()
+    kernels = {}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0)
+        if us > 0 and str(getattr(e, "device_type", "")).endswith("CUDA"):
+            kernels[e.key] = kernels.get(e.key, 0.0) + us / 1e3 / n
+    if not kernels:
+        return None
+    by_kind = {}
+    for name, ms in kernels.items():
+        by_kind[_kernel_kind(name)] = by_kind.get(_kernel_kind(name), 0.0) + ms
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:8]
+    return {"by_kind_ms": by_kind, "total_ms": sum(kernels.values()),
+            "kernels": len(kernels), "top_kernels_ms": [(k[:60], v) for k, v in top]}
 
 
 def kernels_line(results) -> dict:
@@ -912,6 +1247,10 @@ def main() -> int:
         for mode in QUANT_MODES:
             phase_serve(results, state, args.seed, kv_quant=mode)
         phase_forward(results, state, args.seed)
+        phase_graph(results, state, args.seed)
+        state.clear()  # the 8B weights go before the reduced-depth models
+        for preset in REDUCED_DEPTH_PRESETS:
+            phase_reduced_depth(results, preset, args.seed)
     finally:
         results["wall_s"] = time.perf_counter() - t0
         if args.out:

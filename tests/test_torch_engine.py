@@ -128,7 +128,7 @@ def test_engine_matches_jax_engine(weights, mode):
     jstats = jeng.prefix_cache_stats()
     for k, v in teng.prefix_cache_stats().items():
         assert v == jstats[k], k
-    for k in PREFIX_COUNTERS:
+    for k in PREFIX_COUNTERS + ("decode_steps",):
         assert teng.stats[k] == jeng.stats[k], k
 
     # no leaks: dropping the sessions returns every page
@@ -138,6 +138,29 @@ def test_engine_matches_jax_engine(weights, mode):
     assert all(pool.refcount(p) == 0 for p in range(pool.num_pages))
     assert pool.free_pages == ECFG["num_pages"] - 1
     assert teng.num_active == 0 and not teng.pending
+
+
+def test_engine_matches_jax_engine_with_node_defaults(weights):
+    """The same script under the model node's engine defaults (a grammar
+    bank of 256 rows, the pipelined tick) plus decode buckets, on both
+    engines: the same tokens, logprobs and counters, ``decode_steps``
+    included."""
+    jcfg, tree, params = weights
+    ecfg = dict(ECFG, grammar_slots=256, decode_buckets=(2,))
+    assert engine.EngineConfig().async_decode and jax_engine.EngineConfig().async_decode
+    jeng = jax_engine.InferenceEngine(tree, jcfg, jax_engine.EngineConfig(**ecfg))
+    want = _run(jeng, jax_engine.Request, JaxSampling)
+    teng = engine.InferenceEngine(params, get_config("llama-tiny"), engine.EngineConfig(**ecfg))
+    got = _run(teng, engine.Request, SamplingParams)
+    for rid in want:
+        assert [t for t, _ in got[rid]] == [t for t, _ in want[rid]], rid
+        np.testing.assert_allclose(
+            [lp for _, lp in got[rid]], [lp for _, lp in want[rid]], atol=LP_TOL["none"], rtol=0,
+            err_msg=rid,
+        )
+    for k in PREFIX_COUNTERS + ("decode_steps", "decode_tokens"):
+        assert teng.stats[k] == jeng.stats[k], k
+    assert teng.grammar_bank_stats() == jeng.grammar_bank_stats()
 
 
 def test_engine_rejects_fields_it_does_not_implement():

@@ -21,6 +21,7 @@ from agentfield_tpu_torch.models.configs import get_config
 from agentfield_tpu_torch.models.convert import params_from_numpy
 from agentfield_tpu_torch.serving.engine import EngineConfig
 from agentfield_tpu_torch.serving.model_node import build_model_node
+from agentfield_tpu_torch.serving.tokenizer import ByteTokenizer
 
 ECFG = dict(max_batch=4, page_size=8, num_pages=64, max_pages_per_seq=8, prefill_chunk=16)
 PROMPTS = [[5, 17, 300, 2, 9], list(range(40, 60)), [77]]
@@ -155,3 +156,89 @@ def test_failed_step_fails_waiters_and_later_requests(weights):
             backend.generate(tokens=[4, 5], max_new_tokens=2, timeout=30)
     finally:
         backend.stop()
+
+
+SCHEMA = {"type": "object", "properties": {"ok": {"type": "boolean"},
+                                           "mode": {"enum": ["fast", "slow"]}},
+          "required": ["ok", "mode"]}
+
+
+@pytest.fixture(scope="module")
+def schema_node(weights):
+    _, tree = weights
+    params = params_from_numpy(tree, get_config("llama-tiny"), device="cpu")
+    server, backend = build_model_node(
+        "llama-tiny", ecfg=EngineConfig(**ECFG, grammar_slots=64, decode_buckets=(2,)),
+        device="cpu", params=params,
+    )
+    port = server.start(port=0)
+    yield port, backend
+    server.stop()
+
+
+def test_http_response_schema_matches_jax_backend(weights, schema_node):
+    """``response_schema`` over HTTP: the answer is a value of the schema
+    (the copied ``match_bytes`` accepts its bytes), ends on the tokenizer's
+    eos id, and has the JAX node's tokens on the same weights."""
+    from agentfield_tpu_torch.serving.grammar import match_bytes
+
+    port, backend = schema_node
+    jcfg, tree = weights
+    prompt = [5, 17, 300, 2, 9]
+
+    async def jax_answer():
+        jb = jax_node.ModelBackend(
+            tree, jcfg, jax_node.EngineConfig(**ECFG, grammar_slots=64, decode_buckets=(2,)),
+            tokenizer=jax_node.ByteTokenizer(jcfg.vocab_size),
+        )
+        await jb.start()
+        try:
+            return await jb.generate(tokens=prompt, max_new_tokens=40, response_schema=SCHEMA)
+        finally:
+            await jb.stop()
+
+    want = asyncio.run(jax_answer())
+    status, doc = _call(port, "/reasoners/generate",
+                        {"input": {"tokens": prompt, "max_new_tokens": 40, "response_schema": SCHEMA}})
+    assert status == 200, doc
+    res = doc["result"]
+    assert res["tokens"] == want["tokens"] and res["finish_reason"] == want["finish_reason"] == "stop"
+    g = backend._grammar_for(SCHEMA)
+    assert match_bytes(g.trans, g.accept, bytes(res["tokens"]))  # byte ids: token b is byte b
+    assert json.loads(res["text"])["mode"] in ("fast", "slow")
+    # the same schema (keys in another order) shares one compiled grammar
+    assert backend._grammar_for(dict(reversed(list(SCHEMA.items())))) is g
+    assert backend.engine.grammar_bank_stats()["grammar_bank_grammars"] == 1
+
+
+def test_http_response_schema_errors(weights, schema_node):
+    port, _ = schema_node
+    bad = {"type": "frobnicate"}
+    assert _call(port, "/reasoners/generate",
+                 {"input": {"tokens": [1, 2], "response_schema": bad}})[0] == 400
+    assert _call(port, "/reasoners/generate",
+                 {"input": {"tokens": [1, 2], "response_schema": [1]}})[0] == 400
+    # no stop id and a tokenizer without an eos id: 400, nothing submitted
+    _, tree = weights
+    tok = ByteTokenizer(get_config("llama-tiny").vocab_size)
+    tok.eos_token_id = None
+    server, backend = build_model_node(
+        "llama-tiny", ecfg=EngineConfig(**ECFG, grammar_slots=64), device="cpu",
+        params=params_from_numpy(tree, get_config("llama-tiny"), device="cpu"), tokenizer=tok,
+    )
+    port2 = server.start(port=0)
+    try:
+        status, doc = _call(port2, "/reasoners/generate",
+                            {"input": {"tokens": [1, 2], "response_schema": SCHEMA}})
+        assert status == 400 and "eos_token_id" in doc["error"]
+        assert backend.engine.stats["requests_finished"] == 0 and not backend.engine.pending
+    finally:
+        server.stop()
+
+
+def test_node_engine_defaults_match_the_jax_node():
+    """The node builds its engine as the JAX node does: a grammar bank of
+    256 rows and the pipelined decode tick."""
+    _, backend = build_model_node("llama-tiny", device="cpu")
+    ecfg = backend.engine.ecfg
+    assert ecfg.grammar_slots == 256 and ecfg.async_decode and ecfg.decode_buckets is None

@@ -22,7 +22,9 @@ from agentfield_tpu.models import llama as jax_llama
 from agentfield_tpu.ops.pallas.ragged_paged_attention_kernel import (
     ragged_paged_attention_pallas,
 )
+from agentfield_tpu_torch.models.configs import PRESETS
 from agentfield_tpu_torch.ops import paged_attention as pa
+from agentfield_tpu_torch.ops.cuda import build
 from agentfield_tpu_torch.ops.cuda import ragged_paged_attention as rpa
 from agentfield_tpu_torch.ops.kernel_shapes import PARITY_TOL, SHAPES, build_case
 from agentfield_tpu_torch.serving.kv_cache import pack_ragged_rows
@@ -183,3 +185,32 @@ def test_smoke_bound_passes_one_ulp_and_rejects_faults(dname):
     assert chip_smoke.compare(moved, o_r, dname)[0]
     faults = chip_smoke.fault_check(case, dname, o_r, None, pa.ragged_paged_attention_ref)
     assert all(ratio > 1.0 for _, ratio in faults.values()), faults
+
+
+@pytest.mark.parametrize("preset", sorted(PRESETS))
+def test_kernel_has_an_instance_for_every_preset_head_dim(preset):
+    """Every preset the port serves has a kernel build of its head dim (the
+    JAX kernel checks no head dim), and the build compiles that instance."""
+    hd = PRESETS[preset].head_dim
+    assert hd in rpa.SUPPORTED_HEAD_DIMS
+    targets = build._targets(build.CSRC_DIR / "ragged_paged_attention.cu")
+    assert targets[f"ragged_paged_attention.hd{hd}"] == (f"-DAFP_HEAD_DIM={hd}",)
+
+
+def test_smoke_checks_every_new_head_dim_on_every_path():
+    """chip_smoke holds the kernel at each new head dim on decode (also over
+    int8 and fp8 pools), chunk and dense, at the preset's own heads."""
+    dims = {PRESETS[p].head_dim for p in chip_smoke.HEAD_DIM_PRESETS}
+    assert dims | {32, 64, 128} == set(rpa.SUPPORTED_HEAD_DIMS)
+    ragged, quant = chip_smoke.ragged_shapes(), chip_smoke.quant_shapes()
+    dense = {(H, Kh, hd) for _, _, H, Kh, hd, _ in chip_smoke.dense_shapes()}
+    for p in chip_smoke.HEAD_DIM_PRESETS:
+        cfg = PRESETS[p]
+        for path in ("decode_ctx2k", "chunk512_over1k"):
+            s = ragged[f"{p}_{path}"]
+            assert (s["kh"], s["kh"] * s["rep"], s["hd"]) == (
+                cfg.num_kv_heads, cfg.num_heads, cfg.head_dim)
+            assert s.get("window") == cfg.sliding_window
+        assert {f"{p}_decode_ctx2k_{m}" for m in chip_smoke.QUANT_MODES} <= set(quant)
+        assert (cfg.num_heads, cfg.num_kv_heads, cfg.head_dim) in dense
+    assert set(chip_smoke.FAULT_SHAPES) <= set(ragged)

@@ -131,3 +131,76 @@ def test_sampling_params_same_fields_and_checks():
     for bad in (dict(temperature=-1.0), dict(max_new_tokens=0)):
         with pytest.raises(ValueError):
             SamplingParams(**bad)
+
+
+def _branching_sampler(logits, generator, temps, top_ks, top_ps, k_max=64):
+    """The truncated path as it read ``need_exact.any()`` back before taking
+    the exact wide-nucleus branch (the port's sampler before its step was
+    captured in a CUDA graph): the reference for the unconditional form."""
+    from agentfield_tpu_torch.serving.sampler import _categorical
+
+    k_max = min(k_max, logits.shape[1])
+    greedy = torch.argmax(logits, dim=-1).to(torch.int32)
+    t = temps.clamp(min=1e-6)[:, None]
+    full = _categorical(logits / t, generator).to(torch.int32)
+    vals, idxs = torch.topk(logits, k_max, dim=-1)
+    scaled = vals / t
+    k_eff = torch.where(top_ks[:, None] > 0, top_ks[:, None].clamp(max=k_max), k_max)
+    k_mask = torch.arange(k_max)[None, :] < k_eff
+    probs = torch.softmax(scaled.masked_fill(~k_mask, float("-inf")), dim=-1)
+    p_mask = (torch.cumsum(probs, dim=-1) - probs) < top_ps.clamp(max=1.0)[:, None]
+    choice = _categorical(scaled.masked_fill(~(k_mask & p_mask), float("-inf")), generator)
+    trunc = torch.gather(idxs, 1, choice[:, None])[:, 0].to(torch.int32)
+    cand_mass = torch.exp(torch.logsumexp(scaled, -1) - torch.logsumexp(logits / t, -1))
+    need_exact = (top_ks == 0) & (top_ps < 1.0) & (cand_mass < top_ps)
+    if bool(need_exact.any()):
+        order = torch.argsort(logits, dim=-1, descending=True)
+        svals = torch.gather(logits, 1, order) / t
+        p_full = torch.softmax(svals, dim=-1)
+        keep = (torch.cumsum(p_full, dim=-1) - p_full) < top_ps[:, None]
+        ch = _categorical(svals.masked_fill(~keep, float("-inf")), generator)
+        trunc = torch.where(need_exact, torch.gather(order, 1, ch[:, None])[:, 0].to(torch.int32),
+                            trunc)
+    sampled = torch.where((top_ks > 0) | (top_ps < 1.0), trunc, full)
+    return torch.where(temps <= 0, greedy, sampled), need_exact
+
+
+@pytest.mark.parametrize("wide", [True, False], ids=["need_exact_rows", "no_need_exact_row"])
+def test_truncated_variant_matches_the_branching_sampler(wide):
+    """The truncated variant computes the exact rows unconditionally and
+    selects them with ``torch.where`` (no device read): per call it gives
+    the values the branch on ``need_exact.any()`` gave, with and without
+    rows that need the exact nucleus."""
+    from agentfield_tpu_torch.serving.sampler import sampler_variant
+
+    rng = np.random.default_rng(7)
+    B, V = 64, 300
+    logits = torch.from_numpy((rng.standard_normal((B, V)) * (0.1 if wide else 3.0)).astype(np.float32))
+    temps = torch.from_numpy(rng.choice([0.0, 0.7, 1.0], B).astype(np.float32))
+    top_ks = torch.from_numpy(rng.choice([0, 0, 5], B).astype(np.int32))
+    top_ps = torch.from_numpy(rng.choice([1.0, 0.9, 0.5], B).astype(np.float32))
+    assert sampler_variant(temps, top_ks, top_ps) == "truncated"
+    for seed in range(5):
+        g1, g2 = torch.Generator(), torch.Generator()
+        g1.manual_seed(seed)
+        g2.manual_seed(seed)
+        want, need_exact = _branching_sampler(logits, g1, temps, top_ks, top_ps)
+        assert bool(need_exact.any()) == wide
+        got = sample_tokens(logits, g2, temps, top_ks, top_ps, variant="truncated")
+        assert torch.equal(got, want)
+        assert torch.equal(sample_tokens(logits, g2, temps, top_ks, top_ps,
+                                         variant="greedy"), logits.argmax(-1).int())
+
+
+def test_sampler_variant_from_host_knobs():
+    from agentfield_tpu_torch.serving.sampler import sampler_variant
+
+    z, o = np.zeros(3, np.float32), np.ones(3, np.float32)
+    zi = np.zeros(3, np.int32)
+    assert sampler_variant(z, zi, o) == "greedy"
+    assert sampler_variant(z, zi + 5, o * 0.5) == "greedy"  # knobs without a sampled row
+    assert sampler_variant(np.array([0, 1, 0], np.float32), zi, o) == "sampled"
+    assert sampler_variant(np.array([0, 1, 0], np.float32), np.array([0, 0, 4], np.int32), o) == "truncated"
+    with pytest.raises(ValueError):
+        sample_tokens(torch.zeros(3, 8), torch.Generator(), torch.from_numpy(z),
+                      torch.from_numpy(zi), torch.from_numpy(o), variant="nucleus")
