@@ -83,6 +83,11 @@
 //   per (row, KV head) runs phase B, and a combine launch merges the
 //   partials with the online-softmax recurrence and finalizes. Splits past
 //   ctx or before the window's first key, and padding rows, do no work.
+//   Phase B packs its tiles densely with the keys of consecutive same-seq_id
+//   rows: a mixed tick's prefill chunk arrives as W = 1 rows (one token
+//   each), and a tile per row would cost a cp.async round trip and two
+//   barriers per key. Each such row still walks its chunk's cached prefix
+//   in phase A on its own (ROADMAP B1 e).
 //
 // Path 3, nq > 8 in f32: the CUDA-core tile of the first port (64 query
 //   rows, keys widened to f32 in shared memory). Tensor-core TF32 would not
@@ -258,16 +263,19 @@ __host__ __device__ constexpr int decode_nsplit(int ps, int maxp) {
 __host__ __device__ constexpr int decode_part_floats(int hd) { return DEC_NQ * (2 + hd); }
 
 // One tile of keys for one warp: STEPS steps of KPW = 32 / G keys, key j =
-// j0 + step * KPW at position kpos0 + j, a key only for jlo <= j < jhi. The
+// j0 + step * KPW at position kpos0 + j, a key only for jlo <= j < jhi; with
+// KPOS the positions come from kpos[j] instead (NO_KEY: no key), for a tile
+// packed from several rows (phase B). The
 // G = hd / VEC lanes of a group hold one key's values and reduce its dot
 // products by shuffles; every dot of the tile is taken before the softmax,
 // so the shuffles of all keys and rows overlap. The running max m is shared
 // by the warp's groups; l and acc are per group until the final merge.
 // Rows from nq on are skipped; ALL_ROWS (nq == NQ) drops those checks.
-template <int G, int GL, int STEPS, int NQ, int HD, bool SCALED, bool ALL_ROWS, typename S>
+template <int G, int GL, int STEPS, int NQ, int HD, bool SCALED, bool ALL_ROWS, bool KPOS,
+          typename S>
 __device__ __forceinline__ void decode_tile(const S* kt, const S* vt, const float* ksc,
-                                            const float* vsc, int j0, int kpos0, int jlo,
-                                            int jhi, bool causal, int nq, int window,
+                                            const float* vsc, const int* kpos, int j0, int kpos0,
+                                            int jlo, int jhi, bool causal, int nq, int window,
                                             const int* qp, int gl, float (&q)[NQ][VEC],
                                             float (&acc)[NQ][VEC], float (&m)[NQ],
                                             float (&l)[NQ]) {
@@ -302,8 +310,9 @@ __device__ __forceinline__ void decode_tile(const S* kt, const S* vt, const floa
   for (int i = 0; i < NQ; ++i) tmax[i] = NEG_INF;
 #pragma unroll
   for (int st = 0; st < STEPS; ++st) {
-    const int j = j0 + st * KPW, kp = kpos0 + j;
-    const bool valid = j >= jlo && j < jhi;
+    const int j = j0 + st * KPW;
+    const int kp = KPOS ? kpos[j] : kpos0 + j;
+    const bool valid = KPOS ? kp != NO_KEY : j >= jlo && j < jhi;
     float ks = 1.f;
     if constexpr (SCALED) ks = ksc[j];
 #pragma unroll
@@ -483,51 +492,98 @@ __global__ void __launch_bounds__(NT, (NQ <= 4 && sizeof(T) == 2 && HD <= 128) ?
       const PT* kt = reinterpret_cast<const PT*>(st);
       const PT* vt = reinterpret_cast<const PT*>(st + L::ring_tile);
       if (all_rows)
-        decode_tile<G, GL, STEPS, NQ, HD, QUANT, true>(kt, vt, ksc, ksc + TK, j0, kpos0,
-                                                       lo - kpos0, hi - kpos0, false, nq, window,
-                                                       qp, gl, q, acc, m, l);
+        decode_tile<G, GL, STEPS, NQ, HD, QUANT, true, false>(kt, vt, ksc, ksc + TK, nullptr, j0,
+                                                              kpos0, lo - kpos0, hi - kpos0, false,
+                                                              nq, window, qp, gl, q, acc, m, l);
       else
-        decode_tile<G, GL, STEPS, NQ, HD, QUANT, false>(kt, vt, ksc, ksc + TK, j0, kpos0,
-                                                        lo - kpos0, hi - kpos0, false, nq, window,
-                                                        qp, gl, q, acc, m, l);
+        decode_tile<G, GL, STEPS, NQ, HD, QUANT, false, false>(kt, vt, ksc, ksc + TK, nullptr, j0,
+                                                               kpos0, lo - kpos0, hi - kpos0, false,
+                                                               nq, window, qp, gl, q, acc, m, l);
     }
     cp_wait<0>();
   } else {
-    // --- phase B: the launch's new keys of this sequence, causal
+    // --- phase B: the launch's new keys of this sequence, causal. Tiles are
+    // packed densely with the keys of consecutive same-seq_id rows (a row's
+    // keys never straddle two tiles: n_tokens <= W <= 8 < TK), so the W = 1
+    // rows of a mixed tick's chunk cost one tile round trip per TK keys, not
+    // one per row. Warp 0 scans 32 rows at a time: each lane counts its
+    // row's keys that some query of this row can see (positions up to
+    // qpos_hi, and past start - window with a window), a prefix sum places
+    // them, and the scan stops at the first row that no longer fits.
     const T* kn = reinterpret_cast<const T*>(a.k_new);
     const T* vn = reinterpret_cast<const T*>(a.v_new);
     const int my_seq = a.seq_ids[r];
     T* kt = reinterpret_cast<T*>(dsmem);
     T* vt = kt + TK * HD;
+    int* kpos_s = pg_s;            // key positions of the tile (NO_KEY: empty)
+    int* ksrc_s = pg_s + TK;       // their token index r2 * W + j in k_new / v_new
+    int* scan_s = pg_s + 2 * TK;   // keys in the tile, first row of the next scan
+    static_assert(2 * TK + 2 <= DEC_SPLIT + 2, "phase B's tile index fits pg_s");
     constexpr int CPR = HD * (int)sizeof(T) / 16;
-    for (int r2 = 0; r2 < a.R; ++r2) {
-      const int n2 = a.n_tokens[r2];
-      if (n2 <= 0 || a.seq_ids[r2] != my_seq) continue;
-      const int st2 = a.row_starts[r2];
-      for (int jb = 0; jb < n2; jb += TK) {
-        if (st2 + jb > qpos_hi) break;  // every key past the last query
-        if (window > 0 && st2 + jb + TK - 1 <= start - window) continue;
-        __syncthreads();  // the previous tile is consumed
-        for (int c = tid; c < 2 * TK * CPR; c += NT) {
-          const int kv = c / (TK * CPR), rem = c % (TK * CPR);
-          const int j = rem / CPR, piece = rem % CPR;
-          const bool ok = jb + j < n2;
-          const long long src = ok ? (((long long)r2 * W + jb + j) * Kh + kvh) * HD : 0;
-          cp16((kv ? vt : kt) + j * HD + piece * (16 / (int)sizeof(T)),
-               (kv ? vn : kn) + src + piece * (16 / (int)sizeof(T)), ok);
+    const int klo = window > 0 ? start - window + 1 : 0;  // first key any query sees
+    int row0 = 0;
+    for (;;) {
+      __syncthreads();  // the previous tile (and its index) is consumed
+      if (warp == 0) {
+        int fill = 0, rr = row0;
+        while (rr < a.R && fill < TK) {
+          const int r2 = rr + lane;
+          int cnt = 0, jlo = 0, st2 = 0;
+          if (r2 < a.R) {
+            const int n2 = a.n_tokens[r2];
+            if (n2 > 0 && a.seq_ids[r2] == my_seq) {
+              st2 = a.row_starts[r2];
+              jlo = max(0, klo - st2);
+              cnt = max(0, min(n2, qpos_hi - st2 + 1) - jlo);
+            }
+          }
+          int incl = cnt;
+#pragma unroll
+          for (int o = 1; o < 32; o <<= 1) {
+            const int y = __shfl_up_sync(FULL, incl, o);
+            if (lane >= o) incl += y;
+          }
+          const bool fits = fill + incl <= TK;  // true on a prefix of the lanes
+          if (fits)
+            for (int j = 0; j < cnt; ++j) {
+              kpos_s[fill + incl - cnt + j] = st2 + jlo + j;
+              ksrc_s[fill + incl - cnt + j] = r2 * W + jlo + j;
+            }
+          const int nfit = __popc(__ballot_sync(FULL, fits));
+          fill += nfit > 0 ? __shfl_sync(FULL, incl, nfit - 1) : 0;
+          rr += nfit;
+          if (nfit < 32) break;  // a row did not fit: the tile is full
         }
-        cp_commit();
-        cp_wait<0>();
-        __syncthreads();
-        if (all_rows)
-          decode_tile<G, GL, STEPS, NQ, HD, false, true>(kt, vt, nullptr, nullptr, j0, st2 + jb,
-                                                         0, n2 - jb, true, nq, window, qp, gl, q,
-                                                         acc, m, l);
-        else
-          decode_tile<G, GL, STEPS, NQ, HD, false, false>(kt, vt, nullptr, nullptr, j0, st2 + jb,
-                                                          0, n2 - jb, true, nq, window, qp, gl, q,
-                                                          acc, m, l);
+        for (int j = fill + lane; j < TK; j += 32) kpos_s[j] = NO_KEY;
+        if (lane == 0) {
+          scan_s[0] = fill;
+          scan_s[1] = rr;
+        }
       }
+      __syncthreads();
+      const int fill = scan_s[0];
+      if (fill == 0) break;  // no key left to attend
+      row0 = scan_s[1];
+      for (int c = tid; c < 2 * TK * CPR; c += NT) {
+        const int kv = c / (TK * CPR), rem = c % (TK * CPR);
+        const int j = rem / CPR, piece = rem % CPR;
+        const bool ok = j < fill;
+        const long long src = ok ? ((long long)ksrc_s[j] * Kh + kvh) * HD : 0;
+        cp16((kv ? vt : kt) + j * HD + piece * (16 / (int)sizeof(T)),
+             (kv ? vn : kn) + src + piece * (16 / (int)sizeof(T)), ok);
+      }
+      cp_commit();
+      cp_wait<0>();
+      __syncthreads();
+      if (all_rows)
+        decode_tile<G, GL, STEPS, NQ, HD, false, true, true>(kt, vt, nullptr, nullptr, kpos_s, j0,
+                                                             0, 0, 0, true, nq, window, qp, gl, q,
+                                                             acc, m, l);
+      else
+        decode_tile<G, GL, STEPS, NQ, HD, false, false, true>(kt, vt, nullptr, nullptr, kpos_s, j0,
+                                                              0, 0, 0, true, nq, window, qp, gl, q,
+                                                              acc, m, l);
+      if (row0 >= a.R) break;  // every row was scanned
     }
   }
 

@@ -84,29 +84,34 @@ def add_launches(counts: dict[str, int], sign: int = 1) -> None:
 _entry_fns: dict[int, tuple] = {}
 
 
+def bind(lib: ctypes.CDLL, hd: int) -> tuple:
+    """The C entry points of a built attention library for head dim ``hd``,
+    with their argument types set: ``(attention, error_string, path,
+    decode_part_floats)``."""
+    fn = lib.afp_ragged_paged_attention
+    # every pointer and the stream as c_void_p: unset argtypes would pass
+    # Python ints as 32-bit C ints and cut 64-bit device pointers
+    fn.argtypes = (
+        [ctypes.c_void_p] * 14 + [ctypes.c_longlong] + [ctypes.c_int] * 9
+        + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    )
+    fn.restype = ctypes.c_int
+    lib.afp_error_string.argtypes = [ctypes.c_int]
+    lib.afp_error_string.restype = ctypes.c_char_p
+    lib.afp_attention_path.argtypes = [ctypes.c_int] * 4
+    lib.afp_attention_path.restype = ctypes.c_int
+    lib.afp_decode_part_floats.argtypes = [ctypes.c_int] * 7
+    lib.afp_decode_part_floats.restype = ctypes.c_longlong
+    lib.afp_head_dim.restype = ctypes.c_int
+    if lib.afp_head_dim() != hd:
+        raise RuntimeError(f"library for head_dim {hd} was built for {lib.afp_head_dim()}")
+    return fn, lib.afp_error_string, lib.afp_attention_path, lib.afp_decode_part_floats
+
+
 def _entry(hd: int):
     fns = _entry_fns.get(hd)
     if fns is None:
-        lib = build.load(f"ragged_paged_attention.hd{hd}")
-        fn = lib.afp_ragged_paged_attention
-        # every pointer and the stream as c_void_p: unset argtypes would pass
-        # Python ints as 32-bit C ints and cut 64-bit device pointers
-        fn.argtypes = (
-            [ctypes.c_void_p] * 14 + [ctypes.c_longlong] + [ctypes.c_int] * 9
-            + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-        )
-        fn.restype = ctypes.c_int
-        lib.afp_error_string.argtypes = [ctypes.c_int]
-        lib.afp_error_string.restype = ctypes.c_char_p
-        lib.afp_attention_path.argtypes = [ctypes.c_int] * 4
-        lib.afp_attention_path.restype = ctypes.c_int
-        lib.afp_decode_part_floats.argtypes = [ctypes.c_int] * 7
-        lib.afp_decode_part_floats.restype = ctypes.c_longlong
-        lib.afp_head_dim.restype = ctypes.c_int
-        if lib.afp_head_dim() != hd:
-            raise RuntimeError(f"library for head_dim {hd} was built for {lib.afp_head_dim()}")
-        fns = _entry_fns[hd] = (fn, lib.afp_error_string, lib.afp_attention_path,
-                                lib.afp_decode_part_floats)
+        fns = _entry_fns[hd] = bind(build.load(f"ragged_paged_attention.hd{hd}"), hd)
     return fns
 
 

@@ -57,7 +57,8 @@ def build_case(name: str, fast: bool = True, seed: int = 0, params: dict | None 
     v_pages, page_tables, row_starts, n_tokens, ctx_lens, seq_ids)`` — the
     same draws, in the same order, as the JAX gate's ``build_case``.
     ``params`` overrides the mix's parameters (custom shapes): ``served``
-    lists one decode row per context, ``pad_to`` pads the launch with empty
+    lists one decode row per context, ``chunk_list`` one prefill chunk per
+    ``(cached tokens, chunk tokens)``, ``pad_to`` pads the launch with empty
     rows up to that many. A mix with a
     ``kv_dtype`` ("int8" | "fp8") quantizes the pools with the port's
     ``kv_quantize`` and appends ``(k_scales, v_scales)``; its four pool
@@ -75,6 +76,7 @@ def build_case(name: str, fast: bool = True, seed: int = 0, params: dict | None 
             entries.append((p["ctx"] + (r % 7), 1))
     for _ in range(p.get("chunks", 1 if "chunk" in p else 0)):
         entries.append((p["ctx"], p["chunk"]))
+    entries += [tuple(c) for c in p.get("chunk_list", ())]
     n_seqs = len(entries)
     P = n_seqs * maxp + 1
     rng = np.random.default_rng(seed)

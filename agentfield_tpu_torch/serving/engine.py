@@ -34,15 +34,34 @@ quantized with per-slot scales: the dense-prefill scatter quantizes through
 ``ops.kv_quant.write_pages``, and the kernel dequantizes cached pages and
 quantizes its fused write.
 
-Not ported yet (each a later slice): mixed ticks, speculative decoding and
-prefill, the host tier, preemption and priorities, deadlines, cancellation
-and forks, handoff, MoE.
+Overload control is the JAX engine's: the pending queue is kept in priority
+tiers (``Request.priority``, FIFO within a tier); ``request_cancel`` frees a
+pending, mid-prefill or active request at the next step; ``Request.
+deadline_s`` ends a request with ``finish_reason="deadline_exceeded"`` (a
+pending one is shed before it admits) and ``deadline_all_now`` gives every
+live request that end; a higher-priority request starved for
+``preempt_fence_ticks`` ticks preempts the lowest-priority slot, whose KV is
+parked in the shared-prefix index and whose request re-queues with its
+generated tokens folded into the prompt, to resume through a prefix hit.
+
+With ``mixed_step`` (the JAX token-budget tick), prompts that arrive while
+decodes are in flight prefill chunk by chunk inside the decode tick: one
+ragged launch a layer packs one token row per active slot and up to
+``mixed_step_budget - n_active`` prefill-chunk token rows (``n_tokens`` 1
+each, a chunk's rows sharing a ``seq_id``), through the kernel's
+split-context path on the card. ``scheduler_stats()`` gives the
+inter-token latency percentiles and the tokens carried per tick.
+
+Not ported yet (each a later slice): speculative decoding and prefill, the
+host tier, forks, handoff, MoE, the JAX engine's latency histograms and
+flight recorder, the ``engine.preempt_storm`` fault point.
 """
 
 from __future__ import annotations
 
 import collections
 import dataclasses
+import math
 import threading
 import time
 from typing import Any
@@ -68,6 +87,7 @@ from agentfield_tpu_torch.serving.kv_cache import (
     PagedKVCache,
     PrefixPagePool,
     build_page_table,
+    pack_ragged_rows,
 )
 from agentfield_tpu_torch.serving.sampler import SamplingParams, sample_tokens, sampler_variant
 
@@ -99,6 +119,15 @@ class EngineConfig:
     dtype: str | None = None  # KV page dtype (default: the params' dtype)
     kv_quant_dtype: str = "none"  # "int8" | "fp8": quantized KV pages with
     # per-(slot, KV head) f32 scales, ~1.9x the pages per HBM byte
+    mixed_step: bool | str = False  # token-budget mixed ticks while prompts
+    # wait behind active decodes; "auto" turns them on (the port has no
+    # speculative decoding, which owns its ticks in the JAX engine). Paused
+    # while a grammar-constrained request is active
+    mixed_step_budget: int = 512  # token rows a mixed tick carries at most
+    # (decode + prefill-chunk); must be >= max_batch + 16
+    preempt_fence_ticks: int = 64  # a pending request of higher priority
+    # than an active slot, starved this many consecutive ticks, preempts the
+    # lowest-priority slot (0 disables preemption)
 
     @property
     def max_context(self) -> int:
@@ -109,6 +138,14 @@ class EngineConfig:
         while b < n:
             b *= 2
         return min(b, self.max_context)
+
+    def mixed_bucket(self, n: int) -> int:
+        """Rows of a mixed tick carrying n real tokens: powers of two from
+        16, capped at the budget."""
+        b = 16
+        while b < min(n, self.mixed_step_budget):
+            b *= 2
+        return min(b, self.mixed_step_budget)
 
 
 @dataclasses.dataclass
@@ -122,6 +159,17 @@ class Request:
     # constrained decoding: schema-invalid tokens are masked before sampling
     # (serving/grammar.py); needs sampling.stop_token_ids and grammar_slots
     grammar: Grammar | None = None
+    # wall-clock budget in seconds from submit: on expiry a terminal event
+    # with finish_reason "deadline_exceeded" (token -1) ends the request; a
+    # request still pending is shed before it admits. None = no deadline
+    deadline_s: float | None = None
+    # admission tier: higher admits first (FIFO within a tier); a starved
+    # higher tier may preempt a lower-priority slot
+    priority: int = 0
+    # tokens generated by an earlier incarnation (set when a preempted
+    # request re-queues with them folded into its prompt): event indexes
+    # continue from here. 0 for every caller-submitted request
+    resumed_from: int = 0
 
 
 @dataclasses.dataclass
@@ -130,7 +178,8 @@ class TokenEvent:
     token: int
     index: int  # 0-based index among generated tokens
     finished: bool
-    finish_reason: str | None = None  # "stop" | "length"
+    finish_reason: str | None = None  # "stop" | "length" | "deadline_exceeded"
+    # (a deadline terminal carries token -1 and index -1)
     logprob: float | None = None  # log P(token) under the raw-logit distribution
 
 
@@ -142,6 +191,23 @@ class _Slot:
     generated: int
     last_token: int
     tokens: list[int] = dataclasses.field(default_factory=list)  # prompt + generated
+    last_emit_t: float = 0.0  # perf_counter of the last emitted token (ITL window)
+
+
+@dataclasses.dataclass
+class _PrefillJob:
+    """An admitting request whose prompt prefills chunk by chunk across
+    mixed ticks: it owns its pages, reserves one decode slot by count
+    (``_slots_available``) and installs into a slot when its last prompt
+    token's logits come back."""
+
+    req: Request
+    pages: list[int]
+    row: np.ndarray  # page-table row [max_pages_per_seq]
+    start: int  # cached-prefix length: prefill begins here
+    pos: int  # next absolute position to prefill
+    lead_hash: bytes | None = None  # chain hash of the prompt's first full
+    # page: pending requests sharing it defer until this job publishes
 
 
 @dataclasses.dataclass
@@ -217,6 +283,20 @@ class InferenceEngine:
                 f"kv_quant_dtype={self.ecfg.kv_quant_dtype!r} is not supported by this "
                 "torch build (no float8_e4m3fn) — use 'int8' or 'none'"
             )
+        if self.ecfg.mixed_step not in (True, False, "auto"):
+            raise ValueError(
+                f"mixed_step={self.ecfg.mixed_step!r} must be True, False, or 'auto'"
+            )
+        if self.ecfg.mixed_step == "auto":
+            # the JAX engine resolves "auto" to on unless speculative
+            # decoding owns the tick; the port has no speculative decoding
+            self.ecfg = dataclasses.replace(self.ecfg, mixed_step=True)
+        if self.ecfg.mixed_step and self.ecfg.mixed_step_budget < self.ecfg.max_batch + 16:
+            raise ValueError(
+                f"mixed_step_budget={self.ecfg.mixed_step_budget} must be >= "
+                f"max_batch+16={self.ecfg.max_batch + 16}: a full decode batch "
+                "must still leave prefill-chunk room in the tick"
+            )
         if self.ecfg.max_pages_per_seq > self.ecfg.num_pages - 1:
             raise ValueError(
                 f"max_pages_per_seq={self.ecfg.max_pages_per_seq} cannot exceed "
@@ -257,6 +337,18 @@ class InferenceEngine:
             "prefix_batch_deferrals": 0,
             "grammar_evictions": 0,
             "grammar_capacity_errors": 0,
+            "requests_cancelled": 0,
+            "mixed_ticks": 0,  # ticks that ran the packed ragged forward
+            "mixed_tokens": 0,  # real tokens (decode + prefill-chunk) they carried
+            "deadline_exceeded": 0,  # requests ended by Request.deadline_s
+            "cancels_unknown": 0,  # request_cancel of an id the engine does not hold
+            "drains_total": 0,  # graceful drains started (the node's drain())
+            "drain_cancelled": 0,  # requests deadline-outed by a drain
+            "preemptions_total": 0,  # slots preempted for a starved higher tier
+            "resume_prefix_hits_total": 0,  # preempted requests that resumed
+            # over cached pages instead of a full re-prefill
+            "shed_pending_deadline_total": 0,  # pending requests shed at their
+            # deadline before they ever admitted (a subset of deadline_exceeded)
         }
         # Host wall time of prefills (each ends in a device→host read) and of
         # decode dispatches and harvests (a harvest waits for its step).
@@ -311,6 +403,21 @@ class InferenceEngine:
         self._pending_lock = threading.Lock()
         self._submit_t: dict[str, float] = {}
         self._head_starved_ticks = 0
+        # cancellation requests, drained inside step() on the scheduler thread
+        self._cancels: set[str] = set()
+        # request id -> monotonic expiry (written at submit, scanned each step)
+        self._deadline_at: dict[str, float] = {}  # guarded by: _pending_lock
+        self._drain_sweep = False  # deadline_all_now, applied at the next step
+        # preemption fence: consecutive starved ticks of the current queue
+        # head, and the head the previous probe saw (scheduler-thread state)
+        self._preempt_starved_ticks = 0
+        self._preempt_last_head: str | None = None
+        # mixed ticks: admitting requests mid-chunked-prefill
+        self._prefill_jobs: list[_PrefillJob] = []
+        # scheduler telemetry: inter-token gaps (s) and tokens per dispatch
+        self._telemetry_lock = threading.Lock()
+        self._itl_window: collections.deque[float] = collections.deque(maxlen=4096)  # guarded by: _telemetry_lock
+        self._tick_tokens: collections.deque[int] = collections.deque(maxlen=1024)  # guarded by: _telemetry_lock
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(seed)
         # the decode pipeline: the dispatched-but-unread step, the device
@@ -322,8 +429,10 @@ class InferenceEngine:
         self._dirty = True
         self._compact_key: tuple | None = None
         self._graphs = DecodeGraphs(self._decode_step, self._gen)
-        # device ms of each replayed decode step (CUDA events around replays)
+        # device ms of each replayed decode step and of each mixed tick's
+        # forward and sampling (CUDA events)
         self.decode_step_ms: collections.deque[float] = collections.deque(maxlen=4096)
+        self.mixed_tick_ms: collections.deque[float] = collections.deque(maxlen=4096)
 
     # ------------------------------------------------------------------
     # host-side scheduling
@@ -352,6 +461,19 @@ class InferenceEngine:
                     f"are supported with a grammar (got "
                     f"{len(req.sampling.stop_token_ids)})"
                 )
+        if req.deadline_s is not None and (
+            not math.isfinite(req.deadline_s) or req.deadline_s <= 0
+        ):
+            # before _grammar_acquire: a rejected request pins no bank rows
+            raise ValueError(
+                f"request {req.id}: deadline_s={req.deadline_s} must be a "
+                "positive finite number"
+            )
+        if type(req.priority) is not int:  # a bool is a flag, not a tier
+            raise ValueError(
+                f"request {req.id}: priority must be an int "
+                f"(got {type(req.priority).__name__})"
+            )
         needed = self._pages_needed(req)
         if needed > self.ecfg.max_pages_per_seq:
             raise RequestTooLongError(
@@ -370,11 +492,28 @@ class InferenceEngine:
                     self.stats["backpressure_total"] += 1
                     raise QueueFullError(f"pending queue at capacity {self.ecfg.max_pending}")
                 self._submit_t[req.id] = time.monotonic()
-                self.pending.append(req)
+                self._enqueue_locked(req)
+                if req.deadline_s is not None:
+                    self._deadline_at[req.id] = time.monotonic() + req.deadline_s
         except QueueFullError:
             with self._session_lock:
                 self._grammar_release(req.grammar)
             raise
+
+    def _enqueue_locked(self, req: Request, senior: bool = False) -> None:  # guarded by: _pending_lock
+        """Insert into the priority-tier-ordered pending queue: non-increasing
+        in priority, FIFO within a tier (flat-priority traffic is a plain
+        append). ``senior`` puts the request at the front of its tier
+        instead: a preempted victim keeps its seniority."""
+        p = req.priority
+        if not senior and (not self.pending or self.pending[-1].priority >= p):
+            self.pending.append(req)
+            return
+        for i, r in enumerate(self.pending):
+            if (r.priority < p) if not senior else (r.priority <= p):
+                self.pending.insert(i, req)
+                return
+        self.pending.append(req)
 
     def _pages_needed(self, req: Request) -> int:
         total = len(req.prompt) + req.sampling.max_new_tokens
@@ -407,10 +546,13 @@ class InferenceEngine:
         return sum(s is not None for s in self.slots)
 
     def has_work(self) -> bool:
-        return bool(self.pending) or self.num_active > 0 or self._inflight is not None
+        return (bool(self.pending) or self.num_active > 0 or self._inflight is not None
+                or bool(self._prefill_jobs))
 
     def _slots_available(self) -> int:
-        return sum(s is None for s in self.slots)
+        """Free slots not reserved by prefill jobs (a job must find a slot
+        when its prompt completes)."""
+        return sum(s is None for s in self.slots) - len(self._prefill_jobs)
 
     def _alloc_with_eviction(self, n: int) -> list[int] | None:  # guarded by: _session_lock
         """Allocate n pages, evicting LRU idle sessions if needed (cached
@@ -472,17 +614,19 @@ class InferenceEngine:
         return 0
 
     def _try_admit(self) -> list[TokenEvent]:
-        """Admit pending requests (the JAX engine's ``_try_admit`` with flat
-        priorities): the window candidate with the longest cached prefix
-        admits first on the single path; otherwise up to ``prefill_batch``
-        fresh prompts coalesce into one batched prefill, deferring fresh
-        prompts whose leading page a batch-mate is about to publish. A page-
-        starved request does not block the queue: admission scans up to
-        ``admit_window`` entries past it, collapsing to strict FIFO after
-        ``head_starve_fifo_ticks`` ticks of starving the head."""
+        """Admit pending requests (the JAX engine's ``_try_admit``): the
+        window candidate of the top priority tier with the longest cached
+        prefix admits first on the single path; otherwise up to
+        ``prefill_batch`` fresh prompts coalesce into one batched prefill,
+        deferring fresh prompts whose leading page a batch-mate is about to
+        publish. The queue is priority-tier-ordered, so the positional scan
+        is the priority scan. A page-starved request does not block the
+        queue: admission scans up to ``admit_window`` entries past it,
+        collapsing to strict FIFO after ``head_starve_fifo_ticks`` ticks of
+        starving the head."""
         if not self.pending:
             return []
-        avail = self._slots_available()
+        avail = self._slots_available()  # prefill jobs' reservations excluded
         if avail <= 0:
             return []
         N = min(max(1, self.ecfg.prefill_batch), avail)
@@ -492,8 +636,10 @@ class InferenceEngine:
         with self._pending_lock:
             cands = [self.pending[i] for i in range(min(window + N, len(self.pending)))]
         head = cands[0]
-        best = None  # (cached_len, window index, req)
+        best = None  # (cached_len, window index, req), top priority tier only
         for i in range(min(window, len(cands))):
+            if cands[i].priority != head.priority:
+                break  # tiers are contiguous: nothing below is top-tier
             cl = self._cached_prefix_len(cands[i])
             if cl > 0 and (best is None or cl > best[0]):
                 best = (cl, i, cands[i])
@@ -600,8 +746,11 @@ class InferenceEngine:
         last = self._dense_prefill([req.prompt for req, _, _ in batch], rows)
         toks, lps = self._sample([req.sampling for req, _, _ in batch], last,
                                  [self._first_token_mask(req) for req, _, _ in batch])
-        self.stats["prefill_tokens"] += sum(len(req.prompt) for req, _, _ in batch)
+        n_tok = sum(len(req.prompt) for req, _, _ in batch)
+        self.stats["prefill_tokens"] += n_tok
         self.stats["prefill_batches"] += 1
+        with self._telemetry_lock:
+            self._tick_tokens.append(n_tok)
         return [
             self._install(req, slot_idx, pages, rows[j], toks[j], lps[j])
             for j, (req, slot_idx, pages) in enumerate(batch)
@@ -683,13 +832,10 @@ class InferenceEngine:
         kind = "session" if hit is not None else ("index" if index_hit else "fresh")
         return pages, start, kind
 
-    def _admit_single(self, req: Request, free_slot: int) -> list[TokenEvent]:
-        """Single-request admission: session reuse, shared-prefix reuse
-        (both suffix-only prefill) and chunked long prompts."""
-        acq = self._acquire_pages(req)
-        if acq is None:
-            return []  # page-starved; decode will free pages
-        pages, start, kind = acq
+    def _dequeue_acquired(self, req: Request, kind: str, start: int) -> None:
+        """After a successful acquisition (classic single path or a mixed
+        prefill job): the request leaves the pending queue (by identity) and
+        its cache hit is counted."""
         with self._pending_lock:
             self.pending.remove(req)
         self._req_hashes.pop(req.id, None)
@@ -699,9 +845,23 @@ class InferenceEngine:
         elif kind == "index":
             self.stats["prefix_index_hits"] += 1
             self.stats["prefix_tokens_reused"] += start
+        if req.resumed_from > 0 and kind != "fresh" and start > 0:
+            # a preempted request resumed over its parked pages
+            self.stats["resume_prefix_hits_total"] += 1
+
+    def _admit_single(self, req: Request, free_slot: int) -> list[TokenEvent]:
+        """Single-request admission: session reuse, shared-prefix reuse
+        (both suffix-only prefill) and chunked long prompts."""
+        acq = self._acquire_pages(req)
+        if acq is None:
+            return []  # page-starved; decode will free pages
+        pages, start, kind = acq
+        self._dequeue_acquired(req, kind, start)
         row = build_page_table(pages, self.ecfg.max_pages_per_seq)
         last_logits = self._prefill(req.prompt[start:], start, row)
         self.stats["prefill_tokens"] += len(req.prompt) - start
+        with self._telemetry_lock:
+            self._tick_tokens.append(len(req.prompt) - start)
         return self._sample_first_and_install(req, free_slot, pages, row, last_logits)
 
     def _sample(self, samplings: list[SamplingParams], logits: torch.Tensor,
@@ -709,6 +869,11 @@ class InferenceEngine:
         """Sample one token per row of ``logits`` [n, V], a grammar row only
         among its ``masks`` entry's allowed tokens; returns host lists
         (tokens, raw-logit logprobs)."""
+        toks, lps = self._sample_on_device(samplings, logits, masks)
+        return toks.tolist(), lps.tolist()
+
+    def _sample_on_device(self, samplings, logits, masks=None):
+        """``_sample`` without the read-back: (tokens, logprobs) tensors."""
         temps = torch.tensor([s.temperature for s in samplings], dtype=torch.float32)
         top_ks = torch.tensor([s.top_k for s in samplings], dtype=torch.int32)
         top_ps = torch.tensor([s.top_p for s in samplings], dtype=torch.float32)
@@ -721,7 +886,7 @@ class InferenceEngine:
             sample_from = torch.where(torch.from_numpy(allowed).to(logits.device), logits, _MASKED)
         toks = sample_tokens(sample_from, self._gen, temps, top_ks, top_ps)
         lps = torch.gather(torch.log_softmax(logits, dim=-1), 1, toks[:, None].long())[:, 0]
-        return toks.tolist(), lps.tolist()
+        return toks, lps
 
     def _sample_first_and_install(
         self, req: Request, slot_idx: int, pages: list[int], row: np.ndarray, last_logits
@@ -852,6 +1017,23 @@ class InferenceEngine:
         if g.accept[g.start]:
             allowed[list(req.sampling.stop_token_ids)] = True
         return allowed
+
+    def scheduler_stats(self) -> dict[str, float]:
+        """Scheduler-latency gauges: inter-token arrival percentiles over a
+        rolling window (the stall a mixed tick bounds) and tokens carried
+        per device dispatch."""
+        with self._telemetry_lock:
+            w = sorted(self._itl_window)
+            tt = list(self._tick_tokens)
+
+        def pct(p: float) -> float:
+            return w[min(len(w) - 1, int(len(w) * p))] * 1e3 if w else 0.0
+
+        return {
+            "itl_ms_p50": round(pct(0.50), 3),
+            "itl_ms_p99": round(pct(0.99), 3),
+            "tokens_per_tick": round(sum(tt) / len(tt), 2) if tt else 0.0,
+        }
 
     def prefix_cache_stats(self) -> dict[str, int]:
         """Gauges of the shared-prefix page pool (counters live in stats)."""
@@ -1181,10 +1363,19 @@ class InferenceEngine:
                     self.grammar_states[i] = max(int(self._gbank_trans[self.grammar_states[i], tok]), 0)
                 self.stats["decode_tokens"] += 1
                 out.append(self._emit(i, slot, tok, float(lps[t, row])))
+        with self._telemetry_lock:
+            self._tick_tokens.append(len(out))
         self.timing["decode_s"] += time.perf_counter() - t0
         return out
 
     def _emit(self, slot_idx: int, slot: _Slot, tok: int, logprob: float | None = None) -> TokenEvent:
+        # inter-token latency: the gap between consecutive token arrivals of
+        # one request as a stream consumer sees them
+        now = time.perf_counter()
+        if slot.last_emit_t > 0.0:
+            with self._telemetry_lock:
+                self._itl_window.append(now - slot.last_emit_t)
+        slot.last_emit_t = now
         s = slot.req.sampling
         reason = None
         if tok in s.stop_token_ids:
@@ -1192,7 +1383,8 @@ class InferenceEngine:
         elif slot.generated >= s.max_new_tokens:
             reason = "length"
         ev = TokenEvent(
-            request_id=slot.req.id, token=tok, index=slot.generated - 1,
+            request_id=slot.req.id, token=tok,
+            index=slot.req.resumed_from + slot.generated - 1,  # one sequence across preemptions
             finished=reason is not None, finish_reason=reason, logprob=logprob,
         )
         if ev.finished:
@@ -1222,8 +1414,17 @@ class InferenceEngine:
             else:
                 self.allocator.free(slot.pages)
         self.stats["requests_finished"] += 1
+        with self._pending_lock:
+            self._deadline_at.pop(slot.req.id, None)
         if self.slots[slot_idx] is slot:
             self.slots[slot_idx] = None
+        self._clear_slot(slot_idx)
+        with self._session_lock:
+            self._grammar_release(slot.req.grammar)
+
+    def _clear_slot(self, slot_idx: int) -> None:
+        """Reset a freed slot's host shadows (a free slot's values) and mark
+        the device control state stale: membership changed."""
         self.page_tables[slot_idx] = 0
         self.seq_lens[slot_idx] = 0
         self.temps[slot_idx] = 0.0
@@ -1231,22 +1432,445 @@ class InferenceEngine:
         self.top_ps[slot_idx] = 1.0
         self.grammar_states[slot_idx] = 0
         self.eos_ids[slot_idx] = -1
-        with self._session_lock:
-            self._grammar_release(slot.req.grammar)
         self._dirty = True
-        self._compact_key = None  # membership changed
+        self._compact_key = None
+
+    # ------------------------------------------------------------------
+    # overload control: cancellation, deadlines, priority preemption
+    # ------------------------------------------------------------------
+
+    def request_cancel(self, request_id: str) -> None:
+        """Cancel a pending, mid-prefill or active request: its slot and
+        pages release at the next step() with no terminal event (thread-
+        safe)."""
+        self._cancels.add(request_id)
+
+    def live_request_ids(self) -> list[str]:
+        """Ids the engine holds (pending, mid-prefill, active); advisory
+        from other threads."""
+        with self._pending_lock:
+            ids = [r.id for r in self.pending]
+        ids += [j.req.id for j in list(self._prefill_jobs)]
+        ids += [s.req.id for s in list(self.slots) if s is not None]
+        return ids
+
+    def deadline_all_now(self) -> int:
+        """Graceful-drain helper: at the next step() every live request gets
+        an expired deadline and ends with a ``deadline_exceeded`` terminal
+        event (the sweep runs on the scheduler thread). Returns an advisory
+        count of live requests."""
+        self._drain_sweep = True
+        return len(self.live_request_ids())
+
+    def _expire_deadlines(self) -> list[str]:
+        """Expired ``deadline_s`` ids (after a pending drain sweep): routed
+        through the cancel path; the caller emits their terminal events. A
+        request expiring while still pending (and never admitted) counts
+        as a queue-time shed."""
+        if self._drain_sweep:
+            self._drain_sweep = False
+            t0 = time.monotonic()
+            with self._pending_lock:
+                ids = [r.id for r in self.pending]
+            ids += [j.req.id for j in self._prefill_jobs]
+            ids += [s.req.id for s in self.slots if s is not None]
+            with self._pending_lock:
+                for rid in ids:
+                    self._deadline_at[rid] = t0
+        t = time.monotonic()
+        with self._pending_lock:
+            if not self._deadline_at:
+                return []
+            expired = [rid for rid, exp in self._deadline_at.items() if exp <= t]
+            for rid in expired:
+                del self._deadline_at[rid]
+            if expired:
+                # a preempted-and-resumed request did admit: not a queue shed
+                pending_ids = {r.id for r in self.pending if r.resumed_from == 0}
+                self.stats["shed_pending_deadline_total"] += sum(
+                    1 for rid in expired if rid in pending_ids)
+        if expired:
+            self._cancels.update(expired)
+        return expired
+
+    def _drain_cancels(self, expected: set[str] | None = None) -> None:
+        """Apply queued cancels (the caller harvested the step in flight).
+        ``expected`` ids (deadline expiries) do not count as unknown."""
+        if not self._cancels:
+            return
+        cancels, self._cancels = self._cancels, set()
+        matched: set[str] = set()
+        with self._pending_lock:
+            for rid in cancels:
+                self._deadline_at.pop(rid, None)
+            dropped = [r for r in self.pending if r.id in cancels]
+            self.pending = collections.deque(r for r in self.pending if r.id not in cancels)
+            self.stats["requests_cancelled"] += len(dropped)
+        if dropped:
+            with self._session_lock:
+                for r in dropped:
+                    self._grammar_release(r.grammar)
+            for r in dropped:
+                self._req_hashes.pop(r.id, None)
+                matched.add(r.id)
+        for job in [j for j in self._prefill_jobs if j.req.id in cancels]:
+            # a partial prompt: release its pages without publishing
+            with self._session_lock:
+                self.allocator.free(job.pages)
+            self._prefill_jobs.remove(job)
+            self.stats["requests_cancelled"] += 1
+            matched.add(job.req.id)
+        for i, slot in enumerate(self.slots):
+            if slot is not None and slot.req.id in cancels:
+                matched.add(slot.req.id)
+                # incomplete output: release without session retention
+                with self._session_lock:
+                    self.allocator.free(slot.pages)
+                    self._grammar_release(slot.req.grammar)
+                self.slots[i] = None
+                self._clear_slot(i)
+                self.stats["requests_cancelled"] += 1
+        for rid in matched:
+            self._submit_t.pop(rid, None)
+        unknown = cancels - matched - (expected or set())
+        if unknown:  # the client thinks a request is in flight that is not
+            self.stats["cancels_unknown"] += len(unknown)
+
+    def _victim_slot(self) -> tuple[int, _Slot] | None:
+        """The slot a preemption evicts: lowest priority, then the most
+        pages, then the highest index. Grammar-constrained slots are never
+        preempted (a mid-schema automaton state cannot resume through a
+        prompt)."""
+        best = None
+        for i, s in enumerate(self.slots):
+            if s is None or s.req.grammar is not None:
+                continue
+            key = (s.req.priority, -len(s.pages), -i)
+            if best is None or key < best[0]:
+                best = (key, i, s)
+        return (best[1], best[2]) if best is not None else None
+
+    def _cand_starved(self, cand: Request) -> bool:
+        """Would ``cand`` fail to admit this tick? No free slot, or fewer
+        allocatable pages than its need beyond its cached prefix. A cached
+        prefix on the LRU counts in ``free_pages`` but admission increfs it
+        out of that pool, so the overlap is subtracted from the pages free."""
+        if self._slots_available() <= 0:
+            return True
+        with self._session_lock:
+            cached_pages = self._cached_prefix_len(cand) // self.ecfg.page_size
+            overlap = 0
+            if (cached_pages and self._shared_prefix
+                    and not (cand.session_id and cand.session_id in self._sessions)):
+                overlap = self.allocator.evictable_prefix_pages(
+                    cand.prompt[: len(cand.prompt) - 1], hashes=self._prompt_hashes(cand))
+            return self._pages_needed(cand) - cached_pages > self.allocator.free_pages - overlap
+
+    def _maybe_preempt(self) -> list[TokenEvent]:
+        """When the queue head out-prioritizes the lowest-priority active
+        slot and has been starved for ``preempt_fence_ticks`` consecutive
+        ticks of its own, park that slot's KV and re-queue its request
+        (``_preempt_slot``; no terminal event). Returns the events of the
+        step in flight, harvested before the slot is touched."""
+        if not self.pending:
+            self._preempt_starved_ticks = 0
+            self._preempt_last_head = None
+            return []
+        victim = self._victim_slot()
+        if victim is None:
+            self._preempt_starved_ticks = 0
+            self._preempt_last_head = None
+            return []
+        vi, vslot = victim
+        if self.ecfg.preempt_fence_ticks <= 0:
+            return []  # preemption disabled
+        with self._pending_lock:
+            cand = self.pending[0] if self.pending else None
+        if cand is None or cand.priority <= vslot.req.priority:
+            self._preempt_starved_ticks = 0
+            self._preempt_last_head = None
+            return []
+        # starved: the capacity probe says so, or the head is still the one
+        # the previous probe saw (admission ran in between and refused it)
+        head_stuck = cand.id == self._preempt_last_head
+        if self.ecfg.mixed_step and not self._mixed_eligible(cand):
+            # a grammar head admits only on classic ticks: its wait is mode
+            # ineligibility, not capacity starvation
+            head_stuck = False
+        self._preempt_last_head = cand.id
+        if not head_stuck:
+            self._preempt_starved_ticks = 0  # the fence is per head
+            if not self._cand_starved(cand):
+                return []
+        self._preempt_starved_ticks += 1
+        if self._preempt_starved_ticks < self.ecfg.preempt_fence_ticks:
+            return []
+        events = self._harvest_inflight()
+        if self.slots[vi] is not vslot:
+            # the harvest finished the victim: the capacity came on its own
+            self._preempt_starved_ticks = 0
+            return events
+        with self._session_lock:
+            free = self.allocator.free_pages
+        if self._slots_available() > 0 and free >= self._pages_needed(cand):
+            # another slot finished in the harvest: admission is certain
+            self._preempt_starved_ticks = 0
+            return events
+        self._preempt_slot(vi, vslot)
+        self._preempt_starved_ticks = 0
+        return events
+
+    def _preempt_slot(self, slot_idx: int, slot: _Slot) -> None:
+        """Evict one active slot without a terminal event: park its KV in
+        the prefix index (the last sampled token's KV was never written, so
+        the parked prefix is ``tokens[:-1]``) and re-queue the request at the
+        front of its tier with the generated tokens folded into its prompt.
+        Its resume re-prefills only the last token over the parked pages,
+        recomputing the logits the next decode step would have used."""
+        req = slot.req
+        with self._session_lock:
+            if self._shared_prefix:
+                self.allocator.park(slot.tokens[:-1], slot.pages)
+            else:  # nothing to park into: the resume re-prefills it all
+                self.allocator.free(slot.pages)
+        resumed = dataclasses.replace(
+            req,
+            prompt=list(slot.tokens),
+            sampling=dataclasses.replace(
+                req.sampling, max_new_tokens=req.sampling.max_new_tokens - slot.generated),
+            resumed_from=req.resumed_from + slot.generated,
+        )
+        with self._pending_lock:
+            self._enqueue_locked(resumed, senior=True)
+        self._req_hashes.pop(req.id, None)  # the prompt changed
+        self.slots[slot_idx] = None
+        self._clear_slot(slot_idx)
+        self.stats["preemptions_total"] += 1
+
+    # ------------------------------------------------------------------
+    # mixed token-budget ticks
+    # ------------------------------------------------------------------
+
+    def _mixed_eligible(self, req: Request) -> bool:
+        """Prefill jobs carry plain prompts: a grammar request's first-token
+        mask is a classic-tick feature (it admits through the classic
+        path)."""
+        return req.grammar is None
+
+    def _mixed_tick_ready(self) -> bool:
+        """Run the packed mixed tick? While prefill jobs are mid-prompt, or
+        when an eligible head waits behind active decodes with a slot free.
+        Never while a grammar request is active (its mask is a classic-tick
+        feature)."""
+        if not self.ecfg.mixed_step:
+            return False
+        if any(s is not None and s.req.grammar is not None for s in self.slots):
+            return False
+        if self._prefill_jobs:
+            return True
+        if not self.pending or self.num_active == 0 or self._slots_available() <= 0:
+            return False
+        with self._pending_lock:
+            head = self.pending[0] if self.pending else None
+        return head is not None and self._mixed_eligible(head)
+
+    def _start_mixed_jobs(self, room: int) -> None:
+        """Admit pending requests into prefill jobs while the tick has token
+        room (the acquisition's cached-prefix probe decides each job's
+        start). Fairness as in ``_try_admit``: a starved or ineligible head
+        does not block the window, bypasses age the same head-starvation
+        fence, and candidates whose leading page an in-flight job is about
+        to publish defer (``prefix_batch_deferrals``)."""
+        window = max(1, self.ecfg.admit_window)
+        if self._head_starved_ticks >= self.ecfg.head_starve_fifo_ticks:
+            window = 1  # freed pages go to the head
+        job_leads = {j.lead_hash for j in self._prefill_jobs if j.lead_hash}
+        with self._pending_lock:
+            cands = [self.pending[i]
+                     for i in range(min(window + self.ecfg.max_batch, len(self.pending)))]
+        head = cands[0] if cands else None
+        head_pending = head is not None
+        head_blocked = False  # page-starved or ineligible head
+        admitted_past_head = False
+        skips = 0
+        for req in cands:
+            if room <= 0 or self._slots_available() <= 0 or skips >= window:
+                break
+            if not self._mixed_eligible(req):
+                head_blocked = head_blocked or req is head
+                skips += 1
+                continue
+            lead = None
+            if self._shared_prefix and len(req.prompt) > self.ecfg.page_size:
+                lead = self._prompt_hashes(req)[0]
+                if lead in job_leads:
+                    self.stats["prefix_batch_deferrals"] += 1
+                    skips += 1
+                    continue
+            acq = self._acquire_pages(req)
+            if acq is None:
+                head_blocked = head_blocked or req is head
+                skips += 1
+                continue  # page-starved: scan past it
+            pages, start, kind = acq
+            if kind != "fresh":
+                lead = None  # reused pages are published already
+            self._dequeue_acquired(req, kind, start)
+            row = build_page_table(pages, self.ecfg.max_pages_per_seq)
+            self._prefill_jobs.append(_PrefillJob(req=req, pages=pages, row=row, start=start,
+                                                  pos=start, lead_hash=lead))
+            if lead is not None:
+                job_leads.add(lead)
+            if req is head:
+                head_pending = False
+            elif skips > 0:
+                admitted_past_head = True
+                self.stats["admission_reorders"] += 1
+            room -= len(req.prompt) - start
+        if admitted_past_head and head_blocked:
+            self._head_starved_ticks += 1
+        elif head is not None and not head_pending:
+            self._head_starved_ticks = 0
+
+    def _mixed_tick(self) -> list[TokenEvent] | None:
+        """One token-budget tick: every active slot decodes one token and
+        admitting prompts advance by up to ``budget - n_active`` chunk
+        tokens, in one packed forward of ``mixed_bucket`` W=1 rows. Returns
+        None when no chunk token fits (the caller runs a classic tick)."""
+        budget = self.ecfg.mixed_step_budget
+        active = [(i, s) for i, s in enumerate(self.slots) if s is not None]
+        n_active = len(active)
+        committed = sum(len(j.req.prompt) - j.pos for j in self._prefill_jobs)
+        self._start_mixed_jobs(budget - n_active - committed)
+        committed = sum(len(j.req.prompt) - j.pos for j in self._prefill_jobs)
+        bucket = self.ecfg.mixed_bucket(n_active + committed)
+        room = bucket - n_active
+        chunks: list[tuple[_PrefillJob, int]] = []
+        for job in self._prefill_jobs:  # FIFO: head jobs drain first
+            if room <= 0:
+                break
+            n = min(len(job.req.prompt) - job.pos, room)
+            if n > 0:
+                chunks.append((job, n))
+                room -= n
+        if not chunks:
+            return None
+        rows = [(self.page_tables[i], int(self.seq_lens[i]), [int(self.last_tokens[i])])
+                for i, _ in active]
+        rows += [(job.row, job.pos, job.req.prompt[job.pos : job.pos + n]) for job, n in chunks]
+        rr = pack_ragged_rows(rows, self.ecfg.max_pages_per_seq, bucket)
+        # the rows whose logits are sampled: every decode row, and a chunk's
+        # last row when it reaches its prompt's last token (its request's
+        # first generated token)
+        done = [j for j, (job, n) in enumerate(chunks) if job.pos + n == len(job.req.prompt)]
+        flat = [rr.last_flat[j] for j in range(n_active)] + [rr.last_flat[n_active + j] for j in done]
+        samplings = [s.req.sampling for _, s in active] + [chunks[j][0].req.sampling for j in done]
+        timed = None
+        if self.device.type == "cuda":
+            timed = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+            timed[0].record()
+        toks, lps = self._sample_on_device(samplings, self._mixed_logits(rr, flat))
+        if timed is not None:
+            timed[1].record()
+        toks, lps = toks.tolist(), lps.tolist()
+        if timed is not None:
+            self.mixed_tick_ms.append(timed[0].elapsed_time(timed[1]))
+        events: list[TokenEvent] = []
+        for j, (i, slot) in enumerate(active):
+            tok = toks[j]
+            slot.length += 1
+            slot.generated += 1
+            slot.last_token = tok
+            slot.tokens.append(tok)
+            self.seq_lens[i] = slot.length
+            self.last_tokens[i] = tok
+            self.stats["decode_tokens"] += 1
+            events.append(self._emit(i, slot, tok, lps[j]))
+        first = dict(zip(done, range(n_active, len(flat))))
+        for j, (job, n) in enumerate(chunks):
+            job.pos += n
+            self.stats["prefill_tokens"] += n
+            if j in first:
+                self._prefill_jobs.remove(job)
+                free_slot = next(i for i, s in enumerate(self.slots) if s is None)
+                k = first[j]
+                events.append(self._install(job.req, free_slot, job.pages, job.row, toks[k], lps[k]))
+        if n_active:
+            self.stats["decode_steps"] += 1
+        carried = n_active + sum(n for _, n in chunks)
+        self.stats["mixed_ticks"] += 1
+        self.stats["mixed_tokens"] += carried
+        with self._telemetry_lock:
+            self._tick_tokens.append(carried)
+        # the host shadows advanced outside the device-chained decode state:
+        # the next classic dispatch rebuilds it
+        self._dirty = True
+        self._compact_key = None
+        return events
+
+    def _mixed_logits(self, rr, flat: list[int]) -> torch.Tensor:
+        """The packed forward of a mixed tick over ``rr``'s W=1 rows (token
+        r at position ``row_starts[r]``; a chunk's rows share a ``seq_id``
+        and its ``ctx_len``), each layer's attention one ragged launch with
+        the KV write fused in; the logits [len(flat), V] of the rows
+        ``flat`` only (the JAX tick unembeds and samples every row, and the
+        host reads these)."""
+        cfg, dev = self.cfg, self.device
+
+        def on_dev(a, dtype=None):
+            t = torch.from_numpy(np.ascontiguousarray(a))
+            return (t if dtype is None else t.to(dtype)).to(dev)
+
+        starts, n_toks = on_dev(rr.row_starts), on_dev(rr.n_tokens)
+        ctx_lens, seq_ids, tables = on_dev(rr.ctx_lens), on_dev(rr.seq_ids), on_dev(rr.page_tables)
+        x = llama.embed_tokens(self.params, cfg, on_dev(rr.tokens[:, 0], torch.int64))[:, None, :]
+        cos, sin = llama.rope_sincos(starts[:, None], cfg.head_dim, cfg.rope_theta, cfg.rope_scaling)
+        for i in range(cfg.num_layers):
+            lp = llama.layer(self.params, i)
+            h = llama.rms_norm(x, lp["attn_norm"], cfg.rms_norm_eps)
+            q, k, v = llama.qkv_proj(lp, h, cfg, cos, sin)  # [N, 1, ...]
+            attn, _, _ = ragged_paged_attention(
+                q, k, v, _layer(self.cache.k_pages, i), _layer(self.cache.v_pages, i), tables,
+                starts, n_toks, ctx_lens, seq_ids, window=self.window,
+            )
+            x = llama.attn_out(lp, attn, x)
+            x = x + llama.mlp_block(lp, x, cfg)
+        return llama.unembed(self.params, cfg, x[on_dev(np.asarray(flat, np.int64))])[:, 0]
 
     def step(self) -> list[TokenEvent]:
-        """One scheduler tick: admit (prefill) if a slot is free and a
-        request can be admitted, else decode. With ``async_decode`` decode is
-        a one-deep pipeline: dispatch step N, then read step N-1's tokens
-        while the device runs N. Admission, and a change of membership since
-        the dispatch, harvest the step in flight first, so the host shadows
-        and the device state agree before membership changes. A slot that
-        finished has one token in flight; it is discarded at harvest, and
-        its KV write lands before any reuse of its freed pages because every
-        page write runs in dispatch order on the engine's stream."""
+        """One scheduler tick (the JAX engine's ``_step_inner``): expire
+        deadlines; harvest the step in flight if cancels are queued; drain
+        the cancels; emit one ``deadline_exceeded`` terminal per expired
+        request that did not just finish naturally; maybe preempt; then a
+        mixed tick when prompts contend with active decodes (``mixed_step``),
+        else admit (prefill) if a slot is free and a request can be
+        admitted, else decode. With ``async_decode`` decode is a one-deep
+        pipeline: dispatch step N, then read step N-1's tokens while the
+        device runs N. Admission, a mixed tick, and a change of membership
+        since the dispatch harvest the step in flight first, so the host
+        shadows and the device state agree before membership changes. A
+        slot that finished has one token in flight; it is discarded at
+        harvest, and its KV write lands before any reuse of its freed pages
+        because every page write runs in dispatch order on the engine's
+        stream."""
         events: list[TokenEvent] = []
+        expired = self._expire_deadlines()  # no-op when no deadline is set
+        if self._cancels and self._inflight is not None:
+            events += self._harvest_inflight()
+        self._drain_cancels(expected=set(expired))
+        finished_now = {e.request_id for e in events if e.finished}
+        for rid in expired:
+            if rid in finished_now:
+                continue  # it got its real terminal from the harvest above
+            self.stats["deadline_exceeded"] += 1
+            events.append(TokenEvent(request_id=rid, token=-1, index=-1, finished=True,
+                                     finish_reason="deadline_exceeded"))
+        events += self._maybe_preempt()
+        if self._mixed_tick_ready():
+            events += self._harvest_inflight()  # the packed rows read current shadows
+            mixed = self._mixed_tick()
+            if mixed is not None:
+                return events + mixed
         if self.pending and self._slots_available() > 0:
             # only when a slot is free: under full occupancy this drain would
             # serialize the pipeline every tick for an admission that cannot
@@ -1281,5 +1905,6 @@ class InferenceEngine:
         results: dict[str, list[int]] = {r.id: [] for r in requests}
         while self.has_work():
             for ev in self.step():
-                results.setdefault(ev.request_id, []).append(ev.token)
+                if ev.token >= 0:  # a deadline terminal carries no token
+                    results.setdefault(ev.request_id, []).append(ev.token)
         return results

@@ -10,9 +10,10 @@ undefined. With ``kv_quant`` ("int8" | "fp8") each pool is an
 f32 per-slot scales.
 
 ``PrefixPagePool`` is ported for the device (HBM) tier only: refcounts, the
-refcount-0 LRU, the content index over chained page hashes and the HBM
-``kv_quant_*`` counters. The host tier, demotion, peer adoption, the fault
-hooks and the host/wire ``kv_quant_*`` counters are not ported yet.
+refcount-0 LRU, the content index over chained page hashes, ``park`` (the
+preemption primitive) and the HBM ``kv_quant_*`` counters. The host tier,
+demotion (also of parked pages), peer adoption, the fault hooks and the
+host/wire ``kv_quant_*`` counters are not ported yet.
 """
 
 from __future__ import annotations
@@ -312,6 +313,16 @@ class PrefixPagePool:
         `tokens`, without taking references."""
         return sum(1 for _ in self._prefix_chain(tokens, hashes)) * self.page_size
 
+    def evictable_prefix_pages(
+        self, tokens: Sequence[int], hashes: list[bytes] | None = None
+    ) -> int:
+        """Of the longest indexed full-page prefix of `tokens`, how many
+        pages are refcount-0 (on the LRU)? They count in ``free_pages``, but
+        an admission's ``lookup`` increfs them out of the evictable pool, so
+        a capacity probe that subtracts the cached prefix from a request's
+        need subtracts this overlap from ``free_pages`` too."""
+        return sum(1 for rec in self._prefix_chain(tokens, hashes) if self._refs[rec.page] == 0)
+
     def lookup(
         self, tokens: Sequence[int], hashes: list[bytes] | None = None
     ) -> tuple[list[int], int]:
@@ -352,6 +363,16 @@ class PrefixPagePool:
             n_new += 1
             self.stats["prefix_pages_published"] += 1
         return n_new
+
+    def park(self, tokens: Sequence[int], pages: list[int]) -> int:
+        """Preemption primitive: publish the full pages of `tokens` into the
+        content index, then release the caller's reference on every page.
+        Indexed pages land on the refcount-0 LRU with their KV valid (the
+        preempted request's resume reuses them), partial tail pages return
+        to the free list. Returns the pages left cached."""
+        self.publish(tokens, pages)
+        self.free(pages)
+        return sum(1 for p in pages if p in self._by_page)
 
     def forget(self, page: int) -> None:
         """Drop a page from the content index (its KV is about to change).

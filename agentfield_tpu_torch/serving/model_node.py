@@ -4,7 +4,13 @@ of ``agentfield_tpu/serving/model_node.py``.
 ``ModelBackend`` drives the engine on one worker thread (continuous
 batching: every ``generate`` call submits a request and waits for its
 terminal event) and returns the JAX node's text result dict: ``tokens``,
-``logprobs``, ``finish_reason``, ``model`` and ``text``.
+``logprobs``, ``finish_reason``, ``model`` and ``text``. ``deadline_s`` and
+``priority`` ride into the engine's request (the JAX node validates them the
+same way); a request past its deadline answers with the tokens generated so
+far and ``finish_reason`` "deadline_exceeded". A waiter that gives up
+(``timeout``) cancels its request in the engine. ``drain()`` closes
+admission (``NodeDrainingError``, HTTP 503), lets in-flight work finish for a
+grace period, then deadline-outs the rest through ``deadline_all_now``.
 
 ``generate(response_schema=...)`` decodes under the schema's grammar
 (``serving.grammar``, compiled once per canonical schema into an LRU of 8):
@@ -69,6 +75,11 @@ class BadRequestError(ValueError):
     """A request this node cannot serve as sent (HTTP 400)."""
 
 
+class NodeDrainingError(QueueFullError):
+    """The node is draining: admission is closed. A QueueFullError, so the
+    HTTP front answers it as retryable backpressure (503)."""
+
+
 class ModelBackend:
     def __init__(
         self,
@@ -100,6 +111,7 @@ class ModelBackend:
         self._next = 0
         self._thread: threading.Thread | None = None
         self.error: BaseException | None = None
+        self._draining = False
 
     def start(self) -> None:
         if self._thread is None:
@@ -146,8 +158,9 @@ class ModelBackend:
                     if entry is None:
                         continue
                     fut, records = entry
-                    if not (ev.finished and ev.finish_reason == "stop"):
-                        # stop tokens terminate, they are not content
+                    if ev.token >= 0 and not (ev.finished and ev.finish_reason == "stop"):
+                        # stop tokens terminate, they are not content; a
+                        # deadline terminal carries no token
                         records.append((ev.token, ev.logprob))
                     if ev.finished:
                         del self._waiting[ev.request_id]
@@ -190,14 +203,23 @@ class ModelBackend:
         stop_token_ids: list[int] | None = None,
         session_id: str | None = None,
         response_schema: dict[str, Any] | None = None,
+        deadline_s: float | None = None,
+        priority: int = 0,
         timeout: float | None = None,
     ) -> dict[str, Any]:
         """Generate from a text ``prompt`` or from ``tokens``; blocks until
         the request finishes. ``response_schema`` (a JSON schema) constrains
-        the output to it. Raises QueueFullError / RequestTooLongError /
+        the output to it; ``deadline_s`` bounds the request's wall time in
+        the engine (``finish_reason`` "deadline_exceeded", partial tokens
+        kept); ``priority`` is its admission tier. Raises QueueFullError
+        (NodeDrainingError while draining) / RequestTooLongError /
         GrammarCapacityError from admission, BadRequestError (or the
         grammar's SchemaError) for a schema the node cannot serve,
-        RuntimeError if the engine failed."""
+        ValueError for a bad argument, RuntimeError if the engine failed,
+        and TimeoutError after cancelling the request when ``timeout``
+        runs out."""
+        if self._draining:
+            raise NodeDrainingError("node is draining: not admitting new work")
         if tokens is None:
             if prompt is None:
                 raise ValueError("one of 'prompt' or 'tokens' is required")
@@ -235,6 +257,8 @@ class ModelBackend:
                     ),
                     session_id=session_id,
                     grammar=grammar,
+                    deadline_s=deadline_s,
+                    priority=priority,
                 )
             )
         except Exception:
@@ -242,11 +266,50 @@ class ModelBackend:
                 self._waiting.pop(rid, None)
             raise
         self._wake.set()
-        result = fut.result(timeout=timeout)
+        try:
+            result = fut.result(timeout=timeout)
+        except concurrent.futures.TimeoutError:
+            # the caller gives up: free the engine slot, no reader is left
+            with self._lock:
+                self._waiting.pop(rid, None)
+            self.cancel(rid)
+            raise
         if self.tokenizer is not None:
             result["text"] = self.tokenizer.decode(result["tokens"])
         result["model"] = self.model_name
         return result
+
+    def cancel(self, rid: str) -> None:
+        """Cancel an in-flight request and wake the drive loop so its slot
+        frees now."""
+        self.engine.request_cancel(rid)
+        self._wake.set()
+
+    def drain(self, grace_s: float = 30.0) -> dict[str, Any]:
+        """Graceful drain: stop admitting, let in-flight requests finish for
+        ``grace_s``, then deadline-out whatever still runs (each caller gets
+        a "deadline_exceeded" answer, never a hang). Idempotent; returns a
+        summary."""
+        t0 = time.monotonic()
+        if not self._draining:
+            self._draining = True
+            self.engine.stats["drains_total"] += 1
+        while self.engine.has_work() and time.monotonic() - t0 < grace_s:
+            self._wake.set()
+            time.sleep(0.02)
+        cancelled = 0
+        if self.engine.has_work():
+            cancelled = self.engine.deadline_all_now()
+            self.engine.stats["drain_cancelled"] += cancelled
+            t1 = time.monotonic()
+            while self.engine.has_work() and time.monotonic() - t1 < 10.0:
+                self._wake.set()
+                time.sleep(0.02)
+        return {
+            "drained": not self.engine.has_work(),
+            "deadline_outed": cancelled,
+            "elapsed_s": round(time.monotonic() - t0, 3),
+        }
 
 
 _GENERATE_ARGS = frozenset(

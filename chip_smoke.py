@@ -30,7 +30,12 @@ the result line:
                1024 cached tokens and dense prefill. Show at the 2k-context
                decode shapes (Llama-3-8B and gemma-2b) that the bound
                rejects a kernel fed a quarter of zeroed cached pages or a
-               zeroed own key/value. Quantized (int8, fp8) pools, at the
+               zeroed own key/value. The mixed tick's launch (``mixed_shapes``):
+               512 W = 1 rows at Llama-3-8B heads, 16 decode rows at
+               contexts 500-2000 and chunks of 240 tokens over 1024 cached
+               and 256 over none (also over int8 and fp8 pools, and where
+               the two faults must be rejected too), and the same packing at
+               phi-3-mini's heads (hd 96) with its window binding. Quantized (int8, fp8) pools, at the
                quantized mixes and the Llama-3-8B shapes, in float32 and
                bfloat16 compute, pass three checks: (a) pool values and
                scales bit-equal to the plain version's outside page 0; (b)
@@ -81,7 +86,25 @@ the result line:
                forward phase's bf16 bound of the eager logits), the
                replay's launches counted, two sampled replays drawing
                differently; the replayed and the eager step timed.
-8. ``gemma-7b``, ``phi-3-mini``  each at full width and 2 layers (random
+8. ``burst``   a prompt burst (300-1500 tokens, one past the 512-token
+               budget, the last a ``response_schema`` request) into 8
+               in-flight decodes, on the serve's weights and geometry,
+               through the classic tick and then the mixed tick (budget
+               512): every request answered, every page returned; the mixed
+               engine runs mixed ticks, a chunk spans several, every mixed
+               tick's attention goes through the split-context kernel and
+               its combine, and captures + replays + mixed ticks with decode
+               rows equal its decode steps; one mixed tick's decode-row
+               logits within the forward phase's bf16 bound of the classic
+               step's. Prints TTFT p50/p99 of the burst, ITL p50/p99 and
+               tokens per tick over it, the mixed tick's device ms and peak
+               memory per engine.
+9. ``overload`` on the same weights, mixed ticks on: a priority-1 request
+               starved in a 42-page pool preempts a priority-0 slot (the
+               victim still gives all its tokens, the pages balance); a
+               pending request's 1 ms deadline sheds it; a cancel in the
+               middle of a chunked prompt frees its pages.
+10. ``gemma-7b``, ``phi-3-mini``  each at full width and 2 layers (random
                bf16 weights): five requests through the engine (phi-3-mini
                with a prompt past its 2047-token window), every decode
                launch through the split-context kernel, then the
@@ -90,6 +113,9 @@ the result line:
 Prints the card line, then one JSON line of per-kernel numbers, then
 ``{"ok": true, "device": {...}}`` as the last line. ``--out PATH`` also
 writes every phase's details (each shape, the serve run) as JSON.
+``--ab-against DIR`` runs only ``build`` and ``phase_ab``: the attention
+source of another checkout (unpacked at DIR) against this one's at the
+mixed shapes, in turns.
 """
 
 from __future__ import annotations
@@ -129,8 +155,14 @@ SERVED_CTX = (64, 200, 333, 480, 512, 700, 1100, 1500, 1532)
 # presets whose head dims (96, 256, 256, 16) have their own kernel instances
 # beside Llama-3-8B's 128: each is checked at its own heads and window
 HEAD_DIM_PRESETS = ("phi-3-mini", "gemma-2b", "gemma-7b", "llama-tiny-tp8")
+# the mixed tick's launch (one a layer): W = 1 rows of one token each, 16
+# decode rows at their own contexts and two prefill chunks whose rows share a
+# seq_id, 512 rows in all (the engine's default mixed_step_budget)
+MIXED_DECODE_CTX = tuple(500 + 100 * i for i in range(16))  # 500 ... 2000
+MIXED_CHUNKS = ((1024, 240), (0, 256))  # (cached tokens, chunk tokens)
+MIXED_ROWS = 512
 # shapes at which the bound must reject the two injected faults
-FAULT_SHAPES = ("llama3_decode_ctx2k", "gemma-2b_decode_ctx2k")
+FAULT_SHAPES = ("llama3_decode_ctx2k", "gemma-2b_decode_ctx2k", "llama3_mixed_w1")
 
 
 def log(*a):
@@ -221,8 +253,26 @@ def ragged_shapes():
     out["llama3_decode_ctx100"] = dict(l3, rows=8, ctx=100)
     out["llama3_decode_ctx300"] = dict(l3, rows=8, ctx=300)
     out["llama3_decode_ctx1000+window300"] = dict(l3, rows=8, ctx=1000, window=300)
+    out.update(mixed_shapes())
     out.update(head_dim_shapes())
     return out
+
+
+def mixed_shapes():
+    """The mixed tick's W = 1 launch: at Llama-3-8B's heads (``MIXED_*``),
+    and at phi-3-mini's (hd 96, rep 1) with its window of 2047 binding on
+    decode rows at contexts up to 2400 and a 240-token chunk over 2100
+    cached tokens."""
+    (kh, rep, hd), window = _preset_heads("phi-3-mini")
+    return {
+        "llama3_mixed_w1": dict(page_size=16, maxp=128, kh=8, rep=4, hd=128,
+                                served=MIXED_DECODE_CTX, chunk_list=MIXED_CHUNKS, W=1,
+                                pad_to=MIXED_ROWS),
+        "phi-3-mini_mixed_w1+window": dict(
+            page_size=16, maxp=160, kh=kh, rep=rep, hd=hd, window=window,
+            served=tuple(600 + 120 * i for i in range(16)), chunk_list=((2100, 240), (0, 256)),
+            W=1, pad_to=MIXED_ROWS),
+    }
 
 
 def _preset_heads(preset: str):
@@ -266,7 +316,7 @@ def quant_shapes():
     decode_new_hd = tuple(f"{p}_decode_ctx2k" for p in HEAD_DIM_PRESETS)
     for name in ("llama3_decode_ctx512", "llama3_decode_ctx2k", "llama3_chunk512_over1k",
                  "llama3_served_decode", "llama3_decode_ctx300",
-                 "llama3_decode_ctx1000+window300") + decode_new_hd:
+                 "llama3_decode_ctx1000+window300", "llama3_mixed_w1") + decode_new_hd:
         for mode in QUANT_MODES:
             out[f"{name}_{mode}"] = dict(ragged_shapes()[name], kv_dtype=mode)
     return out
@@ -755,6 +805,7 @@ def phase_serve(results, state, seed: int, model="llama-3-8b", device="cuda", ec
     wrap("decode", "_dispatch_decode")
     wrap("dense_prefill", "_dense_prefill")
     wrap("suffix_prefill", "_suffix_prefill")
+    mixed_decode_ticks = count_mixed_decode_ticks(eng)
 
     V = eng.cfg.vocab_size
     rng = np.random.default_rng(seed)
@@ -821,8 +872,7 @@ def phase_serve(results, state, seed: int, model="llama-3-8b", device="cuda", ec
     graphs = eng.graph_stats()
     if on_card:  # every decode step after a key's first use replays its graph
         assert graphs["graphs_captured"] > 0 and sum(graphs["replays"].values()) > 0, graphs
-        assert (graphs["graphs_captured"] + sum(graphs["replays"].values())
-                == st["decode_steps"] // eng.ecfg.decode_span), (graphs, st["decode_steps"])
+        check_step_identity(eng, mixed_decode_ticks)
         assert any(k.endswith("/grammar") for k in graphs["replays"]), graphs
         assert any("/truncated/" in k for k in graphs["replays"]), graphs
     log(f"[serve {kv_quant}] launches {launches}; kernel paths {path_launches}; "
@@ -1125,6 +1175,431 @@ def phase_graph(results, state, seed: int):
     assert fresh, "two replays of a sampling step repeated the same draws"
 
 
+def count_mixed_decode_ticks(eng) -> dict:
+    """Wrap ``eng._mixed_tick`` to count the mixed ticks that carried decode
+    rows (each counts one decode step, outside the decode graphs) and, per
+    request, the mixed ticks its prefill job lived through (before or after
+    the tick: 2 or more means its prompt spanned several ticks). Returns the
+    live tallies."""
+    tally = {"with_decode": 0, "ticks": 0, "job_ticks": {}}
+    orig = eng._mixed_tick
+
+    def counted():
+        before = {j.req.id for j in eng._prefill_jobs}
+        active = eng.num_active
+        out = orig()
+        if out is not None:
+            tally["ticks"] += 1
+            tally["with_decode"] += active > 0
+            for rid in before | {j.req.id for j in eng._prefill_jobs}:
+                tally["job_ticks"][rid] = tally["job_ticks"].get(rid, 0) + 1
+        return out
+
+    eng._mixed_tick = counted
+    return tally
+
+
+def check_step_identity(eng, mixed: dict) -> None:
+    """Every decode step is a graph capture, a replay, or a mixed tick with
+    decode rows (decode_span 1 counts one step per dispatch)."""
+    g = eng.graph_stats()
+    steps = g["graphs_captured"] + sum(g["replays"].values()) + mixed["with_decode"]
+    assert steps == eng.stats["decode_steps"] // eng.ecfg.decode_span, (
+        g, mixed["with_decode"], eng.stats["decode_steps"])
+
+
+# the burst phase: decodes in flight, then prompts of 300-1500 tokens (one
+# past the 512-token budget), the last a response_schema request
+BURST_DECODES = 8  # of prompts of 64-400 tokens, 160 new tokens each
+BURST_PROMPTS = (520, 700, 900, 1200, 1500)
+BURST_SCHEMA_PROMPT = 300
+MIXED_BUDGET = 512
+
+
+def phase_burst(results, state, seed: int, max_new: int = 32):
+    """A prompt burst into in-flight decodes on the serve's full-width
+    Llama-3-8B weights and geometry, through two engines one after the
+    other: the classic tick and the mixed token-budget tick (budget 512).
+    Both answer every request (the schema answer a value of
+    ``SERVE_SCHEMA``) and return every page. The mixed engine runs mixed
+    ticks, a chunk spans several of them, every mixed tick's attention goes
+    through the split-context kernel and its combine, and captures +
+    replays + mixed ticks with decode rows equal its decode steps. Then one
+    mixed tick's decode-row logits are held against the classic step's on
+    the same state within the forward phase's bf16 bound. Prints per engine
+    the burst's TTFT p50/p99, ``scheduler_stats`` over the burst, the mixed
+    tick's device ms and peak memory. The ITL and tokens-per-tick window
+    runs from the burst's submission until every burst request has its
+    first token and every decode its next token after that."""
+    import numpy as np
+    import torch
+
+    from agentfield_tpu_torch.serving.grammar import compile_json_schema
+    from agentfield_tpu_torch.serving.tokenizer import ByteTokenizer
+
+    V = state["cfg"].vocab_size
+    tok = ByteTokenizer(V)
+    grammar = compile_json_schema(SERVE_SCHEMA, tok.token_bytes(V))
+    rng = np.random.default_rng(seed + 11)
+    # two rounds of fresh random prompts (no prefix hit between them): the
+    # first warms the engine (decode graphs of every width it meets), the
+    # second is measured
+    rounds = [([rng.integers(1, V, int(n)).tolist() for n in rng.integers(64, 400, BURST_DECODES)],
+               [rng.integers(1, V, n).tolist() for n in BURST_PROMPTS],
+               rng.integers(1, V, BURST_SCHEMA_PROMPT).tolist()) for _ in range(2)]
+    out = {}
+    for mode in ("classic", "mixed"):
+        gc.collect()  # the previous engine (and its KV pool) is garbage now
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        out[mode] = _burst_engine(results, state, seed, mode, rounds, grammar, rng, max_new)
+    results["burst"] = out
+
+
+def _burst_engine(results, state, seed, mode, rounds, grammar, rng, max_new) -> dict:
+    """One engine of ``phase_burst`` (``mode`` "classic" or "mixed") on bf16
+    KV pages: every round of ``rounds`` run and checked, the last one
+    measured; its printed row."""
+    import dataclasses
+
+    import torch
+
+    from agentfield_tpu_torch.ops.cuda import ragged_paged_attention as rpa
+    from agentfield_tpu_torch.serving.engine import InferenceEngine, Request
+    from agentfield_tpu_torch.serving.grammar import match_bytes
+    from agentfield_tpu_torch.serving.sampler import SamplingParams
+    from agentfield_tpu_torch.serving.tokenizer import ByteTokenizer
+
+    params, cfg = state["params"], state["cfg"]
+    V = cfg.vocab_size
+    tok = ByteTokenizer(V)
+    ecfg = dataclasses.replace(state["ecfg"], kv_quant_dtype="none", mixed_step=mode == "mixed",
+                               mixed_step_budget=MIXED_BUDGET)
+    eng = InferenceEngine(params, cfg, ecfg, seed=seed, device="cuda")
+    mixed = count_mixed_decode_ticks(eng)
+    mixed_paths = {}
+    orig_logits = eng._mixed_logits
+
+    def tallied(*a, **k):
+        before = rpa.launch_counts()
+        try:
+            return orig_logits(*a, **k)
+        finally:
+            for key, n in rpa.launch_counts().items():
+                mixed_paths[key] = mixed_paths.get(key, 0) + n - before[key]
+
+    eng._mixed_logits = tallied
+    first: dict[str, float] = {}
+    answers: dict[str, list] = {}
+    finals: dict[str, str] = {}
+
+    def run(until):
+        while not until():
+            for ev in eng.step():
+                first.setdefault(ev.request_id, time.perf_counter())
+                if ev.token >= 0 and ev.finish_reason != "stop":  # a stop id is no content
+                    answers.setdefault(ev.request_id, []).append(ev.token)
+                if ev.finished:
+                    finals[ev.request_id] = ev.finish_reason
+
+    for rnd, (decodes, burst, schema_prompt) in enumerate(rounds):
+        dec = [f"r{rnd}dec{i}" for i in range(len(decodes))]
+        for rid, p in zip(dec, decodes):
+            eng.submit(Request(rid, p, SamplingParams(max_new_tokens=160)))
+        run(lambda: all(d in first for d in dec) and eng.stats["decode_steps"] >= 8)
+        with eng._telemetry_lock:  # scheduler_stats over the burst only
+            eng._itl_window.clear()
+            eng._tick_tokens.clear()
+        eng.mixed_tick_ms.clear()
+        eng.decode_step_ms.clear()
+        rpa.reset_launches()
+        mixed_paths.clear()
+        base = {k: eng.stats[k] for k in ("mixed_ticks", "mixed_tokens", "decode_steps")}
+        base["with_decode"] = mixed["with_decode"]
+        t_sub = {}
+        for i, p in enumerate(burst):
+            t_sub[f"r{rnd}b{i}"] = time.perf_counter()
+            eng.submit(Request(f"r{rnd}b{i}", p, SamplingParams(max_new_tokens=max_new)))
+        schema = f"r{rnd}schema"
+        t_sub[schema] = time.perf_counter()
+        eng.submit(Request(schema, schema_prompt,
+                           SamplingParams(max_new_tokens=64, stop_token_ids=(tok.eos_token_id,)),
+                           grammar=grammar))
+        t0 = time.perf_counter()
+        run(lambda: all(r in first for r in t_sub))
+        burst_ttft_s = time.perf_counter() - t0
+        # a decode stalled behind the burst shows its gap once its next token comes
+        marks = {d: len(answers[d]) for d in dec}
+        run(lambda: all(len(answers[d]) > n for d, n in marks.items()))
+        sched = eng.scheduler_stats()
+        run(lambda: not eng.has_work())
+        wall = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        paths = dict(rpa.PATH_LAUNCHES)
+        for d in dec:
+            assert len(answers[d]) == 160 and finals[d] == "length", d
+        for i in range(len(burst)):
+            assert len(answers[f"r{rnd}b{i}"]) == max_new and finals[f"r{rnd}b{i}"] == "length", i
+        body = bytes(answers[schema])
+        assert finals[schema] == "stop" and match_bytes(grammar.trans, grammar.accept, body), body
+        assert all(0 <= t < V for a in answers.values() for t in a)
+        assert eng.allocator.free_pages == ecfg.num_pages - 1, "pages did not balance"
+    if eng.device.type == "cuda":  # steps of the CPU run are not replays
+        check_step_identity(eng, mixed)
+    ttft = sorted((first[r] - t_sub[r]) * 1e3 for r in t_sub)
+    row = {
+        "ttft_ms_p50": statistics.median(ttft), "ttft_ms_p99": ttft[-1],
+        "ttft_ms": ttft, "burst_first_tokens_s": burst_ttft_s, "wall_s": wall,
+        **sched,
+        # the measured round's counts
+        "mixed_ticks": eng.stats["mixed_ticks"] - base["mixed_ticks"],
+        "mixed_tokens": eng.stats["mixed_tokens"] - base["mixed_tokens"],
+        "mixed_ticks_with_decode": mixed["with_decode"] - base["with_decode"],
+        "max_ticks_of_one_chunk": max(mixed["job_ticks"].values(), default=0),
+        "mixed_tick_device_ms_mean": (statistics.fmean(eng.mixed_tick_ms)
+                                      if eng.mixed_tick_ms else None),
+        "mixed_tick_device_ms_max": max(eng.mixed_tick_ms, default=None),
+        "decode_step_device_ms_mean": (statistics.fmean(eng.decode_step_ms)
+                                       if eng.decode_step_ms else None),
+        "decode_steps": eng.stats["decode_steps"] - base["decode_steps"],
+        "graphs": eng.graph_stats(),
+        "path_launches": paths, "mixed_tick_path_launches": mixed_paths,
+        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "schema_text": body.decode(),
+    }
+    if mode == "mixed":
+        assert row["mixed_ticks"] > 0, "the mixed engine ran no mixed tick"
+        assert row["max_ticks_of_one_chunk"] >= 2, "no prompt spanned several mixed ticks"
+        for key in ("ragged_decode_split", "ragged_decode_combine"):
+            assert mixed_paths.get(key, 0) > 0, f"mixed ticks never launched {key}"
+        assert mixed_paths.get("ragged_tiles_tc", 0) == 0 == mixed_paths.get(
+            "ragged_tiles_f32", 0), mixed_paths
+        row["logits_check"] = _mixed_vs_classic_logits(eng, rng, results["forward"]["tol_bf16"])
+    else:
+        assert row["mixed_ticks"] == 0
+    log(f"[burst {mode}] {len(t_sub)} prompts into {BURST_DECODES} decodes: TTFT p50 "
+        f"{row['ttft_ms_p50']:.1f} ms p99 {row['ttft_ms_p99']:.1f} ms; ITL p50 "
+        f"{row['itl_ms_p50']} ms p99 {row['itl_ms_p99']} ms; tokens/tick "
+        f"{row['tokens_per_tick']}; mixed ticks {row['mixed_ticks']} (with decode rows "
+        f"{row['mixed_ticks_with_decode']}, longest chunk {row['max_ticks_of_one_chunk']} ticks), "
+        f"mixed tick device ms mean {row['mixed_tick_device_ms_mean']} max "
+        f"{row['mixed_tick_device_ms_max']}; decode step {row['decode_step_device_ms_mean']} "
+        f"device ms; kernel paths {paths} (mixed ticks: {mixed_paths}); peak "
+        f"{row['peak_mem_gib']:.2f} GiB; wall {wall:.2f} s")
+    return row
+
+
+def _mixed_vs_classic_logits(eng, rng, tol: float) -> dict:
+    """On ``eng`` (Llama-3-8B, bf16): four live decode slots; their logits
+    from the classic decode forward, then from a mixed tick's packed forward
+    that also carries a 256-token chunk over fresh pages (W = 1 rows through
+    the split-context kernel). Both write the same pending-token slots,
+    which the next real step rewrites. Held within ``tol`` (the forward
+    phase's bf16 bound); the engine then drains and its pages balance."""
+    import numpy as np
+    import torch
+
+    from agentfield_tpu_torch.serving.engine import Request
+    from agentfield_tpu_torch.serving.kv_cache import build_page_table, pack_ragged_rows
+    from agentfield_tpu_torch.serving.sampler import SamplingParams
+
+    V = eng.cfg.vocab_size
+    for i in range(4):
+        eng.submit(Request(f"lg{i}", rng.integers(1, V, 100 + 100 * i).tolist(),
+                           SamplingParams(max_new_tokens=8)))
+    while eng.num_active < 4 or eng.pending or eng._prefill_jobs:
+        eng.step()
+    eng._harvest_inflight()
+    active = [i for i, s in enumerate(eng.slots) if s is not None]
+    dev = eng.device
+    with torch.no_grad():
+        logits_c = eng._decode_forward(
+            torch.from_numpy(eng.last_tokens[active].astype(np.int64)).to(dev),
+            torch.from_numpy(eng.seq_lens[active].copy()).to(dev),
+            torch.from_numpy(eng.page_tables[active].copy()).to(dev))
+        maxp, ps = eng.ecfg.max_pages_per_seq, eng.ecfg.page_size
+        with eng._session_lock:
+            pages = eng.allocator.alloc(256 // ps)
+        rows = [(eng.page_tables[i], int(eng.seq_lens[i]), [int(eng.last_tokens[i])])
+                for i in active]
+        rows.append((build_page_table(pages, maxp), 0, rng.integers(1, V, 256).tolist()))
+        rr = pack_ragged_rows(rows, maxp, eng.ecfg.mixed_bucket(len(active) + 256))
+        logits_m = eng._mixed_logits(rr, rr.last_flat[: len(active)])
+        torch.cuda.synchronize()
+    with eng._session_lock:
+        eng.allocator.free(pages)
+    err = float((logits_m.float() - logits_c.float()).abs().max())
+    agree = float((logits_m.argmax(-1) == logits_c.argmax(-1)).float().mean())
+    while eng.has_work():
+        eng.step()
+    assert eng.allocator.free_pages == eng.ecfg.num_pages - 1
+    log(f"[burst mixed] decode-row logits, mixed tick ({rr.row_starts.shape[0]} W=1 rows) vs "
+        f"classic step: max|d| {err:.4e} (tol {tol:.4e}), argmax agreement {agree:.3f}")
+    assert err <= tol, "a mixed tick's decode rows disagree with the classic decode step"
+    return {"rows": int(rr.row_starts.shape[0]), "max_abs_err": err, "tol_bf16": tol,
+            "argmax_agreement": agree}
+
+
+def phase_overload(results, state, seed: int):
+    """Overload control on the card, Llama-3-8B weights, mixed ticks on:
+    (1) preemption: a pool of 42 pages where a priority-1 rival starves
+    behind a priority-0 victim; the victim is preempted, still produces all
+    of its tokens, and every page returns; (2) a pending request whose 1 ms
+    deadline passes while every slot is busy is shed with one
+    ``deadline_exceeded`` terminal; (3) a cancel in the middle of a chunked
+    prompt frees the job's pages."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from agentfield_tpu_torch.serving.engine import EngineConfig, InferenceEngine, Request
+    from agentfield_tpu_torch.serving.sampler import SamplingParams
+
+    params, cfg = state["params"], state["cfg"]
+    V = cfg.vocab_size
+    rng = np.random.default_rng(seed + 13)
+    gc.collect()
+    torch.cuda.empty_cache()
+    # victim: 300 + 64 tokens = 23 pages; rival: 300 + 16 = 20 pages. With
+    # 42 usable pages the rival starves (19 free) until the victim parks.
+    base = EngineConfig(max_batch=4, page_size=16, num_pages=43, max_pages_per_seq=32,
+                        mixed_step=True, mixed_step_budget=MIXED_BUDGET, preempt_fence_ticks=2)
+    out = {}
+
+    def drain(eng):
+        evs = []
+        while eng.has_work():
+            evs += eng.step()
+        return evs
+
+    eng = InferenceEngine(params, cfg, base, seed=seed, device="cuda")
+    evs = []
+    eng.submit(Request("victim", rng.integers(1, V, 300).tolist(), SamplingParams(max_new_tokens=64)))
+    for _ in range(4):
+        evs += eng.step()
+    eng.submit(Request("rival", rng.integers(1, V, 300).tolist(),
+                       SamplingParams(max_new_tokens=16), priority=1))
+    evs += drain(eng)
+    got = {r: [e for e in evs if e.request_id == r] for r in ("victim", "rival")}
+    out["preempt"] = {
+        "preemptions_total": eng.stats["preemptions_total"],
+        "resume_prefix_hits_total": eng.stats["resume_prefix_hits_total"],
+        "victim_tokens": len(got["victim"]), "rival_tokens": len(got["rival"]),
+        "free_pages": eng.allocator.free_pages,
+    }
+    assert eng.stats["preemptions_total"] >= 1, out["preempt"]
+    assert [e.index for e in got["victim"]] == list(range(64)), "the victim lost tokens"
+    assert got["victim"][-1].finish_reason == "length" and len(got["rival"]) == 16
+    assert eng.allocator.free_pages == base.num_pages - 1, "pages did not balance"
+
+    # (2) every slot busy, then a pending request with a 1 ms deadline
+    for i in range(4):
+        eng.submit(Request(f"busy{i}", rng.integers(1, V, 64).tolist(),
+                           SamplingParams(max_new_tokens=24)))
+    eng.step()
+    eng.submit(Request("shed", rng.integers(1, V, 64).tolist(), SamplingParams(max_new_tokens=4),
+                       deadline_s=0.001))
+    time.sleep(0.01)
+    evs = drain(eng)
+    shed = [e for e in evs if e.request_id == "shed"]
+    out["deadline"] = {"shed_pending_deadline_total": eng.stats["shed_pending_deadline_total"],
+                       "events": [(e.finish_reason, e.token) for e in shed]}
+    assert [(e.finish_reason, e.token) for e in shed] == [("deadline_exceeded", -1)], shed
+    assert eng.stats["shed_pending_deadline_total"] == 1
+    assert eng.allocator.free_pages == base.num_pages - 1
+    del eng
+
+    # (3) a cancel mid-chunk: a 1500-token prompt through 512-row ticks
+    gc.collect()
+    eng = InferenceEngine(params, cfg, dataclasses.replace(base, num_pages=201,
+                                                           max_pages_per_seq=128),
+                          seed=seed, device="cuda")
+    eng.submit(Request("dec", rng.integers(1, V, 200).tolist(), SamplingParams(max_new_tokens=32)))
+    eng.step()
+    eng.submit(Request("long", rng.integers(1, V, 1500).tolist(), SamplingParams(max_new_tokens=4)))
+    eng.step()
+    mid = [(j.req.id, j.pos) for j in eng._prefill_jobs]
+    assert mid and mid[0][0] == "long" and 0 < mid[0][1] < 1500, mid
+    with eng._session_lock:
+        held = eng.allocator.free_pages
+    eng.request_cancel("long")
+    eng.step()
+    with eng._session_lock:
+        freed = eng.allocator.free_pages - held
+    evs = drain(eng)
+    out["cancel"] = {"job_pos_at_cancel": mid[0][1], "pages_freed": freed,
+                     "requests_cancelled": eng.stats["requests_cancelled"],
+                     "free_pages": eng.allocator.free_pages}
+    assert not eng._prefill_jobs and eng.stats["requests_cancelled"] == 1
+    assert freed >= -(-1504 // 16) - 2, out["cancel"]  # the job's pages (less a step's use)
+    assert not any(e.request_id == "long" for e in evs)
+    assert eng.allocator.free_pages == 200, "pages did not balance"
+    results["overload"] = out
+    log(f"[overload] preempt {out['preempt']}; deadline {out['deadline']}; cancel {out['cancel']}")
+    del eng
+
+
+def phase_ab(results, other_root: str):
+    """A/B of the attention source at the mixed W = 1 shapes (bf16, f32):
+    the source under ``other_root`` (a checkout of another commit) built for
+    hd 128 and 96 and bound in place of this checkout's, in turns (other,
+    this, this, other) in one process, each held against the plain version
+    with ``elem_bound``."""
+    import ctypes
+    import hashlib
+
+    import torch
+
+    from agentfield_tpu_torch.ops.cuda import build
+    from agentfield_tpu_torch.ops.cuda import ragged_paged_attention as rpa
+    from agentfield_tpu_torch.ops.kernel_shapes import build_case
+    from agentfield_tpu_torch.ops.paged_attention import ragged_paged_attention_ref
+
+    src = os.path.join(other_root, RAGGED_SRC)
+    libs = {}
+    procs = {}
+    for hd in (128, 96):
+        tag = hashlib.sha256(open(src, "rb").read()).hexdigest()[:12]
+        so = str(build.BUILD_DIR / f"ab_other.hd{hd}-{tag}.so")
+        os.makedirs(build.BUILD_DIR, exist_ok=True)
+        procs[hd] = (so, subprocess.Popen([build._nvcc(), *build.NVCC_FLAGS, f"-DAFP_HEAD_DIM={hd}",
+                                           "-o", so, src]))
+    for hd, (so, proc) in procs.items():
+        assert proc.wait() == 0, f"nvcc failed on {src} (hd {hd})"
+        libs[hd] = rpa.bind(ctypes.CDLL(so), hd)
+    dev = torch.device("cuda")
+    rows = {}
+    for name, p in mixed_shapes().items():
+        p = dict(p)
+        window = p.pop("window", None)
+        hd = p["hd"]
+        case_np = build_case(name, params=p, seed=0)
+        mine = rpa._entry(hd)
+        for dname, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+            case = [_to(a, dtype, dev) for a in case_np]
+            q, kn, vn, kp, vp = case[:5]
+            desc = case[5:]
+            o_r = ragged_paged_attention_ref(q, kn, vn, kp.clone(), vp.clone(), *desc, window=window)[0]
+            t = {"other": [], "this": []}
+            for who in ("other", "this", "this", "other"):
+                rpa._entry_fns[hd] = libs[hd] if who == "other" else mine
+                o_k = rpa.ragged_paged_attention_cuda(q, kn, vn, kp.clone(), vp.clone(), *desc,
+                                                      window=window)[0]
+                torch.cuda.synchronize()
+                ok, err, ratio = compare(o_k, o_r, dname)
+                assert ok, f"{who} kernel at {name}/{dname}: err/bound {ratio}"
+                kpk, vpk = kp.clone(), vp.clone()
+                t[who].append(graph_ms(lambda: rpa.ragged_paged_attention_cuda(
+                    q, kn, vn, kpk, vpk, *desc, window=window)))
+            rpa._entry_fns[hd] = mine
+            rows[f"{name}/{dname}"] = {"other_ms": t["other"], "this_ms": t["this"]}
+            log(f"[ab] {name} {dname}: other {t['other']} ms, this {t['this']} ms")
+            del case, q, kn, vn, kp, vp, o_r
+        torch.cuda.empty_cache()
+    results["ab"] = {"other_root": other_root, "shapes": rows}
+
+
 def graph_replay_ms(graph, before, n: int = 20) -> float:
     """Median device milliseconds of one replay of ``graph``, ``before()``
     (host-enqueued, untimed) run ahead of each."""
@@ -1213,6 +1688,15 @@ def kernels_line(results) -> dict:
         }
         if "parity_over_tol" in row:
             entry["worst_parity_over_tol"] = max(r["parity_over_tol"] for r in held)
+        if name == "ragged_paged_attention":
+            # the mixed tick's launch: its shape's times, and its launches in
+            # the burst phase's mixed engine
+            mixed = shapes["llama3_mixed_w1/bfloat16"]
+            entry["mixed_tick"] = {
+                k: mixed[k] for k in ("ms", "call_ms", "plain_ms", "bound_ms", "bound_by",
+                                      "sdpa_gathered_ms", "max_abs_err")}
+            entry["mixed_tick"]["launches"] = results["burst"]["mixed"][
+                "mixed_tick_path_launches"]["ragged_paged_attention"]
         out.append(entry)
     return {"kernels": out}
 
@@ -1221,6 +1705,9 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default=None, help="also write every phase's details here (JSON)")
+    ap.add_argument("--ab-against", default=None, metavar="DIR",
+                    help="only build, then time the attention source of the checkout at DIR "
+                         "against this one's at the mixed W=1 shapes (phase_ab)")
     args = ap.parse_args()
 
     import torch
@@ -1240,6 +1727,12 @@ def main() -> int:
     results: dict = {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda}
     state: dict = {}
     t0 = time.perf_counter()
+    if args.ab_against:
+        phase_build(results)
+        phase_ab(results, args.ab_against)
+        log(card)
+        print(json.dumps(results["ab"]), flush=True)
+        return 0
     try:
         phase_build(results)
         phase_check(results)
@@ -1248,6 +1741,8 @@ def main() -> int:
             phase_serve(results, state, args.seed, kv_quant=mode)
         phase_forward(results, state, args.seed)
         phase_graph(results, state, args.seed)
+        phase_burst(results, state, args.seed)
+        phase_overload(results, state, args.seed)
         state.clear()  # the 8B weights go before the reduced-depth models
         for preset in REDUCED_DEPTH_PRESETS:
             phase_reduced_depth(results, preset, args.seed)

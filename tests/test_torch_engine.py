@@ -165,7 +165,7 @@ def test_engine_matches_jax_engine_with_node_defaults(weights):
 
 def test_engine_rejects_fields_it_does_not_implement():
     with pytest.raises(TypeError):
-        engine.EngineConfig(mixed_step=True)
+        engine.EngineConfig(host_cache_bytes=1 << 20)
     with pytest.raises(TypeError):
         engine.EngineConfig(spec_k=2)
     fields = {f.name for f in dataclasses.fields(engine.EngineConfig)}

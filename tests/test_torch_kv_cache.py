@@ -54,6 +54,17 @@ def _pool_script(pool, out: list):
     rec("forget", None)
     pool.free(c + big)
     rec("free all", None)
+    # preemption: park a live sequence (full pages cached, the tail freed),
+    # then the evictable overlap of a prompt over the parked prefix
+    d = pool.alloc(3)
+    parked = _prompt(5, 2 * ps + 3)
+    rec("park d", pool.park(parked, d))
+    rec("evictable", pool.evictable_prefix_pages(parked + [1]))
+    resumed, n = pool.lookup(parked)
+    rec("resume d", (resumed, n))
+    rec("evictable after", pool.evictable_prefix_pages(parked + [1]))
+    pool.free(resumed)
+    rec("free resumed", None)
     with pytest.raises(ValueError):
         pool.free([c[1]])
     with pytest.raises(ValueError):

@@ -242,3 +242,123 @@ def test_node_engine_defaults_match_the_jax_node():
     _, backend = build_model_node("llama-tiny", device="cpu")
     ecfg = backend.engine.ecfg
     assert ecfg.grammar_slots == 256 and ecfg.async_decode and ecfg.decode_buckets is None
+
+
+def test_http_deadline_and_priority_reach_the_engine(weights, node):
+    """``deadline_s`` and ``priority`` in the body of ``POST
+    /reasoners/generate`` ride into the engine's request; a non-integer
+    priority answers 422, as the JAX node rejects it with a ValueError."""
+    port, backend = node
+    seen = []
+    submit = backend.engine.submit
+
+    def spy(req):
+        seen.append(req)
+        return submit(req)
+
+    backend.engine.submit = spy
+    try:
+        status, doc = _call(port, "/reasoners/generate", {"input": {
+            "tokens": [3, 4, 5], "max_new_tokens": 2, "deadline_s": 30.0, "priority": 2}})
+        assert status == 200 and doc["result"]["finish_reason"] == "length"
+        assert (seen[-1].deadline_s, seen[-1].priority) == (30.0, 2)
+        for bad in ("high", True, 1.5):
+            status, doc = _call(port, "/reasoners/generate",
+                                {"input": {"tokens": [3], "priority": bad}})
+            assert status == 422 and "priority" in doc["error"]
+        status, doc = _call(port, "/reasoners/generate",
+                            {"input": {"tokens": [3], "deadline_s": -1}})
+        assert status == 422 and "deadline_s" in doc["error"]
+        assert not backend.engine.pending and not backend._waiting
+    finally:
+        backend.engine.submit = submit
+    _, tree = weights
+    jcfg = weights[0]
+
+    async def jax_rejects():
+        jb = jax_node.ModelBackend(tree, jcfg, jax_node.EngineConfig(**ECFG),
+                                   tokenizer=jax_node.ByteTokenizer(jcfg.vocab_size))
+        for bad in ("high", True, 1.5):
+            with pytest.raises(ValueError, match="priority"):
+                await jb.generate(tokens=[3], max_new_tokens=1, priority=bad)
+
+    asyncio.run(jax_rejects())
+
+
+@pytest.fixture
+def slow_node(weights):
+    """A node whose engine takes at least 5 ms a step, so a 50-token answer
+    outlasts the short deadlines and grace periods below; a step also waits
+    for ``backend.gate`` (open unless a test closes it)."""
+    import time
+
+    _, tree = weights
+    params = params_from_numpy(tree, get_config("llama-tiny"), device="cpu")
+    server, backend = build_model_node("llama-tiny", ecfg=EngineConfig(**ECFG), device="cpu",
+                                       params=params)
+    step = backend.engine.step
+    backend.gate = threading.Event()
+    backend.gate.set()
+
+    def slow():
+        assert backend.gate.wait(timeout=30)
+        time.sleep(0.005)
+        return step()
+
+    backend.engine.step = slow
+    port = server.start(port=0)
+    yield port, backend
+    backend.gate.set()
+    server.stop()
+
+
+def test_http_deadline_exceeded_is_the_finish_reason(slow_node):
+    port, backend = slow_node
+    status, doc = _call(port, "/reasoners/generate", {"input": {
+        "tokens": [7, 8, 9], "max_new_tokens": 50, "deadline_s": 0.05}})
+    assert status == 200 and doc["result"]["finish_reason"] == "deadline_exceeded"
+    assert len(doc["result"]["tokens"]) < 50 and -1 not in doc["result"]["tokens"]
+    assert backend.engine.stats["deadline_exceeded"] == 1
+    assert backend.engine.allocator.free_pages == ECFG["num_pages"] - 1
+
+
+def test_waiter_timeout_cancels_its_request(slow_node):
+    import time
+
+    _, backend = slow_node
+    backend.gate.clear()  # the engine takes no step until the waiter gave up
+    with pytest.raises(TimeoutError):
+        backend.generate(tokens=[1, 2, 3], max_new_tokens=50, timeout=0.05)
+    backend.gate.set()
+    t0 = time.monotonic()
+    while backend.engine.has_work() and time.monotonic() - t0 < 10:
+        time.sleep(0.01)
+    assert backend.engine.stats["requests_cancelled"] == 1
+    assert backend.engine.stats["requests_finished"] == 0
+    assert backend.engine.allocator.free_pages == ECFG["num_pages"] - 1
+
+
+def test_drain_ends_in_flight_work(slow_node):
+    """``drain()``: in-flight work is deadline-outed at the grace cutoff (its
+    caller gets an answer with the partial tokens), new work answers 503,
+    and a second drain finds nothing to do."""
+    import time
+
+    port, backend = slow_node
+    out = {}
+    th = threading.Thread(target=lambda: out.update(
+        r=_call(port, "/reasoners/generate", {"input": {"tokens": [1, 2, 3], "max_new_tokens": 50}})))
+    th.start()
+    t0 = time.monotonic()
+    while not backend.engine.has_work() and time.monotonic() - t0 < 10:
+        time.sleep(0.005)
+    summary = backend.drain(grace_s=0.0)
+    assert summary["drained"] and summary["deadline_outed"] == 1, summary
+    th.join(timeout=30)
+    status, doc = out["r"]
+    assert status == 200 and doc["result"]["finish_reason"] == "deadline_exceeded"
+    status, doc = _call(port, "/reasoners/generate", {"input": {"tokens": [1], "max_new_tokens": 1}})
+    assert status == 503 and "draining" in doc["error"]
+    again = backend.drain(grace_s=0.01)
+    assert again["drained"] and again["deadline_outed"] == 0
+    assert backend.engine.stats["drains_total"] == 1 and backend.engine.stats["drain_cancelled"] == 1
