@@ -12,7 +12,9 @@ arrays do.
 
 ``DecodeGraphs`` runs a step function over a ``DecodeState``. On the card it
 keeps one ``torch.cuda.CUDAGraph`` per key ``(width, sampler variant,
-grammar on/off)``: the first use of a key runs the step eagerly on a side
+mode)``, the mode "free", "grammar" or "spec<k>" (a speculative step of k
+proposals: the draft's k + 1 steps, the verify, the acceptance test and the
+sampling in one graph): the first use of a key runs the step eagerly on a side
 stream (that dispatch's real step, which also warms cuBLAS and loads the
 kernel library), then captures it; every later use replays the graph.
 There is no eager fallback on the card: a capture that fails raises. The
@@ -45,7 +47,8 @@ class DecodeState:
     INPUTS = ("tokens", "seq_lens", "page_tables", "temps", "top_ks", "top_ps", "gstates",
               "eos_ids")
 
-    def __init__(self, width: int, maxp: int, span: int, device: torch.device):
+    def __init__(self, width: int, maxp: int, span: int, device: torch.device,
+                 spec_k: int = 0):
         def zeros(shape, dtype, fill=0):
             return torch.full(shape, fill, dtype=dtype, device=device)
 
@@ -60,6 +63,10 @@ class DecodeState:
         self.eos_ids = zeros((width, MAX_STOP_IDS), torch.int32, -1)
         self.out_tokens = zeros((span, width), torch.int32)
         self.out_logprobs = zeros((span, width), torch.float32)
+        # a speculative step's outputs: up to k + 1 tokens a row, and how many
+        self.spec_tokens = zeros((spec_k + 1, width), torch.int32) if spec_k else None
+        self.spec_logprobs = zeros((spec_k + 1, width), torch.float32) if spec_k else None
+        self.spec_counts = zeros((width,), torch.int32) if spec_k else None
 
     def load(self, host: dict[str, np.ndarray]) -> None:
         """Write host arrays (``INPUTS`` names) into the buffers, in order on
@@ -74,27 +81,31 @@ class DecodeState:
             else:
                 buf.copy_(src)
 
-    def outputs_to_host(self) -> tuple[torch.Tensor, torch.Tensor, torch.cuda.Event | None]:
-        """Copies of the last step's ``(tokens, logprobs)`` on the host, and
-        the event after which they hold their values (None on the CPU). The
-        next step overwrites the buffers, so a pipelined harvest reads these
-        copies, never the buffers."""
-        if not self.out_tokens.is_cuda:
-            return self.out_tokens.clone(), self.out_logprobs.clone(), None
-        toks = torch.empty(self.out_tokens.shape, dtype=torch.int32, pin_memory=True)
-        lps = torch.empty(self.out_logprobs.shape, dtype=torch.float32, pin_memory=True)
-        toks.copy_(self.out_tokens, non_blocking=True)
-        lps.copy_(self.out_logprobs, non_blocking=True)
-        done = torch.cuda.Event()
-        done.record()
-        return toks, lps, done
+    def outputs_to_host(self, spec: bool = False) -> tuple:
+        """Copies of the last step's ``(tokens, logprobs, counts)`` on the
+        host (``counts`` None unless ``spec``: a speculative step's outputs),
+        and the event after which they hold their values (None on the CPU).
+        The next step overwrites the buffers, so a pipelined harvest reads
+        these copies, never the buffers."""
+        bufs = ((self.spec_tokens, self.spec_logprobs, self.spec_counts) if spec
+                else (self.out_tokens, self.out_logprobs))
+        if not self.tokens.is_cuda:
+            out = [b.clone() for b in bufs]
+            done = None
+        else:
+            out = [torch.empty(b.shape, dtype=b.dtype, pin_memory=True) for b in bufs]
+            for o, b in zip(out, bufs):
+                o.copy_(b, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record()
+        return out[0], out[1], out[2] if spec else None, done
 
 
 class DecodeGraphs:
-    """``step_fn(state, variant, grammar)`` per key, replayed from CUDA
-    graphs on the card (see the module docstring)."""
+    """``step_fn(state, variant, mode)`` per key, replayed from CUDA graphs
+    on the card (see the module docstring)."""
 
-    def __init__(self, step_fn: Callable[[DecodeState, str, bool], None],
+    def __init__(self, step_fn: Callable[[DecodeState, str, str], None],
                  generator: torch.Generator):
         self.step_fn = step_fn
         self.generator = generator
@@ -106,17 +117,16 @@ class DecodeGraphs:
         return {
             "graphs_captured": len(self.graphs),
             "capture_s": self.capture_s,
-            "replays": {f"w{w}/{v}/{'grammar' if g else 'free'}": n
-                        for (w, v, g), n in sorted(self.replays.items())},
+            "replays": {f"w{w}/{v}/{m}": n for (w, v, m), n in sorted(self.replays.items())},
         }
 
-    def run(self, state: DecodeState, variant: str, grammar: bool) -> bool:
+    def run(self, state: DecodeState, variant: str, mode: str) -> bool:
         """One decode step over ``state``. Returns True when it was a replay
         of a captured graph (False: the CPU, or a key's first use)."""
         if not state.tokens.is_cuda:
-            self.step_fn(state, variant, grammar)
+            self.step_fn(state, variant, mode)
             return False
-        key = (state.width, variant, grammar)
+        key = (state.width, variant, mode)
         entry = self.graphs.get(key)
         if entry is None:
             self._capture(key, state)
@@ -128,20 +138,20 @@ class DecodeGraphs:
         return True
 
     def _capture(self, key: tuple, state: DecodeState) -> None:
-        _, variant, grammar = key
+        _, variant, mode = key
         t0 = time.perf_counter()
         main = torch.cuda.current_stream()
         side = torch.cuda.Stream(device=main.device)
         side.wait_stream(main)
         with torch.cuda.stream(side):  # this dispatch's step, eager
-            self.step_fn(state, variant, grammar)
+            self.step_fn(state, variant, mode)
         main.wait_stream(side)
         graph = torch.cuda.CUDAGraph()
         if variant != "greedy":  # the step draws from the engine's generator
             graph.register_generator_state(self.generator)
         before = rpa.launch_counts()
         with torch.cuda.graph(graph, capture_error_mode="thread_local"):
-            self.step_fn(state, variant, grammar)
+            self.step_fn(state, variant, mode)
         launches = {k: n - before[k] for k, n in rpa.launch_counts().items()}
         rpa.add_launches(launches, sign=-1)  # recorded, not launched
         self.graphs[key] = (graph, launches)

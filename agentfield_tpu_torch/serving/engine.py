@@ -18,7 +18,7 @@ that holds them (padding rows inert, ``seq_len`` 0). The control state lives
 on the device and chains from step to step (``serving.decode_step``): on the
 card the step — every layer's forward through the kernel, the unembed,
 grammar mask, sampler and logprob gather, the advance of tokens and lengths
-— is one CUDA graph per (width, sampler variant, grammar on/off), captured
+— is one CUDA graph per (width, sampler variant, mode), captured
 at first use and replayed after. With ``grammar_slots`` the engine keeps the
 JAX engine's int16 transition bank of ``Request.grammar`` automata
 (``serving.grammar``) and masks each constrained row's logits in the step.
@@ -52,9 +52,20 @@ each, a chunk's rows sharing a ``seq_id``), through the kernel's
 split-context path on the card. ``scheduler_stats()`` gives the
 inter-token latency percentiles and the tokens carried per tick.
 
-Not ported yet (each a later slice): speculative decoding and prefill, the
-host tier, forks, handoff, MoE, the JAX engine's latency histograms and
-flight recorder, the ``engine.preempt_storm`` fault point.
+With ``spec_k`` and a draft model (``InferenceEngine(draft=(params,
+cfg))``), the JAX engine's speculative decoding: each eligible dispatch runs
+one ``serving.spec_decode`` step (the draft proposes ``spec_k`` tokens, the
+target verifies them in one ``spec_k + 1``-wide ragged forward, each row
+emits 1..spec_k+1 tokens), one CUDA graph per (width, sampler variant, k) on
+the card. The draft keeps its own page pool on the target's page ids (one
+allocator governs both): every prefill replays onto it, a copy-on-write
+copies both, and rows that fell back to plain decode (a grammar row in the
+batch) replay their missed tokens through the draft before the next spec
+step (``_resync_draft``).
+
+Not ported yet (each a later slice): speculative prefill (the keep-warm
+pins), the host tier, forks, handoff, MoE, the JAX engine's latency
+histograms and flight recorder, the ``engine.preempt_storm`` fault point.
 """
 
 from __future__ import annotations
@@ -74,7 +85,6 @@ from agentfield_tpu_torch.models.configs import LlamaConfig
 from agentfield_tpu_torch.ops.kernel_autotune import lookup_blocks
 from agentfield_tpu_torch.ops.kv_quant import (
     KV_QUANT_DTYPES,
-    QuantPages,
     bits,
     quant_mode_supported,
     write_pages,
@@ -90,6 +100,7 @@ from agentfield_tpu_torch.serving.kv_cache import (
     pack_ragged_rows,
 )
 from agentfield_tpu_torch.serving.sampler import SamplingParams, sample_tokens, sampler_variant
+from agentfield_tpu_torch.serving.spec_decode import PagedModel, rows_forward, spec_step
 
 _MASKED = -1e30  # logit value for grammar-disallowed tokens
 
@@ -120,14 +131,18 @@ class EngineConfig:
     kv_quant_dtype: str = "none"  # "int8" | "fp8": quantized KV pages with
     # per-(slot, KV head) f32 scales, ~1.9x the pages per HBM byte
     mixed_step: bool | str = False  # token-budget mixed ticks while prompts
-    # wait behind active decodes; "auto" turns them on (the port has no
-    # speculative decoding, which owns its ticks in the JAX engine). Paused
+    # wait behind active decodes; "auto" turns them on unless speculative
+    # decoding owns the tick (spec_k > 0, where True is refused). Paused
     # while a grammar-constrained request is active
     mixed_step_budget: int = 512  # token rows a mixed tick carries at most
     # (decode + prefill-chunk); must be >= max_batch + 16
     preempt_fence_ticks: int = 64  # a pending request of higher priority
     # than an active slot, starved this many consecutive ticks, preempts the
     # lowest-priority slot (0 disables preemption)
+    spec_k: int = 0  # speculative decoding: draft proposals per step (0
+    # disables; needs InferenceEngine(draft=...)). A dispatch speculates when
+    # no grammar row is active and some row can accept (greedy or plain
+    # temperature); it emits 1..spec_k+1 tokens a row
 
     @property
     def max_context(self) -> int:
@@ -192,6 +207,8 @@ class _Slot:
     last_token: int
     tokens: list[int] = dataclasses.field(default_factory=list)  # prompt + generated
     last_emit_t: float = 0.0  # perf_counter of the last emitted token (ITL window)
+    draft_len: int = 0  # tokens whose KV the draft pool holds (plain-decode
+    # fallback steps advance the target only; _resync_draft replays the gap)
 
 
 @dataclasses.dataclass
@@ -229,13 +246,6 @@ class GrammarCapacityError(Exception):
     """The engine's grammar bank has no room for another schema's states."""
 
 
-def _layer(pages, i: int):
-    """Layer ``i`` of a layer-stacked pool, plain or quantized (views)."""
-    if isinstance(pages, QuantPages):
-        return QuantPages(pages.q[i], pages.scale[i])
-    return pages[i]
-
-
 def _binding_window(cfg: LlamaConfig, ecfg: EngineConfig) -> int | None:
     """The sliding window, or None when it cannot bind within the context."""
     w = cfg.sliding_window
@@ -252,10 +262,13 @@ class InferenceEngine:
         ecfg: EngineConfig | None = None,
         seed: int = 0,
         device: str | torch.device | None = None,
+        draft: tuple[dict[str, Any], LlamaConfig] | None = None,
     ):
         """``params`` in the port's layout (``models.llama.init_params`` or
         ``models.convert.params_from_numpy``), already on ``device`` (default:
-        where the params are)."""
+        where the params are). ``draft`` is the ``(params, cfg)`` of the
+        speculative-decoding draft model (needed when ``ecfg.spec_k > 0``),
+        on the same device."""
         self.cfg = cfg
         self.ecfg = ecfg or EngineConfig()
         self.device = torch.device(device) if device is not None else params["embed"].device
@@ -288,9 +301,15 @@ class InferenceEngine:
                 f"mixed_step={self.ecfg.mixed_step!r} must be True, False, or 'auto'"
             )
         if self.ecfg.mixed_step == "auto":
-            # the JAX engine resolves "auto" to on unless speculative
-            # decoding owns the tick; the port has no speculative decoding
-            self.ecfg = dataclasses.replace(self.ecfg, mixed_step=True)
+            # speculative decoding owns its ticks (draft + verify is already
+            # a multi-token dispatch); auto turns mixing on everywhere else
+            self.ecfg = dataclasses.replace(self.ecfg, mixed_step=self.ecfg.spec_k == 0)
+        if self.ecfg.mixed_step and self.ecfg.spec_k > 0:
+            raise ValueError(
+                "mixed_step=True is incompatible with spec_k > 0 "
+                "(speculative decoding owns the tick); use mixed_step='auto' "
+                "to fall back automatically"
+            )
         if self.ecfg.mixed_step and self.ecfg.mixed_step_budget < self.ecfg.max_batch + 16:
             raise ValueError(
                 f"mixed_step_budget={self.ecfg.mixed_step_budget} must be >= "
@@ -311,6 +330,37 @@ class InferenceEngine:
         )
         if quant == "none" and self.cache.k_pages.dtype != params["embed"].dtype:
             raise ValueError("KV page dtype must match the params' compute dtype")
+        self._target = PagedModel(params, cfg, self.cache, _binding_window(cfg, self.ecfg))
+        # speculative decoding: the draft's own pool on the target's page ids
+        self.draft_params = self.draft_cfg = self.draft_cache = self._draft = None
+        if self.ecfg.spec_k < 0:
+            raise ValueError(f"spec_k={self.ecfg.spec_k} must be >= 0")
+        if self.ecfg.spec_k > 0:
+            if draft is None:
+                raise ValueError(
+                    f"spec_k={self.ecfg.spec_k} needs a draft model: "
+                    "InferenceEngine(draft=(params, cfg))"
+                )
+            self.draft_params, self.draft_cfg = draft
+            if self.draft_cfg.vocab_size != cfg.vocab_size:
+                raise ValueError(
+                    f"draft vocab {self.draft_cfg.vocab_size} != target "
+                    f"vocab {cfg.vocab_size} (speculation compares token ids)"
+                )
+            if self.draft_cfg.num_experts > 0:
+                raise NotImplementedError("MoE FFNs are not ported yet")
+            if self.draft_params["embed"].device != self.device:
+                raise ValueError(
+                    f"draft params live on {self.draft_params['embed'].device}, "
+                    f"engine on {self.device}")
+            self.draft_cache = PagedKVCache.create(
+                self.draft_cfg, self.ecfg.num_pages, self.ecfg.page_size, cache_dtype,
+                device=self.device, kv_quant=quant,
+            )
+            if quant == "none" and self.draft_cache.k_pages.dtype != self.draft_params["embed"].dtype:
+                raise ValueError("KV page dtype must match the draft params' compute dtype")
+            self._draft = PagedModel(self.draft_params, self.draft_cfg, self.draft_cache,
+                                     _binding_window(self.draft_cfg, self.ecfg))
         # the dense page layout at the same geometry: the yardstick of the
         # kv_quant_bytes_saved_total counter
         self.kv_page_bytes_dense = (
@@ -318,7 +368,7 @@ class InferenceEngine:
             * llama.resolve_dtype(cache_dtype).itemsize
         )
         self.kv_page_bytes = self.cache.page_bytes()
-        self.window = _binding_window(cfg, self.ecfg)
+        self.window = self._target.window
         self.stats = {
             "prefill_tokens": 0,
             "decode_tokens": 0,
@@ -349,6 +399,9 @@ class InferenceEngine:
             # over cached pages instead of a full re-prefill
             "shed_pending_deadline_total": 0,  # pending requests shed at their
             # deadline before they ever admitted (a subset of deadline_exceeded)
+            "spec_steps": 0,  # speculative dispatches
+            "spec_emitted": 0,  # tokens they emitted (rate = emitted /
+            # (steps * (spec_k+1)))
         }
         # Host wall time of prefills (each ends in a device→host read) and of
         # decode dispatches and harvests (a harvest waits for its step).
@@ -428,10 +481,11 @@ class InferenceEngine:
         self._states: dict[int, DecodeState] = {}
         self._dirty = True
         self._compact_key: tuple | None = None
-        self._graphs = DecodeGraphs(self._decode_step, self._gen)
-        # device ms of each replayed decode step and of each mixed tick's
-        # forward and sampling (CUDA events)
+        self._graphs = DecodeGraphs(self._graph_step, self._gen)
+        # device ms of each replayed decode step, of each replayed spec step
+        # and of each mixed tick's forward and sampling (CUDA events)
         self.decode_step_ms: collections.deque[float] = collections.deque(maxlen=4096)
+        self.spec_step_ms: collections.deque[float] = collections.deque(maxlen=4096)
         self.mixed_tick_ms: collections.deque[float] = collections.deque(maxlen=4096)
 
     # ------------------------------------------------------------------
@@ -896,10 +950,13 @@ class InferenceEngine:
 
     def _copy_page(self, src: int, dst: int) -> None:
         """Copy-on-write: duplicate page `src` into `dst` across all layers
-        (values and, for a quantized pool, their scales)."""
-        for t in self.cache.leaves():
-            b = bits(t)
-            b[:, dst] = b[:, src]
+        (values and, for a quantized pool, their scales), in the target pool
+        and, with speculation on, the draft pool, so the draft's view of a
+        privatized page stays in sync."""
+        for cache in (self.cache, self.draft_cache):
+            for t in cache.leaves() if cache is not None else ():
+                b = bits(t)
+                b[:, dst] = b[:, src]
 
     # ------------------------------------------------------------------
     # constrained decoding: the grammar transition bank
@@ -1060,6 +1117,7 @@ class InferenceEngine:
         slot = _Slot(
             req=req, pages=pages, length=len(req.prompt), generated=1, last_token=tok,
             tokens=list(req.prompt) + [tok],
+            draft_len=len(req.prompt),  # every prefill replays onto the draft pool
         )
         event = self._emit(slot_idx, slot, tok, logprob)
         if not event.finished:
@@ -1090,8 +1148,9 @@ class InferenceEngine:
     def _dense_prefill(self, prompts: list[list[int]], rows: list[np.ndarray]) -> torch.Tensor:
         """Whole-prompt prefill of fresh prompts from position 0 (one row per
         prompt, padded to the longest): dense causal attention through the
-        kernel, then each valid token's K/V scattered into its pages.
-        Returns the last-token logits [n, V]."""
+        kernel, then each valid token's K/V scattered into its pages; then
+        the same onto the draft pool (its logits discarded). Returns the
+        target's last-token logits [n, V]."""
         t0 = time.perf_counter()
         n, S = len(prompts), max(len(p) for p in prompts)
         ps, dev = self.ecfg.page_size, self.device
@@ -1103,33 +1162,50 @@ class InferenceEngine:
         valid = positions < lengths[:, None]
         page_ids = np.take_along_axis(np.stack(rows), positions // ps, axis=1)[valid]
         slot_ids = (positions % ps)[valid]
-        logits, (ks, vs) = llama.forward(
-            self.params, self.cfg,
-            torch.from_numpy(tokens).to(dev),
-            torch.from_numpy(np.array(positions)).to(dev),
-            attn_impl="kernel",
-            last_idx=torch.from_numpy(lengths - 1).to(dev),
+        args = (
+            torch.from_numpy(tokens).to(dev), torch.from_numpy(np.array(positions)).to(dev),
+            torch.from_numpy(lengths - 1).to(dev), torch.from_numpy(valid).to(dev),
+            torch.from_numpy(page_ids.astype(np.int64)).to(dev),
+            torch.from_numpy(slot_ids.astype(np.int64)).to(dev),
         )
-        vmask = torch.from_numpy(valid).to(dev)
-        pid = torch.from_numpy(page_ids.astype(np.int64)).to(dev)
-        sid = torch.from_numpy(slot_ids.astype(np.int64)).to(dev)
+        logits = self._dense_forward(self._target, *args)
+        if self._draft is not None:
+            self._dense_forward(self._draft, *args)
+        self.timing["prefill_s"] += time.perf_counter() - t0
+        return logits
+
+    @staticmethod
+    def _dense_forward(m: PagedModel, tokens, positions, last_idx, vmask, pid, sid):
+        """``_dense_prefill``'s forward of one model into its own pool."""
+        logits, (ks, vs) = llama.forward(m.params, m.cfg, tokens, positions, attn_impl="kernel",
+                                         last_idx=last_idx)
         # ks/vs [L, n, S, Kh, hd] -> valid tokens [N, L, Kh, hd]; 1-D index
         # tensors at pool dims 1 and 3 put the token dim first. A quantized
         # pool quantizes each slot on the way in.
-        write_pages(self.cache.k_pages, ks.permute(1, 2, 0, 3, 4)[vmask], pid, sid)
-        write_pages(self.cache.v_pages, vs.permute(1, 2, 0, 3, 4)[vmask], pid, sid)
-        self.timing["prefill_s"] += time.perf_counter() - t0
+        write_pages(m.cache.k_pages, ks.permute(1, 2, 0, 3, 4)[vmask], pid, sid)
+        write_pages(m.cache.v_pages, vs.permute(1, 2, 0, 3, 4)[vmask], pid, sid)
         return logits
 
     def _suffix_prefill(self, piece: list[int], start: int, row: np.ndarray) -> torch.Tensor:
         """Prefill ``piece`` at absolute positions ``start...`` over the
-        cached pages: the chunk packs as ragged rows of the table's
-        ``block_q`` width sharing one seq_id, so the kernel serves the cached
-        context from its page walk, intra-chunk causality from its new-key
-        phase, and writes the chunk's K/V in the same launch. Returns the
-        last position's logits [V]."""
+        cached pages (``_suffix_forward``), in the target's pool and then the
+        draft's. Returns the target's last-position logits [V]."""
         t0 = time.perf_counter()
-        cfg, ecfg, dev = self.cfg, self.ecfg, self.device
+        logits = self._suffix_forward(self._target, piece, start, row)
+        if self._draft is not None:
+            self._suffix_forward(self._draft, piece, start, row, unembed=False)
+        self.timing["prefill_s"] += time.perf_counter() - t0
+        return logits
+
+    def _suffix_forward(self, m: PagedModel, piece: list[int], start: int, row: np.ndarray,
+                        unembed: bool = True) -> torch.Tensor | None:
+        """One model's suffix prefill into its pool: the chunk packs as
+        ragged rows of the table's ``block_q`` width sharing one seq_id, so
+        the kernel serves the cached context from its page walk,
+        intra-chunk causality from its new-key phase, and writes the chunk's
+        K/V in the same launch. Returns the last position's logits [V] (None
+        without ``unembed``)."""
+        cfg, ecfg, dev = m.cfg, self.ecfg, self.device
         n = len(piece)
         bucket = ecfg.prefill_bucket(n)
         W = min(
@@ -1146,7 +1222,7 @@ class InferenceEngine:
         seq_ids = torch.zeros((R,), dtype=torch.int32, device=dev)
         tokens = torch.tensor([piece], dtype=torch.int64, device=dev)
         positions = start + torch.arange(n, device=dev)[None]
-        x = llama.embed_tokens(self.params, cfg, tokens)
+        x = llama.embed_tokens(m.params, cfg, tokens)
         cos, sin = llama.rope_sincos(positions, cfg.head_dim, cfg.rope_theta, cfg.rope_scaling)
 
         def as_rows(t):  # [1, n, ...] -> [R, W, ...]
@@ -1156,20 +1232,17 @@ class InferenceEngine:
             return t.reshape((R, W) + t.shape[1:]).contiguous()
 
         for i in range(cfg.num_layers):
-            lp = llama.layer(self.params, i)
+            lp = llama.layer(m.params, i)
             h = llama.rms_norm(x, lp["attn_norm"], cfg.rms_norm_eps)
             q, k, v = llama.qkv_proj(lp, h, cfg, cos, sin)
             attn, _, _ = ragged_paged_attention(
-                as_rows(q), as_rows(k), as_rows(v),
-                _layer(self.cache.k_pages, i), _layer(self.cache.v_pages, i), tables,
-                row_starts, n_toks, ctx_lens, seq_ids, window=self.window,
+                as_rows(q), as_rows(k), as_rows(v), *m.cache.layer(i), tables,
+                row_starts, n_toks, ctx_lens, seq_ids, window=m.window,
             )
             attn = attn.reshape(R * W, cfg.num_heads, cfg.head_dim)[:n][None]
             x = llama.attn_out(lp, attn, x)
             x = x + llama.mlp_block(lp, x, cfg)
-        logits = llama.unembed(self.params, cfg, x[:, -1])[0]
-        self.timing["prefill_s"] += time.perf_counter() - t0
-        return logits
+        return llama.unembed(m.params, cfg, x[:, -1])[0] if unembed else None
 
     def _prefill(self, tokens: list[int], start: int, row: np.ndarray) -> torch.Tensor:
         """Prefill `tokens` from absolute position `start`, in
@@ -1196,23 +1269,28 @@ class InferenceEngine:
         """One decode step's forward over a batch of slots: row b's single
         new token sits at position seq_lens[b] over seq_lens[b] cached keys;
         inactive slots (seq_len 0) are padding rows. Returns logits [B, V]."""
-        cfg = self.cfg
-        B = tokens.shape[0]
-        x = llama.embed_tokens(self.params, cfg, tokens)[:, None, :]  # [B, 1, D]
-        cos, sin = llama.rope_sincos(seq_lens[:, None], cfg.head_dim, cfg.rope_theta, cfg.rope_scaling)
         n_toks = (seq_lens > 0).to(torch.int32)
-        row_ids = torch.arange(B, dtype=torch.int32, device=self.device)
-        for i in range(cfg.num_layers):
-            lp = llama.layer(self.params, i)
-            h = llama.rms_norm(x, lp["attn_norm"], cfg.rms_norm_eps)
-            q, k, v = llama.qkv_proj(lp, h, cfg, cos, sin)  # [B, 1, ...]
-            attn, _, _ = ragged_paged_attention(
-                q, k, v, _layer(self.cache.k_pages, i), _layer(self.cache.v_pages, i), page_tables,
-                seq_lens, n_toks, seq_lens, row_ids, window=self.window,
-            )
-            x = llama.attn_out(lp, attn, x)
-            x = x + llama.mlp_block(lp, x, cfg)
-        return llama.unembed(self.params, cfg, x)[:, 0]
+        return rows_forward(self._target, tokens[:, None], seq_lens, n_toks, page_tables)[:, 0]
+
+    def _graph_step(self, st: DecodeState, variant: str, mode: str) -> None:
+        """The step ``DecodeGraphs`` runs for a key's mode: "free" and
+        "grammar" (``_decode_step``) or "spec<k>" (``_spec_step``)."""
+        if mode.startswith("spec"):
+            self._spec_step(st, variant)
+        else:
+            self._decode_step(st, variant, mode == "grammar")
+
+    def _spec_step(self, st: DecodeState, variant: str) -> None:
+        """One speculative step over ``st`` on the device only (the function
+        a CUDA graph captures): ``spec_decode.spec_step``, its outputs into
+        the state's spec buffers, the next tokens and lengths written back."""
+        out = spec_step(self._target, self._draft, st.tokens, st.seq_lens, st.page_tables,
+                        st.temps, st.top_ks, st.top_ps, self.ecfg.spec_k, self._gen, variant)
+        st.spec_tokens.copy_(out.emitted)
+        st.spec_logprobs.copy_(out.logprobs)
+        st.spec_counts.copy_(out.counts)
+        st.seq_lens.copy_(out.new_seq_lens)
+        st.tokens.copy_(out.next_tokens)
 
     def _decode_step(self, st: DecodeState, variant: str, grammar: bool) -> None:
         """``decode_span`` decode steps over ``st``, on the device only (the
@@ -1247,7 +1325,8 @@ class InferenceEngine:
         st = self._states.get(width)
         if st is None:
             st = self._states[width] = DecodeState(
-                width, self.ecfg.max_pages_per_seq, self.ecfg.decode_span, self.device
+                width, self.ecfg.max_pages_per_seq, self.ecfg.decode_span, self.device,
+                spec_k=self.ecfg.spec_k,
             )
         return st
 
@@ -1297,29 +1376,67 @@ class InferenceEngine:
         their first uses took (eager step and capture), replays per key."""
         return self._graphs.stats()
 
+    def _spec_eligible(self, active_idx: list[int]) -> bool:
+        """Speculate this dispatch? Not without a draft, and not while a
+        grammar row is active (draft proposals are unsampleable
+        mid-schema); and some row must be able to accept proposals (greedy
+        or plain temperature): an all-truncated batch would pay k + 1 draft
+        forwards and the wide verify for one token a row."""
+        if self._draft is None or not active_idx:
+            return False
+        idx = np.asarray(active_idx)
+        if (self.grammar_states[idx] != 0).any():
+            return False
+        if any(self.slots[i].req.grammar is not None for i in active_idx):
+            return False
+        can_accept = (self.temps[idx] <= 0) | ((self.top_ks[idx] == 0) & (self.top_ps[idx] >= 1.0))
+        return bool(can_accept.any())
+
+    def _resync_draft(self, active_idx: list[int]) -> None:
+        """Replay the tokens the draft pool missed (plain-decode fallback
+        steps advance the target only) through a draft suffix prefill, so
+        speculation resumes with full-context proposals."""
+        for i in active_idx:
+            slot = self.slots[i]
+            if slot.draft_len >= slot.length:
+                continue
+            missing = slot.tokens[slot.draft_len : slot.length]
+            self._suffix_forward(self._draft, missing, slot.draft_len, self.page_tables[i],
+                                 unembed=False)
+            slot.draft_len = slot.length
+
     def _dispatch_decode(self) -> None:
-        """Dispatch one decode span (no host sync) and record it in flight."""
+        """Dispatch one decode span, or one speculative step when
+        ``_spec_eligible`` (no host sync), and record it in flight."""
         t0 = time.perf_counter()
         active = [i for i, s in enumerate(self.slots) if s is not None]
+        spec = self._spec_eligible(active)
+        if spec:
+            self._resync_draft(active)
         bucket = self._pick_decode_bucket(len(active))
         st = self._compact_state(active, bucket) if bucket is not None else self._dev_state()
         variant = sampler_variant(self.temps[active], self.top_ks[active], self.top_ps[active])
         grammar = any(self.slots[i].req.grammar is not None for i in active)
         if grammar:
             self._gbank_device()
+        mode = f"spec{self.ecfg.spec_k}" if spec else ("grammar" if grammar else "free")
         timed = None
         if st.tokens.is_cuda:
             timed = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
             timed[0].record()
-        replayed = self._graphs.run(st, variant, grammar)
+        replayed = self._graphs.run(st, variant, mode)
         if timed is not None:
             timed[1].record()
         if bucket is not None:
             self._dirty = True  # the full-width state did not advance
-        toks, lps, done = st.outputs_to_host()
-        self.stats["decode_steps"] += self.ecfg.decode_span
+        toks, lps, counts, done = st.outputs_to_host(spec=spec)
+        if spec:
+            self.stats["decode_steps"] += 1
+            self.stats["spec_steps"] += 1
+        else:
+            self.stats["decode_steps"] += self.ecfg.decode_span
         self._inflight = {
-            "tokens": toks, "logprobs": lps, "done": done,
+            "tokens": toks, "logprobs": lps, "counts": counts, "done": done,
             "timed": timed if replayed else None,
             "slots": [(i, self.slots[i]) for i in active],
             "compact": bucket is not None,
@@ -1340,19 +1457,29 @@ class InferenceEngine:
         t0 = time.perf_counter()
         if inf["done"] is not None:
             inf["done"].synchronize()
+        counts = inf["counts"].numpy() if inf["counts"] is not None else None
         if inf["timed"] is not None:
-            self.decode_step_ms.append(
-                inf["timed"][0].elapsed_time(inf["timed"][1]) / self.ecfg.decode_span
-            )
-        toks, lps = inf["tokens"].numpy(), inf["logprobs"].numpy()  # [span, width]
+            ms = inf["timed"][0].elapsed_time(inf["timed"][1])
+            if counts is not None:
+                self.spec_step_ms.append(ms)
+            else:
+                self.decode_step_ms.append(ms / self.ecfg.decode_span)
+        toks, lps = inf["tokens"].numpy(), inf["logprobs"].numpy()  # [span or k+1, width]
         out: list[TokenEvent] = []
         for t in range(toks.shape[0]):
             for j, (i, slot) in enumerate(inf["slots"]):
                 if self.slots[i] is not slot:
                     continue  # finished: discard its later span tokens
                 row = j if inf["compact"] else i
+                if counts is not None:
+                    # a spec step emits a variable number of tokens a row
+                    if t >= counts[row]:
+                        continue
+                    self.stats["spec_emitted"] += 1
                 tok = int(toks[t, row])
                 slot.length += 1
+                if counts is not None:
+                    slot.draft_len = slot.length  # a spec step writes both pools
                 slot.generated += 1
                 slot.last_token = tok
                 slot.tokens.append(tok)
@@ -1830,8 +1957,8 @@ class InferenceEngine:
             h = llama.rms_norm(x, lp["attn_norm"], cfg.rms_norm_eps)
             q, k, v = llama.qkv_proj(lp, h, cfg, cos, sin)  # [N, 1, ...]
             attn, _, _ = ragged_paged_attention(
-                q, k, v, _layer(self.cache.k_pages, i), _layer(self.cache.v_pages, i), tables,
-                starts, n_toks, ctx_lens, seq_ids, window=self.window,
+                q, k, v, *self.cache.layer(i), tables, starts, n_toks, ctx_lens, seq_ids,
+                window=self.window,
             )
             x = llama.attn_out(lp, attn, x)
             x = x + llama.mlp_block(lp, x, cfg)

@@ -79,6 +79,12 @@ class PagedKVCache:
         return [t for pool in (self.k_pages, self.v_pages)
                 for t in (pool if isinstance(pool, QuantPages) else (pool,))]
 
+    def layer(self, i: int):
+        """Layer ``i``'s ``(K, V)`` pools (views; ``QuantPages`` when
+        quantized)."""
+        return tuple(QuantPages(p.q[i], p.scale[i]) if isinstance(p, QuantPages) else p[i]
+                     for p in (self.k_pages, self.v_pages))
+
     def hbm_bytes(self) -> int:
         return sum(t.numel() * t.element_size() for t in self.leaves())
 

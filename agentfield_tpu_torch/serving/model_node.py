@@ -33,7 +33,10 @@ Run a node::
     python -m agentfield_tpu_torch.serving.model_node --model llama-3-8b --port 8080 --seed 0
 
 ``--kv-quant-dtype int8`` (or ``fp8``) stores the KV pages quantized, with
-per-slot scales (``EngineConfig.kv_quant_dtype``).
+per-slot scales (``EngineConfig.kv_quant_dtype``). ``--spec-draft
+llama-3.2-draft --spec-k 3`` decodes speculatively with a draft preset
+(``load_draft_model``: random weights from the seed; a trained draft needs
+the HF checkpoint loader, which is not ported yet).
 """
 
 from __future__ import annotations
@@ -41,6 +44,7 @@ from __future__ import annotations
 import argparse
 import collections
 import concurrent.futures
+import dataclasses
 import inspect
 import json
 import logging
@@ -91,13 +95,14 @@ class ModelBackend:
         model_name: str = "custom",
         device: str | torch.device | None = None,
         idle_sleep: float = 0.002,
+        draft: tuple[dict[str, Any], LlamaConfig] | None = None,
     ):
         self.cfg = cfg
         self.model_name = model_name
         self.tokenizer = tokenizer
         if ecfg is None:
             ecfg = EngineConfig(grammar_slots=GRAMMAR_SLOTS)
-        self.engine = InferenceEngine(params, cfg, ecfg, seed=seed, device=device)
+        self.engine = InferenceEngine(params, cfg, ecfg, seed=seed, device=device, draft=draft)
         self.idle_sleep = idle_sleep
         # canonical schema JSON -> compiled grammar, least recently used out
         self._grammars: collections.OrderedDict[str, Grammar] = collections.OrderedDict()
@@ -424,6 +429,28 @@ def _make_handler(node: ModelNodeServer):
     return Handler
 
 
+def load_draft_model(source: str, target_vocab: int, seed: int = 0,
+                     device: str | torch.device = "cuda",
+                     dtype: str | torch.dtype | None = None):
+    """A speculative-decoding draft for a preset name: random weights drawn
+    from ``seed`` on ``device`` (in ``dtype``, default the preset's), the
+    ``(params, cfg)`` pair ``InferenceEngine(draft=...)`` takes. A
+    vocabulary other than the target's is refused (speculation compares
+    token ids), as is a checkpoint directory: the HF checkpoint loader is not
+    ported yet."""
+    import os
+
+    if os.path.isdir(source):
+        raise ValueError(
+            f"spec draft {source!r} is a checkpoint directory: the HF checkpoint "
+            "loader is not ported yet; pass a preset name")
+    dcfg = get_config(source)
+    if dcfg.vocab_size != target_vocab:
+        raise ValueError(
+            f"spec draft {source!r} vocab {dcfg.vocab_size} != target vocab {target_vocab}")
+    return init_params(dcfg, seed=seed, dtype=dtype, device=device), dcfg
+
+
 def build_model_node(
     model: str = "llama-3-8b",
     seed: int = 0,
@@ -432,17 +459,33 @@ def build_model_node(
     params: dict[str, Any] | None = None,
     tokenizer=None,
     node_id: str = "model",
+    spec_draft: str | None = None,
+    spec_k: int | None = None,
 ) -> tuple[ModelNodeServer, ModelBackend]:
     """Construct ``(server, backend)`` for a preset: random weights drawn
     from ``seed`` on ``device`` unless ``params`` are given, the byte
-    tokenizer unless one is given. Call ``server.start(port=...)``."""
+    tokenizer unless one is given. ``spec_k`` sets ``ecfg.spec_k``; with
+    ``spec_k > 0`` the ``spec_draft`` preset is the draft model
+    (``load_draft_model``, seed ``seed + 4`` as the JAX node draws it, in
+    the target's dtype). Call ``server.start(port=...)``."""
     cfg = get_config(model)
+    if ecfg is None:
+        ecfg = EngineConfig(grammar_slots=GRAMMAR_SLOTS)
+    if spec_k is not None:
+        ecfg = dataclasses.replace(ecfg, spec_k=spec_k)
+    if ecfg.spec_k > 0 and spec_draft is None:
+        raise ValueError("spec_k > 0 needs spec_draft=<model preset>")
     if params is None:
         params = init_params(cfg, seed=seed, device=device)
+    draft = None
+    if ecfg.spec_k > 0:
+        draft = load_draft_model(spec_draft, cfg.vocab_size, seed=seed + 4, device=device,
+                                 dtype=params["embed"].dtype)
     if tokenizer is None:
         tokenizer = ByteTokenizer(cfg.vocab_size)
     backend = ModelBackend(
-        params, cfg, ecfg, tokenizer=tokenizer, seed=seed, model_name=model, device=device
+        params, cfg, ecfg, tokenizer=tokenizer, seed=seed, model_name=model, device=device,
+        draft=draft,
     )
     return ModelNodeServer(backend, node_id=node_id), backend
 
@@ -456,10 +499,15 @@ def main(argv: list[str] | None = None) -> None:
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--kv-quant-dtype", default="none", choices=KV_QUANT_DTYPES,
                     help="store KV pages quantized with per-slot scales")
+    ap.add_argument("--spec-draft", default=None,
+                    help="draft model preset for speculative decoding (with --spec-k)")
+    ap.add_argument("--spec-k", type=int, default=None,
+                    help="draft proposals per speculative step (needs --spec-draft)")
     args = ap.parse_args(argv)
     server, _ = build_model_node(
         args.model, seed=args.seed, device=args.device,
         ecfg=EngineConfig(grammar_slots=GRAMMAR_SLOTS, kv_quant_dtype=args.kv_quant_dtype),
+        spec_draft=args.spec_draft, spec_k=args.spec_k,
     )
     port = server.start(args.host, args.port)
     print(f"model node {args.model} serving on http://{args.host}:{port}", flush=True)

@@ -35,7 +35,13 @@ the result line:
                contexts 500-2000 and chunks of 240 tokens over 1024 cached
                and 256 over none (also over int8 and fp8 pools, and where
                the two faults must be rejected too), and the same packing at
-               phi-3-mini's heads (hd 96) with its window binding. Quantized (int8, fp8) pools, at the
+               phi-3-mini's heads (hd 96) with its window binding. The
+               speculative step's launches (``spec_shapes``): the verify at
+               Llama-3-8B heads, one row of W = k + 1 tokens a sequence
+               over contexts 1900 to 2048 - W, k = 1 and 3 at 4 and 16 rows
+               (k = 3 at 4 rows also rejects the two faults), and the
+               draft's decode at llama-3.2-draft's heads (hd 64, Kh 2, 16
+               rows). Quantized (int8, fp8) pools, at the
                quantized mixes and the Llama-3-8B shapes, in float32 and
                bfloat16 compute, pass three checks: (a) pool values and
                scales bit-equal to the plain version's outside page 0; (b)
@@ -104,7 +110,15 @@ the result line:
                victim still gives all its tokens, the pages balance); a
                pending request's 1 ms deadline sheds it; a cancel in the
                middle of a chunked prompt frees its pages.
-10. ``gemma-7b``, ``phi-3-mini``  each at full width and 2 layers (random
+10. ``spec``    speculative decoding on the same weights and bf16 pages
+               (``phase_spec``): plain, a self draft at k = 3 (more than 2
+               tokens a row per spec step; the verify's position-0 logits
+               within the forward phase's bf16 bound of the replayed plain
+               step's), a random ``llama-3.2-draft`` at k = 3 and 1 beside a
+               temperature, a top-k and a schema row (no spec step while
+               the schema row decodes, the draft's replay after it); every
+               replay counts the launches its graph must make.
+11. ``gemma-7b``, ``phi-3-mini``  each at full width and 2 layers (random
                bf16 weights): five requests through the engine (phi-3-mini
                with a prompt past its 2047-token window), every decode
                launch through the split-context kernel, then the
@@ -161,8 +175,14 @@ HEAD_DIM_PRESETS = ("phi-3-mini", "gemma-2b", "gemma-7b", "llama-tiny-tp8")
 MIXED_DECODE_CTX = tuple(500 + 100 * i for i in range(16))  # 500 ... 2000
 MIXED_CHUNKS = ((1024, 240), (0, 256))  # (cached tokens, chunk tokens)
 MIXED_ROWS = 512
+# the speculative verify at Llama-3-8B's heads: one row of W = k + 1 tokens
+# a sequence over its own context (1900 ... 2048 - W), at the engine's
+# decode buckets of 4 and 16 rows; and the draft's decode
+SPEC_VERIFY = ((1, 4), (1, 16), (3, 4), (3, 16))  # (k, rows)
+SPEC_DRAFT = "llama-3.2-draft"
 # shapes at which the bound must reject the two injected faults
-FAULT_SHAPES = ("llama3_decode_ctx2k", "gemma-2b_decode_ctx2k", "llama3_mixed_w1")
+FAULT_SHAPES = ("llama3_decode_ctx2k", "gemma-2b_decode_ctx2k", "llama3_mixed_w1",
+                "llama3_verify_k3_b4_ctx2k")
 
 
 def log(*a):
@@ -255,6 +275,27 @@ def ragged_shapes():
     out["llama3_decode_ctx1000+window300"] = dict(l3, rows=8, ctx=1000, window=300)
     out.update(mixed_shapes())
     out.update(head_dim_shapes())
+    out.update(spec_shapes())
+    return out
+
+
+def verify_ctx(rows: int, W: int) -> tuple[int, ...]:
+    """Contexts of a verify launch's rows: 1900 up to 2048 - W, spread."""
+    return tuple(1900 + (2048 - W - 1900) * r // (rows - 1) for r in range(rows))
+
+
+def spec_shapes():
+    """The speculative step's launches: the verify (``SPEC_VERIFY``: W = 2
+    rides the split-context path, W = 4 the tensor-core tile) and the
+    draft's W = 1 decode of 16 rows at contexts 2040-2046 (Kh 2, rep 4, hd
+    64: the 4-row split instance)."""
+    l3 = dict(page_size=16, maxp=128, kh=8, rep=4, hd=128)
+    out = {f"llama3_verify_k{k}_b{rows}_ctx2k": dict(
+        l3, W=k + 1, chunk_list=tuple((c, k + 1) for c in verify_ctx(rows, k + 1)))
+        for k, rows in SPEC_VERIFY}
+    (kh, rep, hd), _ = _preset_heads(SPEC_DRAFT)
+    out[f"{SPEC_DRAFT}_decode_ctx2k"] = dict(page_size=16, maxp=128, kh=kh, rep=rep, hd=hd,
+                                             rows=16, ctx=2040)
     return out
 
 
@@ -316,7 +357,8 @@ def quant_shapes():
     decode_new_hd = tuple(f"{p}_decode_ctx2k" for p in HEAD_DIM_PRESETS)
     for name in ("llama3_decode_ctx512", "llama3_decode_ctx2k", "llama3_chunk512_over1k",
                  "llama3_served_decode", "llama3_decode_ctx300",
-                 "llama3_decode_ctx1000+window300", "llama3_mixed_w1") + decode_new_hd:
+                 "llama3_decode_ctx1000+window300", "llama3_mixed_w1") + decode_new_hd + tuple(
+                     spec_shapes()):
         for mode in QUANT_MODES:
             out[f"{name}_{mode}"] = dict(ragged_shapes()[name], kv_dtype=mode)
     return out
@@ -1127,7 +1169,7 @@ def phase_graph(results, state, seed: int):
     with torch.no_grad():
         logits_e = eng._decode_forward(st.tokens, st.seq_lens, st.page_tables)
         before = rpa.launch_counts()
-        assert eng._graphs.run(st, "greedy", False), "the greedy step did not replay"
+        assert eng._graphs.run(st, "greedy", "free"), "the greedy step did not replay"
         after = rpa.launch_counts()
         toks_g = st.out_tokens[0].clone()
         restore()
@@ -1141,18 +1183,18 @@ def phase_graph(results, state, seed: int):
         tol = results["forward"]["tol_bf16"]
         per_replay = after["ragged_decode_split"] - before["ragged_decode_split"]
         # device time of the replayed step against the eager step
-        greedy_graph = eng._graphs.graphs[(st.width, "greedy", False)][0]
+        greedy_graph = eng._graphs.graphs[(st.width, "greedy", "free")][0]
         step_ms = graph_replay_ms(greedy_graph, restore)
         eager_ms = cuda_ms(lambda: (restore(), eng._decode_step(st, "greedy", False)), n=10)
         breakdown = profile_replays(greedy_graph, restore)
         # fresh draws: two replays of a sampling step from one state
         st.temps.fill_(1.0)
         restore()
-        eng._graphs.run(st, "sampled", False)  # first use: eager step, capture
+        eng._graphs.run(st, "sampled", "free")  # first use: eager step, capture
         draws = []
         for _ in range(2):
             restore()
-            assert eng._graphs.run(st, "sampled", False)
+            assert eng._graphs.run(st, "sampled", "free")
             draws.append(st.out_tokens[0].clone())
         torch.cuda.synchronize()
     fresh = bool((draws[0] != draws[1])[active].any())
@@ -1540,6 +1582,300 @@ def phase_overload(results, state, seed: int):
     del eng
 
 
+# the spec phase: 4 concurrent greedy prompts, SPEC_MAX_NEW new tokens each;
+# the independent-draft runs add a temperature, a top-k and a schema row
+SPEC_PROMPTS = (200, 600, 1000, 1500)
+SPEC_MAX_NEW = 128
+SPEC_PAGES = 1024  # 2 GiB of bf16 KV a pool: the target's and a self draft's fit
+
+
+def watch_spec(eng) -> dict:
+    """Wrap ``eng``'s decode-graph runs and spec eligibility: per dispatch
+    its width, sampler variant, mode, whether it replayed a graph and the
+    launches it counted; the rows of each speculative dispatch; the tokens
+    each ``_resync_draft`` call replays. Returns the live records."""
+    from agentfield_tpu_torch.ops.cuda import ragged_paged_attention as rpa
+
+    rec = {"runs": [], "spec_rows": [], "resync_gaps": []}
+    run, eligible, resync = eng._graphs.run, eng._spec_eligible, eng._resync_draft
+
+    def counted_run(st, variant, mode):
+        before = rpa.launch_counts()
+        replayed = run(st, variant, mode)
+        rec["runs"].append({"width": st.width, "variant": variant, "mode": mode,
+                            "replayed": replayed,
+                            "launches": {k: n - before[k] for k, n in rpa.launch_counts().items()}})
+        return replayed
+
+    def counted_eligible(active_idx):
+        ok = eligible(active_idx)
+        if ok:
+            rec["spec_rows"].append(len(active_idx))
+        return ok
+
+    def counted_resync(active_idx):
+        rec["resync_gaps"].append(sum(eng.slots[i].length - eng.slots[i].draft_len
+                                      for i in active_idx))
+        resync(active_idx)
+
+    eng._graphs.run, eng._spec_eligible, eng._resync_draft = (
+        counted_run, counted_eligible, counted_resync)
+    return rec
+
+
+def expected_replay_launches(eng, mode: str) -> dict:
+    """The launches one replay of a decode-step graph must count: L target
+    layers of one ragged launch (W = k + 1 for a spec step, on the path the
+    kernel's ``afp_attention_path`` gives it), and for a spec step (k + 1)
+    draft steps of L_draft W = 1 launches each (the split-context path)."""
+    import torch
+
+    from agentfield_tpu_torch.ops.cuda import ragged_paged_attention as rpa
+
+    dcode = 1 if eng.params["embed"].dtype == torch.bfloat16 else 0
+    out = {k: 0 for k in rpa.launch_counts()}
+    k = int(mode[4:]) if mode.startswith("spec") else 0
+    plan = [(eng.cfg, k + 1, eng.cfg.num_layers)]
+    if k:
+        plan.append((eng.draft_cfg, 1, (k + 1) * eng.draft_cfg.num_layers))
+    for cfg, W, n in plan:
+        path = rpa._entry(cfg.head_dim)[2](W, cfg.num_heads, cfg.num_kv_heads, dcode)
+        out["ragged_paged_attention"] += n
+        for key in rpa._PATH_KEYS[path]:
+            out[key] += n
+    return out
+
+
+def phase_spec(results, state, seed: int, max_new: int = SPEC_MAX_NEW,
+               prompt_lengths=SPEC_PROMPTS, draft_preset: str = SPEC_DRAFT,
+               device: str = "cuda"):
+    """Speculative decoding on the serve's full-width Llama-3-8B weights,
+    bf16 pages, decode buckets (4, 16), over one script: ``SPEC_PROMPTS``
+    greedy prompts at once, ``max_new`` tokens each. Run (a): plain
+    (``spec_k=0``). Run (b): ``spec_k=3`` with the target's own tensors as
+    the draft (its own pool): more than 2 tokens a row per spec step, and
+    the verify's position-0 logits within the forward phase's bf16 bound of
+    the plain replayed step's on the same state. Runs (c): a random
+    ``llama-3.2-draft`` at ``spec_k`` 3 and 1, the script plus a
+    temperature row, a top-k row and a ``response_schema`` row: no spec
+    step while the schema row is active, the draft replays the missed tokens
+    (``_resync_draft``) and spec steps resume after it. Every request
+    answered and every page returned; every replay counts the launches
+    ``expected_replay_launches`` gives. Prints per run decode tok/s, TTFT
+    p50, spec steps, tokens per spec step (and per row), the spec and plain
+    steps' device ms per width, graphs captured, peak memory and the
+    break-even tokens per row and step (``t_spec / t_plain``). ``device``
+    "cpu" rehearses the phase on a small model (no graphs, no device
+    times)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from agentfield_tpu_torch.ops.cuda import ragged_paged_attention as rpa
+    from agentfield_tpu_torch.serving.engine import EngineConfig, InferenceEngine, Request
+    from agentfield_tpu_torch.serving.grammar import compile_json_schema, match_bytes
+    from agentfield_tpu_torch.serving.model_node import GRAMMAR_SLOTS, load_draft_model
+    from agentfield_tpu_torch.serving.sampler import SamplingParams
+    from agentfield_tpu_torch.serving.tokenizer import ByteTokenizer
+
+    params, cfg = state["params"], state["cfg"]
+    V = cfg.vocab_size
+    tok = ByteTokenizer(V)
+    grammar = compile_json_schema(SERVE_SCHEMA, tok.token_bytes(V))
+    rng = np.random.default_rng(seed + 17)
+    prompts = [rng.integers(1, V, n).tolist() for n in prompt_lengths]
+    extras = [rng.integers(1, V, n).tolist() for n in (300, 400, 250)]
+    base = EngineConfig(max_batch=32, page_size=16, num_pages=SPEC_PAGES, max_pages_per_seq=128,
+                        decode_buckets=(4, 16), grammar_slots=GRAMMAR_SLOTS)
+    on_card = torch.device(device).type == "cuda"
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    rand_draft = load_draft_model(draft_preset, V, seed=seed + 4, device=device,
+                                  dtype=params["embed"].dtype)
+    runs = [("a_plain", 0, None, False), ("b_self_k3", 3, (params, cfg), False),
+            ("c_draft_k3", 3, rand_draft, True), ("c_draft_k1", 1, rand_draft, True)]
+    out = {"prompt_lengths": list(prompt_lengths), "max_new": max_new, "draft": draft_preset}
+    launches = {k: 0 for k in rpa.launch_counts()}
+    greedy_ref = None
+    for name, k, draft, with_extras in runs:
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        eng = InferenceEngine(params, cfg, dataclasses.replace(base, spec_k=k), seed=seed,
+                              device=device, draft=draft)
+        rec = watch_spec(eng)
+        reqs = [Request(f"g{i}", p, SamplingParams(max_new_tokens=max_new))
+                for i, p in enumerate(prompts)]
+        if with_extras:
+            reqs += [
+                Request("temp", extras[0], SamplingParams(max_new_tokens=max_new, temperature=0.8)),
+                Request("topk", extras[1], SamplingParams(max_new_tokens=max_new, temperature=0.8,
+                                                          top_k=40)),
+                Request("schema", extras[2], SamplingParams(
+                    max_new_tokens=64, stop_token_ids=(tok.eos_token_id,)), grammar=grammar),
+            ]
+        answers: dict[str, list[int]] = {}
+        finals: dict[str, str] = {}
+        rpa.reset_launches()  # count this run's main path only
+        t0 = time.perf_counter()
+        for r in reqs:
+            eng.submit(r)
+        while eng.has_work():
+            for ev in eng.step():
+                if ev.token >= 0 and ev.finish_reason != "stop":
+                    answers.setdefault(ev.request_id, []).append(ev.token)
+                if ev.finished:
+                    finals[ev.request_id] = ev.finish_reason
+        if on_card:
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        run_launches = rpa.launch_counts()
+        for key, n in run_launches.items():
+            launches[key] += n
+        st = eng.stats
+        for r in reqs:
+            if r.id == "schema":
+                body = bytes(answers[r.id])
+                assert finals[r.id] == "stop" and match_bytes(grammar.trans, grammar.accept, body), body
+            else:
+                assert len(answers[r.id]) == max_new and finals[r.id] == "length", (name, r.id)
+        assert all(0 <= t < V for a in answers.values() for t in a)
+        assert eng.allocator.free_pages == base.num_pages - 1, f"{name}: pages did not balance"
+        # the launch identity: every replay counted its graph's launches
+        bad = []
+        for r in rec["runs"]:
+            if r["replayed"]:
+                want = expected_replay_launches(eng, r["mode"])
+                if {key: n for key, n in r["launches"].items() if n} != {
+                        key: n for key, n in want.items() if n}:
+                    bad.append((r["width"], r["mode"], r["launches"], want))
+        assert not bad, f"{name}: replays counted other launches than expected: {bad[:2]}"
+        per_replay = {m: {key: n for key, n in expected_replay_launches(eng, m).items() if n}
+                      for m in sorted({r["mode"] for r in rec["runs"] if r["replayed"]})}
+        spec_runs = [r for r in rec["runs"] if r["mode"].startswith("spec")]
+        plain_runs = [r for r in rec["runs"] if not r["mode"].startswith("spec")]
+        assert len(spec_runs) == st["spec_steps"] and len(rec["runs"]) == st["decode_steps"]
+
+        def by_width(runs_, times):  # replayed dispatches align with the timed steps
+            widths = [r["width"] for r in runs_ if r["replayed"]]
+            assert len(widths) == len(times), (len(widths), len(times))
+            per = {}
+            for w, ms in zip(widths, times):
+                per.setdefault(w, []).append(ms)
+            return {w: statistics.fmean(v) for w, v in sorted(per.items())}
+
+        spec_ms = by_width(spec_runs, list(eng.spec_step_ms))
+        plain_ms = by_width(plain_runs, list(eng.decode_step_ms))
+        row_steps = sum(rec["spec_rows"])
+        row = {
+            "spec_k": k, "requests": len(reqs), "wall_s": wall,
+            "ttft_ms_p50": statistics.median(eng.ttft_ms),
+            "decode_tokens": st["decode_tokens"], "decode_steps": st["decode_steps"],
+            "decode_tok_per_s": st["decode_tokens"] / eng.timing["decode_s"],
+            "spec_steps": st["spec_steps"], "spec_emitted": st["spec_emitted"],
+            "tokens_per_spec_step": st["spec_emitted"] / st["spec_steps"] if st["spec_steps"] else None,
+            "tokens_per_row_spec_step": st["spec_emitted"] / row_steps if row_steps else None,
+            "spec_step_device_ms_by_width": spec_ms, "plain_step_device_ms_by_width": plain_ms,
+            "graphs": eng.graph_stats(),
+            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30 if on_card else None,
+            "resync_tokens": sum(rec["resync_gaps"]), "launches": run_launches,
+            "launches_per_replay": per_replay,
+            "verify_launches_by_width": {
+                w: sum(1 for r in spec_runs if r["width"] == w) * cfg.num_layers
+                for w in sorted({r["width"] for r in spec_runs})},
+        }
+        if greedy_ref is None:
+            greedy_ref = {r.id: answers[r.id] for r in reqs}
+        else:
+            same = [a == b for rid in greedy_ref for a, b in zip(answers[rid], greedy_ref[rid])]
+            row["greedy_tokens_equal_to_plain"] = sum(same) / len(same)
+        if k:
+            assert st["spec_steps"] > 0, f"{name}: no spec step"
+        if on_card:  # every step after a key's first use replays its graph
+            assert len(rec["runs"]) == row["graphs"]["graphs_captured"] + sum(
+                row["graphs"]["replays"].values()), row["graphs"]
+        if name == "b_self_k3":
+            assert row["tokens_per_row_spec_step"] > 2.0, row
+            row["verify_logits_check"] = _verify_vs_plain_logits(
+                eng, rng, results["forward"]["tol_bf16"])
+        if with_extras:
+            # the schema row held speculation off; after it the draft caught up
+            modes = [r["mode"] for r in rec["runs"]]
+            first_spec = next(i for i, m in enumerate(modes) if m.startswith("spec"))
+            assert "grammar" in modes[:first_spec], modes[:first_spec + 1]
+            assert row["resync_tokens"] > 0, "_resync_draft replayed nothing"
+        # against this run's plain steps at the width, else run (a)'s
+        ref = {**out.get("a_plain", {}).get("plain_step_device_ms_by_width", {}), **plain_ms}
+        row["break_even_tokens_per_row_step"] = {w: spec_ms[w] / ref[w] for w in spec_ms if w in ref}
+        out[name] = row
+        log(f"[spec {name}] {len(reqs)} requests, k={k}: decode {row['decode_tok_per_s']:.1f} tok/s, "
+            f"TTFT p50 {row['ttft_ms_p50']:.1f} ms; spec steps {row['spec_steps']} emitting "
+            f"{row['tokens_per_spec_step']} tokens a step ({row['tokens_per_row_spec_step']} a row); "
+            f"device ms a step by width: spec {spec_ms}, plain {plain_ms}; break-even tokens a row "
+            f"and step {row['break_even_tokens_per_row_step']}; greedy tokens equal to run (a): "
+            f"{row.get('greedy_tokens_equal_to_plain')}; draft replayed {row['resync_tokens']} tokens; "
+            f"graphs {row['graphs']['graphs_captured']} captured, replays {row['graphs']['replays']}; "
+            f"launch identity held on {sum(r['replayed'] for r in rec['runs'])} replays "
+            f"(per replay: {per_replay}); peak "
+            f"{row['peak_mem_gib']} GiB; wall {wall:.2f} s")
+        del eng
+    out["launches"] = launches
+    results["spec"] = out
+
+
+def _verify_vs_plain_logits(eng, rng, tol: float) -> dict:
+    """On a spec engine (Llama-3-8B, bf16): four live slots; their logits
+    from the plain decode forward replayed from a CUDA graph, and the
+    position-0 logits of the verify's (k + 1)-wide forward on the same
+    state (random proposals behind position 0, which it cannot see). Both
+    write the pending-token slots, which the next real step rewrites; the
+    verify's later positions land past the cached length, where nothing
+    reads before a rewrite. Held within ``tol``; the engine then drains and
+    its pages balance."""
+    import numpy as np
+    import torch
+
+    from agentfield_tpu_torch.serving.engine import Request
+    from agentfield_tpu_torch.serving.sampler import SamplingParams
+    from agentfield_tpu_torch.serving.spec_decode import rows_forward
+
+    V, k = eng.cfg.vocab_size, eng.ecfg.spec_k
+    for i in range(4):
+        eng.submit(Request(f"vl{i}", rng.integers(1, V, 150 + 200 * i).tolist(),
+                           SamplingParams(max_new_tokens=16)))
+    while eng.num_active < 4 or eng.pending:
+        eng.step()
+    eng._harvest_inflight()
+    active = [i for i, s in enumerate(eng.slots) if s is not None]
+    dev = eng.device
+    toks = torch.from_numpy(eng.last_tokens[active].astype(np.int64)).to(dev)
+    lens = torch.from_numpy(eng.seq_lens[active].copy()).to(dev)
+    tables = torch.from_numpy(eng.page_tables[active].copy()).to(dev)
+    props = torch.from_numpy(rng.integers(1, V, (len(active), k))).to(dev)
+    with torch.no_grad():
+        logits_p = eng._decode_forward(toks, lens, tables)  # eager: the CPU's answer
+        if toks.is_cuda:  # the card's: the forward replayed from a CUDA graph
+            torch.cuda.synchronize()
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+                logits_p = eng._decode_forward(toks, lens, tables)
+            graph.replay()
+        logits_v = rows_forward(eng._target, torch.cat([toks[:, None], props], dim=1), lens,
+                                torch.full_like(lens, k + 1), tables)[:, 0]
+    err = float((logits_v.float() - logits_p.float()).abs().max())
+    agree = float((logits_v.argmax(-1) == logits_p.argmax(-1)).float().mean())
+    while eng.has_work():
+        eng.step()
+    assert eng.allocator.free_pages == eng.ecfg.num_pages - 1
+    log(f"[spec b_self_k3] verify position-0 logits (W={k + 1}) vs the replayed plain step: "
+        f"max|d| {err:.4e} (tol {tol:.4e}), argmax agreement {agree:.3f}")
+    assert err <= tol, "the verify's position-0 logits disagree with the plain decode step"
+    return {"max_abs_err": err, "tol_bf16": tol, "argmax_agreement": agree}
+
+
 def phase_ab(results, other_root: str):
     """A/B of the attention source at the mixed W = 1 shapes (bf16, f32):
     the source under ``other_root`` (a checkout of another commit) built for
@@ -1678,7 +2014,8 @@ def kernels_line(results) -> dict:
         held = [r for r in shapes.values() if r["kernel"] == name and r["dtype"] == "bfloat16"]
         entry = {
             "name": name, "route": "cuda", "source": RAGGED_SRC, "replaces": replaces,
-            "launches": results[serve]["launches"][name],
+            # the serve's launches and the spec phase's (bf16 pages)
+            "launches": results[serve]["launches"][name] + results["spec"]["launches"][name],
             "max_abs_err": max(r["max_abs_err"] for r in held),
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
@@ -1697,6 +2034,17 @@ def kernels_line(results) -> dict:
                                       "sdpa_gathered_ms", "max_abs_err")}
             entry["mixed_tick"]["launches"] = results["burst"]["mixed"][
                 "mixed_tick_path_launches"]["ragged_paged_attention"]
+            # the spec step's launches: each verify shape's times, and the
+            # verify launches the spec runs made at its width and k
+            entry["spec"] = {}
+            for shape in spec_shapes():
+                r = shapes[f"{shape}/bfloat16"]
+                entry["spec"][shape] = {k: r[k] for k in ("ms", "call_ms", "plain_ms", "bound_ms",
+                                                         "bound_by", "sdpa_gathered_ms",
+                                                         "max_abs_err")}
+            for run in ("b_self_k3", "c_draft_k3", "c_draft_k1"):
+                row = results["spec"][run]
+                entry["spec"][f"verify_launches_{run}"] = row["verify_launches_by_width"]
         out.append(entry)
     return {"kernels": out}
 
@@ -1743,6 +2091,7 @@ def main() -> int:
         phase_graph(results, state, args.seed)
         phase_burst(results, state, args.seed)
         phase_overload(results, state, args.seed)
+        phase_spec(results, state, args.seed)
         state.clear()  # the 8B weights go before the reduced-depth models
         for preset in REDUCED_DEPTH_PRESETS:
             phase_reduced_depth(results, preset, args.seed)

@@ -167,7 +167,7 @@ def test_engine_rejects_fields_it_does_not_implement():
     with pytest.raises(TypeError):
         engine.EngineConfig(host_cache_bytes=1 << 20)
     with pytest.raises(TypeError):
-        engine.EngineConfig(spec_k=2)
+        engine.EngineConfig(spec_prefill=False)
     fields = {f.name for f in dataclasses.fields(engine.EngineConfig)}
     assert fields <= {f.name for f in dataclasses.fields(jax_engine.EngineConfig)}
 

@@ -212,13 +212,22 @@ def test_mixed_pauses_while_grammar_active(weights):
 
 
 def test_config_checks(weights):
-    """``mixed_step`` defaults to off; "auto" resolves to on (no
-    speculative decoding in the port); a bad value and a budget under
-    max_batch + 16 are refused, as in the JAX engine."""
+    """``mixed_step`` defaults to off; "auto" resolves to on without
+    speculative decoding and to off with ``spec_k > 0``, where True is
+    refused; a bad value and a budget under max_batch + 16 are refused, as
+    in the JAX engine."""
     params, cfg = weights[2], get_config("llama-tiny")
     assert engine.EngineConfig().mixed_step is False
     auto = engine.InferenceEngine(params, cfg, engine.EngineConfig(**dict(ECFG, mixed_step="auto")))
     assert auto.ecfg.mixed_step is True
+    spec = dict(ECFG, spec_k=2, mixed_step="auto")
+    auto_spec = engine.InferenceEngine(params, cfg, engine.EngineConfig(**spec), draft=(params, cfg))
+    jauto = jax_engine.InferenceEngine(weights[1], weights[0], jax_engine.EngineConfig(**spec),
+                                       draft=(weights[1], weights[0]))
+    assert auto_spec.ecfg.mixed_step is False is jauto.ecfg.mixed_step
+    with pytest.raises(ValueError, match="incompatible with spec_k"):
+        engine.InferenceEngine(params, cfg, engine.EngineConfig(**dict(spec, mixed_step=True)),
+                               draft=(params, cfg))
     with pytest.raises(ValueError, match="mixed_step"):
         engine.InferenceEngine(params, cfg, engine.EngineConfig(**dict(ECFG, mixed_step="always")))
     with pytest.raises(ValueError, match="mixed_step_budget"):

@@ -37,6 +37,14 @@ MIXES = {name: (SHAPES[name]["fast"], None) for name in SHAPES}
 MIXES["mixed_ragged+window"] = (SHAPES["mixed_ragged"]["fast"], 50)
 # padding rows (budget past the last entry) and partly filled rows
 MIXES["padding_rows"] = (None, None)
+# the speculative verify at GQA 4: R rows of W = k + 1 tokens, each its own
+# sequence over its own cached context (k = 1 and 3); and the draft's decode
+# (llama-3.2-draft's heads: Kh 2, rep 4, hd 64)
+for _k in (1, 3):
+    MIXES[f"verify_k{_k}"] = (dict(page_size=16, maxp=16, kh=2, rep=4, hd=32, W=_k + 1,
+                                   chunk_list=tuple((c, _k + 1) for c in (0, 37, 100, 160, 252 - _k))),
+                              None)
+MIXES["draft_decode_hd64"] = (dict(page_size=16, maxp=16, kh=2, rep=4, hd=64, rows=6, ctx=200), None)
 
 
 def _padding_case(seed=0):
