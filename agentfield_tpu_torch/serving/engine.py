@@ -63,9 +63,29 @@ copies both, and rows that fell back to plain decode (a grammar row in the
 batch) replay their missed tokens through the draft before the next spec
 step (``_resync_draft``).
 
+With ``host_cache_bytes`` (the JAX engine's host tier) refcount-0 cached
+pages demote to host RAM when an idle session expires (``gc_sessions``) and
+under allocation pressure: the page is cloned on the engine's stream
+(``_capture_page_kv``: the pool is written in place, so a view read later
+could see a reused page), the offload worker copies the clone into pinned
+host slots on a stream of its own (``_fetch_page_kv``), and a later prefix
+lookup restores the pages into the same pool storage, one ``index_copy_`` a
+leaf on the engine's stream (``_upload_page_kv``), so the decode graphs that
+hold the pool's addresses read the restored pages. int8/fp8 pages and
+their scales round-trip as raw bytes.
+
+``Request.n_branches`` forks a just-prefilled request into siblings (the
+JAX engine's branch decoding): the prompt's full pages are shared through
+``incref``, the partial tail page is copied, and each sibling samples its
+first token from the same logits and decodes as an ordinary batch-mate
+(``serving.branching`` ids). ``request_fork`` clones a live slot the same
+way inside ``step()`` (beam re-forks); a fork that cannot land ends with a
+``fork_failed`` terminal. The ``engine.page_pressure`` and
+``engine.preempt_storm`` fault points are consulted as in the JAX engine.
+
 Not ported yet (each a later slice): speculative prefill (the keep-warm
-pins), the host tier, forks, handoff, MoE, the JAX engine's latency
-histograms and flight recorder, the ``engine.preempt_storm`` fault point.
+pins), the cluster tier and handoff, MoE, the JAX engine's latency
+histograms and flight recorder.
 """
 
 from __future__ import annotations
@@ -75,11 +95,13 @@ import dataclasses
 import math
 import threading
 import time
+import weakref
 from typing import Any
 
 import numpy as np
 import torch
 
+from agentfield_tpu_torch.branching import branch_rid
 from agentfield_tpu_torch.models import llama
 from agentfield_tpu_torch.models.configs import LlamaConfig
 from agentfield_tpu_torch.ops.kernel_autotune import lookup_blocks
@@ -92,6 +114,7 @@ from agentfield_tpu_torch.ops.kv_quant import (
 from agentfield_tpu_torch.ops.paged_attention import ragged_paged_attention
 from agentfield_tpu_torch.prefix_hash import page_chain_hashes
 from agentfield_tpu_torch.serving.decode_step import MAX_STOP_IDS, DecodeGraphs, DecodeState
+from agentfield_tpu_torch.serving.faults import fire as _engine_fault
 from agentfield_tpu_torch.serving.grammar import Grammar
 from agentfield_tpu_torch.serving.kv_cache import (
     PagedKVCache,
@@ -143,6 +166,11 @@ class EngineConfig:
     # disables; needs InferenceEngine(draft=...)). A dispatch speculates when
     # no grammar row is active and some row can accept (greedy or plain
     # temperature); it emits 1..spec_k+1 tokens a row
+    host_cache_bytes: int = 0  # byte budget of the host-RAM KV tier under
+    # the shared-prefix pool: refcount-0 cached pages demote to it (idle
+    # session expiry, allocation pressure) and restore at the next prefix
+    # hit instead of a re-prefill. 0 disables the tier (no worker thread);
+    # needs shared_prefix_cache
 
     @property
     def max_context(self) -> int:
@@ -185,6 +213,10 @@ class Request:
     # request re-queues with them folded into its prompt): event indexes
     # continue from here. 0 for every caller-submitted request
     resumed_from: int = 0
+    # branch decoding: > 1 forks the request into this many siblings once
+    # its prompt is prefilled (ids ``branching.branch_rid(id, j)``; branch 0
+    # keeps this id). Exclusive with grammar; siblings drop session_id
+    n_branches: int = 1
 
 
 @dataclasses.dataclass
@@ -194,7 +226,8 @@ class TokenEvent:
     index: int  # 0-based index among generated tokens
     finished: bool
     finish_reason: str | None = None  # "stop" | "length" | "deadline_exceeded"
-    # (a deadline terminal carries token -1 and index -1)
+    # | "fork_failed" (a deadline or fork_failed terminal carries token -1
+    # and index -1)
     logprob: float | None = None  # log P(token) under the raw-logit distribution
 
 
@@ -252,6 +285,74 @@ def _binding_window(cfg: LlamaConfig, ecfg: EngineConfig) -> int | None:
     if w is None or w >= ecfg.max_context:
         return None
     return w
+
+
+class _HostPage:
+    """One demoted page's host copy: a slot of a ``_HostPageStore`` seen as
+    one tensor per pool leaf (values, and scales when quantized; fp8 as raw
+    bytes). ``done[0]`` is the event of the last device copy that read the
+    slot: the slot is reused only after it passed."""
+
+    __slots__ = ("leaves", "done", "__weakref__")
+
+    def __init__(self, leaves: list[torch.Tensor]):
+        self.leaves = leaves
+        self.done: list[Any] = [None]
+
+
+class _HostPageStore:
+    """Host memory of the KV tier: page-sized slots carved from slabs of
+    ``SLAB_PAGES`` pages, pinned when the pool is on the card (a pageable
+    source makes a device copy synchronous, and one pinned allocation a page
+    would cost more than the copy). A slot returns to the free list when
+    the pool drops its ``_HostPage``. Thread-safe: the offload worker takes
+    slots, any thread may drop them."""
+
+    SLAB_PAGES = 64
+    _ALIGN = 256
+
+    def __init__(self, leaves: list[torch.Tensor], pin: bool):
+        # per leaf: (dtype, one page's shape, byte offset in the slot, bytes)
+        self._layout = []
+        off = 0
+        for t in leaves:
+            shape = t.shape[:1] + t.shape[2:]
+            nbytes = t.element_size() * math.prod(shape)
+            self._layout.append((t.dtype, shape, off, nbytes))
+            off += -(-nbytes // self._ALIGN) * self._ALIGN
+        self.slot_bytes = off
+        self._pin = pin
+        self._lock = threading.Lock()
+        self._slabs: list[torch.Tensor] = []
+        self._free: list[tuple[int, int, Any]] = []  # (slab, slot, read event)
+        self.alloc_s = 0.0  # host seconds spent allocating slabs
+
+    @property
+    def host_bytes(self) -> int:
+        """Bytes of every slab allocated so far (pinned on the card)."""
+        return len(self._slabs) * self.SLAB_PAGES * self.slot_bytes
+
+    def take(self) -> _HostPage:
+        with self._lock:
+            if not self._free:
+                t0 = time.perf_counter()
+                self._slabs.append(torch.empty(self.SLAB_PAGES * self.slot_bytes,
+                                               dtype=torch.uint8, pin_memory=self._pin))
+                self.alloc_s += time.perf_counter() - t0
+                n = len(self._slabs) - 1
+                self._free = [(n, j, None) for j in reversed(range(self.SLAB_PAGES))]
+            slab, slot, ev = self._free.pop()
+            base = self._slabs[slab][slot * self.slot_bytes : (slot + 1) * self.slot_bytes]
+        if ev is not None:
+            ev.synchronize()  # the last restore that read this slot is done
+        page = _HostPage([base[off : off + n].view(dtype).view(shape)
+                          for dtype, shape, off, n in self._layout])
+        weakref.finalize(page, self._give_back, slab, slot, page.done)
+        return page
+
+    def _give_back(self, slab: int, slot: int, done: list) -> None:
+        with self._lock:
+            self._free.append((slab, slot, done[0]))
 
 
 class InferenceEngine:
@@ -402,10 +503,23 @@ class InferenceEngine:
             "spec_steps": 0,  # speculative dispatches
             "spec_emitted": 0,  # tokens they emitted (rate = emitted /
             # (steps * (spec_k+1)))
+            "page_pressure_injected": 0,  # allocations denied by the
+            # engine.page_pressure fault point
+            "preempt_storm_injected": 0,  # preemptions forced by the
+            # engine.preempt_storm fault point
+            "branch_forks_total": 0,  # sibling slots forked (install-time
+            # forks and live re-forks), each on its parent's shared pages
+            "branch_forks_degraded_total": 0,  # install-time forks that
+            # found no slot or pages and re-queued (they re-admit through
+            # the prefix index)
+            "branch_fork_failed_total": 0,  # live forks refused (source
+            # gone or no capacity): a fork_failed terminal each
+            "branch_pruned_total": 0,  # branches a pruning policy cancelled
         }
-        # Host wall time of prefills (each ends in a device→host read) and of
-        # decode dispatches and harvests (a harvest waits for its step).
-        self.timing = {"prefill_s": 0.0, "decode_s": 0.0}
+        # Host wall time of prefills (each ends in a device→host read), of
+        # decode dispatches and harvests (a harvest waits for its step) and
+        # of the offload worker's page copies.
+        self.timing = {"prefill_s": 0.0, "decode_s": 0.0, "offload_s": 0.0}
         self.ttft_ms: collections.deque[float] = collections.deque(maxlen=4096)
         self._shared_prefix = bool(
             self.ecfg.enable_prefix_cache and self.ecfg.shared_prefix_cache
@@ -454,6 +568,35 @@ class InferenceEngine:
         # request threads: session + allocator mutations are serialized here
         self._session_lock = threading.RLock()
         self._pending_lock = threading.Lock()
+        # the host KV tier: the pool owns its state and offload worker; the
+        # engine gives it the device-copy callbacks and its session lock
+        self._host_store: _HostPageStore | None = None
+        self._copy_stream = None  # the offload worker's device-to-host stream
+        self._restore_timed: collections.deque = collections.deque(maxlen=4096)
+        if self.ecfg.host_cache_bytes > 0:
+            if not self._shared_prefix:
+                raise ValueError(
+                    f"host_cache_bytes={self.ecfg.host_cache_bytes} requires "
+                    "enable_prefix_cache and shared_prefix_cache: the host "
+                    "tier is content-addressed"
+                )
+            on_card = self.device.type == "cuda"
+            self._host_store = _HostPageStore([bits(t) for t in self.cache.leaves()], pin=on_card)
+            if on_card:
+                self._copy_stream = torch.cuda.Stream(device=self.device)
+            self.allocator.enable_host_tier(
+                budget_bytes=self.ecfg.host_cache_bytes,
+                page_bytes=self.kv_page_bytes,  # scales included
+                lock=self._session_lock,
+                capture=self._capture_page_kv,
+                fetch=self._fetch_page_kv,
+                upload=self._upload_page_kv,
+                # a restore serves a live request: it may evict idle sessions
+                restore_alloc=lambda: self._alloc_with_eviction(1),
+            )
+        # live-fork commands (src_id, new_id) from request_fork, applied in
+        # step() on the scheduler thread
+        self._fork_cmds: list[tuple[str, str]] = []  # guarded by: _pending_lock
         self._submit_t: dict[str, float] = {}
         self._head_starved_ticks = 0
         # cancellation requests, drained inside step() on the scheduler thread
@@ -523,6 +666,19 @@ class InferenceEngine:
                 f"request {req.id}: deadline_s={req.deadline_s} must be a "
                 "positive finite number"
             )
+        if type(req.n_branches) is not int or req.n_branches < 1:
+            raise ValueError(
+                f"request {req.id}: n_branches must be an int >= 1 "
+                f"(got {req.n_branches!r})"
+            )
+        if req.n_branches > 1 and req.grammar is not None:
+            # a mid-schema automaton state cannot be forked by re-sampling
+            # the first token (the JAX message names multimodal requests
+            # too, which the port does not serve yet)
+            raise ValueError(
+                f"request {req.id}: n_branches > 1 is incompatible with "
+                "grammar-constrained or multimodal requests"
+            )
         if type(req.priority) is not int:  # a bool is a flag, not a tier
             raise ValueError(
                 f"request {req.id}: priority must be an int "
@@ -581,9 +737,17 @@ class InferenceEngine:
             return 0
         with self._session_lock:
             dead = [sid for sid, s in self._sessions.items() if t - s.last_used > ttl]
+            demote: list[int] = []
             for sid in dead:
-                self.allocator.free(self._sessions.pop(sid).pages)
+                pages = self._sessions.pop(sid).pages
+                self.allocator.free(pages)
                 self.stats["sessions_evicted"] += 1
+                demote += pages
+            if demote:
+                # idle-session expiry is the canonical demote trigger: the
+                # session's published pages just went refcount-0 (a no-op
+                # with the tier off; unindexed tail pages skip)
+                self.allocator.demote_pages(demote)
         return len(dead)
 
     def free_session(self, session_id: str) -> bool:
@@ -600,8 +764,9 @@ class InferenceEngine:
         return sum(s is not None for s in self.slots)
 
     def has_work(self) -> bool:
+        # queued live-fork commands need a step to apply (or to fail)
         return (bool(self.pending) or self.num_active > 0 or self._inflight is not None
-                or bool(self._prefill_jobs))
+                or bool(self._prefill_jobs) or bool(self._fork_cmds))
 
     def _slots_available(self) -> int:
         """Free slots not reserved by prefill jobs (a job must find a slot
@@ -611,6 +776,10 @@ class InferenceEngine:
     def _alloc_with_eviction(self, n: int) -> list[int] | None:  # guarded by: _session_lock
         """Allocate n pages, evicting LRU idle sessions if needed (cached
         prefixes are best-effort; live requests win)."""
+        if _engine_fault("engine.page_pressure") is not None:
+            # behave as a pool with no free page
+            self.stats["page_pressure_injected"] += 1
+            return None
         pages = self.allocator.alloc(n)
         while pages is None and self._sessions:
             lru_sid = min(self._sessions, key=lambda s: self._sessions[s].last_used)
@@ -722,7 +891,9 @@ class InferenceEngine:
             )
             if free_slot is None:
                 break
-            chunked = len(req.prompt) > self.ecfg.prefill_chunk
+            # branched requests take the single path: the fork needs the
+            # request's own last-prompt-token logits
+            chunked = len(req.prompt) > self.ecfg.prefill_chunk or req.n_branches > 1
             with self._session_lock:
                 has_sess = (
                     req.session_id is not None
@@ -946,7 +1117,60 @@ class InferenceEngine:
         self, req: Request, slot_idx: int, pages: list[int], row: np.ndarray, last_logits
     ) -> list[TokenEvent]:
         toks, lps = self._sample([req.sampling], last_logits[None], [self._first_token_mask(req)])
-        return [self._install(req, slot_idx, pages, row, toks[0], lps[0])]
+        if req.n_branches <= 1:
+            return [self._install(req, slot_idx, pages, row, toks[0], lps[0])]
+        # branch 0 samples first, so its draw is the unforked request's; the
+        # siblings fork before it installs, while admission still owns
+        # `pages` (a branch 0 that stops on its first token frees them)
+        siblings = self._fork_at_install(req, slot_idx, pages, last_logits)
+        return [self._install(req, slot_idx, pages, row, toks[0], lps[0])] + siblings
+
+    def _fork_at_install(
+        self, req: Request, parent_slot: int, parent_pages: list[int], last_logits
+    ) -> list[TokenEvent]:
+        """Fork ``req.n_branches - 1`` siblings off a just-prefilled prompt:
+        each shares the prompt's full pages (``incref``), copies the partial
+        tail page it will both read and write, samples its first token from
+        the same logits with its own draw, and installs as a decode
+        batch-mate. A sibling that finds no free slot or pages re-queues at
+        the front of its tier instead (it re-admits through the prefix
+        index branch 0's install publishes)."""
+        ps = self.ecfg.page_size
+        full = len(req.prompt) // ps
+        total = self._pages_needed(req)
+        events: list[TokenEvent] = []
+        with self._pending_lock:
+            parent_exp = self._deadline_at.get(req.id)  # siblings share it
+        for j in range(1, req.n_branches):
+            sub = dataclasses.replace(req, id=branch_rid(req.id, j), n_branches=1,
+                                      session_id=None)
+            slot_idx = next((i for i, sl in enumerate(self.slots)
+                             if sl is None and i != parent_slot), None)
+            pages_j = fresh = None
+            if slot_idx is not None and self._slots_available() > 1:
+                # > 1: never the last slot a mixed prefill job reserved
+                with self._session_lock:
+                    fresh = self._alloc_with_eviction(total - full)
+                    if fresh is not None:
+                        self.allocator.incref(parent_pages[:full])
+                        pages_j = parent_pages[:full] + fresh
+            if pages_j is None:
+                with self._pending_lock:
+                    self._enqueue_locked(sub, senior=True)
+                    if parent_exp is not None:
+                        self._deadline_at[sub.id] = parent_exp
+                self.stats["branch_forks_degraded_total"] += 1
+                continue
+            if len(req.prompt) % ps:
+                self._copy_page(parent_pages[full], fresh[0])
+            toks, lps = self._sample([req.sampling], last_logits[None])
+            if parent_exp is not None:
+                with self._pending_lock:
+                    self._deadline_at[sub.id] = parent_exp
+            row_j = build_page_table(pages_j, self.ecfg.max_pages_per_seq)
+            events.append(self._install(sub, slot_idx, pages_j, row_j, toks[0], lps[0]))
+            self.stats["branch_forks_total"] += 1
+        return events
 
     def _copy_page(self, src: int, dst: int) -> None:
         """Copy-on-write: duplicate page `src` into `dst` across all layers
@@ -957,6 +1181,86 @@ class InferenceEngine:
             for t in cache.leaves() if cache is not None else ():
                 b = bits(t)
                 b[:, dst] = b[:, src]
+
+    # ------------------------------------------------------------------
+    # the host KV tier: the pool's device-copy callbacks
+    # ------------------------------------------------------------------
+
+    def _capture_page_kv(self, page: int):
+        """Demote capture (under the session lock): a clone of the page's
+        leaves on the engine's stream, and an event after it. The pool is
+        written in place (the kernel's fused write, ``_copy_page``,
+        restores), so only a copy made now keeps the page's content at
+        capture. Target pool only, as in the JAX engine: a restored page's
+        draft twin stays stale, which can only lower acceptance."""
+        clones = [bits(t)[:, page].clone(memory_format=torch.contiguous_format)
+                  for t in self.cache.leaves()]
+        ev = None
+        if self.device.type == "cuda":
+            ev = torch.cuda.Event()
+            ev.record()
+        return clones, ev
+
+    def _fetch_page_kv(self, handle) -> _HostPage:
+        """The offload worker's device-to-host copy of one captured page:
+        wait for the capture's event on the worker's own stream, copy into
+        a host slot (pinned on the card), wait for the copy."""
+        t0 = time.perf_counter()
+        clones, ev = handle
+        page = self._host_store.take()
+        if ev is None:
+            for dst, src in zip(page.leaves, clones):
+                dst.copy_(src)
+        else:
+            stream = self._copy_stream
+            stream.wait_event(ev)
+            with torch.cuda.stream(stream):
+                for dst, src in zip(page.leaves, clones):
+                    dst.copy_(src, non_blocking=True)
+            stream.synchronize()
+        self.timing["offload_s"] += time.perf_counter() - t0
+        return page
+
+    def _upload_page_kv(self, payloads: list[_HostPage], pages: list[int]) -> None:
+        """Restore host pages into device ``pages`` (under the session lock),
+        on the engine's stream: per leaf, the host slots into one staging
+        tensor, then one ``index_copy_`` into the pool's own storage (the
+        decode graphs hold its addresses; a new pool tensor would leave
+        them reading stale memory). Each slot is reused only after the
+        copy's event."""
+        on_card = self.device.type == "cuda"
+        timed = None
+        if on_card:
+            timed = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+            timed[0].record()
+        idx = torch.tensor(pages, dtype=torch.int64).to(self.device)
+        for li, t in enumerate(self.cache.leaves()):
+            pool = bits(t)
+            stage = torch.empty((len(pages),) + pool.shape[:1] + pool.shape[2:],
+                                dtype=pool.dtype, device=self.device)
+            for j, p in enumerate(payloads):
+                stage[j].copy_(p.leaves[li], non_blocking=on_card)
+            pool.index_copy_(1, idx, stage.transpose(0, 1))
+        if on_card:
+            timed[1].record()
+            for p in payloads:
+                p.done[0] = timed[1]
+            self._restore_timed.append((len(pages), timed))
+
+    def restore_upload_ms(self) -> list[tuple[int, float]]:
+        """(pages, device ms) of each batched restore upload so far (CUDA
+        events around it; empty off the card)."""
+        return [(n, a.elapsed_time(b)) for n, (a, b) in list(self._restore_timed)]
+
+    def host_tier_bytes(self) -> int:
+        """Host bytes the KV tier has allocated (pinned on the card)."""
+        return self._host_store.host_bytes if self._host_store is not None else 0
+
+    def close(self) -> None:
+        """Stop the offload worker (idempotent; the engine stays steppable,
+        host pages still restore, demotion stops). Takes no engine lock: the
+        worker needs the session lock to finish its last commit."""
+        self.allocator.close()
 
     # ------------------------------------------------------------------
     # constrained decoding: the grammar transition bank
@@ -1100,6 +1404,7 @@ class InferenceEngine:
                 "prefix_cached_pages": a.cached_pages,
                 "prefix_shared_pages": a.shared_pages,
                 "cached_sessions": len(self._sessions),
+                "kv_offload_host_pages": a.host_pages,  # demoted entries held
             }
 
     def _install(
@@ -1572,6 +1877,77 @@ class InferenceEngine:
         safe)."""
         self._cancels.add(request_id)
 
+    def request_fork(self, src_id: str, new_id: str) -> None:
+        """Fork the live slot running ``src_id`` into a new slot ``new_id``
+        at the next step(): full pages shared, the partial tail page copied,
+        decoding on from the same state with its own draws; its event
+        indexes continue from the source's. A source that is gone, or no
+        capacity, gives a ``fork_failed`` terminal for ``new_id``
+        (thread-safe)."""
+        with self._pending_lock:
+            self._fork_cmds.append((src_id, new_id))
+
+    def _apply_forks(self) -> list[TokenEvent]:
+        """Drain the queued live forks (scheduler thread; the caller
+        harvested the step in flight)."""
+        with self._pending_lock:
+            cmds, self._fork_cmds = self._fork_cmds, []
+        events: list[TokenEvent] = []
+        for src, new in cmds:
+            if not self._fork_live(src, new):
+                self.stats["branch_fork_failed_total"] += 1
+                events.append(TokenEvent(request_id=new, token=-1, index=-1, finished=True,
+                                         finish_reason="fork_failed"))
+        return events
+
+    def _fork_live(self, src_id: str, new_id: str) -> bool:
+        """Clone the live slot of ``src_id`` into a free slot as ``new_id``.
+        Its first ``length`` positions hold KV: the full pages among them
+        are shared (decode writes land past them), the partial tail page is
+        copied; the pending last token decodes in both from the next step."""
+        found = next(((i, s) for i, s in enumerate(self.slots)
+                      if s is not None and s.req.id == src_id), None)
+        if found is None:
+            return False
+        _, slot = found
+        if slot.req.grammar is not None:
+            return False  # the install-time exclusion
+        slot_idx = next((i for i, s in enumerate(self.slots) if s is None), None)
+        if slot_idx is None or self._slots_available() <= 0:
+            return False
+        ps = self.ecfg.page_size
+        full = slot.length // ps
+        with self._session_lock:
+            fresh = self._alloc_with_eviction(len(slot.pages) - full)
+            if fresh is None:
+                return False
+            self.allocator.incref(slot.pages[:full])
+        pages = slot.pages[:full] + fresh
+        if slot.length % ps:
+            self._copy_page(slot.pages[full], fresh[0])
+        child_req = dataclasses.replace(slot.req, id=new_id, n_branches=1, session_id=None)
+        child = _Slot(req=child_req, pages=pages, length=slot.length, generated=slot.generated,
+                      last_token=slot.last_token, tokens=list(slot.tokens),
+                      draft_len=slot.draft_len)
+        self.slots[slot_idx] = child
+        self.page_tables[slot_idx] = build_page_table(pages, self.ecfg.max_pages_per_seq)
+        self.seq_lens[slot_idx] = child.length
+        self.last_tokens[slot_idx] = child.last_token
+        s = child_req.sampling
+        self.temps[slot_idx] = s.temperature
+        self.top_ks[slot_idx] = s.top_k
+        self.top_ps[slot_idx] = s.top_p
+        self.grammar_states[slot_idx] = 0
+        self.eos_ids[slot_idx] = -1
+        with self._pending_lock:
+            exp = self._deadline_at.get(src_id)  # the clone inherits the budget
+            if exp is not None:
+                self._deadline_at[new_id] = exp
+        self._dirty = True
+        self._compact_key = None  # membership changed
+        self.stats["branch_forks_total"] += 1
+        return True
+
     def live_request_ids(self) -> list[str]:
         """Ids the engine holds (pending, mid-prefill, active); advisory
         from other threads."""
@@ -1681,24 +2057,30 @@ class InferenceEngine:
         """Would ``cand`` fail to admit this tick? No free slot, or fewer
         allocatable pages than its need beyond its cached prefix. A cached
         prefix on the LRU counts in ``free_pages`` but admission increfs it
-        out of that pool, so the overlap is subtracted from the pages free."""
+        out of that pool, so the overlap is subtracted from the pages free;
+        a host-tier prefix page counts as cached but its restore takes a
+        fresh page, so those are added back to the need."""
         if self._slots_available() <= 0:
             return True
         with self._session_lock:
             cached_pages = self._cached_prefix_len(cand) // self.ecfg.page_size
-            overlap = 0
+            overlap = host = 0
             if (cached_pages and self._shared_prefix
                     and not (cand.session_id and cand.session_id in self._sessions)):
-                overlap = self.allocator.evictable_prefix_pages(
-                    cand.prompt[: len(cand.prompt) - 1], hashes=self._prompt_hashes(cand))
-            return self._pages_needed(cand) - cached_pages > self.allocator.free_pages - overlap
+                prefix, hashes = cand.prompt[: len(cand.prompt) - 1], self._prompt_hashes(cand)
+                overlap = self.allocator.evictable_prefix_pages(prefix, hashes=hashes)
+                host = self.allocator.host_prefix_pages(prefix, hashes=hashes)
+            return (self._pages_needed(cand) - cached_pages + host
+                    > self.allocator.free_pages - overlap)
 
     def _maybe_preempt(self) -> list[TokenEvent]:
         """When the queue head out-prioritizes the lowest-priority active
         slot and has been starved for ``preempt_fence_ticks`` consecutive
         ticks of its own, park that slot's KV and re-queue its request
-        (``_preempt_slot``; no terminal event). Returns the events of the
-        step in flight, harvested before the slot is touched."""
+        (``_preempt_slot``; no terminal event). The ``engine.preempt_storm``
+        fault point forces a preemption regardless of priority or
+        starvation. Returns the events of the step in flight, harvested
+        before the slot is touched."""
         if not self.pending:
             self._preempt_starved_ticks = 0
             self._preempt_last_head = None
@@ -1709,40 +2091,52 @@ class InferenceEngine:
             self._preempt_last_head = None
             return []
         vi, vslot = victim
-        if self.ecfg.preempt_fence_ticks <= 0:
-            return []  # preemption disabled
-        with self._pending_lock:
-            cand = self.pending[0] if self.pending else None
-        if cand is None or cand.priority <= vslot.req.priority:
-            self._preempt_starved_ticks = 0
-            self._preempt_last_head = None
-            return []
-        # starved: the capacity probe says so, or the head is still the one
-        # the previous probe saw (admission ran in between and refused it)
-        head_stuck = cand.id == self._preempt_last_head
-        if self.ecfg.mixed_step and not self._mixed_eligible(cand):
-            # a grammar head admits only on classic ticks: its wait is mode
-            # ineligibility, not capacity starvation
-            head_stuck = False
-        self._preempt_last_head = cand.id
-        if not head_stuck:
-            self._preempt_starved_ticks = 0  # the fence is per head
-            if not self._cand_starved(cand):
+        storm = _engine_fault("engine.preempt_storm") is not None
+        cand = None
+        if storm:
+            self.stats["preempt_storm_injected"] += 1
+        else:
+            if self.ecfg.preempt_fence_ticks <= 0:
+                return []  # preemption disabled
+            with self._pending_lock:
+                cand = self.pending[0] if self.pending else None
+            if cand is None or cand.priority <= vslot.req.priority:
+                self._preempt_starved_ticks = 0
+                self._preempt_last_head = None
                 return []
-        self._preempt_starved_ticks += 1
-        if self._preempt_starved_ticks < self.ecfg.preempt_fence_ticks:
-            return []
+            # starved: the capacity probe says so, or the head is still the
+            # one the previous probe saw (admission ran and refused it)
+            head_stuck = cand.id == self._preempt_last_head
+            if self.ecfg.mixed_step and not self._mixed_eligible(cand):
+                # a grammar head admits only on classic ticks: its wait is
+                # mode ineligibility, not capacity starvation
+                head_stuck = False
+            self._preempt_last_head = cand.id
+            if not head_stuck:
+                self._preempt_starved_ticks = 0  # the fence is per head
+                if not self._cand_starved(cand):
+                    return []
+            self._preempt_starved_ticks += 1
+            if self._preempt_starved_ticks < self.ecfg.preempt_fence_ticks:
+                return []
         events = self._harvest_inflight()
         if self.slots[vi] is not vslot:
-            # the harvest finished the victim: the capacity came on its own
-            self._preempt_starved_ticks = 0
-            return events
-        with self._session_lock:
-            free = self.allocator.free_pages
-        if self._slots_available() > 0 and free >= self._pages_needed(cand):
-            # another slot finished in the harvest: admission is certain
-            self._preempt_starved_ticks = 0
-            return events
+            if not storm:
+                # the harvest finished the victim: the capacity came on its own
+                self._preempt_starved_ticks = 0
+                return events
+            # a fired storm still preempts whatever remains preemptable
+            victim = self._victim_slot()
+            if victim is None:
+                return events
+            vi, vslot = victim
+        if not storm:
+            with self._session_lock:
+                free = self.allocator.free_pages
+            if self._slots_available() > 0 and free >= self._pages_needed(cand):
+                # another slot finished in the harvest: admission is certain
+                self._preempt_starved_ticks = 0
+                return events
         self._preempt_slot(vi, vslot)
         self._preempt_starved_ticks = 0
         return events
@@ -1766,6 +2160,9 @@ class InferenceEngine:
             sampling=dataclasses.replace(
                 req.sampling, max_new_tokens=req.sampling.max_new_tokens - slot.generated),
             resumed_from=req.resumed_from + slot.generated,
+            # forking happens once, at install: a preempted group parent
+            # resumes as the single branch it now is
+            n_branches=1,
         )
         with self._pending_lock:
             self._enqueue_locked(resumed, senior=True)
@@ -1780,9 +2177,10 @@ class InferenceEngine:
 
     def _mixed_eligible(self, req: Request) -> bool:
         """Prefill jobs carry plain prompts: a grammar request's first-token
-        mask is a classic-tick feature (it admits through the classic
+        mask and a branched request's fork (it needs the prompt's last-token
+        logits) are classic-tick features (they admit through the classic
         path)."""
-        return req.grammar is None
+        return req.grammar is None and req.n_branches <= 1
 
     def _mixed_tick_ready(self) -> bool:
         """Run the packed mixed tick? While prefill jobs are mid-prompt, or
@@ -1982,9 +2380,14 @@ class InferenceEngine:
         stream."""
         events: list[TokenEvent] = []
         expired = self._expire_deadlines()  # no-op when no deadline is set
-        if self._cancels and self._inflight is not None:
+        if (self._cancels or self._fork_cmds) and self._inflight is not None:
+            # cancels and forks change slots: read the step in flight first
             events += self._harvest_inflight()
         self._drain_cancels(expected=set(expired))
+        if self._fork_cmds:
+            # after the cancels: a prune-then-refork burst of a branch group
+            # forks onto the pages its pruned branches just freed
+            events += self._apply_forks()
         finished_now = {e.request_id for e in events if e.finished}
         for rid in expired:
             if rid in finished_now:

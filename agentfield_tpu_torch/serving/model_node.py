@@ -18,6 +18,17 @@ the node's engine runs with ``grammar_slots=256`` by default, as the JAX
 node's does, and the stop id falls back to the tokenizer's
 ``eos_token_id``.
 
+``generate(n_branches=N, branch_policy=...)`` is the JAX node's branch
+decoding: the engine forks the request into N branches after one prefill,
+the node's ``branching.BranchGroup`` scores them, prunes and re-forks them
+(``beam``) through the engine's ``request_cancel``/``request_fork``, and the
+caller gets the winner only, with a ``branches`` summary. The node has no
+verifier hook (that needs the control plane), so a policy's ``verifier`` is
+not called and the best cumulative logprob wins, as on a JAX node without
+one. ``submit_stream`` streams a request's events into a queue; a branched
+stream carries the winner's events only, replayed at resolution. A caller
+that gives up cancels every branch.
+
 ``ModelNodeServer`` keeps the JAX node's direct-invocation HTTP contract
 (``sdk/agent.py``): ``POST /reasoners/generate`` with ``{"input": {...}}``
 answers ``{"result": {...}}``; ``GET /health``; ``GET /reasoners``. A
@@ -48,6 +59,7 @@ import dataclasses
 import inspect
 import json
 import logging
+import queue
 import threading
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
@@ -55,6 +67,7 @@ from typing import Any
 
 import torch
 
+from agentfield_tpu_torch.branching import BranchGroup, validate_branch_spec
 from agentfield_tpu_torch.models.configs import LlamaConfig, get_config
 from agentfield_tpu_torch.models.llama import init_params
 from agentfield_tpu_torch.ops.kv_quant import KV_QUANT_DTYPES
@@ -65,6 +78,7 @@ from agentfield_tpu_torch.serving.engine import (
     QueueFullError,
     Request,
     RequestTooLongError,
+    TokenEvent,
 )
 from agentfield_tpu_torch.serving.grammar import Grammar, SchemaError, compile_json_schema
 from agentfield_tpu_torch.serving.sampler import SamplingParams
@@ -110,6 +124,14 @@ class ModelBackend:
         self._grammar_lock = threading.Lock()
         # rid -> (future, [(token, logprob)]); touched under _lock only
         self._waiting: dict[str, tuple[concurrent.futures.Future, list]] = {}
+        self._streams: dict[str, queue.Queue] = {}  # rid -> its event queue
+        # branch decoding: every branch rid -> its group; a group's parent
+        # rid -> its one caller-visible sink ("future", fut) | ("stream", q);
+        # the resolved summary of a streamed group. Under _lock; the groups
+        # themselves are driven on the engine thread only
+        self._groups: dict[str, BranchGroup] = {}
+        self._group_sinks: dict[str, tuple[str, Any]] = {}
+        self._group_meta: dict[str, dict] = {}
         self._lock = threading.Lock()
         self._wake = threading.Event()
         self._stop = threading.Event()
@@ -153,11 +175,29 @@ class ModelBackend:
                 with self._lock:  # generate() checks error under this lock
                     self.error = e
                     waiting, self._waiting = self._waiting, {}
+                    streams, self._streams = self._streams, {}
+                    groups = {id(g): g for g in self._groups.values()}.values()
                 log.exception("engine step failed; failing %d waiting requests", len(waiting))
                 for fut, _ in waiting.values():
                     fut.set_exception(RuntimeError(f"engine step failed: {e!r}"))
+                for rid, q in streams.items():
+                    q.put(_error_event(rid, e))
+                for g in list(groups):
+                    self._fail_group(g, e)
                 return
             for ev in events:
+                with self._lock:
+                    group = self._groups.get(ev.request_id)
+                    stream = self._streams.get(ev.request_id)
+                    if stream is not None and ev.finished:
+                        del self._streams[ev.request_id]
+                if group is not None:
+                    # a branch's events feed its group, never the caller
+                    self._on_group_event(group, ev)
+                    continue
+                if stream is not None:
+                    stream.put(ev)
+                    continue
                 with self._lock:
                     entry = self._waiting.get(ev.request_id)
                     if entry is None:
@@ -210,21 +250,92 @@ class ModelBackend:
         response_schema: dict[str, Any] | None = None,
         deadline_s: float | None = None,
         priority: int = 0,
+        n_branches: int = 1,
+        branch_policy: Any = None,
         timeout: float | None = None,
     ) -> dict[str, Any]:
         """Generate from a text ``prompt`` or from ``tokens``; blocks until
         the request finishes. ``response_schema`` (a JSON schema) constrains
         the output to it; ``deadline_s`` bounds the request's wall time in
         the engine (``finish_reason`` "deadline_exceeded", partial tokens
-        kept); ``priority`` is its admission tier. Raises QueueFullError
+        kept); ``priority`` is its admission tier; ``n_branches`` > 1 forks
+        it into branches under ``branch_policy`` ("best_of_n" | "beam" | an
+        object, ``branching.validate_branch_spec``) and answers the winner
+        with a ``branches`` summary. Raises QueueFullError
         (NodeDrainingError while draining) / RequestTooLongError /
         GrammarCapacityError from admission, BadRequestError (or the
         grammar's SchemaError) for a schema the node cannot serve,
         ValueError for a bad argument, RuntimeError if the engine failed,
-        and TimeoutError after cancelling the request when ``timeout``
-        runs out."""
+        and TimeoutError after cancelling the request (every branch of it)
+        when ``timeout`` runs out."""
+        fut: concurrent.futures.Future = concurrent.futures.Future()
+        rid = self._submit(("future", fut), prompt, tokens, max_new_tokens, temperature, top_k,
+                           top_p, stop_token_ids, session_id, response_schema, deadline_s,
+                           priority, n_branches, branch_policy)
+        try:
+            result = fut.result(timeout=timeout)
+        except concurrent.futures.TimeoutError:
+            # the caller gives up: free the engine slots, no reader is left
+            self._abandon(rid)
+            raise
+        if self.tokenizer is not None:
+            result["text"] = self.tokenizer.decode(result["tokens"])
+        result["model"] = self.model_name
+        return result
+
+    def submit_stream(
+        self,
+        prompt: str | None = None,
+        tokens: list[int] | None = None,
+        max_new_tokens: int = 128,
+        temperature: float = 0.0,
+        top_k: int = 0,
+        top_p: float = 1.0,
+        stop_token_ids: list[int] | None = None,
+        session_id: str | None = None,
+        response_schema: dict[str, Any] | None = None,
+        deadline_s: float | None = None,
+        priority: int = 0,
+        n_branches: int = 1,
+        branch_policy: Any = None,
+    ) -> tuple[str, queue.Queue]:
+        """Streaming variant of ``generate``: returns ``(request_id, queue)``
+        of the request's TokenEvents, the last one finished. A branched
+        stream emits nothing while its branches decode; at resolution the
+        winner's events replay under ``request_id``, then one terminal, and
+        ``pop_group_meta(request_id)`` gives the ``branches`` summary.
+        ``release_stream`` when the consumer goes away."""
+        q: queue.Queue = queue.Queue()
+        rid = self._submit(("stream", q), prompt, tokens, max_new_tokens, temperature, top_k,
+                           top_p, stop_token_ids, session_id, response_schema, deadline_s,
+                           priority, n_branches, branch_policy)
+        return rid, q
+
+    def release_stream(self, rid: str) -> None:
+        """The consumer of ``rid``'s stream is gone: cancel its request (a
+        branched one whole)."""
+        self._abandon(rid)
+        with self._lock:
+            self._group_meta.pop(rid, None)
+
+    def pop_group_meta(self, rid: str) -> dict | None:
+        """The ``branches`` summary of a resolved streamed group (once)."""
+        with self._lock:
+            return self._group_meta.pop(rid, None)
+
+    def _submit(self, sink, prompt, tokens, max_new_tokens, temperature, top_k, top_p,
+                stop_token_ids, session_id, response_schema, deadline_s, priority,
+                n_branches, branch_policy) -> str:
+        """Validate, register ``sink`` for the new request id and submit the
+        request to the engine; returns the id."""
         if self._draining:
             raise NodeDrainingError("node is draining: not admitting new work")
+        n_branches, branch_policy = validate_branch_spec(n_branches, branch_policy)
+        if n_branches > 1 and response_schema is not None:
+            raise ValueError(
+                "branch decoding is incompatible with response_schema "
+                "(constrained decoding owns the sampler mask)"
+            )
         if tokens is None:
             if prompt is None:
                 raise ValueError("one of 'prompt' or 'tokens' is required")
@@ -243,13 +354,20 @@ class ModelBackend:
                         "constrained decoding needs stop_token_ids (tokenizer has no eos_token_id)"
                     )
                 stop_token_ids = [eos]
-        fut: concurrent.futures.Future = concurrent.futures.Future()
         with self._lock:
             if self.error is not None:
                 raise RuntimeError(f"engine stopped after a failed step: {self.error!r}")
             self._next += 1
             rid = f"gen_{self._next}"
-            self._waiting[rid] = (fut, [])
+            if n_branches > 1:
+                g = BranchGroup(rid, n_branches, branch_policy)
+                for r in g.branch_rids():
+                    self._groups[r] = g
+                self._group_sinks[rid] = sink
+            elif sink[0] == "future":
+                self._waiting[rid] = (sink[1], [])
+            else:
+                self._streams[rid] = sink[1]
         try:
             self.engine.submit(
                 Request(
@@ -264,25 +382,115 @@ class ModelBackend:
                     grammar=grammar,
                     deadline_s=deadline_s,
                     priority=priority,
+                    n_branches=n_branches,
                 )
             )
         except Exception:
             with self._lock:
-                self._waiting.pop(rid, None)
+                self._forget(rid)
             raise
         self._wake.set()
-        try:
-            result = fut.result(timeout=timeout)
-        except concurrent.futures.TimeoutError:
-            # the caller gives up: free the engine slot, no reader is left
-            with self._lock:
-                self._waiting.pop(rid, None)
+        return rid
+
+    def _forget(self, rid: str) -> BranchGroup | None:
+        """Drop ``rid``'s sinks (under _lock); returns its group, if any."""
+        self._waiting.pop(rid, None)
+        self._streams.pop(rid, None)
+        g = self._groups.get(rid)
+        if g is not None:
+            self._teardown_group(g)
+        return g
+
+    def _abandon(self, rid: str) -> None:
+        """No reader is left for ``rid``: drop its sinks and cancel it in the
+        engine, every live branch of a group."""
+        with self._lock:
+            g = self._forget(rid)
+        if g is None:
             self.cancel(rid)
-            raise
-        if self.tokenizer is not None:
-            result["text"] = self.tokenizer.decode(result["tokens"])
-        result["model"] = self.model_name
-        return result
+            return
+        for b in map(g.branch, g.branch_rids()):
+            if b is not None and b.live:
+                self.engine.request_cancel(b.rid)
+        self._wake.set()
+
+    # -- branch decoding: the group lifecycle, on the engine thread -------
+
+    def _teardown_group(self, g: BranchGroup) -> None:  # under _lock
+        for r in [r for r, gg in self._groups.items() if gg is g]:
+            del self._groups[r]
+        self._group_sinks.pop(g.parent, None)
+
+    def _fail_group(self, g: BranchGroup, error: BaseException) -> None:
+        with self._lock:
+            sink = self._group_sinks.get(g.parent)
+            self._teardown_group(g)
+        if sink is None:
+            return
+        kind, obj = sink
+        if kind == "future":
+            if not obj.done():
+                obj.set_exception(RuntimeError(f"engine step failed: {error!r}"))
+        else:
+            obj.put(_error_event(g.parent, error))
+
+    def _on_group_event(self, g: BranchGroup, ev: TokenEvent) -> None:
+        """Feed one branch event to its group and apply the actions: a
+        pruned branch is cancelled (its pages free now), a beam survivor
+        re-forks into a new branch id, a settled group resolves."""
+        for act in g.on_event(ev.request_id, ev):
+            if act[0] == "cancel":
+                self.engine.stats["branch_pruned_total"] += 1
+                self.engine.request_cancel(act[1])
+            elif act[0] == "fork":
+                _, src, new_rid = act
+                with self._lock:
+                    if g.parent not in self._group_sinks:
+                        continue  # the caller left: no new branches
+                    self._groups[new_rid] = g
+                self.engine.request_fork(src, new_rid)
+            elif act[0] == "resolve":
+                self._resolve_group(g)
+
+    @staticmethod
+    def _branch_content(b) -> list[tuple[int, float | None]]:
+        """A branch's content: a terminal stop token is not content."""
+        if b.finish_reason == "stop" and b.records:
+            return b.records[:-1]
+        return list(b.records)
+
+    def _resolve_group(self, g: BranchGroup) -> None:
+        """Every branch settled: the best cumulative logprob wins (the node
+        has no verifier hook); deliver it to the group's one sink."""
+        cands = g.candidates()
+        winner = cands[0] if cands else g.fallback_branch()
+        meta = g.summary(winner, False)
+        with self._lock:
+            sink = self._group_sinks.get(g.parent)
+            self._teardown_group(g)
+            if sink is not None and sink[0] == "stream":
+                self._group_meta[g.parent] = meta
+        if sink is None or winner is None:
+            return
+        kind, obj = sink
+        content = self._branch_content(winner)
+        if kind == "future":
+            if not obj.done():
+                obj.set_result({"tokens": [t for t, _ in content],
+                                "logprobs": [lp for _, lp in content],
+                                "finish_reason": winner.finish_reason, "branches": meta})
+            return
+        # the winner's tokens replay under the parent id, then one terminal
+        # (a deadline or failure terminal carries no token, as the engine's)
+        recs, reason = winner.records, winner.finish_reason
+        tokened = reason in ("stop", "length") and bool(recs)
+        for i, (tok, lp) in enumerate(recs):
+            last = tokened and i == len(recs) - 1
+            obj.put(TokenEvent(request_id=g.parent, token=tok, index=i, finished=last,
+                               finish_reason=reason if last else None, logprob=lp))
+        if not tokened:
+            obj.put(TokenEvent(request_id=g.parent, token=-1, index=-1, finished=True,
+                               finish_reason=reason or "error: branch group unresolved"))
 
     def cancel(self, rid: str) -> None:
         """Cancel an in-flight request and wake the drive loop so its slot
@@ -315,6 +523,12 @@ class ModelBackend:
             "deadline_outed": cancelled,
             "elapsed_s": round(time.monotonic() - t0, 3),
         }
+
+
+def _error_event(rid: str, error: BaseException) -> TokenEvent:
+    """The terminal a stream gets when the engine failed."""
+    return TokenEvent(request_id=rid, token=-1, index=-1, finished=True,
+                      finish_reason=f"error: engine step failed: {error!r}")
 
 
 _GENERATE_ARGS = frozenset(

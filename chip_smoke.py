@@ -118,7 +118,27 @@ the result line:
                temperature, a top-k and a schema row (no spec step while
                the schema row decodes, the draft's replay after it); every
                replay counts the launches its graph must make.
-11. ``gemma-7b``, ``phi-3-mini``  each at full width and 2 layers (random
+11. ``tier``    the host KV tier on the same weights (``phase_tier``): eight
+               1536-token sessions over a 640-page pool with 4 GiB of host
+               tier, each expiring and demoting before the next; four
+               1500-token prompts churn the pool; each session's second
+               turn restores its pages. bf16 and int8 (and fp8 for the bit
+               check): restored pages bit-equal to their capture, a replay
+               after a restore equal to the eager step, no failed restore,
+               pages balanced; the resumed turns' greedy tokens equal to an
+               HBM-resident engine's. Prints pages and GiB demoted, demote
+               GB/s, restore device and host ms, TTFT p50 of the resume
+               against a tier-off re-prefill and an HBM hit, peak device
+               memory and the host tier's pinned bytes.
+12. ``fork``    branch forks through the node (``phase_fork``): a 1000-token
+               prompt, 64 new tokens, as 8 best-of-N branches against 8
+               separate requests, greedy 4 branches against the unforked
+               request (branch 0's first token and logprob equal), and a
+               beam request over HTTP (live re-forks between replays):
+               tails bit-equal to their parent's, one terminal per branch,
+               one winner, no page leaked. Prints pages held at peak, TTFT,
+               decode tok/s and the ragged launches per replay.
+13. ``gemma-7b``, ``phi-3-mini``  each at full width and 2 layers (random
                bf16 weights): five requests through the engine (phi-3-mini
                with a prompt past its 2047-token window), every decode
                launch through the split-context kernel, then the
@@ -1876,6 +1896,597 @@ def _verify_vs_plain_logits(eng, rng, tol: float) -> dict:
     return {"max_abs_err": err, "tol_bf16": tol, "argmax_agreement": agree}
 
 
+# the tier phase: sessions whose KV outgrows the HBM pool resume from host RAM
+TIER_SESSIONS = 8
+TIER_PROMPT = 1536  # 96 pages of 16: 192 MiB of bf16 KV at Llama-3-8B width
+TIER_NEW = 32
+TIER_TURN2_NEW = 16  # new prompt tokens of a session's second turn
+TIER_CHURN = (1500, 1500, 1500, 1500)
+TIER_PAGES = 640  # 1.25 GiB of bf16 KV: less than the sessions hold
+TIER_HOST_BYTES = 4 << 30
+TIER_MODES = ("none", "int8", "fp8")  # fp8: the bit-equality check alone
+
+
+def _tier_ecfg(num_pages: int, host_bytes: int, kv_quant: str):
+    from agentfield_tpu_torch.serving.engine import EngineConfig
+
+    return EngineConfig(max_batch=8, page_size=16, num_pages=num_pages,
+                        max_pages_per_seq=min(128, num_pages - 1),
+                        decode_buckets=(4,), host_cache_bytes=host_bytes,
+                        kv_quant_dtype=kv_quant)
+
+
+def _run_one(eng, rid, prompt, max_new, session=None, probe=None) -> list[int]:
+    """Submit one greedy request and step the engine until it is idle;
+    returns the request's tokens. ``probe(eng)`` runs once, after the first
+    step that left a decode step in flight, and returns the events it
+    harvested."""
+    from agentfield_tpu_torch.serving.engine import Request
+    from agentfield_tpu_torch.serving.sampler import SamplingParams
+
+    eng.submit(Request(rid, prompt, SamplingParams(max_new_tokens=max_new), session_id=session))
+    out = []
+    while eng.has_work():
+        evs = eng.step()
+        if probe is not None and eng._inflight is not None:
+            evs, probe = evs + probe(eng), None
+        out += [ev.token for ev in evs if ev.request_id == rid and ev.token >= 0]
+    return out
+
+
+def _replay_vs_eager(eng, result: dict) -> list:
+    """The decode step replayed from its CUDA graph against the eager
+    forward on the same chained state, right after a restore: the replayed
+    greedy tokens must equal the eager argmax (a pool tensor reassigned by
+    the restore would leave the graph reading stale memory). The state is
+    put back, so the engine continues as if nothing ran. Fills ``result``;
+    returns the events of the step it harvested first."""
+    import torch
+
+    events = eng._harvest_inflight()
+    active = [i for i, s in enumerate(eng.slots) if s is not None]
+    bucket = eng._pick_decode_bucket(len(active))
+    st = eng._compact_state(active, bucket) if bucket is not None else eng._dev_state()
+    toks0, lens0 = st.tokens.clone(), st.seq_lens.clone()
+    live = lens0 > 0
+    with torch.no_grad():
+        logits_e = eng._decode_forward(st.tokens, st.seq_lens, st.page_tables)
+        replayed = eng._graphs.run(st, "greedy", "free")
+        toks_g = st.out_tokens[0].clone()
+        st.tokens.copy_(toks0)
+        st.seq_lens.copy_(lens0)
+    same = bool(torch.equal(toks_g[live], logits_e.argmax(-1).int()[live]))
+    result.update(replayed=replayed, live_rows=int(live.sum()), same_tokens=same)
+    return events
+
+
+class _TierWatch:
+    """Instruments a tier engine's pool for ``phase_tier``. Every page the
+    offload worker copies while ``check_fetch`` is on is held against its
+    capture (the host payload bit-equal to the captured clone; the phase
+    turns it off before the timed second turns, whose restored pages were
+    all demoted before), and every restored page against its payload once
+    its turn is over (``check_restored``): so a restored page equals its
+    bytes at capture, values and scales, matched by chain hash.
+    Times each restore walk (``lookup``), and inside the walks the target
+    allocations and the demote captures they trigger, and each batched
+    upload's host ms (``_commit_restores``)."""
+
+    def __init__(self, eng):
+        self.eng, p = eng, eng.allocator
+        self.fetched = self.fetch_mismatch = self.checked = 0
+        self.mismatch: list = []
+        self.host_ms: list[float] = []
+        self.pages: list[int] = []
+        self.walk_ms: list[float] = []
+        self.walk = {"capture_ms": 0.0, "captures": 0, "alloc_ms": 0.0}
+        self._todo: list = []
+        self._in_walk = False
+        self.check_fetch = True
+        self._orig = {k: getattr(p, k) for k in
+                      ("_capture", "_fetch", "_restore_alloc", "_commit_restores", "lookup")}
+        p._capture, p._fetch, p._restore_alloc = self._capture, self._fetch, self._restore_alloc
+        p._commit_restores, p.lookup = self._commit, self._lookup
+
+    def _capture(self, page):
+        t0 = time.perf_counter()
+        handle = self._orig["_capture"](page)
+        if self._in_walk:
+            self.walk["capture_ms"] += (time.perf_counter() - t0) * 1e3
+            self.walk["captures"] += 1
+        return handle
+
+    def _fetch(self, handle):
+        import contextlib
+
+        import torch
+
+        payload = self._orig["_fetch"](handle)  # the worker thread
+        if not self.check_fetch:
+            return payload
+        stream = self.eng._copy_stream
+        with torch.cuda.stream(stream) if stream is not None else contextlib.nullcontext():
+            for host, clone in zip(payload.leaves, handle[0]):
+                self.fetched += 1
+                self.fetch_mismatch += not torch.equal(host, clone.cpu())
+        return payload
+
+    def _restore_alloc(self):
+        t0 = time.perf_counter()
+        got = self._orig["_restore_alloc"]()
+        self.walk["alloc_ms"] += (time.perf_counter() - t0) * 1e3
+        return got
+
+    def _commit(self, pending):
+        t0 = time.perf_counter()
+        ok = self._orig["_commit_restores"](pending)
+        self.host_ms.append((time.perf_counter() - t0) * 1e3)
+        self.pages.append(len(pending))
+        if ok:
+            self._todo += [(rec.depth, page, payload) for rec, page, payload in pending]
+        return ok
+
+    def _lookup(self, tokens, hashes=None):
+        t0 = time.perf_counter()
+        self._in_walk = True
+        try:
+            return self._orig["lookup"](tokens, hashes)
+        finally:
+            self._in_walk = False
+            self.walk_ms.append((time.perf_counter() - t0) * 1e3)
+
+    def check_restored(self):
+        """After a turn: the session still holds its restored pages, which
+        nothing rewrote; each must equal the payload it came from."""
+        import torch
+
+        from agentfield_tpu_torch.ops.kv_quant import bits
+
+        for depth, page, payload in self._todo:
+            for li, t in enumerate(self.eng.cache.leaves()):
+                self.checked += 1
+                if not torch.equal(bits(t)[:, page].cpu(), payload.leaves[li]):
+                    self.mismatch.append((depth, li))
+        self._todo = []
+
+
+def phase_tier(results, state, seed: int, device: str = "cuda", sessions: int = TIER_SESSIONS,
+               prompt_len: int = TIER_PROMPT, max_new: int = TIER_NEW,
+               turn2_new: int = TIER_TURN2_NEW, churn=TIER_CHURN, num_pages: int = TIER_PAGES,
+               host_bytes: int = TIER_HOST_BYTES, modes=TIER_MODES):
+    """The host KV tier on the serve's weights, pages of 16. Per mode (bf16
+    "none", int8; fp8 for the bit check alone), the tier engine (a
+    ``num_pages`` pool the sessions outgrow, ``host_bytes`` of host tier):
+    each session sends a ``prompt_len``-token prompt (``max_new`` greedy
+    tokens) and expires (``gc_sessions`` at now + ttl + 1, then
+    ``offload_drain``, then ``demote_lru`` and a drain until nothing is
+    left: expiry enqueues at most the demote queue's 64 pages) before the
+    next arrives — under allocation pressure the engine evicts idle
+    sessions without demoting them, so expiry is what moves a session to
+    host RAM; then ``churn`` unrelated prompts
+    overwrite the freed pages; then each session's second turn (history +
+    ``turn2_new`` tokens) one at a time, which restores its pages. Checks:
+    every restored page's values and scales bit-equal to its bytes at
+    capture (matched by chain hash), a replayed decode step after a
+    restore equal to the eager step, no ``kv_offload_restore_fail``, and
+    ``free_pages`` back to its start after ``free_session`` of every
+    session. bf16 and int8 also run the same turns on a tier-off engine of
+    the same pool (a re-prefill) and on a tier-off engine whose pool holds
+    everything (an HBM hit): each resumed turn's greedy tokens must equal
+    the HBM hit's. Prints pages and GiB demoted, demote GB/s (the worker's
+    copy time), restore device ms per session (CUDA events around each
+    upload) and host ms (``_commit_restores``), TTFT p50 of the resume, the
+    re-prefill and the HBM hit, peak device memory and pinned host bytes.
+    bf16 and int8 also run the engine's own path on a second tier engine:
+    expiry and drain with no ``demote_lru``, so a session longer than the
+    demote queue keeps its last pages on the HBM LRU, where the churn
+    evicts them. It prints per session the pages restored and the prompt
+    tokens re-prefilled, its resume TTFT p50, and how many resumed turns
+    equal the HBM hit's (printed, not held: the re-prefilled tail runs
+    another bf16 path), and holds its restored pages bit-equal, no failed
+    restore and the pages balanced.
+    ``device`` "cpu" rehearses the phase on a small model."""
+    import numpy as np
+    import torch
+
+    from agentfield_tpu_torch.ops.cuda import ragged_paged_attention as rpa
+    from agentfield_tpu_torch.serving.engine import InferenceEngine
+
+    params, cfg = state["params"], state["cfg"]
+    V = cfg.vocab_size
+    on_card = torch.device(device).type == "cuda"
+    rng = np.random.default_rng(seed + 23)
+    turn1 = [rng.integers(1, V, prompt_len).tolist() for _ in range(sessions)]
+    extra = [rng.integers(1, V, turn2_new).tolist() for _ in range(sessions)]
+    churns = [rng.integers(1, V, n).tolist() for n in churn]
+    hit_pages = 1 + sessions * (-(-(prompt_len + max_new + turn2_new + max_new) // 16)) + sum(
+        -(-(n + max_new) // 16) for n in churn)
+    out = {"sessions": sessions, "prompt_len": prompt_len, "max_new": max_new,
+           "churn": list(churn), "num_pages": num_pages, "host_bytes": host_bytes,
+           "hbm_hit_pages": hit_pages}
+    launches = {k: 0 for k in rpa.launch_counts()}
+
+    def session_script(eng, name, watch=None, probe=None, drain_all=True):
+        """Turn 1, expiry and drain per session; the churn; the second
+        turns one at a time (``watch``'s fetch check off, its restore check
+        after each). ``drain_all`` False leaves what expiry did not enqueue
+        on the HBM LRU. Returns (turn-1 tokens, turn-2 tokens, the turn-2
+        TTFTs, pages demoted before turn 2, per second turn the pages
+        restored and the prompt tokens prefilled)."""
+        clock = time.time()
+        first = []
+        for i, p in enumerate(turn1):
+            first.append(_run_one(eng, f"{name}-s{i}-t1", p, max_new, session=f"s{i}"))
+            clock += eng.ecfg.session_ttl + 1
+            eng.gc_sessions(at=clock)
+            # expiry enqueues at most the demote queue's bound (64 pages, as
+            # in the JAX pool); ``drain_all`` moves the rest from the LRU
+            while True:
+                assert eng.allocator.offload_drain(120.0), f"{name}: offload worker wedged"
+                with eng._session_lock:
+                    if not drain_all or not eng.allocator.demote_lru():
+                        break
+        for j, p in enumerate(churns):
+            _run_one(eng, f"{name}-churn{j}", p, max_new)
+        assert eng.allocator.offload_drain(120.0)
+        demoted = eng.stats["kv_offload_demoted"]
+        if watch is not None:
+            watch.check_fetch = False  # every page turn 2 restores was checked
+        ttft0 = len(eng.ttft_ms)
+        second, per_turn = [], []
+        for i, p in enumerate(turn1):
+            t2 = p + first[i] + extra[i]
+            before = (eng.stats["kv_offload_restored"], eng.stats["prefill_tokens"])
+            # the last session's turn holds a replay against the eager step
+            second.append(_run_one(eng, f"{name}-s{i}-t2", t2, max_new, session=f"s{i}",
+                                   probe=probe if i == sessions - 1 else None))
+            per_turn.append((eng.stats["kv_offload_restored"] - before[0],
+                             eng.stats["prefill_tokens"] - before[1]))
+            if watch is not None:
+                watch.check_restored()
+        return first, second, list(eng.ttft_ms)[ttft0:], demoted, per_turn
+
+    for mode in modes:
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        base_gib = torch.cuda.memory_allocated() / 2**30 if on_card else None
+        eng = InferenceEngine(params, cfg, _tier_ecfg(num_pages, host_bytes, mode), seed=seed,
+                              device=device)
+        watch = _TierWatch(eng)
+        replay = {}
+        rpa.reset_launches()  # this run's main path only
+        t0 = time.perf_counter()
+        first, second, ttfts, demoted_turn1, per_turn = session_script(
+            eng, "tier", watch, probe=(lambda e, r=replay: _replay_vs_eager(e, r)) if on_card else None)
+        wall = time.perf_counter() - t0
+        for key, n in rpa.launch_counts().items():
+            launches[key] += n
+        if on_card:
+            torch.cuda.synchronize()
+        st = eng.stats
+        page_bytes = eng.kv_page_bytes
+        uploads = eng.restore_upload_ms()
+        row = {
+            "wall_s": wall, "page_bytes": page_bytes,
+            "demoted_pages": st["kv_offload_demoted"],
+            "demoted_gib": st["kv_offload_demoted"] * page_bytes / 2**30,
+            "demote_gb_per_s": (st["kv_offload_demoted"] * page_bytes / 1e9 / eng.timing["offload_s"]
+                                if eng.timing["offload_s"] else None),
+            "worker_copy_s": eng.timing["offload_s"],
+            "slab_alloc_s": eng._host_store.alloc_s,
+            "demote_gb_per_s_without_slab_alloc": (
+                st["kv_offload_demoted"] * page_bytes / 1e9
+                / (eng.timing["offload_s"] - eng._host_store.alloc_s)),
+            "restored_pages": st["kv_offload_restored"],
+            "restore_fail": st["kv_offload_restore_fail"],
+            "host_evicted": st["kv_offload_host_evicted"],
+            "restore_pages_per_commit": watch.pages,
+            "restore_device_ms": [ms for _, ms in uploads],
+            "restore_host_ms": watch.host_ms,
+            "leaves_fetched_checked": watch.fetched, "fetch_mismatches": watch.fetch_mismatch,
+            "leaves_checked": watch.checked, "leaf_mismatches": watch.mismatch[:8],
+            "ttft_ms_p50_resume": statistics.median(ttfts),
+            "ttft_ms_resume": ttfts,
+            "restored_prefilled_per_turn": per_turn,
+            "restore_walk_host_ms": watch.walk_ms[-sessions:],
+            "restore_walks": watch.walk,  # inside them: target allocations, demote captures
+            "demoted_in_turn2": st["kv_offload_demoted"] - demoted_turn1,
+            "replay_vs_eager": replay,
+            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30 if on_card else None,
+            "mem_at_start_gib": base_gib,
+            "host_tier_bytes": eng.host_tier_bytes(),
+            "prefix_index_hits": st["prefix_index_hits"],
+        }
+        assert not watch.mismatch and not watch.fetch_mismatch, (
+            f"{mode}: restored pages differ from their capture")
+        assert watch.checked > 0 and watch.fetched > 0, row
+        assert st["kv_offload_restored"] >= sessions, row
+        assert st["kv_offload_restore_fail"] == 0, row
+        if on_card:
+            assert replay.get("replayed") and replay.get("same_tokens"), replay
+        row["sessions_left"] = sum(eng.free_session(f"s{i}") for i in range(sessions))
+        assert eng.allocator.offload_drain(120.0)
+        with eng._session_lock:
+            row["free_pages_end"] = eng.allocator.free_pages
+        assert row["free_pages_end"] == num_pages - 1, "pages did not balance"
+        eng.close()
+        del eng, watch
+        if mode != "fp8":
+            # the engine's own path: expiry alone demotes (no demote_lru)
+            gc.collect()
+            if on_card:
+                torch.cuda.empty_cache()
+            eng = InferenceEngine(params, cfg, _tier_ecfg(num_pages, host_bytes, mode),
+                                  seed=seed, device=device)
+            watch = _TierWatch(eng)
+            rpa.reset_launches()
+            _, own_second, own_ttfts, own_demoted, own_turns = session_script(
+                eng, "own", watch, drain_all=False)
+            for key, n in rpa.launch_counts().items():
+                launches[key] += n
+            own = {"demoted_pages": own_demoted,
+                   "restored_prefilled_per_turn": own_turns,
+                   "ttft_ms_p50_resume": statistics.median(own_ttfts),
+                   "ttft_ms_resume": own_ttfts,
+                   "restore_fail": eng.stats["kv_offload_restore_fail"],
+                   "leaves_checked": watch.checked}
+            assert not watch.mismatch and not watch.fetch_mismatch, (
+                f"{mode}: own path: restored pages differ from their capture")
+            assert own["restore_fail"] == 0, own
+            for i in range(sessions):
+                eng.free_session(f"s{i}")
+            assert eng.allocator.offload_drain(120.0)
+            with eng._session_lock:
+                assert eng.allocator.free_pages == num_pages - 1, "own path: pages did not balance"
+            eng.close()
+            del eng, watch
+            row["own_path"] = own
+            # the same turns on a tier-off engine (same pool: a re-prefill) and
+            # on one whose pool holds everything (an HBM hit)
+            seconds = {"own_path": own_second}
+            for name, pages in (("reprefill", num_pages), ("hbm_hit", hit_pages)):
+                gc.collect()
+                if on_card:
+                    torch.cuda.empty_cache()
+                other = InferenceEngine(params, cfg, _tier_ecfg(pages, 0, mode), seed=seed,
+                                        device=device)
+                rpa.reset_launches()
+                f2, s2, t2, _, turns2 = session_script(other, name)
+                for key, n in rpa.launch_counts().items():
+                    launches[key] += n
+                row[f"ttft_ms_p50_{name}"] = statistics.median(t2)
+                row[f"prefix_index_hits_{name}"] = other.stats["prefix_index_hits"]
+                row[f"restored_prefilled_per_turn_{name}"] = turns2
+                seconds[name] = s2
+                if name == "hbm_hit":
+                    assert other.stats["prefix_pages_evicted"] == 0, "the HBM-hit pool evicted"
+                    assert f2 == first, f"{mode}: turn 1 differs between engines"
+                    same = [a == b for a, b in zip(second, s2)]
+                    row["resumed_equal_hbm_hit"] = sum(same)
+                    assert all(same), f"{mode}: resumed turns differ from the HBM hit: {same}"
+                    for key in ("own_path", "reprefill"):
+                        row[f"{key}_equal_hbm_hit"] = sum(
+                            a == b for a, b in zip(seconds[key], s2))
+                del other
+            log(f"[tier {mode}] engine's own path (expiry alone, no demote_lru): demoted "
+                f"{own['demoted_pages']} pages before turn 2; per turn (pages restored, prompt "
+                f"tokens prefilled) {own['restored_prefilled_per_turn']} against the forced "
+                f"drain's {per_turn}; TTFT p50 resume {own['ttft_ms_p50_resume']:.1f} ms "
+                f"(forced drain {row['ttft_ms_p50_resume']:.1f}); resumed tokens = HBM hit: own "
+                f"path {row['own_path_equal_hbm_hit']}/{sessions}, re-prefill "
+                f"{row['reprefill_equal_hbm_hit']}/{sessions}, forced drain "
+                f"{row['resumed_equal_hbm_hit']}/{sessions}")
+        out[mode] = row
+        log(f"[tier {mode}] {sessions} sessions x {prompt_len} tokens over a {num_pages}-page "
+            f"pool: demoted {row['demoted_pages']} pages ({row['demoted_gib']:.3f} GiB) at "
+            f"{row['demote_gb_per_s']} GB/s (worker copy {row['worker_copy_s']:.3f} s, of it "
+            f"{row['slab_alloc_s']:.3f} s allocating pinned slabs: "
+            f"{row['demote_gb_per_s_without_slab_alloc']} GB/s without); restored "
+            f"{row['restored_pages']} (fail {row['restore_fail']}) in commits of "
+            f"{row['restore_pages_per_commit']} pages, device ms {row['restore_device_ms']}, host "
+            f"ms {[round(x, 3) for x in row['restore_host_ms']]}; {row['leaves_checked']} leaves "
+            f"bit-equal to capture; TTFT p50 resume {row['ttft_ms_p50_resume']:.1f} ms, "
+            f"re-prefill {row.get('ttft_ms_p50_reprefill')}, HBM hit "
+            f"{row.get('ttft_ms_p50_hbm_hit')}; resumed tokens = HBM hit: "
+            f"{row.get('resumed_equal_hbm_hit')}/{sessions}; replay vs eager {replay}; peak "
+            f"{row['peak_mem_gib']} GiB (at start {row['mem_at_start_gib']}), host tier {row['host_tier_bytes'] / 2**30:.3f} GiB; "
+            f"wall {wall:.1f} s")
+    out["launches"] = launches
+    results["tier"] = out
+
+
+# the fork phase: one prompt, branched against separate requests
+FORK_PROMPT = 1000
+FORK_NEW = 64
+FORK_N = 8
+FORK_PAGES = 1024
+
+
+def phase_fork(results, state, seed: int, device: str = "cuda", prompt_len: int = FORK_PROMPT,
+               max_new: int = FORK_NEW, n: int = FORK_N, num_pages: int = FORK_PAGES):
+    """Branch forks on the serve's weights, bf16 pages, through the node.
+    One ``prompt_len``-token prompt, ``max_new`` new tokens, four ways:
+    (a) ``n_branches=n`` best-of-N at temperature 0.8; (b) the same prompt
+    as ``n`` separate requests; (c) greedy ``n_branches=4`` against the
+    unforked greedy request: branch 0's first token and logprob equal the
+    unforked request's (the same prefill logits); (d) a beam request
+    (``beam_width`` 2, ``beam_interval`` 8) over the node's HTTP route, so
+    live forks and their tail copies run between graph replays. Every
+    forked tail page is bit-equal to its parent's tail at fork time, every
+    branch gets one terminal and the caller one winner result, no page
+    leaks after a group resolves, and every replay counts the launches its
+    graph must make. Prints pages held at peak, TTFT and decode tok/s for
+    (a) against (b), and the ragged launches per replay."""
+    import numpy as np
+    import torch
+
+    from agentfield_tpu_torch.ops.cuda import ragged_paged_attention as rpa
+    from agentfield_tpu_torch.ops.kv_quant import bits
+    from agentfield_tpu_torch.serving.engine import EngineConfig
+    from agentfield_tpu_torch.serving.model_node import ModelBackend, ModelNodeServer
+    from agentfield_tpu_torch.serving.tokenizer import ByteTokenizer
+
+    params, cfg = state["params"], state["cfg"]
+    V = cfg.vocab_size
+    on_card = torch.device(device).type == "cuda"
+    rng = np.random.default_rng(seed + 29)
+    prompt = rng.integers(1, V, prompt_len).tolist()
+    ecfg = EngineConfig(max_batch=16, page_size=16, num_pages=num_pages,
+                        max_pages_per_seq=min(128, num_pages - 1),
+                        decode_buckets=(4, 16))
+    out = {"prompt_len": prompt_len, "max_new": max_new, "n": n}
+    launches = {k: 0 for k in rpa.launch_counts()}
+
+    def run(name, requests, http=False):
+        """Serve ``requests`` (generate kwargs) at once on a fresh node;
+        returns (results, the engine's observations)."""
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+        backend = ModelBackend(params, cfg, ecfg, tokenizer=ByteTokenizer(V), seed=seed,
+                               device=device)
+        eng = backend.engine
+        rec = watch_spec(eng)  # per-dispatch launches of every graph run
+        obs = {"held_max": 0, "events": [], "tail_copies": 0, "tail_mismatch": 0,
+               "copies_after_replay": 0}
+        step = eng.step
+
+        def observed_step():
+            evs = step()
+            obs["events"] += evs
+            obs["held_max"] = max(obs["held_max"], num_pages - 1 - eng.allocator.free_pages)
+            return evs
+
+        copy = eng._copy_page
+
+        def checked_copy(src, dst):
+            copy(src, dst)
+            obs["tail_copies"] += 1
+            obs["copies_after_replay"] += any(r["replayed"] for r in rec["runs"])
+            for t in eng.cache.leaves():
+                if not torch.equal(bits(t)[:, dst], bits(t)[:, src]):
+                    obs["tail_mismatch"] += 1
+
+        eng.step, eng._copy_page = observed_step, checked_copy
+        answers = [None] * len(requests)
+        errors = []
+        server = ModelNodeServer(backend) if http else None
+        port = server.start() if http else backend.start()
+
+        def send(i):
+            try:
+                if http:
+                    answers[i] = _post(port, requests[i])["result"]
+                else:
+                    answers[i] = backend.generate(**requests[i])
+            except Exception as e:  # noqa: BLE001 — collected and failed below
+                errors.append(f"{name} request {i}: {e!r}")
+
+        rpa.reset_launches()  # this run's main path only
+        d0 = (eng.stats["decode_tokens"], eng.timing["decode_s"])
+        threads = [threading.Thread(target=send, args=(i,)) for i in range(len(requests))]
+        try:
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join()
+        finally:
+            (server or backend).stop()
+        for key, k in rpa.launch_counts().items():
+            launches[key] += k
+        assert not errors, errors
+        st = eng.stats
+        terminals: dict[str, int] = {}
+        for ev in obs["events"]:
+            if ev.finished:
+                terminals[ev.request_id] = terminals.get(ev.request_id, 0) + 1
+        bad = []
+        for r in rec["runs"]:
+            if r["replayed"]:
+                want = {k: v for k, v in expected_replay_launches(eng, r["mode"]).items() if v}
+                if {k: v for k, v in r["launches"].items() if v} != want:
+                    bad.append((r["width"], r["launches"], want))
+        assert not bad, f"{name}: replays counted other launches than expected: {bad[:2]}"
+        per_replay = {m: {k: v for k, v in expected_replay_launches(eng, m).items() if v}
+                      for m in sorted({r["mode"] for r in rec["runs"] if r["replayed"]})}
+        graphs = eng.graph_stats()
+        decode_s = eng.timing["decode_s"] - d0[1]
+        row = {
+            "requests": len(requests), "pages_held_max": obs["held_max"],
+            "ttft_ms_p50": statistics.median(eng.ttft_ms),
+            "decode_tok_per_s": (st["decode_tokens"] - d0[0]) / decode_s,
+            # the same without the first step's eager run and capture
+            "decode_tok_per_s_replays": (st["decode_tokens"] - d0[0]) / (
+                decode_s - graphs["capture_s"]),
+            "decode_step_device_ms_mean": (statistics.fmean(eng.decode_step_ms)
+                                           if eng.decode_step_ms else None),
+            "decode_steps": st["decode_steps"], "forks": st["branch_forks_total"],
+            "forks_degraded": st["branch_forks_degraded_total"],
+            "fork_failed": st["branch_fork_failed_total"], "pruned": st["branch_pruned_total"],
+            "tail_copies": obs["tail_copies"], "tail_copies_after_a_replay":
+                obs["copies_after_replay"],
+            "terminals": terminals, "graphs": graphs,
+            "ragged_launches_per_replay": per_replay,
+            "free_pages_end": eng.allocator.free_pages,
+        }
+        assert obs["tail_mismatch"] == 0, f"{name}: a forked tail differs from its parent's"
+        assert all(c == 1 for c in terminals.values()), f"{name}: terminals {terminals}"
+        assert row["free_pages_end"] == num_pages - 1, f"{name}: pages leaked"
+        assert not backend._groups and not backend._group_sinks
+        return answers, row, obs["events"]
+
+    samp = dict(tokens=prompt, max_new_tokens=max_new)
+    # the unforked greedy request first: (c)'s reference, and the warm-up of
+    # this prompt's prefill shapes before (a) and (b) are timed
+    res_u, out["c_unforked"], ev_u = run("c_unforked", [dict(samp)])
+    # (a) n branches, best of N, temperature 0.8; (b) the same as n requests
+    res_a, out["a_branched"], _ = run("a", [dict(samp, temperature=0.8, n_branches=n)])
+    assert res_a[0]["branches"]["n"] == n and len(res_a[0]["tokens"]) <= max_new
+    assert len(out["a_branched"]["terminals"]) == n
+    assert out["a_branched"]["forks"] == n - 1
+    res_b, out["b_separate"], _ = run("b", [dict(samp, temperature=0.8)] * n)
+    assert all(len(r["tokens"]) == max_new for r in res_b)
+    # (c) greedy: branch 0 against the unforked request
+    res_c, out["c_greedy"], ev_c = run("c", [dict(samp, n_branches=4)])
+
+    def first_event(evs):
+        e = next(e for e in evs if e.index == 0 and "#" not in e.request_id)
+        return e.token, e.logprob
+
+    fu, fc = first_event(ev_u), first_event(ev_c)
+    out["c_greedy"]["first_token_logprob"] = {"unforked": fu, "branch0": fc}
+    assert fu == fc, f"branch 0's first token/logprob {fc} != the unforked request's {fu}"
+    out["c_greedy"]["tokens_equal_unforked"] = res_c[0]["tokens"] == res_u[0]["tokens"]
+    assert out["c_greedy"]["tail_copies"] == (3 if prompt_len % 16 else 0)
+    # (d) beam through the HTTP route: prunes, live re-forks between replays
+    res_d, out["d_beam"], _ = run("d", [dict(samp, temperature=0.8, n_branches=4, branch_policy={
+        "type": "beam", "beam_width": 2, "beam_interval": 8})], http=True)
+    d = res_d[0]["branches"]
+    out["d_beam"]["branches"] = d
+    assert d["policy"] == "beam" and d["pruned"] >= 1 and d["forked"] > 4, d
+    assert out["d_beam"]["forks"] > 3, "no live re-fork ran"
+    if on_card:
+        assert out["d_beam"]["tail_copies_after_a_replay"] > 0, "no fork ran between replays"
+    out["launches"] = launches
+    results["fork"] = out
+    a, b = out["a_branched"], out["b_separate"]
+    log(f"[fork] {prompt_len}-token prompt, {max_new} new: (a) {n} branches: pages held at peak "
+        f"{a['pages_held_max']}, TTFT {a['ttft_ms_p50']:.1f} ms, decode "
+        f"{a['decode_tok_per_s']:.1f} tok/s ({a['decode_tok_per_s_replays']:.1f} without the "
+        f"capture; step {a['decode_step_device_ms_mean']} device ms); (b) {n} requests: pages "
+        f"{b['pages_held_max']}, TTFT p50 {b['ttft_ms_p50']:.1f} ms, decode "
+        f"{b['decode_tok_per_s']:.1f} tok/s ({b['decode_tok_per_s_replays']:.1f}; step "
+        f"{b['decode_step_device_ms_mean']} device ms); unforked TTFT "
+        f"{out['c_unforked']['ttft_ms_p50']:.1f} ms; (c) branch 0 "
+        f"first token/logprob {fc} = unforked {fu}, whole greedy answer equal: "
+        f"{out['c_greedy']['tokens_equal_unforked']}; (d) beam {d}, forks "
+        f"{out['d_beam']['forks']}, tail copies {out['d_beam']['tail_copies']} "
+        f"({out['d_beam']['tail_copies_after_a_replay']} after a replay); ragged launches per "
+        f"replay {a['ragged_launches_per_replay']}")
+
+
 def phase_ab(results, other_root: str):
     """A/B of the attention source at the mixed W = 1 shapes (bf16, f32):
     the source under ``other_root`` (a checkout of another commit) built for
@@ -2000,7 +2611,7 @@ def kernels_line(results) -> dict:
     call, ``call_ms`` the eager call), ``max_abs_err`` the worst over
     every bf16 shape it was held at (for a quantized variant, against the
     plain version with the kernel's semantics, check (b)), ``launches`` from
-    the serve phase of its pool kind."""
+    the serve phase of its pool kind and the spec, tier and fork phases."""
     shapes = results["shapes"]
     picks = [
         ("ragged_paged_attention", "llama3_decode_ctx2k/bfloat16", f"{TPU_KERNEL}:61", "serve"),
@@ -2014,8 +2625,9 @@ def kernels_line(results) -> dict:
         held = [r for r in shapes.values() if r["kernel"] == name and r["dtype"] == "bfloat16"]
         entry = {
             "name": name, "route": "cuda", "source": RAGGED_SRC, "replaces": replaces,
-            # the serve's launches and the spec phase's (bf16 pages)
-            "launches": results[serve]["launches"][name] + results["spec"]["launches"][name],
+            # the serve's launches and those of the spec, tier and fork phases
+            "launches": results[serve]["launches"][name] + sum(
+                results[p]["launches"][name] for p in ("spec", "tier", "fork")),
             "max_abs_err": max(r["max_abs_err"] for r in held),
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
@@ -2092,6 +2704,8 @@ def main() -> int:
         phase_burst(results, state, args.seed)
         phase_overload(results, state, args.seed)
         phase_spec(results, state, args.seed)
+        phase_tier(results, state, args.seed)
+        phase_fork(results, state, args.seed)
         state.clear()  # the 8B weights go before the reduced-depth models
         for preset in REDUCED_DEPTH_PRESETS:
             phase_reduced_depth(results, preset, args.seed)

@@ -165,7 +165,7 @@ def test_engine_matches_jax_engine_with_node_defaults(weights):
 
 def test_engine_rejects_fields_it_does_not_implement():
     with pytest.raises(TypeError):
-        engine.EngineConfig(host_cache_bytes=1 << 20)
+        engine.EngineConfig(prefix_sketch_bytes=4096)  # the cluster tier's
     with pytest.raises(TypeError):
         engine.EngineConfig(spec_prefill=False)
     fields = {f.name for f in dataclasses.fields(engine.EngineConfig)}
