@@ -230,11 +230,15 @@ def forward(
     attn_impl: str = "ref",
     collect_kv: bool = True,
     last_idx: torch.Tensor | None = None,  # [B]: unembed only x[b, last_idx[b]]
+    return_hidden: bool = False,
 ):
     """Dense causal forward. Returns ``(logits [B, S, V] float32, (k, v)``
     each ``[L, B, S, Kh, hd]`` or None). With ``last_idx`` the logits are
     ``[B, V]`` at one position per row — the engine samples only there, and
     a full-vocab unembed of every prompt position would cost GBs at 8B.
+    With ``return_hidden`` the first element is the final-norm hidden states
+    ``[B, S, D]`` in the params' dtype instead of logits, and the unembed is
+    skipped (the embeddings path).
 
     ``attn_impl``: "ref" (plain ``attention_ref``) | "kernel" (dense causal
     attention through the ragged paged-attention kernel; valid when
@@ -271,6 +275,8 @@ def forward(
             ks.append(k)
             vs.append(v)
     kv = (torch.stack(ks), torch.stack(vs)) if collect_kv else None
+    if return_hidden:
+        return rms_norm(x, params["final_norm"], cfg.rms_norm_eps), kv
     if last_idx is not None:
         x = x[torch.arange(x.shape[0], device=x.device), last_idx]
     return unembed(params, cfg, x), kv

@@ -124,6 +124,7 @@ from agentfield_tpu_torch.serving.kv_cache import (
 )
 from agentfield_tpu_torch.serving.sampler import SamplingParams, sample_tokens, sampler_variant
 from agentfield_tpu_torch.serving.spec_decode import PagedModel, rows_forward, spec_step
+from agentfield_tpu_torch.tracing import HistogramSet
 
 _MASKED = -1e30  # logit value for grammar-disallowed tokens
 
@@ -521,6 +522,9 @@ class InferenceEngine:
         # of the offload worker's page copies.
         self.timing = {"prefill_s": 0.0, "decode_s": 0.0, "offload_s": 0.0}
         self.ttft_ms: collections.deque[float] = collections.deque(maxlen=4096)
+        # the JAX engine's always-on latency histograms, shipped on every
+        # heartbeat under ``latency_hist`` (``latency_histograms``)
+        self.latency = HistogramSet(("ttft_ms", "itl_ms", "queue_wait_ms", "tick_ms"))
         self._shared_prefix = bool(
             self.ecfg.enable_prefix_cache and self.ecfg.shared_prefix_cache
         )
@@ -946,6 +950,7 @@ class InferenceEngine:
             with self._pending_lock:
                 self.pending.remove(req)
             self._req_hashes.pop(req.id, None)
+            self._observe_queue_wait(req)
             claimed.add(free_slot)
             batch.append((req, free_slot, pages))
         if head_starved and batch:
@@ -1064,6 +1069,7 @@ class InferenceEngine:
         with self._pending_lock:
             self.pending.remove(req)
         self._req_hashes.pop(req.id, None)
+        self._observe_queue_wait(req)
         if kind == "session":
             self.stats["prefix_cache_hits"] += 1
             self.stats["prefix_tokens_reused"] += start
@@ -1418,7 +1424,9 @@ class InferenceEngine:
                 self.allocator.publish(req.prompt, pages)
         st = self._submit_t.pop(req.id, None)
         if st is not None:
+            # TTFT as the engine sees it: submit to first sampled token
             self.ttft_ms.append((time.monotonic() - st) * 1e3)
+            self.latency.observe("ttft_ms", self.ttft_ms[-1])
         slot = _Slot(
             req=req, pages=pages, length=len(req.prompt), generated=1, last_token=tok,
             tokens=list(req.prompt) + [tok],
@@ -1807,6 +1815,7 @@ class InferenceEngine:
         if slot.last_emit_t > 0.0:
             with self._telemetry_lock:
                 self._itl_window.append(now - slot.last_emit_t)
+            self.latency.observe("itl_ms", (now - slot.last_emit_t) * 1e3)
         slot.last_emit_t = now
         s = slot.req.sampling
         reason = None
@@ -2363,6 +2372,25 @@ class InferenceEngine:
         return llama.unembed(self.params, cfg, x[on_dev(np.asarray(flat, np.int64))])[:, 0]
 
     def step(self) -> list[TokenEvent]:
+        """One scheduler tick (``_step_inner``), timed into the ``tick_ms``
+        histogram when it had work, as the JAX engine's ``step`` times it."""
+        t0 = time.perf_counter()
+        events = self._step_inner()
+        if events or self.num_active or self._prefill_jobs or self.pending:
+            self.latency.observe("tick_ms", (time.perf_counter() - t0) * 1e3)
+        return events
+
+    def latency_histograms(self) -> dict:
+        """Snapshots of the TTFT / inter-token / queue-wait / tick-duration
+        histograms (ms buckets), the heartbeat's ``latency_hist``."""
+        return self.latency.snapshot()
+
+    def _observe_queue_wait(self, req: Request) -> None:
+        st = self._submit_t.get(req.id)
+        if st is not None:
+            self.latency.observe("queue_wait_ms", (time.monotonic() - st) * 1e3)
+
+    def _step_inner(self) -> list[TokenEvent]:
         """One scheduler tick (the JAX engine's ``_step_inner``): expire
         deadlines; harvest the step in flight if cancels are queued; drain
         the cancels; emit one ``deadline_exceeded`` terminal per expired

@@ -29,19 +29,34 @@ one. ``submit_stream`` streams a request's events into a queue; a branched
 stream carries the winner's events only, replayed at resolution. A caller
 that gives up cancels every branch.
 
-``ModelNodeServer`` keeps the JAX node's direct-invocation HTTP contract
-(``sdk/agent.py``): ``POST /reasoners/generate`` with ``{"input": {...}}``
-answers ``{"result": {...}}``; ``GET /health``; ``GET /reasoners``. A
-request the node cannot serve as sent (an invalid schema, a schema with no
-stop id) answers 400, other argument errors 422, a full queue or grammar
-bank 503. It is
+``generate`` takes the JAX node's request surface, so the payload
+``Agent.ai()`` sends is served as the JAX node serves it: ``messages``
+(``apply_chat_template``), ``context_overflow`` ("truncate_left" reports
+``truncated_prompt_tokens``), ``output="text"`` and null media; the routing
+hints (``kv_peer``, ``handoff_export``, ``handoff``, ``trace``,
+``expect_followup``, ``followup_candidates``) take the JAX node's degraded
+path. Media inputs and non-text outputs are refused with the module they
+need. ``embed`` pools the final-norm hidden states of one forward through
+``dense_causal_attention``, run on the engine's drive thread between ticks.
+
+``ModelNodeServer`` serves the JAX SDK agent's HTTP contract
+(``sdk/agent.py``): ``POST /reasoners/{generate,embed}`` with ``{"input":
+{...}}`` answers ``{"result": {...}}``, or, with an ``X-Execution-ID``
+header from the gateway, 202 now and the outcome posted to the control
+plane; ``POST /generate/stream`` (SSE); ``GET /health``, ``/reasoners``,
+``/stats``. With a control plane it registers (kind "model"), heartbeats
+the engine's stats and deregisters at stop (``sdk/client.py``, stdlib).
+Answered inline, a request the node cannot serve as sent (unported media
+or output, an invalid schema) answers 400, an input that does not fit the
+parameters or a bad argument 422, a full queue or grammar bank 503. It is
 built on ``http.server.ThreadingHTTPServer`` because the card's machine has
-no aiohttp. Control-plane registration, heartbeats and the channel/SSE/gRPC
-transports are not ported yet.
+no aiohttp. The channel and gRPC transports are not ported yet.
 
 Run a node::
 
     python -m agentfield_tpu_torch.serving.model_node --model llama-3-8b --port 8080 --seed 0
+
+``--control-plane URL --node-id ID`` makes it a node of that control plane.
 
 ``--kv-quant-dtype int8`` (or ``fp8``) stores the KV pages quantized, with
 per-slot scales (``EngineConfig.kv_quant_dtype``). ``--spec-draft
@@ -56,21 +71,27 @@ import argparse
 import collections
 import concurrent.futures
 import dataclasses
+import functools
 import inspect
 import json
 import logging
 import queue
+import signal
 import threading
 import time
+import types
+import typing
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Any
 
 import torch
 
 from agentfield_tpu_torch.branching import BranchGroup, validate_branch_spec
+from agentfield_tpu_torch.models import llama
 from agentfield_tpu_torch.models.configs import LlamaConfig, get_config
 from agentfield_tpu_torch.models.llama import init_params
 from agentfield_tpu_torch.ops.kv_quant import KV_QUANT_DTYPES
+from agentfield_tpu_torch.sdk.client import ControlPlaneClient, ControlPlaneError
 from agentfield_tpu_torch.serving.engine import (
     EngineConfig,
     GrammarCapacityError,
@@ -87,6 +108,15 @@ from agentfield_tpu_torch.serving.tokenizer import ByteTokenizer
 log = logging.getLogger(__name__)
 
 GRAMMAR_SLOTS = 256  # the node's grammar bank rows, as the JAX node builds it
+CONTEXT_OVERFLOW = ("error", "truncate_left")
+OUTPUTS = ("text", "audio", "speech", "image")  # the JAX node's output modalities
+# what a refused modality needs (multimodal is not ported yet)
+_UNPORTED_OUTPUT = {"audio": "TTS head (models/audio.py)",
+                    "speech": "TTS head (models/audio.py)",
+                    "image": "image-generation head (models/image_gen.py)"}
+SPEC_MAX_CANDIDATES = 4  # the JAX EngineConfig.spec_max_candidates default
+SSE_PING_S = 10.0  # a token stream idle this long gets a ": ping" comment frame
+EMBED_CHUNK_TOKENS = 2048  # padded tokens of one embed forward between two ticks
 
 
 class BadRequestError(ValueError):
@@ -96,6 +126,56 @@ class BadRequestError(ValueError):
 class NodeDrainingError(QueueFullError):
     """The node is draining: admission is closed. A QueueFullError, so the
     HTTP front answers it as retryable backpressure (503)."""
+
+
+def _check_branch_compat(response_schema, images, audios) -> None:
+    if response_schema is not None:
+        raise ValueError(
+            "branch decoding is incompatible with response_schema "
+            "(constrained decoding owns the sampler mask)"
+        )
+    if images or audios:
+        raise ValueError("branch decoding does not take media inputs")
+
+
+def embed_chunks(lens: list[int], budget: int) -> list[list[int]]:
+    """The row indices of each forward of an embed: rows in order of
+    length, cut where the next row would pad the chunk past ``budget``
+    tokens (a longer row goes alone)."""
+    chunks: list[list[int]] = []
+    for i in sorted(range(len(lens)), key=lambda i: lens[i]):
+        if chunks and (len(chunks[-1]) + 1) * lens[i] <= budget:
+            chunks[-1].append(i)
+        else:
+            chunks.append([i])
+    return chunks
+
+
+def embed_rows(params: dict[str, Any], cfg: LlamaConfig, rows: list[list[int]],
+               pooling: str = "mean", attn_impl: str = "kernel") -> torch.Tensor:
+    """L2-normalized ``[B, D]`` float32 embeddings of token ``rows``: one
+    dense forward over the rows padded to the longest, final-norm hidden
+    states (``forward(return_hidden=True)``), mean- or last-pooled over each
+    row's real tokens. ``attn_impl="kernel"`` takes
+    ``dense_causal_attention`` (its plain version on CPU tensors)."""
+    dev = params["embed"].device
+    B, S = len(rows), max(len(r) for r in rows)
+    padded = torch.zeros((B, S), dtype=torch.long)
+    for i, r in enumerate(rows):
+        padded[i, : len(r)] = torch.tensor(r, dtype=torch.long)
+    toks = padded.to(dev)
+    nv = torch.tensor([len(r) for r in rows], device=dev)
+    pos = torch.arange(S, device=dev).expand(B, S)
+    with torch.inference_mode():
+        h, _ = llama.forward(params, cfg, toks, pos, attn_impl=attn_impl, collect_kv=False,
+                             return_hidden=True)
+        h = h.float()
+        if pooling == "mean":
+            real = (torch.arange(S, device=dev)[None, :] < nv[:, None])[..., None]
+            v = torch.where(real, h, 0.0).sum(dim=1) / nv[:, None]
+        else:
+            v = h[torch.arange(B, device=dev), nv - 1]
+        return v / torch.linalg.vector_norm(v, dim=-1, keepdim=True).clamp_min(1e-9)
 
 
 class ModelBackend:
@@ -139,6 +219,10 @@ class ModelBackend:
         self._thread: threading.Thread | None = None
         self.error: BaseException | None = None
         self._draining = False
+        # work that must not overlap a tick (embed forwards): run by the
+        # drive thread between ticks; under _lock
+        self._jobs: list[tuple[Any, concurrent.futures.Future]] = []
+        self.embed_ms: collections.deque[float] = collections.deque(maxlen=1024)  # CUDA events
 
     def start(self) -> None:
         if self._thread is None:
@@ -152,6 +236,7 @@ class ModelBackend:
         if self._thread is not None:
             self._thread.join(timeout=30.0)
             self._thread = None
+        self._fail_jobs(RuntimeError("model node stopped"))
 
     def _drive_loop(self) -> None:
         """Continuous-batching driver: engine.step() until stopped. A step
@@ -162,7 +247,11 @@ class ModelBackend:
             torch.cuda.set_device(self.engine.device)
         last_gc = time.monotonic()
         while not self._stop.is_set():
+            if self._jobs:
+                self._run_job()  # one between two ticks
             if not self.engine.has_work():
+                if self._jobs:
+                    continue
                 if time.monotonic() - last_gc > 30.0:
                     last_gc = time.monotonic()
                     self.engine.gc_sessions()
@@ -184,6 +273,7 @@ class ModelBackend:
                     q.put(_error_event(rid, e))
                 for g in list(groups):
                     self._fail_group(g, e)
+                self._fail_jobs(RuntimeError(f"engine step failed: {e!r}"))
                 return
             for ev in events:
                 with self._lock:
@@ -241,6 +331,7 @@ class ModelBackend:
         self,
         prompt: str | None = None,
         tokens: list[int] | None = None,
+        messages: list[dict] | None = None,
         max_new_tokens: int = 128,
         temperature: float = 0.0,
         top_k: int = 0,
@@ -248,30 +339,70 @@ class ModelBackend:
         stop_token_ids: list[int] | None = None,
         session_id: str | None = None,
         response_schema: dict[str, Any] | None = None,
+        context_overflow: str = "error",
+        images: list | None = None,
+        audios: list | None = None,
+        output: str = "text",
         deadline_s: float | None = None,
         priority: int = 0,
         n_branches: int = 1,
         branch_policy: Any = None,
+        kv_peer: dict | None = None,
+        handoff_export: bool = False,
+        handoff: dict | None = None,
+        trace: dict | None = None,
+        expect_followup: bool = False,
+        followup_candidates: list | None = None,
         timeout: float | None = None,
     ) -> dict[str, Any]:
-        """Generate from a text ``prompt`` or from ``tokens``; blocks until
-        the request finishes. ``response_schema`` (a JSON schema) constrains
-        the output to it; ``deadline_s`` bounds the request's wall time in
-        the engine (``finish_reason`` "deadline_exceeded", partial tokens
-        kept); ``priority`` is its admission tier; ``n_branches`` > 1 forks
-        it into branches under ``branch_policy`` ("best_of_n" | "beam" | an
-        object, ``branching.validate_branch_spec``) and answers the winner
-        with a ``branches`` summary. Raises QueueFullError
-        (NodeDrainingError while draining) / RequestTooLongError /
-        GrammarCapacityError from admission, BadRequestError (or the
-        grammar's SchemaError) for a schema the node cannot serve,
-        ValueError for a bad argument, RuntimeError if the engine failed,
-        and TimeoutError after cancelling the request (every branch of it)
-        when ``timeout`` runs out."""
+        """Generate from a text ``prompt``, from ``tokens`` or from chat
+        ``messages`` (``apply_chat_template``); blocks until the request
+        finishes. The parameters are the JAX node's: ``context_overflow``
+        "truncate_left" keeps the prompt's last ``max_context -
+        max_new_tokens`` tokens and reports ``truncated_prompt_tokens``
+        ("error" lets the engine refuse it); ``response_schema`` (a JSON
+        schema) constrains the output to it; ``deadline_s`` bounds the
+        request's wall time in the engine (``finish_reason``
+        "deadline_exceeded", partial tokens kept); ``priority`` is its
+        admission tier; ``n_branches`` > 1 forks it into branches under
+        ``branch_policy`` and answers the winner with a ``branches`` summary.
+        ``output`` must be "text" and ``images``/``audios`` empty: the
+        towers and heads they need are not ported (BadRequestError). The
+        routing hints ``kv_peer``, ``handoff_export``, ``handoff`` and
+        ``trace`` are accepted and take the JAX node's degraded path (a
+        local prefill, no handoff descriptor, no ``trace`` key);
+        ``followup_candidates`` are validated as the JAX node does, and
+        keep-warm is not ported. Raises QueueFullError (NodeDrainingError
+        while draining) / RequestTooLongError / GrammarCapacityError from
+        admission, BadRequestError (or the grammar's SchemaError) for a
+        request the node cannot serve, ValueError for a bad argument,
+        RuntimeError if the engine failed, and TimeoutError after cancelling
+        the request (every branch of it) when ``timeout`` runs out."""
+        if output not in OUTPUTS:
+            raise ValueError(
+                f"unknown output modality {output!r}: 'text' | 'audio' "
+                "(synthesize the prompt) | 'speech' (generate, then "
+                "synthesize the generated text) | 'image' (render the prompt)"
+            )
+        n_branches, branch_policy = validate_branch_spec(n_branches, branch_policy)
+        if n_branches > 1:
+            if output != "text":
+                raise ValueError("branch decoding (n_branches > 1) is text-only")
+            _check_branch_compat(response_schema, images, audios)
+        if messages is not None:
+            if prompt is not None or tokens is not None:
+                raise ValueError("messages is exclusive with prompt/tokens")
+            prompt = self.apply_chat_template(messages)
+        if output != "text":
+            raise BadRequestError(
+                f"output={output!r} needs the {_UNPORTED_OUTPUT[output]}, which this port "
+                "does not have yet; output='text' is served")
         fut: concurrent.futures.Future = concurrent.futures.Future()
-        rid = self._submit(("future", fut), prompt, tokens, max_new_tokens, temperature, top_k,
-                           top_p, stop_token_ids, session_id, response_schema, deadline_s,
-                           priority, n_branches, branch_policy)
+        rid, truncated = self._submit(
+            ("future", fut), prompt, tokens, max_new_tokens, temperature, top_k, top_p,
+            stop_token_ids, session_id, response_schema, context_overflow, images, audios,
+            deadline_s, priority, n_branches, branch_policy, expect_followup,
+            followup_candidates)
         try:
             result = fut.result(timeout=timeout)
         except concurrent.futures.TimeoutError:
@@ -281,6 +412,8 @@ class ModelBackend:
         if self.tokenizer is not None:
             result["text"] = self.tokenizer.decode(result["tokens"])
         result["model"] = self.model_name
+        if truncated:
+            result["truncated_prompt_tokens"] = truncated
         return result
 
     def submit_stream(
@@ -294,26 +427,39 @@ class ModelBackend:
         stop_token_ids: list[int] | None = None,
         session_id: str | None = None,
         response_schema: dict[str, Any] | None = None,
+        context_overflow: str = "error",
+        images: list | None = None,
+        audios: list | None = None,
         deadline_s: float | None = None,
         priority: int = 0,
         n_branches: int = 1,
         branch_policy: Any = None,
-    ) -> tuple[str, queue.Queue]:
-        """Streaming variant of ``generate``: returns ``(request_id, queue)``
-        of the request's TokenEvents, the last one finished. A branched
-        stream emits nothing while its branches decode; at resolution the
-        winner's events replay under ``request_id``, then one terminal, and
+        trace: dict | None = None,
+        handoff: dict | None = None,
+        expect_followup: bool = False,
+        followup_candidates: list | None = None,
+    ) -> tuple[str, queue.Queue, int]:
+        """Streaming variant of ``generate``: returns ``(request_id, queue,
+        truncated_prompt_tokens)``, the queue holding the request's
+        TokenEvents, the last one finished. A branched stream emits nothing
+        while its branches decode; at resolution the winner's events replay
+        under ``request_id``, then one terminal, and
         ``pop_group_meta(request_id)`` gives the ``branches`` summary.
         ``release_stream`` when the consumer goes away."""
+        n_branches, branch_policy = validate_branch_spec(n_branches, branch_policy)
+        if n_branches > 1:
+            _check_branch_compat(response_schema, images, audios)
         q: queue.Queue = queue.Queue()
-        rid = self._submit(("stream", q), prompt, tokens, max_new_tokens, temperature, top_k,
-                           top_p, stop_token_ids, session_id, response_schema, deadline_s,
-                           priority, n_branches, branch_policy)
-        return rid, q
+        rid, truncated = self._submit(
+            ("stream", q), prompt, tokens, max_new_tokens, temperature, top_k, top_p,
+            stop_token_ids, session_id, response_schema, context_overflow, images, audios,
+            deadline_s, priority, n_branches, branch_policy, expect_followup,
+            followup_candidates)
+        return rid, q, truncated
 
     def release_stream(self, rid: str) -> None:
         """The consumer of ``rid``'s stream is gone: cancel its request (a
-        branched one whole)."""
+        branched one whole) if it still runs."""
         self._abandon(rid)
         with self._lock:
             self._group_meta.pop(rid, None)
@@ -324,24 +470,39 @@ class ModelBackend:
             return self._group_meta.pop(rid, None)
 
     def _submit(self, sink, prompt, tokens, max_new_tokens, temperature, top_k, top_p,
-                stop_token_ids, session_id, response_schema, deadline_s, priority,
-                n_branches, branch_policy) -> str:
+                stop_token_ids, session_id, response_schema, context_overflow, images,
+                audios, deadline_s, priority, n_branches, branch_policy, expect_followup,
+                followup_candidates) -> tuple[str, int]:
         """Validate, register ``sink`` for the new request id and submit the
-        request to the engine; returns the id."""
+        request to the engine; returns ``(id, prompt tokens truncated)``."""
         if self._draining:
             raise NodeDrainingError("node is draining: not admitting new work")
-        n_branches, branch_policy = validate_branch_spec(n_branches, branch_policy)
-        if n_branches > 1 and response_schema is not None:
-            raise ValueError(
-                "branch decoding is incompatible with response_schema "
-                "(constrained decoding owns the sampler mask)"
-            )
+        if images or audios:
+            what = ("image inputs need the vision tower (models/vision.py)" if images else
+                    "audio inputs need the audio tower (models/audio.py)")
+            raise BadRequestError(
+                f"{what} and the node's media fusion, which this port does not have yet; "
+                "send text only")
         if tokens is None:
             if prompt is None:
                 raise ValueError("one of 'prompt' or 'tokens' is required")
             if self.tokenizer is None:
                 raise ValueError("no tokenizer loaded on this model node; pass 'tokens'")
             tokens = self.tokenizer.encode(prompt)
+        if context_overflow not in CONTEXT_OVERFLOW:
+            raise ValueError(f"unknown context_overflow policy {context_overflow!r}")
+        truncated = 0
+        if context_overflow == "truncate_left":
+            budget = self.engine.ecfg.max_context - max_new_tokens
+            if budget < 1:
+                raise ValueError(
+                    f"max_new_tokens={max_new_tokens} leaves no room for a "
+                    f"prompt in a {self.engine.ecfg.max_context}-token context"
+                )
+            if len(tokens) > budget:
+                # keep the tail: the most recent turns matter most
+                truncated = len(tokens) - budget
+                tokens = tokens[-budget:]
         grammar = None
         if response_schema is not None:
             if not isinstance(response_schema, dict):
@@ -354,6 +515,9 @@ class ModelBackend:
                         "constrained decoding needs stop_token_ids (tokenizer has no eos_token_id)"
                     )
                 stop_token_ids = [eos]
+        # a hint: validated as the JAX node does, then unused (keep-warm and
+        # the speculative next-step prefill are not ported)
+        self._followup_cand_tokens(followup_candidates if expect_followup else None)
         with self._lock:
             if self.error is not None:
                 raise RuntimeError(f"engine stopped after a failed step: {self.error!r}")
@@ -390,7 +554,234 @@ class ModelBackend:
                 self._forget(rid)
             raise
         self._wake.set()
-        return rid
+        return rid, truncated
+
+    def _followup_cand_tokens(self, cands) -> list[list[int]] | None:
+        """Declared follow-up candidates as token lists (the JAX node's
+        contract): no tokenizer for a string, an empty candidate, or more
+        than ``SPEC_MAX_CANDIDATES`` drop; a container that is not a list or
+        an element of the wrong type raises ValueError."""
+        if not cands:
+            return None
+        if not isinstance(cands, (list, tuple)):
+            raise ValueError(
+                f"followup_candidates must be a list, got {type(cands).__name__}"
+            )
+        out: list[list[int]] = []
+        for cand in cands:
+            if len(out) >= SPEC_MAX_CANDIDATES:
+                break
+            if isinstance(cand, str):
+                if self.tokenizer is None:
+                    continue
+                toks = self.tokenizer.encode(cand)
+            elif isinstance(cand, (list, tuple)):
+                toks = list(cand)
+                if not all(isinstance(t, int) and not isinstance(t, bool) for t in toks):
+                    raise ValueError(
+                        "followup_candidates token lists must contain only ints"
+                    )
+            else:
+                raise ValueError(
+                    "each followup candidate must be a string or a token list, "
+                    f"got {type(cand).__name__}"
+                )
+            if toks:
+                out.append(toks)
+        return out or None
+
+    def apply_chat_template(self, messages: list[dict]) -> str:
+        """[{role, content}] → one prompt string: the JAX node's role-tagged
+        transcript for tokenizers without a chat template (the port has no
+        HF tokenizer yet)."""
+        if not isinstance(messages, list):
+            raise ValueError("messages must be a list of {role, content} objects")
+        for i, m in enumerate(messages):
+            bad = (
+                not isinstance(m, dict)
+                or not isinstance(m.get("content"), str)
+                or m.get("role") not in ("system", "user", "assistant")
+            )
+            if bad:
+                raise ValueError(
+                    f"messages[{i}] must be {{role: system|user|assistant, "
+                    "content: str}"
+                )
+        lines = [f"{m['role']}: {m['content']}" for m in messages]
+        return "\n".join(lines) + "\nassistant:"
+
+    def embed(
+        self,
+        prompt: str | None = None,
+        tokens: list[int] | None = None,
+        pooling: str = "mean",
+        context_overflow: str = "error",
+        prompts: list[str] | None = None,
+    ) -> dict[str, Any]:
+        """Text → L2-normalized embedding from the LM's final-norm hidden
+        states, mean- or last-token-pooled over the real tokens (the JAX
+        node's ``embed``). ``prompts`` is the batch form,
+        ``{"embeddings": [...]}``. Over-long inputs follow
+        ``context_overflow``: "error" rejects, "truncate_left" keeps the
+        last ``max_context`` tokens and reports ``truncated_tokens``. The
+        rows go through forwards of at most ``EMBED_CHUNK_TOKENS`` padded
+        tokens (``embed_chunks``; ``embed_rows``, attention through
+        ``dense_causal_attention``), each a job of the engine's drive
+        thread: it never overlaps a decode step's graph capture or replay,
+        and a live decode waits for one chunk at most. Rows pad to the
+        longest of their chunk (not to a prefill bucket): padding follows
+        every real token, so causal attention and the pooling mask keep it
+        out."""
+        if pooling not in ("mean", "last"):
+            raise ValueError(f"pooling={pooling!r} must be 'mean' or 'last'")
+        if context_overflow not in CONTEXT_OVERFLOW:
+            raise ValueError(
+                f"context_overflow={context_overflow!r} must be 'error' or "
+                "'truncate_left'"
+            )
+        batch_mode = prompts is not None
+        if batch_mode:
+            if prompt is not None or tokens is not None:
+                raise ValueError("prompts is exclusive with prompt/tokens")
+            if not prompts:
+                raise ValueError("prompts must be non-empty")
+            if self.tokenizer is None:
+                raise ValueError("no tokenizer loaded on this model node")
+            token_rows = [self.tokenizer.encode(p) for p in prompts]
+        else:
+            if tokens is None:
+                if prompt is None:
+                    raise ValueError("one of 'prompt', 'tokens', 'prompts' is required")
+                if self.tokenizer is None:
+                    raise ValueError("no tokenizer loaded on this model node; pass 'tokens'")
+                tokens = self.tokenizer.encode(prompt)
+            token_rows = [list(tokens)]
+        max_ctx = self.engine.ecfg.max_context
+        truncated_rows: list[int] = []
+        for i, row in enumerate(token_rows):
+            if not row:
+                raise ValueError(f"cannot embed an empty sequence (row {i})")
+            if len(row) > max_ctx:
+                if context_overflow == "error":
+                    raise ValueError(
+                        f"sequence of {len(row)} tokens (row {i}) exceeds "
+                        f"max_context={max_ctx}; pass context_overflow="
+                        "'truncate_left' to embed the most recent context"
+                    )
+                truncated_rows.append(len(row) - max_ctx)
+                token_rows[i] = row[-max_ctx:]
+            else:
+                truncated_rows.append(0)
+        lens = [len(r) for r in token_rows]
+
+        def run(rows: list[list[int]]) -> torch.Tensor:
+            params = self.engine.params
+            if self.engine.device.type != "cuda":
+                return embed_rows(params, self.cfg, rows, pooling).cpu()
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            v = embed_rows(params, self.cfg, rows, pooling)
+            b.record()
+            v = v.cpu()  # waits for the forward
+            self.embed_ms.append(a.elapsed_time(b))
+            return v
+
+        vecs = torch.empty((len(token_rows), self.cfg.hidden_size))
+        for chunk in embed_chunks(lens, EMBED_CHUNK_TOKENS):
+            vecs[chunk] = self._on_engine_thread(
+                functools.partial(run, [token_rows[i] for i in chunk]))
+        base = {"dim": int(vecs.shape[1]), "model": self.model_name, "pooling": pooling}
+        if batch_mode:
+            out = {**base, "embeddings": vecs.tolist(), "tokens_used": lens}
+            if any(truncated_rows):
+                out["truncated_tokens"] = truncated_rows
+            return out
+        out = {**base, "embedding": vecs[0].tolist(), "tokens_used": lens[0]}
+        if truncated_rows[0]:
+            out["truncated_tokens"] = truncated_rows[0]
+        return out
+
+    def _on_engine_thread(self, fn):
+        """Run ``fn`` on the drive thread between two ticks and return its
+        result (inline when the drive loop was never started or has been
+        joined: nothing can overlap it then)."""
+        if threading.current_thread() is self._thread:
+            return fn()
+        fut: concurrent.futures.Future = concurrent.futures.Future()
+        with self._lock:
+            if self.error is not None:
+                raise RuntimeError(f"engine stopped after a failed step: {self.error!r}")
+            inline = self._thread is None
+            if not inline:
+                if self._stop.is_set():  # the loop may still be in its last step
+                    raise RuntimeError("model node stopped")
+                self._jobs.append((fn, fut))
+        if inline:
+            return fn()
+        self._wake.set()
+        return fut.result()
+
+    def _run_job(self) -> None:
+        with self._lock:
+            fn, fut = self._jobs.pop(0)
+        try:
+            fut.set_result(fn())
+        except Exception as e:  # noqa: BLE001 — the job's caller gets it
+            fut.set_exception(e)
+
+    def _fail_jobs(self, error: BaseException) -> None:
+        with self._lock:
+            jobs, self._jobs = self._jobs, []
+        for _, fut in jobs:
+            fut.set_exception(error)
+
+    def prep_stream_kwargs(self, body: dict) -> dict:
+        """The ``submit_stream`` arguments of a ``/generate/stream`` body
+        (the JAX node's ``_prep_stream_kwargs``): known keys that are not
+        null, ``messages`` through the chat template, text output only;
+        ``kv_peer`` is a transport hint and never reaches the engine."""
+        kw = {k: body[k] for k in STREAM_PARAMS if body.get(k) is not None}
+        if body.get("messages") is not None:
+            if kw.get("prompt") is not None or kw.get("tokens") is not None:
+                raise ValueError("messages is exclusive with prompt/tokens")
+            kw["prompt"] = self.apply_chat_template(body["messages"])
+        if body.get("output") not in (None, "text"):
+            raise ValueError(
+                "the token stream is text-only; use the unary generate "
+                "path for output='audio'/'speech'/'image'"
+            )
+        return kw
+
+    def event_frame(self, ev: TokenEvent) -> dict:
+        """One SSE data frame of the token stream."""
+        frame = {"token": ev.token, "index": ev.index, "finished": ev.finished,
+                 "finish_reason": ev.finish_reason, "logprob": ev.logprob}
+        if self.tokenizer is not None and ev.token >= 0:
+            frame["text"] = self.tokenizer.decode([ev.token])
+        return frame
+
+    def heartbeat_stats(self) -> dict[str, Any]:
+        """What every heartbeat carries (the JAX node's ``_heartbeat_stats``
+        without ``prefix_sketch`` and the channel counters: the cluster
+        prefix tier and the channel are not ported)."""
+        eng = self.engine
+        return {
+            **dict(eng.stats),
+            **eng.grammar_bank_stats(),
+            **eng.prefix_cache_stats(),
+            **eng.scheduler_stats(),
+            "active_slots": eng.num_active,
+            "pending_requests": len(eng.pending),
+            "free_pages": eng.allocator.free_pages,
+            "draining": int(self._draining),
+            "latency_hist": eng.latency_histograms(),
+        }
+
+    def stats_doc(self) -> dict[str, Any]:
+        """``GET /stats``: the heartbeat's stats under the JAX route's key
+        names (``model``, ``pending``) besides."""
+        return {"model": self.model_name, **self.heartbeat_stats(),
+                "pending": len(self.engine.pending)}
 
     def _forget(self, rid: str) -> BranchGroup | None:
         """Drop ``rid``'s sinks (under _lock); returns its group, if any."""
@@ -405,9 +796,11 @@ class ModelBackend:
         """No reader is left for ``rid``: drop its sinks and cancel it in the
         engine, every live branch of a group."""
         with self._lock:
+            live = rid in self._waiting or rid in self._streams
             g = self._forget(rid)
         if g is None:
-            self.cancel(rid)
+            if live:
+                self.cancel(rid)
             return
         for b in map(g.branch, g.branch_rids()):
             if b is not None and b.live:
@@ -531,20 +924,97 @@ def _error_event(rid: str, error: BaseException) -> TokenEvent:
                       finish_reason=f"error: engine step failed: {error!r}")
 
 
-_GENERATE_ARGS = frozenset(
-    p for p in inspect.signature(ModelBackend.generate).parameters if p not in ("self", "timeout")
-)
+class InputError(TypeError):
+    """A reasoner input that does not fit its parameters: not an object, an
+    unknown key, or null where the parameter takes none (HTTP 422, as the
+    JAX SDK's validation error)."""
+
+
+def _params_of(fn) -> dict[str, tuple[Any, Any]]:
+    """A reasoner's input parameters: name -> (annotation, default), in
+    signature order (``self`` and ``timeout`` excluded)."""
+    hints = typing.get_type_hints(fn)
+    return {n: (hints.get(n, Any), p.default)
+            for n, p in inspect.signature(fn).parameters.items() if n not in ("self", "timeout")}
+
+
+def _allows_none(ann) -> bool:
+    return ann is Any or ann is type(None) or (
+        typing.get_origin(ann) in (typing.Union, types.UnionType)
+        and type(None) in typing.get_args(ann))
+
+
+def check_input(params: dict[str, tuple[Any, Any]], payload: Any) -> dict[str, Any]:
+    """The keyword arguments of a reasoner call from its JSON ``input``:
+    null means no arguments; an unknown key, or null for a parameter that
+    does not take it, raises InputError. Values go on as sent: the backend
+    validates them (a wrong type raises there)."""
+    if payload is None:
+        return {}
+    if not isinstance(payload, dict):
+        raise InputError(f"input must be a JSON object, got {type(payload).__name__}")
+    unknown = sorted(set(payload) - set(params))
+    if unknown:
+        raise InputError(f"unknown input keys {unknown}; known: {list(params)}")
+    nulls = sorted(k for k, v in payload.items() if v is None and not _allows_none(params[k][0]))
+    if nulls:
+        raise InputError(f"input keys {nulls} must not be null")
+    return dict(payload)
+
+
+def input_schema(name: str, params: dict[str, tuple[Any, Any]]) -> dict:
+    """The reasoner's input schema as registration carries it: one property
+    per parameter (the JAX node's property names), with its default."""
+    props, required = {}, []
+    for n, (_, default) in params.items():
+        prop = {"title": n.replace("_", " ").title()}
+        if default is inspect.Parameter.empty:
+            required.append(n)
+        else:
+            prop["default"] = default
+        props[n] = prop
+    doc = {"type": "object", "title": f"{name}_Input", "properties": props}
+    if required:
+        doc["required"] = required
+    return doc
+
+
+GENERATE_PARAMS = _params_of(ModelBackend.generate)
+EMBED_PARAMS = _params_of(ModelBackend.embed)
+STREAM_PARAMS = _params_of(ModelBackend.submit_stream)  # the token stream's body keys
 
 
 class ModelNodeServer:
     """Stdlib HTTP front of one ModelBackend (one handler thread per
-    connection; the engine batches whatever is in flight)."""
+    connection; the engine batches whatever is in flight), and with a
+    ``control_plane`` URL a node of that control plane: it registers at
+    ``start`` (kind "model"), heartbeats every ``heartbeat_interval``
+    seconds with the engine's stats on a daemon thread (three failures in a
+    row: ``connection_state`` "degraded"; a 404: it registers again), acks a
+    gateway-tracked request (``X-Execution-ID``) with 202 and posts its
+    outcome to ``/api/v1/executions/{id}/status``, and at ``stop`` sends a
+    "stopping" heartbeat and deregisters."""
 
-    def __init__(self, backend: ModelBackend, node_id: str = "model"):
+    def __init__(self, backend: ModelBackend, node_id: str = "model",
+                 control_plane: str | None = None, heartbeat_interval: float = 2.0):
+        if "." in node_id:
+            raise ValueError("node_id must not contain '.'")
         self.backend = backend
         self.node_id = node_id
+        self.client = ControlPlaneClient(control_plane) if control_plane else None
+        self.heartbeat_interval = heartbeat_interval
+        self.metadata = {"model": backend.model_name, "modalities": ["text"], "role": "mixed"}
+        self.connection_state = "connected"  # "degraded" after failed heartbeats
+        self.components = {"generate": (backend.generate, GENERATE_PARAMS),
+                           "embed": (backend.embed, EMBED_PARAMS)}
+        self.host = "127.0.0.1"
         self._httpd: ThreadingHTTPServer | None = None
         self._thread: threading.Thread | None = None
+        self._hb_thread: threading.Thread | None = None
+        self._hb_stop = threading.Event()
+        self._registered = False
+        self._tracked: set[threading.Thread] = set()
+        self._tracked_lock = threading.Lock()
 
     @property
     def port(self) -> int:
@@ -552,15 +1022,48 @@ class ModelNodeServer:
 
     def start(self, host: str = "127.0.0.1", port: int = 0) -> int:
         """Start the engine loop and serve on ``host:port`` (0 = any free
-        port) from a background thread; returns the bound port."""
+        port) from a background thread, then register and start
+        heartbeating if a control plane is set; returns the bound port. A
+        failed registration stops the node and raises."""
         self.backend.start()
+        self.host = host
         self._httpd = ThreadingHTTPServer((host, port), _make_handler(self))
         self._httpd.daemon_threads = True
         self._thread = threading.Thread(target=self._httpd.serve_forever, name="http", daemon=True)
         self._thread.start()
+        if self.client is not None:
+            try:
+                self.client.register_node(self.node_spec())
+            except BaseException:
+                self.stop()
+                raise
+            self._registered = True
+            self._hb_stop.clear()
+            self._hb_thread = threading.Thread(target=self._heartbeat_loop, name="heartbeat",
+                                               daemon=True)
+            self._hb_thread.start()
         return self.port
 
     def stop(self) -> None:
+        """Stop heartbeating, let tracked requests call back, send a
+        "stopping" heartbeat and deregister, then stop serving and the
+        engine."""
+        self._hb_stop.set()
+        if self._hb_thread is not None:
+            self._hb_thread.join(timeout=30.0)
+            self._hb_thread = None
+        with self._tracked_lock:
+            tracked = list(self._tracked)
+        for th in tracked:
+            th.join(timeout=120.0)
+        if self._registered:
+            self._registered = False
+            for call in (lambda: self.client.heartbeat(self.node_id, status="stopping"),
+                         lambda: self.client.deregister_node(self.node_id)):
+                try:
+                    call()
+                except Exception as e:  # noqa: BLE001 — the lease sweep covers a lost goodbye
+                    log.debug("control-plane goodbye failed: %r", e)
         if self._httpd is not None:
             self._httpd.shutdown()
             self._httpd.server_close()
@@ -570,17 +1073,86 @@ class ModelNodeServer:
             self._thread = None
         self.backend.stop()
 
+    def node_spec(self) -> dict[str, Any]:
+        """The registration body (the JAX SDK's ``Agent._node_spec``); the
+        control plane probes the callback candidates' ``/health`` and keeps
+        the first that answers with this node's id."""
+        base = f"http://{self.host}:{self.port}"
+        return {
+            "node_id": self.node_id,
+            "base_url": base,
+            "callback_candidates": list(dict.fromkeys([base, f"http://127.0.0.1:{self.port}"])),
+            "kind": "model",
+            "metadata": dict(self.metadata),
+            "reasoners": self.reasoners(),
+            "skills": [],
+        }
+
     def reasoners(self) -> list[dict]:
-        return [
-            {
-                "id": "generate",
-                "description": f"GPU-served {self.backend.model_name} generation",
-                "input_schema": {
-                    "type": "object",
-                    "properties": {name: {} for name in sorted(_GENERATE_ARGS)},
-                },
-            }
-        ]
+        what = {"generate": "generation", "embed": "embeddings"}
+        return [{"id": cid, "description": f"GPU-served {self.backend.model_name} {what[cid]}",
+                 "input_schema": input_schema(cid, params)}
+                for cid, (_, params) in self.components.items()]
+
+    def invoke(self, cid: str, payload: Any) -> Any:
+        fn, params = self.components[cid]
+        return fn(**check_input(params, payload))
+
+    def _heartbeat_loop(self) -> None:
+        failures = 0
+        while not self._hb_stop.wait(self.heartbeat_interval):
+            # a broken stats provider gives a stats-less heartbeat, never none
+            stats = None
+            try:
+                stats = self.backend.heartbeat_stats()
+            except Exception as e:  # noqa: BLE001
+                log.debug("heartbeat stats failed: %r", e)
+            try:
+                self.client.heartbeat(self.node_id, stats=stats)
+            except ControlPlaneError as e:
+                failures += 1
+                if e.status == 404:  # the control plane lost us (restart): register again
+                    try:
+                        self.client.register_node(self.node_spec())
+                    except Exception as re_err:  # noqa: BLE001 — the next beat retries
+                        log.debug("re-registration failed: %r", re_err)
+                    else:
+                        failures = 0
+                        self.connection_state = "connected"
+            except Exception:  # noqa: BLE001 — transient: keep beating
+                failures += 1
+            else:
+                failures = 0
+                self.connection_state = "connected"
+            if failures >= 3:
+                self.connection_state = "degraded"
+
+    def run_tracked(self, cid: str, payload: Any, execution_id: str) -> None:
+        """Serve a 202-acked request on its own thread and post its outcome:
+        "completed" with the result, or "failed" with ``repr`` of the error
+        (the SDK's backpressure retry reads ``QueueFullError`` there)."""
+        def run():
+            try:
+                result = self.invoke(cid, payload)
+                json.dumps(result)  # an unserializable result fails here, not stranded
+            except Exception as e:  # noqa: BLE001 — reported to the control plane
+                self._post_status(execution_id, "failed", error=repr(e))
+            else:
+                self._post_status(execution_id, "completed", result=result)
+            finally:
+                with self._tracked_lock:
+                    self._tracked.discard(threading.current_thread())
+
+        th = threading.Thread(target=run, name=f"tracked-{execution_id}", daemon=True)
+        with self._tracked_lock:
+            self._tracked.add(th)
+        th.start()
+
+    def _post_status(self, execution_id: str, status: str, **kw) -> None:
+        try:
+            self.client.post_status(execution_id, status, **kw)
+        except Exception as e:  # noqa: BLE001 — the control plane marks it stale
+            log.warning("status callback %s for %s failed: %r", status, execution_id, e)
 
 
 def _make_handler(node: ModelNodeServer):
@@ -598,18 +1170,30 @@ def _make_handler(node: ModelNodeServer):
             self.end_headers()
             self.wfile.write(body)
 
+        def _empty(self, status: int) -> None:
+            self.send_response(status)
+            self.send_header("Content-Length", "0")
+            self.end_headers()
+
         def do_GET(self):
             if self.path == "/health":
-                self._json(200, {"status": "ok", "node_id": node.node_id})
+                self._json(200, {"status": "ok", "node_id": node.node_id,
+                                 "control_plane": node.connection_state})
             elif self.path == "/reasoners":
                 self._json(200, {"reasoners": node.reasoners()})
+            elif self.path == "/stats":
+                self._json(200, node.backend.stats_doc())
             else:
                 self._json(404, {"error": "not found"})
 
         def do_POST(self):
             n = int(self.headers.get("Content-Length") or 0)
             raw = self.rfile.read(n) if n else b""
-            if self.path != "/reasoners/generate":
+            if self.path == "/generate/stream":
+                self._stream(raw)
+                return
+            cid = self.path[len("/reasoners/"):] if self.path.startswith("/reasoners/") else None
+            if cid not in node.components:
                 self._json(404, {"error": "unknown component"})
                 return
             try:
@@ -620,12 +1204,15 @@ def _make_handler(node: ModelNodeServer):
             if not isinstance(body, dict):
                 self._json(400, {"error": "JSON object body required"})
                 return
-            payload = body.get("input") or {}
-            if not isinstance(payload, dict) or set(payload) - _GENERATE_ARGS:
-                self._json(422, {"error": f"input must be an object with keys in {sorted(_GENERATE_ARGS)}"})
+            payload = body.get("input")
+            eid = self.headers.get("X-Execution-ID")
+            if eid and node.client is not None:
+                # gateway-tracked: ack now, call back with the outcome
+                node.run_tracked(cid, payload, eid)
+                self._empty(202)
                 return
             try:
-                result = node.backend.generate(**payload)
+                result = node.invoke(cid, payload)
             except (QueueFullError, GrammarCapacityError) as e:
                 self._json(503, {"error": repr(e)})
                 return
@@ -639,6 +1226,60 @@ def _make_handler(node: ModelNodeServer):
                 self._json(500, {"error": repr(e)})
                 return
             self._json(200, {"result": result})
+
+        def _stream(self, raw: bytes) -> None:
+            """SSE token stream (the JAX node's ``stream_handler``):
+            ``data: {frame}`` per event, ``: ping`` after 10 s without one,
+            a terminal frame before close on a failure, the request
+            cancelled when the reader goes away."""
+            backend = node.backend
+            try:
+                body = json.loads(raw) if raw else {}
+                if not isinstance(body, dict):
+                    raise ValueError("JSON object body required")
+                rid, q, _ = backend.submit_stream(**backend.prep_stream_kwargs(body))
+            except QueueFullError as e:
+                self._json(503, {"error": str(e)})
+                return
+            except Exception as e:  # noqa: BLE001 — a request the stream cannot take
+                self._json(400, {"error": repr(e)})
+                return
+            self.close_connection = True  # the stream ends with the connection
+            try:
+                self.send_response(200)
+                self.send_header("Content-Type", "text/event-stream")
+                self.send_header("Cache-Control", "no-cache")
+                self.send_header("Connection", "close")
+                self.end_headers()
+                while True:
+                    try:
+                        ev = q.get(timeout=SSE_PING_S)
+                    except queue.Empty:
+                        self.wfile.write(b": ping\n\n")  # idle: keep proxies open
+                        self.wfile.flush()
+                        continue
+                    frame = backend.event_frame(ev)
+                    if ev.finished:
+                        meta = backend.pop_group_meta(rid)
+                        if meta is not None:
+                            frame["branches"] = meta
+                    self.wfile.write(f"data: {json.dumps(frame)}\n\n".encode())
+                    self.wfile.flush()
+                    if ev.finished:
+                        break
+            except OSError:
+                backend.cancel(rid)  # the reader is gone
+            except Exception as e:  # noqa: BLE001 — terminal frame, then close
+                try:
+                    self.wfile.write(("data: " + json.dumps(
+                        {"token": -1, "index": -1, "finished": True,
+                         "finish_reason": f"error: {e!r}"}) + "\n\n").encode())
+                    self.wfile.flush()
+                except OSError:
+                    pass
+                backend.cancel(rid)
+            finally:
+                backend.release_stream(rid)
 
     return Handler
 
@@ -675,13 +1316,15 @@ def build_model_node(
     node_id: str = "model",
     spec_draft: str | None = None,
     spec_k: int | None = None,
+    control_plane: str | None = None,
 ) -> tuple[ModelNodeServer, ModelBackend]:
     """Construct ``(server, backend)`` for a preset: random weights drawn
     from ``seed`` on ``device`` unless ``params`` are given, the byte
     tokenizer unless one is given. ``spec_k`` sets ``ecfg.spec_k``; with
     ``spec_k > 0`` the ``spec_draft`` preset is the draft model
     (``load_draft_model``, seed ``seed + 4`` as the JAX node draws it, in
-    the target's dtype). Call ``server.start(port=...)``."""
+    the target's dtype). With ``control_plane`` (its base URL) the server
+    registers as ``node_id`` and heartbeats. Call ``server.start(port=...)``."""
     cfg = get_config(model)
     if ecfg is None:
         ecfg = EngineConfig(grammar_slots=GRAMMAR_SLOTS)
@@ -701,7 +1344,7 @@ def build_model_node(
         params, cfg, ecfg, tokenizer=tokenizer, seed=seed, model_name=model, device=device,
         draft=draft,
     )
-    return ModelNodeServer(backend, node_id=node_id), backend
+    return ModelNodeServer(backend, node_id=node_id, control_plane=control_plane), backend
 
 
 def main(argv: list[str] | None = None) -> None:
@@ -717,12 +1360,21 @@ def main(argv: list[str] | None = None) -> None:
                     help="draft model preset for speculative decoding (with --spec-k)")
     ap.add_argument("--spec-k", type=int, default=None,
                     help="draft proposals per speculative step (needs --spec-draft)")
+    ap.add_argument("--control-plane", default=None, metavar="URL",
+                    help="register with this control plane and heartbeat to it")
+    ap.add_argument("--node-id", default="model", help="the node's id in the control plane")
     args = ap.parse_args(argv)
     server, _ = build_model_node(
         args.model, seed=args.seed, device=args.device,
         ecfg=EngineConfig(grammar_slots=GRAMMAR_SLOTS, kv_quant_dtype=args.kv_quant_dtype),
-        spec_draft=args.spec_draft, spec_k=args.spec_k,
+        spec_draft=args.spec_draft, spec_k=args.spec_k, node_id=args.node_id,
+        control_plane=args.control_plane,
     )
+
+    def on_term(signum, frame):  # SIGTERM stops as Ctrl-C does: deregister first
+        raise KeyboardInterrupt
+
+    signal.signal(signal.SIGTERM, on_term)
     port = server.start(args.host, args.port)
     print(f"model node {args.model} serving on http://{args.host}:{port}", flush=True)
     try:

@@ -23,7 +23,8 @@ the result line:
                split edges, and at the served decode shape (32 rows, 9 live
                at the serve's contexts); dense prefill (the tensor-core tile)
                at hd 32/64/128, rep 1/4/8, S not a multiple of 64, with and
-               without a window. The head dims of the other presets (96
+               without a window, and at every forward of the api phase's
+               embeds (B 1-4, S 480-1500). The head dims of the other presets (96
                phi-3-mini, 256 gemma-2b and gemma-7b, 16 llama-tiny-tp8) at
                each preset's own heads and window: decode at contexts of
                2100 (also over int8 and fp8 pools), a 512-token chunk over
@@ -138,7 +139,23 @@ the result line:
                tails bit-equal to their parent's, one terminal per branch,
                one winner, no page leaked. Prints pages held at peak, TTFT,
                decode tok/s and the ragged launches per replay.
-13. ``gemma-7b``, ``phi-3-mini``  each at full width and 2 layers (random
+13. ``api``     the node as the SDK and the control plane call it
+               (``phase_api``), on the same weights: ``Agent.ai()``'s
+               payload with a prompt and with ``messages`` (tokens equal
+               to the plain prompt's and the rendered transcript's), a
+               2248-token prompt under "truncate_left" (equal to the
+               explicit tail) and "error" (a 4xx), the SSE stream (equal
+               to the unary request; TTFT at the first frame), ``embed`` of
+               one prompt and of 8 prompts of 64-1500 tokens over HTTP
+               (the node's forwards of at most 2048 padded tokens; unit
+               norms, 32 dense launches a forward, device ms) and during a
+               live decode (its tokens unchanged; the largest frame gap:
+               one forward at most), and a stand-in
+               control plane that must see the registration, heartbeats
+               with the engine's stats, a tracked request's callback and
+               the goodbye; then the embeddings through the plain attention
+               (cosine at least ``API_COSINE_MIN``).
+14. ``gemma-7b``, ``phi-3-mini``  each at full width and 2 layers (random
                bf16 weights): five requests through the engine (phi-3-mini
                with a prompt past its 2047-token window), every decode
                launch through the split-context kernel, then the
@@ -165,6 +182,7 @@ import sys
 import threading
 import time
 import traceback
+import urllib.error
 import urllib.request
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -387,14 +405,16 @@ def quant_shapes():
 def dense_shapes():
     """(B, S, H, Kh, hd, window) of the dense-prefill checks: the Llama-3-8B
     batch, then hd 32/64, rep 1/4/8, S not a multiple of 64, windows; then
-    two 512-token prompts at each ``HEAD_DIM_PRESETS`` preset's heads."""
+    two 512-token prompts at each ``HEAD_DIM_PRESETS`` preset's heads; then
+    every Llama-3-8B forward of ``phase_api``'s embeds."""
     new_hd = []
     for preset in HEAD_DIM_PRESETS:
         (kh, rep, hd), _ = _preset_heads(preset)
         new_hd.append((2, 512, kh * rep, kh, hd, None))
+    embeds = tuple((B, S, 32, 8, 128, None) for B, S in api_embed_forwards())
     return ((4, 512, 32, 8, 128, None), (2, 200, 8, 2, 64, None), (2, 100, 4, 4, 32, None),
             (1, 333, 16, 2, 64, None), (2, 200, 8, 2, 64, 50), (1, 333, 16, 2, 64, 100),
-            (2, 100, 4, 4, 32, 7)) + tuple(new_hd)
+            (2, 100, 4, 4, 32, 7)) + tuple(new_hd) + embeds
 
 
 def ragged_work(case, es: int, window, pool_es: int | None = None):
@@ -2487,6 +2507,430 @@ def phase_fork(results, state, seed: int, device: str = "cuda", prompt_len: int 
         f"replay {a['ragged_launches_per_replay']}")
 
 
+# the api phase: the SDK's request surface, the token stream, embed and the
+# control plane, through the node's HTTP routes
+API_NEW = 16
+API_LIVE_NEW = 64
+API_EMBED_LENS = (64, 200, 333, 480, 700, 1000, 1200, 1500)
+# prompt lengths: (a) the prompt, (a) the user message, (c), (e), (d) the single embed
+API_PROMPTS = (150, 160, 300, 400, 500)
+API_COSINE_MIN = 0.999  # embed through the kernel against the plain attention, bf16
+API_PAGES = 1024
+# the input properties of the JAX node's reasoners (the JAX SDK builds them
+# from ModelBackend.generate and .embed); tests/test_torch_node_api.py holds
+# these names against the JAX node itself
+JAX_GENERATE_PROPS = (
+    "prompt", "tokens", "messages", "max_new_tokens", "temperature", "top_k", "top_p",
+    "stop_token_ids", "session_id", "response_schema", "context_overflow", "images", "audios",
+    "output", "deadline_s", "priority", "n_branches", "branch_policy", "kv_peer",
+    "handoff_export", "handoff", "trace", "expect_followup", "followup_candidates")
+JAX_EMBED_PROPS = ("prompt", "tokens", "pooling", "context_overflow", "prompts")
+# what a heartbeat carries beside the engine's counter dicts
+HEARTBEAT_KEYS = ("active_slots", "pending_requests", "free_pages", "draining", "latency_hist")
+
+
+def api_embed_forwards(embed_lens: tuple | None = None, single: int | None = None) -> list[tuple[int, int]]:
+    """(rows, padded length) of each embed forward ``phase_api`` makes: the
+    single prompt, then the batch's chunks (``embed_chunks``)."""
+    from agentfield_tpu_torch.serving.model_node import EMBED_CHUNK_TOKENS, embed_chunks
+
+    lens = API_EMBED_LENS if embed_lens is None else embed_lens
+    chunks = embed_chunks(list(lens), EMBED_CHUNK_TOKENS)
+    return [(1, API_PROMPTS[4] if single is None else single)] + [
+        (len(c), max(lens[i] for i in c)) for c in chunks]
+
+
+def sdk_payload(**over) -> dict:
+    """The input ``Agent.ai()`` sends for a text call (``sdk/agent.py``
+    :728-744), with its defaults: null media, text output,
+    ``context_overflow`` "truncate_left"."""
+    doc = {"prompt": None, "tokens": None, "messages": None, "images": None, "audios": None,
+           "output": "text", "max_new_tokens": 128, "temperature": 0.0, "top_k": 0,
+           "top_p": 1.0, "stop_token_ids": [], "session_id": None, "response_schema": None,
+           "context_overflow": "truncate_left"}
+    doc.update(over)
+    return doc
+
+
+class StandInControlPlane:
+    """A stdlib stand-in for the control-plane routes a model node calls:
+    ``POST /api/v1/nodes`` (register), ``POST /api/v1/nodes/{id}/heartbeat``
+    (404 for a node it does not know), ``DELETE /api/v1/nodes/{id}`` and
+    ``POST /api/v1/executions/{id}/status``. It records every body with its
+    arrival time."""
+
+    def __init__(self):
+        from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+        self.specs: list[dict] = []
+        self.nodes: dict[str, dict] = {}
+        self.heartbeats: list[tuple[float, str, dict]] = []
+        self.deleted: list[str] = []
+        self.statuses: dict[str, dict] = {}
+        self.cv = threading.Condition()
+        cp = self
+
+        class Handler(BaseHTTPRequestHandler):
+            protocol_version = "HTTP/1.1"
+
+            def log_message(self, *a):
+                pass
+
+            def _reply(self, status, doc):
+                raw = json.dumps(doc).encode()
+                self.send_response(status)
+                self.send_header("Content-Type", "application/json")
+                self.send_header("Content-Length", str(len(raw)))
+                self.end_headers()
+                self.wfile.write(raw)
+
+            def _body(self):
+                n = int(self.headers.get("Content-Length") or 0)
+                return json.loads(self.rfile.read(n)) if n else {}
+
+            def do_POST(self):
+                body, parts = self._body(), self.path.strip("/").split("/")
+                with cp.cv:
+                    if parts == ["api", "v1", "nodes"]:
+                        cp.specs.append(body)
+                        cp.nodes[body["node_id"]] = body
+                        status, doc = 201, {"node": body}
+                    elif parts[:3] == ["api", "v1", "nodes"] and parts[4:] == ["heartbeat"]:
+                        if parts[3] not in cp.nodes:
+                            status, doc = 404, {"error": "unknown node; re-register"}
+                        else:
+                            cp.heartbeats.append((time.perf_counter(), parts[3], body))
+                            status, doc = 200, {"status": body.get("status", "active")}
+                    elif parts[:3] == ["api", "v1", "executions"] and parts[4:] == ["status"]:
+                        cp.statuses[parts[3]] = body
+                        status, doc = 200, {}
+                    else:
+                        status, doc = 404, {"error": "not found"}
+                    cp.cv.notify_all()
+                self._reply(status, doc)
+
+            def do_DELETE(self):
+                parts = self.path.strip("/").split("/")
+                with cp.cv:
+                    found = cp.nodes.pop(parts[3], None) is not None
+                    cp.deleted.append(parts[3])
+                    cp.cv.notify_all()
+                self._reply(200 if found else 404, {"deleted": found})
+
+        self._httpd = ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+        self._httpd.daemon_threads = True
+        self._thread = threading.Thread(target=self._httpd.serve_forever, daemon=True,
+                                        name="stand-in-cp")
+
+    def start(self) -> str:
+        self._thread.start()
+        return f"http://127.0.0.1:{self._httpd.server_address[1]}"
+
+    def stop(self) -> None:
+        self._httpd.shutdown()
+        self._httpd.server_close()
+        self._thread.join(timeout=10.0)
+
+    def wait(self, pred, timeout: float) -> bool:
+        with self.cv:
+            return self.cv.wait_for(pred, timeout=timeout)
+
+
+def _http(port: int, method: str, path: str, body=None, headers=None,
+          timeout: float = 900.0) -> tuple[int, dict | None]:
+    """One request to the node; returns (status, JSON body or None)."""
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}{path}", method=method,
+        data=None if body is None else json.dumps(body).encode(),
+        headers={"Content-Type": "application/json", **(headers or {})})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            raw = resp.read()
+            return resp.status, json.loads(raw) if raw else None
+    except urllib.error.HTTPError as e:
+        raw = e.read()
+        return e.code, json.loads(raw) if raw else None
+
+
+def _sse(port: int, body: dict, on_frame=None, timeout: float = 900.0):
+    """POST ``/generate/stream``; returns (data frames, host ms from the
+    request to the first frame). ``on_frame(i, frame)`` runs per frame."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    t0 = time.perf_counter()
+    conn.request("POST", "/generate/stream", json.dumps(body),
+                 {"Content-Type": "application/json"})
+    resp = conn.getresponse()
+    assert resp.status == 200, (resp.status, resp.read()[:300])
+    frames, first_ms = [], None
+    try:
+        for line in resp:
+            if not line.startswith(b"data: "):
+                continue
+            if first_ms is None:
+                first_ms = (time.perf_counter() - t0) * 1e3
+            frames.append(json.loads(line[6:]))
+            if on_frame is not None:
+                on_frame(len(frames) - 1, frames[-1])
+            if frames[-1]["finished"]:
+                break
+    finally:
+        conn.close()
+    return frames, first_ms
+
+
+def phase_api(results, state, seed: int, device: str = "cuda", model_name: str = "llama-3-8b",
+              new: int = API_NEW, live_new: int = API_LIVE_NEW,
+              embed_lens: tuple = API_EMBED_LENS, prompts: tuple = API_PROMPTS,
+              num_pages: int = API_PAGES,
+              max_pages_per_seq: int = 128, heartbeat_interval: float = 2.0):
+    """The node as the control plane and the SDK call it, on the serve's
+    weights (bf16 pages, decode buckets (4, 16); the shared-prefix cache
+    off, so a repeated prompt runs the same shapes and its greedy tokens
+    can be compared), behind a stand-in control plane. One run, counts
+    reset before it:
+    (a) ``Agent.ai()``'s payload (``sdk_payload``) with a prompt and with
+        ``messages``: 200, greedy tokens equal to a plain request of the
+        prompt and of the rendered transcript;
+    (b) a prompt of ``max_context`` + 200 tokens under "truncate_left":
+        ``truncated_prompt_tokens`` = its excess over ``max_context - new``
+        and the explicit tail's tokens; under "error" a 4xx;
+    (c) the SSE stream: its tokens equal the unary request's; TTFT at the
+        first frame (host clock) against the engine's TTFT of both;
+    (d) ``embed``: one prompt and a batch of ``len(embed_lens)`` prompts
+        (forwards of ``api_embed_forwards``): unit norms within 1e-3, one
+        ``dense_causal_attention`` launch a layer a forward, the forwards'
+        device ms (CUDA events);
+    (e) ``embed`` during a live SSE decode: the decode's tokens equal an
+        idle run's, no failed request;
+    (f) the stand-in receives the JAX-shaped registration, heartbeats with
+        the engine's stats (``latency_hist`` counts > 0 after (a)-(c)), a
+        tracked request's (202) "completed" callback, and at stop a
+        "stopping" heartbeat and the deregistration.
+    After the counts are read: the batch's embeddings in one forward
+    through ``attn_impl="ref"``, their cosine to the kernel's at least
+    ``API_COSINE_MIN`` on the card (the plain version itself on the CPU);
+    and the kernel's one forward against the node's chunked forwards (its
+    rows back in their order), a cosine at least ``API_COSINE_MIN`` too.
+    The kernel itself is held element by element at these shapes in
+    ``phase_check``."""
+    import numpy as np
+    import torch
+
+    from agentfield_tpu_torch.ops.cuda import ragged_paged_attention as rpa
+    from agentfield_tpu_torch.serving.engine import EngineConfig
+    from agentfield_tpu_torch.serving.model_node import (
+        GRAMMAR_SLOTS,
+        ModelBackend,
+        ModelNodeServer,
+        embed_rows,
+    )
+    from agentfield_tpu_torch.serving.tokenizer import ByteTokenizer
+
+    params, cfg = state["params"], state["cfg"]
+    V = cfg.vocab_size
+    on_card = torch.device(device).type == "cuda"
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    rng = np.random.default_rng(seed + 31)
+    n_prompt, n_user, n_sse, n_live, n_single = prompts
+
+    def text(n: int) -> str:  # ASCII letters: one byte-tokenizer token each
+        return "".join(chr(c) for c in rng.integers(97, 123, n))
+
+    ecfg = EngineConfig(max_batch=16, page_size=16, num_pages=num_pages,
+                        max_pages_per_seq=max_pages_per_seq, decode_buckets=(4, 16),
+                        shared_prefix_cache=False, grammar_slots=GRAMMAR_SLOTS)
+    max_ctx = ecfg.max_context
+    cp = StandInControlPlane()
+    cp_url = cp.start()
+    backend = ModelBackend(params, cfg, ecfg, tokenizer=ByteTokenizer(V), seed=seed,
+                           model_name=model_name, device=device)
+    server = ModelNodeServer(backend, node_id="api-node", control_plane=cp_url,
+                             heartbeat_interval=heartbeat_interval)
+    out: dict = {"max_context": max_ctx, "new": new}
+    port = server.start()
+    try:
+        rpa.reset_launches()  # this phase's main path only
+        t_main = time.perf_counter()
+
+        def gen(payload):
+            st, doc = _http(port, "POST", "/reasoners/generate", {"input": payload})
+            assert st == 200, (st, doc)
+            return doc["result"]
+
+        # (a) the SDK's payload, with a prompt and with messages
+        msgs = [{"role": "system", "content": "Answer tersely."},
+                {"role": "user", "content": text(n_user)}]
+        user_prompt = text(n_prompt)
+        a_prompt = gen(sdk_payload(prompt=user_prompt, max_new_tokens=new))
+        a_msgs = gen(sdk_payload(messages=msgs, max_new_tokens=new))
+        plain_prompt = gen({"prompt": user_prompt, "max_new_tokens": new})
+        plain_msgs = gen({"prompt": backend.apply_chat_template(msgs), "max_new_tokens": new})
+        assert len(a_prompt["tokens"]) == new and a_prompt["finish_reason"] == "length"
+        assert a_prompt["tokens"] == plain_prompt["tokens"], "SDK payload != plain prompt"
+        assert a_msgs["tokens"] == plain_msgs["tokens"], "messages != rendered transcript"
+        assert "truncated_prompt_tokens" not in a_prompt
+        # (b) an over-long prompt
+        long = rng.integers(1, V, max_ctx + 200).tolist()
+        budget = max_ctx - new
+        b_trunc = gen(sdk_payload(tokens=long, max_new_tokens=new))
+        b_tail = gen({"tokens": long[-budget:], "max_new_tokens": new})
+        assert b_trunc["truncated_prompt_tokens"] == len(long) - budget, b_trunc.get(
+            "truncated_prompt_tokens")
+        assert b_trunc["tokens"] == b_tail["tokens"], "truncated != explicit tail"
+        b_err, b_err_doc = _http(port, "POST", "/reasoners/generate", {
+            "input": sdk_payload(tokens=long, max_new_tokens=new, context_overflow="error")})
+        assert 400 <= b_err < 500, (b_err, b_err_doc)
+        out["b"] = {"prompt": len(long), "truncated_prompt_tokens":
+                    b_trunc["truncated_prompt_tokens"], "error_status": b_err}
+        # (c) the token stream against the unary request
+        sse_prompt = text(n_sse)
+        unary = gen({"prompt": sse_prompt, "max_new_tokens": new})
+        ttft_unary = backend.engine.ttft_ms[-1]
+        frames, first_ms = _sse(port, {"prompt": sse_prompt, "max_new_tokens": new})
+        ttft_stream = backend.engine.ttft_ms[-1]
+        streamed = [f["token"] for f in frames if f["token"] >= 0]
+        assert streamed == unary["tokens"], "SSE tokens != unary tokens"
+        assert frames[-1]["finish_reason"] == "length" and sum(f["finished"] for f in frames) == 1
+        out["c"] = {"first_frame_ms": first_ms, "engine_ttft_ms_stream": ttft_stream,
+                    "engine_ttft_ms_unary": ttft_unary}
+        t_c = time.perf_counter()
+        # (d) embed: one prompt and a batch
+        d0 = rpa.LAUNCHES["dense_causal_attention"]
+        st, single = _http(port, "POST", "/reasoners/embed", {"input": {"prompt": text(n_single)}})
+        assert st == 200, single
+        batch_prompts = [text(n) for n in embed_lens]
+        n_ms = len(backend.embed_ms)
+        st, batch = _http(port, "POST", "/reasoners/embed", {"input": {"prompts": batch_prompts}})
+        assert st == 200, batch
+        embed_launches = rpa.LAUNCHES["dense_causal_attention"] - d0
+        batch_ms = list(backend.embed_ms)[n_ms:]
+        forwards = api_embed_forwards(embed_lens, n_single)
+        single, batch = single["result"], batch["result"]
+        vecs = [single["embedding"]] + batch["embeddings"]
+        norms = [float(np.linalg.norm(v)) for v in vecs]
+        assert all(abs(n - 1.0) <= 1e-3 for n in norms), norms
+        assert all(np.isfinite(v).all() for v in vecs)
+        assert single["dim"] == cfg.hidden_size and batch["tokens_used"] == list(embed_lens)
+        if on_card:
+            assert embed_launches == len(forwards) * cfg.num_layers, embed_launches
+            assert len(batch_ms) == len(forwards) - 1, batch_ms
+        out["d"] = {"norm_max_dev": max(abs(n - 1.0) for n in norms),
+                    "dense_launches": embed_launches, "forwards": forwards,
+                    "batch_chunk_ms": batch_ms, "batch_ms": sum(batch_ms)}
+        # (e) embed while a decode streams
+        live_prompt = text(n_live)
+        idle = gen({"prompt": live_prompt, "max_new_tokens": live_new})
+        started, seen, arrivals = threading.Event(), {}, []
+
+        def on_frame(i, frame):
+            arrivals.append(time.perf_counter())
+            seen["n"] = i + 1
+            started.set()
+
+        live: dict = {}
+
+        def stream_live():
+            try:
+                live["frames"], _ = _sse(port, {"prompt": live_prompt,
+                                               "max_new_tokens": live_new}, on_frame)
+            except BaseException as e:  # noqa: BLE001 — failed below
+                live["error"] = repr(e)
+                started.set()
+
+        th = threading.Thread(target=stream_live)
+        th.start()
+        assert started.wait(600), "the live stream never started"
+        st, during = _http(port, "POST", "/reasoners/embed", {"input": {"prompts": batch_prompts}})
+        frames_at_embed_end = seen.get("n", 0)
+        th.join()
+        assert "error" not in live, live
+        assert st == 200, during
+        live_tokens = [f["token"] for f in live["frames"] if f["token"] >= 0]
+        assert frames_at_embed_end < live_new, "the decode ended before the embed: no overlap"
+        assert live_tokens == idle["tokens"], "an embed during the decode changed its tokens"
+        gaps = [(b - a) * 1e3 for a, b in zip(arrivals, arrivals[1:])]
+        out["e"] = {"frames_when_embed_returned": frames_at_embed_end, "live_new": live_new,
+                    "max_frame_gap_ms": max(gaps), "median_frame_gap_ms": statistics.median(gaps)}
+        # (f) a tracked request: 202 now, the outcome posted back
+        eid = "exec-api-0"
+        st, _ = _http(port, "POST", "/reasoners/generate",
+                      {"input": {"prompt": user_prompt, "max_new_tokens": new},
+                       "execution_id": eid}, headers={"X-Execution-ID": eid})
+        assert st == 202, st
+        assert cp.wait(lambda: eid in cp.statuses, 600), "no status callback"
+        cb = cp.statuses[eid]
+        assert cb["status"] == "completed", cb
+        assert cb["result"]["tokens"] == plain_prompt["tokens"]
+        main_s = time.perf_counter() - t_main
+        # two heartbeats at least, one after (a)-(c) with its histograms counted
+        assert cp.wait(lambda: len(cp.heartbeats) >= 2
+                       and any(t > t_c for t, _, _ in cp.heartbeats),
+                       6 * heartbeat_interval + 10), "no heartbeat after (c)"
+        launches = rpa.launch_counts()  # the main path's, read now
+    finally:
+        server.stop()
+        cp.stop()
+    eng = backend.engine
+    # (f) what the control plane saw
+    assert len(cp.specs) == 1, cp.specs
+    spec = cp.specs[0]
+    assert spec["node_id"] == "api-node" and spec["kind"] == "model"
+    assert spec["base_url"] == f"http://127.0.0.1:{port}"
+    assert spec["metadata"] == {"model": model_name, "modalities": ["text"], "role": "mixed"}
+    props = {r["id"]: tuple(r["input_schema"]["properties"]) for r in spec["reasoners"]}
+    assert props == {"generate": JAX_GENERATE_PROPS, "embed": JAX_EMBED_PROPS}, props
+    beats = [b for _, _, b in cp.heartbeats if "stats" in b]
+    assert len(beats) >= 2, f"{len(beats)} heartbeats"
+    want = (set(eng.stats) | set(eng.grammar_bank_stats()) | set(eng.prefix_cache_stats())
+            | set(eng.scheduler_stats()) | set(HEARTBEAT_KEYS))
+    for b in beats:
+        assert set(b["stats"]) == want, set(b["stats"]) ^ want
+    last = [b for t, _, b in cp.heartbeats if t > t_c and "stats" in b][-1]["stats"]
+    hist_counts = {k: v["count"] for k, v in last["latency_hist"].items()}
+    assert all(n > 0 for n in hist_counts.values()), hist_counts
+    assert [b.get("status") for _, _, b in cp.heartbeats][-1] == "stopping"
+    assert cp.deleted == ["api-node"] and not cp.nodes
+    assert not any(t.name == "heartbeat" and t.is_alive() for t in threading.enumerate())
+    if on_card:  # both hand kernels, each of their paths, on this phase's main path
+        for key in ("ragged_paged_attention", "dense_causal_attention", "ragged_decode_split",
+                    "ragged_decode_combine", "ragged_tiles_tc"):
+            assert launches[key] > 0, f"{key} was not launched by the api phase"
+    # after the counts: the batch through the plain attention
+    rows = [ByteTokenizer(V).encode(p) for p in batch_prompts]
+    v_kernel = embed_rows(params, cfg, rows)
+    v_ref = embed_rows(params, cfg, rows, attn_impl="ref")
+    cosine = (v_kernel * v_ref).sum(-1).min().item()
+    assert cosine >= API_COSINE_MIN, f"embed kernel vs plain cosine {cosine}"
+    cosine_chunked = (v_kernel.cpu() * torch.tensor(batch["embeddings"])).sum(-1).min().item()
+    assert cosine_chunked >= API_COSINE_MIN, f"one forward vs chunks cosine {cosine_chunked}"
+    out.update({
+        # device ms of every embed forward: (d) single, (d) batch, (e) batch
+        "embed_device_ms": list(backend.embed_ms),
+        "launches": launches, "main_s": main_s, "heartbeats": len(beats),
+        "latency_hist_counts": hist_counts, "embed_cosine_min": cosine,
+        "embed_cosine_chunked_min": cosine_chunked,
+        "graphs": eng.graph_stats(),
+    })
+    results["api"] = out
+    card = results.get("card", "no card")
+    log(f"[api] {card}: (a) SDK payload and messages = plain prompts ({new} tokens); (b) "
+        f"{len(long)}-token prompt truncated by {out['b']['truncated_prompt_tokens']} = explicit "
+        f"tail, 'error' -> {b_err}; (c) SSE = unary, first frame {first_ms:.1f} ms host "
+        f"(engine TTFT stream {ttft_stream:.1f} / unary {ttft_unary:.1f} ms); (d) embed norms "
+        f"within {out['d']['norm_max_dev']:.2e} of 1, {embed_launches} dense launches over "
+        f"forwards (rows, length) {forwards}, the batch {out['d']['batch_ms']:.1f} device ms "
+        f"(chunks {batch_ms}; every forward {out['embed_device_ms']}), kernel vs plain cosine "
+        f">= {cosine:.6f} (one forward vs the node's chunks {cosine_chunked:.6f}); (e) embed returned after {frames_at_embed_end} of {live_new} "
+        f"frames, frame gap max {out['e']['max_frame_gap_ms']:.1f} ms (median "
+        f"{out['e']['median_frame_gap_ms']:.1f}), tokens = idle run; "
+        f"(f) {len(beats)} heartbeats, latency_hist counts {hist_counts}, tracked 202 completed; "
+        f"main path {main_s:.1f} s, launches {launches}")
+
+
 def phase_ab(results, other_root: str):
     """A/B of the attention source at the mixed W = 1 shapes (bf16, f32):
     the source under ``other_root`` (a checkout of another commit) built for
@@ -2611,7 +3055,7 @@ def kernels_line(results) -> dict:
     call, ``call_ms`` the eager call), ``max_abs_err`` the worst over
     every bf16 shape it was held at (for a quantized variant, against the
     plain version with the kernel's semantics, check (b)), ``launches`` from
-    the serve phase of its pool kind and the spec, tier and fork phases."""
+    the serve phase of its pool kind and the spec, tier, fork and api phases."""
     shapes = results["shapes"]
     picks = [
         ("ragged_paged_attention", "llama3_decode_ctx2k/bfloat16", f"{TPU_KERNEL}:61", "serve"),
@@ -2625,9 +3069,9 @@ def kernels_line(results) -> dict:
         held = [r for r in shapes.values() if r["kernel"] == name and r["dtype"] == "bfloat16"]
         entry = {
             "name": name, "route": "cuda", "source": RAGGED_SRC, "replaces": replaces,
-            # the serve's launches and those of the spec, tier and fork phases
+            # the serve's launches and those of the spec, tier, fork and api phases
             "launches": results[serve]["launches"][name] + sum(
-                results[p]["launches"][name] for p in ("spec", "tier", "fork")),
+                results[p]["launches"][name] for p in ("spec", "tier", "fork", "api")),
             "max_abs_err": max(r["max_abs_err"] for r in held),
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
@@ -2706,6 +3150,7 @@ def main() -> int:
         phase_spec(results, state, args.seed)
         phase_tier(results, state, args.seed)
         phase_fork(results, state, args.seed)
+        phase_api(results, state, args.seed)
         state.clear()  # the 8B weights go before the reduced-depth models
         for preset in REDUCED_DEPTH_PRESETS:
             phase_reduced_depth(results, preset, args.seed)

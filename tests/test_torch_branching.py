@@ -395,7 +395,7 @@ def test_node_best_of_n_and_beam(backend):
 
 
 def test_node_group_stream_winner_only(backend):
-    rid, q = backend.submit_stream(prompt="stream winner probe", max_new_tokens=6,
+    rid, q, _ = backend.submit_stream(prompt="stream winner probe", max_new_tokens=6,
                                    temperature=0.9, n_branches=3)
     evs = []
     while True:
@@ -416,7 +416,7 @@ def test_node_group_stream_winner_only(backend):
 def test_node_stream_release_cancels_the_request(backend):
     """A plain stream carries the request's own events; a consumer that
     goes away (``release_stream``) cancels it and its pages return."""
-    rid, q = backend.submit_stream(prompt="plain stream probe", max_new_tokens=40)
+    rid, q, _ = backend.submit_stream(prompt="plain stream probe", max_new_tokens=40)
     first = q.get(timeout=60)
     assert first.request_id == rid and first.index == 0 and first.token >= 0
     backend.release_stream(rid)

@@ -1,5 +1,7 @@
 """The PyTorch port stands alone: no module of ``agentfield_tpu_torch`` and
-not ``chip_smoke.py`` imports JAX, the JAX package or the repo's tools.
+not ``chip_smoke.py`` imports JAX, the JAX package (its ``sdk``,
+``control_plane`` and ``tracing`` included), the repo's tools, or aiohttp and
+pydantic, which the card's machine lacks.
 
 The check is on the AST, by the exact top-level module name: a prefix test
 on ``"agentfield_tpu"`` would also match ``agentfield_tpu_torch``."""
@@ -8,11 +10,13 @@ from __future__ import annotations
 
 import ast
 import pathlib
+import subprocess
+import sys
 
 import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-FORBIDDEN = {"jax", "jaxlib", "agentfield_tpu", "tools"}
+FORBIDDEN = {"jax", "jaxlib", "agentfield_tpu", "tools", "aiohttp", "pydantic"}
 
 
 def _port_files() -> list[pathlib.Path]:
@@ -65,3 +69,39 @@ def test_guard_matches_exact_top_level_names(tmp_path):
     )
     tops = [t for _, t in _imported_tops(src)]
     assert [t for t in tops if t in FORBIDDEN] == ["jax", "agentfield_tpu", "tools", "jaxlib"]
+
+
+def test_guard_names_the_jax_sdk_control_plane_tracing_and_their_libraries(tmp_path):
+    src = tmp_path / "m.py"
+    src.write_text(
+        "from agentfield_tpu.sdk.client import ControlPlaneClient\n"
+        "import agentfield_tpu.control_plane.gateway\n"
+        "from agentfield_tpu import tracing\n"
+        "import aiohttp.web\n"
+        "from pydantic import BaseModel\n"
+        "from agentfield_tpu_torch.sdk import client\n"
+        "from agentfield_tpu_torch import tracing as port_tracing\n"
+    )
+    tops = [t for _, t in _imported_tops(src)]
+    assert [t for t in tops if t in FORBIDDEN] == [
+        "agentfield_tpu", "agentfield_tpu", "agentfield_tpu", "aiohttp", "pydantic"]
+
+
+def test_port_modules_load_nothing_forbidden():
+    """Import every module of the port and ``chip_smoke`` in a fresh
+    interpreter: none of the forbidden packages ends up in ``sys.modules``."""
+    mods = sorted(
+        ".".join(f.relative_to(ROOT).with_suffix("").parts).removesuffix(".__init__")
+        for f in (ROOT / "agentfield_tpu_torch").rglob("*.py")
+    ) + ["chip_smoke"]
+    code = (
+        "import importlib, sys\n"
+        f"for m in {mods!r}: importlib.import_module(m)\n"
+        f"bad = sorted({{n.split('.')[0] for n in sys.modules}} & set({sorted(FORBIDDEN)!r}))\n"
+        "print(bad)\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120, env={"PATH": "/usr/bin:/bin",
+                                                      "PYTHONPATH": str(ROOT)})
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.strip() == "[]", out.stdout

@@ -112,7 +112,9 @@ def test_http_concurrent_requests_all_answered(node):
 
 def test_health_reasoners_and_errors(node):
     port, _ = node
-    assert _call(port, "/health") == (200, {"status": "ok", "node_id": "model"})
+    # the JAX SDK agent's /health: the control-plane link state beside the id
+    assert _call(port, "/health") == (200, {"status": "ok", "node_id": "model",
+                                            "control_plane": "connected"})
     status, doc = _call(port, "/reasoners")
     assert status == 200 and doc["reasoners"][0]["id"] == "generate"
     assert "tokens" in doc["reasoners"][0]["input_schema"]["properties"]
