@@ -4,6 +4,11 @@ The port keeps the JAX parameter layout unchanged (stacked ``[L, in, out]``
 layer leaves, ``embed [V, D]``, ``final_norm [D]``, optional ``lm_head
 [D, V]`` and ``bq/bk/bv [L, n]``), so conversion is a dtype/device move —
 no transposes, and logits of the two packages can be compared directly.
+A quantized tree (the JAX package's ``quantize_params``) comes across as it
+is: each ``QUANT_KEYS`` leaf that is a JAX ``QuantW`` (with numpy ``q`` and
+``scale``, as ``jax.tree.map(np.asarray, tree)`` leaves it) or a ``(q,
+scale)`` pair becomes the port's ``models.quant.QuantW``, q int8 and scale
+float32 bit for bit.
 """
 
 from __future__ import annotations
@@ -15,6 +20,7 @@ import torch
 
 from agentfield_tpu_torch.models.configs import LlamaConfig
 from agentfield_tpu_torch.models.llama import Params, resolve_dtype
+from agentfield_tpu_torch.models.quant import QUANT_KEYS, QuantW
 
 _LAYER_LEAVES = ("attn_norm", "mlp_norm", "wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
 _BIAS_LEAVES = ("bq", "bk", "bv")
@@ -51,11 +57,26 @@ def params_from_numpy(
         # exactly), copied: JAX hands out read-only buffers
         return torch.from_numpy(np.array(a, dtype=np.float32)).to(device=device, dtype=dt)
 
+    def move_exact(a, shape, dtype, name):
+        a = np.asarray(a)
+        if tuple(a.shape) != tuple(shape) or a.dtype != dtype:
+            raise ValueError(f"param {name}: {a.dtype} {a.shape} != expected {dtype} {shape}")
+        return torch.from_numpy(np.array(a)).to(device=device)
+
+    def leaf(n):
+        w = layers_in[n]
+        if n in QUANT_KEYS and (hasattr(w, "q") or isinstance(w, tuple)):
+            q, scale = (w.q, w.scale) if hasattr(w, "q") else w
+            return QuantW(move_exact(q, shapes[n], np.int8, f"layers.{n}.q"),
+                          move_exact(scale, shapes[n][:1] + shapes[n][2:], np.float32,
+                                     f"layers.{n}.scale"))
+        return move(w, shapes[n], f"layers.{n}")
+
     layers_in = tree["layers"]
     names = _LAYER_LEAVES + (_BIAS_LEAVES if cfg.attn_bias else ())
     out: Params = {
         "embed": move(tree["embed"], (v, d), "embed"),
-        "layers": {n: move(layers_in[n], shapes[n], f"layers.{n}") for n in names},
+        "layers": {n: leaf(n) for n in names},
         "final_norm": move(tree["final_norm"], (d,), "final_norm"),
     }
     if not cfg.tie_embeddings:

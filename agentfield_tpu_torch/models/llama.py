@@ -13,6 +13,12 @@ out float32.
 paged-attention kernel (``ops.cuda.ragged_paged_attention.
 dense_causal_attention``; its plain version on CPU tensors). MoE FFNs are not
 ported yet.
+
+A projection leaf is a tensor or a ``models.quant.QuantW`` (int8 weights with
+per-output-channel scales, ``quant.quantize_params``): every projection is
+written ``x @ w``, which a QuantW takes through ``__rmatmul__`` (the
+hand-written int8-weight kernel on the card), and ``layer`` slices it like a
+tensor. One forward serves both.
 """
 
 from __future__ import annotations
@@ -99,7 +105,8 @@ def init_params(
 
 
 def layer(params: Params, i: int) -> Params:
-    """Layer ``i``'s leaves (views into the stacked ``[L, ...]`` tensors)."""
+    """Layer ``i``'s leaves (views into the stacked ``[L, ...]`` tensors, or
+    a ``QuantW`` of the two sliced in lockstep)."""
     return {k: t[i] for k, t in params["layers"].items()}
 
 

@@ -17,7 +17,8 @@ merge; the wrapper allocates the partials' scratch with ``torch.empty``
 per call: an engine decode step captured in a CUDA graph thus holds it in
 the graph's private pool, reused by every replay). A launch recorded into a
 CUDA graph counts once, at capture; the graph's owner adds its launches per
-replay (``launch_counts``, ``add_launches``). Given CPU tensors,
+replay (``launch_counts``, ``add_launches``, which also cover the int8-weight
+matmul's counters in ``ops.cuda.quant_matmul``). Given CPU tensors,
 ``dense_causal_attention`` runs its plain version (``models.llama.
 attention_ref``); ``ragged_paged_attention_cuda`` takes CUDA tensors only —
 the dispatcher ``ops.paged_attention.ragged_paged_attention`` picks the
@@ -33,6 +34,7 @@ import torch.nn.functional as F
 
 from agentfield_tpu_torch.models.llama import attention_ref
 from agentfield_tpu_torch.ops.cuda import build
+from agentfield_tpu_torch.ops.cuda import quant_matmul as _qm
 from agentfield_tpu_torch.ops.kernel_autotune import lookup_blocks
 
 SUPPORTED_HEAD_DIMS = build.ATTENTION_HEAD_DIMS  # one library per head dim
@@ -60,23 +62,28 @@ PATH_LAUNCHES = {
 }
 _PATH_KEYS = {1: ("ragged_tiles_tc",), 2: ("ragged_decode_split", "ragged_decode_combine"),
               3: ("ragged_tiles_f32",)}
+# every hand-written kernel's counters: this module's and the int8-weight
+# matmul's (``ops.cuda.quant_matmul``), so that a graph's owner and a run's
+# reader take them all together
+_COUNTERS = (LAUNCHES, PATH_LAUNCHES, _qm.LAUNCHES, _qm.PATH_LAUNCHES)
 
 
 def reset_launches() -> None:
-    for d in (LAUNCHES, PATH_LAUNCHES):
+    for d in _COUNTERS:
         for k in d:
             d[k] = 0
 
 
 def launch_counts() -> dict[str, int]:
-    """Every counter of ``LAUNCHES`` and ``PATH_LAUNCHES`` (one flat dict)."""
-    return {**LAUNCHES, **PATH_LAUNCHES}
+    """Every counter of every hand-written kernel (``LAUNCHES``,
+    ``PATH_LAUNCHES`` and ``quant_matmul``'s) as one flat dict."""
+    return {k: n for d in _COUNTERS for k, n in d.items()}
 
 
 def add_launches(counts: dict[str, int], sign: int = 1) -> None:
     """Add ``sign`` times ``counts`` (as ``launch_counts`` gives them) to the
     counters: a CUDA graph's launches, once per replay."""
-    for d in (LAUNCHES, PATH_LAUNCHES):
+    for d in _COUNTERS:
         for k in d:
             d[k] += sign * counts.get(k, 0)
 

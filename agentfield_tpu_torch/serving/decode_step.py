@@ -19,10 +19,11 @@ stream (that dispatch's real step, which also warms cuBLAS and loads the
 kernel library), then captures it; every later use replays the graph.
 There is no eager fallback on the card: a capture that fails raises. The
 engine's ``torch.Generator`` is registered with each sampling graph, so
-every replay draws fresh numbers. Launches of the hand-written kernel are
-counted in Python (``ops.cuda.ragged_paged_attention.LAUNCHES``): a capture
-counts them once, so the runner takes them back out and adds the graph's
-count on every replay. On CPU tensors the step runs eagerly every time.
+every replay draws fresh numbers. Launches of the hand-written kernels are
+counted in Python (``ops.cuda.ragged_paged_attention.launch_counts``, which
+covers the attention and the int8-weight matmul): a capture counts them
+once, so the runner takes them back out and adds the graph's count on every
+replay. On CPU tensors the step runs eagerly every time.
 """
 
 from __future__ import annotations

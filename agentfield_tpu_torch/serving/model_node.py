@@ -58,8 +58,10 @@ Run a node::
 
 ``--control-plane URL --node-id ID`` makes it a node of that control plane.
 
-``--kv-quant-dtype int8`` (or ``fp8``) stores the KV pages quantized, with
-per-slot scales (``EngineConfig.kv_quant_dtype``). ``--spec-draft
+``--quant int8`` serves weight-only int8 layer projections (``models.quant``;
+the int8-weight kernel on the card). ``--kv-quant-dtype int8`` (or ``fp8``)
+stores the KV pages quantized, with per-slot scales
+(``EngineConfig.kv_quant_dtype``). ``--spec-draft
 llama-3.2-draft --spec-k 3`` decodes speculatively with a draft preset
 (``load_draft_model``: random weights from the seed; a trained draft needs
 the HF checkpoint loader, which is not ported yet).
@@ -90,6 +92,7 @@ from agentfield_tpu_torch.branching import BranchGroup, validate_branch_spec
 from agentfield_tpu_torch.models import llama
 from agentfield_tpu_torch.models.configs import LlamaConfig, get_config
 from agentfield_tpu_torch.models.llama import init_params
+from agentfield_tpu_torch.models.quant import quantize_params
 from agentfield_tpu_torch.ops.kv_quant import KV_QUANT_DTYPES
 from agentfield_tpu_torch.sdk.client import ControlPlaneClient, ControlPlaneError
 from agentfield_tpu_torch.serving.engine import (
@@ -1317,10 +1320,15 @@ def build_model_node(
     spec_draft: str | None = None,
     spec_k: int | None = None,
     control_plane: str | None = None,
+    quant: str | None = None,
 ) -> tuple[ModelNodeServer, ModelBackend]:
     """Construct ``(server, backend)`` for a preset: random weights drawn
     from ``seed`` on ``device`` unless ``params`` are given, the byte
-    tokenizer unless one is given. ``spec_k`` sets ``ecfg.spec_k``; with
+    tokenizer unless one is given. ``quant="int8"`` serves weight-only int8
+    (``models.quant.quantize_params`` before the backend is built: the layer
+    projections go through the int8-weight kernel on the card; embed,
+    ``lm_head``, norms and the speculative draft stay fp, as on the JAX
+    node). ``spec_k`` sets ``ecfg.spec_k``; with
     ``spec_k > 0`` the ``spec_draft`` preset is the draft model
     (``load_draft_model``, seed ``seed + 4`` as the JAX node draws it, in
     the target's dtype). With ``control_plane`` (its base URL) the server
@@ -1332,8 +1340,12 @@ def build_model_node(
         ecfg = dataclasses.replace(ecfg, spec_k=spec_k)
     if ecfg.spec_k > 0 and spec_draft is None:
         raise ValueError("spec_k > 0 needs spec_draft=<model preset>")
+    if quant is not None and quant != "int8":
+        raise ValueError(f"unknown quant mode {quant!r} (have: 'int8')")
     if params is None:
         params = init_params(cfg, seed=seed, device=device)
+    if quant is not None:
+        params = quantize_params(params)
     draft = None
     if ecfg.spec_k > 0:
         draft = load_draft_model(spec_draft, cfg.vocab_size, seed=seed + 4, device=device,
@@ -1356,6 +1368,8 @@ def main(argv: list[str] | None = None) -> None:
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--kv-quant-dtype", default="none", choices=KV_QUANT_DTYPES,
                     help="store KV pages quantized with per-slot scales")
+    ap.add_argument("--quant", default=None, choices=("int8",),
+                    help="weight-only int8 layer projections (the int8-weight kernel)")
     ap.add_argument("--spec-draft", default=None,
                     help="draft model preset for speculative decoding (with --spec-k)")
     ap.add_argument("--spec-k", type=int, default=None,
@@ -1368,7 +1382,7 @@ def main(argv: list[str] | None = None) -> None:
         args.model, seed=args.seed, device=args.device,
         ecfg=EngineConfig(grammar_slots=GRAMMAR_SLOTS, kv_quant_dtype=args.kv_quant_dtype),
         spec_draft=args.spec_draft, spec_k=args.spec_k, node_id=args.node_id,
-        control_plane=args.control_plane,
+        control_plane=args.control_plane, quant=args.quant,
     )
 
     def on_term(signum, frame):  # SIGTERM stops as Ctrl-C does: deregister first

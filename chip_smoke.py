@@ -52,7 +52,17 @@ the result line:
                ``dequantized_ref``), which must reject the same two faults;
                (c) outputs within ``PARITY_TOL[mode]`` of the plain version
                proper (the JAX package's semantics: own K/V read back
-               quantized).
+               quantized). The int8-weight matmul (``csrc/
+               int8_weight_matmul.cu``) at every Llama-3-8B projection for
+               M of 1-2048 rows and a phi-3-mini width (``w8_shapes``), bf16
+               and f32 x, within ``w8_elem_bound`` of the plain version
+               computed in f32 from the same q and scale; the bound rejects
+               a zeroed K tile of q and a doubled column scale
+               (``W8_FAULT_SHAPES``); one w_gate product at M = 32 raises the
+               peak memory by its output and no more (no widened copy of q);
+               a split-K product captured in a CUDA graph, replayed after
+               wider eager products, still matches and writes nowhere else
+               (``_check_w8_graph``).
 4. ``time``    per shape: the kernel's device time (``ms``: CUDA-event
                median over replays of one wrapper call captured in a CUDA
                graph, so the Python host work of the call is not in it), the
@@ -85,6 +95,14 @@ the result line:
                decode steps, the mean device ms of a replayed decode step
                (CUDA events around replays), the graphs captured, their
                capture seconds and replays, and peak memory per mode.
+5b. ``quant``  weight-only int8 on the serve's weights (``phase_quant``):
+               the serve's requests through ``build_model_node(quant=
+               "int8")`` (every path through the int8-weight kernel, 7 L
+               launches in each decode step's graph, each step counted), the
+               replayed width-8 decode step on int8 and bf16 weights (device
+               ms, split by kernel kind), full-width logits kernel vs plain
+               (both int8), weight bytes int8 vs bf16, a mixed-tick burst and
+               a speculative pass (k = 3, fp draft) on the int8 target.
 6. ``forward`` one full-width forward with the kernel and with the plain
                attention, compared on logits.
 7. ``graph``   the serve's weights in a small engine: a replayed decode
@@ -218,6 +236,42 @@ MIXED_ROWS = 512
 # decode buckets of 4 and 16 rows; and the draft's decode
 SPEC_VERIFY = ((1, 4), (1, 16), (3, 4), (3, 16))  # (k, rows)
 SPEC_DRAFT = "llama-3.2-draft"
+# the int8-weight matmul (csrc/int8_weight_matmul.cu): every Llama-3-8B
+# projection (K, N) at the main path's row counts M (decode widths 1-32, the
+# verify's 64 rows at width 16 and k = 3, a 512-token prefill chunk or mixed
+# tick, a 2048-token embed chunk, and two tiled row counts that are no
+# multiple of the 128-row tile: 200, split K at wk/wv, and a 1920-token
+# embed chunk), plus phi-3-mini's w_gate/w_up (K = 3072)
+W8_SRC = "agentfield_tpu_torch/csrc/int8_weight_matmul.cu"
+W8_REPLACES = "agentfield_tpu/models/quant.py:65"  # QuantW.__rmatmul__ (no Pallas twin)
+W8_PROJECTIONS = {"wq_wo": (4096, 4096), "wk_wv": (4096, 1024), "wgate_wup": (4096, 14336),
+                  "wdown": (14336, 4096)}
+W8_M = (1, 8, 16, 32, 64, 200, 512, 1920, 2048)
+W8_EXTRA = {"phi3_wgate_wup": ((3072, 8192), (16, 512))}
+W8_FAULT_SHAPES = ("wgate_wup_M32", "wdown_M8")
+K_TILE_ROWS = 64  # a K tile of the kernel's ring (BK in the source)
+# Kernel vs plain, element by element (``w8_elem_bound``): the plain version
+# sums (x @ q) in float32 on the card (cuBLAS, TF32 off) and scales in
+# float32; the kernel sums the same exact products (an int8 times a bf16
+# part of x is exact in f32) in another order and rounds once to the output
+# dtype. Any order of a float32 sum of K products errs by at most (K - 1)
+# units of 2^-24 times sum |x_k q_k|; the tensor core's accumulation (which
+# may truncate) and the plain version each stay within that, so the bound
+# is 2 ulps of the output dtype plus 2 K 2^-24 (|x| @ |q|) * scale.
+W8_SUM_TERMS = 2
+W8_MEMORY_SLACK = 1 << 20  # the w_gate M = 32 call may allocate y plus this
+# phase_quant (b), full-width logits of the int8 model, kernel against plain.
+# float32: both sum the same exact products in another order (the kernel
+# splits x into three bf16 parts, each product exact), 1e-4 of max |logit|
+# as phase_forward. bfloat16: the plain version rounds x @ q to bf16 before
+# the scale, the kernel scales in float32 and rounds once, at each of the 7
+# projections of every layer; each path lies about one bf16 rounding
+# distance from the float32 logits in a direction of its own, so the two
+# are held within twice the plain path's own bf16-vs-f32 distance (the
+# triangle bound).
+W8_LOGITS_F32_REL = 1e-4
+W8_LOGITS_BF16_FACTOR = 2.0
+
 # shapes at which the bound must reject the two injected faults
 FAULT_SHAPES = ("llama3_decode_ctx2k", "gemma-2b_decode_ctx2k", "llama3_mixed_w1",
                 "llama3_verify_k3_b4_ctx2k")
@@ -501,8 +555,8 @@ def phase_build(results):
         sass[name] = {op: ops.count(op) for op in ("HMMA", "HGMMA")}
         log(f"[build] {name}: SASS tensor-core instructions {sass[name]}")
     for name, ops in sass.items():
-        if name.startswith("ragged_paged_attention"):
-            assert ops["HMMA"] > 0, f"no HMMA in the attention library {name}"
+        if name.startswith(("ragged_paged_attention", "int8_weight_matmul")):
+            assert ops["HMMA"] > 0, f"no HMMA in the library {name}"
     results["sass_mma"] = sass
 
 
@@ -673,6 +727,8 @@ def phase_check(results):
             if not ok:
                 failures.append(f"{name}/{dname}")
     failures += _check_quant(rows)
+    failures += _check_w8_graph(rows)
+    failures += _check_w8(rows)
     results["check_launches"] = dict(LAUNCHES)
     results["check_path_launches"] = dict(PATH_LAUNCHES)
     if failures:
@@ -756,6 +812,212 @@ def _check_quant(rows) -> list[str]:
     return failures
 
 
+def w8_shapes() -> dict:
+    """name -> (M, K, N) of the int8-weight matmul checks."""
+    out = {f"{name}_M{M}": (M, K, N) for name, (K, N) in W8_PROJECTIONS.items() for M in W8_M}
+    for name, ((K, N), ms) in W8_EXTRA.items():
+        out.update({f"{name}_M{M}": (M, K, N) for M in ms})
+    return out
+
+
+def w8_elem_bound(y_r, s_abs, K: int, dtype_name: str):
+    """Per-element bound of |kernel - plain| for the int8-weight matmul: 2
+    ulps of |y_r| in the output dtype plus ``W8_SUM_TERMS * K * 2^-24 *
+    s_abs`` (``s_abs = (|x| @ |q|) * scale``, float32)."""
+    return (elem_bound(y_r, dtype_name) - SUM_ORDER_ATOL
+            + W8_SUM_TERMS * K * 2.0**-24 * s_abs)
+
+
+def w8_compare(y_k, y_r, s_abs, K, dtype_name):
+    """(within bound, max |kernel - plain|, max of |kernel - plain| / bound)."""
+    import torch
+
+    d = (y_k.float() - y_r.float()).abs()
+    ratio = float((d / w8_elem_bound(y_r, s_abs, K, dtype_name)).max())
+    return ratio <= 1.0 and bool(torch.isfinite(y_k.float()).all()), float(d.max()), ratio
+
+
+def w8_library_ms(x, q, scale):
+    """One PyTorch call computing the same function, where the card's torch
+    has one: ``torch._weight_int8pack_mm(x, q^T, scale)`` (timed only; the
+    port never calls it). None when it is missing or refuses CUDA."""
+    import torch
+
+    fn = getattr(torch, "_weight_int8pack_mm", None)
+    if fn is None:
+        return None
+    w, sc = q.t().contiguous(), scale.to(x.dtype)
+    try:
+        fn(x, w, sc)
+        torch.cuda.synchronize()
+    except (RuntimeError, NotImplementedError, TypeError) as e:
+        log(f"[time] torch._weight_int8pack_mm unavailable on CUDA here: {type(e).__name__}")
+        return None
+    return cuda_ms(lambda: fn(x, w, sc), n=5, warmup=1)
+
+
+def _check_w8_graph(rows) -> list[str]:
+    """A split-K product captured into a CUDA graph at a decode width (wk/wv
+    at M = 8, the first int8-weight products of the run) and replayed after
+    eager products that split wider (every projection at M 64, 200 and 1920)
+    and after fresh tensors took whatever memory those freed: the replay
+    must match the plain version within ``w8_elem_bound`` and leave the
+    fresh tensors untouched (the workspace a graph captured is the one every
+    later product uses). Returns the failures."""
+    import torch
+
+    from agentfield_tpu_torch.models.quant import quantize_weight
+    from agentfield_tpu_torch.ops.cuda.quant_matmul import int8_weight_matmul_cuda, plan
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(1)
+    K, N = W8_PROJECTIONS["wk_wv"]
+    qw = quantize_weight(torch.empty((K, N), device=dev).normal_(0.0, 0.02, generator=g))
+    x = torch.empty((8, K), device=dev, dtype=torch.bfloat16).normal_(0.0, 1.0, generator=g)
+    p = plan(8, K, N, torch.cuda.get_device_properties(dev).multi_processor_count)
+    int8_weight_matmul_cuda(x, qw.q, qw.scale)  # eager first: sets up the device
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        y_g = int8_weight_matmul_cuda(x, qw.q, qw.scale)
+    for name, (k, n) in W8_PROJECTIONS.items():
+        w = quantize_weight(torch.empty((k, n), device=dev).normal_(0.0, 0.02, generator=g))
+        for M in (64, 200, 1920):
+            int8_weight_matmul_cuda(
+                torch.empty((M, k), device=dev, dtype=torch.bfloat16).normal_(generator=g),
+                w.q, w.scale)
+        del w
+    torch.cuda.synchronize()
+    # tensors of the M = 8 product's partials' size, where freed memory goes
+    fresh = [torch.full((p["splits"] * 8 * N,), 7.0, device=dev) for _ in range(8)]
+    for _ in range(3):
+        graph.replay()
+    torch.cuda.synchronize()
+    y_r = (x.float() @ qw.q.float()) * qw.scale
+    s_abs = (x.float().abs() @ qw.q.float().abs()) * qw.scale
+    ok, err, ratio = w8_compare(y_g, y_r, s_abs, K, "bfloat16")
+    untouched = all(bool((f == 7.0).all()) for f in fresh)
+    rows["w8_graph_after_larger_products"] = {
+        "kernel": "int8_weight_matmul", "dtype": "bfloat16", "M": 8, "K": K, "N": N, "plan": p,
+        "max_abs_err": err, "max_err_over_bound": ratio, "fresh_tensors_untouched": untouched,
+        "ok": ok and untouched}
+    log(f"[check] w8 graph at wk_wv M = 8 replayed after wider products: err={err:.2e} "
+        f"err/bound={ratio:.3f} fresh tensors untouched={untouched} plan={p}")
+    del graph, fresh
+    torch.cuda.empty_cache()
+    return [] if ok and untouched else [
+        f"w8 graph replay after wider products: err/bound {ratio}, untouched {untouched}"]
+
+
+def _check_w8(rows) -> list[str]:
+    """The int8-weight matmul at every ``w8_shapes`` shape, bf16 and f32 x:
+    held against the plain version (``(x.float() @ q.float()) * scale`` on
+    the card) within ``w8_elem_bound``; at ``W8_FAULT_SHAPES`` the bound
+    must reject a kernel fed q with one 64-row K tile zeroed and one fed one
+    column's scale doubled; times (``ms`` replayed from a graph, ``call_ms``
+    eager, the plain version, ``torch._weight_int8pack_mm`` where it runs on
+    CUDA, and cuBLAS bf16 ``x @ w`` at the same shape as a yardstick only);
+    and the memory rise of one w_gate call at M = 32 within y's bytes plus
+    ``W8_MEMORY_SLACK``. Returns the failures."""
+    import torch
+
+    from agentfield_tpu_torch.models.quant import quantize_weight
+    from agentfield_tpu_torch.ops.cuda import quant_matmul as qm
+    from agentfield_tpu_torch.ops.cuda.quant_matmul import int8_weight_matmul_cuda, plan
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(0)
+    failures = []
+    weights = {}
+    for name, (M, K, N) in w8_shapes().items():
+        if (K, N) not in weights:
+            weights.clear()
+            torch.cuda.empty_cache()
+            w = torch.empty((K, N), device=dev).normal_(0.0, 0.02, generator=g)
+            qw = quantize_weight(w)
+            weights[(K, N)] = (qw.q, qw.scale, w.to(torch.bfloat16))
+            del w
+        q, scale, w16 = weights[(K, N)]
+        x32 = torch.empty((M, K), device=dev).normal_(0.0, 1.0, generator=g)
+        p = plan(M, K, N, torch.cuda.get_device_properties(dev).multi_processor_count)
+        for dname, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+            x = x32.to(dtype)
+            y_r = (x.float() @ q.float()) * scale
+            s_abs = (x.float().abs() @ q.float().abs()) * scale
+            y_k = int8_weight_matmul_cuda(x, q, scale)
+            torch.cuda.synchronize()
+            ok, err, ratio = w8_compare(y_k, y_r, s_abs, K, dname)
+            row = {"kernel": "int8_weight_matmul", "dtype": dname, "M": M, "K": K, "N": N,
+                   "plan": p, "max_abs_err": err, "max_err_over_bound": ratio,
+                   "max_abs_out": float(y_r.abs().max()), "ok": ok}
+            if name in W8_FAULT_SHAPES:
+                bad_q = q.clone()
+                k0 = K_TILE_ROWS * ((K // K_TILE_ROWS) // 2)
+                bad_q[k0:k0 + K_TILE_ROWS] = 0
+                bad_s = scale.clone()
+                col = int(y_r.abs().amax(0).argmax())
+                bad_s[col] *= 2
+                row["faults"] = {
+                    "k_tile_skipped": w8_compare(int8_weight_matmul_cuda(x, bad_q, scale), y_r,
+                                                 s_abs, K, dname)[1:],
+                    "column_scale_2x": w8_compare(int8_weight_matmul_cuda(x, q, bad_s), y_r,
+                                                  s_abs, K, dname)[1:],
+                }
+                torch.cuda.synchronize()
+                del bad_q, bad_s
+                if not all(r > 1.0 for _, r in row["faults"].values()):
+                    failures.append(f"{name}/{dname}: bound missed a fault {row['faults']}")
+                log(f"[check] {name} {dname} faulty kernel (max |d|, max |d|/bound): "
+                    f"{row['faults']}")
+            es = x.element_size()
+            row["bound_ms"], row["bound_by"] = bound_ms(
+                K * N + 4 * N + es * (M * K + M * N), 2 * M * K * N, dname)
+            row["ms"] = graph_ms(lambda: int8_weight_matmul_cuda(x, q, scale))
+            row["call_ms"] = cuda_ms(lambda: int8_weight_matmul_cuda(x, q, scale))
+            row["plain_ms"] = cuda_ms(lambda: (x.float() @ q.float()) * scale, n=5, warmup=1)
+            row["library_ms"] = w8_library_ms(x, q, scale)
+            row["cublas_bf16_ms"] = (cuda_ms(lambda: x @ w16) if dtype == torch.bfloat16
+                                     else None)
+            rows[f"w8_{name}/{dname}"] = row
+            log(f"[check] w8 {name:22s} {dname:8s} err={err:.2e} err/bound={ratio:.3f} "
+                f"ms={row['ms']:.4f} call={row['call_ms']:.4f} plain={row['plain_ms']:.4f} "
+                f"int8pack={row['library_ms']} cublas_bf16={row['cublas_bf16_ms']} "
+                f"bound={row['bound_ms']:.4f} ({row['bound_by']}) plan={p}")
+            if not ok:
+                failures.append(f"w8_{name}/{dname}")
+            del x, y_r, s_abs, y_k
+    weights.clear()
+    torch.cuda.empty_cache()
+    # no widened copy of the weight: one w_gate product at M = 32 allocates
+    # its output (and nothing near the 117 MB of a bf16 copy of q)
+    K, N = W8_PROJECTIONS["wgate_wup"]
+    w = torch.empty((K, N), device=dev).normal_(0.0, 0.02, generator=g)
+    qw = quantize_weight(w)
+    del w
+    x = torch.empty((32, K), device=dev, dtype=torch.bfloat16).normal_(0.0, 1.0, generator=g)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    y = int8_weight_matmul_cuda(x, qw.q, qw.scale)
+    torch.cuda.synchronize()
+    rise = torch.cuda.max_memory_allocated() - base
+    limit = y.numel() * y.element_size() + W8_MEMORY_SLACK
+    ws = qm._workspace[y.device.index]
+    rows["w8_memory_wgate_M32"] = {"kernel": "int8_weight_matmul", "dtype": "bfloat16",
+                                   "rise_bytes": rise, "limit_bytes": limit,
+                                   "bf16_weight_bytes": K * N * 2, "ok": rise <= limit,
+                                   "plan": plan(32, K, N, qm._sms[y.device.index]),
+                                   "splitk_workspace_bytes": 4 * ws.numel()}
+    log(f"[check] w8 memory: one w_gate call at M = 32 raised the peak by {rise} bytes "
+        f"(limit {limit}: y plus 1 MiB; a bf16 copy of q would be {K * N * 2}); the split-K "
+        f"workspace, allocated once per device: {4 * ws.numel()} bytes")
+    if rise > limit:
+        failures.append(f"w8 memory rise {rise} > {limit}")
+    return failures
+
+
 def _sdpa_ms(q, k, v, window=None):
     """One PyTorch call computing the same dense causal GQA attention:
     scaled_dot_product_attention on [B, H, S, hd] views, causal or, with a
@@ -827,14 +1089,20 @@ SERVE_SCHEMA = {"type": "object", "properties": {"ok": {"type": "boolean"},
 
 def phase_serve(results, state, seed: int, model="llama-3-8b", device="cuda", ecfg=None,
                 lengths=(64, 200, 333, 480, 512, 700, 1100, 1500), max_new=32,
-                kv_quant="none"):
+                kv_quant="none", weight_quant=None):
     """Serve the requests: the prompts of ``lengths`` (greedy), one sampled
     request (temperature 0.8, top-p 0.9), one ``response_schema`` request
     (``SERVE_SCHEMA``), then a second session turn. With ``kv_quant``
     "int8" | "fp8" the node reuses the weights and the engine geometry of
     the plain serve before it (``state``) and the results go to
-    ``results["serve_<mode>"]``. The engine runs the JAX node's decode tick:
-    pipelined, decode buckets (4, 16), the step replayed from CUDA graphs."""
+    ``results["serve_<mode>"]``. With ``weight_quant="int8"`` the node is
+    built with ``build_model_node(quant="int8")`` from ``state``'s weights
+    and geometry (the quantized tree goes to ``state["w8_params"]``, the
+    results to ``results["serve_w8"]``): every projection of every path
+    goes through the int8-weight kernel, ``7 * L`` launches in each decode
+    step's graph, each step counted. The engine runs the JAX node's decode
+    tick: pipelined, decode buckets (4, 16), the step replayed from CUDA
+    graphs."""
     import dataclasses
 
     import numpy as np
@@ -850,7 +1118,11 @@ def phase_serve(results, state, seed: int, model="llama-3-8b", device="cuda", ec
     if on_card:
         torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    if kv_quant == "none":
+    label = "w8" if weight_quant else kv_quant
+    if weight_quant:  # the bf16 serve's weights and geometry, bf16 pages
+        ecfg = dataclasses.replace(state["ecfg"], kv_quant_dtype="none")
+        params = state["params"]
+    elif kv_quant == "none":
         if ecfg is None:
             # context 128 pages x 16 = 2048 tokens; 4096 pages = 8 GiB of bf16
             # KV; the decode buckets of the JAX engine's docstring example
@@ -860,13 +1132,17 @@ def phase_serve(results, state, seed: int, model="llama-3-8b", device="cuda", ec
     else:
         ecfg = dataclasses.replace(state["ecfg"], kv_quant_dtype=kv_quant)
         params = state["params"]
-    server, backend = build_model_node(model, seed=seed, ecfg=ecfg, device=device, params=params)
+    server, backend = build_model_node(model, seed=seed, ecfg=ecfg, device=device, params=params,
+                                       quant=weight_quant)
     if on_card:
         torch.cuda.synchronize()
-        log(f"[serve {kv_quant}] {model} node built in {time.perf_counter() - t0:.1f} s; "
+        log(f"[serve {label}] {model} node built in {time.perf_counter() - t0:.1f} s; "
             f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated (weights + KV pool)")
     eng = backend.engine
-    state["params"], state["cfg"], state["ecfg"] = eng.params, eng.cfg, ecfg
+    if weight_quant:
+        state["w8_params"] = eng.params
+    else:
+        state["params"], state["cfg"], state["ecfg"] = eng.params, eng.cfg, ecfg
 
     # per-path launch tallies: wrap the engine's three device paths
     tally = {"decode": {}, "dense_prefill": {}, "suffix_prefill": {}}
@@ -875,11 +1151,11 @@ def phase_serve(results, state, seed: int, model="llama-3-8b", device="cuda", ec
         orig = getattr(eng, attr)
 
         def counted(*a, **k):
-            before = {**rpa.LAUNCHES, **rpa.PATH_LAUNCHES}
+            before = rpa.launch_counts()
             try:
                 return orig(*a, **k)
             finally:
-                for key, n in {**rpa.LAUNCHES, **rpa.PATH_LAUNCHES}.items():
+                for key, n in rpa.launch_counts().items():
                     tally[path][key] = tally[path].get(key, 0) + n - before[key]
 
         setattr(eng, attr, counted)
@@ -932,6 +1208,8 @@ def phase_serve(results, state, seed: int, model="llama-3-8b", device="cuda", ec
         server.stop()
     launches = dict(rpa.LAUNCHES)
     path_launches = dict(rpa.PATH_LAUNCHES)
+    w8_launches = {k: n for k, n in rpa.launch_counts().items() if k not in launches
+                   and k not in path_launches}
     for i in range(len(payloads)):
         res = answers[i]["result"]
         if i != i_schema:
@@ -957,29 +1235,44 @@ def phase_serve(results, state, seed: int, model="llama-3-8b", device="cuda", ec
         check_step_identity(eng, mixed_decode_ticks)
         assert any(k.endswith("/grammar") for k in graphs["replays"]), graphs
         assert any("/truncated/" in k for k in graphs["replays"]), graphs
-    log(f"[serve {kv_quant}] launches {launches}; kernel paths {path_launches}; "
-        f"by engine path {tally}")
+    log(f"[serve {label}] launches {launches}; kernel paths {path_launches}; int8-weight "
+        f"matmul {w8_launches}; by engine path {tally}")
+    w8_per_step = 7 * eng.cfg.num_layers
+    if weight_quant and on_card:
+        # every path through the int8-weight kernel; each decode step's graph
+        # holds 7 L of its launches, and each step (an eager first use, or a
+        # replay) counted them
+        for path in ("decode", "dense_prefill", "suffix_prefill"):
+            assert tally[path].get("int8_weight_matmul", 0) > 0, f"no int8 matmul on {path}"
+        for key, (_, counted) in eng._graphs.graphs.items():
+            assert counted["int8_weight_matmul"] == w8_per_step, (key, counted)
+        steps = graphs["graphs_captured"] + sum(graphs["replays"].values())
+        assert tally["decode"]["int8_weight_matmul"] == w8_per_step * steps, (
+            tally["decode"], steps)
+    elif not weight_quant:
+        assert w8_launches["int8_weight_matmul"] == 0, "the int8 matmul ran on fp weights"
     ragged = "ragged_paged_attention" + ("" if kv_quant == "none" else f"_{kv_quant}")
-    for path, key in (("decode", ragged),
-                      ("dense_prefill", "dense_causal_attention"),
-                      ("suffix_prefill", ragged)):
-        n = tally[path].get(key, 0)
-        assert n > 0, f"{key} was not launched on the {path} path"
-    for key, n in launches.items():
-        if key in (ragged, "dense_causal_attention"):
-            assert n > 0, f"{key} was never launched on the main path"
-        else:  # another pool kind's variant: never on this path
-            assert n == 0, f"{key} was launched {n} times serving kv_quant_dtype={kv_quant}"
-    # kernel paths: decode through the split-context kernel and its combine,
-    # both prefills through the tensor-core tile, never the f32 tile
-    for path, keys in (("decode", ("ragged_decode_split", "ragged_decode_combine")),
-                       ("dense_prefill", ("ragged_tiles_tc",)),
-                       ("suffix_prefill", ("ragged_tiles_tc",))):
-        for key in keys:
-            assert tally[path].get(key, 0) > 0, f"{key} was not launched on the {path} path"
-    assert path_launches["ragged_tiles_f32"] == 0, "the f32 tile ran in a bf16 serve"
+    if on_card:  # CPU tensors take the plain versions: nothing is launched
+        for path, key in (("decode", ragged),
+                          ("dense_prefill", "dense_causal_attention"),
+                          ("suffix_prefill", ragged)):
+            n = tally[path].get(key, 0)
+            assert n > 0, f"{key} was not launched on the {path} path"
+        for key, n in launches.items():
+            if key in (ragged, "dense_causal_attention"):
+                assert n > 0, f"{key} was never launched on the main path"
+            else:  # another pool kind's variant: never on this path
+                assert n == 0, f"{key} was launched {n} times serving kv_quant_dtype={kv_quant}"
+        # kernel paths: decode through the split-context kernel and its combine,
+        # both prefills through the tensor-core tile, never the f32 tile
+        for path, keys in (("decode", ("ragged_decode_split", "ragged_decode_combine")),
+                           ("dense_prefill", ("ragged_tiles_tc",)),
+                           ("suffix_prefill", ("ragged_tiles_tc",))):
+            for key in keys:
+                assert tally[path].get(key, 0) > 0, f"{key} was not launched on the {path} path"
+        assert path_launches["ragged_tiles_f32"] == 0, "the f32 tile ran in a bf16 serve"
     peak = torch.cuda.max_memory_allocated() / 2**30 if on_card else None
-    if kv_quant != "none":
+    if kv_quant != "none" and not weight_quant:
         assert st["kv_quant_pages_total"] > 0, "no quantized page was allocated"
         if on_card:
             assert peak < results["serve"]["peak_mem_gib"], (
@@ -1014,10 +1307,13 @@ def phase_serve(results, state, seed: int, model="llama-3-8b", device="cuda", ec
         "kv_quant_bytes_saved_total": st["kv_quant_bytes_saved_total"],
         "launches": launches,
         "path_launches": path_launches,
+        "w8_launches": w8_launches,
         "launches_by_path": tally,
     }
-    results["serve" if kv_quant == "none" else f"serve_{kv_quant}"] = out
-    log(f"[serve {kv_quant}] {out['requests']} requests answered; TTFT p50 "
+    if weight_quant:
+        out["w8_launches_per_decode_step"] = w8_per_step
+    results["serve" if label == "none" else f"serve_{label}"] = out
+    log(f"[serve {label}] {out['requests']} requests answered; TTFT p50 "
         f"{out['ttft_ms_p50']:.1f} ms, decode {out['decode_tok_per_s']:.1f} tok/s over "
         f"{out['decode_steps']} steps, decode step {out['decode_step_device_ms_mean']} device ms "
         f"(mean of {out['decode_step_replays_timed']} replays), peak {out['peak_mem_gib']} GiB, "
@@ -2931,6 +3227,305 @@ def phase_api(results, state, seed: int, device: str = "cuda", model_name: str =
         f"main path {main_s:.1f} s, launches {launches}")
 
 
+# the quant phase's mixed-tick burst and speculative pass on the int8 target
+W8_BURST_DECODES = (64, 200, 333, 400)  # in flight, 48 new tokens each
+W8_BURST_PROMPTS = (700, 1100)  # then these arrive (chunks of the 512 budget)
+W8_SPEC_PROMPTS = (200, 600, 1000, 1500)
+
+
+def plain_w8_params(params):
+    """``params`` with every ``QuantW`` leaf replaced by one whose ``@``
+    runs the plain version (``int8_weight_matmul_ref``, the JAX formula) on
+    any device: the kernel's comparison on the card."""
+    from agentfield_tpu_torch.models.quant import QuantW
+    from agentfield_tpu_torch.ops.cuda.quant_matmul import int8_weight_matmul_ref
+
+    class PlainQuantW(QuantW):
+        __slots__ = ()
+
+        def __getitem__(self, i):
+            return PlainQuantW(self.q[i], self.scale[i])
+
+        def __rmatmul__(self, x):
+            return int8_weight_matmul_ref(x, self.q, self.scale)
+
+    layers = {k: PlainQuantW(v.q, v.scale) if isinstance(v, QuantW) else v
+              for k, v in params["layers"].items()}
+    return {**params, "layers": layers}
+
+
+def f32_params(params):
+    """``params`` with every fp leaf widened to float32 (QuantW leaves kept:
+    their x @ q then runs on float32 activations)."""
+    from agentfield_tpu_torch.models.quant import QuantW
+
+    def widen(t):
+        return t if isinstance(t, QuantW) else t.float()
+
+    return {k: ({n: widen(t) for n, t in v.items()} if isinstance(v, dict) else widen(v))
+            for k, v in params.items()}
+
+
+def weight_bytes(params) -> int:
+    """Bytes of every weight leaf (a ``QuantW`` counts its q and its scale)."""
+    from agentfield_tpu_torch.models.quant import QuantW
+
+    def leaves(t):
+        if isinstance(t, dict):
+            for v in t.values():
+                yield from leaves(v)
+        elif isinstance(t, QuantW):
+            yield from (t.q, t.scale)
+        else:
+            yield t
+
+    return sum(t.numel() * t.element_size() for t in leaves(params))
+
+
+def _step_device_ms(params, cfg, seed: int) -> dict:
+    """A small engine on ``params`` (phase_graph's script: 6 prompts of
+    100-850 tokens, width 8): the greedy decode step's graph replayed, its
+    device ms (CUDA events), its launches and its split by kernel kind
+    (``profile_replays``)."""
+    import numpy as np
+
+    from agentfield_tpu_torch.serving.engine import EngineConfig, InferenceEngine, Request
+    from agentfield_tpu_torch.serving.sampler import SamplingParams
+
+    gc.collect()
+    eng = InferenceEngine(params, cfg, EngineConfig(
+        max_batch=8, page_size=16, num_pages=513, max_pages_per_seq=64), seed=seed, device="cuda")
+    rng = np.random.default_rng(seed + 7)
+    for i in range(6):
+        eng.submit(Request(f"g{i}", rng.integers(1, cfg.vocab_size, 100 + 150 * i).tolist(),
+                           SamplingParams(max_new_tokens=64)))
+    while eng._inflight is None:  # admissions, then the first dispatch (its capture)
+        eng.step()
+    eng._harvest_inflight()
+    st = eng._dev_state()
+    toks0, lens0 = st.tokens.clone(), st.seq_lens.clone()
+
+    def restore():
+        st.tokens.copy_(toks0)
+        st.seq_lens.copy_(lens0)
+
+    graph, launches = eng._graphs.graphs[(st.width, "greedy", "free")]
+    out = {"width": st.width, "live_rows": int((lens0 > 0).sum()),
+           "step_device_ms": graph_replay_ms(graph, restore),
+           "launches_per_replay": {k: n for k, n in launches.items() if n},
+           "breakdown": profile_replays(graph, restore)}
+    eng.close()
+    return out
+
+
+def phase_quant(results, state, seed: int, device: str = "cuda", model: str = "llama-3-8b",
+                lengths=(64, 200, 333, 480, 512, 700, 1100, 1500), max_new: int = 32, S: int = 512,
+                burst=(W8_BURST_DECODES, W8_BURST_PROMPTS), spec_prompts=W8_SPEC_PROMPTS,
+                draft_preset: str = SPEC_DRAFT):
+    """Weight-only int8 serving on ``state``'s weights (full-width
+    Llama-3-8B bf16 on the card), quantized by ``build_model_node(quant=
+    "int8")`` (``models.quant.quantize_params`` on the device):
+
+    (a) the serve's requests through the int8 node (``phase_serve`` with
+        ``weight_quant="int8"``: every answer complete, ``7 L`` kernel
+        launches in each decode step's graph, each step counted); then the
+        replayed greedy step of a width-8 engine on the int8 and on the bf16
+        weights, device ms and split by kernel kind, in this run;
+    (b) full-width logits at ``S`` tokens, kernel against plain (both int8,
+        ``plain_w8_params``), in bf16 within ``W8_LOGITS_BF16_FACTOR`` times
+        the plain path's own bf16-vs-f32 distance and in f32 within
+        ``W8_LOGITS_F32_REL`` of max |logit|; the int8-vs-bf16 logit
+        distance and greedy agreement for information (random weights);
+    (c) the weight bytes on the device, int8 against bf16, and peak memory;
+    (d) one mixed-tick burst (``burst``: decodes in flight, then prompts
+        chunked into mixed ticks of the 512-token budget) and one
+        speculative pass (k = 3, the ``draft_preset`` draft kept fp) on the
+        int8 target: each path launches the kernel (mixed ticks; every spec
+        replay ``7 L`` times).
+
+    ``device="cpu"`` rehearses the phase on a small model (no graphs, no
+    device times; the plain version on both sides)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from agentfield_tpu_torch.models import llama
+    from agentfield_tpu_torch.models.quant import QUANT_KEYS, is_quantized
+    from agentfield_tpu_torch.ops.cuda import ragged_paged_attention as rpa
+    from agentfield_tpu_torch.serving.engine import InferenceEngine, Request
+    from agentfield_tpu_torch.serving.model_node import load_draft_model
+    from agentfield_tpu_torch.serving.sampler import SamplingParams
+
+    on_card = torch.device(device).type == "cuda"
+    params, cfg = state["params"], state["cfg"]
+    L, V = cfg.num_layers, cfg.vocab_size
+    w8_per_step = 7 * L
+    out: dict = {}
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    mem0 = torch.cuda.memory_allocated() if on_card else None
+
+    # (a) the serve through build_model_node(quant="int8")
+    phase_serve(results, state, seed, model=model, device=device, lengths=lengths,
+                max_new=max_new, weight_quant="int8")
+    qp = state.pop("w8_params")
+    assert is_quantized(qp) and not is_quantized(params)
+    serve = results["serve_w8"]
+    gc.collect()  # the serve's engine (and its KV pool) is garbage now
+    tree_bytes = torch.cuda.memory_allocated() - mem0 if on_card else None
+    out["decode_step_device_ms_int8"] = serve["decode_step_device_ms_mean"]
+    out["decode_step_device_ms_bf16"] = results.get("serve", {}).get("decode_step_device_ms_mean")
+    if on_card:
+        out["step_int8"] = _step_device_ms(qp, cfg, seed)
+        out["step_bf16"] = _step_device_ms(params, cfg, seed)
+        assert out["step_int8"]["launches_per_replay"]["int8_weight_matmul"] == w8_per_step
+        assert "int8_weight_matmul" not in out["step_bf16"]["launches_per_replay"]
+        log(f"[quant] (a) replayed width-8 step: int8 {out['step_int8']['step_device_ms']:.3f} "
+            f"device ms vs bf16 {out['step_bf16']['step_device_ms']:.3f}; by kind int8 "
+            f"{out['step_int8']['breakdown'] and out['step_int8']['breakdown']['by_kind_ms']} / "
+            f"bf16 {out['step_bf16']['breakdown'] and out['step_bf16']['breakdown']['by_kind_ms']}; "
+            f"serve decode step {out['decode_step_device_ms_int8']} vs "
+            f"{out['decode_step_device_ms_bf16']} device ms")
+
+    # (c) weight bytes, int8 against bf16
+    layer_fp = sum(params["layers"][k].numel() * params["layers"][k].element_size()
+                   for k in QUANT_KEYS)
+    layer_q = sum(qp["layers"][k].q.numel() + 4 * qp["layers"][k].scale.numel()
+                  for k in QUANT_KEYS)
+    out["weights"] = {"bf16_bytes": weight_bytes(params), "int8_bytes": weight_bytes(qp),
+                      "layer_bf16_bytes": layer_fp, "layer_int8_bytes": layer_q,
+                      "int8_tree_device_bytes": tree_bytes,
+                      "serve_peak_gib": serve["peak_mem_gib"],
+                      "serve_peak_note": "the bf16 tree stays resident beside the int8 one"}
+    log(f"[quant] (c) weights {out['weights']['int8_bytes'] / 2**30:.3f} GiB int8 vs "
+        f"{out['weights']['bf16_bytes'] / 2**30:.3f} GiB bf16 (layers {layer_q / 2**30:.3f} vs "
+        f"{layer_fp / 2**30:.3f}); the int8 tree holds {out['weights']['int8_tree_device_bytes']} "
+        f"device bytes of its own; int8 serve peak {serve['peak_mem_gib']} GiB")
+
+    # (b) full-width logits, kernel against plain, both int8
+    g = torch.Generator(device=device)
+    g.manual_seed(seed + 1)
+    tokens = torch.randint(0, V, (1, S), device=device, generator=g)
+    pos = torch.arange(S, device=device)[None]
+
+    def fwd(p):
+        with torch.no_grad():
+            lg, _ = llama.forward(p, cfg, tokens, pos, attn_impl="kernel", collect_kv=False)
+        if on_card:
+            torch.cuda.synchronize()
+        assert lg.shape == (1, S, V) and bool(torch.isfinite(lg).all())
+        return lg
+
+    plain = plain_w8_params(qp)
+    lk16, lp16, lb16 = fwd(qp), fwd(plain), fwd(params)
+    lk32, lp32 = fwd(f32_params(qp)), fwd(f32_params(plain))
+    scale = float(lp32.abs().max())
+    err16, err32 = float((lk16 - lp16).abs().max()), float((lk32 - lp32).abs().max())
+    noise16 = float((lp16 - lp32).abs().max())
+    tol16, tol32 = W8_LOGITS_BF16_FACTOR * noise16, W8_LOGITS_F32_REL * scale
+    out["logits"] = {
+        "S": S, "max_abs_logit": scale, "max_abs_err_bf16": err16, "tol_bf16": tol16,
+        "plain_bf16_vs_f32": noise16, "max_abs_err_f32": err32, "tol_f32": tol32,
+        "int8_vs_bf16_max_abs": float((lk16 - lb16).abs().max()),
+        "int8_vs_bf16_argmax_agreement": float((lk16.argmax(-1) == lb16.argmax(-1)).float().mean()),
+        "kernel_vs_plain_argmax_agreement": float(
+            (lk16.argmax(-1) == lp16.argmax(-1)).float().mean()),
+    }
+    log(f"[quant] (b) full-width logits at {S} tokens, kernel vs plain (int8): bf16 max|d| "
+        f"{err16:.4e} (tol {tol16:.4e} = {W8_LOGITS_BF16_FACTOR} x the plain path's bf16-vs-f32 "
+        f"{noise16:.4e}); f32 max|d| {err32:.4e} (tol {tol32:.4e}); int8 vs bf16 weights max|d| "
+        f"{out['logits']['int8_vs_bf16_max_abs']:.4e}, greedy agreement "
+        f"{out['logits']['int8_vs_bf16_argmax_agreement']:.3f} (information: random weights)")
+    del lk16, lp16, lb16, lk32, lp32, plain
+    assert err32 <= tol32, "full-width f32 forward: int8 kernel and plain disagree"
+    assert err16 <= tol16, "full-width bf16 forward: int8 kernel and plain disagree"
+
+    # (d) a mixed-tick burst and a speculative pass on the int8 target
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    rng = np.random.default_rng(seed + 29)
+    base = dataclasses.replace(state["ecfg"], kv_quant_dtype="none")
+    ecfg = dataclasses.replace(base, mixed_step=True, mixed_step_budget=MIXED_BUDGET)
+    eng = InferenceEngine(qp, cfg, ecfg, seed=seed, device=device)
+    mixed_launches: dict = {}
+    orig_logits = eng._mixed_logits
+
+    def tallied(*a, **k):
+        before = rpa.launch_counts()
+        try:
+            return orig_logits(*a, **k)
+        finally:
+            for key, n in rpa.launch_counts().items():
+                mixed_launches[key] = mixed_launches.get(key, 0) + n - before[key]
+
+    eng._mixed_logits = tallied
+    decodes, prompts = burst
+    answers: dict = {}
+    for i, n in enumerate(decodes):
+        eng.submit(Request(f"d{i}", rng.integers(1, V, n).tolist(),
+                           SamplingParams(max_new_tokens=48)))
+    while len(answers) < len(decodes) or eng.stats["decode_steps"] < 4:
+        for ev in eng.step():
+            answers.setdefault(ev.request_id, []).append(ev.token)
+    for i, n in enumerate(prompts):
+        eng.submit(Request(f"b{i}", rng.integers(1, V, n).tolist(),
+                           SamplingParams(max_new_tokens=16)))
+    while eng.has_work():
+        for ev in eng.step():
+            answers.setdefault(ev.request_id, []).append(ev.token)
+    assert all(len(answers[f"d{i}"]) == 48 for i in range(len(decodes)))
+    assert all(len(answers[f"b{i}"]) == 16 for i in range(len(prompts)))
+    assert eng.allocator.free_pages == ecfg.num_pages - 1, "pages did not balance"
+    out["mixed"] = {"mixed_ticks": eng.stats["mixed_ticks"],
+                    "mixed_tick_launches": {k: n for k, n in mixed_launches.items() if n},
+                    "mixed_tick_device_ms_mean": (statistics.fmean(eng.mixed_tick_ms)
+                                                  if eng.mixed_tick_ms else None)}
+    assert out["mixed"]["mixed_ticks"] > 0, "no mixed tick ran"
+    if on_card:
+        assert mixed_launches.get("int8_weight_matmul", 0) >= w8_per_step, mixed_launches
+    eng.close()
+    del eng
+    gc.collect()
+    draft = load_draft_model(draft_preset, V, seed=seed + 4, device=device,
+                             dtype=params["embed"].dtype)
+    eng = InferenceEngine(qp, cfg, dataclasses.replace(base, spec_k=3), seed=seed,
+                          device=device, draft=draft)
+    rec = watch_spec(eng)
+    reqs = [Request(f"s{i}", rng.integers(1, V, n).tolist(), SamplingParams(max_new_tokens=max_new))
+            for i, n in enumerate(spec_prompts)]
+    spec_out = eng.run_to_completion(reqs)
+    assert all(len(spec_out[r.id]) == max_new for r in reqs)
+    st = eng.stats
+    assert st["spec_steps"] > 0, "no speculative step on the int8 target"
+    replays = [r for r in rec["runs"] if r["replayed"]]
+    if on_card:
+        assert replays and all(r["launches"]["int8_weight_matmul"] == w8_per_step
+                               for r in replays), [r["launches"] for r in replays[:2]]
+    out["spec"] = {"spec_steps": st["spec_steps"], "spec_emitted": st["spec_emitted"],
+                   "replays": len(replays),
+                   "spec_step_device_ms_mean": (statistics.fmean(eng.spec_step_ms)
+                                                if eng.spec_step_ms else None),
+                   "w8_launches": sum(r["launches"].get("int8_weight_matmul", 0)
+                                      for r in rec["runs"])}
+    eng.close()
+    del eng, draft
+    log(f"[quant] (d) mixed burst: {out['mixed']['mixed_ticks']} mixed ticks, launches in them "
+        f"{out['mixed']['mixed_tick_launches']}, {out['mixed']['mixed_tick_device_ms_mean']} "
+        f"device ms a tick; spec k=3 ({draft_preset} draft, fp): {st['spec_steps']} spec steps "
+        f"emitting {st['spec_emitted']} tokens, {len(replays)} replays of {w8_per_step} int8 "
+        f"launches each, {out['spec']['spec_step_device_ms_mean']} device ms a spec step")
+    out["launches"] = {"int8_weight_matmul": serve["w8_launches"]["int8_weight_matmul"]
+                       + mixed_launches.get("int8_weight_matmul", 0) + out["spec"]["w8_launches"]}
+    results["quant"] = out
+    del qp
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+
+
 def phase_ab(results, other_root: str):
     """A/B of the attention source at the mixed W = 1 shapes (bf16, f32):
     the source under ``other_root`` (a checkout of another commit) built for
@@ -3011,6 +3606,8 @@ def graph_replay_ms(graph, before, n: int = 20) -> float:
 
 def _kernel_kind(name: str) -> str:
     n = name.lower()
+    if "w8_" in n:
+        return "matmul (int8-weight, hand-written)"
     if any(k in n for k in ("decode_split", "decode_combine", "tc_tile", "ragged_attention",
                             "kv_write")):
         return "attention (hand-written)"
@@ -3102,7 +3699,33 @@ def kernels_line(results) -> dict:
                 row = results["spec"][run]
                 entry["spec"][f"verify_launches_{run}"] = row["verify_launches_by_width"]
         out.append(entry)
+    out.append(w8_kernel_entry(results))
     return {"kernels": out}
+
+
+def w8_kernel_entry(results) -> dict:
+    """The int8-weight matmul's entry: times and bound at the decode step's
+    w_gate/w_up product at 16 rows (bf16), ``max_abs_err`` the worst over
+    every bf16 shape, ``launches`` from the quant phase's main path (the
+    int8 serve, the mixed burst, the spec pass), and every shape's numbers
+    under ``shapes``."""
+    shapes = results["shapes"]
+    held = {k: r for k, r in shapes.items() if r["kernel"] == "int8_weight_matmul" and "ms" in r}
+    row = held["w8_wgate_wup_M16/bfloat16"]
+    keys = ("ms", "call_ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "cublas_bf16_ms",
+            "max_abs_err", "max_err_over_bound")
+    return {
+        "name": "int8_weight_matmul", "route": "cuda", "source": W8_SRC, "replaces": W8_REPLACES,
+        "launches": results["quant"]["launches"]["int8_weight_matmul"],
+        "max_abs_err": max(r["max_abs_err"] for r in held.values() if r["dtype"] == "bfloat16"),
+        "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+        "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+        "shape": "w8_wgate_wup_M16/bfloat16", "call_ms": row["call_ms"],
+        "cublas_bf16_ms": row["cublas_bf16_ms"],
+        "launches_per_decode_step": results["serve_w8"]["w8_launches_per_decode_step"],
+        "shapes": {k: {f: r[f] for f in keys} for k, r in held.items()
+                   if r["dtype"] == "bfloat16"},
+    }
 
 
 def main() -> int:
@@ -3143,6 +3766,7 @@ def main() -> int:
         phase_serve(results, state, args.seed)
         for mode in QUANT_MODES:
             phase_serve(results, state, args.seed, kv_quant=mode)
+        phase_quant(results, state, args.seed)
         phase_forward(results, state, args.seed)
         phase_graph(results, state, args.seed)
         phase_burst(results, state, args.seed)
