@@ -8,7 +8,8 @@ A quantized tree (the JAX package's ``quantize_params``) comes across as it
 is: each ``QUANT_KEYS`` leaf that is a JAX ``QuantW`` (with numpy ``q`` and
 ``scale``, as ``jax.tree.map(np.asarray, tree)`` leaves it) or a ``(q,
 scale)`` pair becomes the port's ``models.quant.QuantW``, q int8 and scale
-float32 bit for bit.
+float32 bit for bit: in the logical layout on the CPU, packed for the
+kernel (``models.quant.pack_quantw``, layer by layer) on a CUDA device.
 """
 
 from __future__ import annotations
@@ -20,7 +21,7 @@ import torch
 
 from agentfield_tpu_torch.models.configs import LlamaConfig
 from agentfield_tpu_torch.models.llama import Params, resolve_dtype
-from agentfield_tpu_torch.models.quant import QUANT_KEYS, QuantW
+from agentfield_tpu_torch.models.quant import QUANT_KEYS, QuantW, pack_quantw
 
 _LAYER_LEAVES = ("attn_norm", "mlp_norm", "wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
 _BIAS_LEAVES = ("bq", "bk", "bv")
@@ -57,19 +58,22 @@ def params_from_numpy(
         # exactly), copied: JAX hands out read-only buffers
         return torch.from_numpy(np.array(a, dtype=np.float32)).to(device=device, dtype=dt)
 
-    def move_exact(a, shape, dtype, name):
+    def exact(a, shape, dtype, name):  # a CPU tensor
         a = np.asarray(a)
         if tuple(a.shape) != tuple(shape) or a.dtype != dtype:
             raise ValueError(f"param {name}: {a.dtype} {a.shape} != expected {dtype} {shape}")
-        return torch.from_numpy(np.array(a)).to(device=device)
+        return torch.from_numpy(np.array(a))
 
     def leaf(n):
         w = layers_in[n]
         if n in QUANT_KEYS and (hasattr(w, "q") or isinstance(w, tuple)):
             q, scale = (w.q, w.scale) if hasattr(w, "q") else w
-            return QuantW(move_exact(q, shapes[n], np.int8, f"layers.{n}.q"),
-                          move_exact(scale, shapes[n][:1] + shapes[n][2:], np.float32,
-                                     f"layers.{n}.scale"))
+            qw = QuantW(exact(q, shapes[n], np.int8, f"layers.{n}.q"),
+                        exact(scale, shapes[n][:1] + shapes[n][2:], np.float32,
+                              f"layers.{n}.scale"))
+            if torch.device(device).type == "cuda":
+                return pack_quantw(qw, device)
+            return QuantW(qw.q.to(device), qw.scale.to(device))
         return move(w, shapes[n], f"layers.{n}")
 
     layers_in = tree["layers"]

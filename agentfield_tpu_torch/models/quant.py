@@ -15,10 +15,20 @@ version, the JAX formula ``(x @ q.to(x.dtype)) * scale.to(x.dtype)``.
 :class:`QuantW` stands on the right of ``@`` like the fp matrix
 (``Tensor.__matmul__`` returns NotImplemented for it, so Python calls
 ``QuantW.__rmatmul__``): ``x @ lp["wq"]`` in ``models/llama.py`` works
-unchanged for fp and quantized params alike. Both leaves (q ``[L, in,
-out]`` int8, scale ``[L, out]`` f32) keep the stacked-layer axis, and
-``QuantW[i]`` slices them in lockstep (``llama.layer``). Embeddings,
-``lm_head``, norms and biases stay fp.
+unchanged for fp and quantized params alike. Both leaves keep the
+stacked-layer axis, and ``QuantW[i]`` slices them in lockstep
+(``llama.layer``). Embeddings, ``lm_head``, norms and biases stay fp.
+
+Which layout ``QuantW.q`` holds depends on its device. On the CPU it is the
+JAX package's, ``[L, in, out]`` int8, so every CPU comparison with
+``agentfield_tpu/models/quant.py`` holds it unchanged. On a CUDA device it is
+the kernel's packed layout (``ops.cuda.quant_matmul.pack_int8_weight``,
+``[L, panels, K chunks, 2048]``: the same bytes for Llama-3-8B's widths),
+made once, matrix by matrix, when ``quantize_weight`` quantizes on the card
+or ``models.convert`` carries a quantized tree there; ``QuantW.packed``
+records it (the logical ``(in, out)``, or None). ``shape`` is the logical
+shape either way, and ``__getitem__`` past the layer axes, ``dequantize``
+and the plain version read a packed q through ``unpack_int8_weight``.
 """
 
 from __future__ import annotations
@@ -30,6 +40,9 @@ import torch
 from agentfield_tpu_torch.ops.cuda.quant_matmul import (
     int8_weight_matmul_cuda,
     int8_weight_matmul_ref,
+    pack_int8_weight,
+    packed_shape,
+    unpack_int8_weight,
 )
 
 # The layer weight leaves of models.llama.init_params that carry the decode
@@ -37,38 +50,52 @@ from agentfield_tpu_torch.ops.cuda.quant_matmul import (
 QUANT_KEYS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
 
 
-def int8_weight_matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
-    """``(x @ q) * scale``: the plain version for CPU tensors, the kernel
-    for any other device (which raises on what it does not take: there is
-    no fallback)."""
+def int8_weight_matmul(x: torch.Tensor, w: QuantW) -> torch.Tensor:
+    """``(x @ q) * scale``: the plain version for CPU tensors (on the
+    logical layout), the kernel for any other device (which takes the
+    packed layout and raises on what it does not take: there is no
+    fallback)."""
     if x.device.type == "cpu":
-        return int8_weight_matmul_ref(x, q, scale)
-    return int8_weight_matmul_cuda(x, q, scale)
+        return int8_weight_matmul_ref(x, w.logical(), w.scale)
+    return int8_weight_matmul_cuda(x, w.q, w.scale)
 
 
 class QuantW:
     """int8 weight + per-output-channel scale behaving like the fp matrix
     on the right side of ``@``."""
 
-    __slots__ = ("q", "scale")
+    __slots__ = ("q", "scale", "packed")
 
-    def __init__(self, q: torch.Tensor, scale: torch.Tensor):
-        self.q = q  # [..., d_in, d_out] int8
+    def __init__(self, q: torch.Tensor, scale: torch.Tensor,
+                 packed: tuple[int, int] | None = None):
+        self.q = q  # [..., d_in, d_out] int8, or the packed [..., panels, K chunks, 2048]
         self.scale = scale  # [..., d_out] f32
+        self.packed = packed  # the logical (d_in, d_out) of a packed q, else None
 
     @property
     def shape(self):
-        return self.q.shape
+        if self.packed is None:
+            return self.q.shape
+        return torch.Size((*self.scale.shape[:-1], *self.packed))
 
     @property
     def ndim(self):
-        return self.q.ndim
+        return len(self.shape)
+
+    def logical(self) -> torch.Tensor:
+        """q in the logical ``[..., d_in, d_out]`` layout (unpacked, a copy,
+        if packed)."""
+        return self.q if self.packed is None else unpack_int8_weight(self.q, *self.packed)
 
     def __getitem__(self, i) -> QuantW:
-        return QuantW(self.q[i], self.scale[i])
+        if self.packed is None:
+            return type(self)(self.q[i], self.scale[i])
+        if self.scale.dim() > 1:  # the layer (or expert) axes
+            return type(self)(self.q[i], self.scale[i], self.packed)
+        return type(self)(self.logical()[i], self.scale[i])
 
     def __rmatmul__(self, x: torch.Tensor) -> torch.Tensor:
-        return int8_weight_matmul(x, self.q, self.scale)
+        return int8_weight_matmul(x, self)
 
     def expert_einsum(self, spec: str, x: torch.Tensor) -> torch.Tensor:
         raise NotImplementedError(
@@ -76,10 +103,27 @@ class QuantW:
 
     def dequantize(self) -> torch.Tensor:
         """The fp approximation as a float32 tensor (tests only)."""
-        return self.q.float() * self.scale[..., None, :]
+        return self.logical().float() * self.scale[..., None, :]
 
     def __repr__(self):
-        return f"QuantW(q={tuple(self.q.shape)} int8, scale={tuple(self.scale.shape)})"
+        layout = "" if self.packed is None else f", packed {tuple(self.q.shape)}"
+        return (f"QuantW(q={tuple(self.shape)} int8{layout}, "
+                f"scale={tuple(self.scale.shape)})")
+
+
+def pack_quantw(w: QuantW, device: str | torch.device | None = None) -> QuantW:
+    """``w`` on ``device`` (default: where it is) with its q in the kernel's
+    packed layout, moved and packed matrix by matrix, so the device never
+    holds a second int8 stack; an already packed ``w`` only moves."""
+    device = w.q.device if device is None else torch.device(device)
+    if w.packed is not None:
+        return QuantW(w.q.to(device), w.scale.to(device), w.packed)
+    *lead, K, N = w.q.shape
+    q = torch.empty((*lead, *packed_shape(K, N)), dtype=torch.int8, device=device)
+    src, dst = w.q.reshape(-1, K, N), q.view(-1, *packed_shape(K, N))
+    for i in range(src.shape[0]):
+        dst[i] = pack_int8_weight(src[i].to(device))
+    return QuantW(q, w.scale.to(device), (K, N))
 
 
 def _quantize_matrix(w32: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -95,14 +139,19 @@ def quantize_weight(w: torch.Tensor) -> QuantW:
     clip(round(w / scale), -127, 127)`` (``torch.round`` rounds half to
     even, as ``jnp.round`` does). Each ``[d_in, d_out]`` matrix is
     quantized on its own device in turn, so a stacked full-width leaf never
-    stages a float32 copy of the whole stack."""
-    lead = w.shape[:-2]
-    q = torch.empty(w.shape, dtype=torch.int8, device=w.device)
-    scale = torch.empty((*lead, w.shape[-1]), dtype=torch.float32, device=w.device)
-    wf, qf, sf = w.reshape(-1, *w.shape[-2:]), q.view(-1, *w.shape[-2:]), scale.view(-1, w.shape[-1])
+    stages a float32 copy of the whole stack; on a CUDA device each is
+    packed as it is quantized (the kernel's layout: no second int8 stack is
+    held)."""
+    *lead, K, N = w.shape
+    pack = w.device.type == "cuda"
+    q = torch.empty((*lead, *packed_shape(K, N)) if pack else w.shape, dtype=torch.int8,
+                    device=w.device)
+    scale = torch.empty((*lead, N), dtype=torch.float32, device=w.device)
+    wf, qf, sf = w.reshape(-1, K, N), q.view(-1, *q.shape[len(lead):]), scale.view(-1, N)
     for i in range(wf.shape[0]):
-        qf[i], sf[i] = _quantize_matrix(wf[i].float())
-    return QuantW(q, scale)
+        qi, sf[i] = _quantize_matrix(wf[i].float())
+        qf[i] = pack_int8_weight(qi) if pack else qi
+    return QuantW(q, scale, (K, N) if pack else None)
 
 
 def quantize_params(params: dict[str, Any]) -> dict[str, Any]:

@@ -12,7 +12,8 @@ the result line:
                nvcc per library, in parallel: the attention source once per
                head dim 16/32/64/96/128/256); print the build seconds and
                the tensor-core instructions (HMMA/HGMMA) that ``cuobjdump
-               -sass`` finds in each built library.
+               -sass`` finds in each built library (the int8-weight
+               library must hold both: wgmma for bf16 x, mma.sync for f32).
 3. ``check``   hold each kernel against its plain PyTorch version on the card
                at the canonical mixes (fast and full) and at the Llama-3-8B
                main-path shapes, in float32 and bfloat16: every output element
@@ -55,14 +56,16 @@ the result line:
                quantized). The int8-weight matmul (``csrc/
                int8_weight_matmul.cu``) at every Llama-3-8B projection for
                M of 1-2048 rows and a phi-3-mini width (``w8_shapes``), bf16
-               and f32 x, within ``w8_elem_bound`` of the plain version
-               computed in f32 from the same q and scale; the bound rejects
-               a zeroed K tile of q and a doubled column scale
-               (``W8_FAULT_SHAPES``); one w_gate product at M = 32 raises the
-               peak memory by its output and no more (no widened copy of q);
-               a split-K product captured in a CUDA graph, replayed after
-               wider eager products, still matches and writes nowhere else
-               (``_check_w8_graph``).
+               and f32 x, on the packed weight ``quantize_weight`` makes on
+               the card, within ``w8_elem_bound`` of the plain version
+               computed in f32 from the same (logical) q and scale, each row
+               printing its launch plan; the bound rejects a zeroed K tile
+               of q and a doubled column scale, both made in the logical q
+               and then packed (``W8_FAULT_SHAPES``); one w_gate product at
+               M = 32 raises the peak memory by its output and no more (no
+               widened copy of q, no workspace); a split-K product captured
+               in a CUDA graph, replayed after wider eager products, still
+               matches and writes nowhere else (``_check_w8_graph``).
 4. ``time``    per shape: the kernel's device time (``ms``: CUDA-event
                median over replays of one wrapper call captured in a CUDA
                graph, so the Python host work of the call is not in it), the
@@ -182,9 +185,14 @@ the result line:
 Prints the card line, then one JSON line of per-kernel numbers, then
 ``{"ok": true, "device": {...}}`` as the last line. ``--out PATH`` also
 writes every phase's details (each shape, the serve run) as JSON.
-``--ab-against DIR`` runs only ``build`` and ``phase_ab``: the attention
-source of another checkout (unpacked at DIR) against this one's at the
-mixed shapes, in turns.
+``--ab-against DIR`` runs only ``build`` and ``phase_ab``: the kernels of
+another checkout (unpacked at DIR) against this one's, in turns: the
+attention source at the mixed shapes (where the two differ), the
+int8-weight matmul at every bf16 ``w8_shapes`` shape and in the replayed
+width-8 decode step on full-width Llama-3-8B int8 weights. ``--w8-sweep``
+runs only ``build`` and ``phase_w8_sweep``: every launch plan of the
+int8-weight kernel at every bf16 shape (the data behind
+``quant_matmul.PLAN_TABLE``).
 """
 
 from __future__ import annotations
@@ -557,6 +565,8 @@ def phase_build(results):
     for name, ops in sass.items():
         if name.startswith(("ragged_paged_attention", "int8_weight_matmul")):
             assert ops["HMMA"] > 0, f"no HMMA in the library {name}"
+        if name.startswith("int8_weight_matmul"):  # the bf16 paths run on wgmma
+            assert ops["HGMMA"] > 0, f"no HGMMA in the library {name}"
     results["sass_mma"] = sass
 
 
@@ -862,8 +872,9 @@ def _check_w8_graph(rows) -> list[str]:
     eager products that split wider (every projection at M 64, 200 and 1920)
     and after fresh tensors took whatever memory those freed: the replay
     must match the plain version within ``w8_elem_bound`` and leave the
-    fresh tensors untouched (the workspace a graph captured is the one every
-    later product uses). Returns the failures."""
+    fresh tensors untouched (a split product sums its partials in its
+    cluster's shared memory: no memory outside y is written). Returns the
+    failures."""
     import torch
 
     from agentfield_tpu_torch.models.quant import quantize_weight
@@ -874,6 +885,7 @@ def _check_w8_graph(rows) -> list[str]:
     g.manual_seed(1)
     K, N = W8_PROJECTIONS["wk_wv"]
     qw = quantize_weight(torch.empty((K, N), device=dev).normal_(0.0, 0.02, generator=g))
+    q = qw.logical()
     x = torch.empty((8, K), device=dev, dtype=torch.bfloat16).normal_(0.0, 1.0, generator=g)
     p = plan(8, K, N, torch.cuda.get_device_properties(dev).multi_processor_count)
     int8_weight_matmul_cuda(x, qw.q, qw.scale)  # eager first: sets up the device
@@ -894,8 +906,8 @@ def _check_w8_graph(rows) -> list[str]:
     for _ in range(3):
         graph.replay()
     torch.cuda.synchronize()
-    y_r = (x.float() @ qw.q.float()) * qw.scale
-    s_abs = (x.float().abs() @ qw.q.float().abs()) * qw.scale
+    y_r = (x.float() @ q.float()) * qw.scale
+    s_abs = (x.float().abs() @ q.float().abs()) * qw.scale
     ok, err, ratio = w8_compare(y_g, y_r, s_abs, K, "bfloat16")
     untouched = all(bool((f == 7.0).all()) for f in fresh)
     rows["w8_graph_after_larger_products"] = {
@@ -911,11 +923,13 @@ def _check_w8_graph(rows) -> list[str]:
 
 
 def _check_w8(rows) -> list[str]:
-    """The int8-weight matmul at every ``w8_shapes`` shape, bf16 and f32 x:
-    held against the plain version (``(x.float() @ q.float()) * scale`` on
-    the card) within ``w8_elem_bound``; at ``W8_FAULT_SHAPES`` the bound
-    must reject a kernel fed q with one 64-row K tile zeroed and one fed one
-    column's scale doubled; times (``ms`` replayed from a graph, ``call_ms``
+    """The int8-weight matmul at every ``w8_shapes`` shape, bf16 and f32 x,
+    on the packed weight ``quantize_weight`` makes on the card: held against
+    the plain version (``(x.float() @ q.float()) * scale`` on the card, q
+    the logical layout) within ``w8_elem_bound``; at ``W8_FAULT_SHAPES`` the
+    bound must reject a kernel fed q with one 64-row K tile zeroed and one
+    fed one column's scale doubled (both made in the logical q, then
+    packed); each row prints its plan; times (``ms`` replayed from a graph, ``call_ms``
     eager, the plain version, ``torch._weight_int8pack_mm`` where it runs on
     CUDA, and cuBLAS bf16 ``x @ w`` at the same shape as a yardstick only);
     and the memory rise of one w_gate call at M = 32 within y's bytes plus
@@ -924,7 +938,11 @@ def _check_w8(rows) -> list[str]:
 
     from agentfield_tpu_torch.models.quant import quantize_weight
     from agentfield_tpu_torch.ops.cuda import quant_matmul as qm
-    from agentfield_tpu_torch.ops.cuda.quant_matmul import int8_weight_matmul_cuda, plan
+    from agentfield_tpu_torch.ops.cuda.quant_matmul import (
+        int8_weight_matmul_cuda,
+        pack_int8_weight,
+        plan,
+    )
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev)
@@ -937,16 +955,16 @@ def _check_w8(rows) -> list[str]:
             torch.cuda.empty_cache()
             w = torch.empty((K, N), device=dev).normal_(0.0, 0.02, generator=g)
             qw = quantize_weight(w)
-            weights[(K, N)] = (qw.q, qw.scale, w.to(torch.bfloat16))
+            weights[(K, N)] = (qw.q, qw.logical(), qw.scale, w.to(torch.bfloat16))
             del w
-        q, scale, w16 = weights[(K, N)]
+        qp, q, scale, w16 = weights[(K, N)]
         x32 = torch.empty((M, K), device=dev).normal_(0.0, 1.0, generator=g)
         p = plan(M, K, N, torch.cuda.get_device_properties(dev).multi_processor_count)
         for dname, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
             x = x32.to(dtype)
             y_r = (x.float() @ q.float()) * scale
             s_abs = (x.float().abs() @ q.float().abs()) * scale
-            y_k = int8_weight_matmul_cuda(x, q, scale)
+            y_k = int8_weight_matmul_cuda(x, qp, scale)
             torch.cuda.synchronize()
             ok, err, ratio = w8_compare(y_k, y_r, s_abs, K, dname)
             row = {"kernel": "int8_weight_matmul", "dtype": dname, "M": M, "K": K, "N": N,
@@ -956,13 +974,14 @@ def _check_w8(rows) -> list[str]:
                 bad_q = q.clone()
                 k0 = K_TILE_ROWS * ((K // K_TILE_ROWS) // 2)
                 bad_q[k0:k0 + K_TILE_ROWS] = 0
+                bad_q = pack_int8_weight(bad_q)
                 bad_s = scale.clone()
                 col = int(y_r.abs().amax(0).argmax())
                 bad_s[col] *= 2
                 row["faults"] = {
                     "k_tile_skipped": w8_compare(int8_weight_matmul_cuda(x, bad_q, scale), y_r,
                                                  s_abs, K, dname)[1:],
-                    "column_scale_2x": w8_compare(int8_weight_matmul_cuda(x, q, bad_s), y_r,
+                    "column_scale_2x": w8_compare(int8_weight_matmul_cuda(x, qp, bad_s), y_r,
                                                   s_abs, K, dname)[1:],
                 }
                 torch.cuda.synchronize()
@@ -974,8 +993,8 @@ def _check_w8(rows) -> list[str]:
             es = x.element_size()
             row["bound_ms"], row["bound_by"] = bound_ms(
                 K * N + 4 * N + es * (M * K + M * N), 2 * M * K * N, dname)
-            row["ms"] = graph_ms(lambda: int8_weight_matmul_cuda(x, q, scale))
-            row["call_ms"] = cuda_ms(lambda: int8_weight_matmul_cuda(x, q, scale))
+            row["ms"] = graph_ms(lambda: int8_weight_matmul_cuda(x, qp, scale))
+            row["call_ms"] = cuda_ms(lambda: int8_weight_matmul_cuda(x, qp, scale))
             row["plain_ms"] = cuda_ms(lambda: (x.float() @ q.float()) * scale, n=5, warmup=1)
             row["library_ms"] = w8_library_ms(x, q, scale)
             row["cublas_bf16_ms"] = (cuda_ms(lambda: x @ w16) if dtype == torch.bfloat16
@@ -988,6 +1007,7 @@ def _check_w8(rows) -> list[str]:
             if not ok:
                 failures.append(f"w8_{name}/{dname}")
             del x, y_r, s_abs, y_k
+    del qp, q, scale, w16
     weights.clear()
     torch.cuda.empty_cache()
     # no widened copy of the weight: one w_gate product at M = 32 allocates
@@ -1004,15 +1024,14 @@ def _check_w8(rows) -> list[str]:
     torch.cuda.synchronize()
     rise = torch.cuda.max_memory_allocated() - base
     limit = y.numel() * y.element_size() + W8_MEMORY_SLACK
-    ws = qm._workspace[y.device.index]
     rows["w8_memory_wgate_M32"] = {"kernel": "int8_weight_matmul", "dtype": "bfloat16",
                                    "rise_bytes": rise, "limit_bytes": limit,
                                    "bf16_weight_bytes": K * N * 2, "ok": rise <= limit,
                                    "plan": plan(32, K, N, qm._sms[y.device.index]),
-                                   "splitk_workspace_bytes": 4 * ws.numel()}
+                                   "workspace_bytes": 0}
     log(f"[check] w8 memory: one w_gate call at M = 32 raised the peak by {rise} bytes "
-        f"(limit {limit}: y plus 1 MiB; a bf16 copy of q would be {K * N * 2}); the split-K "
-        f"workspace, allocated once per device: {4 * ws.numel()} bytes")
+        f"(limit {limit}: y plus 1 MiB; a bf16 copy of q would be {K * N * 2}); the kernel "
+        f"keeps no workspace (split partials meet in the cluster's shared memory)")
     if rise > limit:
         failures.append(f"w8 memory rise {rise} > {limit}")
     return failures
@@ -3236,20 +3255,18 @@ W8_SPEC_PROMPTS = (200, 600, 1000, 1500)
 def plain_w8_params(params):
     """``params`` with every ``QuantW`` leaf replaced by one whose ``@``
     runs the plain version (``int8_weight_matmul_ref``, the JAX formula) on
-    any device: the kernel's comparison on the card."""
+    any device, reading a packed q through ``unpack_int8_weight``: the
+    kernel's comparison on the card."""
     from agentfield_tpu_torch.models.quant import QuantW
     from agentfield_tpu_torch.ops.cuda.quant_matmul import int8_weight_matmul_ref
 
     class PlainQuantW(QuantW):
         __slots__ = ()
 
-        def __getitem__(self, i):
-            return PlainQuantW(self.q[i], self.scale[i])
-
         def __rmatmul__(self, x):
-            return int8_weight_matmul_ref(x, self.q, self.scale)
+            return int8_weight_matmul_ref(x, self.logical(), self.scale)
 
-    layers = {k: PlainQuantW(v.q, v.scale) if isinstance(v, QuantW) else v
+    layers = {k: PlainQuantW(v.q, v.scale, v.packed) if isinstance(v, QuantW) else v
               for k, v in params["layers"].items()}
     return {**params, "layers": layers}
 
@@ -3526,7 +3543,22 @@ def phase_quant(results, state, seed: int, device: str = "cuda", model: str = "l
         torch.cuda.empty_cache()
 
 
-def phase_ab(results, other_root: str):
+def phase_ab(results, other_root: str, seed: int = 0):
+    """A/B against a checkout of another commit unpacked at ``other_root``:
+    the attention source (``phase_ab_attention``, skipped where the two
+    sources are the same bytes), then the int8-weight matmul
+    (``phase_ab_w8``)."""
+    same = (open(os.path.join(other_root, RAGGED_SRC), "rb").read()
+            == open(os.path.join(ROOT, RAGGED_SRC), "rb").read())
+    results["ab"] = {"other_root": other_root, "attention_source_unchanged": same}
+    if same:
+        log(f"[ab] {RAGGED_SRC} is the same in both checkouts: attention A/B skipped")
+    else:
+        phase_ab_attention(results, other_root)
+    phase_ab_w8(results, other_root, seed)
+
+
+def phase_ab_attention(results, other_root: str):
     """A/B of the attention source at the mixed W = 1 shapes (bf16, f32):
     the source under ``other_root`` (a checkout of another commit) built for
     hd 128 and 96 and bound in place of this checkout's, in turns (other,
@@ -3583,7 +3615,193 @@ def phase_ab(results, other_root: str):
             log(f"[ab] {name} {dname}: other {t['other']} ms, this {t['this']} ms")
             del case, q, kn, vn, kp, vp, o_r
         torch.cuda.empty_cache()
-    results["ab"] = {"other_root": other_root, "shapes": rows}
+    results["ab"]["shapes"] = rows
+
+
+def _other_w8(other_root: str):
+    """The int8-weight wrapper of the checkout at ``other_root``, loaded by
+    file path (its ``plan`` and launch signature), bound to its own source
+    built here; it reads the logical ``[K, N]`` layout of q (the layout
+    before the packed one)."""
+    import ctypes
+    import hashlib
+    import importlib.util
+
+    from agentfield_tpu_torch.ops.cuda import build
+
+    src = os.path.join(other_root, W8_SRC)
+    tag = hashlib.sha256(open(src, "rb").read()).hexdigest()[:12]
+    so = str(build.BUILD_DIR / f"ab_other.w8-{tag}.so")
+    os.makedirs(build.BUILD_DIR, exist_ok=True)
+    subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-o", so, src], check=True)
+    spec = importlib.util.spec_from_file_location(
+        "ab_other_quant_matmul", os.path.join(other_root, "agentfield_tpu_torch/ops/cuda/quant_matmul.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    mod._fns["w8"] = mod.bind(ctypes.CDLL(so))
+    return mod
+
+
+def phase_ab_w8(results, other_root: str, seed: int = 0):
+    """A/B of the int8-weight matmul: the source and wrapper of the checkout
+    at ``other_root`` (``_other_w8``, the logical layout of q) against this
+    checkout's (the packed layout), in turns (other, this, this, other) in
+    one process: every bf16 ``w8_shapes`` shape (``ms`` replayed from a
+    graph, each within ``w8_elem_bound`` of the plain version), then the
+    replayed width-8 decode step of full-width Llama-3-8B on int8 weights
+    (``_step_device_ms``: step device ms and its int8 matmuls' ms)."""
+    import torch
+
+    from agentfield_tpu_torch.models.configs import get_config
+    from agentfield_tpu_torch.models.llama import init_params
+    from agentfield_tpu_torch.models.quant import QuantW, quantize_params, quantize_weight
+    from agentfield_tpu_torch.ops.cuda.quant_matmul import int8_weight_matmul_cuda
+
+    other = _other_w8(other_root)
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    fns = {"other": lambda x, w: other.int8_weight_matmul_cuda(x, w[1], w[2]),
+           "this": lambda x, w: int8_weight_matmul_cuda(x, w[0], w[2])}
+    rows = {}
+    weights = {}
+    for name, (M, K, N) in w8_shapes().items():
+        if (K, N) not in weights:
+            weights.clear()
+            torch.cuda.empty_cache()
+            qw = quantize_weight(torch.empty((K, N), device=dev).normal_(0.0, 0.02, generator=g))
+            weights[(K, N)] = (qw.q, qw.logical(), qw.scale)
+        w = weights[(K, N)]
+        x = torch.empty((M, K), device=dev).normal_(0.0, 1.0, generator=g).to(torch.bfloat16)
+        y_r = (x.float() @ w[1].float()) * w[2]
+        s_abs = (x.float().abs() @ w[1].float().abs()) * w[2]
+        t = {"other": [], "this": []}
+        for who in ("other", "this", "this", "other"):
+            ok, err, ratio = w8_compare(fns[who](x, w), y_r, s_abs, K, "bfloat16")
+            assert ok, f"{who} int8-weight kernel at {name}: err/bound {ratio}"
+            t[who].append(graph_ms(lambda: fns[who](x, w)))
+        other_ms, this_ms = statistics.fmean(t["other"]), statistics.fmean(t["this"])
+        rows[name] = {"M": M, "K": K, "N": N, "other_ms": t["other"], "this_ms": t["this"],
+                      "this_over_other": this_ms / other_ms}
+        log(f"[ab] w8 {name:22s} other {t['other'][0]:.4f} {t['other'][1]:.4f} this "
+            f"{t['this'][0]:.4f} {t['this'][1]:.4f} ms ({this_ms / other_ms:.3f}x)")
+        del x, y_r, s_abs
+    weights.clear()
+    torch.cuda.empty_cache()
+
+    class OtherQuantW(QuantW):  # x @ w through the other checkout's kernel
+        __slots__ = ()
+
+        def __rmatmul__(self, x):
+            return other.int8_weight_matmul_cuda(x, self.q, self.scale)
+
+    cfg = get_config("llama-3-8b")
+    packed = quantize_params(init_params(cfg, seed=seed, device="cuda"))
+    logical = {**packed, "layers": {k: OtherQuantW(v.logical(), v.scale) if isinstance(v, QuantW)
+                                    else v for k, v in packed["layers"].items()}}
+    # the decode step's 7 L int8 products at 8 rows, chained over every
+    # layer's weights (each read cold, as in the step) in one graph: device
+    # ms a layer, with no other kernel between them
+    xs = {k: torch.empty((8, k), device=dev).normal_(generator=g).to(torch.bfloat16)
+          for k in (cfg.hidden_size, cfg.intermediate_size)}
+    order = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
+
+    def chain(params):
+        ws = [[params["layers"][k][i] for k in order] for i in range(cfg.num_layers)]
+
+        def run():
+            for lw in ws:
+                for w in lw:
+                    w.__rmatmul__(xs[w.shape[0]])
+        return graph_ms(run, n=5) / cfg.num_layers
+
+    layer = {"other": [], "this": []}
+    for who in ("other", "this", "this", "other"):
+        layer[who].append(chain(logical if who == "other" else packed))
+    log(f"[ab] w8 the decode step's 7 int8 products at 8 rows, chained over {cfg.num_layers} "
+        f"layers: other {layer['other']} ms a layer, this {layer['this']} ms a layer "
+        f"(bytes bound {sum(packed['layers'][k].q[0].numel() for k in order) / HBM_BYTES_PER_S * 1e3:.4f})")
+    kind = "matmul (int8-weight, hand-written)"
+    steps = {"other": [], "this": []}
+    for who in ("other", "this", "this", "other"):
+        st = _step_device_ms(logical if who == "other" else packed, cfg, seed)
+        bd = st["breakdown"]
+        steps[who].append({"step_device_ms": st["step_device_ms"],
+                           "int8_matmul_ms": bd and bd["by_kind_ms"].get(kind),
+                           "by_kind_ms": bd and bd["by_kind_ms"]})
+        log(f"[ab] w8 width-{st['width']} replayed step, {who}: {st['step_device_ms']:.3f} device "
+            f"ms, int8 matmuls {steps[who][-1]['int8_matmul_ms']} ms")
+    del packed, logical
+    gc.collect()
+    torch.cuda.empty_cache()
+    results["ab"]["w8"] = {"shapes": rows, "step": steps, "layer_chain_ms": layer}
+
+
+def phase_w8_sweep(results, seed: int = 0, cold_bytes: int = 160_000_000):
+    """The int8-weight kernel's launch plans on the card, for tuning
+    ``quant_matmul.PLAN_TABLE``: at every bf16 ``w8_shapes`` shape, each
+    candidate (nx, cw, splits) the source builds, timed as a chain of
+    products over distinct weights of ``cold_bytes`` in all (each read
+    cold, as in a decode step) in one graph, per product; each candidate
+    held within ``w8_elem_bound``. Prints the plan ``quant_matmul.plan``
+    takes (the table's or the heuristic's) and the fastest."""
+    import itertools
+
+    import torch
+
+    from agentfield_tpu_torch.models.quant import quantize_weight
+    from agentfield_tpu_torch.ops.cuda import quant_matmul as qm
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    rows = {}
+    weights = {}
+    for name, (M, K, N) in w8_shapes().items():
+        if (K, N) not in weights:
+            weights.clear()
+            torch.cuda.empty_cache()
+            weights[(K, N)] = [quantize_weight(torch.empty((K, N), device=dev).normal_(
+                0.0, 0.02, generator=g)) for _ in range(max(1, -(-cold_bytes // (K * N))))]
+        ws = weights[(K, N)]
+        x = torch.empty((M, K), device=dev).normal_(0.0, 1.0, generator=g).to(torch.bfloat16)
+        q0 = ws[0].logical()
+        y_r = (x.float() @ q0.float()) * ws[0].scale
+        s_abs = (x.float().abs() @ q0.float().abs()) * ws[0].scale
+        nkt = -(-K // qm.K_TILE)
+        key = (qm.m_bucket(M), K, N)
+        p = qm.plan(M, K, N, sms)
+        taken, saved = (p["nx"], p["cw"], p["splits"]), qm.PLAN_TABLE.pop(key, None)
+        if M <= qm.STREAM_MAX_M:
+            cands = [(taken[0], 1, sp) for sp in (1, 2, 3, 4, 6, 8)]
+        else:
+            cands = list(itertools.product((128, 256), (1, 2), (1, 2, 4, 8)))
+        times = {}
+        for nx, cw, sp in cands:
+            if sp > max(1, nkt // 2):
+                continue
+            qm.PLAN_TABLE[key] = (nx, cw, sp)
+            ok = w8_compare(qm.int8_weight_matmul_cuda(x, ws[0].q, ws[0].scale), y_r, s_abs, K,
+                            "bfloat16")[0]
+            assert ok, f"w8 sweep {name} plan {(nx, cw, sp)} missed w8_elem_bound"
+
+            def run():
+                for w in ws:
+                    qm.int8_weight_matmul_cuda(x, w.q, w.scale)
+            times[(nx, cw, sp)] = graph_ms(run, n=10) / len(ws)
+        del qm.PLAN_TABLE[key]
+        if saved is not None:
+            qm.PLAN_TABLE[key] = saved
+        best = min(times, key=times.get)
+        rows[name] = {"M": M, "K": K, "N": N, "plan": taken, "best": best,
+                      "ms": {str(k): v for k, v in times.items()}}
+        log(f"[sweep] w8 {name:22s} plan {taken} {times.get(taken, float('nan')):.4f} ms, "
+            f"fastest {best} {times[best]:.4f} ms")
+        del x, y_r, s_abs, q0
+    weights.clear()
+    torch.cuda.empty_cache()
+    results["w8_sweep"] = rows
 
 
 def graph_replay_ms(graph, before, n: int = 20) -> float:
@@ -3732,9 +3950,14 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default=None, help="also write every phase's details here (JSON)")
+    ap.add_argument("--w8-sweep", action="store_true",
+                    help="only build, then time every launch plan of the int8-weight kernel at "
+                         "every bf16 shape (phase_w8_sweep, for quant_matmul.PLAN_TABLE)")
     ap.add_argument("--ab-against", default=None, metavar="DIR",
-                    help="only build, then time the attention source of the checkout at DIR "
-                         "against this one's at the mixed W=1 shapes (phase_ab)")
+                    help="only build, then time the kernels of the checkout at DIR against "
+                         "this one's in turns (phase_ab: the attention source at the mixed W=1 "
+                         "shapes where it differs, the int8-weight matmul at every bf16 shape "
+                         "and in the replayed decode step)")
     args = ap.parse_args()
 
     import torch
@@ -3754,11 +3977,19 @@ def main() -> int:
     results: dict = {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda}
     state: dict = {}
     t0 = time.perf_counter()
-    if args.ab_against:
+    if args.ab_against or args.w8_sweep:
         phase_build(results)
-        phase_ab(results, args.ab_against)
+        if args.w8_sweep:
+            phase_w8_sweep(results, args.seed)
+        if args.ab_against:
+            phase_ab(results, args.ab_against, args.seed)
+        if args.out:
+            os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+            with open(args.out, "w") as f:
+                json.dump(results, f, indent=1, default=str)
         log(card)
-        print(json.dumps(results["ab"]), flush=True)
+        print(json.dumps({k: results[k] for k in ("ab", "w8_sweep") if k in results},
+                         default=str), flush=True)
         return 0
     try:
         phase_build(results)

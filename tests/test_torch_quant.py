@@ -278,29 +278,59 @@ def test_smoke_quant_phase_rehearses_on_cpu(weights):
 
 @pytest.mark.parametrize("name", sorted(n for n, c in PRESETS.items() if c.num_experts == 0))
 def test_plan_takes_every_preset_width(name):
+    """At every projection width of the preset and the main path's row
+    counts: the plan names an instance the source builds; its CTAs cover
+    every output tile (panel x rows of x) and every K tile exactly once,
+    and each cluster's combine covers the tile's rows exactly once; a
+    cluster is portable (at most 8 splits) and a CTA's partial tile fits
+    the shared memory its ring takes (no workspace, no counters); x pads at
+    most 7 rows at decode widths."""
     cfg = PRESETS[name]
     d, f = cfg.hidden_size, cfg.intermediate_size
     for K, N in ((d, cfg.q_dim), (d, cfg.kv_dim), (cfg.q_dim, d), (d, f), (f, d)):
         for M in (1, 8, 16, 32, 64, 200, 512, 1920, 2048):
             p = qm.plan(M, K, N)
-            nkt = -(-K // qm.K_TILE)
-            assert (p["splits"] - 1) * p["kt_per_split"] < nkt <= p["splits"] * p["kt_per_split"]
-            assert p["path"] == ("stream" if M <= qm.STREAM_MAX_M else "tiled") and p["bm"] >= min(M, 16)
-            n_tile = qm.STREAM_N_TILE if p["path"] == "stream" else qm.TILED_N_TILE
-            tiles = -(-N // n_tile) * -(-M // p["bm"])
-            if p["splits"] > 1:  # the per-SM tile counters and the fixed
-                assert tiles <= qm.H100_SMS  # workspace cover a split product
-                assert p["splits"] * M * N <= qm.H100_SMS * qm.TILE_FLOATS
+            nx, cw, splits, per = p["nx"], p["cw"], p["splits"], p["kt_per_split"]
+            nkt, panels = -(-K // qm.K_TILE), -(-N // qm.PANEL)
+            assert (nx, cw) in qm.INSTANCES and 1 <= splits <= qm.MAX_SPLITS
+            assert p["path"] == ("stream" if M <= qm.STREAM_MAX_M else "tiled")
+            if M <= qm.STREAM_MAX_M:
+                assert 0 <= nx - M <= 7
+            # K tiles: split s takes [s * per, min((s + 1) * per, nkt)), never empty
+            kt = np.zeros(nkt, int)
+            for sp in range(splits):
+                lo, hi = sp * per, min((sp + 1) * per, nkt)
+                assert hi > lo
+                kt[lo:hi] += 1
+            # panels: group g takes [g * cw, g * cw + live); rows: tile z [z * nx, ...)
+            pn = np.zeros(p["groups"] * cw, int)
+            for g in range(p["groups"]):
+                live = min(cw, panels - g * cw)
+                assert live >= 1
+                pn[g * cw:g * cw + live] += 1
+            rows = np.zeros(p["m_tiles"] * nx, int)
+            for z in range(p["m_tiles"]):
+                rows[z * nx:(z + 1) * nx] += 1
+            # a tile's rows among the cluster's ranks in the combine
+            comb = np.zeros(nx, int)
+            for rk in range(splits):
+                comb[rk * nx // splits:(rk + 1) * nx // splits] += 1
+            assert (kt == 1).all() and (pn[:panels] == 1).all() and (pn[panels:] == 0).all()
+            assert (rows[:M] == 1).all() and (comb == 1).all()
+            assert p["ctas"] == splits * p["groups"] * p["m_tiles"]
+            sm = qm.cta_smem(nx, cw)
+            assert sm["stages"] >= 2 and sm["smem_bytes"] <= qm.SMEM_LIMIT
+            assert sm["partial_bytes"] <= sm["smem_bytes"]
 
 
 def test_first_product_on_a_device_is_not_captured(monkeypatch):
-    """The split-K workspace and tile counters are allocated once, at a
-    device's first product, and never replaced (a captured graph keeps their
-    pointers); a first product inside a graph capture is refused."""
+    """The kernel is set up on a device (its instances' shared-memory
+    limits, the tensor-map encoder) at the device's first product; a first
+    product inside a graph capture is refused, and nothing is set up."""
     monkeypatch.setattr(torch.cuda, "is_current_stream_capturing", lambda: True)
     with pytest.raises(RuntimeError, match="first product on a device"):
         qm._device_state(torch.device("cuda", 97))
-    assert 97 not in qm._sms and 97 not in qm._workspace
+    assert 97 not in qm._sms
 
 
 def test_plan_refuses_widths_it_cannot_tile():
@@ -312,8 +342,8 @@ def test_plan_refuses_widths_it_cannot_tile():
 def test_cuda_dispatch_never_falls_back():
     """A tensor off the CPU goes to the kernel's wrapper, which raises on
     what it cannot launch: a ``meta`` tensor is refused, not sent to the
-    plain version; and a launch the runtime refuses raises with its CUDA
-    error, counting nothing."""
+    plain version, and so is a packed q beside CPU tensors; and a launch
+    the runtime refuses raises with its CUDA error, counting nothing."""
     w = quant.quantize_weight(torch.randn(64, 32))
     x = torch.empty((4, 64), device="meta")
     meta_w = quant.QuantW(w.q.to("meta"), w.scale.to("meta"))
@@ -321,6 +351,8 @@ def test_cuda_dispatch_never_falls_back():
         x @ meta_w
     with pytest.raises(ValueError, match="not supported"):
         qm.int8_weight_matmul_cuda(x.to(torch.float16), meta_w.q, meta_w.scale)
+    with pytest.raises(ValueError, match="CUDA tensor"):  # packed, but on the CPU
+        qm.int8_weight_matmul_cuda(torch.randn(4, 64), qm.pack_int8_weight(w.q), w.scale)
 
     calls = []
 
@@ -331,8 +363,8 @@ def test_cuda_dispatch_never_falls_back():
     before = rpa.launch_counts()
     y = torch.empty((4, 32))
     with pytest.raises(RuntimeError, match="CUDA error 98 \\(invalid device function\\)"):
-        qm._launch(refused, lambda rc: b"invalid device function", torch.randn(4, 64), w.q,
-                   w.scale, y, None, None, 4, 64, 32, qm.plan(4, 64, 32), 0)
+        qm._launch(refused, lambda rc: b"invalid device function", torch.randn(4, 64),
+                   qm.pack_int8_weight(w.q), w.scale, y, 4, 64, 32, qm.plan(4, 64, 32), 0)
     assert len(calls) == 1 and rpa.launch_counts() == before
 
 
