@@ -9,7 +9,10 @@ is: each ``QUANT_KEYS`` leaf that is a JAX ``QuantW`` (with numpy ``q`` and
 ``scale``, as ``jax.tree.map(np.asarray, tree)`` leaves it) or a ``(q,
 scale)`` pair becomes the port's ``models.quant.QuantW``, q int8 and scale
 float32 bit for bit: in the logical layout on the CPU, packed for the
-kernel (``models.quant.pack_quantw``, layer by layer) on a CUDA device.
+kernel (``models.quant.pack_quantw``, matrix by matrix) on a CUDA device.
+A MoE config (``num_experts > 0``) takes ``router [L, d, E]`` (always fp)
+and the expert stacks ``w_gate``/``w_up [L, E, d, f]``, ``w_down [L, E, f,
+d]``, fp or quantized (scale ``[L, E, out]``).
 """
 
 from __future__ import annotations
@@ -38,15 +41,16 @@ def params_from_numpy(
     key))``), into the port's params on ``device`` in ``dtype`` (default:
     ``cfg.dtype``). Raises on a missing leaf or a shape that does not match
     ``cfg``."""
-    if cfg.num_experts > 0:
-        raise NotImplementedError("MoE FFNs are not ported yet")
     dt = resolve_dtype(dtype or cfg.dtype)
     L, d, f, v = cfg.num_layers, cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
+    E = cfg.num_experts
+    ex = (L, E) if E > 0 else (L,)  # the expert axis after the layer axis
     shapes = {
         "attn_norm": (L, d), "mlp_norm": (L, d),
         "wq": (L, d, cfg.q_dim), "wk": (L, d, cfg.kv_dim), "wv": (L, d, cfg.kv_dim),
         "wo": (L, cfg.q_dim, d),
-        "w_gate": (L, d, f), "w_up": (L, d, f), "w_down": (L, f, d),
+        "w_gate": (*ex, d, f), "w_up": (*ex, d, f), "w_down": (*ex, f, d),
+        "router": (L, d, E),
         "bq": (L, cfg.q_dim), "bk": (L, cfg.kv_dim), "bv": (L, cfg.kv_dim),
     }
 
@@ -69,7 +73,7 @@ def params_from_numpy(
         if n in QUANT_KEYS and (hasattr(w, "q") or isinstance(w, tuple)):
             q, scale = (w.q, w.scale) if hasattr(w, "q") else w
             qw = QuantW(exact(q, shapes[n], np.int8, f"layers.{n}.q"),
-                        exact(scale, shapes[n][:1] + shapes[n][2:], np.float32,
+                        exact(scale, shapes[n][:-2] + shapes[n][-1:], np.float32,
                               f"layers.{n}.scale"))
             if torch.device(device).type == "cuda":
                 return pack_quantw(qw, device)
@@ -77,7 +81,8 @@ def params_from_numpy(
         return move(w, shapes[n], f"layers.{n}")
 
     layers_in = tree["layers"]
-    names = _LAYER_LEAVES + (_BIAS_LEAVES if cfg.attn_bias else ())
+    names = (_LAYER_LEAVES + (("router",) if E > 0 else ())
+             + (_BIAS_LEAVES if cfg.attn_bias else ()))
     out: Params = {
         "embed": move(tree["embed"], (v, d), "embed"),
         "layers": {n: leaf(n) for n in names},

@@ -11,14 +11,19 @@ out float32.
 ``forward(attn_impl="kernel")`` is the counterpart of the JAX
 ``attn_impl="flash"``: dense causal prefill through the hand-written ragged
 paged-attention kernel (``ops.cuda.ragged_paged_attention.
-dense_causal_attention``; its plain version on CPU tensors). MoE FFNs are not
-ported yet.
+dense_causal_attention``; its plain version on CPU tensors).
+
+A config with ``num_experts > 0`` (Mixtral) has a top-k MoE FFN: ``router
+[L, d, E]`` and expert stacks ``w_gate``/``w_up [L, E, d, f]``, ``w_down [L,
+E, f, d]``; ``cfg.moe_impl`` picks soft routing or capacity-based sparse
+dispatch (``models.moe``).
 
 A projection leaf is a tensor or a ``models.quant.QuantW`` (int8 weights with
 per-output-channel scales, ``quant.quantize_params``): every projection is
 written ``x @ w``, which a QuantW takes through ``__rmatmul__`` (the
 hand-written int8-weight kernel on the card), and ``layer`` slices it like a
-tensor. One forward serves both.
+tensor. One forward serves both. An expert stack contracts through
+``QuantW.expert_einsum`` (one kernel launch per expert on the card).
 """
 
 from __future__ import annotations
@@ -61,14 +66,20 @@ def init_params(
     seed: int = 0,
     dtype: str | torch.dtype | None = None,
     device: str | torch.device = "cuda",
+    quantize: bool = False,
 ) -> Params:
     """Random-normal init (std 0.02; norms 1), drawn from a seeded
     ``torch.Generator`` directly in the target dtype on the target device —
     a full-width model never stages float32 copies. The values differ from
     the JAX package's (different generators); carry JAX weights across with
-    ``models.convert.params_from_numpy`` when the two must match."""
-    if cfg.num_experts > 0:
-        raise NotImplementedError("MoE FFNs are not ported yet")
+    ``models.convert.params_from_numpy`` when the two must match.
+
+    With ``quantize`` every ``models.quant.QUANT_KEYS`` leaf is drawn one
+    ``[d_in, d_out]`` matrix at a time, quantized and (on a CUDA device)
+    packed into its ``QuantW`` at once (``quant.init_quantized``): the
+    distribution of ``quantize_params(init_params(...))`` without ever
+    holding a whole fp stack (Mixtral's bf16 expert stacks alone outgrow an
+    80 GB card)."""
     dt = resolve_dtype(dtype or cfg.dtype)
     device = torch.device(device)
     g = torch.Generator(device=device)
@@ -81,21 +92,31 @@ def init_params(
     def ones(*shape):
         return torch.ones(shape, dtype=dt, device=device)
 
-    params: Params = {
-        "embed": norm(v, d),
-        "layers": {
-            "attn_norm": ones(L, d),
-            "mlp_norm": ones(L, d),
-            "wq": norm(L, d, cfg.q_dim),
-            "wk": norm(L, d, cfg.kv_dim),
-            "wv": norm(L, d, cfg.kv_dim),
-            "wo": norm(L, cfg.q_dim, d),
-            "w_gate": norm(L, d, f),
-            "w_up": norm(L, d, f),
-            "w_down": norm(L, f, d),
-        },
-        "final_norm": ones(d),
+    def weight(*shape):  # a QUANT_KEYS leaf
+        if not quantize:
+            return norm(*shape)
+        from agentfield_tpu_torch.models.quant import init_quantized
+
+        return init_quantized(shape, dt, device, g)
+
+    E = cfg.num_experts
+    embed = norm(v, d)
+    layers = {
+        "attn_norm": ones(L, d),
+        "mlp_norm": ones(L, d),
+        "wq": weight(L, d, cfg.q_dim),
+        "wk": weight(L, d, cfg.kv_dim),
+        "wv": weight(L, d, cfg.kv_dim),
+        "wo": weight(L, cfg.q_dim, d),
     }
+    if E > 0:  # Mixtral-style MoE FFN: the expert axis after the layer axis
+        layers["router"] = norm(L, d, E)  # stays fp, as in the JAX package
+        lead = (L, E)
+    else:
+        lead = (L,)
+    layers.update(w_gate=weight(*lead, d, f), w_up=weight(*lead, d, f),
+                  w_down=weight(*lead, f, d))
+    params: Params = {"embed": embed, "layers": layers, "final_norm": ones(d)}
     if cfg.attn_bias:  # Qwen2-style QKV biases
         for name, n in (("bq", cfg.q_dim), ("bk", cfg.kv_dim), ("bv", cfg.kv_dim)):
             params["layers"][name] = torch.zeros((L, n), dtype=dt, device=device)
@@ -202,15 +223,89 @@ def qkv_proj(lp: Params, x_normed: torch.Tensor, cfg: LlamaConfig, cos, sin):
     return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
 
 
-def mlp_block(lp: Params, x: torch.Tensor, cfg: LlamaConfig) -> torch.Tensor:
-    h = rms_norm(x, lp["mlp_norm"], cfg.rms_norm_eps)
-    gate_in = (h @ lp["w_gate"]).float()
+def _act(t: torch.Tensor, cfg: LlamaConfig) -> torch.Tensor:
     if cfg.mlp_act == "silu":
-        gate = F.silu(gate_in)
-    else:  # jax.nn.gelu's default tanh approximation (HF gelu_pytorch_tanh)
-        gate = F.gelu(gate_in, approximate="tanh")
-    gate = gate.to(x.dtype)
+        return F.silu(t)
+    # jax.nn.gelu's default tanh approximation (HF gelu_pytorch_tanh)
+    return F.gelu(t, approximate="tanh")
+
+
+def mlp_block(
+    lp: Params,
+    x: torch.Tensor,
+    cfg: LlamaConfig,
+    valid: torch.Tensor | None = None,
+    capacity_tokens: int | None = None,
+) -> torch.Tensor:
+    """The FFN sublayer (without its residual add). For a MoE config,
+    ``valid`` ([B, S] bool) keeps padding out of sparse dispatch and
+    ``capacity_tokens`` is the token count expert capacity is sized from
+    (default B * S): the engine passes the padded size of the JAX engine's
+    prefill, so the same entries overflow. Soft routing ignores both."""
+    h = rms_norm(x, lp["mlp_norm"], cfg.rms_norm_eps)
+    if cfg.num_experts > 0:
+        return _moe_mlp(lp, h, cfg, valid, capacity_tokens).to(x.dtype)
+    gate = _act((h @ lp["w_gate"]).float(), cfg).to(x.dtype)
     return ((gate * (h @ lp["w_up"])) @ lp["w_down"]).to(x.dtype)
+
+
+def _emm(spec: str, x: torch.Tensor, w) -> torch.Tensor:
+    """Expert contraction ``einsum(spec, x, w)``, int8-aware."""
+    from agentfield_tpu_torch.models.quant import QuantW
+
+    return w.expert_einsum(spec, x) if isinstance(w, QuantW) else torch.einsum(spec, x, w)
+
+
+def _moe_mlp(lp: Params, h: torch.Tensor, cfg: LlamaConfig,
+             valid: torch.Tensor | None = None,
+             capacity_tokens: int | None = None) -> torch.Tensor:
+    """Mixtral-style top-k MoE FFN under ``cfg.moe_impl``: "dense" (soft
+    routing: every expert computes, a top-k-masked softmax weights them;
+    what decode runs, since every expert's weights stream each step
+    anyway) or "sparse" (capacity-based dispatch, ``_moe_mlp_sparse``: what
+    prefill runs under ``EngineConfig.moe_prefill_impl="sparse"``)."""
+    from agentfield_tpu_torch.models.moe import topk_router_weights
+
+    if cfg.moe_impl == "sparse":
+        return _moe_mlp_sparse(lp, h, cfg, valid, capacity_tokens)
+    if cfg.moe_impl != "dense":
+        raise ValueError(f"moe_impl={cfg.moe_impl!r} must be 'dense' or 'sparse'")
+    logits = (h @ lp["router"]).float()  # [B, S, E]
+    weights = topk_router_weights(logits, cfg.num_experts_per_tok)
+    gate = _act(_emm("bsd,edf->besf", h, lp["w_gate"]).float(), cfg).to(h.dtype)
+    up = _emm("bsd,edf->besf", h, lp["w_up"])
+    y = _emm("besf,efd->besd", gate * up, lp["w_down"])
+    return torch.einsum("bse,besd->bsd", weights.to(y.dtype), y)
+
+
+def _moe_mlp_sparse(lp: Params, h: torch.Tensor, cfg: LlamaConfig,
+                    valid: torch.Tensor | None = None,
+                    capacity_tokens: int | None = None) -> torch.Tensor:
+    """Capacity-based sparse dispatch of the gated MoE FFN: the routed
+    tokens scatter into ``[E, capacity, D]`` buffers, each expert runs on
+    its buffer, and a gather + weighted sum combines."""
+    from agentfield_tpu_torch.models.moe import (
+        combine_tokens,
+        dispatch_tokens,
+        expert_capacity,
+        sparse_plan,
+    )
+
+    b, s, d = h.shape
+    n = b * s
+    k = cfg.num_experts_per_tok
+    capacity = expert_capacity(n if capacity_tokens is None else capacity_tokens,
+                               cfg.num_experts, k, cfg.moe_capacity_factor)
+    xt = h.reshape(n, d)
+    logits = (xt @ lp["router"]).float()  # [N, E]
+    experts, slots, keep, weights = sparse_plan(
+        logits, k, capacity, None if valid is None else valid.reshape(n))
+    buf = dispatch_tokens(xt, experts, slots, cfg.num_experts, capacity)
+    gate = _act(_emm("ecd,edf->ecf", buf, lp["w_gate"]).float(), cfg).to(h.dtype)
+    up = _emm("ecd,edf->ecf", buf, lp["w_up"])
+    y = _emm("ecf,efd->ecd", gate * up, lp["w_down"])
+    out = combine_tokens(y, experts, slots, keep, weights, k)
+    return out.reshape(b, s, d).to(h.dtype)
 
 
 def unembed(params: Params, cfg: LlamaConfig, x: torch.Tensor) -> torch.Tensor:
@@ -238,6 +333,8 @@ def forward(
     collect_kv: bool = True,
     last_idx: torch.Tensor | None = None,  # [B]: unembed only x[b, last_idx[b]]
     return_hidden: bool = False,
+    valid_mask: torch.Tensor | None = None,  # [B, S] bool: the real tokens
+    capacity_tokens: int | None = None,  # sparse MoE: capacity's token count
 ):
     """Dense causal forward. Returns ``(logits [B, S, V] float32, (k, v)``
     each ``[L, B, S, Kh, hd]`` or None). With ``last_idx`` the logits are
@@ -249,12 +346,14 @@ def forward(
 
     ``attn_impl``: "ref" (plain ``attention_ref``) | "kernel" (dense causal
     attention through the ragged paged-attention kernel; valid when
-    ``positions`` are per-row aranges, which prefill guarantees)."""
+    ``positions`` are per-row aranges, which prefill guarantees).
+
+    ``valid_mask`` and ``capacity_tokens`` reach a sparse-dispatch MoE FFN
+    (``mlp_block``): serving prefills mark their padding False so it takes
+    no expert capacity; every other path ignores them."""
     if attn_impl not in ("ref", "kernel"):
         raise ValueError(f"unknown attn_impl {attn_impl!r} (have 'ref', 'kernel')")
-    if cfg.num_experts > 0:
-        raise NotImplementedError("MoE FFNs are not ported yet")
-    x = embed_tokens(params, cfg, tokens)
+    x =embed_tokens(params, cfg, tokens)
     cos, sin = rope_sincos(positions, cfg.head_dim, cfg.rope_theta, cfg.rope_scaling)
     # a window that can't bind within this sequence length is a no-op
     win = cfg.sliding_window
@@ -277,7 +376,7 @@ def forward(
         h = rms_norm(x, lp["attn_norm"], cfg.rms_norm_eps)
         q, k, v = qkv_proj(lp, h, cfg, cos, sin)
         x = attn_out(lp, attend(q, k, v), x)
-        x = x + mlp_block(lp, x, cfg)
+        x = x + mlp_block(lp, x, cfg, valid_mask, capacity_tokens)
         if collect_kv:
             ks.append(k)
             vs.append(v)

@@ -29,6 +29,13 @@ or ``models.convert`` carries a quantized tree there; ``QuantW.packed``
 records it (the logical ``(in, out)``, or None). ``shape`` is the logical
 shape either way, and ``__getitem__`` past the layer axes, ``dequantize``
 and the plain version read a packed q through ``unpack_int8_weight``.
+
+A MoE expert stack (``[L, E, d_in, d_out]``, Mixtral) keeps its expert axis
+after the layer axis, packed per matrix (``[L, E, panels, K chunks,
+2048]``); ``QuantW[l][e]`` is one expert's packed matrix and scale row.
+``expert_einsum`` is the port of the JAX ``QuantW.expert_einsum``: on the
+card, one kernel launch per expert, the outputs stacked in the spec's
+layout.
 """
 
 from __future__ import annotations
@@ -97,9 +104,34 @@ class QuantW:
     def __rmatmul__(self, x: torch.Tensor) -> torch.Tensor:
         return int8_weight_matmul(x, self)
 
+    # soft-routing specs ([B, E, S, out] outputs) and sparse-dispatch buffer
+    # specs ([E, C, out] outputs); the JAX package's tuple
+    _EXPERT_SPECS = (
+        "bsd,edf->besf", "besf,efd->besd", "ecd,edf->ecf", "ecf,efd->ecd",
+    )
+
     def expert_einsum(self, spec: str, x: torch.Tensor) -> torch.Tensor:
-        raise NotImplementedError(
-            "QuantW.expert_einsum (quantized MoE experts) is not ported yet: ROADMAP A3")
+        """``einsum(spec, x, w)`` over one layer's ``[E, d_in, d_out]``
+        expert stack, the weight the second operand; only the specs of
+        ``models.llama._moe_mlp`` are taken (another spec raises
+        ``ValueError``: its scale would broadcast against the wrong axis).
+        CPU tensors run the JAX formula, ``einsum(spec, x, q.to(x.dtype)) *
+        scale[..., :, None, :]``. On the card every expert is one launch of
+        the int8-weight kernel on its packed matrix and scale row (under
+        "bsd,edf->besf" every expert takes the same x), the outputs stacked
+        on the spec's expert axis."""
+        if spec not in self._EXPERT_SPECS:
+            raise ValueError(
+                f"expert_einsum supports {self._EXPERT_SPECS}, got {spec!r}")
+        if x.device.type == "cpu":
+            y = torch.einsum(spec, x, self.logical().to(x.dtype))
+            return y * self.scale[..., :, None, :].to(y.dtype)
+        E = self.scale.shape[0]
+        if spec.startswith("e"):  # [E, C, d_in] buffers -> [E, C, d_out]
+            return torch.stack([x[e] @ self[e] for e in range(E)])
+        if spec.startswith("bsd"):  # [B, S, d_in], shared -> [B, E, S, d_out]
+            return torch.stack([x @ self[e] for e in range(E)], dim=1)
+        return torch.stack([x[:, e] @ self[e] for e in range(E)], dim=1)  # [B, E, S, .]
 
     def dequantize(self) -> torch.Tensor:
         """The fp approximation as a float32 tensor (tests only)."""
@@ -133,6 +165,23 @@ def _quantize_matrix(w32: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return q, scale
 
 
+def _quantize_stack(shape, device: torch.device, matrix) -> QuantW:
+    """A :class:`QuantW` of logical ``shape`` ``[..., d_in, d_out]`` on
+    ``device``, filled matrix by matrix: ``matrix(i)`` gives the i-th fp
+    ``[d_in, d_out]`` matrix (leading axes flattened), which is quantized
+    and, on a CUDA device, packed into its slot before the next is made."""
+    *lead, K, N = shape
+    pack = device.type == "cuda"
+    q = torch.empty((*lead, *packed_shape(K, N)) if pack else tuple(shape), dtype=torch.int8,
+                    device=device)
+    scale = torch.empty((*lead, N), dtype=torch.float32, device=device)
+    qf, sf = q.view(-1, *q.shape[len(lead):]), scale.view(-1, N)
+    for i in range(sf.shape[0]):
+        qi, sf[i] = _quantize_matrix(matrix(i).float())
+        qf[i] = pack_int8_weight(qi) if pack else qi
+    return QuantW(q, scale, (K, N) if pack else None)
+
+
 def quantize_weight(w: torch.Tensor) -> QuantW:
     """``[..., d_in, d_out]`` fp -> :class:`QuantW`, symmetric per output
     channel, the JAX formula: ``scale = max(amax, 1e-8) / 127``, ``q =
@@ -142,16 +191,24 @@ def quantize_weight(w: torch.Tensor) -> QuantW:
     stages a float32 copy of the whole stack; on a CUDA device each is
     packed as it is quantized (the kernel's layout: no second int8 stack is
     held)."""
-    *lead, K, N = w.shape
-    pack = w.device.type == "cuda"
-    q = torch.empty((*lead, *packed_shape(K, N)) if pack else w.shape, dtype=torch.int8,
-                    device=w.device)
-    scale = torch.empty((*lead, N), dtype=torch.float32, device=w.device)
-    wf, qf, sf = w.reshape(-1, K, N), q.view(-1, *q.shape[len(lead):]), scale.view(-1, N)
-    for i in range(wf.shape[0]):
-        qi, sf[i] = _quantize_matrix(wf[i].float())
-        qf[i] = pack_int8_weight(qi) if pack else qi
-    return QuantW(q, scale, (K, N) if pack else None)
+    wf = w.reshape(-1, *w.shape[-2:])
+    return _quantize_stack(w.shape, w.device, lambda i: wf[i])
+
+
+def init_quantized(shape, dtype: torch.dtype, device: torch.device,
+                   generator: torch.Generator) -> QuantW:
+    """A random :class:`QuantW` of logical ``shape``: each ``[d_in,
+    d_out]`` matrix drawn from ``generator`` (normal, std 0.02, as
+    ``llama.init_params`` draws) in ``dtype`` on ``device``, then quantized
+    and packed as ``quantize_weight`` does, one matrix at a time — the fp
+    stack is never held whole (``llama.init_params(quantize=True)``)."""
+    K, N = shape[-2:]
+
+    def draw(_):
+        return torch.empty((K, N), dtype=dtype, device=device).normal_(
+            0.0, 0.02, generator=generator)
+
+    return _quantize_stack(shape, torch.device(device), draw)
 
 
 def quantize_params(params: dict[str, Any]) -> dict[str, Any]:

@@ -83,8 +83,18 @@ way inside ``step()`` (beam re-forks); a fork that cannot land ends with a
 ``fork_failed`` terminal. The ``engine.page_pressure`` and
 ``engine.preempt_storm`` fault points are consulted as in the JAX engine.
 
+A MoE model (Mixtral, ``cfg.num_experts > 0``) runs the JAX engine's split:
+decode, the mixed tick and the speculative verify always soft-route (every
+expert's weights stream each step anyway); prefill forwards (dense,
+suffix, the draft's replays) run under ``prefill_cfg``, which
+``EngineConfig.moe_prefill_impl="sparse"`` flips to capacity-based
+dispatch. Prefill padding is masked out of dispatch, and expert capacity is
+sized from the token count the JAX engine's prefill has for the same
+prompts (its bucket, times ``prefill_batch`` rows for a batch), so the same
+entries overflow in both engines.
+
 Not ported yet (each a later slice): speculative prefill (the keep-warm
-pins), the cluster tier and handoff, MoE, the JAX engine's latency
+pins), the cluster tier and handoff, the JAX engine's latency
 histograms and flight recorder.
 """
 
@@ -167,6 +177,11 @@ class EngineConfig:
     # disables; needs InferenceEngine(draft=...)). A dispatch speculates when
     # no grammar row is active and some row can accept (greedy or plain
     # temperature); it emits 1..spec_k+1 tokens a row
+    moe_prefill_impl: str = "dense"  # MoE FFN during PREFILL forwards:
+    # "dense" soft-routes (exact) | "sparse" capacity-based top-k dispatch
+    # (FLOPs ∝ top_k, not num_experts; over-capacity tokens lose that
+    # expert's contribution, cfg.moe_capacity_factor sizes the headroom).
+    # Decode always soft-routes
     host_cache_bytes: int = 0  # byte budget of the host-RAM KV tier under
     # the shared-prefix pool: refcount-0 cached pages demote to it (idle
     # session expiry, allocation pressure) and restore at the next prefix
@@ -190,6 +205,14 @@ class EngineConfig:
         while b < min(n, self.mixed_step_budget):
             b *= 2
         return min(b, self.mixed_step_budget)
+
+
+def _sparse_prefill_cfg(cfg: LlamaConfig, ecfg: EngineConfig) -> LlamaConfig:
+    """The cfg a prefill forward runs under: sparse-dispatch MoE when
+    ``moe_prefill_impl`` asks for it (one constructor for target and draft)."""
+    if ecfg.moe_prefill_impl == "sparse" and cfg.num_experts > 0:
+        return dataclasses.replace(cfg, moe_impl="sparse")
+    return cfg
 
 
 @dataclasses.dataclass
@@ -378,8 +401,20 @@ class InferenceEngine:
             self.device = torch.device("cuda", torch.cuda.current_device())
         if params["embed"].device != self.device:
             raise ValueError(f"params live on {params['embed'].device}, engine on {self.device}")
-        if cfg.num_experts > 0:
-            raise NotImplementedError("MoE FFNs are not ported yet")
+        if cfg.moe_impl != "dense":
+            raise ValueError(
+                f"engine model cfg has moe_impl={cfg.moe_impl!r}: the DECODE "
+                "path always soft-routes (weight-bound, exact) and takes no "
+                "padding mask — use EngineConfig.moe_prefill_impl='sparse' "
+                "to run sparse dispatch on prefill forwards"
+            )
+        if self.ecfg.moe_prefill_impl not in ("dense", "sparse"):
+            raise ValueError(
+                f"moe_prefill_impl={self.ecfg.moe_prefill_impl!r} must be "
+                "'dense' or 'sparse'"
+            )
+        # prefill forwards may run sparse dispatch; decode always soft-routes
+        self.prefill_cfg = _sparse_prefill_cfg(cfg, self.ecfg)
         if self.ecfg.prefill_chunk is None:
             # every prefill rides the kernel path: cap chunks at 512 rows
             self.ecfg = dataclasses.replace(
@@ -444,13 +479,17 @@ class InferenceEngine:
                     "InferenceEngine(draft=(params, cfg))"
                 )
             self.draft_params, self.draft_cfg = draft
+            if self.draft_cfg.moe_impl != "dense":
+                raise ValueError(
+                    f"draft cfg has moe_impl={self.draft_cfg.moe_impl!r}: "
+                    "draft decode soft-routes like the target's — use "
+                    "EngineConfig.moe_prefill_impl='sparse' instead"
+                )
             if self.draft_cfg.vocab_size != cfg.vocab_size:
                 raise ValueError(
                     f"draft vocab {self.draft_cfg.vocab_size} != target "
                     f"vocab {cfg.vocab_size} (speculation compares token ids)"
                 )
-            if self.draft_cfg.num_experts > 0:
-                raise NotImplementedError("MoE FFNs are not ported yet")
             if self.draft_params["embed"].device != self.device:
                 raise ValueError(
                     f"draft params live on {self.draft_params['embed'].device}, "
@@ -463,6 +502,8 @@ class InferenceEngine:
                 raise ValueError("KV page dtype must match the draft params' compute dtype")
             self._draft = PagedModel(self.draft_params, self.draft_cfg, self.draft_cache,
                                      _binding_window(self.draft_cfg, self.ecfg))
+        self.draft_prefill_cfg = (_sparse_prefill_cfg(self.draft_cfg, self.ecfg)
+                                  if self.draft_cfg is not None else None)
         # the dense page layout at the same geometry: the yardstick of the
         # kv_quant_bytes_saved_total counter
         self.kv_page_bytes_dense = (
@@ -1475,11 +1516,14 @@ class InferenceEngine:
         valid = positions < lengths[:, None]
         page_ids = np.take_along_axis(np.stack(rows), positions // ps, axis=1)[valid]
         slot_ids = (positions % ps)[valid]
+        # sparse MoE capacity: the JAX engine's prefill of these prompts has
+        # one row of the bucket, or prefill_batch rows for a batch
+        cap_tokens = (1 if n == 1 else self.ecfg.prefill_batch) * self.ecfg.prefill_bucket(S)
         args = (
             torch.from_numpy(tokens).to(dev), torch.from_numpy(np.array(positions)).to(dev),
             torch.from_numpy(lengths - 1).to(dev), torch.from_numpy(valid).to(dev),
             torch.from_numpy(page_ids.astype(np.int64)).to(dev),
-            torch.from_numpy(slot_ids.astype(np.int64)).to(dev),
+            torch.from_numpy(slot_ids.astype(np.int64)).to(dev), cap_tokens,
         )
         logits = self._dense_forward(self._target, *args)
         if self._draft is not None:
@@ -1487,11 +1531,13 @@ class InferenceEngine:
         self.timing["prefill_s"] += time.perf_counter() - t0
         return logits
 
-    @staticmethod
-    def _dense_forward(m: PagedModel, tokens, positions, last_idx, vmask, pid, sid):
-        """``_dense_prefill``'s forward of one model into its own pool."""
-        logits, (ks, vs) = llama.forward(m.params, m.cfg, tokens, positions, attn_impl="kernel",
-                                         last_idx=last_idx)
+    def _dense_forward(self, m: PagedModel, tokens, positions, last_idx, vmask, pid, sid,
+                       cap_tokens: int):
+        """``_dense_prefill``'s forward of one model into its own pool, under
+        its prefill cfg (padding masked out of sparse MoE dispatch)."""
+        logits, (ks, vs) = llama.forward(m.params, _sparse_prefill_cfg(m.cfg, self.ecfg), tokens,
+                                         positions, attn_impl="kernel", last_idx=last_idx,
+                                         valid_mask=vmask, capacity_tokens=cap_tokens)
         # ks/vs [L, n, S, Kh, hd] -> valid tokens [N, L, Kh, hd]; 1-D index
         # tensors at pool dims 1 and 3 put the token dim first. A quantized
         # pool quantizes each slot on the way in.
@@ -1517,8 +1563,10 @@ class InferenceEngine:
         the kernel serves the cached context from its page walk,
         intra-chunk causality from its new-key phase, and writes the chunk's
         K/V in the same launch. Returns the last position's logits [V] (None
-        without ``unembed``)."""
+        without ``unembed``). The FFN runs under the model's prefill cfg,
+        its expert capacity sized from the JAX engine's bucket."""
         cfg, ecfg, dev = m.cfg, self.ecfg, self.device
+        pcfg = _sparse_prefill_cfg(cfg, ecfg)
         n = len(piece)
         bucket = ecfg.prefill_bucket(n)
         W = min(
@@ -1554,7 +1602,7 @@ class InferenceEngine:
             )
             attn = attn.reshape(R * W, cfg.num_heads, cfg.head_dim)[:n][None]
             x = llama.attn_out(lp, attn, x)
-            x = x + llama.mlp_block(lp, x, cfg)
+            x = x + llama.mlp_block(lp, x, pcfg, capacity_tokens=bucket)
         return llama.unembed(m.params, cfg, x[:, -1])[0] if unembed else None
 
     def _prefill(self, tokens: list[int], start: int, row: np.ndarray) -> torch.Tensor:

@@ -1325,10 +1325,13 @@ def build_model_node(
     """Construct ``(server, backend)`` for a preset: random weights drawn
     from ``seed`` on ``device`` unless ``params`` are given, the byte
     tokenizer unless one is given. ``quant="int8"`` serves weight-only int8
-    (``models.quant.quantize_params`` before the backend is built: the layer
-    projections go through the int8-weight kernel on the card; embed,
-    ``lm_head``, norms and the speculative draft stay fp, as on the JAX
-    node). ``spec_k`` sets ``ecfg.spec_k``; with
+    (the layer projections and expert stacks go through the int8-weight
+    kernel on the card; embed, ``lm_head``, norms, a MoE router and the
+    speculative draft stay fp, as on the JAX node): given ``params`` are
+    quantized by ``models.quant.quantize_params``; random weights are drawn
+    by ``init_params(quantize=True)``, one matrix at a time quantized and
+    packed, so no fp stack is ever held whole (Mixtral-8x7B's bf16 expert
+    stacks alone would not fit the card). ``spec_k`` sets ``ecfg.spec_k``; with
     ``spec_k > 0`` the ``spec_draft`` preset is the draft model
     (``load_draft_model``, seed ``seed + 4`` as the JAX node draws it, in
     the target's dtype). With ``control_plane`` (its base URL) the server
@@ -1343,8 +1346,8 @@ def build_model_node(
     if quant is not None and quant != "int8":
         raise ValueError(f"unknown quant mode {quant!r} (have: 'int8')")
     if params is None:
-        params = init_params(cfg, seed=seed, device=device)
-    if quant is not None:
+        params = init_params(cfg, seed=seed, device=device, quantize=quant is not None)
+    elif quant is not None:
         params = quantize_params(params)
     draft = None
     if ecfg.spec_k > 0:

@@ -181,6 +181,16 @@ the result line:
                with a prompt past its 2047-token window), every decode
                launch through the split-context kernel, then the
                ``forward`` comparison at its width.
+15. ``moe``     ``mixtral-8x7b`` with weight-only int8 layer weights
+               (``phase_moe``): the node built with the weights drawn one
+               matrix at a time, quantized and packed (the draw's peak
+               below the int8 tree + 2 GiB); the serve's requests under
+               ``moe_prefill_impl`` "dense" and "sparse" (28 L int8
+               launches in each replayed decode step); full-width logits,
+               kernel vs plain, soft and sparse routing; the width-8
+               decode step split by kernel kind; the int8-weight kernel on
+               expert slices at M 8, 16, 256 and 512; a self-draft spec
+               pass and a mixed-tick burst. Prints ``[moe ...]`` lines.
 
 Prints the card line, then one JSON line of per-kernel numbers, then
 ``{"ok": true, "device": {...}}`` as the last line. ``--out PATH`` also
@@ -1106,9 +1116,16 @@ SERVE_SCHEMA = {"type": "object", "properties": {"ok": {"type": "boolean"},
                 "required": ["ok", "mode"]}
 
 
+def w8_launches_per_step(cfg) -> int:
+    """int8-weight launches of one decode step: wq, wk, wv, wo and the
+    gated FFN's three products a layer, the FFN once per expert for a MoE
+    config (soft routing: 4 + 3 E a layer, 28 L for Mixtral)."""
+    return (4 + 3 * max(cfg.num_experts, 1)) * cfg.num_layers
+
+
 def phase_serve(results, state, seed: int, model="llama-3-8b", device="cuda", ecfg=None,
                 lengths=(64, 200, 333, 480, 512, 700, 1100, 1500), max_new=32,
-                kv_quant="none", weight_quant=None):
+                kv_quant="none", weight_quant=None, node=None, label=None):
     """Serve the requests: the prompts of ``lengths`` (greedy), one sampled
     request (temperature 0.8, top-p 0.9), one ``response_schema`` request
     (``SERVE_SCHEMA``), then a second session turn. With ``kv_quant``
@@ -1121,7 +1138,9 @@ def phase_serve(results, state, seed: int, model="llama-3-8b", device="cuda", ec
     goes through the int8-weight kernel, ``7 * L`` launches in each decode
     step's graph, each step counted. The engine runs the JAX node's decode
     tick: pipelined, decode buckets (4, 16), the step replayed from CUDA
-    graphs."""
+    graphs. ``node`` serves an already built ``(server, backend)`` (with
+    ``weight_quant``: int8 weights, ``w8_launches_per_step`` launches a
+    decode step) and ``label`` names its results ``serve_<label>``."""
     import dataclasses
 
     import numpy as np
@@ -1137,8 +1156,10 @@ def phase_serve(results, state, seed: int, model="llama-3-8b", device="cuda", ec
     if on_card:
         torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    label = "w8" if weight_quant else kv_quant
-    if weight_quant:  # the bf16 serve's weights and geometry, bf16 pages
+    label = label or ("w8" if weight_quant else kv_quant)
+    if node is not None:
+        params = None
+    elif weight_quant:  # the bf16 serve's weights and geometry, bf16 pages
         ecfg = dataclasses.replace(state["ecfg"], kv_quant_dtype="none")
         params = state["params"]
     elif kv_quant == "none":
@@ -1151,8 +1172,12 @@ def phase_serve(results, state, seed: int, model="llama-3-8b", device="cuda", ec
     else:
         ecfg = dataclasses.replace(state["ecfg"], kv_quant_dtype=kv_quant)
         params = state["params"]
-    server, backend = build_model_node(model, seed=seed, ecfg=ecfg, device=device, params=params,
-                                       quant=weight_quant)
+    if node is None:
+        server, backend = build_model_node(model, seed=seed, ecfg=ecfg, device=device,
+                                           params=params, quant=weight_quant)
+    else:
+        server, backend = node
+        ecfg = backend.engine.ecfg
     if on_card:
         torch.cuda.synchronize()
         log(f"[serve {label}] {model} node built in {time.perf_counter() - t0:.1f} s; "
@@ -1256,7 +1281,7 @@ def phase_serve(results, state, seed: int, model="llama-3-8b", device="cuda", ec
         assert any("/truncated/" in k for k in graphs["replays"]), graphs
     log(f"[serve {label}] launches {launches}; kernel paths {path_launches}; int8-weight "
         f"matmul {w8_launches}; by engine path {tally}")
-    w8_per_step = 7 * eng.cfg.num_layers
+    w8_per_step = w8_launches_per_step(eng.cfg)
     if weight_quant and on_card:
         # every path through the int8-weight kernel; each decode step's graph
         # holds 7 L of its launches, and each step (an eager first use, or a
@@ -3256,7 +3281,9 @@ def plain_w8_params(params):
     """``params`` with every ``QuantW`` leaf replaced by one whose ``@``
     runs the plain version (``int8_weight_matmul_ref``, the JAX formula) on
     any device, reading a packed q through ``unpack_int8_weight``: the
-    kernel's comparison on the card."""
+    kernel's comparison on the card. An expert stack's ``expert_einsum``
+    goes through that ``@`` one expert at a time (``QuantW.expert_einsum``
+    on the card), so only one expert's matrix is unpacked and widened."""
     from agentfield_tpu_torch.models.quant import QuantW
     from agentfield_tpu_torch.ops.cuda.quant_matmul import int8_weight_matmul_ref
 
@@ -3335,6 +3362,66 @@ def _step_device_ms(params, cfg, seed: int) -> dict:
     return out
 
 
+def mixed_burst(params, cfg, base, seed: int, burst, device: str, rng) -> dict:
+    """A mixed-tick burst on ``params`` (``base`` geometry, mixed ticks of
+    ``MIXED_BUDGET`` rows): ``burst = (decodes, prompts)``, the decodes (48
+    new tokens each) in flight first, then the prompts (16 new tokens),
+    chunked into mixed ticks. Every answer complete, the pages balanced, a
+    mixed tick run and, on the card with int8 weights, each mixed tick
+    through the int8-weight kernel (``w8_launches_per_step`` at least).
+    Returns the tick count, the launches in mixed ticks and their mean
+    device ms."""
+    import dataclasses
+
+    from agentfield_tpu_torch.models.quant import is_quantized
+    from agentfield_tpu_torch.ops.cuda import ragged_paged_attention as rpa
+    from agentfield_tpu_torch.serving.engine import InferenceEngine, Request
+    from agentfield_tpu_torch.serving.sampler import SamplingParams
+
+    V = cfg.vocab_size
+    ecfg = dataclasses.replace(base, mixed_step=True, mixed_step_budget=MIXED_BUDGET)
+    eng = InferenceEngine(params, cfg, ecfg, seed=seed, device=device)
+    mixed_launches: dict = {}
+    orig_logits = eng._mixed_logits
+
+    def tallied(*a, **k):
+        before = rpa.launch_counts()
+        try:
+            return orig_logits(*a, **k)
+        finally:
+            for key, n in rpa.launch_counts().items():
+                mixed_launches[key] = mixed_launches.get(key, 0) + n - before[key]
+
+    eng._mixed_logits = tallied
+    decodes, prompts = burst
+    answers: dict = {}
+    for i, n in enumerate(decodes):
+        eng.submit(Request(f"d{i}", rng.integers(1, V, n).tolist(),
+                           SamplingParams(max_new_tokens=48)))
+    while len(answers) < len(decodes) or eng.stats["decode_steps"] < 4:
+        for ev in eng.step():
+            answers.setdefault(ev.request_id, []).append(ev.token)
+    for i, n in enumerate(prompts):
+        eng.submit(Request(f"b{i}", rng.integers(1, V, n).tolist(),
+                           SamplingParams(max_new_tokens=16)))
+    while eng.has_work():
+        for ev in eng.step():
+            answers.setdefault(ev.request_id, []).append(ev.token)
+    assert all(len(answers[f"d{i}"]) == 48 for i in range(len(decodes)))
+    assert all(len(answers[f"b{i}"]) == 16 for i in range(len(prompts)))
+    assert eng.allocator.free_pages == ecfg.num_pages - 1, "pages did not balance"
+    out = {"mixed_ticks": eng.stats["mixed_ticks"],
+           "mixed_tick_launches": {k: n for k, n in mixed_launches.items() if n},
+           "mixed_tick_device_ms_mean": (statistics.fmean(eng.mixed_tick_ms)
+                                         if eng.mixed_tick_ms else None)}
+    assert out["mixed_ticks"] > 0, "no mixed tick ran"
+    if eng.device.type == "cuda" and is_quantized(params):
+        assert mixed_launches.get("int8_weight_matmul", 0) >= w8_launches_per_step(cfg), (
+            mixed_launches)
+    eng.close()
+    return out
+
+
 def phase_quant(results, state, seed: int, device: str = "cuda", model: str = "llama-3-8b",
                 lengths=(64, 200, 333, 480, 512, 700, 1100, 1500), max_new: int = 32, S: int = 512,
                 burst=(W8_BURST_DECODES, W8_BURST_PROMPTS), spec_prompts=W8_SPEC_PROMPTS,
@@ -3369,15 +3456,14 @@ def phase_quant(results, state, seed: int, device: str = "cuda", model: str = "l
 
     from agentfield_tpu_torch.models import llama
     from agentfield_tpu_torch.models.quant import QUANT_KEYS, is_quantized
-    from agentfield_tpu_torch.ops.cuda import ragged_paged_attention as rpa
     from agentfield_tpu_torch.serving.engine import InferenceEngine, Request
     from agentfield_tpu_torch.serving.model_node import load_draft_model
     from agentfield_tpu_torch.serving.sampler import SamplingParams
 
     on_card = torch.device(device).type == "cuda"
     params, cfg = state["params"], state["cfg"]
-    L, V = cfg.num_layers, cfg.vocab_size
-    w8_per_step = 7 * L
+    V = cfg.vocab_size
+    w8_per_step = w8_launches_per_step(cfg)
     out: dict = {}
     gc.collect()
     if on_card:
@@ -3465,46 +3551,8 @@ def phase_quant(results, state, seed: int, device: str = "cuda", model: str = "l
         torch.cuda.empty_cache()
     rng = np.random.default_rng(seed + 29)
     base = dataclasses.replace(state["ecfg"], kv_quant_dtype="none")
-    ecfg = dataclasses.replace(base, mixed_step=True, mixed_step_budget=MIXED_BUDGET)
-    eng = InferenceEngine(qp, cfg, ecfg, seed=seed, device=device)
-    mixed_launches: dict = {}
-    orig_logits = eng._mixed_logits
-
-    def tallied(*a, **k):
-        before = rpa.launch_counts()
-        try:
-            return orig_logits(*a, **k)
-        finally:
-            for key, n in rpa.launch_counts().items():
-                mixed_launches[key] = mixed_launches.get(key, 0) + n - before[key]
-
-    eng._mixed_logits = tallied
-    decodes, prompts = burst
-    answers: dict = {}
-    for i, n in enumerate(decodes):
-        eng.submit(Request(f"d{i}", rng.integers(1, V, n).tolist(),
-                           SamplingParams(max_new_tokens=48)))
-    while len(answers) < len(decodes) or eng.stats["decode_steps"] < 4:
-        for ev in eng.step():
-            answers.setdefault(ev.request_id, []).append(ev.token)
-    for i, n in enumerate(prompts):
-        eng.submit(Request(f"b{i}", rng.integers(1, V, n).tolist(),
-                           SamplingParams(max_new_tokens=16)))
-    while eng.has_work():
-        for ev in eng.step():
-            answers.setdefault(ev.request_id, []).append(ev.token)
-    assert all(len(answers[f"d{i}"]) == 48 for i in range(len(decodes)))
-    assert all(len(answers[f"b{i}"]) == 16 for i in range(len(prompts)))
-    assert eng.allocator.free_pages == ecfg.num_pages - 1, "pages did not balance"
-    out["mixed"] = {"mixed_ticks": eng.stats["mixed_ticks"],
-                    "mixed_tick_launches": {k: n for k, n in mixed_launches.items() if n},
-                    "mixed_tick_device_ms_mean": (statistics.fmean(eng.mixed_tick_ms)
-                                                  if eng.mixed_tick_ms else None)}
-    assert out["mixed"]["mixed_ticks"] > 0, "no mixed tick ran"
-    if on_card:
-        assert mixed_launches.get("int8_weight_matmul", 0) >= w8_per_step, mixed_launches
-    eng.close()
-    del eng
+    out["mixed"] = mixed_burst(qp, cfg, base, seed, burst, device, rng)
+    mixed_launches = out["mixed"]["mixed_tick_launches"]
     gc.collect()
     draft = load_draft_model(draft_preset, V, seed=seed + 4, device=device,
                              dtype=params["embed"].dtype)
@@ -3537,6 +3585,443 @@ def phase_quant(results, state, seed: int, device: str = "cuda", model: str = "l
     out["launches"] = {"int8_weight_matmul": serve["w8_launches"]["int8_weight_matmul"]
                        + mixed_launches.get("int8_weight_matmul", 0) + out["spec"]["w8_launches"]}
     results["quant"] = out
+    del qp
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+
+
+# Mixtral-8x7B, weight-only int8 (phase_moe): the node's build, the serve
+# under both prefill modes, full-width logits, the decode step's split, the
+# int8-weight kernel on expert slices at the new row counts, a self-draft
+# spec pass and a mixed-tick burst
+MOE_MODEL = "mixtral-8x7b"
+MOE_BUILD_SLACK = 2 << 30  # the weight draw may pass the int8 tree by this much
+MOE_HELD_BEFORE = 2 << 30  # device bytes still allocated when the draw starts
+# the int8-weight kernel on one expert's packed slice: soft-routed decode at
+# widths 8 and 16 (every expert takes every row), the sparse capacity of a
+# 512-token chunk (ceil(512 * 2 / 8 * 2) = 256 rows an expert), and the
+# soft-routed prefill of that chunk (512 rows an expert)
+MOE_W8_M = (8, 16, 256, 512)
+MOE_W8_SLICES = (("w_gate", 0, 0), ("w_down", -1, -1))  # (leaf, layer, expert)
+MOE_SPEC_PROMPTS = (300, 900)
+MOE_SPEC_PAGES = 1024  # 2 GiB of bf16 KV a pool at Mixtral's width: target and self draft
+MOE_BURST = ((64, 200, 333, 400), (700,))
+# small kernels of the soft-routed FFN, by name in the profiler's records
+MOE_KERNEL_NAMES = {"top-k": ("topk", "sort"), "softmax": ("softmax",),
+                    "scatter (router weights)": ("scatter",),
+                    "stack (expert outputs)": ("catarray",)}
+
+
+def _moe_small_kernels(kernels: dict) -> dict:
+    """ms a replay in the soft-routed FFN's small kernels, by
+    ``MOE_KERNEL_NAMES`` (case-insensitive substrings of kernel names)."""
+    out = {}
+    for label, keys in MOE_KERNEL_NAMES.items():
+        out[label] = sum(ms for name, ms in kernels.items()
+                         if any(k in name.lower() for k in keys))
+    return out
+
+
+def _moe_op_ms(qp, cfg, width: int, seed: int) -> dict:
+    """Device ms (replayed from a CUDA graph) of the soft-routed FFN's
+    routing ops at one decode width, times L for a step: the router
+    product, ``topk_router_weights`` (top-k, softmax, scatter) and the
+    weighted combine of the expert outputs."""
+    import torch
+
+    from agentfield_tpu_torch.models.moe import topk_router_weights
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed + 11)
+    d, E, L = cfg.hidden_size, cfg.num_experts, cfg.num_layers
+    h = torch.empty((width, 1, d), device="cuda", dtype=torch.bfloat16).normal_(generator=g)
+    router = qp["layers"]["router"][0]
+    logits = (h @ router).float()
+    w = topk_router_weights(logits, cfg.num_experts_per_tok).to(torch.bfloat16)
+    y = torch.empty((width, E, 1, d), device="cuda", dtype=torch.bfloat16).normal_(generator=g)
+    return {k: L * graph_ms(fn) for k, fn in (
+        ("router_matmul", lambda: h @ router),
+        ("topk_router_weights", lambda: topk_router_weights(logits, cfg.num_experts_per_tok)),
+        ("combine", lambda: torch.einsum("bse,besd->bsd", w, y)))}
+
+
+def _moe_w8_slices(results, qp, seed: int, on_card: bool) -> dict:
+    """The int8-weight kernel on expert slices of the stacked leaves
+    (``MOE_W8_SLICES``: ``QuantW[l][e]``, the packed matrix the engine's
+    per-expert launch reads) at ``MOE_W8_M`` rows, bf16 x, against the plain
+    version computed in f32 from the same logical q and scale, within
+    ``w8_elem_bound``; on the card timed as ``_check_w8`` times a shape
+    (rows into ``results["shapes"]``). Returns the rows. On the CPU the
+    wrapper's output is the plain version's (bf16) and only shapes and
+    slicing are exercised."""
+    import torch
+
+    from agentfield_tpu_torch.models.quant import int8_weight_matmul
+
+    dev = qp["embed"].device
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed + 13)
+    rows = {}
+    for leaf, li, ei in MOE_W8_SLICES:
+        li, ei = li % qp["layers"][leaf].shape[0], ei % qp["layers"][leaf].shape[1]
+        w = qp["layers"][leaf][li][ei]
+        q, scale = w.logical(), w.scale
+        K, N = q.shape
+        w16 = (q.float() * scale).to(torch.bfloat16) if on_card else None
+        for M in MOE_W8_M:
+            x = torch.empty((M, K), device=dev).normal_(0.0, 1.0, generator=g).to(torch.bfloat16)
+            s_abs = (x.float().abs() @ q.float().abs()) * scale
+            y_k = int8_weight_matmul(x, w)
+            # on the CPU the wrapper runs the plain version itself: held to it
+            y_r = (x.float() @ q.float()) * scale if on_card else y_k.float()
+            ok, err, ratio = w8_compare(y_k, y_r, s_abs, K, "bfloat16")
+            name = f"w8_moe_{leaf}_l{li}e{ei}_M{M}/bfloat16"
+            row = {"kernel": "int8_weight_matmul", "dtype": "bfloat16", "M": M, "K": K, "N": N,
+                   "leaf": leaf, "layer": li, "expert": ei, "max_abs_err": err,
+                   "max_err_over_bound": ratio, "ok": ok}
+            if on_card:
+                from agentfield_tpu_torch.ops.cuda.quant_matmul import plan
+
+                row["plan"] = plan(M, K, N, torch.cuda.get_device_properties(dev)
+                                   .multi_processor_count)
+                row["bound_ms"], row["bound_by"] = bound_ms(
+                    K * N + 4 * N + 2 * (M * K + M * N), 2 * M * K * N, "bfloat16")
+                row["ms"] = graph_ms(lambda: int8_weight_matmul(x, w))
+                row["call_ms"] = cuda_ms(lambda: int8_weight_matmul(x, w))
+                row["plain_ms"] = cuda_ms(lambda: (x.float() @ q.float()) * scale, n=5, warmup=1)
+                row["library_ms"] = w8_library_ms(x, q, scale)
+                row["cublas_bf16_ms"] = cuda_ms(lambda: x @ w16)
+                results["shapes"][name] = row
+            rows[name] = row
+            log(f"[moe] (e) {name} err={err:.2e} err/bound={ratio:.3f} "
+                + (f"ms={row['ms']:.4f} call={row['call_ms']:.4f} plain={row['plain_ms']:.4f} "
+                   f"int8pack={row['library_ms']} cublas_bf16={row['cublas_bf16_ms']:.4f} "
+                   f"bound={row['bound_ms']:.4f} ({row['bound_by']}) plan={row['plan']}"
+                   if on_card else "(plain on both sides: CPU)"))
+            assert ok, f"{name}: the int8-weight kernel and the plain version disagree"
+            del x, y_r, s_abs, y_k
+        del q, w16
+    return rows
+
+
+class RoutingReplay:
+    """Routing held fixed across forwards of a MoE model: in "record" mode
+    every call of ``models.moe.topk_router_weights`` and ``sparse_plan``
+    (in forward order: one a layer) notes the experts it chooses; in
+    "replay" mode the i-th call sets every other expert's logit to -inf
+    before the real function runs, so it chooses the recorded experts and
+    weights them by the replaying forward's own logits. ``flips`` counts
+    the (token, layer) choices a replaying forward would have made
+    otherwise. Two arithmetic paths (kernel and plain, bf16 and f32) are
+    compared on one routing: top-k is discontinuous, and a near tie that
+    the two paths' roundings resolve differently moves that token by a
+    whole expert's contribution, which no rounding bound covers."""
+
+    def __init__(self):
+        from agentfield_tpu_torch.models import moe
+
+        self.moe, self.orig = moe, (moe.topk_router_weights, moe.sparse_plan)
+        self.recorded: list = []
+        self.mode, self.i, self.flips, self.choices = "record", 0, 0, 0
+
+    def start(self, mode: str) -> None:
+        if mode == "record":
+            self.recorded = []
+        self.mode, self.i, self.flips, self.choices = mode, 0, 0, 0
+
+    def _route(self, logits, k):
+        import torch
+
+        own = torch.topk(logits, k, dim=-1, sorted=True).indices
+        if self.mode == "record":
+            self.recorded.append(own)
+            return logits
+        idx = self.recorded[self.i]
+        self.i += 1
+        self.flips += int((own.sort(-1).values != idx.sort(-1).values).any(-1).sum())
+        self.choices += own[..., 0].numel()
+        chosen = torch.zeros_like(logits, dtype=torch.bool).scatter(-1, idx, True)
+        return torch.where(chosen, logits, float("-inf"))
+
+    def __enter__(self):
+        topk, plan = self.orig
+        self.moe.topk_router_weights = lambda logits, k: topk(self._route(logits, k), k)
+        self.moe.sparse_plan = (lambda logits, k, capacity, valid=None:
+                                plan(self._route(logits, k), k, capacity, valid))
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.topk_router_weights, self.moe.sparse_plan = self.orig
+
+
+def phase_moe(results, seed: int, device: str = "cuda", model: str = MOE_MODEL,
+              lengths=(64, 200, 333, 480, 512, 700, 1100, 1500), max_new: int = 32,
+              S: int = 512, spec_prompts=MOE_SPEC_PROMPTS, burst=MOE_BURST, ecfg=None):
+    """Mixtral-8x7B on one card with weight-only int8 layer weights, run
+    after the 8B weights are freed:
+
+    (a) ``build_model_node(model, quant="int8")``: the weights drawn one
+        matrix at a time, quantized and packed (``init_params(quantize=
+        True)``); the seconds, the weight bytes on the card and the peak
+        while drawing, which must stay below the int8 tree plus
+        ``MOE_BUILD_SLACK`` (no bf16 stack is ever held);
+    (b) the serve's requests over HTTP (``phase_serve``), under
+        ``moe_prefill_impl`` "dense" and then "sparse" (a second node on the
+        same weights): every answer complete and finite, each decode
+        step's graph ``w8_launches_per_step`` (28 L) int8 launches, each
+        step counted, the attention through the split-context kernel and
+        the tensor-core tile; TTFT p50, decode tok/s and the decode step's
+        device ms of both;
+    (c) full-width, full-depth logits at ``S`` tokens, kernel against plain
+        (``plain_w8_params``, its expert products one expert at a time),
+        soft and sparse routing, within PR 12's bounds (bf16:
+        ``W8_LOGITS_BF16_FACTOR`` times the plain path's own bf16-vs-f32
+        distance; f32: ``W8_LOGITS_F32_REL`` of max |logit|), all four
+        forwards on the experts the kernel's bf16 forward chose
+        (``RoutingReplay``; the choices each would have made otherwise are
+        counted); sparse at factor E against soft, for information;
+    (d) the replayed width-8 decode step: device ms, split by kernel kind,
+        the routing ops named (profiler names and each op replayed alone);
+    (e) the int8-weight kernel on expert slices at ``MOE_W8_M`` rows
+        (``_moe_w8_slices``);
+    (f) a self-draft speculative pass (k = 3, the same param tree) on
+        ``spec_prompts``: each replay ``(k + 2) * 28 L`` int8 launches;
+    (g) a mixed-tick burst (``mixed_burst``): the node's default ticks are
+        classic.
+
+    ``device="cpu"`` rehearses the phase on a small MoE preset (no graphs,
+    no device times; the plain version on both sides)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from agentfield_tpu_torch.models import llama
+    from agentfield_tpu_torch.models.configs import get_config
+    from agentfield_tpu_torch.models.quant import QUANT_KEYS, QuantW, is_quantized
+    from agentfield_tpu_torch.serving import model_node
+    from agentfield_tpu_torch.serving.engine import EngineConfig, InferenceEngine, Request
+    from agentfield_tpu_torch.serving.sampler import SamplingParams
+
+    on_card = torch.device(device).type == "cuda"
+    cfg = get_config(model)
+    L, E, V = cfg.num_layers, cfg.num_experts, cfg.vocab_size
+    assert E > 0, f"{model} is not a MoE preset"
+    w8_per_step = w8_launches_per_step(cfg)
+    if ecfg is None:  # the serve's geometry: 4096 pages of 2 MiB at Mixtral's width
+        ecfg = EngineConfig(max_batch=32, page_size=16, num_pages=4096, max_pages_per_seq=128,
+                            decode_buckets=(4, 16), grammar_slots=model_node.GRAMMAR_SLOTS)
+    out: dict = {"model": model, "w8_launches_per_decode_step": w8_per_step}
+    results["moe"] = out
+
+    # (a) the node, its weights drawn quantized matrix by matrix
+    gc.collect()
+    held = 0
+    if on_card:
+        torch.cuda.empty_cache()
+        held = torch.cuda.memory_allocated()
+        assert held < MOE_HELD_BEFORE, f"{held} bytes still allocated before the MoE build"
+        torch.cuda.reset_peak_memory_stats()
+    draw: dict = {}
+    init = model_node.init_params
+
+    def watched_init(*a, **k):  # the draw's peak, before the engine takes its pool
+        t = time.perf_counter()
+        p = init(*a, **k)
+        if on_card:
+            torch.cuda.synchronize()
+            draw["peak_bytes"] = torch.cuda.max_memory_allocated() - held
+        draw["seconds"] = time.perf_counter() - t
+        return p
+
+    model_node.init_params = watched_init
+    t0 = time.perf_counter()
+    try:
+        node = model_node.build_model_node(
+            model, seed=seed, ecfg=dataclasses.replace(ecfg, moe_prefill_impl="dense"),
+            device=device, quant="int8")
+    finally:
+        model_node.init_params = init
+    if on_card:
+        torch.cuda.synchronize()
+    qp = node[1].engine.params
+    assert is_quantized(qp) and not isinstance(qp["layers"]["router"], QuantW)
+    assert qp["layers"]["w_gate"].shape == (L, E, cfg.hidden_size, cfg.intermediate_size)
+    wbytes = weight_bytes(qp)
+    build = {"node_seconds": time.perf_counter() - t0, "draw_seconds": draw["seconds"],
+             "weight_bytes": wbytes,
+             "layer_int8_bytes": sum(qp["layers"][k].q.numel() + 4 * qp["layers"][k].scale.numel()
+                                     for k in QUANT_KEYS),
+             "kv_pool_bytes": node[1].engine.cache.hbm_bytes()}
+    out["build"] = build
+    if on_card:
+        build["draw_peak_bytes"] = draw["peak_bytes"]
+        build["draw_peak_bound"] = wbytes + MOE_BUILD_SLACK
+        build["allocated_after_node"] = torch.cuda.memory_allocated()
+        log(f"[moe] (a) {model} int8 node built in {build['node_seconds']:.1f} s (weights drawn, "
+            f"quantized and packed in {build['draw_seconds']:.1f} s): weights {wbytes} bytes on "
+            f"the card (layers {build['layer_int8_bytes']}), draw peak {draw['peak_bytes']} bytes "
+            f"(bound {build['draw_peak_bound']}: the int8 tree + {MOE_BUILD_SLACK}), KV pool "
+            f"{build['kv_pool_bytes']} bytes, {build['allocated_after_node'] / 2**30:.2f} GiB "
+            f"allocated")
+        assert draw["peak_bytes"] < build["draw_peak_bound"], build
+
+    # (b) the serve, soft-routed prefill then sparse dispatch
+    launches: dict = {}
+
+    def add(counts):
+        for k, n in counts.items():
+            launches[k] = launches.get(k, 0) + n
+
+    for mode in ("dense", "sparse"):
+        if mode == "sparse":
+            node = model_node.build_model_node(
+                model, seed=seed, ecfg=dataclasses.replace(ecfg, moe_prefill_impl="sparse"),
+                device=device, params=qp, quant="int8")
+        eng = node[1].engine
+        assert eng.params is qp or eng.params["layers"]["w_gate"] is qp["layers"]["w_gate"]
+        assert eng.prefill_cfg.moe_impl == ("sparse" if mode == "sparse" else "dense")
+        assert eng.cfg.moe_impl == "dense"  # decode always soft-routes
+        del eng
+        phase_serve(results, {}, seed, model=model, device=device, lengths=lengths,
+                    max_new=max_new, weight_quant="int8", node=node, label=f"moe_{mode}")
+        del node
+        gc.collect()
+        r = results[f"serve_moe_{mode}"]
+        add(r["launches"])
+        add(r["w8_launches"])
+        log(f"[moe] (b) prefill {mode}: {r['requests']} requests answered; TTFT p50 "
+            f"{r['ttft_ms_p50']:.1f} ms, decode {r['decode_tok_per_s']:.1f} tok/s, decode step "
+            f"{r['decode_step_device_ms_mean']} device ms, {w8_per_step} int8 launches a step")
+    out["serve"] = {m: {k: results[f"serve_moe_{m}"][k] for k in (
+        "ttft_ms_p50", "decode_tok_per_s", "decode_step_device_ms_mean", "peak_mem_gib")}
+        for m in ("dense", "sparse")}
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # (c) full-width logits, kernel against plain, soft and sparse routing
+    g = torch.Generator(device=device)
+    g.manual_seed(seed + 1)
+    tokens = torch.randint(0, V, (1, S), device=device, generator=g)
+    pos = torch.arange(S, device=device)[None]
+
+    def fwd(p, c):
+        with torch.no_grad():
+            lg, _ = llama.forward(p, c, tokens, pos, attn_impl="kernel", collect_kv=False)
+        if on_card:
+            torch.cuda.synchronize()
+        assert lg.shape == (1, S, V) and bool(torch.isfinite(lg).all())
+        return lg
+
+    plain = plain_w8_params(qp)
+    qp32, plain32 = f32_params(qp), f32_params(plain)
+    out["logits"] = {}
+    soft16 = None
+    replay = RoutingReplay()
+    for mode, c in (("soft", cfg), ("sparse", dataclasses.replace(cfg, moe_impl="sparse"))):
+        # the kernel's bf16 forward chooses the experts; the other three
+        # forwards take the same ones (RoutingReplay)
+        runs, flips = {}, {}
+        with replay:
+            for name, p in (("kernel16", qp), ("plain16", plain), ("kernel32", qp32),
+                            ("plain32", plain32)):
+                replay.start("record" if name == "kernel16" else "replay")
+                runs[name] = fwd(p, c)
+                if name != "kernel16":
+                    flips[name] = replay.flips
+        lk16, lp16, lk32, lp32 = (runs[n] for n in ("kernel16", "plain16", "kernel32", "plain32"))
+        scale = float(lp32.abs().max())
+        err16, err32 = float((lk16 - lp16).abs().max()), float((lk32 - lp32).abs().max())
+        noise16 = float((lp16 - lp32).abs().max())
+        tol16, tol32 = W8_LOGITS_BF16_FACTOR * noise16, W8_LOGITS_F32_REL * scale
+        out["logits"][mode] = {
+            "S": S, "max_abs_logit": scale, "max_abs_err_bf16": err16, "tol_bf16": tol16,
+            "plain_bf16_vs_f32": noise16, "max_abs_err_f32": err32, "tol_f32": tol32,
+            "routing_choices": replay.choices, "routing_flips_if_free": flips,
+            "kernel_vs_plain_argmax_agreement": float(
+                (lk16.argmax(-1) == lp16.argmax(-1)).float().mean())}
+        log(f"[moe] (c) {mode} routing, full-width logits at {S} tokens, kernel vs plain on the "
+            f"kernel's bf16 routing: bf16 max|d| {err16:.4e} (tol {tol16:.4e} = "
+            f"{W8_LOGITS_BF16_FACTOR} x the plain path's bf16-vs-f32 {noise16:.4e}); f32 max|d| "
+            f"{err32:.4e} (tol {tol32:.4e}); of {replay.choices} (token, layer) choices each "
+            f"forward would have chosen otherwise at {flips}")
+        assert err32 <= tol32, f"full-width f32 forward ({mode}): int8 kernel and plain disagree"
+        assert err16 <= tol16, f"full-width bf16 forward ({mode}): int8 kernel and plain disagree"
+        if mode == "soft":
+            soft16 = lk16
+        del runs, lk16, lp16, lk32, lp32
+    roomy = dataclasses.replace(cfg, moe_impl="sparse", moe_capacity_factor=float(E))
+    d_roomy = float((fwd(qp, roomy) - soft16).abs().max())
+    out["logits"]["sparse_factor_E_vs_soft_bf16"] = d_roomy
+    log(f"[moe] (c) sparse dispatch at factor E = {E} against soft routing, bf16 kernel "
+        f"logits, each routing freely: max|d| {d_roomy:.4e} (information: the two sum in "
+        f"another order, and near ties of the top-k then resolve differently)")
+    del plain, qp32, plain32, soft16
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # (d) the width-8 decode step, split by kernel kind
+    if on_card:
+        step = _step_device_ms(qp, cfg, seed)
+        assert step["launches_per_replay"]["int8_weight_matmul"] == w8_per_step, step
+        bd = step["breakdown"]
+        if bd is not None:
+            bd["moe_small_kernels_ms"] = _moe_small_kernels(bd["kernels_ms"])
+        step["routing_ops_ms_per_step"] = _moe_op_ms(qp, cfg, step["width"], seed)
+        out["step"] = step
+        log(f"[moe] (d) replayed width-{step['width']} decode step ({step['live_rows']} live "
+            f"rows): {step['step_device_ms']:.3f} device ms; by kind "
+            f"{bd and bd['by_kind_ms']}; routing kernels {bd and bd['moe_small_kernels_ms']}; "
+            f"each routing op replayed alone, x L: {step['routing_ops_ms_per_step']}; top "
+            f"kernels {bd and bd['top_kernels_ms'][:5]}")
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # (e) the int8-weight kernel on expert slices at the new row counts
+    out["w8_slices"] = _moe_w8_slices(results, qp, seed, on_card)
+
+    # (f) a self-draft speculative pass, k = 3
+    rng = np.random.default_rng(seed + 31)
+    k = 3
+    eng = InferenceEngine(qp, cfg, dataclasses.replace(
+        ecfg, num_pages=min(ecfg.num_pages, MOE_SPEC_PAGES), spec_k=k, grammar_slots=0),
+        seed=seed, device=device, draft=(qp, cfg))
+    rec = watch_spec(eng)
+    reqs = [Request(f"s{i}", rng.integers(1, V, n).tolist(), SamplingParams(max_new_tokens=max_new))
+            for i, n in enumerate(spec_prompts)]
+    spec_out = eng.run_to_completion(reqs)
+    assert all(len(spec_out[r.id]) == max_new for r in reqs)
+    st = eng.stats
+    assert st["spec_steps"] > 0, "no speculative step on the MoE target"
+    replays = [r for r in rec["runs"] if r["replayed"]]
+    if on_card:
+        assert replays and all(r["launches"]["int8_weight_matmul"] == (k + 2) * w8_per_step
+                               for r in replays if r["mode"].startswith("spec")), (
+            [r["launches"] for r in replays[:2]])
+    for r in rec["runs"]:
+        add(r["launches"])
+    out["spec"] = {"spec_steps": st["spec_steps"], "spec_emitted": st["spec_emitted"],
+                   "replays": len(replays), "k": k,
+                   "spec_step_device_ms_mean": (statistics.fmean(eng.spec_step_ms)
+                                                if eng.spec_step_ms else None),
+                   "w8_launches_per_spec_replay": (k + 2) * w8_per_step}
+    eng.close()
+    del eng
+    gc.collect()
+    log(f"[moe] (f) self-draft spec k={k}: {st['spec_steps']} spec steps emitting "
+        f"{st['spec_emitted']} tokens, {len(replays)} replays of {(k + 2) * w8_per_step} int8 "
+        f"launches each, {out['spec']['spec_step_device_ms_mean']} device ms a spec step")
+
+    # (g) a mixed-tick burst
+    out["mixed"] = mixed_burst(qp, cfg, ecfg, seed, burst, device, rng)
+    add(out["mixed"]["mixed_tick_launches"])
+    log(f"[moe] (g) mixed burst: {out['mixed']['mixed_ticks']} mixed ticks, launches in them "
+        f"{out['mixed']['mixed_tick_launches']}, {out['mixed']['mixed_tick_device_ms_mean']} "
+        f"device ms a tick")
+    out["launches"] = {k: n for k, n in launches.items() if n}
+    log(f"[moe] launches on the phase's main path: {out['launches']}")
     del qp
     gc.collect()
     if on_card:
@@ -3835,10 +4320,10 @@ def _kernel_kind(name: str) -> str:
 
 
 def profile_replays(graph, before, n: int = 5):
-    """Device time a replay of ``graph`` spends per kernel kind and in its
-    heaviest kernels (``torch.profiler`` over ``n`` replays, each after
-    ``before()``), in ms per replay; None when the profiler records no
-    device time."""
+    """Device time a replay of ``graph`` spends per kernel kind, in its
+    heaviest kernels and in every kernel (``kernels_ms``), from
+    ``torch.profiler`` over ``n`` replays, each after ``before()``, in ms
+    per replay; None when the profiler records no device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -3861,7 +4346,8 @@ def profile_replays(graph, before, n: int = 5):
         by_kind[_kernel_kind(name)] = by_kind.get(_kernel_kind(name), 0.0) + ms
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:8]
     return {"by_kind_ms": by_kind, "total_ms": sum(kernels.values()),
-            "kernels": len(kernels), "top_kernels_ms": [(k[:60], v) for k, v in top]}
+            "kernels": len(kernels), "top_kernels_ms": [(k[:60], v) for k, v in top],
+            "kernels_ms": kernels}
 
 
 def kernels_line(results) -> dict:
@@ -3884,9 +4370,11 @@ def kernels_line(results) -> dict:
         held = [r for r in shapes.values() if r["kernel"] == name and r["dtype"] == "bfloat16"]
         entry = {
             "name": name, "route": "cuda", "source": RAGGED_SRC, "replaces": replaces,
-            # the serve's launches and those of the spec, tier, fork and api phases
+            # the serve's launches and those of the spec, tier, fork, api
+            # and moe phases
             "launches": results[serve]["launches"][name] + sum(
-                results[p]["launches"][name] for p in ("spec", "tier", "fork", "api")),
+                results[p]["launches"][name] for p in ("spec", "tier", "fork", "api"))
+            + results["moe"]["launches"].get(name, 0),
             "max_abs_err": max(r["max_abs_err"] for r in held),
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
@@ -3924,8 +4412,9 @@ def kernels_line(results) -> dict:
 def w8_kernel_entry(results) -> dict:
     """The int8-weight matmul's entry: times and bound at the decode step's
     w_gate/w_up product at 16 rows (bf16), ``max_abs_err`` the worst over
-    every bf16 shape, ``launches`` from the quant phase's main path (the
-    int8 serve, the mixed burst, the spec pass), and every shape's numbers
+    every bf16 shape (the moe phase's expert slices among them),
+    ``launches`` from the quant and moe phases' main paths (the int8
+    serves, the mixed bursts, the spec passes), and every shape's numbers
     under ``shapes``."""
     shapes = results["shapes"]
     held = {k: r for k, r in shapes.items() if r["kernel"] == "int8_weight_matmul" and "ms" in r}
@@ -3934,13 +4423,15 @@ def w8_kernel_entry(results) -> dict:
             "max_abs_err", "max_err_over_bound")
     return {
         "name": "int8_weight_matmul", "route": "cuda", "source": W8_SRC, "replaces": W8_REPLACES,
-        "launches": results["quant"]["launches"]["int8_weight_matmul"],
+        "launches": results["quant"]["launches"]["int8_weight_matmul"]
+        + results["moe"]["launches"]["int8_weight_matmul"],
         "max_abs_err": max(r["max_abs_err"] for r in held.values() if r["dtype"] == "bfloat16"),
         "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
         "bound_by": row["bound_by"], "library_ms": row["library_ms"],
         "shape": "w8_wgate_wup_M16/bfloat16", "call_ms": row["call_ms"],
         "cublas_bf16_ms": row["cublas_bf16_ms"],
         "launches_per_decode_step": results["serve_w8"]["w8_launches_per_decode_step"],
+        "launches_per_decode_step_moe": results["moe"]["w8_launches_per_decode_step"],
         "shapes": {k: {f: r[f] for f in keys} for k, r in held.items()
                    if r["dtype"] == "bfloat16"},
     }
@@ -4009,6 +4500,7 @@ def main() -> int:
         state.clear()  # the 8B weights go before the reduced-depth models
         for preset in REDUCED_DEPTH_PRESETS:
             phase_reduced_depth(results, preset, args.seed)
+        phase_moe(results, args.seed)
     finally:
         results["wall_s"] = time.perf_counter() - t0
         if args.out:

@@ -389,8 +389,15 @@ def test_cpu_tensors_take_the_plain_version():
     assert torch.equal(y, qm.int8_weight_matmul_ref(x, w.q, w.scale))
     sl = quant.quantize_weight(torch.randn(2, 64, 32))[1]
     assert sl.q.shape == (64, 32) and sl.scale.shape == (32,)
-    with pytest.raises(NotImplementedError, match="A3"):
-        w.expert_einsum("bsd,edf->besf", x)
+    # an expert stack's contraction takes the JAX formula on CPU tensors
+    ew = quant.quantize_weight(torch.randn(2, 64, 32))
+    before = rpa.launch_counts()
+    y = ew.expert_einsum("bsd,edf->besf", x[None])
+    assert rpa.launch_counts() == before and tuple(y.shape) == (1, 2, 3, 32)
+    assert torch.equal(y, torch.einsum("bsd,edf->besf", x[None], ew.q.float())
+                       * ew.scale[:, None, :])
+    with pytest.raises(ValueError, match="expert_einsum supports"):
+        w.expert_einsum("bsd,df->bsf", x)
 
 
 def test_smoke_holds_every_projection_and_rejects_faults():
@@ -433,8 +440,12 @@ def test_smoke_holds_every_projection_and_rejects_faults():
                              "max_abs_err": 0.01, "max_err_over_bound": 0.2}
             for k in shapes for dn in ("float32", "bfloat16")}
     entry = c.w8_kernel_entry({"shapes": rows, "quant": {"launches": {"int8_weight_matmul": 7}},
-                               "serve_w8": {"w8_launches_per_decode_step": 224}})
-    assert entry["name"] == "int8_weight_matmul" and entry["launches"] == 7
+                               "serve_w8": {"w8_launches_per_decode_step": 224},
+                               "moe": {"launches": {"int8_weight_matmul": 28},
+                                       "w8_launches_per_decode_step": 896}})
+    # the quant and moe phases' launches
+    assert entry["name"] == "int8_weight_matmul" and entry["launches"] == 7 + 28
+    assert entry["launches_per_decode_step_moe"] == 896
     assert entry["source"] == c.W8_SRC and entry["replaces"].startswith(
         "agentfield_tpu/models/quant.py:")
     assert {k for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "max_abs_err",

@@ -11,6 +11,10 @@ pack_int8_weight``) on the CPU, where the kernel cannot run:
   wants it: this holds the lane map, which only the card could show wrong;
 - a packed ``QuantW`` (``shape``, layer slicing, ``dequantize``) and the
   logits of ``llama.forward`` on packed weights, equal to the logical ones;
+- MoE expert stacks ``[L, E, K, N]`` (mixtral-tiny and Mixtral-8x7B
+  widths): round trips, and ``QuantW[l][e]`` of a quantized 4-D leaf equal
+  to packing that one matrix alone (what the card's per-expert launch
+  reads);
 - the wrapper's instance list matches the source's.
 """
 
@@ -138,6 +142,40 @@ def test_packed_quantw_gives_the_logical_logits():
     want, _ = llama.forward(params, cfg, tokens, pos, collect_kv=False)
     got, _ = llama.forward(packed, cfg, tokens, pos, collect_kv=False)
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("name,lead", [("mixtral-tiny", (2, 4)), ("mixtral-8x7b", (1, 2))])
+def test_expert_stacks_round_trip(name, lead):
+    cfg = PRESETS[name]
+    d, f = cfg.hidden_size, cfg.intermediate_size
+    assert cfg.num_experts > 0
+    g = torch.Generator().manual_seed(2)
+    for K, N in ((d, f), (f, d)):
+        q = torch.randint(-127, 128, (*lead, K, N), dtype=torch.int8, generator=g)
+        packed = qm.pack_int8_weight(q)
+        assert tuple(packed.shape) == (*lead, *qm.packed_shape(K, N))
+        assert packed.numel() == q.numel()  # Mixtral's widths tile exactly
+        assert torch.equal(qm.unpack_int8_weight(packed, K, N), q)
+        # the leading axes index matrices: (layer, expert) packs on its own
+        l, e = lead[0] - 1, lead[1] - 1
+        assert torch.equal(packed[l, e], qm.pack_int8_weight(q[l, e].contiguous()))
+
+
+def test_quantized_expert_leaf_indexes_layer_then_expert():
+    cfg = get_config("mixtral-tiny")
+    L, E, d, f = cfg.num_layers, cfg.num_experts, cfg.hidden_size, cfg.intermediate_size
+    w = torch.empty((L, E, d, f)).normal_(0.0, 0.02, generator=torch.Generator().manual_seed(3))
+    qw = quant.quantize_weight(w)
+    pw = quant.pack_quantw(qw)
+    assert pw.shape == (L, E, d, f) and tuple(pw.q.shape) == (L, E, *qm.packed_shape(d, f))
+    for layer in range(L):
+        for e in range(E):
+            one = quant.quantize_weight(w[layer, e])
+            sl = pw[layer][e]
+            assert sl.packed == (d, f) and tuple(sl.scale.shape) == (f,)
+            assert torch.equal(sl.q, qm.pack_int8_weight(one.q))
+            assert torch.equal(sl.scale, one.scale)
+            assert torch.equal(qw[layer][e].q, one.q)
 
 
 def test_wrapper_instances_match_the_source():
