@@ -57,14 +57,19 @@ Run a node::
     python -m agentfield_tpu_torch.serving.model_node --model llama-3-8b --port 8080 --seed 0
 
 ``--control-plane URL --node-id ID`` makes it a node of that control plane.
+``--checkpoint DIR`` serves a Hugging Face checkpoint directory
+(``models.hf_loader``: config and weights from the directory, bf16) with its
+own tokenizer and chat template (``serving.tokenizer.HFTokenizer``, when the
+directory has a ``tokenizer.json``; else the byte tokenizer, as the JAX node
+falls back).
 
 ``--quant int8`` serves weight-only int8 layer projections (``models.quant``;
 the int8-weight kernel on the card). ``--kv-quant-dtype int8`` (or ``fp8``)
 stores the KV pages quantized, with per-slot scales
 (``EngineConfig.kv_quant_dtype``). ``--spec-draft
 llama-3.2-draft --spec-k 3`` decodes speculatively with a draft preset
-(``load_draft_model``: random weights from the seed; a trained draft needs
-the HF checkpoint loader, which is not ported yet).
+(``load_draft_model``: random weights from the seed) or, given a directory,
+a draft checkpoint (its trained weights in the target's dtype).
 """
 
 from __future__ import annotations
@@ -106,7 +111,7 @@ from agentfield_tpu_torch.serving.engine import (
 )
 from agentfield_tpu_torch.serving.grammar import Grammar, SchemaError, compile_json_schema
 from agentfield_tpu_torch.serving.sampler import SamplingParams
-from agentfield_tpu_torch.serving.tokenizer import ByteTokenizer
+from agentfield_tpu_torch.serving.tokenizer import ByteTokenizer, HFTokenizer
 
 log = logging.getLogger(__name__)
 
@@ -594,9 +599,11 @@ class ModelBackend:
         return out or None
 
     def apply_chat_template(self, messages: list[dict]) -> str:
-        """[{role, content}] → one prompt string: the JAX node's role-tagged
-        transcript for tokenizers without a chat template (the port has no
-        HF tokenizer yet)."""
+        """[{role, content}] → one prompt string: the checkpoint's own chat
+        template where the tokenizer has one (``HFTokenizer``, rendered as
+        transformers' ``apply_chat_template(tokenize=False,
+        add_generation_prompt=True)`` renders it, as the JAX node does),
+        else the JAX node's role-tagged transcript."""
         if not isinstance(messages, list):
             raise ValueError("messages must be a list of {role, content} objects")
         for i, m in enumerate(messages):
@@ -610,6 +617,8 @@ class ModelBackend:
                     f"messages[{i}] must be {{role: system|user|assistant, "
                     "content: str}"
                 )
+        if getattr(self.tokenizer, "chat_template", None):
+            return self.tokenizer.apply_chat_template(messages, add_generation_prompt=True)
         lines = [f"{m['role']}: {m['content']}" for m in messages]
         return "\n".join(lines) + "\nassistant:"
 
@@ -1290,22 +1299,26 @@ def _make_handler(node: ModelNodeServer):
 def load_draft_model(source: str, target_vocab: int, seed: int = 0,
                      device: str | torch.device = "cuda",
                      dtype: str | torch.dtype | None = None):
-    """A speculative-decoding draft for a preset name: random weights drawn
-    from ``seed`` on ``device`` (in ``dtype``, default the preset's), the
-    ``(params, cfg)`` pair ``InferenceEngine(draft=...)`` takes. A
-    vocabulary other than the target's is refused (speculation compares
-    token ids), as is a checkpoint directory: the HF checkpoint loader is not
-    ported yet."""
+    """A speculative-decoding draft, the ``(params, cfg)`` pair
+    ``InferenceEngine(draft=...)`` takes: an HF checkpoint directory loads
+    its trained weights (``models.hf_loader``, in ``dtype``, default
+    bfloat16); a preset name draws random weights from ``seed`` (in
+    ``dtype``, default the preset's). Both land on ``device``. A vocabulary
+    other than the target's is refused (speculation compares token ids)."""
     import os
 
     if os.path.isdir(source):
-        raise ValueError(
-            f"spec draft {source!r} is a checkpoint directory: the HF checkpoint "
-            "loader is not ported yet; pass a preset name")
-    dcfg = get_config(source)
+        from agentfield_tpu_torch.models.hf_loader import config_from_hf, load_hf_checkpoint
+
+        dcfg = config_from_hf(source)  # the vocab check before any weight is read
+    else:
+        dcfg = get_config(source)
     if dcfg.vocab_size != target_vocab:
         raise ValueError(
             f"spec draft {source!r} vocab {dcfg.vocab_size} != target vocab {target_vocab}")
+    if os.path.isdir(source):
+        _, params = load_hf_checkpoint(source, dcfg, dtype=dtype or "bfloat16", device=device)
+        return params, dcfg
     return init_params(dcfg, seed=seed, dtype=dtype, device=device), dcfg
 
 
@@ -1321,10 +1334,16 @@ def build_model_node(
     spec_k: int | None = None,
     control_plane: str | None = None,
     quant: str | None = None,
+    checkpoint: str | None = None,
 ) -> tuple[ModelNodeServer, ModelBackend]:
     """Construct ``(server, backend)`` for a preset: random weights drawn
     from ``seed`` on ``device`` unless ``params`` are given, the byte
-    tokenizer unless one is given. ``quant="int8"`` serves weight-only int8
+    tokenizer unless one is given. With ``checkpoint`` (an HF checkpoint
+    directory, the JAX node's ``checkpoint``) the config and the bf16
+    weights come from the directory (``models.hf_loader``), the model name
+    is the path, and the tokenizer is the directory's ``HFTokenizer`` when it
+    has a ``tokenizer.json`` (one the port cannot read raises), else the byte
+    tokenizer. ``quant="int8"`` serves weight-only int8
     (the layer projections and expert stacks go through the int8-weight
     kernel on the card; embed, ``lm_head``, norms, a MoE router and the
     speculative draft stay fp, as on the JAX node): given ``params`` are
@@ -1335,16 +1354,28 @@ def build_model_node(
     ``spec_k > 0`` the ``spec_draft`` preset is the draft model
     (``load_draft_model``, seed ``seed + 4`` as the JAX node draws it, in
     the target's dtype). With ``control_plane`` (its base URL) the server
-    registers as ``node_id`` and heartbeats. Call ``server.start(port=...)``."""
-    cfg = get_config(model)
+    registers as ``node_id`` and heartbeats. Call ``server.start(port=...)``.
+    A checkpoint under ``quant="int8"`` is quantized as it loads, one
+    matrix at a time, so its fp stacks are never held whole either."""
+    if quant is not None and quant != "int8":
+        raise ValueError(f"unknown quant mode {quant!r} (have: 'int8')")
+    if checkpoint:
+        import os
+
+        from agentfield_tpu_torch.models.hf_loader import load_hf_checkpoint
+
+        cfg, params = load_hf_checkpoint(checkpoint, device=device, quant=quant)
+        model = checkpoint
+        if tokenizer is None and os.path.exists(os.path.join(checkpoint, "tokenizer.json")):
+            tokenizer = HFTokenizer(checkpoint)
+    else:
+        cfg = get_config(model)
     if ecfg is None:
         ecfg = EngineConfig(grammar_slots=GRAMMAR_SLOTS)
     if spec_k is not None:
         ecfg = dataclasses.replace(ecfg, spec_k=spec_k)
     if ecfg.spec_k > 0 and spec_draft is None:
         raise ValueError("spec_k > 0 needs spec_draft=<model preset>")
-    if quant is not None and quant != "int8":
-        raise ValueError(f"unknown quant mode {quant!r} (have: 'int8')")
     if params is None:
         params = init_params(cfg, seed=seed, device=device, quantize=quant is not None)
     elif quant is not None:
@@ -1365,6 +1396,9 @@ def build_model_node(
 def main(argv: list[str] | None = None) -> None:
     ap = argparse.ArgumentParser(description="Serve a model over HTTP on the GPU.")
     ap.add_argument("--model", default="llama-3-8b")
+    ap.add_argument("--checkpoint", default=None, metavar="DIR",
+                    help="serve this Hugging Face checkpoint directory (config, weights, "
+                         "tokenizer and chat template) instead of a random preset")
     ap.add_argument("--port", type=int, default=8080)
     ap.add_argument("--host", default="127.0.0.1")
     ap.add_argument("--seed", type=int, default=0)
@@ -1374,7 +1408,8 @@ def main(argv: list[str] | None = None) -> None:
     ap.add_argument("--quant", default=None, choices=("int8",),
                     help="weight-only int8 layer projections (the int8-weight kernel)")
     ap.add_argument("--spec-draft", default=None,
-                    help="draft model preset for speculative decoding (with --spec-k)")
+                    help="draft model for speculative decoding (with --spec-k): a preset "
+                         "name or a checkpoint directory")
     ap.add_argument("--spec-k", type=int, default=None,
                     help="draft proposals per speculative step (needs --spec-draft)")
     ap.add_argument("--control-plane", default=None, metavar="URL",
@@ -1385,7 +1420,7 @@ def main(argv: list[str] | None = None) -> None:
         args.model, seed=args.seed, device=args.device,
         ecfg=EngineConfig(grammar_slots=GRAMMAR_SLOTS, kv_quant_dtype=args.kv_quant_dtype),
         spec_draft=args.spec_draft, spec_k=args.spec_k, node_id=args.node_id,
-        control_plane=args.control_plane, quant=args.quant,
+        control_plane=args.control_plane, quant=args.quant, checkpoint=args.checkpoint,
     )
 
     def on_term(signum, frame):  # SIGTERM stops as Ctrl-C does: deregister first
@@ -1393,7 +1428,7 @@ def main(argv: list[str] | None = None) -> None:
 
     signal.signal(signal.SIGTERM, on_term)
     port = server.start(args.host, args.port)
-    print(f"model node {args.model} serving on http://{args.host}:{port}", flush=True)
+    print(f"model node {args.checkpoint or args.model} serving on http://{args.host}:{port}", flush=True)
     try:
         while True:
             time.sleep(3600)

@@ -176,6 +176,23 @@ the result line:
                with the engine's stats, a tracked request's callback and
                the goodbye; then the embeddings through the plain attention
                (cosine at least ``API_COSINE_MIN``).
+13b. ``ckpt``   the serve's weights as a Hugging Face checkpoint
+               (``phase_ckpt``): written in bf16 as Meta-Llama-3-8B's four
+               shards with the index, the published ``config.json``, a
+               Llama-3-form ``tokenizer.json`` (merges the smoke learns from
+               seeded text) and the Instruct chat template; loaded by
+               ``build_model_node(checkpoint=)`` bit-equal (load GB/s, the
+               peak above the tree); the serve's script through it, its
+               greedy tokens one at a time equal to a ``params=`` node's; a
+               ``messages`` payload, a schema request and text round trips
+               through the checkpoint's tokenizer; int8 on load (layers 0
+               and 31 bit-equal to ``quantize_weight``, 224 int8 launches a
+               replayed step); a ``llama-3.2-draft`` checkpoint as a k = 3
+               draft. ``phase_ckpt_moe`` (before ``moe``): Mixtral-8x7B at 2
+               layers written with the ``block_sparse_moe`` names, loaded as
+               int8 (every expert bit-equal), served under soft and sparse
+               prefill. About 22.5 GB in a temporary directory
+               (``--ckpt-dir``), removed at the end. ``[ckpt ...]`` lines.
 14. ``gemma-7b``, ``phi-3-mini``  each at full width and 2 layers (random
                bf16 weights): five requests through the engine (phi-3-mini
                with a prompt past its 2047-token window), every decode
@@ -1116,6 +1133,17 @@ SERVE_SCHEMA = {"type": "object", "properties": {"ok": {"type": "boolean"},
                 "required": ["ok", "mode"]}
 
 
+def grammar_accepts(g, tokens) -> bool:
+    """Does the token-level grammar ``g`` accept ``tokens`` (a complete
+    value)?"""
+    s = g.start
+    for t in tokens:
+        s = int(g.trans[s, t])
+        if s < 0:
+            return False
+    return bool(g.accept[s])
+
+
 def w8_launches_per_step(cfg) -> int:
     """int8-weight launches of one decode step: wq, wk, wv, wo and the
     gated FFN's three products a layer, the FFN once per expert for a MoE
@@ -1264,9 +1292,10 @@ def phase_serve(results, state, seed: int, model="llama-3-8b", device="cuda", ec
     # the constrained answer: a complete value of the schema, then the stop id
     schema_res = answers[i_schema]["result"]
     g = backend._grammar_for(SERVE_SCHEMA)
-    body = bytes(schema_res["tokens"])  # byte tokenizer: token id b is byte b
+    token_bytes = backend.tokenizer.token_bytes(V)  # the byte tokenizer: id b is byte b
+    body = b"".join(token_bytes[t] for t in schema_res["tokens"])
     assert schema_res["finish_reason"] == "stop", schema_res
-    assert match_bytes(g.trans, g.accept, body), body
+    assert grammar_accepts(g, schema_res["tokens"]), body
     json.loads(body.decode())
     res2 = second["result"]
     assert len(res2["tokens"]) == max_new and all(np.isfinite(lp) for lp in res2["logprobs"])
@@ -1339,6 +1368,7 @@ def phase_serve(results, state, seed: int, model="llama-3-8b", device="cuda", ec
         "decode_step_replays_timed": len(eng.decode_step_ms),
         "graphs": graphs,
         "sampled_tokens": answers[i_sampled]["result"]["tokens"],
+        "greedy_tokens": [answers[i]["result"]["tokens"] for i in range(len(lengths))],
         "schema_text": body.decode(),
         "prefill_tokens": st["prefill_tokens"],
         "prefill_s": eng.timing["prefill_s"],
@@ -4028,6 +4058,796 @@ def phase_moe(results, seed: int, device: str = "cuda", model: str = MOE_MODEL,
         torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# phase_ckpt: a Hugging Face checkpoint written, loaded and served
+# ---------------------------------------------------------------------------
+
+CKPT_SHARDS = 4  # Meta-Llama-3-8B's own shard count
+CKPT_SPECIALS = 256  # Llama-3's special tokens: the last 256 ids of the model's vocab
+CKPT_MERGES = 4000  # BPE merges the smoke's trainer learns from its seeded text
+CKPT_TEXT_CHARS = 400_000  # of seeded text for the trainer
+CKPT_MOE_LAYERS = 2  # Mixtral-8x7B written at 2 of its 32 layers (about 6.3 GB)
+CKPT_MOE_LENGTHS = (64, 333, 700, 1500)
+CKPT_DRAFT_PROMPTS = (200, 600, 1000)
+# meta-llama/Meta-Llama-3-8B, config.json (the keys config_from_hf reads and
+# those the loader ignores)
+LLAMA3_8B_CONFIG = {
+    "architectures": ["LlamaForCausalLM"], "attention_bias": False, "attention_dropout": 0.0,
+    "bos_token_id": 128000, "eos_token_id": 128001, "hidden_act": "silu", "hidden_size": 4096,
+    "initializer_range": 0.02, "intermediate_size": 14336, "max_position_embeddings": 8192,
+    "model_type": "llama", "num_attention_heads": 32, "num_hidden_layers": 32,
+    "num_key_value_heads": 8, "pretraining_tp": 1, "rms_norm_eps": 1e-05, "rope_scaling": None,
+    "rope_theta": 500000.0, "tie_word_embeddings": False, "torch_dtype": "bfloat16",
+    "transformers_version": "4.40.0.dev0", "use_cache": True, "vocab_size": 128256}
+# mistralai/Mixtral-8x7B-v0.1, config.json
+MIXTRAL_CONFIG = {
+    "architectures": ["MixtralForCausalLM"], "attention_dropout": 0.0, "bos_token_id": 1,
+    "eos_token_id": 2, "hidden_act": "silu", "hidden_size": 4096, "initializer_range": 0.02,
+    "intermediate_size": 14336, "max_position_embeddings": 32768, "model_type": "mixtral",
+    "num_attention_heads": 32, "num_experts_per_tok": 2, "num_hidden_layers": 32,
+    "num_key_value_heads": 8, "num_local_experts": 8, "output_router_logits": False,
+    "rms_norm_eps": 1e-05, "rope_theta": 1000000.0, "router_aux_loss_coef": 0.02,
+    "sliding_window": None, "tie_word_embeddings": False, "torch_dtype": "bfloat16",
+    "transformers_version": "4.36.0.dev0", "use_cache": True, "vocab_size": 32000}
+LLAMA3_PATTERN = (r"(?i:'s|'t|'re|'ve|'m|'ll|'d)|[^\r\n\p{L}\p{N}]?\p{L}+|\p{N}{1,3}|"
+                  r" ?[^\s\p{L}\p{N}]+[\r\n]*|\s*[\r\n]+|\s+(?!\S)|\s+")
+# meta-llama/Meta-Llama-3-8B-Instruct, tokenizer_config.json "chat_template"
+LLAMA3_CHAT_TEMPLATE = (
+    "{% set loop_messages = messages %}{% for message in loop_messages %}{% set content = "
+    "'<|start_header_id|>' + message['role'] + '<|end_header_id|>\n\n'+ message['content'] | "
+    "trim + '<|eot_id|>' %}{% if loop.index0 == 0 %}{% set content = bos_token + content %}"
+    "{% endif %}{{ content }}{% endfor %}{% if add_generation_prompt %}{{ "
+    "'<|start_header_id|>assistant<|end_header_id|>\n\n' }}{% endif %}")
+CKPT_WORDS = (
+    "the a of and to in is that for it as was with be by on not he this are or his from at "
+    "which but have an they you were her she there been one all we their has would when if "
+    "so no out up into do time only could new them than some other agent tool model token "
+    "request answer decode prefill cache page kernel graph replay schema node control plane "
+    "session stream call reply user assistant system message JSON value field list number "
+    "string object true false null error retry deadline budget batch width layer expert "
+    "route weight scale card memory bytes second Hello World Paris Berlin café naïve résumé "
+    "straße Привет мир γειά σου 日本語 テキスト 中文 العربية हिन्दी 한국어 it's don't we'll "
+    "they're I'm you've she'd 2024 3.14 100000 007 x1 v2 path/to/file.py snake_case CamelCase "
+    "(note) [item] {key} <tag> #tag @user $5 50% a+b=c").split()
+
+CKPT_SYLLABLES = [c + v for c in ("", "b", "ch", "d", "f", "g", "k", "l", "m", "n", "p", "r",
+                                  "s", "sh", "t", "th", "v", "w", "z", "st", "tr", "pl")
+                  for v in ("a", "e", "i", "o", "u", "ai", "ou", "er", "an", "in", "on", "y")]
+
+
+def ckpt_text(rng, n_chars: int) -> str:
+    """Seeded text of about ``n_chars`` characters: words, punctuation glued
+    to the word before it, spaces and newlines (no space before a
+    punctuation mark, so ``clean_up_tokenization_spaces`` leaves it as it
+    is)."""
+    out, n = [], 0
+    while n < n_chars:
+        if rng.random() < 0.5:
+            w = CKPT_WORDS[int(rng.integers(len(CKPT_WORDS)))]
+        else:  # a made-up word of 1-4 syllables: the vocabulary keeps growing
+            w = "".join(CKPT_SYLLABLES[int(i)] for i in rng.integers(len(CKPT_SYLLABLES),
+                                                                     size=int(rng.integers(1, 5))))
+        r = rng.random()
+        w += "." if r < 0.06 else "," if r < 0.12 else "?" if r < 0.14 else ""
+        w += "\n" if rng.random() < 0.04 else "\n\n" if rng.random() < 0.01 else " "
+        out.append(w)
+        n += len(w)
+    return "".join(out)[:n_chars]
+
+
+def train_bpe(text: str, merges: int):
+    """A byte-level BPE trainer (Llama-3's pre-tokenization): learns up to
+    ``merges`` merges, most frequent pair first (ties to the smaller pair;
+    a heap of counts, stale entries skipped), over the words of ``text``.
+    Returns ``(vocab, merges)``: the 256 byte characters, then one token a
+    merge."""
+    import collections
+    import heapq
+
+    from agentfield_tpu_torch.serving.tokenizer import BYTE_TO_CHAR, onig_regex
+
+    rx = onig_regex(LLAMA3_PATTERN)
+    counts = collections.Counter(
+        "".join(BYTE_TO_CHAR[b] for b in m.group().encode("utf-8")) for m in rx.finditer(text))
+    words = [list(w) for w in counts]
+    freq = [counts[w] for w in counts]
+    pairs: collections.Counter = collections.Counter()
+    where: dict = collections.defaultdict(set)
+    for i, w in enumerate(words):
+        for a, b in zip(w, w[1:]):
+            pairs[a, b] += freq[i]
+            where[a, b].add(i)
+    heap = [(-n, p) for p, n in pairs.items()]
+    heapq.heapify(heap)
+    vocab = {BYTE_TO_CHAR[b]: None for b in sorted(BYTE_TO_CHAR, key=lambda b: ord(BYTE_TO_CHAR[b]))}
+    learned = []
+    while len(learned) < merges and heap:
+        n, best = heapq.heappop(heap)
+        if pairs.get(best, 0) != -n:
+            continue  # a stale count
+        if -n < 2:
+            break
+        a, b = best
+        learned.append([a, b])
+        vocab[a + b] = None
+        touched = set()
+        for i in list(where[best]):
+            w, f = words[i], freq[i]
+            for x, y in zip(w, w[1:]):  # take the word's pairs out, merge, put them back
+                pairs[x, y] -= f
+                where[x, y].discard(i)
+                touched.add((x, y))
+            j, out = 0, []
+            while j < len(w):
+                if j + 1 < len(w) and w[j] == a and w[j + 1] == b:
+                    out.append(a + b)
+                    j += 2
+                else:
+                    out.append(w[j])
+                    j += 1
+            words[i] = out
+            for x, y in zip(out, out[1:]):
+                pairs[x, y] += f
+                where[x, y].add(i)
+                touched.add((x, y))
+        for p in touched:
+            if pairs[p] > 0:
+                heapq.heappush(heap, (-pairs[p], p))
+            else:
+                del pairs[p]
+    return {t: i for i, t in enumerate(vocab)}, learned
+
+
+def write_llama3_tokenizer(d: str, vocab_size: int, seed: int, n_specials: int = CKPT_SPECIALS,
+                           merges: int = CKPT_MERGES) -> dict:
+    """Write ``tokenizer.json`` (byte-level BPE in Llama-3's form: its split
+    pattern, ``ignore_merges``, the BOS template, its special tokens at the
+    last ``n_specials`` ids of the model's vocab) and ``tokenizer_config.json``
+    (Llama-3's special tokens and the Instruct chat template) under ``d``.
+    The merges are learned from seeded text (the real vocabulary is not on
+    the machine)."""
+    import numpy as np
+
+    t0 = time.perf_counter()
+    first = vocab_size - n_specials
+    rng = np.random.default_rng(seed + 29)
+    vocab, learned = train_bpe(ckpt_text(rng, CKPT_TEXT_CHARS), min(merges, first - 256))
+    n_learned = len(vocab)
+    # The rest of the BPE vocab, up to the first special id (the library
+    # numbers the added tokens from the vocab's end, so they land there):
+    # made-up whole words, with and without a leading space. With
+    # ignore_merges a pre-token equal to one is that one id.
+    while len(vocab) < first:
+        w = "".join(CKPT_SYLLABLES[int(i)] for i in rng.integers(len(CKPT_SYLLABLES),
+                                                                 size=int(rng.integers(2, 5))))
+        for t in (w, "Ġ" + w, "Ġ" + w.capitalize()):
+            if len(vocab) < first and t not in vocab:
+                vocab[t] = len(vocab)
+    names = ["<|begin_of_text|>", "<|end_of_text|>"] + [
+        f"<|reserved_special_token_{i}|>" for i in range(4)] + [
+        "<|start_header_id|>", "<|end_header_id|>", "<|reserved_special_token_4|>", "<|eot_id|>"]
+    names += [f"<|reserved_special_token_{i}|>" for i in range(5, 5 + n_specials - len(names))]
+    names = names[:n_specials]
+    added = [{"id": first + i, "content": c, "single_word": False, "lstrip": False,
+              "rstrip": False, "normalized": False, "special": True} for i, c in enumerate(names)]
+    bos = {"SpecialToken": {"id": "<|begin_of_text|>", "type_id": 0}}
+    doc = {
+        "version": "1.0", "truncation": None, "padding": None, "added_tokens": added,
+        "normalizer": None,
+        "pre_tokenizer": {"type": "Sequence", "pretokenizers": [
+            {"type": "Split", "pattern": {"Regex": LLAMA3_PATTERN}, "behavior": "Isolated",
+             "invert": False},
+            {"type": "ByteLevel", "add_prefix_space": False, "trim_offsets": True,
+             "use_regex": False}]},
+        "post_processor": {"type": "Sequence", "processors": [
+            {"type": "ByteLevel", "add_prefix_space": True, "trim_offsets": False,
+             "use_regex": True},
+            {"type": "TemplateProcessing",
+             "single": [bos, {"Sequence": {"id": "A", "type_id": 0}}],
+             "pair": [bos, {"Sequence": {"id": "A", "type_id": 0}}, bos,
+                      {"Sequence": {"id": "B", "type_id": 1}}],
+             "special_tokens": {"<|begin_of_text|>": {
+                 "id": "<|begin_of_text|>", "ids": [first], "tokens": ["<|begin_of_text|>"]}}}]},
+        "decoder": {"type": "ByteLevel", "add_prefix_space": True, "trim_offsets": True,
+                    "use_regex": True},
+        "model": {"type": "BPE", "dropout": None, "unk_token": None,
+                  "continuing_subword_prefix": None, "end_of_word_suffix": None,
+                  "fuse_unk": False, "byte_fallback": False, "ignore_merges": True,
+                  "vocab": vocab, "merges": learned}}
+    with open(os.path.join(d, "tokenizer.json"), "w", encoding="utf-8") as f:
+        json.dump(doc, f, ensure_ascii=False)
+    config = {"bos_token": "<|begin_of_text|>", "eos_token": "<|end_of_text|>",
+              "clean_up_tokenization_spaces": True, "model_input_names": ["input_ids",
+                                                                          "attention_mask"],
+              "model_max_length": 1000000000000000019884624838656,
+              "tokenizer_class": "PreTrainedTokenizerFast", "chat_template": LLAMA3_CHAT_TEMPLATE}
+    with open(os.path.join(d, "tokenizer_config.json"), "w", encoding="utf-8") as f:
+        json.dump(config, f, ensure_ascii=False)
+    return {"bpe_vocab": len(vocab), "merges": len(learned), "learned_vocab": n_learned,
+            "specials": len(names), "first_special": first, "train_s": time.perf_counter() - t0}
+
+
+def _dir_bytes(d: str) -> int:
+    return sum(os.path.getsize(os.path.join(d, f)) for f in os.listdir(d))
+
+
+class WatchedLoad:
+    """Wraps ``hf_loader.load_hf_checkpoint`` while in use: the seconds of
+    the load, the bytes of the tree it returns and, on the card, its peak
+    device memory above what was allocated when it began."""
+
+    def __init__(self, on_card: bool):
+        self.on_card, self.out = on_card, {}
+
+    def __enter__(self):
+        import torch
+
+        from agentfield_tpu_torch.models import hf_loader
+
+        self._orig = orig = hf_loader.load_hf_checkpoint
+
+        def load(*a, **k):
+            if self.on_card:
+                torch.cuda.synchronize()
+                held = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+            t = time.perf_counter()
+            cfg, params = orig(*a, **k)
+            if self.on_card:
+                torch.cuda.synchronize()
+                self.out["peak_bytes"] = torch.cuda.max_memory_allocated() - held
+            self.out["seconds"] = time.perf_counter() - t
+            self.out["tree_bytes"] = weight_bytes(params)
+            return cfg, params
+
+        hf_loader.load_hf_checkpoint = load
+        return self.out
+
+    def __exit__(self, *exc):
+        from agentfield_tpu_torch.models import hf_loader
+
+        hf_loader.load_hf_checkpoint = self._orig
+        return False
+
+
+def _leaves_equal(a: dict, b: dict) -> list[str]:
+    """Names of the fp leaves of ``a`` that are not bit-equal to ``b``'s."""
+    import torch
+
+    bad = []
+    for k, v in a.items():
+        if isinstance(v, dict):
+            bad += [f"{k}.{n}" for n in _leaves_equal(v, b[k])]
+        elif not (v.dtype == b[k].dtype and v.shape == b[k].shape and torch.equal(v, b[k])):
+            bad.append(k)
+    return bad
+
+
+def _quant_equal(qw, w) -> bool:
+    """A loaded ``QuantW`` matrix against ``quantize_weight`` of the bf16
+    matrix it was quantized from: q (packed on the card) and scale bit for
+    bit."""
+    import torch
+
+    from agentfield_tpu_torch.models.quant import quantize_weight
+
+    ref = quantize_weight(w)
+    return (qw.packed == ref.packed and torch.equal(qw.q, ref.q)
+            and torch.equal(qw.scale, ref.scale))
+
+
+def _make_ckpt_dir(root: str | None, need_bytes: int, tag: str) -> str:
+    import shutil
+    import tempfile
+
+    d = tempfile.mkdtemp(prefix=f"af_ckpt_{tag}_", dir=root)
+    free = shutil.disk_usage(d).free
+    log(f"[ckpt] {tag}: writing into {d}, {free / 1e9:.1f} GB free, {need_bytes / 1e9:.2f} GB "
+        "to write")
+    if free < need_bytes * 1.05:
+        raise AssertionError(f"{d}: {free} bytes free, the checkpoint needs {need_bytes}")
+    return d
+
+
+def phase_ckpt(results, state, seed: int, device: str = "cuda", root: str | None = None,
+               lengths=(64, 200, 333, 480, 512, 700, 1100, 1500), max_new: int = 32,
+               draft_preset: str = SPEC_DRAFT, draft_prompts=CKPT_DRAFT_PROMPTS,
+               shards: int = CKPT_SHARDS, merges: int = CKPT_MERGES):
+    """The serve's model as a Hugging Face checkpoint (``state``'s weights,
+    on the card), written, loaded and served through the port's entry
+    points; the temporary directories are removed at the end, also on a
+    failure:
+
+    (a) the weights written in bf16 as HF tensors (``[out, in]``) in
+        ``shards`` shards with ``model.safetensors.index.json``, tensor by
+        tensor from the card (``hf_loader.save_hf_checkpoint``); the
+        published ``config.json`` (Meta-Llama-3-8B's keys); a byte-level BPE
+        ``tokenizer.json`` in Llama-3's form whose merges the smoke learns
+        from seeded text (``train_bpe``), special tokens at the last 256 ids,
+        and a ``tokenizer_config.json`` with the Llama-3-Instruct template;
+    (b) ``build_model_node(checkpoint=DIR)``: ``config_from_hf`` equal to
+        the preset, every leaf bit-equal to the param it was written from,
+        the load's seconds and GB/s (page cache warm: the files were just
+        written) and its peak device memory above the loaded tree (below
+        ``MOE_BUILD_SLACK``);
+    (c) the serve's script over HTTP through the loaded node
+        (``phase_serve(node=...)``, ``tokens=`` so the ids are the serve's:
+        every path through the hand-written kernels), and the greedy
+        prompts one at a time through the loaded node and a ``params=``
+        node on the same weights: the same tokens (the count equal to
+        ``phase_serve``'s concurrent answers is printed);
+    (d) text through the checkpoint's tokenizer: an ``Agent.ai()`` payload
+        with ``messages`` (the template's rendering, encoded and decoded
+        back), a ``response_schema`` request whose grammar is built from
+        ``token_bytes`` at the model's vocab (compile ms), and
+        ``decode(encode(s))`` of a text prompt of each serve length (the
+        longest one's encode ms);
+    (e) ``quant="int8"`` from the same directory: layers 0 and L-1 of every
+        ``QUANT_KEYS`` leaf bit-equal to ``quantize_weight`` of the bf16
+        matrices, the load's peak below the int8 tree + ``MOE_BUILD_SLACK``,
+        the serve's script (``w8_launches_per_step`` int8 launches in each
+        replayed decode step);
+    (f) ``draft_preset`` written as a checkpoint directory (tied
+        embeddings) and served as the draft of a ``spec_k=3`` node: draft
+        leaves bit-equal to what was written, answers complete, each replay
+        the launches ``expected_replay_launches`` gives (``phase_spec``'s).
+    """
+    import dataclasses
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from agentfield_tpu_torch.models.configs import get_config
+    from agentfield_tpu_torch.models.hf_loader import (
+        config_from_hf, hf_config_dict, save_hf_checkpoint,
+    )
+    from agentfield_tpu_torch.models.quant import QUANT_KEYS, QuantW
+    from agentfield_tpu_torch.serving.model_node import build_model_node
+    from agentfield_tpu_torch.serving.tokenizer import HFTokenizer
+
+    on_card = torch.device(device).type == "cuda"
+    params, cfg = state["params"], state["cfg"]
+    # the serve's geometry in bf16 pages (the quantized-KV serves leave their
+    # kind in state)
+    ecfg = dataclasses.replace(state["ecfg"], kv_quant_dtype="none")
+    L, V = cfg.num_layers, cfg.vocab_size
+    dtype = str(params["embed"].dtype).removeprefix("torch.")
+    out: dict = {"card": results.get("card"), "launches": {}}
+    results["ckpt"] = out
+    dirs: list[str] = []
+    t_phase = time.perf_counter()
+
+    def add_launches(serve):
+        for counts in (serve["launches"], serve["w8_launches"]):
+            for k, n in counts.items():
+                out["launches"][k] = out["launches"].get(k, 0) + n
+
+    gc.collect()
+    try:
+        # (a) write
+        d = _make_ckpt_dir(root, weight_bytes(params), "llama")
+        dirs.append(d)
+        t0 = time.perf_counter()
+        save_hf_checkpoint(d, cfg, params, dtype=dtype, shards=shards)
+        write_s = time.perf_counter() - t0
+        doc = dict(LLAMA3_8B_CONFIG) if cfg == get_config("llama-3-8b") else {
+            **hf_config_dict(cfg), "torch_dtype": dtype}
+        with open(os.path.join(d, "config.json"), "w") as f:
+            json.dump(doc, f, indent=2)
+        tok_info = write_llama3_tokenizer(d, V, seed, n_specials=min(CKPT_SPECIALS, V // 8),
+                                          merges=merges)
+        ckpt_bytes = _dir_bytes(d)
+        out["write"] = {"dir": d, "bytes": ckpt_bytes, "seconds": write_s,
+                        "gb_per_s": ckpt_bytes / write_s / 1e9,
+                        "files": sorted(os.listdir(d)), "tokenizer": tok_info}
+        log(f"[ckpt] (a) {ckpt_bytes} bytes written in {write_s:.2f} s "
+            f"({out['write']['gb_per_s']:.2f} GB/s) as {shards} bf16 shards + index; "
+            f"tokenizer: {tok_info['bpe_vocab']} BPE tokens ({tok_info['merges']} merges learned, "
+            f"the rest made-up whole words; {tok_info['train_s']:.1f} s), {tok_info['specials']} "
+            f"specials from id {tok_info['first_special']}")
+        assert os.path.exists(os.path.join(d, "model.safetensors.index.json"))
+        got_cfg = config_from_hf(d)
+        assert dataclasses.replace(got_cfg, dtype=cfg.dtype) == cfg, (got_cfg, cfg)
+
+        # (b) load through the node
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+        with WatchedLoad(on_card) as load:
+            node = build_model_node(checkpoint=d, ecfg=ecfg, device=device, seed=seed)
+        backend = node[1]
+        assert isinstance(backend.tokenizer, HFTokenizer) and backend.model_name == d
+        bad = _leaves_equal(backend.engine.params, params)
+        assert not bad, f"loaded leaves differ from the written params: {bad[:5]}"
+        out["load"] = {**load, "gb_per_s": ckpt_bytes / load["seconds"] / 1e9,
+                       "leaves_bit_equal": True, "page_cache": "warm (just written)"}
+        out["leaves_bit_equal"] = True
+        if on_card:
+            above = load["peak_bytes"] - load["tree_bytes"]
+            out["load"]["peak_above_tree_bytes"] = above
+            assert above < MOE_BUILD_SLACK, out["load"]
+        log(f"[ckpt] (b) loaded in {load['seconds']:.2f} s ({out['load']['gb_per_s']:.2f} GB/s, "
+            f"page cache warm: the files were just written); every leaf bit-equal; peak "
+            f"{out['load'].get('peak_above_tree_bytes')} bytes above the loaded tree "
+            f"({load['tree_bytes']} bytes; bound {MOE_BUILD_SLACK})")
+
+        # (c) the serve's script, then greedy prompts of its lengths one at a
+        # time (other ids: no prefix of the script's is cached for them)
+        phase_serve(results, {}, seed, model=d, device=device, lengths=lengths, max_new=max_new,
+                    node=node, label="ckpt")
+        serve = results["serve_ckpt"]
+        add_launches(serve)
+        rng = np.random.default_rng(seed + 41)
+        prompts = [rng.integers(1, V, n).tolist() for n in lengths]
+
+        def one_by_one(nd):
+            port = nd[0].start()
+            try:
+                return [_post(port, {"tokens": p, "max_new_tokens": max_new})["result"]["tokens"]
+                        for p in prompts]
+            finally:
+                nd[0].stop()
+
+        mine = one_by_one(node)
+        ref_node = build_model_node(cfg_name(cfg), ecfg=ecfg, device=device, params=params,
+                                    seed=seed)
+        ref = one_by_one(ref_node)
+        del ref_node
+        same = [a == b for a, b in zip(mine, ref)]
+        assert all(same), f"greedy tokens differ from the params= node's on {same.count(False)}"
+        concurrent = results.get("serve", {}).get("greedy_tokens")
+        out["greedy_equal"] = True
+        out["serve"] = {k: serve[k] for k in ("ttft_ms_p50", "decode_tok_per_s",
+                                              "decode_step_device_ms_mean", "peak_mem_gib")}
+        out["serve"]["greedy_equal_to_params_node"] = len(same)
+        if concurrent is not None and len(concurrent) == len(mine):
+            out["serve"]["greedy_equal_to_phase_serve"] = sum(
+                a == b for a, b in zip(serve["greedy_tokens"], concurrent))
+        log(f"[ckpt] (c) the serve's script answered through the checkpoint node "
+            f"(TTFT p50 {serve['ttft_ms_p50']:.1f} ms, decode step "
+            f"{serve['decode_step_device_ms_mean']} device ms); {len(same)} greedy prompts one at "
+            f"a time equal to the params= node's; concurrent answers equal to phase_serve's: "
+            f"{out['serve'].get('greedy_equal_to_phase_serve')} of {len(lengths)}")
+
+        # (d) text through the checkpoint's tokenizer
+        out["text"] = _ckpt_text_checks(node, seed, lengths)
+        del node, backend
+        gc.collect()
+
+        # (e) int8 on load from the same directory
+        if on_card:
+            torch.cuda.empty_cache()
+        with WatchedLoad(on_card) as load:
+            qnode = build_model_node(checkpoint=d, ecfg=dataclasses.replace(ecfg, num_pages=1024),
+                                     device=device, seed=seed, quant="int8")
+        qp = qnode[1].engine.params
+        ok = all(_quant_equal(qp["layers"][k][l], params["layers"][k][l])
+                 for k in QUANT_KEYS for l in (0, L - 1))
+        assert ok, "int8 on load differs from quantize_weight of the loaded bf16 matrices"
+        assert all(isinstance(qp["layers"][k], QuantW) for k in QUANT_KEYS)
+        out["int8"] = {**load, "bit_equal": True, "layers_checked": [0, L - 1],
+                       "gb_per_s": ckpt_bytes / load["seconds"] / 1e9}
+        if on_card:
+            bound = load["tree_bytes"] + MOE_BUILD_SLACK
+            out["int8"]["peak_bound"] = bound
+            out["int8"]["peak_above_tree_bytes"] = load["peak_bytes"] - load["tree_bytes"]
+            assert load["peak_bytes"] < bound, out["int8"]
+        log(f"[ckpt] (e) int8 on load in {load['seconds']:.2f} s "
+            f"({out['int8']['gb_per_s']:.2f} GB/s of bf16 read): int8 tree {load['tree_bytes']} "
+            f"bytes, peak {load.get('peak_bytes')} ({out['int8'].get('peak_above_tree_bytes')} "
+            f"above the tree; bound the tree + {MOE_BUILD_SLACK}); layers 0 and {L - 1} of every "
+            f"projection bit-equal to quantize_weight of the bf16 matrices")
+        phase_serve(results, {}, seed, model=d, device=device, lengths=lengths[:4],
+                    max_new=max_new, weight_quant="int8", node=qnode, label="ckpt_w8")
+        add_launches(results["serve_ckpt_w8"])
+        out["int8"]["serve"] = {k: results["serve_ckpt_w8"][k] for k in (
+            "ttft_ms_p50", "decode_step_device_ms_mean", "w8_launches_per_decode_step")}
+        del qnode, qp
+        gc.collect()
+
+        # (f) a draft checkpoint
+        out["draft"] = _ckpt_draft(results, state, seed, device, root, dirs, draft_preset,
+                                   draft_prompts, max_new)
+        for k, n in out["draft"]["launches"].items():
+            out["launches"][k] = out["launches"].get(k, 0) + n
+        out["phase_s"] = time.perf_counter() - t_phase
+        log(f"[ckpt] phase {out['phase_s']:.1f} s; launches {out['launches']}; "
+            f"{results.get('card')}")
+    finally:
+        for x in dirs:
+            shutil.rmtree(x, ignore_errors=True)
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+
+
+def cfg_name(cfg) -> str:
+    """The preset whose config ``cfg`` is (its dtype aside)."""
+    import dataclasses
+
+    from agentfield_tpu_torch.models.configs import PRESETS
+
+    for name, c in PRESETS.items():
+        if dataclasses.replace(c, dtype=cfg.dtype) == cfg:
+            return name
+    raise KeyError(f"no preset has config {cfg}")
+
+
+def _ckpt_text_checks(node, seed: int, lengths) -> dict:
+    """(d) of ``phase_ckpt`` on the loaded node."""
+    import numpy as np
+
+    from agentfield_tpu_torch.serving.grammar import compile_json_schema
+
+    server, backend = node
+    tok = backend.tokenizer
+    V = backend.engine.cfg.vocab_size
+    bos = tok.decode([tok.token_to_id("<|begin_of_text|>")])
+    out: dict = {}
+    # decode(encode(s)) == s for a text prompt of each serve length
+    rng = np.random.default_rng(seed + 31)
+    texts = [ckpt_text(rng, n) for n in lengths]
+    enc_ms = []
+    for s in texts:
+        t = time.perf_counter()
+        ids = tok.encode(s)
+        enc_ms.append((time.perf_counter() - t) * 1e3)
+        assert ids[0] == tok.token_to_id("<|begin_of_text|>")
+        assert tok.decode(ids) == bos + s, s[:80]
+    out["round_trip"] = True
+    out["encode_ms_longest"] = enc_ms[-1]
+    out["encode_tokens_longest"] = len(tok.encode(texts[-1]))
+    out["prompt_chars"] = list(lengths)
+    # an Agent.ai() payload with messages
+    messages = [{"role": "system", "content": "You answer in one short line."},
+                {"role": "user", "content": texts[1]}]
+    rendered = backend.apply_chat_template(messages)
+    want = (bos + "<|start_header_id|>system<|end_header_id|>\n\n"
+            + messages[0]["content"].strip() + "<|eot_id|><|start_header_id|>user<|end_header_id|>"
+            "\n\n" + messages[1]["content"].strip() + "<|eot_id|>"
+            "<|start_header_id|>assistant<|end_header_id|>\n\n")
+    assert rendered == want, rendered[:200]
+    ids = tok.encode(rendered)
+    assert tok.decode(ids) == bos + rendered  # the template's BOS, then the encoder's
+    port = server.start()
+    try:
+        r = _post(port, sdk_payload(messages=messages, max_new_tokens=16))["result"]
+        assert len(r["tokens"]) > 0 and r["text"] == tok.decode(r["tokens"]), r
+        t = time.perf_counter()
+        token_bytes = tok.token_bytes(V)
+        out["token_bytes_ms"] = (time.perf_counter() - t) * 1e3
+        t = time.perf_counter()
+        compile_json_schema(SERVE_SCHEMA, token_bytes)  # cold: the node's own is cached
+        out["grammar_compile_ms"] = (time.perf_counter() - t) * 1e3
+        g = backend._grammar_for(SERVE_SCHEMA)
+        s = _post(port, {"prompt": "Reply with a JSON object.", "max_new_tokens": 64,
+                         "response_schema": SERVE_SCHEMA})["result"]
+    finally:
+        server.stop()
+    body = b"".join(token_bytes[t] for t in s["tokens"])
+    assert s["finish_reason"] == "stop" and grammar_accepts(g, s["tokens"]), (s, body)
+    value = json.loads(tok.decode(s["tokens"]))
+    assert set(value) == {"ok", "mode"}, value
+    out["schema_valid"] = True
+    out["schema_text"] = s["text"]
+    out["messages_answer_tokens"] = len(r["tokens"])
+    out["messages_prompt_tokens"] = len(ids)
+    log(f"[ckpt] (d) decode(encode(s)) == s for {len(texts)} prompts of {lengths[0]}-"
+        f"{lengths[-1]} chars; the longest ({out['encode_tokens_longest']} tokens) encoded in "
+        f"{out['encode_ms_longest']:.2f} ms; messages payload rendered by the template "
+        f"({len(ids)} tokens, two BOS) and answered ({len(r['tokens'])} tokens); token_bytes at "
+        f"vocab {V} in {out['token_bytes_ms']:.1f} ms, the schema's grammar compiled in "
+        f"{out['grammar_compile_ms']:.1f} ms, answer {s['text']!r}")
+    return out
+
+
+def _ckpt_draft(results, state, seed, device, root, dirs, draft_preset, prompts, max_new) -> dict:
+    """(f) of ``phase_ckpt``."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from agentfield_tpu_torch.models.configs import get_config
+    from agentfield_tpu_torch.models.hf_loader import save_hf_checkpoint
+    from agentfield_tpu_torch.models.llama import init_params
+    from agentfield_tpu_torch.ops.cuda import ragged_paged_attention as rpa
+    from agentfield_tpu_torch.serving.engine import EngineConfig
+    from agentfield_tpu_torch.serving.model_node import GRAMMAR_SLOTS, build_model_node
+
+    params, cfg = state["params"], state["cfg"]
+    dcfg = get_config(draft_preset)
+    dparams = init_params(dcfg, seed=seed + 4, device=device, dtype=params["embed"].dtype)
+    d = _make_ckpt_dir(root, weight_bytes(dparams), "draft")
+    dirs.append(d)
+    save_hf_checkpoint(d, dcfg, dparams, dtype=str(params["embed"].dtype).removeprefix("torch."))
+    base = EngineConfig(max_batch=32, page_size=16, num_pages=SPEC_PAGES, max_pages_per_seq=128,
+                        decode_buckets=(4, 16), grammar_slots=GRAMMAR_SLOTS)
+    server, backend = build_model_node(cfg_name(cfg), ecfg=base, device=device, params=params,
+                                       seed=seed, spec_draft=d, spec_k=3)
+    eng = backend.engine
+    bad = _leaves_equal(eng.draft_params, dparams)
+    assert not bad, f"draft leaves differ from what was written: {bad[:5]}"
+    assert ("lm_head" in eng.draft_params) == (not dcfg.tie_embeddings)
+    rec = watch_spec(eng)
+    rng = np.random.default_rng(seed + 17)
+    reqs = [rng.integers(1, cfg.vocab_size, n).tolist() for n in prompts]
+    answers: dict = {}
+    errors: list = []
+    port = server.start()
+    rpa.reset_launches()  # count the draft node's main path only
+    try:
+        def send(i):
+            try:
+                answers[i] = _post(port, {"tokens": reqs[i], "max_new_tokens": max_new})["result"]
+            except Exception as e:  # noqa: BLE001 — collected and failed below
+                errors.append(repr(e))
+
+        threads = [threading.Thread(target=send, args=(i,)) for i in range(len(reqs))]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+    finally:
+        server.stop()
+    assert not errors, errors
+    launches = rpa.launch_counts()
+    for a in answers.values():
+        assert len(a["tokens"]) == max_new and a["finish_reason"] == "length", a
+    on_card = torch.device(device).type == "cuda"
+    replays = [r for r in rec["runs"] if r["replayed"]]
+    wrong = [r for r in replays if {k: n for k, n in r["launches"].items() if n} != {
+        k: n for k, n in expected_replay_launches(eng, r["mode"]).items() if n}]
+    assert not wrong, f"replays counted other launches than expected: {wrong[:2]}"
+    per_replay = {m: {k: n for k, n in expected_replay_launches(eng, m).items() if n}
+                  for m in sorted({r["mode"] for r in replays})}
+    spec_ref = results.get("spec", {}).get("c_draft_k3", {}).get("launches_per_replay", {})
+    for m, want in spec_ref.items():
+        if m in per_replay:
+            assert per_replay[m] == want, (m, per_replay[m], want)
+    if on_card:
+        assert any(r["mode"].startswith("spec") for r in replays), "no speculative replay"
+    out = {"leaves_bit_equal": True, "requests": len(reqs), "spec_steps": eng.stats["spec_steps"],
+           "replays": len(replays), "launches_per_replay": per_replay,
+           "launches": {k: n for k, n in launches.items() if n}}
+    log(f"[ckpt] (f) {draft_preset} from a checkpoint directory as the k = 3 draft: leaves "
+        f"bit-equal, {len(reqs)} answers complete, {out['spec_steps']} spec steps, "
+        f"{len(replays)} replays each with its expected launches {per_replay}")
+    backend.engine.close()
+    return out
+
+
+def phase_ckpt_moe(results, seed: int, device: str = "cuda", model: str = MOE_MODEL,
+                   layers: int = CKPT_MOE_LAYERS, root: str | None = None,
+                   lengths=CKPT_MOE_LENGTHS, max_new: int = 16, ecfg=None):
+    """(g) of ``phase_ckpt``, run after the 8B weights are freed:
+    ``model`` at full width and ``layers`` of its layers, random bf16
+    weights written with the HF ``block_sparse_moe`` names (the published
+    ``config.json`` at the reduced depth), loaded by
+    ``build_model_node(checkpoint=DIR, quant="int8")``: every ``QuantW``
+    matrix (experts included) bit-equal to ``quantize_weight`` of the bf16
+    matrix it was written from, the load's peak below the int8 tree +
+    ``MOE_BUILD_SLACK``, the serve's script answered under soft and sparse
+    prefill (``w8_launches_per_step`` int8 launches a replayed step)."""
+    import dataclasses
+    import shutil
+
+    import torch
+
+    from agentfield_tpu_torch.models.configs import get_config
+    from agentfield_tpu_torch.models.hf_loader import save_hf_checkpoint
+    from agentfield_tpu_torch.models.llama import init_params
+    from agentfield_tpu_torch.models.quant import QUANT_KEYS
+    from agentfield_tpu_torch.serving.engine import EngineConfig
+    from agentfield_tpu_torch.serving.model_node import GRAMMAR_SLOTS, build_model_node
+
+    on_card = torch.device(device).type == "cuda"
+    cfg = dataclasses.replace(get_config(model), num_layers=layers)
+    if ecfg is None:
+        ecfg = EngineConfig(max_batch=32, page_size=16, num_pages=1024, max_pages_per_seq=128,
+                            decode_buckets=(4, 16), grammar_slots=GRAMMAR_SLOTS)
+    out: dict = {"layers": layers}
+    ckpt = results.setdefault("ckpt", {})
+    ckpt["moe"] = out
+    ckpt.setdefault("launches", {})
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+        assert torch.cuda.memory_allocated() < MOE_HELD_BEFORE, torch.cuda.memory_allocated()
+    d = None
+    t_phase = time.perf_counter()
+    try:
+        params = init_params(cfg, seed=seed, device=device)
+        dtype = str(params["embed"].dtype).removeprefix("torch.")
+        d = _make_ckpt_dir(root, weight_bytes(params), "mixtral")
+        t0 = time.perf_counter()
+        save_hf_checkpoint(d, cfg, params, dtype=dtype, shards=2)
+        out["write_s"] = time.perf_counter() - t0
+        doc = ({**MIXTRAL_CONFIG, "num_hidden_layers": layers} if model == "mixtral-8x7b" else
+               {**json.load(open(os.path.join(d, "config.json"))), "torch_dtype": dtype})
+        with open(os.path.join(d, "config.json"), "w") as f:
+            json.dump(doc, f, indent=2)
+        out["bytes"] = _dir_bytes(d)
+        gc.collect()
+        with WatchedLoad(on_card) as load:
+            node = build_model_node(checkpoint=d, device=device, seed=seed, quant="int8",
+                                    ecfg=dataclasses.replace(ecfg, moe_prefill_impl="dense"))
+        qp = node[1].engine.params
+        E = cfg.num_experts
+        ok = all(_quant_equal(qp["layers"][k][l], params["layers"][k][l])
+                 for k in ("wq", "wk", "wv", "wo") for l in range(layers))
+        ok = ok and all(_quant_equal(qp["layers"][k][l][e], params["layers"][k][l, e])
+                        for k in ("w_gate", "w_up", "w_down") for l in range(layers)
+                        for e in range(E))
+        assert ok, "int8 expert stacks differ from quantize_weight of the written bf16 matrices"
+        assert not _leaves_equal({"router": qp["layers"]["router"]},
+                                 {"router": params["layers"]["router"]})
+        assert set(QUANT_KEYS) <= set(qp["layers"])
+        out["load"] = {**load, "gb_per_s": out["bytes"] / load["seconds"] / 1e9,
+                       "bit_equal": True, "experts_checked": layers * E * 3}
+        out["bit_equal"] = True
+        if on_card:
+            out["load"]["peak_bound"] = load["tree_bytes"] + MOE_BUILD_SLACK
+            out["load"]["peak_above_tree_bytes"] = load["peak_bytes"] - load["tree_bytes"]
+            assert load["peak_bytes"] < out["load"]["peak_bound"], out["load"]
+        del params
+        gc.collect()
+        log(f"[ckpt] (g) {model} at {layers} layers: {out['bytes']} bytes written in "
+            f"{out['write_s']:.2f} s, loaded as int8 in {load['seconds']:.2f} s "
+            f"({out['load']['gb_per_s']:.2f} GB/s); {layers * E * 3} expert matrices and the "
+            f"attention projections bit-equal to quantize_weight; peak {load.get('peak_bytes')} "
+            f"bytes ({out['load'].get('peak_above_tree_bytes')} above the int8 tree of "
+            f"{load['tree_bytes']}; bound the tree + {MOE_BUILD_SLACK})")
+        for mode in ("dense", "sparse"):
+            if mode == "sparse":
+                gc.collect()
+                node = build_model_node(checkpoint=d, device=device, seed=seed, quant="int8",
+                                        ecfg=dataclasses.replace(ecfg, moe_prefill_impl="sparse"))
+            assert node[1].engine.prefill_cfg.moe_impl == mode
+            phase_serve(results, {}, seed, model=d, device=device, lengths=lengths,
+                        max_new=max_new, weight_quant="int8", node=node,
+                        label=f"ckpt_moe_{mode}")
+            r = results[f"serve_ckpt_moe_{mode}"]
+            out[mode] = {k: r[k] for k in ("requests", "ttft_ms_p50", "decode_step_device_ms_mean")}
+            for counts in (r["launches"], r["w8_launches"]):
+                for k, n in counts.items():
+                    ckpt["launches"][k] = ckpt["launches"].get(k, 0) + n
+            del node
+            gc.collect()
+        out["phase_s"] = time.perf_counter() - t_phase
+        log(f"[ckpt] (g) phase {out['phase_s']:.1f} s; {results.get('card')}")
+    finally:
+        if d is not None:
+            shutil.rmtree(d, ignore_errors=True)
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+
+
+def phase_ckpt_rehearsal(results, model: str, root) -> None:
+    """``phase_ckpt`` (or, for a MoE preset, ``phase_ckpt_moe``) on the CPU
+    at a small size: ``model`` (a bf16 preset, as the card serves) served by
+    ``phase_serve`` first (its weights are what the checkpoint holds),
+    llama-tiny's shape as the draft."""
+    import dataclasses
+
+    from agentfield_tpu_torch.serving.engine import EngineConfig
+
+    ecfg = EngineConfig(max_batch=8, page_size=16, num_pages=256, max_pages_per_seq=32,
+                        decode_buckets=(4,), grammar_slots=64)
+    if model.startswith("mixtral"):
+        phase_ckpt_moe(results, 0, device="cpu", model=model, layers=2, root=str(root),
+                       lengths=(8, 20), max_new=4, ecfg=ecfg)
+        return
+    state: dict = {}
+    phase_serve(results, state, 0, model=model, device="cpu", ecfg=ecfg, lengths=(8, 20, 33),
+                max_new=6)
+    state["ecfg"] = dataclasses.replace(ecfg, kv_quant_dtype="fp8")  # as the KV serves leave it
+    phase_ckpt(results, state, 0, device="cpu", root=str(root), lengths=(8, 20, 33, 60),
+               max_new=6, draft_preset="llama-tiny", draft_prompts=(12, 30), shards=2, merges=300)
+
+
 def phase_ab(results, other_root: str, seed: int = 0):
     """A/B against a checkout of another commit unpacked at ``other_root``:
     the attention source (``phase_ab_attention``, skipped where the two
@@ -4356,7 +5176,8 @@ def kernels_line(results) -> dict:
     call, ``call_ms`` the eager call), ``max_abs_err`` the worst over
     every bf16 shape it was held at (for a quantized variant, against the
     plain version with the kernel's semantics, check (b)), ``launches`` from
-    the serve phase of its pool kind and the spec, tier, fork and api phases."""
+    the serve phase of its pool kind and the spec, tier, fork, api, moe and
+    ckpt phases."""
     shapes = results["shapes"]
     picks = [
         ("ragged_paged_attention", "llama3_decode_ctx2k/bfloat16", f"{TPU_KERNEL}:61", "serve"),
@@ -4374,7 +5195,8 @@ def kernels_line(results) -> dict:
             # and moe phases
             "launches": results[serve]["launches"][name] + sum(
                 results[p]["launches"][name] for p in ("spec", "tier", "fork", "api"))
-            + results["moe"]["launches"].get(name, 0),
+            + results["moe"]["launches"].get(name, 0)
+            + results.get("ckpt", {}).get("launches", {}).get(name, 0),
             "max_abs_err": max(r["max_abs_err"] for r in held),
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
@@ -4413,7 +5235,7 @@ def w8_kernel_entry(results) -> dict:
     """The int8-weight matmul's entry: times and bound at the decode step's
     w_gate/w_up product at 16 rows (bf16), ``max_abs_err`` the worst over
     every bf16 shape (the moe phase's expert slices among them),
-    ``launches`` from the quant and moe phases' main paths (the int8
+    ``launches`` from the quant, moe and ckpt phases' main paths (the int8
     serves, the mixed bursts, the spec passes), and every shape's numbers
     under ``shapes``."""
     shapes = results["shapes"]
@@ -4424,7 +5246,8 @@ def w8_kernel_entry(results) -> dict:
     return {
         "name": "int8_weight_matmul", "route": "cuda", "source": W8_SRC, "replaces": W8_REPLACES,
         "launches": results["quant"]["launches"]["int8_weight_matmul"]
-        + results["moe"]["launches"]["int8_weight_matmul"],
+        + results["moe"]["launches"]["int8_weight_matmul"]
+        + results.get("ckpt", {}).get("launches", {}).get("int8_weight_matmul", 0),
         "max_abs_err": max(r["max_abs_err"] for r in held.values() if r["dtype"] == "bfloat16"),
         "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
         "bound_by": row["bound_by"], "library_ms": row["library_ms"],
@@ -4449,6 +5272,9 @@ def main() -> int:
                          "this one's in turns (phase_ab: the attention source at the mixed W=1 "
                          "shapes where it differs, the int8-weight matmul at every bf16 shape "
                          "and in the replayed decode step)")
+    ap.add_argument("--ckpt-dir", default=None, metavar="DIR",
+                    help="where the ckpt phase makes its temporary checkpoint directories "
+                         "(default: the system's temporary directory; about 22.5 GB)")
     args = ap.parse_args()
 
     import torch
@@ -4497,9 +5323,11 @@ def main() -> int:
         phase_tier(results, state, args.seed)
         phase_fork(results, state, args.seed)
         phase_api(results, state, args.seed)
+        phase_ckpt(results, state, args.seed, root=args.ckpt_dir)
         state.clear()  # the 8B weights go before the reduced-depth models
         for preset in REDUCED_DEPTH_PRESETS:
             phase_reduced_depth(results, preset, args.seed)
+        phase_ckpt_moe(results, args.seed, root=args.ckpt_dir)
         phase_moe(results, args.seed)
     finally:
         results["wall_s"] = time.perf_counter() - t0

@@ -1,7 +1,10 @@
 """The PyTorch port stands alone: no module of ``agentfield_tpu_torch`` and
 not ``chip_smoke.py`` imports JAX, the JAX package (its ``sdk``,
-``control_plane`` and ``tracing`` included), the repo's tools, or aiohttp and
-pydantic, which the card's machine lacks.
+``control_plane`` and ``tracing`` included), the repo's tools, or aiohttp,
+pydantic, safetensors, transformers, tokenizers and regex, which the card's
+machine lacks (the checkpoint loader and the tokenizer read their formats
+themselves). jinja2 stays allowed: it comes with torch, and the tokenizer
+imports it only when it renders a chat template.
 
 The check is on the AST, by the exact top-level module name: a prefix test
 on ``"agentfield_tpu"`` would also match ``agentfield_tpu_torch``."""
@@ -16,7 +19,8 @@ import sys
 import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-FORBIDDEN = {"jax", "jaxlib", "agentfield_tpu", "tools", "aiohttp", "pydantic"}
+FORBIDDEN = {"jax", "jaxlib", "agentfield_tpu", "tools", "aiohttp", "pydantic", "safetensors",
+             "transformers", "tokenizers", "regex"}
 
 
 def _port_files() -> list[pathlib.Path]:
@@ -85,6 +89,21 @@ def test_guard_names_the_jax_sdk_control_plane_tracing_and_their_libraries(tmp_p
     tops = [t for _, t in _imported_tops(src)]
     assert [t for t in tops if t in FORBIDDEN] == [
         "agentfield_tpu", "agentfield_tpu", "agentfield_tpu", "aiohttp", "pydantic"]
+
+
+def test_guard_names_the_hf_libraries(tmp_path):
+    src = tmp_path / "m.py"
+    src.write_text(
+        "from safetensors import safe_open\n"
+        "from transformers import AutoTokenizer\n"
+        "import tokenizers.pre_tokenizers\n"
+        "import regex as re\n"
+        "import jinja2\n"
+        "from agentfield_tpu_torch.serving.tokenizer import HFTokenizer\n"
+    )
+    tops = [t for _, t in _imported_tops(src)]
+    assert [t for t in tops if t in FORBIDDEN] == [
+        "safetensors", "transformers", "tokenizers", "regex"]
 
 
 def test_port_modules_load_nothing_forbidden():
