@@ -93,9 +93,18 @@ sized from the token count the JAX engine's prefill has for the same
 prompts (its bucket, times ``prefill_batch`` rows for a batch), so the same
 entries overflow in both engines.
 
+Observability is the JAX engine's: a ``Request.trace`` context gets the
+lifecycle spans of ``agentfield_tpu_torch.tracing`` (``engine.queue_wait``,
+``engine.prefill``, ``engine.decode``, ``engine.park`` across a preemption,
+``engine.fork``, ``engine.kv_restore``) at the JAX engine's points:
+``engine.prefill`` closes at the install, where the host reads the request's
+first sampled token, and ``engine.decode`` at the event that finishes it
+(under the pipelined decode, the harvest one step after that token's
+dispatch). Every tick with work appends one row to ``flight``, the flight
+recorder; a tick that raises appends an ``error`` row first.
+
 Not ported yet (each a later slice): speculative prefill (the keep-warm
-pins), the cluster tier and handoff, the JAX engine's latency
-histograms and flight recorder.
+pins), the cluster tier and handoff.
 """
 
 from __future__ import annotations
@@ -134,6 +143,7 @@ from agentfield_tpu_torch.serving.kv_cache import (
 )
 from agentfield_tpu_torch.serving.sampler import SamplingParams, sample_tokens, sampler_variant
 from agentfield_tpu_torch.serving.spec_decode import PagedModel, rows_forward, spec_step
+from agentfield_tpu_torch import tracing
 from agentfield_tpu_torch.tracing import HistogramSet
 
 _MASKED = -1e30  # logit value for grammar-disallowed tokens
@@ -241,6 +251,10 @@ class Request:
     # its prompt is prefilled (ids ``branching.branch_rid(id, j)``; branch 0
     # keeps this id). Exclusive with grammar; siblings drop session_id
     n_branches: int = 1
+    # request-scoped tracing: the gateway's TraceContext ({"trace_id", ...},
+    # ``tracing.valid_context``); the engine records its lifecycle spans
+    # against the id. None = untraced
+    trace: dict | None = None
 
 
 @dataclasses.dataclass
@@ -566,6 +580,13 @@ class InferenceEngine:
         # the JAX engine's always-on latency histograms, shipped on every
         # heartbeat under ``latency_hist`` (``latency_histograms``)
         self.latency = HistogramSet(("ttft_ms", "itl_ms", "queue_wait_ms", "tick_ms"))
+        # one row a tick with work (``step``), and the lifecycle spans of
+        # traced requests: request id -> its open span anchors (_tr_*)
+        self.flight = tracing.FlightRecorder()
+        self._tracer = tracing.tracer()
+        self._traces: dict[str, dict] = {}
+        self._tick_mode = "decode"  # scheduler-thread state of the tick in progress
+        self._tick_carried = 0
         self._shared_prefix = bool(
             self.ecfg.enable_prefix_cache and self.ecfg.shared_prefix_cache
         )
@@ -746,7 +767,10 @@ class InferenceEngine:
                 if len(self.pending) >= self.ecfg.max_pending:
                     self.stats["backpressure_total"] += 1
                     raise QueueFullError(f"pending queue at capacity {self.ecfg.max_pending}")
+                # stamped before the enqueue: the drive thread may admit the
+                # request the moment it lands in the queue
                 self._submit_t[req.id] = time.monotonic()
+                self._tr_submit(req)
                 self._enqueue_locked(req)
                 if req.deadline_s is not None:
                     self._deadline_at[req.id] = time.monotonic() + req.deadline_s
@@ -773,6 +797,103 @@ class InferenceEngine:
     def _pages_needed(self, req: Request) -> int:
         total = len(req.prompt) + req.sampling.max_new_tokens
         return -(-total // self.ecfg.page_size)
+
+    # ------------------------------------------------------------------
+    # request-scoped tracing: the JAX engine's lifecycle marks, each a dict
+    # miss and a return for an untraced request
+    # ------------------------------------------------------------------
+
+    def _tr_submit(self, req: Request) -> None:
+        ctx = tracing.valid_context(req.trace)
+        if ctx is None:
+            return
+        self._traces[req.id] = {"tid": ctx["trace_id"], "enq_w": time.time(),
+                                "enq_m": time.perf_counter()}
+
+    def _tr_dequeue(self, req: Request, start: int = 0) -> None:
+        """The request leaves the queue: close its queue-wait span (or, a
+        preempted request re-admitting, its park span) and anchor the
+        prefill span; ``start`` is the cached prefix the prefill skips."""
+        e = self._traces.get(req.id)
+        if e is None:
+            return
+        now_m = time.perf_counter()
+        parked = e.pop("parked", None)
+        if parked is not None:
+            self._tracer.record_span("engine.park", e["tid"], parked[0],
+                                     (now_m - parked[1]) * 1e3,
+                                     {"resumed_tokens": req.resumed_from})
+        else:
+            self._tracer.record_span("engine.queue_wait", e["tid"], e["enq_w"],
+                                     (now_m - e["enq_m"]) * 1e3)
+        e["pf_w"], e["pf_m"] = time.time(), now_m
+        e["start"] = start
+
+    def _tr_first_token(self, req: Request) -> None:
+        """The first sampled token reached the host: close the prefill span,
+        anchor the decode span."""
+        e = self._traces.get(req.id)
+        if e is None:
+            return
+        now_m = time.perf_counter()
+        pf_m, pf_w = e.pop("pf_m", None), e.pop("pf_w", None)
+        if pf_m is not None:
+            self._tracer.record_span("engine.prefill", e["tid"], pf_w, (now_m - pf_m) * 1e3,
+                                     {"tokens": len(req.prompt), "cached": e.pop("start", 0)})
+        e["dec_w"], e["dec_m"] = time.time(), now_m
+
+    def _tr_close(self, rid: str, reason: str, generated: int | None = None) -> None:
+        """A terminal (finish, cancel, deadline): close the decode span and
+        drop the entry; a request that never decoded (shed from the queue)
+        closes its queue-wait span instead."""
+        e = self._traces.pop(rid, None)
+        if e is None:
+            return
+        now_m = time.perf_counter()
+        if e.get("dec_m") is not None:
+            attrs: dict[str, Any] = {"finish": reason}
+            if generated is not None:
+                attrs["tokens"] = generated
+            self._tracer.record_span("engine.decode", e["tid"], e["dec_w"],
+                                     (now_m - e["dec_m"]) * 1e3, attrs)
+        elif e.get("pf_m") is None:
+            parked = e.get("parked")
+            t0w, t0m = (parked[0], parked[1]) if parked else (e["enq_w"], e["enq_m"])
+            self._tracer.record_span("engine.queue_wait", e["tid"], t0w, (now_m - t0m) * 1e3,
+                                     {"finish": reason})
+
+    def _tr_preempt(self, slot: _Slot) -> None:
+        """A preemption: close the decode segment (``preempted``) and start
+        the park clock, which the resume's dequeue closes."""
+        e = self._traces.get(slot.req.id)
+        if e is None:
+            return
+        now_m = time.perf_counter()
+        if e.get("dec_m") is not None:
+            self._tracer.record_span("engine.decode", e["tid"], e["dec_w"],
+                                     (now_m - e["dec_m"]) * 1e3,
+                                     {"finish": "preempted", "tokens": slot.generated})
+        for k in ("dec_m", "dec_w", "pf_m", "pf_w"):
+            e.pop(k, None)
+        e["parked"] = (time.time(), now_m)
+
+    def _tr_fork(self, parent_id: str, child_id: str, degraded: bool = False) -> None:
+        """A branch fork: the child inherits the parent's trace, so a whole
+        group (winner and pruned branches) lands in one waterfall. A
+        degraded fork (re-queued) starts in the queue, a live one decodes
+        now."""
+        e = self._traces.get(parent_id)
+        if e is None:
+            return
+        now_w, now_m = time.time(), time.perf_counter()
+        attrs: dict[str, Any] = {"branch": child_id}
+        if degraded:
+            attrs["degraded"] = 1
+        self._tracer.record_span("engine.fork", e["tid"], now_w, 0.0, attrs)
+        child = {"tid": e["tid"], "enq_w": now_w, "enq_m": now_m}
+        if not degraded:
+            child["dec_w"], child["dec_m"] = now_w, now_m
+        self._traces[child_id] = child
 
     def gc_sessions(self, at: float | None = None) -> int:
         """Release pages of sessions idle longer than session_ttl."""
@@ -992,6 +1113,7 @@ class InferenceEngine:
                 self.pending.remove(req)
             self._req_hashes.pop(req.id, None)
             self._observe_queue_wait(req)
+            self._tr_dequeue(req)
             claimed.add(free_slot)
             batch.append((req, free_slot, pages))
         if head_starved and batch:
@@ -1028,6 +1150,21 @@ class InferenceEngine:
         ]
 
     def _acquire_pages(self, req: Request) -> tuple[list[int], int, str] | None:
+        """``_acquire_pages_impl``, with an ``engine.kv_restore`` span for a
+        traced request whose acquisition restored pages from the host tier."""
+        e = self._traces.get(req.id)
+        if e is None:
+            return self._acquire_pages_impl(req)
+        r0 = self.stats.get("kv_offload_restored", 0)
+        t0_w, t0_m = time.time(), time.perf_counter()
+        acq = self._acquire_pages_impl(req)
+        restored = self.stats.get("kv_offload_restored", 0) - r0
+        if restored and acq is not None:
+            self._tracer.record_span("engine.kv_restore", e["tid"], t0_w,
+                                     (time.perf_counter() - t0_m) * 1e3, {"pages": restored})
+        return acq
+
+    def _acquire_pages_impl(self, req: Request) -> tuple[list[int], int, str] | None:
         """Page acquisition for one request: session prefix hit (with
         copy-on-write privatization of shared pages in the write range),
         shared-prefix index lookup, or fresh allocation. Returns ``(pages,
@@ -1111,6 +1248,7 @@ class InferenceEngine:
             self.pending.remove(req)
         self._req_hashes.pop(req.id, None)
         self._observe_queue_wait(req)
+        self._tr_dequeue(req, start)
         if kind == "session":
             self.stats["prefix_cache_hits"] += 1
             self.stats["prefix_tokens_reused"] += start
@@ -1207,6 +1345,7 @@ class InferenceEngine:
                     if parent_exp is not None:
                         self._deadline_at[sub.id] = parent_exp
                 self.stats["branch_forks_degraded_total"] += 1
+                self._tr_fork(req.id, sub.id, degraded=True)
                 continue
             if len(req.prompt) % ps:
                 self._copy_page(parent_pages[full], fresh[0])
@@ -1215,6 +1354,7 @@ class InferenceEngine:
                 with self._pending_lock:
                     self._deadline_at[sub.id] = parent_exp
             row_j = build_page_table(pages_j, self.ecfg.max_pages_per_seq)
+            self._tr_fork(req.id, sub.id)
             events.append(self._install(sub, slot_idx, pages_j, row_j, toks[0], lps[0]))
             self.stats["branch_forks_total"] += 1
         return events
@@ -1468,6 +1608,7 @@ class InferenceEngine:
             # TTFT as the engine sees it: submit to first sampled token
             self.ttft_ms.append((time.monotonic() - st) * 1e3)
             self.latency.observe("ttft_ms", self.ttft_ms[-1])
+        self._tr_first_token(req)
         slot = _Slot(
             req=req, pages=pages, length=len(req.prompt), generated=1, last_token=tok,
             tokens=list(req.prompt) + [tok],
@@ -1792,6 +1933,7 @@ class InferenceEngine:
             self._dirty = True  # the full-width state did not advance
         toks, lps, counts, done = st.outputs_to_host(spec=spec)
         if spec:
+            self._tick_mode = "spec"
             self.stats["decode_steps"] += 1
             self.stats["spec_steps"] += 1
         else:
@@ -1877,6 +2019,7 @@ class InferenceEngine:
             finished=reason is not None, finish_reason=reason, logprob=logprob,
         )
         if ev.finished:
+            self._tr_close(slot.req.id, reason, generated=slot.generated)
             self._release(slot_idx, slot)
         return ev
 
@@ -2003,6 +2146,7 @@ class InferenceEngine:
         self._dirty = True
         self._compact_key = None  # membership changed
         self.stats["branch_forks_total"] += 1
+        self._tr_fork(src_id, new_id)
         return True
 
     def live_request_ids(self) -> list[str]:
@@ -2092,6 +2236,8 @@ class InferenceEngine:
                 self.stats["requests_cancelled"] += 1
         for rid in matched:
             self._submit_t.pop(rid, None)
+            self._tr_close(
+                rid, "deadline_exceeded" if expected and rid in expected else "cancelled")
         unknown = cancels - matched - (expected or set())
         if unknown:  # the client thinks a request is in flight that is not
             self.stats["cancels_unknown"] += len(unknown)
@@ -2227,6 +2373,7 @@ class InferenceEngine:
         self.slots[slot_idx] = None
         self._clear_slot(slot_idx)
         self.stats["preemptions_total"] += 1
+        self._tr_preempt(slot)
 
     # ------------------------------------------------------------------
     # mixed token-budget ticks
@@ -2380,6 +2527,8 @@ class InferenceEngine:
         if n_active:
             self.stats["decode_steps"] += 1
         carried = n_active + sum(n for _, n in chunks)
+        self._tick_mode = "mixed"
+        self._tick_carried = carried
         self.stats["mixed_ticks"] += 1
         self.stats["mixed_tokens"] += carried
         with self._telemetry_lock:
@@ -2420,12 +2569,49 @@ class InferenceEngine:
         return llama.unembed(self.params, cfg, x[on_dev(np.asarray(flat, np.int64))])[:, 0]
 
     def step(self) -> list[TokenEvent]:
-        """One scheduler tick (``_step_inner``), timed into the ``tick_ms``
-        histogram when it had work, as the JAX engine's ``step`` times it."""
+        """One scheduler tick (``_step_inner``). A tick with work is timed
+        into the ``tick_ms`` histogram and appends one flight-recorder row
+        (the JAX engine's keys: its mode "decode" | "prefill" | "mixed" |
+        "spec", batch, token load, free and host pages, the overload
+        counters; ``budget_util`` on a mixed tick); a tick that raises
+        appends an ``error`` row first."""
         t0 = time.perf_counter()
-        events = self._step_inner()
-        if events or self.num_active or self._prefill_jobs or self.pending:
-            self.latency.observe("tick_ms", (time.perf_counter() - t0) * 1e3)
+        self._tick_mode = "decode"
+        self._tick_carried = 0
+        try:
+            events = self._step_inner()
+        except Exception as e:
+            self.flight.record({
+                "t": round(time.time(), 3), "mode": "error", "error": repr(e)[:300],
+                "dur_ms": round((time.perf_counter() - t0) * 1e3, 3),
+                "active": self.num_active, "pending": len(self.pending),
+                "jobs": len(self._prefill_jobs), "free_pages": self.allocator.free_pages,
+            })
+            raise
+        dur_ms = (time.perf_counter() - t0) * 1e3
+        active = self.num_active
+        if events or active or self._prefill_jobs or self.pending:
+            self.latency.observe("tick_ms", dur_ms)
+            row = {
+                "t": round(time.time(), 3),
+                "mode": self._tick_mode,
+                "dur_ms": round(dur_ms, 3),
+                "active": active,
+                "pending": len(self.pending),
+                "jobs": len(self._prefill_jobs),
+                "events": len(events),
+                "finished": sum(1 for ev in events if ev.finished),
+                "tokens": self._tick_carried or len(events),
+                "free_pages": self.allocator.free_pages,
+                "host_pages": self.allocator.host_pages,
+                "preemptions_total": self.stats["preemptions_total"],
+                "shed_pending_deadline_total": self.stats["shed_pending_deadline_total"],
+                "deadline_exceeded": self.stats["deadline_exceeded"],
+            }
+            if self._tick_mode == "mixed":
+                row["budget_util"] = round(
+                    self._tick_carried / max(1, self.ecfg.mixed_step_budget), 3)
+            self.flight.record(row)
         return events
 
     def latency_histograms(self) -> dict:
@@ -2484,6 +2670,7 @@ class InferenceEngine:
             events += self._harvest_inflight()
             admitted = self._try_admit()
             if admitted:
+                self._tick_mode = "prefill"
                 return events + admitted
         if self.num_active == 0:
             return events + self._harvest_inflight()

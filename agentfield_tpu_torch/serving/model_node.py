@@ -33,30 +33,45 @@ that gives up cancels every branch.
 ``Agent.ai()`` sends is served as the JAX node serves it: ``messages``
 (``apply_chat_template``), ``context_overflow`` ("truncate_left" reports
 ``truncated_prompt_tokens``), ``output="text"`` and null media; the routing
-hints (``kv_peer``, ``handoff_export``, ``handoff``, ``trace``,
-``expect_followup``, ``followup_candidates``) take the JAX node's degraded
-path. Media inputs and non-text outputs are refused with the module they
-need. ``embed`` pools the final-norm hidden states of one forward through
+hints (``kv_peer``, ``handoff_export``, ``handoff``, ``expect_followup``,
+``followup_candidates``) take the JAX node's degraded path. A ``trace``
+context (``agentfield_tpu_torch.tracing``) rides into the engine: the
+request's lifecycle spans and the node's ``node.generate`` come back under
+the result's ``trace`` key (or on the channel's terminal frame). Media
+inputs and non-text outputs are refused with the module they need.
+``embed`` pools the final-norm hidden states of one forward through
 ``dense_causal_attention``, run on the engine's drive thread between ticks.
 
 ``ModelNodeServer`` serves the JAX SDK agent's HTTP contract
 (``sdk/agent.py``): ``POST /reasoners/{generate,embed}`` with ``{"input":
 {...}}`` answers ``{"result": {...}}``, or, with an ``X-Execution-ID``
 header from the gateway, 202 now and the outcome posted to the control
-plane; ``POST /generate/stream`` (SSE); ``GET /health``, ``/reasoners``,
-``/stats``. With a control plane it registers (kind "model"), heartbeats
-the engine's stats and deregisters at stop (``sdk/client.py``, stdlib).
-Answered inline, a request the node cannot serve as sent (unported media
-or output, an invalid schema) answers 400, an input that does not fit the
-parameters or a bad argument 422, a full queue or grammar bank 503. It is
-built on ``http.server.ThreadingHTTPServer`` because the card's machine has
-no aiohttp. The channel and gRPC transports are not ported yet.
+plane; ``POST /generate/stream`` (SSE); ``GET /channel``, the gateway's
+persistent WebSocket (``serving.channel``: token frames with a
+per-execution seq, reattach, cancel; the node advertises it as
+``metadata["channel"]``); ``GET /health``, ``/reasoners``, ``/stats``,
+``/debug/flight`` (the engine's flight recorder); ``POST /profile/start``
+and ``/profile/stop`` (a ``torch.profiler`` capture of whole engine ticks,
+written as a Chrome trace). With a control plane it registers (kind
+"model"), heartbeats the engine's and the channel's stats and deregisters
+at stop (``sdk/client.py``, stdlib). ``ModelNodeServer.stop(grace_s)`` is
+the JAX ``drain_and_stop``: admission closes (503), in-flight work finishes
+or ends ``deadline_exceeded`` at the grace, so every stream and channel
+execution gets its terminal frame, then the node deregisters and shuts
+down. Answered inline, a request the node cannot serve as sent (unported
+media or output, an invalid schema) answers 400, an input that does not
+fit the parameters or a bad argument 422, a full queue, a grammar bank or a
+draining node 503. It is built on ``http.server.ThreadingHTTPServer``
+because the card's machine has no aiohttp. The gRPC transport is not
+ported yet.
 
 Run a node::
 
     python -m agentfield_tpu_torch.serving.model_node --model llama-3-8b --port 8080 --seed 0
 
 ``--control-plane URL --node-id ID`` makes it a node of that control plane.
+SIGTERM or Ctrl-C drains (``AGENTFIELD_DRAIN_GRACE`` seconds, default 30;
+a second signal during the drain is ignored), deregisters and exits 0.
 ``--checkpoint DIR`` serves a Hugging Face checkpoint directory
 (``models.hf_loader``: config and weights from the directory, bf16) with its
 own tokenizer and chat template (``serving.tokenizer.HFTokenizer``, when the
@@ -82,17 +97,21 @@ import functools
 import inspect
 import json
 import logging
+import os
 import queue
 import signal
+import tempfile
 import threading
 import time
 import types
 import typing
+import urllib.parse
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
-from typing import Any
+from typing import Any, Callable
 
 import torch
 
+from agentfield_tpu_torch import tracing
 from agentfield_tpu_torch.branching import BranchGroup, validate_branch_spec
 from agentfield_tpu_torch.models import llama
 from agentfield_tpu_torch.models.configs import LlamaConfig, get_config
@@ -100,6 +119,12 @@ from agentfield_tpu_torch.models.llama import init_params
 from agentfield_tpu_torch.models.quant import quantize_params
 from agentfield_tpu_torch.ops.kv_quant import KV_QUANT_DTYPES
 from agentfield_tpu_torch.sdk.client import ControlPlaneClient, ControlPlaneError
+from agentfield_tpu_torch.serving.channel import (
+    CHANNEL_PATH,
+    ChannelExec,
+    ChannelServer,
+    ExecutionCancelled,
+)
 from agentfield_tpu_torch.serving.engine import (
     EngineConfig,
     GrammarCapacityError,
@@ -112,6 +137,13 @@ from agentfield_tpu_torch.serving.engine import (
 from agentfield_tpu_torch.serving.grammar import Grammar, SchemaError, compile_json_schema
 from agentfield_tpu_torch.serving.sampler import SamplingParams
 from agentfield_tpu_torch.serving.tokenizer import ByteTokenizer, HFTokenizer
+from agentfield_tpu_torch.serving.websocket import (
+    SEND_TIMEOUT_S,
+    HandshakeError,
+    WebSocket,
+    handshake_headers,
+    set_send_timeout,
+)
 
 log = logging.getLogger(__name__)
 
@@ -125,6 +157,7 @@ _UNPORTED_OUTPUT = {"audio": "TTS head (models/audio.py)",
 SPEC_MAX_CANDIDATES = 4  # the JAX EngineConfig.spec_max_candidates default
 SSE_PING_S = 10.0  # a token stream idle this long gets a ": ping" comment frame
 EMBED_CHUNK_TOKENS = 2048  # padded tokens of one embed forward between two ticks
+DRAIN_GRACE_S = 30.0  # stop()'s default grace, and main's without AGENTFIELD_DRAIN_GRACE
 
 
 class BadRequestError(ValueError):
@@ -134,6 +167,10 @@ class BadRequestError(ValueError):
 class NodeDrainingError(QueueFullError):
     """The node is draining: admission is closed. A QueueFullError, so the
     HTTP front answers it as retryable backpressure (503)."""
+
+
+class ProfileActiveError(RuntimeError):
+    """A profiler capture is already active (``/profile/start``: 409)."""
 
 
 def _check_branch_compat(response_schema, images, audios) -> None:
@@ -210,15 +247,14 @@ class ModelBackend:
         self._grammars: collections.OrderedDict[str, Grammar] = collections.OrderedDict()
         self._grammars_max = 8
         self._grammar_lock = threading.Lock()
-        # rid -> (future, [(token, logprob)]); touched under _lock only
-        self._waiting: dict[str, tuple[concurrent.futures.Future, list]] = {}
-        self._streams: dict[str, queue.Queue] = {}  # rid -> its event queue
+        # rid -> its event queue (``generate`` reads one too); under _lock
+        self._streams: dict[str, queue.Queue] = {}
         # branch decoding: every branch rid -> its group; a group's parent
-        # rid -> its one caller-visible sink ("future", fut) | ("stream", q);
-        # the resolved summary of a streamed group. Under _lock; the groups
+        # rid -> its caller's event queue; the resolved summary of a group.
+        # Under _lock; the groups
         # themselves are driven on the engine thread only
         self._groups: dict[str, BranchGroup] = {}
-        self._group_sinks: dict[str, tuple[str, Any]] = {}
+        self._group_sinks: dict[str, queue.Queue] = {}
         self._group_meta: dict[str, dict] = {}
         self._lock = threading.Lock()
         self._wake = threading.Event()
@@ -231,20 +267,44 @@ class ModelBackend:
         # drive thread between ticks; under _lock
         self._jobs: list[tuple[Any, concurrent.futures.Future]] = []
         self.embed_ms: collections.deque[float] = collections.deque(maxlen=1024)  # CUDA events
+        self._profile: dict[str, Any] = {"prof": None, "dir": None}  # under _profile_lock
+        self._profile_lock = threading.Lock()
 
     def start(self) -> None:
+        """Start the drive loop; a backend started again after ``stop``
+        admits again (its drain ended with the stop)."""
         if self._thread is None:
+            self._draining = False
             self._stop.clear()
             self._thread = threading.Thread(target=self._drive_loop, name="engine", daemon=True)
             self._thread.start()
 
     def stop(self) -> None:
+        """Stop the drive loop, then leave no caller waiting (the JAX
+        backend's ``stop``): every open request's queue gets a terminal
+        error event (a waiting ``generate`` raises it), queued jobs fail;
+        then the engine's offload worker closes. ``drain`` first to let
+        work finish. Idempotent."""
         self._stop.set()
         self._wake.set()
         if self._thread is not None:
             self._thread.join(timeout=30.0)
             self._thread = None
-        self._fail_jobs(RuntimeError("model node stopped"))
+        stopped = RuntimeError("model node stopped")
+        with self._lock:
+            streams, self._streams = self._streams, {}
+            groups = list({id(g): g for g in self._groups.values()}.values())
+        for rid, q in streams.items():
+            q.put(TokenEvent(request_id=rid, token=-1, index=-1, finished=True,
+                             finish_reason=f"error: {stopped}"))
+        for g in groups:
+            self._fail_group(g, stopped)
+        self._fail_jobs(stopped)
+        with self._profile_lock:
+            prof, self._profile["prof"] = self._profile["prof"], None
+        if prof is not None:
+            prof.stop()
+        self.engine.close()
 
     def _drive_loop(self) -> None:
         """Continuous-batching driver: engine.step() until stopped. A step
@@ -269,14 +329,13 @@ class ModelBackend:
             try:
                 events = self.engine.step()
             except Exception as e:  # noqa: BLE001 — surfaced to every waiter
-                with self._lock:  # generate() checks error under this lock
+                with self._lock:  # _submit checks error under this lock
                     self.error = e
-                    waiting, self._waiting = self._waiting, {}
                     streams, self._streams = self._streams, {}
                     groups = {id(g): g for g in self._groups.values()}.values()
-                log.exception("engine step failed; failing %d waiting requests", len(waiting))
-                for fut, _ in waiting.values():
-                    fut.set_exception(RuntimeError(f"engine step failed: {e!r}"))
+                # the flight recorder is the crash dump: the ticks before the failure
+                log.exception("engine step failed; failing %d waiting requests; flight recorder: %s",
+                              len(streams), json.dumps(self.engine.flight.snapshot(last=64)))
                 for rid, q in streams.items():
                     q.put(_error_event(rid, e))
                 for g in list(groups):
@@ -295,26 +354,6 @@ class ModelBackend:
                     continue
                 if stream is not None:
                     stream.put(ev)
-                    continue
-                with self._lock:
-                    entry = self._waiting.get(ev.request_id)
-                    if entry is None:
-                        continue
-                    fut, records = entry
-                    if ev.token >= 0 and not (ev.finished and ev.finish_reason == "stop"):
-                        # stop tokens terminate, they are not content; a
-                        # deadline terminal carries no token
-                        records.append((ev.token, ev.logprob))
-                    if ev.finished:
-                        del self._waiting[ev.request_id]
-                if ev.finished:
-                    fut.set_result(
-                        {
-                            "tokens": [t for t, _ in records],
-                            "logprobs": [lp for _, lp in records],
-                            "finish_reason": ev.finish_reason,
-                        }
-                    )
 
     def _grammar_for(self, schema: dict[str, Any]) -> Grammar:
         """Compile (once) the token-level grammar of a JSON schema; the cache
@@ -362,6 +401,7 @@ class ModelBackend:
         expect_followup: bool = False,
         followup_candidates: list | None = None,
         timeout: float | None = None,
+        on_cancel: Callable[[Callable[[], None]], None] | None = None,
     ) -> dict[str, Any]:
         """Generate from a text ``prompt``, from ``tokens`` or from chat
         ``messages`` (``apply_chat_template``); blocks until the request
@@ -376,16 +416,21 @@ class ModelBackend:
         ``branch_policy`` and answers the winner with a ``branches`` summary.
         ``output`` must be "text" and ``images``/``audios`` empty: the
         towers and heads they need are not ported (BadRequestError). The
-        routing hints ``kv_peer``, ``handoff_export``, ``handoff`` and
-        ``trace`` are accepted and take the JAX node's degraded path (a
-        local prefill, no handoff descriptor, no ``trace`` key);
-        ``followup_candidates`` are validated as the JAX node does, and
-        keep-warm is not ported. Raises QueueFullError (NodeDrainingError
-        while draining) / RequestTooLongError / GrammarCapacityError from
+        routing hints ``kv_peer``, ``handoff_export`` and ``handoff`` are
+        accepted and take the JAX node's degraded path (a local prefill, no
+        handoff descriptor); ``followup_candidates`` are validated as the
+        JAX node does, and keep-warm is not ported. With a ``trace`` context
+        the engine records the request's spans, the node its
+        ``node.generate`` span, and the result carries them all under
+        ``trace`` (``{"trace_id", "spans"}``). Raises QueueFullError
+        (NodeDrainingError while draining) / RequestTooLongError / GrammarCapacityError from
         admission, BadRequestError (or the grammar's SchemaError) for a
         request the node cannot serve, ValueError for a bad argument,
         RuntimeError if the engine failed, and TimeoutError after cancelling
-        the request (every branch of it) when ``timeout`` runs out."""
+        the request (every branch of it) when ``timeout`` runs out.
+        ``on_cancel(fn)``, given, registers the hook that cancels the
+        request (a gateway's cancel of a unary channel execution), after
+        which this raises ExecutionCancelled."""
         if output not in OUTPUTS:
             raise ValueError(
                 f"unknown output modality {output!r}: 'text' | 'audio' "
@@ -405,23 +450,20 @@ class ModelBackend:
             raise BadRequestError(
                 f"output={output!r} needs the {_UNPORTED_OUTPUT[output]}, which this port "
                 "does not have yet; output='text' is served")
-        fut: concurrent.futures.Future = concurrent.futures.Future()
+        trace = tracing.valid_context(trace)
+        t0 = time.time(), time.perf_counter()
+        q: queue.Queue = queue.Queue()
         rid, truncated = self._submit(
-            ("future", fut), prompt, tokens, max_new_tokens, temperature, top_k, top_p,
+            q, prompt, tokens, max_new_tokens, temperature, top_k, top_p,
             stop_token_ids, session_id, response_schema, context_overflow, images, audios,
             deadline_s, priority, n_branches, branch_policy, expect_followup,
-            followup_candidates)
-        try:
-            result = fut.result(timeout=timeout)
-        except concurrent.futures.TimeoutError:
-            # the caller gives up: free the engine slots, no reader is left
-            self._abandon(rid)
-            raise
-        if self.tokenizer is not None:
-            result["text"] = self.tokenizer.decode(result["tokens"])
-        result["model"] = self.model_name
-        if truncated:
-            result["truncated_prompt_tokens"] = truncated
+            followup_candidates, trace)
+        if on_cancel is not None:
+            on_cancel(lambda: q.put(None))
+        result = self.collect_result(rid, q, truncated, trace, t0, timeout=timeout)
+        if trace is not None:
+            result["trace"] = {"trace_id": trace["trace_id"],
+                               "spans": self.collect_trace_spans(trace)}
         return result
 
     def submit_stream(
@@ -453,17 +495,33 @@ class ModelBackend:
         while its branches decode; at resolution the winner's events replay
         under ``request_id``, then one terminal, and
         ``pop_group_meta(request_id)`` gives the ``branches`` summary.
-        ``release_stream`` when the consumer goes away."""
+        ``release_stream`` when the consumer goes away. A ``trace`` context
+        gets the request's engine spans (``collect_trace_spans``)."""
         n_branches, branch_policy = validate_branch_spec(n_branches, branch_policy)
         if n_branches > 1:
             _check_branch_compat(response_schema, images, audios)
         q: queue.Queue = queue.Queue()
         rid, truncated = self._submit(
-            ("stream", q), prompt, tokens, max_new_tokens, temperature, top_k, top_p,
+            q, prompt, tokens, max_new_tokens, temperature, top_k, top_p,
             stop_token_ids, session_id, response_schema, context_overflow, images, audios,
             deadline_s, priority, n_branches, branch_policy, expect_followup,
-            followup_candidates)
+            followup_candidates, tracing.valid_context(trace))
         return rid, q, truncated
+
+    def collect_trace_spans(self, ctx) -> list[dict]:
+        """Pop a trace's spans from the process's buffer, each stamped with
+        the dispatch labels of the gateway's context (``node``,
+        ``attempt``): the waterfall must say which node served which
+        attempt, which the engine's spans cannot know."""
+        ctx = tracing.valid_context(ctx)
+        if ctx is None:
+            return []
+        spans = tracing.tracer().pop(ctx["trace_id"])
+        for key in ("node", "attempt"):
+            if ctx.get(key) is not None:
+                for s in spans:
+                    s.setdefault(key, ctx[key])
+        return spans
 
     def release_stream(self, rid: str) -> None:
         """The consumer of ``rid``'s stream is gone: cancel its request (a
@@ -477,14 +535,15 @@ class ModelBackend:
         with self._lock:
             return self._group_meta.pop(rid, None)
 
-    def _submit(self, sink, prompt, tokens, max_new_tokens, temperature, top_k, top_p,
+    def _submit(self, q, prompt, tokens, max_new_tokens, temperature, top_k, top_p,
                 stop_token_ids, session_id, response_schema, context_overflow, images,
                 audios, deadline_s, priority, n_branches, branch_policy, expect_followup,
-                followup_candidates) -> tuple[str, int]:
-        """Validate, register ``sink`` for the new request id and submit the
-        request to the engine; returns ``(id, prompt tokens truncated)``."""
+                followup_candidates, trace) -> tuple[str, int]:
+        """Validate, register the event queue ``q`` for the new request id
+        and submit the request to the engine; returns ``(id, prompt tokens
+        truncated)``."""
         if self._draining:
-            raise NodeDrainingError("node is draining: not admitting new work")
+            raise NodeDrainingError("node is draining (rolling restart): not admitting new work")
         if images or audios:
             what = ("image inputs need the vision tower (models/vision.py)" if images else
                     "audio inputs need the audio tower (models/audio.py)")
@@ -535,11 +594,9 @@ class ModelBackend:
                 g = BranchGroup(rid, n_branches, branch_policy)
                 for r in g.branch_rids():
                     self._groups[r] = g
-                self._group_sinks[rid] = sink
-            elif sink[0] == "future":
-                self._waiting[rid] = (sink[1], [])
+                self._group_sinks[rid] = q
             else:
-                self._streams[rid] = sink[1]
+                self._streams[rid] = q
         try:
             self.engine.submit(
                 Request(
@@ -555,6 +612,7 @@ class ModelBackend:
                     deadline_s=deadline_s,
                     priority=priority,
                     n_branches=n_branches,
+                    trace=trace,
                 )
             )
         except Exception:
@@ -772,10 +830,111 @@ class ModelBackend:
             frame["text"] = self.tokenizer.decode([ev.token])
         return frame
 
+    def collect_result(self, rid: str, q: queue.Queue, truncated: int, trace: dict | None,
+                       t0: tuple[float, float], emit=None, timeout: float | None = None) -> dict:
+        """Read ``rid``'s TokenEvents from ``q`` into the result of unary
+        ``generate`` (every transport's result has its shape), each event
+        also to ``emit`` (a channel's token frames) when given. A None on
+        the queue is a cancel (ExecutionCancelled); ``timeout`` raises
+        TimeoutError. The request is cancelled if it still runs when this
+        returns or raises. A traced request's ``node.generate`` span
+        (started at ``t0``, wall and perf clocks) is recorded in any
+        case."""
+        deadline = None if timeout is None else time.monotonic() + timeout
+        records: list[tuple[int, float | None]] = []
+        finish_reason = branches_meta = None
+        try:
+            while True:
+                try:
+                    ev = q.get(timeout=None if deadline is None
+                               else max(0.0, deadline - time.monotonic()))
+                except queue.Empty:
+                    raise TimeoutError(f"request {rid} timed out after {timeout} s") from None
+                if ev is None:
+                    raise ExecutionCancelled
+                if emit is not None:
+                    emit(self.event_frame(ev))
+                if ev.token >= 0 and not (ev.finished and ev.finish_reason == "stop"):
+                    # stop tokens terminate, they are not content; a
+                    # deadline or error terminal carries no token
+                    records.append((ev.token, ev.logprob))
+                if ev.finished:
+                    finish_reason = ev.finish_reason
+                    branches_meta = self.pop_group_meta(rid)
+                    break
+        finally:
+            self.release_stream(rid)  # cancels the request if it still runs
+            if trace is not None:
+                attrs = {"rid": rid, "finish": finish_reason}
+                if emit is not None:
+                    attrs["stream"] = 1
+                tracing.tracer().record_span("node.generate", trace["trace_id"], t0[0],
+                                             (time.perf_counter() - t0[1]) * 1e3, attrs)
+        if finish_reason and finish_reason.startswith("error: "):
+            raise RuntimeError(finish_reason[len("error: "):])
+        result = {"tokens": [t for t, _ in records], "logprobs": [lp for _, lp in records],
+                  "finish_reason": finish_reason, "model": self.model_name}
+        if branches_meta is not None:
+            result["branches"] = branches_meta
+        if self.tokenizer is not None:
+            result["text"] = self.tokenizer.decode(result["tokens"])
+        if truncated:
+            result["truncated_prompt_tokens"] = truncated
+        return result
+
+    def channel_generate(self, payload: Any, headers: dict, emit, ex: ChannelExec) -> dict:
+        """``generate`` streamed over the gateway's channel (the JAX node's
+        ``channel_generate``): each TokenEvent becomes a token frame
+        (``emit``), and the result is unary ``generate``'s. A gateway
+        cancel (``ex``) ends the request through the engine's cancel path
+        and the execution with ExecutionCancelled. Non-text outputs go
+        unary."""
+        if not isinstance(payload, dict):
+            raise ValueError("generate input must be a JSON object")
+        if payload.get("output") not in (None, "text"):
+            return self.generate(**{k: v for k, v in payload.items() if v is not None},
+                                 on_cancel=ex.on_cancel)
+        trace = tracing.valid_context(payload.get("trace"))
+        t0 = time.time(), time.perf_counter()
+        rid, q, truncated = self.submit_stream(**self.prep_stream_kwargs(payload))
+        ex.on_cancel(lambda: q.put(None))  # wakes the reader
+        return self.collect_result(rid, q, truncated, trace, t0, emit=emit)
+
+    def profile_start(self, trace_dir: str) -> None:
+        """Start a ``torch.profiler`` capture (CPU ops, and the card's
+        kernels on a CUDA engine) on the drive thread between two ticks, so
+        it holds whole ticks. Raises ProfileActiveError when one is
+        active."""
+        with self._profile_lock:
+            if self._profile["prof"] is not None:
+                raise ProfileActiveError("trace already active")
+            acts = [torch.profiler.ProfilerActivity.CPU]
+            if self.engine.device.type == "cuda":
+                acts.append(torch.profiler.ProfilerActivity.CUDA)
+            prof = torch.profiler.profile(activities=acts)
+            self._on_engine_thread(prof.start)
+            self._profile.update(prof=prof, dir=trace_dir)
+
+    def profile_stop(self) -> str:
+        """Stop the active capture on the drive thread and write its Chrome
+        trace into its directory; returns the file's path. Raises
+        LookupError when none is active."""
+        with self._profile_lock:
+            prof, trace_dir = self._profile["prof"], self._profile["dir"]
+            if prof is None:
+                raise LookupError("no active trace")
+            self._profile["prof"] = None  # never wedged, even if the stop fails
+            self._on_engine_thread(prof.stop)
+        os.makedirs(trace_dir, exist_ok=True)
+        path = os.path.join(trace_dir, f"{self.model_name.replace(os.sep, '_')}."
+                                       f"{time.time_ns()}.pt.trace.json")
+        prof.export_chrome_trace(path)
+        return path
+
     def heartbeat_stats(self) -> dict[str, Any]:
-        """What every heartbeat carries (the JAX node's ``_heartbeat_stats``
-        without ``prefix_sketch`` and the channel counters: the cluster
-        prefix tier and the channel are not ported)."""
+        """The engine's part of every heartbeat (the JAX node's
+        ``_heartbeat_stats`` without ``prefix_sketch``: the cluster prefix
+        tier is not ported; the node adds the channel's counters)."""
         eng = self.engine
         return {
             **dict(eng.stats),
@@ -796,8 +955,7 @@ class ModelBackend:
                 "pending": len(self.engine.pending)}
 
     def _forget(self, rid: str) -> BranchGroup | None:
-        """Drop ``rid``'s sinks (under _lock); returns its group, if any."""
-        self._waiting.pop(rid, None)
+        """Drop ``rid``'s queue (under _lock); returns its group, if any."""
         self._streams.pop(rid, None)
         g = self._groups.get(rid)
         if g is not None:
@@ -805,10 +963,10 @@ class ModelBackend:
         return g
 
     def _abandon(self, rid: str) -> None:
-        """No reader is left for ``rid``: drop its sinks and cancel it in the
+        """No reader is left for ``rid``: drop its queue and cancel it in the
         engine, every live branch of a group."""
         with self._lock:
-            live = rid in self._waiting or rid in self._streams
+            live = rid in self._streams
             g = self._forget(rid)
         if g is None:
             if live:
@@ -828,16 +986,10 @@ class ModelBackend:
 
     def _fail_group(self, g: BranchGroup, error: BaseException) -> None:
         with self._lock:
-            sink = self._group_sinks.get(g.parent)
+            q = self._group_sinks.get(g.parent)
             self._teardown_group(g)
-        if sink is None:
-            return
-        kind, obj = sink
-        if kind == "future":
-            if not obj.done():
-                obj.set_exception(RuntimeError(f"engine step failed: {error!r}"))
-        else:
-            obj.put(_error_event(g.parent, error))
+        if q is not None:
+            q.put(_error_event(g.parent, error))
 
     def _on_group_event(self, g: BranchGroup, ev: TokenEvent) -> None:
         """Feed one branch event to its group and apply the actions: a
@@ -866,24 +1018,16 @@ class ModelBackend:
 
     def _resolve_group(self, g: BranchGroup) -> None:
         """Every branch settled: the best cumulative logprob wins (the node
-        has no verifier hook); deliver it to the group's one sink."""
+        has no verifier hook); deliver it to the group's caller."""
         cands = g.candidates()
         winner = cands[0] if cands else g.fallback_branch()
         meta = g.summary(winner, False)
         with self._lock:
-            sink = self._group_sinks.get(g.parent)
+            q = self._group_sinks.get(g.parent)
             self._teardown_group(g)
-            if sink is not None and sink[0] == "stream":
+            if q is not None:
                 self._group_meta[g.parent] = meta
-        if sink is None or winner is None:
-            return
-        kind, obj = sink
-        content = self._branch_content(winner)
-        if kind == "future":
-            if not obj.done():
-                obj.set_result({"tokens": [t for t, _ in content],
-                                "logprobs": [lp for _, lp in content],
-                                "finish_reason": winner.finish_reason, "branches": meta})
+        if q is None or winner is None:
             return
         # the winner's tokens replay under the parent id, then one terminal
         # (a deadline or failure terminal carries no token, as the engine's)
@@ -891,10 +1035,10 @@ class ModelBackend:
         tokened = reason in ("stop", "length") and bool(recs)
         for i, (tok, lp) in enumerate(recs):
             last = tokened and i == len(recs) - 1
-            obj.put(TokenEvent(request_id=g.parent, token=tok, index=i, finished=last,
+            q.put(TokenEvent(request_id=g.parent, token=tok, index=i, finished=last,
                                finish_reason=reason if last else None, logprob=lp))
         if not tokened:
-            obj.put(TokenEvent(request_id=g.parent, token=-1, index=-1, finished=True,
+            q.put(TokenEvent(request_id=g.parent, token=-1, index=-1, finished=True,
                                finish_reason=reason or "error: branch group unresolved"))
 
     def cancel(self, rid: str) -> None:
@@ -907,11 +1051,15 @@ class ModelBackend:
         """Graceful drain: stop admitting, let in-flight requests finish for
         ``grace_s``, then deadline-out whatever still runs (each caller gets
         a "deadline_exceeded" answer, never a hang). Idempotent; returns a
-        summary."""
+        summary. Without a running drive loop nothing can finish: no
+        wait."""
         t0 = time.monotonic()
         if not self._draining:
             self._draining = True
             self.engine.stats["drains_total"] += 1
+        if self._thread is None or self.error is not None:
+            return {"drained": not self.engine.has_work(), "deadline_outed": 0,
+                    "elapsed_s": round(time.monotonic() - t0, 3)}
         while self.engine.has_work() and time.monotonic() - t0 < grace_s:
             self._wake.set()
             time.sleep(0.02)
@@ -944,10 +1092,10 @@ class InputError(TypeError):
 
 def _params_of(fn) -> dict[str, tuple[Any, Any]]:
     """A reasoner's input parameters: name -> (annotation, default), in
-    signature order (``self`` and ``timeout`` excluded)."""
+    signature order (``self``, ``timeout`` and ``on_cancel`` excluded)."""
     hints = typing.get_type_hints(fn)
-    return {n: (hints.get(n, Any), p.default)
-            for n, p in inspect.signature(fn).parameters.items() if n not in ("self", "timeout")}
+    return {n: (hints.get(n, Any), p.default) for n, p in inspect.signature(fn).parameters.items()
+            if n not in ("self", "timeout", "on_cancel")}
 
 
 def _allows_none(ann) -> bool:
@@ -1004,8 +1152,10 @@ class ModelNodeServer:
     seconds with the engine's stats on a daemon thread (three failures in a
     row: ``connection_state`` "degraded"; a 404: it registers again), acks a
     gateway-tracked request (``X-Execution-ID``) with 202 and posts its
-    outcome to ``/api/v1/executions/{id}/status``, and at ``stop`` sends a
-    "stopping" heartbeat and deregisters."""
+    outcome to ``/api/v1/executions/{id}/status``, and at ``stop`` drains,
+    sends a "stopping" heartbeat and deregisters. It serves the gateway's
+    channel at ``GET /channel`` (``self.channel``), advertised in its
+    registration as ``metadata["channel"]``, as the JAX SDK agent does."""
 
     def __init__(self, backend: ModelBackend, node_id: str = "model",
                  control_plane: str | None = None, heartbeat_interval: float = 2.0):
@@ -1015,16 +1165,22 @@ class ModelNodeServer:
         self.node_id = node_id
         self.client = ControlPlaneClient(control_plane) if control_plane else None
         self.heartbeat_interval = heartbeat_interval
-        self.metadata = {"model": backend.model_name, "modalities": ["text"], "role": "mixed"}
+        self.metadata = {"model": backend.model_name, "modalities": ["text"], "role": "mixed",
+                         "channel": True}
         self.connection_state = "connected"  # "degraded" after failed heartbeats
         self.components = {"generate": (backend.generate, GENERATE_PARAMS),
                            "embed": (backend.embed, EMBED_PARAMS)}
+        self.channel = ChannelServer(self._channel_invoke,
+                                     {"generate": backend.channel_generate})
+        self.channel.set_trace_collect(backend.collect_trace_spans)
         self.host = "127.0.0.1"
         self._httpd: ThreadingHTTPServer | None = None
         self._thread: threading.Thread | None = None
         self._hb_thread: threading.Thread | None = None
         self._hb_stop = threading.Event()
         self._registered = False
+        # threads whose answer a drain must let out: tracked requests, SSE
+        # streams; under _tracked_lock
         self._tracked: set[threading.Thread] = set()
         self._tracked_lock = threading.Lock()
 
@@ -1038,6 +1194,7 @@ class ModelNodeServer:
         heartbeating if a control plane is set; returns the bound port. A
         failed registration stops the node and raises."""
         self.backend.start()
+        self.channel.open()
         self.host = host
         self._httpd = ThreadingHTTPServer((host, port), _make_handler(self))
         self._httpd.daemon_threads = True
@@ -1056,18 +1213,26 @@ class ModelNodeServer:
             self._hb_thread.start()
         return self.port
 
-    def stop(self) -> None:
-        """Stop heartbeating, let tracked requests call back, send a
-        "stopping" heartbeat and deregister, then stop serving and the
-        engine."""
+    def stop(self, grace_s: float = DRAIN_GRACE_S) -> dict[str, Any]:
+        """The JAX ``drain_and_stop``: stop heartbeating; drain the backend
+        (admission answers 503, in-flight work finishes within ``grace_s``
+        or ends "deadline_exceeded", so every stream and channel execution
+        gets its terminal frame); let tracked requests call back and streams
+        write their last frame; send a "stopping" heartbeat and deregister;
+        close the channel; stop serving; stop the engine. Returns the
+        drain's summary. After the drain, the joins and the channel's close
+        take at most ``min(grace_s + 5, 30)`` s together: a reader that
+        stopped reading is cut, its sends bounded."""
         self._hb_stop.set()
         if self._hb_thread is not None:
             self._hb_thread.join(timeout=30.0)
             self._hb_thread = None
+        summary = self.backend.drain(grace_s)
+        deadline = time.monotonic() + min(grace_s + 5.0, 30.0)
         with self._tracked_lock:
             tracked = list(self._tracked)
         for th in tracked:
-            th.join(timeout=120.0)
+            th.join(timeout=max(0.0, deadline - time.monotonic()))
         if self._registered:
             self._registered = False
             for call in (lambda: self.client.heartbeat(self.node_id, status="stopping"),
@@ -1076,6 +1241,7 @@ class ModelNodeServer:
                     call()
                 except Exception as e:  # noqa: BLE001 — the lease sweep covers a lost goodbye
                     log.debug("control-plane goodbye failed: %r", e)
+        self.channel.close(timeout=max(0.0, deadline - time.monotonic()))
         if self._httpd is not None:
             self._httpd.shutdown()
             self._httpd.server_close()
@@ -1084,6 +1250,32 @@ class ModelNodeServer:
             self._thread.join(timeout=10.0)
             self._thread = None
         self.backend.stop()
+        return summary
+
+    def heartbeat_stats(self) -> dict[str, Any]:
+        """A heartbeat's stats: the engine's and the channel's counters."""
+        return {**self.backend.heartbeat_stats(), **self.channel.stats_snapshot()}
+
+    def track(self, th: threading.Thread) -> None:
+        """Register a request thread whose answer a stop waits for."""
+        with self._tracked_lock:
+            self._tracked.add(th)
+
+    def untrack(self, th: threading.Thread) -> None:
+        with self._tracked_lock:
+            self._tracked.discard(th)
+
+    def _channel_invoke(self, cid: str, payload: Any, headers: dict, ex: ChannelExec) -> Any:
+        """A unary channel execution: the component's HTTP call; a gateway
+        cancel of a ``generate`` ends its request through the engine's
+        cancel path."""
+        if cid not in self.components:
+            raise LookupError(f"unknown component {cid!r}")
+        fn, params = self.components[cid]
+        kw = check_input(params, payload)
+        if cid == "generate":
+            kw["on_cancel"] = ex.on_cancel
+        return fn(**kw)
 
     def node_spec(self) -> dict[str, Any]:
         """The registration body (the JAX SDK's ``Agent._node_spec``); the
@@ -1116,7 +1308,7 @@ class ModelNodeServer:
             # a broken stats provider gives a stats-less heartbeat, never none
             stats = None
             try:
-                stats = self.backend.heartbeat_stats()
+                stats = self.heartbeat_stats()
             except Exception as e:  # noqa: BLE001
                 log.debug("heartbeat stats failed: %r", e)
             try:
@@ -1152,12 +1344,10 @@ class ModelNodeServer:
             else:
                 self._post_status(execution_id, "completed", result=result)
             finally:
-                with self._tracked_lock:
-                    self._tracked.discard(threading.current_thread())
+                self.untrack(threading.current_thread())
 
         th = threading.Thread(target=run, name=f"tracked-{execution_id}", daemon=True)
-        with self._tracked_lock:
-            self._tracked.add(th)
+        self.track(th)
         th.start()
 
     def _post_status(self, execution_id: str, status: str, **kw) -> None:
@@ -1188,21 +1378,95 @@ def _make_handler(node: ModelNodeServer):
             self.end_headers()
 
         def do_GET(self):
-            if self.path == "/health":
+            url = urllib.parse.urlsplit(self.path)
+            if url.path == "/health":
                 self._json(200, {"status": "ok", "node_id": node.node_id,
                                  "control_plane": node.connection_state})
-            elif self.path == "/reasoners":
+            elif url.path == "/reasoners":
                 self._json(200, {"reasoners": node.reasoners()})
-            elif self.path == "/stats":
+            elif url.path == "/stats":
                 self._json(200, node.backend.stats_doc())
+            elif url.path == CHANNEL_PATH:
+                self._channel()
+            elif url.path == "/debug/flight":
+                self._flight(urllib.parse.parse_qs(url.query))
             else:
                 self._json(404, {"error": "not found"})
+
+        def _channel(self):
+            """Upgrade to the gateway's WebSocket and run its receive loop
+            on this thread until it closes; never back into HTTP."""
+            try:
+                headers = handshake_headers(self.headers)
+            except HandshakeError as e:
+                self._json(400, {"error": str(e)})
+                return
+            self.close_connection = True
+            self.send_response(101)
+            for k, v in headers:
+                self.send_header(k, v)
+            self.end_headers()
+            node.channel.serve(WebSocket(self.connection, self.rfile))
+
+        def _flight(self, query: dict):
+            """The engine's flight recorder (the JAX node's
+            ``/debug/flight``): the last ``?last=N`` rows, all without."""
+            try:
+                last = int(query.get("last", ["0"])[0]) or None
+            except ValueError:
+                last = None
+            eng = node.backend.engine
+            self._json(200, {"node_id": node.node_id, "max_ticks": eng.flight.max_ticks,
+                             "ticks_recorded": eng.flight.ticks_recorded,
+                             "trace_buffer_spans": eng._tracer.span_count(),
+                             "trace_spans_dropped": eng._tracer.dropped_spans,
+                             "ticks": eng.flight.snapshot(last=last)})
+
+        def _profile(self, action: str, raw: bytes):
+            """``/profile/start {"dir"}`` and ``/profile/stop``: a
+            ``torch.profiler`` capture, written at stop as a Chrome trace
+            into ``dir`` (the JAX node's bodies and statuses)."""
+            backend = node.backend
+            if action == "start":
+                try:
+                    body = json.loads(raw) if raw else {}
+                except ValueError:
+                    body = {}
+                if not isinstance(body, dict):
+                    body = {}
+                trace_dir = body.get("dir") or os.path.join(tempfile.gettempdir(),
+                                                            "agentfield_tpu_torch_trace")
+                try:
+                    backend.profile_start(trace_dir)
+                except ProfileActiveError:
+                    self._json(409, {"error": "trace already active"})
+                    return
+                except Exception as e:  # noqa: BLE001 — reported to the caller
+                    self._json(500, {"error": f"start_trace failed: {e!r}"})
+                    return
+                self._json(200, {"tracing": True, "dir": trace_dir})
+            elif action == "stop":
+                try:
+                    path = backend.profile_stop()
+                except LookupError:
+                    self._json(409, {"error": "no active trace"})
+                    return
+                except Exception as e:  # noqa: BLE001 — reported to the caller
+                    self._json(500, {"error": f"stop_trace failed: {e!r}"})
+                    return
+                self._json(200, {"tracing": False, "dir": os.path.dirname(path),
+                                 "file": path})
+            else:
+                self._json(404, {"error": "action must be start|stop"})
 
         def do_POST(self):
             n = int(self.headers.get("Content-Length") or 0)
             raw = self.rfile.read(n) if n else b""
             if self.path == "/generate/stream":
                 self._stream(raw)
+                return
+            if self.path.startswith("/profile/"):
+                self._profile(self.path[len("/profile/"):], raw)
                 return
             cid = self.path[len("/reasoners/"):] if self.path.startswith("/reasoners/") else None
             if cid not in node.components:
@@ -1257,6 +1521,8 @@ def _make_handler(node: ModelNodeServer):
                 self._json(400, {"error": repr(e)})
                 return
             self.close_connection = True  # the stream ends with the connection
+            set_send_timeout(self.connection, SEND_TIMEOUT_S)  # a stalled reader is cut
+            node.track(threading.current_thread())  # a drain waits for its last frame
             try:
                 self.send_response(200)
                 self.send_header("Content-Type", "text/event-stream")
@@ -1292,6 +1558,7 @@ def _make_handler(node: ModelNodeServer):
                 backend.cancel(rid)
             finally:
                 backend.release_stream(rid)
+                node.untrack(threading.current_thread())
 
     return Handler
 
@@ -1416,6 +1683,7 @@ def main(argv: list[str] | None = None) -> None:
                     help="register with this control plane and heartbeat to it")
     ap.add_argument("--node-id", default="model", help="the node's id in the control plane")
     args = ap.parse_args(argv)
+    grace_s = float(os.environ.get("AGENTFIELD_DRAIN_GRACE", DRAIN_GRACE_S))
     server, _ = build_model_node(
         args.model, seed=args.seed, device=args.device,
         ecfg=EngineConfig(grammar_slots=GRAMMAR_SLOTS, kv_quant_dtype=args.kv_quant_dtype),
@@ -1423,19 +1691,18 @@ def main(argv: list[str] | None = None) -> None:
         control_plane=args.control_plane, quant=args.quant, checkpoint=args.checkpoint,
     )
 
-    def on_term(signum, frame):  # SIGTERM stops as Ctrl-C does: deregister first
-        raise KeyboardInterrupt
-
-    signal.signal(signal.SIGTERM, on_term)
+    # SIGTERM and Ctrl-C drain (the JAX install_sigterm_drain); a second
+    # signal during the drain is ignored: the drain is bounded
+    stopping = threading.Event()
+    for sig in (signal.SIGTERM, signal.SIGINT):
+        signal.signal(sig, lambda signum, frame: stopping.set())
     port = server.start(args.host, args.port)
     print(f"model node {args.checkpoint or args.model} serving on http://{args.host}:{port}", flush=True)
     try:
-        while True:
-            time.sleep(3600)
-    except KeyboardInterrupt:
-        pass
+        stopping.wait()
     finally:
-        server.stop()
+        summary = server.stop(grace_s)
+        print(f"model node {args.node_id} drained: {summary}", flush=True)
 
 
 if __name__ == "__main__":

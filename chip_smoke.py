@@ -176,6 +176,21 @@ the result line:
                with the engine's stats, a tracked request's callback and
                the goodbye; then the embeddings through the plain attention
                (cosine at least ``API_COSINE_MIN``).
+13a. ``channel`` the gateway's channel, traces and drain (``phase_channel``),
+               on the same weights, the gateway played by the port's
+               WebSocket client: 8 streamed ``generate`` executions of
+               64-1500-token prompts over one socket (one terminal each, seq
+               rising by one, tokens equal to the unary channel execution's
+               and a direct POST's: each mode sent with the drive thread
+               held, so the engine schedules the same queue; first token
+               frame host ms against the engine's TTFT), a dropped socket
+               reattached without loss or repeat, a cancel freeing its slot,
+               a traced execution's waterfall, the decode step with tracing
+               on and off, ``/debug/flight``, a ``/profile`` capture's
+               kernel events beside the launch counters, and
+               ``stop(grace_s=1)`` with a 400-token SSE stream and channel
+               execution open (both get a terminal, a late request 503).
+               ``[channel]`` line.
 13b. ``ckpt``   the serve's weights as a Hugging Face checkpoint
                (``phase_ckpt``): written in bf16 as Meta-Llama-3-8B's four
                shards with the index, the published ``config.json``, a
@@ -225,6 +240,7 @@ int8-weight kernel at every bf16 shape (the data behind
 from __future__ import annotations
 
 import argparse
+import functools
 import gc
 import json
 import os
@@ -3089,6 +3105,7 @@ def phase_api(results, state, seed: int, device: str = "cuda", model_name: str =
     import torch
 
     from agentfield_tpu_torch.ops.cuda import ragged_paged_attention as rpa
+    from agentfield_tpu_torch.serving.channel import STAT_KEYS as CHANNEL_STAT_KEYS
     from agentfield_tpu_torch.serving.engine import EngineConfig
     from agentfield_tpu_torch.serving.model_node import (
         GRAMMAR_SLOTS,
@@ -3250,13 +3267,14 @@ def phase_api(results, state, seed: int, device: str = "cuda", model_name: str =
     spec = cp.specs[0]
     assert spec["node_id"] == "api-node" and spec["kind"] == "model"
     assert spec["base_url"] == f"http://127.0.0.1:{port}"
-    assert spec["metadata"] == {"model": model_name, "modalities": ["text"], "role": "mixed"}
+    assert spec["metadata"] == {"model": model_name, "modalities": ["text"], "role": "mixed",
+                                "channel": True}
     props = {r["id"]: tuple(r["input_schema"]["properties"]) for r in spec["reasoners"]}
     assert props == {"generate": JAX_GENERATE_PROPS, "embed": JAX_EMBED_PROPS}, props
     beats = [b for _, _, b in cp.heartbeats if "stats" in b]
     assert len(beats) >= 2, f"{len(beats)} heartbeats"
     want = (set(eng.stats) | set(eng.grammar_bank_stats()) | set(eng.prefix_cache_stats())
-            | set(eng.scheduler_stats()) | set(HEARTBEAT_KEYS))
+            | set(eng.scheduler_stats()) | set(HEARTBEAT_KEYS) | set(CHANNEL_STAT_KEYS))
     for b in beats:
         assert set(b["stats"]) == want, set(b["stats"]) ^ want
     last = [b for t, _, b in cp.heartbeats if t > t_c and "stats" in b][-1]["stats"]
@@ -3298,6 +3316,436 @@ def phase_api(results, state, seed: int, device: str = "cuda", model_name: str =
         f"frames, frame gap max {out['e']['max_frame_gap_ms']:.1f} ms (median "
         f"{out['e']['median_frame_gap_ms']:.1f}), tokens = idle run; "
         f"(f) {len(beats)} heartbeats, latency_hist counts {hist_counts}, tracked 202 completed; "
+        f"main path {main_s:.1f} s, launches {launches}")
+
+
+CHANNEL_PROMPTS = (64, 200, 333, 480, 700, 1000, 1200, 1500)  # (a): 8 at once
+CHANNEL_NEW = 64
+CHANNEL_LONG_NEW = 256  # (b) the reattach, (c) the cancel
+CHANNEL_DRAIN_NEW = 400  # (f) the streams open at stop()
+CHANNEL_GRACE_S = 1.0
+CHANNEL_PAGES = 1024
+# the hand-written kernels a served request runs, as the profiler names them
+CHANNEL_KERNELS = ("decode_split_kernel", "decode_combine_kernel", "tc_tile_kernel")
+CHANNEL_WATERFALL = ("node.generate", "engine.queue_wait", "engine.prefill", "engine.decode")
+# the keys of a flight-recorder row of the JAX engine (``step()``; a mixed
+# tick adds ``budget_util``); tests/test_torch_tracing.py holds both engines'
+# rows to them
+JAX_FLIGHT_KEYS = frozenset({
+    "t", "mode", "dur_ms", "active", "pending", "jobs", "events", "finished", "tokens",
+    "free_pages", "host_pages", "preemptions_total", "shed_pending_deadline_total",
+    "deadline_exceeded"})
+
+
+class ChannelClient:
+    """The gateway's side of one channel connection, over the port's
+    WebSocket client: a reader thread files the node's frames by execution,
+    with their host arrival times."""
+
+    def __init__(self, port: int):
+        from agentfield_tpu_torch.serving.websocket import connect
+
+        self.ws = connect("127.0.0.1", port, "/channel")
+        self.frames: dict[str, list[dict]] = {}
+        self.arrivals: dict[str, list[float]] = {}
+        self.sent: dict[str, float] = {}
+        self.cv = threading.Condition()
+        self.thread = threading.Thread(target=self._read, daemon=True, name="channel-client")
+        self.thread.start()
+
+    def _read(self):
+        while (msg := self.ws.recv()) is not None:
+            frame, t = json.loads(msg[1]), time.perf_counter()
+            eid = frame.get("exec_id")
+            if eid is None:
+                continue  # a pong
+            with self.cv:
+                self.frames.setdefault(eid, []).append(frame)
+                self.arrivals.setdefault(eid, []).append(t)
+                self.cv.notify_all()
+
+    def send(self, frame: dict) -> None:
+        self.ws.send_text(json.dumps(frame))
+
+    def submit(self, eid: str, payload: dict, stream: bool = True, trace=None) -> None:
+        frame = {"kind": "submit", "exec_id": eid, "target": "generate", "input": payload,
+                 "headers": {}, "stream": stream}
+        if trace is not None:
+            frame["trace"] = trace  # the gateway sends it in the input too
+        self.sent[eid] = time.perf_counter()
+        self.send(frame)
+
+    def count(self, eid: str, kind: str) -> int:
+        return sum(f.get("kind") == kind for f in self.frames.get(eid, ()))
+
+    def wait(self, pred, timeout: float = 600.0) -> None:
+        with self.cv:
+            assert self.cv.wait_for(pred, timeout), "channel: no frame in time"
+
+    def terminal(self, eid: str, timeout: float = 600.0) -> dict:
+        self.wait(lambda: self.count(eid, "terminal") > 0, timeout)
+        return next(f for f in self.frames[eid] if f["kind"] == "terminal")
+
+    def close(self) -> None:
+        self.ws.close()
+        self.thread.join(30)
+        self.ws.release()
+
+
+def channel_tokens(frames: list[dict]) -> list[int]:
+    """An execution's streamed content tokens, after checking its frames:
+    seq 1, 2, ... over token and terminal frames, exactly one terminal,
+    last, whose result holds the same tokens."""
+    seqs = [f["seq"] for f in frames if "seq" in f]
+    assert seqs == list(range(1, len(seqs) + 1)), f"seq not rising by one: {seqs}"
+    terms = [f for f in frames if f["kind"] == "terminal"]
+    assert len(terms) == 1 and frames[-1] is terms[0], [f["kind"] for f in frames]
+    assert terms[0]["status"] == "completed", terms[0]
+    toks = [f["data"]["token"] for f in frames if f["kind"] == "token"
+            and f["data"]["token"] >= 0
+            and not (f["data"]["finished"] and f["data"]["finish_reason"] == "stop")]
+    assert toks == terms[0]["result"]["tokens"], "streamed tokens != the terminal's result"
+    return toks
+
+
+def held_burst(backend, submits) -> None:
+    """Send ``submits`` (one request each) while the engine's drive thread
+    is held between two ticks, each landing in the pending queue before the
+    next goes; then let the engine run. The engine then schedules the same
+    queue the same way whatever transport carried it, so greedy tokens of
+    the same payloads compare exactly (bf16 rounds with the batch)."""
+    gate, held = threading.Event(), threading.Event()
+
+    def hold():
+        held.set()
+        gate.wait(600)
+
+    holder = threading.Thread(target=backend._on_engine_thread, args=(hold,), daemon=True)
+    holder.start()
+    assert held.wait(600), "the drive thread never took the hold"
+    try:
+        for i, send in enumerate(submits):
+            send()
+            t0 = time.monotonic()
+            while len(backend.engine.pending) < i + 1:
+                assert time.monotonic() - t0 < 120, "a request never reached the queue"
+                time.sleep(0.0005)
+    finally:
+        gate.set()
+        holder.join(600)
+
+
+def _wait_idle(backend, timeout: float = 600.0) -> None:
+    t0 = time.monotonic()
+    while backend.engine.has_work() or backend._streams:
+        assert time.monotonic() - t0 < timeout, "the engine never went idle"
+        time.sleep(0.005)
+
+
+def phase_channel(results, state, seed: int, device: str = "cuda",
+                  model_name: str = "llama-3-8b", prompts: tuple = CHANNEL_PROMPTS,
+                  new: int = CHANNEL_NEW, long_new: int = CHANNEL_LONG_NEW,
+                  drain_new: int = CHANNEL_DRAIN_NEW, grace_s: float = CHANNEL_GRACE_S,
+                  num_pages: int = CHANNEL_PAGES, max_pages_per_seq: int = 128):
+    """The node's gateway channel, request traces and drain on the serve's
+    weights (bf16 pages, decode buckets (4, 16), the shared-prefix cache off,
+    as ``phase_api``), the gateway played by the port's WebSocket client
+    (``ChannelClient``). One run, counts reset before it and read after
+    the node's stop:
+    (a) ``len(prompts)`` streamed ``generate`` executions over one socket
+        (``new`` greedy tokens each): each one terminal, seq rising by one,
+        its tokens equal to the same payload's unary channel execution and
+        direct ``POST /reasoners/generate`` (each mode sent as a
+        ``held_burst``); the first token frame's host ms (from the submit
+        frame) against the engine's TTFT of the same execution (its
+        queue-wait and prefill spans);
+    (b) a ``long_new``-token execution whose socket closes after 3 token
+        frames, reattached on a new one with the last seq seen: nothing
+        lost or repeated (its tokens equal the unary run's), one terminal,
+        the reattach counter up; an unknown id gets ``reattach_fail``;
+    (c) ``cancel`` mid-stream: terminal failed "cancelled by gateway",
+        ``active_slots`` and ``free_pages`` back to their earlier values;
+    (d) a traced execution's terminal carries ``CHANNEL_WATERFALL`` in
+        wall-clock order, stamped with the node and attempt; the decode
+        step's device ms (CUDA events) and the engine tick's host ms (the
+        flight recorder's decode rows) with tracing on and off, the same
+        burst each; ``/debug/flight`` rows with the JAX keys;
+    (e) a ``/profile`` capture around 2 requests: the Chrome trace's events
+        of ``CHANNEL_KERNELS`` beside the attention launch counters over
+        the same window;
+    (f) a ``drain_new``-token SSE stream and channel execution open at
+        ``server.stop(grace_s)``: both get a terminal, a request during the
+        drain gets 503, ``stop`` returns within the grace plus 10 s with
+        the engine empty."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from agentfield_tpu_torch import tracing
+    from agentfield_tpu_torch.ops.cuda import ragged_paged_attention as rpa
+    from agentfield_tpu_torch.serving.channel import CANCELLED
+    from agentfield_tpu_torch.serving.engine import EngineConfig
+    from agentfield_tpu_torch.serving.model_node import (
+        GRAMMAR_SLOTS,
+        ModelBackend,
+        ModelNodeServer,
+    )
+    from agentfield_tpu_torch.serving.tokenizer import ByteTokenizer
+
+    params, cfg = state["params"], state["cfg"]
+    on_card = torch.device(device).type == "cuda"
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    rng = np.random.default_rng(seed + 41)
+
+    def text(n: int) -> str:  # ASCII letters: one byte-tokenizer token each
+        return "".join(chr(c) for c in rng.integers(97, 123, n))
+
+    ecfg = EngineConfig(max_batch=16, page_size=16, num_pages=num_pages,
+                        max_pages_per_seq=max_pages_per_seq, decode_buckets=(4, 16),
+                        shared_prefix_cache=False, grammar_slots=GRAMMAR_SLOTS)
+    backend = ModelBackend(params, cfg, ecfg, tokenizer=ByteTokenizer(cfg.vocab_size),
+                           seed=seed, model_name=model_name, device=device)
+    server = ModelNodeServer(backend, node_id="channel-node")
+    port = server.start()
+    eng = backend.engine
+    out: dict = {"prompts": list(prompts), "new": new}
+    trace_dir = tempfile.mkdtemp(prefix="channel_profile_")
+    client = ChannelClient(port)
+    stopped = False
+    try:
+        rpa.reset_launches()  # this phase's main path only
+        t_main = time.perf_counter()
+        # (a) streamed, unary over the channel, direct POST: the same queue
+        payloads = [{"prompt": text(n), "max_new_tokens": new} for n in prompts]
+        ctxs = [{"trace_id": f"tr_chan_a{i}", "attempt": 1, "node": "channel-node"}
+                for i in range(len(prompts))]
+        held_burst(backend, [
+            functools.partial(client.submit, f"a{i}", {**p, "trace": ctxs[i]}, True, ctxs[i])
+            for i, p in enumerate(payloads)])
+        streamed = []
+        for i in range(len(prompts)):
+            client.terminal(f"a{i}")
+            streamed.append(channel_tokens(client.frames[f"a{i}"]))
+        held_burst(backend, [functools.partial(client.submit, f"u{i}", p, False)
+                             for i, p in enumerate(payloads)])
+        unary = [client.terminal(f"u{i}") for i in range(len(prompts))]
+        assert all(client.count(f"u{i}", "token") == 0 for i in range(len(prompts)))
+        posted: dict = {}
+
+        def post(i, p):
+            th = threading.Thread(target=lambda: posted.__setitem__(
+                i, _http(port, "POST", "/reasoners/generate", {"input": p})))
+            th.start()
+            posted.setdefault("threads", []).append(th)
+
+        held_burst(backend, [functools.partial(post, i, p) for i, p in enumerate(payloads)])
+        for th in posted.pop("threads"):
+            th.join(600)
+        for i in range(len(prompts)):
+            assert unary[i]["status"] == "completed", unary[i]
+            st, doc = posted[i]
+            assert st == 200, (st, doc)
+            assert len(streamed[i]) == new, (i, len(streamed[i]))
+            assert streamed[i] == unary[i]["result"]["tokens"] == doc["result"]["tokens"], (
+                f"execution {i}: streamed, unary and POST tokens differ")
+        first_ms, ttft_ms = [], []
+        for i in range(len(prompts)):
+            eid = f"a{i}"
+            k = next(j for j, f in enumerate(client.frames[eid]) if f["kind"] == "token")
+            first_ms.append((client.arrivals[eid][k] - client.sent[eid]) * 1e3)
+            spans = {s["name"]: s for s in client.terminal(eid)["trace"]["spans"]}
+            ttft_ms.append(spans["engine.queue_wait"]["dur_ms"] + spans["engine.prefill"]["dur_ms"])
+        out["a"] = {"first_frame_ms": first_ms, "engine_ttft_ms": ttft_ms,
+                    "over_ttft_ms": [f - t for f, t in zip(first_ms, ttft_ms)]}
+        _wait_idle(backend)
+        # (b) a reattach after the socket drops mid-stream
+        long_payload = {"prompt": text(prompts[1]), "max_new_tokens": long_new}
+        client.submit("b_ref", long_payload, stream=False)
+        ref = client.terminal("b_ref")["result"]["tokens"]
+        reattaches = server.channel.stats_snapshot()["channel_server_reattaches_total"]
+        drop = ChannelClient(port)
+        drop.submit("b", long_payload)
+        drop.wait(lambda: drop.count("b", "token") >= 3)
+        drop.ws.abort()  # the link dies: no close handshake
+        drop.thread.join(30)
+        drop.ws.release()
+        before = list(drop.frames["b"])
+        last_seq = max(f.get("seq", 0) for f in before)
+        again = ChannelClient(port)
+        again.send({"kind": "reattach", "exec_id": "b", "last_seq": last_seq})
+        again.send({"kind": "reattach", "exec_id": "no-such-execution", "last_seq": 0})
+        again.terminal("b")
+        again.wait(lambda: again.count("no-such-execution", "reattach_fail") == 1)
+        after = again.frames["b"]
+        assert after[0] == {"kind": "reattach_ok", "exec_id": "b", "from_seq": last_seq}, after[0]
+        b_tokens = channel_tokens([f for f in before if f["kind"] != "accepted"] + after[1:])
+        assert b_tokens == ref, "the reattach lost or repeated tokens"
+        assert (server.channel.stats_snapshot()["channel_server_reattaches_total"]
+                == reattaches + 1)
+        again.close()
+        out["b"] = {"frames_before_drop": len(before) - 1, "last_seq": last_seq,
+                    "replayed": len(after) - 1, "tokens": len(b_tokens)}
+        _wait_idle(backend)
+        # (c) cancel mid-stream frees the slot and its pages
+        free0, active0 = eng.allocator.free_pages, eng.num_active
+        client.submit("c", {"prompt": text(prompts[2]), "max_new_tokens": long_new})
+        client.wait(lambda: client.count("c", "token") >= 3)
+        client.send({"kind": "cancel", "exec_id": "c"})
+        term = client.terminal("c")
+        assert (term["status"], term["error"]) == ("failed", CANCELLED), term
+        _wait_idle(backend)
+        assert (eng.allocator.free_pages, eng.num_active) == (free0, active0), (
+            eng.allocator.free_pages, free0)
+        out["c"] = {"tokens_before_cancel": client.count("c", "token"), "free_pages": free0}
+        # (d) a traced execution's waterfall; tracing on and off
+        ctx = {"trace_id": tracing.new_trace_id(), "attempt": 1, "node": "channel-node"}
+        client.submit("d", {"prompt": text(prompts[3]), "max_new_tokens": new, "trace": ctx},
+                      trace=ctx)
+        term = client.terminal("d")
+        spans = sorted(term["trace"]["spans"], key=lambda s: (s["t0"], -s["dur_ms"]))
+        assert term["trace"]["trace_id"] == ctx["trace_id"]
+        assert [s["name"] for s in spans] == list(CHANNEL_WATERFALL), [s["name"] for s in spans]
+        assert all(s["node"] == "channel-node" and s["attempt"] == 1 for s in spans)
+        timing = {}
+        for mode in ("on", "off", "off", "on"):  # in turns
+            n0, f0 = len(eng.decode_step_ms), eng.flight.ticks_recorded
+            tag = f"d_{mode}{len(timing.get(mode, ()))}"
+            sub = []
+            for i, n in enumerate(prompts[:4]):
+                c = ({"trace_id": tracing.new_trace_id(), "attempt": 1, "node": "channel-node"}
+                     if mode == "on" else None)
+                p = {"prompt": text(n), "max_new_tokens": new, **({"trace": c} if c else {})}
+                sub.append(functools.partial(client.submit, f"{tag}_{i}", p, True, c))
+            held_burst(backend, sub)
+            for i in range(len(sub)):
+                client.terminal(f"{tag}_{i}")
+            _wait_idle(backend)
+            n_rows = eng.flight.ticks_recorded - f0
+            rows = eng.flight.snapshot()[-n_rows:] if n_rows else []
+            timing.setdefault(mode, []).append({
+                "device_ms": list(eng.decode_step_ms)[n0:],
+                "tick_ms": [r["dur_ms"] for r in rows if r["mode"] == "decode"]})
+        flight_status, flight = _http(port, "GET", "/debug/flight?last=16")
+        assert flight_status == 200 and len(flight["ticks"]) == 16
+        assert set(flight) == {"node_id", "max_ticks", "ticks_recorded", "trace_buffer_spans",
+                               "trace_spans_dropped", "ticks"}, set(flight)
+        for r in flight["ticks"]:
+            want = JAX_FLIGHT_KEYS | ({"budget_util"} if r["mode"] == "mixed" else set())
+            assert set(r) == want, set(r) ^ want
+
+        def mean(xs):
+            return statistics.fmean(xs) if xs else float("nan")
+
+        out["d"] = {
+            mode: {"device_ms_per_step": mean([x for w in ws for x in w["device_ms"]]),
+                   "tick_ms_decode": mean([x for w in ws for x in w["tick_ms"]]),
+                   "steps": sum(len(w["device_ms"]) for w in ws)}
+            for mode, ws in timing.items()}
+        out["d"]["flight_dur_ms_decode_median"] = statistics.median(
+            [r["dur_ms"] for r in flight["ticks"] if r["mode"] == "decode"] or [float("nan")])
+        # (e) a profiler capture around 2 requests
+        c0 = rpa.launch_counts()
+        st, doc = _http(port, "POST", "/profile/start", {"dir": trace_dir})
+        assert (st, doc) == (200, {"tracing": True, "dir": trace_dir}), (st, doc)
+        for i, n in enumerate(prompts[1:3]):
+            client.submit(f"e{i}", {"prompt": text(n), "max_new_tokens": new}, stream=False)
+        for i in range(2):
+            client.terminal(f"e{i}")
+        st, doc = _http(port, "POST", "/profile/stop", {})
+        assert st == 200 and doc["tracing"] is False, (st, doc)
+        c1 = rpa.launch_counts()
+        with open(doc["file"]) as f:
+            events = json.load(f)["traceEvents"]
+        kernel_events = {k: sum(1 for e in events if k in str(e.get("name", "")))
+                         for k in CHANNEL_KERNELS}
+        graph_launches = sum(1 for e in events if e.get("name") == "cudaGraphLaunch")
+        window = {k: c1[k] - c0[k] for k in ("ragged_decode_split", "ragged_decode_combine",
+                                            "ragged_tiles_tc", "dense_causal_attention",
+                                            "ragged_paged_attention")}
+        out["e"] = {"kernel_events": kernel_events, "launch_counters": window,
+                    "cudaGraphLaunch_events": graph_launches, "events": len(events),
+                    "trace_bytes": os.path.getsize(doc["file"])}
+        if on_card:
+            assert kernel_events["tc_tile_kernel"] > 0, kernel_events
+        # (f) drain with a stream and a channel execution open
+        sse_frames: list = []
+        sse_err: dict = {}
+
+        def sse():
+            try:
+                frames, _ = _sse(port, {"prompt": text(prompts[2]), "max_new_tokens": drain_new},
+                                 lambda i, fr: sse_frames.append(fr))
+            except BaseException as e:  # noqa: BLE001 — failed below
+                sse_err["e"] = repr(e)
+
+        sse_th = threading.Thread(target=sse)
+        sse_th.start()
+        client.submit("f", {"prompt": text(prompts[3]), "max_new_tokens": drain_new})
+        client.wait(lambda: client.count("f", "token") >= 1 and len(sse_frames) >= 1)
+        summary: dict = {}
+        t_stop = time.perf_counter()
+        stopper = threading.Thread(target=lambda: summary.update(server.stop(grace_s)))
+        stopper.start()
+        stopped = True
+        t0 = time.monotonic()
+        while not backend._draining:
+            assert time.monotonic() - t0 < 30
+            time.sleep(0.001)
+        late, late_doc = _http(port, "POST", "/reasoners/generate",
+                               {"input": {"prompt": "late", "max_new_tokens": 4}})
+        assert late == 503, (late, late_doc)
+        stopper.join(grace_s + 60)
+        stop_s = time.perf_counter() - t_stop
+        sse_th.join(60)
+        assert not stopper.is_alive() and not sse_th.is_alive() and "e" not in sse_err, sse_err
+        assert stop_s <= grace_s + 10, stop_s
+        f_term = client.terminal("f", timeout=30)
+        assert f_term["status"] == "completed", f_term
+        assert sum(f["finished"] for f in sse_frames) == 1 and sse_frames[-1]["finished"]
+        assert not eng.has_work()
+        out["f"] = {"stop_s": stop_s, "summary": summary,
+                    "sse_finish": sse_frames[-1]["finish_reason"],
+                    "channel_finish": f_term["result"]["finish_reason"],
+                    "sse_tokens": sum(f["token"] >= 0 for f in sse_frames),
+                    "channel_tokens": client.count("f", "token"), "late_status": late}
+        main_s = time.perf_counter() - t_main
+        launches = rpa.launch_counts()  # the main path's, read now
+    finally:
+        client.close()
+        if not stopped:
+            server.stop(grace_s)
+        shutil.rmtree(trace_dir, ignore_errors=True)
+    if on_card:  # both hand kernels, each of their paths, on this phase's main path
+        for key in ("ragged_paged_attention", "dense_causal_attention", "ragged_decode_split",
+                    "ragged_decode_combine", "ragged_tiles_tc"):
+            assert launches[key] > 0, f"{key} was not launched by the channel phase"
+    assert not any(t.name.startswith("channel-") and t.is_alive()
+                   for t in threading.enumerate()), "a channel thread outlived the node"
+    out.update({"launches": launches, "main_s": main_s,
+                "channel_stats": server.channel.stats_snapshot(), "graphs": eng.graph_stats()})
+    results["channel"] = out
+    card = results.get("card", "no card")
+    a, d, e, f = out["a"], out["d"], out["e"], out["f"]
+    log(f"[channel] {card}: (a) {len(prompts)} streamed = unary = POST ({new} tokens each), "
+        f"first token frame host ms p50 {statistics.median(a['first_frame_ms']):.2f} against "
+        f"the engine's TTFT p50 {statistics.median(a['engine_ttft_ms']):.2f} (frame - TTFT "
+        f"{min(a['over_ttft_ms']):.2f}..{max(a['over_ttft_ms']):.2f} ms); (b) socket dropped "
+        f"after {out['b']['frames_before_drop']} frames, reattach replayed "
+        f"{out['b']['replayed']}, {out['b']['tokens']} tokens = unary, unknown id refused; "
+        f"(c) cancel after {out['c']['tokens_before_cancel']} frames, slot and "
+        f"{out['c']['free_pages']} free pages back; (d) waterfall {list(CHANNEL_WATERFALL)}, "
+        f"decode step device ms tracing on {d['on']['device_ms_per_step']:.3f} / off "
+        f"{d['off']['device_ms_per_step']:.3f}, engine tick host ms on "
+        f"{d['on']['tick_ms_decode']:.3f} / off {d['off']['tick_ms_decode']:.3f}, flight "
+        f"dur_ms p50 {d['flight_dur_ms_decode_median']:.3f}; (e) profile: kernel events "
+        f"{e['kernel_events']}, cudaGraphLaunch {e['cudaGraphLaunch_events']}, launch counters "
+        f"{e['launch_counters']}; (f) stop({grace_s}) in {f['stop_s']:.2f} s: SSE "
+        f"{f['sse_finish']} after {f['sse_tokens']} tokens, channel {f['channel_finish']} "
+        f"after {f['channel_tokens']}, drain {f['summary']}, late request {f['late_status']}; "
         f"main path {main_s:.1f} s, launches {launches}")
 
 
@@ -5176,8 +5624,8 @@ def kernels_line(results) -> dict:
     call, ``call_ms`` the eager call), ``max_abs_err`` the worst over
     every bf16 shape it was held at (for a quantized variant, against the
     plain version with the kernel's semantics, check (b)), ``launches`` from
-    the serve phase of its pool kind and the spec, tier, fork, api, moe and
-    ckpt phases."""
+    the serve phase of its pool kind and the spec, tier, fork, api, channel,
+    moe and ckpt phases."""
     shapes = results["shapes"]
     picks = [
         ("ragged_paged_attention", "llama3_decode_ctx2k/bfloat16", f"{TPU_KERNEL}:61", "serve"),
@@ -5191,10 +5639,10 @@ def kernels_line(results) -> dict:
         held = [r for r in shapes.values() if r["kernel"] == name and r["dtype"] == "bfloat16"]
         entry = {
             "name": name, "route": "cuda", "source": RAGGED_SRC, "replaces": replaces,
-            # the serve's launches and those of the spec, tier, fork, api
-            # and moe phases
+            # the serve's launches and those of the spec, tier, fork, api,
+            # channel, moe and ckpt phases
             "launches": results[serve]["launches"][name] + sum(
-                results[p]["launches"][name] for p in ("spec", "tier", "fork", "api"))
+                results[p]["launches"][name] for p in ("spec", "tier", "fork", "api", "channel"))
             + results["moe"]["launches"].get(name, 0)
             + results.get("ckpt", {}).get("launches", {}).get(name, 0),
             "max_abs_err": max(r["max_abs_err"] for r in held),
@@ -5323,6 +5771,7 @@ def main() -> int:
         phase_tier(results, state, args.seed)
         phase_fork(results, state, args.seed)
         phase_api(results, state, args.seed)
+        phase_channel(results, state, args.seed)
         phase_ckpt(results, state, args.seed, root=args.ckpt_dir)
         state.clear()  # the 8B weights go before the reduced-depth models
         for preset in REDUCED_DEPTH_PRESETS:

@@ -1,9 +1,10 @@
 """The PyTorch port stands alone: no module of ``agentfield_tpu_torch`` and
 not ``chip_smoke.py`` imports JAX, the JAX package (its ``sdk``,
 ``control_plane`` and ``tracing`` included), the repo's tools, or aiohttp,
-pydantic, safetensors, transformers, tokenizers and regex, which the card's
-machine lacks (the checkpoint loader and the tokenizer read their formats
-themselves). jinja2 stays allowed: it comes with torch, and the tokenizer
+pydantic, safetensors, transformers, tokenizers, regex, websockets and
+grpc, which the card's machine lacks (the checkpoint loader and the
+tokenizer read their formats themselves; the channel speaks WebSocket over
+the standard library). jinja2 stays allowed: it comes with torch, and the tokenizer
 imports it only when it renders a chat template.
 
 The check is on the AST, by the exact top-level module name: a prefix test
@@ -20,7 +21,7 @@ import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 FORBIDDEN = {"jax", "jaxlib", "agentfield_tpu", "tools", "aiohttp", "pydantic", "safetensors",
-             "transformers", "tokenizers", "regex"}
+             "transformers", "tokenizers", "regex", "websockets", "grpc"}
 
 
 def _port_files() -> list[pathlib.Path]:
@@ -104,6 +105,20 @@ def test_guard_names_the_hf_libraries(tmp_path):
     tops = [t for _, t in _imported_tops(src)]
     assert [t for t in tops if t in FORBIDDEN] == [
         "safetensors", "transformers", "tokenizers", "regex"]
+
+
+def test_guard_names_the_channel_libraries(tmp_path):
+    src = tmp_path / "m.py"
+    src.write_text(
+        "import websockets\n"
+        "from websockets.sync.client import connect\n"
+        "import grpc\n"
+        "from grpc import aio\n"
+        "from agentfield_tpu_torch.serving import websocket\n"
+        "from agentfield_tpu_torch.serving.channel import ChannelServer\n"
+    )
+    tops = [t for _, t in _imported_tops(src)]
+    assert [t for t in tops if t in FORBIDDEN] == ["websockets", "websockets", "grpc", "grpc"]
 
 
 def test_port_modules_load_nothing_forbidden():

@@ -271,7 +271,7 @@ def test_http_deadline_and_priority_reach_the_engine(weights, node):
         status, doc = _call(port, "/reasoners/generate",
                             {"input": {"tokens": [3], "deadline_s": -1}})
         assert status == 422 and "deadline_s" in doc["error"]
-        assert not backend.engine.pending and not backend._waiting
+        assert not backend.engine.pending and not backend._streams
     finally:
         backend.engine.submit = submit
     _, tree = weights

@@ -29,6 +29,7 @@ import dataclasses
 import http.client
 import inspect
 import json
+import socket
 import threading
 import time
 import urllib.error
@@ -136,6 +137,11 @@ PAYLOADS = {
 }
 
 
+def _span_shapes(spans: list[dict]) -> list[tuple]:
+    return [(s["name"], {k: v for k, v in s.get("attrs", {}).items() if k != "rid"},
+             s.get("node"), s.get("attempt")) for s in spans]
+
+
 def test_sdk_payloads_match_jax(weights, node):
     port, backend = node
     want = _jax_generate(weights, list(PAYLOADS.values()))
@@ -148,9 +154,19 @@ def test_sdk_payloads_match_jax(weights, node):
             assert res["tokens"] == w["tokens"], name
             assert res["finish_reason"] == w["finish_reason"] and res["text"] == w["text"]
             assert res.get("truncated_prompt_tokens") == w.get("truncated_prompt_tokens"), name
-            # a valid trace context gives the JAX node a "trace" key; the
-            # port records no spans yet (ROADMAP: differences that are not faults)
-            assert set(res) == set(w) - {"trace"}, name
+            # a valid trace context gives both nodes a "trace" key: the same
+            # spans, in the same order, with the same attrs (clocks and the
+            # request ids aside; the repeat over HTTP hits the prefix cache
+            # the first call filled, so its prefill's "cached" differs)
+            assert set(res) == set(w), name
+            if "trace" in w:
+                assert res["trace"]["trace_id"] == w["trace"]["trace_id"]
+                want_spans = _span_shapes(w["trace"]["spans"])
+                if res is got:
+                    assert _span_shapes(res["trace"]["spans"]) == want_spans
+                else:
+                    assert [s[0] for s in _span_shapes(res["trace"]["spans"])] == [
+                        s[0] for s in want_spans]
     assert want[2]["truncated_prompt_tokens"] == len(LONG_TOKENS) - (64 - 6)
 
 
@@ -203,7 +219,7 @@ def test_errors_raise_the_jax_class(weights, node):
             assert type(e.value).__name__ == type(w).__name__, (name, e.value, w)
         if name not in UNPORTED and name != "too_long":  # rids differ in that message
             assert str(e.value) == str(w), name
-    assert not backend.engine.pending and not backend._waiting
+    assert not backend.engine.pending and not backend._streams
 
 
 OBSERVATIONS = [("ttft_ms", 0.4), ("ttft_ms", 12.0), ("itl_ms", 1.0), ("itl_ms", 2.5),
@@ -369,8 +385,10 @@ def test_parameters_and_schemas_match_jax_by_name(weights):
     port_gen = list(inspect.signature(model_node.ModelBackend.generate).parameters)
     jax_gen = list(inspect.signature(jax_node.ModelBackend.generate).parameters)
     # the port's generate is synchronous: `timeout` bounds the caller's wait
-    # (the JAX node's caller cancels its task instead)
-    assert [p for p in port_gen if p != "timeout"] == jax_gen
+    # and `on_cancel` takes a channel cancel (the JAX node's caller cancels
+    # its task instead); neither is an input key
+    assert [p for p in port_gen if p not in ("timeout", "on_cancel")] == jax_gen
+    assert not {"timeout", "on_cancel"} & set(model_node.GENERATE_PARAMS)
     assert (list(inspect.signature(model_node.ModelBackend.embed).parameters)
             == list(inspect.signature(jax_node.ModelBackend.embed).parameters))
     # submit_stream: the JAX node's pre-warmed grammar and pre-fused media
@@ -503,7 +521,7 @@ def test_heartbeats_reregister_degrade_and_stop(weights):
         spec = cp.specs[0]
         assert spec["node_id"] == "m1" and spec["kind"] == "model"
         assert spec["metadata"] == {"model": "llama-tiny", "modalities": ["text"],
-                                    "role": "mixed"}
+                                    "role": "mixed", "channel": True}
         assert spec["base_url"] == f"http://127.0.0.1:{port}"
         assert cp.wait(lambda: len(cp.heartbeats) >= 2, 30)
         stats = cp.heartbeats[-1][2]["stats"]
@@ -564,3 +582,280 @@ def test_smoke_api_phase_rehearses_on_cpu(weights, monkeypatch):
     assert api["heartbeats"] >= 2 and api["embed_cosine_min"] > 0.999999
     assert api["d"]["forwards"] == [(1, 60), (4, 50), (2, 80), (1, 100), (1, 120)]
     assert api["embed_cosine_chunked_min"] > 0.999999
+
+
+# -- C2: stop() drains --------------------------------------------------------
+
+
+def _jax_draining_message(weights) -> str:
+    """What the JAX node's admission raises while it drains."""
+    jcfg, tree, _ = weights
+
+    async def main():
+        b = jax_node.ModelBackend(tree, jcfg, jax_node.EngineConfig(**ECFG),
+                                  tokenizer=jax_node.ByteTokenizer(V))
+        b._draining = True
+        with pytest.raises(jax_node.NodeDrainingError) as e:
+            b.submit_stream(prompt="late")
+        return str(e.value)
+
+    return asyncio.run(main())
+
+
+def _frames_until_terminal(resp) -> list[dict]:
+    frames = []
+    for line in resp:
+        if line.startswith(b"data: "):
+            frames.append(json.loads(line[6:]))
+            if frames[-1]["finished"]:
+                break
+    return frames
+
+
+def test_stop_drains_open_streams_and_refuses_new_work(weights, monkeypatch):
+    """C2: an SSE stream and a channel execution are open when ``stop()``
+    is called. Requests during the drain get the JAX node's 503; both open
+    ones end with a terminal frame (``deadline_exceeded`` at the grace);
+    ``stop`` returns within the grace plus 10 s with the engine empty and
+    its offload worker, the channel's threads and the heartbeat gone."""
+    from agentfield_tpu_torch.serving import websocket as wsm
+
+    want_msg = _jax_draining_message(weights)
+    server, backend = build_model_node(
+        "llama-tiny", ecfg=EngineConfig(**ECFG, host_cache_bytes=1 << 20), device="cpu",
+        params=weights[2])
+    port = server.start()
+    step = backend.engine.step
+
+    def slow_step():  # 50 tokens take longer than the grace
+        time.sleep(0.05)
+        return step()
+
+    monkeypatch.setattr(backend.engine, "step", slow_step)
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+    ws = wsm.connect("127.0.0.1", port, "/channel")
+    try:
+        conn.request("POST", "/generate/stream",
+                     json.dumps({"prompt": "drain me", "max_new_tokens": 50}),
+                     {"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        assert resp.status == 200
+        ws.send_text(json.dumps({"kind": "submit", "exec_id": "c1", "target": "generate",
+                                 "headers": {}, "stream": True,
+                                 "input": {"prompt": "drain me too", "max_new_tokens": 50}}))
+        chan = []
+        while not any(f.get("kind") == "token" for f in chan):
+            chan.append(json.loads(ws.recv()[1]))
+        out: dict = {}
+        t0 = time.monotonic()
+        stopper = threading.Thread(target=lambda: out.update(summary=server.stop(grace_s=1.0)))
+        stopper.start()
+        for _ in range(500):
+            if backend._draining:
+                break
+            time.sleep(0.002)
+        status, doc = _call(port, "/reasoners/generate", {"input": {"prompt": "late"}})
+        assert status == 503 and doc["error"] == repr(model_node.NodeDrainingError(want_msg))
+        late = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+        late.request("POST", "/generate/stream", json.dumps({"prompt": "late"}),
+                     {"Content-Type": "application/json"})
+        r = late.getresponse()
+        assert r.status == 503 and json.loads(r.read()) == {"error": want_msg}
+        late.close()
+        frames = _frames_until_terminal(resp)
+        assert frames[-1]["finish_reason"] == "deadline_exceeded"
+        assert sum(f["finished"] for f in frames) == 1
+        while (msg := ws.recv()) is not None:
+            chan.append(json.loads(msg[1]))
+        stopper.join(30)
+        assert not stopper.is_alive() and time.monotonic() - t0 < 1.0 + 10
+    finally:
+        conn.close()
+        ws.release()
+    terms = [f for f in chan if f.get("kind") == "terminal"]
+    assert len(terms) == 1 and terms[0]["status"] == "completed"
+    assert terms[0]["result"]["finish_reason"] == "deadline_exceeded"
+    assert out["summary"]["deadline_outed"] >= 2 and out["summary"]["drained"]
+    assert not backend.engine.has_work()
+    # this node's threads are gone: drive loop, HTTP, offload worker, channel
+    assert backend._thread is None and server._thread is None and server._httpd is None
+    offload = backend.engine.allocator._offload_thread
+    assert offload is None or not offload.is_alive()
+    assert not any(t.name.startswith("channel-") and t.is_alive()
+                   for t in threading.enumerate())
+
+
+def _small_send_buffer(sock: socket.socket) -> None:
+    sock.setsockopt(socket.SOL_SOCKET, socket.SO_SNDBUF, 4096)
+
+
+def _stalled_reader(server, port: int, transport: str) -> socket.socket:
+    """A client that opens 240-token streams over ``transport`` (four
+    channel executions, or one SSE stream) and never reads: its receive
+    buffer, and the node's send buffer, hold a few KiB."""
+    from agentfield_tpu_torch.serving import websocket as wsm
+
+    sock = socket.socket()
+    sock.setsockopt(socket.SOL_SOCKET, socket.SO_RCVBUF, 4096)
+    sock.connect(("127.0.0.1", port))
+    body = {"max_new_tokens": 240}
+    if transport == "sse":
+        raw = json.dumps({"prompt": "never read", **body}).encode()
+        sock.sendall(b"POST /generate/stream HTTP/1.1\r\nHost: x\r\nContent-Type: "
+                     b"application/json\r\nContent-Length: %d\r\n\r\n" % len(raw) + raw)
+        return sock
+    sock.sendall(b"GET /channel HTTP/1.1\r\nHost: x\r\nUpgrade: websocket\r\n"
+                 b"Connection: Upgrade\r\nSec-WebSocket-Key: dGhlIHNhbXBsZSBub25jZQ==\r\n"
+                 b"Sec-WebSocket-Version: 13\r\n\r\n")
+    t0 = time.monotonic()
+    while not server.channel._conns:
+        assert time.monotonic() - t0 < 30, "the channel never opened"
+        time.sleep(0.005)
+    for ws in list(server.channel._conns):
+        _small_send_buffer(ws.sock)
+    for i in range(4):
+        frame = {"kind": "submit", "exec_id": f"s{i}", "target": "generate", "headers": {},
+                 "stream": True, "input": {"prompt": f"never read {i}", **body}}
+        sock.sendall(wsm.encode_frame(wsm.OP_TEXT, json.dumps(frame).encode(), True, b"abcd"))
+    return sock
+
+
+@pytest.mark.parametrize("transport", ["channel", "sse"])
+def test_stop_is_bounded_when_a_reader_stops_reading(weights, monkeypatch, transport):
+    """A gateway (or SSE client) that stops reading mid-stream, frozen with
+    its buffers full: the node's sends block. ``stop(grace_s=1)`` still
+    returns within the grace plus 10 s, the engine empty and the channel's
+    threads gone."""
+    set_timeout = model_node.set_send_timeout
+
+    def small_buffer(sock, seconds):  # the SSE connection's send buffer
+        _small_send_buffer(sock)
+        set_timeout(sock, seconds)
+
+    monkeypatch.setattr(model_node, "set_send_timeout", small_buffer)
+    ecfg = dict(ECFG, num_pages=160, max_pages_per_seq=32)
+    server, backend = build_model_node("llama-tiny", ecfg=EngineConfig(**ecfg), device="cpu",
+                                       params=weights[2])
+    port = server.start()
+    sock = _stalled_reader(server, port, transport)
+    try:
+        # the writer is stuck: its request's events pile up unread
+        t0 = time.monotonic()
+        while not any(q.qsize() >= 20 for q in list(backend._streams.values())):
+            assert time.monotonic() - t0 < 60, "the stream's writer never stalled"
+            time.sleep(0.01)
+        t0 = time.monotonic()
+        out: dict = {}
+        stopper = threading.Thread(target=lambda: out.update(summary=server.stop(grace_s=1.0)))
+        stopper.start()
+        stopper.join(1.0 + 10 + 20)
+        assert not stopper.is_alive() and time.monotonic() - t0 < 1.0 + 10
+    finally:
+        sock.close()
+    assert out["summary"]["drained"] and not backend.engine.has_work()
+    assert backend._thread is None and server._httpd is None and not backend._streams
+    assert not server._tracked  # the SSE writer was cut, not left blocked
+    assert not any(t.name.startswith("channel-") and t.is_alive()
+                   for t in threading.enumerate())
+
+
+def test_backend_stop_leaves_no_caller_waiting(weights, monkeypatch):
+    """``ModelBackend.stop`` without a drain, as the JAX backend's: a
+    waiting ``generate`` fails, an open stream gets a terminal event."""
+    backend = model_node.ModelBackend(weights[2], get_config("llama-tiny"), EngineConfig(**ECFG),
+                                      device="cpu")
+    backend.start()
+    step = backend.engine.step
+
+    def slow_step():
+        time.sleep(0.05)
+        return step()
+
+    monkeypatch.setattr(backend.engine, "step", slow_step)
+    errors: list = []
+
+    def waiter():
+        try:
+            backend.generate(tokens=[1, 2, 3], max_new_tokens=50)
+        except RuntimeError as e:
+            errors.append(e)
+
+    th = threading.Thread(target=waiter)
+    th.start()
+    rid, q, _ = backend.submit_stream(tokens=[4, 5, 6], max_new_tokens=50)
+    for _ in range(500):
+        if backend.engine.num_active == 2:
+            break
+        time.sleep(0.01)
+    backend.stop()
+    th.join(10)
+    assert not th.is_alive() and [str(e) for e in errors] == ["model node stopped"]
+    evs = [q.get(timeout=10)]
+    while not evs[-1].finished:
+        evs.append(q.get(timeout=10))
+    assert evs[-1].finish_reason == "error: model node stopped" and evs[-1].token == -1
+    backend.stop()  # idempotent
+
+
+def _jax_debug_routes(weights) -> dict:
+    """The JAX node's ``/debug/flight`` body and its ``/profile`` refusals,
+    after one request."""
+    from aiohttp.test_utils import TestClient, TestServer
+
+    jcfg, tree, _ = weights
+
+    async def main():
+        agent, backend = jax_node.build_model_node(
+            model="llama-tiny", params=tree, ecfg=jax_node.EngineConfig(**ECFG))
+        backend.cfg = jcfg
+        await backend.start()
+        client = TestClient(TestServer(agent._build_app()))
+        await client.start_server()
+        out = {}
+        try:
+            async with client.post("/reasoners/generate", json={
+                    "input": {"prompt": "flight", "max_new_tokens": 4}}) as r:
+                assert r.status == 200
+            async with client.get("/debug/flight?last=2") as r:
+                out["flight"] = (r.status, await r.json())
+            for action in ("stop", "nope"):
+                async with client.post(f"/profile/{action}") as r:
+                    out[action] = (r.status, await r.json())
+        finally:
+            await client.close()
+            await backend.stop()
+        return out
+
+    return asyncio.run(main())
+
+
+def test_debug_flight_and_profile_match_jax(weights, node, tmp_path):
+    """``GET /debug/flight`` has the JAX node's keys and rows; ``/profile``
+    answers the JAX node's statuses and bodies, and a capture around a
+    request writes a Chrome trace holding the engine thread's ops."""
+    port, backend = node
+    want = _jax_debug_routes(weights)
+    assert _call(port, "/reasoners/generate",
+                 {"input": {"prompt": "flight", "max_new_tokens": 4}})[0] == 200
+    status, doc = _call(port, "/debug/flight?last=2")
+    j_status, j_doc = want["flight"]
+    assert status == j_status == 200 and set(doc) == set(j_doc)
+    assert len(doc["ticks"]) == len(j_doc["ticks"]) == 2
+    assert [set(r) for r in doc["ticks"]] == [set(r) for r in j_doc["ticks"]]
+    assert doc["max_ticks"] == j_doc["max_ticks"] and doc["ticks_recorded"] > 2
+    assert len(_call(port, "/debug/flight")[1]["ticks"]) == doc["ticks_recorded"]
+    for action in ("stop", "nope"):
+        assert _call(port, f"/profile/{action}", {}) == want[action], action
+    assert _call(port, "/profile/start", {"dir": str(tmp_path)}) == (
+        200, {"tracing": True, "dir": str(tmp_path)})
+    assert _call(port, "/profile/start", {"dir": str(tmp_path)}) == (
+        409, {"error": "trace already active"})
+    assert _call(port, "/reasoners/generate",
+                 {"input": {"prompt": "profiled", "max_new_tokens": 4}})[0] == 200
+    status, doc = _call(port, "/profile/stop", {})
+    assert status == 200 and doc["tracing"] is False and doc["dir"] == str(tmp_path)
+    with open(doc["file"]) as f:
+        events = json.load(f)["traceEvents"]
+    names = {e.get("name", "") for e in events}
+    assert any(n.startswith("aten::") for n in names), sorted(names)[:20]
+    assert _call(port, "/profile/stop", {}) == want["stop"]
