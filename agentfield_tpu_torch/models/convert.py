@@ -91,3 +91,24 @@ def params_from_numpy(
     if not cfg.tie_embeddings:
         out["lm_head"] = move(tree["lm_head"], (d, v), "lm_head")
     return out
+
+
+def tower_params_from_numpy(
+    tree: dict[str, Any],
+    cfg: Any,
+    device: str | torch.device = "cuda",
+    dtype: str | torch.dtype | None = None,
+) -> dict[str, Any]:
+    """The JAX package's params of a vision tower, an audio tower, a TTS
+    head or an image-generation head, as numpy arrays (``jax.tree.map(
+    np.asarray, init_vision_params(cfg, key))`` and the like), as the
+    port's tree of the same keys and shapes on ``device`` in ``dtype``
+    (default: ``cfg.dtype``, the config of that tower or head)."""
+    dt = resolve_dtype(dtype or cfg.dtype)
+
+    def move(a):
+        if isinstance(a, dict):
+            return {k: move(v) for k, v in a.items()}
+        return torch.from_numpy(np.array(a, dtype=np.float32)).to(device=device, dtype=dt)
+
+    return move(tree)

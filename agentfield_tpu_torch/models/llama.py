@@ -335,6 +335,7 @@ def forward(
     return_hidden: bool = False,
     valid_mask: torch.Tensor | None = None,  # [B, S] bool: the real tokens
     capacity_tokens: int | None = None,  # sparse MoE: capacity's token count
+    embeds_override: tuple[torch.Tensor, torch.Tensor] | None = None,
 ):
     """Dense causal forward. Returns ``(logits [B, S, V] float32, (k, v)``
     each ``[L, B, S, Kh, hd]`` or None). With ``last_idx`` the logits are
@@ -350,10 +351,18 @@ def forward(
 
     ``valid_mask`` and ``capacity_tokens`` reach a sparse-dispatch MoE FFN
     (``mlp_block``): serving prefills mark their padding False so it takes
-    no expert capacity; every other path ignores them."""
+    no expert capacity; every other path ignores them.
+
+    ``embeds_override=(inject [B, S, D], mask [B, S] bool)`` substitutes
+    non-token embeddings (a vision or audio tower's) at the masked
+    positions, after ``embed_tokens``, cast to its dtype (multimodal early
+    fusion, as the JAX ``forward_impl``)."""
     if attn_impl not in ("ref", "kernel"):
         raise ValueError(f"unknown attn_impl {attn_impl!r} (have 'ref', 'kernel')")
-    x =embed_tokens(params, cfg, tokens)
+    x = embed_tokens(params, cfg, tokens)
+    if embeds_override is not None:
+        inject, inj_mask = embeds_override
+        x = torch.where(inj_mask[..., None], inject.to(x.dtype), x)
     cos, sin = rope_sincos(positions, cfg.head_dim, cfg.rope_theta, cfg.rope_scaling)
     # a window that can't bind within this sequence length is a no-op
     win = cfg.sliding_window

@@ -103,6 +103,15 @@ first sampled token, and ``engine.decode`` at the event that finishes it
 dispatch). Every tick with work appends one row to ``flight``, the flight
 recorder; a tick that raises appends an ``error`` row first.
 
+``Request.mm_embeds`` (the JAX engine's multimodal seam): a prompt whose
+placeholder spans take a vision or audio tower's embeddings prefills whole
+through ``_dense_prefill`` (one ``dense_causal_attention`` launch a layer,
+whatever its length: ``prefill_chunk`` does not cut it), the embeddings
+substituted after the token embedding; a draft prefills the placeholder
+ids. Such a request is kept out of the session and shared-prefix caches,
+batch admission, forks, preemption and the mixed tick, as in the JAX
+engine.
+
 Not ported yet (each a later slice): speculative prefill (the keep-warm
 pins), the cluster tier and handoff.
 """
@@ -255,6 +264,14 @@ class Request:
     # ``tracing.valid_context``); the engine records its lifecycle spans
     # against the id. None = untraced
     trace: dict | None = None
+    # multimodal early fusion: (offset, [k, hidden_size] embeddings) spans
+    # that replace the prompt's placeholder positions [offset, offset + k)
+    # (a tower's output, numpy or a tensor). The prompt prefills whole
+    # through the dense path; such a request never touches the session or
+    # shared-prefix caches, never forks or branches, is never a preemption
+    # victim and never a mixed-tick prefill job (its KV depends on more
+    # than its token ids)
+    mm_embeds: list[tuple[int, Any]] | None = None
 
 
 @dataclasses.dataclass
@@ -706,6 +723,20 @@ class InferenceEngine:
         RequestTooLongError if it can never fit the page budget."""
         if not req.prompt:
             raise ValueError(f"request {req.id}: prompt must be non-empty")
+        if req.mm_embeds:
+            D = self.cfg.hidden_size
+            for off, emb in req.mm_embeds:
+                shape = tuple(emb.shape)
+                if len(shape) != 2 or shape[1] != D:
+                    raise ValueError(
+                        f"request {req.id}: mm_embeds must be [k, {D}] arrays, "
+                        f"got shape {shape}"
+                    )
+                if off < 0 or off + shape[0] > len(req.prompt):
+                    raise ValueError(
+                        f"request {req.id}: mm span [{off}, {off + shape[0]}) "
+                        f"outside the {len(req.prompt)}-token prompt"
+                    )
         if req.grammar is not None:
             if self.ecfg.grammar_slots <= 0:
                 raise ValueError(
@@ -737,10 +768,10 @@ class InferenceEngine:
                 f"request {req.id}: n_branches must be an int >= 1 "
                 f"(got {req.n_branches!r})"
             )
-        if req.n_branches > 1 and req.grammar is not None:
+        if req.n_branches > 1 and (req.grammar is not None or req.mm_embeds):
             # a mid-schema automaton state cannot be forked by re-sampling
-            # the first token (the JAX message names multimodal requests
-            # too, which the port does not serve yet)
+            # the first token, and a multimodal prompt is kept out of every
+            # KV-reuse path a fork rides
             raise ValueError(
                 f"request {req.id}: n_branches > 1 is incompatible with "
                 "grammar-constrained or multimodal requests"
@@ -957,7 +988,7 @@ class InferenceEngine:
     def _session_hit(self, req: Request) -> tuple[_SessionEntry, int] | None:  # guarded by: _session_lock
         """(entry, reusable-token count) on a session prefix hit, without
         mutating the entry (admission may still fail on page starvation)."""
-        if not req.session_id or not self.ecfg.enable_prefix_cache:
+        if not req.session_id or not self.ecfg.enable_prefix_cache or req.mm_embeds:
             return None
         sess = self._sessions.get(req.session_id)
         if sess is None:
@@ -985,7 +1016,7 @@ class InferenceEngine:
     def _cached_prefix_len(self, req: Request) -> int:
         """How many prompt tokens a session or shared-prefix hit would skip
         (no references taken). Drives cache-aware admission ordering."""
-        if not self.ecfg.enable_prefix_cache or len(req.prompt) < 2:
+        if req.mm_embeds or not self.ecfg.enable_prefix_cache or len(req.prompt) < 2:
             return 0
         with self._session_lock:
             if req.session_id and req.session_id in self._sessions:
@@ -1067,14 +1098,14 @@ class InferenceEngine:
                     and req.session_id in self._sessions
                 )
                 index_hit = False
-                if not (chunked or has_sess) and self._shared_prefix:
+                if not (chunked or has_sess or req.mm_embeds) and self._shared_prefix:
                     index_hit = (
                         self.allocator.peek(
                             req.prompt[: len(req.prompt) - 1], hashes=self._prompt_hashes(req)
                         )
                         > 0
                     )
-            if chunked or has_sess or index_hit:
+            if chunked or has_sess or req.mm_embeds or index_hit:
                 if batch:
                     break  # flush the fresh batch first; single path next tick
                 single = self._admit_single(req, free_slot)
@@ -1219,7 +1250,7 @@ class InferenceEngine:
             else:
                 matched: list[int] = []
                 start = 0
-                if self._shared_prefix and len(req.prompt) > 1:
+                if self._shared_prefix and not req.mm_embeds and len(req.prompt) > 1:
                     matched, start = self.allocator.lookup(
                         req.prompt[: len(req.prompt) - 1], hashes=self._prompt_hashes(req)
                     )
@@ -1268,7 +1299,12 @@ class InferenceEngine:
         pages, start, kind = acq
         self._dequeue_acquired(req, kind, start)
         row = build_page_table(pages, self.ecfg.max_pages_per_seq)
-        last_logits = self._prefill(req.prompt[start:], start, row)
+        if req.mm_embeds:
+            # the whole prompt in one dense prefill, whatever its length:
+            # the inject buffer is positioned against the full prompt
+            last_logits = self._dense_prefill([req.prompt], [row], req.mm_embeds)[0]
+        else:
+            last_logits = self._prefill(req.prompt[start:], start, row)
         self.stats["prefill_tokens"] += len(req.prompt) - start
         with self._telemetry_lock:
             self._tick_tokens.append(len(req.prompt) - start)
@@ -1598,7 +1634,7 @@ class InferenceEngine:
         self, req: Request, slot_idx: int, pages: list[int], row: np.ndarray, tok: int,
         logprob: float,
     ) -> TokenEvent:
-        if self._shared_prefix:
+        if self._shared_prefix and not req.mm_embeds:
             # the prompt's KV is final: content-address its full pages now so
             # the rest of a burst reuses them while this one decodes
             with self._session_lock:
@@ -1640,12 +1676,16 @@ class InferenceEngine:
     # device work
     # ------------------------------------------------------------------
 
-    def _dense_prefill(self, prompts: list[list[int]], rows: list[np.ndarray]) -> torch.Tensor:
+    def _dense_prefill(self, prompts: list[list[int]], rows: list[np.ndarray],
+                       mm_embeds=None) -> torch.Tensor:
         """Whole-prompt prefill of fresh prompts from position 0 (one row per
         prompt, padded to the longest): dense causal attention through the
         kernel, then each valid token's K/V scattered into its pages; then
-        the same onto the draft pool (its logits discarded). Returns the
-        target's last-token logits [n, V]."""
+        the same onto the draft pool (its logits discarded). ``mm_embeds``
+        (one prompt's ``Request.mm_embeds``) replaces the target's token
+        embeddings at its spans; the draft, which has no projector for
+        them, prefills the placeholder ids. Returns the target's last-token
+        logits [n, V]."""
         t0 = time.perf_counter()
         n, S = len(prompts), max(len(p) for p in prompts)
         ps, dev = self.ecfg.page_size, self.device
@@ -1666,19 +1706,31 @@ class InferenceEngine:
             torch.from_numpy(page_ids.astype(np.int64)).to(dev),
             torch.from_numpy(slot_ids.astype(np.int64)).to(dev), cap_tokens,
         )
-        logits = self._dense_forward(self._target, *args)
+        override = None
+        if mm_embeds:
+            inject = torch.zeros((1, S, self.cfg.hidden_size), dtype=self._target.params[
+                "embed"].dtype, device=dev)
+            mask = torch.zeros((1, S), dtype=torch.bool, device=dev)
+            for off, emb in mm_embeds:
+                if not isinstance(emb, torch.Tensor):
+                    emb = torch.tensor(np.asarray(emb))  # a copy: JAX arrays are read-only
+                inject[0, off:off + emb.shape[0]] = emb.to(device=dev, dtype=inject.dtype)
+                mask[0, off:off + emb.shape[0]] = True
+            override = (inject, mask)
+        logits = self._dense_forward(self._target, *args, embeds_override=override)
         if self._draft is not None:
             self._dense_forward(self._draft, *args)
         self.timing["prefill_s"] += time.perf_counter() - t0
         return logits
 
     def _dense_forward(self, m: PagedModel, tokens, positions, last_idx, vmask, pid, sid,
-                       cap_tokens: int):
+                       cap_tokens: int, embeds_override=None):
         """``_dense_prefill``'s forward of one model into its own pool, under
         its prefill cfg (padding masked out of sparse MoE dispatch)."""
         logits, (ks, vs) = llama.forward(m.params, _sparse_prefill_cfg(m.cfg, self.ecfg), tokens,
                                          positions, attn_impl="kernel", last_idx=last_idx,
-                                         valid_mask=vmask, capacity_tokens=cap_tokens)
+                                         valid_mask=vmask, capacity_tokens=cap_tokens,
+                                         embeds_override=embeds_override)
         # ks/vs [L, n, S, Kh, hd] -> valid tokens [N, L, Kh, hd]; 1-D index
         # tensors at pool dims 1 and 3 put the token dim first. A quantized
         # pool quantizes each slot on the way in.
@@ -2026,11 +2078,12 @@ class InferenceEngine:
     def _release(self, slot_idx: int, slot: _Slot) -> None:
         sid = slot.req.session_id
         with self._session_lock:
-            if self._shared_prefix and len(slot.tokens) > 1:
+            mm = bool(slot.req.mm_embeds)
+            if self._shared_prefix and not mm and len(slot.tokens) > 1:
                 # publish the GENERATED full pages too (the prompt's were
                 # published at install); the last token's KV was never written
                 self.allocator.publish(slot.tokens[:-1], slot.pages)
-            if sid and self.ecfg.enable_prefix_cache and len(slot.tokens) > 1:
+            if sid and self.ecfg.enable_prefix_cache and len(slot.tokens) > 1 and not mm:
                 # retain the KV for the next turn; free the tail pages that
                 # hold no KV (early stop-token finishes)
                 cached = slot.tokens[:-1]
@@ -2110,8 +2163,8 @@ class InferenceEngine:
         if found is None:
             return False
         _, slot = found
-        if slot.req.grammar is not None:
-            return False  # the install-time exclusion
+        if slot.req.grammar is not None or slot.req.mm_embeds:
+            return False  # the install-time exclusions
         slot_idx = next((i for i, s in enumerate(self.slots) if s is None), None)
         if slot_idx is None or self._slots_available() <= 0:
             return False
@@ -2244,12 +2297,13 @@ class InferenceEngine:
 
     def _victim_slot(self) -> tuple[int, _Slot] | None:
         """The slot a preemption evicts: lowest priority, then the most
-        pages, then the highest index. Grammar-constrained slots are never
-        preempted (a mid-schema automaton state cannot resume through a
-        prompt)."""
+        pages, then the highest index. Grammar-constrained and multimodal
+        slots are never preempted (a mid-schema automaton state cannot
+        resume through a prompt, and a re-prefill from token ids would lose
+        the media)."""
         best = None
         for i, s in enumerate(self.slots):
-            if s is None or s.req.grammar is not None:
+            if s is None or s.req.grammar is not None or s.req.mm_embeds:
                 continue
             key = (s.req.priority, -len(s.pages), -i)
             if best is None or key < best[0]:
@@ -2381,10 +2435,10 @@ class InferenceEngine:
 
     def _mixed_eligible(self, req: Request) -> bool:
         """Prefill jobs carry plain prompts: a grammar request's first-token
-        mask and a branched request's fork (it needs the prompt's last-token
-        logits) are classic-tick features (they admit through the classic
-        path)."""
-        return req.grammar is None and req.n_branches <= 1
+        mask, a multimodal request's inject buffer and a branched request's
+        fork (it needs the prompt's last-token logits) are classic-tick
+        features (they admit through the classic path)."""
+        return req.grammar is None and not req.mm_embeds and req.n_branches <= 1
 
     def _mixed_tick_ready(self) -> bool:
         """Run the packed mixed tick? While prefill jobs are mid-prompt, or

@@ -37,8 +37,25 @@ hints (``kv_peer``, ``handoff_export``, ``handoff``, ``expect_followup``,
 ``followup_candidates``) take the JAX node's degraded path. A ``trace``
 context (``agentfield_tpu_torch.tracing``) rides into the engine: the
 request's lifecycle spans and the node's ``node.generate`` come back under
-the result's ``trace`` key (or on the channel's terminal frame). Media
-inputs and non-text outputs are refused with the module they need.
+the result's ``trace`` key (or on the channel's terminal frame).
+
+Multimodal serving is the JAX node's, with its tower contract
+(``ModelBackend(vision=, audio=, tts=, imagegen=)``: a config name or
+config draws random weights, a checkpoint directory loads CLIP/SigLIP or
+Whisper weights in bf16, a ``(cfg, params)`` pair serves given weights).
+``images``/``audios`` fill a prompt's ``<image>``/``<audio>`` markers: each
+part is decoded (``models.media_codec``: PNG, baseline JPEG, Pillow's
+bicubic resize; ``models.audio.wav_to_float``), encoded by its tower and
+spliced in as placeholder ids plus an embedding span
+(``Request.mm_embeds``). ``output="audio"`` speaks the prompt through the
+TTS head, ``"speech"`` speaks the generated text, ``"image"`` renders the
+prompt through the image-generation head; the parts come back as base64
+WAV or PNG. Every tower and head forward runs on the engine's drive thread
+between two ticks (``_on_engine_thread``), so none overlaps a decode
+step's graph; ``media_ms`` keeps their device times. A node built without
+the tower or head a request needs refuses it with BadRequestError (400),
+in the JAX node's words.
+
 ``embed`` pools the final-norm hidden states of one forward through
 ``dense_causal_attention``, run on the engine's drive thread between ticks.
 
@@ -59,7 +76,8 @@ the JAX ``drain_and_stop``: admission closes (503), in-flight work finishes
 or ends ``deadline_exceeded`` at the grace, so every stream and channel
 execution gets its terminal frame, then the node deregisters and shuts
 down. Answered inline, a request the node cannot serve as sent (unported
-media or output, an invalid schema) answers 400, an input that does not
+a tower or head the node was built without, an invalid schema) answers
+400, an input that does not
 fit the parameters or a bad argument 422, a full queue, a grammar bank or a
 draining node 503. It is built on ``http.server.ThreadingHTTPServer``
 because the card's machine has no aiohttp. The gRPC transport is not
@@ -85,11 +103,14 @@ stores the KV pages quantized, with per-slot scales
 llama-3.2-draft --spec-k 3`` decodes speculatively with a draft preset
 (``load_draft_model``: random weights from the seed) or, given a directory,
 a draft checkpoint (its trained weights in the target's dtype).
+``--vision``, ``--audio``, ``--tts`` and ``--imagegen`` add the towers and
+heads (a config name or a checkpoint directory).
 """
 
 from __future__ import annotations
 
 import argparse
+import base64
 import collections
 import concurrent.futures
 import dataclasses
@@ -99,6 +120,7 @@ import json
 import logging
 import os
 import queue
+import re
 import signal
 import tempfile
 import threading
@@ -109,11 +131,13 @@ import urllib.parse
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Any, Callable
 
+import numpy as np
 import torch
 
 from agentfield_tpu_torch import tracing
 from agentfield_tpu_torch.branching import BranchGroup, validate_branch_spec
-from agentfield_tpu_torch.models import llama
+from agentfield_tpu_torch.models import audio as audio_mod
+from agentfield_tpu_torch.models import image_gen, llama, media_codec, vision as vision_mod
 from agentfield_tpu_torch.models.configs import LlamaConfig, get_config
 from agentfield_tpu_torch.models.llama import init_params
 from agentfield_tpu_torch.models.quant import quantize_params
@@ -150,10 +174,15 @@ log = logging.getLogger(__name__)
 GRAMMAR_SLOTS = 256  # the node's grammar bank rows, as the JAX node builds it
 CONTEXT_OVERFLOW = ("error", "truncate_left")
 OUTPUTS = ("text", "audio", "speech", "image")  # the JAX node's output modalities
-# what a refused modality needs (multimodal is not ported yet)
-_UNPORTED_OUTPUT = {"audio": "TTS head (models/audio.py)",
-                    "speech": "TTS head (models/audio.py)",
-                    "image": "image-generation head (models/image_gen.py)"}
+# a node built without the tower or head a request needs (the JAX node's words)
+NO_VISION = ("this model node has no vision tower (images unsupported); "
+             "start it with vision=<config> to serve image inputs")
+NO_AUDIO = ("this model node has no audio tower (audio inputs "
+            "unsupported); start it with audio=<config> to serve them")
+NO_TTS = ("this model node has no TTS head (audio output unsupported); "
+          "start it with tts=<config> to serve output='audio'/'speech'")
+NO_IMAGEGEN = ("this model node has no image-generation head; start it "
+               "with imagegen=<config> to serve output='image'")
 SPEC_MAX_CANDIDATES = 4  # the JAX EngineConfig.spec_max_candidates default
 SSE_PING_S = 10.0  # a token stream idle this long gets a ": ping" comment frame
 EMBED_CHUNK_TOKENS = 2048  # padded tokens of one embed forward between two ticks
@@ -181,6 +210,52 @@ def _check_branch_compat(response_schema, images, audios) -> None:
         )
     if images or audios:
         raise ValueError("branch decoding does not take media inputs")
+
+
+def _prompt_byte_ids(text: str, max_chars: int) -> tuple[np.ndarray, int, int]:
+    """UTF-8 text → ([1, max_chars] int32 padded byte ids, bytes used, bytes
+    cut): the byte-level heads' truncation (TTS, image generation). A cut
+    inside a multibyte character drops that character's leading bytes too."""
+    full = text.encode("utf-8")
+    data = full
+    if len(full) > max_chars:
+        data = full[:max_chars]
+        i = len(data) - 1
+        while i >= 0 and (data[i] & 0xC0) == 0x80:
+            i -= 1
+        if i >= 0 and data[i] >= 0xC0:
+            lead = data[i]
+            need = 2 if lead < 0xE0 else 3 if lead < 0xF0 else 4
+            if len(data) - i < need:
+                data = data[:i]
+    ids = np.zeros((1, max_chars), np.int32)
+    if data:
+        ids[0, : len(data)] = np.frombuffer(data, np.uint8)
+    return ids, len(data), len(full) - len(data)
+
+
+def _media_model(spec, configs: dict, get_cfg, cfg_type, init, seed: int, device,
+                 load_ckpt=None, lm_hidden: int | None = None, kind: str = ""):
+    """(cfg, params) of a tower or head, or (None, None) for None: a
+    registered config name first, then (towers: ``load_ckpt`` given) a
+    checkpoint directory loaded in bf16 on ``device``, else ``get_cfg``'s
+    known-names error; a config draws random weights from ``seed``; a
+    ``(cfg, params)`` pair passes through. A tower's ``out_dim`` must be
+    ``lm_hidden``."""
+    if spec is None:
+        return None, None
+    if isinstance(spec, str):
+        if spec not in configs and load_ckpt is not None and os.path.isdir(spec):
+            spec = load_ckpt(spec, out_dim=lm_hidden, dtype="bfloat16", device=device)
+        else:
+            spec = get_cfg(spec)
+    if isinstance(spec, cfg_type):
+        spec = (spec, init(spec, seed, device))
+    cfg, params = spec
+    if lm_hidden is not None and cfg.out_dim != lm_hidden:
+        raise ValueError(f"{kind} out_dim={cfg.out_dim} must match the "
+                         f"LM hidden_size={lm_hidden}")
+    return cfg, params
 
 
 def embed_chunks(lens: list[int], budget: int) -> list[list[int]]:
@@ -235,13 +310,40 @@ class ModelBackend:
         device: str | torch.device | None = None,
         idle_sleep: float = 0.002,
         draft: tuple[dict[str, Any], LlamaConfig] | None = None,
+        vision=None,
+        audio=None,
+        tts=None,
+        imagegen=None,
     ):
+        """``vision``/``audio`` (input towers) and ``tts``/``imagegen``
+        (output heads) follow the JAX node's contract: a config name or
+        config object draws random weights from ``seed`` + 1, + 2, + 3 and
+        + 5, a checkpoint directory (towers only) loads pretrained weights
+        in bf16, a ``(cfg, params)`` pair is served as given; the input
+        towers' ``out_dim`` must be the LM's hidden size. All on the
+        engine's device."""
         self.cfg = cfg
         self.model_name = model_name
         self.tokenizer = tokenizer
         if ecfg is None:
             ecfg = EngineConfig(grammar_slots=GRAMMAR_SLOTS)
         self.engine = InferenceEngine(params, cfg, ecfg, seed=seed, device=device, draft=draft)
+        dev = self.engine.device
+        D = cfg.hidden_size
+        self.vision_cfg, self.vision_params = _media_model(
+            vision, vision_mod.CONFIGS, vision_mod.get_vision_config, vision_mod.VisionConfig,
+            vision_mod.init_vision_params, seed + 1, dev, vision_mod.load_clip_vision, D, "vision")
+        self.audio_cfg, self.audio_params = _media_model(
+            audio, audio_mod.CONFIGS, audio_mod.get_audio_config, audio_mod.AudioConfig,
+            audio_mod.init_audio_params, seed + 2, dev, audio_mod.load_whisper_encoder, D, "audio")
+        self.tts_cfg, self.tts_params = _media_model(
+            tts, audio_mod.TTS_CONFIGS, audio_mod.get_tts_config, audio_mod.TTSConfig,
+            audio_mod.init_tts_params, seed + 3, dev)
+        self.imagegen_cfg, self.imagegen_params = _media_model(
+            imagegen, image_gen.CONFIGS, image_gen.get_imagegen_config, image_gen.ImageGenConfig,
+            image_gen.init_imagegen_params, seed + 5, dev)
+        # (kind, device ms) of each tower or head forward: CUDA events
+        self.media_ms: collections.deque[tuple[str, float]] = collections.deque(maxlen=1024)
         self.idle_sleep = idle_sleep
         # canonical schema JSON -> compiled grammar, least recently used out
         self._grammars: collections.OrderedDict[str, Grammar] = collections.OrderedDict()
@@ -414,9 +516,11 @@ class ModelBackend:
         "deadline_exceeded", partial tokens kept); ``priority`` is its
         admission tier; ``n_branches`` > 1 forks it into branches under
         ``branch_policy`` and answers the winner with a ``branches`` summary.
-        ``output`` must be "text" and ``images``/``audios`` empty: the
-        towers and heads they need are not ported (BadRequestError). The
-        routing hints ``kv_peer``, ``handoff_export`` and ``handoff`` are
+        ``images``/``audios`` fill the prompt's ``<image>``/``<audio>``
+        markers through the node's towers; ``output`` "audio" speaks the
+        prompt, "speech" the generated text (a WAV part), "image" renders
+        the prompt (a PNG part), as the JAX node does. The routing hints
+        ``kv_peer``, ``handoff_export`` and ``handoff`` are
         accepted and take the JAX node's degraded path (a local prefill, no
         handoff descriptor); ``followup_candidates`` are validated as the
         JAX node does, and keep-warm is not ported. With a ``trace`` context
@@ -425,7 +529,8 @@ class ModelBackend:
         ``trace`` (``{"trace_id", "spans"}``). Raises QueueFullError
         (NodeDrainingError while draining) / RequestTooLongError / GrammarCapacityError from
         admission, BadRequestError (or the grammar's SchemaError) for a
-        request the node cannot serve, ValueError for a bad argument,
+        request the node cannot serve (a tower or head it was built
+        without among them), ValueError for a bad argument,
         RuntimeError if the engine failed, and TimeoutError after cancelling
         the request (every branch of it) when ``timeout`` runs out.
         ``on_cancel(fn)``, given, registers the hook that cancels the
@@ -446,10 +551,40 @@ class ModelBackend:
             if prompt is not None or tokens is not None:
                 raise ValueError("messages is exclusive with prompt/tokens")
             prompt = self.apply_chat_template(messages)
-        if output != "text":
-            raise BadRequestError(
-                f"output={output!r} needs the {_UNPORTED_OUTPUT[output]}, which this port "
-                "does not have yet; output='text' is served")
+        if output in ("audio", "speech") and self.tts_cfg is None:
+            raise BadRequestError(NO_TTS)  # before any decode
+        if output == "image":
+            if self.imagegen_cfg is None:
+                raise BadRequestError(NO_IMAGEGEN)
+            if images or audios:
+                raise ValueError("output='image' renders the prompt — media inputs would "
+                                 "be silently dropped")
+            if not prompt:
+                raise ValueError("output='image' requires a text prompt")
+            png_b64, cut = self._render_png_b64(prompt)
+            out = {"text": prompt,
+                   "parts": [{"type": "image", "mime": "image/png", "data_b64": png_b64}],
+                   "model": self.model_name, "finish_reason": "imagegen", "tokens": []}
+            if cut:
+                out["imagegen_truncated_chars"] = cut
+            return out
+        if output == "speech" and self.tokenizer is None:
+            raise ValueError("output='speech' needs a tokenizer on this node (the "
+                             "generated text is what gets synthesized)")
+        if output == "audio":
+            if images or audios:
+                raise ValueError("output='audio' speaks the prompt verbatim — media "
+                                 "inputs would be silently dropped; use output='speech' "
+                                 "to understand media and speak the response")
+            if not prompt:
+                raise ValueError("output='audio' requires a text prompt")
+            wav_b64, cut = self._synthesize_wav_b64(prompt)
+            out = {"text": prompt,
+                   "parts": [{"type": "audio", "mime": "audio/wav", "data_b64": wav_b64}],
+                   "model": self.model_name, "finish_reason": "tts", "tokens": []}
+            if cut:
+                out["tts_truncated_chars"] = cut
+            return out
         trace = tracing.valid_context(trace)
         t0 = time.time(), time.perf_counter()
         q: queue.Queue = queue.Queue()
@@ -461,6 +596,11 @@ class ModelBackend:
         if on_cancel is not None:
             on_cancel(lambda: q.put(None))
         result = self.collect_result(rid, q, truncated, trace, t0, timeout=timeout)
+        if output == "speech":  # speak the generated text
+            wav_b64, cut = self._synthesize_wav_b64(result.get("text", ""))
+            result["parts"] = [{"type": "audio", "mime": "audio/wav", "data_b64": wav_b64}]
+            if cut:
+                result["tts_truncated_chars"] = cut
         if trace is not None:
             result["trace"] = {"trace_id": trace["trace_id"],
                                "spans": self.collect_trace_spans(trace)}
@@ -544,13 +684,14 @@ class ModelBackend:
         truncated)``."""
         if self._draining:
             raise NodeDrainingError("node is draining (rolling restart): not admitting new work")
+        mm_embeds = None
         if images or audios:
-            what = ("image inputs need the vision tower (models/vision.py)" if images else
-                    "audio inputs need the audio tower (models/audio.py)")
-            raise BadRequestError(
-                f"{what} and the node's media fusion, which this port does not have yet; "
-                "send text only")
-        if tokens is None:
+            if tokens is not None:
+                raise ValueError("media inputs require a text 'prompt', not 'tokens'")
+            if prompt is None:
+                raise ValueError("media inputs require a text 'prompt'")
+            tokens, mm_embeds = self._fuse_media(prompt, images, audios)
+        elif tokens is None:
             if prompt is None:
                 raise ValueError("one of 'prompt' or 'tokens' is required")
             if self.tokenizer is None:
@@ -559,7 +700,15 @@ class ModelBackend:
         if context_overflow not in CONTEXT_OVERFLOW:
             raise ValueError(f"unknown context_overflow policy {context_overflow!r}")
         truncated = 0
-        if context_overflow == "truncate_left":
+        if mm_embeds and context_overflow == "truncate_left":
+            # a cut would sever a media span: an over-long multimodal prompt fails
+            budget = self.engine.ecfg.max_context - max_new_tokens
+            if len(tokens) > budget:
+                raise RequestTooLongError(
+                    f"multimodal prompt ({len(tokens)} tokens incl. media "
+                    f"embeddings) exceeds the {budget}-token budget and "
+                    "cannot be truncated")
+        elif context_overflow == "truncate_left":
             budget = self.engine.ecfg.max_context - max_new_tokens
             if budget < 1:
                 raise ValueError(
@@ -613,6 +762,7 @@ class ModelBackend:
                     priority=priority,
                     n_branches=n_branches,
                     trace=trace,
+                    mm_embeds=mm_embeds,
                 )
             )
         except Exception:
@@ -655,6 +805,129 @@ class ModelBackend:
             if toks:
                 out.append(toks)
         return out or None
+
+    def _device_job(self, fn, on_ms: Callable[[float], None]):
+        """Run ``fn`` on the drive thread between two ticks
+        (``_on_engine_thread``) and return its result; on the card its
+        device time (CUDA events, synchronized) goes to ``on_ms``."""
+        def run():
+            if self.engine.device.type != "cuda":
+                return fn()
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            out = fn()
+            b.record()
+            b.synchronize()
+            on_ms(a.elapsed_time(b))
+            return out
+
+        return self._on_engine_thread(run)
+
+    def _tower_call(self, kind: str, fn):
+        """A tower or head forward as a ``_device_job``, its device ms kept
+        in ``media_ms`` under ``kind``."""
+        return self._device_job(fn, lambda ms: self.media_ms.append((kind, ms)))
+
+    def _decode_image(self, item) -> np.ndarray:
+        """One wire image → [S, S, 3] float32 in [0, 1]: encoded bytes, a
+        ``{"b64": ...}`` PNG or JPEG, or a nested list / array of pixels in
+        [0, 1] (clipped); resized to the tower's size as Pillow resizes."""
+        S = self.vision_cfg.image_size
+        raw = None
+        if isinstance(item, (bytes, bytearray)):
+            raw = bytes(item)
+        elif isinstance(item, dict) and "b64" in item:
+            raw = base64.b64decode(item["b64"])
+        if raw is not None:
+            img = media_codec.resize_bicubic(media_codec.decode_image(raw), (S, S))
+            return img.astype(np.float32) / 255.0
+        arr = np.asarray(item, np.float32)
+        if arr.ndim != 3 or arr.shape[-1] != 3:
+            raise ValueError(f"image array must be [H, W, 3], got {arr.shape}")
+        arr = np.clip(arr, 0.0, 1.0)
+        if arr.shape[0] != S or arr.shape[1] != S:
+            img = media_codec.resize_bicubic((arr * 255).astype(np.uint8), (S, S))
+            arr = img.astype(np.float32) / 255.0
+        return arr
+
+    def _decode_audio(self, item) -> np.ndarray:
+        """One wire audio part → [max_samples] float32 in [-1, 1]: WAV
+        bytes, ``{"b64": <WAV>}``, or an array of samples."""
+        cfg = self.audio_cfg
+        raw = None
+        if isinstance(item, (bytes, bytearray)):
+            raw = bytes(item)
+        elif isinstance(item, dict) and "b64" in item:
+            raw = base64.b64decode(item["b64"])
+        if raw is not None:
+            return audio_mod.wav_to_float(raw, cfg.sample_rate, cfg.max_samples)
+        x = np.asarray(item, np.float32).reshape(-1)
+        out = np.zeros((cfg.max_samples,), np.float32)
+        n = min(len(x), cfg.max_samples)
+        out[:n] = np.clip(x[:n], -1.0, 1.0)
+        return out
+
+    def _fuse_media(self, prompt: str, images: list | None,
+                    audios: list | None) -> tuple[list[int], list]:
+        """Tokenize a prompt with ``<image>``/``<audio>`` markers: each
+        part is decoded on the calling thread, encoded by its tower (one
+        batch a modality, on the drive thread) and spliced in as
+        placeholder ids (0) plus its embedding span. Returns (tokens,
+        ``Request.mm_embeds``)."""
+        images, audios = images or [], audios or []
+        if images and self.vision_cfg is None:
+            raise BadRequestError(NO_VISION)
+        if audios and self.audio_cfg is None:
+            raise BadRequestError(NO_AUDIO)
+        if self.tokenizer is None:
+            raise ValueError("multimodal inputs need a tokenizer (text prompt)")
+        pieces = re.split(r"(<image>|<audio>)", prompt)
+        n_img, n_aud = pieces.count("<image>"), pieces.count("<audio>")
+        if n_img != len(images) or n_aud != len(audios):
+            raise ValueError(
+                f"prompt has {n_img} <image> + {n_aud} <audio> markers for "
+                f"{len(images)} images + {len(audios)} audio parts")
+        dev = self.engine.device
+        embs: dict[str, list] = {"<image>": [], "<audio>": []}
+        if images:
+            batch = torch.from_numpy(np.stack([self._decode_image(im) for im in images]))
+            embs["<image>"] = list(self._tower_call("vision", lambda: vision_mod.vision_encode(
+                self.vision_params, self.vision_cfg, batch.to(dev))))
+        if audios:
+            batch = torch.from_numpy(np.stack([self._decode_audio(a) for a in audios]))
+            embs["<audio>"] = list(self._tower_call("audio", lambda: audio_mod.audio_encode(
+                self.audio_params, self.audio_cfg, batch.to(dev))))
+        tokens: list[int] = []
+        mm: list[tuple[int, torch.Tensor]] = []
+        for piece in pieces:
+            if piece in embs:
+                emb = embs[piece].pop(0)
+                mm.append((len(tokens), emb))
+                tokens.extend([0] * emb.shape[0])
+            elif piece:
+                tokens.extend(self.tokenizer.encode(piece))
+        return tokens, mm
+
+    def _synthesize_wav_b64(self, text: str) -> tuple[str, int]:
+        """Text → (base64 WAV, bytes cut) through the TTS head, trimmed to
+        the speakable span of the text kept."""
+        if self.tts_cfg is None:
+            raise BadRequestError(NO_TTS)
+        cfg = self.tts_cfg
+        ids, n_bytes, cut = _prompt_byte_ids(text, cfg.max_chars)
+        wav = self._tower_call("tts", lambda: audio_mod.tts_synthesize(
+            self.tts_params, cfg, torch.from_numpy(ids).to(self.engine.device))[0].cpu())
+        n = max(1, n_bytes) * cfg.frames_per_char * cfg.samples_per_frame
+        wav_bytes = audio_mod.float_to_wav(wav.numpy()[:n], cfg.sample_rate)
+        return base64.b64encode(wav_bytes).decode(), cut
+
+    def _render_png_b64(self, text: str) -> tuple[str, int]:
+        """Prompt → (base64 PNG, bytes cut) through the image-generation head."""
+        cfg = self.imagegen_cfg
+        ids, _, cut = _prompt_byte_ids(text, cfg.max_chars)
+        img = self._tower_call("imagegen", lambda: image_gen.imagegen_synthesize(
+            self.imagegen_params, cfg, torch.from_numpy(ids).to(self.engine.device))[0].cpu())
+        return base64.b64encode(image_gen.image_to_png(img.numpy())).decode(), cut
 
     def apply_chat_template(self, messages: list[dict]) -> str:
         """[{role, content}] → one prompt string: the checkpoint's own chat
@@ -744,22 +1017,11 @@ class ModelBackend:
                 truncated_rows.append(0)
         lens = [len(r) for r in token_rows]
 
-        def run(rows: list[list[int]]) -> torch.Tensor:
-            params = self.engine.params
-            if self.engine.device.type != "cuda":
-                return embed_rows(params, self.cfg, rows, pooling).cpu()
-            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            a.record()
-            v = embed_rows(params, self.cfg, rows, pooling)
-            b.record()
-            v = v.cpu()  # waits for the forward
-            self.embed_ms.append(a.elapsed_time(b))
-            return v
-
         vecs = torch.empty((len(token_rows), self.cfg.hidden_size))
         for chunk in embed_chunks(lens, EMBED_CHUNK_TOKENS):
-            vecs[chunk] = self._on_engine_thread(
-                functools.partial(run, [token_rows[i] for i in chunk]))
+            vecs[chunk] = self._device_job(functools.partial(
+                embed_rows, self.engine.params, self.cfg, [token_rows[i] for i in chunk],
+                pooling), self.embed_ms.append).cpu()
         base = {"dim": int(vecs.shape[1]), "model": self.model_name, "pooling": pooling}
         if batch_mode:
             out = {**base, "embeddings": vecs.tolist(), "tokens_used": lens}
@@ -808,8 +1070,10 @@ class ModelBackend:
     def prep_stream_kwargs(self, body: dict) -> dict:
         """The ``submit_stream`` arguments of a ``/generate/stream`` body
         (the JAX node's ``_prep_stream_kwargs``): known keys that are not
-        null, ``messages`` through the chat template, text output only;
-        ``kv_peer`` is a transport hint and never reaches the engine."""
+        null, ``messages`` through the chat template, text output only
+        (``images``/``audios`` are fused in ``_submit``, as the JAX node
+        pre-fuses them); ``kv_peer`` is a transport hint and never reaches
+        the engine."""
         kw = {k: body[k] for k in STREAM_PARAMS if body.get(k) is not None}
         if body.get("messages") is not None:
             if kw.get("prompt") is not None or kw.get("tokens") is not None:
@@ -1165,7 +1429,12 @@ class ModelNodeServer:
         self.node_id = node_id
         self.client = ControlPlaneClient(control_plane) if control_plane else None
         self.heartbeat_interval = heartbeat_interval
-        self.metadata = {"model": backend.model_name, "modalities": ["text"], "role": "mixed",
+        # the served modalities, as the JAX node advertises them (the SDK
+        # routes a capability-needing call to a node that has it)
+        modalities = ["text"] + [m for m, have in (
+            ("image-in", backend.vision_cfg), ("audio-in", backend.audio_cfg),
+            ("audio-out", backend.tts_cfg), ("image-out", backend.imagegen_cfg)) if have]
+        self.metadata = {"model": backend.model_name, "modalities": modalities, "role": "mixed",
                          "channel": True}
         self.connection_state = "connected"  # "degraded" after failed heartbeats
         self.components = {"generate": (backend.generate, GENERATE_PARAMS),
@@ -1602,6 +1871,10 @@ def build_model_node(
     control_plane: str | None = None,
     quant: str | None = None,
     checkpoint: str | None = None,
+    vision=None,
+    audio=None,
+    tts=None,
+    imagegen=None,
 ) -> tuple[ModelNodeServer, ModelBackend]:
     """Construct ``(server, backend)`` for a preset: random weights drawn
     from ``seed`` on ``device`` unless ``params`` are given, the byte
@@ -1623,7 +1896,9 @@ def build_model_node(
     the target's dtype). With ``control_plane`` (its base URL) the server
     registers as ``node_id`` and heartbeats. Call ``server.start(port=...)``.
     A checkpoint under ``quant="int8"`` is quantized as it loads, one
-    matrix at a time, so its fp stacks are never held whole either."""
+    matrix at a time, so its fp stacks are never held whole either.
+    ``vision``, ``audio``, ``tts`` and ``imagegen`` are ``ModelBackend``'s
+    tower and head contract (the JAX node's)."""
     if quant is not None and quant != "int8":
         raise ValueError(f"unknown quant mode {quant!r} (have: 'int8')")
     if checkpoint:
@@ -1655,7 +1930,7 @@ def build_model_node(
         tokenizer = ByteTokenizer(cfg.vocab_size)
     backend = ModelBackend(
         params, cfg, ecfg, tokenizer=tokenizer, seed=seed, model_name=model, device=device,
-        draft=draft,
+        draft=draft, vision=vision, audio=audio, tts=tts, imagegen=imagegen,
     )
     return ModelNodeServer(backend, node_id=node_id, control_plane=control_plane), backend
 
@@ -1682,6 +1957,12 @@ def main(argv: list[str] | None = None) -> None:
     ap.add_argument("--control-plane", default=None, metavar="URL",
                     help="register with this control plane and heartbeat to it")
     ap.add_argument("--node-id", default="model", help="the node's id in the control plane")
+    for flag, what in (("--vision", "vision tower for <image> inputs"),
+                       ("--audio", "audio tower for <audio> inputs"),
+                       ("--tts", "TTS head for output='audio'/'speech'"),
+                       ("--imagegen", "image-generation head for output='image'")):
+        ap.add_argument(flag, default=None,
+                        help=f"{what}: a config name (random weights) or a checkpoint directory")
     args = ap.parse_args(argv)
     grace_s = float(os.environ.get("AGENTFIELD_DRAIN_GRACE", DRAIN_GRACE_S))
     server, _ = build_model_node(
@@ -1689,6 +1970,7 @@ def main(argv: list[str] | None = None) -> None:
         ecfg=EngineConfig(grammar_slots=GRAMMAR_SLOTS, kv_quant_dtype=args.kv_quant_dtype),
         spec_draft=args.spec_draft, spec_k=args.spec_k, node_id=args.node_id,
         control_plane=args.control_plane, quant=args.quant, checkpoint=args.checkpoint,
+        vision=args.vision, audio=args.audio, tts=args.tts, imagegen=args.imagegen,
     )
 
     # SIGTERM and Ctrl-C drain (the JAX install_sigterm_drain); a second

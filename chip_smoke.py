@@ -191,7 +191,22 @@ the result line:
                ``stop(grace_s=1)`` with a 400-token SSE stream and channel
                execution open (both get a terminal, a late request 503).
                ``[channel]`` line.
-13b. ``ckpt``   the serve's weights as a Hugging Face checkpoint
+13b. ``media``  multimodal serving on the same weights (``phase_media``):
+               a vision tower at CLIP ViT-L/14-336 geometry (576 positions
+               an image), an audio tower at Whisper-large-v3 encoder
+               geometry (1500 positions for 30 s), ``tts-base`` and
+               ``imagegen-base``, random bf16 weights; over HTTP an
+               ``Agent.ai()`` payload with a PNG and a baseline JPEG of
+               seeded 640x480 pictures (the node's own codecs), a 30 s WAV,
+               both in one prompt (each injected prefill one
+               ``dense_causal_attention`` launch a layer, its TTFT beside a
+               text prompt of its length), ``output`` "audio", "speech" and
+               "image" (parts decoded back), and a live decode while towers
+               run (tokens unchanged, its largest frame gap); the injected
+               prompt's last logits, kernel vs plain, within the forward
+               phase's bf16 bound. ``[media]`` lines: tower ms, TTFTs,
+               launches, the frame gap, peak memory, the phase's seconds.
+13c. ``ckpt``   the serve's weights as a Hugging Face checkpoint
                (``phase_ckpt``): written in bf16 as Meta-Llama-3-8B's four
                shards with the index, the published ``config.json``, a
                Llama-3-form ``tokenizer.json`` (merges the smoke learns from
@@ -3755,6 +3770,373 @@ W8_BURST_PROMPTS = (700, 1100)  # then these arrive (chunks of the 512 budget)
 W8_SPEC_PROMPTS = (200, 600, 1000, 1500)
 
 
+# the media phase's towers at the geometry of their published checkpoints,
+# as models.vision.load_clip_vision maps openai/clip-vit-large-patch14-336
+# and models.audio.load_whisper_encoder maps openai/whisper-large-v3 (random
+# weights from the seed; out_dim is Llama-3-8B's width)
+MEDIA_VISION = dict(image_size=336, patch_size=14, hidden_size=1024, num_layers=24,
+                    num_heads=16, mlp_ratio=4, out_dim=4096, layer_norm_eps=1e-5,
+                    dtype="bfloat16", class_token=True, pre_ln=True, final_ln=False,
+                    act="quick_gelu", pixel_mean=(0.48145466, 0.4578275, 0.40821073),
+                    pixel_std=(0.26862954, 0.26130258, 0.27577711))
+MEDIA_AUDIO = dict(sample_rate=16000, n_fft=400, hop=160, n_mels=128, max_seconds=30.0,
+                   hidden_size=1280, num_layers=32, num_heads=20, mlp_ratio=4, out_dim=4096,
+                   dtype="bfloat16", frontend="conv", mel_impl="whisper", gelu_exact=True)
+MEDIA_IMAGE_HW = (480, 640)  # the seeded pictures, written as PNG and baseline JPEG
+MEDIA_WAV_S = 30.0
+MEDIA_NEW = 16
+MEDIA_LIVE_NEW = 256  # the decode that streams while towers run
+MEDIA_PAGES = 1024
+MEDIA_PAGES_PER_SEQ = 160  # 2560 tokens: an image, a 30 s clip and text
+# phase_media at llama-tiny size on the CPU (tests/test_torch_multimodal_serving.py)
+MEDIA_REHEARSAL = dict(
+    vision=dict(image_size=32, patch_size=8, hidden_size=64, num_layers=2, num_heads=4,
+                out_dim=128, dtype="float32", class_token=True, pre_ln=True, final_ln=False,
+                act="quick_gelu", pixel_mean=MEDIA_VISION["pixel_mean"],
+                pixel_std=MEDIA_VISION["pixel_std"]),
+    audio=dict(n_fft=128, hop=64, n_mels=16, max_seconds=1.0, hidden_size=32, num_layers=2,
+               num_heads=2, out_dim=128, dtype="float32", frontend="conv", mel_impl="whisper",
+               gelu_exact=True),
+    tts="tts-tiny", imagegen="imagegen-tiny", image_hw=(48, 64), wav_s=1.0, new=4,
+    live_new=200, live_prompt_len=100, num_pages=128, max_pages_per_seq=32)
+
+
+def media_picture(rng, hw: tuple[int, int]):
+    """A seeded [H, W, 3] uint8 picture: smooth colour fields (a coarse
+    random grid upsampled bicubically) plus fine noise, as a photo or a
+    screenshot has both."""
+    import numpy as np
+
+    from agentfield_tpu_torch.models import media_codec
+
+    h, w = hw
+    coarse = rng.integers(0, 256, (max(2, h // 32), max(2, w // 32), 3), dtype=np.uint8)
+    base = media_codec.resize_bicubic(coarse, (w, h)).astype(np.int16)
+    return np.clip(base + rng.integers(-12, 13, (h, w, 3)), 0, 255).astype(np.uint8)
+
+
+def media_screenshot(rng, hw: tuple[int, int]):
+    """A seeded screenshot of 16 flat colours as a 4-bit palette PNG, the
+    way Pillow writes an image of up to 16 colours (rows unfiltered, as
+    libpng leaves palette rows); returns (PNG bytes, its [H, W, 3] pixels)."""
+    import struct
+    import zlib
+
+    import numpy as np
+
+    from agentfield_tpu_torch.models import media_codec
+
+    h, w = hw
+    palette = rng.integers(0, 256, (16, 3), dtype=np.uint8)
+    blocks = rng.integers(0, 16, (-(-h // 16), -(-w // 16)), dtype=np.uint8)
+    idx = np.repeat(np.repeat(blocks, 16, axis=0), 16, axis=1)[:h, :w]
+    even = np.pad(idx, ((0, 0), (0, w % 2)))
+    rows = np.concatenate([np.zeros((h, 1), np.uint8), (even[:, 0::2] << 4) | even[:, 1::2]], axis=1)
+    png = (media_codec.PNG_SIG
+           + media_codec._png_chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 4, 3, 0, 0, 0))
+           + media_codec._png_chunk(b"PLTE", palette.tobytes())
+           + media_codec._png_chunk(b"IDAT", zlib.compress(rows.tobytes(), 6))
+           + media_codec._png_chunk(b"IEND", b""))
+    return png, palette[idx]
+
+
+def media_clip(rng, seconds: float, rate: int = 16000):
+    """A seeded voice-note stand-in: three gliding tones under noise, in (-1, 1)."""
+    import numpy as np
+
+    t = np.arange(int(seconds * rate)) / rate
+    f = rng.uniform(120, 900, 3)
+    x = sum(np.sin(2 * np.pi * (fi + 40 * np.sin(0.3 * t)) * t) for fi in f) / 4
+    return (x + 0.05 * rng.standard_normal(len(t))).astype(np.float32)
+
+
+def phase_media(results, state, seed: int, device: str = "cuda", vision=None, audio=None,
+                tts: str = "tts-base", imagegen: str = "imagegen-base",
+                image_hw: tuple[int, int] = MEDIA_IMAGE_HW, wav_s: float = MEDIA_WAV_S,
+                new: int = MEDIA_NEW, live_new: int = MEDIA_LIVE_NEW, live_prompt_len: int = 300,
+                num_pages: int = MEDIA_PAGES, max_pages_per_seq: int = MEDIA_PAGES_PER_SEQ):
+    """Multimodal serving on the serve's weights (``results["media"]``): the
+    node built with a vision tower at CLIP ViT-L/14-336 geometry, an audio
+    tower at Whisper-large-v3 encoder geometry (``MEDIA_VISION``,
+    ``MEDIA_AUDIO``), ``tts-base`` and ``imagegen-base``, random weights
+    from the seed in bf16; a PNG and a baseline JPEG of seeded 640x480
+    pictures (``media_codec``'s own encoders, decoded back and checked), a
+    4-bit palette PNG screenshot (``media_screenshot``) and a 30 s WAV. Counts reset, then over HTTP:
+    (a) ``Agent.ai()``'s payload with both pictures (2 x 576 positions);
+    (b) the 30 s clip (1500 positions); (c) the screenshot and the clip in
+        one prompt; each injected prefill adds one ``dense_causal_attention``
+        launch a layer, and its TTFT is set beside a text prompt of the same
+        token count;
+    (d) ``output`` "audio", "speech" and "image": their WAV and PNG parts
+        decode back through ``media_codec``/``wave`` at the heads' sizes;
+    (e) a 256-token decode streams while an image and a clip request run:
+        its tokens equal an idle run's, and its largest frame gap is the
+        tower forwards and the injected prefill between two of its ticks.
+    After the counts: (a)'s injected prompt in one forward with the kernel
+    and with ``attn_impl="ref"``, the last logits within the bound
+    ``phase_forward`` held full-width logits to (1e-4 of max |logit| on
+    the CPU, float32). Prints ``[media]`` lines: each tower's and head's
+    device ms (CUDA events), the TTFTs, the launches, the frame gap, peak
+    device memory and the phase's seconds."""
+    import base64
+    import io
+    import wave
+
+    import numpy as np
+    import torch
+
+    from agentfield_tpu_torch.models import audio as audio_mod
+    from agentfield_tpu_torch.models import llama, media_codec
+    from agentfield_tpu_torch.models.vision import VisionConfig
+    from agentfield_tpu_torch.ops.cuda import ragged_paged_attention as rpa
+    from agentfield_tpu_torch.serving.engine import EngineConfig
+    from agentfield_tpu_torch.serving.model_node import (
+        ModelBackend,
+        ModelNodeServer,
+        _prompt_byte_ids,
+    )
+    from agentfield_tpu_torch.serving.tokenizer import ByteTokenizer
+
+    t_phase = time.perf_counter()
+    params, cfg = state["params"], state["cfg"]
+    V = cfg.vocab_size
+    on_card = torch.device(device).type == "cuda"
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    rng = np.random.default_rng(seed + 41)
+    vcfg = VisionConfig(**(MEDIA_VISION if vision is None else vision))
+    acfg = audio_mod.AudioConfig(**(MEDIA_AUDIO if audio is None else audio))
+    ecfg = EngineConfig(max_batch=16, page_size=16, num_pages=num_pages,
+                        max_pages_per_seq=max_pages_per_seq, decode_buckets=(4, 16),
+                        shared_prefix_cache=False)
+    t_build = time.perf_counter()
+    backend = ModelBackend(params, cfg, ecfg, tokenizer=ByteTokenizer(V), seed=seed,
+                           model_name="llama-3-8b", device=device, vision=vcfg, audio=acfg,
+                           tts=tts, imagegen=imagegen)
+    if on_card:
+        torch.cuda.synchronize()
+    build_s = time.perf_counter() - t_build
+    tower_bytes = {k: sum(t.numel() * t.element_size() for t in _leaves(p)) for k, p in (
+        ("vision", backend.vision_params), ("audio", backend.audio_params),
+        ("tts", backend.tts_params), ("imagegen", backend.imagegen_params))}
+    server = ModelNodeServer(backend, node_id="media-node")
+    assert server.metadata["modalities"] == ["text", "image-in", "audio-in", "audio-out",
+                                             "image-out"], server.metadata
+    # the media, written and read back by the node's own codecs
+    t_codec = time.perf_counter()
+    pics = [media_picture(rng, image_hw) for _ in range(2)]
+    png = media_codec.encode_png(pics[0])  # a filter a row by libpng's rule
+    jpeg = media_codec.encode_jpeg(pics[1], quality=90, subsampling="4:2:0")
+    shot, shot_px = media_screenshot(rng, image_hw)
+    decode_ms, decoded = {}, {}
+    for name, fn, data in (("png", media_codec.decode_png, png), ("jpeg", media_codec.decode_jpeg,
+                                                                    jpeg),
+                           ("shot", media_codec.decode_png, shot)):
+        t0 = time.perf_counter()
+        decoded[name] = fn(data)
+        decode_ms[name] = (time.perf_counter() - t0) * 1e3  # host ms, as the node decodes it
+    assert np.array_equal(decoded["png"], pics[0]), "PNG round trip"
+    assert np.array_equal(decoded["shot"], shot_px), "palette PNG round trip"
+    jpeg_err = float(np.abs(decoded["jpeg"].astype(np.float64) - pics[1]).mean())
+    assert jpeg_err < 8.0, f"JPEG round trip mean |d| {jpeg_err}"
+    wav = audio_mod.float_to_wav(media_clip(rng, wav_s), acfg.sample_rate)
+    encode_s = time.perf_counter() - t_codec
+    b64 = {"png": base64.b64encode(png).decode(), "jpeg": base64.b64encode(jpeg).decode(),
+           "shot": base64.b64encode(shot).decode(), "wav": base64.b64encode(wav).decode()}
+    P, A = vcfg.num_patches, acfg.n_tokens
+
+    def text(n: int) -> str:  # ASCII letters: one byte-tokenizer token each
+        return "".join(chr(c) for c in rng.integers(97, 123, n))
+
+    prompts = {
+        "image": "Describe these two pictures:\n<image>\n<image>\nWhat differs between them?",
+        "audio": "Transcribe this voice note:\n<audio>",
+        "mixed": "Here is a screenshot:\n<image>\nand a voice note about it:\n<audio>\nReply.",
+    }
+    media = {"image": dict(images=[{"b64": b64["png"]}, {"b64": b64["jpeg"]}]),
+             "audio": dict(audios=[{"b64": b64["wav"]}]),
+             "mixed": dict(images=[{"b64": b64["shot"]}], audios=[{"b64": b64["wav"]}])}
+    n_media = {"image": 2 * P, "audio": A, "mixed": P + A}
+    out: dict = {"build_s": build_s, "tower_bytes": tower_bytes, "positions": {
+        "image": P, "audio": A}, "png_bytes": len(png), "jpeg_bytes": len(jpeg), "shot_bytes": len(shot),
+        "wav_bytes": len(wav), "jpeg_round_trip_mean_abs": jpeg_err, "encode_s": encode_s,
+        "decode_ms": decode_ms}
+    port = server.start()
+    try:
+        rpa.reset_launches()  # this phase's main path only
+        t_main = time.perf_counter()
+
+        def gen(payload):
+            st, doc = _http(port, "POST", "/reasoners/generate", {"input": payload})
+            assert st == 200, (st, doc)
+            return doc["result"]
+
+        answered, mm_ttft, text_ttft, dense, host_ms = [], {}, {}, {}, {}
+        # (a)-(c): the injected prefills, each twice (the first pays the
+        # towers' and libraries' first use: cuFFT, cuDNN), beside a text
+        # prompt of its length
+        for kind in ("image", "audio", "mixed"):
+            runs = []
+            for _ in range(2):
+                d0 = rpa.LAUNCHES["dense_causal_attention"]
+                t0 = time.perf_counter()
+                res = gen(sdk_payload(prompt=prompts[kind], max_new_tokens=new, **media[kind]))
+                runs.append(((time.perf_counter() - t0) * 1e3, backend.engine.ttft_ms[-1],
+                             rpa.LAUNCHES["dense_causal_attention"] - d0, res["tokens"]))
+                assert len(res["tokens"]) == new and res["finish_reason"] == "length", res
+            assert runs[0][3] == runs[1][3], f"{kind}: the same request gave other tokens"
+            host_ms[kind] = [r[0] for r in runs]
+            mm_ttft[kind] = [r[1] for r in runs]
+            dense[kind] = [r[2] for r in runs]
+            n_tok = n_media[kind] + len(re.sub("<image>|<audio>", "", prompts[kind]).encode())
+            gen({"prompt": text(n_tok), "max_new_tokens": new})
+            text_ttft[kind] = (n_tok, backend.engine.ttft_ms[-1])
+            answered.append(kind)
+        if on_card:
+            for kind, n in dense.items():
+                assert n == [cfg.num_layers] * 2, f"{kind}: {n} dense launches a prefill"
+        # (d) the output heads
+        tcfg, icfg = backend.tts_cfg, backend.imagegen_cfg
+        spoken = "Your build passed; two tests were skipped."
+        r_audio = gen(sdk_payload(prompt=spoken, output="audio"))
+        r_speech = gen(sdk_payload(prompt=text(40), max_new_tokens=new, output="speech"))
+        r_image = gen(sdk_payload(prompt="a lighthouse on a cliff at dusk", output="image"))
+        answered += ["audio_out", "speech", "image_out"]
+        for r, said in ((r_audio, spoken), (r_speech, r_speech["text"])):
+            [part] = r["parts"]
+            assert part["mime"] == "audio/wav", part["mime"]
+            n_bytes = max(1, _prompt_byte_ids(said, tcfg.max_chars)[1])
+            with wave.open(io.BytesIO(base64.b64decode(part["data_b64"])), "rb") as w:
+                assert (w.getframerate(), w.getnchannels()) == (tcfg.sample_rate, 1)
+                assert w.getnframes() == n_bytes * tcfg.frames_per_char * tcfg.samples_per_frame
+        assert len(r_speech["tokens"]) == new
+        [part] = r_image["parts"]
+        img = media_codec.decode_png(base64.b64decode(part["data_b64"]))
+        assert img.shape == (icfg.image_size, icfg.image_size, 3), img.shape
+        # (e) a live decode while the towers run between its ticks
+        live_prompt = text(live_prompt_len)
+        idle = gen({"prompt": live_prompt, "max_new_tokens": live_new})
+        started, arrivals, live = threading.Event(), [], {}
+
+        def on_frame(i, frame):
+            arrivals.append(time.perf_counter())
+            started.set()
+
+        def stream_live():
+            try:
+                live["frames"], _ = _sse(port, {"prompt": live_prompt,
+                                               "max_new_tokens": live_new}, on_frame)
+            except BaseException as e:  # noqa: BLE001 — failed below
+                live["error"] = repr(e)
+                started.set()
+
+        th = threading.Thread(target=stream_live)
+        th.start()
+        assert started.wait(600), "the live stream never started"
+        n_ms = len(backend.media_ms)
+        t_during = time.perf_counter()
+        gen(sdk_payload(prompt=prompts["image"], max_new_tokens=new, **media["image"]))
+        gen(sdk_payload(prompt=prompts["audio"], max_new_tokens=new, **media["audio"]))
+        during_ms = (time.perf_counter() - t_during) * 1e3
+        frames_at_end = len(arrivals)
+        th.join()
+        assert "error" not in live, live
+        assert frames_at_end < live_new, "the decode ended before the media requests: no overlap"
+        tower_ms_during = list(backend.media_ms)[n_ms:]
+        live_tokens = [f["token"] for f in live["frames"] if f["token"] >= 0]
+        assert live_tokens == idle["tokens"], "media requests during the decode changed its tokens"
+        gaps = [(b - a) * 1e3 for a, b in zip(arrivals, arrivals[1:])]
+        main_s = time.perf_counter() - t_main
+        launches = rpa.launch_counts()  # the main path's, read now
+    finally:
+        server.stop()
+    eng = backend.engine
+    assert eng.allocator.free_pages == num_pages - 1, eng.allocator.free_pages
+    by_kind: dict = {}
+    for kind, ms in backend.media_ms:
+        by_kind.setdefault(kind, []).append(ms)
+    # after the counts: (a)'s injected prompt, kernel vs plain attention
+    toks, spans = backend._fuse_media(prompts["image"], *[media["image"].get(k) for k in (
+        "images", "audios")])
+    S = len(toks)
+    inject = torch.zeros((1, S, cfg.hidden_size), dtype=params["embed"].dtype, device=device)
+    mask = torch.zeros((1, S), dtype=torch.bool, device=device)
+    for off, emb in spans:
+        inject[0, off:off + emb.shape[0]] = emb.to(inject.dtype)
+        mask[0, off:off + emb.shape[0]] = True
+    t = torch.tensor([toks], device=device)
+    pos = torch.arange(S, device=device)[None]
+    last = torch.tensor([S - 1], device=device)
+    with torch.inference_mode():
+        lk, _ = llama.forward(params, cfg, t, pos, attn_impl="kernel", collect_kv=False,
+                              last_idx=last, embeds_override=(inject, mask))
+        lr, _ = llama.forward(params, cfg, t, pos, attn_impl="ref", collect_kv=False,
+                              last_idx=last, embeds_override=(inject, mask))
+    logit_err = float((lk - lr).abs().max())
+    scale = float(lr.abs().max())
+    tol = results["forward"]["tol_bf16"] if on_card else 1e-4 * scale
+    assert bool(torch.isfinite(lk).all()) and logit_err <= tol, (logit_err, tol)
+    if on_card:  # the hand kernels' paths on this phase's main path
+        for key in ("ragged_paged_attention", "dense_causal_attention", "ragged_decode_split",
+                    "ragged_decode_combine"):
+            assert launches[key] > 0, f"{key} was not launched by the media phase"
+    peak = torch.cuda.max_memory_allocated() if on_card else None
+    del backend, server, spans, inject
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    out.update({
+        "answered": answered, "host_ms": host_ms, "ttft_ms": mm_ttft,
+        "text_ttft_ms": text_ttft, "dense_launches": dense,
+        "dense_launches_per_prefill": cfg.num_layers if on_card else None,
+        "tower_device_ms": by_kind, "during": {
+            "frames_when_done": frames_at_end, "live_new": live_new, "requests_ms": during_ms,
+            "max_frame_gap_ms": max(gaps), "median_frame_gap_ms": statistics.median(gaps),
+            "tower_ms": tower_ms_during},
+        "logits": {"S": S, "max_abs_err": logit_err, "tol": tol, "max_abs_logit": scale},
+        "launches": launches, "main_s": main_s, "peak_bytes": peak,
+        "phase_s": time.perf_counter() - t_phase, "graphs": eng.graph_stats(),
+    })
+    results["media"] = out
+    card = results.get("card", "no card")
+
+    def ms(kind):
+        v = by_kind.get(kind)
+        return "not measured" if not v else "/".join(f"{x:.2f}" for x in v)
+
+    log(f"[media] {card}: towers built in {build_s:.1f} s ({ {k: round(v / 1e9, 3) for k, v in tower_bytes.items()} } GB); "
+        f"device ms, each call: vision {ms('vision')} (2 or 1 x {P} positions), audio "
+        f"{ms('audio')} ({A} positions), tts {ms('tts')}, imagegen {ms('imagegen')}")
+    def pair(v):
+        return "/".join(f"{x:.1f}" for x in v)
+
+    log(f"[media] {card}: injected prefill TTFT ms (engine; first/second run) image "
+        f"{pair(mm_ttft['image'])}, audio {pair(mm_ttft['audio'])}, mixed "
+        f"{pair(mm_ttft['mixed'])} vs text of the same length "
+        f"{[(n, round(v, 1)) for n, v in text_ttft.values()]}; request host ms image "
+        f"{pair(host_ms['image'])}, audio {pair(host_ms['audio'])}, mixed "
+        f"{pair(host_ms['mixed'])} (host decode ms: PNG {decode_ms['png']:.1f}, JPEG "
+        f"{decode_ms['jpeg']:.1f}, palette PNG {decode_ms['shot']:.1f}); dense launches a "
+        f"prefill {dense}; last logits kernel vs "
+        f"plain max|d| {logit_err:.4e} (tol {tol:.4e}, S={S})")
+    log(f"[media] {card}: live decode during media requests: {frames_at_end} of {live_new} "
+        f"frames by their end, frame gap max {max(gaps):.1f} ms (median "
+        f"{statistics.median(gaps):.1f}; the towers {tower_ms_during} ms meanwhile), tokens = "
+        f"idle run; outputs audio/speech/image "
+        f"decoded; peak {'not measured' if peak is None else f'{peak / 2**30:.2f} GiB'}; "
+        f"phase {out['phase_s']:.1f} s (main path {main_s:.1f} s); launches {launches}")
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
 def plain_w8_params(params):
     """``params`` with every ``QuantW`` leaf replaced by one whose ``@``
     runs the plain version (``int8_weight_matmul_ref``, the JAX formula) on
@@ -5625,7 +6007,7 @@ def kernels_line(results) -> dict:
     every bf16 shape it was held at (for a quantized variant, against the
     plain version with the kernel's semantics, check (b)), ``launches`` from
     the serve phase of its pool kind and the spec, tier, fork, api, channel,
-    moe and ckpt phases."""
+    media, moe and ckpt phases."""
     shapes = results["shapes"]
     picks = [
         ("ragged_paged_attention", "llama3_decode_ctx2k/bfloat16", f"{TPU_KERNEL}:61", "serve"),
@@ -5640,9 +6022,10 @@ def kernels_line(results) -> dict:
         entry = {
             "name": name, "route": "cuda", "source": RAGGED_SRC, "replaces": replaces,
             # the serve's launches and those of the spec, tier, fork, api,
-            # channel, moe and ckpt phases
+            # channel, media, moe and ckpt phases
             "launches": results[serve]["launches"][name] + sum(
-                results[p]["launches"][name] for p in ("spec", "tier", "fork", "api", "channel"))
+                results[p]["launches"][name]
+                for p in ("spec", "tier", "fork", "api", "channel", "media"))
             + results["moe"]["launches"].get(name, 0)
             + results.get("ckpt", {}).get("launches", {}).get(name, 0),
             "max_abs_err": max(r["max_abs_err"] for r in held),
@@ -5772,6 +6155,7 @@ def main() -> int:
         phase_fork(results, state, args.seed)
         phase_api(results, state, args.seed)
         phase_channel(results, state, args.seed)
+        phase_media(results, state, args.seed)
         phase_ckpt(results, state, args.seed, root=args.ckpt_dir)
         state.clear()  # the 8B weights go before the reduced-depth models
         for preset in REDUCED_DEPTH_PRESETS:

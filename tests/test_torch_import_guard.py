@@ -2,9 +2,10 @@
 not ``chip_smoke.py`` imports JAX, the JAX package (its ``sdk``,
 ``control_plane`` and ``tracing`` included), the repo's tools, or aiohttp,
 pydantic, safetensors, transformers, tokenizers, regex, websockets and
-grpc, which the card's machine lacks (the checkpoint loader and the
-tokenizer read their formats themselves; the channel speaks WebSocket over
-the standard library). jinja2 stays allowed: it comes with torch, and the tokenizer
+grpc, which the card's machine lacks, nor Pillow (``PIL``), which it lacks
+too (the checkpoint loader and the tokenizer read their formats themselves;
+the channel speaks WebSocket over the standard library; the node decodes
+and encodes PNG, JPEG and WAV with ``models.media_codec`` and ``wave``). jinja2 stays allowed: it comes with torch, and the tokenizer
 imports it only when it renders a chat template.
 
 The check is on the AST, by the exact top-level module name: a prefix test
@@ -21,7 +22,7 @@ import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 FORBIDDEN = {"jax", "jaxlib", "agentfield_tpu", "tools", "aiohttp", "pydantic", "safetensors",
-             "transformers", "tokenizers", "regex", "websockets", "grpc"}
+             "transformers", "tokenizers", "regex", "websockets", "grpc", "PIL"}
 
 
 def _port_files() -> list[pathlib.Path]:
@@ -119,6 +120,19 @@ def test_guard_names_the_channel_libraries(tmp_path):
     )
     tops = [t for _, t in _imported_tops(src)]
     assert [t for t in tops if t in FORBIDDEN] == ["websockets", "websockets", "grpc", "grpc"]
+
+
+def test_guard_names_the_image_library(tmp_path):
+    src = tmp_path / "m.py"
+    src.write_text(
+        "from PIL import Image\n"
+        "import PIL.PngImagePlugin\n"
+        "import importlib; importlib.import_module('PIL.JpegImagePlugin')\n"
+        "import wave\n"
+        "from agentfield_tpu_torch.models import media_codec\n"
+    )
+    tops = [t for _, t in _imported_tops(src)]
+    assert [t for t in tops if t in FORBIDDEN] == ["PIL", "PIL", "PIL"]
 
 
 def test_port_modules_load_nothing_forbidden():

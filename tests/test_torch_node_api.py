@@ -6,10 +6,10 @@ node on the CPU (llama-tiny, float32, the same carried weights):
   routing hints, and over-long: the same greedy tokens and the same
   ``truncated_prompt_tokens`` from both backends (and from the port over
   HTTP); ``submit_stream`` reports the same truncation;
-- bad requests raise the same exception class in both backends (the port's
-  refusals of unported media and outputs are ``BadRequestError``, a
-  ``ValueError``, where the JAX node without those towers raises
-  ``ValueError``);
+- bad requests raise the same exception class with the same message in
+  both backends (media and non-text outputs on a node built without the
+  tower or head: ``BadRequestError``, a ``ValueError``, on the port, where
+  the JAX node raises ``ValueError``);
 - ``HistogramSet``: the same snapshot for the same observations, and the
   same per-histogram counts from both engines over one script;
 - a table of HTTP payloads: each status from the JAX node's own aiohttp app
@@ -200,10 +200,10 @@ ERRORS = {
     "branches_zero": dict(prompt="x", n_branches=0),
     "branches_audio": dict(prompt="x", n_branches=2, output="audio"),
 }
-# the port refuses an unported tower or head with BadRequestError (a
-# ValueError: HTTP 400 inline); the JAX node, built without it, raises
-# ValueError
-UNPORTED = {"output_audio", "output_image", "images", "audios"}
+# a node built without the tower or head a request needs: the port refuses
+# it with BadRequestError (a ValueError: HTTP 400 inline), the JAX node with
+# ValueError, both in the JAX node's words
+NO_TOWER_OR_HEAD = {"output_audio", "output_image", "images", "audios"}
 
 
 def test_errors_raise_the_jax_class(weights, node):
@@ -213,11 +213,11 @@ def test_errors_raise_the_jax_class(weights, node):
         assert isinstance(w, Exception), (name, w)
         with pytest.raises(Exception) as e:
             backend.generate(**kw)
-        if name in UNPORTED:
+        if name in NO_TOWER_OR_HEAD:
             assert type(w) is ValueError and type(e.value) is model_node.BadRequestError, name
         else:
             assert type(e.value).__name__ == type(w).__name__, (name, e.value, w)
-        if name not in UNPORTED and name != "too_long":  # rids differ in that message
+        if name != "too_long":  # rids differ in that message
             assert str(e.value) == str(w), name
     assert not backend.engine.pending and not backend._streams
 
@@ -321,8 +321,10 @@ ALLOWED_STATUS = {
     "null_input": (500, 422, "the port answers a bad argument (ValueError) with 422"),
     "over_long_error": (500, 422, "RequestTooLongError: 422 on the port"),
     "bad_message": (500, 422, "the port answers a bad argument (ValueError) with 422"),
-    "image_input": (500, 400, "an unported tower: 400 (BadRequestError) on the port"),
-    "audio_output": (500, 400, "an unported head: 400 (BadRequestError) on the port"),
+    "image_input": (500, 400, "a node built without the tower: 400 (BadRequestError) on "
+                              "the port"),
+    "audio_output": (500, 400, "a node built without the head: 400 (BadRequestError) on "
+                               "the port"),
     "embed_bad_pooling": (500, 422, "the port answers a bad argument (ValueError) with 422"),
 }
 
@@ -392,7 +394,7 @@ def test_parameters_and_schemas_match_jax_by_name(weights):
     assert (list(inspect.signature(model_node.ModelBackend.embed).parameters)
             == list(inspect.signature(jax_node.ModelBackend.embed).parameters))
     # submit_stream: the JAX node's pre-warmed grammar and pre-fused media
-    # arguments are its async internals; the port compiles inline, has no media
+    # arguments are its async internals; the port compiles and fuses inline
     port_ss = list(inspect.signature(model_node.ModelBackend.submit_stream).parameters)
     jax_ss = list(inspect.signature(jax_node.ModelBackend.submit_stream).parameters)
     assert port_ss == [p for p in jax_ss if p not in ("grammar_obj", "prefused")]
