@@ -112,8 +112,36 @@ ids. Such a request is kept out of the session and shared-prefix caches,
 batch admission, forks, preemption and the mixed tick, as in the JAX
 engine.
 
-Not ported yet (each a later slice): speculative prefill (the keep-warm
-pins), the cluster tier and handoff.
+The cluster tier is the JAX engine's: ``prefix_sketch`` summarizes the
+prefix index for the node's heartbeat, ``export_kv_pages`` serves a peer
+node's fetch (the pages captured under the session lock, copied to the host
+outside it), and ``adopt_kv_pages`` puts the pages a peer sent into the host
+store, whence the next admission's prefix walk restores them as it restores
+demoted pages (``enable_restore`` arms that half of the tier on every
+shared-prefix engine, whether or not ``host_cache_bytes`` starts a demote
+worker). ``page_payload_spec`` and ``build_page_payload`` are the wire
+contract of one page: the pool's leaves in the JAX order (K, V; values then
+scales when quantized) under the JAX dtype names.
+
+Two-phase dispatch (the JAX engine's live-slot handoff): a request with
+``handoff_export`` prefills, samples its first token, publishes its full
+pages, stashes its partial tail page with the sampler state, frees its pages
+and ends with ``finish_reason="handoff"`` (``pop_handoff_desc`` gives the
+descriptor, ``export_handoff_tail`` the tail once); a request with
+``handoff`` whose prefix walk matched every full prompt page and whose tail
+was adopted (``adopt_handoff_tail``) installs its slot live with the
+phase-1 token and no prefill. Every shortfall falls back to the ordinary
+path, which re-samples the same first token under greedy.
+
+Agent-aware serving (``spec_prefill``, the JAX engine's keep-warm): a
+request with ``expect_followup`` pins its session when it finishes (exempt
+from ``session_ttl`` and from the eviction ladder's first rung until the
+follow-up admits or ``spec_pin_ttl`` passes), and each of its
+``followup_candidates`` is prefilled over the session by a bottom-priority
+internal job whose pages stash in the session's speculation state; the
+follow-up's admission absorbs the winner through the prefix index and frees
+the losers. The ``spec.fail`` and ``spec.stall`` fault points veto or defer
+the jobs.
 """
 
 from __future__ import annotations
@@ -124,7 +152,7 @@ import math
 import threading
 import time
 import weakref
-from typing import Any
+from typing import Any, Sequence
 
 import numpy as np
 import torch
@@ -156,6 +184,12 @@ from agentfield_tpu_torch import tracing
 from agentfield_tpu_torch.tracing import HistogramSet
 
 _MASKED = -1e30  # logit value for grammar-disallowed tokens
+
+
+def _dtype_name(dtype: torch.dtype) -> str:
+    """A torch dtype under the JAX package's name ("bfloat16", "int8",
+    "float8_e4m3fn", ...): the dtype strings of the KV wire format."""
+    return str(dtype).removeprefix("torch.")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -206,6 +240,19 @@ class EngineConfig:
     # session expiry, allocation pressure) and restore at the next prefix
     # hit instead of a re-prefill. 0 disables the tier (no worker thread);
     # needs shared_prefix_cache
+    prefix_sketch_bytes: int = 4096  # byte cap of the prefix-index sketch
+    # each heartbeat publishes (the gateway's affinity routing reads it);
+    # overflow drops the deepest pages (prefix_sketch_truncated_total); 0
+    # publishes none
+    spec_prefill: bool = True  # agent-aware serving: keep-warm session pins
+    # and speculative next-step prefill for expect_followup requests (False
+    # takes every such path off; default traffic never takes one)
+    spec_pin_ttl: float = 120.0  # seconds a keep-warm pin waits for its
+    # follow-up before it releases its speculative pages
+    spec_pin_budget: int = 32  # pinned sessions at most: past it the oldest
+    # pin spills, and page pressure spills pins before an allocation fails
+    spec_max_candidates: int = 4  # declared follow-up candidates prefilled
+    # speculatively per step, at most
 
     @property
     def max_context(self) -> int:
@@ -224,6 +271,18 @@ class EngineConfig:
         while b < min(n, self.mixed_step_budget):
             b *= 2
         return min(b, self.mixed_step_budget)
+
+
+# Live-slot handoff stashes: how long a phase-1 export waits for its tail
+# fetch (and an adopted tail for its phase-2 admission), and how many
+# entries either stash holds (each pins one host page copy).
+_HANDOFF_TTL_S = 60.0
+_HANDOFF_STASH_MAX = 64
+
+# Admission priority of the engine's speculative prefill jobs: below every
+# caller's tier, so speculation takes idle capacity only and is the first
+# preemption victim.
+_SPEC_PRIORITY = -(1 << 30)
 
 
 def _sparse_prefill_cfg(cfg: LlamaConfig, ecfg: EngineConfig) -> LlamaConfig:
@@ -272,6 +331,27 @@ class Request:
     # victim and never a mixed-tick prefill job (its KV depends on more
     # than its token ids)
     mm_embeds: list[tuple[int, Any]] | None = None
+    # two-phase dispatch, phase one: prefill, sample the first token, publish
+    # the prompt's full pages, stash the tail page and end with ONE event,
+    # finish_reason "handoff". An ineligible request (grammar, media,
+    # branches, a prompt under 2 tokens, a first token that ends it, the
+    # shared-prefix cache off) decodes here instead
+    handoff_export: bool = False
+    # phase two: the phase-1 descriptor ({"id", "t0", "logprob",
+    # "prompt_tokens", "pages", "page_size"}). With every full prompt page
+    # matched and the tail adopted, the slot installs live (no prefill,
+    # first token t0); otherwise the request admits as usual
+    handoff: dict | None = None
+    # agent-aware serving: a follow-up on this session is coming; at finish
+    # the session is pinned warm (needs a session_id and spec_prefill)
+    expect_followup: bool = False
+    # candidate next-step suffixes (token lists), each prefilled
+    # speculatively over the session after it finishes; the follow-up
+    # absorbs the winner through the prefix index
+    followup_candidates: list[list[int]] | None = None
+    # internal: this request is a speculative prefill job of request
+    # ``spec_parent`` (never set by callers)
+    spec_parent: str | None = None
 
 
 @dataclasses.dataclass
@@ -282,7 +362,7 @@ class TokenEvent:
     finished: bool
     finish_reason: str | None = None  # "stop" | "length" | "deadline_exceeded"
     # | "fork_failed" (a deadline or fork_failed terminal carries token -1
-    # and index -1)
+    # and index -1) | "handoff" (phase one of a two-phase dispatch)
     logprob: float | None = None  # log P(token) under the raw-logit distribution
 
 
@@ -419,12 +499,17 @@ class InferenceEngine:
         seed: int = 0,
         device: str | torch.device | None = None,
         draft: tuple[dict[str, Any], LlamaConfig] | None = None,
+        restore_budget_bytes: int | None = None,
     ):
         """``params`` in the port's layout (``models.llama.init_params`` or
         ``models.convert.params_from_numpy``), already on ``device`` (default:
         where the params are). ``draft`` is the ``(params, cfg)`` of the
         speculative-decoding draft model (needed when ``ecfg.spec_k > 0``),
-        on the same device."""
+        on the same device. ``restore_budget_bytes`` caps the host store
+        that pages fetched from a peer node wait in (pinned on the card,
+        allocated as it fills) when ``host_cache_bytes`` is 0; None sizes
+        it as the JAX engine does: two admission windows of whole prompts,
+        ``max(32, 2 * max_batch * max_pages_per_seq)`` pages."""
         self.cfg = cfg
         self.ecfg = ecfg or EngineConfig()
         self.device = torch.device(device) if device is not None else params["embed"].device
@@ -588,6 +673,27 @@ class InferenceEngine:
             "branch_fork_failed_total": 0,  # live forks refused (source
             # gone or no capacity): a fork_failed terminal each
             "branch_pruned_total": 0,  # branches a pruning policy cancelled
+            # two-phase dispatch, always present
+            "kv_handoff_initiated_total": 0,  # phase-1 prefills that ended
+            # in a handoff terminal (tail and first token stashed)
+            "kv_handoff_completed_total": 0,  # phase-2 admissions installed
+            # live from an adopted tail (no prefill)
+            "kv_handoff_failed_total": 0,  # handoffs that fell back to the
+            # ordinary path (still token-exact under greedy), by cause:
+            "kv_handoff_bytes_total": 0,  # tail bytes this node served
+            "kv_handoff_fail_walk_total": 0,  # the prefix walk fell short
+            "kv_handoff_fail_stash_total": 0,  # no adopted tail (or aged out)
+            "kv_handoff_fail_upload_total": 0,  # the tail's upload raised
+            "kv_handoff_fail_export_total": 0,  # phase one declined to export
+            # agent-aware serving (speculative next-step prefill, not
+            # speculative decoding), always present
+            "spec_started_total": 0,  # speculative prefill jobs enqueued
+            "spec_hit_total": 0,  # follow-ups that absorbed a speculated prefix
+            "spec_wasted_tokens_total": 0,  # candidate tokens prefilled for losers
+            "spec_cancelled_total": 0,  # jobs cancelled or stashes dropped
+            "spec_fail_injected": 0,  # spec.fail vetoes (keep-warm only)
+            "spec_stall_injected": 0,  # jobs deferred by spec.stall
+            "session_pins_active": 0,  # gauge: sessions pinned warm
         }
         # Host wall time of prefills (each ends in a device→host read), of
         # decode dispatches and harvests (a harvest waits for its step) and
@@ -613,6 +719,13 @@ class InferenceEngine:
         if quant != "none":
             self.allocator.configure_quant(max(0, self.kv_page_bytes_dense - self.kv_page_bytes))
         self._req_hashes: dict[str, list[bytes]] = {}
+        # live-slot handoff stashes, TTL-bounded and capped: phase-1 exports
+        # awaiting their tail fetch (request id -> (expiry, descriptor, host
+        # tail)) and adopted tails awaiting their phase-2 admission (handoff
+        # id -> (expiry, host tail)); an entry that ages out only means a
+        # re-prefill on the other side
+        self._handoff_out: dict[str, tuple[float, dict, Any]] = {}  # guarded by: _session_lock
+        self._handoff_in: dict[str, tuple[float, Any]] = {}  # guarded by: _session_lock
         B, maxp = self.ecfg.max_batch, self.ecfg.max_pages_per_seq
         self.page_tables = np.zeros((B, maxp), np.int32)
         self.seq_lens = np.zeros((B,), np.int32)
@@ -654,19 +767,20 @@ class InferenceEngine:
         # the host KV tier: the pool owns its state and offload worker; the
         # engine gives it the device-copy callbacks and its session lock
         self._host_store: _HostPageStore | None = None
-        self._copy_stream = None  # the offload worker's device-to-host stream
+        self._copy_stream = None  # device-to-host copies (offload worker, exports)
         self._restore_timed: collections.deque = collections.deque(maxlen=4096)
-        if self.ecfg.host_cache_bytes > 0:
-            if not self._shared_prefix:
-                raise ValueError(
-                    f"host_cache_bytes={self.ecfg.host_cache_bytes} requires "
-                    "enable_prefix_cache and shared_prefix_cache: the host "
-                    "tier is content-addressed"
-                )
+        if self.ecfg.host_cache_bytes > 0 and not self._shared_prefix:
+            raise ValueError(
+                f"host_cache_bytes={self.ecfg.host_cache_bytes} requires "
+                "enable_prefix_cache and shared_prefix_cache: the host "
+                "tier is content-addressed"
+            )
+        if self._shared_prefix:
             on_card = self.device.type == "cuda"
             self._host_store = _HostPageStore([bits(t) for t in self.cache.leaves()], pin=on_card)
             if on_card:
                 self._copy_stream = torch.cuda.Stream(device=self.device)
+        if self.ecfg.host_cache_bytes > 0:
             self.allocator.enable_host_tier(
                 budget_bytes=self.ecfg.host_cache_bytes,
                 page_bytes=self.kv_page_bytes,  # scales included
@@ -675,6 +789,19 @@ class InferenceEngine:
                 fetch=self._fetch_page_kv,
                 upload=self._upload_page_kv,
                 # a restore serves a live request: it may evict idle sessions
+                restore_alloc=lambda: self._alloc_with_eviction(1),
+            )
+        elif self._shared_prefix:
+            # no demotion, but the cluster tier's pages still land in the
+            # host store and restore at admission: a staging budget of two
+            # admission windows of whole prompts (a phase-2 burst adopts
+            # every prompt before any admits)
+            staging = max(32, 2 * self.ecfg.max_batch * self.ecfg.max_pages_per_seq)
+            self.allocator.enable_restore(
+                budget_bytes=(restore_budget_bytes if restore_budget_bytes is not None
+                              else staging * self.kv_page_bytes),
+                page_bytes=self.kv_page_bytes,
+                upload=self._upload_page_kv,
                 restore_alloc=lambda: self._alloc_with_eviction(1),
             )
         # live-fork commands (src_id, new_id) from request_fork, applied in
@@ -713,6 +840,14 @@ class InferenceEngine:
         self.decode_step_ms: collections.deque[float] = collections.deque(maxlen=4096)
         self.spec_step_ms: collections.deque[float] = collections.deque(maxlen=4096)
         self.mixed_tick_ms: collections.deque[float] = collections.deque(maxlen=4096)
+        # agent-aware serving: session id -> pinned-at wall time (exempt from
+        # gc and the eviction ladder's first rung); session id -> its
+        # speculation state (parent id, candidates by job id, finished jobs'
+        # page stashes, trace anchors); spec.stall-deferred jobs as
+        # (ready-at monotonic, request), scheduler-thread state
+        self._pins: dict[str, float] = {}  # guarded by: _session_lock
+        self._spec_by_session: dict[str, dict] = {}  # guarded by: _session_lock
+        self._spec_stalled: list[tuple[float, Request]] = []
 
     # ------------------------------------------------------------------
     # host-side scheduling
@@ -775,6 +910,13 @@ class InferenceEngine:
             raise ValueError(
                 f"request {req.id}: n_branches > 1 is incompatible with "
                 "grammar-constrained or multimodal requests"
+            )
+        if req.handoff is not None and not isinstance(req.handoff, dict):
+            # anything else wrong with a descriptor degrades at admission to
+            # an ordinary prefill: only its type is checked here
+            raise ValueError(
+                f"request {req.id}: handoff must be a descriptor dict "
+                f"(got {type(req.handoff).__name__})"
             )
         if type(req.priority) is not int:  # a bool is a flag, not a tier
             raise ValueError(
@@ -927,13 +1069,20 @@ class InferenceEngine:
         self._traces[child_id] = child
 
     def gc_sessions(self, at: float | None = None) -> int:
-        """Release pages of sessions idle longer than session_ttl."""
+        """Release pages of sessions idle longer than session_ttl. A pinned
+        session is exempt while its pin lives; a pin older than
+        ``spec_pin_ttl`` expires here first (its speculative pages go) and
+        the session rejoins the ttl clock."""
         t = at if at is not None else time.time()
+        with self._session_lock:
+            for sid in [s for s, p in self._pins.items() if t - p > self.ecfg.spec_pin_ttl]:
+                self._unpin_session_locked(sid)
         ttl = self.ecfg.session_ttl
         if not ttl:
             return 0
         with self._session_lock:
-            dead = [sid for sid, s in self._sessions.items() if t - s.last_used > ttl]
+            dead = [sid for sid, s in self._sessions.items()
+                    if t - s.last_used > ttl and sid not in self._pins]
             demote: list[int] = []
             for sid in dead:
                 pages = self._sessions.pop(sid).pages
@@ -948,8 +1097,11 @@ class InferenceEngine:
         return len(dead)
 
     def free_session(self, session_id: str) -> bool:
-        """Explicitly drop a session's cached prefix (thread-safe vs step())."""
+        """Explicitly drop a session's cached prefix, and its keep-warm pin
+        and speculation state (thread-safe vs step())."""
         with self._session_lock:
+            if session_id in self._pins or session_id in self._spec_by_session:
+                self._unpin_session_locked(session_id)
             sess = self._sessions.pop(session_id, None)
             if sess is None:
                 return False
@@ -961,9 +1113,11 @@ class InferenceEngine:
         return sum(s is not None for s in self.slots)
 
     def has_work(self) -> bool:
-        # queued live-fork commands need a step to apply (or to fail)
+        # queued live-fork commands need a step to apply (or to fail), and
+        # spec.stall-deferred jobs one to enqueue (or to cancel)
         return (bool(self.pending) or self.num_active > 0 or self._inflight is not None
-                or bool(self._prefill_jobs) or bool(self._fork_cmds))
+                or bool(self._prefill_jobs) or bool(self._fork_cmds)
+                or bool(self._spec_stalled))
 
     def _slots_available(self) -> int:
         """Free slots not reserved by prefill jobs (a job must find a slot
@@ -971,17 +1125,32 @@ class InferenceEngine:
         return sum(s is None for s in self.slots) - len(self._prefill_jobs)
 
     def _alloc_with_eviction(self, n: int) -> list[int] | None:  # guarded by: _session_lock
-        """Allocate n pages, evicting LRU idle sessions if needed (cached
-        prefixes are best-effort; live requests win)."""
+        """Allocate n pages, evicting if needed (cached prefixes are
+        best-effort; live requests win), down the pressure ladder: unpinned
+        idle sessions, LRU first; then speculative stashes; then pinned
+        sessions, oldest pin first."""
         if _engine_fault("engine.page_pressure") is not None:
             # behave as a pool with no free page
             self.stats["page_pressure_injected"] += 1
             return None
         pages = self.allocator.alloc(n)
-        while pages is None and self._sessions:
-            lru_sid = min(self._sessions, key=lambda s: self._sessions[s].last_used)
-            self.allocator.free(self._sessions.pop(lru_sid).pages)
-            self.stats["sessions_evicted"] += 1
+        while pages is None:
+            unpinned = [s for s in self._sessions if s not in self._pins]
+            if unpinned:
+                lru_sid = min(unpinned, key=lambda s: self._sessions[s].last_used)
+                self.allocator.free(self._sessions.pop(lru_sid).pages)
+                self.stats["sessions_evicted"] += 1
+            elif self._spec_by_session:
+                self._spec_release_locked(next(iter(self._spec_by_session)))
+            elif self._pins:
+                spill = min(self._pins, key=self._pins.get)
+                self._unpin_session_locked(spill)
+                sess = self._sessions.pop(spill, None)
+                if sess is not None:
+                    self.allocator.free(sess.pages)
+                    self.stats["sessions_evicted"] += 1
+            else:
+                break
             pages = self.allocator.alloc(n)
         return pages
 
@@ -1003,6 +1172,145 @@ class InferenceEngine:
         # mismatched history (edited conversation): drop the entry
         self.allocator.free(self._sessions.pop(req.session_id).pages)
         return None
+
+    # ------------------------------------------------------------------
+    # agent-aware serving: keep-warm pins and speculative next-step prefill,
+    # under the session lock beside the sessions; every failure falls back
+    # to the cold path (no pin, a full prefill of the follow-up)
+    # ------------------------------------------------------------------
+
+    def _pin_session_locked(self, sid: str) -> None:  # guarded by: _session_lock
+        """Pin a session warm until its follow-up admits or ``spec_pin_ttl``
+        passes; past ``spec_pin_budget`` the oldest pin spills."""
+        budget = max(1, self.ecfg.spec_pin_budget)
+        while sid not in self._pins and len(self._pins) >= budget:
+            self._unpin_session_locked(min(self._pins, key=self._pins.get))
+        self._pins[sid] = time.time()
+        self.stats["session_pins_active"] = len(self._pins)
+
+    def _unpin_session_locked(self, sid: str) -> None:  # guarded by: _session_lock
+        """Drop a session's pin and its speculation state (idempotent)."""
+        self._pins.pop(sid, None)
+        self.stats["session_pins_active"] = len(self._pins)
+        self._spec_release_locked(sid)
+
+    def _spec_release_locked(self, sid: str) -> None:  # guarded by: _session_lock
+        """Tear down a session's speculative prefills: finished jobs' page
+        stashes are freed now, jobs still queued or prefilling cancel at the
+        next step."""
+        st = self._spec_by_session.pop(sid, None)
+        if st is None:
+            return
+        for rid in st["cands"]:
+            pages = st["stashes"].pop(rid, None)
+            if pages is None:
+                self._cancels.add(rid)
+            else:
+                self._free_spec_stash_locked(pages)
+            self.stats["spec_cancelled_total"] += 1
+
+    def _free_spec_stash_locked(self, pages: list[int]) -> None:  # guarded by: _session_lock
+        """Free a speculative page chain now: a page the stash alone holds
+        leaves the index first (no refcount-0 ghost of a wrong guess stays
+        cached); pages the session or another stash hold just lose a
+        reference."""
+        for p in pages:
+            if self.allocator.is_shared(p) and self.allocator.refcount(p) <= 1:
+                self.allocator.forget(p)
+        self.allocator.free(pages)
+
+    def _agent_keepwarm_locked(self, sid: str, slot: _Slot) -> None:  # guarded by: _session_lock
+        """A request with ``expect_followup`` finished and its session was
+        retained: pin it, then enqueue one bottom-priority prefill job per
+        declared candidate over the whole transcript (the session holds
+        ``tokens[:-1]``, so each job re-prefills the last token too and
+        publishes the chain the follow-up walks). ``spec.fail`` vetoes the
+        jobs (keep-warm only); ``spec.stall`` defers them by its delay."""
+        self._pin_session_locked(sid)
+        cands = slot.req.followup_candidates or []
+        if not cands or not self._shared_prefix:
+            return
+        if _engine_fault("spec.fail") is not None:
+            self.stats["spec_fail_injected"] += 1
+            return
+        if sid not in self._sessions:
+            return
+        stall = _engine_fault("spec.stall")
+        st = {"parent": slot.req.id, "base_len": len(slot.tokens), "cands": {}, "stashes": {},
+              "t0": {}, "tid": (tracing.valid_context(slot.req.trace) or {}).get("trace_id")}
+        for j, cand in enumerate(cands[: max(0, self.ecfg.spec_max_candidates)]):
+            if not cand:
+                continue
+            srid = f"{slot.req.id}!spec{j}"
+            sreq = Request(id=srid, prompt=list(slot.tokens) + list(cand),
+                           sampling=SamplingParams(max_new_tokens=1, temperature=0.0),
+                           priority=_SPEC_PRIORITY, spec_parent=slot.req.id)
+            if self._pages_needed(sreq) > self.ecfg.max_pages_per_seq:
+                continue  # the speculated step would not fit a slot
+            if stall is not None:
+                self.stats["spec_stall_injected"] += 1
+                self._spec_stalled.append((time.monotonic() + stall.delay_s, sreq))
+            elif not self._spec_submit(sreq):
+                continue  # the queue is full: speculation yields
+            st["cands"][srid] = list(cand)
+            st["t0"][srid] = (time.time(), time.perf_counter())
+            self.stats["spec_started_total"] += 1
+        if st["cands"]:
+            self._spec_by_session[sid] = st
+
+    def _spec_submit(self, sreq: Request) -> bool:
+        """Enqueue a speculative job unless the queue is full (it never
+        takes a caller's backpressure budget)."""
+        with self._pending_lock:
+            if len(self.pending) >= self.ecfg.max_pending:
+                return False
+            self._enqueue_locked(sreq)
+        return True
+
+    def _drain_spec_stalled(self) -> None:
+        """Enqueue the deferred jobs whose delay passed (top of a step); a
+        job that finds the queue full retries at the next step."""
+        if not self._spec_stalled:
+            return
+        now = time.monotonic()
+        ready = [(rt, r) for rt, r in self._spec_stalled if rt <= now]
+        if not ready:
+            return
+        self._spec_stalled = [(rt, r) for rt, r in self._spec_stalled if rt > now]
+        for rt, r in ready:
+            if not self._spec_submit(r):
+                self._spec_stalled.append((rt, r))
+
+    def _spec_absorb(self, req: Request, start: int) -> None:
+        """The follow-up of a pinned session left the queue: the pin goes,
+        the winning candidate's stash drops its references (the follow-up
+        holds its own), the losers' pages are freed, jobs still running
+        cancel; ``spec_hit_total`` when the walk matched past the session."""
+        sid = req.session_id
+        with self._session_lock:
+            if sid not in self._pins and sid not in self._spec_by_session:
+                return
+            self._pins.pop(sid, None)
+            self.stats["session_pins_active"] = len(self._pins)
+            st = self._spec_by_session.pop(sid, None)
+            if st is None:
+                return
+            suffix = req.prompt[st["base_len"]:]
+            winner = next((rid for rid, cand in st["cands"].items()
+                           if rid in st["stashes"] and suffix[: len(cand)] == cand), None)
+            if winner is not None and start > st["base_len"]:
+                self.stats["spec_hit_total"] += 1
+            for rid, cand in st["cands"].items():
+                pages = st["stashes"].pop(rid, None)
+                if pages is None:
+                    self._cancels.add(rid)  # still prefilling: disposable
+                    self.stats["spec_cancelled_total"] += 1
+                elif rid == winner:
+                    self.allocator.free(pages)
+                else:
+                    self.stats["spec_wasted_tokens_total"] += len(cand)
+                    self.stats["spec_cancelled_total"] += 1
+                    self._free_spec_stash_locked(pages)
 
     def _prompt_hashes(self, req: Request) -> list[bytes]:
         """Memoized page-chain hashes of the matchable prompt prefix (prompt
@@ -1089,8 +1397,11 @@ class InferenceEngine:
             if free_slot is None:
                 break
             # branched requests take the single path: the fork needs the
-            # request's own last-prompt-token logits
-            chunked = len(req.prompt) > self.ecfg.prefill_chunk or req.n_branches > 1
+            # request's own last-prompt-token logits; so do both handoff
+            # phases (the export samples from them, the adoption installs
+            # live without a prefill)
+            chunked = (len(req.prompt) > self.ecfg.prefill_chunk or req.n_branches > 1
+                       or req.handoff is not None or req.handoff_export)
             with self._session_lock:
                 has_sess = (
                     req.session_id is not None
@@ -1206,6 +1517,15 @@ class InferenceEngine:
         index_hit = False
         with self._session_lock:
             hit = self._session_hit(req)
+            if (hit is not None and self.ecfg.spec_prefill and self._shared_prefix
+                    and not req.mm_embeds and len(req.prompt) > 1
+                    and self.allocator.peek(req.prompt[: len(req.prompt) - 1],
+                                            hashes=self._prompt_hashes(req)) > hit[1]):
+                # the index holds more of this prompt than the session: a
+                # speculative prefill published the follow-up's tokens, so
+                # the index walk absorbs them (the session entry stays and
+                # is re-retained when this request finishes)
+                hit = None
             total_pages = self._pages_needed(req)
             if hit is not None:
                 sess, start = hit
@@ -1289,6 +1609,10 @@ class InferenceEngine:
         if req.resumed_from > 0 and kind != "fresh" and start > 0:
             # a preempted request resumed over its parked pages
             self.stats["resume_prefix_hits_total"] += 1
+        if self.ecfg.spec_prefill and req.session_id and req.spec_parent is None:
+            # a follow-up on a pinned session settles the pin and its
+            # speculative prefills
+            self._spec_absorb(req, start)
 
     def _admit_single(self, req: Request, free_slot: int) -> list[TokenEvent]:
         """Single-request admission: session reuse, shared-prefix reuse
@@ -1297,6 +1621,13 @@ class InferenceEngine:
         if acq is None:
             return []  # page-starved; decode will free pages
         pages, start, kind = acq
+        if req.handoff is not None:
+            live = self._try_handoff_install(req, free_slot, pages, start, kind)
+            if live is not None:
+                return live
+            # a shortfall: the ordinary suffix prefill below re-samples the
+            # same first token under greedy
+            self.stats["kv_handoff_failed_total"] += 1
         self._dequeue_acquired(req, kind, start)
         row = build_page_table(pages, self.ecfg.max_pages_per_seq)
         if req.mm_embeds:
@@ -1338,6 +1669,14 @@ class InferenceEngine:
         self, req: Request, slot_idx: int, pages: list[int], row: np.ndarray, last_logits
     ) -> list[TokenEvent]:
         toks, lps = self._sample([req.sampling], last_logits[None], [self._first_token_mask(req)])
+        if req.handoff_export:
+            ev = self._try_handoff_export(req, pages, toks[0], lps[0])
+            if ev is not None:
+                return [ev]
+            # declined (ineligible, an injected fault, a failed copy): this
+            # node decodes the request itself
+            self.stats["kv_handoff_failed_total"] += 1
+            self.stats["kv_handoff_fail_export_total"] += 1
         if req.n_branches <= 1:
             return [self._install(req, slot_idx, pages, row, toks[0], lps[0])]
         # branch 0 samples first, so its draw is the unforked request's; the
@@ -1410,8 +1749,9 @@ class InferenceEngine:
     # ------------------------------------------------------------------
 
     def _capture_page_kv(self, page: int):
-        """Demote capture (under the session lock): a clone of the page's
-        leaves on the engine's stream, and an event after it. The pool is
+        """A page's capture for a demotion, a peer's fetch or a handoff tail
+        (under the session lock): a clone of the page's leaves on the
+        device's current stream, and an event after it. The pool is
         written in place (the kernel's fused write, ``_copy_page``,
         restores), so only a copy made now keeps the page's content at
         capture. Target pool only, as in the JAX engine: a restored page's
@@ -1421,12 +1761,15 @@ class InferenceEngine:
         ev = None
         if self.device.type == "cuda":
             ev = torch.cuda.Event()
-            ev.record()
+            # the clones' stream, whichever thread captures (a peer's fetch
+            # is served off the engine's thread)
+            ev.record(torch.cuda.current_stream(self.device))
         return clones, ev
 
     def _fetch_page_kv(self, handle) -> _HostPage:
-        """The offload worker's device-to-host copy of one captured page:
-        wait for the capture's event on the worker's own stream, copy into
+        """The device-to-host copy of one captured page (on the offload
+        worker, or on the thread serving a fetch or exporting a handoff):
+        wait for the capture's event on the copy stream, copy into
         a host slot (pinned on the card), wait for the copy."""
         t0 = time.perf_counter()
         clones, ev = handle
@@ -1469,6 +1812,229 @@ class InferenceEngine:
             for p in payloads:
                 p.done[0] = timed[1]
             self._restore_timed.append((len(pages), timed))
+
+    # ------------------------------------------------------------------
+    # the cluster tier: the heartbeat sketch, serving a peer's fetch, and
+    # adopting what a peer sent; one page payload is a host-store page
+    # (``_HostPage``), its wire form the pool's leaves (JAX order and dtype
+    # names) as raw bytes
+    # ------------------------------------------------------------------
+
+    def prefix_sketch(self) -> dict | None:
+        """The prefix index's sketch for a heartbeat (``PrefixPagePool.
+        sketch``), or None with the shared-prefix cache off or
+        ``prefix_sketch_bytes`` 0 (the node then attracts no affinity
+        traffic)."""
+        if not self._shared_prefix or self.ecfg.prefix_sketch_bytes <= 0:
+            return None
+        with self._session_lock:
+            return self.allocator.sketch(self.ecfg.prefix_sketch_bytes)
+
+    def peek_prefix(self, tokens: Sequence[int]) -> int:
+        """Tokens of the longest full-page prefix of ``tokens`` indexed here
+        (both tiers, no reference taken): a prefetch asks for the rest
+        only."""
+        if not self._shared_prefix:
+            return 0
+        with self._session_lock:
+            return self.allocator.peek(tokens)
+
+    def page_payload_spec(self) -> list[tuple[str, tuple[int, ...]]]:
+        """``(dtype name, shape)`` of each leaf of one page's payload, the
+        wire contract of a cross-node transfer: K and V, each values then
+        per-slot scales when quantized, shapes ``(L, Kh, ps, hd)`` and
+        ``(L, Kh, ps)``, dtypes named as the JAX package names them."""
+        return [(_dtype_name(t.dtype), (t.shape[0],) + tuple(t.shape[2:]))
+                for t in self.cache.leaves()]
+
+    def build_page_payload(self, leaves: Sequence[torch.Tensor]) -> _HostPage:
+        """One host-store page from its wire leaves (host tensors of the
+        spec's dtypes and shapes, e.g. ``torch.frombuffer`` views of the
+        received bytes, aligned or not): copied byte for byte into a slot of
+        the host store."""
+        spec = self.page_payload_spec()
+        if len(leaves) != len(spec):
+            raise ValueError(f"{len(leaves)} payload leaves, the pool has {len(spec)}")
+        page = self._host_store.take()
+        for dst, src, (name, shape) in zip(page.leaves, leaves, spec):
+            if (_dtype_name(src.dtype), tuple(src.shape)) != (name, shape):
+                raise ValueError(f"leaf {_dtype_name(src.dtype)}{tuple(src.shape)} != "
+                                 f"expected {name}{shape}")
+            dst.view(torch.uint8).view(-1).copy_(bits(src).reshape(-1).view(torch.uint8))
+        return page
+
+    @staticmethod
+    def page_payload_bytes(payload: _HostPage) -> bytes:
+        """The wire bytes of one host-store page: its leaves' bytes, one
+        after another (one copy)."""
+        return b"".join(memoryview(t.contiguous().view(torch.uint8).numpy()).cast("B")
+                        for t in payload.leaves)
+
+    def adopt_kv_pages(self, entries: Sequence[tuple[bytes, int, tuple[int, ...], Any]]) -> int:
+        """Put pages a peer sent, ``(chain, depth, tokens, payload)``, into
+        the host store; the next admission's prefix walk restores them (a
+        failed restore shortens the walk: a re-prefill, token-exact under
+        greedy). Returns the number adopted."""
+        if not self._shared_prefix:
+            return 0
+        with self._session_lock:
+            return self.allocator.adopt_host_pages(entries)
+
+    def export_kv_pages(self, chains: Sequence[bytes],
+                        max_pages: int = 64) -> list[tuple[bytes, int, _HostPage]]:
+        """Serve a peer's fetch: ``(chain, depth, payload)`` for each of
+        ``chains`` indexed here. Two phases, as a demotion: the device pages
+        are captured under the session lock (their content fixed then), and
+        copied to the host outside it, so a peer's fetch never stalls the
+        tick. A page whose copy fails is left out (the peer re-prefills
+        it)."""
+        if not self._shared_prefix:
+            return []
+        with self._session_lock:
+            prepped = self.allocator.export_prep(list(chains)[: max(0, int(max_pages))],
+                                                 self._capture_page_kv)
+        out: list[tuple[bytes, int, _HostPage]] = []
+        for chain, depth, obj, kind in prepped:
+            if kind == "host":
+                out.append((chain, depth, obj))
+                continue
+            try:
+                out.append((chain, depth, self._fetch_page_kv(obj)))
+            except Exception:  # noqa: BLE001 — a shorter answer; the peer re-prefills
+                continue
+        return out
+
+    # ------------------------------------------------------------------
+    # live-slot handoff (two-phase dispatch): the full prompt pages travel
+    # by the ordinary publish -> fetch -> adopt path; what ships here is
+    # what that path cannot carry, the partial tail page and the sampler
+    # state (first token and its logprob)
+    # ------------------------------------------------------------------
+
+    def _gc_handoffs_locked(self) -> None:  # guarded by: _session_lock
+        """Expire and bound both stashes, oldest first (a shed entry is a
+        re-prefill on the other side)."""
+        now = time.monotonic()
+        for stash in (self._handoff_out, self._handoff_in):
+            for key in [k for k, v in stash.items() if v[0] < now]:
+                del stash[key]
+            while len(stash) >= _HANDOFF_STASH_MAX:
+                del stash[next(iter(stash))]
+
+    def pop_handoff_desc(self, request_id: str) -> dict | None:
+        """The descriptor of a request that ended ``finish_reason="handoff"``
+        (its tail stays stashed for the decode node's fetch)."""
+        with self._session_lock:
+            entry = self._handoff_out.get(request_id)
+        return dict(entry[1]) if entry is not None else None
+
+    def export_handoff_tail(self, handoff_id: str) -> tuple[dict, _HostPage] | None:
+        """Pop the stashed (descriptor, tail payload) of one handoff, once;
+        None if it aged out or was never exported."""
+        with self._session_lock:
+            self._gc_handoffs_locked()
+            entry = self._handoff_out.pop(handoff_id, None)
+        return None if entry is None else (entry[1], entry[2])
+
+    def adopt_handoff_tail(self, handoff_id: str, payload: _HostPage) -> bool:
+        """Stash a fetched tail (already checked against
+        ``page_payload_spec``) for its phase-2 admission."""
+        if not self._shared_prefix:
+            return False
+        with self._session_lock:
+            self._gc_handoffs_locked()
+            self._handoff_in[handoff_id] = (time.monotonic() + _HANDOFF_TTL_S, payload)
+        return True
+
+    def _try_handoff_export(self, req: Request, pages: list[int], tok: int,
+                            first_logprob: float) -> TokenEvent | None:
+        """Phase one: publish the prompt's full pages (the decode node pulls
+        them by fetch), capture and stash the tail page with the first
+        token, release every page and return the one "handoff" event. None
+        declines (ineligible, ``kv.handoff_fail``, a failed copy): the
+        caller installs the slot and this node decodes."""
+        s = req.sampling
+        if (not self._shared_prefix or req.grammar is not None or req.mm_embeds
+                or req.n_branches > 1 or len(req.prompt) < 2
+                # a resumed incarnation already decoded here: its state is
+                # not the phase-2 request's (the original prompt)
+                or req.resumed_from > 0
+                or tok in s.stop_token_ids or s.max_new_tokens <= 1):
+            return None
+        if _engine_fault("kv.handoff_fail") is not None:
+            return None
+        ps = self.ecfg.page_size
+        L = len(req.prompt)
+        k = (L - 1) // ps  # the tail page holds positions [k * ps, L)
+        t0_w, t0_m = time.time(), time.perf_counter()
+        try:
+            with self._session_lock:
+                handle = self._capture_page_kv(pages[k])
+            payload = self._fetch_page_kv(handle)
+        except Exception:  # noqa: BLE001 — declined: decode here, pages still owned
+            return None
+        desc = {"id": req.id, "t0": tok, "logprob": first_logprob, "prompt_tokens": L,
+                "pages": k, "page_size": ps}
+        with self._session_lock:
+            # the full pages stay cached (refcount 0, indexed), the tail and
+            # the growth pages go free
+            self.allocator.publish(req.prompt, pages)
+            self.allocator.free(pages)
+            self._gc_handoffs_locked()
+            self._handoff_out[req.id] = (time.monotonic() + _HANDOFF_TTL_S, desc, payload)
+        self.stats["kv_handoff_initiated_total"] += 1
+        st = self._submit_t.pop(req.id, None)
+        if st is not None:  # phase one's TTFT: submit to the handed-off token
+            self.ttft_ms.append((time.monotonic() - st) * 1e3)
+            self.latency.observe("ttft_ms", self.ttft_ms[-1])
+        self._tr_first_token(req)
+        e = self._traces.get(req.id)
+        if e is not None:
+            self._tracer.record_span(
+                "engine.kv_export", e["tid"], t0_w, (time.perf_counter() - t0_m) * 1e3,
+                {"pages": k, "tail_bytes": sum(t.numel() * t.element_size()
+                                               for t in payload.leaves)})
+        self._tr_close(req.id, "handoff", generated=1)
+        self.stats["requests_finished"] += 1
+        with self._pending_lock:
+            self._deadline_at.pop(req.id, None)
+        return TokenEvent(request_id=req.id, token=tok, index=req.resumed_from, finished=True,
+                          finish_reason="handoff", logprob=first_logprob)
+
+    def _try_handoff_install(self, req: Request, free_slot: int, pages: list[int], start: int,
+                             kind: str) -> list[TokenEvent] | None:
+        """Phase two: with every full prompt page matched and the phase-1
+        tail adopted, upload the tail into its page and install the slot
+        with the phase-1 token, no prefill: the slot is the one the prefill
+        node would have decoded. A shortfall returns None (the caller keeps
+        the pages and prefills the suffix)."""
+        desc = req.handoff
+        ps = self.ecfg.page_size
+        L = len(req.prompt)
+        k = (L - 1) // ps
+        t0 = desc.get("t0") if isinstance(desc, dict) else None
+        if (not isinstance(desc, dict) or desc.get("page_size") != ps
+                or desc.get("prompt_tokens") != L or desc.get("pages") != k
+                or not isinstance(t0, int) or isinstance(t0, bool) or start != k * ps):
+            self.stats["kv_handoff_fail_walk_total"] += 1
+            return None
+        with self._session_lock:
+            entry = self._handoff_in.pop(str(desc.get("id")), None)
+        if entry is None or entry[0] < time.monotonic():
+            self.stats["kv_handoff_fail_stash_total"] += 1
+            return None
+        try:
+            with self._session_lock:
+                self._upload_page_kv([entry[1]], [pages[k]])
+        except Exception:  # noqa: BLE001 — the fallback prefill rewrites the tail page
+            self.stats["kv_handoff_fail_upload_total"] += 1
+            return None
+        self._dequeue_acquired(req, kind, start)
+        row = build_page_table(pages, self.ecfg.max_pages_per_seq)
+        self.stats["kv_handoff_completed_total"] += 1
+        lp = desc.get("logprob")
+        return [self._install(req, free_slot, pages, row, t0,
+                              float(lp) if lp is not None else 0.0)]
 
     def restore_upload_ms(self) -> list[tuple[int, float]]:
         """(pages, device ms) of each batched restore upload so far (CUDA
@@ -2076,6 +2642,9 @@ class InferenceEngine:
         return ev
 
     def _release(self, slot_idx: int, slot: _Slot) -> None:
+        if slot.req.spec_parent is not None:
+            self._release_spec(slot_idx, slot)
+            return
         sid = slot.req.session_id
         with self._session_lock:
             mm = bool(slot.req.mm_embeds)
@@ -2096,6 +2665,8 @@ class InferenceEngine:
                 self._sessions[sid] = _SessionEntry(
                     pages=slot.pages[:keep], tokens=cached, last_used=time.time()
                 )
+                if self.ecfg.spec_prefill and slot.req.expect_followup:
+                    self._agent_keepwarm_locked(sid, slot)
             else:
                 self.allocator.free(slot.pages)
         self.stats["requests_finished"] += 1
@@ -2106,6 +2677,33 @@ class InferenceEngine:
         self._clear_slot(slot_idx)
         with self._session_lock:
             self._grammar_release(slot.req.grammar)
+
+    def _release_spec(self, slot_idx: int, slot: _Slot) -> None:
+        """A speculative job finished: publish its pages (the candidate is
+        now content-addressed for the follow-up's walk) and stash its
+        references in the session's speculation state, which the absorb or
+        the teardown settles; a job whose state is gone frees its pages. Not
+        counted in ``requests_finished`` (internal work)."""
+        with self._session_lock:
+            st = next((e for e in self._spec_by_session.values()
+                       if slot.req.id in e["cands"]), None)
+            if st is not None and self._shared_prefix and len(slot.tokens) > 1:
+                self.allocator.publish(slot.tokens[:-1], slot.pages)
+                st["stashes"][slot.req.id] = slot.pages
+                t0 = st["t0"].get(slot.req.id)
+                if st["tid"] is not None and t0 is not None:
+                    # the speculative window, on the parent's trace
+                    self._tracer.record_span(
+                        "engine.spec_prefill", st["tid"], t0[0],
+                        (time.perf_counter() - t0[1]) * 1e3,
+                        {"parent": st["parent"], "tokens": len(st["cands"][slot.req.id])})
+            else:
+                self.allocator.free(slot.pages)
+        with self._pending_lock:
+            self._deadline_at.pop(slot.req.id, None)
+        if self.slots[slot_idx] is slot:
+            self.slots[slot_idx] = None
+        self._clear_slot(slot_idx)
 
     def _clear_slot(self, slot_idx: int) -> None:
         """Reset a freed slot's host shadows (a free slot's values) and mark
@@ -2267,6 +2865,10 @@ class InferenceEngine:
             with self._session_lock:
                 for r in dropped:
                     self._grammar_release(r.grammar)
+                    if r.session_id and (r.session_id in self._pins
+                                         or r.session_id in self._spec_by_session):
+                        # a cancelled follow-up leaves no session warm
+                        self._unpin_session_locked(r.session_id)
             for r in dropped:
                 self._req_hashes.pop(r.id, None)
                 matched.add(r.id)
@@ -2284,9 +2886,21 @@ class InferenceEngine:
                 with self._session_lock:
                     self.allocator.free(slot.pages)
                     self._grammar_release(slot.req.grammar)
+                    sid = slot.req.session_id
+                    if sid and (sid in self._pins or sid in self._spec_by_session):
+                        self._unpin_session_locked(sid)
                 self.slots[i] = None
                 self._clear_slot(i)
                 self.stats["requests_cancelled"] += 1
+        if self._spec_stalled:
+            # deferred speculative jobs cancel before they ever enqueue
+            live = [e for e in self._spec_stalled if e[1].id not in cancels]
+            if len(live) != len(self._spec_stalled):
+                for _t, r in self._spec_stalled:
+                    if r.id in cancels:
+                        matched.add(r.id)
+                        self.stats["requests_cancelled"] += 1
+                self._spec_stalled = live
         for rid in matched:
             self._submit_t.pop(rid, None)
             self._tr_close(
@@ -2435,10 +3049,13 @@ class InferenceEngine:
 
     def _mixed_eligible(self, req: Request) -> bool:
         """Prefill jobs carry plain prompts: a grammar request's first-token
-        mask, a multimodal request's inject buffer and a branched request's
-        fork (it needs the prompt's last-token logits) are classic-tick
-        features (they admit through the classic path)."""
-        return req.grammar is None and not req.mm_embeds and req.n_branches <= 1
+        mask, a multimodal request's inject buffer, a branched request's
+        fork (it needs the prompt's last-token logits) and both handoff
+        phases (the export samples from those logits, the adoption installs
+        without a prefill) are classic-tick features (they admit through
+        the classic path)."""
+        return (req.grammar is None and not req.mm_embeds and req.n_branches <= 1
+                and req.handoff is None and not req.handoff_export)
 
     def _mixed_tick_ready(self) -> bool:
         """Run the packed mixed tick? While prefill jobs are mid-prompt, or
@@ -2700,6 +3317,7 @@ class InferenceEngine:
             # cancels and forks change slots: read the step in flight first
             events += self._harvest_inflight()
         self._drain_cancels(expected=set(expired))
+        self._drain_spec_stalled()  # spec.stall's deferred jobs (no-op when none)
         if self._fork_cmds:
             # after the cancels: a prune-then-refork burst of a branch group
             # forks onto the pages its pruned branches just freed

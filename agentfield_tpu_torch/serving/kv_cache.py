@@ -15,8 +15,11 @@ f32 per-slot scales.
 the host (offload) tier: refcount-0 indexed pages (parked ones included)
 demote to host RAM through an offload worker and restore at the next lookup
 in one batched upload. The pool stays device-agnostic: the engine supplies
-the ``capture``/``fetch``/``upload`` callbacks. Peer adoption (the cluster
-tier) and the host/wire ``kv_quant_*`` counters are not ported yet.
+the ``capture``/``fetch``/``upload`` callbacks. The cluster tier rides the
+same store: ``sketch`` summarizes the index for a node's heartbeat,
+``export_prep`` serves a peer's fetch, ``adopt_host_pages`` installs the
+pages a peer sent (``enable_restore`` arms the restore half without the
+demote worker).
 """
 
 from __future__ import annotations
@@ -35,7 +38,7 @@ from agentfield_tpu_torch.models.configs import LlamaConfig
 from agentfield_tpu_torch.models.llama import resolve_dtype
 from agentfield_tpu_torch.ops.kv_quant import QuantPages, quant_value_dtype
 from agentfield_tpu_torch.ops.paged_attention import RaggedRows
-from agentfield_tpu_torch.prefix_hash import chain_hash, page_chain_hashes
+from agentfield_tpu_torch.prefix_hash import chain_hash, page_chain_hashes, sketch_digest
 from agentfield_tpu_torch.serving import faults
 
 
@@ -250,14 +253,23 @@ class PrefixPagePool:
             "kv_offload_demoted", "kv_offload_restored", "kv_offload_restore_fail",
             "kv_offload_demote_fail", "kv_offload_host_evicted",
             "kv_offload_restore_ms_total",  # host ms of the batched restores
+            # the cluster tier: the heartbeat sketch and the cross-node
+            # page transfer, always present, zero on a node that never fetches
+            "prefix_sketch_truncated_total", "kv_fetch_requested_total",
+            "kv_fetch_served_total", "kv_fetch_failed_total", "kv_fetch_bytes_total",
+            "kv_fetch_pages_adopted_total",
             # quantized KV pages: always present, zero with quantization off;
             # bytes saved are against the dense page layout at the same count
+            # (in the pool, in the host store, on the wire of a served fetch)
             "kv_quant_pages_total", "kv_quant_bytes_saved_total",
+            "kv_quant_host_bytes_saved_total", "kv_quant_wire_bytes_saved_total",
         ):
             self.stats.setdefault(k, 0)
-        self._quant_hbm_saved = 0  # bytes one quantized page saves (configure_quant)
+        # bytes one quantized page saves in the pool and in the host store
+        # (configure_quant)
+        self._quant_hbm_saved = self._quant_host_saved = 0
         # -- host tier, inert until enable_host_tier() wires the callbacks
-        self._host_enabled = False
+        self._host_enabled = False  # the demote worker runs
         # chain hash -> payload, insertion-ordered: the oldest demotion drops
         # first under budget pressure
         self._host: collections.OrderedDict[bytes, Any] = collections.OrderedDict()
@@ -313,12 +325,17 @@ class PrefixPagePool:
         it is content-addressed or another holder references it."""
         return page in self._by_page or self._refs[page] > 1
 
-    def configure_quant(self, hbm_saved_per_page: int) -> None:
+    def configure_quant(self, hbm_saved_per_page: int,
+                        host_saved_per_page: int | None = None) -> None:
         """Arm the quantized-page counters (the engine does, when its
         kv_quant_dtype is not "none"): every page handed out stores its KV
         quantized, so ``alloc`` counts ``kv_quant_pages_total`` and adds the
-        per-page saving to ``kv_quant_bytes_saved_total``."""
+        per-page saving to ``kv_quant_bytes_saved_total``; a demotion or a
+        peer page adopted into the host store adds the host saving (the
+        same by default) to ``kv_quant_host_bytes_saved_total``."""
         self._quant_hbm_saved = max(0, int(hbm_saved_per_page))
+        self._quant_host_saved = (self._quant_hbm_saved if host_saved_per_page is None
+                                  else max(0, int(host_saved_per_page)))
 
     # -- allocation -----------------------------------------------------
 
@@ -418,6 +435,24 @@ class PrefixPagePool:
             return 0
         return sum(1 for rec in self._prefix_chain(tokens, hashes) if rec.tier == TIER_HOST)
 
+    def sketch(self, max_bytes: int) -> dict[str, Any]:
+        """The prefix index as a node's heartbeat publishes it: the
+        truncated digests (``sketch_digest``) of every indexed record of
+        both tiers (a host page is fetchable too), leading pages first. The
+        gateway scores a node by how many leading pages of a request's chain
+        it finds here. ``max_bytes`` caps the JSON (about 19 bytes a digest
+        and 64 of envelope): overflow drops the deepest records and counts
+        ``prefix_sketch_truncated_total``."""
+        cap = max(0, (int(max_bytes) - 64) // 19)
+        recs = sorted(self._by_hash.values(), key=lambda r: r.depth)
+        truncated = len(recs) > cap
+        if truncated:
+            self.stats["prefix_sketch_truncated_total"] += 1
+            recs = recs[:cap]
+        return {"v": 1, "page_size": self.page_size,
+                "digests": [sketch_digest(r.chain) for r in recs],
+                "truncated": int(truncated)}
+
     def lookup(
         self, tokens: Sequence[int], hashes: list[bytes] | None = None
     ) -> tuple[list[int], int]:
@@ -514,7 +549,10 @@ class PrefixPagePool:
 
     # -- host (offload) tier -------------------------------------------
     #
-    # One page's life: HBM cached (refcount-0 LRU) --enqueue (watermark or
+    # Two halves: the restore half (``enable_restore``: a host store with a
+    # budget and the batched upload; pages a peer node sent land here
+    # through ``adopt_host_pages``) and the demote half (``enable_host_tier``
+    # arms both and starts the offload worker). One page's life: HBM cached (refcount-0 LRU) --enqueue (watermark or
     # idle-session expiry)--> demote queue --worker: device-to-host copy
     # outside the lock, then a commit under it, which aborts if the page was
     # reused, incref'd or evicted meanwhile--> HOST (record.tier = HOST, the
@@ -542,16 +580,12 @@ class PrefixPagePool:
         be the lock that serializes every other pool call."""
         if budget_bytes <= 0:
             raise ValueError(f"budget_bytes={budget_bytes} must be > 0")
-        if page_bytes <= 0:
-            raise ValueError(f"page_bytes={page_bytes} must be > 0")
         if self._host_enabled:
             raise RuntimeError("host tier already enabled")
         if self._offload_thread is not None:
             raise RuntimeError("previous offload worker still draining")
-        self._host_budget = int(budget_bytes)
-        self._page_bytes = int(page_bytes)
-        self._upload = upload
-        self._restore_alloc = restore_alloc
+        self.enable_restore(budget_bytes=budget_bytes, page_bytes=page_bytes, upload=upload,
+                            restore_alloc=restore_alloc)
         self._ext_lock = lock
         self._capture, self._fetch = capture, fetch
         # demote while this many free pages remain: early enough that the
@@ -563,6 +597,84 @@ class PrefixPagePool:
         self._offload_thread = threading.Thread(target=self._offload_worker, name="kv-offload",
                                                 daemon=True)
         self._offload_thread.start()
+
+    def enable_restore(
+        self,
+        *,
+        budget_bytes: int,
+        page_bytes: int,
+        upload: Callable[[list[Any], list[int]], None],
+        restore_alloc: Callable[[], list[int] | None] | None = None,
+    ) -> None:
+        """Arm the restore half only: the upload, the restore allocator and
+        a byte budget for host-resident payloads, with no demote worker.
+        The cluster tier rides it (peer pages adopted by
+        ``adopt_host_pages`` restore through the ordinary lookup), with or
+        without local demotion; ``enable_host_tier`` calls it, so "restore
+        is armed" has one definition."""
+        if budget_bytes <= 0:
+            raise ValueError(f"budget_bytes={budget_bytes} must be > 0")
+        if page_bytes <= 0:
+            raise ValueError(f"page_bytes={page_bytes} must be > 0")
+        self._host_budget = int(budget_bytes)
+        self._page_bytes = int(page_bytes)
+        self._upload = upload
+        self._restore_alloc = restore_alloc
+
+    def adopt_host_pages(
+        self, entries: Sequence[tuple[bytes, int, tuple[int, ...], Any]]
+    ) -> int:
+        """Install pages a peer node sent into the host store (caller holds
+        the external lock): each entry is ``(chain, depth, tokens,
+        payload)``, as a local demotion would have left it. A chain already
+        indexed is skipped (local content wins); the next admission's lookup
+        restores the rest; budget overflow drops the oldest host entries.
+        Returns the number adopted (0 when restore is not armed). The
+        caller derives ``chain`` and ``tokens`` from its own prompt, so a
+        corrupt peer can only waste host budget: the index never lies about
+        the tokens a chain names."""
+        if self._upload is None:
+            return 0
+        n = 0
+        for chain, depth, tokens, payload in entries:
+            if chain in self._by_hash:
+                continue
+            self._by_hash[chain] = PageRecord(page=-1, chain=chain, tokens=tuple(tokens),
+                                              tier=TIER_HOST, depth=int(depth))
+            self._host[chain] = payload
+            self._host_bytes += self._page_bytes
+            n += 1
+            self.stats["kv_fetch_pages_adopted_total"] += 1
+            if self._quant_host_saved:
+                self.stats["kv_quant_host_bytes_saved_total"] += self._quant_host_saved
+        self._evict_host_over_budget()
+        return n
+
+    def export_prep(
+        self, chains: Sequence[bytes], capture: Callable[[int], Any]
+    ) -> list[tuple[bytes, int, Any, str]]:
+        """First phase of serving a peer's fetch (caller holds the external
+        lock): ``(chain, depth, obj, kind)`` for each requested chain that
+        is indexed: ``kind`` "host" with the host payload, or "handle" with
+        ``capture(page)`` of a device page (its content fixed at capture,
+        so the caller copies it to the host outside the lock). Unknown
+        chains are left out, and so is a page whose capture raised: the
+        answer is best effort, the requester re-prefills what is missing."""
+        out: list[tuple[bytes, int, Any, str]] = []
+        for chain in chains:
+            rec = self._by_hash.get(chain)
+            if rec is None:
+                continue
+            if rec.tier == TIER_HOST:
+                payload = self._host.get(rec.chain)
+                if payload is not None:
+                    out.append((rec.chain, rec.depth, payload, "host"))
+                continue
+            try:
+                out.append((rec.chain, rec.depth, capture(rec.page), "handle"))
+            except Exception:  # noqa: BLE001 — a shorter answer; the peer re-prefills
+                continue
+        return out
 
     def _evict_host_over_budget(self) -> None:
         """Over budget, the oldest host entries drop: the far end of the
@@ -659,6 +771,8 @@ class PrefixPagePool:
         self._free.append(page)
         rec.tier, rec.page = TIER_HOST, -1
         self.stats["kv_offload_demoted"] += 1
+        if self._quant_host_saved:
+            self.stats["kv_quant_host_bytes_saved_total"] += self._quant_host_saved
         self._evict_host_over_budget()
 
     def _prepare_restore(self, rec: PageRecord) -> tuple[PageRecord, int, Any] | None:

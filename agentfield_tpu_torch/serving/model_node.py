@@ -32,9 +32,15 @@ that gives up cancels every branch.
 ``generate`` takes the JAX node's request surface, so the payload
 ``Agent.ai()`` sends is served as the JAX node serves it: ``messages``
 (``apply_chat_template``), ``context_overflow`` ("truncate_left" reports
-``truncated_prompt_tokens``), ``output="text"`` and null media; the routing
-hints (``kv_peer``, ``handoff_export``, ``handoff``, ``expect_followup``,
-``followup_candidates``) take the JAX node's degraded path. A ``trace``
+``truncated_prompt_tokens``), ``output="text"`` and null media, and the
+gateway's routing hints, as the JAX node serves them: ``kv_peer`` pulls the
+prompt's missing prefix pages from the named peer node over the channel
+before admission (``maybe_prefetch_kv``; every failure degrades to a local
+prefill, token-exact), ``handoff_export`` makes the request phase one of a
+two-phase dispatch (the result carries the ``handoff`` descriptor),
+``handoff`` makes it phase two (the live tail rides the same prefetch), and
+``expect_followup``/``followup_candidates`` pin the session warm and
+prefill the candidates speculatively. A ``trace``
 context (``agentfield_tpu_torch.tracing``) rides into the engine: the
 request's lifecycle spans and the node's ``node.generate`` come back under
 the result's ``trace`` key (or on the channel's terminal frame).
@@ -143,8 +149,10 @@ from agentfield_tpu_torch.models.llama import init_params
 from agentfield_tpu_torch.models.quant import quantize_params
 from agentfield_tpu_torch.ops.kv_quant import KV_QUANT_DTYPES
 from agentfield_tpu_torch.sdk.client import ControlPlaneClient, ControlPlaneError
+from agentfield_tpu_torch.prefix_hash import page_chain_hashes
 from agentfield_tpu_torch.serving.channel import (
     CHANNEL_PATH,
+    KV_FETCH_MAX_CHAINS,
     ChannelExec,
     ChannelServer,
     ExecutionCancelled,
@@ -183,7 +191,7 @@ NO_TTS = ("this model node has no TTS head (audio output unsupported); "
           "start it with tts=<config> to serve output='audio'/'speech'")
 NO_IMAGEGEN = ("this model node has no image-generation head; start it "
                "with imagegen=<config> to serve output='image'")
-SPEC_MAX_CANDIDATES = 4  # the JAX EngineConfig.spec_max_candidates default
+ROLES = ("prefill", "decode", "mixed")  # a node's pool in two-phase dispatch
 SSE_PING_S = 10.0  # a token stream idle this long gets a ": ping" comment frame
 EMBED_CHUNK_TOKENS = 2048  # padded tokens of one embed forward between two ticks
 DRAIN_GRACE_S = 30.0  # stop()'s default grace, and main's without AGENTFIELD_DRAIN_GRACE
@@ -314,6 +322,7 @@ class ModelBackend:
         audio=None,
         tts=None,
         imagegen=None,
+        restore_budget_bytes: int | None = None,
     ):
         """``vision``/``audio`` (input towers) and ``tts``/``imagegen``
         (output heads) follow the JAX node's contract: a config name or
@@ -321,13 +330,15 @@ class ModelBackend:
         + 5, a checkpoint directory (towers only) loads pretrained weights
         in bf16, a ``(cfg, params)`` pair is served as given; the input
         towers' ``out_dim`` must be the LM's hidden size. All on the
-        engine's device."""
+        engine's device. ``restore_budget_bytes`` is the engine's (the host
+        store pages fetched from a peer wait in)."""
         self.cfg = cfg
         self.model_name = model_name
         self.tokenizer = tokenizer
         if ecfg is None:
             ecfg = EngineConfig(grammar_slots=GRAMMAR_SLOTS)
-        self.engine = InferenceEngine(params, cfg, ecfg, seed=seed, device=device, draft=draft)
+        self.engine = InferenceEngine(params, cfg, ecfg, seed=seed, device=device, draft=draft,
+                                      restore_budget_bytes=restore_budget_bytes)
         dev = self.engine.device
         D = cfg.hidden_size
         self.vision_cfg, self.vision_params = _media_model(
@@ -371,6 +382,20 @@ class ModelBackend:
         self.embed_ms: collections.deque[float] = collections.deque(maxlen=1024)  # CUDA events
         self._profile: dict[str, Any] = {"prof": None, "dir": None}  # under _profile_lock
         self._profile_lock = threading.Lock()
+        # the cluster tier: the transport of this node's own fetches
+        # (``ChannelServer.fetch_kv``, wired by the server), off with
+        # $AGENTFIELD_KV_FETCH=0 (the node then honors no kv_peer hint; it
+        # still serves peers), and the fetches in flight by (peer, first
+        # missing chain or handoff id): a same-prefix burst makes one
+        # transfer, the others wait for its adoption
+        self._kv_fetch_fn: Callable[..., list[dict] | None] | None = None
+        self.kv_fetch_enabled = os.environ.get("AGENTFIELD_KV_FETCH", "1").lower() not in (
+            "0", "false", "no")
+        self.kv_fetch_timeout_s = 5.0
+        self._kv_prefetch_inflight: dict[tuple, threading.Event] = {}  # under _lock
+        # (pages, bytes, seconds) of each prefetch that adopted pages
+        self.kv_fetch_log: collections.deque[tuple[int, int, float]] = collections.deque(
+            maxlen=1024)
 
     def start(self) -> None:
         """Start the drive loop; a backend started again after ``stop``
@@ -519,11 +544,14 @@ class ModelBackend:
         ``images``/``audios`` fill the prompt's ``<image>``/``<audio>``
         markers through the node's towers; ``output`` "audio" speaks the
         prompt, "speech" the generated text (a WAV part), "image" renders
-        the prompt (a PNG part), as the JAX node does. The routing hints
-        ``kv_peer``, ``handoff_export`` and ``handoff`` are
-        accepted and take the JAX node's degraded path (a local prefill, no
-        handoff descriptor); ``followup_candidates`` are validated as the
-        JAX node does, and keep-warm is not ported. With a ``trace`` context
+        the prompt (a PNG part), as the JAX node does. ``kv_peer`` (a token
+        prompt only) pulls the prompt's missing prefix pages from that node
+        before admission; ``handoff_export`` makes this phase one of a
+        two-phase dispatch (``finish_reason`` "handoff" and the ``handoff``
+        descriptor in the result), ``handoff`` phase two; with
+        ``expect_followup`` the session stays pinned warm and each of
+        ``followup_candidates`` (strings or token lists) is prefilled
+        speculatively. With a ``trace`` context
         the engine records the request's spans, the node its
         ``node.generate`` span, and the result carries them all under
         ``trace`` (``{"trace_id", "spans"}``). Raises QueueFullError
@@ -587,15 +615,23 @@ class ModelBackend:
             return out
         trace = tracing.valid_context(trace)
         t0 = time.time(), time.perf_counter()
+        if kv_peer is not None and tokens is not None and not (images or audios):
+            self.maybe_prefetch_kv(tokens, kv_peer)
         q: queue.Queue = queue.Queue()
         rid, truncated = self._submit(
             q, prompt, tokens, max_new_tokens, temperature, top_k, top_p,
             stop_token_ids, session_id, response_schema, context_overflow, images, audios,
             deadline_s, priority, n_branches, branch_policy, expect_followup,
-            followup_candidates, trace)
+            followup_candidates, trace, handoff_export=handoff_export, handoff=handoff)
         if on_cancel is not None:
             on_cancel(lambda: q.put(None))
         result = self.collect_result(rid, q, truncated, trace, t0, timeout=timeout)
+        if handoff_export and result.get("finish_reason") == "handoff":
+            # phase one's terminal: the descriptor goes back to the gateway,
+            # which dispatches phase two to a decode node
+            desc = self.engine.pop_handoff_desc(rid)
+            if desc is not None:
+                result["handoff"] = desc
         if output == "speech":  # speak the generated text
             wav_b64, cut = self._synthesize_wav_b64(result.get("text", ""))
             result["parts"] = [{"type": "audio", "mime": "audio/wav", "data_b64": wav_b64}]
@@ -645,7 +681,7 @@ class ModelBackend:
             q, prompt, tokens, max_new_tokens, temperature, top_k, top_p,
             stop_token_ids, session_id, response_schema, context_overflow, images, audios,
             deadline_s, priority, n_branches, branch_policy, expect_followup,
-            followup_candidates, tracing.valid_context(trace))
+            followup_candidates, tracing.valid_context(trace), handoff=handoff)
         return rid, q, truncated
 
     def collect_trace_spans(self, ctx) -> list[dict]:
@@ -678,7 +714,8 @@ class ModelBackend:
     def _submit(self, q, prompt, tokens, max_new_tokens, temperature, top_k, top_p,
                 stop_token_ids, session_id, response_schema, context_overflow, images,
                 audios, deadline_s, priority, n_branches, branch_policy, expect_followup,
-                followup_candidates, trace) -> tuple[str, int]:
+                followup_candidates, trace, handoff_export: bool = False,
+                handoff: dict | None = None) -> tuple[str, int]:
         """Validate, register the event queue ``q`` for the new request id
         and submit the request to the engine; returns ``(id, prompt tokens
         truncated)``."""
@@ -731,9 +768,8 @@ class ModelBackend:
                         "constrained decoding needs stop_token_ids (tokenizer has no eos_token_id)"
                     )
                 stop_token_ids = [eos]
-        # a hint: validated as the JAX node does, then unused (keep-warm and
-        # the speculative next-step prefill are not ported)
-        self._followup_cand_tokens(followup_candidates if expect_followup else None)
+        cand_tokens = self._followup_cand_tokens(
+            followup_candidates if expect_followup else None)
         with self._lock:
             if self.error is not None:
                 raise RuntimeError(f"engine stopped after a failed step: {self.error!r}")
@@ -763,6 +799,10 @@ class ModelBackend:
                     n_branches=n_branches,
                     trace=trace,
                     mm_embeds=mm_embeds,
+                    handoff_export=bool(handoff_export),
+                    handoff=handoff,
+                    expect_followup=bool(expect_followup),
+                    followup_candidates=cand_tokens,
                 )
             )
         except Exception:
@@ -775,17 +815,18 @@ class ModelBackend:
     def _followup_cand_tokens(self, cands) -> list[list[int]] | None:
         """Declared follow-up candidates as token lists (the JAX node's
         contract): no tokenizer for a string, an empty candidate, or more
-        than ``SPEC_MAX_CANDIDATES`` drop; a container that is not a list or
-        an element of the wrong type raises ValueError."""
+        than the engine's ``spec_max_candidates`` drop; a container that is
+        not a list or an element of the wrong type raises ValueError."""
         if not cands:
             return None
         if not isinstance(cands, (list, tuple)):
             raise ValueError(
                 f"followup_candidates must be a list, got {type(cands).__name__}"
             )
+        cap = max(0, self.engine.ecfg.spec_max_candidates)
         out: list[list[int]] = []
         for cand in cands:
-            if len(out) >= SPEC_MAX_CANDIDATES:
+            if len(out) >= cap:
                 break
             if isinstance(cand, str):
                 if self.tokenizer is None:
@@ -805,6 +846,175 @@ class ModelBackend:
             if toks:
                 out.append(toks)
         return out or None
+
+    # -- the cluster tier: serving a peer's fetch, pulling from a peer -------
+
+    def kv_export_pages(self, chains_hex: list[str], max_bytes: int,
+                        handoff: str | None = None) -> list[tuple[dict, bytes]]:
+        """Serve a peer's ``kv_fetch`` (the JAX node's ``kv_export_pages``):
+        each requested chain indexed here as ``(meta, payload)``, meta its
+        chain, depth, leaves (``{"dtype", "shape"}``, a quantized pool's
+        scales among them) and segment lengths, payload the leaves' raw
+        bytes, until ``max_bytes``. With ``handoff`` the stashed tail page of
+        that handoff comes first (its meta names ``handoff``, not a chain)
+        and leaves the stash."""
+        chains = []
+        for c in chains_hex:
+            try:
+                b = bytes.fromhex(c)
+            except (TypeError, ValueError):
+                continue
+            if len(b) == 16:
+                chains.append(b)
+        eng = self.engine
+        parts = [{"dtype": d, "shape": list(sh)} for d, sh in eng.page_payload_spec()]
+        raw = eng.export_kv_pages(chains)
+        tail = eng.export_handoff_tail(handoff) if handoff else None
+        pages: list[tuple[dict, bytes]] = []
+        total = wire_saved = handoff_bytes = 0
+        segs = [t.numel() // t.shape[1] * t.element_size() for t in eng.cache.leaves()]
+        size = sum(segs)  # every page's payload: the leaves' bytes in order
+        if tail is not None and size <= max_bytes:
+            # ahead of the chain pages: the byte cap must never starve the
+            # one page phase two cannot re-derive from the index
+            pages.append(({"handoff": handoff, "parts": parts, "segs": segs},
+                          eng.page_payload_bytes(tail[1])))
+            total = handoff_bytes = size
+        for chain, depth, payload in raw:
+            if total + size > max_bytes:
+                break
+            pages.append(({"chain": chain.hex(), "depth": int(depth), "parts": parts,
+                           "segs": segs}, eng.page_payload_bytes(payload)))
+            total += size
+            if eng.ecfg.kv_quant_dtype != "none":
+                # against what the dense page would put on the wire
+                wire_saved += max(0, eng.kv_page_bytes_dense - size)
+        with self._lock:
+            eng.stats["kv_fetch_served_total"] += len(pages)
+            eng.stats["kv_fetch_bytes_total"] += total
+            eng.stats["kv_quant_wire_bytes_saved_total"] += wire_saved
+            eng.stats["kv_handoff_bytes_total"] += handoff_bytes
+        return pages
+
+    def _count_kv(self, key: str) -> None:
+        with self._lock:
+            self.engine.stats[key] += 1
+
+    def maybe_prefetch_kv(self, tokens: list[int] | None, hint: Any) -> int:
+        """Pull the prompt's missing prefix pages from the peer the gateway
+        named (the ``kv_peer`` hint) into the host store, before the
+        request is submitted: its admission restores them as it restores
+        demoted pages. Only the missing range is asked for, in fetches of at
+        most ``KV_FETCH_MAX_CHAINS`` pages; each page is checked leaf by
+        leaf against ``page_payload_spec`` and a gap ends the adoptable
+        prefix. With the hint's ``handoff`` id the first fetch also brings
+        the phase-1 tail page, stashed for the live install. A same-prefix
+        burst makes one transfer (the others wait for it, then let the
+        lookup find its pages). Every failure (no channel, a dead peer, a
+        timeout, a malformed page, ``kv.fetch_fail``, ``kv.fetch_stall``)
+        degrades to a local prefill, token-exact. Returns the pages
+        adopted."""
+        if (not self.kv_fetch_enabled or self._kv_fetch_fn is None
+                or not isinstance(hint, dict) or not tokens or len(tokens) < 2):
+            return 0
+        peer = hint.get("node_id")
+        ps = self.engine.ecfg.page_size
+        if not isinstance(peer, str) or hint.get("page_size") != ps:
+            return 0  # another page geometry: the chains can never align
+        hid = hint.get("handoff") if isinstance(hint.get("handoff"), str) else None
+        matchable = [int(t) for t in tokens[: len(tokens) - 1]]
+        hashes = page_chain_hashes(matchable, ps)
+        local = self.engine.peek_prefix(matchable) // ps
+        try:
+            want = int(hint.get("pages") or len(hashes))
+        except (TypeError, ValueError):
+            want = len(hashes)
+        missing = hashes[local : min(want, len(hashes))]
+        if not missing and hid is None:
+            return 0
+        # a handoff pull is unique to its id: it never leads a plain burst
+        key = (peer, ("handoff", hid) if hid is not None else missing[0])
+        with self._lock:
+            leader = self._kv_prefetch_inflight.get(key)
+            if leader is None:
+                done = self._kv_prefetch_inflight[key] = threading.Event()
+        if leader is not None:
+            leader.wait()
+            return 0
+        try:
+            return self._prefetch(peer, matchable, missing, local, hid)
+        finally:
+            with self._lock:
+                self._kv_prefetch_inflight.pop(key, None)
+            done.set()
+
+    def _page_leaves(self, pg: dict, spec) -> list[torch.Tensor]:
+        """One page's wire leaves as host tensors (a byte view each, cast to
+        the leaf's dtype), checked against this pool's ``spec``."""
+        parts, segs = pg["parts"], [int(x) for x in pg["segs"]]
+        data = memoryview(pg["data"])
+        if data.readonly:  # torch views writable buffers only
+            data = memoryview(bytearray(data))
+        if len(parts) != len(spec) or len(segs) != len(spec):
+            raise ValueError("payload leaf count mismatch")
+        if sum(segs) != len(data):
+            raise ValueError(f"payload of {len(data)} bytes, segments of {sum(segs)}")
+        leaves, off = [], 0
+        for part, seg, (name, shape) in zip(parts, segs, spec):
+            if (part["dtype"], tuple(part["shape"])) != (name, shape):
+                raise ValueError(f"leaf {part} != expected {(name, shape)}")
+            raw = torch.frombuffer(data[off : off + seg], dtype=torch.uint8)
+            leaves.append(raw.view(getattr(torch, name)).view(shape))
+            off += seg
+        return leaves
+
+    def _prefetch(self, peer: str, matchable: list[int], missing: list[bytes], local: int,
+                  hid: str | None) -> int:
+        eng, ps = self.engine, self.engine.ecfg.page_size
+        spec = eng.page_payload_spec()
+        t0 = time.perf_counter()
+        adopted = nbytes = 0
+        depth = local
+        first = True
+        while missing or (first and hid is not None):
+            chunk = missing[:KV_FETCH_MAX_CHAINS]
+            self._count_kv("kv_fetch_requested_total")
+            kw = {"handoff": hid} if first and hid is not None else {}
+            got = self._kv_fetch_fn(peer, [h.hex() for h in chunk], self.kv_fetch_timeout_s, **kw)
+            if not got:
+                self._count_kv("kv_fetch_failed_total")
+                break
+            pages = [pg for pg in got if isinstance(pg, dict)]
+            if kw:
+                tpg = next((pg for pg in pages if pg.get("handoff") == hid), None)
+                if tpg is not None:
+                    try:
+                        eng.adopt_handoff_tail(hid, eng.build_page_payload(
+                            self._page_leaves(tpg, spec)))
+                    except Exception:  # noqa: BLE001 — the stash stays empty: admission counts it
+                        pass
+            by_chain = {pg.get("chain"): pg for pg in pages}
+            entries = []
+            for i, h in enumerate(chunk):
+                pg = by_chain.get(h.hex())
+                if pg is None:
+                    break  # a gap ends the adoptable prefix
+                try:
+                    payload = eng.build_page_payload(self._page_leaves(pg, spec))
+                except Exception:  # noqa: BLE001 — a malformed page ends the prefix
+                    self._count_kv("kv_fetch_failed_total")
+                    break
+                d = depth + i
+                entries.append((h, d, tuple(matchable[d * ps : (d + 1) * ps]), payload))
+                nbytes += len(pg["data"])
+            if entries:
+                adopted += eng.adopt_kv_pages(entries)
+            if len(entries) < len(chunk):
+                break
+            missing, depth, first = missing[len(chunk):], depth + len(chunk), False
+        if adopted:
+            self.kv_fetch_log.append((adopted, nbytes, time.perf_counter() - t0))
+        return adopted
 
     def _device_job(self, fn, on_ms: Callable[[float], None]):
         """Run ``fn`` on the drive thread between two ticks
@@ -1072,8 +1282,8 @@ class ModelBackend:
         (the JAX node's ``_prep_stream_kwargs``): known keys that are not
         null, ``messages`` through the chat template, text output only
         (``images``/``audios`` are fused in ``_submit``, as the JAX node
-        pre-fuses them); ``kv_peer`` is a transport hint and never reaches
-        the engine."""
+        pre-fuses them); ``kv_peer`` is a transport hint: the prompt's pages
+        are pulled from that peer here, before the submit."""
         kw = {k: body[k] for k in STREAM_PARAMS if body.get(k) is not None}
         if body.get("messages") is not None:
             if kw.get("prompt") is not None or kw.get("tokens") is not None:
@@ -1084,6 +1294,9 @@ class ModelBackend:
                 "the token stream is text-only; use the unary generate "
                 "path for output='audio'/'speech'/'image'"
             )
+        if (body.get("kv_peer") is not None and kw.get("tokens") is not None
+                and not (kw.get("images") or kw.get("audios"))):
+            self.maybe_prefetch_kv(kw["tokens"], body["kv_peer"])
         return kw
 
     def event_frame(self, ev: TokenEvent) -> dict:
@@ -1197,10 +1410,11 @@ class ModelBackend:
 
     def heartbeat_stats(self) -> dict[str, Any]:
         """The engine's part of every heartbeat (the JAX node's
-        ``_heartbeat_stats`` without ``prefix_sketch``: the cluster prefix
-        tier is not ported; the node adds the channel's counters)."""
+        ``_heartbeat_stats``; the node adds the channel's counters), with the
+        prefix index's sketch under ``prefix_sketch`` (the gateway's
+        affinity routing reads it) unless the engine publishes none."""
         eng = self.engine
-        return {
+        stats = {
             **dict(eng.stats),
             **eng.grammar_bank_stats(),
             **eng.prefix_cache_stats(),
@@ -1211,6 +1425,10 @@ class ModelBackend:
             "draining": int(self._draining),
             "latency_hist": eng.latency_histograms(),
         }
+        sketch = eng.prefix_sketch()
+        if sketch is not None:
+            stats["prefix_sketch"] = sketch
+        return stats
 
     def stats_doc(self) -> dict[str, Any]:
         """``GET /stats``: the heartbeat's stats under the JAX route's key
@@ -1419,12 +1637,21 @@ class ModelNodeServer:
     outcome to ``/api/v1/executions/{id}/status``, and at ``stop`` drains,
     sends a "stopping" heartbeat and deregisters. It serves the gateway's
     channel at ``GET /channel`` (``self.channel``), advertised in its
-    registration as ``metadata["channel"]``, as the JAX SDK agent does."""
+    registration as ``metadata["channel"]``, as the JAX SDK agent does; its
+    peers' KV fetches are served over it and its own go up it. ``role``
+    ("prefill" | "decode" | "mixed") is its pool in two-phase dispatch,
+    advertised as ``metadata["role"]``."""
 
     def __init__(self, backend: ModelBackend, node_id: str = "model",
-                 control_plane: str | None = None, heartbeat_interval: float = 2.0):
+                 control_plane: str | None = None, heartbeat_interval: float = 2.0,
+                 role: str = "mixed"):
         if "." in node_id:
             raise ValueError("node_id must not contain '.'")
+        if role not in ROLES:
+            raise ValueError(
+                f"unknown node role {role!r}: 'prefill' | 'decode' | 'mixed' "
+                "(AGENTFIELD_NODE_ROLE / build_model_node(role=...))"
+            )
         self.backend = backend
         self.node_id = node_id
         self.client = ControlPlaneClient(control_plane) if control_plane else None
@@ -1434,7 +1661,7 @@ class ModelNodeServer:
         modalities = ["text"] + [m for m, have in (
             ("image-in", backend.vision_cfg), ("audio-in", backend.audio_cfg),
             ("audio-out", backend.tts_cfg), ("image-out", backend.imagegen_cfg)) if have]
-        self.metadata = {"model": backend.model_name, "modalities": modalities, "role": "mixed",
+        self.metadata = {"model": backend.model_name, "modalities": modalities, "role": role,
                          "channel": True}
         self.connection_state = "connected"  # "degraded" after failed heartbeats
         self.components = {"generate": (backend.generate, GENERATE_PARAMS),
@@ -1442,6 +1669,10 @@ class ModelNodeServer:
         self.channel = ChannelServer(self._channel_invoke,
                                      {"generate": backend.channel_generate})
         self.channel.set_trace_collect(backend.collect_trace_spans)
+        # the cluster tier: peers' fetches are served from this engine's
+        # index, and this node's own fetches ride the same channel
+        self.channel.set_kv_export(backend.kv_export_pages)
+        backend._kv_fetch_fn = self.channel.fetch_kv
         self.host = "127.0.0.1"
         self._httpd: ThreadingHTTPServer | None = None
         self._thread: threading.Thread | None = None
@@ -1858,6 +2089,17 @@ def load_draft_model(source: str, target_vocab: int, seed: int = 0,
     return init_params(dcfg, seed=seed, dtype=dtype, device=device), dcfg
 
 
+# the JAX node's operator overrides of engine fields: (variable, field, parser)
+ENV_OVERRIDES = (
+    ("AGENTFIELD_PREFIX_SKETCH_BYTES", "prefix_sketch_bytes", int),
+    ("AGENTFIELD_SPEC_PREFILL", "spec_prefill",
+     lambda v: v.strip().lower() not in ("0", "false", "no", "off")),
+    ("AGENTFIELD_SPEC_PIN_TTL_S", "spec_pin_ttl", float),
+    ("AGENTFIELD_SPEC_PIN_BUDGET", "spec_pin_budget", int),
+    ("AGENTFIELD_SPEC_MAX_CANDIDATES", "spec_max_candidates", int),
+)
+
+
 def build_model_node(
     model: str = "llama-3-8b",
     seed: int = 0,
@@ -1875,6 +2117,7 @@ def build_model_node(
     audio=None,
     tts=None,
     imagegen=None,
+    role: str | None = None,
 ) -> tuple[ModelNodeServer, ModelBackend]:
     """Construct ``(server, backend)`` for a preset: random weights drawn
     from ``seed`` on ``device`` unless ``params`` are given, the byte
@@ -1898,12 +2141,22 @@ def build_model_node(
     A checkpoint under ``quant="int8"`` is quantized as it loads, one
     matrix at a time, so its fp stacks are never held whole either.
     ``vision``, ``audio``, ``tts`` and ``imagegen`` are ``ModelBackend``'s
-    tower and head contract (the JAX node's)."""
+    tower and head contract (the JAX node's). ``role`` (else
+    $AGENTFIELD_NODE_ROLE, else "mixed") is the node's pool in two-phase
+    dispatch. As on the JAX node, $AGENTFIELD_PREFIX_SKETCH_BYTES,
+    $AGENTFIELD_SPEC_PREFILL, $AGENTFIELD_SPEC_PIN_TTL_S,
+    $AGENTFIELD_SPEC_PIN_BUDGET and $AGENTFIELD_SPEC_MAX_CANDIDATES override
+    the engine's fields of those names (a malformed value keeps the
+    configured one)."""
+    role = role or os.environ.get("AGENTFIELD_NODE_ROLE") or "mixed"
+    if role not in ROLES:
+        raise ValueError(
+            f"unknown node role {role!r}: 'prefill' | 'decode' | 'mixed' "
+            "(AGENTFIELD_NODE_ROLE / build_model_node(role=...))"
+        )
     if quant is not None and quant != "int8":
         raise ValueError(f"unknown quant mode {quant!r} (have: 'int8')")
     if checkpoint:
-        import os
-
         from agentfield_tpu_torch.models.hf_loader import load_hf_checkpoint
 
         cfg, params = load_hf_checkpoint(checkpoint, device=device, quant=quant)
@@ -1914,6 +2167,13 @@ def build_model_node(
         cfg = get_config(model)
     if ecfg is None:
         ecfg = EngineConfig(grammar_slots=GRAMMAR_SLOTS)
+    for env, field, parse in ENV_OVERRIDES:
+        v = os.environ.get(env)
+        if v is not None:
+            try:
+                ecfg = dataclasses.replace(ecfg, **{field: parse(v)})
+            except ValueError:
+                pass
     if spec_k is not None:
         ecfg = dataclasses.replace(ecfg, spec_k=spec_k)
     if ecfg.spec_k > 0 and spec_draft is None:
@@ -1932,7 +2192,8 @@ def build_model_node(
         params, cfg, ecfg, tokenizer=tokenizer, seed=seed, model_name=model, device=device,
         draft=draft, vision=vision, audio=audio, tts=tts, imagegen=imagegen,
     )
-    return ModelNodeServer(backend, node_id=node_id, control_plane=control_plane), backend
+    return ModelNodeServer(backend, node_id=node_id, control_plane=control_plane,
+                           role=role), backend
 
 
 def main(argv: list[str] | None = None) -> None:

@@ -1,6 +1,8 @@
-"""RFC 6455 WebSocket over the standard library: the framing under the
-node's gateway channel (``serving.channel``), which the card's machine must
-serve without aiohttp or the websockets package.
+"""RFC 6455 WebSocket over the standard library (numpy masks the frames): the
+framing under the node's gateway channel (``serving.channel``), which the
+card's machine must serve without aiohttp or the websockets package. Each
+socket has ``TCP_NODELAY`` set: a frame is one write, never held for the
+peer's ACK of the one before.
 
 The server half upgrades a request that ``http.server`` has already parsed:
 ``handshake_headers`` checks the client's headers and gives the 101
@@ -32,6 +34,8 @@ import os
 import socket
 import struct
 import threading
+
+import numpy as np
 
 GUID = "258EAFA5-E914-47DA-95CA-C5AB0DC85B11"
 OP_CONT, OP_TEXT, OP_BINARY, OP_CLOSE, OP_PING, OP_PONG = 0x0, 0x1, 0x2, 0x8, 0x9, 0xA
@@ -91,20 +95,37 @@ def set_send_timeout(sock: socket.socket, seconds: float) -> None:
                     struct.pack("ll", sec, int((seconds - sec) * 1e6)))
 
 
+def _xor_key(buf: np.ndarray, key: bytes) -> None:
+    """XOR ``buf`` (uint8, in place) with the 4-byte key repeated from its
+    first byte, 8 bytes at a time: a KV page blob is megabytes."""
+    n = buf.size
+    w = n // 8 * 8
+    if w and buf.ctypes.data % 8 == 0:
+        buf[:w].view(np.uint64)[...] ^= np.frombuffer(key * 2, np.uint64)[0]
+    else:
+        w = 0
+    buf[w:] ^= np.resize(np.frombuffer(key, np.uint8), n - w)
+
+
+def _mask_parts(parts, key: bytes) -> np.ndarray:
+    """The concatenation of ``parts`` masked with ``key``: one copy."""
+    out = np.empty(sum(len(p) for p in parts), np.uint8)
+    off = 0
+    for p in parts:
+        out[off : off + len(p)] = np.frombuffer(p, np.uint8)
+        off += len(p)
+    _xor_key(out, key)
+    return out
+
+
 def _mask(payload: bytes, key: bytes) -> bytes:
-    if not payload:
-        return b""
-    n = len(payload)
-    k = int.from_bytes((key * (n // 4 + 1))[:n], "big")
-    return (int.from_bytes(payload, "big") ^ k).to_bytes(n, "big")
+    """XOR with the 4-byte key repeated (masking and unmasking alike)."""
+    return _mask_parts([payload], key).tobytes() if payload else b""
 
 
-def encode_frame(opcode: int, payload: bytes = b"", fin: bool = True,
-                 mask: bytes | None = None) -> bytes:
-    """One frame: the 7-, 16- or 64-bit length form as the payload needs,
-    masked with the 4-byte ``mask`` (a client's frame) or not (a
-    server's)."""
-    n = len(payload)
+def frame_header(opcode: int, n: int, fin: bool = True, mask: bytes | None = None) -> bytes:
+    """A frame's header for an ``n``-byte payload: the 7-, 16- or 64-bit
+    length form as ``n`` needs, the mask key after it when masked."""
     head = bytes([(0x80 if fin else 0) | opcode])
     mbit = 0x80 if mask is not None else 0
     if n < 126:
@@ -113,9 +134,15 @@ def encode_frame(opcode: int, payload: bytes = b"", fin: bool = True,
         head += bytes([mbit | 126]) + struct.pack("!H", n)
     else:
         head += bytes([mbit | 127]) + struct.pack("!Q", n)
-    if mask is None:
-        return head + payload
-    return head + mask + _mask(payload, mask)
+    return head + (mask or b"")
+
+
+def encode_frame(opcode: int, payload: bytes = b"", fin: bool = True,
+                 mask: bytes | None = None) -> bytes:
+    """One frame, masked with the 4-byte ``mask`` (a client's frame) or not
+    (a server's)."""
+    head = frame_header(opcode, len(payload), fin, mask)
+    return head + (payload if mask is None else _mask(payload, mask))
 
 
 def _read_exact(rfile, n: int) -> bytes:
@@ -123,6 +150,19 @@ def _read_exact(rfile, n: int) -> bytes:
     if len(data) != n:
         raise ConnectionError("connection closed mid-frame" if data else "connection closed")
     return data
+
+
+def _read_into(rfile, n: int) -> bytearray:
+    """``n`` bytes read straight into a new buffer (no intermediate copy:
+    a payload may be megabytes)."""
+    buf = bytearray(n)
+    view, got = memoryview(buf), 0
+    while got < n:
+        k = rfile.readinto(view[got:])
+        if not k:
+            raise ConnectionError("connection closed mid-frame")
+        got += k
+    return buf
 
 
 def read_frame(rfile, expect_masked: bool) -> tuple[bool, int, bytes]:
@@ -149,20 +189,27 @@ def read_frame(rfile, expect_masked: bool) -> tuple[bool, int, bytes]:
     if n > MAX_MESSAGE:
         raise ProtocolError(f"frame of {n} bytes", code=1009)
     key = _read_exact(rfile, 4) if masked else None
-    payload = _read_exact(rfile, n)
-    return fin, opcode, (_mask(payload, key) if key is not None else payload)
+    payload = _read_into(rfile, n)
+    if key is not None and n:
+        _xor_key(np.frombuffer(payload, np.uint8), key)  # unmasked in place
+    return fin, opcode, payload
 
 
 class WebSocket:
     """One open WebSocket over ``sock``, reading from ``rfile`` (the
     socket's buffered reader). ``recv`` returns the next whole message as
-    ``(opcode, payload)`` (text payloads decoded to str), answering pings
+    ``(opcode, payload)`` (text payloads decoded to str, binary ones a
+    bytes-like buffer read straight from the socket), answering pings
     and echoing a close on the way, and None once the connection has
     closed. The send methods raise ConnectionError on a closed or broken
     connection, and on a send that timed out, which aborts it."""
 
     def __init__(self, sock: socket.socket, rfile, client: bool = False):
         set_send_timeout(sock, SEND_TIMEOUT_S)
+        # each frame is one write: Nagle would hold a small frame (a token)
+        # behind the peer's delayed ACK of the one before (about 40 ms)
+        if sock.family in (socket.AF_INET, socket.AF_INET6):
+            sock.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
         self.sock = sock
         self.rfile = rfile
         self.client = client
@@ -172,19 +219,34 @@ class WebSocket:
 
     # -- writing ----------------------------------------------------------
 
-    def _send(self, opcode: int, payload: bytes) -> None:
-        frame = encode_frame(opcode, payload, True, os.urandom(4) if self.client else None)
+    def _send(self, opcode: int, *parts) -> None:
+        """One frame whose payload is the concatenation of ``parts``: a
+        server's parts go out as they are, a client's are masked into one
+        buffer."""
+        n = sum(len(p) for p in parts)
+        if self.client:
+            key = os.urandom(4)
+            bufs = [frame_header(opcode, n, True, key), _mask_parts(parts, key)]
+        else:
+            bufs = [frame_header(opcode, n), *parts]
         with self._send_lock:
             if self.closed:
                 raise ConnectionError("websocket is closed")
             try:
-                self.sock.sendall(frame)
+                for b in bufs:
+                    if len(b):
+                        self.sock.sendall(b)
             except OSError as e:
                 self.abort()  # part of the frame may be out: the stream is lost
                 raise ConnectionError(f"websocket send failed: {e!r}") from e
 
     def send_text(self, text: str) -> None:
         self._send(OP_TEXT, text.encode())
+
+    def send_binary(self, *parts) -> None:
+        """One binary message: the concatenation of ``parts`` (bytes-like),
+        never joined on a server's side."""
+        self._send(OP_BINARY, *parts)
 
     def close(self, code: int = 1000, reason: str = "") -> None:
         """Send a close frame (once); the peer's echo ends ``recv``. When
@@ -261,7 +323,7 @@ class WebSocket:
             if size > MAX_MESSAGE:
                 raise self._fail(f"message past {MAX_MESSAGE} bytes", 1009)
             if fin:
-                data = b"".join(parts)
+                data = parts[0] if len(parts) == 1 else b"".join(parts)
                 if opcode == OP_TEXT:
                     try:
                         return opcode, data.decode()

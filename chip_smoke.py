@@ -191,7 +191,25 @@ the result line:
                ``stop(grace_s=1)`` with a 400-token SSE stream and channel
                execution open (both get a terminal, a late request 503).
                ``[channel]`` line.
-13b. ``media``  multimodal serving on the same weights (``phase_media``):
+13b. ``cluster`` KV that crosses nodes (``phase_cluster``): a prefill node
+               and a decode node on the same weights (each its own
+               1024-page pool and 1 GiB restore budget), the stand-in
+               gateway relaying ``kv_fetch``/``kv_pages`` and page blobs
+               between their channels: 8 token prompts of 200-1500 through
+               two-phase dispatch (tokens equal to a single-node run, the
+               decode node installs each live with no prefill; the gap from
+               the phase-1 terminal to its first token frame); 4 prompts of
+               1536 tokens held by the prefill node, fetched by the decode
+               node under the ``kv_peer`` hint its heartbeat sketch gives
+               (tokens equal to the holder's HBM hit, pages bit-equal, fetch
+               GB/s, first-frame ms against the hit and a cold re-prefill),
+               and on an int8-KV pair; ``kv.fetch_fail``, ``kv.fetch_stall``,
+               ``kv.handoff_fail``, ``kv.handoff_stall`` token-exact with no
+               page kept; a 3-step agent chain's follow-ups under a
+               speculation hit, keep-warm only and cold; one decode launch
+               over adopted pages against the plain version. ``[cluster]``
+               lines.
+13c. ``media``  multimodal serving on the same weights (``phase_media``):
                a vision tower at CLIP ViT-L/14-336 geometry (576 positions
                an image), an audio tower at Whisper-large-v3 encoder
                geometry (1500 positions for 30 s), ``tts-base`` and
@@ -206,7 +224,7 @@ the result line:
                prompt's last logits, kernel vs plain, within the forward
                phase's bf16 bound. ``[media]`` lines: tower ms, TTFTs,
                launches, the frame gap, peak memory, the phase's seconds.
-13c. ``ckpt``   the serve's weights as a Hugging Face checkpoint
+13d. ``ckpt``   the serve's weights as a Hugging Face checkpoint
                (``phase_ckpt``): written in bf16 as Meta-Llama-3-8B's four
                shards with the index, the published ``config.json``, a
                Llama-3-form ``tokenizer.json`` (merges the smoke learns from
@@ -2958,7 +2976,15 @@ class StandInControlPlane:
     ``POST /api/v1/nodes`` (register), ``POST /api/v1/nodes/{id}/heartbeat``
     (404 for a node it does not know), ``DELETE /api/v1/nodes/{id}`` and
     ``POST /api/v1/executions/{id}/status``. It records every body with its
-    arrival time."""
+    arrival time.
+
+    Its gateway half plays the JAX gateway's channel side for the cluster
+    tier: ``attach`` opens a channel to a node (``ChannelClient``), whose
+    ``kv_fetch``, ``kv_pages`` and page-blob frames it relays to the peer
+    a fetch names and back, under a fetch id of its own (the JAX
+    ``relay_kv_fetch``/``relay_kv_pages``/``relay_kv_blob``: the chains and
+    ``max_bytes`` capped, blob headers rewritten, payload bytes untouched);
+    ``two_phase`` is the JAX gateway's two-phase dispatch."""
 
     def __init__(self):
         from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
@@ -2969,6 +2995,12 @@ class StandInControlPlane:
         self.deleted: list[str] = []
         self.statuses: dict[str, dict] = {}
         self.cv = threading.Condition()
+        self.channels: dict[str, ChannelClient] = {}
+        # gateway fetch id -> (requesting node, its fetch id)
+        self.kv_relays: dict[str, tuple[str, str]] = {}
+        self.kv_stats = {"kv_relay_fetches_total": 0, "kv_relay_frames_total": 0,
+                         "kv_relay_errors_total": 0}
+        self._relay_lock = threading.Lock()
         cp = self
 
         class Handler(BaseHTTPRequestHandler):
@@ -3028,6 +3060,9 @@ class StandInControlPlane:
         return f"http://127.0.0.1:{self._httpd.server_address[1]}"
 
     def stop(self) -> None:
+        for ch in list(self.channels.values()):
+            ch.close()
+        self.channels.clear()
         self._httpd.shutdown()
         self._httpd.server_close()
         self._thread.join(timeout=10.0)
@@ -3035,6 +3070,95 @@ class StandInControlPlane:
     def wait(self, pred, timeout: float) -> bool:
         with self.cv:
             return self.cv.wait_for(pred, timeout=timeout)
+
+    # -- the gateway's channel half ----------------------------------------
+
+    def attach(self, node_id: str, port: int) -> "ChannelClient":
+        ch = self.channels[node_id] = ChannelClient(port, relay=self, node_id=node_id)
+        return ch
+
+    def _kv_error_to(self, requester: str, fid: str, err: str) -> None:
+        self.kv_stats["kv_relay_errors_total"] += 1
+        ch = self.channels.get(requester)
+        if ch is not None:
+            ch.send({"kind": "kv_pages", "fetch_id": fid, "error": err, "done": True})
+
+    def relay_kv_fetch(self, requester: str, frame: dict) -> None:
+        from agentfield_tpu_torch.serving import channel as chmod
+
+        fid, peer, chains = frame.get("fetch_id"), frame.get("peer"), frame.get("chains")
+        if not isinstance(fid, str) or not isinstance(peer, str) or not isinstance(chains, list):
+            return
+        ch = self.channels.get(peer)
+        if ch is None:
+            self._kv_error_to(requester, fid, f"peer {peer!r} unknown or channel-less")
+            return
+        with self._relay_lock:
+            gw_fid = f"kvr_{len(self.kv_relays) + 1}"
+            self.kv_relays[gw_fid] = (requester, fid)
+            self.kv_stats["kv_relay_fetches_total"] += 1
+        relayed = {"kind": "kv_fetch", "fetch_id": gw_fid,
+                   "chains": chains[:chmod.KV_FETCH_MAX_CHAINS],
+                   "max_bytes": min(int(frame.get("max_bytes") or chmod.KV_FETCH_MAX_BYTES),
+                                    chmod.KV_FETCH_MAX_BYTES)}
+        if isinstance(frame.get("handoff"), str):
+            relayed["handoff"] = frame["handoff"]
+        ch.send(relayed)
+
+    def relay_kv_pages(self, server: str, frame: dict) -> None:
+        entry = self.kv_relays.get(frame.get("fetch_id"))
+        if entry is None:
+            return
+        self.kv_stats["kv_relay_frames_total"] += 1
+        self.channels[entry[0]].send({**frame, "fetch_id": entry[1]})
+
+    def relay_kv_blob(self, server: str, data: bytes) -> None:
+        from agentfield_tpu_torch.serving.channel import kv_blob_header, unpack_kv_blob
+
+        parsed = unpack_kv_blob(data)
+        entry = self.kv_relays.get(parsed[0]) if parsed is not None else None
+        if entry is None:
+            return
+        self.kv_stats["kv_relay_frames_total"] += 1
+        # the header rewritten, the payload passed on as it came
+        self.channels[entry[0]].ws.send_binary(kv_blob_header(entry[1], parsed[1]), parsed[2])
+
+    def execute(self, node_id: str, eid: str, payload: dict, stream: bool = False,
+                timeout: float = 600.0) -> dict:
+        """Send one ``generate`` execution to a node's channel; its
+        terminal frame (completed, or an AssertionError)."""
+        ch = self.channels[node_id]
+        ch.submit(eid, payload, stream=stream)
+        term = ch.terminal(eid, timeout)
+        assert term["status"] == "completed", term
+        return term
+
+    def two_phase(self, eid: str, payload: dict, prefill: str, decode: str) -> dict:
+        """The JAX gateway's two-phase dispatch of a token prompt: phase one
+        unary to ``prefill`` with ``handoff_export``; a "handoff" terminal's
+        descriptor sends phase two, streamed, to ``decode`` with it and the
+        ``kv_peer`` hint that pulls the prompt's pages and the live tail; a
+        declined export's result completes as it is. Returns the result,
+        whether it was handed off, and the gap from the phase-1 terminal to
+        the first token frame of phase two (host ms)."""
+        p1 = self.execute(prefill, f"{eid}.p1", {**payload, "handoff_export": True})
+        res1 = p1["result"]
+        desc = res1.get("handoff")
+        if res1.get("finish_reason") != "handoff":
+            return {"result": res1, "handed_off": False, "gap_ms": None}
+        assert isinstance(desc, dict), res1  # the stash lives 60 s: never aged out here
+        ch1 = self.channels[prefill]
+        t_term = ch1.arrivals[f"{eid}.p1"][ch1.frames[f"{eid}.p1"].index(p1)]
+        hint = {"node_id": prefill, "pages": desc["pages"], "page_size": desc["page_size"],
+                "handoff": desc["id"]}
+        p2 = self.execute(decode, f"{eid}.p2", {**payload, "handoff": desc, "kv_peer": hint},
+                          stream=True)
+        ch2 = self.channels[decode]
+        frames = ch2.frames[f"{eid}.p2"]
+        k = next(j for j, f in enumerate(frames) if f["kind"] == "token")
+        return {"result": p2["result"], "handed_off": True, "phase1": res1,
+                "gap_ms": (ch2.arrivals[f"{eid}.p2"][k] - t_term) * 1e3,
+                "tokens": channel_tokens([f for f in frames if f["kind"] != "accepted"])}
 
 
 def _http(port: int, method: str, path: str, body=None, headers=None,
@@ -3355,12 +3479,15 @@ JAX_FLIGHT_KEYS = frozenset({
 class ChannelClient:
     """The gateway's side of one channel connection, over the port's
     WebSocket client: a reader thread files the node's frames by execution,
-    with their host arrival times."""
+    with their host arrival times, and hands its KV frames (``kv_fetch``,
+    ``kv_pages``, page blobs) to ``relay`` (a ``StandInControlPlane``) as
+    coming from ``node_id``."""
 
-    def __init__(self, port: int):
+    def __init__(self, port: int, relay=None, node_id: str | None = None):
         from agentfield_tpu_torch.serving.websocket import connect
 
         self.ws = connect("127.0.0.1", port, "/channel")
+        self.relay, self.node_id = relay, node_id
         self.frames: dict[str, list[dict]] = {}
         self.arrivals: dict[str, list[float]] = {}
         self.sent: dict[str, float] = {}
@@ -3369,8 +3496,19 @@ class ChannelClient:
         self.thread.start()
 
     def _read(self):
+        from agentfield_tpu_torch.serving.websocket import OP_TEXT
+
         while (msg := self.ws.recv()) is not None:
+            if msg[0] != OP_TEXT:  # a page blob on its way to the fetching node
+                if self.relay is not None:
+                    self.relay.relay_kv_blob(self.node_id, msg[1])
+                continue
             frame, t = json.loads(msg[1]), time.perf_counter()
+            if self.relay is not None and frame.get("kind") in ("kv_fetch", "kv_pages"):
+                relay = (self.relay.relay_kv_fetch if frame["kind"] == "kv_fetch"
+                         else self.relay.relay_kv_pages)
+                relay(self.node_id, frame)
+                continue
             eid = frame.get("exec_id")
             if eid is None:
                 continue  # a pong
@@ -3451,8 +3589,13 @@ def held_burst(backend, submits) -> None:
 
 
 def _wait_idle(backend, timeout: float = 600.0) -> None:
+    """Until the node's engine holds no work and no stream is open. The
+    engine is asked on its drive thread, between two ticks: inside a tick a
+    request mid-prefill is neither pending nor in a slot, so another
+    thread would read no work (an internal speculative job has no stream
+    to show it either)."""
     t0 = time.monotonic()
-    while backend.engine.has_work() or backend._streams:
+    while backend._on_engine_thread(backend.engine.has_work) or backend._streams:
         assert time.monotonic() - t0 < timeout, "the engine never went idle"
         time.sleep(0.005)
 
@@ -3763,6 +3906,460 @@ def phase_channel(results, state, seed: int, device: str = "cuda",
         f"after {f['channel_tokens']}, drain {f['summary']}, late request {f['late_status']}; "
         f"main path {main_s:.1f} s, launches {launches}")
 
+
+# the cluster phase: two nodes of one fleet on the card (the serve's weights
+# shared), their KV crossing over the stand-in gateway's relay
+CLUSTER_A_PROMPTS = 4
+CLUSTER_A_PROMPT = 1536  # 96 pages of 16: 192 MiB of bf16 KV at Llama-3-8B width
+CLUSTER_A_SUFFIX = 32
+CLUSTER_A_NEW = 16
+CLUSTER_B_PROMPTS = (200, 385, 571, 757, 942, 1128, 1314, 1500)
+CLUSTER_B_NEW = 64
+CLUSTER_D = dict(prompt=600, cand=96, tool=24, new=16)  # the keep-warm chain's sizes
+CLUSTER_PAGES = 1024  # 2 GiB of bf16 KV a node
+CLUSTER_RESTORE_BYTES = 1 << 30  # pinned host memory a node's fetched pages wait in
+CLUSTER_FETCH_BYTES = 256 << 20  # a fetch's byte cap ($AGENTFIELD_KV_FETCH_MAX_BYTES)
+CLUSTER_SKETCH_BYTES = 16384  # the heartbeat sketch's cap: 858 digests
+CLUSTER_STALL_S = 1.0
+CLUSTER_FETCH_TIMEOUT_S = 0.25  # the fetching node's timeout under the stall faults
+
+
+def affinity_pages(sketch: dict, tokens: list[int], page_size: int) -> int:
+    """The JAX gateway's affinity walk: how many leading pages of the
+    prompt's matchable prefix (minus its last token) a node's heartbeat
+    sketch advertises, to the first gap."""
+    from agentfield_tpu_torch.prefix_hash import page_chain_hashes, sketch_digest
+
+    digests = set(sketch["digests"])
+    n = 0
+    for h in page_chain_hashes(tokens[: len(tokens) - 1], page_size):
+        if sketch_digest(h) not in digests:
+            break
+        n += 1
+    return n
+
+
+def first_frame_ms(ch: "ChannelClient", eid: str) -> float:
+    """Host ms from a streamed execution's submit to its first token frame."""
+    k = next(j for j, f in enumerate(ch.frames[eid]) if f["kind"] == "token")
+    return (ch.arrivals[eid][k] - ch.sent[eid]) * 1e3
+
+
+def phase_cluster(results, state, seed: int, device: str = "cuda",
+                  model_name: str = "llama-3-8b", a_prompts: int = CLUSTER_A_PROMPTS,
+                  a_prompt: int = CLUSTER_A_PROMPT, a_suffix: int = CLUSTER_A_SUFFIX,
+                  a_new: int = CLUSTER_A_NEW, int8_prompts: int = 2,
+                  b_prompts: tuple = CLUSTER_B_PROMPTS, b_new: int = CLUSTER_B_NEW,
+                  d: dict = CLUSTER_D, num_pages: int = CLUSTER_PAGES,
+                  max_pages_per_seq: int = 128, page_size: int = 16,
+                  restore_bytes: int = CLUSTER_RESTORE_BYTES,
+                  fetch_bytes: int = CLUSTER_FETCH_BYTES, stall_s: float = CLUSTER_STALL_S,
+                  fetch_timeout_s: float = CLUSTER_FETCH_TIMEOUT_S,
+                  heartbeat_interval: float = 0.5):
+    """Two port nodes of one fleet on the serve's weights (shared tensors):
+    node A (role prefill) and node B (role decode), each with its own pool
+    of ``num_pages`` pages, a restore budget of ``restore_bytes`` of host
+    memory, ``decode_buckets=(16,)`` (a row's decode runs at one width
+    whatever else is live, so greedy tokens compare across nodes), behind
+    the stand-in control plane (registration, heartbeats with the prefix
+    sketch, and its gateway half: the KV relay and two-phase dispatch), and
+    a mixed node C that runs the single-node references. A fetch may carry
+    ``fetch_bytes`` (``channel.KV_FETCH_MAX_BYTES``, restored after). Counts
+    reset before (b) and read after (d):
+    (b) ``len(b_prompts)`` token prompts through two-phase dispatch at once
+        (``b_new`` greedy tokens): all handed off, tokens equal to C's
+        single-node runs, B's ``kv_handoff_completed_total`` = their number
+        and its ``prefill_tokens`` 0; the gap from the phase-1 terminal to
+        B's first token frame;
+    (a) ``a_prompts`` prompts of ``a_prompt`` tokens warmed on A; B gets
+        each plus an ``a_suffix``-token suffix with the ``kv_peer`` hint the
+        JAX gateway's affinity walk computes from A's heartbeat sketch: B's
+        tokens equal A's own (an HBM hit) for the same input, every page
+        fetched; the fetch's pages, bytes and GB/s, B's first-frame ms
+        against A's hit and B's cold re-prefill of a prompt as long; the
+        same on an int8-KV pair (``int8_prompts``; four leaves a page, wire
+        bytes saved); every adopted page bit-equal to A's;
+    (c) ``kv.fetch_fail``, ``kv.fetch_stall``, ``kv.handoff_fail`` and
+        ``kv.handoff_stall`` once each (stalls of ``stall_s`` against a
+        ``fetch_timeout_s`` fetch): token-exact, counted, and both nodes'
+        ``free_pages`` back to their values before (c);
+    (d) a 3-step agent chain on C with ``expect_followup`` and two
+        ``followup_candidates`` of which the next step sends the first:
+        each step's first-frame ms and engine TTFT on a speculation hit,
+        under keep-warm only (``spec.fail``), with no session (the
+        shared-prefix index alone) and cold (nothing cached matches), the
+        median of two chains a mode run in turns; pins and speculation
+        state released, no page held;
+    (e) one decode launch over B's adopted pages against the plain version
+        within ``elem_bound`` (on the card)."""
+    import dataclasses as dc
+
+    import numpy as np
+    import torch
+
+    from agentfield_tpu_torch.ops.cuda import ragged_paged_attention as rpa
+    from agentfield_tpu_torch.ops.kv_quant import bits
+    from agentfield_tpu_torch.prefix_hash import page_chain_hashes
+    from agentfield_tpu_torch.serving import channel as chmod
+    from agentfield_tpu_torch.serving import faults
+    from agentfield_tpu_torch.serving.engine import EngineConfig
+    from agentfield_tpu_torch.serving.model_node import ModelBackend, ModelNodeServer
+    from agentfield_tpu_torch.serving.tokenizer import ByteTokenizer
+
+    params, cfg = state["params"], state["cfg"]
+    on_card = torch.device(device).type == "cuda"
+    card = results.get("card", "no card")
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    rng = np.random.default_rng(seed + 43)
+
+    def toks(n: int) -> list[int]:
+        return rng.integers(0, cfg.vocab_size, n).tolist()
+
+    ecfg = EngineConfig(max_batch=16, page_size=page_size, num_pages=num_pages,
+                        max_pages_per_seq=max_pages_per_seq, decode_buckets=(16,),
+                        prefix_sketch_bytes=CLUSTER_SKETCH_BYTES)
+    cp = StandInControlPlane()
+    url = cp.start()
+    nodes: dict[str, tuple] = {}
+
+    def node(nid: str, role: str, kv_quant: str = "none"):
+        be = ModelBackend(params, cfg, dc.replace(ecfg, kv_quant_dtype=kv_quant),
+                          tokenizer=ByteTokenizer(cfg.vocab_size), seed=seed,
+                          model_name=model_name, device=device, restore_budget_bytes=restore_bytes)
+        srv = ModelNodeServer(be, node_id=nid, control_plane=url,
+                              heartbeat_interval=heartbeat_interval, role=role)
+        cp.attach(nid, srv.start())
+        nodes[nid] = (srv, be)
+        return be
+
+    def stop(nid: str) -> None:
+        srv, be = nodes.pop(nid)
+        cp.channels.pop(nid).close()
+        srv.stop(grace_s=0.0)
+
+    def idle(*bes) -> None:
+        for be in bes:
+            _wait_idle(be)
+
+    def run(nid: str, eid: str, payload: dict, stream: bool = True) -> list[int]:
+        return cp.execute(nid, eid, payload, stream=stream)["result"]["tokens"]
+
+    out: dict = {"pages": num_pages, "restore_bytes": restore_bytes, "fetch_bytes": fetch_bytes}
+    old_cap = chmod.KV_FETCH_MAX_BYTES
+    chmod.KV_FETCH_MAX_BYTES = fetch_bytes
+    t_phase = time.perf_counter()
+    try:
+        A = node("cluster-a", "prefill")
+        B = node("cluster-b", "decode")
+        C = node("cluster-c", "mixed")
+        assert [cp.nodes[n]["metadata"]["role"] for n in ("cluster-a", "cluster-b", "cluster-c")
+                ] == ["prefill", "decode", "mixed"]
+        # (b) two-phase dispatch, against single-node references on C
+        prompts = [toks(n) for n in b_prompts]
+        refs = [run("cluster-c", f"b_ref{i}", {"tokens": p, "max_new_tokens": b_new}, False)
+                for i, p in enumerate(prompts)]
+        rpa.reset_launches()  # this phase's main path only
+        t_main = time.perf_counter()
+        got: dict = {}
+        ths = [threading.Thread(target=lambda i=i, p=p: got.__setitem__(i, cp.two_phase(
+            f"b{i}", {"tokens": p, "max_new_tokens": b_new}, "cluster-a", "cluster-b")))
+            for i, p in enumerate(prompts)]
+        for th in ths:
+            th.start()
+        for th in ths:
+            th.join(600)
+        assert len(got) == len(prompts), sorted(got)
+        for i in range(len(prompts)):
+            assert got[i]["handed_off"], (i, got[i]["result"])
+            assert got[i]["tokens"] == got[i]["result"]["tokens"] == refs[i], (
+                f"handoff {i}: tokens differ from the single-node run")
+        sa, sb = A.engine.stats, B.engine.stats
+        assert sb["kv_handoff_completed_total"] == len(prompts), sb["kv_handoff_completed_total"]
+        assert sb["prefill_tokens"] == 0 and sb["kv_handoff_failed_total"] == 0
+        assert sa["kv_handoff_initiated_total"] == len(prompts)
+        assert sa["kv_handoff_bytes_total"] > 0
+        out["b"] = {"gap_ms": [got[i]["gap_ms"] for i in range(len(prompts))],
+                    "handoff_bytes": sa["kv_handoff_bytes_total"],
+                    "pages_adopted": sb["kv_fetch_pages_adopted_total"],
+                    "fetches": sb["kv_fetch_requested_total"],
+                    "a_ttft_ms": list(A.engine.ttft_ms)[-len(prompts):]}
+        _cluster_report("b", out, card)
+        idle(A, B)
+        # (a) a prefix another node holds: B pulls it; A's own hit; B cold
+        def cross(pa, pb, n_prompts: int, tag: str) -> dict:
+            bea, beb = nodes[pa][1], nodes[pb][1]
+            ps_ = [toks(a_prompt) for _ in range(n_prompts)]
+            for i, p in enumerate(ps_):
+                run(pa, f"{tag}_warm{i}", {"tokens": p, "max_new_tokens": 4}, False)
+            idle(bea)
+            t_hb = time.perf_counter()
+            assert cp.wait(lambda: any(
+                t > t_hb and nid == pa and "prefix_sketch" in (b.get("stats") or {})
+                for t, nid, b in cp.heartbeats), 60), "no heartbeat with a prefix sketch"
+            sketch = next(b["stats"]["prefix_sketch"] for t, nid, b in reversed(cp.heartbeats)
+                          if nid == pa and t > t_hb)
+            rows = []
+            for i, p in enumerate(ps_):
+                full = p + toks(a_suffix)
+                pages = affinity_pages(sketch, full, page_size)
+                assert pages == a_prompt // page_size, (pages, sketch["truncated"])
+                hint = {"node_id": pa, "pages": pages, "page_size": page_size}
+                n0 = len(beb.kv_fetch_log)
+                tb = run(pb, f"{tag}_b{i}", {"tokens": full, "max_new_tokens": a_new,
+                                             "kv_peer": hint})
+                b_ms = first_frame_ms(cp.channels[pb], f"{tag}_b{i}")
+                b_eng = beb.engine.ttft_ms[-1]  # submit (after the fetch) to first token
+                ta = run(pa, f"{tag}_a{i}", {"tokens": full, "max_new_tokens": a_new})
+                assert tb == ta, f"{tag} {i}: B's tokens over fetched pages differ from A's"
+                a_ms, a_eng = first_frame_ms(cp.channels[pa], f"{tag}_a{i}"), bea.engine.ttft_ms[-1]
+                run(pb, f"{tag}_cold{i}", {"tokens": toks(len(full)), "max_new_tokens": a_new})
+                cold_ms = first_frame_ms(cp.channels[pb], f"{tag}_cold{i}")
+                cold_eng = beb.engine.ttft_ms[-1]
+                assert len(beb.kv_fetch_log) == n0 + 1, "B adopted nothing"
+                fp, fb, fs = beb.kv_fetch_log[-1]
+                assert fp == pages, (fp, pages)
+                # the adopted pages hold A's bytes, bit for bit
+                ha = page_chain_hashes(p, page_size)
+                with bea.engine._session_lock, beb.engine._session_lock:
+                    pa_ids = [bea.engine.allocator._by_hash[h].page for h in ha]
+                    pb_ids = [beb.engine.allocator._by_hash[h].page for h in ha]
+                for la, lb in zip(bea.engine.cache.leaves(), beb.engine.cache.leaves()):
+                    assert torch.equal(bits(la)[:, pa_ids], bits(lb)[:, pb_ids]), (
+                        f"{tag} {i}: an adopted page differs from its source")
+                rows.append({"pages": fp, "bytes": fb, "fetch_s": fs, "gbps": fb / fs / 1e9,
+                             "b_ms": b_ms, "a_hit_ms": a_ms, "b_cold_ms": cold_ms,
+                             "engine_ttft_ms": {"b": b_eng, "a_hit": a_eng, "b_cold": cold_eng},
+                             "b_pages": pb_ids})
+            return {"rows": rows, "sketch_digests": len(sketch["digests"]),
+                    "sketch_truncated": sketch["truncated"]}
+
+        out["a"] = cross("cluster-a", "cluster-b", a_prompts, "a")
+        restore = B.engine.restore_upload_ms()
+        out["a"]["restore_ms"] = [ms for _, ms in restore[-a_prompts:]]
+        _cluster_report("a", out, card)
+        # (e)'s inputs: layer 0 of B's adopted pages, copied now (later
+        # allocations may reuse them), behind a page 0 for the launch's write
+        ids = torch.tensor([pid for r in out["a"]["rows"] for pid in r.pop("b_pages")])
+        e_pools = [torch.cat([t[0][:1], t[0][ids.to(t.device)], torch.zeros_like(
+            t[0][:a_prompts])]) for t in (B.engine.cache.k_pages, B.engine.cache.v_pages)]
+        node("cluster-a8", "mixed", "int8")
+        node("cluster-b8", "mixed", "int8")
+        out["a_int8"] = cross("cluster-a8", "cluster-b8", int8_prompts, "a8")
+        a8, b8 = nodes["cluster-a8"][1], nodes["cluster-b8"][1]
+        assert len(b8.engine.page_payload_spec()) == 4
+        out["a_int8"]["wire_bytes_saved"] = a8.engine.stats["kv_quant_wire_bytes_saved_total"]
+        assert out["a_int8"]["wire_bytes_saved"] > 0
+        _cluster_report("a_int8", out, card)
+        idle(a8, b8)
+        stop("cluster-a8")
+        stop("cluster-b8")
+        del a8, b8
+        # (c) faults: each degrades token-exact, no page kept
+        idle(A, B, C)
+        free0 = (A.engine.allocator.free_pages, B.engine.allocator.free_pages)
+        out["c"] = {}
+
+        def faulted(spec: dict, fn):
+            faults.install(faults.FaultInjector(seed=seed, spec=spec))
+            try:
+                return fn()
+            finally:
+                faults.install(None)
+
+        for point, timeout in (("kv.fetch_fail", 5.0), ("kv.fetch_stall", fetch_timeout_s)):
+            p = toks(a_prompt)
+            full = p + toks(a_suffix)
+            run("cluster-a", f"c_warm_{point}", {"tokens": p, "max_new_tokens": 4}, False)
+            idle(A)
+            s0 = dict(B.engine.stats)
+            B.kv_fetch_timeout_s = timeout
+            try:
+                tb = faulted({point: {"times": 1, "delay_s": stall_s}}, lambda: run(
+                    "cluster-b", f"c_b_{point}", {"tokens": full, "max_new_tokens": a_new,
+                                                  "kv_peer": {"node_id": "cluster-a",
+                                                              "pages": a_prompt // page_size,
+                                                              "page_size": page_size}}))
+            finally:
+                B.kv_fetch_timeout_s = 5.0
+            # B's cold re-prefill of this very prompt, fetch time included
+            b_ms, b_eng = first_frame_ms(cp.channels["cluster-b"], f"c_b_{point}"), \
+                B.engine.ttft_ms[-1]
+            ta = run("cluster-a", f"c_a_{point}", {"tokens": full, "max_new_tokens": a_new})
+            assert tb == ta, f"{point}: tokens differ"
+            d_ = {k: B.engine.stats[k] - s0[k] for k in (
+                "kv_fetch_failed_total", "kv_fetch_pages_adopted_total", "prefill_tokens")}
+            d_.update(b_first_frame_ms=b_ms, b_engine_ttft_ms=b_eng)
+            assert d_["kv_fetch_failed_total"] == 1 and d_["kv_fetch_pages_adopted_total"] == 0
+            assert d_["prefill_tokens"] == len(full), d_
+            out["c"][point] = d_
+        for point, timeout in (("kv.handoff_fail", 5.0), ("kv.handoff_stall", fetch_timeout_s)):
+            p = toks(b_prompts[-1])
+            ref = run("cluster-c", f"c_ref_{point}", {"tokens": p, "max_new_tokens": b_new}, False)
+            sa0, sb0 = dict(A.engine.stats), dict(B.engine.stats)
+            B.kv_fetch_timeout_s = timeout
+            try:
+                r = faulted({point: {"times": 1, "delay_s": stall_s}}, lambda: cp.two_phase(
+                    f"c_{point}", {"tokens": p, "max_new_tokens": b_new},
+                    "cluster-a", "cluster-b"))
+            finally:
+                B.kv_fetch_timeout_s = 5.0
+            assert r["result"]["tokens"] == ref, f"{point}: tokens differ"
+            d_ = {"handed_off": r["handed_off"]} | {
+                f"a_{k}": A.engine.stats[k] - sa0[k] for k in (
+                    "kv_handoff_initiated_total", "kv_handoff_fail_export_total")} | {
+                f"b_{k}": B.engine.stats[k] - sb0[k] for k in (
+                    "kv_handoff_completed_total", "kv_handoff_failed_total",
+                    "kv_fetch_failed_total", "prefill_tokens")}
+            if point == "kv.handoff_fail":
+                assert not r["handed_off"] and d_["a_kv_handoff_fail_export_total"] == 1, d_
+            else:
+                assert r["handed_off"] and d_["b_kv_handoff_completed_total"] == 0, d_
+                assert d_["b_kv_fetch_failed_total"] == 1 and d_["b_prefill_tokens"] == len(p)
+            out["c"][point] = d_
+        time.sleep(stall_s + 0.5)  # the stalled serves answer into nothing
+        idle(A, B)
+        free1 = (A.engine.allocator.free_pages, B.engine.allocator.free_pages)
+        assert free1 == free0, (free1, free0)
+        out["c"]["free_pages"] = free0
+        _cluster_report("c", out, card)
+        # (d) keep-warm and speculative next-step prefill on C
+        runs: dict = {}
+        s0 = dict(C.engine.stats)
+        for k, mode in enumerate(("hit", "keepwarm", "index", "cold") * 2):  # twice, in turns
+            sid = f"agent-{mode}{k}" if mode in ("hit", "keepwarm") else None
+            prompt, ttft = toks(d["prompt"]), []
+            spec = {"spec.fail": {}} if mode == "keepwarm" else {}
+            for step in range(3):
+                cands = [toks(d["cand"]), toks(d["cand"])]
+                last = step == 2
+                # "index": no session, but the index still holds the step's
+                # published pages; "cold": a first token of its own, so
+                # nothing cached matches (the whole transcript prefills)
+                sent = toks(1) + prompt[1:] if mode == "cold" else prompt
+                payload = {"tokens": sent, "max_new_tokens": d["new"], "session_id": sid,
+                           "expect_followup": bool(sid) and not last,
+                           "followup_candidates": cands if sid and not last else None}
+                eid = f"d_{mode}{k}_{step}"
+                res = faulted(spec, lambda: run("cluster-c", eid, payload))
+                ttft.append((first_frame_ms(cp.channels["cluster-c"], eid),
+                             C.engine.ttft_ms[-1]))
+                idle(C)  # the tool runs: the speculative jobs finish meanwhile
+                prompt = prompt + res + cands[0] + toks(d["tool"])
+            runs.setdefault(mode, []).append(ttft)
+            if sid:
+                C.engine.free_session(sid)
+        # per step, the median of the runs' (first frame, engine TTFT)
+        chains = {mode: [tuple(statistics.median(x[s][j] for x in rs) for j in (0, 1))
+                         for s in range(3)] for mode, rs in runs.items()}
+        ds = {k: C.engine.stats[k] - s0[k] for k in (
+            "spec_started_total", "spec_hit_total", "spec_wasted_tokens_total",
+            "spec_cancelled_total", "spec_fail_injected")}
+        assert ds["spec_hit_total"] == 4 and ds["spec_fail_injected"] == 4, ds
+        with C.engine._session_lock:
+            assert not C.engine._pins and not C.engine._spec_by_session
+            assert not C.engine._spec_stalled and not C.engine._sessions
+            assert C.engine.allocator.free_pages == num_pages - 1
+        out["d"] = {"ttft_ms": chains, "runs": runs, "counters": ds}
+        _cluster_report("d", out, card)
+        main_s = time.perf_counter() - t_main
+        launches = rpa.launch_counts()  # the main path's, read now
+        # (e) one decode launch over B's adopted pages, kernel against plain
+        if on_card:
+            from agentfield_tpu_torch.ops.paged_attention import ragged_paged_attention_ref
+
+            R, ctx = a_prompts, a_prompt
+            n = ctx // page_size
+            tables = torch.zeros((R, max_pages_per_seq), dtype=torch.int32)
+            for r in range(R):  # the adopted pages of prompt r, then a page of its own
+                tables[r, :n] = 1 + r * n + torch.arange(n, dtype=torch.int32)
+                tables[r, n] = 1 + R * n + r  # for the launch's write
+            g = torch.Generator().manual_seed(seed + 44)
+            H, Kh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+            q, kn, vn = (torch.randn((R, 1, h, hd), generator=g).mul_(0.3).to(
+                device=device, dtype=torch.bfloat16) for h in (H, Kh, Kh))
+            desc = [t.to(device) for t in (
+                tables, torch.full((R,), ctx, dtype=torch.int32),
+                torch.ones((R,), dtype=torch.int32), torch.full((R,), ctx, dtype=torch.int32),
+                torch.arange(R, dtype=torch.int32))]
+            kp, vp = e_pools
+            kp_k, vp_k, kp_r, vp_r = kp.clone(), vp.clone(), kp.clone(), vp.clone()
+            o_k, _, _ = rpa.ragged_paged_attention_cuda(q, kn, vn, kp_k, vp_k, *desc)
+            o_r, _, _ = ragged_paged_attention_ref(q, kn, vn, kp_r, vp_r, *desc)
+            torch.cuda.synchronize()
+            within, err, ratio = compare(o_k, o_r, "bfloat16")
+            out["e"] = {"rows": R, "ctx": ctx, "max_abs_err": err, "err_over_bound": ratio}
+            _cluster_report("e", out, card)
+            assert within, f"the decode over adopted pages disagrees: {err} ({ratio} of bound)"
+            del kp_k, vp_k, kp_r, vp_r
+        del e_pools
+        stats = {n: {k: v for k, v in be.engine.stats.items()
+                     if k.startswith(("kv_fetch", "kv_handoff", "spec_", "prefill_tokens"))}
+                 for n, (_, be) in nodes.items()}
+    finally:
+        chmod.KV_FETCH_MAX_BYTES = old_cap
+        faults.install(None)
+        for nid in list(nodes):
+            stop(nid)
+        cp.stop()
+    if on_card:  # the path's kernels, each launched by this phase's main path
+        for key in ("ragged_paged_attention", "ragged_paged_attention_int8",
+                    "dense_causal_attention", "ragged_decode_split", "ragged_decode_combine",
+                    "ragged_tiles_tc"):
+            assert launches[key] > 0, f"{key} was not launched by the cluster phase"
+    assert not any(t.name.startswith("channel-") and t.is_alive()
+                   for t in threading.enumerate()), "a channel thread outlived its node"
+    out.update({"launches": launches, "main_s": main_s, "stats": stats,
+                "relay": dict(cp.kv_stats), "phase_s": time.perf_counter() - t_phase})
+    results["cluster"] = out
+    log(f"[cluster] {results.get('card', 'no card')}: main path {main_s:.1f} s, phase "
+        f"{out['phase_s']:.1f} s, launches {launches}, relay {out['relay']}")
+
+
+def _cluster_report(key: str, out: dict, card: str) -> None:
+    """Log one section of ``phase_cluster`` as it completes."""
+    def med(xs):
+        return statistics.median(xs) if xs else float("nan")
+
+    r = out[key]
+    if key == "b":
+        log(f"[cluster (b)] {card}: {len(r['gap_ms'])} two-phase dispatches = the single-node "
+            f"runs; B installed all live, prefill_tokens 0; phase-1 terminal to B's first token "
+            f"frame ms p50 {med(r['gap_ms']):.2f} (min {min(r['gap_ms']):.2f}, max "
+            f"{max(r['gap_ms']):.2f}); tail bytes {r['handoff_bytes']}, pages adopted "
+            f"{r['pages_adopted']} in {r['fetches']} fetches")
+    elif key in ("a", "a_int8"):
+        rows = r["rows"]
+        log(f"[cluster ({key})] {card}: {len(rows)} prompts, pages fetched "
+            f"{[x['pages'] for x in rows]}, bytes {rows[0]['bytes']} a prompt, fetch GB/s p50 "
+            f"{med([x['gbps'] for x in rows]):.3f} (host s {med([x['fetch_s'] for x in rows]):.4f})"
+            f"; first-frame ms B over fetched pages p50 {med([x['b_ms'] for x in rows]):.2f}, "
+            f"A's HBM hit {med([x['a_hit_ms'] for x in rows]):.2f}, B cold "
+            f"{med([x['b_cold_ms'] for x in rows]):.2f} (engine TTFT p50 B "
+            f"{med([x['engine_ttft_ms']['b'] for x in rows]):.2f}, A "
+            f"{med([x['engine_ttft_ms']['a_hit'] for x in rows]):.2f}, B cold "
+            f"{med([x['engine_ttft_ms']['b_cold'] for x in rows]):.2f}); tokens B = A, pages "
+            f"bit-equal; sketch "
+            f"{r['sketch_digests']} digests"
+            + (f"; restore upload device ms {[round(x, 3) for x in r['restore_ms']]}"
+               if r.get("restore_ms") else "")
+            + (f"; wire bytes saved {r['wire_bytes_saved']}" if "wire_bytes_saved" in r else ""))
+    elif key == "c":
+        log(f"[cluster (c)] {card}: the four faults token-exact "
+            f"{ {k: v for k, v in r.items() if k != 'free_pages'} }, free pages A/B back to "
+            f"{r['free_pages']}")
+    elif key == "d":
+        def steps(mode):
+            return ", ".join(f"{f:.1f}/{e:.1f}" for f, e in r["ttft_ms"][mode])
+
+        log(f"[cluster (d)] {card}: steps 1-3, first-frame ms / engine TTFT ms (medians of 2 "
+            f"chains each): hit {steps('hit')}; keep-warm only {steps('keepwarm')}; no session "
+            f"(the index only) {steps('index')}; cold {steps('cold')}; {r['counters']}; pins and "
+            f"speculation released, no page held")
+    else:
+        log(f"[cluster (e)] {card}: decode over adopted pages, {r['rows']} rows ctx {r['ctx']}: "
+            f"err {r['max_abs_err']:.3e}, {r['err_over_bound']:.3f} of elem_bound")
 
 # the quant phase's mixed-tick burst and speculative pass on the int8 target
 W8_BURST_DECODES = (64, 200, 333, 400)  # in flight, 48 new tokens each
@@ -6007,7 +6604,7 @@ def kernels_line(results) -> dict:
     every bf16 shape it was held at (for a quantized variant, against the
     plain version with the kernel's semantics, check (b)), ``launches`` from
     the serve phase of its pool kind and the spec, tier, fork, api, channel,
-    media, moe and ckpt phases."""
+    cluster, media, moe and ckpt phases."""
     shapes = results["shapes"]
     picks = [
         ("ragged_paged_attention", "llama3_decode_ctx2k/bfloat16", f"{TPU_KERNEL}:61", "serve"),
@@ -6022,10 +6619,10 @@ def kernels_line(results) -> dict:
         entry = {
             "name": name, "route": "cuda", "source": RAGGED_SRC, "replaces": replaces,
             # the serve's launches and those of the spec, tier, fork, api,
-            # channel, media, moe and ckpt phases
+            # channel, cluster, media, moe and ckpt phases
             "launches": results[serve]["launches"][name] + sum(
                 results[p]["launches"][name]
-                for p in ("spec", "tier", "fork", "api", "channel", "media"))
+                for p in ("spec", "tier", "fork", "api", "channel", "cluster", "media"))
             + results["moe"]["launches"].get(name, 0)
             + results.get("ckpt", {}).get("launches", {}).get(name, 0),
             "max_abs_err": max(r["max_abs_err"] for r in held),
@@ -6155,6 +6752,7 @@ def main() -> int:
         phase_fork(results, state, args.seed)
         phase_api(results, state, args.seed)
         phase_channel(results, state, args.seed)
+        phase_cluster(results, state, args.seed)
         phase_media(results, state, args.seed)
         phase_ckpt(results, state, args.seed, root=args.ckpt_dir)
         state.clear()  # the 8B weights go before the reduced-depth models
@@ -6170,6 +6768,7 @@ def main() -> int:
             with open(out, "w") as f:
                 json.dump(results, f, indent=1, default=str)
     log(card)
+    log(f"[wall] the whole script took {results['wall_s']:.1f} s, the build included")
     log(json.dumps(kernels_line(results)))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -9,8 +9,9 @@ over the standard library) and ``serving.channel`` (the node side of
 - the channel protocol on the port's node, driven by the port's WebSocket
   client: accepted, token frames with a rising per-execution seq, one
   terminal, ping/pong, a reattach's replay on a new connection, an unknown
-  reattach, a duplicate submit, ``fin``, cancel (the slot frees), the
-  ``kv_fetch`` error frame, the JAX server's ``channel_server_*`` counters;
+  reattach, a duplicate submit, ``fin``, cancel (the slot frees), a
+  ``kv_fetch`` of nothing held (an empty answer) and a malformed one (the
+  error frame), the JAX server's ``channel_server_*`` counters;
 - the JAX control plane (``tests/helpers_cp.CPHarness``) driving the port's
   node as a child process over ``/channel``, as ``tests/test_streaming.py``
   drives the JAX node: streamed tokens equal the unary ones with one
@@ -360,9 +361,15 @@ def test_channel_protocol_on_the_port_node(node):
             c2.send(kind="fin", exec_id="s1")
             c2.send(kind="reattach", exec_id="s1", last_seq=0)
             c2.wait(lambda f: sum(x["kind"] == "reattach_fail" for x in f) == 2)
+            # a fetch the node holds nothing of: one empty done frame; a
+            # malformed one (chains not a list): the JAX server's error frame
             c2.send(kind="kv_fetch", fetch_id="f1", peer="p", chains=["ab"])
             c2.wait(lambda f: any(x["kind"] == "kv_pages" for x in f))
-            assert c2.frames[-1] == {"kind": "kv_pages", "fetch_id": "f1",
+            assert c2.frames[-1] == {"kind": "kv_pages", "fetch_id": "f1", "seq": 1,
+                                     "pages": [], "blob_len": 0, "done": True}
+            c2.send(kind="kv_fetch", fetch_id="f2", peer="p", chains="ab")
+            c2.wait(lambda f: sum(x["kind"] == "kv_pages" for x in f) == 2)
+            assert c2.frames[-1] == {"kind": "kv_pages", "fetch_id": "f2",
                                      "error": "node serves no KV export", "done": True}
         finally:
             c2.close()
@@ -388,7 +395,7 @@ def test_channel_protocol_on_the_port_node(node):
     assert stats["channel_server_submits_total"] >= 4
     assert stats["channel_server_reattaches_total"] == 1
     assert stats["channel_server_cancels_total"] == 1
-    assert stats["channel_server_kv_fetches_total"] == 1
+    assert stats["channel_server_kv_fetches_total"] == 2
     assert stats["channel_server_kv_fetch_errors_total"] == 1
     # the duplicate's replay sent old frames: no new ones
     assert stats["channel_server_frames_total"] == sum(
@@ -430,18 +437,22 @@ def test_channel_traced_execution_and_failures(node):
 
 def test_unary_channel_generate_is_generate(node):
     """A unary ``generate`` execution goes through ``generate`` itself: its
-    parameters (``timeout``-free, the routing hints too) and its result,
-    an unknown key refused as the HTTP route refuses it, and a cancel ends
-    the request in the engine."""
+    parameters (``timeout``-free, the routing hints too: a ``kv_peer`` hint
+    on a text prompt is a no-op, ``handoff_export`` makes the request phase
+    one of a two-phase dispatch) and its result, an unknown key refused as
+    the HTTP route refuses it, and a cancel ends the request in the
+    engine."""
     server, backend, port = node
     want = backend.generate(prompt="unary hints", max_new_tokens=5)
     c = Client(port)
     try:
         _submit(c, "h1", stream=False, prompt="unary hints", max_new_tokens=5,
-                kv_peer={"node": "elsewhere"}, handoff_export=True)
+                kv_peer={"node": "elsewhere"})
         _submit(c, "h2", stream=False, prompt="x", bogus=1)
-        c.wait(_terminal("h1"))
-        c.wait(_terminal("h2"))
+        _submit(c, "h3", stream=False, prompt="unary hints", max_new_tokens=5,
+                handoff_export=True)
+        for eid in ("h1", "h2", "h3"):
+            c.wait(_terminal(eid))
         got = c.of("h1")[-1]["result"]
         assert set(got) == set(want)
         # the repeat's prefill hits the prefix cache: the same tokens, the
@@ -450,6 +461,14 @@ def test_unary_channel_generate_is_generate(node):
             k: v for k, v in want.items() if k != "logprobs"}
         assert got["logprobs"] == pytest.approx(want["logprobs"], rel=1e-5)
         assert c.of("h2")[-1]["status"] == "failed" and "bogus" in c.of("h2")[-1]["error"]
+        p1 = c.of("h3")[-1]["result"]
+        n = len(backend.tokenizer.encode("unary hints"))
+        assert (p1["finish_reason"], p1["tokens"]) == ("handoff", want["tokens"][:1])
+        assert p1["handoff"] == {"id": p1["handoff"]["id"], "t0": want["tokens"][0],
+                                 "logprob": pytest.approx(want["logprobs"][0], rel=1e-5),
+                                 "prompt_tokens": n, "pages": (n - 1) // ECFG["page_size"],
+                                 "page_size": ECFG["page_size"]}
+        assert backend.engine.export_handoff_tail(p1["handoff"]["id"]) is not None
         _submit(c, "u2", stream=False, prompt="cancel me unary", max_new_tokens=100)
         for _ in range(1000):
             if backend.engine.num_active:

@@ -164,12 +164,20 @@ def test_engine_matches_jax_engine_with_node_defaults(weights):
 
 
 def test_engine_rejects_fields_it_does_not_implement():
+    # the JAX engine's implementation switches: the port has one path each
+    # (the hand-written kernel on the card, its plain version on the CPU)
     with pytest.raises(TypeError):
-        engine.EngineConfig(prefix_sketch_bytes=4096)  # the cluster tier's
+        engine.EngineConfig(attn_impl="pallas")
     with pytest.raises(TypeError):
-        engine.EngineConfig(spec_prefill=False)
+        engine.EngineConfig(compile_cache_dir="/nonexistent")
     fields = {f.name for f in dataclasses.fields(engine.EngineConfig)}
-    assert fields <= {f.name for f in dataclasses.fields(jax_engine.EngineConfig)}
+    jax_fields = {f.name for f in dataclasses.fields(jax_engine.EngineConfig)}
+    assert fields <= jax_fields
+    assert jax_fields - fields == {"attn_impl", "chunk_attn_impl", "compile_cache_dir",
+                                   "kv_write_impl", "prefill_impl"}
+    for f in ("prefix_sketch_bytes", "spec_prefill", "spec_pin_ttl", "spec_pin_budget",
+              "spec_max_candidates"):  # the cluster tier's and keep-warm's, as the JAX defaults
+        assert getattr(engine.EngineConfig(), f) == getattr(jax_engine.EngineConfig(), f), f
 
 
 def test_engine_admission_errors(weights):

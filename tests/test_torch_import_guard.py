@@ -2,11 +2,13 @@
 not ``chip_smoke.py`` imports JAX, the JAX package (its ``sdk``,
 ``control_plane`` and ``tracing`` included), the repo's tools, or aiohttp,
 pydantic, safetensors, transformers, tokenizers, regex, websockets and
-grpc, which the card's machine lacks, nor Pillow (``PIL``), which it lacks
-too (the checkpoint loader and the tokenizer read their formats themselves;
-the channel speaks WebSocket over the standard library; the node decodes
-and encodes PNG, JPEG and WAV with ``models.media_codec`` and ``wave``). jinja2 stays allowed: it comes with torch, and the tokenizer
-imports it only when it renders a chat template.
+grpc, which the card's machine lacks, nor Pillow (``PIL``) or ml_dtypes,
+which it lacks too (the checkpoint loader and the tokenizer read their
+formats themselves; the channel speaks WebSocket over the standard library;
+the node decodes and encodes PNG, JPEG and WAV with ``models.media_codec``
+and ``wave``; the cluster tier's KV wire reads bf16 and fp8 leaves through
+``torch.frombuffer``). jinja2 stays allowed: it comes with torch, and the
+tokenizer imports it only when it renders a chat template.
 
 The check is on the AST, by the exact top-level module name: a prefix test
 on ``"agentfield_tpu"`` would also match ``agentfield_tpu_torch``."""
@@ -22,7 +24,7 @@ import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 FORBIDDEN = {"jax", "jaxlib", "agentfield_tpu", "tools", "aiohttp", "pydantic", "safetensors",
-             "transformers", "tokenizers", "regex", "websockets", "grpc", "PIL"}
+             "transformers", "tokenizers", "regex", "websockets", "grpc", "PIL", "ml_dtypes"}
 
 
 def _port_files() -> list[pathlib.Path]:
@@ -133,6 +135,31 @@ def test_guard_names_the_image_library(tmp_path):
     )
     tops = [t for _, t in _imported_tops(src)]
     assert [t for t in tops if t in FORBIDDEN] == ["PIL", "PIL", "PIL"]
+
+
+def test_guard_names_the_kv_wire_libraries(tmp_path):
+    """The cluster tier's modules (the prefix hash's sketch digests, the
+    pool's adoption, the engine's wire payloads, the channel's relay) stay
+    clear of JAX, the JAX package, aiohttp and ml_dtypes: checked by name,
+    and each of those modules of the port scanned below."""
+    src = tmp_path / "m.py"
+    src.write_text(
+        "import ml_dtypes\n"
+        "from ml_dtypes import bfloat16\n"
+        "from agentfield_tpu.prefix_hash import sketch_digest\n"
+        "from agentfield_tpu.control_plane.channel import _pack_kv_blob\n"
+        "from aiohttp import WSMsgType\n"
+        "from agentfield_tpu_torch.prefix_hash import sketch_digest as port_digest\n"
+        "from agentfield_tpu_torch.serving.channel import kv_blob_header\n"
+    )
+    tops = [t for _, t in _imported_tops(src)]
+    assert [t for t in tops if t in FORBIDDEN] == [
+        "ml_dtypes", "ml_dtypes", "agentfield_tpu", "agentfield_tpu", "aiohttp"]
+    for rel in ("prefix_hash.py", "serving/kv_cache.py", "serving/engine.py",
+                "serving/channel.py", "serving/model_node.py", "serving/websocket.py"):
+        path = ROOT / "agentfield_tpu_torch" / rel
+        assert path in _port_files()
+        assert not [t for _, t in _imported_tops(path) if t in FORBIDDEN], rel
 
 
 def test_port_modules_load_nothing_forbidden():
