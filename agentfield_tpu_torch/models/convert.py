@@ -13,6 +13,11 @@ kernel (``models.quant.pack_quantw``, matrix by matrix) on a CUDA device.
 A MoE config (``num_experts > 0``) takes ``router [L, d, E]`` (always fp)
 and the expert stacks ``w_gate``/``w_up [L, E, d, f]``, ``w_down [L, E, f,
 d]``, fp or quantized (scale ``[L, E, out]``).
+
+Training state comes across too: ``lora_from_numpy`` takes a JAX adapter
+tree (the JAX ``load_adapter``'s, read from its orbax artifact), and
+``train_state_from_numpy`` a JAX ``TrainState`` with optax's Adam moments,
+so a run started in the JAX package resumes on the port.
 """
 
 from __future__ import annotations
@@ -112,3 +117,64 @@ def tower_params_from_numpy(
         return torch.from_numpy(np.array(a, dtype=np.float32)).to(device=device, dtype=dt)
 
     return move(tree)
+
+
+def _tree_from_numpy(tree: dict[str, Any], device, dtype=None) -> dict[str, Any]:
+    """A nested dict of numpy arrays (ml_dtypes bfloat16 among them) as
+    torch tensors on ``device``, each in ``dtype`` or in its own dtype,
+    copied through float32 (exact for float32 and bfloat16)."""
+    def move(a):
+        if isinstance(a, dict):
+            return {k: move(v) for k, v in a.items()}
+        a = np.asarray(a)
+        dt = resolve_dtype(dtype or str(a.dtype))
+        return torch.from_numpy(np.array(a, dtype=np.float32)).to(device=device, dtype=dt)
+
+    return move(tree)
+
+
+def lora_from_numpy(tree: dict[str, Any], lcfg, device: str | torch.device = "cuda"
+                    ) -> dict[str, Any]:
+    """The JAX package's adapter tree (``agentfield_tpu.training.lora.
+    load_adapter``'s second element, as numpy: ``{"layers": {"<t>_a": [L,
+    in, r], "<t>_b": [L, r, out]}}``) as the port's on ``device`` in
+    ``lcfg.dtype``; raises where the tree's targets are not ``lcfg``'s."""
+    names = sorted(tree["layers"])
+    want = sorted(f"{t}_{s}" for t in lcfg.targets for s in "ab")
+    if names != want:
+        raise ValueError(f"adapter leaves {names} are not the targets' {want}")
+    return _tree_from_numpy(tree, device, lcfg.dtype)
+
+
+def train_state_from_numpy(params: dict[str, Any], opt_state: Any, step: Any, optimizer,
+                           device: str | torch.device = "cuda"):
+    """A JAX ``TrainState`` (``agentfield_tpu.training.trainer``), its leaves
+    as numpy, as the port's ``TrainState`` on ``device``: ``params`` any
+    nested dict (a model's tree or an adapter's), leaves in their own
+    dtypes; ``optimizer`` the ``training.optim`` spec of the optax transform
+    the state was made with. For Adam and AdamW, optax's
+    ``ScaleByAdamState(count, mu, nu)`` (the first state of the chain)
+    becomes each param's ``step`` (``count``), ``exp_avg`` (``mu``) and
+    ``exp_avg_sq`` (``nu``); SGD has no state to carry."""
+    from agentfield_tpu_torch.training.trainer import named_leaves, state_from_params
+
+    state = state_from_params(_tree_from_numpy(params, device), optimizer)
+    state.step = int(np.asarray(step))
+    if optimizer.kind == "sgd":
+        return state
+    adam_state = next((s for s in opt_state if hasattr(s, "mu") and hasattr(s, "nu")), None)
+    if adam_state is None:
+        raise ValueError(f"no ScaleByAdamState (count, mu, nu) in the optax state {opt_state!r}")
+    count = int(np.asarray(adam_state.count))
+    if count == 0:
+        return state  # no update yet: torch's Adam makes its moments at its first step
+    mu, nu = dict(named_leaves(adam_state.mu)), dict(named_leaves(adam_state.nu))
+    sd = state.optimizer.state_dict()
+    for i, (name, p) in enumerate(named_leaves(state.params)):
+        sd["state"][i] = {
+            "step": torch.tensor(float(count)),
+            "exp_avg": torch.from_numpy(np.array(mu[name], dtype=np.float32)).to(p.dtype),
+            "exp_avg_sq": torch.from_numpy(np.array(nu[name], dtype=np.float32)).to(p.dtype),
+        }
+    state.optimizer.load_state_dict(sd)
+    return state

@@ -225,7 +225,7 @@ def write_safetensors(path: str | Path,
         f.write(struct.pack("<Q", len(raw)))
         f.write(raw)
         for name, shape, dt, make in entries:
-            t = make().to(dt).contiguous()
+            t = make().detach().to(dt).contiguous()
             if tuple(t.shape) != tuple(shape):
                 raise ValueError(f"tensor {name!r}: shape {tuple(t.shape)} != {tuple(shape)}")
             f.write(t.cpu().view(torch.uint8).numpy().data if t.numel() else b"")

@@ -13,6 +13,10 @@ out float32.
 paged-attention kernel (``ops.cuda.ragged_paged_attention.
 dense_causal_attention``; its plain version on CPU tensors).
 
+``forward(remat=True)`` under autograd is the training forward
+(``training.trainer``); ``generate_greedy`` over ``forward_with_cache`` and
+a contiguous cache is the greedy oracle the engine is held against.
+
 A config with ``num_experts > 0`` (Mixtral) has a top-k MoE FFN: ``router
 [L, d, E]`` and expert stacks ``w_gate``/``w_up [L, E, d, f]``, ``w_down [L,
 E, f, d]``; ``cfg.moe_impl`` picks soft routing or capacity-based sparse
@@ -28,6 +32,7 @@ tensor. One forward serves both. An expert stack contracts through
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any
 
@@ -129,6 +134,28 @@ def layer(params: Params, i: int) -> Params:
     """Layer ``i``'s leaves (views into the stacked ``[L, ...]`` tensors, or
     a ``QuantW`` of the two sliced in lockstep)."""
     return {k: t[i] for k, t in params["layers"].items()}
+
+
+def _layers(params: Params, num_layers: int):
+    """Every layer's leaves, in order. A stacked leaf that requires grad
+    (with grad mode on) is split once with ``unbind(0)``, whose backward
+    stacks the layers' gradients once: ``t[i]``'s backward would fill a
+    zero ``[L, ...]`` gradient a layer (1 GiB a layer for Llama-3-8B's
+    ``wq``). Every other leaf is sliced as ``layer`` slices it, so the
+    serving path's ops are unchanged."""
+    split = {k: t.unbind(0) for k, t in params["layers"].items()
+             if torch.is_grad_enabled() and isinstance(t, torch.Tensor) and t.requires_grad}
+    for i in range(num_layers):
+        yield {k: split[k][i] if k in split else t[i] for k, t in params["layers"].items()}
+
+
+def detached(params: Params) -> Params:
+    """``params`` with every tensor leaf detached from autograd (sharing its
+    storage; a ``QuantW`` passes through): a trained state's leaves served
+    or held frozen without building graphs."""
+    return {k: detached(v) if isinstance(v, dict)
+            else v.detach() if isinstance(v, torch.Tensor) else v
+            for k, v in params.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -336,6 +363,7 @@ def forward(
     valid_mask: torch.Tensor | None = None,  # [B, S] bool: the real tokens
     capacity_tokens: int | None = None,  # sparse MoE: capacity's token count
     embeds_override: tuple[torch.Tensor, torch.Tensor] | None = None,
+    remat: bool = False,
 ):
     """Dense causal forward. Returns ``(logits [B, S, V] float32, (k, v)``
     each ``[L, B, S, Kh, hd]`` or None). With ``last_idx`` the logits are
@@ -356,7 +384,13 @@ def forward(
     ``embeds_override=(inject [B, S, D], mask [B, S] bool)`` substitutes
     non-token embeddings (a vision or audio tower's) at the masked
     positions, after ``embed_tokens``, cast to its dtype (multimodal early
-    fusion, as the JAX ``forward_impl``)."""
+    fusion, as the JAX ``forward_impl``).
+
+    ``remat`` (with grad mode on) runs each layer body under
+    ``torch.utils.checkpoint`` (non-reentrant): the backward recomputes the
+    layer instead of keeping its activations, the JAX ``jax.checkpoint``
+    of the scan body. Training passes ``collect_kv=False, remat=True``
+    (``training.trainer.causal_lm_loss``)."""
     if attn_impl not in ("ref", "kernel"):
         raise ValueError(f"unknown attn_impl {attn_impl!r} (have 'ref', 'kernel')")
     x = embed_tokens(params, cfg, tokens)
@@ -379,13 +413,20 @@ def forward(
         valid = torch.ones_like(positions, dtype=torch.bool)
         return attention_ref(q, k, v, positions, positions, valid, window=win)
 
-    ks, vs = [], []
-    for i in range(cfg.num_layers):
-        lp = layer(params, i)
+    def body(x, lp):
         h = rms_norm(x, lp["attn_norm"], cfg.rms_norm_eps)
         q, k, v = qkv_proj(lp, h, cfg, cos, sin)
         x = attn_out(lp, attend(q, k, v), x)
-        x = x + mlp_block(lp, x, cfg, valid_mask, capacity_tokens)
+        return x + mlp_block(lp, x, cfg, valid_mask, capacity_tokens), k, v
+
+    if remat and torch.is_grad_enabled():
+        from torch.utils.checkpoint import checkpoint
+
+        body = functools.partial(checkpoint, body, use_reentrant=False,
+                                 preserve_rng_state=False)  # the body draws nothing
+    ks, vs = [], []
+    for lp in _layers(params, cfg.num_layers):
+        x, k, v = body(x, lp)
         if collect_kv:
             ks.append(k)
             vs.append(v)
@@ -395,3 +436,79 @@ def forward(
     if last_idx is not None:
         x = x[torch.arange(x.shape[0], device=x.device), last_idx]
     return unembed(params, cfg, x), kv
+
+
+# ---------------------------------------------------------------------------
+# Contiguous cache (the greedy oracle)
+# ---------------------------------------------------------------------------
+
+
+def make_contiguous_cache(cfg: LlamaConfig, batch: int, max_len: int,
+                          dtype: str | torch.dtype | None = None,
+                          device: str | torch.device = "cuda") -> dict[str, torch.Tensor]:
+    dt = resolve_dtype(dtype or cfg.dtype)
+    shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dt, device=device),
+            "v": torch.zeros(shape, dtype=dt, device=device)}
+
+
+@torch.no_grad()
+def forward_with_cache(
+    params: Params,
+    cfg: LlamaConfig,
+    tokens: torch.Tensor,  # [B, S]
+    cache: dict[str, torch.Tensor],
+    offset: int,  # write position (rows aligned; ragged batches are the engine's)
+):
+    """Incremental forward over a contiguous KV cache, the JAX
+    ``forward_with_cache``: a correctness oracle for the paged engine, with
+    the plain ``attention_ref`` over the whole cache (slots past ``offset +
+    S`` masked). The new K/V are written into ``cache`` in place; returns
+    ``(logits [B, S, V] float32, cache)``."""
+    B, S = tokens.shape
+    T = cache["k"].shape[2]
+    dev = tokens.device
+    positions = offset + torch.arange(S, dtype=torch.int32, device=dev)[None].repeat(B, 1)
+    x = embed_tokens(params, cfg, tokens)
+    cos, sin = rope_sincos(positions, cfg.head_dim, cfg.rope_theta, cfg.rope_scaling)
+    k_pos = torch.arange(T, dtype=torch.int32, device=dev)[None].repeat(B, 1)
+    k_valid = k_pos < (offset + S)
+    win = cfg.sliding_window
+    if win is not None and win >= T:
+        win = None  # can't bind within this cache budget
+    for i in range(cfg.num_layers):
+        lp = layer(params, i)
+        h = rms_norm(x, lp["attn_norm"], cfg.rms_norm_eps)
+        q, k, v = qkv_proj(lp, h, cfg, cos, sin)
+        ck, cv = cache["k"][i], cache["v"][i]
+        ck[:, offset:offset + S] = k
+        cv[:, offset:offset + S] = v
+        x = attn_out(lp, attention_ref(q, ck, cv, positions, k_pos, k_valid, window=win), x)
+        x = x + mlp_block(lp, x, cfg)
+    return unembed(params, cfg, x), cache
+
+
+def generate_greedy(params: Params, cfg: LlamaConfig, prompt: torch.Tensor, num_steps: int,
+                    max_len: int) -> torch.Tensor:
+    """Greedy decode via the contiguous cache — a correctness oracle for the
+    continuous-batching engine, not the serving path. ``prompt [B, S]``;
+    returns ``[B, num_steps]`` int32 on the prompt's device."""
+    B, S = prompt.shape
+    if num_steps < 1:
+        raise ValueError(f"num_steps must be >= 1, got {num_steps}")
+    # The final generated token is returned but never written to the cache,
+    # so only S + num_steps - 1 slots are needed.
+    if S + num_steps - 1 > max_len:
+        raise ValueError(
+            f"prompt ({S}) + num_steps ({num_steps}) - 1 exceeds max_len ({max_len}); "
+            "the cache write would run past its end"
+        )
+    cache = make_contiguous_cache(cfg, B, max_len, device=prompt.device)
+    logits, cache = forward_with_cache(params, cfg, prompt, cache, 0)
+    tok = logits[:, -1].argmax(-1).to(torch.int32)
+    out = [tok]
+    for i in range(num_steps - 1):
+        logits, cache = forward_with_cache(params, cfg, tok[:, None], cache, S + i)
+        tok = logits[:, -1].argmax(-1).to(torch.int32)
+        out.append(tok)
+    return torch.stack(out, dim=1)

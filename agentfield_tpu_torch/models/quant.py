@@ -44,6 +44,7 @@ from typing import Any
 
 import torch
 
+from agentfield_tpu_torch.ops.cuda import refuse_grad
 from agentfield_tpu_torch.ops.cuda.quant_matmul import (
     int8_weight_matmul_cuda,
     int8_weight_matmul_ref,
@@ -61,7 +62,10 @@ def int8_weight_matmul(x: torch.Tensor, w: QuantW) -> torch.Tensor:
     """``(x @ q) * scale``: the plain version for CPU tensors (on the
     logical layout), the kernel for any other device (which takes the
     packed layout and raises on what it does not take: there is no
-    fallback)."""
+    fallback). On either device an ``x`` that requires grad under grad mode
+    raises ``NotImplementedError``: the kernel has no backward, and the
+    plain version refuses it too, so the CPU shows what the card would."""
+    refuse_grad("QuantW product", x)
     if x.device.type == "cpu":
         return int8_weight_matmul_ref(x, w.logical(), w.scale)
     return int8_weight_matmul_cuda(x, w.q, w.scale)
@@ -123,6 +127,7 @@ class QuantW:
         if spec not in self._EXPERT_SPECS:
             raise ValueError(
                 f"expert_einsum supports {self._EXPERT_SPECS}, got {spec!r}")
+        refuse_grad("QuantW.expert_einsum", x)
         if x.device.type == "cpu":
             y = torch.einsum(spec, x, self.logical().to(x.dtype))
             return y * self.scale[..., :, None, :].to(y.dtype)

@@ -38,7 +38,7 @@ import math
 import torch
 import torch.nn.functional as F
 
-from agentfield_tpu_torch.ops.cuda import build
+from agentfield_tpu_torch.ops.cuda import build, refuse_grad
 
 # the kernel's tiles and edge rules (csrc/int8_weight_matmul.cu)
 K_TILE = 64  # K rows of a ring stage; the packed layout pads K to it
@@ -273,7 +273,9 @@ def int8_weight_matmul_cuda(x: torch.Tensor, qp: torch.Tensor, scale: torch.Tens
     """``(x @ q) * scale`` on the card: ``x [..., K]`` bf16 or f32, ``qp``
     the packed ``[K, N]`` int8 weight (``pack_int8_weight``), ``scale [N]``
     f32; returns ``[..., N]`` in ``x``'s dtype, summed in f32. Raises on
-    anything the kernel does not take; there is no fallback."""
+    anything the kernel does not take (an ``x`` that requires grad under
+    grad mode among it: no backward); there is no fallback."""
+    refuse_grad("int8_weight_matmul_cuda", x)
     if x.dtype not in _DTYPE_CODES:
         raise ValueError(f"x dtype {x.dtype} not supported (float32, bfloat16)")
     K, N = x.shape[-1], scale.shape[-1]

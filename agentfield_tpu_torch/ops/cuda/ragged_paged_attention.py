@@ -22,7 +22,8 @@ matmul's counters in ``ops.cuda.quant_matmul``). Given CPU tensors,
 ``dense_causal_attention`` runs its plain version (``models.llama.
 attention_ref``); ``ragged_paged_attention_cuda`` takes CUDA tensors only —
 the dispatcher ``ops.paged_attention.ragged_paged_attention`` picks the
-plain version for CPU tensors.
+plain version for CPU tensors. Neither wrapper takes inputs that require
+grad under grad mode (``ops.cuda.refuse_grad``).
 """
 
 from __future__ import annotations
@@ -33,7 +34,7 @@ import torch
 import torch.nn.functional as F
 
 from agentfield_tpu_torch.models.llama import attention_ref
-from agentfield_tpu_torch.ops.cuda import build
+from agentfield_tpu_torch.ops.cuda import build, refuse_grad
 from agentfield_tpu_torch.ops.cuda import quant_matmul as _qm
 from agentfield_tpu_torch.ops.kernel_autotune import lookup_blocks
 
@@ -232,6 +233,7 @@ def ragged_paged_attention_cuda(
     per-slot scales) is dequantized and quantized inside the kernel. Page
     ids in ``page_tables`` must lie in ``[0, P)``: they are not checked,
     which would cost a device read per launch."""
+    refuse_grad("ragged_paged_attention_cuda", q, k_new, v_new)
     out = torch.empty_like(q)
     counter = "ragged_paged_attention"
     if k_scales is not None and k_pages.dtype in _QUANT_POOLS:
@@ -256,7 +258,10 @@ def dense_causal_attention(
     runs in the kernel's new-key phase (with causal block skipping). The
     pool is never read and nothing is written to it. CPU tensors take the
     plain ``models.llama.attention_ref`` over per-row arange positions.
-    Returns ``[B, S, H, hd]``."""
+    Returns ``[B, S, H, hd]``. Raises ``NotImplementedError`` on any
+    device when grad mode is on and q, k or v requires grad (the kernel has
+    no backward; ``forward(attn_impl="ref")`` trains)."""
+    refuse_grad("dense_causal_attention", q, k, v)
     if not q.is_cuda:
         B, S = q.shape[:2]
         pos = torch.arange(S, device=q.device).expand(B, S)

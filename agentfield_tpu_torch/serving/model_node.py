@@ -110,7 +110,9 @@ llama-3.2-draft --spec-k 3`` decodes speculatively with a draft preset
 (``load_draft_model``: random weights from the seed) or, given a directory,
 a draft checkpoint (its trained weights in the target's dtype).
 ``--vision``, ``--audio``, ``--tts`` and ``--imagegen`` add the towers and
-heads (a config name or a checkpoint directory).
+heads (a config name or a checkpoint directory). ``--lora DIR`` merges a
+LoRA adapter (``training.lora.save_adapter``'s directory) into the fp weights
+at load, before ``--quant`` quantizes them.
 """
 
 from __future__ import annotations
@@ -2089,6 +2091,27 @@ def load_draft_model(source: str, target_vocab: int, seed: int = 0,
     return init_params(dcfg, seed=seed, dtype=dtype, device=device), dcfg
 
 
+def merge_adapter(params: dict[str, Any], path: str, device) -> dict[str, Any]:
+    """``params`` with the LoRA adapter at ``path`` merged in (fp leaves).
+    Every target's shape is checked against the base first: a clear error
+    beats a broadcast failure inside ``merge_lora``."""
+    from agentfield_tpu_torch.training.lora import load_adapter, merge_lora
+
+    lcfg, adapter = load_adapter(path, device=device)
+    for t in lcfg.targets:
+        base_shape = tuple(params["layers"][t].shape)
+        a_shape = tuple(adapter["layers"][f"{t}_a"].shape)
+        b_shape = tuple(adapter["layers"][f"{t}_b"].shape)
+        if base_shape[:2] != a_shape[:2] or base_shape[2] != b_shape[2]:
+            raise ValueError(
+                f"LoRA adapter {path!r} was trained for a different "
+                f"model shape: target {t} is {base_shape}, adapter "
+                f"a={a_shape} b={b_shape}"
+            )
+    with torch.no_grad():
+        return merge_lora(params, adapter, lcfg)
+
+
 # the JAX node's operator overrides of engine fields: (variable, field, parser)
 ENV_OVERRIDES = (
     ("AGENTFIELD_PREFIX_SKETCH_BYTES", "prefix_sketch_bytes", int),
@@ -2118,6 +2141,7 @@ def build_model_node(
     tts=None,
     imagegen=None,
     role: str | None = None,
+    lora: str | None = None,
 ) -> tuple[ModelNodeServer, ModelBackend]:
     """Construct ``(server, backend)`` for a preset: random weights drawn
     from ``seed`` on ``device`` unless ``params`` are given, the byte
@@ -2147,7 +2171,12 @@ def build_model_node(
     $AGENTFIELD_SPEC_PREFILL, $AGENTFIELD_SPEC_PIN_TTL_S,
     $AGENTFIELD_SPEC_PIN_BUDGET and $AGENTFIELD_SPEC_MAX_CANDIDATES override
     the engine's fields of those names (a malformed value keeps the
-    configured one)."""
+    configured one). ``lora`` (an adapter directory,
+    ``training.lora.save_adapter``'s) is merged into the fp weights at load
+    (``merge_lora``), before ``quant`` quantizes them, as on the JAX node; an
+    adapter whose target shapes are not this model's raises ``ValueError``.
+    Given ``params`` are served detached from autograd (a train state's
+    leaves among them)."""
     role = role or os.environ.get("AGENTFIELD_NODE_ROLE") or "mixed"
     if role not in ROLES:
         raise ValueError(
@@ -2159,7 +2188,9 @@ def build_model_node(
     if checkpoint:
         from agentfield_tpu_torch.models.hf_loader import load_hf_checkpoint
 
-        cfg, params = load_hf_checkpoint(checkpoint, device=device, quant=quant)
+        # with an adapter the fp weights load first: the merge comes before quantizing
+        cfg, params = load_hf_checkpoint(checkpoint, device=device,
+                                         quant=None if lora else quant)
         model = checkpoint
         if tokenizer is None and os.path.exists(os.path.join(checkpoint, "tokenizer.json")):
             tokenizer = HFTokenizer(checkpoint)
@@ -2179,9 +2210,14 @@ def build_model_node(
     if ecfg.spec_k > 0 and spec_draft is None:
         raise ValueError("spec_k > 0 needs spec_draft=<model preset>")
     if params is None:
-        params = init_params(cfg, seed=seed, device=device, quantize=quant is not None)
-    elif quant is not None:
-        params = quantize_params(params)
+        params = init_params(cfg, seed=seed, device=device,
+                             quantize=quant is not None and lora is None)
+    else:
+        params = llama.detached(params)
+    if lora is not None:
+        params = merge_adapter(params, lora, device)
+    if quant is not None:
+        params = quantize_params(params)  # idempotent
     draft = None
     if ecfg.spec_k > 0:
         draft = load_draft_model(spec_draft, cfg.vocab_size, seed=seed + 4, device=device,
@@ -2224,6 +2260,8 @@ def main(argv: list[str] | None = None) -> None:
                        ("--imagegen", "image-generation head for output='image'")):
         ap.add_argument(flag, default=None,
                         help=f"{what}: a config name (random weights) or a checkpoint directory")
+    ap.add_argument("--lora", default=None, metavar="DIR",
+                    help="LoRA adapter dir (save_adapter) merged at load")
     args = ap.parse_args(argv)
     grace_s = float(os.environ.get("AGENTFIELD_DRAIN_GRACE", DRAIN_GRACE_S))
     server, _ = build_model_node(
@@ -2232,6 +2270,7 @@ def main(argv: list[str] | None = None) -> None:
         spec_draft=args.spec_draft, spec_k=args.spec_k, node_id=args.node_id,
         control_plane=args.control_plane, quant=args.quant, checkpoint=args.checkpoint,
         vision=args.vision, audio=args.audio, tts=args.tts, imagegen=args.imagegen,
+        lora=args.lora,
     )
 
     # SIGTERM and Ctrl-C drain (the JAX install_sigterm_drain); a second

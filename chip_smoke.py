@@ -241,6 +241,23 @@ the result line:
                int8 (every expert bit-equal), served under soft and sparse
                prefill. About 22.5 GB in a temporary directory
                (``--ckpt-dir``), removed at the end. ``[ckpt ...]`` lines.
+13e. ``train`` fine-tune → merge → serve (``phase_train``), on the serve's
+               weights before they go: LoRA (rank 8, alpha 16, wq/wk/wv/wo,
+               f32 adapters, AdamW 1e-3, remat, the plain attention) on
+               2 x 2048 random tokens, 8 steps on one batch: the step-0 loss
+               equal to the base loss, the loss falling; the adapter saved
+               and served by ``build_model_node(lora=)`` in bf16 (greedy
+               tokens equal to a ``params=merge_lora(...)`` node's) and
+               int8 (the merge quantized; full-width logits kernel vs plain
+               within the quant phase's bound); a full fine-tune of
+               ``llama-3.2-1b`` (bf16, AdamW, 4 x 2048, 3 steps: the loss
+               falls), its train state saved, restored bit-equal into a
+               fresh state, two more steps against the uninterrupted run;
+               the weights exported as an HF checkpoint and served (greedy
+               tokens equal to a ``params=`` node's). About 10 GB in a
+               temporary directory (``--ckpt-dir``), removed at the end.
+               ``[train ...]`` lines: losses, step device ms, tokens/s,
+               peak memory, the phase's seconds.
 14. ``gemma-7b``, ``phi-3-mini``  each at full width and 2 layers (random
                bf16 weights): five requests through the engine (phi-3-mini
                with a prompt past its 2047-token window), every decode
@@ -276,6 +293,7 @@ import argparse
 import functools
 import gc
 import json
+import math
 import os
 import re
 import statistics
@@ -4879,6 +4897,59 @@ def mixed_burst(params, cfg, base, seed: int, burst, device: str, rng) -> dict:
     return out
 
 
+def w8_logits_vs_plain(qp, fp_params, cfg, seed: int, S: int, device: str, tag: str) -> dict:
+    """Full-width logits at ``S`` seeded tokens of the int8 tree ``qp``,
+    kernel against plain (both int8, ``plain_w8_params``): in bf16 within
+    ``W8_LOGITS_BF16_FACTOR`` times the plain path's own bf16-vs-f32
+    distance, in f32 within ``W8_LOGITS_F32_REL`` of max |logit|; the
+    distance to the fp tree ``fp_params`` and the greedy agreement with it
+    for information (random weights). Logs one ``tag`` line, then raises
+    ``AssertionError`` past a bound."""
+    import torch
+
+    from agentfield_tpu_torch.models import llama
+
+    on_card = torch.device(device).type == "cuda"
+    V = cfg.vocab_size
+    g = torch.Generator(device=device)
+    g.manual_seed(seed + 1)
+    tokens = torch.randint(0, V, (1, S), device=device, generator=g)
+    pos = torch.arange(S, device=device)[None]
+
+    def fwd(p):
+        with torch.no_grad():
+            lg, _ = llama.forward(p, cfg, tokens, pos, attn_impl="kernel", collect_kv=False)
+        if on_card:
+            torch.cuda.synchronize()
+        assert lg.shape == (1, S, V) and bool(torch.isfinite(lg).all())
+        return lg
+
+    plain = plain_w8_params(qp)
+    lk16, lp16, lb16 = fwd(qp), fwd(plain), fwd(fp_params)
+    lk32, lp32 = fwd(f32_params(qp)), fwd(f32_params(plain))
+    scale = float(lp32.abs().max())
+    err16, err32 = float((lk16 - lp16).abs().max()), float((lk32 - lp32).abs().max())
+    noise16 = float((lp16 - lp32).abs().max())
+    tol16, tol32 = W8_LOGITS_BF16_FACTOR * noise16, W8_LOGITS_F32_REL * scale
+    out = {
+        "S": S, "max_abs_logit": scale, "max_abs_err_bf16": err16, "tol_bf16": tol16,
+        "plain_bf16_vs_f32": noise16, "max_abs_err_f32": err32, "tol_f32": tol32,
+        "int8_vs_bf16_max_abs": float((lk16 - lb16).abs().max()),
+        "int8_vs_bf16_argmax_agreement": float((lk16.argmax(-1) == lb16.argmax(-1)).float().mean()),
+        "kernel_vs_plain_argmax_agreement": float(
+            (lk16.argmax(-1) == lp16.argmax(-1)).float().mean()),
+    }
+    log(f"{tag} full-width logits at {S} tokens, kernel vs plain (int8): bf16 max|d| "
+        f"{err16:.4e} (tol {tol16:.4e} = {W8_LOGITS_BF16_FACTOR} x the plain path's bf16-vs-f32 "
+        f"{noise16:.4e}); f32 max|d| {err32:.4e} (tol {tol32:.4e}); int8 vs bf16 weights max|d| "
+        f"{out['int8_vs_bf16_max_abs']:.4e}, greedy agreement "
+        f"{out['int8_vs_bf16_argmax_agreement']:.3f} (information: random weights)")
+    del lk16, lp16, lb16, lk32, lp32, plain
+    assert err32 <= tol32, f"{tag} full-width f32 forward: int8 kernel and plain disagree"
+    assert err16 <= tol16, f"{tag} full-width bf16 forward: int8 kernel and plain disagree"
+    return out
+
+
 def phase_quant(results, state, seed: int, device: str = "cuda", model: str = "llama-3-8b",
                 lengths=(64, 200, 333, 480, 512, 700, 1100, 1500), max_new: int = 32, S: int = 512,
                 burst=(W8_BURST_DECODES, W8_BURST_PROMPTS), spec_prompts=W8_SPEC_PROMPTS,
@@ -4911,7 +4982,6 @@ def phase_quant(results, state, seed: int, device: str = "cuda", model: str = "l
     import numpy as np
     import torch
 
-    from agentfield_tpu_torch.models import llama
     from agentfield_tpu_torch.models.quant import QUANT_KEYS, is_quantized
     from agentfield_tpu_torch.serving.engine import InferenceEngine, Request
     from agentfield_tpu_torch.serving.model_node import load_draft_model
@@ -4965,42 +5035,7 @@ def phase_quant(results, state, seed: int, device: str = "cuda", model: str = "l
         f"device bytes of its own; int8 serve peak {serve['peak_mem_gib']} GiB")
 
     # (b) full-width logits, kernel against plain, both int8
-    g = torch.Generator(device=device)
-    g.manual_seed(seed + 1)
-    tokens = torch.randint(0, V, (1, S), device=device, generator=g)
-    pos = torch.arange(S, device=device)[None]
-
-    def fwd(p):
-        with torch.no_grad():
-            lg, _ = llama.forward(p, cfg, tokens, pos, attn_impl="kernel", collect_kv=False)
-        if on_card:
-            torch.cuda.synchronize()
-        assert lg.shape == (1, S, V) and bool(torch.isfinite(lg).all())
-        return lg
-
-    plain = plain_w8_params(qp)
-    lk16, lp16, lb16 = fwd(qp), fwd(plain), fwd(params)
-    lk32, lp32 = fwd(f32_params(qp)), fwd(f32_params(plain))
-    scale = float(lp32.abs().max())
-    err16, err32 = float((lk16 - lp16).abs().max()), float((lk32 - lp32).abs().max())
-    noise16 = float((lp16 - lp32).abs().max())
-    tol16, tol32 = W8_LOGITS_BF16_FACTOR * noise16, W8_LOGITS_F32_REL * scale
-    out["logits"] = {
-        "S": S, "max_abs_logit": scale, "max_abs_err_bf16": err16, "tol_bf16": tol16,
-        "plain_bf16_vs_f32": noise16, "max_abs_err_f32": err32, "tol_f32": tol32,
-        "int8_vs_bf16_max_abs": float((lk16 - lb16).abs().max()),
-        "int8_vs_bf16_argmax_agreement": float((lk16.argmax(-1) == lb16.argmax(-1)).float().mean()),
-        "kernel_vs_plain_argmax_agreement": float(
-            (lk16.argmax(-1) == lp16.argmax(-1)).float().mean()),
-    }
-    log(f"[quant] (b) full-width logits at {S} tokens, kernel vs plain (int8): bf16 max|d| "
-        f"{err16:.4e} (tol {tol16:.4e} = {W8_LOGITS_BF16_FACTOR} x the plain path's bf16-vs-f32 "
-        f"{noise16:.4e}); f32 max|d| {err32:.4e} (tol {tol32:.4e}); int8 vs bf16 weights max|d| "
-        f"{out['logits']['int8_vs_bf16_max_abs']:.4e}, greedy agreement "
-        f"{out['logits']['int8_vs_bf16_argmax_agreement']:.3f} (information: random weights)")
-    del lk16, lp16, lb16, lk32, lp32, plain
-    assert err32 <= tol32, "full-width f32 forward: int8 kernel and plain disagree"
-    assert err16 <= tol16, "full-width bf16 forward: int8 kernel and plain disagree"
+    out["logits"] = w8_logits_vs_plain(qp, params, cfg, seed, S, device, "[quant] (b)")
 
     # (d) a mixed-tick burst and a speculative pass on the int8 target
     gc.collect()
@@ -5212,6 +5247,19 @@ class RoutingReplay:
         self.moe.topk_router_weights, self.moe.sparse_plan = self.orig
 
 
+def release_cublas_workspaces() -> None:
+    """Free cuBLAS's per-stream workspaces: 32 MiB on the card for every
+    stream that ran a cuBLAS call, kept for the life of the process (each
+    engine's worker stream leaves one: about 60 by the MoE phase, 1.9 GiB).
+    They are a cache cuBLAS makes again at its next call on a stream, not
+    data of an earlier phase, but ``memory_allocated`` counts them."""
+    import torch
+
+    clear = getattr(torch._C, "_cuda_clearCublasWorkspaces", None)
+    if clear is not None:
+        clear()
+
+
 def phase_moe(results, seed: int, device: str = "cuda", model: str = MOE_MODEL,
               lengths=(64, 200, 333, 480, 512, 700, 1100, 1500), max_new: int = 32,
               S: int = 512, spec_prompts=MOE_SPEC_PROMPTS, burst=MOE_BURST, ecfg=None):
@@ -5277,6 +5325,7 @@ def phase_moe(results, seed: int, device: str = "cuda", model: str = MOE_MODEL,
     held = 0
     if on_card:
         torch.cuda.empty_cache()
+        release_cublas_workspaces()
         held = torch.cuda.memory_allocated()
         assert held < MOE_HELD_BEFORE, f"{held} bytes still allocated before the MoE build"
         torch.cuda.reset_peak_memory_stats()
@@ -6275,6 +6324,427 @@ def phase_ckpt_rehearsal(results, model: str, root) -> None:
                max_new=6, draft_preset="llama-tiny", draft_prompts=(12, 30), shards=2, merges=300)
 
 
+# Fine-tune -> merge -> serve on the card (phase_train): LoRA on the serve's
+# Llama-3-8B weights, its adapter served through build_model_node(lora=) in
+# bf16 and int8, a full fine-tune of Llama-3.2-1B with its train-state
+# checkpoint resumed, and train -> export -> serve
+TRAIN_LORA_BATCH = (2, 2048)  # B x S random tokens, one batch
+TRAIN_LORA_STEPS = 8
+TRAIN_LORA_LR = 1e-3
+TRAIN_FULL_MODEL = "llama-3.2-1b"
+TRAIN_FULL_BATCH = (4, 2048)
+TRAIN_FULL_STEPS = 3  # before the checkpoint; two more after it on both states
+TRAIN_FULL_LR = 3e-4
+TRAIN_MIN_DROP = 1e-3  # nats the loss must fall over the LoRA and the full runs
+TRAIN_STEP0_RTOL = 1e-6  # step-0 LoRA loss against the base loss (b = 0: the same forward)
+TRAIN_RESUME_RTOL = 2e-3  # the second step after a restore against the uninterrupted run's
+TRAIN_PROMPTS = (64, 300, 700)
+TRAIN_NEW = 16
+TRAIN_PAGES = 1024
+TRAIN_LOGITS_S = 512
+# phase_train on the CPU at a small size (tests/test_torch_trainer.py)
+TRAIN_REHEARSAL = dict(
+    lora_model="llama-tiny", lora_batch=(2, 32), lora_steps=4, lora_lr=1e-2,
+    full_model="llama-nano", full_batch=(2, 32), full_steps=2, full_lr=1e-2,
+    prompts=(5, 17, 40), max_new=4, logits_s=16,
+    ecfg=dict(max_batch=2, page_size=8, num_pages=64, max_pages_per_seq=8),
+)
+
+
+def _timed_steps(step, state, args, n: int, on_card: bool) -> tuple[list[float], list[float]]:
+    """``n`` calls of ``step(state, *args)``: the losses and each step's ms
+    (CUDA events around the call on the card, the host clock on the CPU)."""
+    import torch
+
+    losses, ms = [], []
+    for _ in range(n):
+        if on_card:
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            e0.record()
+        t = time.perf_counter()
+        state, m = step(state, *args)
+        loss = float(m["loss"])  # waits for the step
+        if on_card:
+            e1.record()
+            e1.synchronize()
+            ms.append(e0.elapsed_time(e1))
+        else:
+            ms.append((time.perf_counter() - t) * 1e3)
+        assert math.isfinite(loss), f"step {len(losses)}: loss {loss}"
+        losses.append(loss)
+    return losses, ms
+
+
+def _attention_line(rep: dict) -> str:
+    a = rep["attention"]
+    share = a["plain_step_ms_est"] / rep["step_ms_median_after_first"]
+    return (f"the plain attention a layer: forward {a['plain_fwd_ms']:.2f} ms, forward + backward "
+            f"{a['plain_fwd_bwd_ms']:.2f} ms, so about {a['plain_step_ms_est']:.0f} ms of the "
+            f"step's {rep['step_ms_median_after_first']:.0f} ({share:.0%}); the kernel's forward "
+            f"{a['kernel_fwd_ms']:.3f} ms; SDPA forward + backward {a['sdpa_fwd_bwd_ms']} ms "
+            "(yardsticks)")
+
+
+def _first_layer(name: str, t):
+    """A stacked layer leaf's layer 0, any other leaf whole."""
+    return t[0] if name.startswith("layers.") else t
+
+
+def _step_report(losses, ms, tokens: int, peak) -> dict:
+    warm = ms[1:] or ms  # the first step pays the allocator's growth
+    med = statistics.median(warm)
+    return {"losses": losses, "step_ms": ms, "step_ms_median_after_first": med,
+            "tokens_per_step": tokens, "tokens_per_s": tokens / med * 1e3,
+            "peak_mem_gib": None if peak is None else peak / 2**30}
+
+
+def train_attention_ms(cfg, B: int, S: int, seed: int) -> dict:
+    """What the training step's attention costs at ``cfg``'s heads, B x S,
+    bf16 on the card: the plain ``attention_ref`` (float32 softmax and
+    einsums, what the trainer runs) forward alone and forward + backward a
+    layer, the step's share estimated as ``L * (fwd + fwd_bwd)`` (remat runs
+    each forward twice); beside it the hand-written kernel's forward
+    (``dense_causal_attention``, no backward) and PyTorch's
+    ``scaled_dot_product_attention`` forward + backward, yardsticks the port
+    does not call. CUDA events, medians of 5."""
+    import torch
+    import torch.nn.functional as F
+
+    from agentfield_tpu_torch.models.llama import attention_ref
+    from agentfield_tpu_torch.ops.cuda.ragged_paged_attention import dense_causal_attention
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed + 73)
+
+    def rnd(n):
+        return torch.randn((B, S, n, cfg.head_dim), generator=g, device="cuda",
+                           dtype=torch.bfloat16)
+
+    q, k, v = rnd(cfg.num_heads), rnd(cfg.num_kv_heads), rnd(cfg.num_kv_heads)
+    dout = torch.randn_like(q)
+    pos = torch.arange(S, device="cuda").expand(B, S)
+    valid = torch.ones((B, S), dtype=torch.bool, device="cuda")
+    qg, kg, vg = (t.clone().requires_grad_(True) for t in (q, k, v))
+
+    def plain_fwd():
+        with torch.no_grad():
+            attention_ref(q, k, v, pos, pos, valid)
+
+    def plain_fwd_bwd():
+        attention_ref(qg, kg, vg, pos, pos, valid).backward(dout)
+
+    def kernel_fwd():
+        with torch.no_grad():
+            dense_causal_attention(q, k, v)
+
+    def sdpa_fwd_bwd():
+        t = (x.transpose(1, 2) for x in (qg, kg, vg))
+        F.scaled_dot_product_attention(*t, is_causal=True, enable_gqa=True).backward(
+            dout.transpose(1, 2))
+
+    out = {"plain_fwd_ms": cuda_ms(plain_fwd, n=5, warmup=1),
+           "plain_fwd_bwd_ms": cuda_ms(plain_fwd_bwd, n=5, warmup=1),
+           "kernel_fwd_ms": cuda_ms(kernel_fwd, n=5, warmup=1)}
+    try:
+        out["sdpa_fwd_bwd_ms"] = cuda_ms(sdpa_fwd_bwd, n=5, warmup=1)
+    except (TypeError, RuntimeError) as e:
+        out["sdpa_fwd_bwd_ms"] = None
+        log(f"[train] sdpa unavailable here: {e!r}")
+    out["plain_step_ms_est"] = cfg.num_layers * (out["plain_fwd_ms"] + out["plain_fwd_bwd_ms"])
+    return out
+
+
+def phase_train(results, state, seed: int, device: str = "cuda", root: str | None = None,
+                lora_model: str = "llama-3-8b", lora_batch=TRAIN_LORA_BATCH,
+                lora_steps: int = TRAIN_LORA_STEPS, lora_lr: float = TRAIN_LORA_LR,
+                full_model: str = TRAIN_FULL_MODEL, full_batch=TRAIN_FULL_BATCH,
+                full_steps: int = TRAIN_FULL_STEPS, full_lr: float = TRAIN_FULL_LR,
+                prompts=TRAIN_PROMPTS, max_new: int = TRAIN_NEW,
+                logits_s: int = TRAIN_LOGITS_S, ecfg: dict | None = None):
+    """Fine-tune → merge → serve through the port's training entry points
+    (``agentfield_tpu_torch.training``), in bf16 at full width on the card,
+    the plain attention in the forward (the kernels have no backward), remat
+    on. ``state`` holds the serve's ``lora_model`` weights (drawn from
+    ``seed`` when it does not: the CPU rehearsal). The temporary directories
+    (under ``root``) are removed at the end, also on a failure:
+
+    (a) LoRA (``LoRAConfig()``: rank 8, alpha 16, wq/wk/wv/wo, f32 adapters;
+        ``adamw(lora_lr)``) on ``lora_batch`` random tokens from the seed,
+        ``lora_steps`` steps on the one batch: the step-0 loss equal to
+        ``causal_lm_loss`` of the base params (``b`` is zero) within
+        ``TRAIN_STEP0_RTOL``, the loss falling by at least
+        ``TRAIN_MIN_DROP``, the base bit-identical; each step's ms (CUDA
+        events), tokens/s, peak memory, and the share of merged bf16
+        elements that differ from the base (a small ``a @ b`` can round
+        away);
+    (b) ``save_adapter``, then nodes over HTTP, ``prompts`` greedy one at a
+        time: ``build_model_node(lora=DIR)`` in bf16 (its targets bit-equal
+        to ``merge_lora``'s, its tokens equal to a ``params=merged`` node's)
+        and with ``quant="int8"`` (its tree ``quantize_params`` of the merge,
+        bit for bit at layers 0 and L-1, every answer complete, full-width
+        logits kernel vs plain within the quant phase's bound,
+        ``w8_logits_vs_plain``); the kernels' launches counted;
+    (c) a full fine-tune of ``full_model`` (``adamw(full_lr)``, bf16 params
+        and moments) on ``full_batch`` random tokens, ``full_steps`` steps:
+        the loss falls; step ms, tokens/s, peak; ``save_checkpoint``, then
+        ``restore_checkpoint`` into a fresh state (other seed): params,
+        moments and step bit-equal; two more steps on both states: the
+        first's loss equal (the same params, the same forward), the second's
+        within ``TRAIN_RESUME_RTOL`` (the embedding's backward sums with
+        atomics on the card: the update differs in its last bits);
+    (d) ``save_hf_checkpoint`` of (c)'s weights (bf16), a node with
+        ``checkpoint=``: leaves bit-equal, greedy tokens equal to a
+        ``params=`` node's on the same weights."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from agentfield_tpu_torch.models.configs import get_config
+    from agentfield_tpu_torch.models.hf_loader import save_hf_checkpoint
+    from agentfield_tpu_torch.models.llama import init_params
+    from agentfield_tpu_torch.models.quant import QUANT_KEYS
+    from agentfield_tpu_torch.ops.cuda import ragged_paged_attention as rpa
+    from agentfield_tpu_torch.serving.engine import EngineConfig
+    from agentfield_tpu_torch.serving.model_node import build_model_node
+    from agentfield_tpu_torch.training import (
+        LoRAConfig, adamw, causal_lm_loss, init_lora_state, init_train_state, make_lm_batch,
+        make_lora_train_step, make_train_step, merge_lora, save_adapter,
+    )
+    from agentfield_tpu_torch.training.checkpoint import restore_checkpoint, save_checkpoint
+    from agentfield_tpu_torch.training.trainer import named_leaves
+
+    on_card = torch.device(device).type == "cuda"
+    t_phase = time.perf_counter()
+    out: dict = {"card": results.get("card"), "launches": {}}
+    results["train"] = out
+    if "params" in state:
+        base, cfg = state["params"], state["cfg"]
+        node_ecfg = dataclasses.replace(state["ecfg"], num_pages=TRAIN_PAGES,
+                                        kv_quant_dtype="none")
+    else:
+        cfg = get_config(lora_model)
+        base = init_params(cfg, seed=seed, device=device)
+        node_ecfg = EngineConfig(**ecfg)
+    L, V = cfg.num_layers, cfg.vocab_size
+    dirs: list[str] = []
+
+    def tmpdir(tag: str) -> str:
+        dirs.append(tempfile.mkdtemp(prefix=f"af_train_{tag}_", dir=root))
+        return dirs[-1]
+
+    def peak_reset():
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+
+    def peak():
+        return torch.cuda.max_memory_allocated() if on_card else None
+
+    def random_batch(B: int, S: int, vocab: int, salt: int):
+        g = torch.Generator(device=device)
+        g.manual_seed(seed + salt)
+        return make_lm_batch(torch.randint(0, vocab, (B, S), device=device, generator=g,
+                                           dtype=torch.int32))
+
+    rng = np.random.default_rng(seed + 67)
+    prompt_ids = [rng.integers(1, min(V, get_config(full_model).vocab_size), n).tolist()
+                  for n in prompts]
+
+    def serve(node) -> list[list[int]]:
+        """The prompts greedy, one at a time over HTTP; the node's kernel
+        launches added to the phase's."""
+        before = rpa.launch_counts()
+        port = node[0].start()
+        try:
+            toks = [_post(port, {"tokens": p, "max_new_tokens": max_new})["result"]["tokens"]
+                    for p in prompt_ids]
+        finally:
+            node[0].stop()
+        for k, n in rpa.launch_counts().items():
+            out["launches"][k] = out["launches"].get(k, 0) + n - before[k]
+        assert all(len(t) == max_new for t in toks), [len(t) for t in toks]
+        return toks
+
+    try:
+        # (a) LoRA on the served weights
+        peak_reset()
+        mem0 = torch.cuda.memory_allocated() if on_card else None
+        B, S = lora_batch
+        batch = random_batch(B, S, V, 61)
+        # the base's first layer and its other leaves, to show the steps leave them
+        before = {n: _first_layer(n, t).clone() for n, t in named_leaves(base)}
+        with torch.no_grad():
+            base_loss = float(causal_lm_loss(base, cfg, batch)[0])
+        lcfg = LoRAConfig()
+        opt = adamw(lora_lr)
+        lstate = init_lora_state(cfg, lcfg, seed, opt, device=device)
+        step = make_lora_train_step(cfg, lcfg, opt)
+        losses, ms = _timed_steps(step, lstate, (base, batch), lora_steps, on_card)
+        rep = _step_report(losses, ms, B * S, peak())
+        if on_card:
+            rep["attention"] = train_attention_ms(cfg, B, S, seed)
+        rep.update(base_loss=base_loss, lr=lora_lr, batch=[B, S], rank=lcfg.rank,
+                   alpha=lcfg.alpha, targets=list(lcfg.targets),
+                   adapter_params=sum(t.numel() for _, t in named_leaves(lstate.params)),
+                   held_before_gib=None if mem0 is None else mem0 / 2**30)
+        step0_gap = abs(losses[0] - base_loss)
+        rep["step0_equals_base"] = step0_gap <= TRAIN_STEP0_RTOL * abs(base_loss)
+        with torch.no_grad():
+            merged = merge_lora(base, lstate.params, lcfg)
+        rep["merged_changed_share"] = {
+            t: float((merged["layers"][t] != base["layers"][t]).float().mean())
+            for t in lcfg.targets}
+        base_same = all(torch.equal(_first_layer(n, t), before[n]) for n, t in named_leaves(base))
+        del before
+        out["lora"] = rep
+        log(f"[train (a)] LoRA on {cfg_name(cfg)} (rank {lcfg.rank}, alpha {lcfg.alpha}, "
+            f"{list(lcfg.targets)}, {rep['adapter_params']} adapter params), B{B} x S{S}, "
+            f"adamw({lora_lr}), remat: step-0 loss {losses[0]:.6f} vs base {base_loss:.6f} "
+            f"(|d| {step0_gap:.3e}); losses {[round(x, 4) for x in losses]}; step ms "
+            f"{[round(x, 1) for x in ms]} (median after the first {rep['step_ms_median_after_first']:.1f}"
+            f"), {rep['tokens_per_s']:.0f} tokens/s, peak {rep['peak_mem_gib']} GiB "
+            f"({rep['held_before_gib']} GiB held before); merged elements that differ from the "
+            f"base {rep['merged_changed_share']}; {results.get('card')}")
+        if on_card:
+            log(f"[train (a)] {_attention_line(rep)}")
+        assert rep["step0_equals_base"], (losses[0], base_loss)
+        assert losses[-1] <= losses[0] - TRAIN_MIN_DROP, f"the LoRA loss did not fall: {losses}"
+        assert base_same, "the LoRA step wrote the base weights"
+
+        # (b) the adapter served
+        d = tmpdir("adapter")
+        save_adapter(d, lstate.params, lcfg)
+        out["adapter_bytes"] = _dir_bytes(d)
+        name = cfg_name(cfg)
+        t0 = time.perf_counter()
+        node = build_model_node(name, params=base, lora=d, ecfg=node_ecfg, device=device,
+                                seed=seed)
+        build_s = time.perf_counter() - t0
+        served = node[1].engine.params
+        assert all(torch.equal(served["layers"][t], merged["layers"][t]) for t in lcfg.targets)
+        mine = serve(node)
+        del node, served
+        gc.collect()
+        ref = serve(build_model_node(name, params=merged, ecfg=node_ecfg, device=device,
+                                     seed=seed))
+        same = [a == b for a, b in zip(mine, ref)]
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+        qnode = build_model_node(name, params=base, lora=d, quant="int8", ecfg=node_ecfg,
+                                 device=device, seed=seed)
+        qp = qnode[1].engine.params
+        q_equal = all(_quant_equal(qp["layers"][k][l], merged["layers"][k][l])
+                      for k in QUANT_KEYS for l in (0, L - 1))
+        qtoks = serve(qnode)
+        del qnode
+        gc.collect()
+        logits = w8_logits_vs_plain(qp, merged, cfg, seed, logits_s, device, "[train (b)] int8")
+        del qp
+        out["serve"] = {"adapter_bytes": out["adapter_bytes"], "lora_node_build_s": build_s,
+                        "greedy_equal": all(same), "prompts": list(prompts),
+                        "max_new": max_new, "int8_tree_is_quantized_merge": q_equal,
+                        "int8_tokens": qtoks, "int8_logits": logits,
+                        "launches": dict(out["launches"])}
+        log(f"[train (b)] adapter {out['adapter_bytes']} bytes; lora= node built in "
+            f"{build_s:.1f} s, its targets bit-equal to merge_lora; {sum(same)} of {len(same)} "
+            f"greedy prompts equal to a params=merged node's; int8 node: tree = quantize_params "
+            f"of the merge at layers 0 and {L - 1}: {q_equal}, answers complete; launches "
+            f"{ {k: n for k, n in out['launches'].items() if n} }")
+        assert all(same), f"lora= tokens differ from the merged node's on {same.count(False)}"
+        assert q_equal, "the int8 lora= node did not quantize the merged weights"
+        del merged, lstate
+        gc.collect()
+
+        # (c) full fine-tune
+        peak_reset()
+        fcfg = get_config(full_model)
+        B, S = full_batch
+        fbatch = random_batch(B, S, fcfg.vocab_size, 71)
+        fopt = adamw(full_lr)
+        fstate = init_train_state(fcfg, seed + 1, fopt, device=device)
+        fstep = make_train_step(fcfg, fopt)
+        losses, ms = _timed_steps(fstep, fstate, (fbatch,), full_steps, on_card)
+        full = _step_report(losses, ms, B * S, peak())
+        if on_card:
+            full["attention"] = train_attention_ms(fcfg, B, S, seed)
+            log(f"[train (c)] {_attention_line(full)}")
+        full.update(lr=full_lr, batch=[B, S], model=full_model,
+                    params=sum(t.numel() for _, t in named_leaves(fstate.params)))
+        log(f"[train (c)] full fine-tune of {full_model} ({full['params']} params, bf16, "
+            f"adamw({full_lr})), B{B} x S{S}, remat: losses {[round(x, 4) for x in losses]}; "
+            f"step ms {[round(x, 1) for x in ms]} (median after the first "
+            f"{full['step_ms_median_after_first']:.1f}), {full['tokens_per_s']:.0f} tokens/s, "
+            f"peak {full['peak_mem_gib']} GiB; {results.get('card')}")
+        assert losses[-1] <= losses[0] - TRAIN_MIN_DROP, f"the loss did not fall: {losses}"
+        ck = tmpdir("state")
+        t0 = time.perf_counter()
+        save_checkpoint(ck, fstate)
+        full["save_s"] = time.perf_counter() - t0
+        full["checkpoint_bytes"] = _dir_bytes(os.path.join(ck, f"step_{fstate.step}"))
+        fresh = init_train_state(fcfg, seed + 2, fopt, device=device)
+        t0 = time.perf_counter()
+        restore_checkpoint(ck, fresh)
+        full["restore_s"] = time.perf_counter() - t0
+        bad = [n for (n, a), (_, b) in zip(named_leaves(fstate.params), named_leaves(fresh.params))
+               if not torch.equal(a, b)]
+        for pa, pb in zip(fstate.optimizer.param_groups[0]["params"],
+                          fresh.optimizer.param_groups[0]["params"]):
+            sa, sb = fstate.optimizer.state[pa], fresh.optimizer.state[pb]
+            bad += [k for k in sa if k not in sb or not torch.equal(sa[k], sb[k])]
+        full["restored_bit_equal"] = not bad and fresh.step == fstate.step
+        cont, _ = _timed_steps(fstep, fstate, (fbatch,), 2, on_card)
+        resumed, _ = _timed_steps(fstep, fresh, (fbatch,), 2, on_card)
+        full.update(continued_losses=cont, resumed_losses=resumed,
+                    resume_rel_diff=[abs(a - b) / abs(a) for a, b in zip(cont, resumed)])
+        del fresh
+        gc.collect()
+        out["full"] = full
+        log(f"[train (c)] checkpoint at step {full_steps}: {full['checkpoint_bytes']} bytes "
+            f"written in {full['save_s']:.2f} s, restored into a fresh state in "
+            f"{full['restore_s']:.2f} s, bit-equal: {full['restored_bit_equal']}; the next two "
+            f"losses uninterrupted {cont} vs resumed {resumed} (relative "
+            f"{full['resume_rel_diff']}; tol {TRAIN_RESUME_RTOL})")
+        assert full["restored_bit_equal"], f"restored state differs: {bad[:5]}"
+        assert cont[0] == resumed[0], "the first step after the restore: another loss"
+        assert full["resume_rel_diff"][1] <= TRAIN_RESUME_RTOL, full["resume_rel_diff"]
+
+        # (d) train -> export -> serve
+        hf = tmpdir("hf")
+        t0 = time.perf_counter()
+        save_hf_checkpoint(hf, fcfg, fstate.params, dtype="bfloat16")
+        export_s = time.perf_counter() - t0
+        cnode = build_model_node(checkpoint=hf, ecfg=node_ecfg, device=device, seed=seed)
+        bad = _leaves_equal(cnode[1].engine.params, fstate.params)
+        from_ckpt = serve(cnode)
+        del cnode
+        gc.collect()
+        from_params = serve(build_model_node(cfg_name(fcfg), params=fstate.params,
+                                             ecfg=node_ecfg, device=device, seed=seed))
+        same = [a == b for a, b in zip(from_ckpt, from_params)]
+        out["export"] = {"export_s": export_s, "bytes": _dir_bytes(hf), "leaves_bit_equal": not bad,
+                         "greedy_equal": all(same)}
+        del fstate
+        log(f"[train (d)] {full_model} exported ({out['export']['bytes']} bytes bf16 in "
+            f"{export_s:.2f} s), served by checkpoint=: leaves bit-equal {not bad}, "
+            f"{sum(same)} of {len(same)} greedy prompts equal to a params= node's")
+        assert not bad, f"exported leaves differ: {bad[:5]}"
+        assert all(same), f"checkpoint= tokens differ from params= on {same.count(False)}"
+        out["phase_s"] = time.perf_counter() - t_phase
+        log(f"[train] phase {out['phase_s']:.1f} s; launches "
+            f"{ {k: n for k, n in out['launches'].items() if n} }; {results.get('card')}")
+    finally:
+        for x in dirs:
+            shutil.rmtree(x, ignore_errors=True)
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+
+
 def phase_ab(results, other_root: str, seed: int = 0):
     """A/B against a checkout of another commit unpacked at ``other_root``:
     the attention source (``phase_ab_attention``, skipped where the two
@@ -6604,7 +7074,7 @@ def kernels_line(results) -> dict:
     every bf16 shape it was held at (for a quantized variant, against the
     plain version with the kernel's semantics, check (b)), ``launches`` from
     the serve phase of its pool kind and the spec, tier, fork, api, channel,
-    cluster, media, moe and ckpt phases."""
+    cluster, media, moe, ckpt and train phases."""
     shapes = results["shapes"]
     picks = [
         ("ragged_paged_attention", "llama3_decode_ctx2k/bfloat16", f"{TPU_KERNEL}:61", "serve"),
@@ -6619,12 +7089,12 @@ def kernels_line(results) -> dict:
         entry = {
             "name": name, "route": "cuda", "source": RAGGED_SRC, "replaces": replaces,
             # the serve's launches and those of the spec, tier, fork, api,
-            # channel, cluster, media, moe and ckpt phases
+            # channel, cluster, media, moe, ckpt and train phases
             "launches": results[serve]["launches"][name] + sum(
                 results[p]["launches"][name]
                 for p in ("spec", "tier", "fork", "api", "channel", "cluster", "media"))
             + results["moe"]["launches"].get(name, 0)
-            + results.get("ckpt", {}).get("launches", {}).get(name, 0),
+            + sum(results.get(p, {}).get("launches", {}).get(name, 0) for p in ("ckpt", "train")),
             "max_abs_err": max(r["max_abs_err"] for r in held),
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
@@ -6663,8 +7133,8 @@ def w8_kernel_entry(results) -> dict:
     """The int8-weight matmul's entry: times and bound at the decode step's
     w_gate/w_up product at 16 rows (bf16), ``max_abs_err`` the worst over
     every bf16 shape (the moe phase's expert slices among them),
-    ``launches`` from the quant, moe and ckpt phases' main paths (the int8
-    serves, the mixed bursts, the spec passes), and every shape's numbers
+    ``launches`` from the quant, moe, ckpt and train phases' main paths (the
+    int8 serves, the mixed bursts, the spec passes), and every shape's numbers
     under ``shapes``."""
     shapes = results["shapes"]
     held = {k: r for k, r in shapes.items() if r["kernel"] == "int8_weight_matmul" and "ms" in r}
@@ -6675,7 +7145,8 @@ def w8_kernel_entry(results) -> dict:
         "name": "int8_weight_matmul", "route": "cuda", "source": W8_SRC, "replaces": W8_REPLACES,
         "launches": results["quant"]["launches"]["int8_weight_matmul"]
         + results["moe"]["launches"]["int8_weight_matmul"]
-        + results.get("ckpt", {}).get("launches", {}).get("int8_weight_matmul", 0),
+        + sum(results.get(p, {}).get("launches", {}).get("int8_weight_matmul", 0)
+              for p in ("ckpt", "train")),
         "max_abs_err": max(r["max_abs_err"] for r in held.values() if r["dtype"] == "bfloat16"),
         "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
         "bound_by": row["bound_by"], "library_ms": row["library_ms"],
@@ -6701,8 +7172,9 @@ def main() -> int:
                          "shapes where it differs, the int8-weight matmul at every bf16 shape "
                          "and in the replayed decode step)")
     ap.add_argument("--ckpt-dir", default=None, metavar="DIR",
-                    help="where the ckpt phase makes its temporary checkpoint directories "
-                         "(default: the system's temporary directory; about 22.5 GB)")
+                    help="where the ckpt and train phases make their temporary checkpoint "
+                         "directories (default: the system's temporary directory; about 22.5 "
+                         "GB, then about 10 GB)")
     args = ap.parse_args()
 
     import torch
@@ -6755,6 +7227,7 @@ def main() -> int:
         phase_cluster(results, state, args.seed)
         phase_media(results, state, args.seed)
         phase_ckpt(results, state, args.seed, root=args.ckpt_dir)
+        phase_train(results, state, args.seed, root=args.ckpt_dir)
         state.clear()  # the 8B weights go before the reduced-depth models
         for preset in REDUCED_DEPTH_PRESETS:
             phase_reduced_depth(results, preset, args.seed)

@@ -7,7 +7,9 @@ which it lacks too (the checkpoint loader and the tokenizer read their
 formats themselves; the channel speaks WebSocket over the standard library;
 the node decodes and encodes PNG, JPEG and WAV with ``models.media_codec``
 and ``wave``; the cluster tier's KV wire reads bf16 and fp8 leaves through
-``torch.frombuffer``). jinja2 stays allowed: it comes with torch, and the
+``torch.frombuffer``), nor optax, orbax or flax (the trainer steps with
+``torch.optim`` and checkpoints in its own safetensors format; a JAX train
+state or adapter comes across as numpy). jinja2 stays allowed: it comes with torch, and the
 tokenizer imports it only when it renders a chat template.
 
 The check is on the AST, by the exact top-level module name: a prefix test
@@ -24,7 +26,8 @@ import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 FORBIDDEN = {"jax", "jaxlib", "agentfield_tpu", "tools", "aiohttp", "pydantic", "safetensors",
-             "transformers", "tokenizers", "regex", "websockets", "grpc", "PIL", "ml_dtypes"}
+             "transformers", "tokenizers", "regex", "websockets", "grpc", "PIL", "ml_dtypes",
+             "optax", "orbax", "flax"}
 
 
 def _port_files() -> list[pathlib.Path]:
@@ -180,3 +183,25 @@ def test_port_modules_load_nothing_forbidden():
                                                       "PYTHONPATH": str(ROOT)})
     assert out.returncode == 0, out.stderr[-2000:]
     assert out.stdout.strip() == "[]", out.stdout
+
+
+def test_guard_names_the_training_libraries(tmp_path):
+    """The training slice (``training/``, ``models/convert.py``'s state
+    converters) imports none of optax, orbax or flax: checked by name, and
+    those modules of the port scanned."""
+    src = tmp_path / "m.py"
+    src.write_text(
+        "import optax\n"
+        "import orbax.checkpoint as ocp\n"
+        "from flax import linen\n"
+        "from agentfield_tpu.training import lora\n"
+        "from agentfield_tpu_torch.training import lora as port_lora\n"
+        "import torch.optim\n"
+    )
+    tops = [t for _, t in _imported_tops(src)]
+    assert [t for t in tops if t in FORBIDDEN] == ["optax", "orbax", "flax", "agentfield_tpu"]
+    for rel in ("training/__init__.py", "training/trainer.py", "training/lora.py",
+                "training/checkpoint.py", "training/optim.py", "models/convert.py"):
+        path = ROOT / "agentfield_tpu_torch" / rel
+        assert path in _port_files()
+        assert not [t for _, t in _imported_tops(path) if t in FORBIDDEN], rel
