@@ -31,8 +31,27 @@ from agentfield_tpu_torch.models.configs import LlamaConfig
 from agentfield_tpu_torch.models.llama import Params, resolve_dtype
 from agentfield_tpu_torch.models.quant import QUANT_KEYS, QuantW, pack_quantw
 
-_LAYER_LEAVES = ("attn_norm", "mlp_norm", "wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
-_BIAS_LEAVES = ("bq", "bk", "bv")
+
+def param_shapes(cfg: LlamaConfig) -> dict[str, Any]:
+    """The unsharded shape of every leaf ``init_params`` makes for ``cfg``,
+    as a tree of its keys (a quantized leaf's logical ``[..., in, out]``)."""
+    L, d, f, v = cfg.num_layers, cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
+    E = cfg.num_experts
+    ex = (L, E) if E > 0 else (L,)  # the expert axis after the layer axis
+    layers = {
+        "attn_norm": (L, d), "mlp_norm": (L, d),
+        "wq": (L, d, cfg.q_dim), "wk": (L, d, cfg.kv_dim), "wv": (L, d, cfg.kv_dim),
+        "wo": (L, cfg.q_dim, d),
+        "w_gate": (*ex, d, f), "w_up": (*ex, d, f), "w_down": (*ex, f, d),
+    }
+    if E > 0:
+        layers["router"] = (L, d, E)
+    if cfg.attn_bias:
+        layers.update(bq=(L, cfg.q_dim), bk=(L, cfg.kv_dim), bv=(L, cfg.kv_dim))
+    out: dict[str, Any] = {"embed": (v, d), "layers": layers, "final_norm": (d,)}
+    if not cfg.tie_embeddings:
+        out["lm_head"] = (d, v)
+    return out
 
 
 def params_from_numpy(
@@ -40,24 +59,24 @@ def params_from_numpy(
     cfg: LlamaConfig,
     device: str | torch.device = "cuda",
     dtype: str | torch.dtype | None = None,
+    shard=None,
 ) -> Params:
     """Turn the JAX package's param pytree, as numpy arrays (e.g.
     ``jax.tree.map(np.asarray, agentfield_tpu.models.llama.init_params(cfg,
     key))``), into the port's params on ``device`` in ``dtype`` (default:
     ``cfg.dtype``). Raises on a missing leaf or a shape that does not match
-    ``cfg``."""
+    ``cfg``. With ``shard`` (a ``parallel.mesh.Mesh``) the whole tree is
+    made on the CPU and ``parallel.sharding.shard_params`` cuts that
+    tensor-parallel rank's slice before it moves, so a rank holds the block
+    the JAX mesh gives its device."""
+    if shard is not None:
+        from agentfield_tpu_torch.parallel.sharding import shard_params
+
+        whole = params_from_numpy(tree, cfg, device="cpu", dtype=dtype)
+        return _to_device(shard_params(whole, cfg, shard), device)
     dt = resolve_dtype(dtype or cfg.dtype)
-    L, d, f, v = cfg.num_layers, cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
-    E = cfg.num_experts
-    ex = (L, E) if E > 0 else (L,)  # the expert axis after the layer axis
-    shapes = {
-        "attn_norm": (L, d), "mlp_norm": (L, d),
-        "wq": (L, d, cfg.q_dim), "wk": (L, d, cfg.kv_dim), "wv": (L, d, cfg.kv_dim),
-        "wo": (L, cfg.q_dim, d),
-        "w_gate": (*ex, d, f), "w_up": (*ex, d, f), "w_down": (*ex, f, d),
-        "router": (L, d, E),
-        "bq": (L, cfg.q_dim), "bk": (L, cfg.kv_dim), "bv": (L, cfg.kv_dim),
-    }
+    shapes = param_shapes(cfg)
+    lshapes = shapes["layers"]
 
     def move(a, shape, name):
         a = np.asarray(a)
@@ -77,25 +96,33 @@ def params_from_numpy(
         w = layers_in[n]
         if n in QUANT_KEYS and (hasattr(w, "q") or isinstance(w, tuple)):
             q, scale = (w.q, w.scale) if hasattr(w, "q") else w
-            qw = QuantW(exact(q, shapes[n], np.int8, f"layers.{n}.q"),
-                        exact(scale, shapes[n][:-2] + shapes[n][-1:], np.float32,
+            qw = QuantW(exact(q, lshapes[n], np.int8, f"layers.{n}.q"),
+                        exact(scale, lshapes[n][:-2] + lshapes[n][-1:], np.float32,
                               f"layers.{n}.scale"))
-            if torch.device(device).type == "cuda":
-                return pack_quantw(qw, device)
-            return QuantW(qw.q.to(device), qw.scale.to(device))
-        return move(w, shapes[n], f"layers.{n}")
+            return _to_device(qw, device)
+        return move(w, lshapes[n], f"layers.{n}")
 
     layers_in = tree["layers"]
-    names = (_LAYER_LEAVES + (("router",) if E > 0 else ())
-             + (_BIAS_LEAVES if cfg.attn_bias else ()))
     out: Params = {
-        "embed": move(tree["embed"], (v, d), "embed"),
-        "layers": {n: leaf(n) for n in names},
-        "final_norm": move(tree["final_norm"], (d,), "final_norm"),
+        "embed": move(tree["embed"], shapes["embed"], "embed"),
+        "layers": {n: leaf(n) for n in lshapes},
+        "final_norm": move(tree["final_norm"], shapes["final_norm"], "final_norm"),
     }
     if not cfg.tie_embeddings:
-        out["lm_head"] = move(tree["lm_head"], (d, v), "lm_head")
+        out["lm_head"] = move(tree["lm_head"], shapes["lm_head"], "lm_head")
     return out
+
+
+def _to_device(p: Any, device: str | torch.device) -> Any:
+    """A CPU param tree (or leaf) on ``device``; an unpacked ``QuantW``
+    is packed for the kernel on a CUDA device."""
+    if isinstance(p, dict):
+        return {k: _to_device(v, device) for k, v in p.items()}
+    if isinstance(p, QuantW):
+        if torch.device(device).type == "cuda":
+            return pack_quantw(p, device)
+        return QuantW(p.q.to(device), p.scale.to(device))
+    return p.to(device)
 
 
 def tower_params_from_numpy(

@@ -301,17 +301,55 @@ def load_hf_checkpoint(
     dtype: str | torch.dtype = "bfloat16",
     device: str | torch.device = "cuda",
     quant: str | None = None,
+    shard=None,
 ) -> tuple[LlamaConfig, Params]:
     """Returns ``(config, params)`` with every leaf on ``device`` in
     ``dtype``. Each HF tensor is copied to ``device`` as stored and
     transposed and cast there, into its slot of the preallocated leaf.
     ``quant="int8"`` quantizes each ``QUANT_KEYS`` matrix (after its cast to
-    ``dtype``) as it arrives."""
+    ``dtype``) as it arrives.
+
+    ``shard`` (a ``parallel.mesh.Mesh``) loads one tensor-parallel rank's
+    slice of every leaf (``parallel.sharding.param_pspecs``): an fp leaf
+    reads only the rank's rows or columns of each mapped tensor, so no
+    process ever holds a whole model (Llama-3-70B is 141 GB in bf16). An
+    int8 leaf reads one whole matrix at a time, quantizes it and keeps the
+    rank's slice: a row-parallel weight's column scales need every row."""
     if quant not in (None, "int8"):
         raise ValueError(f"unknown quant mode {quant!r} (have: 'int8')")
     path = Path(path)
     if cfg is None:
         cfg = config_from_hf(path)
+    tp = 1 if shard is None else shard.tp
+    specs = None
+    if tp > 1:
+        from agentfield_tpu_torch.parallel.sharding import (
+            check_divisibility, param_pspecs, refuse_experts, shard_slice)
+
+        refuse_experts(cfg, tp)
+        check_divisibility(cfg, tp)
+        specs = param_pspecs(cfg)
+
+    def spec_of(leaf: str):
+        if specs is None:
+            return None
+        return specs[leaf] if leaf in specs else specs["layers"][leaf]
+
+    def local(shape, spec) -> tuple[int, ...]:  # the rank's shape of a leaf
+        if spec is None or "model" not in spec:
+            return tuple(shape)
+        return tuple(n // tp if a == "model" else n for n, a in zip(shape, spec))
+
+    def cut(t: torch.Tensor, spec, transpose: bool) -> torch.Tensor:
+        """The rank's slice of a stored tensor (a view of the mapping): the
+        leaf's sharded axis, on the stored side of a transpose."""
+        if spec is None or "model" not in spec:
+            return t
+        ax = spec.index("model") - len(spec)  # -1: output, -2: input
+        ax = -3 - ax if transpose else ax
+        sl = shard_slice(t.shape[ax], tp, shard.rank)
+        return t.narrow(ax, sl.start, sl.stop - sl.start)
+
     dt = resolve_dtype(dtype)
     device = torch.device(device)
     handles = open_checkpoint(path)
@@ -333,20 +371,22 @@ def load_hf_checkpoint(
         for a in range(0, t.shape[0], rows):
             dst[:, a:a + rows].copy_(t[a:a + rows].to(device).T)
 
-    def fill(shape, transpose: bool, src) -> torch.Tensor:
+    def fill(shape, transpose: bool, src, spec=None) -> torch.Tensor:
+        shape = local(shape, spec)
         out = torch.empty(shape, dtype=dt, device=device)
         flat = out.view(-1, *shape[-2 if transpose else -1:])
         for i in range(flat.shape[0]):
-            put(flat[i], src(get, i), transpose)
+            put(flat[i], cut(src(get, i), spec, transpose), transpose)
         return out
 
-    def fill_quant(shape, src) -> QuantW:
+    def fill_quant(shape, src, spec=None) -> QuantW:
         # each whole matrix on the device in ``dtype``: its column scales
         # need every row (the fp stack is never held)
-        return _quantize_stack(shape, device, lambda i: src(get, i).to(device).T.to(dt))
+        return _quantize_stack(shape, device, lambda i: src(get, i).to(device).T.to(dt),
+                               None if spec is None else (spec, tp, shard.rank))
 
-    def single(name: str, transpose: bool = False) -> torch.Tensor:
-        t = get(name)
+    def single(name: str, transpose: bool = False, spec=None) -> torch.Tensor:
+        t = cut(get(name), spec, transpose)
         out = torch.empty(t.shape[::-1] if transpose else t.shape, dtype=dt, device=device)
         put(out, t, transpose)
         return out
@@ -355,11 +395,11 @@ def load_hf_checkpoint(
         layers: dict[str, Any] = {}
         for leaf, (shape, transpose, src) in _leaf_sources(cfg, set(handles)).items():
             if quant and leaf in QUANT_KEYS:
-                layers[leaf] = fill_quant(shape, src)
+                layers[leaf] = fill_quant(shape, src, spec_of(leaf))
             else:
-                layers[leaf] = fill(shape, transpose, src)
-        params: Params = {"embed": single("model.embed_tokens.weight"), "layers": layers,
-                          "final_norm": single("model.norm.weight")}
+                layers[leaf] = fill(shape, transpose, src, spec_of(leaf))
+        params: Params = {"embed": single("model.embed_tokens.weight", spec=spec_of("embed")),
+                          "layers": layers, "final_norm": single("model.norm.weight")}
         if cfg.norm_offset:
             # norm_offset checkpoints store w for x*(1+w); the 1.0 is added
             # after the cast, in the load dtype, so the runtime rms_norm
@@ -368,7 +408,7 @@ def load_hf_checkpoint(
                 layers[k] += 1.0
             params["final_norm"] += 1.0
         if not cfg.tie_embeddings:
-            params["lm_head"] = single("lm_head.weight", transpose=True)
+            params["lm_head"] = single("lm_head.weight", transpose=True, spec=spec_of("lm_head"))
     finally:
         for st in set(handles.values()):
             st.close()

@@ -13,6 +13,18 @@ out float32.
 paged-attention kernel (``ops.cuda.ragged_paged_attention.
 dense_causal_attention``; its plain version on CPU tensors).
 
+``mesh=`` (a ``parallel.mesh.Mesh`` of tp > 1, params from
+``parallel.sharding.shard_params``) runs one rank's share of the
+Megatron-style tensor-parallel forward: the projections and attention on
+the rank's H/tp query and Kh/tp KV heads (head counts are read from the
+weights' widths), the FFN on its f/tp columns, and the collectives written
+out where GSPMD inserts them in the JAX package — an all-reduce after the
+row-parallel ``wo`` and ``w_down`` (``attn_out``, ``mlp_block``), a masked
+lookup of the vocab-sharded table and an all-reduce (``embed_tokens``), the
+vocab gather of the logits (``unembed``). Attention itself has no
+collective: each rank runs the kernel on its heads (the JAX ``attend``'s
+``shard_map``).
+
 ``forward(remat=True)`` under autograd is the training forward
 (``training.trainer``); ``generate_greedy`` over ``forward_with_cache`` and
 a contiguous cache is the greedy oracle the engine is held against.
@@ -72,6 +84,7 @@ def init_params(
     dtype: str | torch.dtype | None = None,
     device: str | torch.device = "cuda",
     quantize: bool = False,
+    shard=None,
 ) -> Params:
     """Random-normal init (std 0.02; norms 1), drawn from a seeded
     ``torch.Generator`` directly in the target dtype on the target device —
@@ -84,49 +97,76 @@ def init_params(
     packed into its ``QuantW`` at once (``quant.init_quantized``): the
     distribution of ``quantize_params(init_params(...))`` without ever
     holding a whole fp stack (Mixtral's bf16 expert stacks alone outgrow an
-    80 GB card)."""
+    80 GB card).
+
+    With ``shard`` (a ``parallel.mesh.Mesh``) only that rank's slice of
+    each leaf is kept (``parallel.sharding.param_pspecs``): every leaf is
+    still drawn whole, in the same order from the same generator, and cut
+    at once (an int8 matrix quantized whole, then cut, then packed), so a
+    rank's tree is bit-equal to ``shard_params`` of the unsharded tree."""
     dt = resolve_dtype(dtype or cfg.dtype)
     device = torch.device(device)
     g = torch.Generator(device=device)
     g.manual_seed(seed)
     d, f, v, L = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size, cfg.num_layers
 
-    def norm(*shape):
-        return torch.empty(shape, dtype=dt, device=device).normal_(0.0, 0.02, generator=g)
+    tp = 1 if shard is None else shard.tp
+    specs = None
+    if tp > 1:
+        from agentfield_tpu_torch.parallel.sharding import (
+            param_pspecs, refuse_experts, shard_tensor)
+
+        refuse_experts(cfg, tp)
+        specs = param_pspecs(cfg)
+
+    def spec(name):
+        if specs is None:
+            return None
+        return specs[name] if name in specs else specs["layers"][name]
+
+    def cut(name, t):
+        if specs is None:
+            return t
+        return shard_tensor(t, spec(name), tp, shard.rank)
+
+    def norm(name, *shape):
+        return cut(name, torch.empty(shape, dtype=dt, device=device).normal_(
+            0.0, 0.02, generator=g))
 
     def ones(*shape):
         return torch.ones(shape, dtype=dt, device=device)
 
-    def weight(*shape):  # a QUANT_KEYS leaf
+    def weight(name, *shape):  # a QUANT_KEYS leaf
         if not quantize:
-            return norm(*shape)
+            return norm(name, *shape)
         from agentfield_tpu_torch.models.quant import init_quantized
 
-        return init_quantized(shape, dt, device, g)
+        cut_spec = None if specs is None else (spec(name), tp, shard.rank)
+        return init_quantized(shape, dt, device, g, shard=cut_spec)
 
     E = cfg.num_experts
-    embed = norm(v, d)
+    embed = norm("embed", v, d)
     layers = {
         "attn_norm": ones(L, d),
         "mlp_norm": ones(L, d),
-        "wq": weight(L, d, cfg.q_dim),
-        "wk": weight(L, d, cfg.kv_dim),
-        "wv": weight(L, d, cfg.kv_dim),
-        "wo": weight(L, cfg.q_dim, d),
+        "wq": weight("wq", L, d, cfg.q_dim),
+        "wk": weight("wk", L, d, cfg.kv_dim),
+        "wv": weight("wv", L, d, cfg.kv_dim),
+        "wo": weight("wo", L, cfg.q_dim, d),
     }
     if E > 0:  # Mixtral-style MoE FFN: the expert axis after the layer axis
-        layers["router"] = norm(L, d, E)  # stays fp, as in the JAX package
+        layers["router"] = norm("router", L, d, E)  # stays fp, as in the JAX package
         lead = (L, E)
     else:
         lead = (L,)
-    layers.update(w_gate=weight(*lead, d, f), w_up=weight(*lead, d, f),
-                  w_down=weight(*lead, f, d))
+    layers.update(w_gate=weight("w_gate", *lead, d, f), w_up=weight("w_up", *lead, d, f),
+                  w_down=weight("w_down", *lead, f, d))
     params: Params = {"embed": embed, "layers": layers, "final_norm": ones(d)}
     if cfg.attn_bias:  # Qwen2-style QKV biases
         for name, n in (("bq", cfg.q_dim), ("bk", cfg.kv_dim), ("bv", cfg.kv_dim)):
-            params["layers"][name] = torch.zeros((L, n), dtype=dt, device=device)
+            params["layers"][name] = cut(name, torch.zeros((L, n), dtype=dt, device=device))
     if not cfg.tie_embeddings:
-        params["lm_head"] = norm(d, v)
+        params["lm_head"] = norm("lm_head", d, v)
     return params
 
 
@@ -170,11 +210,22 @@ def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
     return (x32 * torch.rsqrt(var + eps)).to(x.dtype) * w
 
 
-def embed_tokens(params: Params, cfg: LlamaConfig, tokens: torch.Tensor) -> torch.Tensor:
+def embed_tokens(params: Params, cfg: LlamaConfig, tokens: torch.Tensor,
+                 mesh=None) -> torch.Tensor:
     """Token-table lookup; gemma-family configs scale by sqrt(hidden) in the
     table's dtype (the tied UNEMBED uses the raw table). The scale is a CPU
-    scalar: no host-to-device copy, so a CUDA graph can capture the call."""
-    x = params["embed"][tokens]
+    scalar: no host-to-device copy, so a CUDA graph can capture the call.
+    Under a ``mesh`` the table is this rank's vocab rows: tokens outside
+    them look up zeros, and the all-reduce over ranks (one non-zero addend
+    an element: exact) gives every rank the whole lookup."""
+    table = params["embed"]
+    if mesh is not None and mesh.tp > 1:
+        n = table.shape[0]
+        local = tokens - mesh.rank * n
+        mine = (local >= 0) & (local < n)
+        x = mesh.all_reduce(table[local.clamp(0, n - 1)] * mine[..., None].to(table.dtype))
+    else:
+        x = table[tokens]
     if cfg.scale_embeddings:
         x = x * torch.tensor(cfg.hidden_size**0.5, dtype=x.dtype)
     return x
@@ -244,9 +295,10 @@ def qkv_proj(lp: Params, x_normed: torch.Tensor, cfg: LlamaConfig, cos, sin):
     q, k, v = x_normed @ lp["wq"], x_normed @ lp["wk"], x_normed @ lp["wv"]
     if "bq" in lp:
         q, k, v = q + lp["bq"], k + lp["bk"], v + lp["bv"]
-    q = q.reshape(B, S, cfg.num_heads, cfg.head_dim)
-    k = k.reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
-    v = v.reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
+    # -1: a tensor-parallel rank holds H/tp and Kh/tp heads of the weights
+    q = q.reshape(B, S, -1, cfg.head_dim)
+    k = k.reshape(B, S, -1, cfg.head_dim)
+    v = v.reshape(B, S, -1, cfg.head_dim)
     return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
 
 
@@ -263,17 +315,26 @@ def mlp_block(
     cfg: LlamaConfig,
     valid: torch.Tensor | None = None,
     capacity_tokens: int | None = None,
+    mesh=None,
 ) -> torch.Tensor:
     """The FFN sublayer (without its residual add). For a MoE config,
     ``valid`` ([B, S] bool) keeps padding out of sparse dispatch and
     ``capacity_tokens`` is the token count expert capacity is sized from
     (default B * S): the engine passes the padded size of the JAX engine's
-    prefill, so the same entries overflow. Soft routing ignores both."""
+    prefill, so the same entries overflow. Soft routing ignores both.
+    Under a ``mesh`` the rank's ``w_down`` rows give a partial sum, summed
+    over ranks."""
     h = rms_norm(x, lp["mlp_norm"], cfg.rms_norm_eps)
+    tp = mesh is not None and mesh.tp > 1
     if cfg.num_experts > 0:
+        if tp:
+            from agentfield_tpu_torch.parallel.sharding import refuse_experts
+
+            refuse_experts(cfg, mesh.tp)
         return _moe_mlp(lp, h, cfg, valid, capacity_tokens).to(x.dtype)
     gate = _act((h @ lp["w_gate"]).float(), cfg).to(x.dtype)
-    return ((gate * (h @ lp["w_up"])) @ lp["w_down"]).to(x.dtype)
+    y = (gate * (h @ lp["w_up"])) @ lp["w_down"]
+    return (mesh.all_reduce(y) if tp else y).to(x.dtype)
 
 
 def _emm(spec: str, x: torch.Tensor, w) -> torch.Tensor:
@@ -335,15 +396,23 @@ def _moe_mlp_sparse(lp: Params, h: torch.Tensor, cfg: LlamaConfig,
     return out.reshape(b, s, d).to(h.dtype)
 
 
-def unembed(params: Params, cfg: LlamaConfig, x: torch.Tensor) -> torch.Tensor:
+def unembed(params: Params, cfg: LlamaConfig, x: torch.Tensor, mesh=None) -> torch.Tensor:
+    """float32 logits; under a ``mesh`` the rank's vocab columns, gathered
+    into the whole vocabulary on every rank."""
     h = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
     w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    return (h @ w).float()
+    logits = (h @ w).float()
+    return mesh.gather_vocab(logits) if mesh is not None and mesh.tp > 1 else logits
 
 
-def attn_out(lp: Params, attn: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """Residual add of the output projection: ``x + attn @ wo`` in x.dtype."""
-    return x + (attn.reshape(*attn.shape[:2], -1) @ lp["wo"]).to(x.dtype)
+def attn_out(lp: Params, attn: torch.Tensor, x: torch.Tensor, mesh=None) -> torch.Tensor:
+    """Residual add of the output projection: ``x + attn @ wo`` in x.dtype;
+    under a ``mesh`` the rank's heads give a partial sum of ``attn @ wo``,
+    summed over ranks before the add."""
+    y = attn.reshape(*attn.shape[:2], -1) @ lp["wo"]
+    if mesh is not None and mesh.tp > 1:
+        y = mesh.all_reduce(y)
+    return x + y.to(x.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -364,6 +433,7 @@ def forward(
     capacity_tokens: int | None = None,  # sparse MoE: capacity's token count
     embeds_override: tuple[torch.Tensor, torch.Tensor] | None = None,
     remat: bool = False,
+    mesh=None,
 ):
     """Dense causal forward. Returns ``(logits [B, S, V] float32, (k, v)``
     each ``[L, B, S, Kh, hd]`` or None). With ``last_idx`` the logits are
@@ -390,10 +460,18 @@ def forward(
     ``torch.utils.checkpoint`` (non-reentrant): the backward recomputes the
     layer instead of keeping its activations, the JAX ``jax.checkpoint``
     of the scan body. Training passes ``collect_kv=False, remat=True``
-    (``training.trainer.causal_lm_loss``)."""
+    (``training.trainer.causal_lm_loss``).
+
+    ``mesh``: one rank's share of the tensor-parallel forward (module
+    docstring); its logits, hidden states and KV are the rank's heads'
+    (the logits and hidden states whole, the KV the rank's Kh/tp)."""
+    if attn_impl == "ring":
+        raise NotImplementedError(
+            "attn_impl='ring' (sequence-parallel attention) is not ported (ROADMAP A5: ring "
+            "attention)")
     if attn_impl not in ("ref", "kernel"):
         raise ValueError(f"unknown attn_impl {attn_impl!r} (have 'ref', 'kernel')")
-    x = embed_tokens(params, cfg, tokens)
+    x = embed_tokens(params, cfg, tokens, mesh)
     if embeds_override is not None:
         inject, inj_mask = embeds_override
         x = torch.where(inj_mask[..., None], inject.to(x.dtype), x)
@@ -416,8 +494,8 @@ def forward(
     def body(x, lp):
         h = rms_norm(x, lp["attn_norm"], cfg.rms_norm_eps)
         q, k, v = qkv_proj(lp, h, cfg, cos, sin)
-        x = attn_out(lp, attend(q, k, v), x)
-        return x + mlp_block(lp, x, cfg, valid_mask, capacity_tokens), k, v
+        x = attn_out(lp, attend(q, k, v), x, mesh)
+        return x + mlp_block(lp, x, cfg, valid_mask, capacity_tokens, mesh), k, v
 
     if remat and torch.is_grad_enabled():
         from torch.utils.checkpoint import checkpoint
@@ -435,7 +513,7 @@ def forward(
         return rms_norm(x, params["final_norm"], cfg.rms_norm_eps), kv
     if last_idx is not None:
         x = x[torch.arange(x.shape[0], device=x.device), last_idx]
-    return unembed(params, cfg, x), kv
+    return unembed(params, cfg, x, mesh), kv
 
 
 # ---------------------------------------------------------------------------

@@ -170,19 +170,37 @@ def _quantize_matrix(w32: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return q, scale
 
 
-def _quantize_stack(shape, device: torch.device, matrix) -> QuantW:
+def _quantize_stack(shape, device: torch.device, matrix, shard=None) -> QuantW:
     """A :class:`QuantW` of logical ``shape`` ``[..., d_in, d_out]`` on
     ``device``, filled matrix by matrix: ``matrix(i)`` gives the i-th fp
     ``[d_in, d_out]`` matrix (leading axes flattened), which is quantized
-    and, on a CUDA device, packed into its slot before the next is made."""
+    and, on a CUDA device, packed into its slot before the next is made.
+    ``shard=(spec, tp, rank)`` (the leaf's partition spec) keeps one
+    tensor-parallel rank's slice: each matrix is quantized whole, then q and
+    its scale are cut as ``parallel.sharding.shard_quantw`` cuts them, then
+    packed."""
     *lead, K, N = shape
+    cut = None
+    if shard is not None:
+        from agentfield_tpu_torch.parallel.sharding import shard_tensor
+
+        spec, tp, rank = shard
+        q_spec, s_spec = spec[-2:], spec[-1:]
+        K = K // tp if q_spec[0] is not None else K
+        N = N // tp if q_spec[1] is not None else N
+
+        def cut(qi, si):
+            return shard_tensor(qi, q_spec, tp, rank), shard_tensor(si, s_spec, tp, rank)
     pack = device.type == "cuda"
-    q = torch.empty((*lead, *packed_shape(K, N)) if pack else tuple(shape), dtype=torch.int8,
+    q = torch.empty((*lead, *packed_shape(K, N)) if pack else (*lead, K, N), dtype=torch.int8,
                     device=device)
     scale = torch.empty((*lead, N), dtype=torch.float32, device=device)
     qf, sf = q.view(-1, *q.shape[len(lead):]), scale.view(-1, N)
     for i in range(sf.shape[0]):
-        qi, sf[i] = _quantize_matrix(matrix(i).float())
+        qi, si = _quantize_matrix(matrix(i).float())
+        if cut is not None:
+            qi, si = cut(qi, si)
+        sf[i] = si
         qf[i] = pack_int8_weight(qi) if pack else qi
     return QuantW(q, scale, (K, N) if pack else None)
 
@@ -201,19 +219,20 @@ def quantize_weight(w: torch.Tensor) -> QuantW:
 
 
 def init_quantized(shape, dtype: torch.dtype, device: torch.device,
-                   generator: torch.Generator) -> QuantW:
+                   generator: torch.Generator, shard=None) -> QuantW:
     """A random :class:`QuantW` of logical ``shape``: each ``[d_in,
     d_out]`` matrix drawn from ``generator`` (normal, std 0.02, as
     ``llama.init_params`` draws) in ``dtype`` on ``device``, then quantized
     and packed as ``quantize_weight`` does, one matrix at a time — the fp
-    stack is never held whole (``llama.init_params(quantize=True)``)."""
+    stack is never held whole (``llama.init_params(quantize=True)``).
+    ``shard`` keeps one tensor-parallel rank's slice (``_quantize_stack``)."""
     K, N = shape[-2:]
 
     def draw(_):
         return torch.empty((K, N), dtype=dtype, device=device).normal_(
             0.0, 0.02, generator=generator)
 
-    return _quantize_stack(shape, torch.device(device), draw)
+    return _quantize_stack(shape, torch.device(device), draw, shard)
 
 
 def quantize_params(params: dict[str, Any]) -> dict[str, Any]:

@@ -162,12 +162,28 @@ def ragged_paged_attention(
     seq_ids,
     window: int | None = None,
     sm_scale: float | None = None,
+    mesh=None,
 ):
     """One ragged fused write+attention launch. ``k_pages``/``v_pages`` are
     plain tensors or :class:`ops.kv_quant.QuantPages`, and come back as the
     same kind. CPU tensors take the plain version; CUDA tensors launch the
     hand-written kernel (which raises on anything it does not take — there
-    is no fallback)."""
+    is no fallback).
+
+    With ``mesh`` (tensor parallelism, the JAX ``shard_map`` over the
+    KV-head axis) the call is one rank's: q, k_new and v_new hold the rank's
+    H/tp and Kh/tp heads, the pools and their scales the rank's Kh/tp heads
+    (``serving.kv_cache.PagedKVCache.create(mesh=)``), page tables and row
+    descriptors are whole (replicated). The kernel runs on the rank's heads
+    with no collective; the all-reduce after ``wo`` downstream is the only
+    traffic between ranks."""
+    if mesh is not None and mesh.tp > 1:
+        kh = k_new.shape[2]
+        pool_kh = (k_pages.q if isinstance(k_pages, QuantPages) else k_pages).shape[1]
+        if q.shape[2] % kh or pool_kh != kh:
+            raise ValueError(
+                f"rank {mesh.rank} of tp={mesh.tp}: q heads {q.shape[2]}, new KV heads {kh} "
+                f"and pool KV heads {pool_kh} are not one rank's head split")
     quant = isinstance(k_pages, QuantPages)
     kq, ksc = (k_pages.q, k_pages.scale) if quant else (k_pages, None)
     vq, vsc = (v_pages.q, v_pages.scale) if quant else (v_pages, None)

@@ -23,7 +23,10 @@ every replay draws fresh numbers. Launches of the hand-written kernels are
 counted in Python (``ops.cuda.ragged_paged_attention.launch_counts``, which
 covers the attention and the int8-weight matmul): a capture counts them
 once, so the runner takes them back out and adds the graph's count on every
-replay. On CPU tensors the step runs eagerly every time.
+replay. On CPU tensors the step runs eagerly every time, and so it does on
+the card when ``eager`` gives a reason (a tensor-parallel engine over gloo,
+whose collectives cannot be captured): ``stats()["eager"]`` says why, and
+each eager step counts its own launches.
 """
 
 from __future__ import annotations
@@ -107,24 +110,28 @@ class DecodeGraphs:
     on the card (see the module docstring)."""
 
     def __init__(self, step_fn: Callable[[DecodeState, str, str], None],
-                 generator: torch.Generator):
+                 generator: torch.Generator, eager: str | None = None):
         self.step_fn = step_fn
         self.generator = generator
+        self.eager = eager  # why every step runs eagerly on the card, or None
         self.graphs: dict[tuple, tuple[torch.cuda.CUDAGraph, dict[str, int]]] = {}
         self.capture_s = 0.0  # host seconds of first uses: eager step + capture
         self.replays: collections.Counter = collections.Counter()
 
     def stats(self) -> dict:
-        return {
+        out = {
             "graphs_captured": len(self.graphs),
             "capture_s": self.capture_s,
             "replays": {f"w{w}/{v}/{m}": n for (w, v, m), n in sorted(self.replays.items())},
         }
+        if self.eager is not None:
+            out["eager"] = self.eager
+        return out
 
     def run(self, state: DecodeState, variant: str, mode: str) -> bool:
         """One decode step over ``state``. Returns True when it was a replay
         of a captured graph (False: the CPU, or a key's first use)."""
-        if not state.tokens.is_cuda:
+        if not state.tokens.is_cuda or self.eager is not None:
             self.step_fn(state, variant, mode)
             return False
         key = (state.width, variant, mode)

@@ -142,12 +142,33 @@ internal job whose pages stash in the session's speculation state; the
 follow-up's admission absorbs the winner through the prefix index and frees
 the losers. The ``spec.fail`` and ``spec.stall`` fault points veto or defer
 the jobs.
+
+Tensor parallelism (``InferenceEngine(mesh=)``, the JAX engine's ``mesh={
+"model": tp}``): the JAX engine is one controller over sharded arrays; here
+one process per rank holds its slice (``parallel.sharding``), and rank 0's
+engine owns everything on the host — scheduler, prefix index, sampler,
+clock, deadlines, threads. Each device operation at the boundary where the
+engine reaches the model (``_tp_op``: the dense and suffix prefills, the
+draft's catch-up, the mixed tick's forward, a decode state's load, a decode
+step's run or graph replay, a page copy, an embed forward) is first sent to
+the ranks 1..tp-1 (``parallel.worker``), whose engines run the same method
+on their shards, so every collective of the model is met in the same order
+on every rank. Rank 0 alone samples: a decode or speculative step
+broadcasts its sampled tokens (the acceptance counts and corrections of a
+speculative step) to the workers, whose steps take them. Under gloo the
+collectives cannot be captured in a CUDA graph, so the decode runs eager
+(``graph_stats()["eager"]`` says why); under NCCL every rank captures and
+replays its own graph of the same key, the collectives inside. The host KV
+tier, the cluster tier (export, adoption, handoff), multimodal prompts and
+MoE are not ported under a mesh and raise ``NotImplementedError`` naming
+their ROADMAP item.
 """
 
 from __future__ import annotations
 
 import collections
 import dataclasses
+import functools
 import math
 import threading
 import time
@@ -490,6 +511,35 @@ class _HostPageStore:
             self._free.append((slab, slot, done[0]))
 
 
+def _tp_op(method):
+    """A device operation of the tensor-parallel boundary: on rank 0 of a
+    serving mesh the call (its host arguments) is first sent to every
+    worker, which runs the same method on its own engine (module
+    docstring). Such a method must not call another one."""
+    name = method.__name__
+
+    @functools.wraps(method)
+    def run(self, *args, **kwargs):
+        if self.mesh is not None and self.mesh.workers is not None:
+            self.mesh.workers.send((name, args, kwargs))
+        return method(self, *args, **kwargs)
+
+    return run
+
+
+def _tree_bytes(tree) -> int:
+    """Device bytes of a param tree's leaves (a QuantW's q and scale)."""
+    if isinstance(tree, dict):
+        return sum(_tree_bytes(v) for v in tree.values())
+    leaves = (tree.q, tree.scale) if hasattr(tree, "scale") else (tree,)
+    return sum(t.numel() * t.element_size() for t in leaves)
+
+
+def _tp_refused(what: str, item: str):
+    return NotImplementedError(
+        f"{what} under a tensor-parallel mesh is not ported (ROADMAP A5: {item})")
+
+
 class InferenceEngine:
     def __init__(
         self,
@@ -500,6 +550,7 @@ class InferenceEngine:
         device: str | torch.device | None = None,
         draft: tuple[dict[str, Any], LlamaConfig] | None = None,
         restore_budget_bytes: int | None = None,
+        mesh=None,
     ):
         """``params`` in the port's layout (``models.llama.init_params`` or
         ``models.convert.params_from_numpy``), already on ``device`` (default:
@@ -509,9 +560,21 @@ class InferenceEngine:
         that pages fetched from a peer node wait in (pinned on the card,
         allocated as it fills) when ``host_cache_bytes`` is 0; None sizes
         it as the JAX engine does: two admission windows of whole prompts,
-        ``max(32, 2 * max_batch * max_pages_per_seq)`` pages."""
+        ``max(32, 2 * max_batch * max_pages_per_seq)`` pages.
+
+        ``mesh`` (a ``parallel.mesh.Mesh`` with a process group, tp > 1):
+        this engine is one rank of a tensor-parallel engine (module
+        docstring). The config checks come first; ``params`` (and a
+        draft's) are this rank's slice (``parallel.sharding.shard_params``,
+        ``init_params(shard=)``, a loader's ``shard=``), and a tree of
+        other shapes raises ``ValueError``. Rank 0's mesh
+        holds the workers (``parallel.worker.start_workers``), and
+        ``close`` stops them."""
         self.cfg = cfg
         self.ecfg = ecfg or EngineConfig()
+        self.mesh = mesh if mesh is not None and mesh.tp > 1 else None
+        if self.mesh is not None:
+            self._check_tp(params, draft)
         self.device = torch.device(device) if device is not None else params["embed"].device
         if self.device.type == "cuda" and self.device.index is None:
             self.device = torch.device("cuda", torch.cuda.current_device())
@@ -579,11 +642,12 @@ class InferenceEngine:
         quant = self.ecfg.kv_quant_dtype
         self.cache = PagedKVCache.create(
             cfg, self.ecfg.num_pages, self.ecfg.page_size, cache_dtype, device=self.device,
-            kv_quant=quant,
+            kv_quant=quant, mesh=self.mesh,
         )
         if quant == "none" and self.cache.k_pages.dtype != params["embed"].dtype:
             raise ValueError("KV page dtype must match the params' compute dtype")
-        self._target = PagedModel(params, cfg, self.cache, _binding_window(cfg, self.ecfg))
+        self._target = PagedModel(params, cfg, self.cache, _binding_window(cfg, self.ecfg),
+                                  self.mesh)
         # speculative decoding: the draft's own pool on the target's page ids
         self.draft_params = self.draft_cfg = self.draft_cache = self._draft = None
         if self.ecfg.spec_k < 0:
@@ -612,12 +676,12 @@ class InferenceEngine:
                     f"engine on {self.device}")
             self.draft_cache = PagedKVCache.create(
                 self.draft_cfg, self.ecfg.num_pages, self.ecfg.page_size, cache_dtype,
-                device=self.device, kv_quant=quant,
+                device=self.device, kv_quant=quant, mesh=self.mesh,
             )
             if quant == "none" and self.draft_cache.k_pages.dtype != self.draft_params["embed"].dtype:
                 raise ValueError("KV page dtype must match the draft params' compute dtype")
             self._draft = PagedModel(self.draft_params, self.draft_cfg, self.draft_cache,
-                                     _binding_window(self.draft_cfg, self.ecfg))
+                                     _binding_window(self.draft_cfg, self.ecfg), self.mesh)
         self.draft_prefill_cfg = (_sparse_prefill_cfg(self.draft_cfg, self.ecfg)
                                   if self.draft_cfg is not None else None)
         # the dense page layout at the same geometry: the yardstick of the
@@ -834,12 +898,18 @@ class InferenceEngine:
         self._states: dict[int, DecodeState] = {}
         self._dirty = True
         self._compact_key: tuple | None = None
-        self._graphs = DecodeGraphs(self._graph_step, self._gen)
+        self._graphs = DecodeGraphs(
+            self._graph_step, self._gen,
+            eager=("gloo collectives cannot be captured in a CUDA graph: the tensor-parallel "
+                   "decode runs eager" if self.mesh is not None and self.mesh.backend == "gloo"
+                   else None))
         # device ms of each replayed decode step, of each replayed spec step
         # and of each mixed tick's forward and sampling (CUDA events)
         self.decode_step_ms: collections.deque[float] = collections.deque(maxlen=4096)
         self.spec_step_ms: collections.deque[float] = collections.deque(maxlen=4096)
         self.mixed_tick_ms: collections.deque[float] = collections.deque(maxlen=4096)
+        # CUDA events around each decode step of a tensor-parallel rank
+        self._rank_step_events: collections.deque = collections.deque(maxlen=4096)
         # agent-aware serving: session id -> pinned-at wall time (exempt from
         # gc and the eviction ladder's first rung); session id -> its
         # speculation state (parent id, candidates by job id, finished jobs'
@@ -848,6 +918,29 @@ class InferenceEngine:
         self._pins: dict[str, float] = {}  # guarded by: _session_lock
         self._spec_by_session: dict[str, dict] = {}  # guarded by: _session_lock
         self._spec_stalled: list[tuple[float, Request]] = []
+
+    def _check_tp(self, params, draft) -> None:
+        """The tensor-parallel config checks (the JAX engine's order):
+        divisibility of the sharded dims and heads, then what this slice
+        does not port, then the shapes of this rank's slices."""
+        from agentfield_tpu_torch.parallel.sharding import (
+            check_divisibility, check_rank_slice, refuse_experts)
+
+        tp = self.mesh.tp
+        check_divisibility(self.cfg, tp, paged_kv=True)
+        refuse_experts(self.cfg, tp)
+        if self.ecfg.host_cache_bytes > 0:
+            raise _tp_refused("the host KV tier (host_cache_bytes)",
+                              "host tier, cluster and handoff under TP")
+        if draft is not None:
+            check_divisibility(draft[1], tp, paged_kv=True)
+        check_rank_slice(params, self.cfg, tp)
+        if draft is not None:
+            check_rank_slice(draft[0], draft[1], tp)
+
+    @property
+    def _tp_worker(self) -> bool:
+        return self.mesh is not None and not self.mesh.is_root
 
     # ------------------------------------------------------------------
     # host-side scheduling
@@ -858,6 +951,11 @@ class InferenceEngine:
         RequestTooLongError if it can never fit the page budget."""
         if not req.prompt:
             raise ValueError(f"request {req.id}: prompt must be non-empty")
+        if self.mesh is not None:
+            if req.mm_embeds:
+                raise _tp_refused("a multimodal prompt", "media towers under TP")
+            if req.handoff is not None or req.handoff_export:
+                raise _tp_refused("two-phase handoff", "host tier, cluster and handoff under TP")
         if req.mm_embeds:
             D = self.cfg.hidden_size
             for off, emb in req.mm_embeds:
@@ -1734,6 +1832,7 @@ class InferenceEngine:
             self.stats["branch_forks_total"] += 1
         return events
 
+    @_tp_op
     def _copy_page(self, src: int, dst: int) -> None:
         """Copy-on-write: duplicate page `src` into `dst` across all layers
         (values and, for a quantized pool, their scales), in the target pool
@@ -1824,8 +1923,9 @@ class InferenceEngine:
         """The prefix index's sketch for a heartbeat (``PrefixPagePool.
         sketch``), or None with the shared-prefix cache off or
         ``prefix_sketch_bytes`` 0 (the node then attracts no affinity
-        traffic)."""
-        if not self._shared_prefix or self.ecfg.prefix_sketch_bytes <= 0:
+        traffic; under a mesh too: its pages cannot be exported)."""
+        if (not self._shared_prefix or self.ecfg.prefix_sketch_bytes <= 0
+                or self.mesh is not None):
             return None
         with self._session_lock:
             return self.allocator.sketch(self.ecfg.prefix_sketch_bytes)
@@ -1875,6 +1975,8 @@ class InferenceEngine:
         the host store; the next admission's prefix walk restores them (a
         failed restore shortens the walk: a re-prefill, token-exact under
         greedy). Returns the number adopted."""
+        if self.mesh is not None:
+            raise _tp_refused("adopting a peer's KV pages", "host tier, cluster and handoff under TP")
         if not self._shared_prefix:
             return 0
         with self._session_lock:
@@ -1888,6 +1990,8 @@ class InferenceEngine:
         copied to the host outside it, so a peer's fetch never stalls the
         tick. A page whose copy fails is left out (the peer re-prefills
         it)."""
+        if self.mesh is not None:
+            raise _tp_refused("exporting KV pages", "host tier, cluster and handoff under TP")
         if not self._shared_prefix:
             return []
         with self._session_lock:
@@ -1939,6 +2043,8 @@ class InferenceEngine:
     def adopt_handoff_tail(self, handoff_id: str, payload: _HostPage) -> bool:
         """Stash a fetched tail (already checked against
         ``page_payload_spec``) for its phase-2 admission."""
+        if self.mesh is not None:
+            raise _tp_refused("adopting a handoff tail", "host tier, cluster and handoff under TP")
         if not self._shared_prefix:
             return False
         with self._session_lock:
@@ -2048,8 +2154,11 @@ class InferenceEngine:
     def close(self) -> None:
         """Stop the offload worker (idempotent; the engine stays steppable,
         host pages still restore, demotion stops). Takes no engine lock: the
-        worker needs the session lock to finish its last commit."""
+        worker needs the session lock to finish its last commit. Rank 0 of
+        a tensor-parallel engine also stops and joins its workers."""
         self.allocator.close()
+        if self.mesh is not None:
+            self.mesh.close()
 
     # ------------------------------------------------------------------
     # constrained decoding: the grammar transition bank
@@ -2242,6 +2351,7 @@ class InferenceEngine:
     # device work
     # ------------------------------------------------------------------
 
+    @_tp_op
     def _dense_prefill(self, prompts: list[list[int]], rows: list[np.ndarray],
                        mm_embeds=None) -> torch.Tensor:
         """Whole-prompt prefill of fresh prompts from position 0 (one row per
@@ -2296,7 +2406,7 @@ class InferenceEngine:
         logits, (ks, vs) = llama.forward(m.params, _sparse_prefill_cfg(m.cfg, self.ecfg), tokens,
                                          positions, attn_impl="kernel", last_idx=last_idx,
                                          valid_mask=vmask, capacity_tokens=cap_tokens,
-                                         embeds_override=embeds_override)
+                                         embeds_override=embeds_override, mesh=m.mesh)
         # ks/vs [L, n, S, Kh, hd] -> valid tokens [N, L, Kh, hd]; 1-D index
         # tensors at pool dims 1 and 3 put the token dim first. A quantized
         # pool quantizes each slot on the way in.
@@ -2304,6 +2414,7 @@ class InferenceEngine:
         write_pages(m.cache.v_pages, vs.permute(1, 2, 0, 3, 4)[vmask], pid, sid)
         return logits
 
+    @_tp_op
     def _suffix_prefill(self, piece: list[int], start: int, row: np.ndarray) -> torch.Tensor:
         """Prefill ``piece`` at absolute positions ``start...`` over the
         cached pages (``_suffix_forward``), in the target's pool and then the
@@ -2342,7 +2453,7 @@ class InferenceEngine:
         seq_ids = torch.zeros((R,), dtype=torch.int32, device=dev)
         tokens = torch.tensor([piece], dtype=torch.int64, device=dev)
         positions = start + torch.arange(n, device=dev)[None]
-        x = llama.embed_tokens(m.params, cfg, tokens)
+        x = llama.embed_tokens(m.params, cfg, tokens, m.mesh)
         cos, sin = llama.rope_sincos(positions, cfg.head_dim, cfg.rope_theta, cfg.rope_scaling)
 
         def as_rows(t):  # [1, n, ...] -> [R, W, ...]
@@ -2357,12 +2468,12 @@ class InferenceEngine:
             q, k, v = llama.qkv_proj(lp, h, cfg, cos, sin)
             attn, _, _ = ragged_paged_attention(
                 as_rows(q), as_rows(k), as_rows(v), *m.cache.layer(i), tables,
-                row_starts, n_toks, ctx_lens, seq_ids, window=m.window,
+                row_starts, n_toks, ctx_lens, seq_ids, window=m.window, mesh=m.mesh,
             )
-            attn = attn.reshape(R * W, cfg.num_heads, cfg.head_dim)[:n][None]
-            x = llama.attn_out(lp, attn, x)
-            x = x + llama.mlp_block(lp, x, pcfg, capacity_tokens=bucket)
-        return llama.unembed(m.params, cfg, x[:, -1])[0] if unembed else None
+            attn = attn.reshape(R * W, -1, cfg.head_dim)[:n][None]
+            x = llama.attn_out(lp, attn, x, m.mesh)
+            x = x + llama.mlp_block(lp, x, pcfg, capacity_tokens=bucket, mesh=m.mesh)
+        return llama.unembed(m.params, cfg, x[:, -1], m.mesh)[0] if unembed else None
 
     def _prefill(self, tokens: list[int], start: int, row: np.ndarray) -> torch.Tensor:
         """Prefill `tokens` from absolute position `start`, in
@@ -2385,6 +2496,51 @@ class InferenceEngine:
                 last_logits = self._suffix_prefill(piece, piece_start, row)
         return last_logits
 
+    def forced_decode_logits(self, prompts: list[list[int]],
+                             forced: list[list[int]]) -> torch.Tensor:
+        """Teacher forcing through the serving path: every prompt prefilled
+        over pages of its own (``_prefill``, the path a node with
+        ``prefill_batch=1`` admits it by), then ``n = len(forced[0])``
+        decode steps over all the rows at once (``_decode_forward``, the
+        decode kernel), step s feeding row b the token ``forced[b][s]``
+        whatever its logits said. Returns the logits of the prefill and of
+        every step, ``[B, 1 + n, V]`` float32 on the host, and frees the
+        pages. Runs on the engine's thread (a node's ``_on_engine_thread``)
+        between steps; under a mesh every rank runs the same operations."""
+        n = len(forced[0]) if forced else 0
+        if len(forced) != len(prompts) or any(len(f) != n for f in forced):
+            raise ValueError("forced: one token list per prompt, all of one length")
+        pages: list[list[int]] = []
+        try:
+            for p in prompts:
+                with self._session_lock:
+                    got = self._alloc_with_eviction(-(-(len(p) + n) // self.ecfg.page_size))
+                if got is None:
+                    raise RuntimeError("forced_decode_logits: no free pages for the prompts")
+                pages.append(got)
+            rows = [build_page_table(pg, self.ecfg.max_pages_per_seq) for pg in pages]
+            steps = [torch.stack([self._prefill(p, 0, r) for p, r in zip(prompts, rows)])]
+            tables = np.stack(rows)
+            for s in range(n):
+                steps.append(self._forced_step(np.array([f[s] for f in forced], np.int64),
+                                               np.array([len(p) + s for p in prompts], np.int32),
+                                               tables))
+            return torch.stack([t.float().cpu() for t in steps], dim=1)
+        finally:
+            with self._session_lock:
+                for pg in pages:
+                    self.allocator.free(pg)
+
+    @_tp_op
+    def _forced_step(self, tokens: np.ndarray, seq_lens: np.ndarray,
+                     tables: np.ndarray) -> torch.Tensor:
+        """A decode step of ``forced_decode_logits``: row b's token at
+        position ``seq_lens[b]``. Returns logits [B, V]."""
+        dev = self.device
+        return self._decode_forward(torch.from_numpy(tokens).to(dev),
+                                    torch.from_numpy(seq_lens).to(dev),
+                                    torch.from_numpy(tables).to(dev))
+
     def _decode_forward(self, tokens, seq_lens, page_tables) -> torch.Tensor:
         """One decode step's forward over a batch of slots: row b's single
         new token sits at position seq_lens[b] over seq_lens[b] cached keys;
@@ -2405,7 +2561,8 @@ class InferenceEngine:
         a CUDA graph captures): ``spec_decode.spec_step``, its outputs into
         the state's spec buffers, the next tokens and lengths written back."""
         out = spec_step(self._target, self._draft, st.tokens, st.seq_lens, st.page_tables,
-                        st.temps, st.top_ks, st.top_ps, self.ecfg.spec_k, self._gen, variant)
+                        st.temps, st.top_ks, st.top_ps, self.ecfg.spec_k, self._gen, variant,
+                        share=None if self.mesh is None else self.mesh.broadcast)
         st.spec_tokens.copy_(out.emitted)
         st.spec_logprobs.copy_(out.logprobs)
         st.spec_counts.copy_(out.counts)
@@ -2420,6 +2577,10 @@ class InferenceEngine:
         lengths and grammar states written back into ``st``."""
         for s in range(self.ecfg.decode_span):
             logits = self._decode_forward(st.tokens, st.seq_lens, st.page_tables)
+            if self._tp_worker:  # rank 0 samples; this rank takes its tokens
+                st.tokens.copy_(self.mesh.broadcast(torch.empty_like(st.tokens)))
+                st.seq_lens.add_((st.seq_lens > 0).to(torch.int32))
+                continue
             sample_from = logits
             if grammar:
                 bank = self._gbank_dev
@@ -2432,6 +2593,8 @@ class InferenceEngine:
                 sample_from = torch.where(allowed, logits, _MASKED)
             toks = sample_tokens(sample_from, self._gen, st.temps, st.top_ks, st.top_ps,
                                  variant=variant)
+            if self.mesh is not None:
+                self.mesh.broadcast(toks.long())  # the workers' next tokens
             if grammar:
                 st.gstates.copy_(torch.gather(rows, 1, toks[:, None].long())[:, 0].clamp(min=0))
             st.out_logprobs[s].copy_(
@@ -2463,7 +2626,7 @@ class InferenceEngine:
         dirty (admission, release, or a compact step since)."""
         st = self._state(self.ecfg.max_batch)
         if self._dirty:
-            st.load(self._host_rows(slice(None)))
+            self._load_state(st.width, self._host_rows(slice(None)))
             self._dirty = False
         return st
 
@@ -2479,9 +2642,55 @@ class InferenceEngine:
                 fill = {"top_ps": 1.0, "eos_ids": -1}.get(name, 0)  # a free slot's values
                 rows[name] = np.full((bucket,) + arr.shape[1:], fill, arr.dtype)
                 rows[name][: len(active_idx)] = arr
-            st.load(rows)
+            self._load_state(bucket, rows)
             self._compact_key = key
         return st
+
+    @_tp_op
+    def _load_state(self, width: int, rows: dict[str, np.ndarray]) -> None:
+        """Write host rows into the ``width`` decode state's buffers."""
+        self._state(width).load(rows)
+
+    @_tp_op
+    def _run_graph(self, width: int, variant: str, mode: str) -> bool:
+        """One decode (or speculative) step over the ``width`` state, a
+        graph replay after the key's first use on the card. Under a mesh on
+        the card each rank times its steps (``rank_report``)."""
+        timed = self.mesh is not None and self.device.type == "cuda"
+        if timed:
+            ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+            ev[0].record()
+        replayed = self._graphs.run(self._state(width), variant, mode)
+        if timed:
+            ev[1].record()
+            self._rank_step_events.append(ev)
+        return replayed
+
+    def rank_report(self, reset: bool = False) -> dict:
+        """This rank's share of a tensor-parallel engine (rank 0 reads the
+        workers' through ``Workers.query``): its weight bytes, the
+        hand-written kernels' launch counts in this process, the device ms
+        of each decode step it ran (CUDA events), and its collectives
+        (count, bytes, host seconds: under gloo the data is staged through
+        the host, so these are not performance figures of the card).
+        ``reset`` zeroes the counts and timings after reading them."""
+        from agentfield_tpu_torch.ops.cuda import ragged_paged_attention as rpa
+
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        out = {
+            "rank": 0 if self.mesh is None else self.mesh.rank,
+            "weight_bytes": _tree_bytes(self.params),
+            "launches": rpa.launch_counts(),
+            "step_ms": [a.elapsed_time(b) for a, b in self._rank_step_events],
+            "collectives": dict(self.mesh.stats) if self.mesh is not None else {},
+        }
+        if reset:
+            rpa.reset_launches()
+            self._rank_step_events.clear()
+            if self.mesh is not None:
+                self.mesh.stats.update(calls=0, bytes=0, host_s=0.0)
+        return out
 
     def _pick_decode_bucket(self, n_active: int) -> int | None:
         if not self.ecfg.decode_buckets:
@@ -2520,10 +2729,14 @@ class InferenceEngine:
             slot = self.slots[i]
             if slot.draft_len >= slot.length:
                 continue
-            missing = slot.tokens[slot.draft_len : slot.length]
-            self._suffix_forward(self._draft, missing, slot.draft_len, self.page_tables[i],
-                                 unembed=False)
+            self._draft_catch_up(slot.tokens[slot.draft_len : slot.length], slot.draft_len,
+                                 self.page_tables[i])
             slot.draft_len = slot.length
+
+    @_tp_op
+    def _draft_catch_up(self, missing: list[int], start: int, row: np.ndarray) -> None:
+        """The draft's suffix prefill of tokens it missed (``_resync_draft``)."""
+        self._suffix_forward(self._draft, missing, start, row, unembed=False)
 
     def _dispatch_decode(self) -> None:
         """Dispatch one decode span, or one speculative step when
@@ -2544,7 +2757,7 @@ class InferenceEngine:
         if st.tokens.is_cuda:
             timed = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
             timed[0].record()
-        replayed = self._graphs.run(st, variant, mode)
+        replayed = self._run_graph(st.width, variant, mode)
         if timed is not None:
             timed[1].record()
         if bucket is not None:
@@ -3210,6 +3423,7 @@ class InferenceEngine:
         self._compact_key = None
         return events
 
+    @_tp_op
     def _mixed_logits(self, rr, flat: list[int]) -> torch.Tensor:
         """The packed forward of a mixed tick over ``rr``'s W=1 rows (token
         r at position ``row_starts[r]``; a chunk's rows share a ``seq_id``
@@ -3225,7 +3439,8 @@ class InferenceEngine:
 
         starts, n_toks = on_dev(rr.row_starts), on_dev(rr.n_tokens)
         ctx_lens, seq_ids, tables = on_dev(rr.ctx_lens), on_dev(rr.seq_ids), on_dev(rr.page_tables)
-        x = llama.embed_tokens(self.params, cfg, on_dev(rr.tokens[:, 0], torch.int64))[:, None, :]
+        x = llama.embed_tokens(self.params, cfg, on_dev(rr.tokens[:, 0], torch.int64),
+                               self.mesh)[:, None, :]
         cos, sin = llama.rope_sincos(starts[:, None], cfg.head_dim, cfg.rope_theta, cfg.rope_scaling)
         for i in range(cfg.num_layers):
             lp = llama.layer(self.params, i)
@@ -3233,11 +3448,20 @@ class InferenceEngine:
             q, k, v = llama.qkv_proj(lp, h, cfg, cos, sin)  # [N, 1, ...]
             attn, _, _ = ragged_paged_attention(
                 q, k, v, *self.cache.layer(i), tables, starts, n_toks, ctx_lens, seq_ids,
-                window=self.window,
+                window=self.window, mesh=self.mesh,
             )
-            x = llama.attn_out(lp, attn, x)
-            x = x + llama.mlp_block(lp, x, cfg)
-        return llama.unembed(self.params, cfg, x[on_dev(np.asarray(flat, np.int64))])[:, 0]
+            x = llama.attn_out(lp, attn, x, self.mesh)
+            x = x + llama.mlp_block(lp, x, cfg, mesh=self.mesh)
+        return llama.unembed(self.params, cfg, x[on_dev(np.asarray(flat, np.int64))],
+                             self.mesh)[:, 0]
+
+    @_tp_op
+    def embed_rows(self, rows: list[list[int]], pooling: str = "mean") -> torch.Tensor:
+        """The node's embedding forward of token ``rows`` on this engine's
+        weights (``model_node.embed_rows``): ``[B, D]`` float32, unit norm."""
+        from agentfield_tpu_torch.serving.model_node import embed_rows
+
+        return embed_rows(self.params, self.cfg, rows, pooling, mesh=self.mesh)
 
     def step(self) -> list[TokenEvent]:
         """One scheduler tick (``_step_inner``). A tick with work is timed

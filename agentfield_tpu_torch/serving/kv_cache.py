@@ -50,6 +50,7 @@ class PagedKVCache:
     v_pages: torch.Tensor | QuantPages
     page_size: int
     kv_quant: str = "none"
+    tp: int = 1  # tensor-parallel ranks: this pool holds Kh/tp heads
 
     @property
     def num_pages(self) -> int:
@@ -63,11 +64,19 @@ class PagedKVCache:
         dtype: str | torch.dtype | None = None,
         device: str | torch.device = "cuda",
         kv_quant: str = "none",
+        mesh=None,
     ) -> "PagedKVCache":
         """``kv_quant`` ("int8" | "fp8") stores the pages quantized with
         per-slot scales; scales start at 0, so fresh pages dequantize to the
-        zeros a plain pool holds (``dtype`` is then unused)."""
-        shape = (cfg.num_layers, num_pages, cfg.num_kv_heads, page_size, cfg.head_dim)
+        zeros a plain pool holds (``dtype`` is then unused). With ``mesh``
+        (tp > 1) the pool is one rank's: its Kh/tp KV heads (the JAX pool's
+        shard on ``model``, which splits the KV-head axis, scales with their
+        pages), matching the rank's ``wk``/``wv`` columns, so the kernel's
+        fused KV write stays on the rank."""
+        tp = 1 if mesh is None else mesh.tp
+        if cfg.num_kv_heads % tp:
+            raise ValueError(f"tp={tp} does not divide num_kv_heads={cfg.num_kv_heads}")
+        shape = (cfg.num_layers, num_pages, cfg.num_kv_heads // tp, page_size, cfg.head_dim)
         if kv_quant != "none":
             qdt = quant_value_dtype(kv_quant)
 
@@ -82,7 +91,7 @@ class PagedKVCache:
             dt = resolve_dtype(dtype or cfg.dtype)
             k = torch.zeros(shape, dtype=dt, device=device)
             v = torch.zeros(shape, dtype=dt, device=device)
-        return PagedKVCache(k_pages=k, v_pages=v, page_size=page_size, kv_quant=kv_quant)
+        return PagedKVCache(k_pages=k, v_pages=v, page_size=page_size, kv_quant=kv_quant, tp=tp)
 
     def leaves(self) -> list[torch.Tensor]:
         """Every tensor of the two pools: values, and scales when quantized."""
@@ -96,12 +105,14 @@ class PagedKVCache:
                      for p in (self.k_pages, self.v_pages))
 
     def hbm_bytes(self) -> int:
-        return sum(t.numel() * t.element_size() for t in self.leaves())
+        """Device bytes of the whole pool, every rank's heads (the JAX
+        engine's global count)."""
+        return self.tp * sum(t.numel() * t.element_size() for t in self.leaves())
 
     def page_bytes(self) -> int:
         """Bytes ONE page occupies across all layers, K+V, including the
-        per-slot scales of a quantized pool."""
-        return sum(t.numel() // t.shape[1] * t.element_size() for t in self.leaves())
+        per-slot scales of a quantized pool, every rank's heads."""
+        return self.tp * sum(t.numel() // t.shape[1] * t.element_size() for t in self.leaves())
 
 
 class PageAllocator:

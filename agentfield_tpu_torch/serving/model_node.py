@@ -282,12 +282,14 @@ def embed_chunks(lens: list[int], budget: int) -> list[list[int]]:
 
 
 def embed_rows(params: dict[str, Any], cfg: LlamaConfig, rows: list[list[int]],
-               pooling: str = "mean", attn_impl: str = "kernel") -> torch.Tensor:
+               pooling: str = "mean", attn_impl: str = "kernel", mesh=None) -> torch.Tensor:
     """L2-normalized ``[B, D]`` float32 embeddings of token ``rows``: one
     dense forward over the rows padded to the longest, final-norm hidden
     states (``forward(return_hidden=True)``), mean- or last-pooled over each
     row's real tokens. ``attn_impl="kernel"`` takes
-    ``dense_causal_attention`` (its plain version on CPU tensors)."""
+    ``dense_causal_attention`` (its plain version on CPU tensors). Under a
+    tensor-parallel ``mesh`` each rank runs its share of the forward
+    (``InferenceEngine.embed_rows`` sends it to the workers)."""
     dev = params["embed"].device
     B, S = len(rows), max(len(r) for r in rows)
     padded = torch.zeros((B, S), dtype=torch.long)
@@ -298,7 +300,7 @@ def embed_rows(params: dict[str, Any], cfg: LlamaConfig, rows: list[list[int]],
     pos = torch.arange(S, device=dev).expand(B, S)
     with torch.inference_mode():
         h, _ = llama.forward(params, cfg, toks, pos, attn_impl=attn_impl, collect_kv=False,
-                             return_hidden=True)
+                             return_hidden=True, mesh=mesh)
         h = h.float()
         if pooling == "mean":
             real = (torch.arange(S, device=dev)[None, :] < nv[:, None])[..., None]
@@ -325,8 +327,11 @@ class ModelBackend:
         tts=None,
         imagegen=None,
         restore_budget_bytes: int | None = None,
+        mesh=None,
     ):
-        """``vision``/``audio`` (input towers) and ``tts``/``imagegen``
+        """``mesh`` makes this node's engine rank 0 of a tensor-parallel
+        engine (``InferenceEngine(mesh=)``; ``build_model_node(tp=)`` starts
+        its workers). ``vision``/``audio`` (input towers) and ``tts``/``imagegen``
         (output heads) follow the JAX node's contract: a config name or
         config object draws random weights from ``seed`` + 1, + 2, + 3 and
         + 5, a checkpoint directory (towers only) loads pretrained weights
@@ -339,8 +344,13 @@ class ModelBackend:
         self.tokenizer = tokenizer
         if ecfg is None:
             ecfg = EngineConfig(grammar_slots=GRAMMAR_SLOTS)
+        if mesh is not None and mesh.tp > 1 and any(
+                m is not None for m in (vision, audio, tts, imagegen)):
+            raise NotImplementedError(
+                "media towers and heads under a tensor-parallel mesh are not ported "
+                "(ROADMAP A5: media towers under TP)")
         self.engine = InferenceEngine(params, cfg, ecfg, seed=seed, device=device, draft=draft,
-                                      restore_budget_bytes=restore_budget_bytes)
+                                      restore_budget_bytes=restore_budget_bytes, mesh=mesh)
         dev = self.engine.device
         D = cfg.hidden_size
         self.vision_cfg, self.vision_params = _media_model(
@@ -1232,8 +1242,8 @@ class ModelBackend:
         vecs = torch.empty((len(token_rows), self.cfg.hidden_size))
         for chunk in embed_chunks(lens, EMBED_CHUNK_TOKENS):
             vecs[chunk] = self._device_job(functools.partial(
-                embed_rows, self.engine.params, self.cfg, [token_rows[i] for i in chunk],
-                pooling), self.embed_ms.append).cpu()
+                self.engine.embed_rows, [token_rows[i] for i in chunk], pooling),
+                self.embed_ms.append).cpu()
         base = {"dim": int(vecs.shape[1]), "model": self.model_name, "pooling": pooling}
         if batch_mode:
             out = {**base, "embeddings": vecs.tolist(), "tokens_used": lens}
@@ -2142,6 +2152,8 @@ def build_model_node(
     imagegen=None,
     role: str | None = None,
     lora: str | None = None,
+    tp: int = 1,
+    tp_backend: str | None = None,
 ) -> tuple[ModelNodeServer, ModelBackend]:
     """Construct ``(server, backend)`` for a preset: random weights drawn
     from ``seed`` on ``device`` unless ``params`` are given, the byte
@@ -2176,7 +2188,21 @@ def build_model_node(
     (``merge_lora``), before ``quant`` quantizes them, as on the JAX node; an
     adapter whose target shapes are not this model's raises ``ValueError``.
     Given ``params`` are served detached from autograd (a train state's
-    leaves among them)."""
+    leaves among them).
+
+    ``tp`` > 1 serves the model tensor-parallel over ``tp`` ranks (the JAX
+    node's ``tp``): this process is rank 0 and starts the other ranks
+    (``parallel.worker.start_workers``; ``stop()`` joins them) over
+    ``tp_backend``, which the caller names (no default): "nccl" with a
+    card a rank (rank r on ``cuda:r``; unverified: no run has yet seen an
+    NCCL all-reduce complete, nor its collectives captured in the decode
+    graphs, ROADMAP A5), "gloo" on the CPU or for several ranks sharing
+    ``device``. Each rank
+    makes only its own slice: random weights are drawn whole, one matrix at
+    a time in ``init_params``'s order, and cut (bit-equal to slices of the
+    TP=1 node's tree); a checkpoint loads each rank's rows or columns
+    (``load_hf_checkpoint(shard=)``). Given ``params``, ``lora`` and the
+    media towers and heads are refused under ``tp``."""
     role = role or os.environ.get("AGENTFIELD_NODE_ROLE") or "mixed"
     if role not in ROLES:
         raise ValueError(
@@ -2186,11 +2212,14 @@ def build_model_node(
     if quant is not None and quant != "int8":
         raise ValueError(f"unknown quant mode {quant!r} (have: 'int8')")
     if checkpoint:
-        from agentfield_tpu_torch.models.hf_loader import load_hf_checkpoint
+        from agentfield_tpu_torch.models.hf_loader import config_from_hf, load_hf_checkpoint
 
-        # with an adapter the fp weights load first: the merge comes before quantizing
-        cfg, params = load_hf_checkpoint(checkpoint, device=device,
-                                         quant=None if lora else quant)
+        if tp > 1:  # each rank loads its own slice (_build_tp_node)
+            cfg = config_from_hf(checkpoint)
+        else:
+            # with an adapter the fp weights load first: the merge comes before quantizing
+            cfg, params = load_hf_checkpoint(checkpoint, device=device,
+                                             quant=None if lora else quant)
         model = checkpoint
         if tokenizer is None and os.path.exists(os.path.join(checkpoint, "tokenizer.json")):
             tokenizer = HFTokenizer(checkpoint)
@@ -2209,6 +2238,15 @@ def build_model_node(
         ecfg = dataclasses.replace(ecfg, spec_k=spec_k)
     if ecfg.spec_k > 0 and spec_draft is None:
         raise ValueError("spec_k > 0 needs spec_draft=<model preset>")
+    if tp > 1:
+        if tp_backend is None:
+            raise ValueError(f"tp={tp} needs tp_backend='gloo' or 'nccl' (no default)")
+        return _build_tp_node(cfg, ecfg, tp, tp_backend, seed=seed, device=device,
+                              params=params, tokenizer=tokenizer, node_id=node_id,
+                              spec_draft=spec_draft if ecfg.spec_k > 0 else None,
+                              control_plane=control_plane, quant=quant,
+                              checkpoint=checkpoint, model=model, lora=lora, role=role,
+                              media=(vision, audio, tts, imagegen))
     if params is None:
         params = init_params(cfg, seed=seed, device=device,
                              quantize=quant is not None and lora is None)
@@ -2230,6 +2268,45 @@ def build_model_node(
     )
     return ModelNodeServer(backend, node_id=node_id, control_plane=control_plane,
                            role=role), backend
+
+
+def _build_tp_node(cfg, ecfg, tp, backend, *, seed, device, params, tokenizer, node_id,
+                   spec_draft, control_plane, quant, checkpoint, model, lora, role, media):
+    """``build_model_node``'s tensor-parallel path (its docstring)."""
+    from agentfield_tpu_torch.parallel.worker import (
+        CheckpointWeights, RandomWeights, WorkerSpec, start_workers)
+
+    if params is not None:
+        raise ValueError("build_model_node(tp>1) makes each rank's weights itself: pass a "
+                         "seed or a checkpoint, not params")
+    if lora is not None:
+        raise NotImplementedError(
+            "lora= under a tensor-parallel mesh is not ported (ROADMAP A5: the trainer's "
+            "mesh pieces)")
+    if any(m is not None for m in media):
+        raise NotImplementedError(
+            "media towers and heads under a tensor-parallel mesh are not ported "
+            "(ROADMAP A5: media towers under TP)")
+    if checkpoint:
+        weights = CheckpointWeights(checkpoint, quant, spec_draft, seed)
+    else:
+        weights = RandomWeights(cfg, seed, quant is not None, spec_draft, cfg.dtype)
+    spec = WorkerSpec(cfg, ecfg, seed, weights, backend, str(device),
+                      threads=torch.get_num_threads() if torch.device(device).type == "cpu"
+                      else None)
+    mesh = start_workers(tp, spec)
+    try:
+        own, draft = weights(mesh)
+        if tokenizer is None:
+            tokenizer = ByteTokenizer(cfg.vocab_size)
+        backend_ = ModelBackend(own, cfg, ecfg, tokenizer=tokenizer, seed=seed,
+                                model_name=model, device=mesh.device, draft=draft, mesh=mesh)
+        mesh.workers.wait_ready()
+    except BaseException:
+        mesh.close()
+        raise
+    return ModelNodeServer(backend_, node_id=node_id, control_plane=control_plane,
+                           role=role), backend_
 
 
 def main(argv: list[str] | None = None) -> None:

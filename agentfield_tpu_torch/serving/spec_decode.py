@@ -45,12 +45,14 @@ from agentfield_tpu_torch.serving.sampler import _categorical, sample_tokens
 
 
 class PagedModel(typing.NamedTuple):
-    """A model with its paged KV pool and its binding sliding window."""
+    """A model with its paged KV pool and its binding sliding window; under
+    tensor parallelism one rank's slices and its ``parallel.mesh.Mesh``."""
 
     params: dict
     cfg: LlamaConfig
     cache: PagedKVCache
     window: int | None
+    mesh: typing.Any = None
 
 
 def rows_forward(m: PagedModel, tokens: torch.Tensor, starts: torch.Tensor,
@@ -61,9 +63,9 @@ def rows_forward(m: PagedModel, tokens: torch.Tensor, starts: torch.Tensor,
     ``n_tokens[b]`` valid (0: an inert padding row, nothing written). Each
     layer's attention is one ragged launch with the KV write fused. Returns
     the logits ``[B, W, V]`` (float32), or None without ``unembed``."""
-    cfg = m.cfg
+    cfg, mesh = m.cfg, m.mesh
     B, W = tokens.shape
-    x = llama.embed_tokens(m.params, cfg, tokens)  # [B, W, D]
+    x = llama.embed_tokens(m.params, cfg, tokens, mesh)  # [B, W, D]
     positions = starts[:, None] + torch.arange(W, dtype=starts.dtype, device=starts.device)
     cos, sin = llama.rope_sincos(positions, cfg.head_dim, cfg.rope_theta, cfg.rope_scaling)
     row_ids = torch.arange(B, dtype=torch.int32, device=tokens.device)
@@ -73,11 +75,11 @@ def rows_forward(m: PagedModel, tokens: torch.Tensor, starts: torch.Tensor,
         q, k, v = llama.qkv_proj(lp, h, cfg, cos, sin)  # [B, W, ...]
         attn, _, _ = ragged_paged_attention(
             q, k, v, *m.cache.layer(i), page_tables, starts, n_tokens, starts, row_ids,
-            window=m.window,
+            window=m.window, mesh=mesh,
         )
-        x = llama.attn_out(lp, attn, x)
-        x = x + llama.mlp_block(lp, x, cfg)
-    return llama.unembed(m.params, cfg, x) if unembed else None
+        x = llama.attn_out(lp, attn, x, mesh)
+        x = x + llama.mlp_block(lp, x, cfg, mesh=mesh)
+    return llama.unembed(m.params, cfg, x, mesh) if unembed else None
 
 
 class SpecOut(typing.NamedTuple):
@@ -100,8 +102,13 @@ def spec_step(
     k: int,
     generator: torch.Generator,
     variant: str,
+    share=None,
 ) -> SpecOut:
-    """One speculative step (module docstring); writes both pools in place."""
+    """One speculative step (module docstring); writes both pools in place.
+    Under tensor parallelism ``share`` (the mesh's ``broadcast``) gives
+    every rank rank 0's decisions: each proposal, the accepted counts and
+    the corrections; a worker's own draws are overwritten by them."""
+    share = share or (lambda t: t)
     B = tokens.shape[0]
     W = k + 1
     dev = tokens.device
@@ -123,6 +130,7 @@ def spec_step(
             scaled = logits / t
             qs.append(torch.softmax(scaled, dim=-1))  # tempered draft distribution
             nt = torch.where(temps <= 0, nt, _categorical(scaled, generator))
+        nt = share(nt)
         drafts.append(nt)
         toks = nt
     dmat = torch.stack(drafts, dim=1)  # [B, k] = d_1..d_k
@@ -141,7 +149,7 @@ def spec_step(
         u = torch.rand((B, k), generator=generator, device=dev, dtype=torch.float32)
         # u < p/q written as u * q < p: robust at q -> 0
         match = torch.where(greedy_row[:, None], match, ~truncated_row[:, None] & (u * q_d < p_d))
-    m = torch.cumprod(match.to(torch.int32), dim=1).sum(dim=1)  # [B] accepted, 0..k
+    m = share(torch.cumprod(match.to(torch.int32), dim=1).sum(dim=1))  # [B] accepted, 0..k
     at_m = m[:, None, None].expand(B, 1, V)
     l_m = torch.gather(logits, 1, at_m)[:, 0]  # [B, V] the correction position
     c = torch.argmax(l_m, dim=-1)  # greedy rows (and sample_tokens' greedy)
@@ -156,6 +164,7 @@ def spec_step(
         if variant == "truncated":
             c = sample_tokens(l_m, generator, temps, top_ks, top_ps, variant=variant).long()
         c = torch.where(~greedy_row & ~truncated_row, resid_tok, c)
+    c = share(c)
     t_idx = torch.arange(W, device=dev)[None]
     dmat_pad = torch.cat([dmat, torch.zeros_like(dmat[:, :1])], dim=1)
     emitted = torch.where(t_idx < m[:, None], dmat_pad, c[:, None])  # [B, W]

@@ -13,8 +13,9 @@ have no backward, and ``attn_impl="kernel"`` raises under a gradient
 (``ops.cuda.refuse_grad``), as ``jax.grad`` through the Pallas call does.
 
 The mesh path of the JAX trainer (``attn_impl="ring"``, ``mesh=``,
-``shard_batch``, the sharded init) needs more than one card and is not
-ported (ROADMAP A5): asking for it raises ``NotImplementedError``.
+``shard_batch``, the sharded init) is not ported (ROADMAP A5: the trainer's
+mesh pieces; serving has a tensor-parallel mesh, ``parallel/``): asking for
+it raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -52,8 +53,8 @@ def named_leaves(tree: dict[str, Any], prefix: str = "") -> list[tuple[str, torc
 def check_single_device(attn_impl: str, mesh) -> None:
     if attn_impl == "ring" or mesh is not None:
         raise NotImplementedError(
-            "training over a mesh (attn_impl='ring', mesh=) needs more than one card and is "
-            "not ported yet (ROADMAP A5)")
+            "training over a mesh (attn_impl='ring', mesh=) is not ported yet (ROADMAP A5: "
+            "the trainer's mesh pieces)")
 
 
 def state_from_params(params: Any, optimizer: OptimizerSpec) -> TrainState:

@@ -258,6 +258,26 @@ the result line:
                temporary directory (``--ckpt-dir``), removed at the end.
                ``[train ...]`` lines: losses, step device ms, tokens/s,
                peak memory, the phase's seconds.
+13f. ``tp``    tensor-parallel serving (``phase_tp``), after the 8B weights
+               go: ``llama-3-8b`` at TP=2, two ranks on the one card over
+               gloo (``build_model_node(tp=2, tp_backend="gloo")``: this
+               process rank 0, the other a worker process drawing its own
+               slices), bf16 and int8 weights, the serve's 8 prompts over
+               HTTP against the TP=1 node of the same seed: prefill and
+               teacher-forced decode logits (both nodes fed the TP=2
+               answers) within the forward phase's bf16 bound, each node's
+               served logprobs within ``TP_SERVED_LP_TOL`` of its own
+               teacher-forced ones, served first tokens their logits'
+               argmax and equal where no rounding can flip them, per rank its
+               weight bytes, kernel-path launches (decode split + combine,
+               the tensor-core tile, the int8 kernel), eager decode step
+               device ms and collectives (staged through the host by gloo:
+               not performance figures); every worker exits 0 and the
+               process holds what it held before. ``check`` holds the
+               kernels at one rank's shapes first (``tp_carve_shapes``:
+               Llama-3-8B TP=2, Llama-3-70B TP=8 heads; ``W8_TP``: the
+               projections as one rank holds them, Llama-3-8B at TP=2 and
+               Llama-3-70B at TP=4 and TP=8).
 14. ``gemma-7b``, ``phi-3-mini``  each at full width and 2 layers (random
                bf16 weights): five requests through the engine (phi-3-mini
                with a prompt past its 2047-token window), every decode
@@ -351,6 +371,19 @@ W8_PROJECTIONS = {"wq_wo": (4096, 4096), "wk_wv": (4096, 1024), "wgate_wup": (40
 W8_M = (1, 8, 16, 32, 64, 200, 512, 1920, 2048)
 W8_EXTRA = {"phi3_wgate_wup": ((3072, 8192), (16, 512))}
 W8_FAULT_SHAPES = ("wgate_wup_M32", "wdown_M8")
+# one tensor-parallel rank's heads at hd 128 (``tp_carve_shapes``): Llama-3-8B
+# at TP=2 (H 16, Kh 4) and Llama-3-70B at TP=8 (H 8, Kh 1: rep 8 on one KV head)
+TP_CARVES = {"llama3_tp2": dict(kh=4, rep=4), "l70b_tp8": dict(kh=1, rep=8)}
+# the projections as one tensor-parallel rank holds them (column-parallel
+# widths, row-parallel depths): Llama-3-8B (d 4096, q 4096, kv 1024, ffn
+# 14336) at TP=2, the carve phase_tp serves, and Llama-3-70B (d 8192, q 8192,
+# kv 1024, ffn 28672) at TP=4 and TP=8
+W8_TP_MODELS = (("llama3", 2, 4096, 4096, 1024, 14336), ("l70b", 4, 8192, 8192, 1024, 28672),
+                ("l70b", 8, 8192, 8192, 1024, 28672))
+W8_TP = {f"{m}_tp{tp}_{name}": kn for m, tp, d, q, kv, f in W8_TP_MODELS for name, kn in (
+    ("wq", (d, q // tp)), ("wk_wv", (d, kv // tp)), ("wo", (q // tp, d)),
+    ("wgate_wup", (d, f // tp)), ("wdown", (f // tp, d)))}
+W8_TP_M = (8, 16, 512)  # phase_tp's decode width, a wider decode, a prefill chunk
 K_TILE_ROWS = 64  # a K tile of the kernel's ring (BK in the source)
 # Kernel vs plain, element by element (``w8_elem_bound``): the plain version
 # sums (x @ q) in float32 on the card (cuBLAS, TF32 off) and scales in
@@ -470,6 +503,19 @@ def ragged_shapes():
     out.update(mixed_shapes())
     out.update(head_dim_shapes())
     out.update(spec_shapes())
+    out.update(tp_carve_shapes())
+    return out
+
+
+def tp_carve_shapes():
+    """One tensor-parallel rank's ragged launches (``TP_CARVES``): decode of
+    32 slots at ~2k context, and a 512-token chunk over 1024 cached tokens
+    in the engine's 256-wide rows."""
+    out = {}
+    for carve, heads in TP_CARVES.items():
+        base = dict(page_size=16, maxp=128, hd=128, **heads)
+        out[f"{carve}_decode_ctx2k"] = dict(base, rows=32, ctx=2040)
+        out[f"{carve}_chunk512_over1k"] = dict(base, chunk=512, ctx=1024, W=256)
     return out
 
 
@@ -568,7 +614,8 @@ def dense_shapes():
         (kh, rep, hd), _ = _preset_heads(preset)
         new_hd.append((2, 512, kh * rep, kh, hd, None))
     embeds = tuple((B, S, 32, 8, 128, None) for B, S in api_embed_forwards())
-    return ((4, 512, 32, 8, 128, None), (2, 200, 8, 2, 64, None), (2, 100, 4, 4, 32, None),
+    carves = tuple((4, 512, h["kh"] * h["rep"], h["kh"], 128, None) for h in TP_CARVES.values())
+    return carves + ((4, 512, 32, 8, 128, None), (2, 200, 8, 2, 64, None), (2, 100, 4, 4, 32, None),
             (1, 333, 16, 2, 64, None), (2, 200, 8, 2, 64, 50), (1, 333, 16, 2, 64, 100),
             (2, 100, 4, 4, 32, 7)) + tuple(new_hd) + embeds
 
@@ -921,6 +968,8 @@ def w8_shapes() -> dict:
     out = {f"{name}_M{M}": (M, K, N) for name, (K, N) in W8_PROJECTIONS.items() for M in W8_M}
     for name, ((K, N), ms) in W8_EXTRA.items():
         out.update({f"{name}_M{M}": (M, K, N) for M in ms})
+    for name, (K, N) in W8_TP.items():
+        out.update({f"{name}_M{M}": (M, K, N) for M in W8_TP_M})
     return out
 
 
@@ -1532,6 +1581,269 @@ def phase_forward(results, state, seed: int, key: str = "forward", S: int = 512,
         f"f32); max|logit| {scale:.4e}; bf16 argmax agreement {agree:.3f}")
     assert err32 <= tol32, "full-width float32 forward: kernel and plain attention disagree"
     assert err16 <= tol16, "full-width bfloat16 forward: kernel and plain attention disagree"
+
+
+# --------------------------------------------------------------------------
+# tensor parallelism: one rank's kernel shapes (phase_check) and the TP node
+
+
+TP_DEGREE = 2
+TP_LENGTHS = (64, 200, 333, 480, 512, 700, 1100, 1500)  # the serve's 8 prompts
+TP_NEW = 16
+TP_PAGES = 1024  # a rank's pool: 1 GiB of bf16 KV at Llama-3-8B TP=2 (2 GiB at TP=1)
+TP_MEMORY_SLACK = 64 << 20  # device bytes the phase may leave allocated in this process
+# a node's served logprobs against its own teacher-forced logits at the same
+# tokens: the same kernels run each row, and a row's result does not depend on
+# the batch's other rows (on an H100 both Llama-3-8B nodes' logprobs came out
+# 4.8e-6 to 5.7e-6 apart: float32 log-softmax on the card against the host),
+# so this leaves room for the log-softmax's float32 sums alone; a worker whose
+# tokens, lengths or KV drift while serving moves them by far more
+TP_SERVED_LP_TOL = 1e-3
+# the phase at llama-tiny size on the CPU (tests/test_torch_tp_serving.py):
+# float32, so the TP=2 logits are held within float32 order
+TP_REHEARSAL = dict(model="llama-tiny", lengths=(5, 9, 20, 33), max_new=6, pages=64,
+                    page_size=8, max_pages=8, logit_bound=1e-4)
+
+
+def _tp_serve(model, seed, ecfg, device, quant, tp, prompts, max_new, backend="gloo",
+              forced=None) -> dict:
+    """One node (``tp`` ranks over ``backend`` when > 1) answering ``prompts`` over
+    HTTP, all at once, greedy; each rank's report of the main path (counts
+    zeroed just before it); then teacher forcing on the engine's thread
+    (``InferenceEngine.forced_decode_logits``: each prompt prefilled over
+    pages of its own by the path the node admitted it by, then the decode
+    path step by step): the logits of the prefill and of every decode step
+    fed ``forced`` (token lists of another node's answers; default: this
+    node's own), and, with ``forced``, fed this node's own answers too; the
+    node stopped and its workers' exit codes."""
+    import torch
+
+    from agentfield_tpu_torch.serving.model_node import build_model_node
+
+    kw = dict(tp=tp, tp_backend=backend) if tp > 1 else {}
+    t0 = time.perf_counter()
+    server, backend = build_model_node(model, seed=seed, ecfg=ecfg, device=device, quant=quant,
+                                       **kw)
+    eng = backend.engine
+    workers = eng.mesh.workers if tp > 1 else None
+    out = {"build_s": time.perf_counter() - t0}
+    port = server.start()
+    try:
+        eng.rank_report(reset=True)  # every rank's counts to 0 just before the main path
+        if workers is not None:
+            workers.query("rank_report", True)
+        answers: dict[int, dict] = {}
+        errors: list[str] = []
+
+        def send(i):
+            try:
+                answers[i] = _post(port, {"tokens": prompts[i], "max_new_tokens": max_new})
+            except Exception as e:  # noqa: BLE001 — collected and failed below
+                errors.append(f"prompt {i}: {e!r}")
+
+        t1 = time.perf_counter()
+        ths = [threading.Thread(target=send, args=(i,)) for i in range(len(prompts))]
+        for th in ths:
+            th.start()
+        for th in ths:
+            th.join()
+        out["serve_s"] = time.perf_counter() - t1
+        if errors:
+            raise AssertionError(f"tp={tp} node: {errors}")
+        out["tokens"] = [answers[i]["result"]["tokens"] for i in range(len(prompts))]
+        out["logprobs"] = [answers[i]["result"]["logprobs"] for i in range(len(prompts))]
+        out["reports"] = [eng.rank_report()] + (
+            workers.query("rank_report") if workers is not None else [])
+        out["decode_step_ms_replayed"] = list(eng.decode_step_ms)
+        out["graph_stats"] = eng.graph_stats()
+
+        def teacher(tokens):
+            return lambda: eng.forced_decode_logits(prompts, [t[:-1] for t in tokens])
+
+        t1 = time.perf_counter()
+        out["forced"] = backend._on_engine_thread(teacher(forced or out["tokens"]))
+        out["own_forced"] = (backend._on_engine_thread(teacher(out["tokens"]))
+                             if forced else out["forced"])
+        out["forced_s"] = time.perf_counter() - t1
+    finally:
+        server.stop()
+    out["exitcodes"] = workers.exitcodes if workers is not None else []
+    del server, backend, eng
+    gc.collect()
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def _served_logprob_diff(run) -> float:
+    """max |served logprob - the logprob of the same token in the node's
+    own teacher-forced logits| over every prompt and step: the served
+    decode (the workers' token broadcasts and their own lengths under a
+    mesh) against a clean forward over the same tokens."""
+    import torch
+
+    lp = torch.log_softmax(run["own_forced"], dim=-1)  # [B, n, V]
+    toks = torch.tensor(run["tokens"])[..., None]
+    return float((lp.gather(-1, toks)[..., 0] - torch.tensor(run["logprobs"])).abs().max())
+
+
+def phase_tp(results, seed: int, device: str = "cuda", model: str = "llama-3-8b",
+             lengths=TP_LENGTHS, max_new: int = TP_NEW, pages: int = TP_PAGES,
+             page_size: int = 16, max_pages: int = 128, logit_bound: float | None = None,
+             tp: int = TP_DEGREE, backend: str = "gloo",
+             served_lp_tol: float = TP_SERVED_LP_TOL):
+    """(b) ``model`` at full width served tensor-parallel, ``tp`` ranks on
+    the one card over gloo (NCCL refuses two ranks on one card; with
+    ``backend="nccl"`` a card a rank, their decode graphs captured),
+    bf16 and int8 weights (``build_model_node(tp=2, tp_backend="gloo")``:
+    each rank draws every matrix whole from ``seed`` and keeps its slice),
+    against the TP=1 node of the same seed (the same weights: the ranks'
+    slices are cut from it bit for bit). The serve's 8 prompts over HTTP,
+    greedy. Teacher forcing: both nodes prefill every prompt again and
+    decode the TP node's answer token by token (``forced_decode_logits``);
+    the logits of the prefill and of every decode step within
+    ``logit_bound`` of the TP=1 node's (default: the
+    forward phase's bf16 bound, the plain path's bf16-vs-float32 distance:
+    the ranks round their partial products to bf16 where one product
+    rounds once, the same kind of rounding step). The served decode itself:
+    each node's served logprobs within ``served_lp_tol`` of the log-softmax
+    of its own teacher-forced logits at the same tokens
+    (``TP_SERVED_LP_TOL``), so a worker whose tokens, lengths or KV drift
+    while serving fails; every
+    served first token the argmax of the prefill logits it came from; the
+    served first tokens of the two nodes equal wherever the TP=1 logits'
+    top-2 margin exceeds twice the two rows' largest difference (no
+    rounding can flip those). Per rank: weight bytes, the kernel paths'
+    launches (decode through split + combine, prefill through the
+    tensor-core tile, int8 projections through the int8-weight kernel), the
+    device ms of each eager decode step and the collectives' count, bytes
+    and host seconds — staged through the host by gloo, so not performance
+    figures. (c) Every worker exits 0, and this process holds no more than
+    ``TP_MEMORY_SLACK`` above what it held before."""
+    import numpy as np
+    import torch
+
+    from agentfield_tpu_torch.models.configs import get_config
+    from agentfield_tpu_torch.serving.engine import EngineConfig
+
+    on_card = torch.device(device).type == "cuda"
+    if logit_bound is None:
+        logit_bound = results["forward"]["tol_bf16"]
+    t_phase = time.perf_counter()
+    cfg = get_config(model)
+    rng = np.random.default_rng(seed)
+    prompts = [rng.integers(1, cfg.vocab_size, n).tolist() for n in lengths]
+    ecfg = EngineConfig(max_batch=len(prompts), page_size=page_size, num_pages=pages,
+                        max_pages_per_seq=max_pages, grammar_slots=0, prefill_batch=1)
+    gc.collect()
+    if on_card:
+        release_cublas_workspaces()
+        torch.cuda.synchronize()
+        held_before = torch.cuda.memory_allocated()
+    out = results.setdefault("tp", {"launches": {}, "path_launches": {}})
+    card = smi_line() if on_card else "cpu"
+    for mode, quant in (("bf16", None), ("int8", "int8")):
+        # the TP node first: both nodes are then teacher-forced through its
+        # answers, so it prefills the prompts once more, not twice
+        par = _tp_serve(model, seed, ecfg, device, quant, tp, prompts, max_new, backend)
+        one = _tp_serve(model, seed, ecfg, device, quant, 1, prompts, max_new, backend,
+                        forced=par["tokens"])
+        runs = {1: one, tp: par}
+        step_diff = (par["forced"] - one["forced"]).abs().amax(dim=-1)  # [B, 1 + n]
+        row_diff = step_diff[:, 0]
+        diff, decode_diff = float(row_diff.max()), float(step_diff[:, 1:].max())
+        served_lp = {n: _served_logprob_diff(run) for n, run in runs.items()}
+        top2 = one["forced"][:, 0].topk(2, dim=-1).values
+        margin = (top2[:, 0] - top2[:, 1]).tolist()
+        checked = [i for i, m in enumerate(margin) if m > 2 * float(row_diff[i])]
+        first_equal = all(par["tokens"][i][0] == one["tokens"][i][0] for i in checked)
+        own_argmax = {n: sum(run["tokens"][i][0] == int(run["own_forced"][i, 0].argmax())
+                             for i in range(len(prompts))) for n, run in runs.items()}
+        seq_equal = sum(a == b for a, b in zip(par["tokens"], one["tokens"]))
+        ranks = []
+        for rep in par["reports"]:
+            la = rep["launches"]
+            ranks.append({
+                "rank": rep["rank"], "weight_bytes": rep["weight_bytes"], "launches": la,
+                "step_ms_mean": statistics.fmean(rep["step_ms"]) if rep["step_ms"] else None,
+                "steps": len(rep["step_ms"]), "collectives": rep["collectives"]})
+            for k, n in la.items():
+                out["launches"][k] = out["launches"].get(k, 0) + n
+        r = {
+            "prompts": len(prompts), "answered": sum(len(t) == max_new for t in par["tokens"]),
+            "max_abs_logit_diff": diff, "logit_bound": logit_bound,
+            "decode_steps_forced": int(step_diff.shape[1]) - 1,
+            "decode_max_abs_logit_diff": decode_diff,
+            "step_max_abs_diff": step_diff.amax(dim=0).tolist(),
+            "served_logprob_diff": served_lp, "served_logprob_bound": served_lp_tol,
+            "forced_s": {1: one["forced_s"], tp: par["forced_s"]},
+            "top2_margins": margin, "row_max_abs_diff": row_diff.tolist(),
+            "first_tokens_checked": checked, "first_tokens_equal": first_equal,
+            "first_tokens": {n: [t[0] for t in run["tokens"]] for n, run in runs.items()},
+            "first_token_is_argmax": own_argmax, "sequences_equal": seq_equal,
+            "tokens_equal": seq_equal == len(prompts),
+            "ranks": ranks, "exitcodes": par["exitcodes"],
+            "tp": tp, "backend": backend,
+            "build_s": {1: one["build_s"], tp: par["build_s"]},
+            "serve_s": {1: one["serve_s"], tp: par["serve_s"]},
+            "tp1_decode_step_ms_replayed": (statistics.fmean(one["decode_step_ms_replayed"])
+                                            if one["decode_step_ms_replayed"] else None),
+            "graph_stats": par["graph_stats"],
+        }
+        out[mode] = r
+        log(f"[tp {mode}] {card}: {model} TP={tp} over {backend} vs TP=1: "
+            f"{r['answered']}/{len(prompts)} prompts answered ({max_new} tokens each); "
+            f"first-step logits max|d| {diff:.4e}, teacher-forced decode logits over "
+            f"{r['decode_steps_forced']} steps max|d| {decode_diff:.4e} (bound "
+            f"{logit_bound:.4e}); served logprobs vs own forced logits max|d| (TP=1, TP={tp}) "
+            f"{served_lp[1]:.4e}, {served_lp[tp]:.4e} (bound {served_lp_tol:.1e}); "
+            f"forced in {one['forced_s']:.1f} s / {par['forced_s']:.1f} s; served first tokens "
+            f"equal at the {len(checked)} prompts whose TP=1 top-2 margin exceeds 2 x the row's "
+            f"|d|: {first_equal}; served first token = argmax of its logits (TP=1, TP="
+            f"{tp}) {own_argmax[1]}, {own_argmax[tp]} of {len(prompts)}; whole "
+            f"sequences equal {seq_equal}/{len(prompts)}; built in "
+            f"{one['build_s']:.1f} s / {par['build_s']:.1f} s, served in {one['serve_s']:.1f} s / "
+            f"{par['serve_s']:.1f} s; decode {par['graph_stats'].get('eager', 'replayed')} "
+            f"(graphs {par['graph_stats']['graphs_captured']}, replays "
+            f"{sum(par['graph_stats']['replays'].values())})")
+        for rk in ranks:
+            la = rk["launches"]
+            paths = {k: la[k] for k in ("ragged_decode_split", "ragged_decode_combine",
+                                        "ragged_tiles_tc", "dense_causal_attention",
+                                        "int8_weight_matmul")}
+            c = rk["collectives"]
+            step = "n/a" if rk["step_ms_mean"] is None else f"{rk['step_ms_mean']:.2f}"
+            how = ("eager; staged through the host by gloo, not performance figures"
+                   if backend == "gloo" else "replayed from graphs after each key's capture; "
+                   "collectives counted where Python issued them, not on replays")
+            log(f"[tp {mode}] rank {rk['rank']}: weights {rk['weight_bytes']} bytes; launches "
+                f"{paths}; decode step {step} device ms (mean of {rk['steps']}; TP=1 "
+                f"replayed {r['tp1_decode_step_ms_replayed']}); collectives {c.get('calls')} "
+                f"calls, {c.get('bytes')} bytes, {c.get('host_s', 0.0):.2f} host s ({how})")
+            if on_card:
+                need = ["ragged_decode_split", "ragged_decode_combine", "ragged_tiles_tc",
+                        "dense_causal_attention"] + (["int8_weight_matmul"] if quant else [])
+                missing = [k for k in need if not la.get(k)]
+                assert not missing, f"tp {mode} rank {rk['rank']}: no launch of {missing}"
+        assert r["answered"] == len(prompts), f"tp {mode}: not every prompt answered"
+        assert diff <= logit_bound, f"tp {mode}: logits {diff} beyond {logit_bound}"
+        assert decode_diff <= logit_bound, (
+            f"tp {mode}: teacher-forced decode logits {decode_diff} beyond {logit_bound}")
+        assert max(served_lp.values()) <= served_lp_tol, (
+            f"tp {mode}: served logprobs {served_lp} beyond {served_lp_tol}")
+        assert own_argmax == {n: len(prompts) for n in runs}, (
+            f"tp {mode}: served first tokens that are not their logits' argmax {own_argmax}")
+        assert first_equal, f"tp {mode}: a first token differs where the margin is clear"
+        assert par["exitcodes"] == [0] * (tp - 1), f"tp {mode}: {par['exitcodes']}"
+    if on_card:
+        release_cublas_workspaces()
+        torch.cuda.synchronize()
+        left = torch.cuda.memory_allocated() - held_before
+        out["left_allocated_bytes"] = left
+        assert left <= TP_MEMORY_SLACK, f"tp phase left {left} bytes allocated"
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"[tp] phase {out['phase_s']:.1f} s; every worker joined; launches on the TP "
+        f"nodes' main paths (all ranks) {out['launches']}")
 
 
 # presets served at full width and reduced depth beside Llama-3-8B: their
@@ -7094,7 +7406,8 @@ def kernels_line(results) -> dict:
                 results[p]["launches"][name]
                 for p in ("spec", "tier", "fork", "api", "channel", "cluster", "media"))
             + results["moe"]["launches"].get(name, 0)
-            + sum(results.get(p, {}).get("launches", {}).get(name, 0) for p in ("ckpt", "train")),
+            + sum(results.get(p, {}).get("launches", {}).get(name, 0)
+                  for p in ("ckpt", "train", "tp")),
             "max_abs_err": max(r["max_abs_err"] for r in held),
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
@@ -7104,6 +7417,16 @@ def kernels_line(results) -> dict:
         }
         if "parity_over_tol" in row:
             entry["worst_parity_over_tol"] = max(r["parity_over_tol"] for r in held)
+        if name in ("ragged_paged_attention", "dense_causal_attention"):
+            # one tensor-parallel rank's shapes (phase_check) and the TP
+            # node's launches over all its ranks (phase_tp)
+            entry["tp"] = {k[:-len("/bfloat16")]: {f: r[f] for f in (
+                "ms", "call_ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                "max_abs_err")} for k, r in shapes.items()
+                if r["kernel"] == name and r["dtype"] == "bfloat16"
+                and k.startswith(("llama3_tp2", "l70b_tp8", "dense_B4_S512_H16_Kh4",
+                                  "dense_B4_S512_H8_Kh1"))}
+            entry["tp"]["launches"] = results["tp"]["launches"][name]
         if name == "ragged_paged_attention":
             # the mixed tick's launch: its shape's times, and its launches in
             # the burst phase's mixed engine
@@ -7146,7 +7469,7 @@ def w8_kernel_entry(results) -> dict:
         "launches": results["quant"]["launches"]["int8_weight_matmul"]
         + results["moe"]["launches"]["int8_weight_matmul"]
         + sum(results.get(p, {}).get("launches", {}).get("int8_weight_matmul", 0)
-              for p in ("ckpt", "train")),
+              for p in ("ckpt", "train", "tp")),
         "max_abs_err": max(r["max_abs_err"] for r in held.values() if r["dtype"] == "bfloat16"),
         "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
         "bound_by": row["bound_by"], "library_ms": row["library_ms"],
@@ -7228,7 +7551,8 @@ def main() -> int:
         phase_media(results, state, args.seed)
         phase_ckpt(results, state, args.seed, root=args.ckpt_dir)
         phase_train(results, state, args.seed, root=args.ckpt_dir)
-        state.clear()  # the 8B weights go before the reduced-depth models
+        state.clear()  # the 8B weights go before the TP nodes and the reduced-depth models
+        phase_tp(results, args.seed)
         for preset in REDUCED_DEPTH_PRESETS:
             phase_reduced_depth(results, preset, args.seed)
         phase_ckpt_moe(results, args.seed, root=args.ckpt_dir)

@@ -205,3 +205,14 @@ def test_guard_names_the_training_libraries(tmp_path):
         path = ROOT / "agentfield_tpu_torch" / rel
         assert path in _port_files()
         assert not [t for _, t in _imported_tops(path) if t in FORBIDDEN], rel
+
+
+def test_scan_covers_the_parallel_package_and_its_test_helper():
+    """The tensor-parallel modules are scanned, and the helper module the
+    spawned ranks import (``tests/helpers_torch_tp.py``) imports no JAX
+    either: a rank's fresh interpreter loads torch and the port only."""
+    files = {str(p.relative_to(ROOT)) for p in _port_files()}
+    for name in ("__init__", "mesh", "sharding", "worker"):
+        assert f"agentfield_tpu_torch/parallel/{name}.py" in files
+    helper = ROOT / "tests" / "helpers_torch_tp.py"
+    assert not [t for _, t in _imported_tops(helper) if t in FORBIDDEN]
