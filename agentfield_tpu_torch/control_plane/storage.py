@@ -1,0 +1,1196 @@
+"""Storage provider: narrow interface + SQLite implementation.
+
+Plays the role of the reference's StorageProvider contract and LocalStorage
+(internal/storage/storage.go:30-178, local.go) with a deliberately narrower
+surface: documents are stored as JSON blobs keyed by their natural ids, with
+indexed columns only for the fields queries filter on. Vector similarity is a
+brute-force scan (as the reference's SQLite store is —
+vector_store_sqlite.go:79) with the distance math vectorized in numpy (the
+JAX package's optional C++ scan is not ported: it is host code, not a
+kernel, and numpy is its fallback there too).
+
+SQLite runs in WAL mode; the provider is synchronous and cheap (sub-ms ops),
+called directly from asyncio handlers — long scans can be pushed to a thread
+by callers.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import functools
+import json
+import os
+import sqlite3
+import threading
+import time
+from typing import Any, Iterable
+
+import numpy as np
+
+from agentfield_tpu_torch.control_plane.types import (
+    AgentNode,
+    Execution,
+    ExecutionStatus,
+)
+from agentfield_tpu_torch.logging import get_logger
+
+log = get_logger("control_plane.storage")
+
+_SCHEMA = """
+CREATE TABLE IF NOT EXISTS agent_nodes (
+    node_id TEXT PRIMARY KEY,
+    status TEXT NOT NULL,
+    last_heartbeat REAL NOT NULL,
+    doc TEXT NOT NULL
+);
+CREATE TABLE IF NOT EXISTS executions (
+    execution_id TEXT PRIMARY KEY,
+    run_id TEXT NOT NULL,
+    parent_execution_id TEXT,
+    target TEXT NOT NULL,
+    status TEXT NOT NULL,
+    created_at REAL NOT NULL,
+    finished_at REAL,
+    doc TEXT NOT NULL
+);
+CREATE INDEX IF NOT EXISTS idx_exec_run ON executions(run_id);
+DROP INDEX IF EXISTS idx_exec_status;
+CREATE INDEX IF NOT EXISTS idx_exec_status_created ON executions(status, created_at);
+CREATE INDEX IF NOT EXISTS idx_exec_created ON executions(created_at);
+CREATE TABLE IF NOT EXISTS memory (
+    scope TEXT NOT NULL,
+    scope_id TEXT NOT NULL,
+    key TEXT NOT NULL,
+    value TEXT NOT NULL,
+    updated_at REAL NOT NULL,
+    PRIMARY KEY (scope, scope_id, key)
+);
+CREATE TABLE IF NOT EXISTS vectors (
+    scope TEXT NOT NULL,
+    scope_id TEXT NOT NULL,
+    key TEXT NOT NULL,
+    embedding BLOB NOT NULL,
+    dim INTEGER NOT NULL,
+    metadata TEXT NOT NULL,
+    PRIMARY KEY (scope, scope_id, key)
+);
+CREATE TABLE IF NOT EXISTS webhooks (
+    id TEXT PRIMARY KEY,
+    execution_id TEXT NOT NULL,
+    url TEXT NOT NULL,
+    secret TEXT,
+    status TEXT NOT NULL,
+    attempts INTEGER NOT NULL DEFAULT 0,
+    next_attempt_at REAL NOT NULL,
+    payload TEXT,
+    last_error TEXT,
+    created_at REAL NOT NULL
+);
+CREATE INDEX IF NOT EXISTS idx_webhooks_due ON webhooks(status, next_attempt_at);
+CREATE TABLE IF NOT EXISTS locks (
+    name TEXT PRIMARY KEY,
+    owner TEXT NOT NULL,
+    expires_at REAL NOT NULL
+);
+CREATE TABLE IF NOT EXISTS kv_config (
+    key TEXT PRIMARY KEY,
+    value TEXT NOT NULL
+);
+CREATE TABLE IF NOT EXISTS credentials (
+    vc_id TEXT PRIMARY KEY,
+    subject_type TEXT NOT NULL,
+    subject_id TEXT NOT NULL,
+    issued_at REAL NOT NULL,
+    doc TEXT NOT NULL
+);
+CREATE INDEX IF NOT EXISTS idx_credentials_subject
+    ON credentials(subject_type, subject_id);
+"""
+
+
+class AsyncStorage:
+    """Awaitable mirror of a storage provider, for use from asyncio code.
+
+    For networked providers (``offload_to_thread = True``, i.e. Postgres)
+    every call runs on a worker thread, so a slow or stalled database can
+    never stall the control plane's event loop — heartbeats, SSE, and the
+    gateway stay live (the reference gets this for free from pgx pools +
+    goroutines; round-2 advisor finding pgwire.py:156). The local SQLite
+    provider stays on-loop: its ops are sub-ms and a thread hop would
+    roughly double their cost."""
+
+    def __init__(self, storage: "SQLiteStorage"):
+        self._s = storage
+        self._offload = bool(getattr(storage, "offload_to_thread", False))
+
+    @property
+    def sync(self) -> "SQLiteStorage":
+        """The underlying synchronous provider (for non-loop contexts)."""
+        return self._s
+
+    def __getattr__(self, name: str):
+        fn = getattr(self._s, name)
+        if not callable(fn):
+            return fn
+        if self._offload:
+
+            async def call(*a, **kw):
+                return await asyncio.to_thread(fn, *a, **kw)
+
+        else:
+
+            async def call(*a, **kw):
+                return fn(*a, **kw)
+
+        functools.update_wrapper(call, fn)
+        setattr(self, name, call)  # cache: next lookup skips __getattr__
+        return call
+
+
+def is_duplicate_key(e: Exception) -> bool:
+    """Provider-portable duplicate-PK detection: SQLite spells it "UNIQUE
+    constraint failed" (or "PRIMARY KEY" on some paths), Postgres raises
+    SQLSTATE 23505 ("duplicate key value violates unique constraint"). The
+    journal's flush replay and the gateway's 409 mapping both route through
+    here so the provider matrix lives in one place."""
+    return (
+        "UNIQUE" in str(e)
+        or "PRIMARY KEY" in str(e)
+        or "duplicate key" in str(e)
+        or getattr(e, "sqlstate", "") == "23505"
+    )
+
+
+class ExecutionJournal:
+    """Opt-in write-behind group commit for execution rows.
+
+    Every execution state transition today is its own transaction — under
+    WAL that is a journal write + commit per transition, ~5-7 of them per
+    dispatched request, and it is the control plane's dominant cost once the
+    agent call itself is cheap. With the journal enabled
+    (``AGENTFIELD_DB_GROUP_COMMIT_MS`` > 0, or the ``group_commit_ms``
+    constructor knob), NON-TERMINAL ``create_execution``/``update_execution``
+    rows are buffered here and flushed as ONE batched transaction per flush
+    tick, while reads stay exact:
+
+    - **Read-your-writes overlay** — ``get_execution`` consults the pending
+      buffer first; scan-shaped reads (``list_executions``,
+      ``count_executions``, rollups, cleanup) flush first, so dead-letter
+      listing and the orphan requeue always see pending rows.
+    - **Flush-through for terminal states** — COMPLETED / FAILED / TIMEOUT /
+      DEAD_LETTER writes flush the whole pending batch synchronously in the
+      caller's transaction: a terminal state acknowledged to a client is
+      durable before the acknowledgment, and it carries every buffered
+      non-terminal row with it (that is the "group" in group commit).
+    - **Crash window** — only non-terminal rows newer than the last flush
+      can be lost on a crash; those are exactly the rows the restart
+      cleanup already terminates (docs/OPERATIONS.md, durability section).
+      ``drain()`` is wired into server shutdown/SIGTERM so a graceful stop
+      loses nothing.
+
+    Thread-safety (two-buffer design): ``_mu`` guards the buffers with
+    SHORT holds only; the commit itself runs under ``_flush_lock`` against
+    an immutable ``_flushing`` batch, so overlay reads and new writes never
+    stall behind a commit in progress. Rows stay reader-visible in
+    ``_flushing`` until their transaction lands — there is no instant where
+    a buffered row is in neither the overlay nor the table. Postgres rides
+    the same journal but its wire client auto-commits per statement — there
+    the win is batching writes off the request path, not one fsync.
+    """
+
+    def __init__(self, storage: "SQLiteStorage", flush_interval_s: float):
+        self._s = storage
+        self._interval = max(flush_interval_s, 0.0005)
+        self._mu = threading.RLock()  # buffers + stats (short holds only)
+        self._flush_lock = threading.Lock()  # serializes whole flushes
+        # execution_id -> ("create" | "update", doc snapshot). Insertion
+        # order is flush order; create+update coalesce to one create.
+        self._pending: dict[str, tuple[str, dict]] = {}  # guarded by: _mu
+        # The batch currently being committed (immutable while in flight;
+        # still consulted by readers; retried if the transaction fails).
+        self._flushing: dict[str, tuple[str, dict]] = {}  # guarded by: _mu
+        self._wake = threading.Event()
+        # Set ONLY by flush_barrier(): lets a registering durability waiter
+        # cut the coalescing window short immediately (plain writes keep
+        # setting _wake, which must NOT break the window — that is the
+        # window's whole point).
+        self._barrier_wake = threading.Event()
+        self._closed = False
+        # Durability waiters: (loop, future) pairs resolved after the flush
+        # that commits the rows they enqueued (flush_barrier()).
+        self._waiters: list[tuple[Any, Any]] = []  # guarded by: _mu
+        self._stats = {  # guarded by: _mu
+            "journal_writes_total": 0,        # buffered (non-terminal) writes
+            "journal_coalesced_total": 0,     # writes absorbed into a pending row
+            "journal_flushes_total": 0,       # batched transactions issued
+            "journal_flushed_rows_total": 0,  # rows carried by those batches
+            "journal_flush_through_total": 0, # terminal (grouped/sync) writes
+            "journal_flush_errors_total": 0,
+        }
+        self._thread = threading.Thread(
+            target=self._flush_loop, name="exec-journal", daemon=True
+        )
+        self._thread.start()
+
+    # -- write side -----------------------------------------------------
+
+    def _dup(self) -> sqlite3.IntegrityError:
+        # Message shape matters: the gateway's 409 mapping checks for
+        # "UNIQUE" (it must keep working for both SQLite and Postgres).
+        return sqlite3.IntegrityError(
+            "UNIQUE constraint failed: executions.execution_id"
+        )
+
+    def create(self, ex: Execution, check_duplicate: bool = True) -> None:
+        eid = ex.execution_id
+        with self._mu:
+            if eid in self._pending or eid in self._flushing:
+                raise self._dup()
+        if check_duplicate:
+            # Table check OUTSIDE _mu (point SELECT, no commit): the buffer
+            # stays lock-cheap. Callers that minted the id themselves
+            # (uuid4) skip this — the eager path's INSERT constraint only
+            # ever fires for caller-supplied ids, and this SELECT would be
+            # the journal hot path's one remaining per-request table read.
+            with self._s._lock:
+                row = self._s._conn.execute(
+                    "SELECT 1 FROM executions WHERE execution_id=?", (eid,)
+                ).fetchone()
+            if row is not None:
+                raise self._dup()
+        with self._mu:
+            if eid in self._pending or eid in self._flushing:
+                raise self._dup()
+            self._pending[eid] = ("create", ex.to_dict())
+            self._stats["journal_writes_total"] += 1
+        self._wake.set()
+
+    def _op_for(self, eid: str) -> str:  # guarded by: _mu
+        """A row whose CREATE is still in PENDING stays an INSERT when a
+        newer doc replaces it (one statement per row). A create sitting in
+        ``_flushing`` is deliberately NOT consulted: its commit is in flight
+        and may succeed — the newer doc is recorded as an update, and the
+        flush merge re-promotes it to a create only if that commit actually
+        failed (promoting here would double-INSERT after a success)."""
+        prev = self._pending.get(eid)
+        return "create" if prev is not None and prev[0] == "create" else "update"
+
+    def update(self, ex: Execution) -> None:
+        with self._mu:
+            if ex.execution_id in self._pending:
+                self._stats["journal_coalesced_total"] += 1
+            self._pending[ex.execution_id] = (self._op_for(ex.execution_id), ex.to_dict())
+            self._stats["journal_writes_total"] += 1
+        self._wake.set()
+
+    def write_through(self, ex: Execution) -> None:
+        """Terminal transition, synchronous form: join the pending batch,
+        then flush it NOW. Non-asyncio callers (tests, offloaded Postgres
+        worker threads) use this; the gateway's completion path uses
+        ``enqueue_terminal`` + ``flush_barrier`` instead so concurrent
+        completions share one commit."""
+        self.enqueue_terminal(ex)
+        self.flush()
+
+    def enqueue_terminal(self, ex: Execution) -> None:
+        """Terminal transition, grouped form: the row becomes visible to
+        every reader AT ONCE (read-your-writes overlay) but durability is
+        deferred to the next flush tick — callers MUST await
+        ``flush_barrier()`` (or call ``flush()``) before acknowledging the
+        terminal state to a client. Splitting the two lets the gateway
+        enqueue under its completion lock and wait outside it, so N
+        concurrent completions ride ONE commit instead of N."""
+        with self._mu:
+            self._pending[ex.execution_id] = (
+                self._op_for(ex.execution_id),
+                ex.to_dict(),
+            )
+            self._stats["journal_flush_through_total"] += 1
+        self._wake.set()
+
+    def flush_barrier(self) -> "asyncio.Future[None]":
+        """An awaitable resolved by the next flush that commits everything
+        currently buffered (set with the flush's error if it fails).
+        Resolves immediately when nothing is buffered — the rows this
+        caller cares about are already durable."""
+        loop = asyncio.get_running_loop()
+        fut: asyncio.Future[None] = loop.create_future()
+        closed = False
+        with self._mu:
+            if self._closed:
+                closed = True  # flush OUTSIDE _mu: flush() takes _flush_lock
+                # first, and holding _mu here would invert that order against
+                # a concurrent flush (deadlock)
+            elif not self._pending and not self._flushing:
+                fut.set_result(None)
+                return fut
+            else:
+                self._waiters.append((loop, fut))
+        if closed:
+            self.flush()  # no flusher thread anymore: commit inline
+            fut.set_result(None)
+            return fut
+        self._barrier_wake.set()
+        self._wake.set()
+        return fut
+
+    # -- read side ------------------------------------------------------
+
+    def get(self, execution_id: str) -> Execution | None:
+        with self._mu:
+            hit = self._pending.get(execution_id) or self._flushing.get(execution_id)
+            return Execution.from_dict(hit[1]) if hit is not None else None
+
+    @property
+    def pending_count(self) -> int:
+        with self._mu:
+            return len(self._pending) + len(self._flushing)
+
+    def stats(self) -> dict[str, int]:
+        with self._mu:
+            return {
+                **self._stats,
+                "journal_pending": len(self._pending) + len(self._flushing),
+            }
+
+    # -- flush / lifecycle ----------------------------------------------
+
+    def flush(self) -> int:
+        """Commit every buffered row in one batched transaction. Returns the
+        number of rows flushed. Raises (rows retained for retry, transaction
+        rolled back) on a storage error so write-through callers see the
+        failure. Readers keep seeing the in-flight batch via the overlay for
+        the whole commit — no visibility gap."""
+        with self._flush_lock:
+            with self._mu:
+                # Absorb pending into the (possibly retried) batch. A newer
+                # doc wins per row; a row whose INSERT never landed (failed
+                # previous flush) stays a create.
+                for eid, (op, doc) in self._pending.items():
+                    if self._flushing.get(eid, (None,))[0] == "create":
+                        op = "create"
+                    self._flushing[eid] = (op, doc)
+                self._pending.clear()
+                batch = list(self._flushing.items())
+                waiters, self._waiters = self._waiters, []
+            if not batch:
+                self._complete_waiters(waiters, None)
+                return 0
+            try:
+                with self._s._lock:
+                    conn = self._s._conn
+                    try:
+                        for eid, (op, doc) in batch:
+                            blob = json.dumps(doc)
+                            if op == "create":
+                                try:
+                                    conn.execute(
+                                        "INSERT INTO executions(execution_id,run_id,"
+                                        "parent_execution_id,target,status,created_at,"
+                                        "finished_at,doc) VALUES(?,?,?,?,?,?,?,?)",
+                                        (
+                                            eid,
+                                            doc["run_id"],
+                                            doc.get("parent_execution_id"),
+                                            doc["target"],
+                                            doc["status"],
+                                            doc["created_at"],
+                                            doc.get("finished_at"),
+                                            blob,
+                                        ),
+                                    )
+                                    continue
+                                except Exception as e:
+                                    if not is_duplicate_key(e):
+                                        raise
+                                    # The row already landed: on Postgres each
+                                    # statement auto-commits, so a batch that
+                                    # failed MID-flush left its earlier
+                                    # INSERTs applied — the retry must
+                                    # degrade them to UPDATEs, not wedge on
+                                    # duplicate keys forever.
+                            conn.execute(
+                                "UPDATE executions SET status=?, finished_at=?, "
+                                "created_at=?, doc=? WHERE execution_id=?",
+                                (doc["status"], doc.get("finished_at"),
+                                 doc.get("created_at"), blob, eid),
+                            )
+                        conn.commit()
+                    except Exception:
+                        getattr(conn, "rollback", lambda: None)()
+                        raise
+            except Exception as e:
+                with self._mu:
+                    self._stats["journal_flush_errors_total"] += 1
+                # Waiters must not hang on a failed flush: hand them the
+                # error (the rows stay in _flushing for the next attempt).
+                self._complete_waiters(waiters, e)
+                raise
+            with self._mu:
+                self._flushing = {}
+                self._stats["journal_flushes_total"] += 1
+                self._stats["journal_flushed_rows_total"] += len(batch)
+            self._complete_waiters(waiters, None)
+            return len(batch)
+
+    @staticmethod
+    def _complete_waiters(waiters: list, err: Exception | None) -> None:
+        """Resolve (or fail) durability waiters, ONE loop wakeup per event
+        loop (a flush can be releasing dozens of completions at once)."""
+        by_loop: dict[Any, list] = {}
+        for loop, fut in waiters:
+            by_loop.setdefault(loop, []).append(fut)
+
+        def _done(futs, err=err):
+            for fut in futs:
+                if fut.done():
+                    continue
+                if err is None:
+                    fut.set_result(None)
+                else:
+                    fut.set_exception(err)
+
+        for loop, futs in by_loop.items():
+            try:
+                loop.call_soon_threadsafe(_done, futs)
+            except RuntimeError:
+                pass  # the loop is gone (shutdown); nobody is listening
+
+    def drop_pending(self) -> int:
+        """CRASH SIMULATION (tests only): discard the buffers as a process
+        kill before the flush tick would — terminal rows already flushed are
+        durable; buffered rows are the loss."""
+        with self._mu:
+            n = len(self._pending) + len(self._flushing)
+            self._pending.clear()
+            self._flushing.clear()
+            return n
+
+    def drain(self) -> int:
+        """Flush everything and stop the background flusher (idempotent).
+        Wired into storage.close(), server shutdown, and SIGTERM."""
+        with self._mu:
+            self._closed = True
+        self._wake.set()
+        self._thread.join(timeout=5.0)
+        return self.flush()
+
+    def _flush_loop(self) -> None:
+        while True:
+            self._wake.wait()
+            if self._closed:
+                return
+            # Durability waiters are blocking completions: flush NOW — the
+            # natural group is whatever accumulated while the previous
+            # commit was in flight (classic group-commit leader). Pure
+            # write-behind batches (no waiters) sleep the coalescing window,
+            # which breaks early the moment a waiter registers (a long tick
+            # must delay background batching, never a completion) or
+            # drain() closes the journal.
+            with self._mu:
+                have_waiters = bool(self._waiters)
+            if not have_waiters:
+                self._barrier_wake.clear()
+                deadline = time.monotonic() + self._interval
+                while not self._closed and time.monotonic() < deadline:
+                    with self._mu:
+                        if self._waiters:
+                            break
+                    # Event-driven early exit: a waiter registering mid-
+                    # window sets _barrier_wake and the next iteration's
+                    # check breaks out — no fixed polling latency. The
+                    # chunk cap keeps drain() responsive on long ticks.
+                    self._barrier_wake.wait(min(0.05, self._interval))
+            self._wake.clear()
+            if self._closed:
+                return
+            try:
+                self.flush()
+            except Exception:
+                # Counted in flush(); the rows stay buffered. Re-arm the
+                # wake so the retry happens on the next tick EVEN WITH NO
+                # new writes — buffered rows must not outlive the
+                # documented one-tick crash window just because traffic
+                # went idle. The sleep paces a persistent error.
+                # afcheck: ignore[async-blocking] runs on the dedicated exec-journal flusher thread, never on the event loop
+                time.sleep(max(self._interval, 0.05))
+                self._wake.set()
+
+
+class SQLiteStorage:
+    """StorageProvider over a single SQLite file (":memory:" for tests)."""
+
+    # Whether AsyncStorage should run this provider's calls on a worker
+    # thread (True for networked providers; local SQLite stays on-loop).
+    offload_to_thread = False
+
+    def __init__(self, path: str = ":memory:", group_commit_ms: float | None = None):
+        self._conn = sqlite3.connect(path, check_same_thread=False)
+        self._conn.row_factory = sqlite3.Row
+        self._lock = threading.RLock()
+        with self._lock:
+            if path != ":memory:":
+                self._conn.execute("PRAGMA journal_mode=WAL")
+            self._conn.execute("PRAGMA synchronous=NORMAL")
+            self._conn.executescript(_SCHEMA)
+            self._conn.commit()
+        self._journal = self._make_journal(group_commit_ms)
+
+    def _make_journal(self, group_commit_ms: float | None) -> ExecutionJournal | None:
+        """Group-commit journal, opt-in: the constructor knob wins; absent
+        that, ``AGENTFIELD_DB_GROUP_COMMIT_MS``; 0/unset = OFF, bit-for-bit
+        the eager-commit behavior."""
+        if group_commit_ms is None:
+            try:
+                group_commit_ms = float(
+                    os.environ.get("AGENTFIELD_DB_GROUP_COMMIT_MS", "0") or 0.0
+                )
+            except ValueError:
+                group_commit_ms = 0.0
+        if group_commit_ms > 0:
+            return ExecutionJournal(self, group_commit_ms / 1000.0)
+        return None
+
+    @property
+    def journal(self) -> ExecutionJournal | None:
+        return self._journal
+
+    def journal_stats(self) -> dict[str, int] | None:
+        """Coalesced-write/flush counters (None when group commit is off)."""
+        return self._journal.stats() if self._journal is not None else None
+
+    def flush_executions(self) -> int:
+        """Force-flush any journaled execution rows (no-op when off)."""
+        return self._journal.flush() if self._journal is not None else 0
+
+    def drain_executions(self) -> int:
+        """Shutdown hook: flush pending rows and stop the journal flusher."""
+        return self._journal.drain() if self._journal is not None else 0
+
+    def close(self) -> None:
+        if self._journal is not None:
+            try:
+                self._journal.drain()
+            except Exception as e:
+                # a failed final flush must not block close
+                log.warning("journal drain failed during close", error=repr(e))
+        with self._lock:
+            self._conn.close()
+
+    # -- nodes ----------------------------------------------------------
+
+    def upsert_node(self, node: AgentNode) -> None:
+        with self._lock:
+            self._conn.execute(
+                "INSERT INTO agent_nodes(node_id,status,last_heartbeat,doc) VALUES(?,?,?,?) "
+                "ON CONFLICT(node_id) DO UPDATE SET status=excluded.status, "
+                "last_heartbeat=excluded.last_heartbeat, doc=excluded.doc",
+                (node.node_id, node.status.value, node.last_heartbeat, json.dumps(node.to_dict())),
+            )
+            self._conn.commit()
+
+    def get_node(self, node_id: str) -> AgentNode | None:
+        with self._lock:
+            row = self._conn.execute(
+                "SELECT doc FROM agent_nodes WHERE node_id=?", (node_id,)
+            ).fetchone()
+        return AgentNode.from_dict(json.loads(row["doc"])) if row else None
+
+    def list_nodes(self) -> list[AgentNode]:
+        with self._lock:
+            rows = self._conn.execute("SELECT doc FROM agent_nodes ORDER BY node_id").fetchall()
+        return [AgentNode.from_dict(json.loads(r["doc"])) for r in rows]
+
+    def delete_node(self, node_id: str) -> bool:
+        with self._lock:
+            cur = self._conn.execute("DELETE FROM agent_nodes WHERE node_id=?", (node_id,))
+            self._conn.commit()
+        return cur.rowcount > 0
+
+    # -- executions -----------------------------------------------------
+
+    def create_execution(self, ex: Execution, check_duplicate: bool = True) -> None:
+        """``check_duplicate=False`` tells the group-commit journal the id
+        was freshly minted (uuid) so its read-your-writes duplicate probe
+        can skip the table lookup; the eager path's INSERT constraint is
+        authoritative either way."""
+        if self._journal is not None:
+            self._journal.create(ex, check_duplicate=check_duplicate)
+            if ex.status.terminal:  # born-terminal rows are durable at once
+                self._journal.flush()
+            return
+        with self._lock:
+            self._conn.execute(
+                "INSERT INTO executions(execution_id,run_id,parent_execution_id,target,"
+                "status,created_at,finished_at,doc) VALUES(?,?,?,?,?,?,?,?)",
+                (
+                    ex.execution_id,
+                    ex.run_id,
+                    ex.parent_execution_id,
+                    ex.target,
+                    ex.status.value,
+                    ex.created_at,
+                    ex.finished_at,
+                    json.dumps(ex.to_dict()),
+                ),
+            )
+            self._conn.commit()
+
+    def update_execution(self, ex: Execution) -> None:
+        if self._journal is not None:
+            if ex.status.terminal:
+                # Terminal states are NEVER coalesced: flush-through makes
+                # the whole pending batch (this row included) durable before
+                # the caller's acknowledgment goes out.
+                self._journal.write_through(ex)
+            else:
+                self._journal.update(ex)
+            return
+        with self._lock:
+            # created_at rides along so the COLUMN never diverges from the
+            # doc: it is immutable everywhere except the dead-letter requeue
+            # re-base (gateway.requeue_dead_letter), and listing order,
+            # duration stats, and retention GC all read the column.
+            self._conn.execute(
+                "UPDATE executions SET status=?, finished_at=?, created_at=?, doc=? "
+                "WHERE execution_id=?",
+                (ex.status.value, ex.finished_at, ex.created_at,
+                 json.dumps(ex.to_dict()), ex.execution_id),
+            )
+            self._conn.commit()
+
+    def get_execution(self, execution_id: str) -> Execution | None:
+        if self._journal is not None:
+            # Read-your-writes: a buffered row wins over the (stale) table.
+            hit = self._journal.get(execution_id)
+            if hit is not None:
+                return hit
+        with self._lock:
+            row = self._conn.execute(
+                "SELECT doc FROM executions WHERE execution_id=?", (execution_id,)
+            ).fetchone()
+        return Execution.from_dict(json.loads(row["doc"])) if row else None
+
+    def get_executions_bulk(self, ids: list[str]) -> list[Execution]:
+        """One IN-clause fetch for the UI's bulk status refresh (ref
+        executions_ui_service.go RefreshStatuses) — N visible rows refresh
+        in one statement instead of N round trips."""
+        if not ids:
+            return []
+        self.flush_executions()  # scan-shaped read: pending rows must show
+        marks = ",".join("?" for _ in ids)
+        with self._lock:
+            rows = self._conn.execute(
+                f"SELECT doc FROM executions WHERE execution_id IN ({marks})",
+                tuple(ids),
+            ).fetchall()
+        return [Execution.from_dict(json.loads(r["doc"])) for r in rows]
+
+    @staticmethod
+    def _exec_filters(
+        run_id: str | None, status: "ExecutionStatus | None", target: str | None
+    ) -> tuple[str, list]:
+        cond, args = [], []
+        if run_id is not None:
+            cond.append("run_id=?")
+            args.append(run_id)
+        if status is not None:
+            cond.append("status=?")
+            args.append(status.value)
+        if target is not None:
+            cond.append("target=?")
+            args.append(target)
+        return (" WHERE " + " AND ".join(cond)) if cond else "", args
+
+    def list_executions(
+        self,
+        run_id: str | None = None,
+        status: ExecutionStatus | None = None,
+        limit: int = 100,
+        offset: int = 0,
+        newest_first: bool = False,
+        target: str | None = None,
+    ) -> list[Execution]:
+        self.flush_executions()  # listings (dead-letter, requeue) see pending rows
+        where, args = self._exec_filters(run_id, status, target)
+        direction = "DESC" if newest_first else "ASC"
+        q = (
+            f"SELECT doc FROM executions{where} "
+            f"ORDER BY created_at {direction}, execution_id {direction} LIMIT ? OFFSET ?"
+        )
+        args += [limit, offset]
+        with self._lock:
+            rows = self._conn.execute(q, args).fetchall()
+        return [Execution.from_dict(json.loads(r["doc"])) for r in rows]
+
+    def count_executions(
+        self,
+        run_id: str | None = None,
+        status: ExecutionStatus | None = None,
+        target: str | None = None,
+    ) -> int:
+        """Exact filtered count — the UI pagination totals must come from the
+        database, not from len() of one page (ref executions_ui_service.go)."""
+        self.flush_executions()
+        where, args = self._exec_filters(run_id, status, target)
+        with self._lock:
+            row = self._conn.execute(
+                f"SELECT COUNT(*) AS n FROM executions{where}", args
+            ).fetchone()
+        return row["n"] or 0
+
+    _EXEC_GROUP_COLS = ("target", "status", "run_id")
+
+    def execution_group_counts(
+        self,
+        group_by: str,
+        run_id: str | None = None,
+        status: ExecutionStatus | None = None,
+        target: str | None = None,
+        limit: int = 100,
+    ) -> list[dict[str, Any]]:
+        """SQL GROUP BY rollup for the grouped executions view (ref
+        GetGroupedExecutions, executions_ui_service.go:158) — per group:
+        count, per-status counts, newest activity."""
+        if group_by not in self._EXEC_GROUP_COLS:
+            raise ValueError(f"group_by must be one of {self._EXEC_GROUP_COLS}")
+        self.flush_executions()
+        where, args = self._exec_filters(run_id, status, target)
+        q = (
+            f"SELECT {group_by} AS g, COUNT(*) AS n, "
+            "SUM(CASE WHEN status='completed' THEN 1 ELSE 0 END) AS ok, "
+            "SUM(CASE WHEN status IN ('failed','timeout','dead_letter') THEN 1 ELSE 0 END) AS bad, "
+            "MAX(created_at) AS latest "
+            f"FROM executions{where} GROUP BY {group_by} "
+            "ORDER BY latest DESC LIMIT ?"
+        )
+        with self._lock:
+            rows = self._conn.execute(q, args + [limit]).fetchall()
+        return [
+            {
+                "group": r["g"],
+                "executions": r["n"],
+                "completed": r["ok"] or 0,
+                "failed": r["bad"] or 0,
+                "latest": r["latest"],
+            }
+            for r in rows
+        ]
+
+    # -- credentials (issued-VC persistence for the credentials explorer;
+    # the reference stores them behind its DID/VC services) ---------------
+
+    def save_credential(
+        self, vc_id: str, subject_type: str, subject_id: str, doc: dict[str, Any]
+    ) -> None:
+        now = time.time()
+        with self._lock:
+            self._conn.execute(
+                "INSERT INTO credentials (vc_id, subject_type, subject_id, "
+                "issued_at, doc) VALUES (?, ?, ?, ?, ?) "
+                "ON CONFLICT (vc_id) DO UPDATE SET doc=excluded.doc, "
+                "issued_at=excluded.issued_at",
+                (vc_id, subject_type, subject_id, now, json.dumps(doc)),
+            )
+            self._conn.commit()
+
+    def list_credentials(
+        self,
+        subject_type: str | None = None,
+        subject_id: str | None = None,
+        limit: int = 100,
+        offset: int = 0,
+    ) -> list[dict[str, Any]]:
+        cond, args = [], []
+        if subject_type is not None:
+            cond.append("subject_type=?")
+            args.append(subject_type)
+        if subject_id is not None:
+            cond.append("subject_id=?")
+            args.append(subject_id)
+        where = (" WHERE " + " AND ".join(cond)) if cond else ""
+        with self._lock:
+            rows = self._conn.execute(
+                f"SELECT vc_id, subject_type, subject_id, issued_at, doc "
+                f"FROM credentials{where} ORDER BY issued_at DESC, vc_id DESC "
+                "LIMIT ? OFFSET ?",
+                args + [limit, offset],
+            ).fetchall()
+        return [
+            {
+                "vc_id": r["vc_id"],
+                "subject_type": r["subject_type"],
+                "subject_id": r["subject_id"],
+                "issued_at": r["issued_at"],
+                "vc": json.loads(r["doc"]),
+            }
+            for r in rows
+        ]
+
+    def count_credentials(self, subject_type: str | None = None) -> int:
+        cond = " WHERE subject_type=?" if subject_type is not None else ""
+        args = [subject_type] if subject_type is not None else []
+        with self._lock:
+            row = self._conn.execute(
+                f"SELECT COUNT(*) AS n FROM credentials{cond}", args
+            ).fetchone()
+        return row["n"] or 0
+
+    def target_metrics(self, target: str) -> dict[str, Any]:
+        """Per-reasoner/skill performance rollup in SQL (reference: per-
+        reasoner metrics, storage.go:116-118 + handlers/reasoners.go)."""
+        self.flush_executions()
+        with self._lock:
+            row = self._conn.execute(
+                """
+                SELECT COUNT(*) AS n,
+                       SUM(CASE WHEN status = 'completed' THEN 1 ELSE 0 END) AS ok,
+                       SUM(CASE WHEN status IN ('failed', 'timeout', 'dead_letter') THEN 1 ELSE 0 END) AS bad,
+                       MIN(created_at) AS first_seen,
+                       MAX(created_at) AS last_seen
+                FROM executions WHERE target = ?
+                """,
+                (target,),
+            ).fetchone()
+            durations = [
+                r["d"]
+                for r in self._conn.execute(
+                    """
+                    SELECT finished_at - created_at AS d FROM executions
+                    WHERE target = ? AND finished_at IS NOT NULL
+                    ORDER BY created_at DESC LIMIT 1000
+                    """,
+                    (target,),
+                ).fetchall()
+                if r["d"] is not None
+            ]
+        durations.sort()
+
+        def pct(p: float) -> float | None:
+            if not durations:
+                return None
+            return round(durations[min(int(len(durations) * p), len(durations) - 1)], 4)
+
+        ok, bad = row["ok"] or 0, row["bad"] or 0
+        terminal = ok + bad
+        return {
+            "target": target,
+            "executions": row["n"],
+            "completed": ok,
+            "failed": bad,
+            "in_flight": row["n"] - terminal,
+            # Rate over TERMINAL executions only — running work is neither
+            # success nor failure.
+            "success_rate": round(ok / terminal, 4) if terminal else None,
+            "duration_s": {"p50": pct(0.5), "p95": pct(0.95), "p99": pct(0.99)},
+            "first_seen": row["first_seen"],
+            "last_seen": row["last_seen"],
+        }
+
+    def execution_counts(self) -> dict[str, int]:
+        """Exact per-status counts via SQL aggregation (dashboard hot path)."""
+        self.flush_executions()
+        with self._lock:
+            rows = self._conn.execute(
+                "SELECT status, COUNT(*) AS n FROM executions GROUP BY status"
+            ).fetchall()
+        counts = {s.value: 0 for s in ExecutionStatus}
+        for r in rows:
+            counts[r["status"]] = r["n"]
+        return counts
+
+    def run_summaries(self, limit: int = 50) -> list[dict[str, Any]]:
+        """Aggregate run rollups in SQL (GROUP BY run_id) — exact regardless of
+        table size, no doc deserialization (reference: QueryRunSummaries,
+        internal/storage/execution_records.go)."""
+        self.flush_executions()
+        with self._lock:
+            rows = self._conn.execute(
+                """
+                SELECT run_id,
+                       COUNT(*) AS n,
+                       MIN(created_at) AS started_at,
+                       MAX(COALESCE(finished_at, 0)) AS finished_at,
+                       SUM(CASE WHEN status = 'failed' THEN 1 ELSE 0 END) AS failed,
+                       SUM(CASE WHEN status = 'timeout' THEN 1 ELSE 0 END) AS timed_out,
+                       SUM(CASE WHEN status = 'running' THEN 1 ELSE 0 END) AS running,
+                       SUM(CASE WHEN status = 'queued' THEN 1 ELSE 0 END) AS queued
+                FROM executions
+                GROUP BY run_id
+                ORDER BY started_at DESC
+                LIMIT ?
+                """,
+                (limit,),
+            ).fetchall()
+            # distinct targets per run in a second portable query
+            # (GROUP_CONCAT is SQLite-only; string_agg is PG-only)
+            targets: dict[str, list[str]] = {}
+            if rows:
+                run_ids = [r["run_id"] for r in rows]
+                ph = ",".join("?" * len(run_ids))
+                for tr in self._conn.execute(
+                    f"SELECT DISTINCT run_id, target FROM executions WHERE run_id IN ({ph})",
+                    run_ids,
+                ).fetchall():
+                    targets.setdefault(tr["run_id"], []).append(tr["target"])
+        out = []
+        for r in rows:
+            if r["failed"]:
+                status = "failed"
+            elif r["timed_out"]:
+                status = "timeout"
+            elif r["running"]:
+                status = "running"
+            elif r["queued"]:
+                status = "queued"
+            else:
+                status = "completed"
+            out.append(
+                {
+                    "run_id": r["run_id"],
+                    "overall_status": status,
+                    "executions": r["n"],
+                    "started_at": r["started_at"],
+                    "finished_at": r["finished_at"] or None,
+                    "targets": sorted(targets.get(r["run_id"], [])),
+                }
+            )
+        return out
+
+    def delete_executions_before(self, cutoff: float) -> int:
+        self.flush_executions()
+        with self._lock:
+            cur = self._conn.execute(
+                "DELETE FROM executions WHERE created_at < ? AND status IN (?,?,?)",
+                (
+                    cutoff,
+                    ExecutionStatus.COMPLETED.value,
+                    ExecutionStatus.FAILED.value,
+                    ExecutionStatus.TIMEOUT.value,
+                ),
+            )
+            self._conn.commit()
+        return cur.rowcount
+
+    # -- memory (scoped KV) --------------------------------------------
+
+    def memory_set(self, scope: str, scope_id: str, key: str, value: Any) -> None:
+        with self._lock:
+            self._conn.execute(
+                "INSERT INTO memory(scope,scope_id,key,value,updated_at) VALUES(?,?,?,?,?) "
+                "ON CONFLICT(scope,scope_id,key) DO UPDATE SET value=excluded.value, "
+                "updated_at=excluded.updated_at",
+                (scope, scope_id, key, json.dumps(value), time.time()),
+            )
+            self._conn.commit()
+
+    def memory_get(self, scope: str, scope_id: str, key: str) -> Any | None:
+        with self._lock:
+            row = self._conn.execute(
+                "SELECT value FROM memory WHERE scope=? AND scope_id=? AND key=?",
+                (scope, scope_id, key),
+            ).fetchone()
+        return json.loads(row["value"]) if row else None
+
+    def memory_delete(self, scope: str, scope_id: str, key: str) -> bool:
+        with self._lock:
+            cur = self._conn.execute(
+                "DELETE FROM memory WHERE scope=? AND scope_id=? AND key=?",
+                (scope, scope_id, key),
+            )
+            self._conn.commit()
+        return cur.rowcount > 0
+
+    def memory_list(self, scope: str, scope_id: str, prefix: str = "") -> dict[str, Any]:
+        # substr() comparison instead of LIKE: case-SENSITIVE on both SQLite
+        # and Postgres (LIKE is ASCII-case-insensitive on SQLite only), and
+        # '%'/'_' in a caller-supplied prefix stay literal instead of acting
+        # as wildcards (round-2 advisor finding storage.py:366).
+        with self._lock:
+            rows = self._conn.execute(
+                "SELECT key, value FROM memory WHERE scope=? AND scope_id=? "
+                "AND substr(key, 1, ?) = ? ORDER BY key",
+                (scope, scope_id, len(prefix), prefix),
+            ).fetchall()
+        return {r["key"]: json.loads(r["value"]) for r in rows}
+
+    # -- vectors --------------------------------------------------------
+
+    def vector_set(
+        self, scope: str, scope_id: str, key: str, embedding: Iterable[float], metadata: dict | None = None
+    ) -> None:
+        vec = np.asarray(list(embedding), np.float32)
+        with self._lock:
+            self._conn.execute(
+                "INSERT INTO vectors(scope,scope_id,key,embedding,dim,metadata) VALUES(?,?,?,?,?,?) "
+                "ON CONFLICT(scope,scope_id,key) DO UPDATE SET embedding=excluded.embedding, "
+                "dim=excluded.dim, metadata=excluded.metadata",
+                (scope, scope_id, key, vec.tobytes(), vec.size, json.dumps(metadata or {})),
+            )
+            self._conn.commit()
+
+    def vector_delete(self, scope: str, scope_id: str, key: str) -> bool:
+        with self._lock:
+            cur = self._conn.execute(
+                "DELETE FROM vectors WHERE scope=? AND scope_id=? AND key=?",
+                (scope, scope_id, key),
+            )
+            self._conn.commit()
+        return cur.rowcount > 0
+
+    def vector_search(
+        self,
+        scope: str,
+        scope_id: str,
+        query: Iterable[float],
+        top_k: int = 5,
+        metric: str = "cosine",
+    ) -> list[dict[str, Any]]:
+        """Brute-force similarity scan, vectorized over all rows at once."""
+        q = np.asarray(list(query), np.float32)
+        with self._lock:
+            rows = self._conn.execute(
+                "SELECT key, embedding, dim, metadata FROM vectors WHERE scope=? AND scope_id=?",
+                (scope, scope_id),
+            ).fetchall()
+        if not rows:
+            return []
+        keys, mats, metas = [], [], []
+        for r in rows:
+            if r["dim"] != q.size:
+                continue
+            keys.append(r["key"])
+            mats.append(np.frombuffer(r["embedding"], np.float32))
+            metas.append(json.loads(r["metadata"]))
+        if not keys:
+            return []
+        if metric not in ("cosine", "dot", "l2"):
+            raise ValueError(f"unknown metric {metric!r}")
+        m = np.stack(mats)  # [N, d]
+
+        if metric == "cosine":
+            denom = np.linalg.norm(m, axis=1) * (np.linalg.norm(q) + 1e-12) + 1e-12
+            scores = (m @ q) / denom
+        elif metric == "dot":
+            scores = m @ q
+        else:
+            scores = -np.linalg.norm(m - q, axis=1)
+        order = np.argsort(-scores)[:top_k]
+        return [
+            {"key": keys[i], "score": float(scores[i]), "metadata": metas[i]} for i in order
+        ]
+
+    # -- webhooks -------------------------------------------------------
+
+    def webhook_create(self, rec: dict[str, Any]) -> None:
+        with self._lock:
+            self._conn.execute(
+                "INSERT INTO webhooks(id,execution_id,url,secret,status,attempts,"
+                "next_attempt_at,payload,created_at) VALUES(?,?,?,?,?,?,?,?,?)",
+                (
+                    rec["id"],
+                    rec["execution_id"],
+                    rec["url"],
+                    rec.get("secret"),
+                    rec.get("status", "pending"),
+                    rec.get("attempts", 0),
+                    rec.get("next_attempt_at", time.time()),
+                    json.dumps(rec.get("payload")),
+                    time.time(),
+                ),
+            )
+            self._conn.commit()
+
+    def webhook_due(self, now: float, limit: int = 64) -> list[dict[str, Any]]:
+        with self._lock:
+            rows = self._conn.execute(
+                "SELECT * FROM webhooks WHERE status='pending' AND next_attempt_at<=? "
+                "ORDER BY next_attempt_at LIMIT ?",
+                (now, limit),
+            ).fetchall()
+        out = []
+        for r in rows:
+            d = dict(r)
+            d["payload"] = json.loads(d["payload"]) if d["payload"] else None
+            out.append(d)
+        return out
+
+    def webhook_update(
+        self, wid: str, status: str, attempts: int, next_attempt_at: float, last_error: str | None
+    ) -> None:
+        with self._lock:
+            self._conn.execute(
+                "UPDATE webhooks SET status=?, attempts=?, next_attempt_at=?, last_error=? "
+                "WHERE id=?",
+                (status, attempts, next_attempt_at, last_error, wid),
+            )
+            self._conn.commit()
+
+    def delete_webhooks_before(self, cutoff: float) -> int:
+        """GC terminal webhook rows (delivered/failed) older than cutoff."""
+        with self._lock:
+            cur = self._conn.execute(
+                "DELETE FROM webhooks WHERE created_at < ? AND status IN ('delivered','failed')",
+                (cutoff,),
+            )
+            self._conn.commit()
+        return cur.rowcount
+
+    # -- distributed locks ---------------------------------------------
+
+    def acquire_lock(self, name: str, owner: str, ttl: float) -> bool:
+        """DB-backed lock with TTL (reference: internal/storage/locks.go).
+
+        ONE atomic upsert — the steal/renew condition lives in the DO UPDATE
+        WHERE clause, so two instances racing on a shared database (the
+        Postgres deployment path) cannot both win: the second one's UPDATE
+        matches zero rows and rowcount reports it lost."""
+        t = time.time()
+        with self._lock:
+            cur = self._conn.execute(
+                "INSERT INTO locks(name,owner,expires_at) VALUES(?,?,?) "
+                "ON CONFLICT(name) DO UPDATE SET owner=excluded.owner, "
+                "expires_at=excluded.expires_at "
+                "WHERE locks.expires_at <= ? OR locks.owner = excluded.owner",
+                (name, owner, t + ttl, t),
+            )
+            self._conn.commit()
+        return cur.rowcount > 0
+
+    def release_lock(self, name: str, owner: str) -> bool:
+        with self._lock:
+            cur = self._conn.execute(
+                "DELETE FROM locks WHERE name=? AND owner=?", (name, owner)
+            )
+            self._conn.commit()
+        return cur.rowcount > 0
+
+    # -- config ---------------------------------------------------------
+
+    def config_set(self, key: str, value: Any) -> None:
+        with self._lock:
+            self._conn.execute(
+                "INSERT INTO kv_config(key,value) VALUES(?,?) "
+                "ON CONFLICT(key) DO UPDATE SET value=excluded.value",
+                (key, json.dumps(value)),
+            )
+            self._conn.commit()
+
+    def config_get(self, key: str) -> Any | None:
+        with self._lock:
+            row = self._conn.execute("SELECT value FROM kv_config WHERE key=?", (key,)).fetchone()
+        return json.loads(row["value"]) if row else None
+
+
+def create_storage(url: str = ":memory:", group_commit_ms: float | None = None):
+    """Storage factory, the SQLite half of the JAX package's
+    ``storage_pg.create_storage``: anything but a Postgres URL is a SQLite
+    path (":memory:" for tests). ``group_commit_ms`` opts into the
+    write-behind execution journal (None → the
+    ``AGENTFIELD_DB_GROUP_COMMIT_MS`` env knob; 0 = off)."""
+    if url.startswith(("postgres://", "postgresql://")):
+        raise NotImplementedError(
+            "Postgres storage is not ported yet (ROADMAP A7: Postgres); "
+            "give a SQLite path or ':memory:'"
+        )
+    return SQLiteStorage(url, group_commit_ms=group_commit_ms)

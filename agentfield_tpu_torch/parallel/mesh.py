@@ -151,12 +151,15 @@ class Mesh:
         return t
 
     def close(self) -> None:
-        """Rank 0 stops its workers (each joined); every rank drops its
-        group. Idempotent."""
+        """Rank 0 stops its workers (each joined); every rank shuts its
+        group down (its sockets and threads released now, not left to the
+        process's exit) and drops it. Idempotent."""
         workers, self.workers = self.workers, None
         if workers is not None:
             workers.close()
-        self.group = None
+        group, self.group = self.group, None
+        if group is not None:
+            group.shutdown()
         self.store = None
 
 

@@ -1,7 +1,6 @@
 """Request-scoped tracing, the engine's flight recorder and its latency
-histograms: the port's copy of what the node needs from
-``agentfield_tpu/tracing.py`` (the gateway's ``TraceStore`` stays with the
-control plane).
+histograms: the port's copy of ``agentfield_tpu/tracing.py``, for the node
+and for the port's control plane (``TraceStore``, ``enabled``).
 
 One execution is one trace. The gateway mints the trace id and threads a
 small TraceContext dict (``{"trace_id", "attempt", "node"}``) into the node,
@@ -26,10 +25,15 @@ Always on:
 - :class:`FlightRecorder`: a fixed ring of per-tick scheduler rows, served
   at the node's ``GET /debug/flight`` and logged when an engine step fails.
 
-Knobs: ``AGENTFIELD_TRACE_BUFFER_SPANS`` (the span buffer's cap; the
-oldest traces evict whole) and ``AGENTFIELD_FLIGHT_TICKS`` (the ring's
-rows). A request is traced when its caller sends a context: the gateway
-decides, so the gateway's ``AGENTFIELD_TRACE`` switch is not read here.
+The gateway's :class:`TraceStore` assembles every layer's spans of a trace
+into the waterfall of ``GET /api/v1/executions/{id}/trace``.
+
+Knobs: ``AGENTFIELD_TRACE`` (the gateway's master switch, default on: off
+mints no trace id, so no ``trace`` key rides any frame or payload),
+``AGENTFIELD_TRACE_BUFFER_SPANS`` (the span buffer's cap; the oldest traces
+evict whole), ``AGENTFIELD_TRACE_TTL_S`` (the gateway store's retention)
+and ``AGENTFIELD_FLIGHT_TICKS`` (the ring's rows). A node traces a request
+when its caller sends a context: the gateway decides.
 """
 
 from __future__ import annotations
@@ -38,6 +42,7 @@ import bisect
 import collections
 import os
 import threading
+import time
 import uuid
 
 # one runaway request (a branch fan-out, a preempt storm) must not evict
@@ -50,6 +55,13 @@ def _env_int(name: str, default: int) -> int:
         return int(os.environ.get(name, "") or default)
     except ValueError:
         return default
+
+
+def enabled() -> bool:
+    """Is request-scoped tracing on? ``AGENTFIELD_TRACE`` (default on). The
+    gateway reads it per execution; the flight recorder and the histograms
+    ignore it."""
+    return os.environ.get("AGENTFIELD_TRACE", "1").lower() not in ("0", "false", "no")
 
 
 def new_trace_id() -> str:
@@ -130,6 +142,68 @@ def tracer() -> Tracer:
     if _TRACER is None:
         _TRACER = Tracer()
     return _TRACER
+
+
+class TraceStore:
+    """Gateway-side trace assembly: spans from every layer and every node
+    accumulate under their trace id; ``get`` returns the ordered waterfall.
+    In memory, retained ``retain_s`` after a trace's last span landed."""
+
+    def __init__(self, retain_s: float | None = None, max_traces: int = 4096):
+        self.retain_s = (retain_s if retain_s is not None
+                         else float(_env_int("AGENTFIELD_TRACE_TTL_S", 600)))
+        self.max_traces = max_traces
+        self._lock = threading.Lock()
+        self._traces: collections.OrderedDict[str, tuple[float, list[dict]]] = (
+            collections.OrderedDict())
+
+    def _purge_locked(self) -> None:
+        cutoff = time.monotonic() - self.retain_s
+        while self._traces:
+            tid, (touched, _) = next(iter(self._traces.items()))
+            if touched > cutoff and len(self._traces) <= self.max_traces:
+                break
+            self._traces.pop(tid, None)
+
+    def record_span(self, name: str, trace_id: str | None, t0: float, dur_ms: float,
+                    attrs: dict | None = None, node: str = "gateway") -> None:
+        """A gateway-local span (dispatch attempts, queue wait, the root),
+        recorded straight into the store."""
+        if not trace_id:
+            return
+        span = make_span(name, t0, dur_ms, attrs)
+        span.setdefault("node", node)
+        self.extend(trace_id, [span])
+
+    def extend(self, trace_id: str, spans) -> int:
+        """Land shipped spans (terminal frames, result payloads), validated
+        one by one: one node's malformed payload must not poison the trace."""
+        if not isinstance(trace_id, str) or not isinstance(spans, list):
+            return 0
+        ok = [s for s in spans
+              if isinstance(s, dict) and isinstance(s.get("name"), str)
+              and isinstance(s.get("t0"), (int, float))
+              and isinstance(s.get("dur_ms"), (int, float))]
+        if not ok:
+            return 0
+        with self._lock:
+            _, existing = self._traces.pop(trace_id, (0.0, []))
+            existing.extend(ok[: max(0, _MAX_SPANS_PER_TRACE - len(existing))])
+            self._traces[trace_id] = (time.monotonic(), existing)
+            self._purge_locked()
+        return len(ok)
+
+    def get(self, trace_id: str) -> list[dict]:
+        """The waterfall: spans by wall-clock start, the longer first on ties
+        (a parent that began with its child renders above it)."""
+        with self._lock:
+            entry = self._traces.get(trace_id)
+            spans = list(entry[1]) if entry is not None else []
+        return sorted(spans, key=lambda s: (s.get("t0", 0.0), -s.get("dur_ms", 0.0)))
+
+    def __len__(self) -> int:
+        with self._lock:
+            return len(self._traces)
 
 
 # ms-scale buckets for serving latencies: sub-ms ticks through 30s tails.

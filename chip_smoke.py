@@ -191,6 +191,19 @@ the result line:
                ``stop(grace_s=1)`` with a 400-token SSE stream and channel
                execution open (both get a terminal, a late request 503).
                ``[channel]`` line.
+13a'. ``gateway`` the port's control plane in front of the node
+               (``phase_gateway``): ``ControlPlane`` in-process on a loop of
+               its own, one node on the same weights registered with it; 8
+               prompts of 64-1500 tokens as ``Agent.ai()``'s payload through
+               ``POST /api/v1/execute`` over the channel (200, tokens equal
+               to a direct POST's; the gateway's own time from each
+               execution's trace), streamed (first token frame
+               against the engine's TTFT), async with poll and batch-status
+               over the channel and over POST + callback, an attached
+               stream, 16 concurrent executions (executions/s, TTFT p50/p99
+               as the agent sees them), the registry's heartbeat stats and
+               ``/metrics`` histograms, and the node's stop (deregistered,
+               nothing left running, no dead letter). ``[gateway]`` line.
 13b. ``cluster`` KV that crosses nodes (``phase_cluster``): a prefill node
                and a decode node on the same weights (each its own
                1024-page pool and 1 GiB restore budget), the stand-in
@@ -262,8 +275,9 @@ the result line:
                go: ``llama-3-8b`` at TP=2, two ranks on the one card over
                gloo (``build_model_node(tp=2, tp_backend="gloo")``: this
                process rank 0, the other a worker process drawing its own
-               slices), bf16 and int8 weights, the serve's 8 prompts over
-               HTTP against the TP=1 node of the same seed: prefill and
+               slices), bf16 and int8 weights, 4 of the serve's prompts (8
+               new tokens) over HTTP against the TP=1 node of the same
+               seed: prefill and
                teacher-forced decode logits (both nodes fed the TP=2
                answers) within the forward phase's bf16 bound, each node's
                served logprobs within ``TP_SERVED_LP_TOL`` of its own
@@ -1588,8 +1602,12 @@ def phase_forward(results, state, seed: int, key: str = "forward", S: int = 512,
 
 
 TP_DEGREE = 2
-TP_LENGTHS = (64, 200, 333, 480, 512, 700, 1100, 1500)  # the serve's 8 prompts
-TP_NEW = 16
+# 4 of the serve's 8 prompts, 8 new tokens: every TP=2 prefill and decode
+# step here is eager and stages its collectives through the host (about
+# 1 s a prefill, 0.3 s a step), so the depth is cut to what the logit and
+# served-logprob checks need (the gateway phase took its place)
+TP_LENGTHS = (64, 333, 700, 1500)
+TP_NEW = 8
 TP_PAGES = 1024  # a rank's pool: 1 GiB of bf16 KV at Llama-3-8B TP=2 (2 GiB at TP=1)
 TP_MEMORY_SLACK = 64 << 20  # device bytes the phase may leave allocated in this process
 # a node's served logprobs against its own teacher-forced logits at the same
@@ -1698,8 +1716,8 @@ def phase_tp(results, seed: int, device: str = "cuda", model: str = "llama-3-8b"
     bf16 and int8 weights (``build_model_node(tp=2, tp_backend="gloo")``:
     each rank draws every matrix whole from ``seed`` and keeps its slice),
     against the TP=1 node of the same seed (the same weights: the ranks'
-    slices are cut from it bit for bit). The serve's 8 prompts over HTTP,
-    greedy. Teacher forcing: both nodes prefill every prompt again and
+    slices are cut from it bit for bit). ``lengths`` (4 of the serve's
+    prompts) over HTTP, greedy. Teacher forcing: both nodes prefill every prompt again and
     decode the TP node's answer token by token (``forced_decode_logits``);
     the logits of the prefill and of every decode step within
     ``logit_bound`` of the TP=1 node's (default: the
@@ -1710,10 +1728,11 @@ def phase_tp(results, seed: int, device: str = "cuda", model: str = "llama-3-8b"
     of its own teacher-forced logits at the same tokens
     (``TP_SERVED_LP_TOL``), so a worker whose tokens, lengths or KV drift
     while serving fails; every
-    served first token the argmax of the prefill logits it came from; the
-    served first tokens of the two nodes equal wherever the TP=1 logits'
-    top-2 margin exceeds twice the two rows' largest difference (no
-    rounding can flip those). Per rank: weight bytes, the kernel paths'
+    served first token the argmax of the prefill logits it came from; at
+    every prompt the TP node's first token within twice the two rows'
+    largest difference of the TP=1 logits' max (all that rounding allows),
+    so the served first tokens of the two nodes are equal wherever the
+    TP=1 logits' top-2 margin exceeds that. Per rank: weight bytes, the kernel paths'
     launches (decode through split + combine, prefill through the
     tensor-core tile, int8 projections through the int8-weight kernel), the
     device ms of each eager decode step and the collectives' count, bytes
@@ -1757,6 +1776,13 @@ def phase_tp(results, seed: int, device: str = "cuda", model: str = "llama-3-8b"
         margin = (top2[:, 0] - top2[:, 1]).tolist()
         checked = [i for i, m in enumerate(margin) if m > 2 * float(row_diff[i])]
         first_equal = all(par["tokens"][i][0] == one["tokens"][i][0] for i in checked)
+        # at every prompt: the TP node's first token (its prefill logits'
+        # argmax) is within 2 x the row's |d| of the TP=1 logits' max, as
+        # rounding alone allows; where the margin is clear that is the argmax
+        first = one["forced"][:, 0].float().cpu()
+        tp_first = torch.tensor([t[0] for t in par["tokens"]])[:, None]
+        gap = (first.amax(dim=-1) - first.gather(-1, tp_first)[:, 0]).tolist()
+        near = [g <= 2 * float(row_diff[i]) for i, g in enumerate(gap)]
         own_argmax = {n: sum(run["tokens"][i][0] == int(run["own_forced"][i, 0].argmax())
                              for i in range(len(prompts))) for n, run in runs.items()}
         seq_equal = sum(a == b for a, b in zip(par["tokens"], one["tokens"]))
@@ -1779,6 +1805,7 @@ def phase_tp(results, seed: int, device: str = "cuda", model: str = "llama-3-8b"
             "forced_s": {1: one["forced_s"], tp: par["forced_s"]},
             "top2_margins": margin, "row_max_abs_diff": row_diff.tolist(),
             "first_tokens_checked": checked, "first_tokens_equal": first_equal,
+            "tp_first_token_gap": gap, "tp_first_token_near_max": sum(near),
             "first_tokens": {n: [t[0] for t in run["tokens"]] for n, run in runs.items()},
             "first_token_is_argmax": own_argmax, "sequences_equal": seq_equal,
             "tokens_equal": seq_equal == len(prompts),
@@ -1797,9 +1824,11 @@ def phase_tp(results, seed: int, device: str = "cuda", model: str = "llama-3-8b"
             f"{r['decode_steps_forced']} steps max|d| {decode_diff:.4e} (bound "
             f"{logit_bound:.4e}); served logprobs vs own forced logits max|d| (TP=1, TP={tp}) "
             f"{served_lp[1]:.4e}, {served_lp[tp]:.4e} (bound {served_lp_tol:.1e}); "
-            f"forced in {one['forced_s']:.1f} s / {par['forced_s']:.1f} s; served first tokens "
-            f"equal at the {len(checked)} prompts whose TP=1 top-2 margin exceeds 2 x the row's "
-            f"|d|: {first_equal}; served first token = argmax of its logits (TP=1, TP="
+            f"forced in {one['forced_s']:.1f} s / {par['forced_s']:.1f} s; TP={tp} first token "
+            f"within 2 x the row's |d| of the TP=1 max logit at {sum(near)}/{len(prompts)} "
+            f"prompts (gaps {[float(f'{g:.4g}') for g in gap]}); served first tokens equal at "
+            f"the {len(checked)} prompts whose TP=1 top-2 margin exceeds 2 x the row's |d|: "
+            f"{first_equal}; served first token = argmax of its logits (TP=1, TP="
             f"{tp}) {own_argmax[1]}, {own_argmax[tp]} of {len(prompts)}; whole "
             f"sequences equal {seq_equal}/{len(prompts)}; built in "
             f"{one['build_s']:.1f} s / {par['build_s']:.1f} s, served in {one['serve_s']:.1f} s / "
@@ -1833,6 +1862,9 @@ def phase_tp(results, seed: int, device: str = "cuda", model: str = "llama-3-8b"
             f"tp {mode}: served logprobs {served_lp} beyond {served_lp_tol}")
         assert own_argmax == {n: len(prompts) for n in runs}, (
             f"tp {mode}: served first tokens that are not their logits' argmax {own_argmax}")
+        assert all(near), (
+            f"tp {mode}: a TP={tp} first token further below the TP=1 max logit than "
+            f"rounding allows: gaps {gap}, rows' |d| {row_diff.tolist()}")
         assert first_equal, f"tp {mode}: a first token differs where the margin is clear"
         assert par["exitcodes"] == [0] * (tp - 1), f"tp {mode}: {par['exitcodes']}"
     if on_card:
@@ -4235,6 +4267,324 @@ def phase_channel(results, state, seed: int, device: str = "cuda",
         f"{f['sse_finish']} after {f['sse_tokens']} tokens, channel {f['channel_finish']} "
         f"after {f['channel_tokens']}, drain {f['summary']}, late request {f['late_status']}; "
         f"main path {main_s:.1f} s, launches {launches}")
+
+
+# the gateway phase: the port's control plane in front of the port's node
+GATEWAY_PROMPTS = (64, 200, 333, 480, 700, 1000, 1200, 1500)  # (b)-(d): one at a time
+GATEWAY_NEW = 16
+GATEWAY_BURST = 16  # (e): concurrent executions
+GATEWAY_PAGES = 1024
+GATEWAY_GRACE_S = 1.0
+
+
+def _cp_sse(port: int, method: str, path: str, body: dict | None = None,
+            timeout: float = 900.0) -> tuple[list[dict], float | None, float]:
+    """One SSE request to the control plane (``execute`` with ``stream``,
+    or ``GET /executions/{id}/stream``) read to its terminal frame; returns
+    (data frames, host ms from the request to the first token frame, host
+    ms to the terminal)."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    t0 = time.perf_counter()
+    conn.request(method, path, None if body is None else json.dumps(body),
+                 {"Content-Type": "application/json"})
+    resp = conn.getresponse()
+    assert resp.status == 200, (resp.status, resp.read()[:300])
+    frames, first_ms = [], None
+    try:
+        for line in resp:
+            if not line.startswith(b"data: "):
+                continue
+            frames.append(json.loads(line[6:]))
+            if first_ms is None and frames[-1].get("kind") == "token":
+                first_ms = (time.perf_counter() - t0) * 1e3
+            if frames[-1].get("kind") in ("terminal", "dropped"):
+                break
+    finally:
+        conn.close()
+    assert frames and frames[-1].get("kind") == "terminal", frames[-1:]
+    return frames, first_ms, (time.perf_counter() - t0) * 1e3
+
+
+def gateway_stream_tokens(frames: list[dict]) -> list[int]:
+    """The tokens of a control-plane SSE stream, held against its terminal:
+    one terminal, last, completed; token frames' seq rising by one; the
+    streamed tokens (a stop token's frame left out) equal to its result's."""
+    terms = [f for f in frames if f.get("kind") == "terminal"]
+    assert len(terms) == 1 and frames[-1] is terms[0], [f.get("kind") for f in frames]
+    assert terms[0]["status"] == "completed", terms[0]
+    toks = [f for f in frames if f.get("kind") == "token"]
+    seqs = [f["seq"] for f in toks]
+    assert seqs == list(range(1, len(seqs) + 1)), f"seq not rising by one: {seqs}"
+    out = [f["token"] for f in toks if f["token"] >= 0
+           and not (f["finished"] and f["finish_reason"] == "stop")]
+    assert out == terms[0]["result"]["tokens"], "streamed tokens != the terminal's result"
+    return out
+
+
+def _pct(xs: list[float], q: float) -> float:
+    """Nearest-rank percentile (the JAX load generator's)."""
+    s = sorted(xs)
+    return s[max(0, min(len(s) - 1, math.ceil(q / 100 * len(s)) - 1))] if s else float("nan")
+
+
+def phase_gateway(results, state, seed: int, device: str = "cuda",
+                  model_name: str = "llama-3-8b", prompts: tuple = GATEWAY_PROMPTS,
+                  new: int = GATEWAY_NEW, burst: int = GATEWAY_BURST,
+                  num_pages: int = GATEWAY_PAGES, max_pages_per_seq: int = 128,
+                  grace_s: float = GATEWAY_GRACE_S, heartbeat_interval: float = 0.5):
+    """The port's control plane (``agentfield_tpu_torch.control_plane``: the
+    gateway, its channel half, the registry, SQLite storage and the /api/v1
+    surface) in-process on a loop of its own (``ControlPlaneThread``), in
+    front of one port node on the serve's weights (bf16 pages, decode
+    buckets (4, 16), the shared-prefix cache off, as ``phase_api``) that
+    registers with it. One run, counts reset before it and read after the
+    node's stop:
+    (a) ``/api/v1/nodes/{id}`` shows the node as a model, and after (e)
+        the heartbeat's engine and channel stats (the registry writes a
+        node's row at most every 10 s); ``/metrics`` carries its latency
+        histograms, their counts above 0 after (b)-(e);
+    (b) ``len(prompts)`` prompts one at a time, as ``Agent.ai()``'s payload
+        (``sdk_payload``, ``new`` greedy tokens, after one untimed request):
+        ``POST /api/v1/execute/{node}.generate`` over the channel answers
+        200 with the tokens of a direct ``POST /reasoners/generate`` (one
+        direct call, then two executes), and a streamed execute's tokens
+        are the same; the gateway's own ms from each execute's trace
+        (``gateway.execute`` less ``node.generate``: what the gateway and
+        the channel add to the node's time; an execute's wall time less a
+        direct call's would carry the engine's own spread, which is larger),
+        and the streamed execute's first token frame against the engine's
+        TTFT (its trace's queue-wait and prefill spans);
+    (c) the same prompts through ``execute/async``, polled to their end,
+        then one ``batch-status``; again with the gateway's channel off
+        (the node's 202, then its status callback): the same tokens;
+    (d) one ``execute/async`` with ``stream`` read on
+        ``/api/v1/executions/{id}/stream``: the same tokens, its first-frame
+        host ms;
+    (e) ``burst`` concurrent streamed executes: all complete; executions per
+        second and TTFT p50/p99 as the agent sees them (first token frame);
+    (f) ``server.stop(grace_s)``: the registry shows the node removed (or
+        stopping), no execution left queued or running, the dead letter
+        empty."""
+    import numpy as np
+    import torch
+
+    from agentfield_tpu_torch import logging as cp_logging
+    from agentfield_tpu_torch.control_plane.server import ControlPlane, ControlPlaneThread
+    from agentfield_tpu_torch.ops.cuda import ragged_paged_attention as rpa
+    from agentfield_tpu_torch.serving.engine import EngineConfig
+    from agentfield_tpu_torch.serving.model_node import (
+        GRAMMAR_SLOTS,
+        ModelBackend,
+        ModelNodeServer,
+    )
+    from agentfield_tpu_torch.serving.tokenizer import ByteTokenizer
+
+    params, cfg = state["params"], state["cfg"]
+    on_card = torch.device(device).type == "cuda"
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    cp_logging.configure(level="warning")  # not a line an execution: the phase's own line says it
+    rng = np.random.default_rng(seed + 43)
+    node_id = "gw-node"
+    target = f"{node_id}.generate"
+
+    def text(n: int) -> str:  # ASCII letters: one byte-tokenizer token each
+        return "".join(chr(c) for c in rng.integers(97, 123, n))
+
+    t_phase = time.perf_counter()
+    cpt = ControlPlaneThread(ControlPlane(channel=True))
+    cp_url = cpt.start()
+    cp_port = cpt.port
+    ecfg = EngineConfig(max_batch=16, page_size=16, num_pages=num_pages,
+                        max_pages_per_seq=max_pages_per_seq, decode_buckets=(4, 16),
+                        shared_prefix_cache=False, grammar_slots=GRAMMAR_SLOTS)
+    backend = ModelBackend(params, cfg, ecfg, tokenizer=ByteTokenizer(cfg.vocab_size),
+                           seed=seed, model_name=model_name, device=device)
+    server = ModelNodeServer(backend, node_id=node_id, control_plane=cp_url,
+                             heartbeat_interval=heartbeat_interval)
+    out: dict = {"prompts": list(prompts), "new": new, "burst": burst}
+    stopped = False
+    try:
+        port = server.start()
+        rpa.reset_launches()  # this phase's main path only
+        t_main = time.perf_counter()
+        # (a) the registration (the heartbeat's stats are read after (e): the
+        # registry writes a node's row at most every 10 s between status changes)
+        st, doc = _http(cp_port, "GET", f"/api/v1/nodes/{node_id}")
+        assert st == 200, (st, doc)
+        node = doc["node"]
+        assert node["kind"] == "model" and node["status"] == "active", node
+        assert node["metadata"]["channel"] is True and node["metadata"]["model"] == model_name
+        assert sorted(c["id"] for c in node["reasoners"]) == ["embed", "generate"], node
+        marks = {"a": time.perf_counter() - t_main}
+        # (b) execute (channel) against direct, in turns (direct, gateway,
+        # gateway, direct: a drift in the engine's time cancels); then a
+        # streamed execute. One untimed request first: the decode graphs
+        # are captured at first use
+        payloads = [sdk_payload(prompt=text(n), max_new_tokens=new) for n in prompts]
+        st, doc = _http(port, "POST", "/reasoners/generate", {"input": payloads[-1]})
+        assert st == 200, (st, doc)
+        want, own_ms, first_ms, ttft_ms = [], [], [], []
+        for i, p in enumerate(payloads):
+            st, doc = _http(port, "POST", "/reasoners/generate", {"input": p})
+            assert st == 200, (st, doc)
+            want.append(doc["result"]["tokens"])
+            assert len(want[i]) == new, (i, len(want[i]))
+            for _ in range(2):
+                st, doc = _http(cp_port, "POST", f"/api/v1/execute/{target}", {"input": p})
+                assert st == 200 and doc["status"] == "completed", (st, doc)
+                assert doc["result"]["tokens"] == want[i], f"prompt {i}: execute != direct"
+                # the gateway's own time: its root span less the node's (the
+                # client's hop to the control plane not in it)
+                st, tr = _http(cp_port, "GET", f"/api/v1/executions/{doc['execution_id']}/trace")
+                assert st == 200, (st, tr)
+                spans = {s["name"]: s for s in tr["spans"]}
+                own_ms.append(spans["gateway.execute"]["dur_ms"]
+                              - spans["node.generate"]["dur_ms"])
+            frames, f_ms, _ = _cp_sse(cp_port, "POST", f"/api/v1/execute/{target}",
+                                      {"input": p, "stream": True})
+            assert gateway_stream_tokens(frames) == want[i], f"prompt {i}: stream != direct"
+            eid = frames[0]["execution_id"]
+            st, tr = _http(cp_port, "GET", f"/api/v1/executions/{eid}/trace")
+            assert st == 200, (st, tr)
+            spans = {s["name"]: s for s in tr["spans"]}
+            first_ms.append(f_ms)
+            ttft_ms.append(spans["engine.queue_wait"]["dur_ms"] + spans["engine.prefill"]["dur_ms"])
+        out["b"] = {"gateway_own_ms": own_ms, "first_frame_ms": first_ms,
+                    "engine_ttft_ms": ttft_ms,
+                    "first_over_ttft_ms": [f - t for f, t in zip(first_ms, ttft_ms)]}
+        marks["b"] = time.perf_counter() - t_main
+        # (c) execute/async, polled, then batch-status; with the channel on, then off
+        out["c"] = {}
+        for channel in (True, False):
+            cpt.cp.gateway.channels.enabled = channel
+            ids = []
+            for i, p in enumerate(payloads):
+                st, doc = _http(cp_port, "POST", f"/api/v1/execute/async/{target}", {"input": p})
+                assert st == 202, (st, doc)
+                ids.append(doc["execution_id"])
+                t0 = time.monotonic()
+                while True:
+                    st, ex = _http(cp_port, "GET", f"/api/v1/executions/{ids[-1]}")
+                    if ex["status"] not in ("queued", "running"):
+                        break
+                    assert time.monotonic() - t0 < 600, "an async execution never ended"
+                    time.sleep(0.002)
+                assert ex["status"] == "completed", ex
+                assert ex["result"]["tokens"] == want[i], f"prompt {i}: async != direct"
+            st, batch = _http(cp_port, "POST", "/api/v1/executions/batch-status",
+                              {"execution_ids": ids})
+            assert st == 200 and [batch["executions"][e]["result"]["tokens"]
+                                  for e in ids] == want, "batch-status tokens differ"
+            out["c"]["channel" if channel else "post"] = len(ids)
+        cpt.cp.gateway.channels.enabled = True
+        marks["c"] = time.perf_counter() - t_main
+        # (d) an async execution's stream attached by id
+        t_submit = time.perf_counter()
+        st, doc = _http(cp_port, "POST", f"/api/v1/execute/async/{target}",
+                        {"input": payloads[-1], "stream": True})
+        assert st == 202, (st, doc)
+        t_attach = time.perf_counter()
+        frames, f_ms, _ = _cp_sse(cp_port, "GET", f"/api/v1/executions/{doc['execution_id']}/stream")
+        assert gateway_stream_tokens(frames) == want[-1], "the attached stream != direct"
+        out["d"] = {"first_frame_ms": f_ms, "tokens": len(want[-1]),
+                    "first_frame_ms_from_submit": (t_attach - t_submit) * 1e3 + f_ms}
+        marks["d"] = time.perf_counter() - t_main
+        # (e) a burst of concurrent streamed executes
+        got: dict = {}
+
+        def one(i):
+            try:
+                got[i] = _cp_sse(cp_port, "POST", f"/api/v1/execute/{target}",
+                                 {"input": payloads[i % len(payloads)], "stream": True})
+            except BaseException as e:  # noqa: BLE001 — failed below
+                got[i] = e
+
+        threads = [threading.Thread(target=one, args=(i,)) for i in range(burst)]
+        t = time.perf_counter()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(900)
+        wall = time.perf_counter() - t
+        errs = [v for v in got.values() if isinstance(v, BaseException)]
+        assert len(got) == burst and not errs, errs[:3]
+        for i in range(burst):
+            assert len(gateway_stream_tokens(got[i][0])) == new, i
+        ttfts = [got[i][1] for i in range(burst)]
+        out["e"] = {"wall_s": wall, "executions_per_s": burst / wall, "ttft_ms": ttfts,
+                    "ttft_ms_p50": _pct(ttfts, 50), "ttft_ms_p99": _pct(ttfts, 99)}
+        marks["e"] = time.perf_counter() - t_main
+        # /metrics: the node's latency histograms, counts above 0 by now
+        t0 = time.monotonic()
+        while True:
+            with urllib.request.urlopen(f"{cp_url}/metrics", timeout=30) as r:
+                metrics = r.read().decode()
+            counts = {n: re.search(rf'engine_{n}_count{{[^}}]*node="{node_id}"}} (\S+)', metrics)
+                      for n in ("ttft_ms", "itl_ms", "queue_wait_ms", "tick_ms")}
+            if all(m is not None and float(m.group(1)) > 0 for m in counts.values()):
+                break
+            assert time.monotonic() - t0 < 30, {n: m and m.group(0) for n, m in counts.items()}
+            time.sleep(0.1)
+        t0 = time.monotonic()
+        while True:
+            st, doc = _http(cp_port, "GET", f"/api/v1/nodes/{node_id}")
+            stats = doc["node"]["metadata"].get("stats") or {}
+            if stats.get("channel_server_submits_total", 0) > 0:
+                break
+            assert time.monotonic() - t0 < 30, f"no heartbeat stats on the registry: {stats}"
+            time.sleep(0.1)
+        assert {"active_slots", "free_pages", "decode_tokens"} <= set(stats), stats
+        out["a"] = {"stats_keys": len(stats),
+                    "hist_counts": {n: float(m.group(1)) for n, m in counts.items()}}
+        marks["metrics"] = time.perf_counter() - t_main
+        # (f) the node stops: deregistered, nothing left running, no dead letter
+        summary = server.stop(grace_s)
+        stopped = True
+        st, doc = _http(cp_port, "GET", f"/api/v1/nodes/{node_id}")
+        assert st == 404 or doc["node"]["status"] == "stopping", (st, doc)
+        for status in ("queued", "running"):
+            st, doc = _http(cp_port, "GET", f"/api/v1/executions?status={status}")
+            assert st == 200 and doc["executions"] == [], (status, doc)
+        st, dead = _http(cp_port, "GET", "/api/v1/dead-letter")
+        assert st == 200 and dead["executions"] == [], dead
+        out["f"] = {"stop": summary, "registry_status": st}
+        main_s = marks["f"] = time.perf_counter() - t_main
+        out["section_end_s"] = marks  # seconds from the main path's start
+        launches = rpa.launch_counts()  # the main path's, read now
+    finally:
+        if not stopped:
+            server.stop(grace_s)
+        cpt.stop()
+    if on_card:  # both hand kernels, each of their paths, on this phase's main path
+        for key in ("ragged_paged_attention", "dense_causal_attention", "ragged_decode_split",
+                    "ragged_decode_combine", "ragged_tiles_tc"):
+            assert launches[key] > 0, f"{key} was not launched by the gateway phase"
+    assert not cpt._thread.is_alive(), "the control plane's thread outlived its stop"
+    out.update({"launches": launches, "main_s": main_s, "phase_s": time.perf_counter() - t_phase,
+                "graphs": backend.engine.graph_stats()})
+    results["gateway"] = out
+    card = results.get("card", "no card")
+    b, e = out["b"], out["e"]
+    log(f"[gateway] {card}: (a) registered as a model, heartbeat stats {out['a']['stats_keys']} "
+        f"keys, /metrics histogram counts {out['a']['hist_counts']}; (b) {len(prompts)} prompts "
+        f"execute = direct = stream ({new} tokens each), the gateway's own host ms from "
+        f"the traces (gateway.execute - node.generate) p50 {_pct(b['gateway_own_ms'], 50):.2f}, "
+        f"min {min(b['gateway_own_ms']):.2f}, max {max(b['gateway_own_ms']):.2f} of "
+        f"{len(b['gateway_own_ms'])} executes; streamed first "
+        f"token frame host ms p50 {_pct(b['first_frame_ms'], 50):.2f} against the engine's "
+        f"TTFT p50 {_pct(b['engine_ttft_ms'], 50):.2f} (frame - TTFT "
+        f"{min(b['first_over_ttft_ms']):.2f}..{max(b['first_over_ttft_ms']):.2f} ms); (c) "
+        f"async + poll + batch-status over the channel and over POST+callback: same tokens; "
+        f"(d) attached stream first frame {out['d']['first_frame_ms_from_submit']:.2f} ms from "
+        f"the async submit; (e) {burst} "
+        f"concurrent: {e['executions_per_s']:.2f} executions/s, TTFT p50 "
+        f"{e['ttft_ms_p50']:.2f} p99 {e['ttft_ms_p99']:.2f} ms; (f) stop({grace_s}) "
+        f"{out['f']['stop']}, deregistered, no execution left, dead letter empty; main path "
+        f"{main_s:.1f} s, phase {out['phase_s']:.1f} s, launches {launches}")
 
 
 # the cluster phase: two nodes of one fleet on the card (the serve's weights
@@ -7386,7 +7736,7 @@ def kernels_line(results) -> dict:
     every bf16 shape it was held at (for a quantized variant, against the
     plain version with the kernel's semantics, check (b)), ``launches`` from
     the serve phase of its pool kind and the spec, tier, fork, api, channel,
-    cluster, media, moe, ckpt and train phases."""
+    gateway, cluster, media, moe, ckpt, train and tp phases."""
     shapes = results["shapes"]
     picks = [
         ("ragged_paged_attention", "llama3_decode_ctx2k/bfloat16", f"{TPU_KERNEL}:61", "serve"),
@@ -7401,10 +7751,11 @@ def kernels_line(results) -> dict:
         entry = {
             "name": name, "route": "cuda", "source": RAGGED_SRC, "replaces": replaces,
             # the serve's launches and those of the spec, tier, fork, api,
-            # channel, cluster, media, moe, ckpt and train phases
+            # channel, gateway, cluster, media, moe, ckpt, train and tp phases
             "launches": results[serve]["launches"][name] + sum(
                 results[p]["launches"][name]
-                for p in ("spec", "tier", "fork", "api", "channel", "cluster", "media"))
+                for p in ("spec", "tier", "fork", "api", "channel", "gateway", "cluster",
+                          "media"))
             + results["moe"]["launches"].get(name, 0)
             + sum(results.get(p, {}).get("launches", {}).get(name, 0)
                   for p in ("ckpt", "train", "tp")),
@@ -7547,6 +7898,7 @@ def main() -> int:
         phase_fork(results, state, args.seed)
         phase_api(results, state, args.seed)
         phase_channel(results, state, args.seed)
+        phase_gateway(results, state, args.seed)
         phase_cluster(results, state, args.seed)
         phase_media(results, state, args.seed)
         phase_ckpt(results, state, args.seed, root=args.ckpt_dir)

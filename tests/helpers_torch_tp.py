@@ -14,6 +14,8 @@ from __future__ import annotations
 
 import dataclasses
 import os
+import pickle
+import sys
 from typing import Any
 
 import numpy as np
@@ -81,17 +83,29 @@ def be_nice() -> None:
     os.nice(10)
 
 
-def collective_rank(rank: int, port: int, conn) -> None:
+def collective_rank(rank: int, port: int, conn, stderr_path: str | None = None) -> None:
     """Rank ``rank`` of a 2-rank gloo mesh on the CPU: runs the same
-    collectives as the test's rank 0 and sends back what it got."""
+    collectives as the test's rank 0, sends back what it got and closes its
+    mesh. With ``stderr_path`` its stderr goes to that file (the test puts
+    it in its assertion message)."""
+    if stderr_path is not None:
+        fd = os.open(stderr_path, os.O_WRONLY | os.O_CREAT | os.O_APPEND)
+        os.dup2(fd, 2)
+        os.close(fd)
+        sys.stderr = os.fdopen(2, "w", buffering=1, closefd=False)
     from agentfield_tpu_torch.parallel.mesh import make_mesh
 
     be_nice()
     torch.set_num_threads(1)
     mesh = make_mesh({"model": 2}, rank, "gloo", init_method=f"tcp://127.0.0.1:{port}",
                      timeout_s=120)
-    conn.send(collective_script(mesh))
+    # pickled by value: ``conn.send`` would share the tensors' storage by
+    # file descriptor through this process's resource sharer, which is gone
+    # once this process exits, so a parent that reads late gets
+    # FileNotFoundError
+    conn.send_bytes(pickle.dumps(collective_script(mesh)))
     conn.close()
+    mesh.close()
 
 
 def collective_script(mesh) -> dict[str, torch.Tensor]:

@@ -216,3 +216,52 @@ def test_scan_covers_the_parallel_package_and_its_test_helper():
         assert f"agentfield_tpu_torch/parallel/{name}.py" in files
     helper = ROOT / "tests" / "helpers_torch_tp.py"
     assert not [t for _, t in _imported_tops(helper) if t in FORBIDDEN]
+
+
+CONTROL_PLANE = ("__init__", "__main__", "channel", "dag", "events", "faults", "gateway",
+                 "health", "http", "metrics", "payloads", "registry", "server", "storage",
+                 "types", "webhooks")
+
+
+def _control_plane_offences(cp_dir: pathlib.Path) -> dict[str, list]:
+    """Per module of a control-plane directory: imports that are neither the
+    standard library, numpy nor the port (a forbidden name among them)."""
+    allowed = set(sys.stdlib_module_names) | {"numpy", "agentfield_tpu_torch"}
+    out = {}
+    for path in sorted(cp_dir.glob("*.py")):
+        bad = [(ln, top) for ln, top in _imported_tops(path)
+               if top not in allowed or top in FORBIDDEN]
+        if bad:
+            out[path.stem] = bad
+    return out
+
+
+def test_scan_covers_the_control_plane_and_it_imports_only_stdlib_numpy_and_the_port():
+    """The port's control plane (``agentfield_tpu_torch/control_plane/``) is
+    scanned module by module: each imports the standard library, numpy and
+    the port only (no aiohttp, pydantic or grpc: ``http.py`` is its HTTP)."""
+    files = {str(p.relative_to(ROOT)) for p in _port_files()}
+    cp_dir = ROOT / "agentfield_tpu_torch" / "control_plane"
+    assert {p.stem for p in cp_dir.glob("*.py")} == set(CONTROL_PLANE)
+    for name in CONTROL_PLANE:
+        assert f"agentfield_tpu_torch/control_plane/{name}.py" in files
+    assert _control_plane_offences(cp_dir) == {}
+
+
+def test_control_plane_scan_fails_on_a_planted_aiohttp_import(tmp_path):
+    """A scratch copy of the control plane with ``import aiohttp`` planted
+    in the gateway (and a lazy ``from grpc import aio`` in the server) is
+    caught: the scan above would fail on it."""
+    import shutil
+
+    cp_copy = tmp_path / "control_plane"
+    shutil.copytree(ROOT / "agentfield_tpu_torch" / "control_plane", cp_copy,
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    gw = cp_copy / "gateway.py"
+    gw.write_text(gw.read_text() + "\nimport aiohttp\n")
+    srv = cp_copy / "server.py"
+    srv.write_text(srv.read_text() + "\n\ndef _late():\n    from grpc import aio\n")
+    bad = _control_plane_offences(cp_copy)
+    assert set(bad) == {"gateway", "server"}, bad
+    assert [t for _, t in bad["gateway"]] == ["aiohttp"]
+    assert [t for _, t in bad["server"]] == ["grpc"]

@@ -303,18 +303,27 @@ def test_tp_node_over_http_matches_tp1_node():
         build_model_node("llama-tiny", device="cpu", tp=2)  # the caller names the backend
 
 
-def test_collectives_on_two_gloo_ranks():
+def test_collectives_on_two_gloo_ranks(tmp_path):
     store = torch.distributed.TCPStore("127.0.0.1", 0, 2, True, wait_for_workers=False)
     ctx = multiprocessing.get_context("spawn")
     parent, child = ctx.Pipe()
-    p = ctx.Process(target=ht.collective_rank, args=(1, store.port, child), daemon=True)
+    err = tmp_path / "rank1.stderr"
+    p = ctx.Process(target=ht.collective_rank, args=(1, store.port, child, str(err)),
+                    daemon=True)
     p.start()
     child.close()
     mesh = tmesh.make_mesh({"model": 2}, 0, "gloo", store=store, timeout_s=120)
-    mine = ht.collective_script(mesh)
-    theirs = parent.recv()
-    p.join(timeout=30)
-    assert p.exitcode == 0
+    try:
+        mine = ht.collective_script(mesh)
+        theirs = parent.recv()
+        t0 = time.monotonic()
+        p.join(timeout=30)
+        waited = time.monotonic() - t0
+    finally:
+        mesh.close()
+    assert p.exitcode == 0, (
+        f"rank 1: exit code {p.exitcode} after {waited:.1f} s of join; its stderr:\n"
+        + (err.read_text() if err.exists() else "(none)"))
     x = torch.arange(6, dtype=torch.float32).reshape(2, 3)
     for got in (mine, theirs):
         assert torch.equal(got["sum"], x * 3)
@@ -439,5 +448,6 @@ def test_phase_tp_rehearsed_on_the_cpu():
         assert r["decode_max_abs_logit_diff"] <= r["logit_bound"]
         assert max(r["served_logprob_diff"].values()) <= r["served_logprob_bound"]
         assert r["first_tokens_checked"] and r["first_tokens_equal"]
+        assert r["tp_first_token_near_max"] == r["prompts"]
         assert r["first_token_is_argmax"] == {1: r["prompts"], 2: r["prompts"]}
         assert r["exitcodes"] == [0]
