@@ -12,3 +12,5 @@ launches the kernel or raises.
 Entry points default to ``device="cuda"``; pass ``device="cpu"`` to run the
 plain versions (the tests do).
 """
+
+__version__ = "0.1.0"  # the JAX package's, as the CLI's `version` prints it

@@ -18,9 +18,11 @@ policy half, the same contract as the JAX module's:
   owner (the model node) which branches to cancel or fork and when to
   resolve. Pure bookkeeping, driven from one thread.
 
-A policy may name a ``verifier`` reasoner; the port has no control-plane
-client yet, so its node resolves by cumulative logprob, as the JAX node does
-when it has no verifier hook. ``$AGENTFIELD_BRANCH_MAX`` caps
+A policy may name a ``verifier`` reasoner: the port's node sends the settled
+candidates' texts to it through its control plane and its verdict picks the
+winner (``serving/model_node.py``); without a control plane, or when the
+verifier fails, the best cumulative logprob wins, as on the JAX node.
+``$AGENTFIELD_BRANCH_MAX`` caps
 ``n_branches`` as in the JAX module.
 """
 

@@ -1,8 +1,11 @@
-"""Streaming data plane, the gateway's half: the port's copy of
-``agentfield_tpu/control_plane/channel.py`` without its node half, which is
-``agentfield_tpu_torch/serving/channel.py`` (threads, the port's WebSocket).
-The WebSocket here is ``http.ClientSession.ws_connect``; the frame kinds
-and the ``AFKV1`` blob header are the JAX module's, byte for byte.
+"""Streaming data plane: the port's copy of
+``agentfield_tpu/control_plane/channel.py``, both halves on asyncio. The
+gateway's half (``NodeChannel``, ``ChannelManager``) speaks through
+``http.ClientSession.ws_connect``; the node half (``ChannelServer``) is
+what the SDK's ``Agent`` serves at ``GET /channel``, on
+``http.WebSocketResponse``. The model node keeps its own threaded node half,
+``agentfield_tpu_torch/serving/channel.py``. The frame kinds and the
+``AFKV1`` blob header are the JAX module's, byte for byte.
 
 Streaming data plane: persistent multiplexed gateway↔node channels.
 
@@ -360,6 +363,573 @@ class ExecutionStreams:
         if isinstance(result, dict) and result.get("finish_reason"):
             frame["finish_reason"] = result["finish_reason"]
         return frame
+
+
+# ---------------------------------------------------------------------------
+# Node-side: the channel server (one WS route on every channel-enabled node)
+
+
+class _ServerExec:
+    __slots__ = (
+        "exec_id", "seq", "frames", "done", "done_at", "task", "conn",
+        "lock", "trace",
+    )
+
+    def __init__(self, exec_id: str):
+        self.exec_id = exec_id
+        self.seq = 0
+        self.frames: list[dict] = []  # replay buffer (token + terminal)
+        self.done = False
+        self.done_at = 0.0
+        self.task: asyncio.Task | None = None
+        self.conn: "_ServerConn | None" = None
+        # Serializes emission vs reattach-replay so a frame emitted during a
+        # replay cannot reach the new connection before older frames do.
+        self.lock = asyncio.Lock()
+        # TraceContext from the submit frame (docs/OBSERVABILITY.md): the
+        # terminal frame carries the node's collected spans for it.
+        self.trace: dict | None = None
+
+
+class _ServerConn:
+    __slots__ = ("ws", "lock")
+
+    def __init__(self, ws: http.WebSocketResponse):
+        self.ws = ws
+        self.lock = asyncio.Lock()  # one frame at a time on the socket
+
+    async def send(self, frame: dict) -> bool:
+        try:
+            async with self.lock:
+                await self.ws.send_str(json.dumps(frame))
+            return True
+        except (ConnectionError, RuntimeError, asyncio.CancelledError):
+            return False
+
+    async def send_bytes(self, payload: bytes) -> bool:
+        try:
+            async with self.lock:
+                await self.ws.send_bytes(payload)
+            return True
+        except (ConnectionError, RuntimeError, asyncio.CancelledError):
+            return False
+
+
+class _KvWaiter:
+    """One in-flight fetch_kv: pairs each seq's metadata frame with its
+    binary blob (whichever arrives first waits for the other — the gateway
+    relays them as independent tasks, so ordering is NOT guaranteed end to
+    end) and resolves the future once every seq up to ``done`` assembled.
+    A lost blob simply never resolves — the caller's timeout degrades to a
+    local re-prefill, the standing best-effort contract."""
+
+    __slots__ = ("fut", "frames", "blobs", "metas", "done_seq")
+
+    def __init__(self, fut: asyncio.Future):
+        self.fut = fut
+        self.frames: dict[int, list[dict]] = {}  # assembled pages per seq
+        self.blobs: dict[int, bytes] = {}
+        self.metas: dict[int, dict] = {}
+        self.done_seq: int | None = None
+
+
+# invoke(component_id, payload, headers) -> result
+InvokeFn = Callable[[str, Any, dict[str, str]], Awaitable[Any]]
+# stream handler(payload, headers, emit) -> result; emit(data_dict) is an
+# async callable pushing one token frame
+StreamFn = Callable[..., Awaitable[Any]]
+
+
+class ChannelServer:
+    """Node-side endpoint of the persistent channel (``GET /channel``).
+
+    Executions survive connection loss: a running task keeps generating and
+    BUFFERING frames while unbound; a ``reattach`` from the gateway's next
+    connection replays everything past ``last_seq`` and re-binds the sink —
+    zero token loss, zero duplication (the gateway dedups by seq). Replay
+    buffers for finished executions retire after ``replay_ttl_s`` or on an
+    explicit ``fin``.
+    """
+
+    def __init__(
+        self,
+        invoke: InvokeFn,
+        stream_handlers: dict[str, StreamFn] | None = None,
+        heartbeat_s: float = 15.0,
+        replay_ttl_s: float = 120.0,
+    ):
+        self.invoke = invoke
+        self.stream_handlers = dict(stream_handlers or {})
+        self.heartbeat_s = heartbeat_s
+        self.replay_ttl_s = replay_ttl_s
+        self._execs: dict[str, _ServerExec] = {}
+        self._conns: set[_ServerConn] = set()
+        # Cross-node KV transfer (docs/PREFIX_CACHING.md "Cluster tier"):
+        # serving side — a registered exporter answers peers' kv_fetch
+        # frames; requesting side — fetch_kv() sends a kv_fetch up the live
+        # gateway connection and collects the relayed kv_pages response.
+        self._kv_export: Callable[[list[str], int], Awaitable[list]] | None = None
+        # Tracing hook (docs/OBSERVABILITY.md): sync fn(trace_ctx) ->
+        # list[span dict], called when an execution's terminal frame is
+        # built so node-side spans ride it back to the gateway — for
+        # SUCCESS, FAILURE, and CANCEL terminals alike (a node that failed
+        # an execution still ships its evidence).
+        self._trace_collect: Callable[[dict], list] | None = None
+        self._kv_waiters: dict[str, _KvWaiter] = {}
+        self._kv_next_id = 0
+        self._kv_tasks: set[asyncio.Task] = set()
+        self.stats = {
+            "channel_server_connections_total": 0,
+            "channel_server_submits_total": 0,
+            "channel_server_frames_total": 0,
+            "channel_server_reattaches_total": 0,
+            "channel_server_cancels_total": 0,
+            "channel_server_kv_fetches_total": 0,
+            # Degradation-ladder rungs (docs/FAULT_TOLERANCE.md): a fetch
+            # that timed out waiting on the peer (the caller re-prefilled)
+            # and a served fetch answered with an error frame — both are
+            # correct-but-slower outcomes an operator must be able to see.
+            "channel_server_kv_fetch_timeouts_total": 0,
+            "channel_server_kv_fetch_errors_total": 0,
+        }
+
+    def stream_handler(self, component_id: str, fn: StreamFn) -> None:
+        """Register a token-streaming handler for one component (the model
+        node registers ``generate``); everything else goes through
+        ``invoke`` and produces only a terminal frame."""
+        self.stream_handlers[component_id] = fn
+
+    def set_trace_collect(self, fn) -> None:
+        """Register the span collector for traced executions (the model
+        node wires ``ModelBackend.collect_trace_spans``). Without one,
+        terminal frames never carry a ``trace`` key."""
+        self._trace_collect = fn
+
+    def set_kv_export(self, fn) -> None:
+        """Register the KV page exporter: ``async fn(chains_hex, max_bytes)
+        -> list[(meta dict, payload bytes)]`` — meta carries chain/depth/
+        per-leaf dtypes+shapes/segment lengths, payload the raw
+        concatenated leaf bytes (the model node wires its engine's
+        ``export_kv_pages`` through ``kv_export_pages``). Without one,
+        kv_fetch frames answer with an error — the requesting peer
+        re-prefills locally."""
+        self._kv_export = fn
+
+    # -- cross-node KV transfer (docs/PREFIX_CACHING.md "Cluster tier") --
+
+    async def fetch_kv(
+        self,
+        peer_node_id: str,
+        chains_hex: list[str],
+        timeout_s: float = 5.0,
+        max_bytes: int | None = None,
+        handoff: str | None = None,
+    ) -> list[dict] | None:
+        """Request serialized KV pages from `peer_node_id` through the
+        gateway relay, over THIS node's live channel connection. Returns
+        page dicts ``{chain, depth, parts, segs, data: bytes}`` (raw
+        payload assembled from the binary blob frames; possibly fewer
+        pages than asked — best effort), or None when no connection
+        exists, the relay/peer failed, or `timeout_s` expired. Strictly
+        best-effort by design: every failure mode degrades to a local
+        re-prefill on the caller's side.
+
+        ``handoff`` (disaggregated pools, phase 2) also requests the
+        peer's stashed live tail page for that handoff id; its descriptor
+        comes back with ``handoff`` instead of ``chain``. A handoff fetch
+        with zero missing chain pages (short prompt fully cached locally)
+        is still sent — the tail is the whole point."""
+        if not self._conns or not (chains_hex or handoff):
+            return None
+        conn = next(iter(self._conns))
+        self._kv_next_id += 1
+        fid = f"kvf_{id(self)}_{self._kv_next_id}"
+        fut: asyncio.Future = asyncio.get_running_loop().create_future()
+        self._kv_waiters[fid] = _KvWaiter(fut)
+        try:
+            frame = {
+                "kind": "kv_fetch",
+                "fetch_id": fid,
+                "peer": peer_node_id,
+                "chains": chains_hex[:_KV_FETCH_MAX_CHAINS],
+                "max_bytes": int(max_bytes or _KV_FETCH_MAX_BYTES),
+            }
+            if handoff is not None:
+                frame["handoff"] = handoff
+            ok = await conn.send(frame)
+            if not ok:
+                return None
+            async with aio_timeout(timeout_s):
+                return await fut
+        except TimeoutError:
+            self.stats["channel_server_kv_fetch_timeouts_total"] += 1
+            return None  # the caller re-prefills; late frames are dropped
+        except asyncio.CancelledError:
+            raise  # an EXTERNAL cancel (client gone, drain) must propagate
+        finally:
+            self._kv_waiters.pop(fid, None)
+
+    def _on_kv_pages(self, frame: dict) -> None:
+        """A relayed kv_pages METADATA frame for one of OUR fetch_kv
+        calls. Frames past the waiter's timeout (or for an unknown
+        fetch_id) are dropped — a stalled peer's late answer must not
+        adopt pages into a request that already started its local
+        re-prefill."""
+        w = self._kv_waiters.get(frame.get("fetch_id", ""))
+        if w is None or w.fut.done():
+            return
+        if frame.get("error"):
+            w.fut.set_result(None)
+            return
+        seq = int(frame.get("seq", 0))
+        w.metas[seq] = frame
+        if frame.get("done"):
+            w.done_seq = seq
+        self._kv_assemble(w)
+
+    def _on_kv_blob(self, data: bytes) -> None:
+        """A relayed binary page blob: stash by (fetch_id, seq) and try to
+        pair it with its metadata frame (arrival order across the relay's
+        per-frame tasks is unspecified)."""
+        parsed = _unpack_kv_blob(data)
+        if parsed is None:
+            return
+        fid, seq, payload = parsed
+        w = self._kv_waiters.get(fid)
+        if w is None or w.fut.done():
+            return
+        w.blobs[seq] = payload
+        self._kv_assemble(w)
+
+    def _kv_assemble(self, w: _KvWaiter) -> None:
+        """Pair metadata frames with their blobs, slice per-page segments,
+        and resolve the fetch once every seq up to ``done`` assembled."""
+        for seq in list(w.metas):
+            frame = w.metas[seq]
+            blob_len = int(frame.get("blob_len") or 0)
+            blob = w.blobs.get(seq, b"")
+            if blob_len and seq not in w.blobs:
+                continue  # metadata before blob: wait for the pair
+            if len(blob) != blob_len:
+                w.fut.set_result(None)  # torn relay: poison, caller re-prefills
+                return
+            pages: list[dict] = []
+            off = 0
+            for meta in frame.get("pages") or []:
+                if not isinstance(meta, dict):
+                    continue
+                n = sum(int(s) for s in (meta.get("segs") or []))
+                pages.append({**meta, "data": blob[off : off + n]})
+                off += n
+            w.frames[seq] = pages
+            del w.metas[seq]
+            w.blobs.pop(seq, None)
+        if w.done_seq is not None and all(
+            s in w.frames for s in range(1, w.done_seq + 1)
+        ):
+            if not w.fut.done():
+                w.fut.set_result(
+                    [pg for s in sorted(w.frames) for pg in w.frames[s]]
+                )
+
+    async def _serve_kv_fetch(self, conn: _ServerConn, frame: dict) -> None:
+        """Answer a peer's (gateway-relayed) kv_fetch from this node's
+        prefix index: size-capped, seq-framed kv_pages chunks, final frame
+        ``done``. The seeded ``kv.fetch_fail``/``kv.fetch_stall`` fault
+        points live HERE (the serving side) so chaos tests can pin the
+        requester's degradation: failed or stalled fetch → local re-prefill,
+        token-exact, zero leaked pages."""
+        fid = frame.get("fetch_id", "")
+        chains = frame.get("chains") or []
+        handoff = frame.get("handoff")
+        if not isinstance(handoff, str):
+            handoff = None
+        max_bytes = min(
+            int(frame.get("max_bytes") or _KV_FETCH_MAX_BYTES), _KV_FETCH_MAX_BYTES
+        )
+
+        self.stats["channel_server_kv_fetches_total"] += 1
+
+        async def fail(err: str) -> None:
+            self.stats["channel_server_kv_fetch_errors_total"] += 1
+            await conn.send(
+                {"kind": "kv_pages", "fetch_id": fid, "error": err, "done": True}
+            )
+
+        f = faults.fire("kv.fetch_stall")
+        if f is not None and f.delay_s > 0:
+            await asyncio.sleep(f.delay_s)
+        if handoff is not None:
+            # Disaggregated pools: a stalled handoff transfer must degrade
+            # like a stalled prefix fetch — the decode node's wait times
+            # out and admission falls back to prefilling from whatever
+            # prefix it adopted (token-exact; the prefill node's published
+            # pages stay reusable, its stash expires by TTL).
+            f = faults.fire("kv.handoff_stall")
+            if f is not None and f.delay_s > 0:
+                await asyncio.sleep(f.delay_s)
+        f = faults.fire("kv.fetch_fail")
+        if f is not None:
+            await fail(f.error)
+            return
+        if self._kv_export is None or not isinstance(chains, list):
+            await fail("node serves no KV export")
+            return
+        try:
+            chains_clean = [
+                c for c in chains[:_KV_FETCH_MAX_CHAINS] if isinstance(c, str)
+            ]
+            if handoff is not None:
+                # 3rd positional only when present: pre-handoff exporters
+                # (2-arg test doubles) keep working for plain fetches
+                pages = await self._kv_export(chains_clean, max_bytes, handoff)
+            else:
+                pages = await self._kv_export(chains_clean, max_bytes)
+        except Exception as e:
+            await fail(f"kv export failed: {e!r}")
+            return
+        seq = total = 0
+        batch: list[dict] = []
+        batch_blob = bytearray()
+
+        async def flush(done: bool) -> None:
+            # blob FIRST, then the metadata frame that names it: on one
+            # unrelayed connection that is also the arrival order; across
+            # the gateway relay the requester pairs them by (fid, seq)
+            # regardless of order.
+            nonlocal batch, batch_blob, seq
+            seq += 1
+            if batch_blob:
+                await conn.send_bytes(_pack_kv_blob(fid, seq, bytes(batch_blob)))
+            await conn.send(
+                {
+                    "kind": "kv_pages",
+                    "fetch_id": fid,
+                    "seq": seq,
+                    "pages": batch,
+                    "blob_len": len(batch_blob),
+                    "done": done,
+                }
+            )
+            batch, batch_blob = [], bytearray()
+
+        for meta, payload in pages:
+            # same byte accounting as the exporter's own max_bytes cap
+            # (kv_export_pages), so this re-check is pure defense — it
+            # drops nothing the exporter admitted
+            sz = len(payload)
+            if total + sz > max_bytes:
+                break  # size cap: the requester re-prefills the tail
+            if batch and len(batch_blob) + sz > _KV_PAGES_FRAME_BYTES:
+                await flush(done=False)  # chunk: bound each WS frame
+            batch.append(meta)
+            batch_blob += payload
+            total += sz
+        await flush(done=True)
+
+    def _kv_task(self, coro) -> None:
+        t = asyncio.create_task(coro)
+        self._kv_tasks.add(t)
+        t.add_done_callback(self._kv_tasks.discard)
+
+    def _purge(self) -> None:
+        cutoff = time.monotonic() - self.replay_ttl_s
+        stale = [
+            eid for eid, st in self._execs.items() if st.done and st.done_at < cutoff
+        ]
+        for eid in stale:
+            self._execs.pop(eid, None)
+
+    async def close(self) -> None:
+        """Node shutdown: cancel running executions (their terminal frames
+        go to the buffer; the gateway's side sees the connection drop) and
+        close every live socket — an open channel would otherwise hold the
+        ``http.AppRunner``'s graceful shutdown for its full timeout."""
+        for st in list(self._execs.values()):
+            if st.task is not None and not st.task.done():
+                st.task.cancel()
+        tasks = [st.task for st in self._execs.values() if st.task is not None]
+        if tasks:
+            await asyncio.gather(*tasks, return_exceptions=True)
+        for t in list(self._kv_tasks):
+            t.cancel()
+        if self._kv_tasks:
+            await asyncio.gather(*list(self._kv_tasks), return_exceptions=True)
+        for conn in list(self._conns):
+            try:
+                await conn.ws.close()
+            except (ConnectionError, RuntimeError) as e:
+                log.debug("channel close failed during shutdown", error=repr(e))
+
+    async def handler(self, request: http.Request) -> http.WebSocketResponse:
+        ws = http.WebSocketResponse(heartbeat=self.heartbeat_s)
+        await ws.prepare(request)
+        conn = _ServerConn(ws)
+        self._conns.add(conn)
+        self.stats["channel_server_connections_total"] += 1
+        try:
+            async for msg in ws:
+                if msg.type == http.WSMsgType.BINARY:
+                    # relayed kv page blob for one of OUR fetch_kv calls
+                    self._on_kv_blob(msg.data)
+                    continue
+                if msg.type != http.WSMsgType.TEXT:
+                    continue
+                try:
+                    frame = json.loads(msg.data)
+                    if not isinstance(frame, dict):
+                        raise ValueError("frame must be an object")
+                except ValueError as e:
+                    log.warning("malformed channel frame", error=repr(e))
+                    continue
+                await self._handle(conn, frame)
+        except (ConnectionResetError, asyncio.CancelledError):
+            pass  # peer gone / shutdown: running execs keep buffering for reattach
+        finally:
+            # Connection gone: unbind sinks, keep executions running — the
+            # gateway reconnects and reattaches; frames buffer meanwhile.
+            self._conns.discard(conn)
+            for st in self._execs.values():
+                if st.conn is conn:
+                    st.conn = None
+        return ws
+
+    async def _handle(self, conn: _ServerConn, frame: dict) -> None:
+        kind = frame.get("kind")
+        eid = frame.get("exec_id", "")
+        if kind == "submit":
+            await self._submit(conn, eid, frame)
+        elif kind == "cancel":
+            st = self._execs.get(eid)
+            self.stats["channel_server_cancels_total"] += 1
+            if st is not None and not st.done and st.task is not None:
+                st.task.cancel()
+        elif kind == "reattach":
+            await self._reattach(conn, eid, int(frame.get("last_seq", 0)))
+        elif kind == "fin":
+            st = self._execs.get(eid)
+            if st is not None and st.done:
+                self._execs.pop(eid, None)
+        elif kind == "kv_fetch":
+            # A peer's page request, relayed by the gateway: serve it off the
+            # receive loop (the export does a device→host copy).
+            self._kv_task(self._serve_kv_fetch(conn, frame))
+        elif kind == "kv_pages":
+            self._on_kv_pages(frame)
+        elif kind == "ping":
+            await conn.send({"kind": "pong"})
+
+    async def _submit(self, conn: _ServerConn, eid: str, frame: dict) -> None:
+        self.stats["channel_server_submits_total"] += 1
+        self._purge()
+        st = self._execs.get(eid)
+        if st is not None:
+            # Duplicate submit — the gateway retried/requeued an execution
+            # this node already owns (e.g. a drop the recovery path resolved
+            # by re-dispatch). Idempotent: re-bind and replay from 0; never
+            # run the work twice.
+            await conn.send({"kind": "accepted", "exec_id": eid})
+            await self._replay(conn, st, last_seq=0)
+            return
+        st = _ServerExec(eid)
+        st.conn = conn
+        tr = frame.get("trace")
+        if isinstance(tr, dict) and isinstance(tr.get("trace_id"), str):
+            st.trace = tr
+        self._execs[eid] = st
+        await conn.send({"kind": "accepted", "exec_id": eid})
+        st.task = asyncio.create_task(self._run(st, frame))
+
+    async def _reattach(self, conn: _ServerConn, eid: str, last_seq: int) -> None:
+        st = self._execs.get(eid)
+        if st is None:
+            await conn.send(
+                {
+                    "kind": "reattach_fail",
+                    "exec_id": eid,
+                    "error": "unknown execution (restart or replay TTL expired)",
+                }
+            )
+            return
+        self.stats["channel_server_reattaches_total"] += 1
+        await conn.send({"kind": "reattach_ok", "exec_id": eid, "from_seq": last_seq})
+        await self._replay(conn, st, last_seq)
+
+    async def _replay(self, conn: _ServerConn, st: _ServerExec, last_seq: int) -> None:
+        # Under the exec lock: frames emitted DURING the replay wait, then
+        # send directly to the re-bound conn — order preserved end to end.
+        async with st.lock:
+            for f in st.frames:
+                if f["seq"] > last_seq:
+                    await conn.send(f)
+            st.conn = conn
+
+    async def _emit(self, st: _ServerExec, frame: dict) -> None:
+        async with st.lock:
+            st.seq += 1
+            frame["seq"] = st.seq
+            st.frames.append(frame)
+            self.stats["channel_server_frames_total"] += 1
+            if st.conn is not None:
+                ok = await st.conn.send(frame)
+                if not ok:
+                    st.conn = None  # buffer until reattach
+
+    async def _run(self, st: _ServerExec, frame: dict) -> None:
+        target = frame.get("target", "")
+        payload = frame.get("input")
+        headers = frame.get("headers") or {}
+        try:
+            sh = self.stream_handlers.get(target)
+            if sh is not None and frame.get("stream", True):
+
+                async def emit(data: dict) -> None:
+                    await self._emit(
+                        st, {"kind": "token", "exec_id": st.exec_id, "data": data}
+                    )
+
+                result = await sh(payload, headers, emit)
+            else:
+                result = await self.invoke(target, payload, headers)
+            json.dumps(result)  # fail fast: an unserializable result must be
+            # a failed execution, not a dead channel write
+            term = {
+                "kind": "terminal",
+                "exec_id": st.exec_id,
+                "status": "completed",
+                "result": result,
+            }
+        except asyncio.CancelledError:
+            term = {
+                "kind": "terminal",
+                "exec_id": st.exec_id,
+                "status": "failed",
+                "error": "cancelled by gateway",
+            }
+        except Exception as e:
+            term = {
+                "kind": "terminal",
+                "exec_id": st.exec_id,
+                "status": "failed",
+                "error": repr(e),
+            }
+        if st.trace is not None and self._trace_collect is not None:
+            # Ship the node's spans on the terminal frame — the gateway's
+            # TraceStore is the assembly point. Tracing off → no submit
+            # ctx → st.trace is None → the frame is bit-identical to
+            # today's (pinned).
+            try:
+                spans = self._trace_collect(st.trace)
+            except Exception as e:
+                log.debug("trace collection failed", error=repr(e))
+                spans = None
+            if spans:
+                term["trace"] = {
+                    "trace_id": st.trace.get("trace_id"), "spans": spans
+                }
+        st.done = True
+        st.done_at = time.monotonic()
+        await self._emit(st, term)
 
 
 # ---------------------------------------------------------------------------

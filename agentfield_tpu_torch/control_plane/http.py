@@ -36,6 +36,16 @@ masking). Text and binary messages; a binary message can be given in parts
 server messages are reassembled; pings are answered. ``heartbeat=s`` pings
 every ``s`` seconds and closes the socket when no pong came within ``s/2``,
 as aiohttp's does.
+
+WebSocket server (``WebSocketResponse``, aiohttp's ``web`` name): a
+handler's ``await ws.prepare(request)`` checks the upgrade request
+(``serving.websocket.handshake_headers``: a request that is no version-13
+upgrade answers 400), answers 101 with ``Sec-WebSocket-Accept`` and takes
+the connection over; ``async for msg in ws`` then gives the client's
+messages (masked frames required, unmasked ones a protocol error, close
+1002) as the client end does, and the sends write unmasked frames. The
+connection closes when the handler returns. ``ClientTimeout(sock_read=s)``
+bounds each read of a response body (an SSE stream's gap between frames).
 """
 
 from __future__ import annotations
@@ -568,6 +578,12 @@ class AppRunner:
                 return False
             resp = Response(status=500, text="500 Internal Server Error\n\nServer got itself in trouble")
             keep = False
+        if isinstance(resp, WebSocketResponse):
+            if resp._hb_task is not None:
+                resp._hb_task.cancel()
+            if not resp.closed:
+                await resp.close()
+            return False
         if isinstance(resp, StreamResponse):
             if not resp.prepared:
                 await resp.prepare(req)
@@ -670,13 +686,15 @@ class WSServerHandshakeError(ClientResponseError):
 
 class ClientTimeout:
     """``total``: the whole request, body included; ``connect`` and
-    ``sock_connect``: opening the connection. None is unbounded."""
+    ``sock_connect``: opening the connection; ``sock_read``: each read of
+    the response body. None is unbounded."""
 
-    __slots__ = ("total", "connect", "sock_connect")
+    __slots__ = ("total", "connect", "sock_connect", "sock_read")
 
     def __init__(self, total: float | None = None, connect: float | None = None,
-                 sock_connect: float | None = None):
+                 sock_connect: float | None = None, sock_read: float | None = None):
         self.total, self.connect, self.sock_connect = total, connect, sock_connect
+        self.sock_read = sock_read
 
 
 DEFAULT_TIMEOUT = ClientTimeout(total=300.0, sock_connect=30.0)
@@ -800,6 +818,7 @@ class ClientResponse:
         self.status, self.reason, self.headers = status, reason, headers
         self._conn: _ClientConn | None = conn
         self._deadline = deadline
+        self._sock_read: float | None = None  # the request's ClientTimeout.sock_read
         self._keep = keep
         self._body: bytes | None = None
         self._done = False  # the body's bytes are all off the connection
@@ -819,9 +838,11 @@ class ClientResponse:
         return (self.headers.get("Content-Type") or "application/octet-stream").split(";")[0].strip()
 
     async def _timed(self, aw):
-        if self._deadline is None:
+        left = None if self._deadline is None else self._deadline - time.monotonic()
+        if self._sock_read is not None:
+            left = self._sock_read if left is None else min(left, self._sock_read)
+        if left is None:
             return await aw
-        left = self._deadline - time.monotonic()
         try:
             return await asyncio.wait_for(aw, max(left, 0.0))
         except TimeoutError:
@@ -1031,6 +1052,7 @@ class ClientSession:
                     reader, writer = await self._open(host, port, timeout, deadline)
                 conn = _ClientConn(key, reader, writer, pooled is not None, self._release_fn(total, per_host))
                 resp = await self._exchange(method, url, raw, conn, deadline)
+                resp._sock_read = timeout.sock_read
                 return resp
             except _StaleConnection:
                 conn.release_cb(conn, False)
@@ -1173,17 +1195,20 @@ class WSMessage:
         return f"WSMessage({self.type.name}, {len(self.data) if self.data else 0} bytes)"
 
 
-async def _ws_read_frame(reader: asyncio.StreamReader) -> tuple[bool, int, bytes]:
-    """(fin, opcode, payload) of a server frame (unmasked): the checks of
-    ``serving.websocket.read_frame`` on an asyncio stream."""
+async def _ws_read_frame(reader: asyncio.StreamReader,
+                         masked: bool = False) -> tuple[bool, int, bytes]:
+    """(fin, opcode, unmasked payload) of the peer's next frame: a client
+    reads unmasked server frames, a server (``masked``) masked client
+    frames; the checks of ``serving.websocket.read_frame`` on an asyncio
+    stream."""
     b0, b1 = await reader.readexactly(2)
     fin, opcode = bool(b0 & 0x80), b0 & 0x0F
     if b0 & 0x70:
         raise _ws.ProtocolError("reserved bits set without a negotiated extension")
     if opcode not in _ws.DATA_OPS + _ws.CONTROL_OPS + (_ws.OP_CONT,):
         raise _ws.ProtocolError(f"unknown opcode {opcode:#x}")
-    if b1 & 0x80:
-        raise _ws.ProtocolError("server frames must not be masked")
+    if bool(b1 & 0x80) != masked:
+        raise _ws.ProtocolError("client frames must be masked, server frames must not")
     n = b1 & 0x7F
     if n == 126:
         n = struct.unpack("!H", await reader.readexactly(2))[0]
@@ -1195,13 +1220,19 @@ async def _ws_read_frame(reader: asyncio.StreamReader) -> tuple[bool, int, bytes
         raise _ws.ProtocolError("control frames are unfragmented and at most 125 bytes")
     if n > _ws.MAX_MESSAGE:
         raise _ws.ProtocolError(f"frame of {n} bytes", code=1009)
-    return fin, opcode, (await reader.readexactly(n) if n else b"")
+    key = await reader.readexactly(4) if masked else None
+    payload = await reader.readexactly(n) if n else b""
+    if key is not None and n:
+        payload = _ws._mask(payload, key)
+    return fin, opcode, payload
 
 
 class ClientWebSocketResponse:
     """The client end of one WebSocket. ``async for msg in ws`` gives TEXT
     and BINARY messages and ends when the connection closes; sends raise
     ``ConnectionResetError`` on a closed connection."""
+
+    _client = True  # masks its frames, reads unmasked ones
 
     def __init__(self, reader, writer, heartbeat: float | None, registry: set):
         self._reader, self._writer = reader, writer
@@ -1219,20 +1250,26 @@ class ClientWebSocketResponse:
         return self._closed
 
     async def _send(self, opcode: int, *parts) -> None:
-        if self._closed or self._writer.is_closing():
+        if self._closed or self._writer is None or self._writer.is_closing():
             raise ConnectionResetError("Cannot write to closing transport")
-        key = os.urandom(4)
         n = sum(len(p) for p in parts)
-        head = _ws.frame_header(opcode, n, True, key)
-        body = _ws._mask_parts(parts, key) if n else b""
-        async with self._send_lock:
-            self._writer.write(head)
+        if self._client:
+            key = os.urandom(4)
+            bufs = [_ws.frame_header(opcode, n, True, key)]
             if n:
-                self._writer.write(memoryview(body))
+                bufs.append(memoryview(_ws._mask_parts(parts, key)))
+        else:
+            bufs = [_ws.frame_header(opcode, n), *(p for p in parts if len(p))]
+        async with self._send_lock:
+            for b in bufs:
+                self._writer.write(b)
             await self._writer.drain()
 
     async def send_str(self, data: str) -> None:
         await self._send(_ws.OP_TEXT, data.encode())
+
+    async def send_json(self, data: Any, dumps: Callable[[Any], str] = json.dumps) -> None:
+        await self.send_str(dumps(data))
 
     async def send_bytes(self, *parts) -> None:
         """One binary message, the concatenation of ``parts``."""
@@ -1263,7 +1300,8 @@ class ClientWebSocketResponse:
         self._closed = True
         if self.close_code is None:
             self.close_code = code
-        self._writer.close()
+        if self._writer is not None:
+            self._writer.close()
         self._registry.discard(self)
 
     async def close(self, code: int = 1000, message: bytes = b"") -> bool:
@@ -1287,7 +1325,7 @@ class ClientWebSocketResponse:
             if self._closed and self._writer.is_closing():
                 return WSMessage(WSMsgType.CLOSED)
             try:
-                fin, op, payload = await _ws_read_frame(self._reader)
+                fin, op, payload = await _ws_read_frame(self._reader, not self._client)
             except _ws.ProtocolError as e:
                 self._exception = e
                 await self.close(e.code)
@@ -1347,3 +1385,46 @@ class ClientWebSocketResponse:
         if msg.type in (WSMsgType.CLOSE, WSMsgType.CLOSING, WSMsgType.CLOSED):
             raise StopAsyncIteration
         return msg
+
+
+class WebSocketResponse(ClientWebSocketResponse):
+    """The server end of one WebSocket (aiohttp's ``web.WebSocketResponse``):
+    ``prepare`` upgrades the handler's request and takes its connection;
+    then the client end's reading and sending, with unmasked frames out and
+    masked frames required in. ``heartbeat=s`` pings the client as the
+    client end pings the server."""
+
+    _client = False
+
+    def __init__(self, heartbeat: float | None = None):
+        self._heartbeat_s = heartbeat
+        self._reader = self._writer = None
+        self._registry: set = set()
+        self._closed = False
+        self.close_code = None
+        self._send_lock = asyncio.Lock()
+        self._pong = asyncio.Event()
+        self._hb_task = None
+        self._exception = None
+        self.prepared = False
+
+    async def prepare(self, request: Request) -> "WebSocketResponse":
+        if self.prepared:
+            return self
+        try:
+            hdrs = _ws.handshake_headers(request.headers)
+        except _ws.HandshakeError as e:
+            raise HTTPException(400, str(e)) from None
+        self._reader, self._writer = request._reader, request._conn_writer  # type: ignore[attr-defined]
+        request._stream = self  # type: ignore[assignment]  # the head is out: no second answer
+        request._consumed = True
+        sock = self._writer.get_extra_info("socket")
+        if sock is not None:
+            import socket as _socket
+            sock.setsockopt(_socket.IPPROTO_TCP, _socket.TCP_NODELAY, 1)
+        self._writer.write(_head(101, "Switching Protocols", hdrs))
+        await self._writer.drain()
+        self.prepared = True
+        if self._heartbeat_s:
+            self._hb_task = asyncio.create_task(self._heartbeat(self._heartbeat_s))
+        return self

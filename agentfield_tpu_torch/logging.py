@@ -68,6 +68,9 @@ class StructuredAdapter(logging.LoggerAdapter):
     def error(self, msg, *args, **kw):  # type: ignore[override]
         self._log_kv(logging.ERROR, msg, args, kw)
 
+    def exception(self, msg, *args, **kw):  # type: ignore[override]
+        self._log_kv(logging.ERROR, msg, args, {"exc_info": True, **kw})
+
 
 class _DynamicStderrHandler(logging.StreamHandler):
     """Always writes to the CURRENT sys.stderr — survives redirection and

@@ -274,6 +274,19 @@ class EngineConfig:
     # pin spills, and page pressure spills pins before an allocation fails
     spec_max_candidates: int = 4  # declared follow-up candidates prefilled
     # speculatively per step, at most
+    # The JAX engine's implementation switches, under its names and values.
+    # The port has one path for each: the hand-written kernel for a tensor
+    # on the card, its plain version for one on the CPU, whatever the value
+    # (no value selects the plain version on the card); ``resolve_impls``
+    # refuses what the JAX engine refuses, with its words, and what has no
+    # port yet ("ring", ROADMAP A5 c) with NotImplementedError
+    attn_impl: str = "ref"  # "ref" | "pallas": the decode tick's attention
+    prefill_impl: str = "ref"  # "ref" | "flash": prefill attention
+    chunk_attn_impl: str = "auto"  # "auto" | "pallas" | "ref": chunk launches
+    kv_write_impl: str | None = None  # removed in the JAX engine: any value raises
+    compile_cache_dir: str | None = None  # where built kernels persist (the
+    # JAX engine's compilation cache): the kernel build directory
+    # (``ops/cuda/build.BUILD_DIR``) for libraries not built yet
 
     @property
     def max_context(self) -> int:
@@ -312,6 +325,54 @@ def _sparse_prefill_cfg(cfg: LlamaConfig, ecfg: EngineConfig) -> LlamaConfig:
     if ecfg.moe_prefill_impl == "sparse" and cfg.num_experts > 0:
         return dataclasses.replace(cfg, moe_impl="sparse")
     return cfg
+
+
+IMPL_VALUES = {  # the values the JAX engine accepts without a mesh
+    "attn_impl": ("ref", "pallas"),
+    "prefill_impl": ("ref", "flash"),
+    "chunk_attn_impl": ("auto", "pallas", "ref"),
+}
+
+
+def resolve_impls(ecfg: EngineConfig) -> EngineConfig:
+    """``ecfg`` with ``chunk_attn_impl`` "auto" resolved as the JAX engine
+    resolves it, after the JAX engine's checks of the implementation names;
+    ``prefill_impl="ring"`` raises NotImplementedError (ROADMAP A5 c), and a
+    ``prefill_impl`` the JAX engine would pass to its reference path
+    unchecked raises ValueError here."""
+    if ecfg.kv_write_impl is not None:
+        raise ValueError(
+            f"EngineConfig.kv_write_impl={ecfg.kv_write_impl!r} was "
+            "removed: the ragged kernel fuses the decode KV write into "
+            "the attention launch — set attn_impl='pallas' to run the "
+            "kernel path (docs/KERNELS.md)"
+        )
+    if ecfg.prefill_impl == "ring":
+        raise NotImplementedError(
+            "prefill_impl='ring' (sequence-parallel prefill) is not ported: "
+            "ROADMAP A5: ring attention")
+    if ecfg.chunk_attn_impl == "auto":
+        resolved = "pallas" if ecfg.attn_impl == "pallas" or ecfg.prefill_impl == "flash" else "ref"
+        ecfg = dataclasses.replace(ecfg, chunk_attn_impl=resolved)
+    if ecfg.chunk_attn_impl not in ("pallas", "ref"):
+        raise ValueError(
+            f"chunk_attn_impl={ecfg.chunk_attn_impl!r} must be "
+            "'auto', 'pallas', or 'ref'"
+        )
+    if ecfg.attn_impl not in ("pallas", "ref"):
+        raise ValueError(
+            f"attn_impl={ecfg.attn_impl!r} must be 'pallas' or 'ref'"
+        )
+    if ecfg.prefill_impl not in IMPL_VALUES["prefill_impl"]:
+        raise ValueError(f"prefill_impl={ecfg.prefill_impl!r} must be 'ref' or 'flash'")
+    if ecfg.compile_cache_dir:
+        import os
+        from pathlib import Path
+
+        from agentfield_tpu_torch.ops.cuda import build
+
+        build.BUILD_DIR = Path(os.path.expanduser(ecfg.compile_cache_dir))
+    return ecfg
 
 
 @dataclasses.dataclass
@@ -571,7 +632,7 @@ class InferenceEngine:
         holds the workers (``parallel.worker.start_workers``), and
         ``close`` stops them."""
         self.cfg = cfg
-        self.ecfg = ecfg or EngineConfig()
+        self.ecfg = resolve_impls(ecfg or EngineConfig())
         self.mesh = mesh if mesh is not None and mesh.tp > 1 else None
         if self.mesh is not None:
             self._check_tp(params, draft)
@@ -737,6 +798,8 @@ class InferenceEngine:
             "branch_fork_failed_total": 0,  # live forks refused (source
             # gone or no capacity): a fork_failed terminal each
             "branch_pruned_total": 0,  # branches a pruning policy cancelled
+            "branch_verifier_calls_total": 0,  # group resolutions scored by a
+            # control-plane verifier reasoner instead of the logprob sum
             # two-phase dispatch, always present
             "kv_handoff_initiated_total": 0,  # phase-1 prefills that ended
             # in a handoff terminal (tail and first token stashed)

@@ -22,10 +22,18 @@ node's does, and the stop id falls back to the tokenizer's
 decoding: the engine forks the request into N branches after one prefill,
 the node's ``branching.BranchGroup`` scores them, prunes and re-forks them
 (``beam``) through the engine's ``request_cancel``/``request_fork``, and the
-caller gets the winner only, with a ``branches`` summary. The node has no
-verifier hook (that needs the control plane), so a policy's ``verifier`` is
-not called and the best cumulative logprob wins, as on a JAX node without
-one. ``submit_stream`` streams a request's events into a queue; a branched
+caller gets the winner only, with a ``branches`` summary. A policy's
+``verifier`` (a ``node.reasoner`` target) reranks the settled candidates
+through the control plane when the node has one (``ModelNodeServer`` sets
+``ModelBackend._verifier_call``, the JAX ``build_model_node``'s
+``_branch_verifier``): the candidate texts go to the reasoner on a thread of
+their own, off the drive thread, so decoding goes on meanwhile (and a judge
+that calls this node's ``generate`` is served); its ``{"best": i}`` or
+``{"scores": [...]}`` verdict (``_parse_verdict``, the JAX node's) picks
+the winner, any failure leaves the logprob winner, and
+``branch_verifier_calls_total`` counts the calls. Without a control plane
+the best cumulative logprob wins, as on a JAX node without the hook.
+``submit_stream`` streams a request's events into a queue; a branched
 stream carries the winner's events only, replayed at resolution. A caller
 that gives up cancels every branch.
 
@@ -77,7 +85,7 @@ per-execution seq, reattach, cancel; the node advertises it as
 and ``/profile/stop`` (a ``torch.profiler`` capture of whole engine ticks,
 written as a Chrome trace). With a control plane it registers (kind
 "model"), heartbeats the engine's and the channel's stats and deregisters
-at stop (``sdk/client.py``, stdlib). ``ModelNodeServer.stop(grace_s)`` is
+at stop (``sdk/node_client.py``, stdlib). ``ModelNodeServer.stop(grace_s)`` is
 the JAX ``drain_and_stop``: admission closes (503), in-flight work finishes
 or ends ``deadline_exceeded`` at the grace, so every stream and channel
 execution gets its terminal frame, then the node deregisters and shuts
@@ -150,7 +158,7 @@ from agentfield_tpu_torch.models.configs import LlamaConfig, get_config
 from agentfield_tpu_torch.models.llama import init_params
 from agentfield_tpu_torch.models.quant import quantize_params
 from agentfield_tpu_torch.ops.kv_quant import KV_QUANT_DTYPES
-from agentfield_tpu_torch.sdk.client import ControlPlaneClient, ControlPlaneError
+from agentfield_tpu_torch.sdk.node_client import ControlPlaneError, NodeControlPlaneClient
 from agentfield_tpu_torch.prefix_hash import page_chain_hashes
 from agentfield_tpu_torch.serving.channel import (
     CHANNEL_PATH,
@@ -405,6 +413,10 @@ class ModelBackend:
             "0", "false", "no")
         self.kv_fetch_timeout_s = 5.0
         self._kv_prefetch_inflight: dict[tuple, threading.Event] = {}  # under _lock
+        # branch groups' verifier: blocking (target, payload) -> the
+        # reasoner's result, raising on any failure; set by the server when
+        # the node has a control plane (``ModelNodeServer._verify``)
+        self._verifier_call: Callable[[str, dict], Any] | None = None
         # (pages, bytes, seconds) of each prefetch that adopted pages
         self.kv_fetch_log: collections.deque[tuple[int, int, float]] = collections.deque(
             maxlen=1024)
@@ -1511,11 +1523,68 @@ class ModelBackend:
         return list(b.records)
 
     def _resolve_group(self, g: BranchGroup) -> None:
-        """Every branch settled: the best cumulative logprob wins (the node
-        has no verifier hook); deliver it to the group's caller."""
+        """Every branch settled (on the drive thread): with a verifier
+        target and a hook, send the candidates' texts to the verifier on a
+        thread of its own; else deliver the best cumulative logprob."""
         cands = g.candidates()
-        winner = cands[0] if cands else g.fallback_branch()
-        meta = g.summary(winner, False)
+        target = g.policy.get("verifier")
+        if (len(cands) > 1 and target and self._verifier_call is not None
+                and self.tokenizer is not None):
+            # the JAX node's rerank payload; every branch has finished, so
+            # its pages are released already: only its records remain
+            self.engine.stats["branch_verifier_calls_total"] += 1
+            texts = [self.tokenizer.decode([t for t, _ in self._branch_content(b)])
+                     for b in cands]
+            payload = {"task": "rerank", "candidates": texts,
+                       "scores": [round(b.cum_logprob, 4) for b in cands]}
+            threading.Thread(target=self._verify_group, args=(g, cands, target, payload),
+                             name="branch-verifier", daemon=True).start()
+            return
+        self._deliver_group(g, cands[0] if cands else None, False)
+
+    def _verify_group(self, g: BranchGroup, cands: list, target: str, payload: dict) -> None:
+        """The verifier's call, off the drive thread: its verdict picks the
+        winner; any failure degrades to the logprob winner, as on the JAX
+        node."""
+        winner, used = cands[0], False
+        try:
+            idx = self._parse_verdict(self._verifier_call(target, payload), len(cands))
+            if idx is not None:
+                winner, used = cands[idx], True
+        except Exception as e:  # noqa: BLE001 — a broken verifier must not fail the generation
+            log.warning("branch verifier failed; using logprob winner (target=%s, error=%r)",
+                        target, e)
+        self._deliver_group(g, winner, used)
+
+    @staticmethod
+    def _parse_verdict(res, n: int) -> int | None:
+        """Accept {"best": i} or {"scores": [...]} shaped verdicts (nested
+        under "result" tolerated); anything else → None (logprob wins)."""
+        if isinstance(res, dict) and isinstance(res.get("result"), dict):
+            res = res["result"]
+        if not isinstance(res, dict):
+            return None
+        best = res.get("best")
+        if isinstance(best, bool):
+            return None
+        if isinstance(best, int) and 0 <= best < n:
+            return best
+        scores = res.get("scores")
+        if (
+            isinstance(scores, list)
+            and len(scores) == n
+            and all(isinstance(s, (int, float)) and not isinstance(s, bool) for s in scores)
+        ):
+            return max(range(n), key=lambda i: scores[i])
+        return None
+
+    def _deliver_group(self, g: BranchGroup, winner, verifier_used: bool) -> None:
+        """Deliver the winner to the group's caller. The sink is fetched
+        now, after any verifier call: a caller that left meanwhile tore the
+        group down and gets nothing."""
+        if winner is None:
+            winner = g.fallback_branch()
+        meta = g.summary(winner, verifier_used)
         with self._lock:
             q = self._group_sinks.get(g.parent)
             self._teardown_group(g)
@@ -1666,7 +1735,7 @@ class ModelNodeServer:
             )
         self.backend = backend
         self.node_id = node_id
-        self.client = ControlPlaneClient(control_plane) if control_plane else None
+        self.client = NodeControlPlaneClient(control_plane) if control_plane else None
         self.heartbeat_interval = heartbeat_interval
         # the served modalities, as the JAX node advertises them (the SDK
         # routes a capability-needing call to a node that has it)
@@ -1685,6 +1754,8 @@ class ModelNodeServer:
         # index, and this node's own fetches ride the same channel
         self.channel.set_kv_export(backend.kv_export_pages)
         backend._kv_fetch_fn = self.channel.fetch_kv
+        if self.client is not None:
+            backend._verifier_call = self._verify
         self.host = "127.0.0.1"
         self._httpd: ThreadingHTTPServer | None = None
         self._thread: threading.Thread | None = None
@@ -1788,6 +1859,16 @@ class ModelNodeServer:
         if cid == "generate":
             kw["on_cancel"] = ex.on_cancel
         return fn(**kw)
+
+    def _verify(self, target: str, payload: dict) -> Any:
+        """The branch verifier's dispatch (the JAX ``_branch_verifier``):
+        the candidates go to ``target`` through the gateway; an execution
+        that did not complete raises, and the group falls back to the
+        logprob winner."""
+        doc = self.client.execute(target, payload)
+        if doc.get("status") != "completed":
+            raise RuntimeError(f"verifier {target!r} {doc.get('status')}: {doc.get('error')}")
+        return doc.get("result")
 
     def node_spec(self) -> dict[str, Any]:
         """The registration body (the JAX SDK's ``Agent._node_spec``); the
@@ -2131,6 +2212,12 @@ ENV_OVERRIDES = (
     ("AGENTFIELD_SPEC_PIN_BUDGET", "spec_pin_budget", int),
     ("AGENTFIELD_SPEC_MAX_CANDIDATES", "spec_max_candidates", int),
 )
+
+
+def card_available() -> bool:
+    """Whether this machine has a CUDA device to serve on (the CLI's
+    ``model`` refuses to fall back to the CPU unasked)."""
+    return torch.cuda.is_available()
 
 
 def build_model_node(

@@ -4329,11 +4329,418 @@ def _pct(xs: list[float], q: float) -> float:
     return s[max(0, min(len(s) - 1, math.ceil(q / 100 * len(s)) - 1))] if s else float("nan")
 
 
+# (g)-(i) of the gateway phase: agent programs on the port's SDK, the branch
+# verifier through the gateway, the README quickstart through the port's CLI
+GATEWAY_SDK_PROMPTS = (64, 333, 1000)  # (g): each ai() form, one prompt of each length
+GATEWAY_SDK_SCHEMA = {"type": "object", "properties": {"ok": {"type": "boolean"}},
+                      "required": ["ok"]}
+GATEWAY_SCHEMA_NEW = 24  # (g): room for {"ok":true} and its stop token
+GATEWAY_BRANCHES = 4  # (h): n_branches of a verified call
+GATEWAY_BRANCH_PROMPT = 200
+GATEWAY_VERIFIER_TURNS = 3  # (h): plain and verified branched calls, in turns
+GATEWAY_JUDGE = "judge.score"
+CLI_MODEL = "llama-3.2-1b"  # (i): the CLI's default model
+CLI_NEW = 8
+CLI_TIMEOUT_S = 300.0  # one quickstart step, its readiness wait included
+
+
+class AgentLoop:
+    """An asyncio loop on a thread of its own, for the port's SDK agents
+    (``call`` runs a coroutine there and waits for it)."""
+
+    def __init__(self):
+        import asyncio
+
+        self.loop = asyncio.new_event_loop()
+        self._thread = threading.Thread(target=self.loop.run_forever, name="sdk-agents",
+                                        daemon=True)
+        self._thread.start()
+
+    def call(self, coro, timeout: float = 900.0):
+        import asyncio
+
+        return asyncio.run_coroutine_threadsafe(coro, self.loop).result(timeout)
+
+    def stop(self) -> None:
+        self.loop.call_soon_threadsafe(self.loop.stop)
+        self._thread.join(30)
+        self.loop.close()
+
+
+def judge_pick(candidates: list[str]) -> int:
+    """The judge's fixed rule: the candidate whose code points sum highest
+    modulo 101 (the lowest index on a tie)."""
+    return max(range(len(candidates)), key=lambda i: (sum(map(ord, candidates[i])) % 101, -i))
+
+
+def sdk_agents(cp_url: str) -> tuple:
+    """Two agent programs on the port's SDK: ``app``, whose reasoners call
+    ``app.ai()`` with a prompt (``ask``), with ``messages`` (``chat``), with
+    a ``schema`` (``structured``), with ``stream=True`` (``stream``), with
+    branches and a verifier (``branched``), and ``app.call`` into the judge
+    (``consult``); each returns its ``ai()`` wall ms as ``ai_ms``. And
+    ``judge``: ``score`` picks by ``judge_pick`` and records what it got,
+    ``fail`` raises, ``reentrant`` calls ``judge.ai()`` on the same node
+    before it picks. Returns (app, judge, seen)."""
+    from agentfield_tpu_torch.sdk import Agent
+
+    app, judge = Agent("app", cp_url), Agent("judge", cp_url)
+    seen: dict = {"score": [], "reentrant": []}
+
+    async def timed(coro):
+        t0 = time.perf_counter()
+        out = await coro
+        return out, (time.perf_counter() - t0) * 1e3
+
+    @app.reasoner()
+    async def ask(prompt: str, max_new_tokens: int) -> dict:
+        out, ms = await timed(app.ai(prompt, max_new_tokens=max_new_tokens))
+        return {"tokens": out["tokens"], "text": out["text"], "ai_ms": ms}
+
+    @app.reasoner()
+    async def chat(messages: list[dict[str, str]], max_new_tokens: int) -> dict:
+        out, ms = await timed(app.ai(messages=messages, max_new_tokens=max_new_tokens))
+        return {"tokens": out["tokens"], "ai_ms": ms}
+
+    @app.reasoner()
+    async def structured(prompt: str, max_new_tokens: int) -> dict:
+        out, ms = await timed(app.ai(prompt, schema=GATEWAY_SDK_SCHEMA,
+                                     max_new_tokens=max_new_tokens))
+        return {"tokens": out["tokens"], "parsed": out["parsed"], "ai_ms": ms}
+
+    @app.reasoner()
+    async def stream(prompt: str, max_new_tokens: int) -> dict:
+        t0 = time.perf_counter()
+        frames = [f async for f in await app.ai(prompt, max_new_tokens=max_new_tokens,
+                                                stream=True)]
+        ms = (time.perf_counter() - t0) * 1e3
+        assert frames and frames[-1].get("terminal"), frames[-1:]
+        streamed = [f["token"] for f in frames[:-1] if f["token"] is not None
+                    and f["token"] >= 0 and f["finish_reason"] != "stop"]
+        return {"tokens": frames[-1]["result"]["tokens"], "streamed": streamed, "ai_ms": ms}
+
+    @app.reasoner()
+    async def branched(prompt: str, max_new_tokens: int, verifier: str | None = None) -> dict:
+        policy = {"type": "best_of_n"} if verifier is None else {"type": "best_of_n",
+                                                                 "verifier": verifier}
+        out, ms = await timed(app.ai(prompt, max_new_tokens=max_new_tokens, temperature=0.9,
+                                     n_branches=GATEWAY_BRANCHES, branch_policy=policy))
+        return {"tokens": out["tokens"], "text": out["text"], "branches": out["branches"],
+                "ai_ms": ms}
+
+    @app.reasoner()
+    async def consult(candidates: list[str]) -> dict:
+        return await app.call(GATEWAY_JUDGE, task="rerank", candidates=candidates,
+                              scores=[0.0] * len(candidates))
+
+    @judge.reasoner()
+    def score(task: str, candidates: list[str], scores: list[float]) -> dict:
+        best = judge_pick(candidates)
+        seen["score"].append({"task": task, "candidates": candidates, "scores": scores,
+                              "best": best})
+        return {"best": best}
+
+    @judge.reasoner()
+    def fail(task: str, candidates: list[str], scores: list[float]) -> dict:
+        raise RuntimeError("this judge always fails")
+
+    @judge.reasoner()
+    async def reentrant(task: str, candidates: list[str], scores: list[float]) -> dict:
+        out = await judge.ai("judge: " + candidates[0][:32], max_new_tokens=4)
+        seen["reentrant"].append(out["tokens"])
+        return {"best": judge_pick(candidates)}
+
+    return app, judge, seen
+
+
+def logprob_winner(branches: dict) -> int:
+    """The branch a group without a verifier picks: the best cumulative
+    logprob, the lowest index on a tie (``BranchGroup.candidates``)."""
+    scores = {int(k): v for k, v in branches["scores"].items()}
+    return min(scores, key=lambda i: (-scores[i], i))
+
+
+def _run_execution(cp_port: int, run_id: str, target: str) -> dict:
+    """The execution of ``target`` in run ``run_id``."""
+    st, doc = _http(cp_port, "GET", f"/api/v1/executions?run_id={run_id}")
+    assert st == 200, (st, doc)
+    hits = [e for e in doc["executions"] if e["target"] == target]
+    assert len(hits) == 1, (target, [e["target"] for e in doc["executions"]])
+    return hits[0]
+
+
+def gateway_sdk(cp_port: int, agents: "AgentLoop", app, judge, seen: dict, backend,
+                node_id: str, direct, text, new: int, prompts: tuple, timeout: float) -> dict:
+    """(g) and (h) of ``phase_gateway``: the port's SDK agents registered
+    with the phase's control plane, calling its node."""
+    out: dict = {"g": {}, "h": {}}
+    gen = f"{node_id}.generate"
+    for a in (app, judge):
+        agents.call(a.start(), timeout)
+    try:
+        # (g) each ai() form through the gateway: the same greedy tokens as
+        # a direct POST of the same payload; the run's DAG app.* -> generate;
+        # the SDK's own host ms (the ai() call less its execution's
+        # gateway.execute span)
+        from agentfield_tpu_torch.sdk.structured import schema_instruction
+
+        sdk_ms: dict = {}
+        for n in prompts:
+            p = text(n)
+            msgs = [{"role": "system", "content": "be brief"}, {"role": "user", "content": p}]
+            forms = {
+                "ask": ({"prompt": p}, sdk_payload(prompt=p)),
+                "chat": ({"messages": msgs}, sdk_payload(messages=msgs)),
+                "structured": ({"prompt": p}, sdk_payload(
+                    prompt=p + schema_instruction(GATEWAY_SDK_SCHEMA),
+                    response_schema=GATEWAY_SDK_SCHEMA)),
+                "stream": ({"prompt": p}, sdk_payload(prompt=p)),
+            }
+            for form, (args, payload) in forms.items():
+                k = max(new, GATEWAY_SCHEMA_NEW) if form == "structured" else new
+                want = direct({**payload, "max_new_tokens": k})
+                st, doc = _http(cp_port, "POST", f"/api/v1/execute/app.{form}",
+                                {"input": {**args, "max_new_tokens": k}}, timeout=timeout)
+                assert st == 200 and doc["status"] == "completed", (form, st, doc)
+                res = doc["result"]
+                assert res["tokens"] == want, f"app.{form} ({n}): SDK tokens != direct"
+                if form == "structured":
+                    assert isinstance(res["parsed"]["ok"], bool), res["parsed"]
+                if form == "stream":
+                    assert res["streamed"] == want, f"app.stream ({n}): frames != direct"
+                child = _run_execution(cp_port, doc["run_id"], gen)
+                assert child["parent_execution_id"] == doc["execution_id"], child
+                st, dag = _http(cp_port, "GET", f"/api/v1/workflows/{doc['run_id']}/dag")
+                assert st == 200, (st, dag)
+                edges = {(e["from"], e["to"]) for e in dag["edges"]}
+                assert (doc["execution_id"], child["execution_id"]) in edges, dag["edges"]
+                assert {x["target"] for x in dag["nodes"]} == {f"app.{form}", gen}, dag["nodes"]
+                st, tr = _http(cp_port, "GET", f"/api/v1/executions/{child['execution_id']}/trace")
+                assert st == 200, (st, tr)
+                gw = {s["name"]: s for s in tr["spans"]}["gateway.execute"]["dur_ms"]
+                sdk_ms.setdefault(form, []).append(res["ai_ms"] - gw)
+        # app.call into the judge, its DAG edge
+        cands = [text(8) for _ in range(3)]
+        st, doc = _http(cp_port, "POST", "/api/v1/execute/app.consult",
+                        {"input": {"candidates": cands}}, timeout=timeout)
+        assert st == 200 and doc["status"] == "completed", (st, doc)
+        assert doc["result"] == {"best": judge_pick(cands)}, doc["result"]
+        child = _run_execution(cp_port, doc["run_id"], GATEWAY_JUDGE)
+        assert child["parent_execution_id"] == doc["execution_id"], child
+        out["g"] = {"sdk_ms": sdk_ms, "forms": len(forms), "prompts": list(prompts)}
+        # (h) the branch verifier: one plain branched call, then one verified
+        # by each judge; pages back and one verifier call each
+        _wait_idle(backend)
+        free0 = backend.engine.allocator.free_pages
+        calls0 = backend.engine.stats["branch_verifier_calls_total"]
+        p = text(GATEWAY_BRANCH_PROMPT)
+        runs = {}
+        # the first branched call captures its widths' graphs: one untimed,
+        # then plain and verified calls in turns for the verifier's added ms
+        cases = [("warm", None)] + [(f"{k}{j}", v) for j in range(GATEWAY_VERIFIER_TURNS)
+                                    for k, v in (("plain", None), ("judge", GATEWAY_JUDGE))]
+        cases += [("fail", "judge.fail"), ("missing", "nobody.score"),
+                  ("reentrant", "judge.reentrant")]
+        for name, verifier in cases:
+            n_seen = len(seen["score"])
+            st, doc = _http(cp_port, "POST", "/api/v1/execute/app.branched",
+                            {"input": {"prompt": p, "max_new_tokens": new,
+                                       "verifier": verifier}}, timeout=timeout)
+            assert st == 200 and doc["status"] == "completed", (name, st, doc)
+            res = doc["result"]
+            br = res["branches"]
+            assert br["n"] == GATEWAY_BRANCHES and 0 < len(res["tokens"]) <= new, (name, br)
+            if name.startswith("judge"):
+                assert br["verifier_used"] is True, br
+                assert len(seen["score"]) == n_seen + 1, "the judge was not called once"
+                got = seen["score"][-1]
+                assert got["task"] == "rerank" and 1 < len(got["candidates"]) <= GATEWAY_BRANCHES
+                assert res["text"] == got["candidates"][got["best"]], \
+                    "the winner is not the candidate the judge picked"
+            elif name == "reentrant":
+                assert br["verifier_used"] is True, br
+                assert seen["reentrant"] and len(seen["reentrant"][-1]) == 4, seen["reentrant"]
+            else:
+                assert br["verifier_used"] is False, (name, br)
+                assert br["winner"] == logprob_winner(br), (name, br)
+            runs[name] = {"ai_ms": res["ai_ms"], "winner": br["winner"],
+                          "verifier_used": br["verifier_used"]}
+        calls = backend.engine.stats["branch_verifier_calls_total"] - calls0
+        want_calls = GATEWAY_VERIFIER_TURNS + 3
+        assert calls == want_calls, f"branch_verifier_calls_total rose by {calls}, not {want_calls}"
+        _wait_idle(backend)
+        free1 = backend.engine.allocator.free_pages
+        assert free1 == free0, f"free pages {free0} -> {free1}"
+        added = [runs[f"judge{j}"]["ai_ms"] - runs[f"plain{j}"]["ai_ms"]
+                 for j in range(GATEWAY_VERIFIER_TURNS)]
+        out["h"] = {"runs": runs, "verifier_calls": calls, "free_pages": free1,
+                    "added_ms": added}
+    finally:
+        for a in (app, judge):
+            agents.call(a.stop(), timeout)
+    return out
+
+
+def _free_tcp_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _pid_alive(pid: int) -> bool:
+    try:
+        os.kill(pid, 0)
+    except ProcessLookupError:
+        return False
+    except PermissionError:
+        return True
+    try:  # a zombie (exited, not yet reaped by its parent) is gone
+        with open(f"/proc/{pid}/stat") as f:
+            return f.read().rsplit(")", 1)[1].split()[0] != "Z"
+    except OSError:
+        return False
+
+
+def _compute_apps() -> dict:
+    """``nvidia-smi --query-compute-apps=pid,used_memory``: its text and the
+    pids it lists, one entry a process with a context on the card."""
+    smi = subprocess.run(["nvidia-smi", "--query-compute-apps=pid,used_memory",
+                          "--format=csv"], capture_output=True, text=True, timeout=60)
+    pids = [int(ln.split(",")[0]) for ln in smi.stdout.splitlines()[1:]
+            if ln.split(",")[0].strip().isdigit()]
+    return {"text": smi.stdout.strip(), "pids": pids}
+
+
+def cli_quickstart(device: str, model: str = CLI_MODEL, new: int = CLI_NEW,
+                   timeout: float = CLI_TIMEOUT_S) -> dict:
+    """(i) of ``phase_gateway``: the README quickstart through the port's
+    CLI (``python -m agentfield_tpu_torch.cli``) as subprocesses in a
+    temporary data dir: ``server --detach``, ``model --detach`` (the card;
+    ``--cpu`` when ``device`` is the CPU), ``init myagent``, ``run
+    myagent``, ``status``, then ``POST /api/v1/execute/myagent.respond``
+    answers with text and ``model``; on the card ``nvidia-smi`` lists the
+    node's pid (or, in a sandbox whose ``nvidia-smi`` shows every process
+    under one pid, one compute app more than before the node started), the
+    node's log says it serves on ``cuda``, and the kernel build dir gains no
+    library (the node reused the built ones); ``stop`` leaves no process
+    behind. Each step's wall
+    seconds, readiness waits included."""
+    import shutil
+    import tempfile
+
+    from agentfield_tpu_torch.ops.cuda import build
+
+    on_card = device != "cpu"
+    home = tempfile.mkdtemp(prefix="aftpu-quickstart-")
+    env = dict(os.environ, HOME=home, PYTHONPATH=ROOT, AGENTFIELD_DRAIN_GRACE="1",
+               AGENTFIELD_MODEL_CPU="0")
+    if not on_card:
+        env.update(OMP_NUM_THREADS="1", MKL_NUM_THREADS="1")
+    port = _free_tcp_port()
+    url = f"http://127.0.0.1:{port}"
+    reg_path = os.path.join(home, ".agentfield_tpu", "processes.json")
+    built0 = sorted(os.listdir(build.BUILD_DIR)) if os.path.isdir(build.BUILD_DIR) else []
+    steps: dict = {}
+    out: dict = {"steps_s": steps, "model": model}
+
+    def cli(*args) -> str:
+        p = subprocess.run([sys.executable, "-m", "agentfield_tpu_torch.cli", *args], cwd=home,
+                           env=env, capture_output=True, text=True, timeout=timeout)
+        assert p.returncode == 0, (args, p.stdout[-2000:], p.stderr[-2000:])
+        return p.stdout
+
+    def wait_for(pred, what: str):
+        t0 = time.monotonic()
+        while True:
+            try:
+                got = pred()
+            except (OSError, ValueError, KeyError):
+                got = None
+            if got:
+                return got
+            logs = os.path.join(home, ".agentfield_tpu", "logs")
+            assert time.monotonic() - t0 < timeout, (what, {
+                f: open(os.path.join(logs, f)).read()[-1500:] for f in os.listdir(logs)})
+            time.sleep(0.2)
+
+    def node_active(node_id: str):
+        st, doc = _http(port, "GET", f"/api/v1/nodes/{node_id}", timeout=10)
+        return st == 200 and doc["node"]["status"] == "active"
+
+    def pids() -> dict:
+        with open(reg_path) as f:
+            return {k: v["pid"] for k, v in json.load(f).items()}
+
+    launched: dict = {}
+    try:
+        t = time.perf_counter()
+        cli("server", "--detach", "--port", str(port))
+        wait_for(lambda: _http(port, "GET", "/api/v1/nodes", timeout=10)[0] == 200,
+                 "the control plane never answered")
+        steps["server"] = time.perf_counter() - t
+        launched.update(pids())
+        apps0 = _compute_apps() if on_card else None
+        t = time.perf_counter()
+        cli("model", "--detach", "--model", model, "--url", url, *(() if on_card else ("--cpu",)))
+        launched.update(pids())
+        wait_for(lambda: node_active("model"), "the model node never registered")
+        steps["model"] = time.perf_counter() - t
+        t = time.perf_counter()
+        cli("init", "myagent")
+        steps["init"] = time.perf_counter() - t
+        t = time.perf_counter()
+        cli("run", "myagent", "--url", url)
+        launched.update(pids())
+        wait_for(lambda: node_active("myagent"), "myagent never registered")
+        steps["run"] = time.perf_counter() - t
+        t = time.perf_counter()
+        status = cli("status", "--url", url)
+        assert "model" in status and "myagent" in status, status
+        steps["status"] = time.perf_counter() - t
+        t = time.perf_counter()
+        st, doc = _http(port, "POST", "/api/v1/execute/myagent.respond",
+                        {"input": {"prompt": "hello from the quickstart",
+                                   "max_new_tokens": new}}, timeout=timeout)
+        assert st == 200 and doc["status"] == "completed", (st, doc)
+        assert isinstance(doc["result"]["text"], str) and doc["result"]["model"] == model, doc
+        steps["execute"] = time.perf_counter() - t
+        if on_card:
+            apps = _compute_apps()
+            out["compute_apps"] = apps
+            # the node's pid, where the sandbox's nvidia-smi shows real pids; where it
+            # maps every process to one pid, one compute app more than before the node
+            assert launched["model"] in apps["pids"] or (
+                len(apps["pids"]) == len(apps0["pids"]) + 1), \
+                f"nvidia-smi lists no compute app of the node {launched['model']}: {apps}"
+            with open(os.path.join(home, ".agentfield_tpu", "logs", "model.log")) as f:
+                assert "(cuda)" in f.read(), "the CLI's node did not serve on the card"
+            built1 = sorted(os.listdir(build.BUILD_DIR))
+            assert built1 == built0, f"the node built kernels again: {set(built1) - set(built0)}"
+        t = time.perf_counter()
+        cli("stop")
+        wait_for(lambda: not any(_pid_alive(p) for p in launched.values()),
+                 f"a process outlived stop: {launched}")
+        steps["stop"] = time.perf_counter() - t
+        out["pids"] = launched
+    finally:
+        for pid in launched.values():
+            if _pid_alive(pid):
+                try:
+                    os.killpg(pid, 9)  # each was started in a session of its own
+                except OSError:
+                    pass
+        shutil.rmtree(home, ignore_errors=True)
+    return out
+
+
 def phase_gateway(results, state, seed: int, device: str = "cuda",
                   model_name: str = "llama-3-8b", prompts: tuple = GATEWAY_PROMPTS,
                   new: int = GATEWAY_NEW, burst: int = GATEWAY_BURST,
                   num_pages: int = GATEWAY_PAGES, max_pages_per_seq: int = 128,
-                  grace_s: float = GATEWAY_GRACE_S, heartbeat_interval: float = 0.5):
+                  grace_s: float = GATEWAY_GRACE_S, heartbeat_interval: float = 0.5,
+                  sdk_prompts: tuple = GATEWAY_SDK_PROMPTS, cli_model: str = CLI_MODEL):
     """The port's control plane (``agentfield_tpu_torch.control_plane``: the
     gateway, its channel half, the registry, SQLite storage and the /api/v1
     surface) in-process on a loop of its own (``ControlPlaneThread``), in
@@ -4364,9 +4771,33 @@ def phase_gateway(results, state, seed: int, device: str = "cuda",
         host ms;
     (e) ``burst`` concurrent streamed executes: all complete; executions per
         second and TTFT p50/p99 as the agent sees them (first token frame);
+    (g) two agent programs on the port's SDK (``sdk_agents``: ``app`` and
+        ``judge``, on a loop of their own) registered with the same control
+        plane: ``POST /api/v1/execute/app.{ask,chat,structured,stream}``
+        (``ai()`` with a prompt, ``messages``, a ``schema`` that gives
+        ``parsed``, ``stream=True``) for each of ``sdk_prompts`` returns the
+        tokens of a direct ``POST /reasoners/generate`` of the same greedy
+        payload, the run's DAG has the edge app.* -> the node's generate,
+        and the SDK's own host ms is each ``ai()`` call's wall time less
+        its execution's ``gateway.execute`` span; ``app.consult`` reaches
+        ``judge.score`` through ``app.call``;
+    (h) the branch verifier: ``ai(n_branches=4, temperature=0.9,
+        branch_policy={"type": "best_of_n", "verifier": ...})`` without a
+        verifier, then verified by ``judge.score`` (``verifier_used``, the
+        winner is the candidate the judge picked among the texts it got),
+        ``judge.fail`` and an unregistered target (``verifier_used`` false,
+        the logprob winner), and ``judge.reentrant`` (calls ``ai()`` on the
+        same node while the group waits); ``branch_verifier_calls_total``
+        up by one a verified call, ``free_pages`` back; the verifier's added
+        ms is a verified call's less the plain one's before it, in turns
+        after one untimed call;
     (f) ``server.stop(grace_s)``: the registry shows the node removed (or
         stopping), no execution left queued or running, the dead letter
-        empty."""
+        empty;
+    (i) the README quickstart through the port's CLI (``cli_quickstart``:
+        ``server``, ``model --model cli_model`` on the card, ``init``,
+        ``run``, ``status``, an execute of ``myagent.respond``, ``stop``),
+        each step's wall seconds."""
     import numpy as np
     import torch
 
@@ -4541,6 +4972,31 @@ def phase_gateway(results, state, seed: int, device: str = "cuda",
         out["a"] = {"stats_keys": len(stats),
                     "hist_counts": {n: float(m.group(1)) for n, m in counts.items()}}
         marks["metrics"] = time.perf_counter() - t_main
+        # (g), (h): agent programs on the port's SDK, the branch verifier
+        def direct(payload: dict) -> list[int]:
+            st, doc = _http(port, "POST", "/reasoners/generate", {"input": payload})
+            assert st == 200, (st, doc)
+            return doc["result"]["tokens"]
+
+        agents = AgentLoop()
+        try:
+            app, judge, seen = sdk_agents(cp_url)
+            out.update(gateway_sdk(cp_port, agents, app, judge, seen, backend, node_id, direct,
+                                   text, new, sdk_prompts, timeout=600.0))
+        finally:
+            agents.stop()
+        marks["g_h"] = time.perf_counter() - t_main
+        card = results.get("card", "no card")
+        g, h = out["g"], out["h"]
+        sdk = {k: f"p50 {_pct(v, 50):.2f} min {min(v):.2f} max {max(v):.2f}"
+               for k, v in g["sdk_ms"].items()}
+        log(f"[gateway (g)] {card}: the port's SDK, {g['forms']} ai() forms x prompts "
+            f"{g['prompts']} through the gateway = direct tokens, DAG app.* -> generate; the "
+            f"SDK's own host ms (ai() wall - gateway.execute) {sdk}")
+        log(f"[gateway (h)] {card}: verifier runs {h['runs']}; branch_verifier_calls_total "
+            f"+{h['verifier_calls']}, free pages back to {h['free_pages']}; the verifier's "
+            f"added ms {[round(x, 2) for x in h['added_ms']]} (a verified call - the plain "
+            f"call before it, {GATEWAY_VERIFIER_TURNS} turns after an untimed one)")
         # (f) the node stops: deregistered, nothing left running, no dead letter
         summary = server.stop(grace_s)
         stopped = True
@@ -4553,8 +5009,14 @@ def phase_gateway(results, state, seed: int, device: str = "cuda",
         assert st == 200 and dead["executions"] == [], dead
         out["f"] = {"stop": summary, "registry_status": st}
         main_s = marks["f"] = time.perf_counter() - t_main
-        out["section_end_s"] = marks  # seconds from the main path's start
         launches = rpa.launch_counts()  # the main path's, read now
+        # (i) the README quickstart through the port's CLI, its own processes
+        out["i"] = i = cli_quickstart(device, cli_model)
+        marks["i"] = time.perf_counter() - t_main
+        log(f"[gateway (i)] {card}: the quickstart through the port's CLI ({i['model']}): "
+            f"step seconds {{{', '.join(f'{k}: {v:.2f}' for k, v in i['steps_s'].items())}}}; "
+            f"compute apps {i.get('compute_apps', 'not on the card')!r}")
+        out["section_end_s"] = marks  # seconds from the main path's start
     finally:
         if not stopped:
             server.stop(grace_s)

@@ -1,0 +1,319 @@
+"""The port's CLI (``python -m agentfield_tpu_torch.cli``), ``config.py``,
+``cli/packages.py`` and the engine's implementation names, on the CPU:
+
+- ``build_parser()``: the JAX CLI's subcommands and flags;
+- ``load_config`` equals the JAX one on files written here (PyYAML there,
+  the port's YAML subset here), env overrides included;
+- ``init`` writes the JAX CLI's files (Python, C++, Go), the Python
+  template's import line apart;
+- the README quickstart (``server``, ``model --cpu --model llama-tiny``,
+  ``init``, ``run``, ``status``, an execute of ``myagent.respond``,
+  ``stop``) ends in an answered execute and leaves no process;
+- ``install``/``uninstall``/``packages`` on a local package; ``vc`` and
+  ``mcp`` refuse, naming their ROADMAP items; ``model`` without ``--cpu`` on
+  a machine without CUDA exits non-zero;
+- ``EngineConfig``'s ``attn_impl``, ``prefill_impl``, ``chunk_attn_impl``,
+  ``kv_write_impl`` and ``compile_cache_dir`` held against the JAX engine.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import os
+import pathlib
+import subprocess
+import sys
+import time
+import urllib.request
+
+import pytest
+
+from agentfield_tpu import config as jax_config
+from agentfield_tpu.cli import main as jax_cli
+from agentfield_tpu.cli import packages as jax_packages
+from agentfield_tpu_torch import config as port_config
+from agentfield_tpu_torch.cli import main as port_cli
+from agentfield_tpu_torch.cli import packages as port_packages
+from chip_smoke import _pid_alive
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+
+
+def _shape(parser: argparse.ArgumentParser) -> dict:
+    """Every subcommand's option strings and positionals, recursively."""
+    out = {"options": sorted(s for a in parser._actions for s in a.option_strings),
+           "positionals": [a.dest for a in parser._actions
+                           if not a.option_strings and not isinstance(a, argparse._SubParsersAction)],
+           "sub": {}}
+    for a in parser._actions:
+        if isinstance(a, argparse._SubParsersAction):
+            out["sub"] = {name: _shape(p) for name, p in a.choices.items()}
+    return out
+
+
+def test_parser_has_the_jax_subcommands_and_flags():
+    assert _shape(port_cli.build_parser()) == _shape(jax_cli.build_parser())
+    args = port_cli.build_parser().parse_args(["model", "--model", "x", "--cpu", "--detach"])
+    assert (args.model, args.cpu, args.detach, args.fn) == ("x", True, True, port_cli.cmd_model)
+
+
+CONFIGS = [
+    "",
+    "server:\n  host: 0.0.0.0\n  port: 9100\n  webhook_secret: s3cret\n",
+    "# tuned\nexecution:\n  agent_timeout: 12.5\n  async_workers: 4\n"
+    "presence:\n  heartbeat_ttl: 30\ndata_dir: /tmp/af-data\n",
+    "model_node:\n  model: llama-tiny\n  num_pages: 256\n  max_pages_per_seq: 8\n"
+    "  attn_impl: pallas\n  kv_quant_dtype: int8\n  vision: vit-tiny\n  spec_k: 3\n"
+    "  grammar_whitespace: yes\n  prefill_chunk: ~\n",
+    "---\nserver:\n  db_path: '~/x.db'\nmodel_node: {}\n",
+]
+ENVS = [{}, {"AGENTFIELD_SERVER__PORT": "9999", "AGENTFIELD_MODEL_NODE__TP": "2",
+             "AGENTFIELD_EXECUTION__AGENT_TIMEOUT": "3.5",
+             "AGENTFIELD_MODEL_NODE__GRAMMAR_WHITESPACE": "true", "OTHER": "x"}]
+
+
+@pytest.mark.parametrize("text", CONFIGS)
+@pytest.mark.parametrize("env", ENVS, ids=["no-env", "env"])
+def test_load_config_equals_jax(tmp_path, text, env):
+    path = tmp_path / "cfg.yaml"
+    path.write_text(text)
+    want = jax_config.load_config(str(path), env=env)
+    got = port_config.load_config(str(path), env=env)
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    assert got.expanded_data_dir() == want.expanded_data_dir()
+
+
+def test_load_config_refusals_equal_jax(tmp_path):
+    path = tmp_path / "cfg.yaml"
+    for text in ("server:\n  nope: 1\n", "- a\n- b\n"):
+        path.write_text(text)
+        with pytest.raises(ValueError) as j:
+            jax_config.load_config(str(path), env={})
+        with pytest.raises(ValueError) as p:
+            port_config.load_config(str(path), env={})
+        assert str(j.value) == str(p.value)
+
+
+@pytest.mark.parametrize("lang", ["python", "cpp", "go"])
+def test_init_writes_the_jax_files(tmp_path, monkeypatch, lang):
+    trees = {}
+    for tag, cli in (("jax", jax_cli), ("port", port_cli)):
+        d = tmp_path / tag
+        d.mkdir()
+        monkeypatch.chdir(d)
+        assert cli.main(["init", "myagent", "--lang", lang]) == 0
+        trees[tag] = {p.name: p.read_text() for p in sorted((d / "myagent").iterdir())}
+    assert trees["jax"].keys() == trees["port"].keys()
+    for name in trees["jax"]:
+        j, p = trees["jax"][name].splitlines(), trees["port"][name].splitlines()
+        diff = [(a, b) for a, b in zip(j, p) if a != b]
+        if lang == "python" and name == "main.py":
+            assert diff == [("from agentfield_tpu.sdk import Agent",
+                             "from agentfield_tpu_torch.sdk import Agent")]
+        else:
+            assert diff == [] and len(j) == len(p), name
+
+
+def _env(home: pathlib.Path) -> dict:
+    return dict(os.environ, HOME=str(home), PYTHONPATH=str(ROOT), OMP_NUM_THREADS="1",
+                MKL_NUM_THREADS="1", AGENTFIELD_DRAIN_GRACE="1")
+
+
+def _cli(home, *args, check=True):
+    p = subprocess.run([sys.executable, "-m", "agentfield_tpu_torch.cli", *args], cwd=home,
+                       env=_env(home), capture_output=True, text=True, timeout=120)
+    if check:
+        assert p.returncode == 0, (args, p.stdout, p.stderr)
+    return p
+
+
+def _get(url: str) -> dict:
+    with urllib.request.urlopen(url, timeout=10) as r:
+        return json.loads(r.read())
+
+
+def test_quickstart_on_the_cpu(tmp_path):
+    """README's quickstart through the port's CLI, the model on the CPU."""
+    from tests.helpers_cp import free_port
+
+    port = free_port()
+    url = f"http://127.0.0.1:{port}"
+    reg = tmp_path / ".agentfield_tpu" / "processes.json"
+    pids: dict = {}
+
+    def wait(pred, what):
+        t0 = time.monotonic()
+        while True:
+            try:
+                if pred():
+                    return
+            except OSError:
+                pass
+            assert time.monotonic() - t0 < 60, what
+            time.sleep(0.1)
+
+    def active(node):
+        return _get(f"{url}/api/v1/nodes/{node}")["node"]["status"] == "active"
+
+    try:
+        _cli(tmp_path, "server", "--detach", "--port", str(port))
+        pids.update({k: v["pid"] for k, v in json.loads(reg.read_text()).items()})
+        wait(lambda: _get(f"{url}/api/v1/nodes") is not None, "no control plane")
+        _cli(tmp_path, "model", "--detach", "--cpu", "--model", "llama-tiny", "--url", url)
+        pids.update({k: v["pid"] for k, v in json.loads(reg.read_text()).items()})
+        wait(lambda: active("model"), "the model node never registered")
+        assert "created myagent/" in _cli(tmp_path, "init", "myagent").stdout
+        _cli(tmp_path, "run", "myagent", "--url", url)
+        pids.update({k: v["pid"] for k, v in json.loads(reg.read_text()).items()})
+        wait(lambda: active("myagent"), "myagent never registered")
+        status = _cli(tmp_path, "status", "--url", url).stdout
+        assert "model" in status and "myagent" in status, status
+        assert "running" in _cli(tmp_path, "list").stdout
+        req = urllib.request.Request(
+            f"{url}/api/v1/execute/myagent.respond", method="POST",
+            data=json.dumps({"input": {"prompt": "hello", "max_new_tokens": 5}}).encode(),
+            headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=60) as r:
+            doc = json.loads(r.read())
+        assert doc["status"] == "completed", doc
+        assert isinstance(doc["result"]["text"], str) and doc["result"]["model"] == "llama-tiny"
+        req = urllib.request.Request(  # the skill, through the gateway too
+            f"{url}/api/v1/execute/myagent.word_count", method="POST",
+            data=json.dumps({"input": {"text": "a b c"}}).encode(),
+            headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=60) as r:
+            assert json.loads(r.read())["result"] == 3
+        assert "(cpu)" in _cli(tmp_path, "logs", "model").stdout
+        _cli(tmp_path, "stop")
+        wait(lambda: not any(_pid_alive(p) for p in pids.values()), f"left running: {pids}")
+        assert "no managed processes" in _cli(tmp_path, "list").stdout
+    finally:
+        for pid in pids.values():
+            if _pid_alive(pid):
+                os.killpg(pid, 9)
+
+
+def test_model_without_cpu_and_without_cuda_exits_nonzero(tmp_path):
+    import torch
+
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA device")
+    p = _cli(tmp_path, "model", "--model", "llama-tiny", check=False)
+    assert p.returncode != 0 and "no CUDA device" in p.stderr, (p.stdout, p.stderr)
+
+
+def test_vc_and_mcp_refuse_naming_their_items(tmp_path):
+    vc = _cli(tmp_path, "vc", "verify", "doc.json", check=False)
+    assert vc.returncode == 1 and "ROADMAP A7 1" in vc.stderr
+    mcp = _cli(tmp_path, "mcp", "generate", "srv", check=False)
+    assert mcp.returncode == 1 and "ROADMAP A7 2" in mcp.stderr
+
+
+def test_packages_install_uninstall_as_jax(tmp_path):
+    src = tmp_path / "src"
+    src.mkdir()
+    (src / "agentfield.yaml").write_text("name: pkg1\ndescription: 'a package'  # c\n")
+    (src / "main.py").write_text("print('hi')\n")
+    (src / "__pycache__").mkdir()
+    regs = {}
+    for tag, mod in (("jax", jax_packages), ("port", port_packages)):
+        data = tmp_path / tag
+        entry = mod.install(str(src), data)
+        with pytest.raises(mod.PackageError, match="already installed"):
+            mod.install(str(src), data)
+        mod.install(str(src), data, force=True)
+        assert sorted(p.name for p in (data / "packages" / "pkg1").iterdir()) == [
+            "agentfield.yaml", "main.py"]
+        assert mod.resolve_entrypoint("pkg1", data) == data / "packages" / "pkg1" / "main.py"
+        reg = mod.load_registry(data)
+        regs[tag] = {k: {f: v for f, v in e.items() if f not in ("path", "installed_at")}
+                     for k, e in reg.items()}
+        assert entry["description"] == "a package"
+        assert mod.uninstall("pkg1", data) and not mod.uninstall("pkg1", data)
+        assert mod.load_registry(data) == {}
+    assert regs["jax"] == regs["port"]
+    bad = tmp_path / "bad"
+    bad.mkdir()
+    (bad / "agentfield.yaml").write_text("name: ../escape\n")
+    with pytest.raises(port_packages.PackageError, match="invalid package name"):
+        port_packages.install(str(bad), tmp_path / "port")
+    home = tmp_path / "home"
+    home.mkdir()
+    assert "installed pkg1" in _cli(home, "install", str(src)).stdout
+    assert "pkg1" in _cli(home, "packages").stdout
+    assert "uninstalled pkg1" in _cli(home, "uninstall", "pkg1").stdout
+    assert "no installed packages" in _cli(home, "packages").stdout
+
+
+# -- EngineConfig's implementation names against the JAX engine -----------
+
+IMPL_CASES = [{}, {"attn_impl": "pallas"}, {"attn_impl": "ring"}, {"attn_impl": "bogus"},
+              {"prefill_impl": "flash"}, {"prefill_impl": "ring"},
+              {"chunk_attn_impl": "pallas"}, {"chunk_attn_impl": "ref"},
+              {"chunk_attn_impl": "bogus"}, {"kv_write_impl": "pallas"},
+              {"attn_impl": "ref", "prefill_impl": "flash"},
+              {"compile_cache_dir": "/nonexistent/cache"}]
+
+
+@pytest.mark.parametrize("case", IMPL_CASES, ids=lambda c: ",".join(f"{k}={v}" for k, v in
+                                                                     c.items()) or "defaults")
+def test_engine_impl_names_as_the_jax_engine(case, monkeypatch):
+    import jax
+
+    from agentfield_tpu.models.configs import get_config as jax_get_config
+    from agentfield_tpu.models.llama import init_params as jax_init
+    from agentfield_tpu.serving import engine as jax_engine
+    from agentfield_tpu_torch.ops.cuda import build
+    from agentfield_tpu_torch.serving import engine as port_engine
+
+    monkeypatch.setattr(build, "BUILD_DIR", build.BUILD_DIR)  # restored after
+    monkeypatch.setattr(jax.config, "update", lambda *a, **k: None)  # no global cache dir
+    cfg = jax_get_config("llama-tiny")
+    ecfg_kw = dict(max_batch=2, num_pages=16, max_pages_per_seq=4, **case)
+    try:
+        eng = jax_engine.InferenceEngine(jax_init(cfg, jax.random.PRNGKey(0)), cfg,
+                                         jax_engine.EngineConfig(**ecfg_kw))
+        want = ("ok", eng.ecfg.chunk_attn_impl)
+    except ValueError as e:
+        want = ("ValueError", str(e))
+    try:
+        got = port_engine.resolve_impls(port_engine.EngineConfig(**ecfg_kw))
+        got = ("ok", got.chunk_attn_impl)
+    except ValueError as e:
+        got = ("ValueError", str(e))
+    except NotImplementedError as e:
+        got = ("NotImplementedError", str(e))
+    if case.get("prefill_impl") == "ring":
+        # the JAX engine needs a mesh with a 'seq' axis; the port names its item
+        assert want[0] == "ValueError" and "requires a mesh" in want[1]
+        assert got == ("NotImplementedError", got[1]) and "ROADMAP A5: ring attention" in got[1]
+    else:
+        assert got == want
+    if case.get("compile_cache_dir"):
+        assert str(build.BUILD_DIR) == case["compile_cache_dir"]
+
+
+def test_impl_names_select_no_path():
+    """The names are read by ``resolve_impls`` alone: no model, op or engine
+    code of the port branches on them (a kernel wrapper chooses by the
+    tensor's device only), so no value selects the plain version on the
+    card."""
+    pkg = ROOT / "agentfield_tpu_torch"
+    readers = []
+    for path in pkg.rglob("*.py"):
+        text = path.read_text()
+        for name in ("attn_impl", "prefill_impl", "chunk_attn_impl", "kv_write_impl",
+                     "compile_cache_dir"):
+            for line in text.splitlines():
+                if f".{name}" in line and "moe_prefill_impl" not in line:
+                    readers.append((path.relative_to(pkg).as_posix(), name))
+    # the CLI passes the config file's values into EngineConfig; the engine reads them
+    assert {r for r, _ in readers} <= {"serving/engine.py", "cli/main.py"}, readers
+    src = (pkg / "serving" / "engine.py").read_text()
+    body = src[src.index("def resolve_impls"):src.index("@dataclasses.dataclass\nclass Request")]
+    outside = [ln for ln in src.replace(body, "").splitlines()
+               if any(f"ecfg.{n}" in ln for n in ("attn_impl", "prefill_impl", "chunk_attn_impl",
+                                                   "kv_write_impl", "compile_cache_dir"))]
+    assert outside == [], outside

@@ -21,7 +21,9 @@ then calls it the way agent programs do:
 - SIGTERM: the child exits 0 and the port's registry no longer lists it
   (or shows it stopping).
 
-``chip_smoke.phase_gateway`` is rehearsed on the CPU at llama-tiny size.
+``chip_smoke.phase_gateway`` is rehearsed on the CPU at llama-tiny size,
+its agent programs on the port's SDK (g), the branch verifier (h) and the
+README quickstart through the port's CLI (i) included.
 """
 
 from __future__ import annotations
@@ -217,8 +219,10 @@ async def test_same_tokens_as_through_the_jax_control_plane(fleet):
 
 
 def test_phase_gateway_rehearsed_on_cpu():
-    """``chip_smoke.phase_gateway`` at llama-tiny size on the CPU: (a)-(f)
-    hold (launch counts are asserted on the card only)."""
+    """``chip_smoke.phase_gateway`` at llama-tiny size on the CPU: (a)-(i)
+    hold (launch counts, nvidia-smi and the build dir are checked on the
+    card only): (g) the port's SDK agents, (h) the branch verifier, (i) the
+    quickstart through the port's CLI with ``model --cpu``."""
     from agentfield_tpu_torch.models.configs import get_config
     from agentfield_tpu_torch.models.llama import init_params
 
@@ -228,8 +232,17 @@ def test_phase_gateway_rehearsed_on_cpu():
     threads0 = set(threading.enumerate())
     chip_smoke.phase_gateway(results, {"params": params, "cfg": cfg}, 0, device="cpu",
                              model_name="llama-tiny", prompts=(10, 30, 50), new=4, burst=4,
-                             num_pages=128, max_pages_per_seq=16)
+                             num_pages=128, max_pages_per_seq=16, sdk_prompts=(10, 40),
+                             cli_model="llama-tiny")
     g = results["gateway"]
+    assert set(g["g"]["sdk_ms"]) == {"ask", "chat", "structured", "stream"}
+    assert all(len(v) == 2 for v in g["g"]["sdk_ms"].values())
+    runs = g["h"]["runs"]
+    assert [runs[k]["verifier_used"] for k in ("plain0", "judge0", "fail", "missing",
+                                               "reentrant")] == [False, True, False, False, True]
+    assert g["h"]["verifier_calls"] == chip_smoke.GATEWAY_VERIFIER_TURNS + 3
+    assert set(g["i"]["steps_s"]) == {"server", "model", "init", "run", "status", "execute",
+                                      "stop"}
     assert len(g["b"]["gateway_own_ms"]) == 6 and g["e"]["executions_per_s"] > 0
     assert g["c"] == {"channel": 3, "post": 3}
     assert all(v > 0 for v in g["a"]["hist_counts"].values())

@@ -164,19 +164,23 @@ def test_engine_matches_jax_engine_with_node_defaults(weights):
 
 
 def test_engine_rejects_fields_it_does_not_implement():
-    # the JAX engine's implementation switches: the port has one path each
-    # (the hand-written kernel on the card, its plain version on the CPU)
-    with pytest.raises(TypeError):
-        engine.EngineConfig(attn_impl="pallas")
-    with pytest.raises(TypeError):
-        engine.EngineConfig(compile_cache_dir="/nonexistent")
+    # the JAX engine's implementation switches are accepted under their
+    # names (one path each in the port: the hand-written kernel on the card,
+    # its plain version on the CPU); what the port does not implement is
+    # refused: the removed kv_write_impl with the JAX words, ring prefill
+    # naming its ROADMAP item (tests/test_torch_cli.py holds every value
+    # against the JAX engine)
+    with pytest.raises(ValueError, match="kv_write_impl='pallas' was removed"):
+        engine.resolve_impls(engine.EngineConfig(kv_write_impl="pallas"))
+    with pytest.raises(NotImplementedError, match="ROADMAP A5: ring attention"):
+        engine.resolve_impls(engine.EngineConfig(prefill_impl="ring"))
+    assert engine.resolve_impls(engine.EngineConfig(attn_impl="pallas")).chunk_attn_impl == "pallas"
     fields = {f.name for f in dataclasses.fields(engine.EngineConfig)}
     jax_fields = {f.name for f in dataclasses.fields(jax_engine.EngineConfig)}
-    assert fields <= jax_fields
-    assert jax_fields - fields == {"attn_impl", "chunk_attn_impl", "compile_cache_dir",
-                                   "kv_write_impl", "prefill_impl"}
+    assert fields == jax_fields
     for f in ("prefix_sketch_bytes", "spec_prefill", "spec_pin_ttl", "spec_pin_budget",
-              "spec_max_candidates"):  # the cluster tier's and keep-warm's, as the JAX defaults
+              "spec_max_candidates", "attn_impl", "prefill_impl", "chunk_attn_impl",
+              "kv_write_impl", "compile_cache_dir"):  # the JAX defaults
         assert getattr(engine.EngineConfig(), f) == getattr(jax_engine.EngineConfig(), f), f
 
 

@@ -9,7 +9,9 @@ the node decodes and encodes PNG, JPEG and WAV with ``models.media_codec``
 and ``wave``; the cluster tier's KV wire reads bf16 and fp8 leaves through
 ``torch.frombuffer``), nor optax, orbax or flax (the trainer steps with
 ``torch.optim`` and checkpoints in its own safetensors format; a JAX train
-state or adapter comes across as numpy). jinja2 stays allowed: it comes with torch, and the
+state or adapter comes across as numpy), nor PyYAML (``yaml``) or jsonschema
+(the SDK validates structured output, and the CLI reads its config files,
+with its own code). jinja2 stays allowed: it comes with torch, and the
 tokenizer imports it only when it renders a chat template.
 
 The check is on the AST, by the exact top-level module name: a prefix test
@@ -27,7 +29,7 @@ import pytest
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 FORBIDDEN = {"jax", "jaxlib", "agentfield_tpu", "tools", "aiohttp", "pydantic", "safetensors",
              "transformers", "tokenizers", "regex", "websockets", "grpc", "PIL", "ml_dtypes",
-             "optax", "orbax", "flax"}
+             "optax", "orbax", "flax", "yaml", "jsonschema"}
 
 
 def _port_files() -> list[pathlib.Path]:
@@ -265,3 +267,63 @@ def test_control_plane_scan_fails_on_a_planted_aiohttp_import(tmp_path):
     assert set(bad) == {"gateway", "server"}, bad
     assert [t for _, t in bad["gateway"]] == ["aiohttp"]
     assert [t for _, t in bad["server"]] == ["grpc"]
+
+
+SDK_CLI = {"sdk": ("__init__", "agent", "client", "context", "memory_events", "multimodal",
+                   "node_client", "result_cache", "structured"),
+           "cli": ("__init__", "__main__", "main", "packages")}
+
+
+def test_guard_names_the_sdk_libraries(tmp_path):
+    """PyYAML and jsonschema, which the JAX SDK and CLI use and the card's
+    machine lacks, are named by the guard."""
+    src = tmp_path / "m.py"
+    src.write_text(
+        "import yaml\n"
+        "from jsonschema import validate\n"
+        "import jsonschema.exceptions\n"
+        "from agentfield_tpu.sdk.agent import Agent\n"
+        "from agentfield_tpu_torch.sdk import Agent as PortAgent\n"
+        "from agentfield_tpu_torch.config import load_yaml\n"
+    )
+    tops = [t for _, t in _imported_tops(src)]
+    assert [t for t in tops if t in FORBIDDEN] == [
+        "yaml", "jsonschema", "jsonschema", "agentfield_tpu"]
+
+
+def test_scan_covers_the_sdk_cli_and_config_and_they_import_only_stdlib_numpy_and_the_port():
+    """``sdk/``, ``cli/`` and ``config.py`` are scanned module by module:
+    each imports the standard library, numpy and the port only (torch too
+    only through the port: the CLI asks ``serving.model_node`` for the
+    card)."""
+    files = {str(p.relative_to(ROOT)) for p in _port_files()}
+    pkg = ROOT / "agentfield_tpu_torch"
+    for sub, names in SDK_CLI.items():
+        assert {p.stem for p in (pkg / sub).glob("*.py")} == set(names), sub
+        for name in names:
+            assert f"agentfield_tpu_torch/{sub}/{name}.py" in files
+        assert _control_plane_offences(pkg / sub) == {}, sub
+    assert "agentfield_tpu_torch/config.py" in files
+    allowed = set(sys.stdlib_module_names) | {"numpy", "agentfield_tpu_torch"}
+    assert [t for _, t in _imported_tops(pkg / "config.py") if t not in allowed] == []
+
+
+def test_the_sdk_imports_without_the_jax_libraries():
+    """``from agentfield_tpu_torch.sdk import Agent`` in a fresh interpreter
+    where aiohttp, pydantic, PyYAML and jsonschema cannot be imported."""
+    code = (
+        "import sys\n"
+        "class Block:\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        "        if name.split('.')[0] in ('aiohttp', 'pydantic', 'yaml', 'jsonschema'):\n"
+        "            raise ImportError(f'{name} is blocked')\n"
+        "sys.meta_path.insert(0, Block())\n"
+        "from agentfield_tpu_torch.sdk import Agent, AgentRouter, AIConfig, ControlPlaneClient\n"
+        "from agentfield_tpu_torch.cli.main import build_parser\n"
+        "from agentfield_tpu_torch.config import load_config\n"
+        "print('ok')\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120, env={"PATH": "/usr/bin:/bin",
+                                                      "PYTHONPATH": str(ROOT)})
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr[-2000:]
