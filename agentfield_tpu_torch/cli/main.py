@@ -8,12 +8,13 @@ pidfile registry under the data dir (reference:
 internal/infrastructure/process/manager.go).
 
 Differences from the JAX CLI, each said on stderr where it applies:
-`server` runs the port's control plane (SQLite; a Postgres DSN waits for
-ROADMAP A7 5, the keystore for A7 1, admin gRPC for A7 6); `model` serves on
+`server` runs the port's control plane with its keystore (SQLite; a
+Postgres DSN waits for ROADMAP A7 5, admin gRPC for A7 6); `model` serves on
 the card, or on the CPU with ``--cpu`` or ``AGENTFIELD_MODEL_CPU=1``, and
 exits non-zero without a CUDA device otherwise (the model's gRPC waits for
-ROADMAP A1 a); `vc` and `mcp` wait for A7 1 and A7 2. `init`'s Python
-template imports ``agentfield_tpu_torch.sdk``.
+ROADMAP A1 a); `vc verify` and `mcp generate` run on the port's
+``control_plane/identity.py`` and ``sdk/mcp.py``. `init`'s Python template
+imports ``agentfield_tpu_torch.sdk``.
 
 Run as ``python -m agentfield_tpu_torch.cli <command>``.
 """
@@ -104,8 +105,7 @@ def cmd_server(cfg: Config, args) -> int:
         print(f"[aftpu] {db.split('://')[0]} storage is not ported: it waits for "
               "ROADMAP A7 5 (storage_pg.py); give server.db_path a SQLite path", file=sys.stderr)
         return 1
-    print("[aftpu] the DID/VC keystore waits for ROADMAP A7 1 and admin gRPC for "
-          "ROADMAP A7 6: neither is started", file=sys.stderr)
+    print("[aftpu] admin gRPC is not ported (ROADMAP A7 6): not started", file=sys.stderr)
 
     async def main():
         path = os.path.expanduser(db)
@@ -113,6 +113,9 @@ def cmd_server(cfg: Config, args) -> int:
         port = args.port or cfg.server.port
         cp = ControlPlane(
             db_path=path,
+            data_dir=str(data_dir(cfg)),
+            keystore_path=str(data_dir(cfg) / "keystore.bin"),
+            keystore_passphrase=cfg.server.keystore_passphrase,
             payload_dir=str(data_dir(cfg) / "payloads"),
             agent_timeout=cfg.execution.agent_timeout,
             sync_wait_timeout=cfg.execution.sync_wait_timeout,
@@ -493,19 +496,58 @@ def cmd_status(cfg: Config, args) -> int:
 
 
 def cmd_vc_verify(cfg: Config, args) -> int:
-    """Verify a VC document offline (reference: af vc verify): not ported."""
-    print("[aftpu] vc verify is not ported: it waits for ROADMAP A7 1 (identity, DID/VC)",
-          file=sys.stderr)
-    return 1
+    """Verify a VC document offline (reference: af vc verify)."""
+    from agentfield_tpu_torch.control_plane.identity import VCService
+
+    try:
+        doc = json.loads(Path(args.file).read_text())
+    except (OSError, json.JSONDecodeError) as e:
+        print(f"cannot read VC: {e}", file=sys.stderr)
+        return 1
+    if not isinstance(doc, dict):
+        print(f"INVALID: document is {type(doc).__name__}, expected a VC object")
+        return 1
+    vc = doc.get("vc", doc)  # accept both the API envelope and a bare VC
+    if not isinstance(vc, dict):
+        print("INVALID: 'vc' field is not an object")
+        return 1
+    ok, reason = VCService.verify(vc)
+    print(f"{'VALID' if ok else 'INVALID'}: {reason}")
+    if ok and "credentialSubject" in vc:
+        cs = vc["credentialSubject"]
+        print(f"  issuer:    {vc.get('issuer')}")
+        print(f"  target:    {cs.get('target')}  status: {cs.get('status')}")
+        print(f"  execution: {cs.get('execution_id')}  run: {cs.get('run_id')}")
+    return 0 if ok else 1
 
 
 def cmd_mcp_generate(cfg: Config, args) -> int:
     """Generate typed Python skill stubs from an MCP server's tools
-    (reference: SkillGenerator.GenerateSkillsForServer, skill_generator.go:37):
-    not ported."""
-    print("[aftpu] mcp generate is not ported: it waits for ROADMAP A7 2 (mcp_service.py)",
-          file=sys.stderr)
-    return 1
+    (reference: SkillGenerator.GenerateSkillsForServer, skill_generator.go:37)."""
+    from agentfield_tpu_torch.sdk.mcp import MCPManager, generate_skill_file
+
+    spec = MCPManager.discover_config(args.project or ".")
+    if args.server not in spec:
+        print(
+            f"server {args.server!r} not in .mcp.json (known: {sorted(spec)})",
+            file=sys.stderr,
+        )
+        return 1
+
+    async def run():
+        mgr = MCPManager({args.server: spec[args.server]})
+        await mgr.start_all()
+        try:
+            tools = mgr.tools[args.server]
+            return generate_skill_file(args.server, tools), len(tools)
+        finally:
+            await mgr.stop_all()
+
+    code, n_tools = asyncio.run(run())
+    out = Path(args.project or ".") / f"mcp_{args.server}_skills.py"
+    out.write_text(code)
+    print(f"wrote {out} ({n_tools} skills)")
+    return 0
 
 
 def cmd_version(cfg: Config, args) -> int:

@@ -1191,6 +1191,10 @@ class WSMessage:
     def __init__(self, type: WSMsgType, data: Any = None, extra: Any = None):
         self.type, self.data, self.extra = type, data, extra
 
+    def json(self, loads: Callable[[str], Any] = json.loads) -> Any:
+        """A TEXT message's JSON document (aiohttp's ``WSMessage.json``)."""
+        return loads(self.data)
+
     def __repr__(self) -> str:
         return f"WSMessage({self.type.name}, {len(self.data) if self.data else 0} bytes)"
 

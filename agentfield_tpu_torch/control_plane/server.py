@@ -1,11 +1,17 @@
 """Control-plane HTTP server: the port's copy of
 ``agentfield_tpu/control_plane/server.py`` on ``http.py`` (asyncio, the
 standard library) in place of aiohttp. The routes, status codes and error
-bodies are the JAX server's. Not ported yet (ROADMAP A7): the DID/VC
-identity layer (its routes answer 501, as the JAX server's do without the
-'cryptography' package), the MCP manager, the dashboard and ``/api/ui/*``,
-``/api/v1/packages``, Postgres storage, the admin gRPC surface and
-``/api/v1/memory/events/ws``; their paths answer 404 here.
+bodies are the JAX server's, the DID/VC identity layer on the port's own
+primitives (``identity.py`` over ``crypto.py``), the MCP manager
+(``mcp_service.py``), the dashboard on ``/``, ``/api/ui/*``,
+``/api/v1/packages`` and ``/api/v1/memory/events/ws`` included. Not ported
+yet: Postgres storage (ROADMAP A7 5: a ``postgres://`` path raises) and the
+admin gRPC surface (A7 6: ``admin_grpc_port`` raises).
+
+Two differences, neither visible in an answer: a workflow chain is signed
+on a worker thread (the JAX server signs it on the loop), and the memory
+events WebSocket's handler ends as soon as its client closes (the JAX one at
+its next 30 s wait).
 
 Route surface mirrors the reference's REST API (route table:
 internal/server/server.go:557-1049) — /api/v1 namespace, node lifecycle,
@@ -55,8 +61,12 @@ class ControlPlane:
         cleanup_interval: float = 60.0,
         stale_after: float = 3600.0,  # reference cleanup defaults (config.go:48-55)
         retention: float = 86400.0,
+        keystore_path: str | None = None,  # None → ephemeral seed (tests/dev)
+        keystore_passphrase: str | None = None,  # None → env var or dev default
         payload_dir: str | None = None,  # None → payloads stay inline
+        admin_grpc_port: int | None = None,  # not ported: anything but None raises
         health_interval: float = 30.0,  # active probe cadence (health_monitor.go)
+        data_dir: str | None = None,  # package registry root (packages page)
         db_group_commit_ms: float | None = None,  # write-behind execution
         # journal flush tick; None → $AGENTFIELD_DB_GROUP_COMMIT_MS, 0 = off
         # (docs/OPERATIONS.md "Durability vs throughput")
@@ -73,6 +83,12 @@ class ControlPlane:
         # scoring + cross-node KV transfer hints. None →
         # $AGENTFIELD_PREFIX_AFFINITY (default on).
     ):
+        if admin_grpc_port is not None:
+            raise NotImplementedError(
+                "the admin gRPC surface is not ported yet (ROADMAP A7 6): "
+                "pass admin_grpc_port=None"
+            )
+        from agentfield_tpu_torch.control_plane.identity import DIDService, Keystore, VCService
         from agentfield_tpu_torch.control_plane.storage import AsyncStorage, create_storage
 
         # db_path doubles as a storage URL: a postgres:// DSN would select
@@ -83,12 +99,14 @@ class ControlPlane:
         # Awaitable mirror: handlers await this so a slow Postgres can never
         # stall the event loop (SQLite passes through on-loop).
         self.db = AsyncStorage(self.storage)
-        import os as _os
+        if keystore_path:
+            seed = Keystore(keystore_path, keystore_passphrase).load_or_create_seed()
+        else:
+            import os as _os
 
-        # The payload stubs' HMAC key (the JAX server derives it from the
-        # identity keystore's seed; without identity, an ephemeral one).
-        seed = _os.urandom(32)
-        self.did_service = self.vc_service = None
+            seed = _os.urandom(32)
+        self.did_service = DIDService(seed)
+        self.vc_service = VCService(self.did_service)
         from agentfield_tpu_torch.control_plane.payloads import PayloadStore
 
         self.payloads = (
@@ -131,6 +149,7 @@ class ControlPlane:
         )
 
         from agentfield_tpu_torch.control_plane.health import HealthMonitor
+        from agentfield_tpu_torch.control_plane.mcp_service import MCPService
 
         self.health_monitor = HealthMonitor(self.registry, interval=health_interval)
         # Failure-domain hook: the instant a node is marked INACTIVE (lease
@@ -138,11 +157,17 @@ class ControlPlane:
         # requeue with failover instead of riding out sync_wait_timeout
         # (docs/FAULT_TOLERANCE.md).
         self.registry.on_node_down(self.gateway.requeue_node_executions)
+        self.mcp = MCPService(self.storage, db=self.db)
+        import os as _os2
+        from pathlib import Path as _Path
+
+        self.data_dir = _Path(_os2.path.expanduser(data_dir or "~/.agentfield_tpu"))
         self._notes_lock = asyncio.Lock()
         self.cleanup_interval = cleanup_interval
         self.stale_after = stale_after
         self.retention = retention
         self._cleanup_task: asyncio.Task | None = None
+        self._mcp_autostart_task: asyncio.Task | None = None
         self._started = False
 
     async def _notify_webhook(self, ex) -> None:
@@ -157,6 +182,9 @@ class ControlPlane:
         await self.registry.start()
         await self.webhooks.start()
         await self.health_monitor.start()
+        # autostart MCP servers off the startup path: a hung child binary
+        # must not delay /health and the gateway coming up
+        self._mcp_autostart_task = asyncio.create_task(self.mcp.start_autostart())
         self._cleanup_task = asyncio.create_task(self._cleanup_loop())
 
     async def stop(self) -> None:
@@ -166,6 +194,10 @@ class ControlPlane:
         if self._cleanup_task:
             self._cleanup_task.cancel()
             await asyncio.gather(self._cleanup_task, return_exceptions=True)
+        if self._mcp_autostart_task:
+            self._mcp_autostart_task.cancel()
+            await asyncio.gather(self._mcp_autostart_task, return_exceptions=True)
+        await self.mcp.stop_all()
         await self.health_monitor.stop()
         await self.webhooks.stop()
         await self.registry.stop()
@@ -263,6 +295,12 @@ def create_app(cp: ControlPlane) -> web.Application:
     routes = web.RouteTableDef()
 
     # -- health / metrics ----------------------------------------------
+
+    @routes.get("/")
+    async def index(_req):
+        from agentfield_tpu_torch.control_plane.dashboard import DASHBOARD_HTML
+
+        return web.Response(text=DASHBOARD_HTML, content_type="text/html")
 
     @routes.get("/health")
     async def health(_req):
@@ -772,27 +810,51 @@ def create_app(cp: ControlPlane) -> web.Application:
         )
 
     # -- DID / VC audit layer ------------------------------------------
-    # Not ported yet (ROADMAP A7): every identity route answers 501, as the
-    # JAX control plane does without the 'cryptography' package.
-
-    def _no_identity():
-        return _json_error(
-            501,
-            "DID/VC identity layer unavailable: this control plane runs "
-            "without the 'cryptography' package",
-        )
 
     @routes.get("/api/v1/did/org")
     async def org_did(_req):
-        return _no_identity()
+        return web.json_response({"did": cp.did_service.org_did})
 
     @routes.get("/api/v1/did/{node_id}")
-    async def node_did(_req):
-        return _no_identity()
+    async def node_did(req: web.Request):
+        node = await cp.db.get_node(req.match_info["node_id"])
+        if node is None:
+            return _json_error(404, "unknown node")
+        return web.json_response(
+            {
+                "node_id": node.node_id,
+                "did": node.did,
+                "components": {
+                    c.id: c.did for c in node.reasoners + node.skills
+                },
+                "org_did": cp.did_service.org_did,
+            }
+        )
 
     @routes.post("/api/v1/vc/executions/{execution_id}")
-    async def issue_vc(_req):
-        return _no_identity()
+    async def issue_vc(req: web.Request):
+        ex = await cp.db.get_execution(req.match_info["execution_id"])
+        if ex is None:
+            return _json_error(404, "unknown execution")
+        if not ex.status.terminal:
+            return _json_error(409, "execution not terminal yet")
+        doc = ex.to_dict()
+        if cp.payloads is not None:
+            from agentfield_tpu_torch.control_plane.payloads import PayloadMissingError
+
+            try:
+                doc["input"] = await asyncio.to_thread(cp.payloads.resolve, doc["input"], True)
+                doc["result"] = await asyncio.to_thread(cp.payloads.resolve, doc["result"], True)
+            except PayloadMissingError as e:
+                return _json_error(410, f"cannot attest: offloaded payload gone ({e})")
+        vc = cp.vc_service.issue_execution_vc(doc)
+        # Persist for the credentials explorer (/api/ui/v1/credentials) —
+        # the reference keeps issued VCs behind its DID/VC services.
+        await cp.db.save_credential(
+            vc.get("id", f"vc:exec:{ex.execution_id}"), "execution",
+            ex.execution_id, vc,
+        )
+        return web.json_response({"vc": vc})
 
     @routes.post("/api/v1/vc/verify")
     async def verify_vc(req: web.Request):
@@ -800,13 +862,59 @@ def create_app(cp: ControlPlane) -> web.Application:
             body = await _json_dict(req, allow_empty=False)
         except _BadBody as e:
             return _json_error(400, str(e))
-        if not isinstance(body.get("vc"), dict):
+        vc = body.get("vc")
+        if not isinstance(vc, dict):
             return _json_error(400, "field 'vc' (object) is required")
-        return _no_identity()
+        ok, reason = cp.vc_service.verify(vc)
+        return web.json_response({"valid": ok, "reason": reason})
 
     @routes.get("/api/v1/vc/workflows/{run_id}")
-    async def workflow_vc_chain(_req):
-        return _no_identity()
+    async def workflow_vc_chain(req: web.Request):
+        # Paginate to completeness: an org-SIGNED chain must never silently
+        # attest a truncated run.
+        # One SQL statement = one snapshot: offset pagination could skip or
+        # duplicate rows while the run mutates, and a signed chain must not.
+        run_id = req.match_info["run_id"]
+        limit = 1_000_000
+        exs = await cp.db.list_executions(run_id=run_id, limit=limit)
+        if len(exs) == limit:
+            # Refuse rather than org-sign a possibly-truncated chain.
+            return _json_error(413, f"run exceeds {limit} executions; chain refused")
+        if not exs:
+            return _json_error(404, "unknown run")
+        non_terminal = [e.execution_id for e in exs if not e.status.terminal]
+        if non_terminal:
+            return _json_error(409, f"run has non-terminal executions: {non_terminal[:5]}")
+        docs = [e.to_dict() for e in exs]
+        if cp.payloads is not None:
+            from agentfield_tpu_torch.control_plane.payloads import PayloadMissingError
+
+            def _resolve_all():
+                for d in docs:
+                    d["input"] = cp.payloads.resolve(d["input"], strict=True)
+                    d["result"] = cp.payloads.resolve(d["result"], strict=True)
+
+            try:
+                await asyncio.to_thread(_resolve_all)
+            except PayloadMissingError as e:
+                return _json_error(410, f"cannot attest: offloaded payload gone ({e})")
+        # Signed on a worker thread: a pure-Python signature per credential
+        # would hold the loop for the whole chain.
+        chain = await asyncio.to_thread(cp.vc_service.workflow_chain, docs)
+        # GET stays read-only (a dashboard poll must not mutate the DB); an
+        # explicit POST records the chain in the credentials explorer —
+        # envelope only, not the payload-resolved per-execution VCs (a large
+        # run's chain is megabytes).
+        if req.method == "POST":
+            await cp.db.save_credential(
+                chain.get("envelope", {}).get("id", f"vc:run:{run_id}"),
+                "workflow", run_id,
+                {
+                    "envelope": chain.get("envelope"),
+                    "credential_count": len(chain.get("credentials", [])),
+                },
+            )
+        return web.json_response(chain)
 
     routes.post("/api/v1/vc/workflows/{run_id}")(workflow_vc_chain)
 
@@ -945,6 +1053,242 @@ def create_app(cp: ControlPlane) -> web.Application:
     @routes.get("/api/v1/memory/events")
     async def memory_events(req: web.Request):
         return await _sse(req, MEMORY_TOPIC)
+
+    @routes.get("/api/v1/memory/events/ws")
+    async def memory_events_ws(req: web.Request):
+        """WebSocket fan-out of memory change events (reference:
+        handlers/memory_events.go:38 + the SDK's pattern-subscribing client)."""
+        ws = web.WebSocketResponse(heartbeat=20)
+        await ws.prepare(req)
+        q = cp.bus.subscribe(MEMORY_TOPIC)
+
+        async def reader():
+            # receive() answers pings and sees the close; the handler ends
+            # when the client goes (not at the next event)
+            async for _msg in ws:
+                pass
+
+        reader_task = asyncio.create_task(reader())
+        try:
+            while not ws.closed:
+                get = asyncio.ensure_future(q.get())
+                done, _ = await asyncio.wait({get, reader_task}, timeout=30,
+                                             return_when=asyncio.FIRST_COMPLETED)
+                if get not in done:
+                    get.cancel()
+                    await asyncio.gather(get, return_exceptions=True)
+                    if reader_task.done():
+                        break
+                    continue
+                _, ev = get.result()
+                await ws.send_json(ev)
+        except (ConnectionResetError, asyncio.CancelledError):
+            pass
+        finally:
+            reader_task.cancel()
+            await asyncio.gather(reader_task, return_exceptions=True)
+            cp.bus.unsubscribe(MEMORY_TOPIC, q)
+        return ws
+
+    # -- UI service layer ----------------------------------------------
+
+    @routes.get("/api/ui/v1/summary")
+    async def ui_summary(_req):
+        """Dashboard rollup (reference: UIService aggregated summaries,
+        internal/services/ui_service.go)."""
+        from agentfield_tpu_torch.control_plane.dag import run_summaries
+
+        nodes = await cp.db.list_nodes()
+        return web.json_response(
+            {
+                "nodes": {
+                    "total": len(nodes),
+                    "active": sum(n.status.value == "active" for n in nodes),
+                    "models": sum(n.kind == "model" for n in nodes),
+                },
+                "executions_by_status": await cp.db.execution_counts(),
+                "recent_runs": await asyncio.to_thread(run_summaries, cp.storage, limit=10),
+                "queue_depth": cp.gateway.queue_depth,
+                "backpressure_total": cp.metrics.counter_value("gateway_backpressure_total"),
+            }
+        )
+
+    @routes.get("/api/ui/v1/executions")
+    async def ui_executions(req: web.Request):
+        """Paginated/filtered/grouped executions page payload (reference:
+        GetExecutionsSummary + GetGroupedExecutions,
+        internal/services/executions_ui_service.go:112,158). Totals and
+        group rollups come from SQL, never from len() of one page."""
+        from agentfield_tpu_torch.control_plane import ui_service
+
+        q = req.query
+        try:
+            payload = await ui_service.executions_page(
+                cp.db,
+                page=q.get("page", 1),
+                page_size=q.get("page_size", 25),
+                status=q.get("status"),
+                target=q.get("target"),
+                run_id=q.get("run_id"),
+                order=q.get("order", "desc"),
+                group_by=q.get("group_by"),
+            )
+        except ValueError as e:
+            return _json_error(400, str(e))
+        return web.json_response(payload)
+
+    @routes.get("/api/ui/v1/nodes")
+    async def ui_nodes(_req):
+        """Per-node rollups (reference: GetNodesSummary, ui_service.go:78)."""
+        from agentfield_tpu_torch.control_plane import ui_service
+
+        return web.json_response(await ui_service.node_summaries(cp))
+
+    @routes.post("/api/ui/v1/executions/status")
+    async def ui_executions_status_bulk(req: web.Request):
+        """Bulk status refresh for visible rows (reference:
+        executions_ui_service.go RefreshStatuses) — one IN query, not N
+        detail fetches."""
+        from agentfield_tpu_torch.control_plane import ui_service
+
+        try:
+            body = await _json_dict(req, allow_empty=False)
+        except _BadBody as e:
+            return _json_error(400, str(e))
+        ids = body.get("ids")
+        if not isinstance(ids, list) or not all(isinstance(i, str) for i in ids):
+            return _json_error(400, "field 'ids' (list of execution ids) is required")
+        return web.json_response(await ui_service.executions_status_bulk(cp.db, ids))
+
+    @routes.get("/api/ui/v1/nodes/{node_id}")
+    async def ui_node_details(req: web.Request):
+        """Node detail + per-target SQL metrics in one fetch (reference:
+        GetNodeDetailsWithMCP, ui_service.go:467)."""
+        from agentfield_tpu_torch.control_plane import ui_service
+
+        doc = await ui_service.node_details(cp, req.match_info["node_id"])
+        if doc is None:
+            return _json_error(404, "unknown node")
+        return web.json_response(doc)
+
+    @routes.get("/api/ui/v1/credentials")
+    async def ui_credentials(req: web.Request):
+        """Issued-credential explorer (reference: CredentialsPage.tsx)."""
+        from agentfield_tpu_torch.control_plane import ui_service
+
+        q = req.query
+        return web.json_response(
+            await ui_service.credentials_page(
+                cp.db,
+                page=q.get("page", 1),
+                page_size=q.get("page_size", 25),
+                subject_type=q.get("subject_type"),
+            )
+        )
+
+    @routes.get("/api/v1/packages")
+    async def list_packages(_req):
+        """Installed-package inventory (reference: package service routes
+        behind PackagesPage.tsx)."""
+        from agentfield_tpu_torch.control_plane import ui_service
+
+        return web.json_response(
+            await asyncio.to_thread(ui_service.packages_summary, cp.data_dir)
+        )
+
+    # -- MCP manager (reference: internal/mcp + ui mcp handlers,
+    # server.go:794-798) ------------------------------------------------
+
+    def _mcp_err(e) -> web.Response:
+        return _json_error(404 if "unknown MCP server" in str(e) else 400, str(e))
+
+    @routes.get("/api/v1/mcp/servers")
+    async def mcp_list(_req):
+        return web.json_response({"servers": cp.mcp.status()})
+
+    @routes.post("/api/v1/mcp/servers")
+    async def mcp_add(req: web.Request):
+        from agentfield_tpu_torch.control_plane.mcp_service import MCPServerSpec, MCPServiceError
+
+        try:
+            body = await _json_dict(req, allow_empty=False)
+            spec = MCPServerSpec(
+                alias=body.get("alias", ""),
+                command=body.get("command", ""),
+                args=list(body.get("args") or []),
+                env=dict(body.get("env") or {}),
+                autostart=bool(body.get("autostart", False)),
+            )
+            cp.mcp.add(spec)
+            if body.get("start", False):
+                await cp.mcp.start(spec.alias)
+        except MCPServiceError as e:
+            return _mcp_err(e)
+        except _BadBody as e:
+            return _json_error(400, str(e))
+        return web.json_response({"status": "created", "alias": spec.alias}, status=201)
+
+    @routes.delete("/api/v1/mcp/servers/{alias}")
+    async def mcp_remove(req: web.Request):
+        from agentfield_tpu_torch.control_plane.mcp_service import MCPServiceError
+
+        try:
+            await cp.mcp.remove(req.match_info["alias"])
+        except MCPServiceError as e:
+            return _mcp_err(e)
+        return web.json_response({"status": "removed"})
+
+    @routes.post("/api/v1/mcp/servers/{alias}/{action:start|stop|restart}")
+    async def mcp_action(req: web.Request):
+        from agentfield_tpu_torch.control_plane.mcp_service import MCPServiceError
+
+        alias, action = req.match_info["alias"], req.match_info["action"]
+        try:
+            await getattr(cp.mcp, action)(alias)
+        except MCPServiceError as e:
+            return _mcp_err(e)
+        return web.json_response({"status": action, "alias": alias})
+
+    @routes.get("/api/v1/mcp/servers/{alias}/tools")
+    async def mcp_tools(req: web.Request):
+        from agentfield_tpu_torch.control_plane.mcp_service import MCPServiceError
+
+        try:
+            manifest = await cp.mcp.discover(
+                req.match_info["alias"], refresh=req.query.get("refresh") == "1"
+            )
+        except MCPServiceError as e:
+            return _mcp_err(e)
+        return web.json_response(manifest)
+
+    @routes.get("/api/v1/mcp/servers/{alias}/logs")
+    async def mcp_logs(req: web.Request):
+        from agentfield_tpu_torch.control_plane.mcp_service import MCPServiceError
+
+        try:
+            lines = max(int(req.query.get("lines", "50")), 0)
+        except ValueError:
+            return _json_error(400, "lines must be an integer")
+        try:
+            lines = cp.mcp.logs(req.match_info["alias"], lines)
+        except MCPServiceError as e:
+            return _mcp_err(e)
+        return web.json_response({"lines": lines})
+
+    @routes.post("/api/v1/mcp/servers/{alias}/skills/generate")
+    async def mcp_generate(req: web.Request):
+        from agentfield_tpu_torch.control_plane.mcp_service import MCPServiceError
+
+        alias = req.match_info["alias"]
+        try:
+            code = await cp.mcp.generate_skills(alias)
+        except MCPServiceError as e:
+            return _mcp_err(e)
+        return web.json_response({"alias": alias, "module": code})
+
+    @routes.get("/api/ui/v1/mcp/status")
+    async def mcp_status(_req):
+        return web.json_response(cp.mcp.health_summary())
 
     # -- memory (scoped KV + vectors) ----------------------------------
 

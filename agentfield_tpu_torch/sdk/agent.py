@@ -20,9 +20,6 @@ None``, ``Literal[...]``, with defaults. Any other annotation (a pydantic
 model class, ``tuple``, a union of two types) raises TypeError at
 decoration, naming that set.
 
-``attach_mcp`` waits for ROADMAP A7 2 (``mcp_service.py``) and raises
-NotImplementedError naming it.
-
 Re-design of the reference's Agent core (sdk/python/agentfield/agent.py:305:
 a FastAPI subclass whose decorators synthesize pydantic input models, HTTP
 endpoints and tracked wrappers; serve() registers with the control plane and
@@ -608,9 +605,9 @@ class Agent:
 
     def attach_mcp(self, manager) -> list[str]:
         """Register a started MCPManager's tools as skills and surface its
-        health through /health: not ported yet."""
-        raise NotImplementedError(
-            "Agent.attach_mcp is not ported: it waits for ROADMAP A7 2 (mcp_service.py)")
+        health through /health."""
+        self.mcp = manager
+        return manager.attach_to_agent(self)
 
     # -- HTTP surface ---------------------------------------------------
 

@@ -203,7 +203,10 @@ the result line:
                stream, 16 concurrent executions (executions/s, TTFT p50/p99
                as the agent sees them), the registry's heartbeat stats and
                ``/metrics`` histograms, and the node's stop (deregistered,
-               nothing left running, no dead letter). ``[gateway]`` line.
+               nothing left running, no dead letter); on a keystore file,
+               the audit layer (DIDs, credentials, a run's chain), an MCP
+               server feeding ``ai()``, the dashboard's payloads and memory
+               events ((j)-(m)). ``[gateway]`` lines.
 13b. ``cluster`` KV that crosses nodes (``phase_cluster``): a prefill node
                and a decode node on the same weights (each its own
                1024-page pool and 1 GiB restore budget), the stand-in
@@ -324,6 +327,7 @@ int8-weight kernel at every bf16 shape (the data behind
 from __future__ import annotations
 
 import argparse
+import base64
 import functools
 import gc
 import json
@@ -4478,6 +4482,15 @@ def gateway_sdk(cp_port: int, agents: "AgentLoop", app, judge, seen: dict, backe
     for a in (app, judge):
         agents.call(a.start(), timeout)
     try:
+        # (j)'s first check: each agent got its DIDs at registration
+        dids = {}
+        for a in (app, judge):
+            st, d = _http(cp_port, "GET", f"/api/v1/did/{a.node_id}")
+            assert st == 200 and d["did"].startswith("did:key:z"), (st, d)
+            assert sorted(d["components"]) == sorted(a.components), d
+            assert all(v.startswith("did:key:z") for v in d["components"].values()), d
+            dids[a.node_id] = d
+        out["dids"] = dids
         # (g) each ai() form through the gateway: the same greedy tokens as
         # a direct POST of the same payload; the run's DAG app.* -> generate;
         # the SDK's own host ms (the ai() call less its execution's
@@ -4510,6 +4523,9 @@ def gateway_sdk(cp_port: int, agents: "AgentLoop", app, judge, seen: dict, backe
                     assert res["streamed"] == want, f"app.stream ({n}): frames != direct"
                 child = _run_execution(cp_port, doc["run_id"], gen)
                 assert child["parent_execution_id"] == doc["execution_id"], child
+                if form == "ask":  # (j) attests this run: app.ask -> generate on the card
+                    out.setdefault("ask_run", {"execution_id": doc["execution_id"],
+                                               "run_id": doc["run_id"]})
                 st, dag = _http(cp_port, "GET", f"/api/v1/workflows/{doc['run_id']}/dag")
                 assert st == 200, (st, dag)
                 edges = {(e["from"], e["to"]) for e in dag["edges"]}
@@ -4578,6 +4594,267 @@ def gateway_sdk(cp_port: int, agents: "AgentLoop", app, judge, seen: dict, backe
     finally:
         for a in (app, judge):
             agents.call(a.stop(), timeout)
+    return out
+
+
+# (j)-(m) of the gateway phase: the audit layer, MCP, the dashboard and memory
+# events on the phase's control plane, in front of its node
+AUDIT_TURNS = 5  # (j): timed issues, verifies, chains, registrations
+AUDIT_KEYSTORE_PASS = "chip-smoke"
+AUDIT_MCP_SERVER = r"""import json, sys
+print("facts server up", file=sys.stderr, flush=True)
+TOOLS = [{"name": "fact", "description": "One fact about a topic",
+          "inputSchema": {"type": "object", "properties": {"topic": {"type": "string"}},
+                          "required": ["topic"]}}]
+for line in sys.stdin:
+    msg = json.loads(line)
+    if "id" not in msg:
+        continue
+    m, res = msg.get("method"), None
+    if m == "initialize":
+        res = {"protocolVersion": "2024-11-05", "serverInfo": {"name": "facts", "version": "1"},
+               "capabilities": {"tools": {}}}
+    elif m == "tools/list":
+        res = {"tools": TOOLS}
+    elif m == "tools/call":
+        t = msg["params"]["arguments"]["topic"]
+        res = {"content": [{"type": "text", "text": "fact: " + t + " has " + str(len(t)) + " letters"}]}
+    sys.stdout.write(json.dumps({"jsonrpc": "2.0", "id": msg["id"], "result": res}) + "\n")
+    sys.stdout.flush()
+"""
+
+
+def _timed_http(ms: list, port: int, method: str, path: str, body=None) -> tuple:
+    """``_http``, its wall ms appended to ``ms``."""
+    t0 = time.perf_counter()
+    out = _http(port, method, path, body)
+    ms.append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def gateway_audit(cp_port: int, cpt, agents: "AgentLoop", node_id: str, direct, text,
+                  new: int, gen_eid: str, ask_run: dict, tmpdir: str,
+                  timeout: float) -> dict:
+    """(j)-(m) of ``phase_gateway`` on its control plane (started on a
+    keystore file in ``tmpdir``) and node. Returns each section's numbers."""
+    import asyncio
+
+    from agentfield_tpu_torch.control_plane.crypto import Ed25519PrivateKey
+    from agentfield_tpu_torch.control_plane.dashboard import DASHBOARD_HTML
+    from agentfield_tpu_torch.control_plane.identity import (
+        VCService,
+        canonical_json,
+        did_key_from_public,
+    )
+    from agentfield_tpu_torch.control_plane.server import ControlPlane
+    from agentfield_tpu_torch.sdk import Agent
+    from agentfield_tpu_torch.sdk.mcp import MCPManager
+    from agentfield_tpu_torch.sdk.memory_events import MemoryEventClient
+
+    out: dict = {}
+    cp = cpt.cp
+    # (j) identity: the node's DIDs, credentials of a generate execution and of
+    # an app.* reasoner's, verified through the API and through `aftpu vc
+    # verify`; a tampered and a re-signed one refused; the chain of the
+    # reasoner's run; a second control plane on the keystore
+    st, d = _http(cp_port, "GET", f"/api/v1/did/{node_id}")
+    assert st == 200 and d["did"] == cp.did_service.node_did(node_id), (st, d)
+    assert sorted(d["components"]) == ["embed", "generate"], d
+    st, org = _http(cp_port, "GET", "/api/v1/did/org")
+    assert st == 200 and org["did"] == d["org_did"], (st, org)
+    vcs, ms = {}, {"issue": [], "verify": [], "chain": [], "register": []}
+    for name, eid in (("generate", gen_eid), ("app.ask", ask_run["execution_id"])):
+        for _ in range(AUDIT_TURNS):
+            st, doc = _timed_http(ms["issue"], cp_port, "POST", f"/api/v1/vc/executions/{eid}")
+            assert st == 200, (st, doc)
+            vc = doc["vc"]
+            st, v = _timed_http(ms["verify"], cp_port, "POST", "/api/v1/vc/verify", {"vc": vc})
+            assert st == 200 and v == {"valid": True, "reason": "ok"}, (st, v)
+        assert vc["credentialSubject"]["target"] == (
+            f"{node_id}.generate" if name == "generate" else "app.ask"), vc
+        assert vc["issuer"] == cp.did_service.node_did(vc["credentialSubject"]["target"]
+                                                       .split(".")[0])
+        path = os.path.join(tmpdir, f"vc-{name}.json")
+        with open(path, "w") as f:
+            json.dump({"vc": vc}, f)
+        p = subprocess.run([sys.executable, "-m", "agentfield_tpu_torch.cli", "vc", "verify",
+                            path], cwd=ROOT, capture_output=True, text=True, timeout=120,
+                           env=dict(os.environ, PYTHONPATH=ROOT))
+        assert p.returncode == 0 and p.stdout.startswith("VALID: ok"), (p.stdout, p.stderr)
+        vcs[name] = vc
+    tampered = json.loads(json.dumps(vcs["generate"]))
+    tampered["credentialSubject"]["result_digest"] = VCService._digest({"tokens": [0]})
+    st, v = _http(cp_port, "POST", "/api/v1/vc/verify", {"vc": tampered})
+    assert v == {"valid": False, "reason": "signature invalid"}, v
+    foreign = Ed25519PrivateKey.from_private_bytes(bytes(range(32)))
+    body = {k: x for k, x in tampered.items() if k != "proof"}
+    resigned = {**tampered, "proof": {
+        **tampered["proof"], "verificationMethod": did_key_from_public(foreign.public_key()),
+        "proofValue": base64.urlsafe_b64encode(foreign.sign(canonical_json(body)))
+        .decode().rstrip("=")}}
+    st, v = _http(cp_port, "POST", "/api/v1/vc/verify", {"vc": resigned})
+    assert v == {"valid": False, "reason": "proof key does not match issuer"}, v
+    run_id = ask_run["run_id"]
+    st, run = _http(cp_port, "GET", f"/api/v1/executions?run_id={run_id}")
+    n_run = len(run["executions"])
+    assert n_run >= 2 and {e["target"] for e in run["executions"]} == {
+        "app.ask", f"{node_id}.generate"}, run
+    for i in range(AUDIT_TURNS):
+        method = "POST" if i == 0 else "GET"  # POST records it; GETs are read-only
+        st, chain = _timed_http(ms["chain"], cp_port, method, f"/api/v1/vc/workflows/{run_id}")
+        assert st == 200, (st, chain)
+    assert chain["envelope"]["count"] == n_run == len(chain["credentials"]), chain["envelope"]
+    assert chain["envelope"]["issuer"] == org["did"]
+    for doc in (chain["envelope"], *chain["credentials"]):
+        assert VCService.verify(doc) == (True, "ok"), doc.get("issuer")
+    for i in range(AUDIT_TURNS):  # a node of 3 components: 4 keys derived, none cached
+        spec = {"node_id": f"did-probe-{i}", "base_url": "http://127.0.0.1:9",
+                "reasoners": [{"id": "r1"}, {"id": "r2"}], "skills": [{"id": "s1"}]}
+        st, n = _timed_http(ms["register"], cp_port, "POST", "/api/v1/nodes", spec)
+        assert st == 201 and n["node"]["did"] == cp.did_service.node_did(spec["node_id"]), n
+        assert _http(cp_port, "DELETE", f"/api/v1/nodes/{spec['node_id']}")[0] == 200
+    second = ControlPlane(keystore_path=os.path.join(tmpdir, "keystore.bin"),
+                          keystore_passphrase=AUDIT_KEYSTORE_PASS)
+    try:
+        assert second.did_service.org_did == org["did"], "a second control plane's org DID differs"
+    finally:
+        second.storage.close()
+    t0 = time.perf_counter()
+    key = cp.did_service.node_key(node_id)
+    for _ in range(20):
+        sig = key.sign(b"x" * 512)
+    sign_ms = (time.perf_counter() - t0) * 1e3 / 20
+    t0 = time.perf_counter()
+    for _ in range(20):
+        key.public_key().verify(sig, b"x" * 512)
+    verify_ms = (time.perf_counter() - t0) * 1e3 / 20
+    out["j"] = {"p50_ms": {k: _pct(v, 50) for k, v in ms.items()}, "ms": ms,
+                "chain_count": n_run, "sign_ms": sign_ms, "verify_ms": verify_ms,
+                "org_did": org["did"]}
+
+    # (k) MCP: a stdio server of the script's own through the control plane's
+    # MCP routes; an agent that attach_mcp's it and feeds a tool's result into
+    # ai() on the card; no child left after the stops
+    server_py = os.path.join(tmpdir, "facts_mcp.py")
+    with open(server_py, "w") as f:
+        f.write(AUDIT_MCP_SERVER)
+    spec = {"command": sys.executable, "args": [server_py]}
+    st, doc = _http(cp_port, "POST", "/api/v1/mcp/servers",
+                    {"alias": "facts", **spec, "start": True})
+    assert st == 201, (st, doc)
+    st, tools = _http(cp_port, "GET", "/api/v1/mcp/servers/facts/tools")
+    assert st == 200 and [t["name"] for t in tools["tools"]] == ["fact"], tools
+    st, srv = _http(cp_port, "GET", "/api/v1/mcp/servers")
+    cp_pid = srv["servers"][0]["pid"]
+    assert srv["servers"][0]["state"] == "running" and _pid_alive(cp_pid), srv
+    toolbox = Agent("toolbox", f"http://127.0.0.1:{cp_port}")
+    mgr = MCPManager({"facts": spec})
+    mem_seen: list = []
+
+    @toolbox.reasoner()
+    async def grounded(topic: str, max_new_tokens: int) -> dict:
+        fact = await toolbox.call("toolbox.facts_fact", topic=topic)
+        res = await toolbox.ai(fact, max_new_tokens=max_new_tokens)
+        return {"fact": fact, "tokens": res["tokens"]}
+
+    @toolbox.reasoner()
+    async def remember(prompt: str, max_new_tokens: int) -> dict:
+        await toolbox.memory.memory_set("notes_prompt", prompt)
+        await toolbox.memory.memory_set("scratch", 1)  # outside the pattern
+        res = await toolbox.ai(prompt, max_new_tokens=max_new_tokens)
+        await toolbox.memory.memory_set("notes_tokens", res["tokens"])
+        await toolbox.memory.memory_delete("notes_prompt")
+        return {"tokens": res["tokens"]}
+
+    events = MemoryEventClient(f"http://127.0.0.1:{cp_port}", reconnect_delay=0.05)
+    events.on_change("notes_*", lambda ev: mem_seen.append((ev["type"], ev["key"])))
+
+    async def tasks_now():
+        return {t for t in asyncio.all_tasks() if t is not asyncio.current_task()}
+
+    tasks0 = agents.call(tasks_now(), timeout)
+    agents.call(mgr.start_all(), timeout)
+    mgr_pid = mgr.clients["facts"]._proc.pid
+    assert toolbox.attach_mcp(mgr) == ["facts_fact"]
+    agents.call(toolbox.start(), timeout)
+    try:
+        topic = text(12)
+        st, doc = _http(cp_port, "POST", "/api/v1/execute/toolbox.grounded",
+                        {"input": {"topic": topic, "max_new_tokens": new}}, timeout=timeout)
+        assert st == 200 and doc["status"] == "completed", (st, doc)
+        fact = doc["result"]["fact"]
+        assert fact == f"fact: {topic} has 12 letters", fact
+        want = direct({**sdk_payload(prompt=fact), "max_new_tokens": new})
+        assert doc["result"]["tokens"] == want, "the tool-grounded ai() tokens != direct"
+        st, dag = _http(cp_port, "GET", f"/api/v1/workflows/{doc['run_id']}/dag")
+        assert {x["target"] for x in dag["nodes"]} == {
+            "toolbox.grounded", "toolbox.facts_fact", f"{node_id}.generate"}, dag["nodes"]
+        out["k"] = {"tools": [t["name"] for t in tools["tools"]], "tokens": len(want),
+                    "run_executions": len(dag["nodes"])}
+        # (m) memory events around ai(): subscribed to notes_*
+        agents.call(events.start(), timeout)
+        t0 = time.monotonic()
+        while not events.connected or not cp.bus._subs.get("memory"):
+            assert time.monotonic() - t0 < 30, "the memory event client never connected"
+            time.sleep(0.01)
+        p = text(40)
+        st, doc = _http(cp_port, "POST", "/api/v1/execute/toolbox.remember",
+                        {"input": {"prompt": p, "max_new_tokens": new}}, timeout=timeout)
+        assert st == 200 and doc["status"] == "completed", (st, doc)
+        want_ev = [("set", "notes_prompt"), ("set", "notes_tokens"), ("delete", "notes_prompt")]
+        t0 = time.monotonic()
+        while len(mem_seen) < len(want_ev):
+            assert time.monotonic() - t0 < 30, mem_seen
+            time.sleep(0.01)
+        time.sleep(0.05)
+        assert mem_seen == want_ev, mem_seen
+        agents.call(events.stop(), timeout)
+        assert events._task.done() and not events.connected
+        out["m"] = {"events": mem_seen}
+    finally:
+        agents.call(events.stop(), timeout)
+        agents.call(toolbox.stop(), timeout)
+        agents.call(mgr.stop_all(), timeout)
+    left = agents.call(tasks_now(), timeout) - tasks0
+    left = {t for t in left if not t.done()}
+    assert not left, f"tasks left on the agents' loop: {left}"
+    st, _ = _http(cp_port, "POST", "/api/v1/mcp/servers/facts/stop")
+    assert st == 200
+    for pid in (cp_pid, mgr_pid):
+        t0 = time.monotonic()
+        while _pid_alive(pid):
+            assert time.monotonic() - t0 < 10, f"MCP child {pid} outlived its stop"
+            time.sleep(0.02)
+    st, mcp = _http(cp_port, "GET", "/api/ui/v1/mcp/status")
+    assert mcp == {"total": 1, "running": 0, "failed": 0, "servers": {"facts": "stopped"}}, mcp
+    out["k"]["children_left"] = 0
+
+    # (l) the dashboard and its data
+    with urllib.request.urlopen(f"http://127.0.0.1:{cp_port}/", timeout=30) as r:
+        assert r.status == 200 and r.headers["Content-Type"].startswith("text/html")
+        assert r.read().decode() == DASHBOARD_HTML
+    st, summ = _http(cp_port, "GET", "/api/ui/v1/summary")
+    counts = cpt.call(cp.db.execution_counts(), 30)
+    assert st == 200 and summ["executions_by_status"] == counts, (summ, counts)
+    total = sum(counts.values())
+    size, pages, ids = 7, 0, set()
+    while True:
+        pages += 1
+        st, pg = _http(cp_port, "GET", f"/api/ui/v1/executions?page={pages}&page_size={size}")
+        assert st == 200 and pg["total"] == total and pg["total_pages"] == -(-total // size), pg
+        ids |= {e["execution_id"] for e in pg["executions"]}
+        if not pg["has_next"]:
+            break
+    assert pages == -(-total // size) and len(ids) == total, (pages, len(ids), total)
+    st, nd = _http(cp_port, "GET", f"/api/ui/v1/nodes/{node_id}")
+    gen_metrics = nd["target_metrics"][f"{node_id}.generate"]
+    assert st == 200 and gen_metrics["executions"] > 0, nd.get("target_metrics")
+    st, creds = _http(cp_port, "GET", "/api/ui/v1/credentials?page_size=200")
+    listed = {c["vc_id"] for c in creds["credentials"]}
+    assert {f"vc:exec:{gen_eid}", f"vc:exec:{ask_run['execution_id']}",
+            f"vc:run:{run_id}"} <= listed, listed
+    out["l"] = {"executions": total, "pages": pages, "credentials": creds["total"],
+                "generate_executions": gen_metrics["executions"]}
     return out
 
 
@@ -4691,6 +4968,16 @@ def cli_quickstart(device: str, model: str = CLI_MODEL, new: int = CLI_NEW,
         cli("init", "myagent")
         steps["init"] = time.perf_counter() - t
         t = time.perf_counter()
+        cli("install", "myagent")
+        st, pk = _http(port, "GET", "/api/v1/packages", timeout=10)
+        assert st == 200 and [(p_["name"], p_["entry"]) for p_ in pk["packages"]] == [
+            ("myagent", "main.py")], pk
+        out["packages"] = [p_["name"] for p_ in pk["packages"]]
+        st, org = _http(port, "GET", "/api/v1/did/org", timeout=10)
+        assert st == 200 and os.path.isfile(os.path.join(home, ".agentfield_tpu", "keystore.bin"))
+        out["org_did"] = org["did"]
+        steps["install"] = time.perf_counter() - t
+        t = time.perf_counter()
         cli("run", "myagent", "--url", url)
         launched.update(pids())
         wait_for(lambda: node_active("myagent"), "myagent never registered")
@@ -4796,8 +5083,26 @@ def phase_gateway(results, state, seed: int, device: str = "cuda",
         empty;
     (i) the README quickstart through the port's CLI (``cli_quickstart``:
         ``server``, ``model --model cli_model`` on the card, ``init``,
-        ``run``, ``status``, an execute of ``myagent.respond``, ``stop``),
-        each step's wall seconds."""
+        ``install`` (the CLI server's ``/api/v1/packages`` lists it, its
+        keystore gives an org DID), ``run``, ``status``, an execute of
+        ``myagent.respond``, ``stop``), each step's wall seconds;
+    (j)-(m) (``gateway_audit``, after (h), before (f); the control plane
+        was started on a keystore file in a temporary directory): (j) the
+        node's and the SDK agents' DIDs, credentials of a ``generate`` and
+        an ``app.ask`` execution valid through ``/api/v1/vc/verify`` and
+        ``aftpu vc verify``, a tampered one "signature invalid", one
+        re-signed by a foreign key "proof key does not match issuer", the
+        ``app.ask`` run's chain (its count the run's executions, each
+        credential valid), a second control plane's org DID the same, host
+        ms p50 of an issue, verify, chain and registration; (k) an MCP
+        server the script writes, added and started through
+        ``/api/v1/mcp/servers``, its tool ``attach_mcp``'d by an agent whose
+        reasoner feeds its result into ``ai()``: the tokens of a direct POST,
+        no child left after the stops; (l) ``/`` the dashboard, the
+        summary's counts the storage's, ``/api/ui/v1/executions`` paged to
+        its total, the node's details, (j)'s credentials listed; (m) a
+        ``MemoryEventClient`` on ``notes_*`` gets a reasoner's sets and
+        delete around its ``ai()`` in order, no task left after its stop."""
     import numpy as np
     import torch
 
@@ -4826,7 +5131,13 @@ def phase_gateway(results, state, seed: int, device: str = "cuda",
         return "".join(chr(c) for c in rng.integers(97, 123, n))
 
     t_phase = time.perf_counter()
-    cpt = ControlPlaneThread(ControlPlane(channel=True))
+    import shutil
+    import tempfile
+
+    audit_dir = tempfile.mkdtemp(prefix="gateway-audit-")  # (j)'s keystore, (k)'s server
+    cpt = ControlPlaneThread(ControlPlane(
+        channel=True, keystore_path=os.path.join(audit_dir, "keystore.bin"),
+        keystore_passphrase=AUDIT_KEYSTORE_PASS, data_dir=os.path.join(audit_dir, "data")))
     cp_url = cpt.start()
     cp_port = cpt.port
     ecfg = EngineConfig(max_batch=16, page_size=16, num_pages=num_pages,
@@ -4868,6 +5179,7 @@ def phase_gateway(results, state, seed: int, device: str = "cuda",
                 st, doc = _http(cp_port, "POST", f"/api/v1/execute/{target}", {"input": p})
                 assert st == 200 and doc["status"] == "completed", (st, doc)
                 assert doc["result"]["tokens"] == want[i], f"prompt {i}: execute != direct"
+                gen_eid = doc["execution_id"]  # (j) attests one
                 # the gateway's own time: its root span less the node's (the
                 # client's hop to the control plane not in it)
                 st, tr = _http(cp_port, "GET", f"/api/v1/executions/{doc['execution_id']}/trace")
@@ -4983,9 +5295,15 @@ def phase_gateway(results, state, seed: int, device: str = "cuda",
             app, judge, seen = sdk_agents(cp_url)
             out.update(gateway_sdk(cp_port, agents, app, judge, seen, backend, node_id, direct,
                                    text, new, sdk_prompts, timeout=600.0))
+            marks["g_h"] = time.perf_counter() - t_main
+            # (j)-(m): the audit layer, MCP, the dashboard, memory events
+            t_audit = time.perf_counter()
+            out.update(gateway_audit(cp_port, cpt, agents, node_id, direct, text, new,
+                                     gen_eid, out["ask_run"], audit_dir, timeout=600.0))
+            out["audit_s"] = time.perf_counter() - t_audit
         finally:
             agents.stop()
-        marks["g_h"] = time.perf_counter() - t_main
+        marks["j_m"] = time.perf_counter() - t_main
         card = results.get("card", "no card")
         g, h = out["g"], out["h"]
         sdk = {k: f"p50 {_pct(v, 50):.2f} min {min(v):.2f} max {max(v):.2f}"
@@ -4997,6 +5315,22 @@ def phase_gateway(results, state, seed: int, device: str = "cuda",
             f"+{h['verifier_calls']}, free pages back to {h['free_pages']}; the verifier's "
             f"added ms {[round(x, 2) for x in h['added_ms']]} (a verified call - the plain "
             f"call before it, {GATEWAY_VERIFIER_TURNS} turns after an untimed one)")
+        j, k, l_, m = out["j"], out["k"], out["l"], out["m"]
+        log(f"[gateway (j)] {card}: DIDs at registration (node, app, judge), credentials of "
+            f"{node_id}.generate and app.ask valid through /api/v1/vc/verify and `aftpu vc "
+            f"verify`, tampered -> signature invalid, re-signed -> proof key does not match "
+            f"issuer, the app.ask run's chain of {j['chain_count']} verified, a second control "
+            f"plane's org DID equal; host ms p50 (HTTP wall, {AUDIT_TURNS} each) "
+            f"{ {key: round(v, 3) for key, v in j['p50_ms'].items()} }; in-process Ed25519 "
+            f"sign {j['sign_ms']:.3f} ms, verify {j['verify_ms']:.3f} ms")
+        log(f"[gateway (k)] {card}: MCP server added and started over /api/v1/mcp/servers, "
+            f"tools {k['tools']}; toolbox.grounded (attach_mcp'd tool -> ai()) tokens = "
+            f"direct ({k['tokens']}), its run {k['run_executions']} executions; no child left")
+        log(f"[gateway (l)] {card}: / = DASHBOARD_HTML; summary = storage counts; "
+            f"{l_['executions']} executions in {l_['pages']} pages of 7; node details "
+            f"generate executions {l_['generate_executions']}; {l_['credentials']} credentials")
+        log(f"[gateway (m)] {card}: memory events in order {m['events']}; (j)-(m) took "
+            f"{out['audit_s']:.2f} s")
         # (f) the node stops: deregistered, nothing left running, no dead letter
         summary = server.stop(grace_s)
         stopped = True
@@ -5015,12 +5349,14 @@ def phase_gateway(results, state, seed: int, device: str = "cuda",
         marks["i"] = time.perf_counter() - t_main
         log(f"[gateway (i)] {card}: the quickstart through the port's CLI ({i['model']}): "
             f"step seconds {{{', '.join(f'{k}: {v:.2f}' for k, v in i['steps_s'].items())}}}; "
-            f"compute apps {i.get('compute_apps', 'not on the card')!r}")
+            f"compute apps {i.get('compute_apps', 'not on the card')!r}; (l) its server's "
+            f"/api/v1/packages {i['packages']}, org DID {i['org_did'][:24]}...")
         out["section_end_s"] = marks  # seconds from the main path's start
     finally:
         if not stopped:
             server.stop(grace_s)
         cpt.stop()
+        shutil.rmtree(audit_dir, ignore_errors=True)
     if on_card:  # both hand kernels, each of their paths, on this phase's main path
         for key in ("ragged_paged_attention", "dense_causal_attention", "ragged_decode_split",
                     "ragged_decode_combine", "ragged_tiles_tc"):
@@ -5046,7 +5382,8 @@ def phase_gateway(results, state, seed: int, device: str = "cuda",
         f"concurrent: {e['executions_per_s']:.2f} executions/s, TTFT p50 "
         f"{e['ttft_ms_p50']:.2f} p99 {e['ttft_ms_p99']:.2f} ms; (f) stop({grace_s}) "
         f"{out['f']['stop']}, deregistered, no execution left, dead letter empty; main path "
-        f"{main_s:.1f} s, phase {out['phase_s']:.1f} s, launches {launches}")
+        f"{main_s:.1f} s ((j)-(m) {out['audit_s']:.2f} s of it), phase {out['phase_s']:.1f} s, "
+        f"launches {launches}")
 
 
 # the cluster phase: two nodes of one fleet on the card (the serve's weights

@@ -9,9 +9,9 @@
 - the README quickstart (``server``, ``model --cpu --model llama-tiny``,
   ``init``, ``run``, ``status``, an execute of ``myagent.respond``,
   ``stop``) ends in an answered execute and leaves no process;
-- ``install``/``uninstall``/``packages`` on a local package; ``vc`` and
-  ``mcp`` refuse, naming their ROADMAP items; ``model`` without ``--cpu`` on
-  a machine without CUDA exits non-zero;
+- ``install``/``uninstall``/``packages`` on a local package; ``vc verify``
+  and ``mcp generate`` answer as the JAX CLI's; ``model`` without ``--cpu``
+  on a machine without CUDA exits non-zero;
 - ``EngineConfig``'s ``attn_impl``, ``prefill_impl``, ``chunk_attn_impl``,
   ``kv_write_impl`` and ``compile_cache_dir`` held against the JAX engine.
 """
@@ -204,11 +204,49 @@ def test_model_without_cpu_and_without_cuda_exits_nonzero(tmp_path):
     assert p.returncode != 0 and "no CUDA device" in p.stderr, (p.stdout, p.stderr)
 
 
-def test_vc_and_mcp_refuse_naming_their_items(tmp_path):
-    vc = _cli(tmp_path, "vc", "verify", "doc.json", check=False)
-    assert vc.returncode == 1 and "ROADMAP A7 1" in vc.stderr
-    mcp = _cli(tmp_path, "mcp", "generate", "srv", check=False)
-    assert mcp.returncode == 1 and "ROADMAP A7 2" in mcp.stderr
+def test_vc_and_mcp_refuse_naming_their_items(tmp_path, capsys):
+    """``vc verify`` and ``mcp generate`` answer as the JAX CLI's (the name
+    is the test's older one, from when both refused): ``vc verify`` on a
+    valid credential, an API envelope, a tampered one, a non-object and an
+    unreadable file prints the JAX command's lines and exits with its code;
+    ``mcp generate`` writes the JAX command's skill module for the fake MCP
+    server, the package of its import line apart."""
+    from agentfield_tpu.control_plane import identity as jid
+
+    vcs = jid.VCService(jid.DIDService(b"\x05" * 32))
+    vc = vcs.issue_execution_vc({"execution_id": "e", "run_id": "r", "target": "n.fn",
+                                 "target_type": "reasoner", "status": "completed"})
+    tampered = json.loads(json.dumps(vc))
+    tampered["credentialSubject"]["status"] = "failed"
+    docs = {"vc.json": vc, "envelope.json": {"vc": vc}, "tampered.json": tampered,
+            "list.json": [1], "field.json": {"vc": 3}}
+    for name, doc in docs.items():
+        (tmp_path / name).write_text(json.dumps(doc))
+    (tmp_path / "broken.json").write_text("{")
+    for name in (*docs, "broken.json", "missing.json"):
+        p = _cli(tmp_path, "vc", "verify", name, check=False)
+        rc = jax_cli.cmd_vc_verify(None, argparse.Namespace(file=str(tmp_path / name)))
+        out = capsys.readouterr()
+        assert (p.returncode, p.stdout) == (rc, out.out), name
+        assert p.stderr.split(":")[0] == out.err.split(":")[0], (name, p.stderr, out.err)
+    assert _cli(tmp_path, "vc", "verify", "vc.json").stdout.startswith("VALID: ok")
+    fake = ROOT / "tests" / "fake_mcp_server.py"
+    texts = {}
+    for tag, cmd in (("port", None), ("jax", jax_cli.cmd_mcp_generate)):
+        proj = tmp_path / tag
+        proj.mkdir()
+        (proj / ".mcp.json").write_text(json.dumps(
+            {"mcpServers": {"calc": {"command": sys.executable, "args": [str(fake)]}}}))
+        if cmd is None:
+            p = _cli(tmp_path, "mcp", "generate", "calc", "--project", str(proj))
+            assert p.stdout.strip().endswith("(2 skills)"), p.stdout
+            miss = _cli(tmp_path, "mcp", "generate", "nope", "--project", str(proj), check=False)
+            assert miss.returncode == 1 and "not in .mcp.json (known: ['calc'])" in miss.stderr
+        else:
+            assert cmd(None, argparse.Namespace(server="calc", project=str(proj))) == 0
+        texts[tag] = (proj / "mcp_calc_skills.py").read_text()
+    assert "from agentfield_tpu_torch.sdk.mcp import" in texts["port"]
+    assert texts["port"].replace("agentfield_tpu_torch.", "agentfield_tpu.") == texts["jax"]
 
 
 def test_packages_install_uninstall_as_jax(tmp_path):

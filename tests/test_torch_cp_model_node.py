@@ -219,10 +219,13 @@ async def test_same_tokens_as_through_the_jax_control_plane(fleet):
 
 
 def test_phase_gateway_rehearsed_on_cpu():
-    """``chip_smoke.phase_gateway`` at llama-tiny size on the CPU: (a)-(i)
+    """``chip_smoke.phase_gateway`` at llama-tiny size on the CPU: (a)-(m)
     hold (launch counts, nvidia-smi and the build dir are checked on the
     card only): (g) the port's SDK agents, (h) the branch verifier, (i) the
-    quickstart through the port's CLI with ``model --cpu``."""
+    quickstart through the port's CLI with ``model --cpu`` (its installed
+    package on ``/api/v1/packages``), (j) DIDs, credentials and a chain on
+    the phase's keystore, (k) an MCP server through the routes and
+    ``attach_mcp``, (l) the dashboard's payloads, (m) memory events."""
     from agentfield_tpu_torch.models.configs import get_config
     from agentfield_tpu_torch.models.llama import init_params
 
@@ -241,8 +244,19 @@ def test_phase_gateway_rehearsed_on_cpu():
     assert [runs[k]["verifier_used"] for k in ("plain0", "judge0", "fail", "missing",
                                                "reentrant")] == [False, True, False, False, True]
     assert g["h"]["verifier_calls"] == chip_smoke.GATEWAY_VERIFIER_TURNS + 3
-    assert set(g["i"]["steps_s"]) == {"server", "model", "init", "run", "status", "execute",
-                                      "stop"}
+    assert set(g["i"]["steps_s"]) == {"server", "model", "init", "install", "run", "status",
+                                      "execute", "stop"}
+    assert g["i"]["packages"] == ["myagent"] and g["i"]["org_did"].startswith("did:key:z")
+    assert set(g["dids"]) == {"app", "judge"}
+    assert set(g["j"]["p50_ms"]) == {"issue", "verify", "chain", "register"}
+    assert all(len(v) == 2 * chip_smoke.AUDIT_TURNS if k in ("issue", "verify")
+               else len(v) == chip_smoke.AUDIT_TURNS for k, v in g["j"]["ms"].items())
+    assert g["j"]["chain_count"] == 2 and g["k"]["tools"] == ["fact"]
+    assert g["k"]["run_executions"] == 3 and g["k"]["children_left"] == 0
+    assert g["l"]["pages"] == -(-g["l"]["executions"] // 7) and g["l"]["credentials"] >= 3
+    assert g["m"]["events"] == [("set", "notes_prompt"), ("set", "notes_tokens"),
+                                ("delete", "notes_prompt")]
+    assert 0 < g["audit_s"] < g["main_s"]
     assert len(g["b"]["gateway_own_ms"]) == 6 and g["e"]["executions_per_s"] > 0
     assert g["c"] == {"channel": 3, "post": 3}
     assert all(v > 0 for v in g["a"]["hist_counts"].values())

@@ -14,12 +14,12 @@ be equal after normalisation:
   ``ts``, ``*_at``, ``last_heartbeat``, ``last_probe``, ``first_seen``,
   ``last_seen``, a span's ``t0``) are replaced by placeholders, and so are
   measured durations (``duration_s``, a span's ``dur_ms``);
-- ``did`` fields are dropped: this box has the 'cryptography' package, so
-  the JAX control plane mints DIDs at registration, while the port has no
-  identity layer yet (ROADMAP A7) and answers 501 on ``/api/v1/did*`` and
-  ``/api/v1/vc*``, as the JAX one does without that package. The identity
-  routes are left out of the comparison for that reason; the port's 501s
-  are checked on their own;
+- ``did`` fields are compared as they are: both control planes of a flow
+  open one keystore file (the JAX one creates it, the port's opens it), so
+  they mint the same DIDs at registration. A credential's ``issuanceDate``
+  (its proof's ``created``, a stored credential's ``issued_at``) is replaced
+  by a placeholder; the identity flow freezes both identity modules'
+  clock, so its credentials, signatures included, compare byte for byte;
 - the text after "agent call failed: " is an exception's repr, which names
   aiohttp's classes on one side and ``http.py``'s on the other; it is
   replaced by a placeholder (the classification before it is compared);
@@ -37,6 +37,7 @@ import contextlib
 import json
 import re
 import threading
+import time
 
 import aiohttp
 import numpy as np
@@ -53,7 +54,8 @@ from tests.helpers_cp import CPHarness, FakeAgent, async_test, free_port
 FAST_RETRY = {"max_attempts": 3, "base_backoff": 0.01, "max_backoff": 0.02}
 ID_KEYS = {"execution_id", "run_id", "trace_id"}
 TIME_KEYS = {"ts", "created_at", "started_at", "finished_at", "registered_at",
-             "last_heartbeat", "last_probe", "first_seen", "last_seen", "t0", "dur_ms"}
+             "last_heartbeat", "last_probe", "first_seen", "last_seen", "t0", "dur_ms",
+             "issuanceDate", "created", "issued_at"}
 
 
 def norm(x, key: str | None = None):
@@ -63,7 +65,7 @@ def norm(x, key: str | None = None):
                     "<t>" if k in TIME_KEYS and x[k] is not None else
                     ({q: "<f>" for q in x[k]} if isinstance(x[k], dict) else "<f>")
                     if k == "duration_s" and x[k] is not None else norm(v, k))
-                for k, v in x.items() if k != "did"}
+                for k, v in x.items()}
     if isinstance(x, list):
         return [norm(v) for v in x]
     if isinstance(x, str):
@@ -150,13 +152,17 @@ async def port_side(**kw):
 
 
 async def both(flow, **kw) -> tuple[list, list]:
-    """Run ``flow`` against each control plane; return both records,
-    normalised."""
+    """Run ``flow`` against each control plane, both on one keystore file;
+    return both records, normalised."""
+    import tempfile
+
     out = []
-    for ctx in (jax_side, port_side):
-        async with ctx(**kw) as s:
-            await flow(s)
-            out.append(norm(s.record))
+    with tempfile.TemporaryDirectory(prefix="cp-keystore-") as d:
+        kw = {"keystore_path": f"{d}/keystore.bin", "keystore_passphrase": "parity", **kw}
+        for ctx in (jax_side, port_side):
+            async with ctx(**kw) as s:
+                await flow(s)
+                out.append(norm(s.record))
     return out[0], out[1]
 
 
@@ -514,6 +520,104 @@ async def flow_metrics_names(s: Side):
     s.note("metric names", sorted(re.findall(r"^# TYPE (\S+) (\S+)", text, re.M)))
 
 
+class _FrozenClock:
+    """Stands in for the ``time`` module inside both identity modules: the
+    issuance clock fixed, so credentials compare byte for byte."""
+
+    strftime = staticmethod(time.strftime)
+
+    @staticmethod
+    def gmtime(secs=None):
+        return time.gmtime(1_700_000_000)
+
+
+@contextlib.contextmanager
+def frozen_issuance_clock():
+    from agentfield_tpu.control_plane import identity as jid
+    from agentfield_tpu_torch.control_plane import identity as tid
+
+    saved = jid.time, tid.time
+    jid.time = tid.time = _FrozenClock
+    try:
+        yield
+    finally:
+        jid.time, tid.time = saved
+
+
+async def flow_identity(s: Side):
+    """The JAX server's identity routes (``server.py:837-962``): DIDs,
+    credential issue (404/409/410), verify (valid, tampered, re-signed by
+    a foreign key, malformed), workflow chains (404/409, GET read-only, POST
+    recorded), on executions with fixed ids and clocks."""
+    import base64
+
+    types = s.types
+    await s.register(s.agent, "fake-agent")
+    await s.req("org did", "GET", "/api/v1/did/org")
+    await s.req("node did", "GET", "/api/v1/did/fake-agent")
+    await s.req("node did unknown", "GET", "/api/v1/did/ghost")
+
+    def make(eid, status, **kw):
+        ex = types.Execution(execution_id=eid, target="fake-agent.echo",
+                             target_type=types.TargetType.REASONER, status=status,
+                             run_id="run_ident", created_at=1.0e9, **kw)
+        s.cp.storage.create_execution(ex)
+        return ex
+
+    make("exec_done", types.ExecutionStatus.COMPLETED, input={"a": [1, "x"]},
+         result={"echo": {"a": [1, "x"]}}, started_at=1.0e9 + 1, finished_at=1.0e9 + 2)
+    running = make("exec_busy", types.ExecutionStatus.RUNNING, input={"n": 2})
+    with frozen_issuance_clock():
+        _, doc, _ = await s.req("issue", "POST", "/api/v1/vc/executions/exec_done")
+        await s.req("issue running", "POST", "/api/v1/vc/executions/exec_busy")
+        await s.req("issue unknown", "POST", "/api/v1/vc/executions/exec_ghost")
+        vc = doc["vc"]
+        await s.req("verify", "POST", "/api/v1/vc/verify", json={"vc": vc})
+        tampered = json.loads(json.dumps(vc))
+        tampered["credentialSubject"]["result_digest"] = "A" * 43
+        await s.req("verify tampered", "POST", "/api/v1/vc/verify", json={"vc": tampered})
+        foreign = json.loads(json.dumps(tampered))
+        foreign["proof"]["verificationMethod"] = (
+            "did:key:z6MkhaXgBZDvotDkL5257faiztiGiC2QtKLGpbnnEGta2doK")
+        await s.req("verify foreign", "POST", "/api/v1/vc/verify", json={"vc": foreign})
+        for label, bad in (("no proof", {k: v for k, v in vc.items() if k != "proof"}),
+                           ("proof not a dict", {**vc, "proof": "x"}),
+                           ("no issuer", {k: v for k, v in vc.items() if k != "issuer"}),
+                           ("short signature", {**vc, "proof": {**vc["proof"], "proofValue":
+                                                base64.urlsafe_b64encode(b"x" * 63).decode()}}),
+                           ("bad did", {**vc, "issuer": "did:web:x", "proof": {
+                               **vc["proof"], "verificationMethod": "did:web:x"}})):
+            await s.req(f"verify {label}", "POST", "/api/v1/vc/verify", json={"vc": bad})
+        await s.req("verify no vc", "POST", "/api/v1/vc/verify", json={"x": 1})
+        await s.req("chain non-terminal", "GET", "/api/v1/vc/workflows/run_ident")
+        running.status = types.ExecutionStatus.FAILED
+        running.error = "boom"
+        running.finished_at = 1.0e9 + 3
+        s.cp.storage.update_execution(running)
+        await s.req("chain", "GET", "/api/v1/vc/workflows/run_ident")
+        await s.req("credentials after GET", "GET", "/api/ui/v1/credentials?subject_type=workflow")
+        await s.req("chain post", "POST", "/api/v1/vc/workflows/run_ident")
+        await s.req("credentials", "GET", "/api/ui/v1/credentials")
+        await s.req("chain unknown", "GET", "/api/v1/vc/workflows/run_ghost")
+
+
+async def flow_identity_offloaded_payload_gone(s: Side):
+    """A credential over an offloaded payload whose file is gone: 410."""
+    import pathlib
+
+    await s.register(s.agent, "fake-agent")
+    _, doc, _ = await s.req("echo big", "POST", "/api/v1/execute/fake-agent.echo",
+                            json={"input": {"blob": "z" * 70_000}})
+    files = [f for f in pathlib.Path(s.cp.payloads.base).rglob("*") if f.is_file()]
+    s.note("offloaded files", len(files))
+    for f in files:
+        f.unlink()
+    _, body, _ = await s.req("issue", "POST", f"/api/v1/vc/executions/{doc['execution_id']}")
+    s.record[-1][2] = {"error": re.sub(r"\(.*\)$", "(<path>)", body["error"])}
+    await s.req("chain", "GET", f"/api/v1/vc/workflows/{doc['run_id']}")
+    s.record[-1][2] = {"error": re.sub(r"\(.*\)$", "(<path>)", s.record[-1][2]["error"])}
+
+
 FLOWS = {
     "register_heartbeat_list": (flow_register_heartbeat_list, {}),
     "sync_200_and_202": (flow_sync_200_and_202, {}),
@@ -535,6 +639,7 @@ FLOWS = {
     "orphan_cleanup": (flow_orphan_cleanup, {"stale_after": 0.0}),
     "sse_events_stream_bytes": (flow_sse_events_and_stream_bytes, {}),
     "metrics_names": (flow_metrics_names, {}),
+    "identity": (flow_identity, {}),
 }
 
 
@@ -608,24 +713,24 @@ async def test_webhook_hmac_and_retry_on_both():
 
 
 @async_test
-async def test_port_identity_routes_answer_501_and_large_body_413():
-    """The identity routes (excluded from the comparison above) answer 501
-    on the port, with the JAX server's no-'cryptography' body; a body past
-    the 64 MiB limit is a 413 on both servers."""
-    async with port_side() as s:
-        for method, path in (("GET", "/api/v1/did/org"), ("GET", "/api/v1/did/n1"),
-                             ("POST", "/api/v1/vc/executions/exec_x"),
-                             ("GET", "/api/v1/vc/workflows/run_x"),
-                             ("POST", "/api/v1/vc/workflows/run_x")):
-            st, body, _ = await s.req(path, method, path)
-            assert st == 501 and "cryptography" in body["error"], (path, st, body)
-        st, body, _ = await s.req("verify", "POST", "/api/v1/vc/verify", json={"vc": {}})
-        assert st == 501
-        st, body, _ = await s.req("verify", "POST", "/api/v1/vc/verify", json={})
-        assert st == 400 and body == {"error": "field 'vc' (object) is required"}
-        for path in ("/", "/api/ui/v1/summary", "/api/v1/packages", "/api/v1/mcp/servers"):
-            st, _, _ = await s.req(path, "GET", path)
-            assert st == 404, path
+async def test_port_identity_routes_answer_501_and_large_body_413(tmp_path):
+    """The identity routes answer as the JAX server's (the name is the
+    test's older one, from when the port answered 501 there): a credential
+    over an offloaded payload whose file is gone is a 410 on both servers,
+    and the identity flow of the comparison above answers the same on both.
+    A body past the 64 MiB limit is a 413 on both servers."""
+    j, t = await both(flow_identity_offloaded_payload_gone, payload_dir=str(tmp_path))
+    assert_same(j, t)
+    assert [r[1] for r in t if r[0] in ("issue", "chain")] == [410, 410], t
+    assert t[2][0] == "offloaded files" and t[2][1] >= 1, t[2]
+    j, t = await both(flow_identity)
+    assert_same(j, t)
+    codes = {r[0]: r[1] for r in t if len(r) == 3}
+    assert codes["issue"] == 200 and codes["issue running"] == 409, codes
+    assert codes["chain non-terminal"] == 409 and codes["chain unknown"] == 404, codes
+    reasons = {r[0]: r[2].get("reason") for r in t if r[0].startswith("verify")}
+    assert reasons["verify"] == "ok" and reasons["verify tampered"] == "signature invalid"
+    assert reasons["verify foreign"] == "proof key does not match issuer", reasons
     big = b'{"value": "' + b"x" * (64 * 1024 * 1024) + b'"}'
     statuses = []
     for ctx in (jax_side, port_side):

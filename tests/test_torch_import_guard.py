@@ -11,7 +11,8 @@ and ``wave``; the cluster tier's KV wire reads bf16 and fp8 leaves through
 ``torch.optim`` and checkpoints in its own safetensors format; a JAX train
 state or adapter comes across as numpy), nor PyYAML (``yaml``) or jsonschema
 (the SDK validates structured output, and the CLI reads its config files,
-with its own code). jinja2 stays allowed: it comes with torch, and the
+with its own code), nor cryptography (the identity layer signs, derives and
+seals with ``control_plane/crypto.py``). jinja2 stays allowed: it comes with torch, and the
 tokenizer imports it only when it renders a chat template.
 
 The check is on the AST, by the exact top-level module name: a prefix test
@@ -29,7 +30,7 @@ import pytest
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 FORBIDDEN = {"jax", "jaxlib", "agentfield_tpu", "tools", "aiohttp", "pydantic", "safetensors",
              "transformers", "tokenizers", "regex", "websockets", "grpc", "PIL", "ml_dtypes",
-             "optax", "orbax", "flax", "yaml", "jsonschema"}
+             "optax", "orbax", "flax", "yaml", "jsonschema", "cryptography"}
 
 
 def _port_files() -> list[pathlib.Path]:
@@ -220,9 +221,9 @@ def test_scan_covers_the_parallel_package_and_its_test_helper():
     assert not [t for _, t in _imported_tops(helper) if t in FORBIDDEN]
 
 
-CONTROL_PLANE = ("__init__", "__main__", "channel", "dag", "events", "faults", "gateway",
-                 "health", "http", "metrics", "payloads", "registry", "server", "storage",
-                 "types", "webhooks")
+CONTROL_PLANE = ("__init__", "__main__", "channel", "crypto", "dag", "dashboard", "events",
+                 "faults", "gateway", "health", "http", "identity", "mcp_service", "metrics",
+                 "payloads", "registry", "server", "storage", "types", "ui_service", "webhooks")
 
 
 def _control_plane_offences(cp_dir: pathlib.Path) -> dict[str, list]:
@@ -269,8 +270,8 @@ def test_control_plane_scan_fails_on_a_planted_aiohttp_import(tmp_path):
     assert [t for _, t in bad["server"]] == ["grpc"]
 
 
-SDK_CLI = {"sdk": ("__init__", "agent", "client", "context", "memory_events", "multimodal",
-                   "node_client", "result_cache", "structured"),
+SDK_CLI = {"sdk": ("__init__", "agent", "client", "context", "mcp", "memory_events",
+                   "multimodal", "node_client", "result_cache", "structured"),
            "cli": ("__init__", "__main__", "main", "packages")}
 
 
@@ -310,20 +311,51 @@ def test_scan_covers_the_sdk_cli_and_config_and_they_import_only_stdlib_numpy_an
 
 def test_the_sdk_imports_without_the_jax_libraries():
     """``from agentfield_tpu_torch.sdk import Agent`` in a fresh interpreter
-    where aiohttp, pydantic, PyYAML and jsonschema cannot be imported."""
+    where aiohttp, pydantic, PyYAML, jsonschema and cryptography cannot be
+    imported; the identity layer derives a DID there."""
     code = (
         "import sys\n"
         "class Block:\n"
         "    def find_spec(self, name, path=None, target=None):\n"
-        "        if name.split('.')[0] in ('aiohttp', 'pydantic', 'yaml', 'jsonschema'):\n"
+        "        if name.split('.')[0] in ('aiohttp', 'pydantic', 'yaml', 'jsonschema',\n"
+        "                                  'cryptography'):\n"
         "            raise ImportError(f'{name} is blocked')\n"
         "sys.meta_path.insert(0, Block())\n"
         "from agentfield_tpu_torch.sdk import Agent, AgentRouter, AIConfig, ControlPlaneClient\n"
         "from agentfield_tpu_torch.cli.main import build_parser\n"
         "from agentfield_tpu_torch.config import load_config\n"
+        "from agentfield_tpu_torch.control_plane.identity import DIDService\n"
+        "from agentfield_tpu_torch.sdk.mcp import MCPManager\n"
+        "assert DIDService(bytes(32)).org_did.startswith('did:key:z')\n"
         "print('ok')\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                          text=True, timeout=120, env={"PATH": "/usr/bin:/bin",
                                                       "PYTHONPATH": str(ROOT)})
     assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr[-2000:]
+
+
+def test_guard_names_the_crypto_library_and_the_identity_modules_use_none(tmp_path):
+    """cryptography, which the JAX identity layer imports and the card's
+    machine lacks, is named by the guard; the port's identity modules
+    (``crypto.py``, ``identity.py``), its MCP modules (``mcp_service.py``,
+    ``sdk/mcp.py``), ``ui_service.py`` and ``dashboard.py`` import the
+    standard library, numpy and the port only."""
+    src = tmp_path / "m.py"
+    src.write_text(
+        "from cryptography.hazmat.primitives.asymmetric.ed25519 import Ed25519PrivateKey\n"
+        "import cryptography.exceptions\n"
+        "from agentfield_tpu.control_plane.identity import VCService\n"
+        "from agentfield_tpu_torch.control_plane.crypto import AESGCM\n"
+        "import hashlib, hmac\n"
+    )
+    tops = [t for _, t in _imported_tops(src)]
+    assert [t for t in tops if t in FORBIDDEN] == ["cryptography", "cryptography", "agentfield_tpu"]
+    allowed = set(sys.stdlib_module_names) | {"numpy", "agentfield_tpu_torch"}
+    pkg = ROOT / "agentfield_tpu_torch"
+    for rel in ("control_plane/crypto.py", "control_plane/identity.py",
+                "control_plane/mcp_service.py", "control_plane/ui_service.py",
+                "control_plane/dashboard.py", "sdk/mcp.py", "sdk/memory_events.py"):
+        assert pkg / rel in _port_files(), rel
+        assert [t for _, t in _imported_tops(pkg / rel)
+                if t not in allowed or t in FORBIDDEN] == [], rel

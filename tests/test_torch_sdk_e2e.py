@@ -586,14 +586,62 @@ def test_byte_tokenizer_roundtrip():
     assert tok.decode(ids) == "hello" and all(0 <= t < 512 for t in ids)
 
 
-def test_agent_refusals_name_their_items():
+@async_test
+async def test_agent_refusals_name_their_items():
+    """``Agent.attach_mcp`` and ``MemoryEventClient`` work (the name is the
+    test's older one, from when both raised): a port agent registers a
+    started ``MCPManager``'s tools as skills, an execute through the port's
+    gateway reaches the tool, the agent's ``/health`` carries the manager's
+    health; a ``MemoryEventClient`` sees the agent's memory set and delete,
+    and its stop leaves no task."""
+    from agentfield_tpu_torch.control_plane.server import run_server
+    from agentfield_tpu_torch.sdk.mcp import MCPManager
     from agentfield_tpu_torch.sdk.memory_events import MemoryEventClient
 
-    app = port_agent_mod.Agent("refuser", "http://127.0.0.1:1")
-    with pytest.raises(NotImplementedError, match="ROADMAP A7 2"):
-        app.attach_mcp(object())
-    with pytest.raises(NotImplementedError, match="ROADMAP A7 7"):
-        MemoryEventClient("http://127.0.0.1:1")
+    port = free_port()
+    runner = await run_server(ControlPlane(), "127.0.0.1", port)
+    base = f"http://127.0.0.1:{port}"
+    mgr = MCPManager({"calc": {"command": sys.executable,
+                               "args": [str(ROOT / "tests" / "fake_mcp_server.py")]}})
+    events = MemoryEventClient(base, reconnect_delay=0.05)
+    seen: list = []
+    events.on_change("k*", lambda ev: seen.append((ev["type"], ev["key"])))
+    app = port_agent_mod.Agent("mcpuser", base)
+    tasks0 = set(asyncio.all_tasks())
+    try:
+        await mgr.start_all()
+        assert app.attach_mcp(mgr) == ["calc_add", "calc_shout"]
+        await app.start()
+        await events.start()
+        for _ in range(100):
+            if events.connected:
+                break
+            await asyncio.sleep(0.02)
+        async with http.ClientSession(base_url=base) as s:
+            async with s.post("/api/v1/execute/mcpuser.calc_add",
+                              json={"input": {"a": 2, "b": 3}}) as r:
+                doc = await r.json()
+            assert r.status == 200 and doc["result"] == "5", doc
+            async with s.get(f"http://127.0.0.1:{app.port}/health") as r:
+                health = await r.json()
+            assert health["mcp"]["calc"]["alive"] and health["mcp"]["calc"]["tools"] == 2
+        await app.memory.memory_set("k1", {"v": 1})
+        await app.memory.memory_delete("k1")
+        await app.memory.memory_set("other", 2)
+        for _ in range(100):
+            if len(seen) >= 2:
+                break
+            await asyncio.sleep(0.02)
+        assert seen == [("set", "k1"), ("delete", "k1")], seen
+    finally:
+        await events.stop()
+        await app.stop()
+        await mgr.stop_all()
+        await runner.cleanup()
+    assert not events.connected and events._task.done()
+    left = [t for t in asyncio.all_tasks() - tasks0 if not t.done()
+            and t is not asyncio.current_task()]
+    assert not left, left
 
 
 # -- the channel's node half ----------------------------------------------
