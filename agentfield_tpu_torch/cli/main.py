@@ -7,12 +7,14 @@ reads the cluster through the control-plane API. Process management keeps a
 pidfile registry under the data dir (reference:
 internal/infrastructure/process/manager.go).
 
-Differences from the JAX CLI, each said on stderr where it applies:
-`server` runs the port's control plane with its keystore (SQLite; a
-Postgres DSN waits for ROADMAP A7 5, admin gRPC for A7 6); `model` serves on
-the card, or on the CPU with ``--cpu`` or ``AGENTFIELD_MODEL_CPU=1``, and
-exits non-zero without a CUDA device otherwise (the model's gRPC waits for
-ROADMAP A1 a); `vc verify` and `mcp generate` run on the port's
+`server` runs the port's control plane with its keystore, on a SQLite path
+or a ``postgres://`` DSN (``server.db_path``), with the admin gRPC service on
+its port + 100; `model` serves HTTP and gRPC ``Generate`` (on its port +
+100; a failed bind prints "model gRPC disabled" and serves on) as the JAX
+CLI does. Differences from the JAX CLI, each said on stderr where it
+applies: `model` serves on the card, or on the CPU with ``--cpu`` or
+``AGENTFIELD_MODEL_CPU=1``, and exits non-zero without a CUDA device
+otherwise; `vc verify` and `mcp generate` run on the port's
 ``control_plane/identity.py`` and ``sdk/mcp.py``. `init`'s Python template
 imports ``agentfield_tpu_torch.sdk``.
 
@@ -100,23 +102,19 @@ def cmd_server(cfg: Config, args) -> int:
         return _spawn(cfg, "control-plane", argv)
     from agentfield_tpu_torch.control_plane.server import ControlPlane, run_server
 
-    db = cfg.server.db_path
-    if "://" in db:  # a postgres:// DSN is not a filesystem path
-        print(f"[aftpu] {db.split('://')[0]} storage is not ported: it waits for "
-              "ROADMAP A7 5 (storage_pg.py); give server.db_path a SQLite path", file=sys.stderr)
-        return 1
-    print("[aftpu] admin gRPC is not ported (ROADMAP A7 6): not started", file=sys.stderr)
-
     async def main():
-        path = os.path.expanduser(db)
-        Path(path).parent.mkdir(parents=True, exist_ok=True)
+        db = cfg.server.db_path
+        if "://" not in db:  # a postgres:// DSN is not a filesystem path
+            db = os.path.expanduser(db)
+            Path(db).parent.mkdir(parents=True, exist_ok=True)
         port = args.port or cfg.server.port
         cp = ControlPlane(
-            db_path=path,
+            db_path=db,
             data_dir=str(data_dir(cfg)),
             keystore_path=str(data_dir(cfg) / "keystore.bin"),
             keystore_passphrase=cfg.server.keystore_passphrase,
             payload_dir=str(data_dir(cfg) / "payloads"),
+            admin_grpc_port=port + 100,  # reference convention: admin on port+100
             agent_timeout=cfg.execution.agent_timeout,
             sync_wait_timeout=cfg.execution.sync_wait_timeout,
             async_workers=cfg.execution.async_workers,
@@ -130,7 +128,8 @@ def cmd_server(cfg: Config, args) -> int:
             retention=cfg.execution.retention,
         )
         runner = await run_server(cp, host=cfg.server.host, port=port)
-        print(f"control plane on {cfg.server.host}:{port} (db={path})", flush=True)
+        print(f"control plane on {cfg.server.host}:{port} (admin gRPC :{port + 100}, db={db})",
+              flush=True)
         stop = asyncio.Event()
         loop = asyncio.get_running_loop()
         for s in (signal.SIGINT, signal.SIGTERM):
@@ -215,9 +214,14 @@ def cmd_model(cfg: Config, args) -> int:
     for s in (signal.SIGINT, signal.SIGTERM):
         signal.signal(s, lambda signum, frame: stopping.set())
     port = server.start("127.0.0.1", 0)
-    print("[aftpu] model gRPC is not ported: it waits for ROADMAP A1 a", file=sys.stderr)
+    grpc_note = ""
+    try:
+        grpc_note = f", gRPC :{server.start_grpc(port + 100)}"
+    except OSError as e:
+        print(f"[aftpu] model gRPC disabled: {e}", file=sys.stderr)
     print(
-        f"model node '{server.node_id}' ({args.model or mn.model}) on :{port} ({device})",
+        f"model node '{server.node_id}' ({args.model or mn.model}) on :{port}{grpc_note} "
+        f"({device})",
         flush=True,
     )
     try:

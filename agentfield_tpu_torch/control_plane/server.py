@@ -4,9 +4,11 @@ standard library) in place of aiohttp. The routes, status codes and error
 bodies are the JAX server's, the DID/VC identity layer on the port's own
 primitives (``identity.py`` over ``crypto.py``), the MCP manager
 (``mcp_service.py``), the dashboard on ``/``, ``/api/ui/*``,
-``/api/v1/packages`` and ``/api/v1/memory/events/ws`` included. Not ported
-yet: Postgres storage (ROADMAP A7 5: a ``postgres://`` path raises) and the
-admin gRPC surface (A7 6: ``admin_grpc_port`` raises).
+``/api/v1/packages`` and ``/api/v1/memory/events/ws`` included. A
+``postgres://`` ``db_path`` opens ``storage_pg.PostgresStorage`` (the
+port's own wire client, ``pgwire.py``); ``admin_grpc_port`` serves the
+admin gRPC service (``admin_grpc.py``, on the port's own HTTP/2 transport,
+``grpc_h2.py``) from ``start`` to ``stop``.
 
 Two differences, neither visible in an answer: a workflow chain is signed
 on a worker thread (the JAX server signs it on the loop), and the memory
@@ -64,7 +66,7 @@ class ControlPlane:
         keystore_path: str | None = None,  # None → ephemeral seed (tests/dev)
         keystore_passphrase: str | None = None,  # None → env var or dev default
         payload_dir: str | None = None,  # None → payloads stay inline
-        admin_grpc_port: int | None = None,  # not ported: anything but None raises
+        admin_grpc_port: int | None = None,  # reference serves admin gRPC on port+100
         health_interval: float = 30.0,  # active probe cadence (health_monitor.go)
         data_dir: str | None = None,  # package registry root (packages page)
         db_group_commit_ms: float | None = None,  # write-behind execution
@@ -83,17 +85,12 @@ class ControlPlane:
         # scoring + cross-node KV transfer hints. None →
         # $AGENTFIELD_PREFIX_AFFINITY (default on).
     ):
-        if admin_grpc_port is not None:
-            raise NotImplementedError(
-                "the admin gRPC surface is not ported yet (ROADMAP A7 6): "
-                "pass admin_grpc_port=None"
-            )
         from agentfield_tpu_torch.control_plane.identity import DIDService, Keystore, VCService
         from agentfield_tpu_torch.control_plane.storage import AsyncStorage, create_storage
 
-        # db_path doubles as a storage URL: a postgres:// DSN would select
-        # the shared-database provider, which is not ported yet (it raises);
-        # anything else is a SQLite path (reference: StorageFactory).
+        # db_path doubles as a storage URL: a postgres:// DSN selects the
+        # shared-database provider; anything else is a SQLite path
+        # (reference: StorageFactory).
         self.storage = create_storage(db_path, group_commit_ms=db_group_commit_ms)
 
         # Awaitable mirror: handlers await this so a slow Postgres can never
@@ -112,6 +109,8 @@ class ControlPlane:
         self.payloads = (
             PayloadStore(payload_dir, secret=seed) if payload_dir else None
         )
+        self.admin_grpc_port = admin_grpc_port
+        self._admin_grpc = None
         self.metrics = Metrics()
         # Metrics attach to the bus so per-topic drops surface as
         # events_dropped_total{topic=...} instead of a silent swallow.
@@ -186,6 +185,10 @@ class ControlPlane:
         # must not delay /health and the gateway coming up
         self._mcp_autostart_task = asyncio.create_task(self.mcp.start_autostart())
         self._cleanup_task = asyncio.create_task(self._cleanup_loop())
+        if self.admin_grpc_port:
+            from agentfield_tpu_torch.control_plane.admin_grpc import start_admin_grpc
+
+            self._admin_grpc = start_admin_grpc(self.storage, self.admin_grpc_port)
 
     async def stop(self) -> None:
         if not self._started:
@@ -194,6 +197,10 @@ class ControlPlane:
         if self._cleanup_task:
             self._cleanup_task.cancel()
             await asyncio.gather(self._cleanup_task, return_exceptions=True)
+        if self._admin_grpc is not None:
+            # joins the server's threads: off the loop
+            await asyncio.to_thread(self._admin_grpc.stop, 0)
+            self._admin_grpc = None
         if self._mcp_autostart_task:
             self._mcp_autostart_task.cancel()
             await asyncio.gather(self._mcp_autostart_task, return_exceptions=True)

@@ -94,8 +94,10 @@ a tower or head the node was built without, an invalid schema) answers
 400, an input that does not
 fit the parameters or a bad argument 422, a full queue, a grammar bank or a
 draining node 503. It is built on ``http.server.ThreadingHTTPServer``
-because the card's machine has no aiohttp. The gRPC transport is not
-ported yet.
+because the card's machine has no aiohttp. ``start_grpc(port)`` serves
+the JAX node's gRPC ``Generate`` (``ModelGrpcService``, on the port's own
+HTTP/2 transport ``control_plane/grpc_h2.py``; ``aftpu model`` puts it on
+the HTTP port + 100), stopped inside ``stop``'s drain.
 
 Run a node::
 
@@ -1766,6 +1768,8 @@ class ModelNodeServer:
         # streams; under _tracked_lock
         self._tracked: set[threading.Thread] = set()
         self._tracked_lock = threading.Lock()
+        self._grpc = None  # the gRPC Generate server, from start_grpc
+        self.grpc_port: int | None = None
 
     @property
     def port(self) -> int:
@@ -1796,12 +1800,21 @@ class ModelNodeServer:
             self._hb_thread.start()
         return self.port
 
+    def start_grpc(self, port: int) -> int:
+        """Serve ``Generate`` over gRPC on ``127.0.0.1:port``
+        (``start_model_grpc``) until ``stop``; returns the port. OSError if
+        it cannot be bound."""
+        self._grpc = start_model_grpc(self.backend, port)
+        self.grpc_port = port
+        return port
+
     def stop(self, grace_s: float = DRAIN_GRACE_S) -> dict[str, Any]:
         """The JAX ``drain_and_stop``: stop heartbeating; drain the backend
         (admission answers 503, in-flight work finishes within ``grace_s``
         or ends "deadline_exceeded", so every stream and channel execution
         gets its terminal frame); let tracked requests call back and streams
-        write their last frame; send a "stopping" heartbeat and deregister;
+        write their last frame; stop the gRPC server (its calls got their
+        answers in the drain); send a "stopping" heartbeat and deregister;
         close the channel; stop serving; stop the engine. Returns the
         drain's summary. After the drain, the joins and the channel's close
         take at most ``min(grace_s + 5, 30)`` s together: a reader that
@@ -1816,6 +1829,9 @@ class ModelNodeServer:
             tracked = list(self._tracked)
         for th in tracked:
             th.join(timeout=max(0.0, deadline - time.monotonic()))
+        if self._grpc is not None:  # its calls were drained with the rest
+            self._grpc.stop(max(0.0, deadline - time.monotonic()))
+            self._grpc = None
         if self._registered:
             self._registered = False
             for call in (lambda: self.client.heartbeat(self.node_id, status="stopping"),
@@ -2394,6 +2410,188 @@ def _build_tp_node(cfg, ecfg, tp, backend, *, seed, device, params, tokenizer, n
         raise
     return ModelNodeServer(backend_, node_id=node_id, control_plane=control_plane,
                            role=role), backend_
+
+
+# -- the gRPC data plane (the JAX node's ModelGrpcService) --------------------
+
+# Optional scalar fields of GenerateRequest, shared by the server-side
+# decode and the client-side encode so the two cannot drift.
+_GRPC_SCALAR_FIELDS = ("prompt", "max_new_tokens", "temperature", "top_k",
+                       "top_p", "session_id", "context_overflow")
+GRPC_TIMEOUT_CAP_S = 600.0  # a call without a deadline (or a longer one) waits this long
+
+
+def _grpc_request_to_kwargs(request) -> dict[str, Any]:
+    """GenerateRequest proto → backend.generate kwargs. `optional` fields
+    pass through only when present, so server-side defaults (top_p=1 etc.)
+    stay authoritative."""
+    kwargs: dict[str, Any] = {}
+    for f in _GRPC_SCALAR_FIELDS:
+        if request.HasField(f):
+            kwargs[f] = getattr(request, f)
+    if request.tokens:
+        kwargs["tokens"] = list(request.tokens)
+    if request.stop_token_ids:
+        kwargs["stop_token_ids"] = list(request.stop_token_ids)
+    if request.HasField("response_schema_json"):
+        kwargs["response_schema"] = json.loads(request.response_schema_json)
+    if request.images:
+        # raw encoded bytes straight through — _decode_image takes them
+        # as-is (no base64 round trip on the data-plane hot path)
+        kwargs["images"] = list(request.images)
+    return kwargs
+
+
+def _result_to_grpc_response(result: dict[str, Any]):
+    from agentfield_tpu_torch.control_plane.proto import modelnode_pb2
+
+    return modelnode_pb2.GenerateResponse(
+        tokens=result.get("tokens", []),
+        text=result.get("text", ""),
+        finish_reason=result.get("finish_reason") or "",
+        model=result.get("model", ""),
+        logprobs=[lp for lp in (result.get("logprobs") or []) if lp is not None],
+        truncated_prompt_tokens=int(result.get("truncated_prompt_tokens", 0)),
+    )
+
+
+class ModelGrpcService:
+    """The model node's gRPC surface (``agentfield.model.v1.ModelNode/
+    Generate``, modelnode.proto), on the port's own transport
+    (``control_plane/grpc_h2.py``): the unary Generate blocks a pool thread
+    until ``ModelBackend.generate`` returns. The status codes are the JAX
+    service's: INVALID_ARGUMENT for a bad ``response_schema_json`` and for
+    RequestTooLongError, RESOURCE_EXHAUSTED for QueueFullError (a draining
+    node's NodeDrainingError among them), DEADLINE_EXCEEDED when the
+    caller's deadline (capped at ``GRPC_TIMEOUT_CAP_S``) runs out, INTERNAL
+    for anything else. A deadline that runs out, or a client that cancels
+    (RST_STREAM, the transport's ``add_callback`` hooks), ends the request
+    through the node's cancel path, so its engine slot and pages are
+    released (the JAX service cancels the coroutine); no ``deadline_s``
+    rides into the engine, whose counters stay the HTTP path's."""
+
+    SERVICE = "agentfield.model.v1.ModelNode"
+
+    def __init__(self, backend: ModelBackend):
+        self.backend = backend
+
+    def service(self, handler_call_details):
+        from agentfield_tpu_torch.control_plane import grpc_h2 as grpc
+        from agentfield_tpu_torch.control_plane.proto import modelnode_pb2
+
+        if handler_call_details.method != f"/{self.SERVICE}/Generate":
+            return None
+
+        def generate(request, context):
+            try:
+                kwargs = _grpc_request_to_kwargs(request)
+            except ValueError as e:  # malformed response_schema_json etc.
+                context.abort(grpc.StatusCode.INVALID_ARGUMENT, str(e))
+
+            def on_cancel(fn) -> None:  # the client reset the stream, or the server stops
+                if not context.add_callback(fn):
+                    fn()  # it ended before the hook was in: cancel at once
+
+            remaining = context.time_remaining()
+            timeout = (min(remaining, GRPC_TIMEOUT_CAP_S) if remaining is not None
+                       else GRPC_TIMEOUT_CAP_S)
+            try:
+                return _result_to_grpc_response(
+                    self.backend.generate(**kwargs, timeout=timeout, on_cancel=on_cancel))
+            except TimeoutError:
+                context.abort(grpc.StatusCode.DEADLINE_EXCEEDED, "generation timed out")
+            except ExecutionCancelled:
+                context.abort(grpc.StatusCode.CANCELLED, "the client cancelled the call")
+            except QueueFullError as e:
+                # Admission backpressure is retryable — mirror the SSE path's
+                # 503 (reference queue-full semantics, execute.go:1373-1410).
+                context.abort(grpc.StatusCode.RESOURCE_EXHAUSTED, str(e))
+            except RequestTooLongError as e:
+                context.abort(grpc.StatusCode.INVALID_ARGUMENT, str(e))
+            except Exception as e:  # noqa: BLE001 — the JAX service's INTERNAL
+                context.abort(grpc.StatusCode.INTERNAL, repr(e))
+
+        return grpc.unary_unary_rpc_method_handler(
+            generate,
+            request_deserializer=modelnode_pb2.GenerateRequest.FromString,
+            response_serializer=modelnode_pb2.GenerateResponse.SerializeToString,
+        )
+
+
+def start_model_grpc(backend: ModelBackend, port: int):
+    """Serve Generate on ``127.0.0.1:port`` (the node's HTTP port + 100, by
+    the CLI's convention); returns the server (``stop(grace)``). A port
+    that cannot be bound raises OSError."""
+    from agentfield_tpu_torch.control_plane import grpc_h2 as grpc
+
+    server = grpc.server(max_workers=8)
+    server.add_generic_rpc_handlers((ModelGrpcService(backend),))
+    bound = server.add_insecure_port(f"127.0.0.1:{port}")
+    if bound == 0:
+        raise OSError(f"model gRPC could not bind 127.0.0.1:{port}")
+    server.start()
+    return server
+
+
+def model_grpc_request(request: dict):
+    """The HTTP body's dict shape (response_schema as a dict, images as
+    ``{"b64": ...}`` entries) → a GenerateRequest."""
+    from agentfield_tpu_torch.control_plane.proto import modelnode_pb2
+
+    msg = modelnode_pb2.GenerateRequest()
+    for f in _GRPC_SCALAR_FIELDS:
+        if request.get(f) is not None:
+            setattr(msg, f, request[f])
+    if request.get("tokens"):
+        msg.tokens.extend(request["tokens"])
+    if request.get("stop_token_ids"):
+        msg.stop_token_ids.extend(request["stop_token_ids"])
+    if request.get("response_schema") is not None:
+        msg.response_schema_json = json.dumps(request["response_schema"])
+    for im in request.get("images") or []:
+        if not (isinstance(im, dict) and "b64" in im):
+            raise ValueError("gRPC images must be {'b64': <base64 bytes>} entries")
+        msg.images.append(base64.b64decode(im["b64"]))
+    return msg
+
+
+def model_grpc_response(resp) -> dict[str, Any]:
+    out: dict[str, Any] = {
+        "tokens": list(resp.tokens),
+        "text": resp.text,
+        "finish_reason": resp.finish_reason or None,
+        "model": resp.model,
+    }
+    if resp.logprobs:
+        out["logprobs"] = list(resp.logprobs)
+    if resp.truncated_prompt_tokens:
+        out["truncated_prompt_tokens"] = resp.truncated_prompt_tokens
+    return out
+
+
+def model_grpc_generate(port: int, request: dict, timeout: float = 600.0,
+                        channel=None) -> dict:
+    """Client helper for the gRPC Generate surface, as the JAX node's:
+    the HTTP body's dict in, the result dict out (RpcError on a failed
+    call). ``channel`` (a ``grpc_h2.Channel``) reuses a connection; else
+    one is opened for the call."""
+    from agentfield_tpu_torch.control_plane import grpc_h2 as grpc
+    from agentfield_tpu_torch.control_plane.proto import modelnode_pb2
+
+    msg = model_grpc_request(request)
+    own = channel is None
+    ch = grpc.insecure_channel(f"127.0.0.1:{port}") if own else channel
+    try:
+        fn = ch.unary_unary(
+            f"/{ModelGrpcService.SERVICE}/Generate",
+            request_serializer=modelnode_pb2.GenerateRequest.SerializeToString,
+            response_deserializer=modelnode_pb2.GenerateResponse.FromString,
+        )
+        resp = fn(msg, timeout=timeout)
+    finally:
+        if own:
+            ch.close()
+    return model_grpc_response(resp)
 
 
 def main(argv: list[str] | None = None) -> None:

@@ -225,7 +225,9 @@ def test_phase_gateway_rehearsed_on_cpu():
     quickstart through the port's CLI with ``model --cpu`` (its installed
     package on ``/api/v1/packages``), (j) DIDs, credentials and a chain on
     the phase's keystore, (k) an MCP server through the routes and
-    ``attach_mcp``, (l) the dashboard's payloads, (m) memory events."""
+    ``attach_mcp``, (l) the dashboard's payloads, (m) memory events, (n)
+    gRPC Generate, (o) admin gRPC, (p) a control plane on the fake
+    Postgres server."""
     from agentfield_tpu_torch.models.configs import get_config
     from agentfield_tpu_torch.models.llama import init_params
 
@@ -256,6 +258,10 @@ def test_phase_gateway_rehearsed_on_cpu():
     assert g["l"]["pages"] == -(-g["l"]["executions"] // 7) and g["l"]["credentials"] >= 3
     assert g["m"]["events"] == [("set", "notes_prompt"), ("set", "notes_tokens"),
                                 ("delete", "notes_prompt")]
+    assert g["invalid"][0] == "INTERNAL" and g["n"]["tokens"] == chip_smoke.GRPC_NEW
+    assert len(g["n"]["grpc_ms"]) == len(g["n"]["post_ms"]) == chip_smoke.GRPC_TURNS
+    assert g["o"]["reasoners"] >= 2 and g["o"]["nodes"] >= 3
+    assert g["p"]["pg_server"] == "fake (sqlite)" and g["p"]["execution_rows"] >= 1
     assert 0 < g["audit_s"] < g["main_s"]
     assert len(g["b"]["gateway_own_ms"]) == 6 and g["e"]["executions_per_s"] > 0
     assert g["c"] == {"channel": 3, "post": 3}

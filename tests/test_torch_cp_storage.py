@@ -22,6 +22,8 @@ import asyncio
 import json
 import sqlite3
 
+import unittest.mock as mock
+
 import numpy as np
 import pytest
 
@@ -241,11 +243,23 @@ def test_vector_topk_equal(metric):
 
 
 def test_create_storage_sqlite_and_postgres_refused(tmp_path):
+    """A SQLite path opens SQLite; a Postgres URL goes to the Postgres
+    provider (``storage_pg``), whose connection is refused where no server
+    listens (the provider itself: ``tests/test_torch_storage_pg.py``)."""
+    from agentfield_tpu_torch.control_plane import storage_pg
+    from tests.helpers_cp import free_port
+
     st = tstorage.create_storage(str(tmp_path / "a.db"), group_commit_ms=0)
     assert isinstance(st, tstorage.SQLiteStorage) and st.journal is None
     st.close()
-    for url in ("postgres://u:p@localhost/db", "postgresql://localhost/db"):
-        with pytest.raises(NotImplementedError, match="ROADMAP A7: Postgres"):
+    port = free_port()
+    for url in (f"postgres://u:p@127.0.0.1:{port}/db", f"postgresql://127.0.0.1:{port}/db"):
+        with mock.patch.object(storage_pg, "PgConnection",
+                               side_effect=ConnectionRefusedError) as pc:
+            with pytest.raises(ConnectionRefusedError):
+                tstorage.create_storage(url)
+        assert pc.call_args.args[0] == url
+        with pytest.raises(ConnectionRefusedError):
             tstorage.create_storage(url)
 
 

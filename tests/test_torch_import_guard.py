@@ -12,7 +12,11 @@ and ``wave``; the cluster tier's KV wire reads bf16 and fp8 leaves through
 state or adapter comes across as numpy), nor PyYAML (``yaml``) or jsonschema
 (the SDK validates structured output, and the CLI reads its config files,
 with its own code), nor cryptography (the identity layer signs, derives and
-seals with ``control_plane/crypto.py``). jinja2 stays allowed: it comes with torch, and the
+seals with ``control_plane/crypto.py``), nor protobuf's runtime (``google``),
+h2, hpack or a Postgres driver (psycopg, psycopg2, asyncpg): gRPC rides the
+port's own HTTP/2, HPACK and protobuf codecs (``control_plane/grpc_h2.py``,
+``hpack_codec.py``, ``proto/``), Postgres its own wire client
+(``control_plane/pgwire.py``). jinja2 stays allowed: it comes with torch, and the
 tokenizer imports it only when it renders a chat template.
 
 The check is on the AST, by the exact top-level module name: a prefix test
@@ -30,7 +34,11 @@ import pytest
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 FORBIDDEN = {"jax", "jaxlib", "agentfield_tpu", "tools", "aiohttp", "pydantic", "safetensors",
              "transformers", "tokenizers", "regex", "websockets", "grpc", "PIL", "ml_dtypes",
-             "optax", "orbax", "flax", "yaml", "jsonschema", "cryptography"}
+             "optax", "orbax", "flax", "yaml", "jsonschema", "cryptography",
+             "google", "h2", "hpack", "psycopg", "psycopg2", "asyncpg"}
+# ``google`` is a namespace package that this interpreter's site hooks load
+# at start-up: a loaded-module check looks for protobuf's runtime itself
+LOADED_FORBIDDEN = sorted(FORBIDDEN - {"google"})
 
 
 def _port_files() -> list[pathlib.Path]:
@@ -178,7 +186,8 @@ def test_port_modules_load_nothing_forbidden():
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
-        f"bad = sorted({{n.split('.')[0] for n in sys.modules}} & set({sorted(FORBIDDEN)!r}))\n"
+        f"bad = sorted({{n.split('.')[0] for n in sys.modules}} & set({LOADED_FORBIDDEN!r}))\n"
+        "bad += sorted(n for n in sys.modules if n.startswith('google.protobuf'))\n"
         "print(bad)\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
@@ -221,9 +230,11 @@ def test_scan_covers_the_parallel_package_and_its_test_helper():
     assert not [t for _, t in _imported_tops(helper) if t in FORBIDDEN]
 
 
-CONTROL_PLANE = ("__init__", "__main__", "channel", "crypto", "dag", "dashboard", "events",
-                 "faults", "gateway", "health", "http", "identity", "mcp_service", "metrics",
-                 "payloads", "registry", "server", "storage", "types", "ui_service", "webhooks")
+CONTROL_PLANE = ("__init__", "__main__", "admin_grpc", "channel", "crypto", "dag", "dashboard",
+                 "events", "faults", "gateway", "grpc_h2", "health", "hpack_codec", "http",
+                 "identity", "mcp_service", "metrics", "payloads", "pgwire", "registry",
+                 "server", "storage", "storage_pg", "types", "ui_service", "webhooks")
+PROTO = ("__init__", "admin_pb2", "modelnode_pb2", "wire")
 
 
 def _control_plane_offences(cp_dir: pathlib.Path) -> dict[str, list]:
@@ -249,6 +260,10 @@ def test_scan_covers_the_control_plane_and_it_imports_only_stdlib_numpy_and_the_
     for name in CONTROL_PLANE:
         assert f"agentfield_tpu_torch/control_plane/{name}.py" in files
     assert _control_plane_offences(cp_dir) == {}
+    assert {p.stem for p in (cp_dir / "proto").glob("*.py")} == set(PROTO)
+    for name in PROTO:
+        assert f"agentfield_tpu_torch/control_plane/proto/{name}.py" in files
+    assert _control_plane_offences(cp_dir / "proto") == {}
 
 
 def test_control_plane_scan_fails_on_a_planted_aiohttp_import(tmp_path):
@@ -359,3 +374,71 @@ def test_guard_names_the_crypto_library_and_the_identity_modules_use_none(tmp_pa
         assert pkg / rel in _port_files(), rel
         assert [t for _, t in _imported_tops(pkg / rel)
                 if t not in allowed or t in FORBIDDEN] == [], rel
+
+
+def test_guard_names_the_grpc_and_postgres_libraries(tmp_path):
+    """protobuf's runtime, h2, hpack and the Postgres drivers, which the
+    JAX services import or could, and the card's machine lacks, are named by
+    the guard; the port's gRPC and Postgres modules import the standard
+    library and the port only."""
+    src = tmp_path / "m.py"
+    src.write_text(
+        "from google.protobuf import descriptor_pool\n"
+        "import h2.connection\n"
+        "from hpack import Decoder\n"
+        "import psycopg\n"
+        "import psycopg2.extras\n"
+        "import asyncpg\n"
+        "import grpc\n"
+        "from agentfield_tpu.control_plane.proto import admin_pb2\n"
+        "from agentfield_tpu_torch.control_plane import grpc_h2, hpack_codec, pgwire\n"
+    )
+    tops = [t for _, t in _imported_tops(src)]
+    assert [t for t in tops if t in FORBIDDEN] == [
+        "google", "h2", "hpack", "psycopg", "psycopg2", "asyncpg", "grpc", "agentfield_tpu"]
+    allowed = set(sys.stdlib_module_names) | {"agentfield_tpu_torch"}
+    pkg = ROOT / "agentfield_tpu_torch"
+    for rel in ("control_plane/grpc_h2.py", "control_plane/hpack_codec.py",
+                "control_plane/admin_grpc.py", "control_plane/pgwire.py",
+                "control_plane/proto/wire.py", "control_plane/proto/admin_pb2.py",
+                "control_plane/proto/modelnode_pb2.py"):
+        assert pkg / rel in _port_files(), rel
+        assert [t for _, t in _imported_tops(pkg / rel)
+                if t not in allowed or t in FORBIDDEN] == [], rel
+
+
+def test_grpc_and_postgres_run_without_the_libraries():
+    """In a fresh interpreter where grpcio, protobuf, h2, hpack and the
+    Postgres drivers cannot be imported: the admin service answers the
+    port's own client, a GenerateRequest round-trips, and the Postgres
+    provider imports."""
+    code = (
+        "import sys\n"
+        "class Block:\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        "        if name.split('.')[0] in ('grpc', 'h2', 'hpack', 'psycopg', 'psycopg2',\n"
+        "                                  'asyncpg') or name.startswith('google.protobuf'):\n"
+        "            raise ImportError(f'{name} is blocked')\n"
+        "sys.meta_path.insert(0, Block())\n"
+        "from agentfield_tpu_torch.control_plane.admin_grpc import admin_client_call, "
+        "start_admin_grpc\n"
+        "from agentfield_tpu_torch.control_plane.storage import SQLiteStorage\n"
+        "from agentfield_tpu_torch.control_plane.storage_pg import PostgresStorage\n"
+        "from agentfield_tpu_torch.control_plane.types import AgentNode\n"
+        "from agentfield_tpu_torch.control_plane.proto import modelnode_pb2\n"
+        "import socket\n"
+        "with socket.socket() as s:\n"
+        "    s.bind(('127.0.0.1', 0)); port = s.getsockname()[1]\n"
+        "st = SQLiteStorage(':memory:')\n"
+        "st.upsert_node(AgentNode(node_id='n1', base_url='http://x'))\n"
+        "srv = start_admin_grpc(st, port)\n"
+        "assert [n.node_id for n in admin_client_call(port, 'ListNodes').nodes] == ['n1']\n"
+        "srv.stop(0)\n"
+        "m = modelnode_pb2.GenerateRequest(tokens=[1, -2], temperature=0.5)\n"
+        "assert modelnode_pb2.GenerateRequest.FromString(m.SerializeToString()) == m\n"
+        "print('ok')\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120, env={"PATH": "/usr/bin:/bin",
+                                                      "PYTHONPATH": str(ROOT)})
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr[-2000:]
