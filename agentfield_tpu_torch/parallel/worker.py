@@ -10,8 +10,10 @@ loopback address, makes only its own slice of the weights (``weights``:
 callable ``weights(mesh) -> (params, draft or None)``), builds its
 ``InferenceEngine(mesh=)`` and reports ready. Then it runs the device
 operations rank 0 sends over its pipe (``InferenceEngine._tp_op``: method
-name and host arguments), in order, and answers rank 0's queries
-(``Workers.query``: a report of its launches and timings), until:
+name and host arguments, an argument that differs by rank a
+:class:`PerRank`), in order, and answers rank 0's queries
+(``Workers.query``: a report of its launches and timings, its slices of a
+captured KV page), until:
 
 - a shutdown message (rank 0's ``Mesh.close``, from ``engine.close()``);
 - its pipe closes (rank 0 exited or died);
@@ -21,6 +23,13 @@ name and host arguments), in order, and answers rank 0's queries
 A worker never waits forever: it exits, and rank 0's next collective
 raises in turn. A worker takes no decision from a clock, a thread or a
 random generator: rank 0 samples and broadcasts what it drew.
+
+Rank 0 sends from more than one thread (the tick's operations; a KV page's
+capture from the thread that demotes or serves a peer's fetch; queries), so
+every message goes out whole under one lock, in the order rank 0 took it,
+and a query holds a second lock until its answers are read: the tick's
+operations go on meanwhile, and each worker answers after the operations
+sent before the query.
 """
 
 from __future__ import annotations
@@ -33,6 +42,7 @@ import signal
 import socket
 import subprocess
 import sys
+import threading
 import time
 import traceback
 from multiprocessing.connection import Connection
@@ -110,6 +120,25 @@ class WorkerSpec:
     threads: int | None = None  # torch intra-op threads (CPU ranks)
 
 
+class PerRank:
+    """An operation's argument that differs by rank: ``values[r]`` is rank
+    r's (rank 0's is never pickled; a worker's must be host data)."""
+
+    __slots__ = ("values",)
+
+    def __init__(self, values: list):
+        self.values = values
+
+
+def for_rank(args: tuple, kwargs: dict, rank: int) -> tuple[tuple, dict]:
+    """``args`` and ``kwargs`` with each :class:`PerRank` replaced by rank
+    ``rank``'s value."""
+    def pick(v):
+        return v.values[rank] if isinstance(v, PerRank) else v
+
+    return tuple(pick(a) for a in args), {k: pick(v) for k, v in kwargs.items()}
+
+
 class Workers:
     """Rank 0's handle on the worker processes: their pipes, in rank
     order."""
@@ -117,6 +146,8 @@ class Workers:
     def __init__(self, procs: list, conns: list):
         self.procs, self.conns = procs, conns
         self._ready = False
+        self._send_lock = threading.Lock()  # one whole message at a time
+        self._query_lock = threading.Lock()  # one query's answers at a time
 
     def wait_ready(self, timeout_s: float = READY_TIMEOUT_S) -> None:
         """Block until every worker built its engine; raise with a worker's
@@ -149,25 +180,37 @@ class Workers:
 
     def query(self, name: str, *args, timeout_s: float = 120.0) -> list:
         """Every worker's ``engine.<name>(*args)`` (host data, not a device
-        operation of the boundary), in rank order. Call it while the
-        engine's thread sends nothing (between requests)."""
+        operation of the boundary), in rank order, each answered after the
+        operations sent before it. Any thread may ask; the caller must hold
+        no lock that the engine's thread takes inside an operation (the
+        answer waits for those operations)."""
         self.wait_ready()
-        for c in self.conns:
-            c.send(("?", name, args))
-        out = []
-        for rank, c in enumerate(self.conns, start=1):
-            if not c.poll(timeout_s):
-                raise TimeoutError(f"tensor-parallel worker rank {rank} did not answer {name}")
-            out.append(c.recv())
-        return out
+        with self._query_lock:
+            self._send_all(lambda rank: ("?", name, args))
+            out = []
+            for rank, c in enumerate(self.conns, start=1):
+                if not c.poll(timeout_s):
+                    raise TimeoutError(f"tensor-parallel worker rank {rank} did not answer {name}")
+                try:
+                    out.append(c.recv())
+                except (EOFError, ConnectionResetError) as e:
+                    raise RuntimeError(f"tensor-parallel worker rank {rank} is gone") from e
+            return out
 
     def send(self, msg) -> None:
+        """One operation ``(name, args, kwargs)`` to every worker, a
+        :class:`PerRank` argument as that worker's value."""
         self.wait_ready()
-        for rank, c in enumerate(self.conns, start=1):
-            try:
-                c.send(msg)
-            except (BrokenPipeError, ConnectionResetError, EOFError) as e:
-                raise RuntimeError(f"tensor-parallel worker rank {rank} is gone") from e
+        name, args, kwargs = msg
+        self._send_all(lambda rank: (name, *for_rank(args, kwargs, rank)))
+
+    def _send_all(self, msg_of) -> None:
+        with self._send_lock:
+            for rank, c in enumerate(self.conns, start=1):
+                try:
+                    c.send(msg_of(rank))
+                except (BrokenPipeError, ConnectionResetError, EOFError) as e:
+                    raise RuntimeError(f"tensor-parallel worker rank {rank} is gone") from e
 
     def close(self, join_s: float = 30.0) -> None:
         """Send the shutdown message, join every worker (killing one that

@@ -158,10 +158,35 @@ broadcasts its sampled tokens (the acceptance counts and corrections of a
 speculative step) to the workers, whose steps take them. Under gloo the
 collectives cannot be captured in a CUDA graph, so the decode runs eager
 (``graph_stats()["eager"]`` says why); under NCCL every rank captures and
-replays its own graph of the same key, the collectives inside. The host KV
-tier, the cluster tier (export, adoption, handoff), multimodal prompts and
-MoE are not ported under a mesh and raise ``NotImplementedError`` naming
-their ROADMAP item.
+replays its own graph of the same key, the collectives inside. MoE is not
+ported under a mesh and raises ``NotImplementedError`` naming its ROADMAP
+item.
+
+The host tier, the cluster tier and handoff run under a mesh too, rank 0's
+pool deciding every demotion, restore, export and adoption, and no
+collective runs off the tick thread: a demotion's copy runs on the pool's
+offload thread and a peer's fetch on the node's, and a collective issued
+there would interleave with the tick's, so the ranks would meet different
+collectives. So each rank keeps its own heads of a page. A capture is an
+operation of the ordered stream (``_tp_capture``): every rank clones its
+slice at the same point relative to the kernel's fused in-place writes, and
+a worker copies its slice to its own host store at once and keeps it under
+rank 0's capture id until rank 0 drops the page (``_TPRef``, released in
+the stream). A restore is one operation (``_tp_upload``): each rank uploads
+its own slice, or its heads of a page that came from the wire, which rank 0
+cuts and sends in the operation. Whole pages exist only at the wire:
+``page_payload_spec``, ``export_kv_pages`` and ``page_payload_bytes`` give
+every KV head in global order (a quantized pool's scales whole), rank 0
+asking the workers for their slices over their pipes (``Workers.query``),
+so a TP node, a TP=1 node and a JAX node exchange pages and handoff tails
+in both directions. The pipe carries one message at a time under a lock, in
+the order rank 0 sent it, from any thread (``parallel.worker``). The other
+design, gathering each page inside the stream at capture, would move every
+demoted page's other heads through rank 0 and back, and hold the demoting
+thread until the tick's turn. A multimodal prompt's embeddings cross the
+pipe as host float32 arrays inside its dense prefill (``_host_embeds``:
+exact for a bf16 tower; a CUDA tensor is never pickled); the towers and
+heads run on rank 0 only.
 """
 
 from __future__ import annotations
@@ -169,6 +194,7 @@ from __future__ import annotations
 import collections
 import dataclasses
 import functools
+import itertools
 import math
 import threading
 import time
@@ -189,6 +215,7 @@ from agentfield_tpu_torch.ops.kv_quant import (
     write_pages,
 )
 from agentfield_tpu_torch.ops.paged_attention import ragged_paged_attention
+from agentfield_tpu_torch.parallel.worker import PerRank, for_rank
 from agentfield_tpu_torch.prefix_hash import page_chain_hashes
 from agentfield_tpu_torch.serving.decode_step import MAX_STOP_IDS, DecodeGraphs, DecodeState
 from agentfield_tpu_torch.serving.faults import fire as _engine_fault
@@ -504,17 +531,42 @@ def _binding_window(cfg: LlamaConfig, ecfg: EngineConfig) -> int | None:
     return w
 
 
+def _page_shape(t: torch.Tensor, tp: int = 1) -> tuple[int, ...]:
+    """One page's shape of pool leaf ``t`` ([L, P, Kh, ps(, hd)]):
+    ``(L, Kh * tp, ps(, hd))``, every rank's heads with ``tp``."""
+    return (t.shape[0], t.shape[2] * tp) + tuple(t.shape[3:])
+
+
 class _HostPage:
     """One demoted page's host copy: a slot of a ``_HostPageStore`` seen as
     one tensor per pool leaf (values, and scales when quantized; fp8 as raw
     bytes). ``done[0]`` is the event of the last device copy that read the
-    slot: the slot is reused only after it passed."""
+    slot: the slot is reused only after it passed. On rank 0 of a
+    tensor-parallel engine a page captured here holds rank 0's heads only,
+    and ``tp`` is the claim on the other ranks' slices of it (``_TPRef``);
+    a page that came from the wire holds every head, and ``tp`` is None."""
 
-    __slots__ = ("leaves", "done", "__weakref__")
+    __slots__ = ("leaves", "done", "tp", "__weakref__")
 
     def __init__(self, leaves: list[torch.Tensor]):
         self.leaves = leaves
         self.done: list[Any] = [None]
+        self.tp: _TPRef | None = None
+
+
+class _TPRef:
+    """Rank 0's claim on the workers' host slices of one captured page,
+    kept by their capture id: the capture's handle and the host page made
+    from it hold it, and when the last of them goes the id is queued in
+    ``released``, which the next operation sent tells the workers
+    (``InferenceEngine._tp_release``; a finalizer only appends, so it may
+    run on any thread, inside any lock)."""
+
+    __slots__ = ("id", "__weakref__")
+
+    def __init__(self, tid: int, released: collections.deque):
+        self.id = tid
+        weakref.finalize(self, released.append, tid).atexit = False
 
 
 class _HostPageStore:
@@ -528,14 +580,16 @@ class _HostPageStore:
     SLAB_PAGES = 64
     _ALIGN = 256
 
-    def __init__(self, leaves: list[torch.Tensor], pin: bool):
-        # per leaf: (dtype, one page's shape, byte offset in the slot, bytes)
+    def __init__(self, leaves: list[torch.Tensor], pin: bool, tp: int = 1):
+        # per pool leaf ([L, P, Kh, ps(, hd)]): (dtype, one page's shape,
+        # byte offset in the slot, bytes); ``tp`` ranks' heads a page (the
+        # wire's whole pages on rank 0 of a mesh)
         self._layout = []
         off = 0
         for t in leaves:
-            shape = t.shape[:1] + t.shape[2:]
-            nbytes = t.element_size() * math.prod(shape)
-            self._layout.append((t.dtype, shape, off, nbytes))
+            dtype, shape = t.dtype, _page_shape(t, tp)
+            nbytes = dtype.itemsize * math.prod(shape)
+            self._layout.append((dtype, shape, off, nbytes))
             off += -(-nbytes // self._ALIGN) * self._ALIGN
         self.slot_bytes = off
         self._pin = pin
@@ -574,18 +628,40 @@ class _HostPageStore:
 
 def _tp_op(method):
     """A device operation of the tensor-parallel boundary: on rank 0 of a
-    serving mesh the call (its host arguments) is first sent to every
-    worker, which runs the same method on its own engine (module
-    docstring). Such a method must not call another one."""
+    serving mesh the call (its host arguments; a ``PerRank`` argument as
+    each rank's value) is first sent to every worker, which runs the same
+    method on its own engine (module docstring). Such a method must not
+    call another one."""
     name = method.__name__
 
     @functools.wraps(method)
     def run(self, *args, **kwargs):
         if self.mesh is not None and self.mesh.workers is not None:
+            ids = []
+            while self._tp_released:  # another sender may empty it meanwhile
+                try:
+                    ids.append(self._tp_released.popleft())
+                except IndexError:
+                    break
+            if ids:
+                self.mesh.workers.send(("_tp_release", (ids,), {}))
             self.mesh.workers.send((name, args, kwargs))
+            args, kwargs = for_rank(args, kwargs, 0)
         return method(self, *args, **kwargs)
 
     return run
+
+
+def _host_embeds(spans) -> list[tuple[int, np.ndarray]]:
+    """``Request.mm_embeds`` as host float32 arrays (exact for a bf16, f16
+    or f32 tower's output): what crosses a tensor-parallel engine's pipe,
+    where a CUDA tensor must never be pickled."""
+    out = []
+    for off, emb in spans:
+        if isinstance(emb, torch.Tensor):
+            emb = emb.detach().to("cpu", torch.float32).numpy()
+        out.append((int(off), np.asarray(emb, np.float32)))
+    return out
 
 
 def _tree_bytes(tree) -> int:
@@ -594,11 +670,6 @@ def _tree_bytes(tree) -> int:
         return sum(_tree_bytes(v) for v in tree.values())
     leaves = (tree.q, tree.scale) if hasattr(tree, "scale") else (tree,)
     return sum(t.numel() * t.element_size() for t in leaves)
-
-
-def _tp_refused(what: str, item: str):
-    return NotImplementedError(
-        f"{what} under a tensor-parallel mesh is not ported (ROADMAP A5: {item})")
 
 
 class InferenceEngine:
@@ -894,8 +965,17 @@ class InferenceEngine:
         # the host KV tier: the pool owns its state and offload worker; the
         # engine gives it the device-copy callbacks and its session lock
         self._host_store: _HostPageStore | None = None
+        # pages that came from the wire (a peer's or a handoff's): every
+        # head; the host store itself unless this engine is a rank of a mesh
+        self._wire_store: _HostPageStore | None = None
         self._copy_stream = None  # device-to-host copies (offload worker, exports)
         self._restore_timed: collections.deque = collections.deque(maxlen=4096)
+        # tensor parallelism: rank 0 numbers its page captures and queues
+        # the ids whose pages it dropped (``_TPRef``); a worker keeps its
+        # host slice of each capture by id until rank 0 releases it
+        self._tp_ids = itertools.count(1)
+        self._tp_released: collections.deque[int] = collections.deque()
+        self._tp_slices: dict[int, _HostPage] = {}
         if self.ecfg.host_cache_bytes > 0 and not self._shared_prefix:
             raise ValueError(
                 f"host_cache_bytes={self.ecfg.host_cache_bytes} requires "
@@ -904,10 +984,15 @@ class InferenceEngine:
             )
         if self._shared_prefix:
             on_card = self.device.type == "cuda"
-            self._host_store = _HostPageStore([bits(t) for t in self.cache.leaves()], pin=on_card)
+            leaves = [bits(t) for t in self.cache.leaves()]
+            self._host_store = self._wire_store = _HostPageStore(leaves, pin=on_card)
+            if self.mesh is not None and self.mesh.is_root:
+                self._wire_store = _HostPageStore(leaves, pin=on_card, tp=self.mesh.tp)
             if on_card:
                 self._copy_stream = torch.cuda.Stream(device=self.device)
-        if self.ecfg.host_cache_bytes > 0:
+        if self._tp_worker:
+            pass  # rank 0's pool decides every demotion and restore
+        elif self.ecfg.host_cache_bytes > 0:
             self.allocator.enable_host_tier(
                 budget_bytes=self.ecfg.host_cache_bytes,
                 page_bytes=self.kv_page_bytes,  # scales included
@@ -992,9 +1077,6 @@ class InferenceEngine:
         tp = self.mesh.tp
         check_divisibility(self.cfg, tp, paged_kv=True)
         refuse_experts(self.cfg, tp)
-        if self.ecfg.host_cache_bytes > 0:
-            raise _tp_refused("the host KV tier (host_cache_bytes)",
-                              "host tier, cluster and handoff under TP")
         if draft is not None:
             check_divisibility(draft[1], tp, paged_kv=True)
         check_rank_slice(params, self.cfg, tp)
@@ -1014,11 +1096,6 @@ class InferenceEngine:
         RequestTooLongError if it can never fit the page budget."""
         if not req.prompt:
             raise ValueError(f"request {req.id}: prompt must be non-empty")
-        if self.mesh is not None:
-            if req.mm_embeds:
-                raise _tp_refused("a multimodal prompt", "media towers under TP")
-            if req.handoff is not None or req.handoff_export:
-                raise _tp_refused("two-phase handoff", "host tier, cluster and handoff under TP")
         if req.mm_embeds:
             D = self.cfg.hidden_size
             for off, emb in req.mm_embeds:
@@ -1794,7 +1871,8 @@ class InferenceEngine:
         if req.mm_embeds:
             # the whole prompt in one dense prefill, whatever its length:
             # the inject buffer is positioned against the full prompt
-            last_logits = self._dense_prefill([req.prompt], [row], req.mm_embeds)[0]
+            spans = req.mm_embeds if self.mesh is None else _host_embeds(req.mm_embeds)
+            last_logits = self._dense_prefill([req.prompt], [row], spans)[0]
         else:
             last_logits = self._prefill(req.prompt[start:], start, row)
         self.stats["prefill_tokens"] += len(req.prompt) - start
@@ -1907,17 +1985,54 @@ class InferenceEngine:
                 b[:, dst] = b[:, src]
 
     # ------------------------------------------------------------------
-    # the host KV tier: the pool's device-copy callbacks
+    # the host KV tier: the pool's device-copy callbacks. Under a mesh each
+    # rank keeps its own heads of a page: a capture is an operation of the
+    # stream, so every rank clones its slice at the same point relative to
+    # the kernel's in-place writes; a worker copies its slice to its own
+    # host store at once, and rank 0 assembles whole pages only at the wire
+    # (``_whole_pages``) and cuts them again for a restore (``_upload_page_kv``)
     # ------------------------------------------------------------------
 
     def _capture_page_kv(self, page: int):
         """A page's capture for a demotion, a peer's fetch or a handoff tail
-        (under the session lock): a clone of the page's leaves on the
-        device's current stream, and an event after it. The pool is
-        written in place (the kernel's fused write, ``_copy_page``,
-        restores), so only a copy made now keeps the page's content at
-        capture. Target pool only, as in the JAX engine: a restored page's
-        draft twin stays stale, which can only lower acceptance."""
+        (under the session lock): ``(clones, event, claim)``, the clones
+        and event of ``_clone_page``, and on rank 0 of a mesh the claim on
+        the workers' slices of the same capture (``_TPRef``; else None)."""
+        if self.mesh is None:
+            return (*self._clone_page(page), None)
+        tid = next(self._tp_ids)
+        clones, ev = self._tp_capture(tid, page)
+        return clones, ev, _TPRef(tid, self._tp_released)
+
+    @_tp_op
+    def _tp_capture(self, tid: int, page: int):
+        """A mesh's capture of ``page``, numbered ``tid`` by rank 0: every
+        rank clones its slice; a worker copies it to its own host store now
+        (its loop runs nothing else meanwhile) and keeps it under ``tid``
+        until rank 0 releases it."""
+        handle = self._clone_page(page)
+        if self._tp_worker:
+            self._tp_slices[tid] = self._fetch_page_kv((*handle, None))
+        return handle
+
+    def _tp_release(self, tids: list[int]) -> None:
+        """A worker drops its slices of the captures rank 0 let go."""
+        for tid in tids:
+            self._tp_slices.pop(tid, None)
+
+    def _tp_slice_bytes(self, tids: list[int]) -> list[list[np.ndarray]]:
+        """A worker's host slices of captures ``tids`` (a query of rank 0:
+        ``_whole_pages``), each leaf's raw bytes."""
+        return [[t.view(torch.uint8).numpy() for t in self._tp_slices[tid].leaves]
+                for tid in tids]
+
+    def _clone_page(self, page: int):
+        """A clone of the page's leaves on the device's current stream, and
+        an event after it. The pool is written in place (the kernel's fused
+        write, ``_copy_page``, restores), so only a copy made now keeps the
+        page's content at capture. Target pool only, as in the JAX engine:
+        a restored page's draft twin stays stale, which can only lower
+        acceptance."""
         clones = [bits(t)[:, page].clone(memory_format=torch.contiguous_format)
                   for t in self.cache.leaves()]
         ev = None
@@ -1932,9 +2047,10 @@ class InferenceEngine:
         """The device-to-host copy of one captured page (on the offload
         worker, or on the thread serving a fetch or exporting a handoff):
         wait for the capture's event on the copy stream, copy into
-        a host slot (pinned on the card), wait for the copy."""
+        a host slot (pinned on the card), wait for the copy. The host page
+        keeps the capture's claim on the workers' slices."""
         t0 = time.perf_counter()
-        clones, ev = handle
+        clones, ev, claim = handle
         page = self._host_store.take()
         if ev is None:
             for dst, src in zip(page.leaves, clones):
@@ -1946,16 +2062,60 @@ class InferenceEngine:
                 for dst, src in zip(page.leaves, clones):
                     dst.copy_(src, non_blocking=True)
             stream.synchronize()
+        page.tp = claim
         self.timing["offload_s"] += time.perf_counter() - t0
         return page
 
     def _upload_page_kv(self, payloads: list[_HostPage], pages: list[int]) -> None:
-        """Restore host pages into device ``pages`` (under the session lock),
-        on the engine's stream: per leaf, the host slots into one staging
-        tensor, then one ``index_copy_`` into the pool's own storage (the
-        decode graphs hold its addresses; a new pool tensor would leave
-        them reading stale memory). Each slot is reused only after the
-        copy's event."""
+        """Restore host pages into device ``pages`` (under the session
+        lock). Under a mesh one operation of the stream: every rank uploads
+        its heads of each page, from its own host slice when the page was
+        captured here (a worker's by capture id), or from its heads of a
+        whole page that came from the wire, which rank 0 cuts and sends."""
+        if self.mesh is None:
+            return self._upload_leaves([p.leaves for p in payloads], [p.done for p in payloads],
+                                       pages)
+        tp, kh = self.mesh.tp, self.cache.leaves()[0].shape[2]
+        sources: list[list] = [[] for _ in range(tp)]
+        for p in payloads:
+            for r in range(tp):
+                if p.tp is not None:  # captured here: each rank's own slice
+                    sources[r].append(p.leaves if r == 0 else p.tp.id)
+                    continue
+                cut = [t[:, r * kh:(r + 1) * kh] for t in p.leaves]
+                sources[r].append(cut if r == 0 else
+                                  [c.contiguous().view(torch.uint8).numpy() for c in cut])
+        self._tp_upload(PerRank(sources), pages,
+                        PerRank([[p.done for p in payloads]] + [None] * (tp - 1)))
+
+    @_tp_op
+    def _tp_upload(self, sources: list, pages: list[int], done: list | None = None) -> None:
+        """A mesh's restore on one rank: per page its leaves (rank 0), or on
+        a worker a capture id (its own host slice) or its heads' raw bytes
+        (a page from the wire, cut by rank 0)."""
+        leaves = []
+        if self._tp_worker:
+            done = []
+            for src in sources:
+                if isinstance(src, int):
+                    leaves.append(self._tp_slices[src].leaves)
+                    done.append(self._tp_slices[src].done)
+                else:
+                    leaves.append([torch.from_numpy(a).view(bits(t).dtype)
+                                   .view(_page_shape(t))
+                                   for a, t in zip(src, self.cache.leaves())])
+        else:
+            leaves = sources
+        self._upload_leaves(leaves, done, pages)
+
+    def _upload_leaves(self, leaves: list[list[torch.Tensor]], done: list[list],
+                       pages: list[int]) -> None:
+        """The restore upload, on the engine's stream: per leaf, the host
+        pages into one staging tensor, then one ``index_copy_`` into the
+        pool's own storage (the decode graphs hold its addresses; a new
+        pool tensor would leave them reading stale memory). Each host slot
+        is reused only after the copy's event (``done``, one list a host
+        slot read)."""
         on_card = self.device.type == "cuda"
         timed = None
         if on_card:
@@ -1966,29 +2126,70 @@ class InferenceEngine:
             pool = bits(t)
             stage = torch.empty((len(pages),) + pool.shape[:1] + pool.shape[2:],
                                 dtype=pool.dtype, device=self.device)
-            for j, p in enumerate(payloads):
-                stage[j].copy_(p.leaves[li], non_blocking=on_card)
+            for j, p in enumerate(leaves):
+                stage[j].copy_(p[li], non_blocking=on_card)
             pool.index_copy_(1, idx, stage.transpose(0, 1))
         if on_card:
             timed[1].record()
-            for p in payloads:
-                p.done[0] = timed[1]
+            for d in done:
+                d[0] = timed[1]
             self._restore_timed.append((len(pages), timed))
+
+    def _whole_pages(self, payloads: list[_HostPage]) -> list[_HostPage]:
+        """Each page with every head (the wire's form): on rank 0 of a mesh
+        a page captured here is assembled in the wire store from rank 0's
+        slice and the workers' (one query for all of them); a page from the
+        wire, and every page without a mesh, is already whole."""
+        mine = [p for p in payloads if p.tp is not None]
+        if not mine:
+            return list(payloads)
+        theirs = self.mesh.workers.query("_tp_slice_bytes", [p.tp.id for p in mine])
+        kh = self.cache.leaves()[0].shape[2]
+        whole: dict[int, _HostPage] = {}
+        for j, p in enumerate(mine):
+            w = self._wire_store.take()
+            for li, (dst, t) in enumerate(zip(w.leaves, self.cache.leaves())):
+                dst[:, :kh] = p.leaves[li]
+                for r, ans in enumerate(theirs, start=1):
+                    dst[:, r * kh:(r + 1) * kh] = torch.from_numpy(ans[j][li]).view(
+                        bits(t).dtype).view(_page_shape(t))
+            whole[id(p)] = w
+        return [whole.get(id(p), p) for p in payloads]
+
+    def page_kv_bytes(self, pages: list[int]) -> list[list[np.ndarray]]:
+        """This rank's heads of device ``pages``, each leaf's raw bytes (a
+        check of a restore against its capture, per rank; rank 0 reads a
+        worker's through ``Workers.query``)."""
+        return [[bits(t)[:, page].contiguous().cpu().view(torch.uint8).numpy()
+                 for t in self.cache.leaves()] for page in pages]
+
+    def page_kv_digests(self, pages: list[int]) -> list[str]:
+        """A digest of this rank's heads of each device page
+        (``page_kv_bytes``, hashed here: a full-width check moves no page
+        through the pipe)."""
+        import hashlib
+
+        out = []
+        for leaves in self.page_kv_bytes(pages):
+            h = hashlib.blake2b(digest_size=16)
+            for a in leaves:
+                h.update(a.tobytes())
+            out.append(h.hexdigest())
+        return out
 
     # ------------------------------------------------------------------
     # the cluster tier: the heartbeat sketch, serving a peer's fetch, and
     # adopting what a peer sent; one page payload is a host-store page
     # (``_HostPage``), its wire form the pool's leaves (JAX order and dtype
-    # names) as raw bytes
+    # names, every head under a mesh) as raw bytes
     # ------------------------------------------------------------------
 
     def prefix_sketch(self) -> dict | None:
         """The prefix index's sketch for a heartbeat (``PrefixPagePool.
         sketch``), or None with the shared-prefix cache off or
         ``prefix_sketch_bytes`` 0 (the node then attracts no affinity
-        traffic; under a mesh too: its pages cannot be exported)."""
-        if (not self._shared_prefix or self.ecfg.prefix_sketch_bytes <= 0
-                or self.mesh is not None):
+        traffic)."""
+        if not self._shared_prefix or self.ecfg.prefix_sketch_bytes <= 0:
             return None
         with self._session_lock:
             return self.allocator.sketch(self.ecfg.prefix_sketch_bytes)
@@ -2006,19 +2207,27 @@ class InferenceEngine:
         """``(dtype name, shape)`` of each leaf of one page's payload, the
         wire contract of a cross-node transfer: K and V, each values then
         per-slot scales when quantized, shapes ``(L, Kh, ps, hd)`` and
-        ``(L, Kh, ps)``, dtypes named as the JAX package names them."""
-        return [(_dtype_name(t.dtype), (t.shape[0],) + tuple(t.shape[2:]))
-                for t in self.cache.leaves()]
+        ``(L, Kh, ps)`` with every KV head (under a mesh too: a TP node, a
+        TP=1 node and a JAX node exchange pages), dtypes named as the JAX
+        package names them."""
+        tp = 1 if self.mesh is None else self.mesh.tp
+        return [(_dtype_name(t.dtype), _page_shape(t, tp)) for t in self.cache.leaves()]
+
+    def page_payload_segs(self) -> list[int]:
+        """Bytes of each leaf of one page's payload (``page_payload_spec``)."""
+        return [getattr(torch, name).itemsize * math.prod(shape)
+                for name, shape in self.page_payload_spec()]
 
     def build_page_payload(self, leaves: Sequence[torch.Tensor]) -> _HostPage:
         """One host-store page from its wire leaves (host tensors of the
         spec's dtypes and shapes, e.g. ``torch.frombuffer`` views of the
         received bytes, aligned or not): copied byte for byte into a slot of
-        the host store."""
+        the wire store (the host store; rank 0's store of whole pages under
+        a mesh)."""
         spec = self.page_payload_spec()
         if len(leaves) != len(spec):
             raise ValueError(f"{len(leaves)} payload leaves, the pool has {len(spec)}")
-        page = self._host_store.take()
+        page = self._wire_store.take()
         for dst, src, (name, shape) in zip(page.leaves, leaves, spec):
             if (_dtype_name(src.dtype), tuple(src.shape)) != (name, shape):
                 raise ValueError(f"leaf {_dtype_name(src.dtype)}{tuple(src.shape)} != "
@@ -2026,20 +2235,18 @@ class InferenceEngine:
             dst.view(torch.uint8).view(-1).copy_(bits(src).reshape(-1).view(torch.uint8))
         return page
 
-    @staticmethod
-    def page_payload_bytes(payload: _HostPage) -> bytes:
+    def page_payload_bytes(self, payload: _HostPage) -> bytes:
         """The wire bytes of one host-store page: its leaves' bytes, one
-        after another (one copy)."""
+        after another, every head (``_whole_pages``)."""
+        whole = self._whole_pages([payload])[0]
         return b"".join(memoryview(t.contiguous().view(torch.uint8).numpy()).cast("B")
-                        for t in payload.leaves)
+                        for t in whole.leaves)
 
     def adopt_kv_pages(self, entries: Sequence[tuple[bytes, int, tuple[int, ...], Any]]) -> int:
         """Put pages a peer sent, ``(chain, depth, tokens, payload)``, into
         the host store; the next admission's prefix walk restores them (a
         failed restore shortens the walk: a re-prefill, token-exact under
         greedy). Returns the number adopted."""
-        if self.mesh is not None:
-            raise _tp_refused("adopting a peer's KV pages", "host tier, cluster and handoff under TP")
         if not self._shared_prefix:
             return 0
         with self._session_lock:
@@ -2048,13 +2255,12 @@ class InferenceEngine:
     def export_kv_pages(self, chains: Sequence[bytes],
                         max_pages: int = 64) -> list[tuple[bytes, int, _HostPage]]:
         """Serve a peer's fetch: ``(chain, depth, payload)`` for each of
-        ``chains`` indexed here. Two phases, as a demotion: the device pages
-        are captured under the session lock (their content fixed then), and
-        copied to the host outside it, so a peer's fetch never stalls the
-        tick. A page whose copy fails is left out (the peer re-prefills
-        it)."""
-        if self.mesh is not None:
-            raise _tp_refused("exporting KV pages", "host tier, cluster and handoff under TP")
+        ``chains`` indexed here, every payload whole. Two phases, as a
+        demotion: the device pages are captured under the session lock
+        (their content fixed then), and copied to the host outside it, so a
+        peer's fetch never stalls the tick; under a mesh the workers'
+        slices join them there. A page whose copy fails is left out (the
+        peer re-prefills it)."""
         if not self._shared_prefix:
             return []
         with self._session_lock:
@@ -2069,7 +2275,8 @@ class InferenceEngine:
                 out.append((chain, depth, self._fetch_page_kv(obj)))
             except Exception:  # noqa: BLE001 — a shorter answer; the peer re-prefills
                 continue
-        return out
+        whole = self._whole_pages([p for _, _, p in out])
+        return [(c, d, w) for (c, d, _), w in zip(out, whole)]
 
     # ------------------------------------------------------------------
     # live-slot handoff (two-phase dispatch): the full prompt pages travel
@@ -2106,8 +2313,6 @@ class InferenceEngine:
     def adopt_handoff_tail(self, handoff_id: str, payload: _HostPage) -> bool:
         """Stash a fetched tail (already checked against
         ``page_payload_spec``) for its phase-2 admission."""
-        if self.mesh is not None:
-            raise _tp_refused("adopting a handoff tail", "host tier, cluster and handoff under TP")
         if not self._shared_prefix:
             return False
         with self._session_lock:
@@ -2161,8 +2366,7 @@ class InferenceEngine:
         if e is not None:
             self._tracer.record_span(
                 "engine.kv_export", e["tid"], t0_w, (time.perf_counter() - t0_m) * 1e3,
-                {"pages": k, "tail_bytes": sum(t.numel() * t.element_size()
-                                               for t in payload.leaves)})
+                {"pages": k, "tail_bytes": self.kv_page_bytes})
         self._tr_close(req.id, "handoff", generated=1)
         self.stats["requests_finished"] += 1
         with self._pending_lock:
@@ -2747,6 +2951,8 @@ class InferenceEngine:
             "launches": rpa.launch_counts(),
             "step_ms": [a.elapsed_time(b) for a, b in self._rank_step_events],
             "collectives": dict(self.mesh.stats) if self.mesh is not None else {},
+            "offload_s": self.timing["offload_s"],  # device-to-host page copies
+            "host_slices": len(self._tp_slices),  # a worker's captures held for rank 0
         }
         if reset:
             rpa.reset_launches()

@@ -766,6 +766,7 @@ class PrefixPagePool:
                 with self._ext_lock:
                     self._demote_inflight.discard(chain)
                     self._commit_demote(chain, page, payload)
+                del payload  # the store holds it now, or it goes (a TP claim with it)
 
     def _commit_demote(self, chain: bytes, page: int, payload: Any) -> None:
         if self._offload_stop:

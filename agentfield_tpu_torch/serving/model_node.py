@@ -341,7 +341,9 @@ class ModelBackend:
     ):
         """``mesh`` makes this node's engine rank 0 of a tensor-parallel
         engine (``InferenceEngine(mesh=)``; ``build_model_node(tp=)`` starts
-        its workers). ``vision``/``audio`` (input towers) and ``tts``/``imagegen``
+        its workers); the towers and heads then live on rank 0 only, and a
+        prompt's embeddings reach the workers inside its prefill operation.
+        ``vision``/``audio`` (input towers) and ``tts``/``imagegen``
         (output heads) follow the JAX node's contract: a config name or
         config object draws random weights from ``seed`` + 1, + 2, + 3 and
         + 5, a checkpoint directory (towers only) loads pretrained weights
@@ -354,11 +356,6 @@ class ModelBackend:
         self.tokenizer = tokenizer
         if ecfg is None:
             ecfg = EngineConfig(grammar_slots=GRAMMAR_SLOTS)
-        if mesh is not None and mesh.tp > 1 and any(
-                m is not None for m in (vision, audio, tts, imagegen)):
-            raise NotImplementedError(
-                "media towers and heads under a tensor-parallel mesh are not ported "
-                "(ROADMAP A5: media towers under TP)")
         self.engine = InferenceEngine(params, cfg, ecfg, seed=seed, device=device, draft=draft,
                                       restore_budget_bytes=restore_budget_bytes, mesh=mesh)
         dev = self.engine.device
@@ -898,7 +895,7 @@ class ModelBackend:
         tail = eng.export_handoff_tail(handoff) if handoff else None
         pages: list[tuple[dict, bytes]] = []
         total = wire_saved = handoff_bytes = 0
-        segs = [t.numel() // t.shape[1] * t.element_size() for t in eng.cache.leaves()]
+        segs = eng.page_payload_segs()  # every head, under a mesh too
         size = sum(segs)  # every page's payload: the leaves' bytes in order
         if tail is not None and size <= max_bytes:
             # ahead of the chain pages: the byte cap must never starve the
@@ -2304,8 +2301,15 @@ def build_model_node(
     makes only its own slice: random weights are drawn whole, one matrix at
     a time in ``init_params``'s order, and cut (bit-equal to slices of the
     TP=1 node's tree); a checkpoint loads each rank's rows or columns
-    (``load_hf_checkpoint(shard=)``). Given ``params``, ``lora`` and the
-    media towers and heads are refused under ``tp``."""
+    (``load_hf_checkpoint(shard=)``). Given ``params`` and ``lora`` are
+    refused under ``tp``. Everything else of the node runs under ``tp``: the
+    media towers and heads (on rank 0, whose engine sends a prompt's
+    embeddings to the workers inside its prefill), the host KV tier
+    (``ecfg.host_cache_bytes``: each rank demotes and restores its own heads
+    of a page), the cluster tier and two-phase handoff (the wire carries
+    whole pages, every KV head, as a TP=1 node's: ``kv_export_pages``'
+    ``parts`` and ``segs`` are equal on both), and the heartbeat's prefix
+    sketch."""
     role = role or os.environ.get("AGENTFIELD_NODE_ROLE") or "mixed"
     if role not in ROLES:
         raise ValueError(
@@ -2386,10 +2390,6 @@ def _build_tp_node(cfg, ecfg, tp, backend, *, seed, device, params, tokenizer, n
         raise NotImplementedError(
             "lora= under a tensor-parallel mesh is not ported (ROADMAP A5: the trainer's "
             "mesh pieces)")
-    if any(m is not None for m in media):
-        raise NotImplementedError(
-            "media towers and heads under a tensor-parallel mesh are not ported "
-            "(ROADMAP A5: media towers under TP)")
     if checkpoint:
         weights = CheckpointWeights(checkpoint, quant, spec_draft, seed)
     else:
@@ -2402,8 +2402,10 @@ def _build_tp_node(cfg, ecfg, tp, backend, *, seed, device, params, tokenizer, n
         own, draft = weights(mesh)
         if tokenizer is None:
             tokenizer = ByteTokenizer(cfg.vocab_size)
+        vision, audio, tts, imagegen = media
         backend_ = ModelBackend(own, cfg, ecfg, tokenizer=tokenizer, seed=seed,
-                                model_name=model, device=mesh.device, draft=draft, mesh=mesh)
+                                model_name=model, device=mesh.device, draft=draft, mesh=mesh,
+                                vision=vision, audio=audio, tts=tts, imagegen=imagegen)
         mesh.workers.wait_ready()
     except BaseException:
         mesh.close()

@@ -328,6 +328,7 @@ from __future__ import annotations
 
 import argparse
 import base64
+import dataclasses
 import functools
 import gc
 import json
@@ -1621,14 +1622,26 @@ TP_MEMORY_SLACK = 64 << 20  # device bytes the phase may leave allocated in this
 # so this leaves room for the log-softmax's float32 sums alone; a worker whose
 # tokens, lengths or KV drift while serving moves them by far more
 TP_SERVED_LP_TOL = 1e-3
+# (d)-(f) on the bf16 nodes: two sessions of this many tokens demote and
+# restore, a prompt of this many moves its pages each way, a handoff prompt
+# of TP_HANDOFF_TOKENS (a partial tail page); the host tier's budget holds
+# both sessions at every rank's heads, the sketch every indexed page
+TP_TIER_TOKENS = 1536
+TP_TIER_SESSIONS = 2
+TP_HANDOFF_TOKENS = 1000
+TP_HOST_BYTES = 1 << 30
+TP_SKETCH_BYTES = 1 << 15
+TP_PATHS = ("ragged_decode_split", "ragged_decode_combine", "ragged_tiles_tc",
+            "dense_causal_attention")
 # the phase at llama-tiny size on the CPU (tests/test_torch_tp_serving.py):
 # float32, so the TP=2 logits are held within float32 order
 TP_REHEARSAL = dict(model="llama-tiny", lengths=(5, 9, 20, 33), max_new=6, pages=64,
-                    page_size=8, max_pages=8, logit_bound=1e-4)
+                    page_size=8, max_pages=8, logit_bound=1e-4, tier_tokens=24,
+                    handoff_tokens=27, vision="vit-tiny", host_bytes=64 << 20)
 
 
 def _tp_serve(model, seed, ecfg, device, quant, tp, prompts, max_new, backend="gloo",
-              forced=None) -> dict:
+              forced=None, keep: bool = False, vision=None) -> dict:
     """One node (``tp`` ranks over ``backend`` when > 1) answering ``prompts`` over
     HTTP, all at once, greedy; each rank's report of the main path (counts
     zeroed just before it); then teacher forcing on the engine's thread
@@ -1637,15 +1650,14 @@ def _tp_serve(model, seed, ecfg, device, quant, tp, prompts, max_new, backend="g
     path step by step): the logits of the prefill and of every decode step
     fed ``forced`` (token lists of another node's answers; default: this
     node's own), and, with ``forced``, fed this node's own answers too; the
-    node stopped and its workers' exit codes."""
-    import torch
-
+    node stopped and its workers' exit codes (``_tp_stop``), or with
+    ``keep`` left serving under ``"node"`` (the caller stops it)."""
     from agentfield_tpu_torch.serving.model_node import build_model_node
 
     kw = dict(tp=tp, tp_backend=backend) if tp > 1 else {}
     t0 = time.perf_counter()
     server, backend = build_model_node(model, seed=seed, ecfg=ecfg, device=device, quant=quant,
-                                       **kw)
+                                       vision=vision, **kw)
     eng = backend.engine
     workers = eng.mesh.workers if tp > 1 else None
     out = {"build_s": time.perf_counter() - t0}
@@ -1687,14 +1699,33 @@ def _tp_serve(model, seed, ecfg, device, quant, tp, prompts, max_new, backend="g
         out["own_forced"] = (backend._on_engine_thread(teacher(out["tokens"]))
                              if forced else out["forced"])
         out["forced_s"] = time.perf_counter() - t1
-    finally:
+    except BaseException:
         server.stop()
-    out["exitcodes"] = workers.exitcodes if workers is not None else []
-    del server, backend, eng
+        raise
+    out["node"] = (server, backend)
+    del server, backend, eng, workers  # the node's one reference is out["node"]
+    if not keep:
+        _tp_stop(out, device)
+    return out
+
+
+def _tp_stop(run: dict, device) -> None:
+    """Stop ``run``'s node (its workers joined; their exit codes under
+    ``"exitcodes"``) and drop it."""
+    import torch
+
+    server, backend = run.pop("node")
+    mesh = backend.engine.mesh
+    workers = mesh.workers if mesh is not None else None
+    try:
+        server.stop()
+    finally:
+        backend.engine.close()
+    run["exitcodes"] = workers.exitcodes if workers is not None else []
+    del server, backend, mesh
     gc.collect()
     if torch.device(device).type == "cuda":
         torch.cuda.empty_cache()
-    return out
 
 
 def _served_logprob_diff(run) -> float:
@@ -1709,11 +1740,348 @@ def _served_logprob_diff(run) -> float:
     return float((lp.gather(-1, toks)[..., 0] - torch.tensor(run["logprobs"])).abs().max())
 
 
+def _tp_stop_all(runs, device) -> None:
+    """``_tp_stop`` every run that still holds its node, each even when
+    another's stop raised (the first error is raised after)."""
+    err = None
+    for run in runs:
+        if "node" in run:
+            try:
+                _tp_stop(run, device)
+            except BaseException as e:  # noqa: BLE001 — raised once every node stopped
+                err = err or e
+    if err is not None:
+        raise err
+
+
+def _tp_reports(backend, reset: bool = False) -> list[dict]:
+    """Every rank's ``rank_report`` of a node (rank 0's own, the workers'
+    over their pipes)."""
+    eng = backend.engine
+    reps = [eng.rank_report(reset)]
+    if eng.mesh is not None:
+        reps += eng.mesh.workers.query("rank_report", reset)
+    return reps
+
+
+def _tp_digests(backend, chains) -> list[list[str]]:
+    """Every rank's digest of each indexed chain's device page, on the
+    engine's thread: ``[rank][chain]``."""
+    eng = backend.engine
+
+    def read():
+        with eng._session_lock:
+            pages = [eng.allocator._by_hash[c].page for c in chains]
+        out = [eng.page_kv_digests(pages)]
+        if eng.mesh is not None:
+            out += eng.mesh.workers.query("page_kv_digests", pages)
+        return out
+
+    return backend._on_engine_thread(read)
+
+
+def _tp_cached_logits(backend, prompt) -> tuple:
+    """The last-token logits of ``prompt`` prefilled over what the node's
+    prefix index holds (host pages restored on the way, as an admission
+    restores them), float32 on the host, and the cached length; its pages
+    freed after."""
+    from agentfield_tpu_torch.serving.kv_cache import build_page_table
+
+    eng = backend.engine
+    ps = eng.ecfg.page_size
+
+    def run():
+        with eng._session_lock:
+            pages, start = eng.allocator.lookup(prompt[:-1])
+            more = eng._alloc_with_eviction(-(-len(prompt) // ps) - len(pages))
+        if more is None:
+            with eng._session_lock:
+                eng.allocator.free(pages)
+            raise RuntimeError("tp tiers: no free pages for a cached prefill")
+        try:
+            row = build_page_table(pages + more, eng.ecfg.max_pages_per_seq)
+            return eng._prefill(prompt[start:], start, row).float().cpu(), start
+        finally:
+            with eng._session_lock:
+                eng.allocator.free(pages + more)
+
+    return backend._on_engine_thread(run)
+
+
+def _tp_prefill_logits(backend, prompt):
+    """The node's own whole prefill of ``prompt`` (fresh pages), its
+    last-token logits float32 on the host."""
+    eng = backend.engine
+    return backend._on_engine_thread(lambda: eng.forced_decode_logits([prompt], [[]]))[0, 0]
+
+
+def _tp_fetch_from(src):
+    """A node's ``kv_fetch`` stubbed with another node's export, in
+    process (no byte cap: a 1536-token prompt's pages are 192 MiB)."""
+    def fetch(peer, chains_hex, timeout_s, **kw):
+        return [{**m, "data": data} for m, data in src.kv_export_pages(chains_hex, 1 << 40, **kw)]
+
+    return fetch
+
+
+def _tp_first_token_rule(tok: int, own, other) -> dict:
+    """The phase's first-token rule: ``tok`` is the argmax of the logits it
+    came from (``own``) and within twice the rows' largest difference of
+    the other node's max logit (all that rounding allows)."""
+    d = float((own - other).abs().max())
+    gap = float(other.max() - other[tok])
+    return {"token": tok, "own_argmax": tok == int(own.argmax()), "row_max_abs_diff": d,
+            "gap": gap, "near_max": gap <= 2 * d}
+
+
+def _tp_tiers(par_b, one_b, seed: int, logit_bound: float, tier_tokens: int,
+              handoff_tokens: int, card: str, on_card: bool) -> dict:
+    """``phase_tp``'s (d)-(f) on the kept bf16 pair, the TP node ``par_b``
+    and the TP=1 node ``one_b`` (the same seed, host tier, sketch and
+    vision tower). Each sub-phase zeroes every rank's kernel counts just
+    before it and reads them just after.
+
+    (d) Tier: ``TP_TIER_SESSIONS`` sessions of ``tier_tokens`` on the TP
+    node; a prompt of each session's tokens plus half a page answered over
+    the HBM-cached prefix; the sessions expire (``gc_sessions(at=)``), their
+    pages demote (each rank copies its own heads), the same prompts resume
+    through restores: tokens equal to the HBM-hit answers, every rank's
+    restored pages bit-equal to its own before the demotion (digests), and
+    demote GB/s per rank (its device-to-host copy seconds) and the resume's
+    TTFT against the HBM hit's and the turn's whole prefill.
+    (e) Cluster: a ``tier_tokens`` prompt's pages from the TP node adopted
+    by the TP=1 node through its ``kv_fetch`` (in process), and the reverse:
+    the adopter's logits over the restored pages within ``logit_bound`` of
+    its own whole prefill; ``page_payload_spec`` and ``segs`` equal on both
+    nodes; the TP node's sketch holds the prompt's digests; one two-phase
+    handoff each way (the live install, its first token held by the first-
+    token rule against the decode node's own prefill).
+    (f) Media: one PNG prompt on both nodes: the injected prefill's logits
+    within ``logit_bound`` of the TP=1 node's, the served first tokens by
+    the first-token rule."""
+    import base64
+
+    import numpy as np
+    import torch
+
+    from agentfield_tpu_torch.models import media_codec
+    from agentfield_tpu_torch.ops.cuda import ragged_paged_attention as rpa
+    from agentfield_tpu_torch.prefix_hash import page_chain_hashes, sketch_digest
+    from agentfield_tpu_torch.serving.engine import _host_embeds
+
+    eng = par_b.engine
+    tp = eng.mesh.tp
+    ps = eng.ecfg.page_size
+    V = eng.cfg.vocab_size
+    rng = np.random.default_rng(seed + 71)
+    out: dict = {"launches": {}}
+    # the kernels' counts are per process: rank 0 of the TP node shares
+    # this one with the TP=1 node, whose work is bracketed (``on``) and
+    # taken out of rank 0's count
+    tp1: dict[str, int] = {}
+
+    def on(b, fn):
+        if b is not one_b:
+            return fn()
+        c0 = dict(rpa.launch_counts())
+        try:
+            return fn()
+        finally:
+            for k, n in rpa.launch_counts().items():
+                tp1[k] = tp1.get(k, 0) + n - c0.get(k, 0)
+
+    def counted(name: str, fn):
+        t0 = time.perf_counter()
+        _tp_reports(par_b, reset=True)
+        tp1.clear()
+        r = fn()
+        reps = _tp_reports(par_b)
+        r["launches_tp"] = [{k: rep["launches"].get(k, 0) - (tp1.get(k, 0) if i == 0 else 0)
+                             for k in TP_PATHS} for i, rep in enumerate(reps)]
+        r["launches_tp1"] = {k: tp1.get(k, 0) for k in TP_PATHS}
+        for la in r["launches_tp"]:
+            for k, n in la.items():
+                out["launches"][k] = out["launches"].get(k, 0) + n
+        r["s"] = time.perf_counter() - t0
+        out[name] = r
+        log(f"[tp ({name})] {card}: launches per TP rank {r['launches_tp']}, TP=1 "
+            f"{r['launches_tp1']}; {r['s']:.1f} s")
+        return r
+
+    # (d) the host tier under TP
+    def tier():
+        x = rng.integers(1, V, ps // 2).tolist()
+        prompts = [rng.integers(1, V, tier_tokens).tolist() for _ in range(TP_TIER_SESSIONS)]
+        full, hit_ms, hit = [], [], []
+        for s, p in enumerate(prompts):
+            par_b.generate(tokens=p, max_new_tokens=2, session_id=f"tier{s}")
+            full.append(eng.ttft_ms[-1])
+            hit.append(par_b.generate(tokens=p + x, max_new_tokens=4)["tokens"])
+            hit_ms.append(eng.ttft_ms[-1])
+        chains = [c for p in prompts for c in page_chain_hashes(p, ps)]
+        before = _tp_digests(par_b, chains)
+        reps0 = _tp_reports(par_b)
+        demoted0 = eng.stats["kv_offload_demoted"]
+        t0 = time.perf_counter()
+        expired = eng.gc_sessions(at=time.time() + eng.ecfg.session_ttl + 1)
+        while True:  # the demote queue is bounded: the rest go as it drains
+            drained = eng.allocator.offload_drain(120.0)
+            with eng._session_lock:
+                recs = [eng.allocator._by_hash[c] for c in chains]
+                left = [rec.page for rec in recs if rec.tier == "hbm"]
+                if not (left and drained and eng.allocator.demote_pages(left)):
+                    break
+        demote_s = time.perf_counter() - t0
+        reps1 = _tp_reports(par_b)
+        with eng._session_lock:
+            tiers = [eng.allocator._by_hash[c].tier for c in chains]
+        n_dem = eng.stats["kv_offload_demoted"] - demoted0
+        slice_bytes = eng.kv_page_bytes // tp
+        gbps = [n_dem * slice_bytes / max(b["offload_s"] - a["offload_s"], 1e-9) / 1e9
+                for a, b in zip(reps0, reps1)]
+        restored0 = eng.stats["kv_offload_restored"]
+        resumed, resume_ms = [], []
+        for p in prompts:
+            resumed.append(par_b.generate(tokens=p + x, max_new_tokens=4)["tokens"])
+            resume_ms.append(eng.ttft_ms[-1])
+        after = _tp_digests(par_b, chains)
+        r = {"sessions": len(prompts), "tokens": tier_tokens, "expired": expired,
+             "drained": drained, "pages_demoted": n_dem, "all_host": tiers.count("host"),
+             "pages_restored": eng.stats["kv_offload_restored"] - restored0,
+             "slices_equal": [a == b for a, b in zip(after, before)],
+             "tokens_equal": resumed == hit, "demote_s": demote_s,
+             "demote_gbps_per_rank": gbps, "ttft_ms_full_prefill": full,
+             "ttft_ms_hbm_hit": hit_ms, "ttft_ms_resume": resume_ms}
+        log(f"[tp (d)] {card}: {len(prompts)} sessions of {tier_tokens} tokens on the TP={tp} "
+            f"node: {n_dem} pages demoted ({r['all_host']} of {len(chains)} on the host) in "
+            f"{demote_s:.2f} s, {r['pages_restored']} restored; demote GB/s per rank "
+            f"{[round(g, 3) for g in gbps]} (each rank's copy seconds, new pinned slabs included); every "
+            f"rank's restored pages equal its capture {r['slices_equal']}; resumed tokens = "
+            f"HBM-hit tokens {r['tokens_equal']}; TTFT ms resume "
+            f"{[round(v, 1) for v in resume_ms]} vs HBM hit {[round(v, 1) for v in hit_ms]} "
+            f"vs whole prefill {[round(v, 1) for v in full]}")
+        assert expired == len(prompts) and drained, f"tp (d): {expired} expired, drained {drained}"
+        assert r["all_host"] == len(chains) and r["pages_restored"] == len(chains), r
+        assert all(r["slices_equal"]), "tp (d): a rank's restored pages differ from its capture"
+        assert r["tokens_equal"], f"tp (d): resumed {resumed} != HBM hit {hit}"
+        return r
+
+    # (e) the cluster tier and handoff between the TP node and the TP=1 node
+    def cluster():
+        spec = {"tp": eng.page_payload_spec(), "tp1": one_b.engine.page_payload_spec()}
+        segs = {"tp": eng.page_payload_segs(), "tp1": one_b.engine.page_payload_segs()}
+        r = {"spec_equal": spec["tp"] == spec["tp1"], "segs_equal": segs["tp"] == segs["tp1"],
+             "page_bytes": sum(segs["tp"]), "moves": {}, "handoffs": {}}
+        for name, src, dst in (("tp_to_tp1", par_b, one_b), ("tp1_to_tp", one_b, par_b)):
+            prompt = rng.integers(1, V, tier_tokens).tolist()
+            tail = rng.integers(1, V, ps // 2).tolist()
+            on(src, lambda: src.generate(tokens=prompt + tail[:1], max_new_tokens=1))
+            chains = page_chain_hashes(prompt, ps)
+            if src is par_b:
+                held = set(eng.prefix_sketch()["digests"])
+                r["sketch_holds_prompt"] = all(sketch_digest(c) in held for c in chains)
+            dst._kv_fetch_fn = _tp_fetch_from(src)
+            st0 = dict(dst.engine.stats)
+            t0 = time.perf_counter()
+            adopted = dst.maybe_prefetch_kv(prompt + tail,
+                                            {"node_id": name, "pages": len(chains),
+                                             "page_size": ps})
+            fetch_s = time.perf_counter() - t0
+            got, start = on(dst, lambda: _tp_cached_logits(dst, prompt + tail))
+            own = on(dst, lambda: _tp_prefill_logits(dst, prompt + tail))
+            d = float((got - own).abs().max())
+            m = {"adopted": adopted, "cached": start,
+                 "restored": dst.engine.stats["kv_offload_restored"] - st0["kv_offload_restored"],
+                 "fetch_s": fetch_s, "bytes": adopted * r["page_bytes"],
+                 "max_abs_logit_diff": d, "logit_bound": logit_bound}
+            r["moves"][name] = m
+            log(f"[tp (e)] {card}: {name}: {adopted} pages ({m['bytes'] / 1e6:.1f} MB) fetched "
+                f"and adopted in {fetch_s:.2f} s, {m['restored']} restored, the adopter's "
+                f"logits over them vs its own whole prefill max|d| {d:.4e} (bound "
+                f"{logit_bound:.4e})")
+            assert adopted == len(chains) == m["restored"] and start == len(chains) * ps, m
+            assert d <= logit_bound, f"tp (e) {name}: adopted logits {d} beyond {logit_bound}"
+        for name, a, b in (("tp_prefills", par_b, one_b), ("tp1_prefills", one_b, par_b)):
+            prompt = rng.integers(1, V, handoff_tokens).tolist()
+            first = on(a, lambda: a.generate(tokens=prompt, max_new_tokens=4,
+                                             handoff_export=True))
+            desc = first["handoff"]
+            b._kv_fetch_fn = _tp_fetch_from(a)
+            done0 = b.engine.stats["kv_handoff_completed_total"]
+            pf0 = b.engine.stats["prefill_tokens"]
+            got = on(b, lambda: b.generate(
+                tokens=prompt, max_new_tokens=4, handoff=desc,
+                kv_peer={"node_id": name, "pages": desc["pages"], "page_size": ps,
+                         "handoff": desc["id"]}))
+            rule = _tp_first_token_rule(desc["t0"], on(a, lambda: _tp_prefill_logits(a, prompt)),
+                                        on(b, lambda: _tp_prefill_logits(b, prompt)))
+            h = {"live": b.engine.stats["kv_handoff_completed_total"] - done0,
+                 "prefilled": b.engine.stats["prefill_tokens"] - pf0,
+                 "first_token_kept": got["tokens"][0] == desc["t0"], **rule}
+            r["handoffs"][name] = h
+            log(f"[tp (e)] {card}: handoff {name}: live installs {h['live']}, decode-side "
+                f"prefill tokens {h['prefilled']}, first token {desc['t0']} kept "
+                f"{h['first_token_kept']}, the argmax of its logits {h['own_argmax']}, "
+                f"{h['gap']:.4e} below the other node's max (2 x |d| = "
+                f"{2 * h['row_max_abs_diff']:.4e})")
+            assert h["live"] == 1 and h["prefilled"] == 0 and h["first_token_kept"], h
+            assert h["own_argmax"] and h["near_max"], f"tp (e) {name}: first-token rule {h}"
+        log(f"[tp (e)] {card}: page_payload_spec equal {r['spec_equal']}, segs equal "
+            f"{r['segs_equal']} ({r['page_bytes']} bytes a page, every head), the TP node's "
+            f"sketch holds the prompt's digests {r['sketch_holds_prompt']}")
+        assert r["spec_equal"] and r["segs_equal"] and r["sketch_holds_prompt"], r
+        return r
+
+    # (f) a PNG prompt on both nodes
+    def media():
+        img = (rng.random((240, 320, 3)) * 255).astype(np.uint8)
+        png = base64.b64encode(media_codec.encode_png(img)).decode()
+        prompt = "describe <image> in a word:"
+        logits, first = {}, {}
+        for n, b in ((tp, par_b), (1, one_b)):
+            e = b.engine
+            row = np.zeros((e.ecfg.max_pages_per_seq,), np.int32)  # KV to the garbage page
+
+            def inject(b=b, e=e, row=row):
+                tokens, mm = b._fuse_media(prompt, [{"b64": png}], None)
+                return e._dense_prefill([tokens], [row], _host_embeds(mm))[0].float().cpu()
+
+            logits[n] = on(b, lambda: b._on_engine_thread(inject))
+            first[n] = on(b, lambda: b.generate(prompt=prompt, images=[{"b64": png}],
+                                                max_new_tokens=2)["tokens"][0])
+        d = float((logits[tp] - logits[1]).abs().max())
+        rule = _tp_first_token_rule(first[tp], logits[tp], logits[1])
+        r = {"max_abs_logit_diff": d, "logit_bound": logit_bound, "first_tokens": first,
+             **rule, "tp1_own_argmax": first[1] == int(logits[1].argmax())}
+        log(f"[tp (f)] {card}: PNG prompt: injected prefill logits TP={tp} vs TP=1 max|d| "
+            f"{d:.4e} (bound {logit_bound:.4e}); first tokens {first}, each its logits' argmax "
+            f"{r['own_argmax']}, {r['tp1_own_argmax']}; the TP first token {r['gap']:.4e} "
+            f"below the TP=1 max (2 x |d| = {2 * d:.4e})")
+        assert d <= logit_bound, f"tp (f): injected logits {d} beyond {logit_bound}"
+        assert r["own_argmax"] and r["tp1_own_argmax"] and r["near_max"], r
+        return r
+
+    counted("d", tier)
+    counted("e", cluster)
+    counted("f", media)
+    if on_card:
+        # prompts over one prefill chunk take the suffix path (tile) only;
+        # a media prompt prefills whole (dense)
+        need = {"d": TP_PATHS[:3], "e": TP_PATHS[:3], "f": TP_PATHS[:2] + TP_PATHS[3:]}
+        for name, kinds in need.items():
+            for rank, la in enumerate(out[name]["launches_tp"]):
+                missing = [k for k in kinds if not la.get(k)]
+                assert not missing, f"tp ({name}) rank {rank}: no launch of {missing}"
+    return out
+
+
 def phase_tp(results, seed: int, device: str = "cuda", model: str = "llama-3-8b",
              lengths=TP_LENGTHS, max_new: int = TP_NEW, pages: int = TP_PAGES,
              page_size: int = 16, max_pages: int = 128, logit_bound: float | None = None,
              tp: int = TP_DEGREE, backend: str = "gloo",
-             served_lp_tol: float = TP_SERVED_LP_TOL):
+             served_lp_tol: float = TP_SERVED_LP_TOL, tier_tokens: int = TP_TIER_TOKENS,
+             handoff_tokens: int = TP_HANDOFF_TOKENS, vision=None,
+             host_bytes: int = TP_HOST_BYTES):
     """(b) ``model`` at full width served tensor-parallel, ``tp`` ranks on
     the one card over gloo (NCCL refuses two ranks on one card; with
     ``backend="nccl"`` a card a rank, their decode graphs captured),
@@ -1741,7 +2109,12 @@ def phase_tp(results, seed: int, device: str = "cuda", model: str = "llama-3-8b"
     tensor-core tile, int8 projections through the int8-weight kernel), the
     device ms of each eager decode step and the collectives' count, bytes
     and host seconds — staged through the host by gloo, so not performance
-    figures. (c) Every worker exits 0, and this process holds no more than
+    figures. The bf16 pair also carries the shared-prefix cache's host
+    tier (``host_bytes``), a sketch of every indexed page and a vision tower
+    (``vision``; default CLIP ViT-L/14-336 geometry, ``MEDIA_VISION``) at the
+    same seed, and stays up for ``_tp_tiers`` (d) the host tier, (e) the
+    cluster tier and two-phase handoff between the two nodes, (f) a PNG
+    prompt. (c) Every worker exits 0, and this process holds no more than
     ``TP_MEMORY_SLACK`` above what it held before."""
     import numpy as np
     import torch
@@ -1752,6 +2125,11 @@ def phase_tp(results, seed: int, device: str = "cuda", model: str = "llama-3-8b"
     on_card = torch.device(device).type == "cuda"
     if logit_bound is None:
         logit_bound = results["forward"]["tol_bf16"]
+    if vision is None:
+        from agentfield_tpu_torch.models.vision import VisionConfig
+
+        vision = VisionConfig(**MEDIA_VISION)
+    tp_vision = vision
     t_phase = time.perf_counter()
     cfg = get_config(model)
     rng = np.random.default_rng(seed)
@@ -1767,111 +2145,129 @@ def phase_tp(results, seed: int, device: str = "cuda", model: str = "llama-3-8b"
     card = smi_line() if on_card else "cpu"
     for mode, quant in (("bf16", None), ("int8", "int8")):
         # the TP node first: both nodes are then teacher-forced through its
-        # answers, so it prefills the prompts once more, not twice
-        par = _tp_serve(model, seed, ecfg, device, quant, tp, prompts, max_new, backend)
-        one = _tp_serve(model, seed, ecfg, device, quant, 1, prompts, max_new, backend,
-                        forced=par["tokens"])
-        runs = {1: one, tp: par}
-        step_diff = (par["forced"] - one["forced"]).abs().amax(dim=-1)  # [B, 1 + n]
-        row_diff = step_diff[:, 0]
-        diff, decode_diff = float(row_diff.max()), float(step_diff[:, 1:].max())
-        served_lp = {n: _served_logprob_diff(run) for n, run in runs.items()}
-        top2 = one["forced"][:, 0].topk(2, dim=-1).values
-        margin = (top2[:, 0] - top2[:, 1]).tolist()
-        checked = [i for i, m in enumerate(margin) if m > 2 * float(row_diff[i])]
-        first_equal = all(par["tokens"][i][0] == one["tokens"][i][0] for i in checked)
-        # at every prompt: the TP node's first token (its prefill logits'
-        # argmax) is within 2 x the row's |d| of the TP=1 logits' max, as
-        # rounding alone allows; where the margin is clear that is the argmax
-        first = one["forced"][:, 0].float().cpu()
-        tp_first = torch.tensor([t[0] for t in par["tokens"]])[:, None]
-        gap = (first.amax(dim=-1) - first.gather(-1, tp_first)[:, 0]).tolist()
-        near = [g <= 2 * float(row_diff[i]) for i, g in enumerate(gap)]
-        own_argmax = {n: sum(run["tokens"][i][0] == int(run["own_forced"][i, 0].argmax())
-                             for i in range(len(prompts))) for n, run in runs.items()}
-        seq_equal = sum(a == b for a, b in zip(par["tokens"], one["tokens"]))
-        ranks = []
-        for rep in par["reports"]:
-            la = rep["launches"]
-            ranks.append({
-                "rank": rep["rank"], "weight_bytes": rep["weight_bytes"], "launches": la,
-                "step_ms_mean": statistics.fmean(rep["step_ms"]) if rep["step_ms"] else None,
-                "steps": len(rep["step_ms"]), "collectives": rep["collectives"]})
-            for k, n in la.items():
-                out["launches"][k] = out["launches"].get(k, 0) + n
-        r = {
-            "prompts": len(prompts), "answered": sum(len(t) == max_new for t in par["tokens"]),
-            "max_abs_logit_diff": diff, "logit_bound": logit_bound,
-            "decode_steps_forced": int(step_diff.shape[1]) - 1,
-            "decode_max_abs_logit_diff": decode_diff,
-            "step_max_abs_diff": step_diff.amax(dim=0).tolist(),
-            "served_logprob_diff": served_lp, "served_logprob_bound": served_lp_tol,
-            "forced_s": {1: one["forced_s"], tp: par["forced_s"]},
-            "top2_margins": margin, "row_max_abs_diff": row_diff.tolist(),
-            "first_tokens_checked": checked, "first_tokens_equal": first_equal,
-            "tp_first_token_gap": gap, "tp_first_token_near_max": sum(near),
-            "first_tokens": {n: [t[0] for t in run["tokens"]] for n, run in runs.items()},
-            "first_token_is_argmax": own_argmax, "sequences_equal": seq_equal,
-            "tokens_equal": seq_equal == len(prompts),
-            "ranks": ranks, "exitcodes": par["exitcodes"],
-            "tp": tp, "backend": backend,
-            "build_s": {1: one["build_s"], tp: par["build_s"]},
-            "serve_s": {1: one["serve_s"], tp: par["serve_s"]},
-            "tp1_decode_step_ms_replayed": (statistics.fmean(one["decode_step_ms_replayed"])
-                                            if one["decode_step_ms_replayed"] else None),
-            "graph_stats": par["graph_stats"],
-        }
-        out[mode] = r
-        log(f"[tp {mode}] {card}: {model} TP={tp} over {backend} vs TP=1: "
-            f"{r['answered']}/{len(prompts)} prompts answered ({max_new} tokens each); "
-            f"first-step logits max|d| {diff:.4e}, teacher-forced decode logits over "
-            f"{r['decode_steps_forced']} steps max|d| {decode_diff:.4e} (bound "
-            f"{logit_bound:.4e}); served logprobs vs own forced logits max|d| (TP=1, TP={tp}) "
-            f"{served_lp[1]:.4e}, {served_lp[tp]:.4e} (bound {served_lp_tol:.1e}); "
-            f"forced in {one['forced_s']:.1f} s / {par['forced_s']:.1f} s; TP={tp} first token "
-            f"within 2 x the row's |d| of the TP=1 max logit at {sum(near)}/{len(prompts)} "
-            f"prompts (gaps {[float(f'{g:.4g}') for g in gap]}); served first tokens equal at "
-            f"the {len(checked)} prompts whose TP=1 top-2 margin exceeds 2 x the row's |d|: "
-            f"{first_equal}; served first token = argmax of its logits (TP=1, TP="
-            f"{tp}) {own_argmax[1]}, {own_argmax[tp]} of {len(prompts)}; whole "
-            f"sequences equal {seq_equal}/{len(prompts)}; built in "
-            f"{one['build_s']:.1f} s / {par['build_s']:.1f} s, served in {one['serve_s']:.1f} s / "
-            f"{par['serve_s']:.1f} s; decode {par['graph_stats'].get('eager', 'replayed')} "
-            f"(graphs {par['graph_stats']['graphs_captured']}, replays "
-            f"{sum(par['graph_stats']['replays'].values())})")
-        for rk in ranks:
-            la = rk["launches"]
-            paths = {k: la[k] for k in ("ragged_decode_split", "ragged_decode_combine",
-                                        "ragged_tiles_tc", "dense_causal_attention",
-                                        "int8_weight_matmul")}
-            c = rk["collectives"]
-            step = "n/a" if rk["step_ms_mean"] is None else f"{rk['step_ms_mean']:.2f}"
-            how = ("eager; staged through the host by gloo, not performance figures"
-                   if backend == "gloo" else "replayed from graphs after each key's capture; "
-                   "collectives counted where Python issued them, not on replays")
-            log(f"[tp {mode}] rank {rk['rank']}: weights {rk['weight_bytes']} bytes; launches "
-                f"{paths}; decode step {step} device ms (mean of {rk['steps']}; TP=1 "
-                f"replayed {r['tp1_decode_step_ms_replayed']}); collectives {c.get('calls')} "
-                f"calls, {c.get('bytes')} bytes, {c.get('host_s', 0.0):.2f} host s ({how})")
-            if on_card:
-                need = ["ragged_decode_split", "ragged_decode_combine", "ragged_tiles_tc",
-                        "dense_causal_attention"] + (["int8_weight_matmul"] if quant else [])
-                missing = [k for k in need if not la.get(k)]
-                assert not missing, f"tp {mode} rank {rk['rank']}: no launch of {missing}"
-        assert r["answered"] == len(prompts), f"tp {mode}: not every prompt answered"
-        assert diff <= logit_bound, f"tp {mode}: logits {diff} beyond {logit_bound}"
-        assert decode_diff <= logit_bound, (
-            f"tp {mode}: teacher-forced decode logits {decode_diff} beyond {logit_bound}")
-        assert max(served_lp.values()) <= served_lp_tol, (
-            f"tp {mode}: served logprobs {served_lp} beyond {served_lp_tol}")
-        assert own_argmax == {n: len(prompts) for n in runs}, (
-            f"tp {mode}: served first tokens that are not their logits' argmax {own_argmax}")
-        assert all(near), (
-            f"tp {mode}: a TP={tp} first token further below the TP=1 max logit than "
-            f"rounding allows: gaps {gap}, rows' |d| {row_diff.tolist()}")
-        assert first_equal, f"tp {mode}: a first token differs where the margin is clear"
+        # answers, so it prefills the prompts once more, not twice. The bf16
+        # pair stays up for (d)-(f): the host tier, the sketch and a vision
+        # tower on both
+        keep = quant is None
+        node_ecfg = ecfg if not keep else dataclasses.replace(
+            ecfg, host_cache_bytes=host_bytes, prefix_sketch_bytes=TP_SKETCH_BYTES)
+        node_vision = tp_vision if keep else None
+        par = _tp_serve(model, seed, node_ecfg, device, quant, tp, prompts, max_new, backend,
+                        keep=keep, vision=node_vision)
+        runs = {tp: par}
+        try:
+            one = _tp_serve(model, seed, node_ecfg, device, quant, 1, prompts, max_new,
+                            backend, forced=par["tokens"], keep=keep, vision=node_vision)
+            runs = {1: one, tp: par}
+            step_diff = (par["forced"] - one["forced"]).abs().amax(dim=-1)  # [B, 1 + n]
+            row_diff = step_diff[:, 0]
+            diff, decode_diff = float(row_diff.max()), float(step_diff[:, 1:].max())
+            served_lp = {n: _served_logprob_diff(run) for n, run in runs.items()}
+            top2 = one["forced"][:, 0].topk(2, dim=-1).values
+            margin = (top2[:, 0] - top2[:, 1]).tolist()
+            checked = [i for i, m in enumerate(margin) if m > 2 * float(row_diff[i])]
+            first_equal = all(par["tokens"][i][0] == one["tokens"][i][0] for i in checked)
+            # at every prompt: the TP node's first token (its prefill logits'
+            # argmax) is within 2 x the row's |d| of the TP=1 logits' max, as
+            # rounding alone allows; where the margin is clear that is the argmax
+            first = one["forced"][:, 0].float().cpu()
+            tp_first = torch.tensor([t[0] for t in par["tokens"]])[:, None]
+            gap = (first.amax(dim=-1) - first.gather(-1, tp_first)[:, 0]).tolist()
+            near = [g <= 2 * float(row_diff[i]) for i, g in enumerate(gap)]
+            own_argmax = {n: sum(run["tokens"][i][0] == int(run["own_forced"][i, 0].argmax())
+                                 for i in range(len(prompts))) for n, run in runs.items()}
+            seq_equal = sum(a == b for a, b in zip(par["tokens"], one["tokens"]))
+            ranks = []
+            for rep in par["reports"]:
+                la = rep["launches"]
+                ranks.append({
+                    "rank": rep["rank"], "weight_bytes": rep["weight_bytes"], "launches": la,
+                    "step_ms_mean": statistics.fmean(rep["step_ms"]) if rep["step_ms"] else None,
+                    "steps": len(rep["step_ms"]), "collectives": rep["collectives"]})
+                for k, n in la.items():
+                    out["launches"][k] = out["launches"].get(k, 0) + n
+            r = {
+                "prompts": len(prompts), "answered": sum(len(t) == max_new for t in par["tokens"]),
+                "max_abs_logit_diff": diff, "logit_bound": logit_bound,
+                "decode_steps_forced": int(step_diff.shape[1]) - 1,
+                "decode_max_abs_logit_diff": decode_diff,
+                "step_max_abs_diff": step_diff.amax(dim=0).tolist(),
+                "served_logprob_diff": served_lp, "served_logprob_bound": served_lp_tol,
+                "forced_s": {1: one["forced_s"], tp: par["forced_s"]},
+                "top2_margins": margin, "row_max_abs_diff": row_diff.tolist(),
+                "first_tokens_checked": checked, "first_tokens_equal": first_equal,
+                "tp_first_token_gap": gap, "tp_first_token_near_max": sum(near),
+                "first_tokens": {n: [t[0] for t in run["tokens"]] for n, run in runs.items()},
+                "first_token_is_argmax": own_argmax, "sequences_equal": seq_equal,
+                "tokens_equal": seq_equal == len(prompts),
+                "ranks": ranks,
+                "tp": tp, "backend": backend,
+                "build_s": {1: one["build_s"], tp: par["build_s"]},
+                "serve_s": {1: one["serve_s"], tp: par["serve_s"]},
+                "tp1_decode_step_ms_replayed": (statistics.fmean(one["decode_step_ms_replayed"])
+                                                if one["decode_step_ms_replayed"] else None),
+                "graph_stats": par["graph_stats"],
+            }
+            out[mode] = r
+            log(f"[tp {mode}] {card}: {model} TP={tp} over {backend} vs TP=1: "
+                f"{r['answered']}/{len(prompts)} prompts answered ({max_new} tokens each); "
+                f"first-step logits max|d| {diff:.4e}, teacher-forced decode logits over "
+                f"{r['decode_steps_forced']} steps max|d| {decode_diff:.4e} (bound "
+                f"{logit_bound:.4e}); served logprobs vs own forced logits max|d| (TP=1, TP={tp}) "
+                f"{served_lp[1]:.4e}, {served_lp[tp]:.4e} (bound {served_lp_tol:.1e}); "
+                f"forced in {one['forced_s']:.1f} s / {par['forced_s']:.1f} s; TP={tp} first token "
+                f"within 2 x the row's |d| of the TP=1 max logit at {sum(near)}/{len(prompts)} "
+                f"prompts (gaps {[float(f'{g:.4g}') for g in gap]}); served first tokens equal at "
+                f"the {len(checked)} prompts whose TP=1 top-2 margin exceeds 2 x the row's |d|: "
+                f"{first_equal}; served first token = argmax of its logits (TP=1, TP="
+                f"{tp}) {own_argmax[1]}, {own_argmax[tp]} of {len(prompts)}; whole "
+                f"sequences equal {seq_equal}/{len(prompts)}; built in "
+                f"{one['build_s']:.1f} s / {par['build_s']:.1f} s, served in {one['serve_s']:.1f} s / "
+                f"{par['serve_s']:.1f} s; decode {par['graph_stats'].get('eager', 'replayed')} "
+                f"(graphs {par['graph_stats']['graphs_captured']}, replays "
+                f"{sum(par['graph_stats']['replays'].values())})")
+            for rk in ranks:
+                la = rk["launches"]
+                paths = {k: la[k] for k in ("ragged_decode_split", "ragged_decode_combine",
+                                            "ragged_tiles_tc", "dense_causal_attention",
+                                            "int8_weight_matmul")}
+                c = rk["collectives"]
+                step = "n/a" if rk["step_ms_mean"] is None else f"{rk['step_ms_mean']:.2f}"
+                how = ("eager; staged through the host by gloo, not performance figures"
+                       if backend == "gloo" else "replayed from graphs after each key's capture; "
+                       "collectives counted where Python issued them, not on replays")
+                log(f"[tp {mode}] rank {rk['rank']}: weights {rk['weight_bytes']} bytes; launches "
+                    f"{paths}; decode step {step} device ms (mean of {rk['steps']}; TP=1 "
+                    f"replayed {r['tp1_decode_step_ms_replayed']}); collectives {c.get('calls')} "
+                    f"calls, {c.get('bytes')} bytes, {c.get('host_s', 0.0):.2f} host s ({how})")
+                if on_card:
+                    need = ["ragged_decode_split", "ragged_decode_combine", "ragged_tiles_tc",
+                            "dense_causal_attention"] + (["int8_weight_matmul"] if quant else [])
+                    missing = [k for k in need if not la.get(k)]
+                    assert not missing, f"tp {mode} rank {rk['rank']}: no launch of {missing}"
+            assert r["answered"] == len(prompts), f"tp {mode}: not every prompt answered"
+            assert diff <= logit_bound, f"tp {mode}: logits {diff} beyond {logit_bound}"
+            assert decode_diff <= logit_bound, (
+                f"tp {mode}: teacher-forced decode logits {decode_diff} beyond {logit_bound}")
+            assert max(served_lp.values()) <= served_lp_tol, (
+                f"tp {mode}: served logprobs {served_lp} beyond {served_lp_tol}")
+            assert own_argmax == {n: len(prompts) for n in runs}, (
+                f"tp {mode}: served first tokens that are not their logits' argmax {own_argmax}")
+            assert all(near), (
+                f"tp {mode}: a TP={tp} first token further below the TP=1 max logit than "
+                f"rounding allows: gaps {gap}, rows' |d| {row_diff.tolist()}")
+            assert first_equal, f"tp {mode}: a first token differs where the margin is clear"
+            if keep:
+                r["tiers"] = _tp_tiers(par["node"][1], one["node"][1], seed, logit_bound,
+                                       tier_tokens, handoff_tokens, card, on_card)
+                for k, n in r["tiers"]["launches"].items():
+                    out["launches"][k] = out["launches"].get(k, 0) + n
+        finally:
+            _tp_stop_all(runs.values(), device)
+        r["exitcodes"] = par["exitcodes"]
         assert par["exitcodes"] == [0] * (tp - 1), f"tp {mode}: {par['exitcodes']}"
     if on_card:
+        gc.collect()
         release_cublas_workspaces()
         torch.cuda.synchronize()
         left = torch.cuda.memory_allocated() - held_before

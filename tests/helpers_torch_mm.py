@@ -74,15 +74,16 @@ def tower(kind: str, name: str, **over):
     return (jcfg, jp), (pcfg, tower_params_from_numpy(tree, pcfg, device="cpu"))
 
 
-def jax_calls(weights, ecfg: dict, calls: list[dict], **towers) -> list:
+def jax_calls(weights, ecfg: dict, calls: list[dict], mesh=None, **towers) -> list:
     """Each call's result (or the exception it raised) from the JAX node's
-    ``generate``, one backend for the list; ``towers`` are (cfg, params)."""
+    ``generate``, one backend for the list (on ``mesh``, a JAX mesh, when
+    given: the JAX node's ``tp``); ``towers`` are (cfg, params)."""
     jcfg, tree, _ = weights
 
     async def main():
         b = jax_node.ModelBackend(tree, jcfg, jax_node.EngineConfig(**ecfg),
                                   tokenizer=jax_node.ByteTokenizer(V), idle_sleep=0.001,
-                                  **towers)
+                                  mesh=mesh, **towers)
         await b.start()
         out = []
         try:

@@ -349,34 +349,22 @@ def _coord_engine(name="llama-tiny", cut=True, **over):
 def test_what_a_mesh_refuses():
     """Every engine feature this slice does not port raises
     NotImplementedError naming its ROADMAP item, before any weight is cut
-    or any request runs single-rank."""
+    or any request runs single-rank. (The host tier, the cluster tier,
+    handoff, the sketch and media prompts run under a mesh:
+    ``tests/test_torch_tp_tiers.py``.)"""
     with pytest.raises(NotImplementedError, match="A5: EP and Mixtral"):
         _coord_engine("mixtral-tiny", cut=False)
     with pytest.raises(ValueError, match=r"param embed: shape \(512, 128\) is not one rank's"):
         _coord_engine(cut=False)  # the engine takes a rank's slice, never a whole tree
-    with pytest.raises(NotImplementedError, match="A5: host tier, cluster and handoff"):
-        _coord_engine(host_cache_bytes=1 << 20)
     with pytest.raises(ValueError, match="does not divide num_kv_heads"):
         InferenceEngine(llama.init_params(get_config("llama-tiny"), device="cpu"),
                         get_config("llama-tiny"), EngineConfig(**ECFG),
                         mesh=tmesh.make_mesh({"model": 4}, 0))
     eng = _coord_engine()
     assert eng.cache.k_pages.shape[2] == 1 and eng.params["embed"].shape[0] == 256
-    with pytest.raises(NotImplementedError, match="A5: media towers"):
-        eng.submit(Request(id="mm", prompt=[1] * 4, mm_embeds=[(0, np.zeros((2, 128)))]))
-    with pytest.raises(NotImplementedError, match="A5: host tier"):
-        eng.submit(Request(id="h", prompt=[1, 2], handoff_export=True))
-    with pytest.raises(NotImplementedError, match="A5: host tier"):
-        eng.adopt_kv_pages([])
-    with pytest.raises(NotImplementedError, match="A5: host tier"):
-        eng.export_kv_pages([])
-    assert eng.prefix_sketch() is None
     with pytest.raises(NotImplementedError, match="A5: ring attention"):
         llama.forward(eng.params, eng.cfg, torch.zeros((1, 4), dtype=torch.long),
                       torch.arange(4)[None], attn_impl="ring", mesh=eng.mesh)
-    with pytest.raises(NotImplementedError, match="A5: media towers"):
-        build_model_node("llama-tiny", device="cpu", tp=2, tp_backend="gloo",
-                         vision="vit-tiny")
     with pytest.raises(NotImplementedError, match="A5: the trainer's mesh pieces"):
         build_model_node("llama-tiny", device="cpu", tp=2, tp_backend="gloo", lora="/x")
 
@@ -437,9 +425,21 @@ def test_phase_tp_rehearsed_on_the_cpu():
     """``chip_smoke.phase_tp`` end to end at llama-tiny size on the CPU
     (``TP_REHEARSAL``): the TP=2 node in f32 and int8 against the TP=1
     node, prefill and teacher-forced decode logits and served logprobs
-    within their bounds, every worker joined."""
+    within their bounds, every worker joined; on the f32 pair (d) the host
+    tier, (e) pages and handoffs both ways, (f) a PNG prompt."""
     results: dict = {}
     chip_smoke.phase_tp(results, 0, device="cpu", **chip_smoke.TP_REHEARSAL)
+    t = results["tp"]["bf16"]["tiers"]
+    d, e, f = t["d"], t["e"], t["f"]
+    assert d["tokens_equal"] and d["slices_equal"] == [True, True]
+    assert d["pages_demoted"] == d["pages_restored"] == d["all_host"] > 0
+    assert e["spec_equal"] and e["segs_equal"] and e["sketch_holds_prompt"]
+    for m in e["moves"].values():
+        assert m["adopted"] == m["restored"] > 0
+        assert m["max_abs_logit_diff"] <= m["logit_bound"]
+    for h in e["handoffs"].values():
+        assert h["live"] == 1 and h["prefilled"] == 0 and h["first_token_kept"]
+    assert f["max_abs_logit_diff"] <= f["logit_bound"] and f["near_max"]
     for mode in ("bf16", "int8"):
         r = results["tp"][mode]
         assert r["answered"] == r["prompts"] and r["tokens_equal"]
